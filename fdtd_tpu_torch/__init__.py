@@ -1,0 +1,28 @@
+"""fdtd_tpu_torch: the FDTD microwave-oven solver on PyTorch and CUDA.
+
+A port of :mod:`fdtd_tpu` (JAX/Pallas, kept beside it as the reference) to
+an NVIDIA H100.  It imports neither JAX nor :mod:`fdtd_tpu`.  The vacuum
+cavity's main path is ported: the ``params.txt`` parser, the Yee leapfrog
+step with the TE10 port source and the TE101 validation seed, snapshots,
+energy logs, checkpoints and the CLI (``python -m fdtd_tpu_torch
+params.txt``).  The H and E half-steps run as hand-written CUDA kernels for
+Hopper (``csrc/yee_twopass.cu``, built with nvcc at first use) on CUDA
+tensors, and as plain torch slice arithmetic on CPU tensors.
+"""
+
+from .params import Mode, Params, SourceConfig, load_parameters, num_steps, parse_params_text, time_values
+from .state import FieldState, init_validation, update_coefs, zeros
+
+__all__ = [
+    "FieldState",
+    "Mode",
+    "Params",
+    "SourceConfig",
+    "init_validation",
+    "load_parameters",
+    "num_steps",
+    "parse_params_text",
+    "time_values",
+    "update_coefs",
+    "zeros",
+]

@@ -1,0 +1,50 @@
+"""Carry scenes and states across from the JAX package.
+
+The port cannot import :mod:`fdtd_tpu` (it imports JAX), so the exchange
+format is plain data: a state is a dict of six numpy arrays in the canonical
+padded (k, j, i) layout, keyed ``ex ey ez hx hy hz`` (what
+``{c: np.asarray(getattr(s, c)) for c in COMPONENTS}`` gives for a JAX
+``FieldState``), and a scene is read from the fields of any object shaped
+like the JAX ``Params``.  The tests use this to feed both packages the same
+inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .grid import COMPONENTS
+from .io.checkpoint import from_host, to_host
+from .params import Mode, Params, SourceConfig
+from .state import FieldState
+
+_PARAM_FIELDS = ("length", "width", "height", "spatial_step", "time_step",
+                 "simulation_time", "sampling_rate")
+_SOURCE_FIELDS = ("frequency", "aprime", "bprime", "envelope", "pulse_width", "pulse_delay")
+
+
+def params_from(other) -> Params:
+    """The port's ``Params`` with the field values of ``other`` (a JAX
+    ``fdtd_tpu.params.Params`` or anything with the same attributes)."""
+    src = other.source
+    return Params(
+        **{name: getattr(other, name) for name in _PARAM_FIELDS},
+        mode=Mode(int(other.mode)),
+        dtype=str(other.dtype),
+        source=SourceConfig(**{name: getattr(src, name) for name in _SOURCE_FIELDS}),
+    )
+
+
+def state_from_numpy(arrays: dict[str, np.ndarray], device, dtype: torch.dtype) -> FieldState:
+    """A ``FieldState`` on ``device`` in ``dtype`` from six numpy arrays.
+
+    The tensors are copies: the port updates them in place, and a view would
+    write through to the caller's arrays (and to any JAX array sharing
+    their memory)."""
+    return FieldState(*(from_host(arrays[c], dtype, device) for c in COMPONENTS))
+
+
+def state_to_numpy(s: FieldState) -> dict[str, np.ndarray]:
+    """The six fields as host numpy arrays (bfloat16 widened to float32)."""
+    return {c: to_host(getattr(s, c)) for c in COMPONENTS}

@@ -1,0 +1,222 @@
+"""Simulation orchestration: backend choice, snapshot cadence, diagnostics,
+checkpoints.
+
+Replicates the reference program's observable behaviour (reference:
+propagate_fields, main.c:755-799): a snapshot at iteration 1 before the
+loop, then one after every step whose 1-based index is a multiple of
+``sampling_rate`` (rate 2 gives files 0001, 0002, 0004, ...).  The steps
+between two boundaries run as one chunk that only enqueues device work; the
+host waits on the device only at snapshot, log and checkpoint boundaries.
+
+Only the vacuum cavity is ported: materials, SAR accumulation, sharding,
+CPML, DFT monitors and probes raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import time
+from typing import Callable
+
+import torch
+
+from . import diagnostics
+from .io.checkpoint import CheckpointWriter, latest_checkpoint, load_checkpoint
+from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
+from .params import Mode, Params, time_values
+from .state import FieldState, Materials, init_validation, zeros
+from .step import make_chunk_runner, scan_inputs
+
+BACKEND_CHOICES = ("auto", "torch", "twopass")
+
+# feature -> the ROADMAP item that ports it
+_NOT_PORTED = {
+    "materials": "ROADMAP queue 1 item 5 (materials and heating)",
+    "accumulate_power": "ROADMAP queue 1 item 5 (materials and heating: SAR)",
+    "pml": "ROADMAP queue 1 item 7 (CPML open boundary)",
+    "dft": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
+    "probes": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
+    "shard": "ROADMAP queue 1 item 11 (spatial sharding)",
+}
+
+
+@dataclasses.dataclass
+class RunResult:
+    state: FieldState
+    iterations: int
+    wall_seconds: float
+    mcells_per_s: float
+    power_j: torch.Tensor | None = None
+    warnings: list[str] = dataclasses.field(default_factory=list)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA is an
+    error that points at ``--device cpu`` (never a silent move to the host)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this machine; pass --device cpu "
+            "(device='cpu') to run the plain torch path on the host"
+        )
+    return dev
+
+
+def resolve_backend(p: Params, backend: str, device) -> str:
+    """Resolve ``auto`` and refuse combinations the kernels do not run.
+
+    ``auto`` runs ``twopass`` (the Hopper kernels) on a CUDA device in
+    float32 or bfloat16, and ``torch`` for float64 or on the CPU.  An
+    explicit ``twopass`` on the CPU or in float64 raises ``ValueError``.
+    """
+    dev = torch.device(device)
+    if backend not in BACKEND_CHOICES:
+        raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
+    kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
+    if backend == "auto":
+        return "twopass" if kernels_ok else "torch"
+    if backend == "twopass" and not kernels_ok:
+        raise ValueError(
+            f"the twopass kernels run on a CUDA device in float32 or bfloat16 "
+            f"(got device {dev}, dtype {p.dtype}); use --backend torch"
+        )
+    return backend
+
+
+def initial_state(p: Params, device) -> FieldState:
+    return init_validation(p, device) if p.mode == Mode.VALIDATION else zeros(p, device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_simulation(
+    p: Params,
+    device,
+    out_dir: str = "r",
+    materials: Materials | None = None,
+    backend: str = "auto",
+    write_snapshots: bool = True,
+    accumulate_power: bool = False,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    quirk_compat: bool = True,
+    log: Callable[[str], None] = print,
+    diagnostics_log: str | None = None,
+    shard: str | None = None,
+    pml=None,
+    dft=None,
+    probes=None,
+) -> RunResult:
+    """Run the scene ``p`` on ``device`` and write its outputs to ``out_dir``."""
+    requested = {
+        "materials": materials is not None and not materials.is_vacuum,
+        "accumulate_power": accumulate_power,
+        "pml": pml is not None,
+        "dft": dft is not None,
+        "probes": probes is not None,
+        "shard": shard is not None,
+    }
+    for name, on in requested.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    p.validate()
+    dev = resolve_device(device)
+    backend = resolve_backend(p, backend, dev)
+    ts = time_values(p)
+    xs_t, xs_a = scan_inputs(p, ts)
+    warnings: list[str] = []
+
+    def warn(msg: str) -> None:
+        warnings.append(msg)
+        log(f"WARNING: {msg}")
+
+    if p.dtype == "bfloat16" and (p.mode == Mode.VALIDATION or len(ts) > 2000):
+        warn(
+            "bfloat16 field storage accumulates leapfrog round-off over long "
+            "runs; use float32 for validation/accuracy runs"
+        )
+
+    run_chunk = make_chunk_runner(p, dev, backend=backend)
+    state = initial_state(p, dev)
+    start_step = 0
+    if resume:
+        ck = latest_checkpoint(out_dir)
+        if ck:
+            state, start_step, _t, _power = load_checkpoint(ck, p, dev)
+
+    ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
+    writer = SnapshotWriter(p, out_dir) if write_snapshots else None
+    diag_f = open(diagnostics_log, "a") if diagnostics_log else None
+
+    def snapshot(s: FieldState, iteration: int, t: float) -> None:
+        if writer is None:
+            return
+        variables = aggregate_all(p, s)
+        if p.mode == Mode.VALIDATION:
+            variables.update(validation_extras(p, s, t, quirk_compat=quirk_compat))
+        writer.submit(variables, iteration, t)
+
+    def log_diag(s: FieldState, iteration: int, t: float) -> None:
+        if diag_f is None:
+            return
+        e, h = float(diagnostics.e_energy(p, s)), float(diagnostics.h_energy(p, s))
+        rec = {"iteration": iteration, "t": t, "E_energy": e, "H_energy": h, "total": e + h}
+        diag_f.write(json.dumps(rec) + "\n")
+        # a CFL-unstable or NaN run stops at the next sample instead of
+        # burning the rest of the schedule
+        if not math.isfinite(e + h):
+            diag_f.flush()
+            raise RuntimeError(
+                f"simulation diverged (non-finite energy) at iteration {iteration}; "
+                f"snapshots written so far are in {out_dir!r}"
+            )
+
+    n = len(ts)
+    rate = max(1, p.sampling_rate)
+    try:
+        if start_step == 0:
+            # initial snapshot at iteration 1 (reference: main.c:758-764)
+            snapshot(state, 1, 0.0)
+            log_diag(state, 0, 0.0)
+
+        _sync(dev)
+        t0 = time.perf_counter()
+        pos = start_step
+
+        def next_mult(x, m):
+            return ((x // m) + 1) * m
+
+        while pos < n:
+            # next boundary: the smallest multiple of the sampling rate (or
+            # of the checkpoint interval) past pos, in 1-based steps
+            boundary = next_mult(pos, rate)
+            if checkpoint_every:
+                boundary = min(boundary, next_mult(pos, checkpoint_every))
+            end = min(boundary, n)
+            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]))
+            pos = end
+            t_now = float(ts[pos - 1])
+            if pos % rate == 0:
+                snapshot(state, pos, t_now)
+                log_diag(state, pos, t_now)
+            if checkpoint_every and pos % checkpoint_every == 0:
+                ckpt_writer.submit(state, pos, t_now)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        if ckpt_writer is not None:
+            ckpt_writer.close()
+        if writer is not None:
+            writer.close()
+        if diag_f is not None:
+            diag_f.close()
+
+    steps_done = n - start_step
+    mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
+    return RunResult(state, n, wall, mcells, None, warnings)
