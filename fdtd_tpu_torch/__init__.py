@@ -5,9 +5,10 @@ an NVIDIA H100.  It imports neither JAX nor :mod:`fdtd_tpu`.  The vacuum
 cavity's main path is ported: the ``params.txt`` parser, the Yee leapfrog
 step with the TE10 port source and the TE101 validation seed, snapshots,
 energy logs, checkpoints and the CLI (``python -m fdtd_tpu_torch
-params.txt``).  The H and E half-steps run as hand-written CUDA kernels for
-Hopper (``csrc/yee_twopass.cu``, built with nvcc at first use) on CUDA
-tensors, and as plain torch slice arithmetic on CPU tensors.
+params.txt``).  The Yee update runs as hand-written CUDA kernels for
+Hopper on CUDA tensors (``csrc/yee_stream.cu``, s steps a launch, and
+``csrc/yee_twopass.cu``, the H and E half-steps; built with nvcc at first
+use), and as plain torch slice arithmetic on CPU tensors.
 """
 
 from .params import Mode, Params, SourceConfig, load_parameters, num_steps, parse_params_text, time_values

@@ -27,8 +27,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="r", help="output directory (default: r, like the reference)")
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64", "bfloat16"])
     ap.add_argument("--backend", default="auto", choices=list(BACKEND_CHOICES),
-                    help="update path: twopass (Hopper kernels), torch (plain ops), or auto "
-                         "(twopass on CUDA in float32/bfloat16, else torch)")
+                    help="update path: stream (Hopper streaming kernel, s steps a launch), "
+                         "twopass (Hopper two-pass kernels), torch (plain ops), or auto "
+                         "(stream on CUDA in float32/bfloat16 when a sweep plan fits, "
+                         "else twopass; torch on the CPU or in float64)")
     ap.add_argument("--device", default="cuda", help="torch device of the fields (default: cuda)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
     ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N", help="checkpoint every N steps")
@@ -98,7 +100,7 @@ def main(argv=None) -> int:
             diagnostics_log=args.diag_log,
         )
     except (RuntimeError, ValueError) as e:
-        # no CUDA for --device cuda, twopass on the CPU or in float64, a bad
+        # no CUDA for --device cuda, twopass/stream on the CPU or in float64, a bad
         # device string, a diverged run
         print(f"error: {e}", file=sys.stderr)
         return 1

@@ -1,2 +1,3 @@
-"""Update operators: plain torch versions (``curl``) and the Hopper kernels
-(``yee``, built by ``build``)."""
+"""Update operators: plain torch versions (``curl``, ``stream.plain_sweep``)
+and the Hopper kernels (``yee``, two-pass; ``stream``, the s-step sweep
+planned by ``stream_plan``; built by ``build``)."""

@@ -1,0 +1,159 @@
+"""Wrapper of the streaming sweep kernel (``csrc/yee_stream.cu``).
+
+:func:`sweep` replaces the TPU kernel
+``fdtd_tpu/ops/pallas_stream.py::_kernel`` (vacuum, single device): one
+launch advances the state by ``plan.s`` leapfrog steps.  It reads
+``state`` and writes ``out``, a second state of the same shape (blocks run
+concurrently, so the sweep cannot work in place).  On CUDA tensors it
+launches the kernel on the current stream and allocates nothing; it raises
+on anything the kernel does not take.  On CPU tensors, and only there, it
+runs :func:`plain_sweep`.
+
+Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
+before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
+
+``launches`` counts kernel launches; plain-version calls do not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from ..params import Params
+from ..state import FieldState, UpdateCoefs
+from . import build, curl
+from .stream_plan import StreamPlan
+
+KERNEL_SOURCE = "yee_stream"
+launches = {"yee_stream": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_bound: ctypes.CDLL | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepDrive:
+    """The source of steps 2..s of one sweep: ``patch`` = (j0, j1, i0, i1)
+    of the k=0 rectangle, and the Ez and Hx rows, each (s - 1, i1 - i0) in
+    the storage dtype (Ex and Hz are set to zero there)."""
+
+    patch: tuple[int, int, int, int]
+    ez_rows: torch.Tensor
+    hx_rows: torch.Tensor
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    if _bound is None:
+        lib = build.load(KERNEL_SOURCE)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.yee_stream_sweep.argtypes = (
+            [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr, ptr, i32, ptr]
+        )
+        lib.yee_stream_sweep.restype = i32
+        lib.yee_stream_error_string.argtypes = [i32]
+        lib.yee_stream_error_string.restype = ctypes.c_char_p
+        _bound = lib
+    return _bound
+
+
+def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
+                drive: SweepDrive | None = None, out: FieldState | None = None) -> FieldState:
+    """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
+    copy of ``state`` in the compute type (fp32 for bf16 storage), with
+    steps 2..s hard-set from ``drive``, rounded once to the storage dtype
+    into ``out`` (a new state when None).  In fp32 this is exactly ``s``
+    steps of the ``torch`` backend."""
+    cd = curl.compute_dtype(state.ex.dtype)
+    work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
+    patch = drive.patch if drive is not None else None
+    for m in range(1, s + 1):
+        if m >= 2 and drive is not None:
+            j0, j1, i0, i1 = patch
+            sl = (0, slice(j0, j1), slice(i0, i1))
+            work.ez[sl] = drive.ez_rows[m - 2].to(cd)
+            work.ex[sl] = 0
+            work.hx[sl] = drive.hx_rows[m - 2].to(cd)
+            work.hz[sl] = 0
+        curl.update_h(p, work, coefs, patch)
+        curl.update_e(p, work, coefs)
+    if out is None:
+        return work.to(dtype=state.ex.dtype)
+    for o, w in zip(out.tensors(), work.tensors()):
+        o.copy_(w)
+    return out
+
+
+def _on_cpu(p: Params, state: FieldState, out: FieldState) -> bool:
+    """True when both states lie on the CPU; validates CUDA states for the
+    kernel and raises on anything else."""
+    tensors = state.tensors() + out.tensors()
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("the input and output fields must all be on one device")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"the stream kernel runs on CUDA tensors; got device {dev}")
+    dt = tensors[0].dtype
+    if dt not in _DTYPE_CODES:
+        raise ValueError(f"the stream kernel takes float32 or bfloat16 fields; got {dt}")
+    for t in tensors:
+        if t.dtype != dt or tuple(t.shape) != p.padded_shape or not t.is_contiguous():
+            raise ValueError(
+                f"each field must be a contiguous {dt} tensor of shape {p.padded_shape}; "
+                f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+    ptrs = {t.data_ptr() for t in tensors}
+    if len(ptrs) != len(tensors):
+        raise ValueError("the sweep's output fields must not alias its input fields")
+    return False
+
+
+def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
+          plan: StreamPlan, drive: SweepDrive | None = None) -> FieldState:
+    """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``."""
+    if _on_cpu(p, state, out):
+        return plain_sweep(p, state, coefs, plan.s, drive, out)
+    lib = _lib()
+    dt = state.ex.dtype
+    fh = curl.scalar(coefs.h_factor, dt)
+    fe = curl.scalar(coefs.cb_x, dt)
+    if drive is not None:
+        j0, j1, i0, i1 = drive.patch
+        rows_shape = (plan.s - 1, i1 - i0)
+        for r in (drive.ez_rows, drive.hx_rows):
+            if (r.device != state.ex.device or r.dtype != dt or tuple(r.shape) != rows_shape
+                    or not r.is_contiguous()):
+                raise ValueError(
+                    f"drive rows must be contiguous {dt} tensors of shape {rows_shape} on "
+                    f"{state.ex.device}; got {r.dtype} {tuple(r.shape)} on {r.device}"
+                )
+        rows = (drive.ez_rows.data_ptr(), drive.hx_rows.data_ptr())
+    else:
+        j0 = j1 = i0 = i1 = 0
+        rows = (None, None)
+    PtrArray = ctypes.c_void_p * 6
+    ins = PtrArray(*(t.data_ptr() for t in state.tensors()))
+    outs = PtrArray(*(t.data_ptr() for t in out.tensors()))
+    with torch.cuda.device(state.ex.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.yee_stream_sweep(
+            ins, outs, p.maxk, p.maxj, p.maxi, fh, fe,
+            plan.s, plan.bj, plan.bi, plan.tk,
+            int(drive is not None), j0, j1, i0, i1, *rows,
+            _DTYPE_CODES[dt], stream,
+        )
+    launches["yee_stream"] += 1
+    if rc != 0:
+        msg = lib.yee_stream_error_string(rc).decode()
+        raise RuntimeError(f"yee_stream launch failed: CUDA error {rc} ({msg})")
+    return out

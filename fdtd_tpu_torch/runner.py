@@ -26,11 +26,12 @@ import torch
 from . import diagnostics
 from .io.checkpoint import CheckpointWriter, latest_checkpoint, load_checkpoint
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
+from .ops import stream_plan
 from .params import Mode, Params, time_values
 from .state import FieldState, Materials, init_validation, zeros
 from .step import make_chunk_runner, scan_inputs
 
-BACKEND_CHOICES = ("auto", "torch", "twopass")
+BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
 
 # feature -> the ROADMAP item that ports it
 _NOT_PORTED = {
@@ -68,22 +69,40 @@ def resolve_device(device) -> torch.device:
 def resolve_backend(p: Params, backend: str, device) -> str:
     """Resolve ``auto`` and refuse combinations the kernels do not run.
 
-    ``auto`` runs ``twopass`` (the Hopper kernels) on a CUDA device in
-    float32 or bfloat16, and ``torch`` for float64 or on the CPU.  An
-    explicit ``twopass`` on the CPU or in float64 raises ``ValueError``.
+    ``auto`` runs ``stream`` (the streaming sweep kernel) on a CUDA device
+    in float32 or bfloat16 when a sweep plan fits, else ``twopass`` (the
+    two-pass kernels), and ``torch`` for float64 or on the CPU, as the JAX
+    package's ``auto`` picks ``pallas_stream`` before the two-pass tier.
+    An explicit ``twopass`` or ``stream`` on the CPU or in float64 raises
+    ``ValueError``, and so does ``stream`` when no plan fits.
     """
     dev = torch.device(device)
     if backend not in BACKEND_CHOICES:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
     kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     if backend == "auto":
-        return "twopass" if kernels_ok else "torch"
-    if backend == "twopass" and not kernels_ok:
+        if not kernels_ok:
+            return "torch"
+        return "stream" if stream_plan.supported(p, _free_memory(dev)) else "twopass"
+    if backend in ("twopass", "stream") and not kernels_ok:
         raise ValueError(
-            f"the twopass kernels run on a CUDA device in float32 or bfloat16 "
+            f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
             f"(got device {dev}, dtype {p.dtype}); use --backend torch"
         )
+    if backend == "stream" and not stream_plan.supported(p, _free_memory(dev)):
+        raise ValueError(
+            f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype}: the sweep needs "
+            "a second copy of the state in device memory; use --backend twopass"
+        )
     return backend
+
+
+def _free_memory(dev: torch.device) -> int | None:
+    """Free bytes on a CUDA device, or None (the plan's H100 default)
+    where CUDA is not available."""
+    if dev.type == "cuda" and torch.cuda.is_available():
+        return torch.cuda.mem_get_info(dev)[0]
+    return None
 
 
 def initial_state(p: Params, device) -> FieldState:

@@ -120,3 +120,21 @@ def apply_source(plan: SourcePlan, s: FieldState, amp, profile: torch.Tensor) ->
     s.ex[sl].zero_()
     s.hz[sl].zero_()
     s.hx[sl].copy_((-plan.inv_z_te * row).expand(s.hx[sl].shape))
+
+
+def sweep_drive_rows(plan: SourcePlan, amps: torch.Tensor, s: int, dtype: torch.dtype,
+                     profile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hard-set rows of steps 2..s of every s-step sweep of a chunk.
+
+    ``amps`` holds the chunk's drive amplitudes (fp64, on the device);
+    the chunk's ``len(amps) // s`` sweeps each take the amplitudes of
+    their steps 2..s.  Returns ``(ez_rows, hx_rows)``, each of shape
+    (sweeps, s - 1, i1 - i0) in ``dtype``: the Ez and Hx values of
+    :func:`apply_source`, formed in fp64 and rounded once, so a sweep
+    injects the same bits as s single steps.  (Step 1 of a sweep is
+    :func:`apply_source` on the state itself.)
+    """
+    n = amps.shape[0] // s
+    a = amps[: n * s].reshape(n, s)[:, 1:, None]
+    row = a * profile
+    return row.to(dtype), (-plan.inv_z_te * row).to(dtype)

@@ -56,6 +56,15 @@ class FieldState:
     def clone(self) -> "FieldState":
         return FieldState(*(t.clone() for t in self.tensors()))
 
+    def swap(self, other: "FieldState") -> None:
+        """Exchange the tensors of ``self`` and ``other`` (no copy): a
+        kernel that writes its result into a second state hands it back
+        to the caller's object this way."""
+        for c in COMPONENTS:
+            a, b = getattr(self, c), getattr(other, c)
+            setattr(self, c, b)
+            setattr(other, c, a)
+
 
 def zeros(p: Params, device, dtype: torch.dtype | None = None) -> FieldState:
     """Zero-initialized fields (reference: main.c:294-364)."""

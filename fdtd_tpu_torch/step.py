@@ -2,7 +2,7 @@
 
 One step replicates the reference loop body (reference: main.c:765-779):
 [source] -> update_H -> [source] -> update_E, with the source applied twice
-per step in computation mode.  Two backends:
+per step in computation mode.  Three backends:
 
 - ``torch``: the plain slice updates of :mod:`fdtd_tpu_torch.ops.curl` on any
   device and dtype, the reference order step for step (the counterpart of
@@ -11,9 +11,18 @@ per step in computation mode.  Two backends:
   counterpart of ``pallas_fused``), fp32 or bf16.  The H kernel leaves the
   source patch of Hx/Hz at k=0 untouched, so the source is set once per
   step, before H: the second hard-set of the reference would write the same
-  values again.  On CPU tensors the wrappers run their plain versions.
+  values again.  On CPU tensors the wrappers run their plain versions;
+- ``stream``: the streaming sweep kernel of :mod:`fdtd_tpu_torch.ops.stream`
+  (the counterpart of ``pallas_stream``), fp32 or bf16: each launch
+  advances the state by s steps (the plan of
+  :mod:`fdtd_tpu_torch.ops.stream_plan`), and a chunk's trailing
+  ``n % s`` steps run on the ``twopass`` kernels.  In fp32 it gives the
+  bits of ``twopass``; in bf16 it keeps every step of a sweep in fp32 and
+  rounds once per sweep.
 
-Steps update the state in place.
+Steps update the state in place; the ``stream`` chunk runner writes each
+sweep into a second state of its own and swaps the tensors back into the
+caller's :class:`FieldState`.
 """
 
 from __future__ import annotations
@@ -23,12 +32,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .ops import curl, yee
+from .ops import curl, stream, stream_plan, yee
 from .params import Mode, Params
-from .source import apply_source, drive_values, make_source_plan, profile_tensor
+from .source import (apply_source, drive_values, make_source_plan, profile_tensor,
+                     sweep_drive_rows)
 from .state import FieldState, Materials, update_coefs
 
-BACKENDS = ("torch", "twopass")
+BACKENDS = ("torch", "twopass", "stream")
 
 Step = Callable[[FieldState, tuple], None]
 
@@ -39,17 +49,19 @@ def make_step(p: Params, device, materials: Materials | None = None,
 
     ``amp`` is the drive amplitude sin(2*pi*f*t) (see :func:`scan_inputs`),
     a Python float or a 0-d fp64 tensor on ``device``; validation mode
-    ignores it.
+    ignores it.  A single step of ``stream`` is a ``twopass`` step (the
+    sweeps need whole chunks: :func:`make_chunk_runner`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
-    if backend == "twopass" and p.dtype == "float64":
-        raise ValueError("the twopass kernels store float32 or bfloat16; float64 runs on the torch backend")
+    if backend in ("twopass", "stream") and p.dtype == "float64":
+        raise ValueError(f"the {backend} kernels store float32 or bfloat16; "
+                         "float64 runs on the torch backend")
     coefs = update_coefs(p, materials)
     plan = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(plan, device) if plan is not None else None
 
-    if backend == "twopass":
+    if backend in ("twopass", "stream"):
         patch = plan.patch if plan is not None else None
 
         def step(s: FieldState, x) -> None:
@@ -83,14 +95,23 @@ def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
 
 
 def make_chunk_runner(p: Params, device, materials: Materials | None = None,
-                      backend: str = "torch"):
+                      backend: str = "torch", stream_s: int | None = None):
     """``run(state, xs)``: advance ``state`` in place over the chunk
-    ``xs = (times, amps)`` of :func:`scan_inputs`.
+    ``xs = (times, amps)`` of :func:`scan_inputs`.  ``stream_s`` forces the
+    steps per sweep of the ``stream`` backend (still checked to fit).
 
     The amplitudes go to the device once per chunk; the loop itself only
     enqueues work, with no host synchronisation inside it.
     """
     step = make_step(p, device, materials, backend)
+    if backend == "stream":
+        plan = stream_plan.pick_plan(p, s=stream_s)
+        if plan is None:
+            raise ValueError(
+                f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype}: the sweep "
+                "needs a second copy of the state in device memory"
+            )
+        return _stream_chunk_runner(p, device, step, plan)
 
     def run(s: FieldState, xs) -> FieldState:
         ts, amps = xs
@@ -99,4 +120,40 @@ def make_chunk_runner(p: Params, device, materials: Materials | None = None,
             step(s, (ts[n], amps_dev[n]))
         return s
 
+    return run
+
+
+def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.StreamPlan):
+    """``n // s`` sweeps of the stream kernel, then ``n % s`` twopass steps
+    (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``)."""
+    s_steps = plan.s
+    coefs = update_coefs(p)
+    src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
+    profile = profile_tensor(src, device) if src is not None else None
+    spare: list[FieldState] = []  # the second state, allocated at first use
+
+    def run(s: FieldState, xs) -> FieldState:
+        ts, amps = xs
+        n = len(ts)
+        n_sw = n // s_steps
+        amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
+        if n_sw:
+            if not spare or spare[0].ex.shape != s.ex.shape or spare[0].ex.dtype != s.ex.dtype \
+                    or spare[0].ex.device != s.ex.device:
+                spare[:] = [FieldState(*(torch.empty_like(t) for t in s.tensors()))]
+            out = spare[0]
+            if src is not None:
+                ez_rows, hx_rows = sweep_drive_rows(src, amps_dev, s_steps, s.ex.dtype, profile)
+            for g in range(n_sw):
+                drive = None
+                if src is not None:
+                    apply_source(src, s, amps_dev[g * s_steps], profile)
+                    drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
+                stream.sweep(p, s, out, coefs, plan, drive)
+                s.swap(out)
+        for r in range(n_sw * s_steps, n):
+            odd_step(s, (ts[r], amps_dev[r]))
+        return s
+
+    run.plan = plan
     return run

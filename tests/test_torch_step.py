@@ -154,8 +154,8 @@ def test_make_step_refuses_fp64_twopass_and_unknown_backends(tiny_params):
     [
         ("cpu", "float32", "auto", "torch"),
         ("cpu", "float64", "auto", "torch"),
-        ("cuda", "float32", "auto", "twopass"),
-        ("cuda", "bfloat16", "auto", "twopass"),
+        ("cuda", "float32", "auto", "stream"),
+        ("cuda", "bfloat16", "auto", "stream"),
         ("cuda", "float64", "auto", "torch"),
         ("cuda", "float32", "torch", "torch"),
         ("cpu", "float32", "twopass", ValueError),

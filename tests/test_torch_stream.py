@@ -1,0 +1,272 @@
+"""The port's ``stream`` backend (streaming sweep, ``ops/stream.py``) on the
+CPU, where the sweep wrapper runs its plain version.
+
+Against the JAX package: ``make_chunk_runner(backend="pallas_stream")`` in
+interpret mode on ``tiny_params`` (10^3), as ``tests/test_temporal.py``
+runs it, with the steps per sweep forced through ``FDTD_STREAM_S``.  fp32:
+19 steps (two 8-step sweeps and three trailing two-pass steps at s=8) to
+atol 1e-6, the JAX test's own tolerance (interpret mode lets XLA:CPU group
+the unrolled levels differently, a 1-ulp effect).  bf16: 8 steps, one
+sweep, to 1/128 of the field's scale: both sides keep the sweep in fp32 and
+round once, so they may differ by one bf16 rounding (2^-8 relative) where
+the fp32 values straddle a rounding boundary; the JAX test allows 2e-2.
+
+Port-internal: fp32 ``plain_sweep`` is s steps of the ``torch`` backend bit
+for bit; bf16 ``plain_sweep`` is the fp32 steps rounded once; the plan
+picker and backend resolution.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from fdtd_tpu.params import Mode, time_values  # noqa: E402
+from fdtd_tpu.state import init_validation, zeros  # noqa: E402
+from fdtd_tpu.step import backend_adapters  # noqa: E402
+from fdtd_tpu.step import make_chunk_runner as j_chunk_runner  # noqa: E402
+from fdtd_tpu.step import scan_inputs as j_scan_inputs  # noqa: E402
+from fdtd_tpu_torch import cli, convert, runner  # noqa: E402
+from fdtd_tpu_torch import state as tstate  # noqa: E402
+from fdtd_tpu_torch import step as tstep  # noqa: E402
+from fdtd_tpu_torch.ops import build, stream, stream_plan  # noqa: E402
+from fdtd_tpu_torch.params import Params  # noqa: E402
+from fdtd_tpu_torch.source import (apply_source, make_source_plan, profile_tensor,  # noqa: E402
+                                   sweep_drive_rows)
+
+COMPONENTS = ["ex", "ey", "ez", "hx", "hy", "hz"]
+
+
+def _jax_stream(p, n, s, monkeypatch):
+    """``n`` steps of interpret-mode ``pallas_stream`` at s steps per sweep
+    from the mode's initial state; (initial, final) as numpy dicts."""
+    monkeypatch.setenv("FDTD_STREAM_S", str(s))
+    s0 = init_validation(p) if p.mode == Mode.VALIDATION else zeros(p)
+    prep, rest = backend_adapters(p, "pallas_stream")
+    xs = j_scan_inputs(p, time_values(p)[:n])
+    got = rest(j_chunk_runner(p, backend="pallas_stream")(prep(s0), xs, None)[0])
+    as_np = lambda st: {c: np.asarray(getattr(st, c), np.float32) for c in COMPONENTS}  # noqa: E731
+    return as_np(s0), as_np(got)
+
+
+def _port_stream(p, init, n, s):
+    tp = convert.params_from(p)
+    st = convert.state_from_numpy(init, "cpu", tstate.field_dtype(tp))
+    run = tstep.make_chunk_runner(tp, "cpu", backend="stream", stream_s=s)
+    assert run.plan.s == s
+    out = run(st, tstep.scan_inputs(tp, time_values(p)[:n]))
+    assert out is st
+    return {c: getattr(st, c).float().numpy() for c in COMPONENTS}
+
+
+@pytest.mark.parametrize("s", [8, 4, 2])
+@pytest.mark.parametrize("mode", [Mode.VALIDATION, Mode.COMPUTATION])
+def test_stream_matches_jax_pallas_stream_fp32(tiny_params, monkeypatch, mode, s):
+    p = dataclasses.replace(tiny_params, dtype="float32", mode=mode)
+    init, want = _jax_stream(p, 19, s, monkeypatch)
+    got = _port_stream(p, init, 19, s)
+    for c in COMPONENTS:
+        np.testing.assert_allclose(got[c], want[c], atol=1e-6, rtol=0, err_msg=f"s={s}/{c}")
+    assert max(np.abs(want[c]).max() for c in COMPONENTS) > 1e-3
+
+
+def test_stream_matches_jax_pallas_stream_bf16(tiny_params, monkeypatch):
+    p = dataclasses.replace(tiny_params, dtype="bfloat16", mode=Mode.COMPUTATION,
+                            simulation_time=8e-12)
+    init, want = _jax_stream(p, 8, 8, monkeypatch)
+    got = _port_stream(p, init, 8, 8)
+    for c in COMPONENTS:
+        scale = max(float(np.abs(want[c]).max()), 1e-30)
+        assert float(np.abs(got[c] - want[c]).max()) <= scale / 128, c
+    assert float(np.abs(want["ez"]).max()) > 0
+
+
+def _random_state(p, seed, dtype):
+    rng = np.random.default_rng(seed)
+    return convert.state_from_numpy({c: rng.uniform(-1, 1, p.padded_shape) for c in COMPONENTS},
+                                    "cpu", dtype)
+
+
+def _drive(p, st, s, seed):
+    """Step 1's hard-set on ``st`` and the sweep's rows of steps 2..s."""
+    src = make_source_plan(p)
+    amps = torch.tensor(np.random.default_rng(seed).uniform(-1, 1, s), dtype=torch.float64)
+    prof = profile_tensor(src, "cpu")
+    apply_source(src, st, amps[0], prof)
+    ez, hx = sweep_drive_rows(src, amps, s, st.ex.dtype, prof)
+    return amps, stream.SweepDrive(src.patch, ez[0], hx[0])
+
+
+@pytest.mark.parametrize("s", [8, 4, 2])
+@pytest.mark.parametrize("mode", [Mode.VALIDATION, Mode.COMPUTATION])
+def test_plain_sweep_fp32_is_torch_steps(tiny_params, mode, s):
+    p = dataclasses.replace(convert.params_from(tiny_params), mode=mode, dtype="float32")
+    a = _random_state(p, 11, torch.float32)
+    b = a.clone()
+    drive = None
+    if mode == Mode.COMPUTATION:
+        amps, drive = _drive(p, a, s, 12)
+    got = stream.plain_sweep(p, a, tstate.update_coefs(p), s, drive)
+    step = tstep.make_step(p, "cpu", backend="torch")
+    for m in range(s):
+        step(b, (0.0, float(amps[m]) if drive is not None else 0.0))
+    for c in COMPONENTS:
+        assert torch.equal(getattr(got, c), getattr(b, c)), c
+
+
+@pytest.mark.parametrize("s", [8, 2])
+def test_plain_sweep_bf16_rounds_once(tiny_params, s):
+    p = dataclasses.replace(convert.params_from(tiny_params), mode=Mode.VALIDATION, dtype="bfloat16")
+    a = _random_state(p, 13, torch.bfloat16)
+    wide = a.to(dtype=torch.float32)
+    step = tstep.make_step(dataclasses.replace(p, dtype="float32"), "cpu", backend="torch")
+    for _ in range(s):
+        step(wide, (0.0, 0.0))
+    got = stream.plain_sweep(p, a, tstate.update_coefs(p), s)
+    per_step = a.clone()
+    bstep = tstep.make_step(p, "cpu", backend="torch")
+    for _ in range(s):
+        bstep(per_step, (0.0, 0.0))
+    for c in COMPONENTS:
+        assert getattr(got, c).dtype == torch.bfloat16
+        assert torch.equal(getattr(got, c), getattr(wide, c).to(torch.bfloat16)), c
+    # and it is not s steps of bf16 storage: those round after every pass
+    assert any(not torch.equal(getattr(got, c), getattr(per_step, c)) for c in COMPONENTS)
+
+
+def test_plain_sweep_writes_into_out_and_leaves_input(tiny_params):
+    p = dataclasses.replace(convert.params_from(tiny_params), mode=Mode.COMPUTATION, dtype="float32")
+    a = _random_state(p, 14, torch.float32)
+    _, drive = _drive(p, a, 4, 15)
+    before = a.clone()
+    out = tstate.FieldState(*(torch.full_like(t, float("nan")) for t in a.tensors()))
+    stream.reset_launches()
+    r = stream.sweep(p, a, out, tstate.update_coefs(p), stream_plan.plan_for(p, 4), drive)
+    want = stream.plain_sweep(p, a, tstate.update_coefs(p), 4, drive)
+    assert r is out and stream.launches == {"yee_stream": 0}
+    for c in COMPONENTS:
+        assert torch.equal(getattr(a, c), getattr(before, c)), c
+        assert torch.equal(getattr(out, c), getattr(want, c)), c
+
+
+def test_sweep_drive_rows_equal_apply_source(tiny_params):
+    """Row m-2 of a sweep is the patch apply_source writes at step m."""
+    p = dataclasses.replace(convert.params_from(tiny_params), mode=Mode.COMPUTATION, dtype="bfloat16")
+    src = make_source_plan(p)
+    prof = profile_tensor(src, "cpu")
+    amps = torch.tensor(np.linspace(-0.9, 0.8, 19), dtype=torch.float64)
+    ez, hx = sweep_drive_rows(src, amps, 4, torch.bfloat16, prof)
+    assert ez.shape == hx.shape == (4, 3, src.i1 - src.i0) and ez.dtype == torch.bfloat16
+    st = tstate.zeros(p, "cpu")
+    for g in range(4):
+        for m in range(2, 5):
+            apply_source(src, st, amps[4 * g + m - 1], prof)
+            assert torch.equal(st.ez[0, src.j0, src.i0:src.i1], ez[g, m - 2])
+            assert torch.equal(st.hx[0, src.j1 - 1, src.i0:src.i1], hx[g, m - 2])
+
+
+@pytest.mark.parametrize("mode", [Mode.VALIDATION, Mode.COMPUTATION])
+def test_stream_chunk_runner_equals_torch(tiny_params, mode):
+    """8k+3 steps: two sweeps at s=8, then three twopass steps."""
+    p = dataclasses.replace(convert.params_from(tiny_params), mode=mode, dtype="float32")
+    a = tstate.init_validation(p, "cpu") if mode == Mode.VALIDATION else tstate.zeros(p, "cpu")
+    b = a.clone()
+    xs = tstep.scan_inputs(p, time_values(p)[:19])
+    run = tstep.make_chunk_runner(p, "cpu", backend="stream", stream_s=8)
+    assert run(a, xs) is a
+    run(a, tstep.scan_inputs(p, time_values(p)[19:20]))  # a chunk shorter than s
+    tstep.make_chunk_runner(p, "cpu", backend="torch")(b, tstep.scan_inputs(p, time_values(p)[:20]))
+    for c in COMPONENTS:
+        assert torch.equal(getattr(a, c), getattr(b, c)), c
+
+
+def _cube(n, dtype):
+    return Params(length=n * 1e-3, width=n * 1e-3, height=n * 1e-3, spatial_step=0.001,
+                  time_step=1e-12, simulation_time=1e-11, sampling_rate=5,
+                  mode=Mode.COMPUTATION, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [10, 50, 256, 512, 1024])
+def test_plan_is_feasible_and_covers_the_grid(n, dtype):
+    p = _cube(n, dtype)
+    plan = stream_plan.pick_plan(p)
+    assert plan is not None and plan.s in stream_plan.STEPS
+    K1, J1, I1 = p.padded_shape
+    assert plan.tj == plan.bj - 2 * plan.s and plan.ti == plan.bi - 2 * plan.s
+    assert plan.nk * plan.tk >= K1 and (plan.nk - 1) * plan.tk < K1
+    assert plan.nj * plan.tj >= J1 and (plan.nj - 1) * plan.tj < J1
+    assert plan.ni * plan.ti >= I1 and (plan.ni - 1) * plan.ti < I1
+    assert plan.threads <= 1024 and plan.smem_bytes <= stream_plan.SMEM_PER_BLOCK
+    assert plan.bytes_per_cell_step == min(
+        stream_plan.plan_for(p, s).bytes_per_cell_step for s in stream_plan.STEPS)
+    if n >= 256:
+        assert plan.blocks >= stream_plan.SM_COUNT
+
+
+def test_plan_refuses_what_does_not_fit():
+    p = _cube(1024, "float32")
+    need = 2 * stream_plan.state_bytes(p)
+    assert stream_plan.pick_plan(p, s=8, memory_bytes=need) is None  # forced s is checked too
+    assert stream_plan.pick_plan(p, memory_bytes=need) is None
+    assert not stream_plan.supported(p, memory_bytes=need)
+    assert stream_plan.pick_plan(p, s=8, memory_bytes=2 * need).s == 8
+    assert stream_plan.pick_plan(dataclasses.replace(p, dtype="float64")) is None
+    with pytest.raises(ValueError, match="one of"):
+        stream_plan.pick_plan(p, s=3)
+
+
+@pytest.mark.parametrize(
+    "device, dtype, backend, want",
+    [
+        ("cpu", "float32", "auto", "torch"),
+        ("cpu", "bfloat16", "auto", "torch"),
+        ("cuda", "float32", "auto", "stream"),
+        ("cuda", "bfloat16", "auto", "stream"),
+        ("cuda", "float32", "stream", "stream"),
+        ("cpu", "float32", "stream", ValueError),
+        ("cuda", "float64", "stream", ValueError),
+    ],
+)
+def test_resolve_backend_stream(tiny_params, device, dtype, backend, want):
+    p = dataclasses.replace(convert.params_from(tiny_params), dtype=dtype)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="stream"):
+            runner.resolve_backend(p, backend, device)
+    else:
+        assert runner.resolve_backend(p, backend, device) == want
+
+
+def test_stream_refuses_fp64_and_other_devices(tiny_params):
+    p = convert.params_from(tiny_params)
+    with pytest.raises(ValueError, match="float64"):
+        tstep.make_chunk_runner(p, "cpu", backend="stream")
+    p32 = dataclasses.replace(p, dtype="float32")
+    s = tstate.zeros(p32, "meta", torch.float32)
+    out = tstate.zeros(p32, "meta", torch.float32)
+    stream.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        stream.sweep(p32, s, out, tstate.update_coefs(p32), stream_plan.plan_for(p32, 4))
+    mixed = tstate.zeros(p32, "cpu", torch.float32)
+    with pytest.raises(ValueError, match="one device"):
+        stream.sweep(p32, mixed, out, tstate.update_coefs(p32), stream_plan.plan_for(p32, 4))
+    assert stream.launches == {"yee_stream": 0}
+
+
+def test_stream_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        build.build(stream.KERNEL_SOURCE, build_dir=tmp_path / "build")
+    a = build.library_path(stream.KERNEL_SOURCE, tmp_path)
+    assert a.name.startswith("libyee_stream-") and a.suffix == ".so"
+
+
+def test_cli_stream_on_cpu_is_an_error(tmp_path, capsys):
+    params = tmp_path / "p.txt"
+    params.write_text("0.01 0.01 0.01 0.001 1e-12 1e-11 5 0")
+    rc = cli.main([str(params), "--device", "cpu", "--backend", "stream", "--out", str(tmp_path / "r")])
+    assert rc == 1
+    assert "--backend torch" in capsys.readouterr().err
