@@ -16,7 +16,11 @@ package beside it.  Phases, each printing one line or more:
    patch, and the TE101 seed on the non-integer box whose i=maxi Ey column
    is non-zero: max |diff| must be 0.  The stream kernel at s = 8, 4 and 2
    (tiles that do not divide the box), and one sweep at 256^3 with the
-   main path's plan;
+   main path's plan.  The material variants on a water block + ferrite
+   slab scene on the same box: the het-mu H and lossy E kernels in both
+   modes, and the four stream variants (lossy, lossy + SAR, lossy + het,
+   lossy + het + SAR) in computation mode at s = 8, 4, 2, fields and the
+   SAR accumulator; one heating sweep at 256^3 with each SAR plan;
 4. validation: configs/reference.txt (50^3, fp32) through
    run_simulation(backend="twopass") with snapshots: e_r(Ey) < 0.007,
    energy drift < 2e-3, the .vtr cadence, one launch per kernel per step;
@@ -28,8 +32,18 @@ package beside it.  Phases, each printing one line or more:
    stream, the launch counts read around each (equal final fields), then
    64 steps of stream, twopass and torch at 256^3 in both modes and 16
    steps of stream and twopass at 512^3 (equal fields);
-6. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
-   bf16, and each kernel's time beside its plain version's.
+6. the heating path at full size: the CLI on configs/heating_256.txt
+   --water-block --sar (auto picks stream; sar.vtr written, peak > 0),
+   the same scene through run_simulation with twopass and with stream
+   (1000 steps; launch counts; fields and SAR equal bit for bit), then 66
+   steps (16 sweeps and 2 trailing two-pass steps with their SAR) of
+   stream, twopass and torch with --ferrite-slab added (SAR on), and of
+   stream and twopass without SAR (water, water + ferrite), from random
+   fields; twopass's peak device memory against its model, and the model
+   at 1024^3 fp32 (stream refused, twopass fits the free memory);
+7. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
+   bf16, vacuum and heating, and each kernel's time beside its plain
+   version's and its bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -50,6 +64,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_TIMED = 48  # steps per timed run (a multiple of every steps-per-sweep)
 N_WARM = 8
+N_LOADS = 66  # steps of the load comparisons at 256^3 (not a multiple of the sweep's s)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 
@@ -93,8 +108,8 @@ def main() -> None:
     from fdtd_tpu_torch.params import Mode, Params, load_parameters, time_values
     from fdtd_tpu_torch.runner import initial_state, resolve_backend, run_simulation
     from fdtd_tpu_torch.source import apply_source, make_source_plan, profile_tensor, sweep_drive_rows
-    from fdtd_tpu_torch.state import FieldState, field_dtype, update_coefs
-    from fdtd_tpu_torch.step import make_chunk_runner, scan_inputs
+    from fdtd_tpu_torch.state import FieldState, ferrite_slab, field_dtype, update_coefs, water_block
+    from fdtd_tpu_torch.step import make_chunk_runner, scan_inputs, zero_power_acc
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -105,10 +120,12 @@ def main() -> None:
     smi = smi.splitlines()[0]
     nvcc = build.find_nvcc()
     nvcc_ver = run_cmd([nvcc, "--version"]).splitlines()[-1] if nvcc else "not found"
+    free0, total0 = torch.cuda.mem_get_info(dev)
     print(smi, flush=True)
     print(f"versions: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"torch CUDA {torch.version.cuda}, nvcc {nvcc_ver}, "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+          f"device memory {free0} B free of {total0} B", flush=True)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -124,29 +141,36 @@ def main() -> None:
     print(f"build: {', '.join(lp.name for lp in lib_paths)} in {build_s:.2f} s", flush=True)
 
     # -- 3. kernel vs plain ------------------------------------------------
-    max_err = {"yee_update_h": 0.0, "yee_update_e": 0.0, "yee_stream": 0.0}
+    max_err: dict[str, float] = {}
+
+    def record_err(name: str, d: float) -> None:
+        max_err[name] = max(max_err.get(name, 0.0), d)
 
     def maxdiff(a: FieldState, b: FieldState) -> float:
         return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a.tensors(), b.tensors()))
 
-    def compare(p: Params, arrays: dict, steps: int, label: str) -> None:
+    def compare(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
+        """The two-pass kernels against their plain versions; ``coefs``
+        with materials picks the het-mu H and lossy E variants."""
         dt = field_dtype(p)
-        coefs = update_coefs(p)
+        coefs = coefs or update_coefs(p)
+        h_name = "yee_update_h_het" if coefs.heterogeneous_mu else "yee_update_h"
+        e_name = "yee_update_e_lossy" if coefs.lossy else "yee_update_e"
         patch = make_source_plan(p).patch if p.mode == Mode.COMPUTATION else None
         k_state = state_from_numpy(arrays, dev, dt)
         p_state = state_from_numpy(arrays, dev, dt)
-        err = {"yee_update_h": 0.0, "yee_update_e": 0.0}
+        err = {h_name: 0.0, e_name: 0.0}
         for _ in range(steps):
             yee.update_h(p, k_state, coefs, patch)
             curl.update_h(p, p_state, coefs, patch)
             torch.cuda.synchronize()
-            err["yee_update_h"] = max(err["yee_update_h"], maxdiff(k_state, p_state))
+            err[h_name] = max(err[h_name], maxdiff(k_state, p_state))
             yee.update_e(p, k_state, coefs)
             curl.update_e(p, p_state, coefs)
             torch.cuda.synchronize()
-            err["yee_update_e"] = max(err["yee_update_e"], maxdiff(k_state, p_state))
+            err[e_name] = max(err[e_name], maxdiff(k_state, p_state))
         for name, d in err.items():
-            max_err[name] = max(max_err[name], d)
+            record_err(name, d)
             check(d == 0.0, f"{name} == plain over {steps} steps, {label}: max|diff| = {d!r}")
 
     ragged: set = set()
@@ -165,20 +189,35 @@ def main() -> None:
             drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
         return st, drive, stream_plan.plan_for(p, s)
 
-    def compare_sweep(p: Params, arrays: dict, s: int, label: str) -> None:
-        st, drive, plan = sweep_inputs(p, arrays, s)
-        coefs = update_coefs(p)
+    def compare_sweep(p: Params, arrays: dict, s: int, label: str, coefs=None, sar: bool = False) -> None:
+        """One sweep of the stream kernel against plain_sweep; ``coefs``
+        with materials (and ``sar``) picks the material variant."""
+        st, drive, _ = sweep_inputs(p, arrays, s)
+        coefs = coefs or update_coefs(p)
+        plan = stream_plan.plan_for(p, s, coefs.lossy, coefs.heterogeneous_mu, sar)
+        acc_k = acc_p = None
+        if sar:
+            acc0 = torch.tensor(rng.uniform(0.0, 1e-11, (p.maxk, p.maxj, p.maxi)), dtype=torch.float32,
+                                device=dev)
+            acc_k, acc_p = acc0.clone(), acc0.clone()
         out = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
-        stream.sweep(p, st, out, coefs, plan, drive)
-        want = stream.plain_sweep(p, st, coefs, s, drive)
+        stream.sweep(p, st, out, coefs, plan, drive, acc_k)
+        want = stream.plain_sweep(p, st, coefs, s, drive, acc=acc_p)
         torch.cuda.synchronize()
         d = maxdiff(out, want)
-        max_err["yee_stream"] = max(max_err["yee_stream"], d)
+        d_acc = float((acc_k - acc_p).abs().max()) if sar else 0.0
+        record_err(plan.kernel, max(d, d_acc))
         K1, J1, I1 = p.padded_shape
         if K1 % plan.tk or J1 % plan.tj or I1 % plan.ti:
-            ragged.add((s, p.padded_shape))
-        check(d == 0.0, f"yee_stream == plain_sweep, s={s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
-                        f"{plan.blocks} blocks, {label}: max|diff| = {d!r}")
+            ragged.add((plan.kernel, s, p.padded_shape))
+        sar_txt = ""
+        if sar:
+            moved = float((acc_p - acc0).abs().max())
+            check(moved > 0, f"{plan.kernel} s={s} {label}: the sweep deposits (max increment {moved!r})")
+            sar_txt = f", accumulator max|diff| = {d_acc!r}"
+        check(d == 0.0 and d_acc == 0.0,
+              f"{plan.kernel} == plain_sweep, s={s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
+              f"{plan.blocks} blocks, {label}: fields max|diff| = {d!r}{sar_txt}")
 
     rng = np.random.default_rng(1234)
     for dtype in ("float32", "bfloat16"):
@@ -191,6 +230,18 @@ def main() -> None:
             compare(p, arrays, 2, f"{dtype} {mode.name} random {p.padded_shape}")
             for s in stream_plan.STEPS:
                 compare_sweep(p, arrays, s, f"{dtype} {mode.name} random {p.padded_shape}")
+            # the material variants: a water block and a ferrite slab
+            mats = ferrite_slab(p, base=water_block(p))
+            het_coefs = update_coefs(p, mats, dev)
+            compare(p, arrays, 2, f"{dtype} {mode.name} water + ferrite {p.padded_shape}", het_coefs)
+            if mode != Mode.COMPUTATION:
+                continue  # materials stream in computation mode only
+            lossy_coefs = update_coefs(p, water_block(p), dev)
+            for coefs_m, scene_m in ((lossy_coefs, "water"), (het_coefs, "water + ferrite")):
+                for sar in (False, True):
+                    for s in stream_plan.STEPS:
+                        compare_sweep(p, arrays, s, f"{dtype} {scene_m} random {p.padded_shape}",
+                                      coefs_m, sar)
         # the non-integer box of tests/test_pallas.py: TE101 seed, Ey at i=maxi non-zero
         p = Params(length=0.0125, width=0.012, height=0.012, spatial_step=0.001,
                    time_step=1e-12, simulation_time=1e-11, sampling_rate=5,
@@ -212,17 +263,35 @@ def main() -> None:
         pd = dataclasses.replace(p_main, dtype=dtype)
         arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
         compare_sweep(pd, arrays, main_plan.s, f"{dtype} COMPUTATION random 256^3, main plan")
+        # the heating plans: water + SAR, and water + ferrite + SAR
+        for mats, scene_m in ((water_block(pd), "heating"), (ferrite_slab(pd, base=water_block(pd)),
+                                                              "heating + ferrite")):
+            coefs_m = update_coefs(pd, mats, dev)
+            plan_m = stream_plan.pick_plan(pd, lossy=True, het=coefs_m.heterogeneous_mu, sar=True)
+            compare_sweep(pd, arrays, plan_m.s, f"{dtype} {scene_m} random 256^3, its plan", coefs_m, True)
+            del coefs_m
         del arrays
+
+    def counts_now() -> dict:
+        return {**yee.launches, **stream.launches}
+
+    def reset_counts() -> None:
+        yee.reset_launches()
+        stream.reset_launches()
+
+    def expect(**nonzero) -> dict:
+        """Every launch counter 0 except those named."""
+        return {**dict.fromkeys(counts_now(), 0), **nonzero}
 
     # -- 4. validation through the kernels ---------------------------------
     p = load_parameters("configs/reference.txt", dtype="float32")
     ts = time_values(p)
     n = len(ts)
     with tempfile.TemporaryDirectory() as out:
-        yee.reset_launches()
+        reset_counts()
         res = run_simulation(p, dev, out_dir=out, backend="twopass",
                              diagnostics_log=os.path.join(out, "diag.jsonl"), log=lambda m: None)
-        counts = dict(yee.launches)
+        counts = counts_now()
         files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(out, "*.vtr")))
         with open(os.path.join(out, "diag.jsonl")) as f:
             diag_lines = f.read().splitlines()
@@ -235,7 +304,7 @@ def main() -> None:
     expected = sorted(["result0001.vtr"] + [f"result{m:04d}.vtr" for m in range(rate, n + 1, rate)])
     check(files == expected, f"snapshot cadence: {len(files)} files, result0001 then every {rate} steps")
     check(len(diag_lines) == 1 + n // rate, f"energy log has {len(diag_lines)} lines")
-    check(counts == {"yee_update_h": n, "yee_update_e": n},
+    check(counts == expect(yee_update_h=n, yee_update_e=n),
           f"validation launch counts {counts} == {n} steps")
 
     # the same scene through stream, as one chunk (rate-2 chunks never
@@ -243,16 +312,15 @@ def main() -> None:
     p1 = dataclasses.replace(p, sampling_rate=n)
     s_val = stream_plan.pick_plan(p1).s
     with tempfile.TemporaryDirectory() as out:
-        yee.reset_launches()
-        stream.reset_launches()
+        reset_counts()
         res = run_simulation(p1, dev, out_dir=out, backend="stream", write_snapshots=False,
                              log=lambda m: None)
-        counts = {**yee.launches, **stream.launches}
+        counts = counts_now()
     e_r = analytic.relative_l2_error(p1, res.state, float(ts[-1]))["ey"]
     check(e_r < 0.007, f"validation 50^3 fp32 through stream (s={s_val}) e_r(Ey) = {e_r!r} < 0.007")
     e1 = float(diagnostics.total_energy(p1, res.state.to(dtype=torch.float64)))
     check(abs(e1 - e0) / e0 < 2e-3, f"validation through stream energy drift {abs(e1 - e0) / e0!r} < 2e-3")
-    want = {"yee_update_h": n % s_val, "yee_update_e": n % s_val, "yee_stream": n // s_val}
+    want = expect(yee_update_h=n % s_val, yee_update_e=n % s_val, yee_stream=n // s_val)
     check(counts == want, f"validation through stream launch counts {counts} == {want}")
 
     # -- 5. the main path at 256^3 -----------------------------------------
@@ -276,20 +344,19 @@ def main() -> None:
     n = len(time_values(p))
     check(resolve_backend(p, "auto", dev) == "stream", "auto resolves to stream at 256^3 fp32")
     finals = {}
-    main_counts = {}
+    main_counts = {}  # kernel -> launches on the run of its path
+    paths = {}  # kernel -> the path whose run gave its launches
     for backend in ("twopass", "stream"):
-        yee.reset_launches()
-        stream.reset_launches()
+        reset_counts()
         res = run_simulation(p, dev, write_snapshots=False, backend=backend, log=lambda m: None)
-        counts = {**yee.launches, **stream.launches}
+        counts = counts_now()
         s_b = main_plan.s if backend == "stream" else 1
-        want = ({"yee_update_h": n, "yee_update_e": n, "yee_stream": 0} if backend == "twopass" else
-                {"yee_update_h": n % s_b, "yee_update_e": n % s_b, "yee_stream": n // s_b})
+        want = (expect(yee_update_h=n, yee_update_e=n) if backend == "twopass" else
+                expect(yee_update_h=n % s_b, yee_update_e=n % s_b, yee_stream=n // s_b))
         check(counts == want and n == 1000, f"main path {backend} launch counts {counts} == {want}")
-        if backend == "twopass":
-            main_counts.update(yee_update_h=counts["yee_update_h"], yee_update_e=counts["yee_update_e"])
-        else:
-            main_counts["yee_stream"] = counts["yee_stream"]
+        for name in (("yee_update_h", "yee_update_e") if backend == "twopass" else ("yee_stream",)):
+            main_counts[name] = counts[name]
+            paths[name] = f"bench_256 {backend}"
         e_e = float(diagnostics.e_energy(p, res.state))
         e_h = float(diagnostics.h_energy(p, res.state))
         check(math.isfinite(e_e + e_h) and e_e > 0 and e_h > 0,
@@ -303,17 +370,33 @@ def main() -> None:
     check(d == 0.0, f"256^3 1000 steps: stream == twopass, max|diff| = {d!r}")
     del finals
 
-    def equal_runs(pm: Params, steps: int, backends: tuple) -> None:
+    def equal_runs(pm: Params, steps: int, backends: tuple, mats=None, sar: bool = False,
+                   label: str = "") -> dict:
+        """``steps`` steps of each backend from the mode's initial state
+        (with materials: from random fields, so that every cell of the load
+        deposits from the first step); the fields (and SAR maps) must be
+        equal.  Returns each backend's launch counts."""
         ts, amps = scan_inputs(pm, time_values(pm)[:steps])
-        states = {}
+        init = None
+        if mats is not None:
+            init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
+        states, powers, counts = {}, {}, {}
         for backend in backends:
-            s = initial_state(pm, dev)
-            make_chunk_runner(pm, dev, backend=backend)(s, (ts, amps))
+            s = initial_state(pm, dev) if init is None else state_from_numpy(init, dev, field_dtype(pm))
+            powers[backend] = zero_power_acc(pm, dev) if sar else None
+            reset_counts()
+            make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar)(s, (ts, amps), powers[backend])
+            torch.cuda.synchronize()
+            counts[backend] = counts_now()
             states[backend] = s
-        torch.cuda.synchronize()
         for a, b in zip(backends, backends[1:]):
             d = maxdiff(states[a], states[b])
-            check(d == 0.0, f"{pm.maxk}^3 {pm.mode.name} {steps} steps: {a} == {b}, max|diff| = {d!r}")
+            d_acc = float((powers[a] - powers[b]).abs().max()) if sar else 0.0
+            sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].max())!r})" if sar else ""
+            check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].max()) > 0),
+                  f"{pm.maxk}^3 {pm.mode.name} {label}{steps} steps: {a} == {b}, "
+                  f"max|diff| = {d!r}{sar_txt}")
+        return counts
 
     for mode in (Mode.COMPUTATION, Mode.VALIDATION):
         equal_runs(dataclasses.replace(p, mode=mode), 64, ("stream", "twopass", "torch"))
@@ -322,22 +405,133 @@ def main() -> None:
     equal_runs(p512, 16, ("stream", "twopass"))
     torch.cuda.empty_cache()
 
-    # -- 6. timing ---------------------------------------------------------
-    rates: dict[str, list[float]] = {}
+    # -- 6. the heating path at 256^3 --------------------------------------
+    ph = load_parameters("configs/heating_256.txt", dtype="float32")
+    nh = len(time_values(ph))
+    water = water_block(ph)
+    heat_plan = stream_plan.pick_plan(ph, lossy=True, sar=True)
+    print(f"heating plan at 256^3: {heat_plan} ({heat_plan.blocks} blocks of {heat_plan.threads} "
+          f"threads, {heat_plan.smem_bytes} B shared memory)", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
+             "--out", out],
+            capture_output=True, text=True, timeout=900,
+        )
+        cli_s = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        for line in lines[-3:]:
+            print(line)
+        sar_path = os.path.join(out, "sar.vtr")
+        peak_line = [line for line in lines if line.startswith("SAR map written to")]
+        peak = float(peak_line[0].split("(peak ")[1].split()[0]) if peak_line else float("nan")
+        n_vtr = len(glob.glob(os.path.join(out, "result*.vtr")))
+        check(r.returncode == 0 and "Simulation complete!" in r.stdout and os.path.exists(sar_path)
+              and peak > 0,
+              f"CLI heating_256 --water-block --sar exit {r.returncode} in {cli_s:.1f} s: sar.vtr "
+              f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B, peak {peak!r} J/m^3, "
+              f"{n_vtr} snapshots {r.stderr.strip()[-300:]}")
     for dtype in ("float32", "bfloat16"):
-        pd = dataclasses.replace(p, dtype=dtype)
-        ts, amps = scan_inputs(pd, time_values(pd)[: N_WARM + N_TIMED])
-        for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
-            s = initial_state(pd, dev)
-            run = make_chunk_runner(pd, dev, backend=backend)
-            run(s, (ts[:N_WARM], amps[:N_WARM]))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(s, (ts[N_WARM:], amps[N_WARM:]))
-            torch.cuda.synchronize()
-            dt_s = time.perf_counter() - t0
-            rates.setdefault(f"{backend} {dtype}", []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
-            del s
+        pd = dataclasses.replace(ph, dtype=dtype)
+        check(resolve_backend(pd, "auto", dev, water, accumulate_power=True) == "stream",
+              f"auto resolves to stream for heating at 256^3 {dtype}")
+    finals, powers = {}, {}
+    for backend in ("twopass", "stream"):
+        reset_counts()
+        res = run_simulation(ph, dev, materials=water, accumulate_power=True, write_snapshots=False,
+                             backend=backend, log=lambda m: None)
+        counts = counts_now()
+        sh = heat_plan.s
+        want = (expect(yee_update_h=nh, yee_update_e_lossy=nh) if backend == "twopass" else
+                expect(yee_update_h=nh % sh, yee_update_e_lossy=nh % sh, yee_stream_lossy_sar=nh // sh))
+        check(counts == want and nh == 1000, f"heating path {backend} launch counts {counts} == {want}")
+        for name in (("yee_update_e_lossy",) if backend == "twopass" else ("yee_stream_lossy_sar",)):
+            main_counts[name] = counts[name]
+            paths[name] = f"heating_256 --water-block --sar {backend}"
+        pw = res.power_j
+        check(pw is not None and pw.dtype == torch.float32 and tuple(pw.shape) == (ph.maxk, ph.maxj, ph.maxi)
+              and bool(torch.isfinite(pw).all()) and float(pw.max()) > 0
+              and all(bool(torch.isfinite(t).all()) for t in res.state.tensors()),
+              f"heating 256^3 {backend}: SAR map finite, peak {float(pw.max())!r} J/m^3 "
+              f"({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
+        finals[backend], powers[backend] = res.state, pw
+        del res
+    d = maxdiff(finals["stream"], finals["twopass"])
+    d_acc = float((powers["stream"] - powers["twopass"]).abs().max())
+    check(d == 0.0 and d_acc == 0.0,
+          f"heating 256^3 1000 steps: stream == twopass, fields max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
+    del finals, powers
+
+    # a step count that leaves n % s trailing two-pass steps, so that
+    # stream's per-step SAR increment after its sweeps is held too
+    ferrite = ferrite_slab(ph, base=water)
+    sf = stream_plan.pick_plan(ph, lossy=True, het=True, sar=True).s
+    check(N_LOADS % sf != 0, f"{N_LOADS} steps leave {N_LOADS % sf} trailing two-pass steps at s={sf}")
+    counts = equal_runs(ph, N_LOADS, ("stream", "twopass", "torch"), ferrite, True, "water + ferrite + SAR ")
+    check(counts["stream"] == expect(yee_stream_lossy_het_sar=N_LOADS // sf, yee_update_h_het=N_LOADS % sf,
+                                     yee_update_e_lossy=N_LOADS % sf)
+          and counts["twopass"] == expect(yee_update_h_het=N_LOADS, yee_update_e_lossy=N_LOADS),
+          f"water + ferrite + SAR launch counts {counts['stream']} / {counts['twopass']}")
+    main_counts["yee_stream_lossy_het_sar"] = counts["stream"]["yee_stream_lossy_het_sar"]
+    main_counts["yee_update_h_het"] = counts["twopass"]["yee_update_h_het"]
+    paths["yee_stream_lossy_het_sar"] = f"heating_256 --water-block --ferrite-slab --sar stream ({N_LOADS} steps)"
+    paths["yee_update_h_het"] = f"heating_256 --water-block --ferrite-slab --sar twopass ({N_LOADS} steps)"
+    for mats, name, scene_m in ((water, "yee_stream_lossy", "--water-block"),
+                                (ferrite, "yee_stream_lossy_het", "--water-block --ferrite-slab")):
+        counts = equal_runs(ph, N_LOADS, ("stream", "twopass"), mats, False, f"{scene_m} ")
+        sm = stream_plan.pick_plan(ph, lossy=True, het=mats.mu_r is not None).s
+        h_m = "yee_update_h_het" if mats.mu_r is not None else "yee_update_h"
+        check(counts["stream"] == expect(**{name: N_LOADS // sm, h_m: N_LOADS % sm,
+                                            "yee_update_e_lossy": N_LOADS % sm}),
+              f"{scene_m} stream launch counts {counts['stream']}")
+        main_counts[name] = counts["stream"][name]
+        paths[name] = f"heating_256 {scene_m} stream ({N_LOADS} steps)"
+    torch.cuda.empty_cache()
+
+    # twopass's device memory: the allocator's peak over a water + ferrite
+    # + SAR chunk against the model (one state, the material arrays, the
+    # SAR slab temporaries), and the model where no stream plan fits
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s_m, pw_m = initial_state(ph, dev), zero_power_acc(ph, dev)
+    make_chunk_runner(ph, dev, ferrite, "twopass", accumulate_power=True)(
+        s_m, scan_inputs(ph, time_values(ph)[:4]), pw_m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    model = stream_plan.twopass_bytes(ph, True, True, True)
+    check(0 < peak <= model, f"twopass 256^3 water + ferrite + SAR peak device memory {peak} B <= model "
+                             f"{model} B ({peak / model!r} of it)")
+    del s_m, pw_m
+    torch.cuda.empty_cache()
+    p1024 = dataclasses.replace(ph, length=1.024, width=1.024, height=1.024)
+    need_tp = stream_plan.twopass_bytes(p1024, True, True, True)
+    need_st = 2 * stream_plan.state_bytes(p1024) + stream_plan.material_bytes(p1024, True, True, True) \
+        + stream_plan.sar_work_bytes(p1024)
+    check(not stream_plan.supported(p1024, free0, True, True, True)
+          and stream_plan.twopass_fits(p1024, free0, True, True, True),
+          f"1024^3 fp32 water + ferrite + SAR: stream needs {need_st} B, twopass {need_tp} B; "
+          f"{stream_plan.MEMORY_MARGIN} of the {free0} B free at start: stream refused, twopass fits")
+
+    # -- 7. timing ---------------------------------------------------------
+    rates: dict[str, list[float]] = {}
+    for scene_t, mats_t in (("vacuum", None), ("heating", water)):
+        for dtype in ("float32", "bfloat16"):
+            pd = dataclasses.replace(p, dtype=dtype)
+            ts, amps = scan_inputs(pd, time_values(pd)[: N_WARM + N_TIMED])
+            sar = mats_t is not None
+            for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
+                s = initial_state(pd, dev)
+                power = zero_power_acc(pd, dev) if sar else None
+                run = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar)
+                run(s, (ts[:N_WARM], amps[:N_WARM]), power)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(s, (ts[N_WARM:], amps[N_WARM:]), power)
+                torch.cuda.synchronize()
+                dt_s = time.perf_counter() - t0
+                rates.setdefault(f"{scene_t} {backend} {dtype}", []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
+                del s, power, run
     for key, vals in rates.items():
         print(f"timing 256^3 {key}: Mcells/s {vals} (2 runs of {N_TIMED} steps, {smi})")
 
@@ -352,25 +546,53 @@ def main() -> None:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
 
-    s = initial_state(dataclasses.replace(p, mode=Mode.VALIDATION), dev)
-    coefs = update_coefs(p)
     patch = make_source_plan(p).patch
     arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}
-    st, drive, plan = sweep_inputs(p, arrays, main_plan.s)
+    ms: dict[str, tuple[float, float]] = {}  # fp32 kernel ms, plain ms
+    ms_bf16: dict[str, float] = {}
+    plans: dict[str, stream_plan.StreamPlan] = {}
+    variants = (("", None, False), ("_lossy", water, False), ("_lossy_sar", water, True),
+                ("_lossy_het", ferrite, False), ("_lossy_het_sar", ferrite, True))
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dtype)
+        fp32 = dtype == "float32"
+        s_d = initial_state(dataclasses.replace(pd, mode=Mode.VALIDATION), dev)
+        for mats_t, names in ((None, ("yee_update_h", "yee_update_e")),
+                              (ferrite, ("yee_update_h_het", "yee_update_e_lossy"))):
+            coefs_t = update_coefs(pd, mats_t, dev)
+            k_h = event_ms(lambda: yee.update_h(pd, s_d, coefs_t, patch))
+            k_e = event_ms(lambda: yee.update_e(pd, s_d, coefs_t))
+            if fp32:
+                ms[names[0]] = (k_h, event_ms(lambda: curl.update_h(pd, s_d, coefs_t, patch)))
+                ms[names[1]] = (k_e, event_ms(lambda: curl.update_e(pd, s_d, coefs_t)))
+            else:
+                ms_bf16[names[0]], ms_bf16[names[1]] = k_h, k_e
+            del coefs_t
+        del s_d
+        for suffix, mats_t, sar in variants:
+            name = "yee_stream" + suffix
+            coefs_t = update_coefs(pd, mats_t, dev)
+            plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, het=coefs_t.heterogeneous_mu, sar=sar)
+            st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
+            out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            acc = zero_power_acc(pd, dev) if sar else None
+            k_ms = event_ms(lambda: stream.sweep(pd, st, out, coefs_t, plan_t, drive, acc))
+            if fp32:
+                plans[name] = plan_t
+                ms[name] = (k_ms, event_ms(lambda: stream.plain_sweep(pd, st, coefs_t, plan_t.s, drive, out, acc),
+                                           reps=5))
+            else:
+                ms_bf16[name] = k_ms
+            del coefs_t, st, out, acc
     del arrays
-    out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
-    ms = {
-        "yee_update_h": (event_ms(lambda: yee.update_h(p, s, coefs, patch)),
-                         event_ms(lambda: curl.update_h(p, s, coefs, patch))),
-        "yee_update_e": (event_ms(lambda: yee.update_e(p, s, coefs)),
-                         event_ms(lambda: curl.update_e(p, s, coefs))),
-        "yee_stream": (event_ms(lambda: stream.sweep(p, st, out, coefs, plan, drive)),
-                       event_ms(lambda: stream.plain_sweep(p, st, coefs, plan.s, drive, out), reps=5)),
-    }
     for name, (k_ms, p_ms) in ms.items():
-        per = f" per sweep of {plan.s} steps" if name == "yee_stream" else " per pass"
-        print(f"timing 256^3 fp32 {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms{per} ({smi})")
+        per = f" per sweep of {plans[name].s} steps" if name in plans else " per pass"
+        print(f"timing 256^3 {name}: kernel fp32 {k_ms!r} ms, bf16 {ms_bf16[name]!r} ms, "
+              f"plain fp32 {p_ms!r} ms{per} ({smi})")
     # every plan the picker ranks, in both dtypes (the picker's choice above)
+    st, drive, plan = sweep_inputs(p, {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32)
+                                       for c in COMPONENTS}, main_plan.s)
+    coefs = update_coefs(p)
     for dtype in ("float32", "bfloat16"):
         st_d = st.to(dtype=field_dtype(dataclasses.replace(p, dtype=dtype)))
         out_d = FieldState(*(torch.empty_like(t) for t in st_d.tensors()))
@@ -381,32 +603,46 @@ def main() -> None:
                   f"{pl.blocks} blocks: {k_ms!r} ms per sweep, {k_ms / s_try!r} ms per step, "
                   f"modelled {pl.bytes_per_cell_step!r} B per cell and step ({smi})")
         del st_d, out_d
+    del st
 
     # least time for the same work: each input read once, each output
     # written once (bytes), or the flops at the fp32 peak, whichever is larger
     cells = math.prod(p.padded_shape)
-    item = 4
-    bytes_moved = {"yee_update_h": 9 * item * cells, "yee_update_e": 9 * item * cells,
-                   "yee_stream": 12 * item * cells}
-    flops = {"yee_update_h": 15 * cells, "yee_update_e": 15 * cells, "yee_stream": 30 * plan.s * cells}
-    replaces = {"yee_update_h": "fdtd_tpu/ops/pallas_fused.py:332",
-                "yee_update_e": "fdtd_tpu/ops/pallas_fused.py:412",
-                "yee_stream": "fdtd_tpu/ops/pallas_stream.py:207"}
-    sources = {"yee_update_h": "fdtd_tpu_torch/csrc/yee_twopass.cu",
-               "yee_update_e": "fdtd_tpu_torch/csrc/yee_twopass.cu",
-               "yee_stream": "fdtd_tpu_torch/csrc/yee_stream.cu"}
+    cells_k = p.maxk * p.maxj * p.maxi
+
+    def work(name: str, item: int) -> tuple[float, float]:
+        """(bytes, flops) of one pass or sweep of kernel ``name`` with
+        ``item``-byte fields and coefficients (the SAR map is fp32)."""
+        lossy, het, sar = "lossy" in name, "het" in name, name.endswith("sar")
+        if name.startswith("yee_update_h"):  # six fields and hf in, three H out
+            return (9 + (3 if het else 0)) * item * cells, 15 * cells
+        if name.startswith("yee_update_e"):  # six fields and ca/cb in, three E out
+            return (9 + (6 if lossy else 0)) * item * cells, (18 if lossy else 15) * cells
+        s_n = plans[name].s  # fields in and out, coefficients, sigma, the map in and out
+        b = (12 + (6 if lossy else 0) + (3 if het else 0)) * item * cells + ((item + 8) * cells_k if sar else 0)
+        return b, s_n * (cells * (15 + (18 if lossy else 15)) + (20 * cells_k if sar else 0))
+
     kernels = []
-    for name in ("yee_update_h", "yee_update_e", "yee_stream"):
-        t_bytes = bytes_moved[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = flops[name] / FP32_FLOPS * 1e3
-        print(f"bound 256^3 {name}: fp32 {max(t_bytes, t_ops)!r} ms, bf16 "
-              f"{max(t_bytes / 2, t_ops)!r} ms ({'bytes' if t_bytes / 2 >= t_ops else 'operations'})")
+    for name in ("yee_update_h", "yee_update_e", "yee_stream", "yee_update_h_het", "yee_update_e_lossy",
+                 "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar"):
+        bound = {}
+        for dtype, item in (("fp32", 4), ("bf16", 2)):
+            bytes_n, flops_n = work(name, item)
+            t_bytes, t_ops = bytes_n / HBM_BYTES_PER_S * 1e3, flops_n / FP32_FLOPS * 1e3
+            bound[dtype] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", bytes_n / cells)
+        print(f"bound 256^3 {name}: fp32 {bound['fp32'][0]!r} ms ({bound['fp32'][2]!r} B per padded cell, "
+              f"{bound['fp32'][1]}), bf16 {bound['bf16'][0]!r} ms ({bound['bf16'][2]!r} B, {bound['bf16'][1]}); "
+              f"launches {main_counts[name]} on {paths[name]}")
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
+            "name": name, "route": "cuda",
+            "source": "fdtd_tpu_torch/csrc/" + ("yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
+            "replaces": ("fdtd_tpu/ops/pallas_stream.py:207" if "stream" in name else
+                         "fdtd_tpu/ops/pallas_fused.py:332" if "_h" in name else
+                         "fdtd_tpu/ops/pallas_fused.py:412"),
             "launches": main_counts[name], "max_abs_err": max_err[name],
             "ms": ms[name][0], "plain_ms": ms[name][1],
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "bound_ms": bound["fp32"][0], "bound_by": bound["fp32"][1],
+            "library_ms": None, "path": paths[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

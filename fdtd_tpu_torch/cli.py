@@ -1,21 +1,29 @@
 """Command-line entry point: ``python -m fdtd_tpu_torch params.txt``.
 
 Mirrors ``python -m fdtd_tpu params.txt`` (and the reference's
-``./microwave params.txt``, main.c:807-853) on the vacuum main path: the
-same banner lines, the same single positional argument, the same exit codes
-on a missing or bad parameters file.  ``--device`` chooses where the fields
-live (default ``cuda``); without CUDA the run stops with a message that
-names ``--device cpu``.
+``./microwave params.txt``, main.c:807-853): the same banner lines, the same
+single positional argument, the same exit codes on a missing or bad
+parameters file, and the JAX CLI's load flags (``--water-block``,
+``--ferrite-slab``, ``--load-shape``, ``--load-center``) and ``--sar``,
+which writes ``sar.vtr``.  ``--device`` chooses where the fields live
+(default ``cuda``); without CUDA the run stops with a message that names
+``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
+import torch
+
+from . import grid
+from .io.vtr import write_vtr
 from .params import Mode, load_parameters
 from .runner import BACKEND_CHOICES, run_simulation
+from .state import block_mask, cylinder_mask, ferrite_slab, sphere_mask, water_from_mask
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -33,6 +41,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "else twopass; torch on the CPU or in float64)")
     ap.add_argument("--device", default="cuda", help="torch device of the fields (default: cuda)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
+    ap.add_argument("--water-block", action="store_true", help="place a water load in the cavity")
+    ap.add_argument("--ferrite-slab", action="store_true",
+                    help="add a mu_r=4 ferrite shelf (heterogeneous mu; composes with --water-block)")
+    ap.add_argument("--sar", action="store_true",
+                    help="accumulate power deposition (J/m^3) and write sar.vtr")
+    ap.add_argument("--load-shape", default="box", choices=["box", "sphere", "cylinder"],
+                    help="geometry of the --water-block load: the default 0.3-0.7 box, a "
+                         "centered sphere, or a z-axis cylinder (the mug)")
+    ap.add_argument("--load-center", default=None, metavar="X,Y",
+                    help="(x, y) center of the load as box fractions (default 0.5,0.5)")
     ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N", help="checkpoint every N steps")
     ap.add_argument("--resume", action="store_true", help="resume from latest checkpoint in --out")
     ap.add_argument("--diag-log", default=None, help="JSONL per-sample energy log path")
@@ -51,6 +69,41 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--source-pulse-delay", type=float, default=None, metavar="S",
                     help="gaussian envelope center in seconds (default: 3 widths)")
     return ap
+
+
+def _parse_load_center(spec: str | None) -> tuple[float, float]:
+    """(x, y) load center as box fractions from --load-center (default
+    centered); raises ValueError on a malformed spec."""
+    if not spec:
+        return (0.5, 0.5)
+    parts = spec.split(",")
+    if len(parts) != 2:
+        raise ValueError(f"--load-center wants X,Y fractions, got {spec!r}")
+    cx, cy = (float(v) for v in parts)
+    if not (0.0 < cx < 1.0 and 0.0 < cy < 1.0):
+        raise ValueError("--load-center fractions must be in (0, 1)")
+    return (cx, cy)
+
+
+def _materials(args, p):
+    """The scene's materials from the load flags (None for vacuum); raises
+    ValueError on flags that do not compose."""
+    materials = None
+    if args.water_block:
+        cx, cy = _parse_load_center(args.load_center)
+        ox, oy = cx - 0.5, cy - 0.5  # offset from the centered defaults
+        if args.load_shape == "sphere":
+            mask = sphere_mask(p, center=(cx, cy, 0.5))
+        elif args.load_shape == "cylinder":
+            mask = cylinder_mask(p, center=(cx, cy))
+        else:
+            mask = block_mask(p, lo=(0.3 + ox, 0.3 + oy, 0.3), hi=(0.7 + ox, 0.7 + oy, 0.7))
+        materials = water_from_mask(p, mask)
+    elif args.load_shape != "box" or args.load_center:
+        raise ValueError("--load-shape/--load-center need --water-block (they place the water load)")
+    if args.ferrite_slab:
+        materials = ferrite_slab(p, base=materials)
+    return materials
 
 
 def main(argv=None) -> int:
@@ -81,6 +134,12 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
 
+    try:
+        materials = _materials(args, p)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
     print("Initializing fields")
     if p.mode == Mode.VALIDATION:
         print("Validation mode activated. ")
@@ -92,8 +151,10 @@ def main(argv=None) -> int:
             p,
             args.device,
             out_dir=args.out,
+            materials=materials,
             backend=args.backend,
             write_snapshots=not args.no_output,
+            accumulate_power=args.sar,
             checkpoint_every=args.checkpoint_every,
             resume=args.resume,
             quirk_compat=not args.physics_correct,
@@ -108,6 +169,12 @@ def main(argv=None) -> int:
         f"{result.iterations} iterations in {result.wall_seconds:.3f}s "
         f"({result.mcells_per_s:.1f} Mcells/s)"
     )
+    if args.sar and not args.no_output:
+        acc = result.power_j.to(device="cpu", dtype=torch.float64).numpy()
+        t_em = result.iterations * p.time_step
+        sar_path = os.path.join(args.out, "sar.vtr")  # the snapshot writer made the directory
+        write_vtr(sar_path, grid.node_coords(p), {"power_j_m3": acc, "avg_power_w_m3": acc / t_em})
+        print(f"SAR map written to {sar_path} (peak {acc.max():.3e} J/m^3 over {t_em:.3e} s)")
     print("Simulation complete!")
     return 0
 

@@ -5,8 +5,10 @@ format is plain data: a state is a dict of six numpy arrays in the canonical
 padded (k, j, i) layout, keyed ``ex ey ez hx hy hz`` (what
 ``{c: np.asarray(getattr(s, c)) for c in COMPONENTS}`` gives for a JAX
 ``FieldState``), and a scene is read from the fields of any object shaped
-like the JAX ``Params``.  The tests use this to feed both packages the same
-inputs.
+like the JAX ``Params``.  Material maps (the system's "weights": both
+packages build their coefficients from them) are read from any object with
+``eps_r``/``sigma``/``mu_r`` attributes, such as a JAX ``Materials``.  The
+tests use this to feed both packages the same inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from .grid import COMPONENTS
 from .io.checkpoint import from_host, to_host
 from .params import Mode, Params, SourceConfig
-from .state import FieldState
+from .state import FieldState, Materials
 
 _PARAM_FIELDS = ("length", "width", "height", "spatial_step", "time_step",
                  "simulation_time", "sampling_rate")
@@ -48,3 +50,17 @@ def state_from_numpy(arrays: dict[str, np.ndarray], device, dtype: torch.dtype) 
 def state_to_numpy(s: FieldState) -> dict[str, np.ndarray]:
     """The six fields as host numpy arrays (bfloat16 widened to float32)."""
     return {c: to_host(getattr(s, c)) for c in COMPONENTS}
+
+
+def materials_from(other) -> Materials:
+    """The port's ``Materials`` with copies of the ``eps_r``/``sigma``/``mu_r``
+    maps of ``other`` (None stays None)."""
+    def copy(a):
+        return None if a is None else np.array(a, dtype=np.float64)
+
+    return Materials(eps_r=copy(other.eps_r), sigma=copy(other.sigma), mu_r=copy(other.mu_r))
+
+
+def power_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """An fp32 SAR accumulator tensor on ``device`` from a host array (a copy)."""
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)

@@ -1,8 +1,11 @@
 // Streaming multi-step Yee sweep for Hopper (sm_90a): one launch advances a
-// closed PEC cavity in vacuum by S in {8, 4, 2} leapfrog steps.
+// closed PEC cavity by S in {8, 4, 2} leapfrog steps.
 //
-// Replaces the TPU kernel fdtd_tpu/ops/pallas_stream.py::_kernel (vacuum,
-// single device, both modes).  The plain version is
+// Replaces the TPU kernel fdtd_tpu/ops/pallas_stream.py::_kernel on a
+// single device: vacuum in both modes, and its material variants in
+// computation mode: lossy media (six ca/cb arrays, E = ca*E + cb*curl H),
+// heterogeneous mu_r (three hf arrays for the H update) and the SAR
+// accumulator (sigma*|E_cell|^2*dt of every step added to an fp32 map).  The plain version is
 // fdtd_tpu_torch/ops/stream.py::plain_sweep; the plan (tile and block
 // counts) is fdtd_tpu_torch/ops/stream_plan.py.
 //
@@ -34,17 +37,38 @@
 // interior writes would be read by a neighbour's halo): it reads one state
 // and writes a second.
 //
+// Materials.  The E update of level m on plane k reads ca/cb at (k, j, i),
+// the H update hf at (k, j, i), straight from device memory (each plane's
+// coefficients are read once per level, S times in S consecutive pipeline
+// steps, so the repeats hit L1/L2).  SAR: the cell mean of cell (k, j, i)
+// reads level m's E on planes k and k+1 and at j+1, i+1.  Level m's E on
+// plane k+1 appears at pipeline step k+1+m, beside its plane k (still in
+// the registers; level S keeps one extra E plane for it), and a third
+// shared exchange (5 values per column) gives the j+1 / i+1 neighbours.
+// That read reaches one column past E's validity, so SAR tiles emit one
+// column fewer per axis, (BJ-2S-1) x (BI-2S-1), and the pipeline runs one
+// step further so that level S reaches plane k1.  Each emitted cell is
+// owned by one thread: it loads the accumulator at level 1, adds level
+// 1..S's increments in level order in a register shift chain (one slot
+// per level in flight) and stores it at level S, so the map is updated in
+// place, without atomics, in the order of S per-step increments.
+// Lead-in planes and halo columns add nothing.
+//
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
-// bf16), against 72 B per step for the two-pass kernels.  This first
+// bf16), against 72 B per step for the two-pass kernels.  Lossy media add
+// 24 B of ca/cb reads per cell per sweep (fp32), het-mu 12 B of hf, SAR
+// 4 B of sigma and 8 B of accumulator read and write.  This first
 // version loads and stores with plain per-thread accesses (no TMA, no
 // cp.async) and synchronises the block twice per level and plane.
 //
 // Numerics: every operation is an explicitly rounded __fsub_rn / __fmul_rn /
 // __fadd_rn in the order of ops/curl.py, built with -fmad=false, so fp32 is
 // bit-equal to S steps of the two-pass kernels and of the plain torch
-// steps.  bf16 storage loads to fp32, keeps every level in fp32 and rounds
-// once per sweep, at the store.  Offsets are 64-bit.
+// steps (with SAR: and their per-step increments).  bf16 storage loads to
+// fp32, keeps every level in fp32 and rounds once per sweep, at the store;
+// coefficients and sigma stored in bf16 widen to fp32, and the SAR of a
+// bf16 sweep comes from its fp32 levels.  Offsets are 64-bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,9 +81,24 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p, int64_t o) { return 
 __device__ __forceinline__ void st(float* p, int64_t o, float v) { p[o] = v; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, int64_t o, float v) { p[o] = __float2bfloat16_rn(v); }
 
-// h + f * ((a1 - a0) - (b1 - b0)), each operation rounded on its own
+// (a1 - a0) - (b1 - b0), each operation rounded on its own
+__device__ __forceinline__ float curl(float a1, float a0, float b1, float b0) {
+    return __fsub_rn(__fsub_rn(a1, a0), __fsub_rn(b1, b0));
+}
+
+// h + f * curl
 __device__ __forceinline__ float leap(float h, float f, float a1, float a0, float b1, float b0) {
-    return __fadd_rn(h, __fmul_rn(f, __fsub_rn(__fsub_rn(a1, a0), __fsub_rn(b1, b0))));
+    return __fadd_rn(h, __fmul_rn(f, curl(a1, a0, b1, b0)));
+}
+
+// ca * e + cb * curl (the lossy E update)
+__device__ __forceinline__ float lossy(float e, float ca, float cb, float a1, float a0, float b1, float b0) {
+    return __fadd_rn(__fmul_rn(ca, e), __fmul_rn(cb, curl(a1, a0, b1, b0)));
+}
+
+// 0.25 * (((a + b) + c) + d): a 4-edge cell mean, as diagnostics.py sums it
+__device__ __forceinline__ float mean4(float a, float b, float c, float d) {
+    return __fmul_rn(0.25f, __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d));
 }
 
 constexpr int BI = 32;  // threads along i: one warp
@@ -74,15 +113,30 @@ struct OutFields {
     T* ex; T* ey; T* ez; T* hx; T* hy; T* hz;
 };
 
-template <typename T, int S, int BJ>
+// the arrays of the material variants (null where a variant does not read them)
+template <typename T>
+struct Material {
+    const T* ca[3];     // lossy: ca_x, ca_y, ca_z, the fields' shape
+    const T* cb[3];     // lossy: cb_x, cb_y, cb_z
+    const T* hf[3];     // het: hf_x, hf_y, hf_z
+    const T* sigma;     // SAR: (K, J, I) cell conductivity
+    float* acc;         // SAR: (K, J, I) fp32 accumulator, updated in place
+    float dt;           // SAR: the step, rounded to fp32
+};
+
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
-              const T* __restrict__ ez_rows, const T* __restrict__ hx_rows) {
-    constexpr int TJ = BJ - 2 * S;
-    constexpr int TI = BI - 2 * S;
+              const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat) {
+    constexpr int SH = SAR ? 1 : 0;  // SAR reads E one column past: one column fewer emitted
+    constexpr int TJ = BJ - 2 * S - SH;
+    constexpr int TI = BI - 2 * S - SH;
+    static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
     __shared__ float sE[3][BJ][BI];
     __shared__ float sH[3][BJ][BI];
+    // SAR: level m's E on planes k-1 (L) and k (U): exL, exU, eyL, eyU, ezL
+    __shared__ float sS[SAR ? 5 : 1][SAR ? BJ : 1][BI];
 
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int i = (int)blockIdx.x * TI - S + tx;
@@ -106,19 +160,28 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
     const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
     const int ni = i1 - i0;
+    // SAR: this thread owns the cells of its column that the block emits
+    const bool c_sar = SAR && emit && j < J && i < I;
+    const int64_t cell_col = (int64_t)j * I + i;
+    const int64_t cell_sk = (int64_t)J * I;
 
-    // e[m], h[m]: level m's newest plane of this column (level S: H only)
-    float e[S][3], h[S + 1][3];
+    // e[m], h[m]: level m's newest plane of this column (level S: H only,
+    // and with SAR its E too); acc[m-1]: the accumulator of the cell that
+    // level m adds to at this pipeline step
+    float e[SAR ? S + 1 : S][3], h[S + 1][3];
+    float acc[SAR ? S : 1];
 #pragma unroll
     for (int m = 0; m <= S; ++m) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            if (m < S) e[m][c] = 0.f;
+            if (m < (SAR ? S + 1 : S)) e[m][c] = 0.f;
             h[m][c] = 0.f;
         }
     }
+#pragma unroll
+    for (int m = 0; m < (SAR ? S : 1); ++m) acc[m] = 0.f;
 
-    for (int r = ks; r <= k1 - 1 + S; ++r) {
+    for (int r = ks; r <= k1 - 1 + S + SH; ++r) {
         // eo, ho: the inputs of the next level, i.e. the previous level's
         // plane before this pipeline step replaced it
         float eo[3] = {e[0][0], e[0][1], e[0][2]};
@@ -135,6 +198,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
         for (int m = 1; m <= S; ++m) {
             const int k = r - m;
+            const int64_t o = (int64_t)k * sk + col;  // read only where k >= 0 and inbox
             const bool on_patch = c_patch && k == 0;
             if (m >= 2 && on_patch) {
                 // step m's hard-set, in level m's inputs only
@@ -156,9 +220,12 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const bool kh = k >= 0 && k < K;
             const bool khz = k >= 0 && k <= K;
             float hn[3] = {ho[0], ho[1], ho[2]};
-            if (kh && c_hx && !on_patch) hn[0] = leap(ho[0], fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
-            if (kh && c_hy) hn[1] = leap(ho[1], fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
-            if (khz && c_hz && !on_patch) hn[2] = leap(ho[2], fh, ex_pj, eo[0], ey_pi, eo[1]);
+            if (kh && c_hx && !on_patch)
+                hn[0] = leap(ho[0], HET ? ld(mat.hf[0], o) : fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
+            if (kh && c_hy)
+                hn[1] = leap(ho[1], HET ? ld(mat.hf[1], o) : fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
+            if (khz && c_hz && !on_patch)
+                hn[2] = leap(ho[2], HET ? ld(mat.hf[2], o) : fh, ex_pj, eo[0], ey_pi, eo[1]);
 
             sH[0][ty][tx] = hn[0]; sH[1][ty][tx] = hn[1]; sH[2][ty][tx] = hn[2];
             __syncthreads();
@@ -172,9 +239,43 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const bool ke = k >= 1 && k < K;
             const bool kez = k >= 0 && k < K;
             float en[3] = {eo[0], eo[1], eo[2]};
-            if (ke && c_ex) en[0] = leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
-            if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
-            if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
+            if (LOSSY) {
+                if (ke && c_ex)
+                    en[0] = lossy(eo[0], ld(mat.ca[0], o), ld(mat.cb[0], o), hn[2], hz_mj, hn[1], h[m][1]);
+                if (ke && c_ey)
+                    en[1] = lossy(eo[1], ld(mat.ca[1], o), ld(mat.cb[1], o), hn[0], h[m][0], hn[2], hz_mi);
+                if (kez && c_ez)
+                    en[2] = lossy(eo[2], ld(mat.ca[2], o), ld(mat.cb[2], o), hn[1], hy_mi, hn[0], hx_mj);
+            } else {
+                if (ke && c_ex) en[0] = leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
+                if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
+                if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
+            }
+
+            if constexpr (SAR) {
+                // cell k-1 at level m: E^m on planes k-1 (e[m], not yet
+                // replaced) and k (en), and their j+1 / i+1 neighbours
+                sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
+                sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
+                sS[4][ty][tx] = e[m][2];
+                __syncthreads();
+                const int cell = k - 1;
+                if (c_sar && cell >= k0 && cell < k1 && cell < K) {
+                    // emitted columns stop S+1 short of the block's edge, so
+                    // ty+1 and tx+1 lie inside it
+                    const float mex = mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]);
+                    const float mey = mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]);
+                    const float mez = mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1],
+                                            sS[4][ty + 1][tx + 1]);
+                    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
+                                               __fmul_rn(mez, mez));
+                    const int64_t oc = (int64_t)cell * cell_sk + cell_col;
+                    const float inc = __fmul_rn(__fmul_rn(ld(mat.sigma, oc), sq), mat.dt);
+                    if (m == 1) acc[0] = mat.acc[oc];
+                    acc[m - 1] = __fadd_rn(acc[m - 1], inc);
+                    if (m == S) mat.acc[oc] = acc[S - 1];
+                }
+            }
 
             if (m < S) {
 #pragma unroll
@@ -186,47 +287,92 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                 }
             } else {
 #pragma unroll
-                for (int c = 0; c < 3; ++c) h[m][c] = hn[c];
+                for (int c = 0; c < 3; ++c) {
+                    h[m][c] = hn[c];
+                    if constexpr (SAR) e[m][c] = en[c];
+                }
                 if (emit && k >= k0 && k < k1) {
-                    const int64_t o = (int64_t)k * sk + col;
                     st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
                     st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
                 }
             }
         }
+        if constexpr (SAR) {
+            // the cell level m added to is level m+1's at the next step
+#pragma unroll
+            for (int m = S - 1; m >= 1; --m) acc[m] = acc[m - 1];
+        }
     }
 }
 
-template <typename T, int S, int BJ>
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR>
 int launch(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
            int tk, int has_patch, int j0, int j1, int i0, int i1,
-           const void* ez_rows, const void* hx_rows, cudaStream_t stream) {
-    constexpr int TJ = BJ - 2 * S;
-    constexpr int TI = BI - 2 * S;
+           const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream) {
+    constexpr int SH = SAR ? 1 : 0;
+    constexpr int TJ = BJ - 2 * S - SH;
+    constexpr int TI = BI - 2 * S - SH;
     const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
                          (const T*)in[3], (const T*)in[4], (const T*)in[5]};
     const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
     const dim3 block(BI, BJ);
     const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
                     (unsigned)((K + 1 + tk - 1) / tk));
-    stream_kernel<T, S, BJ><<<grid, block, 0, stream>>>(
+    stream_kernel<T, S, BJ, LOSSY, HET, SAR><<<grid, block, 0, stream>>>(
         f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows);
+        (const T*)ez_rows, (const T*)hx_rows, mat);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+// The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum)
+// and ::BLOCK_J_MATERIAL (the material variants).
+template <typename T, bool LOSSY, bool HET, bool SAR>
 int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
              float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
-             const void* ez_rows, const void* hx_rows, cudaStream_t stream) {
-    // the (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J
-    if (s == 8 && bj == 24)
-        return launch<T, 8, 24>(in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows, hx_rows, stream);
-    if (s == 4 && bj == 32)
-        return launch<T, 4, 32>(in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows, hx_rows, stream);
-    if (s == 2 && bj == 32)
-        return launch<T, 2, 32>(in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows, hx_rows, stream);
+             const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream) {
+#define YEE_STREAM_CASE(S_, BJ_)                                                                  \
+    if (s == S_ && bj == BJ_)                                                                     \
+        return launch<T, S_, BJ_, LOSSY, HET, SAR>(in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, \
+                                                   i0, i1, ez_rows, hx_rows, mat, stream);
+    if constexpr (!LOSSY) {
+        YEE_STREAM_CASE(8, 24)
+        YEE_STREAM_CASE(4, 32)
+        YEE_STREAM_CASE(2, 32)
+    } else {
+        YEE_STREAM_CASE(8, 24)
+        YEE_STREAM_CASE(4, 24)
+        YEE_STREAM_CASE(2, 32)
+    }
+#undef YEE_STREAM_CASE
     return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_material(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
+                      int tk, int has_patch, int j0, int j1, int i0, int i1,
+                      const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
+                      const void* sigma, void* acc, float dt, cudaStream_t stream) {
+    Material<T> mat{};
+    for (int q = 0; q < 3; ++q) {
+        mat.ca[q] = (const T*)coefs[q];
+        mat.cb[q] = (const T*)coefs[3 + q];
+        if (hf != nullptr) mat.hf[q] = (const T*)hf[q];
+    }
+    mat.sigma = (const T*)sigma;
+    mat.acc = (float*)acc;
+    mat.dt = dt;
+    const bool het = hf != nullptr, sar = acc != nullptr;
+    if (het && sar)
+        return dispatch<T, true, true, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
+                                             i1, ez_rows, hx_rows, mat, stream);
+    if (het)
+        return dispatch<T, true, true, false>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
+                                              i1, ez_rows, hx_rows, mat, stream);
+    if (sar)
+        return dispatch<T, true, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
+                                              i1, ez_rows, hx_rows, mat, stream);
+    return dispatch<T, true, false, false>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
+                                           i1, ez_rows, hx_rows, mat, stream);
 }
 
 }  // namespace
@@ -234,10 +380,11 @@ int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // in, out: six pointers each (ex, ey, ez, hx, hy, hz); out must not alias
 // in.  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows in the storage dtype
-// (unused without the patch).  Launches on `stream` and returns
-// cudaGetLastError().
+// (unused without the patch).  Each entry point launches on `stream` and
+// returns cudaGetLastError().
 extern "C" {
 
+// vacuum: scalar factors fh (H) and fe (E)
 int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
                      int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
                      const void* ez_rows, const void* hx_rows, int dtype, void* stream) {
@@ -245,11 +392,35 @@ int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, flo
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return dispatch<float>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-                               ez_rows, hx_rows, st);
+        return dispatch<float, false, false, false>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1,
+                                                    i0, i1, ez_rows, hx_rows, Material<float>{}, st);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-                                       ez_rows, hx_rows, st);
+        return dispatch<__nv_bfloat16, false, false, false>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch,
+                                                            j0, j1, i0, i1, ez_rows, hx_rows,
+                                                            Material<__nv_bfloat16>{}, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// materials: coefs = ca_x, ca_y, ca_z, cb_x, cb_y, cb_z (the fields' shape
+// and dtype); hf = hf_x, hf_y, hf_z for heterogeneous mu_r, else null (fh
+// is the H factor then); with acc (fp32, (K, J, I), updated in place) the
+// sweep adds every step's sigma*|E_cell|^2*dt, sigma (K, J, I) in the
+// storage dtype; without it both are null.
+int yee_stream_sweep_material(void* const* in, void* const* out, int K, int J, int I, float fh,
+                              int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0,
+                              int i1, const void* ez_rows, const void* hx_rows, void* const* coefs,
+                              void* const* hf, const void* sigma, void* acc, float dt, int dtype,
+                              void* stream) {
+    if (bi != BI || tk < 1 || coefs == nullptr || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
+        || ((acc == nullptr) != (sigma == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (dtype == 0)
+        return dispatch_material<float>(s, bj, in, out, K, J, I, fh, tk, has_patch, j0, j1, i0, i1,
+                                        ez_rows, hx_rows, coefs, hf, sigma, acc, dt, st);
+    if (dtype == 1)
+        return dispatch_material<__nv_bfloat16>(s, bj, in, out, K, J, I, fh, tk, has_patch, j0, j1, i0, i1,
+                                                ez_rows, hx_rows, coefs, hf, sigma, acc, dt, st);
     return (int)cudaErrorInvalidValue;
 }
 

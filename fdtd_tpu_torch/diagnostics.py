@@ -1,13 +1,19 @@
-"""Cavity energies (reference: main.c:602-668), reduced on the device.
+"""Cavity energies (reference: main.c:602-668) and power deposition (SAR),
+on the device.
 
 The reference reads Ez through the Hz index map in the electric energy
 (main.c:627); the default here is the physics-correct form, and
 ``quirk_compat=True`` replicates the reference's gather.  Reductions
 accumulate in fp64 for fp64 fields and in fp32 otherwise.
+
+The power deposition sigma*|E|^2 at cell centers is the JAX package's
+capability beyond the vacuum-only reference (BASELINE config #3); its
+accumulator is fp32 whatever the field dtype.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .constants import EPSILON, MU
@@ -19,11 +25,14 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _e_cell_means(p: Params, s: FieldState):
-    """Cell-centered means of the 4 edges bordering each cell (main.c:602-634)."""
-    K, J, I = p.maxk, p.maxj, p.maxi
+def _e_cell_means(p: Params, s: FieldState, k_range: tuple[int, int] | None = None):
+    """Cell-centered means of the 4 edges bordering each cell (main.c:602-634),
+    over the cell planes ``k_range`` = (k_lo, k_hi) (default: all)."""
+    k_lo, k_hi = k_range or (0, p.maxk)
+    K, J, I = k_hi - k_lo, p.maxj, p.maxi
     at = _acc_dtype(s.ex)
-    ex, ey, ez = s.ex.to(at), s.ey.to(at), s.ez.to(at)
+    # the E planes these cells read, widened once
+    ex, ey, ez = (t[k_lo : k_hi + 1].to(at) for t in (s.ex, s.ey, s.ez))
     k0, k1 = slice(0, K), slice(1, K + 1)
     j0, j1 = slice(0, J), slice(1, J + 1)
     i0, i1 = slice(0, I), slice(1, I + 1)
@@ -86,3 +95,52 @@ def total_energy(p: Params, s: FieldState, quirk_compat: bool = False) -> torch.
 def theoretical_te101_energy(p: Params) -> float:
     """W = eps0 * a*b*d / 8 (description.pdf section 3 Eq. 4)."""
     return EPSILON * p.length * p.width * p.height / 8.0
+
+
+def e_center_sq(p: Params, s: FieldState, k_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """|E|^2 at cell centers: the sum of the squared 4-edge means (over the
+    cell planes ``k_range``, default all)."""
+    mean_ex, mean_ey, mean_ez = _e_cell_means(p, s, k_range)
+    return mean_ex * mean_ex + mean_ey * mean_ey + mean_ez * mean_ez
+
+
+def power_deposition(p: Params, s: FieldState, sigma_cells: torch.Tensor,
+                     k_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """Instantaneous dissipated power density sigma*|E|^2 (W/m^3) per cell,
+    (maxk, maxj, maxi) (or the planes ``k_range``), in the reduction type
+    of the fields."""
+    k_lo, k_hi = k_range or (0, p.maxk)
+    esq = e_center_sq(p, s, k_range)
+    return sigma_cells[k_lo:k_hi].to(esq.dtype) * esq
+
+
+SAR_LABEL = "sar_increment"  # the profiler range of the per-step increment
+# cells per slab of the per-step increment: its temporaries (the widened E
+# planes of bf16 fields, the three cell means, the products and sums) hold
+# at most about 7 fp32 values a cell of one slab, not of the whole grid;
+# the memory model counts SAR_SLAB_TEMPS
+SAR_SLAB_CELLS = 1 << 25
+SAR_SLAB_TEMPS = 8
+
+
+def sar_slab_planes(p: Params) -> int:
+    """Cell planes per slab of :func:`accumulate_power`."""
+    return max(1, min(p.maxk, SAR_SLAB_CELLS // (p.maxj * p.maxi)))
+
+
+def accumulate_power(p: Params, s: FieldState, sigma_cells: torch.Tensor | None,
+                     acc: torch.Tensor) -> None:
+    """One step's deposition, ``acc += (sigma*|E|^2 * dt)`` rounded to fp32,
+    in place (the per-step increment of ``fdtd_tpu/step.py``), a slab of k
+    planes at a time (every cell's value is the same; the slabs bound the
+    device memory of the temporaries).  Vacuum (``sigma_cells`` None)
+    deposits nothing."""
+    if sigma_cells is None:
+        return
+    dt = float(np.float32(p.time_step)) if _acc_dtype(s.ex) == torch.float32 else p.time_step
+    kb = sar_slab_planes(p)
+    with torch.profiler.record_function(SAR_LABEL):
+        for k_lo in range(0, p.maxk, kb):
+            k_hi = min(p.maxk, k_lo + kb)
+            inc = power_deposition(p, s, sigma_cells, (k_lo, k_hi))
+            acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))

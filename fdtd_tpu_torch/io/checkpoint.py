@@ -86,11 +86,14 @@ class CheckpointWriter:
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._inflight: Future | None = None
 
-    def submit(self, state: FieldState, iteration: int, t: float) -> None:
+    def submit(self, state: FieldState, iteration: int, t: float,
+               power: torch.Tensor | None = None) -> None:
+        """Checkpoint ``state`` (and the fp32 SAR accumulator ``power``)."""
         self.drain()
         path = os.path.join(self.out_dir, f"ckpt{iteration:06d}.npz")
         host = {name: to_host(getattr(state, name)) for name in COMPONENTS}
-        self._inflight = self._pool.submit(save_checkpoint, path, host, iteration, t)
+        host_power = to_host(power) if power is not None else None
+        self._inflight = self._pool.submit(save_checkpoint, path, host, iteration, t, host_power)
 
     def drain(self) -> None:
         """Wait for (and surface errors from) the in-flight write, if any."""

@@ -33,7 +33,8 @@ def scalar(value: float, dtype: torch.dtype) -> float:
 
 def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
              patch: tuple[int, int, int, int] | None = None) -> None:
-    """Half-step H <- H + dt/(mu*dx) * curl E, in place (main.c:431-462).
+    """Half-step H <- H + dt/(mu*dx) * curl E, in place (main.c:431-462);
+    with a ``mu_r`` map the factor is ``coefs.hf_x/y/z`` per component.
 
     Bounds per component (k, j, i):
       Hx: k<K, j<J, i<I+1     Hy: k<K, j<J+1, i<I     Hz: k<K+1, j<J, i<I
@@ -57,15 +58,18 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
     shx = (slice(0, K), slice(0, J), slice(0, I + 1))
     shy = (slice(0, K), slice(0, J + 1), slice(0, I))
     shz = (slice(0, K + 1), slice(0, J), slice(0, I))
-    s.hx[shx] = s.hx[shx].to(cd) + f * (
+    # heterogeneous mu_r: per-component face factors; the scalar otherwise
+    fx, fy, fz = ((coefs.hf_x[shx].to(cd), coefs.hf_y[shy].to(cd), coefs.hf_z[shz].to(cd))
+                  if coefs.heterogeneous_mu else (f, f, f))
+    s.hx[shx] = s.hx[shx].to(cd) + fx * (
         (ey[1 : K + 1, :J, : I + 1] - ey[:K, :J, : I + 1])
         - (ez[:K, 1 : J + 1, : I + 1] - ez[:K, :J, : I + 1])
     )
-    s.hy[shy] = s.hy[shy].to(cd) + f * (
+    s.hy[shy] = s.hy[shy].to(cd) + fy * (
         (ez[:K, : J + 1, 1 : I + 1] - ez[:K, : J + 1, :I])
         - (ex[1 : K + 1, : J + 1, :I] - ex[:K, : J + 1, :I])
     )
-    s.hz[shz] = s.hz[shz].to(cd) + f * (
+    s.hz[shz] = s.hz[shz].to(cd) + fz * (
         (ex[: K + 1, 1 : J + 1, :I] - ex[: K + 1, :J, :I])
         - (ey[: K + 1, :J, 1 : I + 1] - ey[: K + 1, :J, :I])
     )
@@ -75,27 +79,33 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
 
 
 def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
-    """Half-step E <- E + dt/(eps*dx) * curl H, in place (main.c:469-500).
+    """Half-step E <- ca*E + cb*curl H, in place (main.c:469-500).
 
     Interior-only bounds (the PEC boundary):
       Ex: k 1..K-1, j 1..J-1, i 0..I-1
       Ey: k 1..K-1, j 0..J-1, i 1..I-1
       Ez: k 0..K-1, j 1..J-1, i 1..I-1
-    Vacuum only: ca == 1, so E + cb*curl equals the reference's ca*E + cb*curl.
+    Vacuum (scalar coefficients, ca == 1) computes E + cb*curl, which
+    equals the reference's ca*E + cb*curl; with materials, ca and cb are
+    tensors sliced over the same region, ``ca*E + cb*curl`` in that order.
     """
     K, J, I = p.maxk, p.maxj, p.maxi
     cd = compute_dtype(s.ex.dtype)
     hx, hy, hz = s.hx.to(cd), s.hy.to(cd), s.hz.to(cd)
-    fx, fy, fz = (scalar(c, s.ex.dtype) for c in (coefs.cb_x, coefs.cb_y, coefs.cb_z))
+
+    def new_e(e: torch.Tensor, sl: tuple, ca, cb, curl: torch.Tensor) -> torch.Tensor:
+        if coefs.lossy:
+            return ca[sl].to(cd) * e[sl].to(cd) + cb[sl].to(cd) * curl
+        return e[sl].to(cd) + scalar(cb, s.ex.dtype) * curl
 
     sx = (slice(1, K), slice(1, J), slice(0, I))
     curl_x = (hz[1:K, 1:J, :I] - hz[1:K, 0 : J - 1, :I]) - (hy[1:K, 1:J, :I] - hy[0 : K - 1, 1:J, :I])
-    s.ex[sx] = s.ex[sx].to(cd) + fx * curl_x
+    s.ex[sx] = new_e(s.ex, sx, coefs.ca_x, coefs.cb_x, curl_x)
 
     sy = (slice(1, K), slice(0, J), slice(1, I))
     curl_y = (hx[1:K, :J, 1:I] - hx[0 : K - 1, :J, 1:I]) - (hz[1:K, :J, 1:I] - hz[1:K, :J, 0 : I - 1])
-    s.ey[sy] = s.ey[sy].to(cd) + fy * curl_y
+    s.ey[sy] = new_e(s.ey, sy, coefs.ca_y, coefs.cb_y, curl_y)
 
     sz = (slice(0, K), slice(1, J), slice(1, I))
     curl_z = (hy[:K, 1:J, 1:I] - hy[:K, 1:J, 0 : I - 1]) - (hx[:K, 1:J, 1:I] - hx[:K, 0 : J - 1, 1:I])
-    s.ez[sz] = s.ez[sz].to(cd) + fz * curl_z
+    s.ez[sz] = new_e(s.ez, sz, coefs.ca_z, coefs.cb_z, curl_z)

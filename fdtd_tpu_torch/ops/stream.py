@@ -1,18 +1,22 @@
 """Wrapper of the streaming sweep kernel (``csrc/yee_stream.cu``).
 
 :func:`sweep` replaces the TPU kernel
-``fdtd_tpu/ops/pallas_stream.py::_kernel`` (vacuum, single device): one
+``fdtd_tpu/ops/pallas_stream.py::_kernel`` on a single device: one
 launch advances the state by ``plan.s`` leapfrog steps.  It reads
 ``state`` and writes ``out``, a second state of the same shape (blocks run
-concurrently, so the sweep cannot work in place).  On CUDA tensors it
-launches the kernel on the current stream and allocates nothing; it raises
-on anything the kernel does not take.  On CPU tensors, and only there, it
-runs :func:`plain_sweep`.
+concurrently, so the sweep cannot work in place).  With materials the
+coefficient arrays of ``coefs`` (lossy ca/cb, heterogeneous-mu_r hf) ride
+along, and with ``acc`` the sweep adds every step's sigma*|E|^2*dt to that
+fp32 map in place, as S per-step increments would.  On CUDA tensors it
+launches the kernel variant ``plan.kernel`` on the current stream and
+allocates nothing; it raises on anything the kernel does not take.  On CPU
+tensors, and only there, it runs :func:`plain_sweep`.
 
 Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
 before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
 
-``launches`` counts kernel launches; plain-version calls do not count.
+``launches`` counts kernel launches per variant; plain-version calls do not
+count.
 """
 
 from __future__ import annotations
@@ -22,13 +26,16 @@ import dataclasses
 
 import torch
 
+from .. import diagnostics
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
-from . import build, curl
-from .stream_plan import StreamPlan
+from . import build, curl, yee
+from .stream_plan import StreamPlan, variant_name
 
 KERNEL_SOURCE = "yee_stream"
-launches = {"yee_stream": 0}
+launches = {variant_name(lossy, het, sar): 0
+            for lossy, het, sar in ((False, False, False), (True, False, False), (True, False, True),
+                                    (True, True, False), (True, True, True))}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -59,6 +66,10 @@ def _lib() -> ctypes.CDLL:
             [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr, ptr, i32, ptr]
         )
         lib.yee_stream_sweep.restype = i32
+        lib.yee_stream_sweep_material.argtypes = (
+            [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
+        )
+        lib.yee_stream_sweep_material.restype = i32
         lib.yee_stream_error_string.argtypes = [i32]
         lib.yee_stream_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -66,12 +77,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
-                drive: SweepDrive | None = None, out: FieldState | None = None) -> FieldState:
+                drive: SweepDrive | None = None, out: FieldState | None = None,
+                acc: torch.Tensor | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
-    into ``out`` (a new state when None).  In fp32 this is exactly ``s``
-    steps of the ``torch`` backend."""
+    into ``out`` (a new state when None).  With ``acc``, each step's
+    deposition of the fp32 working copy is added to it in place
+    (:func:`diagnostics.accumulate_power`).  In fp32 this is exactly ``s``
+    steps of the ``torch`` backend with their per-step SAR increments."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
     patch = drive.patch if drive is not None else None
@@ -85,6 +99,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             work.hz[sl] = 0
         curl.update_h(p, work, coefs, patch)
         curl.update_e(p, work, coefs)
+        if acc is not None:
+            diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
     if out is None:
         return work.to(dtype=state.ex.dtype)
     for o, w in zip(out.tensors(), work.tensors()):
@@ -119,14 +135,33 @@ def _on_cpu(p: Params, state: FieldState, out: FieldState) -> bool:
 
 
 def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
-          plan: StreamPlan, drive: SweepDrive | None = None) -> FieldState:
-    """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``."""
-    if _on_cpu(p, state, out):
-        return plain_sweep(p, state, coefs, plan.s, drive, out)
-    lib = _lib()
+          plan: StreamPlan, drive: SweepDrive | None = None,
+          acc: torch.Tensor | None = None) -> FieldState:
+    """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
+    ``plan`` must be made for the variant of ``coefs`` and ``acc``
+    (``stream_plan.plan_for(p, s, coefs.lossy, coefs.heterogeneous_mu,
+    acc is not None)``)."""
+    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None)
+    if (plan.lossy, plan.het, plan.sar) != variant:
+        raise ValueError(
+            f"the plan is for (lossy, het, sar) = {(plan.lossy, plan.het, plan.sar)}, "
+            f"the coefficients and accumulator are {variant}"
+        )
     dt = state.ex.dtype
+    if acc is not None:  # the plan's variant implies lossy coefficients, so sigma exists
+        cells = (p.maxk, p.maxj, p.maxi)
+        for a, want in ((coefs.sigma_cells, dt), (acc, torch.float32)):
+            if (a.device != state.ex.device or a.dtype != want or tuple(a.shape) != cells
+                    or not a.is_contiguous()):
+                raise ValueError(
+                    f"sigma and the accumulator must be contiguous {cells} tensors on "
+                    f"{state.ex.device} (sigma {dt}, accumulator float32); got "
+                    f"{a.dtype} {tuple(a.shape)} on {a.device}"
+                )
+    if _on_cpu(p, state, out):
+        return plain_sweep(p, state, coefs, plan.s, drive, out, acc)
+    lib = _lib()
     fh = curl.scalar(coefs.h_factor, dt)
-    fe = curl.scalar(coefs.cb_x, dt)
     if drive is not None:
         j0, j1, i0, i1 = drive.patch
         rows_shape = (plan.s - 1, i1 - i0)
@@ -144,16 +179,26 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     PtrArray = ctypes.c_void_p * 6
     ins = PtrArray(*(t.data_ptr() for t in state.tensors()))
     outs = PtrArray(*(t.data_ptr() for t in out.tensors()))
+    geometry = (plan.s, plan.bj, plan.bi, plan.tk, int(drive is not None), j0, j1, i0, i1)
     with torch.cuda.device(state.ex.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.yee_stream_sweep(
-            ins, outs, p.maxk, p.maxj, p.maxi, fh, fe,
-            plan.s, plan.bj, plan.bi, plan.tk,
-            int(drive is not None), j0, j1, i0, i1, *rows,
-            _DTYPE_CODES[dt], stream,
-        )
-    launches["yee_stream"] += 1
+        if not coefs.lossy:
+            rc = lib.yee_stream_sweep(
+                ins, outs, p.maxk, p.maxj, p.maxi, fh, curl.scalar(coefs.cb_x, dt),
+                *geometry, *rows, _DTYPE_CODES[dt], stream,
+            )
+        else:
+            cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z)
+            hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
+            yee.check_coefficients(p, state.ex, cf + hf)
+            sar = (coefs.sigma_cells.data_ptr(), acc.data_ptr()) if acc is not None else (None, None)
+            rc = lib.yee_stream_sweep_material(
+                ins, outs, p.maxk, p.maxj, p.maxi, fh, *geometry, *rows,
+                yee.pointers(cf), yee.pointers(hf) if hf else None, *sar,
+                curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[dt], stream,
+            )
+    launches[plan.kernel] += 1
     if rc != 0:
         msg = lib.yee_stream_error_string(rc).decode()
-        raise RuntimeError(f"yee_stream launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{plan.kernel} launch failed: CUDA error {rc} ({msg})")
     return out

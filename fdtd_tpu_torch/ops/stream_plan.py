@@ -18,10 +18,20 @@ k segments of one column tile start s planes early (a lead-in that is
 recomputed, not emitted), so the segments are independent blocks.
 
 Plans are ranked by modelled device-memory bytes per cell and step: each
-sweep reads the six fields once per halo-amplified tile and writes them
-once.  The sweep writes into a second state (blocks run concurrently, so
-in place would race a neighbour's halo reads); a plan whose two states do
-not fit in device memory is refused.
+sweep reads the six fields (and the coefficient arrays of the material
+variants) once per halo-amplified tile and writes the fields once.  The
+sweep writes into a second state (blocks run concurrently, so in place
+would race a neighbour's halo reads); a plan whose two states, with the
+coefficient arrays, sigma, the SAR accumulator and the SAR increment's
+temporaries, do not fit in device memory is refused.  The ``twopass``
+footprint (one state) is modelled here too (:func:`twopass_bytes`).
+
+The material variants mirror the gates of ``pallas_stream.pick_plan``:
+lossy or heterogeneous-mu_r media stream only in computation mode, and
+SAR needs lossy media.  They keep more per thread (coefficient loads, the
+SAR registers), so they have block shapes of their own
+(``BLOCK_J_MATERIAL``), and a SAR tile emits one column fewer per axis
+(the cell mean reads E one column past the tile).
 """
 
 from __future__ import annotations
@@ -29,19 +39,32 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from ..params import Params
+from .. import diagnostics
+from ..params import Mode, Params
 
 STEPS = (8, 4, 2)  # steps per sweep, deepest first
 SM_COUNT = 132  # H100 SXM
 SMEM_PER_BLOCK = 227 * 1024  # opt-in shared memory of one block
 DEVICE_BYTES = 80 * 10**9  # H100 80 GB, the default when no free size is given
-MEMORY_MARGIN = 0.9  # share of device memory the two states may take
+MEMORY_MARGIN = 0.9  # share of device memory a sweep's (or twopass's) arrays may take
 BLOCK_I = 32  # threads along i: one warp, consecutive addresses
 # threads along j per steps-per-sweep; must match the instantiations in
 # csrc/yee_stream.cu (s=8 keeps 6*9 fp32 level values a thread, so its
 # block is smaller to leave each thread more registers)
 BLOCK_J = {8: 24, 4: 32, 2: 32}
+# the same for the material variants (lossy, het-mu, SAR): at s=4 a
+# 768-thread block leaves 80 registers a thread instead of 64
+BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
 BLOCKS_WANTED = 2 * SM_COUNT  # split k until a sweep has this many blocks
+
+
+def variant_name(lossy: bool, het: bool, sar: bool) -> str:
+    """The name of a kernel variant of csrc/yee_stream.cu (its launch
+    counter): ``yee_stream`` in vacuum, else ``yee_stream_lossy`` with
+    ``_het`` and ``_sar`` as they apply."""
+    if not lossy:
+        return "yee_stream"
+    return "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +83,14 @@ class StreamPlan:
     nj: int
     ni: int
     bytes_per_cell_step: float  # modelled device-memory traffic
+    lossy: bool = False  # ca/cb arrays (any non-vacuum scene)
+    het: bool = False  # hf arrays (heterogeneous mu_r)
+    sar: bool = False  # the SAR accumulator
+
+    @property
+    def kernel(self) -> str:
+        """The kernel variant, as ``ops.stream.launches`` counts it."""
+        return variant_name(self.lossy, self.het, self.sar)
 
     @property
     def blocks(self) -> int:
@@ -71,7 +102,8 @@ class StreamPlan:
 
     @property
     def smem_bytes(self) -> int:
-        return 6 * self.bj * self.bi * 4  # one fp32 E plane and one H plane
+        # one fp32 E plane and one H plane, and SAR's five E values a column
+        return (11 if self.sar else 6) * self.bj * self.bi * 4
 
 
 def _itemsize(p: Params) -> int:
@@ -82,13 +114,47 @@ def state_bytes(p: Params) -> int:
     return 6 * math.prod(p.padded_shape) * _itemsize(p)
 
 
-def plan_for(p: Params, s: int) -> StreamPlan:
-    """The tile geometry of ``s`` steps per sweep on the grid of ``p``."""
+def material_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False) -> int:
+    """Device bytes beside the state: six ca/cb and three hf arrays of the
+    padded shape, sigma (maxk, maxj, maxi) in the field dtype and the fp32
+    SAR accumulator."""
+    arr = math.prod(p.padded_shape) * _itemsize(p)
+    cells = p.maxk * p.maxj * p.maxi
+    return ((6 * arr + cells * _itemsize(p) if lossy else 0) + (3 * arr if het else 0)
+            + (4 * cells if sar else 0))
+
+
+def sar_work_bytes(p: Params) -> int:
+    """Device bytes of the temporaries of the per-step SAR increment
+    (``diagnostics.accumulate_power``, one slab of k planes at a time)."""
+    return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.sar_slab_planes(p) * p.maxj * p.maxi
+
+
+def twopass_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False) -> int:
+    """Device bytes of a ``twopass`` step loop: the state (updated in
+    place), the material arrays and the SAR increment's temporaries."""
+    lossy = lossy or het
+    return state_bytes(p) + material_bytes(p, lossy, het, sar) + (sar_work_bytes(p) if sar else 0)
+
+
+def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False,
+                 het: bool = False, sar: bool = False) -> bool:
+    """:func:`twopass_bytes` fits in ``memory_bytes`` (default: the
+    H100's 80 GB) with the margin the stream plans keep."""
+    mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
+    return twopass_bytes(p, lossy, het, sar) <= MEMORY_MARGIN * mem
+
+
+def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
+             sar: bool = False) -> StreamPlan:
+    """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
+    the kernel variant the flags name (het and sar imply lossy)."""
     if s not in STEPS:
         raise ValueError(f"steps per sweep must be one of {STEPS}; got {s}")
+    lossy = lossy or het or sar
     K1, J1, I1 = p.padded_shape
-    bj, bi = BLOCK_J[s], BLOCK_I
-    tj, ti = bj - 2 * s, bi - 2 * s
+    bj, bi = (BLOCK_J_MATERIAL if lossy else BLOCK_J)[s], BLOCK_I
+    tj, ti = bj - 2 * s - sar, bi - 2 * s - sar
     nj, ni = -(-J1 // tj), -(-I1 // ti)
     nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
     # a segment at least 2s planes deep keeps the lead-in below 2x
@@ -96,32 +162,47 @@ def plan_for(p: Params, s: int) -> StreamPlan:
     nk = -(-K1 // tk)
     amp_ji = (bj * bi) / (tj * ti)
     amp_k = (tk + 2 * s) / tk if nk > 1 else 1.0
-    per_step = 6 * _itemsize(p) * (amp_ji * amp_k + 1.0) / s
-    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step)
+    item = _itemsize(p)
+    arrays_read = 6 + (6 if lossy else 0) + (3 if het else 0)
+    # sigma is read and the accumulator read and written once per cell
+    sar_bytes = (item + 8) * p.maxk * p.maxj * p.maxi / (K1 * J1 * I1) if sar else 0.0
+    per_step = (arrays_read * item * amp_ji * amp_k + 6 * item + sar_bytes) / s
+    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar)
 
 
-def feasible(p: Params, memory_bytes: int | None = None) -> bool:
-    """The kernel takes the dtype, and the two states fit in
-    ``memory_bytes`` (default: the H100's 80 GB).  Every plan's block fits
-    an SM (at most 1024 threads and 24 KB of shared memory), so only the
-    grid and the dtype decide."""
+def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
+             het: bool = False, sar: bool = False) -> bool:
+    """The kernel takes the dtype and the scene, and the two states, with
+    the material arrays, fit in ``memory_bytes`` (default: the H100's
+    80 GB).  Every plan's block fits an SM (at most 1024 threads and 45 KB
+    of shared memory), so the grid, the dtype and the gates decide:
+    materials stream in computation mode only, and SAR needs materials."""
     if p.dtype not in ("float32", "bfloat16"):
         return False
+    lossy = lossy or het
+    if lossy and p.mode != Mode.COMPUTATION:
+        return False
+    if sar and not lossy:
+        return False  # vacuum deposits nothing: no SAR variant
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
-    return 2 * state_bytes(p) <= MEMORY_MARGIN * mem
+    # the trailing n % s two-pass steps add the SAR increment's temporaries
+    need = 2 * state_bytes(p) + material_bytes(p, lossy, het, sar) + (sar_work_bytes(p) if sar else 0)
+    return need <= MEMORY_MARGIN * mem
 
 
-def pick_plan(p: Params, s: int | None = None,
-              memory_bytes: int | None = None) -> StreamPlan | None:
+def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
+              lossy: bool = False, het: bool = False, sar: bool = False) -> StreamPlan | None:
     """The feasible plan with the fewest modelled bytes per cell and step
     (ties to the deeper sweep), or None.  A forced ``s`` is checked for
     feasibility like any other."""
-    cands = [plan_for(p, s)] if s is not None else [plan_for(p, x) for x in STEPS]
-    if not feasible(p, memory_bytes):
+    steps = (s,) if s is not None else STEPS
+    cands = [plan_for(p, x, lossy, het, sar) for x in steps]
+    if not feasible(p, memory_bytes, lossy, het, sar):
         return None
     return min(cands, key=lambda c: (c.bytes_per_cell_step, -c.s))
 
 
-def supported(p: Params, memory_bytes: int | None = None) -> bool:
+def supported(p: Params, memory_bytes: int | None = None, lossy: bool = False,
+              het: bool = False, sar: bool = False) -> bool:
     """True when some streaming plan fits (see :func:`pick_plan`)."""
-    return pick_plan(p, memory_bytes=memory_bytes) is not None
+    return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar) is not None

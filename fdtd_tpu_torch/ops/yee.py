@@ -1,14 +1,18 @@
 """Wrappers of the two-pass Hopper kernels (``csrc/yee_twopass.cu``).
 
 ``update_h`` and ``update_e`` replace the TPU kernels
-``fdtd_tpu/ops/pallas_fused.py::_h_kernel2`` and ``::_e_kernel2``.  On CUDA
-tensors they launch the kernel on the current stream, in place, allocating
-nothing; they raise on anything the kernel does not take (another dtype,
-shape, device or a non-contiguous tensor).  On CPU tensors, and only there,
-they run the plain versions in :mod:`fdtd_tpu_torch.ops.curl`.
+``fdtd_tpu/ops/pallas_fused.py::_h_kernel2`` and ``::_e_kernel2``: the
+vacuum kernels take scalar factors; with materials, ``update_h`` launches
+the heterogeneous-mu_r variant (``hf_x/y/z`` arrays) when the coefficients
+carry them, and ``update_e`` the lossy variant (six ca/cb arrays).  On
+CUDA tensors they launch the kernel on the current stream, in place,
+allocating nothing; they raise on anything the kernel does not take
+(another dtype, shape, device or a non-contiguous tensor).  On CPU
+tensors, and only there, they run the plain versions in
+:mod:`fdtd_tpu_torch.ops.curl`.
 
-``launches`` counts kernel launches per wrapper, so a run can show that it
-went through the kernels; plain-version calls do not count.
+``launches`` counts kernel launches per kernel variant, so a run can show
+that it went through the kernels; plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from ..state import FieldState, UpdateCoefs
 from . import build, curl
 
 KERNEL_SOURCE = "yee_twopass"
-launches = {"yee_update_h": 0, "yee_update_e": 0}
+launches = {"yee_update_h": 0, "yee_update_e": 0, "yee_update_h_het": 0, "yee_update_e_lossy": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -42,6 +46,10 @@ def _lib() -> ctypes.CDLL:
         lib.yee_update_h.restype = i32
         lib.yee_update_e.argtypes = [ptr] * 6 + [i32] * 3 + [f32] + [i32, ptr]
         lib.yee_update_e.restype = i32
+        lib.yee_update_h_het.argtypes = [ptr] * 3 + [i32] * 3 + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_het.restype = i32
+        lib.yee_update_e_lossy.argtypes = [ptr] * 3 + [i32] * 3 + [i32, ptr]
+        lib.yee_update_e_lossy.restype = i32
         lib.yee_error_string.argtypes = [i32]
         lib.yee_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -71,6 +79,23 @@ def _on_cpu(p: Params, s: FieldState) -> bool:
     return False
 
 
+def check_coefficients(p: Params, like: torch.Tensor, arrays: tuple[torch.Tensor, ...]) -> None:
+    """Coefficient arrays must match the fields: device, dtype, the padded
+    shape, contiguous."""
+    for a in arrays:
+        if (a.device != like.device or a.dtype != like.dtype or tuple(a.shape) != p.padded_shape
+                or not a.is_contiguous()):
+            raise ValueError(
+                f"coefficient arrays must be contiguous {like.dtype} tensors of shape "
+                f"{p.padded_shape} on {like.device}; got {a.dtype} {tuple(a.shape)} on {a.device}"
+            )
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A C array of the tensors' data pointers."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         msg = _lib().yee_error_string(rc).decode()
@@ -84,34 +109,53 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
         curl.update_h(p, s, coefs, patch)
         return
     lib = _lib()
-    f = curl.scalar(coefs.h_factor, s.hx.dtype)
     j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
+    dtype = _DTYPE_CODES[s.hx.dtype]
     with torch.cuda.device(s.hx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.yee_update_h(
-            *(t.data_ptr() for t in s.tensors()),
-            p.maxk, p.maxj, p.maxi, f,
-            int(patch is not None), j0, j1, i0, i1,
-            _DTYPE_CODES[s.hx.dtype], stream,
-        )
-    launches["yee_update_h"] += 1
-    _check(rc, "yee_update_h")
+        if coefs.heterogeneous_mu:
+            hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z)
+            check_coefficients(p, s.hx, hf)
+            name = "yee_update_h_het"
+            rc = lib.yee_update_h_het(
+                pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz)), pointers(hf),
+                p.maxk, p.maxj, p.maxi, int(patch is not None), j0, j1, i0, i1, dtype, stream,
+            )
+        else:
+            name = "yee_update_h"
+            rc = lib.yee_update_h(
+                *(t.data_ptr() for t in s.tensors()),
+                p.maxk, p.maxj, p.maxi, curl.scalar(coefs.h_factor, s.hx.dtype),
+                int(patch is not None), j0, j1, i0, i1, dtype, stream,
+            )
+    launches[name] += 1
+    _check(rc, name)
 
 
 def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
-    """E half-step in place (vacuum: one scalar cb for all three components)."""
+    """E half-step in place: one scalar cb in vacuum, the ca/cb arrays of
+    ``coefs`` with materials."""
     if _on_cpu(p, s):
         curl.update_e(p, s, coefs)
         return
     lib = _lib()
-    f = curl.scalar(coefs.cb_x, s.ex.dtype)
+    dtype = _DTYPE_CODES[s.ex.dtype]
     with torch.cuda.device(s.ex.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.yee_update_e(
-            s.hx.data_ptr(), s.hy.data_ptr(), s.hz.data_ptr(),
-            s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),
-            p.maxk, p.maxj, p.maxi, f,
-            _DTYPE_CODES[s.ex.dtype], stream,
-        )
-    launches["yee_update_e"] += 1
-    _check(rc, "yee_update_e")
+        if coefs.lossy:
+            cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z)
+            check_coefficients(p, s.ex, cf)
+            name = "yee_update_e_lossy"
+            rc = lib.yee_update_e_lossy(
+                pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez)), pointers(cf),
+                p.maxk, p.maxj, p.maxi, dtype, stream,
+            )
+        else:
+            name = "yee_update_e"
+            rc = lib.yee_update_e(
+                s.hx.data_ptr(), s.hy.data_ptr(), s.hz.data_ptr(),
+                s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),
+                p.maxk, p.maxj, p.maxi, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
+            )
+    launches[name] += 1
+    _check(rc, name)

@@ -1,21 +1,29 @@
 """Where the time of a chunk goes: device time per step by kernel, and the
-device's idle share, per backend and dtype.
+device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--backends stream twopass torch] [--dtypes float32 bfloat16]
+        [--scenes vacuum heating] [--backends stream twopass torch]
+        [--dtypes float32 bfloat16]
 
-For each backend and dtype it builds the n^3 computation scene of
-``configs/bench_256.txt`` (rescaled to n), runs a warm-up chunk, times an
-unprofiled chunk of ``--steps`` steps on the host clock (between
-``torch.cuda.synchronize()`` calls), then profiles the same chunk with
-``torch.profiler`` (CPU and CUDA activity) and sums the self device time of
-every kernel.  One JSON line per (backend, dtype):
+Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
+(rescaled to n); ``heating`` is the same box with the default water block
+(``--water-block``) and the SAR accumulator (``--sar``), the workload of
+``configs/heating_256.txt``.  For each scene, backend and dtype it runs a
+warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
+clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
+chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
+device time of every kernel.  One JSON line per (scene, backend, dtype):
 
 - ``wall_ms_per_step``: unprofiled host time per step;
 - ``device_ms_per_step``: summed kernel time per step (profiled run);
-- ``kernels_ms_per_step``: that sum split by kernel group (``yee_stream``,
-  ``yee_update_h``, ``yee_update_e``, ``other``: the source's small
-  launches and, for ``torch``, every elementwise kernel);
+- ``kernels_ms_per_step``: that sum split by kernel variant (the names of
+  the launch counters: ``yee_stream``, ``yee_stream_lossy_sar``,
+  ``yee_update_h``, ``yee_update_e_lossy``, ...), ``sar_increment`` (the
+  per-step torch ops of the deposition on ``twopass``/``torch`` and on the
+  trailing steps of ``stream``: the device time of the profiler range
+  ``diagnostics.accumulate_power`` opens, taken out of ``other``) and
+  ``other`` (the source's small launches and, for ``torch``, every
+  elementwise kernel of the update);
 - ``idle_share``: 1 - device / unprofiled wall;
 - ``idle_share_profiled``: the same against the profiled wall (the
   profiler adds host time per launch).
@@ -27,20 +35,26 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
 
 import torch
 
+from . import diagnostics
+from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
 from .runner import initial_state
-from .step import make_chunk_runner, scan_inputs
+from .state import water_block
+from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
+SCENES = ("vacuum", "heating")
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
-# PyTorch's own elementwise_kernel contains the latter)
-GROUPS = (("::stream_kernel<", "yee_stream"), ("::h_kernel<", "yee_update_h"),
-          ("::e_kernel<", "yee_update_e"))
+# PyTorch's own elementwise_kernel contains the latter), with their template
+# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR>, h <T, HET>,
+# e <T, LOSSY>
+_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel)<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -51,43 +65,65 @@ def scene(n: int, dtype: str) -> Params:
 
 
 def _group(name: str) -> str:
-    for key, group in GROUPS:
-        if key in name:
-            return group
-    return "other"
+    """The launch-counter name of a kernel of csrc/, else ``other``."""
+    m = _KERNEL.search(name)
+    if m is None:
+        return "other"
+    flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
+    if m.group(1) == "stream_kernel":
+        return variant_name(*flags)
+    if m.group(1) == "h_kernel":
+        return "yee_update_h_het" if flags[0] else "yee_update_h"
+    return "yee_update_e_lossy" if flags[0] else "yee_update_e"
 
 
-def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device) -> dict:
+def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
+            heating: bool = False) -> dict:
     ts, amps = scan_inputs(p, time_values(p)[: warm + 2 * steps])
-    run = make_chunk_runner(p, dev, backend=backend)
+    run = make_chunk_runner(p, dev, water_block(p) if heating else None, backend,
+                            accumulate_power=heating)
     s = initial_state(p, dev)
-    run(s, (ts[:warm], amps[:warm]))
+    power = zero_power_acc(p, dev) if heating else None
+    run(s, (ts[:warm], amps[:warm]), power)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]))
+    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power)
     torch.cuda.synchronize(dev)
     wall = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(s, (ts[warm + steps :], amps[warm + steps :]))
+        run(s, (ts[warm + steps :], amps[warm + steps :]), power)
         torch.cuda.synchronize(dev)
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     by_group: dict[str, float] = {}
     launches: dict[str, int] = {}
+    sar_ms = 0.0
     for ev in prof.key_averages():
+        kind = getattr(ev, "device_type", None)
+        if ev.key == diagnostics.SAR_LABEL:
+            # the host-side range: the kernels its ops launched (the
+            # device-side annotation spans the gaps between them too)
+            if kind is None or kind == torch.autograd.DeviceType.CPU:
+                total = getattr(ev, "device_time_total", None)
+                sar_ms += (ev.cuda_time_total if total is None else total) / 1e3 / steps
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        kind = getattr(ev, "device_type", None)
         if us <= 0 or (kind is not None and kind != torch.autograd.DeviceType.CUDA):
             continue
         g = _group(ev.key)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + ev.count
     device = sum(by_group.values())
+    if sar_ms:
+        # the increment's kernels are elementwise torch kernels, summed in "other"
+        by_group[diagnostics.SAR_LABEL] = sar_ms
+        by_group["other"] = by_group.get("other", 0.0) - sar_ms
     return {
+        "scene": "heating" if heating else "vacuum",
         "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
@@ -101,6 +137,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=256, help="cells per side (default 256)")
     ap.add_argument("--steps", type=int, default=48, help="steps per measured chunk (default 48)")
     ap.add_argument("--warm", type=int, default=8, help="warm-up steps (default 8)")
+    ap.add_argument("--scenes", nargs="+", default=list(SCENES), choices=SCENES)
     ap.add_argument("--backends", nargs="+", default=["stream", "twopass", "torch"])
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
     args = ap.parse_args(argv)
@@ -111,11 +148,13 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()
     card = smi[0] if smi else torch.cuda.get_device_name(0)
-    for dtype in args.dtypes:
-        for backend in args.backends:
-            rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev)
-            rec["card"] = card
-            print(json.dumps(rec), flush=True)
+    for name in args.scenes:
+        for dtype in args.dtypes:
+            for backend in args.backends:
+                rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
+                              heating=name == "heating")
+                rec["card"] = card
+                print(json.dumps(rec), flush=True)
     return 0
 
 

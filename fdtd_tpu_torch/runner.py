@@ -8,9 +8,9 @@ loop, then one after every step whose 1-based index is a multiple of
 between two boundaries run as one chunk that only enqueues device work; the
 host waits on the device only at snapshot, log and checkpoint boundaries.
 
-Only the vacuum cavity is ported: materials, SAR accumulation, sharding,
-CPML, DFT monitors and probes raise ``NotImplementedError`` naming their
-ROADMAP item.
+Materials (lossy and heterogeneous-mu_r media) and the SAR accumulation
+run on every backend; sharding, CPML, DFT monitors and probes are not
+ported and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,14 +29,12 @@ from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
 from .ops import stream_plan
 from .params import Mode, Params, time_values
 from .state import FieldState, Materials, init_validation, zeros
-from .step import make_chunk_runner, scan_inputs
+from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
 BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
 
 # feature -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "materials": "ROADMAP queue 1 item 5 (materials and heating)",
-    "accumulate_power": "ROADMAP queue 1 item 5 (materials and heating: SAR)",
     "pml": "ROADMAP queue 1 item 7 (CPML open boundary)",
     "dft": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
     "probes": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
@@ -66,33 +64,54 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def resolve_backend(p: Params, backend: str, device) -> str:
+def resolve_backend(p: Params, backend: str, device, materials: Materials | None = None,
+                    accumulate_power: bool = False) -> str:
     """Resolve ``auto`` and refuse combinations the kernels do not run.
 
     ``auto`` runs ``stream`` (the streaming sweep kernel) on a CUDA device
-    in float32 or bfloat16 when a sweep plan fits, else ``twopass`` (the
-    two-pass kernels), and ``torch`` for float64 or on the CPU, as the JAX
-    package's ``auto`` picks ``pallas_stream`` before the two-pass tier.
-    An explicit ``twopass`` or ``stream`` on the CPU or in float64 raises
-    ``ValueError``, and so does ``stream`` when no plan fits.
+    in float32 or bfloat16 when a sweep plan fits the scene, else
+    ``twopass`` (the two-pass kernels), and ``torch`` for float64 or on
+    the CPU, as the JAX package's ``auto`` picks ``pallas_stream`` before
+    the two-pass tiers.  A plan fits when the two states and the material
+    arrays fit in device memory; materials stream in computation mode
+    only, and SAR needs materials (``stream_plan.feasible``).  An explicit
+    ``twopass`` or ``stream`` on the CPU or in float64 raises
+    ``ValueError``, and so does ``stream`` when no plan fits, and
+    ``twopass`` (picked or asked for) when its state, material arrays and
+    SAR temporaries do not fit either (``stream_plan.twopass_fits``).
     """
     dev = torch.device(device)
     if backend not in BACKEND_CHOICES:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
     kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
+    lossy = materials is not None and not materials.is_vacuum
+    het = lossy and materials.mu_r is not None
+    free = _free_memory(dev)
+    fits = kernels_ok and stream_plan.supported(p, free, lossy, het, accumulate_power)
     if backend == "auto":
         if not kernels_ok:
             return "torch"
-        return "stream" if stream_plan.supported(p, _free_memory(dev)) else "twopass"
+        backend = "stream" if fits else "twopass"
     if backend in ("twopass", "stream") and not kernels_ok:
         raise ValueError(
             f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
             f"(got device {dev}, dtype {p.dtype}); use --backend torch"
         )
-    if backend == "stream" and not stream_plan.supported(p, _free_memory(dev)):
+    if backend == "twopass" and not stream_plan.twopass_fits(p, free, lossy, het, accumulate_power):
+        need = stream_plan.twopass_bytes(p, lossy, het, accumulate_power)
+        mem = stream_plan.DEVICE_BYTES if free is None else free
+        raise ValueError(
+            f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} does not fit in device memory: the twopass "
+            f"kernels need {need / 1e9:.1f} GB (the state, the material arrays and the SAR "
+            f"temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
+            f"{stream_plan.MEMORY_MARGIN * mem / 1e9:.1f} GB; use a coarser grid or bfloat16"
+        )
+    if backend == "stream" and not fits:
         raise ValueError(
             f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype}: the sweep needs "
-            "a second copy of the state in device memory; use --backend twopass"
+            "a second copy of the state (and the material arrays) in device memory, "
+            "materials stream in computation mode only, and SAR needs materials; "
+            "use --backend twopass"
         )
     return backend
 
@@ -132,10 +151,11 @@ def run_simulation(
     dft=None,
     probes=None,
 ) -> RunResult:
-    """Run the scene ``p`` on ``device`` and write its outputs to ``out_dir``."""
+    """Run the scene ``p`` (with ``materials``, vacuum when None) on
+    ``device`` and write its outputs to ``out_dir``.  With
+    ``accumulate_power`` the result's ``power_j`` is the deposited energy
+    density (J/m^3) per cell, fp32 (all zero in vacuum)."""
     requested = {
-        "materials": materials is not None and not materials.is_vacuum,
-        "accumulate_power": accumulate_power,
         "pml": pml is not None,
         "dft": dft is not None,
         "probes": probes is not None,
@@ -146,7 +166,7 @@ def run_simulation(
             raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
     p.validate()
     dev = resolve_device(device)
-    backend = resolve_backend(p, backend, dev)
+    backend = resolve_backend(p, backend, dev, materials, accumulate_power)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
     warnings: list[str] = []
@@ -161,13 +181,20 @@ def run_simulation(
             "runs; use float32 for validation/accuracy runs"
         )
 
-    run_chunk = make_chunk_runner(p, dev, backend=backend)
+    run_chunk = make_chunk_runner(p, dev, materials, backend, accumulate_power=accumulate_power)
     state = initial_state(p, dev)
+    power = zero_power_acc(p, dev) if accumulate_power else None
     start_step = 0
     if resume:
         ck = latest_checkpoint(out_dir)
         if ck:
-            state, start_step, _t, _power = load_checkpoint(ck, p, dev)
+            state, start_step, _t, ck_power = load_checkpoint(ck, p, dev)
+            if accumulate_power:
+                if ck_power is not None:
+                    power.copy_(torch.as_tensor(ck_power))
+                else:
+                    warn("checkpoint has no power accumulator; --sar totals restart from zero "
+                         "at this point")
 
     ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
     writer = SnapshotWriter(p, out_dir) if write_snapshots else None
@@ -218,14 +245,14 @@ def run_simulation(
             if checkpoint_every:
                 boundary = min(boundary, next_mult(pos, checkpoint_every))
             end = min(boundary, n)
-            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]))
+            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power)
             pos = end
             t_now = float(ts[pos - 1])
             if pos % rate == 0:
                 snapshot(state, pos, t_now)
                 log_diag(state, pos, t_now)
             if checkpoint_every and pos % checkpoint_every == 0:
-                ckpt_writer.submit(state, pos, t_now)
+                ckpt_writer.submit(state, pos, t_now, power)
         _sync(dev)
         wall = time.perf_counter() - t0
     finally:
@@ -238,4 +265,4 @@ def run_simulation(
 
     steps_done = n - start_step
     mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
-    return RunResult(state, n, wall, mcells, None, warnings)
+    return RunResult(state, n, wall, mcells, power, warnings)

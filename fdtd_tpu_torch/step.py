@@ -23,6 +23,17 @@ per step in computation mode.  Three backends:
 Steps update the state in place; the ``stream`` chunk runner writes each
 sweep into a second state of its own and swaps the tensors back into the
 caller's :class:`FieldState`.
+
+Materials (lossy and heterogeneous-mu_r media) run on all three backends:
+the coefficient tensors are built once per runner on the device, and the
+kernels take their material variants.  With ``accumulate_power`` the
+chunk runner adds every step's deposition sigma*|E|^2*dt to an fp32
+accumulator (:func:`zero_power_acc`) in place: on ``torch`` and
+``twopass`` as torch ops after each step (the JAX package's per-step jnp
+increment, ``fdtd_tpu/step.py:385-403``), on ``stream`` inside the sweep
+kernel, with the trailing ``n % s`` two-pass steps adding theirs.  In
+fp32 every backend gives the same accumulator bits; a bf16 sweep deposits
+from its fp32 levels, not from rounded states.
 """
 
 from __future__ import annotations
@@ -32,11 +43,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import diagnostics
 from .ops import curl, stream, stream_plan, yee
 from .params import Mode, Params
 from .source import (apply_source, drive_values, make_source_plan, profile_tensor,
                      sweep_drive_rows)
-from .state import FieldState, Materials, update_coefs
+from .state import FieldState, Materials, UpdateCoefs, update_coefs
 
 BACKENDS = ("torch", "twopass", "stream")
 
@@ -44,20 +56,23 @@ Step = Callable[[FieldState, tuple], None]
 
 
 def make_step(p: Params, device, materials: Materials | None = None,
-              backend: str = "torch") -> Step:
+              backend: str = "torch", coefs: UpdateCoefs | None = None) -> Step:
     """Build ``step(state, (t, amp))``, which advances ``state`` in place.
 
     ``amp`` is the drive amplitude sin(2*pi*f*t) (see :func:`scan_inputs`),
     a Python float or a 0-d fp64 tensor on ``device``; validation mode
-    ignores it.  A single step of ``stream`` is a ``twopass`` step (the
-    sweeps need whole chunks: :func:`make_chunk_runner`).
+    ignores it.  ``coefs`` (built from ``materials`` on ``device`` when
+    None) are the update coefficients.  A single step of ``stream`` is a
+    ``twopass`` step (the sweeps need whole chunks:
+    :func:`make_chunk_runner`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKENDS}")
     if backend in ("twopass", "stream") and p.dtype == "float64":
         raise ValueError(f"the {backend} kernels store float32 or bfloat16; "
                          "float64 runs on the torch backend")
-    coefs = update_coefs(p, materials)
+    if coefs is None:
+        coefs = update_coefs(p, materials, device)
     plan = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(plan, device) if plan is not None else None
 
@@ -83,6 +98,12 @@ def make_step(p: Params, device, materials: Materials | None = None,
     return step
 
 
+def zero_power_acc(p: Params, device) -> torch.Tensor:
+    """The fp32 (maxk, maxj, maxi) deposited-energy accumulator (J/m^3),
+    zero."""
+    return torch.zeros((p.maxk, p.maxj, p.maxi), dtype=torch.float32, device=device)
+
+
 def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
     """Per-step inputs (times, drive amplitudes), both host fp64 arrays;
     the amplitudes are zero in validation mode."""
@@ -95,44 +116,63 @@ def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
 
 
 def make_chunk_runner(p: Params, device, materials: Materials | None = None,
-                      backend: str = "torch", stream_s: int | None = None):
-    """``run(state, xs)``: advance ``state`` in place over the chunk
-    ``xs = (times, amps)`` of :func:`scan_inputs`.  ``stream_s`` forces the
-    steps per sweep of the ``stream`` backend (still checked to fit).
+                      backend: str = "torch", stream_s: int | None = None,
+                      accumulate_power: bool = False):
+    """``run(state, xs, power=None)``: advance ``state`` in place over the
+    chunk ``xs = (times, amps)`` of :func:`scan_inputs`, and with
+    ``accumulate_power`` add each step's deposition to ``power`` (the fp32
+    map of :func:`zero_power_acc`) in place; returns ``state``.
+    ``stream_s`` forces the steps per sweep of the ``stream`` backend
+    (still checked to fit).
 
     The amplitudes go to the device once per chunk; the loop itself only
     enqueues work, with no host synchronisation inside it.
     """
-    step = make_step(p, device, materials, backend)
+    coefs = update_coefs(p, materials, device)
+    step = make_step(p, device, backend=backend, coefs=coefs)
     if backend == "stream":
-        plan = stream_plan.pick_plan(p, s=stream_s)
+        plan = stream_plan.pick_plan(p, s=stream_s, lossy=coefs.lossy, het=coefs.heterogeneous_mu,
+                                     sar=accumulate_power)
         if plan is None:
             raise ValueError(
-                f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype}: the sweep "
-                "needs a second copy of the state in device memory"
+                f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} "
+                f"({'materials' if coefs.lossy else 'vacuum'}, {p.mode.name.lower()} mode"
+                f"{', SAR' if accumulate_power else ''}): the sweep needs a second copy of the "
+                "state in device memory, materials stream in computation mode only, and SAR "
+                "needs materials"
             )
-        return _stream_chunk_runner(p, device, step, plan)
+        return _stream_chunk_runner(p, device, step, plan, coefs, accumulate_power)
 
-    def run(s: FieldState, xs) -> FieldState:
+    def run(s: FieldState, xs, power: torch.Tensor | None = None) -> FieldState:
+        _need_power(accumulate_power, power)
         ts, amps = xs
         amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
         for n in range(len(ts)):
             step(s, (ts[n], amps_dev[n]))
+            if accumulate_power:
+                diagnostics.accumulate_power(p, s, coefs.sigma_cells, power)
         return s
 
     return run
 
 
-def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.StreamPlan):
+def _need_power(accumulate_power: bool, power) -> None:
+    if accumulate_power and power is None:
+        raise ValueError("accumulate_power needs the power accumulator (zero_power_acc)")
+
+
+def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.StreamPlan,
+                         coefs: UpdateCoefs, accumulate_power: bool):
     """``n // s`` sweeps of the stream kernel, then ``n % s`` twopass steps
     (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``)."""
     s_steps = plan.s
-    coefs = update_coefs(p)
     src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(src, device) if src is not None else None
     spare: list[FieldState] = []  # the second state, allocated at first use
 
-    def run(s: FieldState, xs) -> FieldState:
+    def run(s: FieldState, xs, power: torch.Tensor | None = None) -> FieldState:
+        _need_power(accumulate_power, power)
+        acc = power if accumulate_power else None
         ts, amps = xs
         n = len(ts)
         n_sw = n // s_steps
@@ -149,10 +189,12 @@ def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.St
                 if src is not None:
                     apply_source(src, s, amps_dev[g * s_steps], profile)
                     drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
-                stream.sweep(p, s, out, coefs, plan, drive)
+                stream.sweep(p, s, out, coefs, plan, drive, acc)
                 s.swap(out)
         for r in range(n_sw * s_steps, n):
             odd_step(s, (ts[r], amps_dev[r]))
+            if acc is not None:
+                diagnostics.accumulate_power(p, s, coefs.sigma_cells, acc)
         return s
 
     run.plan = plan

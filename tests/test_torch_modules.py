@@ -161,10 +161,19 @@ def test_initial_state_matches(default_params):
 
 
 def test_non_vacuum_materials_name_their_roadmap_item(default_params):
+    """Materials are ported: a non-vacuum scene gives coefficient tensors
+    equal to the JAX package's arrays (fp64, exact), and an empty
+    ``Materials`` keeps the scalar vacuum coefficients."""
+    from fdtd_tpu.state import Materials as JMaterials
+
     tp = convert.params_from(default_params)
-    mats = tstate.Materials(eps_r=np.full((tp.maxk, tp.maxj, tp.maxi), 4.0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tstate.update_coefs(tp, mats)
+    eps = np.full((tp.maxk, tp.maxj, tp.maxi), 4.0)
+    coefs = tstate.update_coefs(tp, tstate.Materials(eps_r=eps), "cpu")
+    jcoefs = update_coefs(default_params, JMaterials(eps_r=eps))
+    assert coefs.lossy and not coefs.heterogeneous_mu
+    for f in ("ca_x", "ca_y", "ca_z", "cb_x", "cb_y", "cb_z", "sigma_cells"):
+        np.testing.assert_array_equal(getattr(coefs, f).numpy(), np.asarray(getattr(jcoefs, f)), err_msg=f)
+    assert coefs.h_factor == jcoefs.h_factor
     assert tstate.update_coefs(tp, tstate.Materials()) == tstate.update_coefs(tp)
 
 

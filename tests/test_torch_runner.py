@@ -246,11 +246,36 @@ def test_bfloat16_guardrail_warns(tiny_params, tmp_path):
     ("shard", {"shard": "2"}, "item 11"),
 ])
 def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, feature, kw, item):
-    if feature == "materials":
-        from fdtd_tpu_torch.state import Materials
+    """Sharding, CPML and the monitors raise naming their ROADMAP item.
+    Materials and SAR (item 5) are ported: a lossy scene, and a water
+    block with ``accumulate_power``, run and match the JAX package (fp64,
+    the fields at atol 1e-15 / rtol 1e-11, the fp32 accumulator at rtol
+    1e-6: its per-step increments round to fp32 from reductions in another
+    order)."""
+    if feature in ("materials", "accumulate_power"):
+        from fdtd_tpu.state import Materials as JMaterials
+        from fdtd_tpu.state import water_block
 
-        tp = convert.params_from(tiny_params)
-        kw = {"materials": Materials(sigma=np.ones((tp.maxk, tp.maxj, tp.maxi)))}
+        p = tiny_params
+        if feature == "materials":
+            jm = JMaterials(sigma=np.ones((p.maxk, p.maxj, p.maxi)))
+        else:
+            p = dataclasses.replace(p, mode=Mode.COMPUTATION)
+            jm = water_block(p)
+        sar = feature == "accumulate_power"
+        got = t_run(p, tmp_path / "t", write_snapshots=False, materials=convert.materials_from(jm),
+                    accumulate_power=sar)
+        want = j_run(p, out_dir=str(tmp_path / "j"), write_snapshots=False, materials=jm,
+                     accumulate_power=sar, log=lambda m: None)
+        for c in COMPONENTS:
+            np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
+                                       rtol=1e-11, atol=1e-15, err_msg=c)
+        assert (got.power_j is None) == (want.power_j is None) == (not sar)
+        if sar:
+            w = np.asarray(want.power_j)
+            assert got.power_j.dtype == torch.float32 and float(w.max()) > 0
+            np.testing.assert_allclose(got.power_j.numpy(), w, rtol=1e-6, atol=1e-6 * float(w.max()))
+        return
     with pytest.raises(NotImplementedError, match=item):
         t_run(tiny_params, tmp_path / "x", **kw)
 

@@ -146,7 +146,7 @@ def test_plain_sweep_writes_into_out_and_leaves_input(tiny_params):
     stream.reset_launches()
     r = stream.sweep(p, a, out, tstate.update_coefs(p), stream_plan.plan_for(p, 4), drive)
     want = stream.plain_sweep(p, a, tstate.update_coefs(p), 4, drive)
-    assert r is out and stream.launches == {"yee_stream": 0}
+    assert r is out and stream.launches == dict.fromkeys(stream.launches, 0)
     for c in COMPONENTS:
         assert torch.equal(getattr(a, c), getattr(before, c)), c
         assert torch.equal(getattr(out, c), getattr(want, c)), c
@@ -253,7 +253,7 @@ def test_stream_refuses_fp64_and_other_devices(tiny_params):
     mixed = tstate.zeros(p32, "cpu", torch.float32)
     with pytest.raises(ValueError, match="one device"):
         stream.sweep(p32, mixed, out, tstate.update_coefs(p32), stream_plan.plan_for(p32, 4))
-    assert stream.launches == {"yee_stream": 0}
+    assert stream.launches == dict.fromkeys(stream.launches, 0) and "yee_stream" in stream.launches
 
 
 def test_stream_build_without_nvcc_raises(tmp_path, monkeypatch):
