@@ -41,9 +41,25 @@ package beside it.  Phases, each printing one line or more:
    stream and twopass without SAR (water, water + ferrite), from random
    fields; twopass's peak device memory against its model, and the model
    at 1024^3 fp32 (stream refused, twopass fits the free memory);
+6b. the CPML path (--pml 10) at full size: the CPML kernels of phase 3
+   (the two-pass variants vacuum and het-mu + lossy with a load reaching
+   into the absorber, both modes; the sweep vacuum and lossy at s = 2, the
+   one depth it is built at, and at the --pml 10 plan at 256^3; fields and
+   all twelve psi, from random psi so every term is engaged) are checked
+   bit for bit first; then the CLI on configs/bench_256.txt --pml 10 at a
+   sampling rate of 500 (auto picks twopass; snapshots and a radiated_W
+   log), the same scene through run_simulation with twopass and with
+   stream (1000 steps; launch counts; fields and psi equal bit for bit),
+   64 steps of stream, twopass
+   and torch in vacuum and with --water-block, 66 steps of twopass and
+   torch with --water-block --ferrite-slab --sar (auto: twopass), the
+   absorption test of tests/test_pml.py through twopass and the gaussian
+   ring-down through stream and twopass (24^3, where the source clears the
+   slabs), and the allocator's peak over one snapshot and one log record
+   at 256^3 in forced k slabs against the model;
 7. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
-   bf16, vacuum and heating, and each kernel's time beside its plain
-   version's and its bound.
+   bf16, vacuum, heating and --pml 10, and each kernel's time beside its
+   plain version's and its bound, and every vacuum stream plan's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -66,6 +82,7 @@ N_TIMED = 48  # steps per timed run (a multiple of every steps-per-sweep)
 N_WARM = 8
 N_LOADS = 66  # steps of the load comparisons at 256^3 (not a multiple of the sweep's s)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PML_STEPS_RINGDOWN = 1200  # the gaussian ring-down of tests/test_pml.py
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 
 
@@ -104,14 +121,18 @@ def main() -> None:
     from fdtd_tpu_torch.grid import COMPONENTS
     from concurrent.futures import ThreadPoolExecutor
 
-    from fdtd_tpu_torch.ops import build, curl, stream, stream_plan, yee
+    from fdtd_tpu_torch.ops import build, cpml, curl, stream, stream_plan, yee
+    from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState, init_psi, make_cpml, psi_shapes
     from fdtd_tpu_torch.params import Mode, Params, load_parameters, time_values
+    from fdtd_tpu_torch.io.snapshots import aggregate_all
     from fdtd_tpu_torch.runner import initial_state, resolve_backend, run_simulation
     from fdtd_tpu_torch.source import apply_source, make_source_plan, profile_tensor, sweep_drive_rows
     from fdtd_tpu_torch.state import FieldState, ferrite_slab, field_dtype, update_coefs, water_block
     from fdtd_tpu_torch.step import make_chunk_runner, scan_inputs, zero_power_acc
 
     dev = torch.device("cuda", 0)
+    PML_CHECK = PMLConfig(cells=6)  # the kernel checks' absorber
+    PML10 = PMLConfig(cells=10)  # --pml 10
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -219,6 +240,66 @@ def main() -> None:
               f"{plan.kernel} == plain_sweep, s={s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
               f"{plan.blocks} blocks, {label}: fields max|diff| = {d!r}{sar_txt}")
 
+    def random_psi(p: Params, cfg: PMLConfig) -> PsiState:
+        """Non-zero psi in every term (all twelve engaged from the start)."""
+        shapes = psi_shapes(p, cfg)
+        return PsiState(**{n: torch.tensor(rng.uniform(-1e-2, 1e-2, shapes[n]), dtype=field_dtype(p),
+                                           device=dev) for n in PsiState.names()})
+
+    def compare_pml(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
+        """The CPML two-pass kernels against Cpml.plain_h/plain_e: fields
+        and the twelve psi; ``coefs`` with materials picks the het-mu H and
+        lossy E variants."""
+        dt = field_dtype(p)
+        coefs = coefs or update_coefs(p)
+        cp = make_cpml(p, PML_CHECK, coefs, dev)
+        h_name = "yee_update_h_het_pml" if coefs.heterogeneous_mu else "yee_update_h_pml"
+        e_name = "yee_update_e_lossy_pml" if coefs.lossy else "yee_update_e_pml"
+        patch = make_source_plan(p).patch if p.mode == Mode.COMPUTATION else None
+        k_state, p_state = state_from_numpy(arrays, dev, dt), state_from_numpy(arrays, dev, dt)
+        k_psi = random_psi(p, PML_CHECK)
+        p_psi, psi0 = k_psi.clone(), k_psi.clone()
+        err = {h_name: 0.0, e_name: 0.0}
+        for _ in range(steps):
+            yee.update_h(p, k_state, coefs, patch, cp, k_psi)
+            cp.plain_h(p, p_state, coefs, p_psi, patch)
+            torch.cuda.synchronize()
+            err[h_name] = max(err[h_name], maxdiff(k_state, p_state), maxdiff(k_psi, p_psi))
+            yee.update_e(p, k_state, coefs, cp, k_psi)
+            cp.plain_e(p, p_state, coefs, p_psi)
+            torch.cuda.synchronize()
+            err[e_name] = max(err[e_name], maxdiff(k_state, p_state), maxdiff(k_psi, p_psi))
+        moved = sum(not torch.equal(a, b) for a, b in zip(k_psi.tensors(), psi0.tensors()))
+        for name, d in err.items():
+            record_err(name, d)
+            check(d == 0.0 and moved == 12,
+                  f"{name} == plain over {steps} steps, fields and psi ({moved} of 12 terms advanced), "
+                  f"{label}: max|diff| = {d!r}")
+
+    def compare_sweep_pml(p: Params, arrays: dict, s: int, label: str, coefs=None, cfg=None) -> None:
+        """One CPML sweep against plain_sweep: fields and both psi sets."""
+        cfg = cfg or PML_CHECK
+        st, drive, _ = sweep_inputs(p, arrays, s)
+        coefs = coefs or update_coefs(p)
+        cp = make_cpml(p, cfg, coefs, dev)
+        plan = stream_plan.plan_for(p, s, coefs.lossy, pml=cfg)
+        psi = random_psi(p, cfg)
+        out = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+        psi_out = PsiState(*(torch.full_like(t, float("nan")) for t in psi.tensors()))
+        stream.sweep(p, st, out, coefs, plan, drive, None, cp, psi, psi_out)
+        want_psi = PsiState(*(torch.empty_like(t) for t in psi.tensors()))
+        want = stream.plain_sweep(p, st, coefs, s, drive, None, None, cp, psi, want_psi)
+        torch.cuda.synchronize()
+        d = max(maxdiff(out, want), maxdiff(psi_out, want_psi))
+        moved = sum(not torch.equal(a, b) for a, b in zip(psi_out.tensors(), psi.tensors()))
+        record_err(plan.kernel, d)
+        K1, J1, I1 = p.padded_shape
+        if K1 % plan.tk or J1 % plan.tj or I1 % plan.ti:
+            ragged.add((plan.kernel, s, p.padded_shape))
+        check(d == 0.0 and moved == 12,
+              f"{plan.kernel} == plain_sweep, s={s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
+              f"{plan.blocks} blocks, {label}: fields and psi max|diff| = {d!r} ({moved} of 12 terms advanced)")
+
     rng = np.random.default_rng(1234)
     for dtype in ("float32", "bfloat16"):
         for mode in (Mode.VALIDATION, Mode.COMPUTATION):
@@ -236,6 +317,19 @@ def main() -> None:
             compare(p, arrays, 2, f"{dtype} {mode.name} water + ferrite {p.padded_shape}", het_coefs)
             if mode != Mode.COMPUTATION:
                 continue  # materials stream in computation mode only
+            # CPML: the two-pass variants (vacuum; het-mu H + lossy E with a
+            # load that reaches into the absorber) in both modes
+            overlap = update_coefs(p, ferrite_slab(p, base=water_block(p, lo=(0.02,) * 3, hi=(0.98,) * 3)), dev)
+            compare_pml(p, arrays, 2, f"{dtype} {mode.name} random {p.padded_shape}")
+            compare_pml(p, arrays, 2, f"{dtype} {mode.name} water + ferrite into the slabs", overlap)
+            del overlap
+            if mode == Mode.COMPUTATION:
+                # the CPML sweep, vacuum and lossy (a load into the slabs)
+                wide = update_coefs(p, water_block(p, lo=(0.02,) * 3, hi=(0.98,) * 3), dev)
+                for s in stream_plan.BLOCK_J_PML:
+                    compare_sweep_pml(p, arrays, s, f"{dtype} random {p.padded_shape}")
+                    compare_sweep_pml(p, arrays, s, f"{dtype} water into the slabs {p.padded_shape}", wide)
+                del wide
             lossy_coefs = update_coefs(p, water_block(p), dev)
             for coefs_m, scene_m in ((lossy_coefs, "water"), (het_coefs, "water + ferrite")):
                 for sar in (False, True):
@@ -263,6 +357,11 @@ def main() -> None:
         pd = dataclasses.replace(p_main, dtype=dtype)
         arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
         compare_sweep(pd, arrays, main_plan.s, f"{dtype} COMPUTATION random 256^3, main plan")
+        # the CPML plan of the --pml 10 path, vacuum and lossy
+        pml_plan = stream_plan.pick_plan(pd, pml=PML10)
+        compare_sweep_pml(pd, arrays, pml_plan.s, f"{dtype} random 256^3, --pml 10 plan", cfg=PML10)
+        compare_sweep_pml(pd, arrays, pml_plan.s, f"{dtype} water random 256^3, --pml 10 plan",
+                          update_coefs(pd, water_block(pd), dev), cfg=PML10)
         # the heating plans: water + SAR, and water + ferrite + SAR
         for mats, scene_m in ((water_block(pd), "heating"), (ferrite_slab(pd, base=water_block(pd)),
                                                               "heating + ferrite")):
@@ -371,26 +470,34 @@ def main() -> None:
     del finals
 
     def equal_runs(pm: Params, steps: int, backends: tuple, mats=None, sar: bool = False,
-                   label: str = "") -> dict:
+                   label: str = "", pml: PMLConfig | None = None) -> dict:
         """``steps`` steps of each backend from the mode's initial state
-        (with materials: from random fields, so that every cell of the load
-        deposits from the first step); the fields (and SAR maps) must be
-        equal.  Returns each backend's launch counts."""
+        (with materials or CPML: from random fields, so that every cell of
+        the load deposits, and every psi term engages, from the first
+        step); the fields (and SAR maps, and with ``pml`` the twelve psi)
+        must be equal.  Returns each backend's launch counts."""
         ts, amps = scan_inputs(pm, time_values(pm)[:steps])
         init = None
-        if mats is not None:
+        if mats is not None or pml is not None:
             init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
-        states, powers, counts = {}, {}, {}
+        states, powers, counts, psis = {}, {}, {}, {}
         for backend in backends:
             s = initial_state(pm, dev) if init is None else state_from_numpy(init, dev, field_dtype(pm))
             powers[backend] = zero_power_acc(pm, dev) if sar else None
+            psis[backend] = init_psi(pm, pml, dev) if pml is not None else None
             reset_counts()
-            make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar)(s, (ts, amps), powers[backend])
+            make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml)(
+                s, (ts, amps), powers[backend], psis[backend])
             torch.cuda.synchronize()
             counts[backend] = counts_now()
             states[backend] = s
+        if pml is not None:
+            engaged = sum(float(t.abs().max()) > 0 for t in psis[backends[0]].tensors())
+            check(engaged == 12, f"{pm.maxk}^3 {label}{steps} steps: {engaged} of 12 psi terms engaged")
         for a, b in zip(backends, backends[1:]):
             d = maxdiff(states[a], states[b])
+            if pml is not None:
+                d = max(d, maxdiff(psis[a], psis[b]))
             d_acc = float((powers[a] - powers[b]).abs().max()) if sar else 0.0
             sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].max())!r})" if sar else ""
             check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].max()) > 0),
@@ -513,9 +620,163 @@ def main() -> None:
           f"1024^3 fp32 water + ferrite + SAR: stream needs {need_st} B, twopass {need_tp} B; "
           f"{stream_plan.MEMORY_MARGIN} of the {free0} B free at start: stream refused, twopass fits")
 
+    # -- 6b. the CPML path at 256^3 (--pml 10) ------------------------------
+    pml_main = stream_plan.pick_plan(p, pml=PML10)
+    print(f"--pml 10 plan at 256^3: {pml_main} ({pml_main.blocks} blocks of {pml_main.threads} threads, "
+          f"{pml_main.smem_bytes} B shared memory)", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        # bench_256.txt with a sampling rate of 500: snapshots 1, 500, 1000
+        params_pml = os.path.join(out, "bench_256_rate500.txt")
+        with open("configs/bench_256.txt") as f:
+            vals = f.read().split()
+        vals[6] = "500"
+        with open(params_pml, "w") as f:
+            f.write("\n".join(vals) + "\n")
+        diag = os.path.join(out, "diag.jsonl")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "fdtd_tpu_torch", params_pml, "--pml", "10", "--diag-log", diag,
+             "--out", os.path.join(out, "r")],
+            capture_output=True, text=True, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        print(r.stdout.strip().splitlines()[-2] if r.stdout.strip() else "(no CLI output)")
+        files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(out, "r", "*.vtr")))
+        recs = []
+        if os.path.exists(diag):
+            with open(diag) as f:
+                recs = [json.loads(line) for line in f]
+        radiated = [rec.get("radiated_W") for rec in recs]
+        check(r.returncode == 0 and "Simulation complete!" in r.stdout
+              and files == ["result0001.vtr", "result0500.vtr", "result1000.vtr"]
+              and [rec["iteration"] for rec in recs] == [0, 500, 1000]
+              and all(x is not None and math.isfinite(x) for x in radiated) and radiated[-1] != 0,
+              f"CLI bench_256 --pml 10 (rate 500) exit {r.returncode} in {cli_s:.1f} s: {files}, "
+              f"radiated_W {radiated} {r.stderr.strip()[-300:]}")
+    for dtype in ("float32", "bfloat16"):
+        check(resolve_backend(dataclasses.replace(p, dtype=dtype), "auto", dev, pml=PML10) == "twopass"
+              and resolve_backend(dataclasses.replace(p, dtype=dtype), "stream", dev, pml=PML10) == "stream",
+              f"auto resolves to twopass for --pml 10 at 256^3 {dtype}; stream is admitted when asked")
+    finals, final_psi = {}, {}
+    for backend in ("twopass", "stream"):
+        reset_counts()
+        res = run_simulation(p, dev, write_snapshots=False, backend=backend, pml=PML10, log=lambda m: None)
+        counts = counts_now()
+        sp = pml_main.s
+        want = (expect(yee_update_h_pml=n, yee_update_e_pml=n) if backend == "twopass" else
+                expect(yee_update_h_pml=n % sp, yee_update_e_pml=n % sp, yee_stream_pml=n // sp))
+        check(counts == want and n == 1000, f"--pml 10 path {backend} launch counts {counts} == {want}")
+        for name in (("yee_update_h_pml", "yee_update_e_pml") if backend == "twopass" else ("yee_stream_pml",)):
+            main_counts[name] = counts[name]
+            paths[name] = f"bench_256 --pml 10 {backend}"
+        e_tot = float(diagnostics.total_energy(p, res.state))
+        check(math.isfinite(e_tot) and e_tot > 0 and all(bool(torch.isfinite(t).all()) for t in res.state.tensors())
+              and all(bool(torch.isfinite(t).all()) for t in res.psi.tensors()),
+              f"--pml 10 256^3 {backend}: fields and psi finite, energy {e_tot!r} "
+              f"({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
+        finals[backend], final_psi[backend] = res.state, res.psi
+        del res
+    d = max(maxdiff(finals["stream"], finals["twopass"]), maxdiff(final_psi["stream"], final_psi["twopass"]))
+    check(d == 0.0, f"--pml 10 256^3 1000 steps: stream == twopass, fields and psi max|diff| = {d!r}")
+    del finals, final_psi
+    # 64 steps: stream = twopass = torch, vacuum and --water-block
+    equal_runs(p, 64, ("stream", "twopass", "torch"), label="--pml 10 ", pml=PML10)
+    counts = equal_runs(p, 64, ("stream", "twopass", "torch"), water, False, "--water-block --pml 10 ", PML10)
+    sw_ = stream_plan.pick_plan(p, lossy=True, pml=PML10).s
+    check(counts["stream"] == expect(yee_stream_lossy_pml=64 // sw_, yee_update_h_pml=64 % sw_,
+                                     yee_update_e_lossy_pml=64 % sw_),
+          f"--water-block --pml 10 stream launch counts {counts['stream']}")
+    main_counts["yee_stream_lossy_pml"] = counts["stream"]["yee_stream_lossy_pml"]
+    paths["yee_stream_lossy_pml"] = "bench_256 --water-block --pml 10 stream (64 steps)"
+    # --water-block --ferrite-slab --sar --pml 10: the CPML sweep's gates
+    # refuse het-mu and SAR, so auto runs twopass; held against torch
+    check(resolve_backend(p, "auto", dev, ferrite, True, PML10) == "twopass",
+          "auto resolves to twopass for --water-block --ferrite-slab --sar --pml 10")
+    counts = equal_runs(p, N_LOADS, ("twopass", "torch"), ferrite, True, "--water-block --ferrite-slab --sar "
+                        "--pml 10 ", PML10)
+    check(counts["twopass"] == expect(yee_update_h_het_pml=N_LOADS, yee_update_e_lossy_pml=N_LOADS),
+          f"--water-block --ferrite-slab --sar --pml 10 twopass launch counts {counts['twopass']}")
+    for name in ("yee_update_h_het_pml", "yee_update_e_lossy_pml"):
+        main_counts[name] = counts["twopass"][name]
+        paths[name] = f"bench_256 --water-block --ferrite-slab --sar --pml 10 twopass ({N_LOADS} steps)"
+    torch.cuda.empty_cache()
+
+    # physics through the kernels: the absorption test (twopass) and the
+    # gaussian ring-down (stream and twopass) of tests/test_pml.py
+    def box(n_: int, steps: int, mode: Mode) -> Params:
+        return Params(length=n_ * 1e-3, width=n_ * 1e-3, height=n_ * 1e-3, spatial_step=0.001,
+                      time_step=1e-12, simulation_time=steps * 1e-12, sampling_rate=10**9,
+                      mode=mode, dtype="float32")
+
+    pa = box(32, 400, Mode.VALIDATION)
+    K1, J1, I1 = pa.padded_shape
+    kk, jj, ii = np.ogrid[:K1, :J1, :I1]
+    g = np.broadcast_to(np.exp(-((kk - 16) ** 2 + (jj - 16) ** 2 + (ii - 16) ** 2) / 18.0), (K1, J1, I1))
+    pulse = {c: np.zeros((K1, J1, I1)) for c in COMPONENTS}
+    pulse["ex"][:, 1:, :] = g[:, 1:, :] - g[:, :-1, :]  # E = discrete curl of A_z g: all radiative
+    pulse["ey"][:, :, 1:] = -(g[:, :, 1:] - g[:, :, :-1])
+    pulse["ey"][:, pa.maxj:, :] = 0.0
+    xs_a = scan_inputs(pa, time_values(pa)[:400])
+    s0 = state_from_numpy(pulse, dev, torch.float32)
+    e0 = float(diagnostics.total_energy(pa, s0))
+    pec, absorbed, psi_a = s0.clone(), s0.clone(), init_psi(pa, PMLConfig(cells=8), dev)
+    reset_counts()
+    make_chunk_runner(pa, dev, backend="twopass")(pec, xs_a)
+    make_chunk_runner(pa, dev, backend="twopass", pml=PMLConfig(cells=8))(absorbed, xs_a, None, psi_a)
+    torch.cuda.synchronize()
+    e_pec, e_pml = float(diagnostics.total_energy(pa, pec)), float(diagnostics.total_energy(pa, absorbed))
+    check(e_pec > 0.2 * e0 and e_pml < 1e-3 * e_pec and e_pml < 1e-3 * e0
+          and counts_now()["yee_update_h_pml"] == 400,
+          f"absorption 32^3 x 400 steps through twopass (8-cell CPML): E_pml/E_pec = {e_pml / e_pec!r} "
+          f"< 1e-3, E_pec/E_0 = {e_pec / e0!r} > 0.2")
+    pr = box(24, PML_STEPS_RINGDOWN, Mode.COMPUTATION)
+    pr = dataclasses.replace(pr, source=dataclasses.replace(pr.source, envelope="gaussian", pulse_width=8e-11))
+    ring = PMLConfig(cells=4)
+    tv = time_values(pr)
+    for backend in ("stream", "twopass"):
+        st_r, psi_r = initial_state(pr, dev), init_psi(pr, ring, dev)
+        run_r = make_chunk_runner(pr, dev, backend=backend, pml=ring)
+        reset_counts()
+        run_r(st_r, scan_inputs(pr, tv[:300]), None, psi_r)
+        e_mid = float(diagnostics.total_energy(pr, st_r))
+        run_r(st_r, scan_inputs(pr, tv[300:]), None, psi_r)
+        torch.cuda.synchronize()
+        e_end = float(diagnostics.total_energy(pr, st_r))
+        used = {k: v for k, v in counts_now().items() if v}
+        ran = (used.get("yee_stream_pml", 0) == PML_STEPS_RINGDOWN // run_r.plan.s if backend == "stream"
+               else used == {"yee_update_h_pml": PML_STEPS_RINGDOWN, "yee_update_e_pml": PML_STEPS_RINGDOWN})
+        check(e_mid > 0 and e_end < 2e-2 * e_mid and ran,
+              f"gaussian ring-down 24^3 x {PML_STEPS_RINGDOWN} steps through {backend} (4-cell CPML): "
+              f"E_end/E_mid = {e_end / e_mid!r} < 2e-2; launches {used}")
+
+    # the output reductions in k slabs: the allocator's peak over one
+    # snapshot (aggregation) plus one log record (energies and radiated
+    # power) at 256^3 with slabs forced to 64 planes, against the model
+    slab_cells = diagnostics.OUTPUT_SLAB_CELLS
+    diagnostics.OUTPUT_SLAB_CELLS = 64 * p.maxj * p.maxi
+    s_o = state_from_numpy({c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS},
+                           dev, torch.float32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    variables = aggregate_all(p, s_o)
+    rec_e = float(diagnostics.e_energy(p, s_o)) + float(diagnostics.h_energy(p, s_o))
+    rec_f = float(diagnostics.poynting_flux(p, s_o, margin=11))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    model = stream_plan.output_work_bytes(p)
+    whole = 6 * p.maxk * p.maxj * p.maxi * 4
+    check(0 < peak <= model and len(variables) == 6 and math.isfinite(rec_e + rec_f),
+          f"one snapshot + one log record at 256^3 in {len(diagnostics.output_slabs(p))} slabs: peak "
+          f"{peak} B <= model {model} B ({peak / model!r} of it; the six whole-grid cell arrays alone "
+          f"were {whole} B)")
+    diagnostics.OUTPUT_SLAB_CELLS = slab_cells
+    del s_o, variables
+    torch.cuda.empty_cache()
+
     # -- 7. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
-    for scene_t, mats_t in (("vacuum", None), ("heating", water)):
+    for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10)):
         for dtype in ("float32", "bfloat16"):
             pd = dataclasses.replace(p, dtype=dtype)
             ts, amps = scan_inputs(pd, time_values(pd)[: N_WARM + N_TIMED])
@@ -523,15 +784,16 @@ def main() -> None:
             for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
                 s = initial_state(pd, dev)
                 power = zero_power_acc(pd, dev) if sar else None
-                run = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar)
-                run(s, (ts[:N_WARM], amps[:N_WARM]), power)
+                psi_t = init_psi(pd, pml_t, dev) if pml_t is not None else None
+                run = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar, pml=pml_t)
+                run(s, (ts[:N_WARM], amps[:N_WARM]), power, psi_t)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                run(s, (ts[N_WARM:], amps[N_WARM:]), power)
+                run(s, (ts[N_WARM:], amps[N_WARM:]), power, psi_t)
                 torch.cuda.synchronize()
                 dt_s = time.perf_counter() - t0
                 rates.setdefault(f"{scene_t} {backend} {dtype}", []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
-                del s, power, run
+                del s, power, run, psi_t
     for key, vals in rates.items():
         print(f"timing 256^3 {key}: Mcells/s {vals} (2 runs of {N_TIMED} steps, {smi})")
 
@@ -584,6 +846,39 @@ def main() -> None:
             else:
                 ms_bf16[name] = k_ms
             del coefs_t, st, out, acc
+        # CPML: the two-pass variants (vacuum; het-mu H + lossy E) and the
+        # sweeps (vacuum, lossy) at the --pml 10 path's shapes
+        s_d = initial_state(dataclasses.replace(pd, mode=Mode.VALIDATION), dev)
+        psi_d = init_psi(pd, PML10, dev)
+        for mats_t, names in ((None, ("yee_update_h_pml", "yee_update_e_pml")),
+                              (ferrite, ("yee_update_h_het_pml", "yee_update_e_lossy_pml"))):
+            coefs_t = update_coefs(pd, mats_t, dev)
+            cp_t = make_cpml(pd, PML10, coefs_t, dev)
+            k_h = event_ms(lambda: yee.update_h(pd, s_d, coefs_t, patch, cp_t, psi_d))
+            k_e = event_ms(lambda: yee.update_e(pd, s_d, coefs_t, cp_t, psi_d))
+            if fp32:
+                ms[names[0]] = (k_h, event_ms(lambda: cp_t.plain_h(pd, s_d, coefs_t, psi_d, patch), reps=5))
+                ms[names[1]] = (k_e, event_ms(lambda: cp_t.plain_e(pd, s_d, coefs_t, psi_d), reps=5))
+            else:
+                ms_bf16[names[0]], ms_bf16[names[1]] = k_h, k_e
+            del coefs_t, cp_t
+        del s_d
+        for name, mats_t in (("yee_stream_pml", None), ("yee_stream_lossy_pml", water)):
+            coefs_t = update_coefs(pd, mats_t, dev)
+            cp_t = make_cpml(pd, PML10, coefs_t, dev)
+            plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, pml=PML10)
+            st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
+            out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            psi_o = PsiState(*(torch.empty_like(t) for t in psi_d.tensors()))
+            k_ms = event_ms(lambda: stream.sweep(pd, st, out, coefs_t, plan_t, drive, None, cp_t, psi_d, psi_o))
+            if fp32:
+                plans[name] = plan_t
+                ms[name] = (k_ms, event_ms(lambda: stream.plain_sweep(pd, st, coefs_t, plan_t.s, drive, out, None,
+                                                                      cp_t, psi_d, psi_o), reps=5))
+            else:
+                ms_bf16[name] = k_ms
+            del coefs_t, cp_t, st, out, psi_o
+        del psi_d
     del arrays
     for name, (k_ms, p_ms) in ms.items():
         per = f" per sweep of {plans[name].s} steps" if name in plans else " per pass"
@@ -610,21 +905,34 @@ def main() -> None:
     cells = math.prod(p.padded_shape)
     cells_k = p.maxk * p.maxj * p.maxi
 
+    # psi cells of the H and E terms at --pml 10 (each read once and written
+    # once per pass or sweep; 5 operations each: the recursion and the add)
+    shapes10 = psi_shapes(p, PML10)
+    psi_h = sum(math.prod(shapes10[t]) for t in cpml.H_TERMS)
+    psi_e = sum(math.prod(shapes10[t]) for t in cpml.E_TERMS)
+
     def work(name: str, item: int) -> tuple[float, float]:
         """(bytes, flops) of one pass or sweep of kernel ``name`` with
-        ``item``-byte fields and coefficients (the SAR map is fp32)."""
-        lossy, het, sar = "lossy" in name, "het" in name, name.endswith("sar")
+        ``item``-byte fields and coefficients (the SAR map is fp32), with
+        CPML the psi of its terms read and written once."""
+        lossy, het, sar, pml = "lossy" in name, "het" in name, name.endswith("sar"), name.endswith("pml")
         if name.startswith("yee_update_h"):  # six fields and hf in, three H out
-            return (9 + (3 if het else 0)) * item * cells, 15 * cells
+            return ((9 + (3 if het else 0)) * item * cells + (2 * item * psi_h if pml else 0),
+                    15 * cells + (5 * psi_h if pml else 0))
         if name.startswith("yee_update_e"):  # six fields and ca/cb in, three E out
-            return (9 + (6 if lossy else 0)) * item * cells, (18 if lossy else 15) * cells
+            return ((9 + (6 if lossy else 0)) * item * cells + (2 * item * psi_e if pml else 0),
+                    (18 if lossy else 15) * cells + (5 * psi_e if pml else 0))
         s_n = plans[name].s  # fields in and out, coefficients, sigma, the map in and out
         b = (12 + (6 if lossy else 0) + (3 if het else 0)) * item * cells + ((item + 8) * cells_k if sar else 0)
-        return b, s_n * (cells * (15 + (18 if lossy else 15)) + (20 * cells_k if sar else 0))
+        b += 2 * item * (psi_h + psi_e) if pml else 0
+        return b, s_n * (cells * (15 + (18 if lossy else 15)) + (20 * cells_k if sar else 0)
+                         + (5 * (psi_h + psi_e) if pml else 0))
 
     kernels = []
     for name in ("yee_update_h", "yee_update_e", "yee_stream", "yee_update_h_het", "yee_update_e_lossy",
-                 "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar"):
+                 "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar",
+                 "yee_update_h_pml", "yee_update_e_pml", "yee_update_h_het_pml", "yee_update_e_lossy_pml",
+                 "yee_stream_pml", "yee_stream_lossy_pml"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)
@@ -636,7 +944,12 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fdtd_tpu_torch/csrc/" + ("yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
-            "replaces": ("fdtd_tpu/ops/pallas_stream.py:207" if "stream" in name else
+            "replaces": ("fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and
+                         name.endswith("pml") else
+                         "fdtd_tpu/ops/cpml_kernel.py:229" if name.startswith("yee_update_h") and
+                         name.endswith("pml") else
+                         "fdtd_tpu/ops/cpml_kernel.py:417" if name.endswith("pml") else
+                         "fdtd_tpu/ops/pallas_stream.py:207" if "stream" in name else
                          "fdtd_tpu/ops/pallas_fused.py:332" if "_h" in name else
                          "fdtd_tpu/ops/pallas_fused.py:412"),
             "launches": main_counts[name], "max_abs_err": max_err[name],

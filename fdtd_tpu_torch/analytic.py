@@ -36,8 +36,11 @@ def _spatial_profiles(p: Params):
     return np.sin(kz), np.cos(kz), np.sin(kx), np.cos(kx)
 
 
-def analytic_fields(p: Params, t: float, ccompat: bool = False) -> dict[str, np.ndarray]:
-    """Closed-form Ey/Hx/Hz on their staggered grids at time ``t`` (fp64).
+def analytic_fields(p: Params, t: float, ccompat: bool = False,
+                    k_range: tuple[int, int] | None = None) -> dict[str, np.ndarray]:
+    """Closed-form Ey/Hx/Hz on their staggered grids at time ``t`` (fp64),
+    on the array planes ``k_range`` = (k_lo, k_hi) (default: all K+1; a
+    range gives the same rows of the whole arrays, bit for bit).
 
     Physics (default), from Maxwell with Ey = cos(wt) sin(pi z/h) sin(pi x/l):
 
@@ -53,35 +56,44 @@ def analytic_fields(p: Params, t: float, ccompat: bool = False) -> dict[str, np.
     sin_kz, cos_kz, sin_kx, cos_kx = _spatial_profiles(p)
     K1, J1, I1 = p.padded_shape
     K, J, I = p.maxk, p.maxj, p.maxi
+    k_lo, k_hi = k_range or (0, K1)
+    rows = slice(k_lo, k_hi)
+    nk = k_hi - k_lo
+    nh = max(0, min(k_hi, K) - k_lo)  # Hx's rows below K
     ct = math.cos(2.0 * PI * f_mnl * t)
     st = math.sin(2.0 * PI * f_mnl * t)
 
-    ey = np.zeros((K1, J1, I1))
-    ey[:, :J, :] = ct * sin_kz[:, None, None] * sin_kx[None, None, :]
+    ey = np.zeros((nk, J1, I1))
+    ey[:, :J, :] = ct * sin_kz[rows, None, None] * sin_kx[None, None, :]
 
-    hx = np.zeros((K1, J1, I1))
-    hz = np.zeros((K1, J1, I1))
+    hx = np.zeros((nk, J1, I1))
+    hz = np.zeros((nk, J1, I1))
+    hrows = slice(k_lo, k_lo + nh)
     if ccompat:
-        hx[:K, :J, :] = (1.0 / z_te) * st * sin_kz[:K, None, None] * cos_kx[None, None, :]
-        hz[:, :J, :I] = (-PI / (omega * MU * p.length)) * st * cos_kz[:, None, None] * sin_kx[None, None, :I]
+        hx[:nh, :J, :] = (1.0 / z_te) * st * sin_kz[hrows, None, None] * cos_kx[None, None, :]
+        hz[:, :J, :I] = (-PI / (omega * MU * p.length)) * st * cos_kz[rows, None, None] * sin_kx[None, None, :I]
     else:
         # Hx lives at (i, j+1/2, k+1/2): cos along z evaluated mid-cell.
         dz = PI * p.spatial_step / p.height
         dxs = PI * p.spatial_step / p.length
         cos_kz_half = np.cos(dz * (np.arange(K1) + 0.5))
         cos_kx_half = np.cos(dxs * (np.arange(I1) + 0.5))
-        hx[:K, :J, :] = (1.0 / z_te) * st * cos_kz_half[:K, None, None] * sin_kx[None, None, :]
-        hz[:, :J, :I] = (-PI / (omega * MU * p.length)) * st * sin_kz[:, None, None] * cos_kx_half[None, None, :I]
+        hx[:nh, :J, :] = (1.0 / z_te) * st * cos_kz_half[hrows, None, None] * sin_kx[None, None, :]
+        hz[:, :J, :I] = (-PI / (omega * MU * p.length)) * st * sin_kz[rows, None, None] * cos_kx_half[None, None, :I]
 
     return {"ey": ey, "hx": hx, "hz": hz}
 
 
-def error_fields(p: Params, s: FieldState, t: float, ccompat: bool = True) -> dict[str, torch.Tensor]:
+def error_fields(p: Params, s: FieldState, t: float, ccompat: bool = True,
+                 k_range: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """(analytical - computed) for Ey/Hx/Hz in the field dtype, on the
-    state's device (reference: main.c:685-709)."""
-    ana = analytic_fields(p, t, ccompat=ccompat)
+    state's device (reference: main.c:685-709), over the array planes
+    ``k_range`` (default: all)."""
+    ana = analytic_fields(p, t, ccompat=ccompat, k_range=k_range)
+    k_lo, k_hi = k_range or (0, p.padded_shape[0])
 
     def diff(name, comp):
+        comp = comp[k_lo:k_hi]
         return torch.as_tensor(ana[name], dtype=comp.dtype, device=comp.device) - comp
 
     return {"aEy": diff("ey", s.ey), "aHx": diff("hx", s.hx), "aHz": diff("hz", s.hz)}

@@ -4,8 +4,8 @@ Mirrors ``python -m fdtd_tpu params.txt`` (and the reference's
 ``./microwave params.txt``, main.c:807-853): the same banner lines, the same
 single positional argument, the same exit codes on a missing or bad
 parameters file, and the JAX CLI's load flags (``--water-block``,
-``--ferrite-slab``, ``--load-shape``, ``--load-center``) and ``--sar``,
-which writes ``sar.vtr``.  ``--device`` chooses where the fields live
+``--ferrite-slab``, ``--load-shape``, ``--load-center``), ``--sar``,
+which writes ``sar.vtr``, and ``--pml N``, the CPML open boundary.  ``--device`` chooses where the fields live
 (default ``cuda``); without CUDA the run stops with a message that names
 ``--device cpu``.
 """
@@ -21,6 +21,7 @@ import torch
 
 from . import grid
 from .io.vtr import write_vtr
+from .ops.cpml import PMLConfig
 from .params import Mode, load_parameters
 from .runner import BACKEND_CHOICES, run_simulation
 from .state import block_mask, cylinder_mask, ferrite_slab, sphere_mask, water_from_mask
@@ -37,8 +38,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="auto", choices=list(BACKEND_CHOICES),
                     help="update path: stream (Hopper streaming kernel, s steps a launch), "
                          "twopass (Hopper two-pass kernels), torch (plain ops), or auto "
-                         "(stream on CUDA in float32/bfloat16 when a sweep plan fits, "
-                         "else twopass; torch on the CPU or in float64)")
+                         "(stream on CUDA in float32/bfloat16 when a sweep plan fits and "
+                         "there is no --pml, else twopass; torch on the CPU or in float64)")
     ap.add_argument("--device", default="cuda", help="torch device of the fields (default: cuda)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
     ap.add_argument("--water-block", action="store_true", help="place a water load in the cavity")
@@ -51,6 +52,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "centered sphere, or a z-axis cylinder (the mug)")
     ap.add_argument("--load-center", default=None, metavar="X,Y",
                     help="(x, y) center of the load as box fractions (default 0.5,0.5)")
+    ap.add_argument("--pml", type=int, default=0, metavar="N",
+                    help="CPML absorbing boundaries, N cells per face (0 = closed PEC cavity "
+                         "like the reference); the energy log adds radiated_W")
     ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N", help="checkpoint every N steps")
     ap.add_argument("--resume", action="store_true", help="resume from latest checkpoint in --out")
     ap.add_argument("--diag-log", default=None, help="JSONL per-sample energy log path")
@@ -159,6 +163,7 @@ def main(argv=None) -> int:
             resume=args.resume,
             quirk_compat=not args.physics_correct,
             diagnostics_log=args.diag_log,
+            pml=PMLConfig(cells=args.pml) if args.pml else None,
         )
     except (RuntimeError, ValueError) as e:
         # no CUDA for --device cuda, twopass/stream on the CPU or in float64, a bad

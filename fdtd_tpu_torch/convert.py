@@ -8,7 +8,10 @@ padded (k, j, i) layout, keyed ``ex ey ez hx hy hz`` (what
 like the JAX ``Params``.  Material maps (the system's "weights": both
 packages build their coefficients from them) are read from any object with
 ``eps_r``/``sigma``/``mu_r`` attributes, such as a JAX ``Materials``.  The
-tests use this to feed both packages the same inputs.
+CPML memory state crosses as a dict of twelve numpy arrays keyed by term
+name in the slab-restricted layout both packages keep (what
+``{n: np.asarray(getattr(psi, n)) for n in names}`` gives for a JAX
+``PsiState``).  The tests use this to feed both packages the same inputs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from .grid import COMPONENTS
 from .io.checkpoint import from_host, to_host
+from .ops.cpml import PsiState
 from .params import Mode, Params, SourceConfig
 from .state import FieldState, Materials
 
@@ -64,3 +68,16 @@ def materials_from(other) -> Materials:
 def power_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """An fp32 SAR accumulator tensor on ``device`` from a host array (a copy)."""
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def psi_from_numpy(arrays: dict[str, np.ndarray], device, dtype: torch.dtype) -> PsiState:
+    """A :class:`PsiState` on ``device`` in ``dtype`` (copies) from the
+    twelve arrays of a JAX ``PsiState`` (or of a checkpoint's
+    ``aux_psi_<term>``), keyed by term name."""
+    return PsiState(**{n: from_host(arrays[n], dtype, device) for n in PsiState.names()})
+
+
+def psi_to_numpy(psi: PsiState) -> dict[str, np.ndarray]:
+    """The twelve psi tensors as host numpy arrays keyed by term name
+    (bfloat16 widened to float32)."""
+    return {n: to_host(getattr(psi, n)) for n in PsiState.names()}

@@ -5,7 +5,10 @@
 // single device: vacuum in both modes, and its material variants in
 // computation mode: lossy media (six ca/cb arrays, E = ca*E + cb*curl H),
 // heterogeneous mu_r (three hf arrays for the H update) and the SAR
-// accumulator (sigma*|E_cell|^2*dt of every step added to an fp32 map).  The plain version is
+// accumulator (sigma*|E_cell|^2*dt of every step added to an fp32 map).
+// With PML it replaces fdtd_tpu/ops/pallas_stream_pml.py::_kernel_pml
+// (vacuum and lossy): the twelve CPML memory variables ride the pipeline
+// (see "CPML" below).  The plain version is
 // fdtd_tpu_torch/ops/stream.py::plain_sweep; the plan (tile and block
 // counts) is fdtd_tpu_torch/ops/stream_plan.py.
 //
@@ -54,6 +57,29 @@
 // place, without atomics, in the order of S per-step increments.
 // Lead-in planes and halo columns add nothing.
 //
+// CPML.  psi is the slab-restricted layout of fdtd_tpu_torch/ops/cpml.py
+// (twelve arrays, each its target's update region with 2n rows along its
+// PML axis).  The recursion psi^m = b psi^(m-1) + c d^m is pointwise, so
+// psi moves through the levels like a field, in a register shift chain:
+// level m reads level m-1's psi of its plane k (the value from the previous
+// pipeline step, as eo/ho are; level 1 reads the input psi from memory, so
+// no level-0 psi is carried) and level S stores the emitted cells'.  Each level keeps all twelve
+// terms of its column's newest plane (zero outside a term's slabs).  d^m is
+// the curl's own difference of level m's inputs (the sourced views for
+// m >= 2), and per target the adds follow ops/cpml.py::_TERMS (curl, j/i
+// term(s), k term), each rounded; on the source patch the Hx/Hz adds are
+// skipped while their recursions run (the hard-set wins, as in the
+// two-pass kernels).  Halo columns and lead-in planes recompute psi and
+// never store it.  A neighbouring block's halo reads level-0 psi of cells
+// this block writes, so a sweep reads one psi set and writes a second.
+// Its bytes are the slab volume read and written once a sweep (12 * 2n / N
+// of the state's), so the CPML sweep is bound by per-thread work and
+// registers, not bytes: a per-column mask of the terms a column can hold
+// and a near-k-wall test let interior cells skip the psi arithmetic, and
+// it is built at s = 2 alone, whose 768-thread block fits 80 registers
+// without spills (deeper sweeps spilled and ran slower:
+// ops/stream_plan.py::BLOCK_J_PML).
+//
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
 // bf16), against 72 B per step for the two-pass kernels.  Lossy media add
@@ -101,6 +127,77 @@ __device__ __forceinline__ float mean4(float a, float b, float c, float d) {
     return __fmul_rn(0.25f, __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d));
 }
 
+// the row of region coordinate x (region length len) in the 2n-row slab
+// layout, or -1 between the slabs
+__device__ __forceinline__ int slab_row(int x, int len, int n) {
+    return x < n ? x : (x >= len - n ? x - (len - 2 * n) : -1);
+}
+
+// The region of term t of ops/cpml.py::_TERMS (hx_y, hx_z, hy_x, hy_z,
+// hz_y, hz_x, ex_y, ex_z, ey_x, ey_z, ez_x, ez_y): its target's update
+// region, origin (k0, j0, i0) and lengths (Lk, Lj, Li), and its PML axis
+struct TermRegion {
+    int k0, j0, i0, Lk, Lj, Li, axis;
+};
+
+__device__ __forceinline__ TermRegion term_region(int t, int K, int J, int I) {
+    switch (t) {
+        case 0: return {0, 0, 0, K, J, I + 1, 1};          // hx_y
+        case 1: return {0, 0, 0, K, J, I + 1, 0};          // hx_z
+        case 2: return {0, 0, 0, K, J + 1, I, 2};          // hy_x
+        case 3: return {0, 0, 0, K, J + 1, I, 0};          // hy_z
+        case 4: return {0, 0, 0, K + 1, J, I, 1};          // hz_y
+        case 5: return {0, 0, 0, K + 1, J, I, 2};          // hz_x
+        case 6: return {1, 1, 0, K - 1, J - 1, I, 1};      // ex_y
+        case 7: return {1, 1, 0, K - 1, J - 1, I, 0};      // ex_z
+        case 8: return {1, 0, 1, K - 1, J, I - 1, 2};      // ey_x
+        case 9: return {1, 0, 1, K - 1, J, I - 1, 0};      // ey_z
+        case 10: return {0, 1, 1, K, J - 1, I - 1, 2};     // ez_x
+        default: return {0, 1, 1, K, J - 1, I - 1, 1};     // ez_y
+    }
+}
+
+// whether column (j, i) can hold psi of term t: inside the term's region in
+// j and i and, for a j- or i-axis term, inside its slabs (a per-thread bit)
+__device__ __forceinline__ bool psi_column(int t, int j, int i, int K, int J, int I, int n) {
+    const TermRegion g = term_region(t, K, J, I);
+    const int lj = j - g.j0, li = i - g.i0;
+    if (lj < 0 || lj >= g.Lj || li < 0 || li >= g.Li) return false;
+    if (g.axis == 1) return slab_row(lj, g.Lj, n) >= 0;
+    if (g.axis == 2) return slab_row(li, g.Li, n) >= 0;
+    return true;
+}
+
+// term t at cell (k, j, i) of a column that psi_column admits: its slab row
+// (-1 where the term has no psi: outside its region's k range, or between
+// the k slabs of a k-axis term) and the offset of the cell in its array
+__device__ __forceinline__ int psi_cell(int t, int k, int j, int i, int K, int J, int I, int n,
+                                        int64_t* off) {
+    const TermRegion g = term_region(t, K, J, I);
+    const int lk = k - g.k0, lj = j - g.j0, li = i - g.i0;
+    if (lk < 0 || lk >= g.Lk) return -1;
+    const int w = 2 * n;
+    int row;
+    if (g.axis == 0) {
+        row = slab_row(lk, g.Lk, n);
+        *off = ((int64_t)row * g.Lj + lj) * g.Li + li;
+    } else if (g.axis == 1) {
+        row = slab_row(lj, g.Lj, n);
+        *off = ((int64_t)lk * w + row) * g.Li + li;
+    } else {
+        row = slab_row(li, g.Li, n);
+        *off = ((int64_t)lk * g.Lj + lj) * w + row;
+    }
+    return row;
+}
+
+// whether term t of a column with bits `cols` may have psi on plane k:
+// near_k says k is near a k wall (within every k-axis term's slab reach)
+__device__ __forceinline__ bool psi_may(int t, unsigned cols, bool near_k) {
+    const bool k_axis = t == 1 || t == 3 || t == 7 || t == 9;
+    return ((cols >> t) & 1u) && (!k_axis || near_k);
+}
+
 constexpr int BI = 32;  // threads along i: one warp
 
 template <typename T>
@@ -124,11 +221,45 @@ struct Material {
     float dt;           // SAR: the step, rounded to fp32
 };
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR>
+// the CPML variants' psi: the input and output sets, twelve arrays each in
+// _TERMS order, and the (b, c) tables of the H and E terms, (6, 2, 2n) each
+template <typename T>
+struct PsiSweep {
+    const T* in[12];
+    T* out[12];
+    const T* tab[2];  // H, E
+    int n;            // slab depth in cells
+};
+
+// term t's psi update at cell (k, j, i): psn <- b*pso + c*d where the term
+// has psi there (table: the (6, 2, 2n) (b, c) of t's pass), and the field
+// v <- v +- f * psn when `add`; returns v.  Columns and planes that hold
+// no psi of t skip the index arithmetic (cols, near_k: see psi_may).
+template <typename T>
+__device__ __forceinline__ float psi_term(const PsiSweep<T>& psw, int t, int k, int j, int i, int K, int J,
+                                          int I, unsigned cols, bool near_k, int sign, float v, float f,
+                                          float d, float pso, float& psn, bool add) {
+    if (!psi_may(t, cols, near_k)) return v;
+    int64_t off;
+    const int row = psi_cell(t, k, j, i, K, J, I, psw.n, &off);
+    if (row < 0) return v;
+    const int64_t w = 2 * psw.n;
+    const T* tab = psw.tab[t / 6];
+    const int tt = t % 6;
+    const float b = ld(tab, 2 * tt * w + row);
+    const float c = ld(tab, (2 * tt + 1) * w + row);
+    psn = __fadd_rn(__fmul_rn(b, pso), __fmul_rn(c, d));
+    if (!add) return v;
+    const float corr = __fmul_rn(f, psn);
+    return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
+}
+
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
-              const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat) {
+              const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
+              PsiSweep<T> psw) {
     constexpr int SH = SAR ? 1 : 0;  // SAR reads E one column past: one column fewer emitted
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
@@ -180,12 +311,41 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     }
 #pragma unroll
     for (int m = 0; m < (SAR ? S : 1); ++m) acc[m] = 0.f;
+    // ps[m-1]: the twelve psi of level m's newest plane of this column
+    // (1 <= m < S; level 0's psi is read from psi.in when level 1 needs
+    // it); cols: the terms this column can hold (bit t)
+    constexpr int NP = PML ? 12 : 1;
+    float ps[S - 1][NP];
+#pragma unroll
+    for (int m = 0; m < S - 1; ++m)
+#pragma unroll
+        for (int t = 0; t < NP; ++t) ps[m][t] = 0.f;
+    unsigned cols = 0;
+    if constexpr (PML) {
+#pragma unroll
+        for (int t = 0; t < 12; ++t)
+            if (inbox && psi_column(t, j, i, K, J, I, psw.n)) cols |= 1u << t;
+    }
+    const int kn = psw.n;  // planes k <= kn or k >= K - kn are near a k wall
 
     for (int r = ks; r <= k1 - 1 + S + SH; ++r) {
         // eo, ho: the inputs of the next level, i.e. the previous level's
-        // plane before this pipeline step replaced it
+        // plane before this pipeline step replaced it (pso: its psi)
         float eo[3] = {e[0][0], e[0][1], e[0][2]};
         float ho[3] = {h[0][0], h[0][1], h[0][2]};
+        float pso[NP];
+        if constexpr (PML) {
+            // level 0's psi of plane r - 1, the input of level 1
+            const int kp = r - 1;
+            const bool near_p = kp <= kn || kp >= K - kn;
+#pragma unroll
+            for (int t = 0; t < 12; ++t) {
+                int64_t off;
+                const bool has = kp >= 0 && kp <= K && psi_may(t, cols, near_p)
+                                 && psi_cell(t, kp, j, i, K, J, I, psw.n, &off) >= 0;
+                pso[t] = has ? ld(psw.in[t], off) : 0.f;
+            }
+        }
         if (inbox && r <= K) {
             const int64_t o = (int64_t)r * sk + col;
             e[0][0] = ld(in.ex, o); e[0][1] = ld(in.ey, o); e[0][2] = ld(in.ez, o);
@@ -194,12 +354,12 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
             for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; }
         }
-
 #pragma unroll
         for (int m = 1; m <= S; ++m) {
             const int k = r - m;
             const int64_t o = (int64_t)k * sk + col;  // read only where k >= 0 and inbox
             const bool on_patch = c_patch && k == 0;
+            const bool near_k = k <= kn || k >= K - kn;
             if (m >= 2 && on_patch) {
                 // step m's hard-set, in level m's inputs only
                 const int64_t d = (int64_t)(m - 2) * ni + (i - i0);
@@ -220,12 +380,44 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const bool kh = k >= 0 && k < K;
             const bool khz = k >= 0 && k <= K;
             float hn[3] = {ho[0], ho[1], ho[2]};
-            if (kh && c_hx && !on_patch)
-                hn[0] = leap(ho[0], HET ? ld(mat.hf[0], o) : fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
-            if (kh && c_hy)
-                hn[1] = leap(ho[1], HET ? ld(mat.hf[1], o) : fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
-            if (khz && c_hz && !on_patch)
-                hn[2] = leap(ho[2], HET ? ld(mat.hf[2], o) : fh, ex_pj, eo[0], ey_pi, eo[1]);
+            float psn[NP];
+#pragma unroll
+            for (int t = 0; t < NP; ++t) psn[t] = pso[t];
+            if constexpr (!PML) {
+                if (kh && c_hx && !on_patch)
+                    hn[0] = leap(ho[0], HET ? ld(mat.hf[0], o) : fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
+                if (kh && c_hy)
+                    hn[1] = leap(ho[1], HET ? ld(mat.hf[1], o) : fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
+                if (khz && c_hz && !on_patch)
+                    hn[2] = leap(ho[2], HET ? ld(mat.hf[2], o) : fh, ex_pj, eo[0], ey_pi, eo[1]);
+            } else {
+                // the curl's differences feed the H psi terms (no het-mu here)
+                if (kh && c_hx) {  // hx_y (-, dEz along j), hx_z (+, dEy along k)
+                    const float dk = __fsub_rn(e[m - 1][1], eo[1]), dj = __fsub_rn(ez_pj, eo[2]);
+                    float v = __fadd_rn(ho[0], __fmul_rn(fh, __fsub_rn(dk, dj)));
+                    v = psi_term(psw, 0, k, j, i, K, J, I, cols, near_k,
+                                 -1, v, fh, dj, pso[0], psn[0], !on_patch);
+                    v = psi_term(psw, 1, k, j, i, K, J, I, cols, near_k,
+                                 +1, v, fh, dk, pso[1], psn[1], !on_patch);
+                    if (!on_patch) hn[0] = v;
+                }
+                if (kh && c_hy) {  // hy_x (+, dEz along i), hy_z (-, dEx along k)
+                    const float di = __fsub_rn(ez_pi, eo[2]), dk = __fsub_rn(e[m - 1][0], eo[0]);
+                    float v = __fadd_rn(ho[1], __fmul_rn(fh, __fsub_rn(di, dk)));
+                    v = psi_term(psw, 2, k, j, i, K, J, I, cols, near_k, +1, v, fh, di, pso[2], psn[2], true);
+                    hn[1] = psi_term(psw, 3, k, j, i, K, J, I, cols, near_k,
+                                     -1, v, fh, dk, pso[3], psn[3], true);
+                }
+                if (khz && c_hz) {  // hz_y (+, dEx along j), hz_x (-, dEy along i)
+                    const float dj = __fsub_rn(ex_pj, eo[0]), di = __fsub_rn(ey_pi, eo[1]);
+                    float v = __fadd_rn(ho[2], __fmul_rn(fh, __fsub_rn(dj, di)));
+                    v = psi_term(psw, 4, k, j, i, K, J, I, cols, near_k,
+                                 +1, v, fh, dj, pso[4], psn[4], !on_patch);
+                    v = psi_term(psw, 5, k, j, i, K, J, I, cols, near_k,
+                                 -1, v, fh, di, pso[5], psn[5], !on_patch);
+                    if (!on_patch) hn[2] = v;
+                }
+            }
 
             sH[0][ty][tx] = hn[0]; sH[1][ty][tx] = hn[1]; sH[2][ty][tx] = hn[2];
             __syncthreads();
@@ -250,6 +442,30 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                 if (ke && c_ex) en[0] = leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
                 if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
                 if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
+            }
+            if constexpr (PML) {
+                // the E psi terms, with the factor of the E update (f or cb)
+                if (ke && c_ex) {  // ex_y (+, dHz along j), ex_z (-, dHy along k)
+                    const float f = LOSSY ? ld(mat.cb[0], o) : fe;
+                    const float v = psi_term(psw, 6, k, j, i, K, J, I, cols, near_k,
+                                             +1, en[0], f, __fsub_rn(hn[2], hz_mj), pso[6], psn[6], true);
+                    en[0] = psi_term(psw, 7, k, j, i, K, J, I, cols, near_k,
+                                     -1, v, f, __fsub_rn(hn[1], h[m][1]), pso[7], psn[7], true);
+                }
+                if (ke && c_ey) {  // ey_x (-, dHz along i), ey_z (+, dHx along k)
+                    const float f = LOSSY ? ld(mat.cb[1], o) : fe;
+                    const float v = psi_term(psw, 8, k, j, i, K, J, I, cols, near_k,
+                                             -1, en[1], f, __fsub_rn(hn[2], hz_mi), pso[8], psn[8], true);
+                    en[1] = psi_term(psw, 9, k, j, i, K, J, I, cols, near_k,
+                                     +1, v, f, __fsub_rn(hn[0], h[m][0]), pso[9], psn[9], true);
+                }
+                if (kez && c_ez) {  // ez_x (+, dHy along i), ez_y (-, dHx along j)
+                    const float f = LOSSY ? ld(mat.cb[2], o) : fe;
+                    const float v = psi_term(psw, 10, k, j, i, K, J, I, cols, near_k,
+                                             +1, en[2], f, __fsub_rn(hn[1], hy_mi), pso[10], psn[10], true);
+                    en[2] = psi_term(psw, 11, k, j, i, K, J, I, cols, near_k,
+                                     -1, v, f, __fsub_rn(hn[0], hx_mj), pso[11], psn[11], true);
+                }
             }
 
             if constexpr (SAR) {
@@ -285,6 +501,13 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                     e[m][c] = en[c];
                     h[m][c] = hn[c];
                 }
+                if constexpr (PML) {
+#pragma unroll
+                    for (int t = 0; t < 12; ++t) {
+                        pso[t] = ps[m - 1][t];
+                        ps[m - 1][t] = psn[t];
+                    }
+                }
             } else {
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
@@ -294,6 +517,14 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                 if (emit && k >= k0 && k < k1) {
                     st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
                     st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
+                    if constexpr (PML) {
+#pragma unroll
+                        for (int t = 0; t < 12; ++t) {
+                            int64_t off;
+                            if (psi_may(t, cols, near_k) && psi_cell(t, k, j, i, K, J, I, psw.n, &off) >= 0)
+                                st(psw.out[t], off, psn[t]);
+                        }
+                    }
                 }
             }
         }
@@ -305,10 +536,11 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     }
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR>
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML>
 int launch(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
            int tk, int has_patch, int j0, int j1, int i0, int i1,
-           const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream) {
+           const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
+           cudaStream_t stream) {
     constexpr int SH = SAR ? 1 : 0;
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
@@ -318,23 +550,26 @@ int launch(void* const* in, void* const* out, int K, int J, int I, float fh, flo
     const dim3 block(BI, BJ);
     const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
                     (unsigned)((K + 1 + tk - 1) / tk));
-    stream_kernel<T, S, BJ, LOSSY, HET, SAR><<<grid, block, 0, stream>>>(
+    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML><<<grid, block, 0, stream>>>(
         f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat);
+        (const T*)ez_rows, (const T*)hx_rows, mat, psw);
     return (int)cudaGetLastError();
 }
 
-// The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum)
-// and ::BLOCK_J_MATERIAL (the material variants).
-template <typename T, bool LOSSY, bool HET, bool SAR>
+// The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum),
+// ::BLOCK_J_MATERIAL (the material variants) and ::BLOCK_J_PML (CPML).
+template <typename T, bool LOSSY, bool HET, bool SAR, bool PML = false>
 int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
              float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
-             const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream) {
+             const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream,
+             const PsiSweep<T>& psw = PsiSweep<T>{}) {
 #define YEE_STREAM_CASE(S_, BJ_)                                                                  \
     if (s == S_ && bj == BJ_)                                                                     \
-        return launch<T, S_, BJ_, LOSSY, HET, SAR>(in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, \
-                                                   i0, i1, ez_rows, hx_rows, mat, stream);
-    if constexpr (!LOSSY) {
+        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
+                                                        j1, i0, i1, ez_rows, hx_rows, mat, psw, stream);
+    if constexpr (PML) {
+        YEE_STREAM_CASE(2, 24)
+    } else if constexpr (!LOSSY) {
         YEE_STREAM_CASE(8, 24)
         YEE_STREAM_CASE(4, 32)
         YEE_STREAM_CASE(2, 32)
@@ -421,6 +656,49 @@ int yee_stream_sweep_material(void* const* in, void* const* out, int K, int J, i
     if (dtype == 1)
         return dispatch_material<__nv_bfloat16>(s, bj, in, out, K, J, I, fh, tk, has_patch, j0, j1, i0, i1,
                                                 ez_rows, hx_rows, coefs, hf, sigma, acc, dt, st);
+    return (int)cudaErrorInvalidValue;
+}
+
+// CPML (vacuum, or lossy with coefs = ca_x, ca_y, ca_z, cb_x, cb_y, cb_z;
+// coefs null for vacuum; fh, fe the vacuum factors, fe unused when lossy):
+// psi_in, psi_out: twelve pointers each in ops/cpml.py::_TERMS order,
+// psi_out must not alias psi_in; tab_h, tab_e: the (6, 2, 2n) (b, c)
+// tables of the H and E terms; n: the slab depth.
+int yee_stream_sweep_pml(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+                         int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
+                         const void* ez_rows, const void* hx_rows, void* const* coefs,
+                         void* const* psi_in, void* const* psi_out, const void* tab_h, const void* tab_e,
+                         int n, int dtype, void* stream) {
+    if (bi != BI || tk < 1 || n < 1 || psi_in == nullptr || psi_out == nullptr || tab_h == nullptr
+        || tab_e == nullptr || (has_patch && (ez_rows == nullptr || hx_rows == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool lossy = coefs != nullptr;
+#define YEE_STREAM_PML(T_)                                                                          \
+    {                                                                                               \
+        Material<T_> mat{};                                                                         \
+        if (lossy)                                                                                  \
+            for (int q = 0; q < 3; ++q) {                                                           \
+                mat.ca[q] = (const T_*)coefs[q];                                                    \
+                mat.cb[q] = (const T_*)coefs[3 + q];                                                \
+            }                                                                                       \
+        PsiSweep<T_> psw{};                                                                         \
+        for (int t = 0; t < 12; ++t) {                                                              \
+            psw.in[t] = (const T_*)psi_in[t];                                                       \
+            psw.out[t] = (T_*)psi_out[t];                                                           \
+        }                                                                                           \
+        psw.tab[0] = (const T_*)tab_h;                                                              \
+        psw.tab[1] = (const T_*)tab_e;                                                              \
+        psw.n = n;                                                                                  \
+        if (lossy)                                                                                  \
+            return dispatch<T_, true, false, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, \
+                                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, st, psw); \
+        return dispatch<T_, false, false, false, true>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch,   \
+                                                       j0, j1, i0, i1, ez_rows, hx_rows, mat, st, psw);   \
+    }
+    if (dtype == 0) YEE_STREAM_PML(float)
+    if (dtype == 1) YEE_STREAM_PML(__nv_bfloat16)
+#undef YEE_STREAM_PML
     return (int)cudaErrorInvalidValue;
 }
 

@@ -3,9 +3,14 @@
 // all three components in place.  Vacuum takes scalar factors; the material
 // variants take per-cell factors: the H pass three hf arrays (heterogeneous
 // mu_r), the E pass six ca/cb arrays (lossy media, E = ca*E + cb*curl H).
+// The CPML variants (PML, composing with both) advance the six memory
+// variables of their pass beside the fields.
 //
 // Replaces the TPU kernels fdtd_tpu/ops/pallas_fused.py::_h_kernel2 (H pass,
-// vacuum and `het`) and ::_e_kernel2 (E pass, vacuum and `lossy`).  It works on the canonical uniform padded
+// vacuum and `het`) and ::_e_kernel2 (E pass, vacuum and `lossy`), and with
+// PML fdtd_tpu/ops/cpml_kernel.py::_h_kernel_pml / ::_e_kernel_pml, whose
+// four k-axis terms ran as XLA slab updates after the kernels: here all six
+// terms of a pass run in the kernel.  It works on the canonical uniform padded
 // layout: six (K+1, J+1, I+1) arrays, i fastest, so the staggered bounds are
 // the slice bounds of fdtd_tpu/ops/curl.py and there are no strips, no dead
 // slab and no correction arrays.  The plain versions are
@@ -28,6 +33,21 @@
 // coefficients stored in bf16 widen to fp32 exactly, and the library is built with -fmad=false, so the result is
 // bit-equal to the plain version on the same card.  Offsets are 64-bit:
 // a 1025^3 array has more than 2^31 elements.
+//
+// CPML (plain versions: fdtd_tpu_torch/ops/cpml.py::Cpml.plain_h/plain_e).
+// psi is the slab-restricted layout of ops/cpml.py::psi_shapes: each term's
+// array covers its target's update region with 2n rows along its PML axis
+// (the lo slab, then the hi slab), so the thread that updates a field cell
+// owns that cell's psi of every term whose slab holds it, and updates it in
+// place (psi is pointwise and a pass reads only the other field).  Per
+// target, in the order of ops/cpml.py::_TERMS: the curl update, then the
+// j/i term(s), then the k term, each psi = b*psi + c*d and each add
+// field +- factor*psi rounded on its own; d is the curl's own difference,
+// the factor the curl's (f or hf in H, f or cb in E).  In the H pass, Hx
+// and Hz on the k=0 source patch keep their values: the curl update and
+// the four adds are skipped there, the recursions still run.  The psi
+// traffic is the slab volume: about 12 * 2n / N of the field state per
+// step, read and written once.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,6 +82,64 @@ struct Coefs {
     const T* b[3];  // E pass: cb_x, cb_y, cb_z
 };
 
+// CPML memory variables of one pass: the six psi arrays in _TERMS order
+// (H: hx_y, hx_z, hy_x, hy_z, hz_y, hz_x; E: ex_y, ex_z, ey_x, ey_z, ez_x,
+// ez_y) and their recursion table, b of term t at row q: tab[2t*2n + q],
+// c: tab[(2t+1)*2n + q] (field dtype)
+template <typename T>
+struct Psi {
+    T* p[6];
+    const T* tab;
+    int n;  // slab depth in cells
+};
+
+// the row of region coordinate x (region length len) in the 2n-row slab
+// layout, or -1 between the slabs
+__device__ __forceinline__ int slab_row(int x, int len, int n) {
+    return x < n ? x : (x >= len - n ? x - (len - 2 * n) : -1);
+}
+
+// the offset of local cell (lk, lj, li) of a (Lk, Lj, Li) region in the psi
+// array of a term along `axis`, or -1 outside its slabs; *row: its slab row
+__device__ __forceinline__ int64_t psi_index(int axis, int lk, int lj, int li, int Lk, int Lj, int Li,
+                                             int n, int* row) {
+    const int w = 2 * n;
+    if (axis == 0) {
+        *row = slab_row(lk, Lk, n);
+        return *row < 0 ? -1 : ((int64_t)*row * Lj + lj) * Li + li;
+    }
+    if (axis == 1) {
+        *row = slab_row(lj, Lj, n);
+        return *row < 0 ? -1 : ((int64_t)lk * w + *row) * Li + li;
+    }
+    *row = slab_row(li, Li, n);
+    return *row < 0 ? -1 : ((int64_t)lk * Lj + lj) * w + *row;
+}
+
+// psi of term t at q (slab row `row`) <- b*psi + c*d, stored; returns the
+// new psi in fp32 (the value the field adds)
+template <typename T>
+__device__ __forceinline__ float psi_step(const Psi<T>& ps, int t, int64_t q, int row, float d) {
+    const int64_t w = 2 * ps.n;
+    const float b = ld(ps.tab, 2 * t * w + row);
+    const float c = ld(ps.tab, (2 * t + 1) * w + row);
+    const float v = __fadd_rn(__fmul_rn(b, ld(ps.p[t], q)), __fmul_rn(c, d));
+    st(ps.p[t], q, v);
+    return v;
+}
+
+// field v <- v + sign * f * (the new psi of term t), where the cell lies in
+// that term's slab along `axis`
+template <typename T>
+__device__ __forceinline__ float psi_add(const Psi<T>& ps, int t, int axis, int sign, float v, float f,
+                                         float d, int lk, int lj, int li, int Lk, int Lj, int Li) {
+    int row;
+    const int64_t q = psi_index(axis, lk, lj, li, Lk, Lj, Li, ps.n, &row);
+    if (q < 0) return v;
+    const float corr = __fmul_rn(f, psi_step(ps, t, q, row, d));
+    return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
+}
+
 constexpr int BX = 64;  // threads along i
 constexpr int BY = 4;   // threads along j
 
@@ -69,12 +147,13 @@ constexpr int BY = 4;   // threads along j
 // With has_patch, Hx and Hz at k=0, j0<=j<j1, i0<=i<i1 keep their values
 // (the source hard-set there wins, reference main.c:770-778).  HET reads
 // the factor of each component from hf.a[0..2] at the cell instead of f.
-template <typename T, bool HET>
+// PML advances the six H psi terms of the cell (ps) and adds them.
+template <typename T, bool HET, bool PML>
 __global__ void __launch_bounds__(BX * BY)
 h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez,
          T* __restrict__ hx, T* __restrict__ hy, T* __restrict__ hz,
          int K, int J, int I, float f,
-         int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf) {
+         int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf, Psi<T> ps) {
     const int i = blockIdx.x * BX + threadIdx.x;
     const int j = blockIdx.y * BY + threadIdx.y;
     const int k = blockIdx.z;
@@ -84,28 +163,61 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
     const int64_t c = (int64_t)k * sk + (int64_t)j * sj + i;
     const bool in_patch = has_patch && k == 0 && j >= j0 && j < j1 && i >= i0 && i < i1;
 
-    if (k < K && j < J && !in_patch) {
+    if (!PML) {
+        if (k < K && j < J && !in_patch) {
+            const float fx = HET ? ld(hf.a[0], c) : f;
+            st(hx, c, leap(ld(hx, c), fx, ld(ey, c + sk), ld(ey, c), ld(ez, c + sj), ld(ez, c)));
+        }
+        if (k < K && i < I) {
+            const float fy = HET ? ld(hf.a[1], c) : f;
+            st(hy, c, leap(ld(hy, c), fy, ld(ez, c + 1), ld(ez, c), ld(ex, c + sk), ld(ex, c)));
+        }
+        if (j < J && i < I && !in_patch) {
+            const float fz = HET ? ld(hf.a[2], c) : f;
+            st(hz, c, leap(ld(hz, c), fz, ld(ex, c + sj), ld(ex, c), ld(ey, c + 1), ld(ey, c)));
+        }
+        return;
+    }
+    // PML: the curl's differences feed the psi recursions; regions are the
+    // update bounds, local coordinates (k, j, i)
+    if (k < K && j < J) {  // Hx: (K, J, I+1); hx_y (-, j, dEz), hx_z (+, k, dEy)
         const float fx = HET ? ld(hf.a[0], c) : f;
-        st(hx, c, leap(ld(hx, c), fx, ld(ey, c + sk), ld(ey, c), ld(ez, c + sj), ld(ez, c)));
+        const float dk = __fsub_rn(ld(ey, c + sk), ld(ey, c));
+        const float dj = __fsub_rn(ld(ez, c + sj), ld(ez, c));
+        const float v0 = __fadd_rn(ld(hx, c), __fmul_rn(fx, __fsub_rn(dk, dj)));
+        float v = psi_add(ps, 0, 1, -1, v0, fx, dj, k, j, i, K, J, I + 1);
+        v = psi_add(ps, 1, 0, +1, v, fx, dk, k, j, i, K, J, I + 1);
+        if (!in_patch) st(hx, c, v);
     }
-    if (k < K && i < I) {
+    if (k < K && i < I) {  // Hy: (K, J+1, I); hy_x (+, i, dEz), hy_z (-, k, dEx)
         const float fy = HET ? ld(hf.a[1], c) : f;
-        st(hy, c, leap(ld(hy, c), fy, ld(ez, c + 1), ld(ez, c), ld(ex, c + sk), ld(ex, c)));
+        const float di = __fsub_rn(ld(ez, c + 1), ld(ez, c));
+        const float dk = __fsub_rn(ld(ex, c + sk), ld(ex, c));
+        const float v0 = __fadd_rn(ld(hy, c), __fmul_rn(fy, __fsub_rn(di, dk)));
+        float v = psi_add(ps, 2, 2, +1, v0, fy, di, k, j, i, K, J + 1, I);
+        v = psi_add(ps, 3, 0, -1, v, fy, dk, k, j, i, K, J + 1, I);
+        st(hy, c, v);
     }
-    if (j < J && i < I && !in_patch) {
+    if (j < J && i < I) {  // Hz: (K+1, J, I); hz_y (+, j, dEx), hz_x (-, i, dEy)
         const float fz = HET ? ld(hf.a[2], c) : f;
-        st(hz, c, leap(ld(hz, c), fz, ld(ex, c + sj), ld(ex, c), ld(ey, c + 1), ld(ey, c)));
+        const float dj = __fsub_rn(ld(ex, c + sj), ld(ex, c));
+        const float di = __fsub_rn(ld(ey, c + 1), ld(ey, c));
+        const float v0 = __fadd_rn(ld(hz, c), __fmul_rn(fz, __fsub_rn(dj, di)));
+        float v = psi_add(ps, 4, 1, +1, v0, fz, dj, k, j, i, K + 1, J, I);
+        v = psi_add(ps, 5, 2, -1, v, fz, di, k, j, i, K + 1, J, I);
+        if (!in_patch) st(hz, c, v);
     }
 }
 
 // E half-step over the interior: Ex 1<=k<K, 1<=j<J, i<I; Ey 1<=k<K, j<J,
 // 1<=i<I; Ez k<K, 1<=j<J, 1<=i<I.  Tangential E on the walls stays (PEC).
 // LOSSY computes ca*E + cb*curl with ca = cf.a[c], cb = cf.b[c] at the cell.
-template <typename T, bool LOSSY>
+// PML advances the six E psi terms of the cell and adds cb*psi (f*psi).
+template <typename T, bool LOSSY, bool PML>
 __global__ void __launch_bounds__(BX * BY)
 e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
          T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
-         int K, int J, int I, float f, Coefs<T> cf) {
+         int K, int J, int I, float f, Coefs<T> cf, Psi<T> ps) {
     const int i = blockIdx.x * BX + threadIdx.x;
     const int j = blockIdx.y * BY + threadIdx.y;
     const int k = blockIdx.z;
@@ -116,18 +228,36 @@ e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I) {
         const float a1 = ld(hz, c), a0 = ld(hz, c - sj), b1 = ld(hy, c), b0 = ld(hy, c - sk);
-        st(ex, c, LOSSY ? lossy(ld(ex, c), ld(cf.a[0], c), ld(cf.b[0], c), a1, a0, b1, b0)
-                        : leap(ld(ex, c), f, a1, a0, b1, b0));
+        float v = LOSSY ? lossy(ld(ex, c), ld(cf.a[0], c), ld(cf.b[0], c), a1, a0, b1, b0)
+                        : leap(ld(ex, c), f, a1, a0, b1, b0);
+        if (PML) {  // Ex: (K-1, J-1, I) from (1, 1, 0); ex_y (+, j, dHz), ex_z (-, k, dHy)
+            const float fe = LOSSY ? ld(cf.b[0], c) : f;
+            v = psi_add(ps, 0, 1, +1, v, fe, __fsub_rn(a1, a0), k - 1, j - 1, i, K - 1, J - 1, I);
+            v = psi_add(ps, 1, 0, -1, v, fe, __fsub_rn(b1, b0), k - 1, j - 1, i, K - 1, J - 1, I);
+        }
+        st(ex, c, v);
     }
     if (k >= 1 && k < K && j < J && i >= 1 && i < I) {
         const float a1 = ld(hx, c), a0 = ld(hx, c - sk), b1 = ld(hz, c), b0 = ld(hz, c - 1);
-        st(ey, c, LOSSY ? lossy(ld(ey, c), ld(cf.a[1], c), ld(cf.b[1], c), a1, a0, b1, b0)
-                        : leap(ld(ey, c), f, a1, a0, b1, b0));
+        float v = LOSSY ? lossy(ld(ey, c), ld(cf.a[1], c), ld(cf.b[1], c), a1, a0, b1, b0)
+                        : leap(ld(ey, c), f, a1, a0, b1, b0);
+        if (PML) {  // Ey: (K-1, J, I-1) from (1, 0, 1); ey_x (-, i, dHz), ey_z (+, k, dHx)
+            const float fe = LOSSY ? ld(cf.b[1], c) : f;
+            v = psi_add(ps, 2, 2, -1, v, fe, __fsub_rn(b1, b0), k - 1, j, i - 1, K - 1, J, I - 1);
+            v = psi_add(ps, 3, 0, +1, v, fe, __fsub_rn(a1, a0), k - 1, j, i - 1, K - 1, J, I - 1);
+        }
+        st(ey, c, v);
     }
     if (k < K && j >= 1 && j < J && i >= 1 && i < I) {
         const float a1 = ld(hy, c), a0 = ld(hy, c - 1), b1 = ld(hx, c), b0 = ld(hx, c - sj);
-        st(ez, c, LOSSY ? lossy(ld(ez, c), ld(cf.a[2], c), ld(cf.b[2], c), a1, a0, b1, b0)
-                        : leap(ld(ez, c), f, a1, a0, b1, b0));
+        float v = LOSSY ? lossy(ld(ez, c), ld(cf.a[2], c), ld(cf.b[2], c), a1, a0, b1, b0)
+                        : leap(ld(ez, c), f, a1, a0, b1, b0);
+        if (PML) {  // Ez: (K, J-1, I-1) from (0, 1, 1); ez_x (+, i, dHy), ez_y (-, j, dHx)
+            const float fe = LOSSY ? ld(cf.b[2], c) : f;
+            v = psi_add(ps, 4, 2, +1, v, fe, __fsub_rn(a1, a0), k, j - 1, i - 1, K, J - 1, I - 1);
+            v = psi_add(ps, 5, 1, -1, v, fe, __fsub_rn(b1, b0), k, j - 1, i - 1, K, J - 1, I - 1);
+        }
+        st(ez, c, v);
     }
 }
 
@@ -135,30 +265,41 @@ dim3 grid_for(int K, int J, int I) {
     return dim3((unsigned)((I + 1 + BX - 1) / BX), (unsigned)((J + 1 + BY - 1) / BY), (unsigned)(K + 1));
 }
 
-template <typename T, bool HET>
+template <typename T>
+Psi<T> psi_args(void* const* psi, const void* tab, int n) {
+    Psi<T> ps{};
+    if (psi != nullptr)
+        for (int q = 0; q < 6; ++q) ps.p[q] = (T*)psi[q];
+    ps.tab = (const T*)tab;
+    ps.n = n;
+    return ps;
+}
+
+template <typename T, bool HET, bool PML>
 int launch_h(void* const* e, void* const* h, int K, int J, int I, float f, int has_patch,
-             int j0, int j1, int i0, int i1, void* const* hf, cudaStream_t s) {
+             int j0, int j1, int i0, int i1, void* const* hf, void* const* psi, const void* tab, int n,
+             cudaStream_t s) {
     Coefs<T> c{};
     if (HET)
         for (int q = 0; q < 3; ++q) c.a[q] = (const T*)hf[q];
-    h_kernel<T, HET><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+    h_kernel<T, HET, PML><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
         (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
-        K, J, I, f, has_patch, j0, j1, i0, i1, c);
+        K, J, I, f, has_patch, j0, j1, i0, i1, c, psi_args<T>(psi, tab, n));
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool LOSSY>
+template <typename T, bool LOSSY, bool PML>
 int launch_e(void* const* h, void* const* e, int K, int J, int I, float f,
-             void* const* cf, cudaStream_t s) {
+             void* const* cf, void* const* psi, const void* tab, int n, cudaStream_t s) {
     Coefs<T> c{};
     if (LOSSY)
         for (int q = 0; q < 3; ++q) {
             c.a[q] = (const T*)cf[q];
             c.b[q] = (const T*)cf[3 + q];
         }
-    e_kernel<T, LOSSY><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+    e_kernel<T, LOSSY, PML><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
-        K, J, I, f, c);
+        K, J, I, f, c, psi_args<T>(psi, tab, n));
     return (int)cudaGetLastError();
 }
 
@@ -177,8 +318,12 @@ int yee_update_h(void* ex, void* ey, void* ez, void* hx, void* hy, void* hz,
     void* const e[3] = {ex, ey, ez};
     void* const h[3] = {hx, hy, hz};
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_h<float, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, s);
-    if (dtype == 1) return launch_h<__nv_bfloat16, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, s);
+    if (dtype == 0)
+        return launch_h<float, false, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, nullptr,
+                                             nullptr, 0, s);
+    if (dtype == 1)
+        return launch_h<__nv_bfloat16, false, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr,
+                                                     nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -186,8 +331,12 @@ int yee_update_h(void* ex, void* ey, void* ez, void* hx, void* hy, void* hz,
 int yee_update_h_het(void* const* e, void* const* h, void* const* hf, int K, int J, int I,
                      int has_patch, int j0, int j1, int i0, int i1, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_h<float, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, s);
-    if (dtype == 1) return launch_h<__nv_bfloat16, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, s);
+    if (dtype == 0)
+        return launch_h<float, true, false>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, nullptr,
+                                            nullptr, 0, s);
+    if (dtype == 1)
+        return launch_h<__nv_bfloat16, true, false>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf,
+                                                     nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -196,8 +345,9 @@ int yee_update_e(void* hx, void* hy, void* hz, void* ex, void* ey, void* ez,
     void* const h[3] = {hx, hy, hz};
     void* const e[3] = {ex, ey, ez};
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_e<float, false>(h, e, K, J, I, f, nullptr, s);
-    if (dtype == 1) return launch_e<__nv_bfloat16, false>(h, e, K, J, I, f, nullptr, s);
+    if (dtype == 0) return launch_e<float, false, false>(h, e, K, J, I, f, nullptr, nullptr, nullptr, 0, s);
+    if (dtype == 1)
+        return launch_e<__nv_bfloat16, false, false>(h, e, K, J, I, f, nullptr, nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -205,8 +355,57 @@ int yee_update_e(void* hx, void* hy, void* hz, void* ex, void* ey, void* ez,
 int yee_update_e_lossy(void* const* h, void* const* e, void* const* cf, int K, int J, int I,
                        int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_e<float, true>(h, e, K, J, I, 0.f, cf, s);
-    if (dtype == 1) return launch_e<__nv_bfloat16, true>(h, e, K, J, I, 0.f, cf, s);
+    if (dtype == 0) return launch_e<float, true, false>(h, e, K, J, I, 0.f, cf, nullptr, nullptr, 0, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, true, false>(h, e, K, J, I, 0.f, cf, nullptr, nullptr, 0, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The CPML variants.  psi: the pass's six psi arrays in _TERMS order (see
+// Psi); tab: the (6, 2, 2n) (b, c) table; n: the slab depth.  hf and cf as
+// above; f is the H factor (vacuum H), the E factor cb (vacuum E).
+int yee_update_h_pml(void* const* e, void* const* h, void* const* psi, const void* tab, int n,
+                     int K, int J, int I, float f, int has_patch, int j0, int j1, int i0, int i1,
+                     int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return launch_h<float, false, true>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, psi, tab,
+                                            n, s);
+    if (dtype == 1)
+        return launch_h<__nv_bfloat16, false, true>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr,
+                                                    psi, tab, n, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+int yee_update_h_het_pml(void* const* e, void* const* h, void* const* hf, void* const* psi,
+                         const void* tab, int n, int K, int J, int I, int has_patch, int j0, int j1,
+                         int i0, int i1, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return launch_h<float, true, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, psi, tab, n,
+                                           s);
+    if (dtype == 1)
+        return launch_h<__nv_bfloat16, true, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, psi,
+                                                   tab, n, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+int yee_update_e_pml(void* const* h, void* const* e, void* const* psi, const void* tab, int n,
+                     int K, int J, int I, float f, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return launch_e<float, false, true>(h, e, K, J, I, f, nullptr, psi, tab, n, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, false, true>(h, e, K, J, I, f, nullptr, psi, tab, n, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+int yee_update_e_lossy_pml(void* const* h, void* const* e, void* const* cf, void* const* psi,
+                           const void* tab, int n, int K, int J, int I, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return launch_e<float, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
     return (int)cudaErrorInvalidValue;
 }
 

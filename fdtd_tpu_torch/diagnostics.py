@@ -25,14 +25,23 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _e_cell_means(p: Params, s: FieldState, k_range: tuple[int, int] | None = None):
+def _cell_block(p: Params, kk: slice | None = None, jj: slice | None = None,
+                ii: slice | None = None) -> tuple[slice, slice, slice]:
+    """Cell-index slices for the mean helpers (default: all cells)."""
+    return (kk or slice(0, p.maxk), jj or slice(0, p.maxj), ii or slice(0, p.maxi))
+
+
+def _e_cell_means(p: Params, s: FieldState, kk: slice | None = None, jj: slice | None = None,
+                  ii: slice | None = None):
     """Cell-centered means of the 4 edges bordering each cell (main.c:602-634),
-    over the cell planes ``k_range`` = (k_lo, k_hi) (default: all)."""
-    k_lo, k_hi = k_range or (0, p.maxk)
-    K, J, I = k_hi - k_lo, p.maxj, p.maxi
+    over the cell block ``kk`` x ``jj`` x ``ii`` (default: all cells).
+    Only the E box the block reads is widened; a block's means are the same
+    rows of the whole grid's, bit for bit."""
+    kk, jj, ii = _cell_block(p, kk, jj, ii)
+    K, J, I = kk.stop - kk.start, jj.stop - jj.start, ii.stop - ii.start
     at = _acc_dtype(s.ex)
-    # the E planes these cells read, widened once
-    ex, ey, ez = (t[k_lo : k_hi + 1].to(at) for t in (s.ex, s.ey, s.ez))
+    box = (slice(kk.start, kk.stop + 1), slice(jj.start, jj.stop + 1), slice(ii.start, ii.stop + 1))
+    ex, ey, ez = (t[box].to(at) for t in (s.ex, s.ey, s.ez))
     k0, k1 = slice(0, K), slice(1, K + 1)
     j0, j1 = slice(0, J), slice(1, J + 1)
     i0, i1 = slice(0, I), slice(1, I + 1)
@@ -42,11 +51,15 @@ def _e_cell_means(p: Params, s: FieldState, k_range: tuple[int, int] | None = No
     return mean_ex, mean_ey, mean_ez
 
 
-def _h_cell_means(p: Params, s: FieldState):
-    """Cell-centered means of the 2 faces bordering each cell (main.c:636-668)."""
-    K, J, I = p.maxk, p.maxj, p.maxi
+def _h_cell_means(p: Params, s: FieldState, kk: slice | None = None, jj: slice | None = None,
+                  ii: slice | None = None):
+    """Cell-centered means of the 2 faces bordering each cell
+    (main.c:636-668), over a cell block (default: all cells)."""
+    kk, jj, ii = _cell_block(p, kk, jj, ii)
+    K, J, I = kk.stop - kk.start, jj.stop - jj.start, ii.stop - ii.start
     at = _acc_dtype(s.hx)
-    hx, hy, hz = s.hx.to(at), s.hy.to(at), s.hz.to(at)
+    box = (slice(kk.start, kk.stop + 1), slice(jj.start, jj.stop + 1), slice(ii.start, ii.stop + 1))
+    hx, hy, hz = (t[box].to(at) for t in (s.hx, s.hy, s.hz))
     mean_hx = 0.5 * (hx[:K, :J, :I] + hx[:K, :J, 1 : I + 1])
     mean_hy = 0.5 * (hy[:K, :J, :I] + hy[:K, 1 : J + 1, :I])
     mean_hz = 0.5 * (hz[:K, :J, :I] + hz[1 : K + 1, :J, :I])
@@ -70,26 +83,87 @@ def _quirk_mean_ez(p: Params, ez: torch.Tensor) -> torch.Tensor:
     return 0.25 * (g(i, j) + g(i, j + 1) + g(i + 1, j) + g(i + 1, j + 1))
 
 
+# k slabs of the output reductions (energies, snapshot aggregation): each
+# works on at most OUTPUT_SLAB_CELLS cells at a time, so its temporaries
+# (at most about 8 fp32 values a slab cell, the widened E or H box of bf16
+# fields included) stay small beside the resident arrays
+OUTPUT_SLAB_CELLS = 1 << 25
+
+
+def output_slab_planes(p: Params) -> int:
+    """Cell planes per slab of the energies and the snapshot aggregation."""
+    return max(1, min(p.maxk, OUTPUT_SLAB_CELLS // (p.maxj * p.maxi)))
+
+
+def output_slabs(p: Params):
+    """The (k_lo, k_hi) cell-plane ranges of the output reductions."""
+    kb = output_slab_planes(p)
+    return [(k, min(p.maxk, k + kb)) for k in range(0, p.maxk, kb)]
+
+
 def e_energy(p: Params, s: FieldState, quirk_compat: bool = False) -> torch.Tensor:
-    """Total electric energy (reference: main.c:602-634), a 0-d tensor."""
+    """Total electric energy (reference: main.c:602-634), a 0-d tensor,
+    summed a k slab at a time (``quirk_compat`` gathers Ez over the whole
+    grid: a diagnostic of the reference's indexing, not the run's log)."""
     dv = p.spatial_step**3
-    mean_ex, mean_ey, mean_ez = _e_cell_means(p, s)
-    if quirk_compat:
-        mean_ez = _quirk_mean_ez(p, s.ez.to(_acc_dtype(s.ex)))
-    total = (mean_ex**2).sum() + (mean_ey**2).sum() + (mean_ez**2).sum()
+    quirk = _quirk_mean_ez(p, s.ez.to(_acc_dtype(s.ex))) if quirk_compat else None
+    total = None
+    for k_lo, k_hi in output_slabs(p):
+        mean_ex, mean_ey, mean_ez = _e_cell_means(p, s, slice(k_lo, k_hi))
+        if quirk is not None:
+            mean_ez = quirk[k_lo:k_hi]
+        part = (mean_ex**2).sum() + (mean_ey**2).sum() + (mean_ez**2).sum()
+        total = part if total is None else total + part
     return total * dv * (EPSILON / 2.0)
 
 
 def h_energy(p: Params, s: FieldState) -> torch.Tensor:
-    """Total magnetic energy (reference: main.c:636-668), a 0-d tensor."""
+    """Total magnetic energy (reference: main.c:636-668), a 0-d tensor,
+    summed a k slab at a time."""
     dv = p.spatial_step**3
-    mean_hx, mean_hy, mean_hz = _h_cell_means(p, s)
-    total = (mean_hx**2).sum() + (mean_hy**2).sum() + (mean_hz**2).sum()
+    total = None
+    for k_lo, k_hi in output_slabs(p):
+        mean_hx, mean_hy, mean_hz = _h_cell_means(p, s, slice(k_lo, k_hi))
+        part = (mean_hx**2).sum() + (mean_hy**2).sum() + (mean_hz**2).sum()
+        total = part if total is None else total + part
     return total * dv * (MU / 2.0)
 
 
 def total_energy(p: Params, s: FieldState, quirk_compat: bool = False) -> torch.Tensor:
     return e_energy(p, s, quirk_compat) + h_energy(p, s)
+
+
+def poynting_flux(p: Params, s: FieldState, margin: int = 0) -> torch.Tensor:
+    """Net outward Poynting flux (W) through the box whose faces lie
+    ``margin`` cells inside the grid on every side (``--pml`` runs log it
+    as ``radiated_W``), as ``fdtd_tpu.diagnostics.poynting_flux``: S = E x
+    H from the cell-centered means, summed over the box's outermost cell
+    layer with outward normals; only the six face layers are computed."""
+    K, J, I = p.maxk, p.maxj, p.maxi
+    m = int(margin)
+    if not 0 <= m < min(K, J, I) // 2:
+        raise ValueError(f"margin {margin} leaves no box in a ({K},{J},{I}) grid")
+    kk, jj, ii = slice(m, K - m), slice(m, J - m), slice(m, I - m)
+
+    def s_face(comp, kf, jf, if_):
+        mex, mey, mez = _e_cell_means(p, s, kf, jf, if_)
+        mhx, mhy, mhz = _h_cell_means(p, s, kf, jf, if_)
+        if comp == 0:
+            return (mey * mhz - mez * mhy).sum()
+        if comp == 1:
+            return (mez * mhx - mex * mhz).sum()
+        return (mex * mhy - mey * mhx).sum()
+
+    def one(c):
+        return slice(c, c + 1)
+
+    da = p.spatial_step**2
+    flux = (
+        s_face(2, one(K - 1 - m), jj, ii) - s_face(2, one(m), jj, ii)
+        + s_face(1, kk, one(J - 1 - m), ii) - s_face(1, kk, one(m), ii)
+        + s_face(0, kk, jj, one(I - 1 - m)) - s_face(0, kk, jj, one(m))
+    )
+    return flux * da
 
 
 def theoretical_te101_energy(p: Params) -> float:
@@ -100,7 +174,8 @@ def theoretical_te101_energy(p: Params) -> float:
 def e_center_sq(p: Params, s: FieldState, k_range: tuple[int, int] | None = None) -> torch.Tensor:
     """|E|^2 at cell centers: the sum of the squared 4-edge means (over the
     cell planes ``k_range``, default all)."""
-    mean_ex, mean_ey, mean_ez = _e_cell_means(p, s, k_range)
+    kk = slice(*k_range) if k_range is not None else None
+    mean_ex, mean_ey, mean_ez = _e_cell_means(p, s, kk)
     return mean_ex * mean_ex + mean_ey * mean_ey + mean_ez * mean_ez
 
 

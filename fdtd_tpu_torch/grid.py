@@ -60,8 +60,11 @@ E_AGG_OFFSETS = {"ex": (0, 1, 1), "ey": (1, 0, 1), "ez": (1, 1, 0)}
 H_AGG_OFFSETS = {"hx": (1, 0, 0), "hy": (0, 1, 0), "hz": (0, 0, 1)}
 
 
-def aggregate_e(p: Params, f: torch.Tensor, name: str) -> torch.Tensor:
-    """Cell-center aggregation of an E component (reference: main.c:511-521).
+def aggregate_e(p: Params, f: torch.Tensor, name: str,
+                k_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """Cell-center aggregation of an E component (reference: main.c:511-521),
+    over the cell planes ``k_range`` = (k_lo, k_hi) of ``f`` (default: all;
+    a slab's cells are the same rows of the whole grid's, bit for bit).
 
     Replicates the reference's 4-term average including its quirk: the term
     list is F[i,j,k], F[i+oi,j+oj,k+ok], F[i,j+oj,k+ok], F[i+oi,j,k+ok], so
@@ -69,21 +72,25 @@ def aggregate_e(p: Params, f: torch.Tensor, name: str) -> torch.Tensor:
     .25*(F + 2*F[j+1,k+1] + F[k+1]) rather than a 4-corner mean.
     """
     oi, oj, ok = E_AGG_OFFSETS[name]
-    K, J, I = p.maxk, p.maxj, p.maxi
+    J, I = p.maxj, p.maxi
+    k_lo, k_hi = k_range or (0, p.maxk)
 
     def sl(di, dj, dk):
-        return f[dk : dk + K, dj : dj + J, di : di + I]
+        return f[k_lo + dk : k_hi + dk, dj : dj + J, di : di + I]
 
     return 0.25 * (sl(0, 0, 0) + sl(oi, oj, ok) + sl(0, oj, ok) + sl(oi, 0, ok))
 
 
-def aggregate_h(p: Params, f: torch.Tensor, name: str) -> torch.Tensor:
-    """Cell-center aggregation of an H component (reference: main.c:532-540)."""
+def aggregate_h(p: Params, f: torch.Tensor, name: str,
+                k_range: tuple[int, int] | None = None) -> torch.Tensor:
+    """Cell-center aggregation of an H component (reference: main.c:532-540),
+    over the cell planes ``k_range`` (default: all)."""
     oi, oj, ok = H_AGG_OFFSETS[name]
-    K, J, I = p.maxk, p.maxj, p.maxi
+    J, I = p.maxj, p.maxi
+    k_lo, k_hi = k_range or (0, p.maxk)
 
     def sl(di, dj, dk):
-        return f[dk : dk + K, dj : dj + J, di : di + I]
+        return f[k_lo + dk : k_hi + dk, dj : dj + J, di : di + I]
 
     return 0.5 * (sl(0, 0, 0) + sl(oi, oj, ok))
 

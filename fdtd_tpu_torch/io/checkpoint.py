@@ -70,6 +70,14 @@ def load_checkpoint(path: str, p: Params, device) -> tuple[FieldState, int, floa
         return FieldState(*fields), int(z["iteration"]), float(z["t"]), power
 
 
+def load_aux(path: str) -> dict[str, np.ndarray]:
+    """The ``aux_<name>`` arrays of a checkpoint as ``{name: ndarray}``
+    (empty for checkpoints written without aux state), as
+    ``fdtd_tpu.io.checkpoint.load_aux`` reads them."""
+    with np.load(path) as z:
+        return {k[4:]: z[k] for k in z.files if k.startswith("aux_")}
+
+
 class CheckpointWriter:
     """Asynchronous checkpoint writer.
 
@@ -87,13 +95,17 @@ class CheckpointWriter:
         self._inflight: Future | None = None
 
     def submit(self, state: FieldState, iteration: int, t: float,
-               power: torch.Tensor | None = None) -> None:
-        """Checkpoint ``state`` (and the fp32 SAR accumulator ``power``)."""
+               power: torch.Tensor | None = None,
+               aux: dict[str, torch.Tensor] | None = None) -> None:
+        """Checkpoint ``state``, the fp32 SAR accumulator ``power`` and the
+        ``aux`` tensors (stored as ``aux_<name>``, e.g. the CPML psi as
+        ``aux_psi_<term>``)."""
         self.drain()
         path = os.path.join(self.out_dir, f"ckpt{iteration:06d}.npz")
         host = {name: to_host(getattr(state, name)) for name in COMPONENTS}
         host_power = to_host(power) if power is not None else None
-        self._inflight = self._pool.submit(save_checkpoint, path, host, iteration, t, host_power)
+        host_aux = {k: to_host(v) for k, v in aux.items()} if aux else None
+        self._inflight = self._pool.submit(save_checkpoint, path, host, iteration, t, host_power, host_aux)
 
     def drain(self) -> None:
         """Wait for (and surface errors from) the in-flight write, if any."""

@@ -1,10 +1,12 @@
 """Snapshot assembly and asynchronous host writing.
 
-The cell-centered aggregation runs on the device; ``SnapshotWriter.submit``
-copies the aggregated arrays to the host on the calling thread and hands the
-file encode and write to a worker pool, so the step loop does not wait on the
-disk.  At most 2 snapshots are in flight.  ``close`` writes the ``.pvd``
-catalog of the series for ParaView.
+The cell-centered aggregation runs on the device a k slab at a time
+(``diagnostics.output_slabs``), and each slab is copied to the host as it
+is made, so a snapshot's device temporaries are a slab's, not six
+full-grid cell arrays; ``SnapshotWriter.submit`` takes the host arrays and
+hands the file encode and write to a worker pool, so the step loop does
+not wait on the disk.  At most 2 snapshots are in flight.  ``close``
+writes the ``.pvd`` catalog of the series for ParaView.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import analytic, grid
+from ..diagnostics import output_slabs
 from ..params import Params
 from ..state import FieldState
 from .checkpoint import to_host
@@ -23,36 +26,50 @@ from .native import write_vtr_native
 from .vtr import write_vtr
 
 
-def aggregate_all(p: Params, s: FieldState) -> dict[str, torch.Tensor]:
+def _host_cells(p: Params, like: torch.Tensor) -> np.ndarray:
+    """An empty host (maxk, maxj, maxi) array of the host dtype of ``like``
+    (bfloat16 widens to float32, as :func:`to_host` does)."""
+    dt = np.float32 if like.dtype in (torch.bfloat16, torch.float32) else np.float64
+    return np.empty((p.maxk, p.maxj, p.maxi), dtype=dt)
+
+
+def aggregate_all(p: Params, s: FieldState) -> dict[str, np.ndarray]:
     """Zone-centered variables with the reference's names and semantics
-    (reference: main.c:563-579)."""
-    return {
-        "ex": grid.aggregate_e(p, s.ex, "ex"),
-        "ey": grid.aggregate_e(p, s.ey, "ey"),
-        "ez": grid.aggregate_e(p, s.ez, "ez"),
-        "hx": grid.aggregate_h(p, s.hx, "hx"),
-        "hy": grid.aggregate_h(p, s.hy, "hy"),
-        "hz": grid.aggregate_h(p, s.hz, "hz"),
-    }
+    (reference: main.c:563-579), as host arrays: aggregated on the device
+    a k slab at a time (the same bits as one whole-grid aggregation)."""
+    out = {c: _host_cells(p, getattr(s, c)) for c in ("ex", "ey", "ez", "hx", "hy", "hz")}
+    for k_lo, k_hi in output_slabs(p):
+        kr = (k_lo, k_hi)
+        for c in ("ex", "ey", "ez"):
+            out[c][k_lo:k_hi] = to_host(grid.aggregate_e(p, getattr(s, c), c, kr))
+        for c in ("hx", "hy", "hz"):
+            out[c][k_lo:k_hi] = to_host(grid.aggregate_h(p, getattr(s, c), c, kr))
+    return out
 
 
-def validation_extras(p: Params, s: FieldState, t: float, quirk_compat: bool = True) -> dict[str, torch.Tensor]:
-    """aEy/aHx/aHz zone-centered variables (reference: main.c:581-589).
+def validation_extras(p: Params, s: FieldState, t: float, quirk_compat: bool = True) -> dict[str, np.ndarray]:
+    """aEy/aHx/aHz zone-centered variables (reference: main.c:581-589), as
+    host arrays made a k slab at a time.
 
     With ``quirk_compat`` (default) it replicates the reference, where aHx
     and aHz aggregate the computed Hx/Hz instead of the error fields
     (main.c:585-588), with the C-compat analytic formulas; otherwise all
     three are physics-correct (analytic - computed) error fields.
     """
-    err = analytic.error_fields(p, s, t, ccompat=quirk_compat)
-    a_ey = grid.aggregate_e(p, err["aEy"], "ey")
-    if quirk_compat:
-        a_hx = grid.aggregate_h(p, s.hx, "hx")
-        a_hz = grid.aggregate_h(p, s.hz, "hz")
-    else:
-        a_hx = grid.aggregate_h(p, err["aHx"], "hx")
-        a_hz = grid.aggregate_h(p, err["aHz"], "hz")
-    return {"aEy": a_ey, "aHx": a_hx, "aHz": a_hz}
+    out = {name: _host_cells(p, s.ey) for name in ("aEy", "aHx", "aHz")}
+    for k_lo, k_hi in output_slabs(p):
+        # the error fields of the planes this slab's cells read (k_lo..k_hi)
+        err = analytic.error_fields(p, s, t, ccompat=quirk_compat, k_range=(k_lo, k_hi + 1))
+        local = (0, k_hi - k_lo)
+        out["aEy"][k_lo:k_hi] = to_host(grid.aggregate_e(p, err["aEy"], "ey", local))
+        if quirk_compat:
+            out["aHx"][k_lo:k_hi] = to_host(grid.aggregate_h(p, s.hx, "hx", (k_lo, k_hi)))
+            out["aHz"][k_lo:k_hi] = to_host(grid.aggregate_h(p, s.hz, "hz", (k_lo, k_hi)))
+        else:
+            out["aHx"][k_lo:k_hi] = to_host(grid.aggregate_h(p, err["aHx"], "hx", local))
+            out["aHz"][k_lo:k_hi] = to_host(grid.aggregate_h(p, err["aHz"], "hz", local))
+        del err
+    return out
 
 
 class SnapshotWriter:
@@ -67,13 +84,15 @@ class SnapshotWriter:
         self._inflight: list[Future] = []
         self._series: list[tuple[float, str]] = []  # (time, filename)
 
-    def submit(self, variables: dict[str, torch.Tensor], iteration: int, t: float = 0.0) -> None:
+    def submit(self, variables: dict[str, np.ndarray], iteration: int, t: float = 0.0) -> None:
+        """Write the host arrays of :func:`aggregate_all` (and
+        :func:`validation_extras`) as one snapshot; they must not change
+        until the file is written."""
         while len(self._inflight) >= 2:  # backpressure
             self._inflight.pop(0).result()
         fname = self.pattern % iteration
         self._series.append((t, fname))
-        host = {k: to_host(v) for k, v in variables.items()}
-        self._inflight.append(self._pool.submit(self._write, os.path.join(self.out_dir, fname), host))
+        self._inflight.append(self._pool.submit(self._write, os.path.join(self.out_dir, fname), variables))
 
     def _write(self, path: str, host: dict[str, np.ndarray]) -> None:
         if not write_vtr_native(path, self.coords, host):

@@ -7,10 +7,14 @@ launch advances the state by ``plan.s`` leapfrog steps.  It reads
 concurrently, so the sweep cannot work in place).  With materials the
 coefficient arrays of ``coefs`` (lossy ca/cb, heterogeneous-mu_r hf) ride
 along, and with ``acc`` the sweep adds every step's sigma*|E|^2*dt to that
-fp32 map in place, as S per-step increments would.  On CUDA tensors it
-launches the kernel variant ``plan.kernel`` on the current stream and
-allocates nothing; it raises on anything the kernel does not take.  On CPU
-tensors, and only there, it runs :func:`plain_sweep`.
+fp32 map in place, as S per-step increments would.  With ``cpml`` it is
+the CPML sweep (vacuum or lossy), replacing
+``fdtd_tpu/ops/pallas_stream_pml.py::_kernel_pml``: it reads the twelve
+psi of ``psi`` and writes them advanced into ``psi_out`` (a second set,
+as for the fields).  On CUDA tensors it launches the kernel variant
+``plan.kernel`` on the current stream and allocates nothing; it raises on
+anything the kernel does not take.  On CPU tensors, and only there, it
+runs :func:`plain_sweep`.
 
 Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
 before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
@@ -30,12 +34,15 @@ from .. import diagnostics
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl, yee
+from .cpml import TERM_NAMES, Cpml, PsiState
 from .stream_plan import StreamPlan, variant_name
 
 KERNEL_SOURCE = "yee_stream"
-launches = {variant_name(lossy, het, sar): 0
-            for lossy, het, sar in ((False, False, False), (True, False, False), (True, False, True),
-                                    (True, True, False), (True, True, True))}
+launches = {variant_name(lossy, het, sar, pml): 0
+            for lossy, het, sar, pml in ((False, False, False, False), (True, False, False, False),
+                                         (True, False, True, False), (True, True, False, False),
+                                         (True, True, True, False), (False, False, False, True),
+                                         (True, False, False, True))}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -70,6 +77,10 @@ def _lib() -> ctypes.CDLL:
             [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
         )
         lib.yee_stream_sweep_material.restype = i32
+        lib.yee_stream_sweep_pml.argtypes = (
+            [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 7 + [i32, i32, ptr]
+        )
+        lib.yee_stream_sweep_pml.restype = i32
         lib.yee_stream_error_string.argtypes = [i32]
         lib.yee_stream_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -78,16 +89,25 @@ def _lib() -> ctypes.CDLL:
 
 def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 drive: SweepDrive | None = None, out: FieldState | None = None,
-                acc: torch.Tensor | None = None) -> FieldState:
+                acc: torch.Tensor | None = None, cpml: Cpml | None = None,
+                psi: PsiState | None = None, psi_out: PsiState | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
     into ``out`` (a new state when None).  With ``acc``, each step's
     deposition of the fp32 working copy is added to it in place
-    (:func:`diagnostics.accumulate_power`).  In fp32 this is exactly ``s``
-    steps of the ``torch`` backend with their per-step SAR increments."""
+    (:func:`diagnostics.accumulate_power`).  With ``cpml``, the steps are
+    the CPML passes (``Cpml.plain_h``/``plain_e``) on a working copy of
+    ``psi``, rounded once into ``psi_out``.  In fp32 this is exactly ``s``
+    steps of the ``torch`` backend (with their per-step SAR increments,
+    or with CPML)."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
+    wpsi = None
+    if cpml is not None:
+        if psi is None or psi_out is None:
+            raise ValueError("a CPML sweep needs psi and psi_out")
+        wpsi = PsiState(*(t.to(cd, copy=True) for t in psi.tensors()))
     patch = drive.patch if drive is not None else None
     for m in range(1, s + 1):
         if m >= 2 and drive is not None:
@@ -97,10 +117,17 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             work.ex[sl] = 0
             work.hx[sl] = drive.hx_rows[m - 2].to(cd)
             work.hz[sl] = 0
-        curl.update_h(p, work, coefs, patch)
-        curl.update_e(p, work, coefs)
+        if cpml is not None:
+            cpml.plain_h(p, work, coefs, wpsi, patch)
+            cpml.plain_e(p, work, coefs, wpsi)
+        else:
+            curl.update_h(p, work, coefs, patch)
+            curl.update_e(p, work, coefs)
         if acc is not None:
             diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
+    if wpsi is not None:
+        for o, w in zip(psi_out.tensors(), wpsi.tensors()):
+            o.copy_(w)
     if out is None:
         return work.to(dtype=state.ex.dtype)
     for o, w in zip(out.tensors(), work.tensors()):
@@ -134,19 +161,31 @@ def _on_cpu(p: Params, state: FieldState, out: FieldState) -> bool:
     return False
 
 
+def _check_psi(p: Params, state: FieldState, cpml: Cpml, psi: PsiState, psi_out: PsiState) -> None:
+    """Both psi sets as the kernel takes them, and not aliasing each other."""
+    yee.check_psi(p, cpml, state.ex, psi, TERM_NAMES)
+    yee.check_psi(p, cpml, state.ex, psi_out, TERM_NAMES)
+    if {t.data_ptr() for t in psi.tensors()} & {t.data_ptr() for t in psi_out.tensors()}:
+        raise ValueError("the sweep's output psi must not alias its input psi")
+
+
 def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
           plan: StreamPlan, drive: SweepDrive | None = None,
-          acc: torch.Tensor | None = None) -> FieldState:
+          acc: torch.Tensor | None = None, cpml: Cpml | None = None,
+          psi: PsiState | None = None, psi_out: PsiState | None = None) -> FieldState:
     """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
-    ``plan`` must be made for the variant of ``coefs`` and ``acc``
+    ``plan`` must be made for the variant of ``coefs``, ``acc`` and ``cpml``
     (``stream_plan.plan_for(p, s, coefs.lossy, coefs.heterogeneous_mu,
-    acc is not None)``)."""
-    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None)
-    if (plan.lossy, plan.het, plan.sar) != variant:
+    acc is not None, cpml.cfg if cpml else None)``); with ``cpml``, ``psi``
+    is read and ``psi_out`` written."""
+    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None)
+    if (plan.lossy, plan.het, plan.sar, plan.pml) != variant:
         raise ValueError(
-            f"the plan is for (lossy, het, sar) = {(plan.lossy, plan.het, plan.sar)}, "
-            f"the coefficients and accumulator are {variant}"
+            f"the plan is for (lossy, het, sar, pml) = {(plan.lossy, plan.het, plan.sar, plan.pml)}, "
+            f"the coefficients, accumulator and CPML are {variant}"
         )
+    if cpml is not None and (psi is None or psi_out is None):
+        raise ValueError("a CPML sweep needs psi and psi_out")
     dt = state.ex.dtype
     if acc is not None:  # the plan's variant implies lossy coefficients, so sigma exists
         cells = (p.maxk, p.maxj, p.maxi)
@@ -159,7 +198,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                     f"{a.dtype} {tuple(a.shape)} on {a.device}"
                 )
     if _on_cpu(p, state, out):
-        return plain_sweep(p, state, coefs, plan.s, drive, out, acc)
+        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out)
     lib = _lib()
     fh = curl.scalar(coefs.h_factor, dt)
     if drive is not None:
@@ -180,15 +219,25 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     ins = PtrArray(*(t.data_ptr() for t in state.tensors()))
     outs = PtrArray(*(t.data_ptr() for t in out.tensors()))
     geometry = (plan.s, plan.bj, plan.bi, plan.tk, int(drive is not None), j0, j1, i0, i1)
+    cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
     with torch.cuda.device(state.ex.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if not coefs.lossy:
+        if cpml is not None:
+            _check_psi(p, state, cpml, psi, psi_out)
+            if cf:
+                yee.check_coefficients(p, state.ex, cf)
+            rc = lib.yee_stream_sweep_pml(
+                ins, outs, p.maxk, p.maxj, p.maxi, fh, curl.scalar(coefs.cb_x, dt) if not cf else 0.0,
+                *geometry, *rows, yee.pointers(cf) if cf else None,
+                yee.pointers(psi.tensors(TERM_NAMES)), yee.pointers(psi_out.tensors(TERM_NAMES)),
+                cpml.table_h.data_ptr(), cpml.table_e.data_ptr(), cpml.cfg.cells, _DTYPE_CODES[dt], stream,
+            )
+        elif not cf:
             rc = lib.yee_stream_sweep(
                 ins, outs, p.maxk, p.maxj, p.maxi, fh, curl.scalar(coefs.cb_x, dt),
                 *geometry, *rows, _DTYPE_CODES[dt], stream,
             )
         else:
-            cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z)
             hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
             yee.check_coefficients(p, state.ex, cf + hf)
             sar = (coefs.sigma_cells.data_ptr(), acc.data_ptr()) if acc is not None else (None, None)

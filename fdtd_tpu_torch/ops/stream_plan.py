@@ -32,6 +32,18 @@ SAR needs lossy media.  They keep more per thread (coefficient loads, the
 SAR registers), so they have block shapes of their own
 (``BLOCK_J_MATERIAL``), and a SAR tile emits one column fewer per axis
 (the cell mean reads E one column past the tile).
+
+The CPML variants (``pml``: vacuum or lossy) carry the twelve psi terms of
+every level in registers beside the fields, so their blocks are smaller
+and they are built at s=2 alone (``BLOCK_J_PML``), and they mirror the gates of
+``fdtd_tpu/ops/pallas_stream_pml.py::stream_pml_supported``: computation
+mode, homogeneous mu_r, no SAR, and the source patch clear of the j and i
+slabs.  A sweep reads one psi set and writes a second (a neighbour's halo
+reads level-0 psi of cells this block writes), so a plan counts two.
+
+Every footprint counts the temporaries of the output reductions (the k
+slabs of the energies and snapshot aggregation) or of the SAR increment,
+whichever is larger: they never run at the same time.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ import math
 
 from .. import diagnostics
 from ..params import Mode, Params
+from ..source import make_source_plan
+from .cpml import PMLConfig, psi_bytes
 
 STEPS = (8, 4, 2)  # steps per sweep, deepest first
 SM_COUNT = 132  # H100 SXM
@@ -55,16 +69,21 @@ BLOCK_J = {8: 24, 4: 32, 2: 32}
 # the same for the material variants (lossy, het-mu, SAR): at s=4 a
 # 768-thread block leaves 80 registers a thread instead of 64
 BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
+# the CPML variants (vacuum and lossy) keep twelve psi a level a thread
+# more, and are built at s=2 only: measured at 256^3 fp32 (NVIDIA H100 80GB
+# HBM3), s=2 with 768-thread blocks fits 80 registers without spills (0.74
+# ms a step; 512 threads 1.00, 1024 threads 0.85 with 88 B of spills); s=4
+# spilled 160 B (1.08 ms a step) and s=8 about 540 B (7.4 ms a step)
+BLOCK_J_PML = {2: 24}
 BLOCKS_WANTED = 2 * SM_COUNT  # split k until a sweep has this many blocks
 
 
-def variant_name(lossy: bool, het: bool, sar: bool) -> str:
+def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False) -> str:
     """The name of a kernel variant of csrc/yee_stream.cu (its launch
     counter): ``yee_stream`` in vacuum, else ``yee_stream_lossy`` with
-    ``_het`` and ``_sar`` as they apply."""
-    if not lossy:
-        return "yee_stream"
-    return "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
+    ``_het`` and ``_sar`` as they apply; ``_pml`` for the CPML variants."""
+    base = "yee_stream" if not lossy else "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
+    return base + ("_pml" if pml else "")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,11 +105,12 @@ class StreamPlan:
     lossy: bool = False  # ca/cb arrays (any non-vacuum scene)
     het: bool = False  # hf arrays (heterogeneous mu_r)
     sar: bool = False  # the SAR accumulator
+    pml: bool = False  # the twelve CPML psi terms
 
     @property
     def kernel(self) -> str:
         """The kernel variant, as ``ops.stream.launches`` counts it."""
-        return variant_name(self.lossy, self.het, self.sar)
+        return variant_name(self.lossy, self.het, self.sar, self.pml)
 
     @property
     def blocks(self) -> int:
@@ -130,30 +150,52 @@ def sar_work_bytes(p: Params) -> int:
     return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.sar_slab_planes(p) * p.maxj * p.maxi
 
 
-def twopass_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False) -> int:
-    """Device bytes of a ``twopass`` step loop: the state (updated in
-    place), the material arrays and the SAR increment's temporaries."""
+def output_work_bytes(p: Params) -> int:
+    """Device bytes of the temporaries of the energy log and the snapshot
+    aggregation (``diagnostics.output_slabs``: at most 8 fp32 values a
+    cell of one k slab)."""
+    return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.output_slab_planes(p) * p.maxj * p.maxi
+
+
+def work_bytes(p: Params, sar: bool = False) -> int:
+    """The larger of the output and the SAR temporaries (never live at
+    the same time)."""
+    return max(output_work_bytes(p), sar_work_bytes(p) if sar else 0)
+
+
+def twopass_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
+                  pml: PMLConfig | None = None) -> int:
+    """Device bytes of a ``twopass`` run: the state (updated in place), the
+    material arrays, one psi set with CPML, and the temporaries of the
+    SAR increment or of the snapshots and energy log."""
     lossy = lossy or het
-    return state_bytes(p) + material_bytes(p, lossy, het, sar) + (sar_work_bytes(p) if sar else 0)
+    return (state_bytes(p) + material_bytes(p, lossy, het, sar) + (psi_bytes(p, pml) if pml else 0)
+            + work_bytes(p, sar))
 
 
 def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-                 het: bool = False, sar: bool = False) -> bool:
+                 het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
     """:func:`twopass_bytes` fits in ``memory_bytes`` (default: the
     H100's 80 GB) with the margin the stream plans keep."""
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
-    return twopass_bytes(p, lossy, het, sar) <= MEMORY_MARGIN * mem
+    return twopass_bytes(p, lossy, het, sar, pml) <= MEMORY_MARGIN * mem
+
+
+def _block_j(lossy: bool, pml: bool) -> dict[int, int]:
+    """The depths a variant's kernel is built at, with their threads along j."""
+    return BLOCK_J_PML if pml else BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
-             sar: bool = False) -> StreamPlan:
+             sar: bool = False, pml: PMLConfig | None = None) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
     the kernel variant the flags name (het and sar imply lossy)."""
-    if s not in STEPS:
-        raise ValueError(f"steps per sweep must be one of {STEPS}; got {s}")
     lossy = lossy or het or sar
+    table = _block_j(lossy, pml is not None)
+    if s not in table:
+        raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
     K1, J1, I1 = p.padded_shape
-    bj, bi = (BLOCK_J_MATERIAL if lossy else BLOCK_J)[s], BLOCK_I
+    bj, bi = table[s], BLOCK_I
     tj, ti = bj - 2 * s - sar, bi - 2 * s - sar
     nj, ni = -(-J1 // tj), -(-I1 // ti)
     nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
@@ -166,17 +208,32 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
     arrays_read = 6 + (6 if lossy else 0) + (3 if het else 0)
     # sigma is read and the accumulator read and written once per cell
     sar_bytes = (item + 8) * p.maxk * p.maxj * p.maxi / (K1 * J1 * I1) if sar else 0.0
-    per_step = (arrays_read * item * amp_ji * amp_k + 6 * item + sar_bytes) / s
-    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar)
+    # psi: read once per halo-amplified tile, written once, per sweep
+    pml_bytes = psi_bytes(p, pml) * (amp_ji * amp_k + 1) / (K1 * J1 * I1) if pml else 0.0
+    per_step = (arrays_read * item * amp_ji * amp_k + 6 * item + sar_bytes + pml_bytes) / s
+    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None)
+
+
+def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
+    """The scenes the CPML sweep takes (the gates of
+    ``fdtd_tpu/ops/pallas_stream_pml.py::stream_pml_supported``):
+    computation mode, homogeneous mu_r, no SAR, and the source patch clear
+    of the j and i slabs.  Every other CPML scene runs on ``twopass``."""
+    if p.mode != Mode.COMPUTATION or het or sar:
+        return False
+    n = cfg.cells
+    src = make_source_plan(p)
+    return src.j0 > n and src.j1 < p.maxj - n and src.i0 > n and src.i1 < p.maxi - n
 
 
 def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-             het: bool = False, sar: bool = False) -> bool:
+             het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
     """The kernel takes the dtype and the scene, and the two states, with
-    the material arrays, fit in ``memory_bytes`` (default: the H100's
-    80 GB).  Every plan's block fits an SM (at most 1024 threads and 45 KB
-    of shared memory), so the grid, the dtype and the gates decide:
-    materials stream in computation mode only, and SAR needs materials."""
+    the material arrays (and two psi sets with CPML), fit in
+    ``memory_bytes`` (default: the H100's 80 GB).  Every plan's block fits
+    an SM (at most 1024 threads and 45 KB of shared memory), so the grid,
+    the dtype and the gates decide: materials stream in computation mode
+    only, SAR needs materials, and CPML takes :func:`pml_gates`."""
     if p.dtype not in ("float32", "bfloat16"):
         return False
     lossy = lossy or het
@@ -184,25 +241,30 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
         return False
     if sar and not lossy:
         return False  # vacuum deposits nothing: no SAR variant
+    if pml is not None and not pml_gates(p, pml, het, sar):
+        return False
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
     # the trailing n % s two-pass steps add the SAR increment's temporaries
-    need = 2 * state_bytes(p) + material_bytes(p, lossy, het, sar) + (sar_work_bytes(p) if sar else 0)
+    need = (2 * state_bytes(p) + material_bytes(p, lossy, het, sar) + work_bytes(p, sar)
+            + (2 * psi_bytes(p, pml) if pml else 0))
     return need <= MEMORY_MARGIN * mem
 
 
 def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
-              lossy: bool = False, het: bool = False, sar: bool = False) -> StreamPlan | None:
-    """The feasible plan with the fewest modelled bytes per cell and step
-    (ties to the deeper sweep), or None.  A forced ``s`` is checked for
-    feasibility like any other."""
-    steps = (s,) if s is not None else STEPS
-    cands = [plan_for(p, x, lossy, het, sar) for x in steps]
-    if not feasible(p, memory_bytes, lossy, het, sar):
+              lossy: bool = False, het: bool = False, sar: bool = False,
+              pml: PMLConfig | None = None) -> StreamPlan | None:
+    """Of the depths the variant's kernel is built at, the feasible plan
+    with the fewest modelled bytes per cell and step (ties to the deeper
+    sweep), or None.  A forced ``s`` is checked for feasibility like any
+    other."""
+    steps = (s,) if s is not None else tuple(_block_j(lossy or het or sar, pml is not None))
+    cands = [plan_for(p, x, lossy, het, sar, pml) for x in steps]
+    if not feasible(p, memory_bytes, lossy, het, sar, pml):
         return None
     return min(cands, key=lambda c: (c.bytes_per_cell_step, -c.s))
 
 
 def supported(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-              het: bool = False, sar: bool = False) -> bool:
+              het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
     """True when some streaming plan fits (see :func:`pick_plan`)."""
-    return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar) is not None
+    return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar, pml=pml) is not None

@@ -4,12 +4,15 @@
 ``fdtd_tpu/ops/pallas_fused.py::_h_kernel2`` and ``::_e_kernel2``: the
 vacuum kernels take scalar factors; with materials, ``update_h`` launches
 the heterogeneous-mu_r variant (``hf_x/y/z`` arrays) when the coefficients
-carry them, and ``update_e`` the lossy variant (six ca/cb arrays).  On
+carry them, and ``update_e`` the lossy variant (six ca/cb arrays).  With
+``cpml`` and ``psi`` (:mod:`fdtd_tpu_torch.ops.cpml`) they launch the CPML
+variants, which replace ``fdtd_tpu/ops/cpml_kernel.py::_h_kernel_pml`` and
+``::_e_kernel_pml`` and advance the pass's six psi terms in place.  On
 CUDA tensors they launch the kernel on the current stream, in place,
 allocating nothing; they raise on anything the kernel does not take
 (another dtype, shape, device or a non-contiguous tensor).  On CPU
 tensors, and only there, they run the plain versions in
-:mod:`fdtd_tpu_torch.ops.curl`.
+:mod:`fdtd_tpu_torch.ops.curl` (with CPML: ``Cpml.plain_h``/``plain_e``).
 
 ``launches`` counts kernel launches per kernel variant, so a run can show
 that it went through the kernels; plain-version calls do not count.
@@ -24,9 +27,12 @@ import torch
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl
+from .cpml import E_TERMS, H_TERMS, Cpml, PsiState, psi_shapes
 
 KERNEL_SOURCE = "yee_twopass"
-launches = {"yee_update_h": 0, "yee_update_e": 0, "yee_update_h_het": 0, "yee_update_e_lossy": 0}
+launches = {name + suffix: 0
+            for suffix in ("", "_pml")
+            for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -50,6 +56,14 @@ def _lib() -> ctypes.CDLL:
         lib.yee_update_h_het.restype = i32
         lib.yee_update_e_lossy.argtypes = [ptr] * 3 + [i32] * 3 + [i32, ptr]
         lib.yee_update_e_lossy.restype = i32
+        lib.yee_update_h_pml.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_pml.restype = i32
+        lib.yee_update_h_het_pml.argtypes = [ptr] * 5 + [i32] * 4 + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_het_pml.restype = i32
+        lib.yee_update_e_pml.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [i32, ptr]
+        lib.yee_update_e_pml.restype = i32
+        lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] * 4 + [i32, ptr]
+        lib.yee_update_e_lossy_pml.restype = i32
         lib.yee_error_string.argtypes = [i32]
         lib.yee_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -91,6 +105,23 @@ def check_coefficients(p: Params, like: torch.Tensor, arrays: tuple[torch.Tensor
             )
 
 
+def check_psi(p: Params, cpml: Cpml, like: torch.Tensor, psi: PsiState, names: tuple[str, ...]) -> None:
+    """The psi tensors of ``names`` and the (b, c) tables must match the
+    fields: device, dtype, the slab-restricted shapes, contiguous."""
+    shapes = psi_shapes(p, cpml.cfg)
+    want = {n: shapes[n] for n in names}
+    got = {n: getattr(psi, n) for n in names}
+    tables = (cpml.table_h, cpml.table_e)
+    for n, t in list(got.items()) + [("table", tb) for tb in tables]:
+        shape = want.get(n, (6, 2, 2 * cpml.cfg.cells))
+        if (t.device != like.device or t.dtype != like.dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"psi {n} must be a contiguous {like.dtype} tensor of shape {shape} on "
+                f"{like.device}; got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
 def pointers(tensors) -> ctypes.Array:
     """A C array of the tensors' data pointers."""
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
@@ -103,59 +134,92 @@ def _check(rc: int, name: str) -> None:
 
 
 def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
-             patch: tuple[int, int, int, int] | None = None) -> None:
-    """H half-step in place; ``patch`` as in :func:`curl.update_h`."""
+             patch: tuple[int, int, int, int] | None = None,
+             cpml: Cpml | None = None, psi: PsiState | None = None) -> None:
+    """H half-step in place; ``patch`` as in :func:`curl.update_h`; with
+    ``cpml`` and ``psi`` the CPML H pass (the six H psi terms advance in
+    place too)."""
+    if (cpml is None) != (psi is None):
+        raise ValueError("the CPML pass needs both cpml and psi")
     if _on_cpu(p, s):
-        curl.update_h(p, s, coefs, patch)
+        if cpml is not None:
+            cpml.plain_h(p, s, coefs, psi, patch)
+        else:
+            curl.update_h(p, s, coefs, patch)
         return
     lib = _lib()
     j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
+    geometry = (p.maxk, p.maxj, p.maxi)
+    patch_args = (int(patch is not None), j0, j1, i0, i1)
     dtype = _DTYPE_CODES[s.hx.dtype]
+    e_ptr, h_ptr = pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz))
+    hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
+    if hf:
+        check_coefficients(p, s.hx, hf)
+    f = curl.scalar(coefs.h_factor, s.hx.dtype)
     with torch.cuda.device(s.hx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if coefs.heterogeneous_mu:
-            hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z)
-            check_coefficients(p, s.hx, hf)
+        if cpml is not None:
+            check_psi(p, cpml, s.hx, psi, H_TERMS)
+            pml = (pointers(psi.tensors(H_TERMS)), cpml.table_h.data_ptr(), cpml.cfg.cells)
+            if hf:
+                name = "yee_update_h_het_pml"
+                rc = lib.yee_update_h_het_pml(e_ptr, h_ptr, pointers(hf), *pml, *geometry, *patch_args,
+                                              dtype, stream)
+            else:
+                name = "yee_update_h_pml"
+                rc = lib.yee_update_h_pml(e_ptr, h_ptr, *pml, *geometry, f, *patch_args, dtype, stream)
+        elif hf:
             name = "yee_update_h_het"
-            rc = lib.yee_update_h_het(
-                pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz)), pointers(hf),
-                p.maxk, p.maxj, p.maxi, int(patch is not None), j0, j1, i0, i1, dtype, stream,
-            )
+            rc = lib.yee_update_h_het(e_ptr, h_ptr, pointers(hf), *geometry, *patch_args, dtype, stream)
         else:
             name = "yee_update_h"
-            rc = lib.yee_update_h(
-                *(t.data_ptr() for t in s.tensors()),
-                p.maxk, p.maxj, p.maxi, curl.scalar(coefs.h_factor, s.hx.dtype),
-                int(patch is not None), j0, j1, i0, i1, dtype, stream,
-            )
+            rc = lib.yee_update_h(*(t.data_ptr() for t in s.tensors()), *geometry, f, *patch_args,
+                                  dtype, stream)
     launches[name] += 1
     _check(rc, name)
 
 
-def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
+def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
+             cpml: Cpml | None = None, psi: PsiState | None = None) -> None:
     """E half-step in place: one scalar cb in vacuum, the ca/cb arrays of
-    ``coefs`` with materials."""
+    ``coefs`` with materials; with ``cpml`` and ``psi`` the CPML E pass."""
+    if (cpml is None) != (psi is None):
+        raise ValueError("the CPML pass needs both cpml and psi")
     if _on_cpu(p, s):
-        curl.update_e(p, s, coefs)
+        if cpml is not None:
+            cpml.plain_e(p, s, coefs, psi)
+        else:
+            curl.update_e(p, s, coefs)
         return
     lib = _lib()
+    geometry = (p.maxk, p.maxj, p.maxi)
     dtype = _DTYPE_CODES[s.ex.dtype]
+    h_ptr, e_ptr = pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez))
+    cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
+    if cf:
+        check_coefficients(p, s.ex, cf)
     with torch.cuda.device(s.ex.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if coefs.lossy:
-            cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z)
-            check_coefficients(p, s.ex, cf)
+        if cpml is not None:
+            check_psi(p, cpml, s.ex, psi, E_TERMS)
+            pml = (pointers(psi.tensors(E_TERMS)), cpml.table_e.data_ptr(), cpml.cfg.cells)
+            if cf:
+                name = "yee_update_e_lossy_pml"
+                rc = lib.yee_update_e_lossy_pml(h_ptr, e_ptr, pointers(cf), *pml, *geometry, dtype, stream)
+            else:
+                name = "yee_update_e_pml"
+                rc = lib.yee_update_e_pml(h_ptr, e_ptr, *pml, *geometry, curl.scalar(coefs.cb_x, s.ex.dtype),
+                                          dtype, stream)
+        elif cf:
             name = "yee_update_e_lossy"
-            rc = lib.yee_update_e_lossy(
-                pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez)), pointers(cf),
-                p.maxk, p.maxj, p.maxi, dtype, stream,
-            )
+            rc = lib.yee_update_e_lossy(h_ptr, e_ptr, pointers(cf), *geometry, dtype, stream)
         else:
             name = "yee_update_e"
             rc = lib.yee_update_e(
                 s.hx.data_ptr(), s.hy.data_ptr(), s.hz.data_ptr(),
                 s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),
-                p.maxk, p.maxj, p.maxi, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
+                *geometry, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
             )
     launches[name] += 1
     _check(rc, name)

@@ -2,13 +2,14 @@
 device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--scenes vacuum heating] [--backends stream twopass torch]
+        [--scenes vacuum heating pml] [--backends stream twopass torch]
         [--dtypes float32 bfloat16]
 
 Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 (rescaled to n); ``heating`` is the same box with the default water block
 (``--water-block``) and the SAR accumulator (``--sar``), the workload of
-``configs/heating_256.txt``.  For each scene, backend and dtype it runs a
+``configs/heating_256.txt``; ``pml`` is the vacuum scene with 10-cell CPML
+walls (``--pml 10``).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -43,17 +44,19 @@ import time
 import torch
 
 from . import diagnostics
+from .ops.cpml import PMLConfig, init_psi
 from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
 from .runner import initial_state
 from .state import water_block
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
-SCENES = ("vacuum", "heating")
+SCENES = ("vacuum", "heating", "pml")
+PML_CELLS = 10  # the pml scene's slab depth (--pml 10)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR>, h <T, HET>,
-# e <T, LOSSY>
+# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML>,
+# h <T, HET, PML>, e <T, LOSSY, PML>
 _KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel)<([^>]*)>")
 
 
@@ -72,29 +75,31 @@ def _group(name: str) -> str:
     flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
     if m.group(1) == "stream_kernel":
         return variant_name(*flags)
+    pml = "_pml" if flags[1] else ""
     if m.group(1) == "h_kernel":
-        return "yee_update_h_het" if flags[0] else "yee_update_h"
-    return "yee_update_e_lossy" if flags[0] else "yee_update_e"
+        return ("yee_update_h_het" if flags[0] else "yee_update_h") + pml
+    return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + pml
 
 
 def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
-            heating: bool = False) -> dict:
+            heating: bool = False, pml: PMLConfig | None = None) -> dict:
     ts, amps = scan_inputs(p, time_values(p)[: warm + 2 * steps])
     run = make_chunk_runner(p, dev, water_block(p) if heating else None, backend,
-                            accumulate_power=heating)
+                            accumulate_power=heating, pml=pml)
     s = initial_state(p, dev)
     power = zero_power_acc(p, dev) if heating else None
-    run(s, (ts[:warm], amps[:warm]), power)
+    psi = init_psi(p, pml, dev) if pml is not None else None
+    run(s, (ts[:warm], amps[:warm]), power, psi)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power)
+    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power, psi)
     torch.cuda.synchronize(dev)
     wall = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(s, (ts[warm + steps :], amps[warm + steps :]), power)
+        run(s, (ts[warm + steps :], amps[warm + steps :]), power, psi)
         torch.cuda.synchronize(dev)
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     by_group: dict[str, float] = {}
@@ -123,7 +128,7 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         by_group[diagnostics.SAR_LABEL] = sar_ms
         by_group["other"] = by_group.get("other", 0.0) - sar_ms
     return {
-        "scene": "heating" if heating else "vacuum",
+        "scene": "heating" if heating else "pml" if pml is not None else "vacuum",
         "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
@@ -152,7 +157,8 @@ def main(argv=None) -> int:
         for dtype in args.dtypes:
             for backend in args.backends:
                 rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
-                              heating=name == "heating")
+                              heating=name == "heating",
+                              pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None)
                 rec["card"] = card
                 print(json.dumps(rec), flush=True)
     return 0

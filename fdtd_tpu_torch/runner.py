@@ -8,9 +8,13 @@ loop, then one after every step whose 1-based index is a multiple of
 between two boundaries run as one chunk that only enqueues device work; the
 host waits on the device only at snapshot, log and checkpoint boundaries.
 
-Materials (lossy and heterogeneous-mu_r media) and the SAR accumulation
-run on every backend; sharding, CPML, DFT monitors and probes are not
-ported and raise ``NotImplementedError`` naming their ROADMAP item.
+Materials (lossy and heterogeneous-mu_r media), the SAR accumulation and
+the CPML open boundary (``pml``) run on every backend; with CPML the psi
+state rides beside the fields, goes into checkpoints as ``aux_psi_<term>``
+(the JAX package's keys and shapes) and comes back on resume, and the
+energy log adds the radiated power ``radiated_W``.  Sharding, DFT monitors
+and probes are not ported and raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ from typing import Callable
 import torch
 
 from . import diagnostics
-from .io.checkpoint import CheckpointWriter, latest_checkpoint, load_checkpoint
+from .io.checkpoint import CheckpointWriter, from_host, latest_checkpoint, load_aux, load_checkpoint
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
 from .ops import stream_plan
+from .ops.cpml import PMLConfig, PsiState, init_psi, psi_shapes
 from .params import Mode, Params, time_values
 from .state import FieldState, Materials, init_validation, zeros
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
@@ -35,7 +40,6 @@ BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
 
 # feature -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "pml": "ROADMAP queue 1 item 7 (CPML open boundary)",
     "dft": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
     "probes": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
     "shard": "ROADMAP queue 1 item 11 (spatial sharding)",
@@ -50,6 +54,7 @@ class RunResult:
     mcells_per_s: float
     power_j: torch.Tensor | None = None
     warnings: list[str] = dataclasses.field(default_factory=list)
+    psi: PsiState | None = None
 
 
 def resolve_device(device) -> torch.device:
@@ -65,7 +70,7 @@ def resolve_device(device) -> torch.device:
 
 
 def resolve_backend(p: Params, backend: str, device, materials: Materials | None = None,
-                    accumulate_power: bool = False) -> str:
+                    accumulate_power: bool = False, pml: PMLConfig | None = None) -> str:
     """Resolve ``auto`` and refuse combinations the kernels do not run.
 
     ``auto`` runs ``stream`` (the streaming sweep kernel) on a CUDA device
@@ -73,12 +78,18 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | None
     ``twopass`` (the two-pass kernels), and ``torch`` for float64 or on
     the CPU, as the JAX package's ``auto`` picks ``pallas_stream`` before
     the two-pass tiers.  A plan fits when the two states and the material
-    arrays fit in device memory; materials stream in computation mode
-    only, and SAR needs materials (``stream_plan.feasible``).  An explicit
-    ``twopass`` or ``stream`` on the CPU or in float64 raises
-    ``ValueError``, and so does ``stream`` when no plan fits, and
-    ``twopass`` (picked or asked for) when its state, material arrays and
-    SAR temporaries do not fit either (``stream_plan.twopass_fits``).
+    arrays (and two psi sets with CPML) fit in device memory; materials
+    stream in computation mode only, SAR needs materials, and the CPML
+    sweep takes the gates of ``stream_plan.pml_gates`` (computation mode,
+    uniform mu_r, no SAR, the source patch clear of the j and i slabs), as
+    the JAX package's streaming-PML tier does.  With CPML ``auto`` runs
+    ``twopass`` all the same: on an H100 at 256^3 the CPML sweep is no
+    faster in fp32 and slower in bf16 (PERF.md), and it holds a second
+    state and psi set; ``stream`` runs it when asked.  An explicit ``twopass`` or
+    ``stream`` on the CPU or in float64 raises ``ValueError``, and so does
+    ``stream`` when no plan fits, and ``twopass`` (picked or asked for)
+    when its state, material arrays, psi and temporaries do not fit either
+    (``stream_plan.twopass_fits``).
     """
     dev = torch.device(device)
     if backend not in BACKEND_CHOICES:
@@ -87,31 +98,32 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | None
     lossy = materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
     free = _free_memory(dev)
-    fits = kernels_ok and stream_plan.supported(p, free, lossy, het, accumulate_power)
+    fits = kernels_ok and stream_plan.supported(p, free, lossy, het, accumulate_power, pml)
     if backend == "auto":
         if not kernels_ok:
             return "torch"
-        backend = "stream" if fits else "twopass"
+        backend = "stream" if fits and pml is None else "twopass"
     if backend in ("twopass", "stream") and not kernels_ok:
         raise ValueError(
             f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
             f"(got device {dev}, dtype {p.dtype}); use --backend torch"
         )
-    if backend == "twopass" and not stream_plan.twopass_fits(p, free, lossy, het, accumulate_power):
-        need = stream_plan.twopass_bytes(p, lossy, het, accumulate_power)
+    if backend == "twopass" and not stream_plan.twopass_fits(p, free, lossy, het, accumulate_power, pml):
+        need = stream_plan.twopass_bytes(p, lossy, het, accumulate_power, pml)
         mem = stream_plan.DEVICE_BYTES if free is None else free
         raise ValueError(
             f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} does not fit in device memory: the twopass "
-            f"kernels need {need / 1e9:.1f} GB (the state, the material arrays and the SAR "
-            f"temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
+            f"kernels need {need / 1e9:.1f} GB (the state, the material arrays, the CPML psi and "
+            f"the temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
             f"{stream_plan.MEMORY_MARGIN * mem / 1e9:.1f} GB; use a coarser grid or bfloat16"
         )
     if backend == "stream" and not fits:
         raise ValueError(
             f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype}: the sweep needs "
             "a second copy of the state (and the material arrays) in device memory, "
-            "materials stream in computation mode only, and SAR needs materials; "
-            "use --backend twopass"
+            "materials stream in computation mode only, SAR needs materials, and the CPML "
+            "sweep takes computation mode, uniform mu_r, no SAR and a source patch clear of "
+            "the j and i slabs; use --backend twopass"
         )
     return backend
 
@@ -147,16 +159,16 @@ def run_simulation(
     log: Callable[[str], None] = print,
     diagnostics_log: str | None = None,
     shard: str | None = None,
-    pml=None,
+    pml: PMLConfig | None = None,
     dft=None,
     probes=None,
 ) -> RunResult:
     """Run the scene ``p`` (with ``materials``, vacuum when None) on
     ``device`` and write its outputs to ``out_dir``.  With
     ``accumulate_power`` the result's ``power_j`` is the deposited energy
-    density (J/m^3) per cell, fp32 (all zero in vacuum)."""
+    density (J/m^3) per cell, fp32 (all zero in vacuum).  With ``pml`` the
+    six walls absorb (CPML); the result's ``psi`` is the final psi state."""
     requested = {
-        "pml": pml is not None,
         "dft": dft is not None,
         "probes": probes is not None,
         "shard": shard is not None,
@@ -165,8 +177,10 @@ def run_simulation(
         if on:
             raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
     p.validate()
+    if pml is not None and accumulate_power and (materials is None or materials.is_vacuum):
+        raise ValueError("--sar needs lossy materials (e.g. --water-block)")
     dev = resolve_device(device)
-    backend = resolve_backend(p, backend, dev, materials, accumulate_power)
+    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
     warnings: list[str] = []
@@ -181,9 +195,10 @@ def run_simulation(
             "runs; use float32 for validation/accuracy runs"
         )
 
-    run_chunk = make_chunk_runner(p, dev, materials, backend, accumulate_power=accumulate_power)
+    run_chunk = make_chunk_runner(p, dev, materials, backend, accumulate_power=accumulate_power, pml=pml)
     state = initial_state(p, dev)
     power = zero_power_acc(p, dev) if accumulate_power else None
+    psi = init_psi(p, pml, dev) if pml is not None else None
     start_step = 0
     if resume:
         ck = latest_checkpoint(out_dir)
@@ -195,10 +210,15 @@ def run_simulation(
                 else:
                     warn("checkpoint has no power accumulator; --sar totals restart from zero "
                          "at this point")
+            if pml is not None:
+                _resume_psi(ck, p, pml, psi, warn)
 
     ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
     writer = SnapshotWriter(p, out_dir) if write_snapshots else None
     diag_f = open(diagnostics_log, "a") if diagnostics_log else None
+    # open-boundary runs also log the radiated power through the box one
+    # cell inside the absorber, clamped to the largest box the grid admits
+    flux_margin = min(pml.cells + 1, min(p.maxk, p.maxj, p.maxi) // 2 - 1) if pml is not None else -1
 
     def snapshot(s: FieldState, iteration: int, t: float) -> None:
         if writer is None:
@@ -213,6 +233,8 @@ def run_simulation(
             return
         e, h = float(diagnostics.e_energy(p, s)), float(diagnostics.h_energy(p, s))
         rec = {"iteration": iteration, "t": t, "E_energy": e, "H_energy": h, "total": e + h}
+        if flux_margin >= 0:
+            rec["radiated_W"] = float(diagnostics.poynting_flux(p, s, margin=flux_margin))
         diag_f.write(json.dumps(rec) + "\n")
         # a CFL-unstable or NaN run stops at the next sample instead of
         # burning the rest of the schedule
@@ -245,14 +267,15 @@ def run_simulation(
             if checkpoint_every:
                 boundary = min(boundary, next_mult(pos, checkpoint_every))
             end = min(boundary, n)
-            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power)
+            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power, psi)
             pos = end
             t_now = float(ts[pos - 1])
             if pos % rate == 0:
                 snapshot(state, pos, t_now)
                 log_diag(state, pos, t_now)
             if checkpoint_every and pos % checkpoint_every == 0:
-                ckpt_writer.submit(state, pos, t_now, power)
+                aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else None
+                ckpt_writer.submit(state, pos, t_now, power, aux)
         _sync(dev)
         wall = time.perf_counter() - t0
     finally:
@@ -265,4 +288,20 @@ def run_simulation(
 
     steps_done = n - start_step
     mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
-    return RunResult(state, n, wall, mcells, power, warnings)
+    return RunResult(state, n, wall, mcells, power, warnings, psi)
+
+
+def _resume_psi(ck: str, p: Params, pml: PMLConfig, psi: PsiState, warn: Callable[[str], None]) -> None:
+    """Load the ``aux_psi_<term>`` arrays of checkpoint ``ck`` into ``psi``;
+    where one is missing or has another shape, psi restarts from zero with
+    the JAX package's warning."""
+    aux = load_aux(ck)
+    shapes = psi_shapes(p, pml)
+    names = PsiState.names()
+    if all(f"psi_{n}" in aux and aux[f"psi_{n}"].shape == shapes[n] for n in names):
+        for n in names:
+            t = getattr(psi, n)
+            t.copy_(from_host(aux[f"psi_{n}"], t.dtype, t.device))
+    else:
+        warn("checkpoint has no (or differently-shaped) CPML psi state; the absorber memory "
+             "restarts from zero (fields in the slabs will see a transient)")

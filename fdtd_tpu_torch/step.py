@@ -34,6 +34,16 @@ increment, ``fdtd_tpu/step.py:385-403``), on ``stream`` inside the sweep
 kernel, with the trailing ``n % s`` two-pass steps adding theirs.  In
 fp32 every backend gives the same accumulator bits; a bf16 sweep deposits
 from its fp32 levels, not from rounded states.
+
+CPML (``pml``, a :class:`~fdtd_tpu_torch.ops.cpml.PMLConfig`) runs on all
+three backends; the twelve psi tensors (:class:`~fdtd_tpu_torch.ops.cpml.
+PsiState`, :func:`~fdtd_tpu_torch.ops.cpml.init_psi`) ride beside the state
+and are advanced in place: ``step(state, x, psi)`` and ``run(state, xs,
+power, psi)``.  ``torch`` applies the corrections of ``ops/cpml.py`` after
+each pass in the JAX package's xla order; ``twopass`` runs the CPML
+variants of the two-pass kernels; ``stream`` the CPML sweeps (psi written
+into a second set and swapped back, like the state), with the trailing
+``n % s`` steps on the two-pass CPML kernels, on the same psi tensors.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ import numpy as np
 import torch
 
 from . import diagnostics
-from .ops import curl, stream, stream_plan, yee
+from .ops import cpml, curl, stream, stream_plan, yee
+from .ops.cpml import PMLConfig, PsiState
 from .params import Mode, Params
 from .source import (apply_source, drive_values, make_source_plan, profile_tensor,
                      sweep_drive_rows)
@@ -52,12 +63,14 @@ from .state import FieldState, Materials, UpdateCoefs, update_coefs
 
 BACKENDS = ("torch", "twopass", "stream")
 
-Step = Callable[[FieldState, tuple], None]
+Step = Callable[..., None]
 
 
 def make_step(p: Params, device, materials: Materials | None = None,
-              backend: str = "torch", coefs: UpdateCoefs | None = None) -> Step:
-    """Build ``step(state, (t, amp))``, which advances ``state`` in place.
+              backend: str = "torch", coefs: UpdateCoefs | None = None,
+              pml: PMLConfig | None = None) -> Step:
+    """Build ``step(state, (t, amp))``, which advances ``state`` in place;
+    with ``pml``, ``step(state, (t, amp), psi)``, which advances psi too.
 
     ``amp`` is the drive amplitude sin(2*pi*f*t) (see :func:`scan_inputs`),
     a Python float or a 0-d fp64 tensor on ``device``; validation mode
@@ -75,17 +88,12 @@ def make_step(p: Params, device, materials: Materials | None = None,
         coefs = update_coefs(p, materials, device)
     plan = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(plan, device) if plan is not None else None
+    if pml is not None and backend == "torch":
+        return cpml.make_pml_step(p, pml, coefs, device)
 
     if backend in ("twopass", "stream"):
-        patch = plan.patch if plan is not None else None
-
-        def step(s: FieldState, x) -> None:
-            if plan is not None:
-                apply_source(plan, s, x[1], profile)
-            yee.update_h(p, s, coefs, patch)
-            yee.update_e(p, s, coefs)
-
-        return step
+        cp = cpml.make_cpml(p, pml, coefs, device) if pml is not None else None
+        return _kernel_step(p, coefs, plan, profile, cp)
 
     def step(s: FieldState, x) -> None:
         if plan is not None:
@@ -94,6 +102,20 @@ def make_step(p: Params, device, materials: Materials | None = None,
         if plan is not None:
             apply_source(plan, s, x[1], profile)
         curl.update_e(p, s, coefs)
+
+    return step
+
+
+def _kernel_step(p: Params, coefs: UpdateCoefs, plan, profile, cp: cpml.Cpml | None) -> Step:
+    """The ``twopass`` step: the source once, then the H and E kernels
+    (their CPML variants with ``cp``)."""
+    patch = plan.patch if plan is not None else None
+
+    def step(s: FieldState, x, psi: PsiState | None = None) -> None:
+        if plan is not None:
+            apply_source(plan, s, x[1], profile)
+        yee.update_h(p, s, coefs, patch, cp, psi)
+        yee.update_e(p, s, coefs, cp, psi)
 
     return step
 
@@ -117,38 +139,46 @@ def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
 
 def make_chunk_runner(p: Params, device, materials: Materials | None = None,
                       backend: str = "torch", stream_s: int | None = None,
-                      accumulate_power: bool = False):
-    """``run(state, xs, power=None)``: advance ``state`` in place over the
-    chunk ``xs = (times, amps)`` of :func:`scan_inputs`, and with
+                      accumulate_power: bool = False, pml: PMLConfig | None = None):
+    """``run(state, xs, power=None, psi=None)``: advance ``state`` in place
+    over the chunk ``xs = (times, amps)`` of :func:`scan_inputs`, and with
     ``accumulate_power`` add each step's deposition to ``power`` (the fp32
-    map of :func:`zero_power_acc`) in place; returns ``state``.
-    ``stream_s`` forces the steps per sweep of the ``stream`` backend
-    (still checked to fit).
+    map of :func:`zero_power_acc`) in place; with ``pml`` advance ``psi``
+    (:func:`~fdtd_tpu_torch.ops.cpml.init_psi`) in place too; returns
+    ``state``.  ``stream_s`` forces the steps per sweep of the ``stream``
+    backend (still checked to fit).
 
     The amplitudes go to the device once per chunk; the loop itself only
     enqueues work, with no host synchronisation inside it.
     """
     coefs = update_coefs(p, materials, device)
-    step = make_step(p, device, backend=backend, coefs=coefs)
     if backend == "stream":
         plan = stream_plan.pick_plan(p, s=stream_s, lossy=coefs.lossy, het=coefs.heterogeneous_mu,
-                                     sar=accumulate_power)
+                                     sar=accumulate_power, pml=pml)
         if plan is None:
             raise ValueError(
                 f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} "
                 f"({'materials' if coefs.lossy else 'vacuum'}, {p.mode.name.lower()} mode"
-                f"{', SAR' if accumulate_power else ''}): the sweep needs a second copy of the "
-                "state in device memory, materials stream in computation mode only, and SAR "
-                "needs materials"
+                f"{', SAR' if accumulate_power else ''}{', CPML' if pml else ''}): the sweep needs a "
+                "second copy of the state in device memory, materials stream in computation mode "
+                "only, SAR needs materials, and the CPML sweep takes computation mode, uniform mu_r, "
+                "no SAR and a source patch clear of the j and i slabs"
             )
-        return _stream_chunk_runner(p, device, step, plan, coefs, accumulate_power)
+        cp = cpml.make_cpml(p, pml, coefs, device) if pml is not None else None
+        return _stream_chunk_runner(p, device, plan, coefs, accumulate_power, cp)
+    step = make_step(p, device, backend=backend, coefs=coefs, pml=pml)
 
-    def run(s: FieldState, xs, power: torch.Tensor | None = None) -> FieldState:
+    def run(s: FieldState, xs, power: torch.Tensor | None = None,
+            psi: PsiState | None = None) -> FieldState:
         _need_power(accumulate_power, power)
+        _need_psi(pml, psi)
         ts, amps = xs
         amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
         for n in range(len(ts)):
-            step(s, (ts[n], amps_dev[n]))
+            if pml is not None:
+                step(s, (ts[n], amps_dev[n]), psi)
+            else:
+                step(s, (ts[n], amps_dev[n]))
             if accumulate_power:
                 diagnostics.accumulate_power(p, s, coefs.sigma_cells, power)
         return s
@@ -161,17 +191,26 @@ def _need_power(accumulate_power: bool, power) -> None:
         raise ValueError("accumulate_power needs the power accumulator (zero_power_acc)")
 
 
-def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.StreamPlan,
-                         coefs: UpdateCoefs, accumulate_power: bool):
+def _need_psi(pml, psi) -> None:
+    if pml is not None and psi is None:
+        raise ValueError("a CPML chunk needs its psi state (ops.cpml.init_psi)")
+
+
+def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs: UpdateCoefs,
+                         accumulate_power: bool, cp: cpml.Cpml | None):
     """``n // s`` sweeps of the stream kernel, then ``n % s`` twopass steps
-    (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``)."""
+    (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``); with CPML
+    (``cp``) each sweep writes psi into a second set, swapped back."""
     s_steps = plan.s
     src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(src, device) if src is not None else None
-    spare: list[FieldState] = []  # the second state, allocated at first use
+    odd_step = _kernel_step(p, coefs, src, profile, cp)
+    spare: list = []  # the second state (and psi set), allocated at first use
 
-    def run(s: FieldState, xs, power: torch.Tensor | None = None) -> FieldState:
+    def run(s: FieldState, xs, power: torch.Tensor | None = None,
+            psi: PsiState | None = None) -> FieldState:
         _need_power(accumulate_power, power)
+        _need_psi(cp, psi)
         acc = power if accumulate_power else None
         ts, amps = xs
         n = len(ts)
@@ -180,8 +219,9 @@ def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.St
         if n_sw:
             if not spare or spare[0].ex.shape != s.ex.shape or spare[0].ex.dtype != s.ex.dtype \
                     or spare[0].ex.device != s.ex.device:
-                spare[:] = [FieldState(*(torch.empty_like(t) for t in s.tensors()))]
-            out = spare[0]
+                spare[:] = [FieldState(*(torch.empty_like(t) for t in s.tensors())),
+                            psi.clone() if cp is not None else None]
+            out, psi_out = spare
             if src is not None:
                 ez_rows, hx_rows = sweep_drive_rows(src, amps_dev, s_steps, s.ex.dtype, profile)
             for g in range(n_sw):
@@ -189,10 +229,15 @@ def _stream_chunk_runner(p: Params, device, odd_step: Step, plan: stream_plan.St
                 if src is not None:
                     apply_source(src, s, amps_dev[g * s_steps], profile)
                     drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
-                stream.sweep(p, s, out, coefs, plan, drive, acc)
+                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out)
                 s.swap(out)
+                if cp is not None:
+                    psi.swap(psi_out)
         for r in range(n_sw * s_steps, n):
-            odd_step(s, (ts[r], amps_dev[r]))
+            if cp is not None:
+                odd_step(s, (ts[r], amps_dev[r]), psi)
+            else:
+                odd_step(s, (ts[r], amps_dev[r]))
             if acc is not None:
                 diagnostics.accumulate_power(p, s, coefs.sigma_cells, acc)
         return s

@@ -246,12 +246,32 @@ def test_bfloat16_guardrail_warns(tiny_params, tmp_path):
     ("shard", {"shard": "2"}, "item 11"),
 ])
 def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, feature, kw, item):
-    """Sharding, CPML and the monitors raise naming their ROADMAP item.
+    """Sharding and the monitors raise naming their ROADMAP item.
     Materials and SAR (item 5) are ported: a lossy scene, and a water
     block with ``accumulate_power``, run and match the JAX package (fp64,
     the fields at atol 1e-15 / rtol 1e-11, the fp32 accumulator at rtol
     1e-6: its per-step increments round to fp32 from reductions in another
-    order)."""
+    order).  CPML (item 7) is ported: a 3-cell absorber on the tiny scene
+    in computation mode matches the JAX package's xla CPML run (fp64,
+    fields and the twelve psi at atol 1e-15 / rtol 1e-11)."""
+    if feature == "pml":
+        from fdtd_tpu.ops.cpml import PMLConfig as JPMLConfig
+
+        from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState
+
+        p = dataclasses.replace(tiny_params, mode=Mode.COMPUTATION)
+        got = t_run(p, tmp_path / "t", write_snapshots=False, pml=PMLConfig(cells=3))
+        want = j_run(p, out_dir=str(tmp_path / "j"), write_snapshots=False, pml=JPMLConfig(cells=3),
+                     backend="xla", checkpoint_every=len(time_values(p)), log=lambda m: None)
+        for c in COMPONENTS:
+            np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
+                                       rtol=1e-11, atol=1e-15, err_msg=c)
+        aux = jckpt.load_aux(jckpt.latest_checkpoint(str(tmp_path / "j")))
+        for n in PsiState.names():
+            np.testing.assert_allclose(getattr(got.psi, n).numpy(), aux[f"psi_{n}"],
+                                       rtol=1e-11, atol=1e-15, err_msg=n)
+        assert float(np.abs(aux["psi_hx_z"]).max()) > 0
+        return
     if feature in ("materials", "accumulate_power"):
         from fdtd_tpu.state import Materials as JMaterials
         from fdtd_tpu.state import water_block
