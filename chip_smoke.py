@@ -57,9 +57,23 @@ package beside it.  Phases, each printing one line or more:
    ring-down through stream and twopass (24^3, where the source clears the
    slabs), and the allocator's peak over one snapshot and one log record
    at 256^3 in forced k slabs against the model;
+6c. the Debye path (--water-block --dispersive --sar) at full size: the
+   ADE kernels of phase 3 (the two-pass ADE E pass with and without its
+   SAR work, and the ADE sweep with and without SAR at the depth each is
+   built at, ragged tiles and the 256^3 plans; fields, P and the SAR map,
+   from random P) are checked bit for bit first; then the CLI on
+   configs/heating_256.txt --water-block --dispersive --sar (auto picks
+   stream; sar.vtr written), the same scene through run_simulation with
+   twopass and with stream (1000 steps; launch counts; fields, P and SAR
+   equal bit for bit), 66 steps without SAR and 67 with it of stream,
+   twopass and torch (each with trailing two-pass steps), twopass's peak
+   device memory against its model and the verdicts at 512^3 and 1024^3,
+   and Debye x CPML on the card (torch ops: a 256^3 --pml 10 run, finite,
+   and the ring-down of tests/test_dispersive.py at 32^3, absorbing);
 7. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
-   bf16, vacuum, heating and --pml 10, and each kernel's time beside its
-   plain version's and its bound, and every vacuum stream plan's.
+   bf16, vacuum, heating, --pml 10 and dispersive, and each kernel's time
+   beside its plain version's and its bound, and every vacuum stream
+   plan's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -123,6 +137,8 @@ def main() -> None:
 
     from fdtd_tpu_torch.ops import build, cpml, curl, stream, stream_plan, yee
     from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState, init_psi, make_cpml, psi_shapes
+    from fdtd_tpu_torch.ops.dispersive import (DebyeMaterials, PolState, debye_coefs, update_e_ade,
+                                               water_debye_load, zero_polarization, zero_work)
     from fdtd_tpu_torch.params import Mode, Params, load_parameters, time_values
     from fdtd_tpu_torch.io.snapshots import aggregate_all
     from fdtd_tpu_torch.runner import initial_state, resolve_backend, run_simulation
@@ -167,8 +183,11 @@ def main() -> None:
     def record_err(name: str, d: float) -> None:
         max_err[name] = max(max_err.get(name, 0.0), d)
 
-    def maxdiff(a: FieldState, b: FieldState) -> float:
-        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a.tensors(), b.tensors()))
+    def maxdiff(a, b) -> float:
+        """Largest |a - b| over the tensors of two states (or P or psi
+        sets, or tuples of tensors)."""
+        ta, tb = (x.tensors() if hasattr(x, "tensors") else tuple(x) for x in (a, b))
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(ta, tb))
 
     def compare(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
         """The two-pass kernels against their plain versions; ``coefs``
@@ -300,6 +319,71 @@ def main() -> None:
               f"{plan.kernel} == plain_sweep, s={s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
               f"{plan.blocks} blocks, {label}: fields and psi max|diff| = {d!r} ({moved} of 12 terms advanced)")
 
+    def random_pol(p: Params, dc) -> PolState:
+        """Random P of order eps0*d_eps on the edges the Debye load relaxes
+        on (k2 > 0), zero elsewhere (as a real state)."""
+        return PolState(*(torch.where(dc.k2[c] > 0, torch.tensor(rng.uniform(-1e-9, 1e-9, p.padded_shape),
+                                                                 dtype=field_dtype(p), device=dev), 0.0)
+                          for c in "xyz"))
+
+    def compare_ade(p: Params, arrays: dict, steps: int, label: str, dm) -> None:
+        """The ADE E kernel (with and without its SAR work) against
+        update_e_ade, each step after the vacuum H kernel and its plain
+        version: fields, P and the three work arrays."""
+        dt = field_dtype(p)
+        dc, coefs = debye_coefs(p, dm, dev), update_coefs(p)
+        patch = make_source_plan(p).patch if p.mode == Mode.COMPUTATION else None
+        for sar in (False, True):
+            name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
+            k_state, p_state = state_from_numpy(arrays, dev, dt), state_from_numpy(arrays, dev, dt)
+            k_pol = random_pol(p, dc)
+            p_pol, pol0 = k_pol.clone(), k_pol.clone()
+            k_w = tuple(torch.full_like(w, float("nan")) for w in zero_work(p, dev)) if sar else None
+            p_w = zero_work(p, dev) if sar else None
+            err = 0.0
+            for _ in range(steps):
+                yee.update_h(p, k_state, coefs, patch)
+                curl.update_h(p, p_state, coefs, patch)
+                yee.update_e_ade(p, k_state, k_pol, dc, k_w)
+                update_e_ade(p, p_state, p_pol, dc, p_w)
+                torch.cuda.synchronize()
+                err = max(err, maxdiff(k_state, p_state), maxdiff(k_pol, p_pol), maxdiff(k_w, p_w) if sar else 0.0)
+            moved = sum(not torch.equal(a, b) for a, b in zip(k_pol.tensors(), pol0.tensors()))
+            w_peak = max(float(w.abs().max()) for w in p_w) if sar else 1.0
+            record_err(name, err)
+            check(err == 0.0 and moved == 3 and w_peak > 0,
+                  f"{name} == update_e_ade over {steps} steps, fields, P ({moved} of 3 moved)"
+                  f"{' and work' if sar else ''}, {label}: max|diff| = {err!r}")
+
+    def compare_sweep_ade(p: Params, arrays: dict, label: str, dm, sar: bool) -> None:
+        """One ADE sweep at the depth its variant is built at against
+        plain_sweep: fields, both P sets and the SAR map."""
+        dc, coefs = debye_coefs(p, dm, dev), update_coefs(p)
+        plan = stream_plan.pick_plan(p, sar=sar, ade=True)
+        st, drive, _ = sweep_inputs(p, arrays, plan.s)
+        pol = random_pol(p, dc)
+        acc_k = acc_p = acc0 = None
+        if sar:
+            acc0 = torch.tensor(rng.uniform(0.0, 1e-11, (p.maxk, p.maxj, p.maxi)), dtype=torch.float32, device=dev)
+            acc_k, acc_p = acc0.clone(), acc0.clone()
+        out = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+        pol_out = PolState(*(torch.full_like(t, float("nan")) for t in pol.tensors()))
+        stream.sweep(p, st, out, coefs, plan, drive, acc_k, dc=dc, pol=pol, pol_out=pol_out)
+        want_pol = PolState(*(torch.empty_like(t) for t in pol.tensors()))
+        want = stream.plain_sweep(p, st, coefs, plan.s, drive, None, acc_p, dc=dc, pol=pol, pol_out=want_pol)
+        torch.cuda.synchronize()
+        d = max(maxdiff(out, want), maxdiff(pol_out, want_pol))
+        d_acc = float((acc_k - acc_p).abs().max()) if sar else 0.0
+        moved = float((acc_p - acc0).abs().max()) if sar else 1.0
+        record_err(plan.kernel, max(d, d_acc))
+        K1, J1, I1 = p.padded_shape
+        if K1 % plan.tk or J1 % plan.tj or I1 % plan.ti:
+            ragged.add((plan.kernel, plan.s, p.padded_shape))
+        check(d == 0.0 and d_acc == 0.0 and moved > 0,
+              f"{plan.kernel} == plain_sweep, s={plan.s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
+              f"{plan.blocks} blocks, {label}: fields and P max|diff| = {d!r}"
+              f"{f', accumulator {d_acc!r} (max increment {moved!r})' if sar else ''}")
+
     rng = np.random.default_rng(1234)
     for dtype in ("float32", "bfloat16"):
         for mode in (Mode.VALIDATION, Mode.COMPUTATION):
@@ -336,6 +420,11 @@ def main() -> None:
                     for s in stream_plan.STEPS:
                         compare_sweep(p, arrays, s, f"{dtype} {scene_m} random {p.padded_shape}",
                                       coefs_m, sar)
+            # Debye: the ADE E pass and the ADE sweep (a salty load over most of the box)
+            debye_m = water_debye_load(p, lo=(0.05,) * 3, hi=(0.95,) * 3, sigma_ion25=0.5)
+            compare_ade(p, arrays, 2, f"{dtype} Debye random {p.padded_shape}", debye_m)
+            for sar in (False, True):
+                compare_sweep_ade(p, arrays, f"{dtype} Debye random {p.padded_shape}", debye_m, sar)
         # the non-integer box of tests/test_pallas.py: TE101 seed, Ey at i=maxi non-zero
         p = Params(length=0.0125, width=0.012, height=0.012, spatial_step=0.001,
                    time_step=1e-12, simulation_time=1e-11, sampling_rate=5,
@@ -369,6 +458,9 @@ def main() -> None:
             plan_m = stream_plan.pick_plan(pd, lossy=True, het=coefs_m.heterogeneous_mu, sar=True)
             compare_sweep(pd, arrays, plan_m.s, f"{dtype} {scene_m} random 256^3, its plan", coefs_m, True)
             del coefs_m
+        # the Debye plans (--water-block --dispersive, with and without --sar)
+        for sar in (False, True):
+            compare_sweep_ade(pd, arrays, f"{dtype} Debye random 256^3, its plan", water_debye_load(pd), sar)
         del arrays
 
     def counts_now() -> dict:
@@ -474,33 +566,41 @@ def main() -> None:
         """``steps`` steps of each backend from the mode's initial state
         (with materials or CPML: from random fields, so that every cell of
         the load deposits, and every psi term engages, from the first
-        step); the fields (and SAR maps, and with ``pml`` the twelve psi)
-        must be equal.  Returns each backend's launch counts."""
+        step); the fields (and SAR maps, with ``pml`` the twelve psi, in a
+        Debye medium P) must be equal.  Returns each backend's launch
+        counts."""
         ts, amps = scan_inputs(pm, time_values(pm)[:steps])
         init = None
         if mats is not None or pml is not None:
             init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
-        states, powers, counts, psis = {}, {}, {}, {}
+        debye = isinstance(mats, DebyeMaterials)
+        states, powers, counts, psis, pols = {}, {}, {}, {}, {}
         for backend in backends:
             s = initial_state(pm, dev) if init is None else state_from_numpy(init, dev, field_dtype(pm))
             powers[backend] = zero_power_acc(pm, dev) if sar else None
             psis[backend] = init_psi(pm, pml, dev) if pml is not None else None
+            pols[backend] = zero_polarization(pm, dev) if debye else None
             reset_counts()
             make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml)(
-                s, (ts, amps), powers[backend], psis[backend])
+                s, (ts, amps), powers[backend], psis[backend], pols[backend])
             torch.cuda.synchronize()
             counts[backend] = counts_now()
             states[backend] = s
         if pml is not None:
             engaged = sum(float(t.abs().max()) > 0 for t in psis[backends[0]].tensors())
             check(engaged == 12, f"{pm.maxk}^3 {label}{steps} steps: {engaged} of 12 psi terms engaged")
+        if debye:
+            moved = sum(float(t.abs().max()) > 0 for t in pols[backends[0]].tensors())
+            check(moved == 3, f"{pm.maxk}^3 {label}{steps} steps: P moved in {moved} of 3 components")
         for a, b in zip(backends, backends[1:]):
             d = maxdiff(states[a], states[b])
             if pml is not None:
                 d = max(d, maxdiff(psis[a], psis[b]))
+            if debye:
+                d = max(d, maxdiff(pols[a], pols[b]))
             d_acc = float((powers[a] - powers[b]).abs().max()) if sar else 0.0
-            sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].max())!r})" if sar else ""
-            check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].max()) > 0),
+            sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].abs().max())!r})" if sar else ""
+            check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].abs().max()) > 0),
                   f"{pm.maxk}^3 {pm.mode.name} {label}{steps} steps: {a} == {b}, "
                   f"max|diff| = {d!r}{sar_txt}")
         return counts
@@ -749,6 +849,146 @@ def main() -> None:
               f"gaussian ring-down 24^3 x {PML_STEPS_RINGDOWN} steps through {backend} (4-cell CPML): "
               f"E_end/E_mid = {e_end / e_mid!r} < 2e-2; launches {used}")
 
+    # -- 6c. the Debye path at 256^3 (--water-block --dispersive --sar) -----
+    debye = water_debye_load(ph)
+    ade_plan = stream_plan.pick_plan(ph, sar=True, ade=True)
+    s_ade = ade_plan.s
+    print(f"Debye + SAR plan at 256^3: {ade_plan} ({ade_plan.blocks} blocks of {ade_plan.threads} threads, "
+          f"{ade_plan.smem_bytes} B shared memory); without SAR: {stream_plan.pick_plan(ph, ade=True)}", flush=True)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--dispersive",
+             "--sar", "--out", out],
+            capture_output=True, text=True, timeout=900,
+        )
+        cli_s = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        for line in lines[-3:]:
+            print(line)
+        sar_path = os.path.join(out, "sar.vtr")
+        peak_line = [line for line in lines if line.startswith("SAR map written to")]
+        peak = float(peak_line[0].split("(peak ")[1].split()[0]) if peak_line else float("nan")
+        n_vtr = len(glob.glob(os.path.join(out, "result*.vtr")))
+        check(r.returncode == 0 and "Simulation complete!" in r.stdout and os.path.exists(sar_path)
+              and math.isfinite(peak) and peak > 0,
+              f"CLI heating_256 --water-block --dispersive --sar exit {r.returncode} in {cli_s:.1f} s: sar.vtr "
+              f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B, peak {peak!r} J/m^3, "
+              f"{n_vtr} snapshots {r.stderr.strip()[-300:]}")
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(ph, dtype=dtype)
+        notices: list[str] = []
+        routed = (resolve_backend(pd, "auto", dev, debye, True), resolve_backend(pd, "auto", dev, debye, True, PML10,
+                                                                                  notices.append))
+        try:
+            resolve_backend(pd, "twopass", dev, debye, True, PML10)
+            refused = False
+        except ValueError as e:
+            refused = "--backend torch" in str(e)
+        check(routed == ("stream", "torch") and len(notices) == 1 and refused,
+              f"Debye at 256^3 {dtype}: auto resolves to {routed[0]}, with --pml 10 to {routed[1]} "
+              f"({notices[0] if notices else 'no notice'}); twopass with --pml refused: {refused}")
+    finals, powers, pols = {}, {}, {}
+    for backend in ("twopass", "stream"):
+        reset_counts()
+        res = run_simulation(ph, dev, materials=debye, accumulate_power=True, write_snapshots=False,
+                             backend=backend, log=lambda m: None)
+        counts = counts_now()
+        want = (expect(yee_update_h=nh, yee_update_e_ade_sar=nh) if backend == "twopass" else
+                expect(yee_update_h=nh % s_ade, yee_update_e_ade_sar=nh % s_ade, yee_stream_ade_sar=nh // s_ade))
+        check(counts == want and nh == 1000, f"Debye path {backend} launch counts {counts} == {want}")
+        name = "yee_update_e_ade_sar" if backend == "twopass" else "yee_stream_ade_sar"
+        main_counts[name] = counts[name]
+        paths[name] = f"heating_256 --water-block --dispersive --sar {backend}"
+        pw = res.power_j
+        check(pw is not None and bool(torch.isfinite(pw).all()) and float(pw.max()) > 0
+              and all(bool(torch.isfinite(t).all()) for t in res.state.tensors() + res.pol.tensors())
+              and float(res.pol.pz.abs().max()) > 0,
+              f"Debye 256^3 {backend}: fields, P and SAR finite, SAR peak {float(pw.max())!r} J/m^3, "
+              f"|Pz| max {float(res.pol.pz.abs().max())!r} ({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
+        finals[backend], powers[backend], pols[backend] = res.state, pw, res.pol
+        del res
+    d = max(maxdiff(finals["stream"], finals["twopass"]), maxdiff(pols["stream"], pols["twopass"]))
+    d_acc = float((powers["stream"] - powers["twopass"]).abs().max())
+    check(d == 0.0 and d_acc == 0.0,
+          f"Debye 256^3 1000 steps: stream == twopass, fields and P max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
+    del finals, powers, pols
+    # without SAR (s = 4: 16 sweeps + 2 trailing steps) and with it (s = 2:
+    # 33 sweeps + 1), from random fields: stream == twopass == torch
+    s_nosar = stream_plan.pick_plan(ph, ade=True).s
+    for steps_d, sar, name in ((N_LOADS, False, "yee_stream_ade"), (N_LOADS + 1, True, "yee_stream_ade_sar")):
+        s_d = s_ade if sar else s_nosar
+        e_name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
+        check(steps_d % s_d != 0, f"{steps_d} steps leave {steps_d % s_d} trailing two-pass steps at s={s_d}")
+        counts = equal_runs(ph, steps_d, ("stream", "twopass", "torch"), debye, sar,
+                            f"--dispersive{' --sar' if sar else ''} ")
+        check(counts["stream"] == expect(**{name: steps_d // s_d, "yee_update_h": steps_d % s_d,
+                                            e_name: steps_d % s_d})
+              and counts["twopass"] == expect(yee_update_h=steps_d, **{e_name: steps_d})
+              and counts["torch"] == expect(),
+              f"--dispersive{' --sar' if sar else ''} launch counts {counts['stream']} / {counts['twopass']}")
+        if not sar:
+            main_counts[name], main_counts[e_name] = counts["stream"][name], counts["twopass"][e_name]
+            paths[name] = f"heating_256 --water-block --dispersive stream ({steps_d} steps)"
+            paths[e_name] = f"heating_256 --water-block --dispersive twopass ({steps_d} steps)"
+    torch.cuda.empty_cache()
+    # twopass's device memory with Debye + SAR against its model; the verdicts at 512^3 and 1024^3
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    s_m, pw_m, pol_m = initial_state(ph, dev), zero_power_acc(ph, dev), zero_polarization(ph, dev)
+    make_chunk_runner(ph, dev, debye, "twopass", accumulate_power=True)(
+        s_m, scan_inputs(ph, time_values(ph)[:4]), pw_m, None, pol_m)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    model = stream_plan.twopass_bytes(ph, sar=True, ade=True)
+    check(0 < peak <= model, f"twopass 256^3 Debye + SAR peak device memory {peak} B <= model {model} B "
+                             f"({peak / model!r} of it)")
+    del s_m, pw_m, pol_m
+    torch.cuda.empty_cache()
+    verdicts = {}
+    for n_side in (512, 1024):
+        pn = dataclasses.replace(ph, length=n_side * 1e-3, width=n_side * 1e-3, height=n_side * 1e-3)
+        verdicts[n_side] = (stream_plan.stream_bytes(pn, sar=True, ade=True),
+                            stream_plan.twopass_bytes(pn, sar=True, ade=True),
+                            stream_plan.supported(pn, free0, sar=True, ade=True),
+                            stream_plan.twopass_fits(pn, free0, sar=True, ade=True))
+    check(verdicts[512][2] and verdicts[512][3] and not verdicts[1024][2] and not verdicts[1024][3],
+          f"Debye + SAR fp32 (stream B, twopass B, stream fits, twopass fits) with {free0} B free: "
+          f"512^3 {verdicts[512]}, 1024^3 {verdicts[1024]}")
+
+    # Debye x CPML on the card: torch ops (no kernel composes them), a
+    # --pml 10 run at 256^3 and the ring-down of tests/test_dispersive.py
+    p40 = dataclasses.replace(p, simulation_time=40 * p.time_step)
+    notices = []
+    reset_counts()
+    res = run_simulation(p40, dev, materials=water_debye_load(p40), pml=PML10, accumulate_power=True,
+                         write_snapshots=False, log=notices.append)
+    check(res.iterations == 40 and counts_now() == expect() and any("torch ADE+CPML" in m for m in notices)
+          and all(bool(torch.isfinite(t).all()) for t in res.state.tensors() + res.pol.tensors() + res.psi.tensors())
+          and float(res.power_j.max()) >= 0 and float(diagnostics.total_energy(p40, res.state)) > 0,
+          f"--water-block --dispersive --sar --pml 10 256^3 x 40 steps on torch ops: finite, no kernel launched, "
+          f"{res.mcells_per_s:.1f} Mcells/s; {notices[0] if notices else 'no notice'}")
+    del res
+    K, J, I = pa.maxk, pa.maxj, pa.maxi
+    d_eps = np.zeros((K, J, I))
+    d_eps[12:20, 12:20, 12:20] = 6.0
+    cube = DebyeMaterials(base=dataclasses.replace(water_block(pa), eps_r=np.ones((K, J, I)), sigma=None),
+                          d_eps=d_eps, tau=np.full((K, J, I), 2e-12))
+    energies = {}
+    for key, mats_r, pml_r in (("dielectric", cube, None), ("radiation", None, PMLConfig(cells=8)),
+                               ("both", cube, PMLConfig(cells=8))):
+        st_r = state_from_numpy(pulse, dev, torch.float32)
+        pol_r = zero_polarization(pa, dev) if mats_r is not None else None
+        psi_r = init_psi(pa, pml_r, dev) if pml_r is not None else None
+        make_chunk_runner(pa, dev, mats_r, "torch" if mats_r is not None else "twopass", pml=pml_r)(
+            st_r, xs_a, None, psi_r, pol_r)
+        torch.cuda.synchronize()
+        energies[key] = float(diagnostics.total_energy(pa, st_r))
+    e_d, e_r, e_b = energies["dielectric"], energies["radiation"], energies["both"]
+    check(e_d < 0.9 * e0 and e_r < 1e-3 * e0 and e_b < 0.05 * e_d and e_b < 1e-3 * e0 and e_b < 5 * e_r and e_b > 0,
+          f"Debye cube ring-down 32^3 x 400 steps (torch, 8-cell CPML): E/E_0 dielectric {e_d / e0!r}, "
+          f"radiation {e_r / e0!r}, both {e_b / e0!r}")
+
     # the output reductions in k slabs: the allocator's peak over one
     # snapshot (aggregation) plus one log record (energies and radiated
     # power) at 256^3 with slabs forced to 64 planes, against the model
@@ -776,24 +1016,30 @@ def main() -> None:
 
     # -- 7. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
-    for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10)):
+    for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10),
+                                   ("dispersive", debye, None)):
         for dtype in ("float32", "bfloat16"):
             pd = dataclasses.replace(p, dtype=dtype)
             ts, amps = scan_inputs(pd, time_values(pd)[: N_WARM + N_TIMED])
             sar = mats_t is not None
+            runners = {}  # one runner a backend: its coefficients are built once
             for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
                 s = initial_state(pd, dev)
                 power = zero_power_acc(pd, dev) if sar else None
                 psi_t = init_psi(pd, pml_t, dev) if pml_t is not None else None
-                run = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar, pml=pml_t)
-                run(s, (ts[:N_WARM], amps[:N_WARM]), power, psi_t)
+                pol_t = zero_polarization(pd, dev) if isinstance(mats_t, DebyeMaterials) else None
+                if backend not in runners:
+                    runners[backend] = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar, pml=pml_t)
+                run = runners[backend]
+                run(s, (ts[:N_WARM], amps[:N_WARM]), power, psi_t, pol_t)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                run(s, (ts[N_WARM:], amps[N_WARM:]), power, psi_t)
+                run(s, (ts[N_WARM:], amps[N_WARM:]), power, psi_t, pol_t)
                 torch.cuda.synchronize()
                 dt_s = time.perf_counter() - t0
                 rates.setdefault(f"{scene_t} {backend} {dtype}", []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
-                del s, power, run, psi_t
+                del s, power, run, psi_t, pol_t
+            del runners
     for key, vals in rates.items():
         print(f"timing 256^3 {key}: Mcells/s {vals} (2 runs of {N_TIMED} steps, {smi})")
 
@@ -812,6 +1058,7 @@ def main() -> None:
     arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}
     ms: dict[str, tuple[float, float]] = {}  # fp32 kernel ms, plain ms
     ms_bf16: dict[str, float] = {}
+    ade_extra: dict[str, float] = {}
     plans: dict[str, stream_plan.StreamPlan] = {}
     variants = (("", None, False), ("_lossy", water, False), ("_lossy_sar", water, True),
                 ("_lossy_het", ferrite, False), ("_lossy_het_sar", ferrite, True))
@@ -879,7 +1126,44 @@ def main() -> None:
                 ms_bf16[name] = k_ms
             del coefs_t, cp_t, st, out, psi_o
         del psi_d
+        # Debye: the ADE E pass (with and without the SAR work) and the ADE
+        # sweeps at the dispersive path's shapes
+        t0 = time.perf_counter()
+        dc_t, vac = debye_coefs(pd, debye, dev), update_coefs(pd)
+        torch.cuda.synchronize()
+        if fp32:
+            ade_extra["debye_coefs_s"] = time.perf_counter() - t0
+        s_d = state_from_numpy(arrays, dev, field_dtype(pd))
+        pol_d, w_d = zero_polarization(pd, dev), zero_work(pd, dev)
+        for name, w_t in (("yee_update_e_ade", None), ("yee_update_e_ade_sar", w_d)):
+            k_ms = event_ms(lambda: yee.update_e_ade(pd, s_d, pol_d, dc_t, w_t))
+            if fp32:
+                ms[name] = (k_ms, event_ms(lambda: update_e_ade(pd, s_d, pol_d, dc_t, w_t)))
+            else:
+                ms_bf16[name] = k_ms
+        if fp32:
+            ade_extra["sar_increment"] = event_ms(lambda: diagnostics.accumulate_work(pd, w_d, zero_power_acc(pd, dev)))
+        del s_d, w_d
+        for name, sar in (("yee_stream_ade", False), ("yee_stream_ade_sar", True)):
+            plan_t = stream_plan.pick_plan(pd, sar=sar, ade=True)
+            st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
+            out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            pol_o = PolState(*(torch.empty_like(t) for t in pol_d.tensors()))
+            acc = zero_power_acc(pd, dev) if sar else None
+            k_ms = event_ms(lambda: stream.sweep(pd, st, out, vac, plan_t, drive, acc, dc=dc_t, pol=pol_d,
+                                                 pol_out=pol_o))
+            if fp32:
+                plans[name] = plan_t
+                ms[name] = (k_ms, event_ms(lambda: stream.plain_sweep(pd, st, vac, plan_t.s, drive, out, acc, dc=dc_t,
+                                                                      pol=pol_d, pol_out=pol_o), reps=5))
+            else:
+                ms_bf16[name] = k_ms
+            del st, out, pol_o, acc
+        del dc_t, pol_d
     del arrays
+    print(f"timing 256^3 the Debye SAR increment (torch ops after each twopass step): "
+          f"{ade_extra['sar_increment']!r} ms fp32; the Debye maps' set-up (debye_coefs, host fp64): "
+          f"{ade_extra['debye_coefs_s']!r} s ({smi})")
     for name, (k_ms, p_ms) in ms.items():
         per = f" per sweep of {plans[name].s} steps" if name in plans else " per pass"
         print(f"timing 256^3 {name}: kernel fp32 {k_ms!r} ms, bf16 {ms_bf16[name]!r} ms, "
@@ -916,6 +1200,13 @@ def main() -> None:
         ``item``-byte fields and coefficients (the SAR map is fp32), with
         CPML the psi of its terms read and written once."""
         lossy, het, sar, pml = "lossy" in name, "het" in name, name.endswith("sar"), name.endswith("pml")
+        if name.startswith("yee_update_e_ade"):  # H, E, P and 15 maps in, E and P out; SAR: 3 sigma in, 3 fp32 w out
+            return ((30 + (3 if sar else 0)) * item * cells + (12 * cells if sar else 0),
+                    (36 + (21 if sar else 0)) * cells)
+        if name.startswith("yee_stream_ade"):  # fields and P in and out, 15 maps; SAR: 3 sigma, the map in and out
+            s_n = plans[name].s
+            return ((33 + (3 if sar else 0)) * item * cells + (8 * cells_k if sar else 0),
+                    s_n * (51 * cells + (21 * cells + 19 * cells_k if sar else 0)))
         if name.startswith("yee_update_h"):  # six fields and hf in, three H out
             return ((9 + (3 if het else 0)) * item * cells + (2 * item * psi_h if pml else 0),
                     15 * cells + (5 * psi_h if pml else 0))
@@ -932,7 +1223,8 @@ def main() -> None:
     for name in ("yee_update_h", "yee_update_e", "yee_stream", "yee_update_h_het", "yee_update_e_lossy",
                  "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar",
                  "yee_update_h_pml", "yee_update_e_pml", "yee_update_h_het_pml", "yee_update_e_lossy_pml",
-                 "yee_stream_pml", "yee_stream_lossy_pml"):
+                 "yee_stream_pml", "yee_stream_lossy_pml", "yee_update_e_ade", "yee_update_e_ade_sar",
+                 "yee_stream_ade", "yee_stream_ade_sar"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)
@@ -944,7 +1236,9 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fdtd_tpu_torch/csrc/" + ("yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
-            "replaces": ("fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and
+            "replaces": ("fdtd_tpu/ops/pallas_dispersive.py:182" if name.startswith("yee_update_e_ade") else
+                         "fdtd_tpu/ops/pallas_dispersive.py:464" if name.startswith("yee_stream_ade") else
+                         "fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and
                          name.endswith("pml") else
                          "fdtd_tpu/ops/cpml_kernel.py:229" if name.startswith("yee_update_h") and
                          name.endswith("pml") else

@@ -5,7 +5,9 @@ Mirrors ``python -m fdtd_tpu params.txt`` (and the reference's
 single positional argument, the same exit codes on a missing or bad
 parameters file, and the JAX CLI's load flags (``--water-block``,
 ``--ferrite-slab``, ``--load-shape``, ``--load-center``), ``--sar``,
-which writes ``sar.vtr``, and ``--pml N``, the CPML open boundary.  ``--device`` chooses where the fields live
+which writes ``sar.vtr``, ``--pml N``, the CPML open boundary, and
+``--dispersive`` (with ``--salt-sigma`` and ``--thermal-ambient``), which
+makes the water load a Debye medium.  ``--device`` chooses where the fields live
 (default ``cuda``); without CUDA the run stops with a message that names
 ``--device cpu``.
 """
@@ -22,6 +24,7 @@ import torch
 from . import grid
 from .io.vtr import write_vtr
 from .ops.cpml import PMLConfig
+from .ops.dispersive import water_debye_load
 from .params import Mode, load_parameters
 from .runner import BACKEND_CHOICES, run_simulation
 from .state import block_mask, cylinder_mask, ferrite_slab, sphere_mask, water_from_mask
@@ -39,7 +42,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="update path: stream (Hopper streaming kernel, s steps a launch), "
                          "twopass (Hopper two-pass kernels), torch (plain ops), or auto "
                          "(stream on CUDA in float32/bfloat16 when a sweep plan fits and "
-                         "there is no --pml, else twopass; torch on the CPU or in float64)")
+                         "there is no --pml, else twopass; torch on the CPU, in float64, and for "
+                         "--dispersive with --pml or in validation mode)")
     ap.add_argument("--device", default="cuda", help="torch device of the fields (default: cuda)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
     ap.add_argument("--water-block", action="store_true", help="place a water load in the cavity")
@@ -52,6 +56,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "centered sphere, or a z-axis cylinder (the mug)")
     ap.add_argument("--load-center", default=None, metavar="X,Y",
                     help="(x, y) center of the load as box fractions (default 0.5,0.5)")
+    ap.add_argument("--dispersive", action="store_true",
+                    help="make the --water-block load a true single-pole Debye medium solved by the ADE "
+                         "method (frequency-dependent eps(w) in the time domain); --sar then maps its "
+                         "dielectric and ionic work")
+    ap.add_argument("--salt-sigma", type=float, default=0.0, metavar="S_M",
+                    help="ionic conductivity of the --dispersive load at 25 C in S/m (default 0 = pure water)")
+    ap.add_argument("--thermal-ambient", type=float, default=20.0, metavar="C",
+                    help="temperature of the --dispersive load (default 20 C); the thermal solve that "
+                         "also reads it is not ported")
     ap.add_argument("--pml", type=int, default=0, metavar="N",
                     help="CPML absorbing boundaries, N cells per face (0 = closed PEC cavity "
                          "like the reference); the energy log adds radiated_W")
@@ -90,9 +103,13 @@ def _parse_load_center(spec: str | None) -> tuple[float, float]:
 
 
 def _materials(args, p):
-    """The scene's materials from the load flags (None for vacuum); raises
-    ValueError on flags that do not compose."""
-    materials = None
+    """The scene's materials from the load flags (None for vacuum; a Debye
+    medium with ``--dispersive``); raises ValueError on flags that do not
+    compose."""
+    materials = mask = None
+    if args.dispersive and (not args.water_block or args.ferrite_slab):
+        raise ValueError("--dispersive needs --water-block (and no --ferrite-slab): it is the Debye "
+                         "description of the water load")
     if args.water_block:
         cx, cy = _parse_load_center(args.load_center)
         ox, oy = cx - 0.5, cy - 0.5  # offset from the centered defaults
@@ -105,6 +122,8 @@ def _materials(args, p):
         materials = water_from_mask(p, mask)
     elif args.load_shape != "box" or args.load_center:
         raise ValueError("--load-shape/--load-center need --water-block (they place the water load)")
+    if args.dispersive:
+        return water_debye_load(p, temperature=args.thermal_ambient, sigma_ion25=args.salt_sigma, mask=mask)
     if args.ferrite_slab:
         materials = ferrite_slab(p, base=materials)
     return materials

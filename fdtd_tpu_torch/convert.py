@@ -11,7 +11,12 @@ packages build their coefficients from them) are read from any object with
 CPML memory state crosses as a dict of twelve numpy arrays keyed by term
 name in the slab-restricted layout both packages keep (what
 ``{n: np.asarray(getattr(psi, n)) for n in names}`` gives for a JAX
-``PsiState``).  The tests use this to feed both packages the same inputs.
+``PsiState``).  A Debye medium is read from any object with ``base`` (the
+material maps), ``d_eps`` and ``tau``, such as a JAX ``DebyeMaterials``,
+and its polarization crosses as the three arrays (px, py, pz) of the
+padded E grids (the JAX package's tuple, and its checkpoints'
+``aux_pol_x/y/z``).  The tests use this to feed both packages the same
+inputs.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from .grid import COMPONENTS
 from .io.checkpoint import from_host, to_host
 from .ops.cpml import PsiState
+from .ops.dispersive import DebyeMaterials, PolState
 from .params import Mode, Params, SourceConfig
 from .state import FieldState, Materials
 
@@ -81,3 +87,21 @@ def psi_to_numpy(psi: PsiState) -> dict[str, np.ndarray]:
     """The twelve psi tensors as host numpy arrays keyed by term name
     (bfloat16 widened to float32)."""
     return {n: to_host(getattr(psi, n)) for n in PsiState.names()}
+
+
+def debye_from(other) -> DebyeMaterials:
+    """The port's ``DebyeMaterials`` with copies of the maps of ``other``
+    (a JAX ``DebyeMaterials``: ``base``, ``d_eps``, ``tau``)."""
+    return DebyeMaterials(base=materials_from(other.base), d_eps=np.array(other.d_eps, dtype=np.float64),
+                          tau=np.array(other.tau, dtype=np.float64))
+
+
+def pol_from_numpy(arrays, device, dtype: torch.dtype) -> PolState:
+    """A :class:`PolState` on ``device`` in ``dtype`` (copies) from the
+    three arrays (px, py, pz) of a JAX polarization tuple."""
+    return PolState(*(from_host(a, dtype, device) for a in arrays))
+
+
+def pol_to_numpy(pol: PolState) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(px, py, pz) as host numpy arrays (bfloat16 widened to float32)."""
+    return tuple(to_host(t) for t in pol.tensors())

@@ -8,7 +8,9 @@
 // accumulator (sigma*|E_cell|^2*dt of every step added to an fp32 map).
 // With PML it replaces fdtd_tpu/ops/pallas_stream_pml.py::_kernel_pml
 // (vacuum and lossy): the twelve CPML memory variables ride the pipeline
-// (see "CPML" below).  The plain version is
+// (see "CPML" below).  With ADE it replaces
+// fdtd_tpu/ops/pallas_dispersive.py::_kernel_ade_stream (Debye media,
+// vacuum H; see "ADE" below).  The plain version is
 // fdtd_tpu_torch/ops/stream.py::plain_sweep; the plan (tile and block
 // counts) is fdtd_tpu_torch/ops/stream_plan.py.
 //
@@ -79,6 +81,25 @@
 // it is built at s = 2 alone, whose 768-thread block fits 80 registers
 // without spills (deeper sweeps spilled and ran slower:
 // ops/stream_plan.py::BLOCK_J_PML).
+//
+// ADE (Debye media).  The E update of level m on plane k is the ADE update
+// of yee_twopass.cu::ade_e_kernel: E' = ((ca*E + cb*curl) + cp*P) and
+// P' = k1*P + k2*(E' + E) from the 15 per-edge maps (read per level and
+// plane like the lossy ca/cb); H is the vacuum update.  P is pointwise, so
+// it needs no shared exchange: the three P of a column ride a register
+// chain like eo/ho (pl[m]: level m's newest plane; level 1 reads level 0's
+// from the input, level S stores the emitted cells'), and a sweep reads one
+// P set and writes a second (a neighbour's halo reads level-0 P of cells
+// this block writes).  SAR: each level's edge work w = E_mid*((P' - P)/dt +
+// sig*E_mid) of its plane (0 off the update bounds) is kept for one more
+// pipeline step (wl[m]), and the cell mean of cell k-1 takes level m's w on
+// planes k-1 and k with their j+1 / i+1 neighbours through the third shared
+// exchange, in the association of ops/dispersive.py::work_cell_means
+// (per component 0.25*(((a+b)+c)+d), then (mx+my)+mz, then acc + inc*dt).
+// The accumulator is owned and updated as in the lossy SAR variant, so fp32
+// gives the two-pass path's bits, SAR map included.  The TPU's j-tiled
+// in-place variant (_build_ade_stream_call_jt) has no counterpart: this
+// kernel always tiles j and i with a recompute halo.
 //
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
@@ -221,6 +242,37 @@ struct Material {
     float dt;           // SAR: the step, rounded to fp32
 };
 
+// the ADE variants' arrays: the 15 maps (ca, cb, cp, k1, k2, each x, y, z;
+// the fields' shape and dtype) and with SAR the three edge sigma maps (c[15..17]);
+// the input and output polarization sets
+template <typename T>
+struct AdeSweep {
+    const T* c[18];
+    const T* pin[3];
+    T* pout[3];
+};
+
+// d / dt, correctly rounded: an IEEE division, except that a zero d (every
+// edge where P does not change, most of a scene) returns itself, which is
+// what the division gives for a positive dt, without the division's slow
+// special-case path
+__device__ __forceinline__ float div_dt(float d, float dt) { return d == 0.f ? d : __fdiv_rn(d, dt); }
+
+// one edge's ADE update (component q at o) from its inputs eo, po and the
+// curl cv: returns E', sets pn and, with W, the edge work w
+template <typename T, bool W>
+__device__ __forceinline__ float ade_edge(const AdeSweep<T>& a, int q, int64_t o, float eo, float po, float cv,
+                                          float dt, float& pn, float& w) {
+    const float en = __fadd_rn(__fadd_rn(__fmul_rn(ld(a.c[q], o), eo), __fmul_rn(ld(a.c[3 + q], o), cv)),
+                               __fmul_rn(ld(a.c[6 + q], o), po));
+    pn = __fadd_rn(__fmul_rn(ld(a.c[9 + q], o), po), __fmul_rn(ld(a.c[12 + q], o), __fadd_rn(en, eo)));
+    if (W) {
+        const float em = __fmul_rn(0.5f, __fadd_rn(en, eo));
+        w = __fmul_rn(em, __fadd_rn(div_dt(__fsub_rn(pn, po), dt), __fmul_rn(ld(a.c[15 + q], o), em)));
+    }
+    return en;
+}
+
 // the CPML variants' psi: the input and output sets, twelve arrays each in
 // _TERMS order, and the (b, c) tables of the H and E terms, (6, 2, 2n) each
 template <typename T>
@@ -254,19 +306,20 @@ __device__ __forceinline__ float psi_term(const PsiSweep<T>& psw, int t, int k, 
     return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML>
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
               const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
-              PsiSweep<T> psw) {
+              PsiSweep<T> psw, AdeSweep<T> ade) {
     constexpr int SH = SAR ? 1 : 0;  // SAR reads E one column past: one column fewer emitted
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
     static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
     __shared__ float sE[3][BJ][BI];
     __shared__ float sH[3][BJ][BI];
-    // SAR: level m's E on planes k-1 (L) and k (U): exL, exU, eyL, eyU, ezL
+    // SAR: level m's E (ADE: edge work) on planes k-1 (L) and k (U): exL,
+    // exU, eyL, eyU, ezL
     __shared__ float sS[SAR ? 5 : 1][SAR ? BJ : 1][BI];
 
     const int tx = threadIdx.x, ty = threadIdx.y;
@@ -297,20 +350,31 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const int64_t cell_sk = (int64_t)J * I;
 
     // e[m], h[m]: level m's newest plane of this column (level S: H only,
-    // and with SAR its E too); acc[m-1]: the accumulator of the cell that
-    // level m adds to at this pipeline step
-    float e[SAR ? S + 1 : S][3], h[S + 1][3];
+    // and with the E-mean SAR its E too); acc[m-1]: the accumulator of the
+    // cell that level m adds to at this pipeline step
+    constexpr int NE = (SAR && !ADE) ? S + 1 : S;
+    float e[NE][3], h[S + 1][3];
     float acc[SAR ? S : 1];
 #pragma unroll
     for (int m = 0; m <= S; ++m) {
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-            if (m < (SAR ? S + 1 : S)) e[m][c] = 0.f;
+            if (m < NE) e[m][c] = 0.f;
             h[m][c] = 0.f;
         }
     }
 #pragma unroll
     for (int m = 0; m < (SAR ? S : 1); ++m) acc[m] = 0.f;
+    // ADE: pl[m], level m's P of its newest plane (m < S); with SAR wl[m-1],
+    // level m's edge work of its plane before this step's
+    float pl[ADE ? S : 1][3], wl[(ADE && SAR) ? S : 1][3];
+#pragma unroll
+    for (int m = 0; m < (ADE ? S : 1); ++m)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            pl[m][c] = 0.f;
+            wl[(ADE && SAR) ? m : 0][c] = 0.f;
+        }
     // ps[m-1]: the twelve psi of level m's newest plane of this column
     // (1 <= m < S; level 0's psi is read from psi.in when level 1 needs
     // it); cols: the terms this column can hold (bit t)
@@ -333,6 +397,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
         // plane before this pipeline step replaced it (pso: its psi)
         float eo[3] = {e[0][0], e[0][1], e[0][2]};
         float ho[3] = {h[0][0], h[0][1], h[0][2]};
+        float po[3] = {pl[0][0], pl[0][1], pl[0][2]};  // ADE: P of eo's plane
         float pso[NP];
         if constexpr (PML) {
             // level 0's psi of plane r - 1, the input of level 1
@@ -350,9 +415,12 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const int64_t o = (int64_t)r * sk + col;
             e[0][0] = ld(in.ex, o); e[0][1] = ld(in.ey, o); e[0][2] = ld(in.ez, o);
             h[0][0] = ld(in.hx, o); h[0][1] = ld(in.hy, o); h[0][2] = ld(in.hz, o);
+            if constexpr (ADE) {
+                pl[0][0] = ld(ade.pin[0], o); pl[0][1] = ld(ade.pin[1], o); pl[0][2] = ld(ade.pin[2], o);
+            }
         } else {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; }
+            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; pl[0][c] = 0.f; }
         }
 #pragma unroll
         for (int m = 1; m <= S; ++m) {
@@ -431,7 +499,19 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const bool ke = k >= 1 && k < K;
             const bool kez = k >= 0 && k < K;
             float en[3] = {eo[0], eo[1], eo[2]};
-            if (LOSSY) {
+            float pn[3] = {po[0], po[1], po[2]};  // ADE: P of level m on plane k
+            float wn[3] = {0.f, 0.f, 0.f};        // ADE + SAR: its edge work
+            if constexpr (ADE) {
+                if (ke && c_ex)
+                    en[0] = ade_edge<T, SAR>(ade, 0, o, eo[0], po[0], curl(hn[2], hz_mj, hn[1], h[m][1]), mat.dt,
+                                             pn[0], wn[0]);
+                if (ke && c_ey)
+                    en[1] = ade_edge<T, SAR>(ade, 1, o, eo[1], po[1], curl(hn[0], h[m][0], hn[2], hz_mi), mat.dt,
+                                             pn[1], wn[1]);
+                if (kez && c_ez)
+                    en[2] = ade_edge<T, SAR>(ade, 2, o, eo[2], po[2], curl(hn[1], hy_mi, hn[0], hx_mj), mat.dt,
+                                             pn[2], wn[2]);
+            } else if (LOSSY) {
                 if (ke && c_ex)
                     en[0] = lossy(eo[0], ld(mat.ca[0], o), ld(mat.cb[0], o), hn[2], hz_mj, hn[1], h[m][1]);
                 if (ke && c_ey)
@@ -469,27 +549,47 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             }
 
             if constexpr (SAR) {
-                // cell k-1 at level m: E^m on planes k-1 (e[m], not yet
-                // replaced) and k (en), and their j+1 / i+1 neighbours
-                sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
-                sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
-                sS[4][ty][tx] = e[m][2];
+                // cell k-1 at level m: E^m (ADE: its edge work) on planes
+                // k-1 (e[m] / wl, not yet replaced) and k (en / wn), and
+                // their j+1 / i+1 neighbours
+                float lo[3], up[3];
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    if constexpr (ADE) {
+                        lo[c] = wl[m - 1][c];
+                        up[c] = wn[c];
+                    } else {
+                        lo[c] = e[m][c];
+                        up[c] = en[c];
+                    }
+                }
+                sS[0][ty][tx] = lo[0]; sS[1][ty][tx] = up[0];
+                sS[2][ty][tx] = lo[1]; sS[3][ty][tx] = up[1];
+                sS[4][ty][tx] = lo[2];
                 __syncthreads();
                 const int cell = k - 1;
                 if (c_sar && cell >= k0 && cell < k1 && cell < K) {
                     // emitted columns stop S+1 short of the block's edge, so
                     // ty+1 and tx+1 lie inside it
-                    const float mex = mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]);
-                    const float mey = mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]);
-                    const float mez = mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1],
-                                            sS[4][ty + 1][tx + 1]);
-                    const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
-                                               __fmul_rn(mez, mez));
+                    const float mex = mean4(lo[0], up[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]);
+                    const float mey = mean4(lo[1], sS[2][ty][tx + 1], up[1], sS[3][ty][tx + 1]);
+                    const float mez = mean4(lo[2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1]);
                     const int64_t oc = (int64_t)cell * cell_sk + cell_col;
-                    const float inc = __fmul_rn(__fmul_rn(ld(mat.sigma, oc), sq), mat.dt);
+                    float inc;
+                    if constexpr (ADE) {
+                        inc = __fmul_rn(__fadd_rn(__fadd_rn(mex, mey), mez), mat.dt);
+                    } else {
+                        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
+                                                   __fmul_rn(mez, mez));
+                        inc = __fmul_rn(__fmul_rn(ld(mat.sigma, oc), sq), mat.dt);
+                    }
                     if (m == 1) acc[0] = mat.acc[oc];
                     acc[m - 1] = __fadd_rn(acc[m - 1], inc);
                     if (m == S) mat.acc[oc] = acc[S - 1];
+                }
+                if constexpr (ADE) {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) wl[m - 1][c] = wn[c];
                 }
             }
 
@@ -500,6 +600,10 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                     ho[c] = h[m][c];
                     e[m][c] = en[c];
                     h[m][c] = hn[c];
+                    if constexpr (ADE) {
+                        po[c] = pl[m][c];
+                        pl[m][c] = pn[c];
+                    }
                 }
                 if constexpr (PML) {
 #pragma unroll
@@ -512,11 +616,14 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
                     h[m][c] = hn[c];
-                    if constexpr (SAR) e[m][c] = en[c];
+                    if constexpr (SAR && !ADE) e[m][c] = en[c];
                 }
                 if (emit && k >= k0 && k < k1) {
                     st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
                     st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
+                    if constexpr (ADE) {
+                        st(ade.pout[0], o, pn[0]); st(ade.pout[1], o, pn[1]); st(ade.pout[2], o, pn[2]);
+                    }
                     if constexpr (PML) {
 #pragma unroll
                         for (int t = 0; t < 12; ++t) {
@@ -536,11 +643,11 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     }
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML>
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE>
 int launch(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
            int tk, int has_patch, int j0, int j1, int i0, int i1,
            const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
-           cudaStream_t stream) {
+           const AdeSweep<T>& ade, cudaStream_t stream) {
     constexpr int SH = SAR ? 1 : 0;
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
@@ -550,24 +657,42 @@ int launch(void* const* in, void* const* out, int K, int J, int I, float fh, flo
     const dim3 block(BI, BJ);
     const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
                     (unsigned)((K + 1 + tk - 1) / tk));
-    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML><<<grid, block, 0, stream>>>(
+    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE><<<grid, block, 0, stream>>>(
         f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat, psw);
+        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade);
     return (int)cudaGetLastError();
 }
 
 // The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum),
-// ::BLOCK_J_MATERIAL (the material variants) and ::BLOCK_J_PML (CPML).
-template <typename T, bool LOSSY, bool HET, bool SAR, bool PML = false>
+// ::BLOCK_J_MATERIAL (the material variants), ::BLOCK_J_PML (CPML) and
+// ::BLOCK_J_ADE / ::BLOCK_J_ADE_SAR (Debye).
+template <typename T, bool LOSSY, bool HET, bool SAR, bool PML = false, bool ADE = false>
 int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
              float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
              const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream,
-             const PsiSweep<T>& psw = PsiSweep<T>{}) {
-#define YEE_STREAM_CASE(S_, BJ_)                                                                  \
-    if (s == S_ && bj == BJ_)                                                                     \
-        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
-                                                        j1, i0, i1, ez_rows, hx_rows, mat, psw, stream);
-    if constexpr (PML) {
+             const PsiSweep<T>& psw = PsiSweep<T>{}, const AdeSweep<T>& ade = AdeSweep<T>{}) {
+#define YEE_STREAM_CASE(S_, BJ_)                                                                       \
+    if (s == S_ && bj == BJ_)                                                                          \
+        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
+                                                             j1, i0, i1, ez_rows, hx_rows, mat, psw, ade,  \
+                                                             stream);
+    if constexpr (ADE) {
+#ifdef YEE_STREAM_ADE_CANDIDATES
+        // the shapes python -m fdtd_tpu_torch.tune_ade times (a build of its own)
+        YEE_STREAM_CASE(8, 24)
+        YEE_STREAM_CASE(4, 16)
+        YEE_STREAM_CASE(4, 24)
+        YEE_STREAM_CASE(4, 32)
+        YEE_STREAM_CASE(2, 24)
+        YEE_STREAM_CASE(2, 32)
+#else
+        if constexpr (SAR) {
+            YEE_STREAM_CASE(2, 32)
+        } else {
+            YEE_STREAM_CASE(4, 24)
+        }
+#endif
+    } else if constexpr (PML) {
         YEE_STREAM_CASE(2, 24)
     } else if constexpr (!LOSSY) {
         YEE_STREAM_CASE(8, 24)
@@ -699,6 +824,46 @@ int yee_stream_sweep_pml(void* const* in, void* const* out, int K, int J, int I,
     if (dtype == 0) YEE_STREAM_PML(float)
     if (dtype == 1) YEE_STREAM_PML(__nv_bfloat16)
 #undef YEE_STREAM_PML
+    return (int)cudaErrorInvalidValue;
+}
+
+// Debye media (vacuum H with the factor fh): pol_in, pol_out: px, py, pz
+// each (the fields' shape and dtype; pol_out must not alias pol_in);
+// coefs: the 15 ADE maps ca_x..k2_z in ops/dispersive.py::DebyeCoefs.arrays
+// order, and with acc 18 (+ sig_x, sig_y, sig_z); acc: null, or the fp32
+// (K, J, I) map that receives every step's work*dt in place; dt: the step
+// rounded to fp32.
+int yee_stream_sweep_ade(void* const* in, void* const* out, int K, int J, int I, float fh,
+                         int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
+                         const void* ez_rows, const void* hx_rows, void* const* pol_in, void* const* pol_out,
+                         void* const* coefs, void* acc, float dt, int dtype, void* stream) {
+    if (bi != BI || tk < 1 || coefs == nullptr || pol_in == nullptr || pol_out == nullptr
+        || (has_patch && (ez_rows == nullptr || hx_rows == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool sar = acc != nullptr;
+#define YEE_STREAM_ADE(T_)                                                                          \
+    {                                                                                               \
+        Material<T_> mat{};                                                                         \
+        mat.acc = (float*)acc;                                                                      \
+        mat.dt = dt;                                                                                \
+        AdeSweep<T_> ade{};                                                                         \
+        for (int q = 0; q < (sar ? 18 : 15); ++q) ade.c[q] = (const T_*)coefs[q];                   \
+        for (int q = 0; q < 3; ++q) {                                                               \
+            ade.pin[q] = (const T_*)pol_in[q];                                                      \
+            ade.pout[q] = (T_*)pol_out[q];                                                          \
+        }                                                                                           \
+        if (sar)                                                                                    \
+            return dispatch<T_, false, false, true, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk,     \
+                                                                 has_patch, j0, j1, i0, i1, ez_rows,     \
+                                                                 hx_rows, mat, st, PsiSweep<T_>{}, ade); \
+        return dispatch<T_, false, false, false, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk,        \
+                                                              has_patch, j0, j1, i0, i1, ez_rows, hx_rows, \
+                                                              mat, st, PsiSweep<T_>{}, ade);             \
+    }
+    if (dtype == 0) YEE_STREAM_ADE(float)
+    if (dtype == 1) YEE_STREAM_ADE(__nv_bfloat16)
+#undef YEE_STREAM_ADE
     return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,8 @@
 // variants take per-cell factors: the H pass three hf arrays (heterogeneous
 // mu_r), the E pass six ca/cb arrays (lossy media, E = ca*E + cb*curl H).
 // The CPML variants (PML, composing with both) advance the six memory
-// variables of their pass beside the fields.
+// variables of their pass beside the fields.  The ADE E pass (Debye media,
+// ade_e_kernel) advances the polarization P beside E.
 //
 // Replaces the TPU kernels fdtd_tpu/ops/pallas_fused.py::_h_kernel2 (H pass,
 // vacuum and `het`) and ::_e_kernel2 (E pass, vacuum and `lossy`), and with
@@ -33,6 +34,20 @@
 // coefficients stored in bf16 widen to fp32 exactly, and the library is built with -fmad=false, so the result is
 // bit-equal to the plain version on the same card.  Offsets are 64-bit:
 // a 1025^3 array has more than 2^31 elements.
+//
+// ADE (plain version: fdtd_tpu_torch/ops/dispersive.py::update_e_ade).
+// Replaces fdtd_tpu/ops/pallas_dispersive.py::_e_kernel_ade (the TPU's
+// two-pass ADE E pass; its H pass is the vacuum K1, here h_kernel<T, false,
+// false>).  Per updated edge, from the 15 per-edge maps (ca, cb, cp, k1, k2):
+// E' = ((ca*E + cb*curl) + cp*P), P' = k1*P + k2*(E' + E), E' and P' kept in
+// fp32 until the store.  With SAR it also writes the fp32 edge work
+// w = E_mid*((P' - P)/dt + sig*E_mid), E_mid = 0.5*(E' + E), with a true
+// division by the fp32 dt, and 0 on every edge it does not update, so the
+// three work arrays need no clearing.  The maps are per edge everywhere
+// (edge averaging gives the load's boundary edges values of their own).
+// Cost: it reads H, E, P and the 15 maps and writes E and P: 120 B per cell
+// in fp32 (60 B in bf16); SAR adds the three sigma maps and the three work
+// arrays, 144 B (78 B).  It is bound by bytes, like the lossy E pass.
 //
 // CPML (plain versions: fdtd_tpu_torch/ops/cpml.py::Cpml.plain_h/plain_e).
 // psi is the slab-restricted layout of ops/cpml.py::psi_shapes: each term's
@@ -261,6 +276,69 @@ e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict
     }
 }
 
+// d / dt, correctly rounded: an IEEE division, except that a zero d (every
+// edge where P does not change, most of a scene) returns itself, which is
+// what the division gives for a positive dt, without the division's slow
+// special-case path
+__device__ __forceinline__ float div_dt(float d, float dt) { return d == 0.f ? d : __fdiv_rn(d, dt); }
+
+// The ADE E pass's arrays: the 15 maps in ops/dispersive.py::DebyeCoefs.
+// arrays order (ca, cb, cp, k1, k2, each x, y, z; the fields' shape and
+// dtype), with SAR the three edge sigma maps (c[15..17]) and the three fp32
+// work outputs; dt is the step rounded to fp32.
+template <typename T>
+struct Ade {
+    const T* c[18];
+    float* w[3];
+    float dt;
+};
+
+// one component's ADE update at offset o (component q: 0 x, 1 y, 2 z):
+// E and P in place and, with SAR, the edge work
+template <typename T, bool SAR>
+__device__ __forceinline__ void ade_edge(T* e, T* pol, const Ade<T>& a, int q, int64_t o, float cv) {
+    const float eo = ld(e, o), po = ld(pol, o);
+    const float en = __fadd_rn(__fadd_rn(__fmul_rn(ld(a.c[q], o), eo), __fmul_rn(ld(a.c[3 + q], o), cv)),
+                               __fmul_rn(ld(a.c[6 + q], o), po));
+    const float pn = __fadd_rn(__fmul_rn(ld(a.c[9 + q], o), po), __fmul_rn(ld(a.c[12 + q], o), __fadd_rn(en, eo)));
+    if (SAR) {
+        const float em = __fmul_rn(0.5f, __fadd_rn(en, eo));
+        a.w[q][o] = __fmul_rn(em, __fadd_rn(div_dt(__fsub_rn(pn, po), a.dt), __fmul_rn(ld(a.c[15 + q], o), em)));
+    }
+    st(e, o, en);
+    st(pol, o, pn);
+}
+
+// The ADE E half-step over the interior bounds of e_kernel: E and P in
+// place; with SAR the work of every cell of the padded box (0 off the
+// update bounds).
+template <typename T, bool SAR>
+__global__ void __launch_bounds__(BX * BY)
+ade_e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
+             T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
+             T* __restrict__ px, T* __restrict__ py, T* __restrict__ pz, int K, int J, int I, Ade<T> a) {
+    const int i = blockIdx.x * BX + threadIdx.x;
+    const int j = blockIdx.y * BY + threadIdx.y;
+    const int k = blockIdx.z;
+    if (i > I || j > J) return;
+    const int64_t sj = (int64_t)I + 1;
+    const int64_t sk = sj * ((int64_t)J + 1);
+    const int64_t c = (int64_t)k * sk + (int64_t)j * sj + i;
+
+    if (k >= 1 && k < K && j >= 1 && j < J && i < I)
+        ade_edge<T, SAR>(ex, px, a, 0, c, curl(ld(hz, c), ld(hz, c - sj), ld(hy, c), ld(hy, c - sk)));
+    else if (SAR)
+        a.w[0][c] = 0.f;
+    if (k >= 1 && k < K && j < J && i >= 1 && i < I)
+        ade_edge<T, SAR>(ey, py, a, 1, c, curl(ld(hx, c), ld(hx, c - sk), ld(hz, c), ld(hz, c - 1)));
+    else if (SAR)
+        a.w[1][c] = 0.f;
+    if (k < K && j >= 1 && j < J && i >= 1 && i < I)
+        ade_edge<T, SAR>(ez, pz, a, 2, c, curl(ld(hy, c), ld(hy, c - 1), ld(hx, c), ld(hx, c - sj)));
+    else if (SAR)
+        a.w[2][c] = 0.f;
+}
+
 dim3 grid_for(int K, int J, int I) {
     return dim3((unsigned)((I + 1 + BX - 1) / BX), (unsigned)((J + 1 + BY - 1) / BY), (unsigned)(K + 1));
 }
@@ -300,6 +378,20 @@ int launch_e(void* const* h, void* const* e, int K, int J, int I, float f,
     e_kernel<T, LOSSY, PML><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
         K, J, I, f, c, psi_args<T>(psi, tab, n));
+    return (int)cudaGetLastError();
+}
+
+template <typename T, bool SAR>
+int launch_ade(void* const* h, void* const* e, void* const* pol, void* const* coefs, void* const* work,
+               int K, int J, int I, float dt, cudaStream_t s) {
+    Ade<T> a{};
+    for (int q = 0; q < (SAR ? 18 : 15); ++q) a.c[q] = (const T*)coefs[q];
+    if (SAR)
+        for (int q = 0; q < 3; ++q) a.w[q] = (float*)work[q];
+    a.dt = dt;
+    ade_e_kernel<T, SAR><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+        (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
+        (T*)pol[0], (T*)pol[1], (T*)pol[2], K, J, I, a);
     return (int)cudaGetLastError();
 }
 
@@ -406,6 +498,24 @@ int yee_update_e_lossy_pml(void* const* h, void* const* e, void* const* cf, void
     if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == 0) return launch_e<float, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
     if (dtype == 1) return launch_e<__nv_bfloat16, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// The ADE E pass (Debye media).  pol: px, py, pz (the fields' shape and
+// dtype, updated in place); coefs: the 15 maps ca_x..k2_z, and with work
+// 18 (+ sig_x, sig_y, sig_z); work: null, or three fp32 arrays of the
+// fields' shape that receive the edge work; dt: the step rounded to fp32.
+int yee_update_e_ade(void* const* h, void* const* e, void* const* pol, void* const* coefs, void* const* work,
+                     int K, int J, int I, float dt, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (pol == nullptr || coefs == nullptr) return (int)cudaErrorInvalidValue;
+    const bool sar = work != nullptr;
+    if (dtype == 0)
+        return sar ? launch_ade<float, true>(h, e, pol, coefs, work, K, J, I, dt, s)
+                   : launch_ade<float, false>(h, e, pol, coefs, work, K, J, I, dt, s);
+    if (dtype == 1)
+        return sar ? launch_ade<__nv_bfloat16, true>(h, e, pol, coefs, work, K, J, I, dt, s)
+                   : launch_ade<__nv_bfloat16, false>(h, e, pol, coefs, work, K, J, I, dt, s);
     return (int)cudaErrorInvalidValue;
 }
 

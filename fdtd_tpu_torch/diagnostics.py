@@ -8,7 +8,8 @@ accumulate in fp64 for fp64 fields and in fp32 otherwise.
 
 The power deposition sigma*|E|^2 at cell centers is the JAX package's
 capability beyond the vacuum-only reference (BASELINE config #3); its
-accumulator is fp32 whatever the field dtype.
+accumulator is fp32 whatever the field dtype.  A Debye load deposits the
+work of its ADE update instead (:func:`accumulate_work`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .constants import EPSILON, MU
+from .ops.dispersive import work_cell_means
 from .params import Params
 from .state import FieldState
 
@@ -218,4 +220,20 @@ def accumulate_power(p: Params, s: FieldState, sigma_cells: torch.Tensor | None,
         for k_lo in range(0, p.maxk, kb):
             k_hi = min(p.maxk, k_lo + kb)
             inc = power_deposition(p, s, sigma_cells, (k_lo, k_hi))
+            acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))
+
+
+def accumulate_work(p: Params, work: tuple[torch.Tensor, ...], acc: torch.Tensor) -> None:
+    """One step's deposition in a Debye load, ``acc += work_cell_means(w)
+    * dt`` rounded to fp32, in place: the true dielectric and ionic work
+    of the ADE update (``ops.dispersive.update_e_ade`` with ``work``), the
+    per-step increment of ``fdtd_tpu.ops.dispersive``'s chunk runners.  A
+    slab of k planes at a time, under the profiler range of
+    :func:`accumulate_power`."""
+    dt = float(np.float32(p.time_step)) if work[0].dtype == torch.float32 else p.time_step
+    kb = sar_slab_planes(p)
+    with torch.profiler.record_function(SAR_LABEL):
+        for k_lo in range(0, p.maxk, kb):
+            k_hi = min(p.maxk, k_lo + kb)
+            inc = work_cell_means(p, *work, (k_lo, k_hi))
             acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))

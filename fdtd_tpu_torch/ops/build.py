@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
 flags, so an edited source never loads a stale library), then loaded with
-``ctypes``.  Nothing is compiled when the package is imported: the first
+``ctypes``.  ``defines`` adds preprocessor macros (``-D``) to a build of
+its own, such as the candidate block shapes ``tune_ade`` times.  Nothing is compiled when the package is imported: the first
 kernel launch builds.  There is no fallback: without nvcc, or when the
 compiler fails, :func:`build` raises ``RuntimeError``.
 """
@@ -45,17 +46,21 @@ def find_nvcc() -> str | None:
     return None if home else shutil.which("nvcc")
 
 
-def library_path(name: str, build_dir: Path = BUILD_DIR) -> Path:
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, build_dir: Path = BUILD_DIR, defines: tuple[str, ...] = ()) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha256(src + "\0".join(_flags(defines)).encode()).hexdigest()[:12]
     return Path(build_dir) / f"lib{name}-{digest}.so"
 
 
-def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built; the
-    compiler's output (with ptxas register and spill counts) goes to a
-    ``.log`` beside the library."""
-    out = library_path(name, build_dir)
+def build(name: str, build_dir: Path = BUILD_DIR, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with the macros ``defines``) unless its
+    library is already built; the compiler's output (with ptxas register
+    and spill counts) goes to a ``.log`` beside the library."""
+    out = library_path(name, build_dir, defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -67,7 +72,7 @@ def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
         )
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + r.stdout + r.stderr)
     if r.returncode != 0:

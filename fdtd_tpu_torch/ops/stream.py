@@ -11,7 +11,13 @@ fp32 map in place, as S per-step increments would.  With ``cpml`` it is
 the CPML sweep (vacuum or lossy), replacing
 ``fdtd_tpu/ops/pallas_stream_pml.py::_kernel_pml``: it reads the twelve
 psi of ``psi`` and writes them advanced into ``psi_out`` (a second set,
-as for the fields).  On CUDA tensors it launches the kernel variant
+as for the fields).  With ``dc`` (Debye media,
+:class:`~fdtd_tpu_torch.ops.dispersive.DebyeCoefs`) it is the ADE sweep,
+replacing ``fdtd_tpu/ops/pallas_dispersive.py::_kernel_ade_stream``: the
+H update is vacuum, the E update the ADE update of ``dc``; it reads the
+polarization ``pol`` and writes it advanced into ``pol_out``, and with
+``acc`` it adds every step's Debye work (``diagnostics.accumulate_work``)
+to the map.  On CUDA tensors it launches the kernel variant
 ``plan.kernel`` on the current stream and allocates nothing; it raises on
 anything the kernel does not take.  On CPU tensors, and only there, it
 runs :func:`plain_sweep`.
@@ -33,16 +39,19 @@ import torch
 from .. import diagnostics
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
-from . import build, curl, yee
+from . import build, curl, dispersive, yee
 from .cpml import TERM_NAMES, Cpml, PsiState
+from .dispersive import DebyeCoefs, PolState
 from .stream_plan import StreamPlan, variant_name
 
 KERNEL_SOURCE = "yee_stream"
-launches = {variant_name(lossy, het, sar, pml): 0
-            for lossy, het, sar, pml in ((False, False, False, False), (True, False, False, False),
-                                         (True, False, True, False), (True, True, False, False),
-                                         (True, True, True, False), (False, False, False, True),
-                                         (True, False, False, True))}
+launches = {variant_name(lossy, het, sar, pml, ade): 0
+            for lossy, het, sar, pml, ade in (
+                (False, False, False, False, False), (True, False, False, False, False),
+                (True, False, True, False, False), (True, True, False, False, False),
+                (True, True, True, False, False), (False, False, False, True, False),
+                (True, False, False, True, False), (False, False, False, False, True),
+                (False, False, True, False, True))}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -67,30 +76,48 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
-        lib = build.load(KERNEL_SOURCE)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yee_stream_sweep.argtypes = (
-            [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr, ptr, i32, ptr]
-        )
-        lib.yee_stream_sweep.restype = i32
-        lib.yee_stream_sweep_material.argtypes = (
-            [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
-        )
-        lib.yee_stream_sweep_material.restype = i32
-        lib.yee_stream_sweep_pml.argtypes = (
-            [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 7 + [i32, i32, ptr]
-        )
-        lib.yee_stream_sweep_pml.restype = i32
-        lib.yee_stream_error_string.argtypes = [i32]
-        lib.yee_stream_error_string.restype = ctypes.c_char_p
-        _bound = lib
+        _bound = _declare(build.load(KERNEL_SOURCE))
     return _bound
+
+
+def use_library(path) -> None:
+    """Launch the sweeps from the library at ``path``, a build of
+    csrc/yee_stream.cu with macros of its own (``build.build(...,
+    defines=...)``), instead of the default build."""
+    global _bound
+    _bound = _declare(ctypes.CDLL(str(path)))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of its C interface set."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.yee_stream_sweep.argtypes = (
+        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr, ptr, i32, ptr]
+    )
+    lib.yee_stream_sweep.restype = i32
+    lib.yee_stream_sweep_material.argtypes = (
+        [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
+    )
+    lib.yee_stream_sweep_material.restype = i32
+    lib.yee_stream_sweep_pml.argtypes = (
+        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 7 + [i32, i32, ptr]
+    )
+    lib.yee_stream_sweep_pml.restype = i32
+    lib.yee_stream_sweep_ade.argtypes = (
+        [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
+    )
+    lib.yee_stream_sweep_ade.restype = i32
+    lib.yee_stream_error_string.argtypes = [i32]
+    lib.yee_stream_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 drive: SweepDrive | None = None, out: FieldState | None = None,
                 acc: torch.Tensor | None = None, cpml: Cpml | None = None,
-                psi: PsiState | None = None, psi_out: PsiState | None = None) -> FieldState:
+                psi: PsiState | None = None, psi_out: PsiState | None = None,
+                dc: DebyeCoefs | None = None, pol: PolState | None = None,
+                pol_out: PolState | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
@@ -98,16 +125,26 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
     deposition of the fp32 working copy is added to it in place
     (:func:`diagnostics.accumulate_power`).  With ``cpml``, the steps are
     the CPML passes (``Cpml.plain_h``/``plain_e``) on a working copy of
-    ``psi``, rounded once into ``psi_out``.  In fp32 this is exactly ``s``
+    ``psi``, rounded once into ``psi_out``.  With ``dc``, the E pass is
+    :func:`dispersive.update_e_ade` on a working copy of ``pol``, rounded
+    once into ``pol_out``, and ``acc`` takes each step's Debye work
+    (:func:`diagnostics.accumulate_work`).  In fp32 this is exactly ``s``
     steps of the ``torch`` backend (with their per-step SAR increments,
-    or with CPML)."""
+    with CPML, or in a Debye medium)."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
-    wpsi = None
+    wpsi = wpol = w_edge = None
     if cpml is not None:
         if psi is None or psi_out is None:
             raise ValueError("a CPML sweep needs psi and psi_out")
         wpsi = PsiState(*(t.to(cd, copy=True) for t in psi.tensors()))
+    if dc is not None:
+        if pol is None or pol_out is None:
+            raise ValueError("a Debye sweep needs pol and pol_out")
+        wpol = PolState(*(t.to(cd, copy=True) for t in pol.tensors()))
+        if acc is not None:
+            w_edge = tuple(torch.empty(p.padded_shape, dtype=dispersive.work_dtype(cd), device=state.ex.device)
+                           for _ in range(3))
     patch = drive.patch if drive is not None else None
     for m in range(1, s + 1):
         if m >= 2 and drive is not None:
@@ -120,13 +157,22 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
         if cpml is not None:
             cpml.plain_h(p, work, coefs, wpsi, patch)
             cpml.plain_e(p, work, coefs, wpsi)
+        elif dc is not None:
+            curl.update_h(p, work, coefs, patch)
+            dispersive.update_e_ade(p, work, wpol, dc, w_edge)
         else:
             curl.update_h(p, work, coefs, patch)
             curl.update_e(p, work, coefs)
         if acc is not None:
-            diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
+            if dc is not None:
+                diagnostics.accumulate_work(p, w_edge, acc)
+            else:
+                diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
     if wpsi is not None:
         for o, w in zip(psi_out.tensors(), wpsi.tensors()):
+            o.copy_(w)
+    if wpol is not None:
+        for o, w in zip(pol_out.tensors(), wpol.tensors()):
             o.copy_(w)
     if out is None:
         return work.to(dtype=state.ex.dtype)
@@ -172,22 +218,36 @@ def _check_psi(p: Params, state: FieldState, cpml: Cpml, psi: PsiState, psi_out:
 def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
           plan: StreamPlan, drive: SweepDrive | None = None,
           acc: torch.Tensor | None = None, cpml: Cpml | None = None,
-          psi: PsiState | None = None, psi_out: PsiState | None = None) -> FieldState:
+          psi: PsiState | None = None, psi_out: PsiState | None = None,
+          dc: DebyeCoefs | None = None, pol: PolState | None = None,
+          pol_out: PolState | None = None) -> FieldState:
     """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
-    ``plan`` must be made for the variant of ``coefs``, ``acc`` and ``cpml``
-    (``stream_plan.plan_for(p, s, coefs.lossy, coefs.heterogeneous_mu,
-    acc is not None, cpml.cfg if cpml else None)``); with ``cpml``, ``psi``
-    is read and ``psi_out`` written."""
-    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None)
-    if (plan.lossy, plan.het, plan.sar, plan.pml) != variant:
+    ``plan`` must be made for the variant of ``coefs``, ``acc``, ``cpml``
+    and ``dc`` (``stream_plan.plan_for(p, s, coefs.lossy,
+    coefs.heterogeneous_mu, acc is not None, cpml.cfg if cpml else None,
+    dc is not None)``); with ``cpml``, ``psi`` is read and ``psi_out``
+    written; with ``dc`` (and the vacuum ``coefs`` of the H pass), ``pol``
+    is read and ``pol_out`` written."""
+    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None)
+    if (plan.lossy, plan.het, plan.sar, plan.pml, plan.ade) != variant:
         raise ValueError(
-            f"the plan is for (lossy, het, sar, pml) = {(plan.lossy, plan.het, plan.sar, plan.pml)}, "
-            f"the coefficients, accumulator and CPML are {variant}"
+            f"the plan is for (lossy, het, sar, pml, ade) = "
+            f"{(plan.lossy, plan.het, plan.sar, plan.pml, plan.ade)}, "
+            f"the coefficients, accumulator, CPML and Debye maps are {variant}"
         )
     if cpml is not None and (psi is None or psi_out is None):
         raise ValueError("a CPML sweep needs psi and psi_out")
+    if dc is not None and (pol is None or pol_out is None):
+        raise ValueError("a Debye sweep needs pol and pol_out")
     dt = state.ex.dtype
-    if acc is not None:  # the plan's variant implies lossy coefficients, so sigma exists
+    if acc is not None and dc is not None:
+        if (acc.device != state.ex.device or acc.dtype != torch.float32
+                or tuple(acc.shape) != (p.maxk, p.maxj, p.maxi) or not acc.is_contiguous()):
+            raise ValueError(
+                f"the accumulator must be a contiguous float32 {(p.maxk, p.maxj, p.maxi)} tensor on "
+                f"{state.ex.device}; got {acc.dtype} {tuple(acc.shape)} on {acc.device}"
+            )
+    elif acc is not None:  # the plan's variant implies lossy coefficients, so sigma exists
         cells = (p.maxk, p.maxj, p.maxi)
         for a, want in ((coefs.sigma_cells, dt), (acc, torch.float32)):
             if (a.device != state.ex.device or a.dtype != want or tuple(a.shape) != cells
@@ -198,7 +258,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                     f"{a.dtype} {tuple(a.shape)} on {a.device}"
                 )
     if _on_cpu(p, state, out):
-        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out)
+        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out)
     lib = _lib()
     fh = curl.scalar(coefs.h_factor, dt)
     if drive is not None:
@@ -222,7 +282,17 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
     with torch.cuda.device(state.ex.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if cpml is not None:
+        if dc is not None:
+            cf = dc.arrays(acc is not None)
+            yee.check_coefficients(p, state.ex, pol.tensors() + pol_out.tensors() + cf)
+            if {t.data_ptr() for t in pol.tensors()} & {t.data_ptr() for t in pol_out.tensors()}:
+                raise ValueError("the sweep's output pol must not alias its input pol")
+            rc = lib.yee_stream_sweep_ade(
+                ins, outs, p.maxk, p.maxj, p.maxi, fh, *geometry, *rows, yee.pointers(pol.tensors()),
+                yee.pointers(pol_out.tensors()), yee.pointers(cf), acc.data_ptr() if acc is not None else None,
+                curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[dt], stream,
+            )
+        elif cpml is not None:
             _check_psi(p, state, cpml, psi, psi_out)
             if cf:
                 yee.check_coefficients(p, state.ex, cf)

@@ -41,9 +41,21 @@ mode, homogeneous mu_r, no SAR, and the source patch clear of the j and i
 slabs.  A sweep reads one psi set and writes a second (a neighbour's halo
 reads level-0 psi of cells this block writes), so a plan counts two.
 
+The ADE variants (Debye media, ``ade``: vacuum H, with or without SAR)
+carry each level's polarization (and with SAR its edge work) in registers
+beside the fields and read the 15 coefficient maps per level and plane, so
+they have block shapes of their own (``BLOCK_J_ADE``, ``BLOCK_J_ADE_SAR``),
+each at the one shape that measured fastest (``python -m
+fdtd_tpu_torch.tune_ade``): the bytes model ranks deeper sweeps first, but
+registers bind them and they run slower.  Their gates are the material
+variants' (computation mode) plus no CPML (Debye x CPML runs the torch
+ops) and no heterogeneous mu_r.  A sweep reads one P set and writes a
+second, like the state.
+
 Every footprint counts the temporaries of the output reductions (the k
 slabs of the energies and snapshot aggregation) or of the SAR increment,
-whichever is larger: they never run at the same time.
+whichever is larger: they never run at the same time.  With Debye SAR the
+increment also needs the three fp32 edge work arrays of the E pass.
 """
 
 from __future__ import annotations
@@ -75,13 +87,27 @@ BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
 # ms a step; 512 threads 1.00, 1024 threads 0.85 with 88 B of spills); s=4
 # spilled 160 B (1.08 ms a step) and s=8 about 540 B (7.4 ms a step)
 BLOCK_J_PML = {2: 24}
+# the ADE variants (Debye media) keep three P (and with SAR three work
+# values) a level a thread more and read 15 maps a level; each is built at
+# the one shape that measured fastest at 256^3 (python -m
+# fdtd_tpu_torch.tune_ade; NVIDIA H100 80GB HBM3, 700 W; ms a step fp32 /
+# bf16): without SAR s=4 with 768 threads, 80 registers, no spills, 0.776 /
+# 0.660 (s=2 at 768 threads 0.771 / 0.659; s=4 at 1024 threads 0.894 /
+# 0.601 with 68 B of spills; s=8 3.31 / 2.40 with 296 B); with SAR s=2 with
+# 1024 threads, 64 registers and 32 B of spills, 1.479 / 1.189 (s=2 at 768
+# threads, no spills, 1.655 / 1.469; s=4 2.38-3.04 / 1.77-2.42; s=8 9.2 / 8.1)
+BLOCK_J_ADE = {4: 24}
+BLOCK_J_ADE_SAR = {2: 32}
 BLOCKS_WANTED = 2 * SM_COUNT  # split k until a sweep has this many blocks
 
 
-def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False) -> str:
+def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False) -> str:
     """The name of a kernel variant of csrc/yee_stream.cu (its launch
     counter): ``yee_stream`` in vacuum, else ``yee_stream_lossy`` with
-    ``_het`` and ``_sar`` as they apply; ``_pml`` for the CPML variants."""
+    ``_het`` and ``_sar`` as they apply; ``_pml`` for the CPML variants;
+    ``yee_stream_ade`` (``_sar``) for Debye media."""
+    if ade:
+        return "yee_stream_ade" + ("_sar" if sar else "")
     base = "yee_stream" if not lossy else "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
     return base + ("_pml" if pml else "")
 
@@ -106,11 +132,12 @@ class StreamPlan:
     het: bool = False  # hf arrays (heterogeneous mu_r)
     sar: bool = False  # the SAR accumulator
     pml: bool = False  # the twelve CPML psi terms
+    ade: bool = False  # Debye media: P and the 15 ADE maps
 
     @property
     def kernel(self) -> str:
         """The kernel variant, as ``ops.stream.launches`` counts it."""
-        return variant_name(self.lossy, self.het, self.sar, self.pml)
+        return variant_name(self.lossy, self.het, self.sar, self.pml, self.ade)
 
     @property
     def blocks(self) -> int:
@@ -134,20 +161,33 @@ def state_bytes(p: Params) -> int:
     return 6 * math.prod(p.padded_shape) * _itemsize(p)
 
 
-def material_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False) -> int:
+def pol_bytes(p: Params) -> int:
+    """Device bytes of one polarization set (three arrays of the padded
+    shape in the field dtype)."""
+    return 3 * math.prod(p.padded_shape) * _itemsize(p)
+
+
+def material_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
+                   ade: bool = False) -> int:
     """Device bytes beside the state: six ca/cb and three hf arrays of the
     padded shape, sigma (maxk, maxj, maxi) in the field dtype and the fp32
-    SAR accumulator."""
+    SAR accumulator; for Debye media (``ade``) the 15 ADE maps and, with
+    SAR, three edge sigma maps of the padded shape and the accumulator."""
     arr = math.prod(p.padded_shape) * _itemsize(p)
     cells = p.maxk * p.maxj * p.maxi
+    if ade:
+        return (15 + (3 if sar else 0)) * arr + (4 * cells if sar else 0)
     return ((6 * arr + cells * _itemsize(p) if lossy else 0) + (3 * arr if het else 0)
             + (4 * cells if sar else 0))
 
 
-def sar_work_bytes(p: Params) -> int:
+def sar_work_bytes(p: Params, ade: bool = False) -> int:
     """Device bytes of the temporaries of the per-step SAR increment
-    (``diagnostics.accumulate_power``, one slab of k planes at a time)."""
-    return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.sar_slab_planes(p) * p.maxj * p.maxi
+    (``diagnostics.accumulate_power`` / ``accumulate_work``, one slab of k
+    planes at a time); Debye media add the three fp32 edge work arrays the
+    E pass writes."""
+    slab = diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.sar_slab_planes(p) * p.maxj * p.maxi
+    return slab + (3 * 4 * math.prod(p.padded_shape) if ade else 0)
 
 
 def output_work_bytes(p: Params) -> int:
@@ -157,45 +197,57 @@ def output_work_bytes(p: Params) -> int:
     return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.output_slab_planes(p) * p.maxj * p.maxi
 
 
-def work_bytes(p: Params, sar: bool = False) -> int:
+def work_bytes(p: Params, sar: bool = False, ade: bool = False) -> int:
     """The larger of the output and the SAR temporaries (never live at
-    the same time)."""
+    the same time; the Debye work arrays stay allocated, so they add)."""
+    if sar and ade:
+        return sar_work_bytes(p, ade=True) + max(output_work_bytes(p) - sar_work_bytes(p), 0)
     return max(output_work_bytes(p), sar_work_bytes(p) if sar else 0)
 
 
 def twopass_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
-                  pml: PMLConfig | None = None) -> int:
+                  pml: PMLConfig | None = None, ade: bool = False) -> int:
     """Device bytes of a ``twopass`` run: the state (updated in place), the
     material arrays, one psi set with CPML, and the temporaries of the
-    SAR increment or of the snapshots and energy log."""
+    SAR increment or of the snapshots and energy log; with Debye media
+    (``ade``) P, the 15 maps, sigma and the three fp32 work arrays."""
     lossy = lossy or het
-    return (state_bytes(p) + material_bytes(p, lossy, het, sar) + (psi_bytes(p, pml) if pml else 0)
-            + work_bytes(p, sar))
+    return (state_bytes(p) + (pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
+            + (psi_bytes(p, pml) if pml else 0) + work_bytes(p, sar, ade))
 
 
 def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-                 het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
+                 het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
+                 ade: bool = False) -> bool:
     """:func:`twopass_bytes` fits in ``memory_bytes`` (default: the
     H100's 80 GB) with the margin the stream plans keep."""
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
-    return twopass_bytes(p, lossy, het, sar, pml) <= MEMORY_MARGIN * mem
+    return twopass_bytes(p, lossy, het, sar, pml, ade) <= MEMORY_MARGIN * mem
 
 
-def _block_j(lossy: bool, pml: bool) -> dict[int, int]:
+def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False) -> dict[int, int]:
     """The depths a variant's kernel is built at, with their threads along j."""
+    if ade:
+        return BLOCK_J_ADE_SAR if sar else BLOCK_J_ADE
     return BLOCK_J_PML if pml else BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
-             sar: bool = False, pml: PMLConfig | None = None) -> StreamPlan:
+             sar: bool = False, pml: PMLConfig | None = None, ade: bool = False,
+             bj: int | None = None) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
-    the kernel variant the flags name (het and sar imply lossy)."""
-    lossy = lossy or het or sar
-    table = _block_j(lossy, pml is not None)
-    if s not in table:
-        raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
+    the kernel variant the flags name (het and sar imply lossy, except
+    for Debye media, ``ade``: vacuum H and the ADE E update).  ``bj``
+    (threads along j) is the variant's built value unless given, for a
+    build with other shapes (``tune_ade``)."""
+    lossy = not ade and (lossy or het or sar)
+    table = _block_j(lossy, pml is not None, ade, sar)
+    if bj is None:
+        if s not in table:
+            raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
+        bj = table[s]
     K1, J1, I1 = p.padded_shape
-    bj, bi = table[s], BLOCK_I
+    bi = BLOCK_I
     tj, ti = bj - 2 * s - sar, bi - 2 * s - sar
     nj, ni = -(-J1 // tj), -(-I1 // ti)
     nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
@@ -205,13 +257,18 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
     amp_ji = (bj * bi) / (tj * ti)
     amp_k = (tk + 2 * s) / tk if nk > 1 else 1.0
     item = _itemsize(p)
-    arrays_read = 6 + (6 if lossy else 0) + (3 if het else 0)
-    # sigma is read and the accumulator read and written once per cell
-    sar_bytes = (item + 8) * p.maxk * p.maxj * p.maxi / (K1 * J1 * I1) if sar else 0.0
+    cells = p.maxk * p.maxj * p.maxi / (K1 * J1 * I1)
+    if ade:  # fields, P and the 15 maps (+3 sigma) read; fields and P written
+        arrays_read, written = 6 + 3 + 15 + (3 if sar else 0), 9
+        sar_bytes = 8 * cells if sar else 0.0  # the accumulator read and written
+    else:
+        arrays_read, written = 6 + (6 if lossy else 0) + (3 if het else 0), 6
+        # sigma is read and the accumulator read and written once per cell
+        sar_bytes = (item + 8) * cells if sar else 0.0
     # psi: read once per halo-amplified tile, written once, per sweep
     pml_bytes = psi_bytes(p, pml) * (amp_ji * amp_k + 1) / (K1 * J1 * I1) if pml else 0.0
-    per_step = (arrays_read * item * amp_ji * amp_k + 6 * item + sar_bytes + pml_bytes) / s
-    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None)
+    per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes) / s
+    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade)
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
@@ -226,16 +283,41 @@ def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -
     return src.j0 > n and src.j1 < p.maxj - n and src.i0 > n and src.i1 < p.maxi - n
 
 
+def stream_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
+                 pml: PMLConfig | None = None, ade: bool = False) -> int:
+    """Device bytes of a ``stream`` run: two states (and two P sets with
+    Debye media, two psi sets with CPML), the material arrays, and the
+    temporaries of the trailing two-pass steps' SAR increment or of the
+    outputs."""
+    lossy = not ade and (lossy or het)
+    return (2 * state_bytes(p) + (2 * pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
+            + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0))
+
+
+def ade_gates(p: Params, het: bool = False, pml: PMLConfig | None = None) -> bool:
+    """The Debye scenes the kernels take (``fdtd_tpu/ops/pallas_dispersive.
+    py::dispersive_fused_supported``, plus what the port's ADE kernels do
+    not carry): computation mode, float32 or bfloat16, homogeneous mu_r
+    and no CPML (Debye x CPML runs the torch ops)."""
+    return (p.mode == Mode.COMPUTATION and p.dtype in ("float32", "bfloat16") and not het
+            and pml is None)
+
+
 def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-             het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
+             het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
+             ade: bool = False) -> bool:
     """The kernel takes the dtype and the scene, and the two states, with
-    the material arrays (and two psi sets with CPML), fit in
-    ``memory_bytes`` (default: the H100's 80 GB).  Every plan's block fits
-    an SM (at most 1024 threads and 45 KB of shared memory), so the grid,
-    the dtype and the gates decide: materials stream in computation mode
-    only, SAR needs materials, and CPML takes :func:`pml_gates`."""
+    the material arrays (and two psi sets with CPML, two P sets with
+    Debye media), fit in ``memory_bytes`` (default: the H100's 80 GB).
+    Every plan's block fits an SM (at most 1024 threads and 45 KB of
+    shared memory), so the grid, the dtype and the gates decide: materials
+    stream in computation mode only, SAR needs materials, CPML takes
+    :func:`pml_gates` and Debye media :func:`ade_gates`."""
     if p.dtype not in ("float32", "bfloat16"):
         return False
+    mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
+    if ade:
+        return ade_gates(p, het, pml) and stream_bytes(p, sar=sar, ade=True) <= MEMORY_MARGIN * mem
     lossy = lossy or het
     if lossy and p.mode != Mode.COMPUTATION:
         return False
@@ -243,28 +325,27 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
         return False  # vacuum deposits nothing: no SAR variant
     if pml is not None and not pml_gates(p, pml, het, sar):
         return False
-    mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
     # the trailing n % s two-pass steps add the SAR increment's temporaries
-    need = (2 * state_bytes(p) + material_bytes(p, lossy, het, sar) + work_bytes(p, sar)
-            + (2 * psi_bytes(p, pml) if pml else 0))
-    return need <= MEMORY_MARGIN * mem
+    return stream_bytes(p, lossy, het, sar, pml) <= MEMORY_MARGIN * mem
 
 
 def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
               lossy: bool = False, het: bool = False, sar: bool = False,
-              pml: PMLConfig | None = None) -> StreamPlan | None:
+              pml: PMLConfig | None = None, ade: bool = False) -> StreamPlan | None:
     """Of the depths the variant's kernel is built at, the feasible plan
     with the fewest modelled bytes per cell and step (ties to the deeper
     sweep), or None.  A forced ``s`` is checked for feasibility like any
     other."""
-    steps = (s,) if s is not None else tuple(_block_j(lossy or het or sar, pml is not None))
-    cands = [plan_for(p, x, lossy, het, sar, pml) for x in steps]
-    if not feasible(p, memory_bytes, lossy, het, sar, pml):
+    steps = (s,) if s is not None else tuple(_block_j(not ade and (lossy or het or sar), pml is not None, ade, sar))
+    cands = [plan_for(p, x, lossy, het, sar, pml, ade) for x in steps]
+    if not feasible(p, memory_bytes, lossy, het, sar, pml, ade):
         return None
     return min(cands, key=lambda c: (c.bytes_per_cell_step, -c.s))
 
 
 def supported(p: Params, memory_bytes: int | None = None, lossy: bool = False,
-              het: bool = False, sar: bool = False, pml: PMLConfig | None = None) -> bool:
+              het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
+              ade: bool = False) -> bool:
     """True when some streaming plan fits (see :func:`pick_plan`)."""
-    return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar, pml=pml) is not None
+    return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar, pml=pml,
+                     ade=ade) is not None

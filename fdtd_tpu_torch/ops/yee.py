@@ -7,7 +7,12 @@ the heterogeneous-mu_r variant (``hf_x/y/z`` arrays) when the coefficients
 carry them, and ``update_e`` the lossy variant (six ca/cb arrays).  With
 ``cpml`` and ``psi`` (:mod:`fdtd_tpu_torch.ops.cpml`) they launch the CPML
 variants, which replace ``fdtd_tpu/ops/cpml_kernel.py::_h_kernel_pml`` and
-``::_e_kernel_pml`` and advance the pass's six psi terms in place.  On
+``::_e_kernel_pml`` and advance the pass's six psi terms in place.
+``update_e_ade`` is the ADE E pass of a Debye medium (replacing
+``fdtd_tpu/ops/pallas_dispersive.py::_e_kernel_ade``): E and the
+polarization P in place, and with ``work`` the three fp32 edge work arrays
+of the SAR; its plain version is
+:func:`fdtd_tpu_torch.ops.dispersive.update_e_ade`.  On
 CUDA tensors they launch the kernel on the current stream, in place,
 allocating nothing; they raise on anything the kernel does not take
 (another dtype, shape, device or a non-contiguous tensor).  On CPU
@@ -26,13 +31,15 @@ import torch
 
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
-from . import build, curl
+from . import build, curl, dispersive
 from .cpml import E_TERMS, H_TERMS, Cpml, PsiState, psi_shapes
+from .dispersive import DebyeCoefs, PolState
 
 KERNEL_SOURCE = "yee_twopass"
 launches = {name + suffix: 0
             for suffix in ("", "_pml")
             for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")}
+launches.update(yee_update_e_ade=0, yee_update_e_ade_sar=0)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -64,6 +71,8 @@ def _lib() -> ctypes.CDLL:
         lib.yee_update_e_pml.restype = i32
         lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] * 4 + [i32, ptr]
         lib.yee_update_e_lossy_pml.restype = i32
+        lib.yee_update_e_ade.argtypes = [ptr] * 5 + [i32] * 3 + [f32, i32, ptr]
+        lib.yee_update_e_ade.restype = i32
         lib.yee_error_string.argtypes = [i32]
         lib.yee_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -221,5 +230,37 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
                 s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),
                 *geometry, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
             )
+    launches[name] += 1
+    _check(rc, name)
+
+
+def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
+                 work: tuple[torch.Tensor, ...] | None = None) -> None:
+    """The ADE E half-step in place (E and P); with ``work`` (three fp32
+    tensors of the padded shape) also the edge work of the SAR, every
+    cell written (0 off the update bounds)."""
+    if _on_cpu(p, s):
+        dispersive.update_e_ade(p, s, P, dc, work)
+        return
+    lib = _lib()
+    sar = work is not None
+    cf = dc.arrays(sar)
+    check_coefficients(p, s.ex, P.tensors() + cf)
+    if sar:
+        for w in work:
+            if (w.device != s.ex.device or w.dtype != torch.float32 or tuple(w.shape) != p.padded_shape
+                    or not w.is_contiguous()):
+                raise ValueError(
+                    f"the work arrays must be contiguous float32 tensors of shape {p.padded_shape} on "
+                    f"{s.ex.device}; got {w.dtype} {tuple(w.shape)} on {w.device}"
+                )
+    name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
+    with torch.cuda.device(s.ex.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.yee_update_e_ade(
+            pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez)), pointers(P.tensors()), pointers(cf),
+            pointers(work) if sar else None, p.maxk, p.maxj, p.maxi,
+            curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[s.ex.dtype], stream,
+        )
     launches[name] += 1
     _check(rc, name)

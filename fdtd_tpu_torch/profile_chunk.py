@@ -2,14 +2,15 @@
 device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--scenes vacuum heating pml] [--backends stream twopass torch]
+        [--scenes vacuum heating pml dispersive] [--backends stream twopass torch]
         [--dtypes float32 bfloat16]
 
 Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 (rescaled to n); ``heating`` is the same box with the default water block
 (``--water-block``) and the SAR accumulator (``--sar``), the workload of
 ``configs/heating_256.txt``; ``pml`` is the vacuum scene with 10-cell CPML
-walls (``--pml 10``).  For each scene, backend and dtype it runs a
+walls (``--pml 10``); ``dispersive`` is the heating scene's block as a
+Debye medium (``--water-block --dispersive --sar``).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -19,10 +20,11 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
 - ``device_ms_per_step``: summed kernel time per step (profiled run);
 - ``kernels_ms_per_step``: that sum split by kernel variant (the names of
   the launch counters: ``yee_stream``, ``yee_stream_lossy_sar``,
-  ``yee_update_h``, ``yee_update_e_lossy``, ...), ``sar_increment`` (the
-  per-step torch ops of the deposition on ``twopass``/``torch`` and on the
-  trailing steps of ``stream``: the device time of the profiler range
-  ``diagnostics.accumulate_power`` opens, taken out of ``other``) and
+  ``yee_update_h``, ``yee_update_e_lossy``, ``yee_update_e_ade_sar``,
+  ...), ``sar_increment`` (the per-step torch ops of the deposition on
+  ``twopass``/``torch`` and on the trailing steps of ``stream``: the device
+  time of the profiler range ``diagnostics.accumulate_power`` and
+  ``accumulate_work`` open, taken out of ``other``) and
   ``other`` (the source's small launches and, for ``torch``, every
   elementwise kernel of the update);
 - ``idle_share``: 1 - device / unprofiled wall;
@@ -45,19 +47,20 @@ import torch
 
 from . import diagnostics
 from .ops.cpml import PMLConfig, init_psi
+from .ops.dispersive import water_debye_load, zero_polarization
 from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
 from .runner import initial_state
 from .state import water_block
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
-SCENES = ("vacuum", "heating", "pml")
+SCENES = ("vacuum", "heating", "pml", "dispersive")
 PML_CELLS = 10  # the pml scene's slab depth (--pml 10)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML>,
-# h <T, HET, PML>, e <T, LOSSY, PML>
-_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel)<([^>]*)>")
+# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE>,
+# h <T, HET, PML>, e <T, LOSSY, PML>, ade_e <T, SAR>
+_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel)<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -75,6 +78,8 @@ def _group(name: str) -> str:
     flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
     if m.group(1) == "stream_kernel":
         return variant_name(*flags)
+    if m.group(1) == "ade_e_kernel":
+        return "yee_update_e_ade" + ("_sar" if flags[0] else "")
     pml = "_pml" if flags[1] else ""
     if m.group(1) == "h_kernel":
         return ("yee_update_h_het" if flags[0] else "yee_update_h") + pml
@@ -82,24 +87,26 @@ def _group(name: str) -> str:
 
 
 def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
-            heating: bool = False, pml: PMLConfig | None = None) -> dict:
+            heating: bool = False, pml: PMLConfig | None = None, debye: bool = False) -> dict:
     ts, amps = scan_inputs(p, time_values(p)[: warm + 2 * steps])
-    run = make_chunk_runner(p, dev, water_block(p) if heating else None, backend,
-                            accumulate_power=heating, pml=pml)
+    mats = water_debye_load(p) if debye else water_block(p) if heating else None
+    sar = heating or debye
+    run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml)
     s = initial_state(p, dev)
-    power = zero_power_acc(p, dev) if heating else None
+    power = zero_power_acc(p, dev) if sar else None
     psi = init_psi(p, pml, dev) if pml is not None else None
-    run(s, (ts[:warm], amps[:warm]), power, psi)
+    pol = zero_polarization(p, dev) if debye else None
+    run(s, (ts[:warm], amps[:warm]), power, psi, pol)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power, psi)
+    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power, psi, pol)
     torch.cuda.synchronize(dev)
     wall = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(s, (ts[warm + steps :], amps[warm + steps :]), power, psi)
+        run(s, (ts[warm + steps :], amps[warm + steps :]), power, psi, pol)
         torch.cuda.synchronize(dev)
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     by_group: dict[str, float] = {}
@@ -128,7 +135,7 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         by_group[diagnostics.SAR_LABEL] = sar_ms
         by_group["other"] = by_group.get("other", 0.0) - sar_ms
     return {
-        "scene": "heating" if heating else "pml" if pml is not None else "vacuum",
+        "scene": "dispersive" if debye else "heating" if heating else "pml" if pml is not None else "vacuum",
         "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
@@ -158,7 +165,8 @@ def main(argv=None) -> int:
             for backend in args.backends:
                 rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
                               heating=name == "heating",
-                              pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None)
+                              pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None,
+                              debye=name == "dispersive")
                 rec["card"] = card
                 print(json.dumps(rec), flush=True)
     return 0

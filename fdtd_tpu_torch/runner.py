@@ -12,9 +12,13 @@ Materials (lossy and heterogeneous-mu_r media), the SAR accumulation and
 the CPML open boundary (``pml``) run on every backend; with CPML the psi
 state rides beside the fields, goes into checkpoints as ``aux_psi_<term>``
 (the JAX package's keys and shapes) and comes back on resume, and the
-energy log adds the radiated power ``radiated_W``.  Sharding, DFT monitors
-and probes are not ported and raise ``NotImplementedError`` naming their
-ROADMAP item.
+energy log adds the radiated power ``radiated_W``.  Debye media (a
+``DebyeMaterials`` as ``materials``) carry their polarization the same way:
+``aux_pol_x/y/z`` in checkpoints (the JAX package's keys), restored on
+resume, and ``RunResult.pol``; with ``accumulate_power`` the SAR map is
+their true dielectric and ionic work.  Sharding, DFT monitors and probes
+are not ported and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from .io.checkpoint import CheckpointWriter, from_host, latest_checkpoint, load_
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
 from .ops import stream_plan
 from .ops.cpml import PMLConfig, PsiState, init_psi, psi_shapes
+from .ops.dispersive import DebyeMaterials, PolState, zero_polarization
 from .params import Mode, Params, time_values
 from .state import FieldState, Materials, init_validation, zeros
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
@@ -55,6 +60,7 @@ class RunResult:
     power_j: torch.Tensor | None = None
     warnings: list[str] = dataclasses.field(default_factory=list)
     psi: PsiState | None = None
+    pol: PolState | None = None
 
 
 def resolve_device(device) -> torch.device:
@@ -69,8 +75,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def resolve_backend(p: Params, backend: str, device, materials: Materials | None = None,
-                    accumulate_power: bool = False, pml: PMLConfig | None = None) -> str:
+def resolve_backend(p: Params, backend: str, device, materials: Materials | DebyeMaterials | None = None,
+                    accumulate_power: bool = False, pml: PMLConfig | None = None,
+                    log: Callable[[str], None] | None = None) -> str:
     """Resolve ``auto`` and refuse combinations the kernels do not run.
 
     ``auto`` runs ``stream`` (the streaming sweep kernel) on a CUDA device
@@ -90,10 +97,14 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | None
     ``stream`` when no plan fits, and ``twopass`` (picked or asked for)
     when its state, material arrays, psi and temporaries do not fit either
     (``stream_plan.twopass_fits``).
+
+    Debye media (:func:`_resolve_debye`) have gates of their own.
     """
     dev = torch.device(device)
     if backend not in BACKEND_CHOICES:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
+    if isinstance(materials, DebyeMaterials):
+        return _resolve_debye(p, backend, dev, accumulate_power, pml, log)
     kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     lossy = materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
@@ -124,6 +135,57 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | None
             "materials stream in computation mode only, SAR needs materials, and the CPML "
             "sweep takes computation mode, uniform mu_r, no SAR and a source patch clear of "
             "the j and i slabs; use --backend twopass"
+        )
+    return backend
+
+
+def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: PMLConfig | None,
+                   log: Callable[[str], None] | None) -> str:
+    """The backend of a Debye scene.  The ADE kernels take what the JAX
+    package's dispersive Pallas tier takes (``dispersive_fused_supported``:
+    computation mode, float32 or bfloat16) and no CPML: Debye x CPML has no
+    kernel in either package, so ``auto`` runs it on ``torch`` with a
+    notice (the JAX package runs its xla scan there), and an explicit
+    ``twopass`` or ``stream`` raises ``ValueError``, as it does in
+    validation mode, in float64, on the CPU and where the arrays do not
+    fit.  Otherwise ``auto`` picks ``stream`` when its plan fits, else
+    ``twopass``."""
+    on_card = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
+    gates = on_card and stream_plan.ade_gates(p, pml=pml)
+    free = _free_memory(dev)
+    if backend == "auto":
+        if not on_card:
+            return "torch"
+        if pml is not None:
+            if log is not None:
+                log("notice: dispersive media under --pml run the torch ADE+CPML ops (no kernel composes "
+                    "them; the JAX package runs its xla scan there)")
+            return "torch"
+        if not gates:
+            if log is not None:
+                log("notice: the dispersive kernels need computation mode and float32/bfloat16; "
+                    "running the torch ADE ops")
+            return "torch"
+        backend = "stream" if stream_plan.supported(p, free, sar=sar, ade=True) else "twopass"
+    if backend in ("twopass", "stream") and not gates:
+        why = ("Debye media with CPML run the torch ADE+CPML ops (no kernel composes them)"
+               if pml is not None and on_card else
+               f"the dispersive kernels run on a CUDA device in computation mode and float32 or bfloat16 "
+               f"(got device {dev}, {p.mode.name.lower()} mode, dtype {p.dtype})")
+        raise ValueError(f"{why}; use --backend torch")
+    if backend == "twopass" and not stream_plan.twopass_fits(p, free, sar=sar, ade=True):
+        need = stream_plan.twopass_bytes(p, sar=sar, ade=True)
+        mem = stream_plan.DEVICE_BYTES if free is None else free
+        raise ValueError(
+            f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} Debye does not fit in device memory: the twopass "
+            f"kernels need {need / 1e9:.1f} GB (the state, P, the 15 ADE maps, sigma, the work arrays "
+            f"and the temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
+            f"{stream_plan.MEMORY_MARGIN * mem / 1e9:.1f} GB; use a coarser grid or bfloat16"
+        )
+    if backend == "stream" and not stream_plan.supported(p, free, sar=sar, ade=True):
+        raise ValueError(
+            f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} Debye: the sweep needs a second "
+            "copy of the state and of P beside the 15 ADE maps in device memory; use --backend twopass"
         )
     return backend
 
@@ -177,10 +239,11 @@ def run_simulation(
         if on:
             raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
     p.validate()
-    if pml is not None and accumulate_power and (materials is None or materials.is_vacuum):
+    debye = isinstance(materials, DebyeMaterials)
+    if pml is not None and accumulate_power and not debye and (materials is None or materials.is_vacuum):
         raise ValueError("--sar needs lossy materials (e.g. --water-block)")
     dev = resolve_device(device)
-    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml)
+    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
     warnings: list[str] = []
@@ -199,6 +262,7 @@ def run_simulation(
     state = initial_state(p, dev)
     power = zero_power_acc(p, dev) if accumulate_power else None
     psi = init_psi(p, pml, dev) if pml is not None else None
+    pol = zero_polarization(p, dev) if debye else None
     start_step = 0
     if resume:
         ck = latest_checkpoint(out_dir)
@@ -212,6 +276,8 @@ def run_simulation(
                          "at this point")
             if pml is not None:
                 _resume_psi(ck, p, pml, psi, warn)
+            if debye:
+                _resume_pol(ck, p, pol, warn)
 
     ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
     writer = SnapshotWriter(p, out_dir) if write_snapshots else None
@@ -267,15 +333,17 @@ def run_simulation(
             if checkpoint_every:
                 boundary = min(boundary, next_mult(pos, checkpoint_every))
             end = min(boundary, n)
-            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power, psi)
+            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power, psi, pol)
             pos = end
             t_now = float(ts[pos - 1])
             if pos % rate == 0:
                 snapshot(state, pos, t_now)
                 log_diag(state, pos, t_now)
             if checkpoint_every and pos % checkpoint_every == 0:
-                aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else None
-                ckpt_writer.submit(state, pos, t_now, power, aux)
+                aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else {}
+                if pol is not None:
+                    aux.update(zip(("pol_x", "pol_y", "pol_z"), pol.tensors()))
+                ckpt_writer.submit(state, pos, t_now, power, aux or None)
         _sync(dev)
         wall = time.perf_counter() - t0
     finally:
@@ -288,7 +356,7 @@ def run_simulation(
 
     steps_done = n - start_step
     mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
-    return RunResult(state, n, wall, mcells, power, warnings, psi)
+    return RunResult(state, n, wall, mcells, power, warnings, psi, pol)
 
 
 def _resume_psi(ck: str, p: Params, pml: PMLConfig, psi: PsiState, warn: Callable[[str], None]) -> None:
@@ -305,3 +373,17 @@ def _resume_psi(ck: str, p: Params, pml: PMLConfig, psi: PsiState, warn: Callabl
     else:
         warn("checkpoint has no (or differently-shaped) CPML psi state; the absorber memory "
              "restarts from zero (fields in the slabs will see a transient)")
+
+
+def _resume_pol(ck: str, p: Params, pol: PolState, warn: Callable[[str], None]) -> None:
+    """Load the ``aux_pol_x/y/z`` arrays of checkpoint ``ck`` into ``pol``;
+    where they are missing (or have another shape) P restarts from zero
+    with the JAX package's warning."""
+    aux = load_aux(ck)
+    names = ("pol_x", "pol_y", "pol_z")
+    if all(n in aux and aux[n].shape == p.padded_shape for n in names):
+        for n, t in zip(names, pol.tensors()):
+            t.copy_(from_host(aux[n], t.dtype, t.device))
+    else:
+        warn("checkpoint has no polarization state; the Debye memory restarts from zero (the medium "
+             "will see a transient)")

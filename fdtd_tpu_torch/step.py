@@ -44,6 +44,21 @@ each pass in the JAX package's xla order; ``twopass`` runs the CPML
 variants of the two-pass kernels; ``stream`` the CPML sweeps (psi written
 into a second set and swapped back, like the state), with the trailing
 ``n % s`` steps on the two-pass CPML kernels, on the same psi tensors.
+
+Debye media (a :class:`~fdtd_tpu_torch.ops.dispersive.DebyeMaterials` as
+``materials``) run on all three backends too, with the polarization
+(:class:`~fdtd_tpu_torch.ops.dispersive.PolState`,
+:func:`~fdtd_tpu_torch.ops.dispersive.zero_polarization`) beside the
+state, advanced in place: ``step(state, x, pol)`` and ``run(state, xs,
+power, psi, pol)``.  The H pass is the vacuum one; ``torch`` runs the ADE E
+update of ``ops/dispersive.py``, ``twopass`` the ADE E kernel, ``stream``
+the ADE sweep (P written into a second set and swapped back), with the
+trailing ``n % s`` steps on the two-pass kernels.  With
+``accumulate_power`` each step adds the Debye work of its E pass
+(``diagnostics.accumulate_work``; inside the sweep on ``stream``).  Debye
+media with CPML run on ``torch`` only
+(``dispersive.make_dispersive_pml_step``: the JAX package has no kernel
+for them either).
 """
 
 from __future__ import annotations
@@ -54,8 +69,9 @@ import numpy as np
 import torch
 
 from . import diagnostics
-from .ops import cpml, curl, stream, stream_plan, yee
+from .ops import cpml, curl, dispersive, stream, stream_plan, yee
 from .ops.cpml import PMLConfig, PsiState
+from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState
 from .params import Mode, Params
 from .source import (apply_source, drive_values, make_source_plan, profile_tensor,
                      sweep_drive_rows)
@@ -66,11 +82,14 @@ BACKENDS = ("torch", "twopass", "stream")
 Step = Callable[..., None]
 
 
-def make_step(p: Params, device, materials: Materials | None = None,
+def make_step(p: Params, device, materials: Materials | DebyeMaterials | None = None,
               backend: str = "torch", coefs: UpdateCoefs | None = None,
               pml: PMLConfig | None = None) -> Step:
     """Build ``step(state, (t, amp))``, which advances ``state`` in place;
-    with ``pml``, ``step(state, (t, amp), psi)``, which advances psi too.
+    with ``pml``, ``step(state, (t, amp), psi)``, which advances psi too;
+    in a Debye medium, ``step(state, (t, amp), pol, psi=None, work=None)``,
+    which advances the polarization (and writes the E pass's edge work
+    into ``work``, :func:`~fdtd_tpu_torch.ops.dispersive.zero_work`).
 
     ``amp`` is the drive amplitude sin(2*pi*f*t) (see :func:`scan_inputs`),
     a Python float or a 0-d fp64 tensor on ``device``; validation mode
@@ -84,6 +103,8 @@ def make_step(p: Params, device, materials: Materials | None = None,
     if backend in ("twopass", "stream") and p.dtype == "float64":
         raise ValueError(f"the {backend} kernels store float32 or bfloat16; "
                          "float64 runs on the torch backend")
+    if isinstance(materials, DebyeMaterials):
+        return _debye_step(p, device, dispersive.debye_coefs(p, materials, device), backend, pml)
     if coefs is None:
         coefs = update_coefs(p, materials, device)
     plan = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
@@ -120,6 +141,47 @@ def _kernel_step(p: Params, coefs: UpdateCoefs, plan, profile, cp: cpml.Cpml | N
     return step
 
 
+def _debye_step(p: Params, device, dc: DebyeCoefs, backend: str, pml: PMLConfig | None) -> Step:
+    """The step of a Debye medium: ``step(s, x, pol, psi=None, work=None)``.
+    ``torch``: the reference order with the ADE E update (with ``pml``,
+    :func:`~fdtd_tpu_torch.ops.dispersive.make_dispersive_pml_step`);
+    ``twopass`` and ``stream``: the source once, the vacuum H kernel and
+    the ADE E kernel."""
+    if pml is not None:
+        if backend != "torch":
+            raise ValueError(f"Debye media with CPML run the torch ADE+CPML ops, not the {backend} kernels "
+                             "(the JAX package has no kernel for them either); use --backend torch")
+        pml_step = dispersive.make_dispersive_pml_step(p, dc, pml, device)
+
+        def step(s: FieldState, x, pol: PolState, psi: PsiState | None = None, work=None) -> None:
+            _need_psi(pml, psi)
+            pml_step(s, x, pol, psi, work)
+
+        return step
+    hcoefs = update_coefs(p)  # the vacuum H factor
+    plan = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
+    profile = profile_tensor(plan, device) if plan is not None else None
+    if backend == "torch":
+        def step(s: FieldState, x, pol: PolState, psi: PsiState | None = None, work=None) -> None:
+            if plan is not None:
+                apply_source(plan, s, x[1], profile)
+            curl.update_h(p, s, hcoefs)
+            if plan is not None:
+                apply_source(plan, s, x[1], profile)
+            dispersive.update_e_ade(p, s, pol, dc, work)
+
+        return step
+    patch = plan.patch if plan is not None else None
+
+    def kernel_step(s: FieldState, x, pol: PolState, psi: PsiState | None = None, work=None) -> None:
+        if plan is not None:
+            apply_source(plan, s, x[1], profile)
+        yee.update_h(p, s, hcoefs, patch)
+        yee.update_e_ade(p, s, pol, dc, work)
+
+    return kernel_step
+
+
 def zero_power_acc(p: Params, device) -> torch.Tensor:
     """The fp32 (maxk, maxj, maxi) deposited-energy accumulator (J/m^3),
     zero."""
@@ -137,49 +199,64 @@ def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
     return times, amps
 
 
-def make_chunk_runner(p: Params, device, materials: Materials | None = None,
+def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials | None = None,
                       backend: str = "torch", stream_s: int | None = None,
                       accumulate_power: bool = False, pml: PMLConfig | None = None):
-    """``run(state, xs, power=None, psi=None)``: advance ``state`` in place
-    over the chunk ``xs = (times, amps)`` of :func:`scan_inputs`, and with
-    ``accumulate_power`` add each step's deposition to ``power`` (the fp32
-    map of :func:`zero_power_acc`) in place; with ``pml`` advance ``psi``
-    (:func:`~fdtd_tpu_torch.ops.cpml.init_psi`) in place too; returns
+    """``run(state, xs, power=None, psi=None, pol=None)``: advance ``state``
+    in place over the chunk ``xs = (times, amps)`` of :func:`scan_inputs`,
+    and with ``accumulate_power`` add each step's deposition to ``power``
+    (the fp32 map of :func:`zero_power_acc`) in place; with ``pml`` advance
+    ``psi`` (:func:`~fdtd_tpu_torch.ops.cpml.init_psi`) in place too, and
+    in a Debye medium ``pol``
+    (:func:`~fdtd_tpu_torch.ops.dispersive.zero_polarization`); returns
     ``state``.  ``stream_s`` forces the steps per sweep of the ``stream``
     backend (still checked to fit).
 
     The amplitudes go to the device once per chunk; the loop itself only
     enqueues work, with no host synchronisation inside it.
     """
-    coefs = update_coefs(p, materials, device)
+    debye = isinstance(materials, DebyeMaterials)
+    dc = dispersive.debye_coefs(p, materials, device) if debye else None
+    coefs = update_coefs(p, None if debye else materials, device)
     if backend == "stream":
         plan = stream_plan.pick_plan(p, s=stream_s, lossy=coefs.lossy, het=coefs.heterogeneous_mu,
-                                     sar=accumulate_power, pml=pml)
+                                     sar=accumulate_power, pml=pml, ade=debye)
         if plan is None:
+            kind = "Debye" if debye else "materials" if coefs.lossy else "vacuum"
             raise ValueError(
                 f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} "
-                f"({'materials' if coefs.lossy else 'vacuum'}, {p.mode.name.lower()} mode"
+                f"({kind}, {p.mode.name.lower()} mode"
                 f"{', SAR' if accumulate_power else ''}{', CPML' if pml else ''}): the sweep needs a "
-                "second copy of the state in device memory, materials stream in computation mode "
-                "only, SAR needs materials, and the CPML sweep takes computation mode, uniform mu_r, "
-                "no SAR and a source patch clear of the j and i slabs"
+                "second copy of the state in device memory, materials and Debye media stream in "
+                "computation mode only, SAR needs materials, the CPML sweep takes computation mode, "
+                "uniform mu_r, no SAR and a source patch clear of the j and i slabs, and Debye media "
+                "with CPML run on the torch backend"
             )
         cp = cpml.make_cpml(p, pml, coefs, device) if pml is not None else None
-        return _stream_chunk_runner(p, device, plan, coefs, accumulate_power, cp)
-    step = make_step(p, device, backend=backend, coefs=coefs, pml=pml)
+        return _stream_chunk_runner(p, device, plan, coefs, accumulate_power, cp, dc)
+    if debye:
+        step = _debye_step(p, device, dc, backend, pml)
+    else:
+        step = make_step(p, device, backend=backend, coefs=coefs, pml=pml)
+    work = dispersive.zero_work(p, device) if debye and accumulate_power else None
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
-            psi: PsiState | None = None) -> FieldState:
+            psi: PsiState | None = None, pol: PolState | None = None) -> FieldState:
         _need_power(accumulate_power, power)
         _need_psi(pml, psi)
+        _need_pol(dc, pol)
         ts, amps = xs
         amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
         for n in range(len(ts)):
-            if pml is not None:
+            if debye:
+                step(s, (ts[n], amps_dev[n]), pol, psi, work)
+            elif pml is not None:
                 step(s, (ts[n], amps_dev[n]), psi)
             else:
                 step(s, (ts[n], amps_dev[n]))
-            if accumulate_power:
+            if work is not None:
+                diagnostics.accumulate_work(p, work, power)
+            elif accumulate_power:
                 diagnostics.accumulate_power(p, s, coefs.sigma_cells, power)
         return s
 
@@ -196,21 +273,32 @@ def _need_psi(pml, psi) -> None:
         raise ValueError("a CPML chunk needs its psi state (ops.cpml.init_psi)")
 
 
+def _need_pol(dc, pol) -> None:
+    if dc is not None and pol is None:
+        raise ValueError("a Debye chunk needs its polarization (ops.dispersive.zero_polarization)")
+
+
 def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs: UpdateCoefs,
-                         accumulate_power: bool, cp: cpml.Cpml | None):
+                         accumulate_power: bool, cp: cpml.Cpml | None, dc: DebyeCoefs | None = None):
     """``n // s`` sweeps of the stream kernel, then ``n % s`` twopass steps
     (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``); with CPML
-    (``cp``) each sweep writes psi into a second set, swapped back."""
+    (``cp``) each sweep writes psi into a second set, swapped back, and in
+    a Debye medium (``dc``) the polarization likewise."""
     s_steps = plan.s
     src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(src, device) if src is not None else None
-    odd_step = _kernel_step(p, coefs, src, profile, cp)
-    spare: list = []  # the second state (and psi set), allocated at first use
+    if dc is not None:
+        odd_step = _debye_step(p, device, dc, "twopass", None)
+    else:
+        odd_step = _kernel_step(p, coefs, src, profile, cp)
+    spare: list = []  # the second state (and psi or P set), allocated at first use
+    trailing_work: list = []  # the Debye SAR's edge work of the trailing steps, at first use
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
-            psi: PsiState | None = None) -> FieldState:
+            psi: PsiState | None = None, pol: PolState | None = None) -> FieldState:
         _need_power(accumulate_power, power)
         _need_psi(cp, psi)
+        _need_pol(dc, pol)
         acc = power if accumulate_power else None
         ts, amps = xs
         n = len(ts)
@@ -220,8 +308,9 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
             if not spare or spare[0].ex.shape != s.ex.shape or spare[0].ex.dtype != s.ex.dtype \
                     or spare[0].ex.device != s.ex.device:
                 spare[:] = [FieldState(*(torch.empty_like(t) for t in s.tensors())),
-                            psi.clone() if cp is not None else None]
-            out, psi_out = spare
+                            psi.clone() if cp is not None else None,
+                            pol.clone() if dc is not None else None]
+            out, psi_out, pol_out = spare
             if src is not None:
                 ez_rows, hx_rows = sweep_drive_rows(src, amps_dev, s_steps, s.ex.dtype, profile)
             for g in range(n_sw):
@@ -229,16 +318,25 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
                 if src is not None:
                     apply_source(src, s, amps_dev[g * s_steps], profile)
                     drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
-                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out)
+                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out)
                 s.swap(out)
                 if cp is not None:
                     psi.swap(psi_out)
+                if dc is not None:
+                    pol.swap(pol_out)
+        if dc is not None and acc is not None and n % s_steps and not trailing_work:
+            trailing_work.append(dispersive.zero_work(p, device))
+        work = trailing_work[0] if trailing_work else None
         for r in range(n_sw * s_steps, n):
-            if cp is not None:
+            if dc is not None:
+                odd_step(s, (ts[r], amps_dev[r]), pol, None, work)
+            elif cp is not None:
                 odd_step(s, (ts[r], amps_dev[r]), psi)
             else:
                 odd_step(s, (ts[r], amps_dev[r]))
-            if acc is not None:
+            if work is not None:
+                diagnostics.accumulate_work(p, work, acc)
+            elif acc is not None:
                 diagnostics.accumulate_power(p, s, coefs.sigma_cells, acc)
         return s
 
