@@ -70,10 +70,28 @@ package beside it.  Phases, each printing one line or more:
    device memory against its model and the verdicts at 512^3 and 1024^3,
    and Debye x CPML on the card (torch ops: a 256^3 --pml 10 run, finite,
    and the ring-down of tests/test_dispersive.py at 32^3, absorbing);
+6d. the monitor path (--dft, --probe) at full size: the dft_accum kernel
+   (fp32 and bf16, nf = 1, 2 and 3, ragged and 256^3) and the DFT bands of
+   every sweep variant (fp32 and bf16, nf = 1 and 2, ragged tiles and the
+   256^3 plans; fields, sums from random starting sums, SAR map, psi and
+   P) against their plain versions bit for bit; then the CLI on
+   configs/heating_256.txt --water-block --sar --dft 2.45e10 (auto picks
+   the lossy + SAR sweep with the bands; dft_00.vtr and sar.vtr), 1000
+   steps of the heating scene, of --pml 10 and of the Debye scene with
+   --dft 2.45e10 through stream and through twopass + dft_accum (launch
+   counts; phasors, fields, SAR, psi and P equal bit for bit), 66 or 67
+   steps of every variant with nf = 2 (trailing two-pass steps with
+   dft_accum) through stream, twopass and torch, and three probes with
+   --dft-fields eh on twopass and torch (bit for bit; the CLI's
+   probes.csv layout with two);
 7. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
-   bf16, vacuum, heating, --pml 10 and dispersive, and each kernel's time
-   beside its plain version's and its bound, and every vacuum stream
-   plan's.
+   bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
+   (nf = 1), and each kernel's time beside its plain version's and its
+   bound, and every vacuum stream plan's.
+
+Each phase prints its seconds; the Debye maps (host fp64, several
+seconds at 256^3) are built once per scene and dtype and passed to the
+runners.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -135,7 +153,10 @@ def main() -> None:
     from fdtd_tpu_torch.grid import COMPONENTS
     from concurrent.futures import ThreadPoolExecutor
 
+    from fdtd_tpu_torch.dft import DftConfig, dft_weights, zero_dft_acc
+    from fdtd_tpu_torch.monitors import ProbeSet
     from fdtd_tpu_torch.ops import build, cpml, curl, stream, stream_plan, yee
+    from fdtd_tpu_torch.ops import dft as dft_ops
     from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState, init_psi, make_cpml, psi_shapes
     from fdtd_tpu_torch.ops.dispersive import (DebyeMaterials, PolState, debye_coefs, update_e_ade,
                                                water_debye_load, zero_polarization, zero_work)
@@ -147,6 +168,14 @@ def main() -> None:
     from fdtd_tpu_torch.step import make_chunk_runner, scan_inputs, zero_power_acc
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase[0]:.1f} s (total {now - t_start:.1f} s)", flush=True)
+        t_phase[0] = now
+
     PML_CHECK = PMLConfig(cells=6)  # the kernel checks' absorber
     PML10 = PMLConfig(cells=10)  # --pml 10
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -166,7 +195,7 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = (yee.KERNEL_SOURCE, stream.KERNEL_SOURCE)
+    sources = (yee.KERNEL_SOURCE, stream.KERNEL_SOURCE, dft_ops.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         lib_paths = list(pool.map(build.build, sources))
     build_s = time.perf_counter() - t0
@@ -176,6 +205,7 @@ def main() -> None:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {lib_path.name}: {line.strip()}")
     print(f"build: {', '.join(lp.name for lp in lib_paths)} in {build_s:.2f} s", flush=True)
+    phase_done("1-2 device and build")
 
     # -- 3. kernel vs plain ------------------------------------------------
     max_err: dict[str, float] = {}
@@ -355,10 +385,11 @@ def main() -> None:
                   f"{name} == update_e_ade over {steps} steps, fields, P ({moved} of 3 moved)"
                   f"{' and work' if sar else ''}, {label}: max|diff| = {err!r}")
 
-    def compare_sweep_ade(p: Params, arrays: dict, label: str, dm, sar: bool) -> None:
+    def compare_sweep_ade(p: Params, arrays: dict, label: str, dm, sar: bool, dc=None) -> None:
         """One ADE sweep at the depth its variant is built at against
-        plain_sweep: fields, both P sets and the SAR map."""
-        dc, coefs = debye_coefs(p, dm, dev), update_coefs(p)
+        plain_sweep: fields, both P sets and the SAR map (``dc``: the maps
+        of ``dm``, built here when None)."""
+        dc, coefs = dc or debye_coefs(p, dm, dev), update_coefs(p)
         plan = stream_plan.pick_plan(p, sar=sar, ade=True)
         st, drive, _ = sweep_inputs(p, arrays, plan.s)
         pol = random_pol(p, dc)
@@ -459,16 +490,21 @@ def main() -> None:
             compare_sweep(pd, arrays, plan_m.s, f"{dtype} {scene_m} random 256^3, its plan", coefs_m, True)
             del coefs_m
         # the Debye plans (--water-block --dispersive, with and without --sar)
+        dm_d = water_debye_load(pd)
+        dc_d = debye_coefs(pd, dm_d, dev)
         for sar in (False, True):
-            compare_sweep_ade(pd, arrays, f"{dtype} Debye random 256^3, its plan", water_debye_load(pd), sar)
-        del arrays
+            compare_sweep_ade(pd, arrays, f"{dtype} Debye random 256^3, its plan", dm_d, sar, dc_d)
+        del arrays, dc_d
+
+    phase_done("3 kernels vs plain")
 
     def counts_now() -> dict:
-        return {**yee.launches, **stream.launches}
+        return {**yee.launches, **stream.launches, **dft_ops.launches}
 
     def reset_counts() -> None:
         yee.reset_launches()
         stream.reset_launches()
+        dft_ops.reset_launches()
 
     def expect(**nonzero) -> dict:
         """Every launch counter 0 except those named."""
@@ -513,6 +549,7 @@ def main() -> None:
     check(abs(e1 - e0) / e0 < 2e-3, f"validation through stream energy drift {abs(e1 - e0) / e0!r} < 2e-3")
     want = expect(yee_update_h=n % s_val, yee_update_e=n % s_val, yee_stream=n // s_val)
     check(counts == want, f"validation through stream launch counts {counts} == {want}")
+    phase_done("4 validation")
 
     # -- 5. the main path at 256^3 -----------------------------------------
     with tempfile.TemporaryDirectory() as out:
@@ -562,27 +599,31 @@ def main() -> None:
     del finals
 
     def equal_runs(pm: Params, steps: int, backends: tuple, mats=None, sar: bool = False,
-                   label: str = "", pml: PMLConfig | None = None) -> dict:
+                   label: str = "", pml: PMLConfig | None = None, dft=None, dc=None) -> dict:
         """``steps`` steps of each backend from the mode's initial state
         (with materials or CPML: from random fields, so that every cell of
         the load deposits, and every psi term engages, from the first
         step); the fields (and SAR maps, with ``pml`` the twelve psi, in a
-        Debye medium P) must be equal.  Returns each backend's launch
-        counts."""
-        ts, amps = scan_inputs(pm, time_values(pm)[:steps])
+        Debye medium P, with ``dft`` the phasor sums) must be equal.
+        ``dc``: the Debye maps of ``mats``, when built.  Returns each
+        backend's launch counts."""
+        tv = time_values(pm)[:steps]
+        ts, amps = scan_inputs(pm, tv)
+        xs = (ts, amps) + (dft_weights(dft, tv) if dft is not None else ())
         init = None
         if mats is not None or pml is not None:
             init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
         debye = isinstance(mats, DebyeMaterials)
-        states, powers, counts, psis, pols = {}, {}, {}, {}, {}
+        states, powers, counts, psis, pols, daccs = {}, {}, {}, {}, {}, {}
         for backend in backends:
             s = initial_state(pm, dev) if init is None else state_from_numpy(init, dev, field_dtype(pm))
             powers[backend] = zero_power_acc(pm, dev) if sar else None
             psis[backend] = init_psi(pm, pml, dev) if pml is not None else None
             pols[backend] = zero_polarization(pm, dev) if debye else None
+            daccs[backend] = zero_dft_acc(pm, dft, dev) if dft is not None else None
+            run_b = make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft, dc=dc)
             reset_counts()
-            make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml)(
-                s, (ts, amps), powers[backend], psis[backend], pols[backend])
+            run_b(s, xs, powers[backend], psis[backend], pols[backend], daccs[backend])
             torch.cuda.synchronize()
             counts[backend] = counts_now()
             states[backend] = s
@@ -598,6 +639,8 @@ def main() -> None:
                 d = max(d, maxdiff(psis[a], psis[b]))
             if debye:
                 d = max(d, maxdiff(pols[a], pols[b]))
+            if dft is not None:
+                d = max(d, maxdiff(daccs[a], daccs[b]))
             d_acc = float((powers[a] - powers[b]).abs().max()) if sar else 0.0
             sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].abs().max())!r})" if sar else ""
             check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].abs().max()) > 0),
@@ -611,6 +654,7 @@ def main() -> None:
     p512 = dataclasses.replace(p512, length=0.512, width=0.512, height=0.512)
     equal_runs(p512, 16, ("stream", "twopass"))
     torch.cuda.empty_cache()
+    phase_done("5 main path")
 
     # -- 6. the heating path at 256^3 --------------------------------------
     ph = load_parameters("configs/heating_256.txt", dtype="float32")
@@ -711,6 +755,7 @@ def main() -> None:
                              f"{model} B ({peak / model!r} of it)")
     del s_m, pw_m
     torch.cuda.empty_cache()
+    phase_done("6 heating path")
     p1024 = dataclasses.replace(ph, length=1.024, width=1.024, height=1.024)
     need_tp = stream_plan.twopass_bytes(p1024, True, True, True)
     need_st = 2 * stream_plan.state_bytes(p1024) + stream_plan.material_bytes(p1024, True, True, True) \
@@ -849,8 +894,11 @@ def main() -> None:
               f"gaussian ring-down 24^3 x {PML_STEPS_RINGDOWN} steps through {backend} (4-cell CPML): "
               f"E_end/E_mid = {e_end / e_mid!r} < 2e-2; launches {used}")
 
+    phase_done("6b CPML path")
+
     # -- 6c. the Debye path at 256^3 (--water-block --dispersive --sar) -----
     debye = water_debye_load(ph)
+    dc_debye = debye_coefs(ph, debye, dev)  # built once for every run of the scene
     ade_plan = stream_plan.pick_plan(ph, sar=True, ade=True)
     s_ade = ade_plan.s
     print(f"Debye + SAR plan at 256^3: {ade_plan} ({ade_plan.blocks} blocks of {ade_plan.threads} threads, "
@@ -892,7 +940,7 @@ def main() -> None:
     for backend in ("twopass", "stream"):
         reset_counts()
         res = run_simulation(ph, dev, materials=debye, accumulate_power=True, write_snapshots=False,
-                             backend=backend, log=lambda m: None)
+                             backend=backend, log=lambda m: None, dc=dc_debye)
         counts = counts_now()
         want = (expect(yee_update_h=nh, yee_update_e_ade_sar=nh) if backend == "twopass" else
                 expect(yee_update_h=nh % s_ade, yee_update_e_ade_sar=nh % s_ade, yee_stream_ade_sar=nh // s_ade))
@@ -921,7 +969,7 @@ def main() -> None:
         e_name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
         check(steps_d % s_d != 0, f"{steps_d} steps leave {steps_d % s_d} trailing two-pass steps at s={s_d}")
         counts = equal_runs(ph, steps_d, ("stream", "twopass", "torch"), debye, sar,
-                            f"--dispersive{' --sar' if sar else ''} ")
+                            f"--dispersive{' --sar' if sar else ''} ", dc=dc_debye)
         check(counts["stream"] == expect(**{name: steps_d // s_d, "yee_update_h": steps_d % s_d,
                                             e_name: steps_d % s_d})
               and counts["twopass"] == expect(yee_update_h=steps_d, **{e_name: steps_d})
@@ -936,7 +984,7 @@ def main() -> None:
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     s_m, pw_m, pol_m = initial_state(ph, dev), zero_power_acc(ph, dev), zero_polarization(ph, dev)
-    make_chunk_runner(ph, dev, debye, "twopass", accumulate_power=True)(
+    make_chunk_runner(ph, dev, debye, "twopass", accumulate_power=True)(  # the maps count: built here
         s_m, scan_inputs(ph, time_values(ph)[:4]), pw_m, None, pol_m)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
@@ -989,6 +1037,264 @@ def main() -> None:
           f"Debye cube ring-down 32^3 x 400 steps (torch, 8-cell CPML): E/E_0 dielectric {e_d / e0!r}, "
           f"radiation {e_r / e0!r}, both {e_b / e0!r}")
 
+    phase_done("6c Debye path")
+
+    # -- 6d. the monitor path at 256^3 (--dft, --probe) ---------------------
+    DFT1 = DftConfig((2.45e10,))  # --dft 2.45e10
+    DFT2 = DftConfig((2.45e10, 1.5e10))  # two frequencies, as the JAX tests use
+
+    def random_sums(pm: Params, nf: int) -> tuple:
+        shape = (nf, 3, pm.maxk, pm.maxj, pm.maxi)
+        return tuple(torch.tensor(rng.uniform(-1.0, 1.0, shape), dtype=torch.float32, device=dev) for _ in range(2))
+
+    def compare_k4(pm: Params, nf: int, label: str) -> None:
+        """dft_accum against its plain version from random fields and sums."""
+        st = state_from_numpy({c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS},
+                              dev, field_dtype(pm))
+        d0 = random_sums(pm, nf)
+        w = torch.tensor(rng.uniform(-1.0, 1.0, (2, nf)), dtype=torch.float32, device=dev)
+        k, q = tuple(t.clone() for t in d0), tuple(t.clone() for t in d0)
+        dft_ops.accumulate_e(pm, st, w, k)
+        dft_ops.plain_accumulate_e(pm, st, w, q)
+        torch.cuda.synchronize()
+        d, moved = maxdiff(k, q), float((q[0] - d0[0]).abs().max())
+        record_err("dft_accum", d)
+        check(d == 0.0 and moved > 0, f"dft_accum == plain, {label} nf={nf}: sums max|diff| = {d!r} (moved {moved!r})")
+        del st, d0, k, q
+
+    def compare_sweep_dft(pm: Params, arrays: dict, label: str, mats=None, sar: bool = False,
+                          pml: PMLConfig | None = None, nf: int = 1, dc=None) -> None:
+        """One sweep with the DFT bands at its variant's plan against
+        plain_sweep, from random sums (and psi, P, SAR map): fields, sums,
+        map, psi and P."""
+        cfg = DFT1 if nf == 1 else DFT2
+        debye_m = isinstance(mats, DebyeMaterials)
+        dc = dc or (debye_coefs(pm, mats, dev) if debye_m else None)
+        coefs = update_coefs(pm, None if debye_m else mats, dev)
+        plan = stream_plan.pick_plan(pm, lossy=coefs.lossy, het=coefs.heterogeneous_mu, sar=sar, pml=pml,
+                                     ade=debye_m, dft=cfg)
+        st, drive, _ = sweep_inputs(pm, arrays, plan.s)
+        cp = make_cpml(pm, pml, coefs, dev) if pml is not None else None
+        psi = random_psi(pm, pml) if pml is not None else None
+        pol = random_pol(pm, dc) if debye_m else None
+        acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (pm.maxk, pm.maxj, pm.maxi)), dtype=torch.float32, device=dev)
+                if sar else None)
+        d0 = random_sums(pm, nf)
+        wts = torch.tensor(rng.uniform(-1.0, 1.0, (plan.s, 2, nf)), dtype=torch.float32, device=dev)
+
+        def outs(nan: bool):
+            like = (lambda t: torch.full_like(t, float("nan"))) if nan else torch.empty_like
+            return (FieldState(*(like(t) for t in st.tensors())),
+                    PsiState(*(like(t) for t in psi.tensors())) if psi is not None else None,
+                    PolState(*(like(t) for t in pol.tensors())) if pol is not None else None,
+                    acc0.clone() if sar else None, tuple(t.clone() for t in d0))
+
+        ko, po = outs(True), outs(False)
+        stream.sweep(pm, st, ko[0], coefs, plan, drive, ko[3], cp, psi, ko[1], dc, pol, ko[2], ko[4], wts)
+        stream.plain_sweep(pm, st, coefs, plan.s, drive, po[0], po[3], cp, psi, po[1], dc, pol, po[2], po[4], wts)
+        torch.cuda.synchronize()
+        d = max(maxdiff(ko[0], po[0]), maxdiff(ko[4], po[4]),
+                maxdiff(ko[1], po[1]) if psi is not None else 0.0, maxdiff(ko[2], po[2]) if pol is not None else 0.0,
+                float((ko[3] - po[3]).abs().max()) if sar else 0.0)
+        moved = float((po[4][0] - d0[0]).abs().max())
+        record_err(plan.kernel, d)
+        K1, J1, I1 = pm.padded_shape
+        if K1 % plan.tk or J1 % plan.tj or I1 % plan.ti:
+            ragged.add((plan.kernel, plan.s, pm.padded_shape))
+        check(d == 0.0 and moved > 0,
+              f"{plan.kernel} == plain_sweep, s={plan.s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) {plan.blocks} "
+              f"blocks, {label} nf={nf}: fields, sums{', map' if sar else ''}{', psi' if psi else ''}"
+              f"{', P' if pol else ''} max|diff| = {d!r} (sums moved {moved!r})")
+
+    ragged.clear()
+    for dtype in ("float32", "bfloat16"):
+        pr_ = Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                     simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype=dtype)
+        arrays = {c: rng.uniform(-1.0, 1.0, pr_.padded_shape) for c in COMPONENTS}
+        wb_r, fe_r = water_block(pr_), ferrite_slab(pr_, base=water_block(pr_))
+        wide_r = water_block(pr_, lo=(0.02,) * 3, hi=(0.98,) * 3)
+        dm_r = water_debye_load(pr_, lo=(0.05,) * 3, hi=(0.95,) * 3, sigma_ion25=0.5)
+        dc_r = debye_coefs(pr_, dm_r, dev)
+        for nf in (1, 2, 3):
+            compare_k4(pr_, nf, f"{dtype} random {pr_.padded_shape}")
+        for nf in (1, 2):
+            lab = f"{dtype} random {pr_.padded_shape}"
+            compare_sweep_dft(pr_, arrays, lab, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " water", wb_r, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " water + SAR", wb_r, True, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " water + ferrite", fe_r, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " water + ferrite + SAR", fe_r, True, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " CPML", pml=PML_CHECK, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " water into the CPML slabs", wide_r, pml=PML_CHECK, nf=nf)
+            compare_sweep_dft(pr_, arrays, lab + " Debye", dm_r, nf=nf, dc=dc_r)
+            compare_sweep_dft(pr_, arrays, lab + " Debye + SAR", dm_r, True, nf=nf, dc=dc_r)
+        del arrays, dc_r
+        # the 256^3 plans of the monitor path's scenes
+        pd = dataclasses.replace(ph, dtype=dtype)
+        arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
+        compare_k4(pd, 1, f"{dtype} random 256^3")
+        dc_d = dc_debye if dtype == "float32" else debye_coefs(pd, debye, dev)
+        compare_sweep_dft(pd, arrays, f"{dtype} heating 256^3", water, True)
+        compare_sweep_dft(pd, arrays, f"{dtype} --pml 10 256^3", pml=PML10)
+        compare_sweep_dft(pd, arrays, f"{dtype} Debye + SAR 256^3", debye, True, dc=dc_d)
+        if dtype == "float32":
+            compare_sweep_dft(pd, arrays, f"{dtype} vacuum 256^3")
+            compare_sweep_dft(pd, arrays, f"{dtype} Debye 256^3", debye, dc=dc_d)
+        del arrays, dc_d
+        torch.cuda.empty_cache()
+    check(bool(ragged), f"DFT sweep tiles that do not divide the box were checked: {sorted(ragged)}")
+    phase_done("6d kernels vs plain")
+
+    # the CLI: heating with --dft (auto: the lossy + SAR sweep with the bands)
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(ph, dtype=dtype)
+        check(resolve_backend(pd, "auto", dev, water, True, dft=DFT1) == "stream"
+              and resolve_backend(pd, "auto", dev, pml=PML10, dft=DFT1) == "twopass"
+              and resolve_backend(pd, "stream", dev, pml=PML10, dft=DFT1) == "stream"
+              and resolve_backend(pd, "auto", dev, debye, True, dft=DFT1) == "stream",
+              f"--dft at 256^3 {dtype}: auto resolves to stream for heating and Debye, to twopass for --pml 10 "
+              "(stream when asked)")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block",
+                            "--sar", "--dft", "2.45e10", "--out", out], capture_output=True, text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        for line in lines[-4:]:
+            print(line)
+        dft_line = [line for line in lines if line.startswith("DFT phasors at")]
+        e_peak = float(dft_line[0].split("(peak |E| ")[1].split(",")[0]) if dft_line else float("nan")
+        dft_path, sar_path = os.path.join(out, "dft_00.vtr"), os.path.join(out, "sar.vtr")
+        check(r.returncode == 0 and "Simulation complete!" in r.stdout and os.path.exists(dft_path)
+              and os.path.exists(sar_path) and e_peak > 0,
+              f"CLI heating_256 --water-block --sar --dft 2.45e10 exit {r.returncode} in {cli_s:.1f} s: dft_00.vtr "
+              f"{os.path.getsize(dft_path) if os.path.exists(dft_path) else 0} B, e_mag peak {e_peak!r}, sar.vtr "
+              f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B {r.stderr.strip()[-300:]}")
+
+    def monitored_pair(pm: Params, backends: tuple, wants: dict, label: str, **kw) -> None:
+        """1000 steps of ``pm`` with --dft 2.45e10 through two backends:
+        launch counts as ``wants``, phasors, fields (SAR map, psi, P) equal
+        bit for bit."""
+        res_b = {}
+        for backend in backends:
+            reset_counts()
+            res = run_simulation(pm, dev, write_snapshots=False, backend=backend, dft=DFT1, log=lambda m: None, **kw)
+            counts = counts_now()
+            want = expect(**wants[backend])
+            check(counts == want and res.iterations == 1000,
+                  f"{label} --dft 2.45e10 {backend} launch counts {counts} == {want}")
+            for name in wants[backend]:
+                if name.endswith("_dft") or name == "dft_accum":
+                    main_counts[name] = counts[name]
+                    paths[name] = f"{label} --dft 2.45e10 {backend}"
+            peak = float(res.dft.magnitude(0).max())
+            check(np.isfinite(res.dft.phasors).all() and peak > 0 and res.dft.phasors.shape == (1, 3, pm.maxk, pm.maxj,
+                                                                                                  pm.maxi),
+                  f"{label} --dft 2.45e10 {backend}: phasors finite, shape {res.dft.phasors.shape}, |E| peak "
+                  f"{peak!r} ({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
+            res_b[backend] = res
+            del res
+        a, b = (res_b[x] for x in backends)
+        d = max(float(np.abs(a.dft.phasors - b.dft.phasors).max()), maxdiff(a.state, b.state),
+                maxdiff(a.psi, b.psi) if a.psi is not None else 0.0, maxdiff(a.pol, b.pol) if a.pol is not None else 0.0,
+                float((a.power_j - b.power_j).abs().max()) if a.power_j is not None else 0.0)
+        check(d == 0.0, f"{label} --dft 2.45e10 1000 steps: {backends[0]} == {backends[1]}, phasors, fields"
+                        f"{', SAR' if a.power_j is not None else ''}{', psi' if a.psi is not None else ''}"
+                        f"{', P' if a.pol is not None else ''} max|diff| = {d!r}")
+        del res_b, a, b
+        torch.cuda.empty_cache()
+
+    sp_h = stream_plan.pick_plan(ph, lossy=True, sar=True, dft=DFT1).s
+    monitored_pair(ph, ("stream", "twopass"),
+                   {"stream": {"yee_stream_lossy_sar_dft": nh // sp_h},
+                    "twopass": {"yee_update_h": nh, "yee_update_e_lossy": nh, "dft_accum": nh}},
+                   "heating_256 --water-block --sar", materials=water, accumulate_power=True)
+    sp_p = stream_plan.pick_plan(p, pml=PML10, dft=DFT1).s
+    monitored_pair(p, ("auto", "stream"),
+                   {"auto": {"yee_update_h_pml": n, "yee_update_e_pml": n, "dft_accum": n},
+                    "stream": {"yee_stream_pml_dft": n // sp_p}},
+                   "bench_256 --pml 10", pml=PML10)
+    sp_d = stream_plan.pick_plan(ph, sar=True, ade=True, dft=DFT1).s
+    monitored_pair(ph, ("stream", "twopass"),
+                   {"stream": {"yee_stream_ade_sar_dft": nh // sp_d},
+                    "twopass": {"yee_update_h": nh, "yee_update_e_ade_sar": nh, "dft_accum": nh}},
+                   "heating_256 --water-block --dispersive --sar", materials=debye, accumulate_power=True, dc=dc_debye)
+    phase_done("6d 1000-step monitor runs")
+
+    # every DFT variant with nf = 2 and trailing two-pass steps (dft_accum
+    # after each): stream == twopass == torch
+    for mats_v, sar_v, pml_v, steps_v, label in (
+            (water, True, None, N_LOADS, "--water-block --sar "), (None, False, PML10, N_LOADS + 1, "--pml 10 "),
+            (debye, True, None, N_LOADS + 1, "--water-block --dispersive --sar "), (None, False, None, N_LOADS, ""),
+            (water, False, None, N_LOADS, "--water-block "), (ferrite, False, None, N_LOADS, "--water-block --ferrite-slab "),
+            (ferrite, True, None, N_LOADS, "--water-block --ferrite-slab --sar "),
+            (water, False, PML10, N_LOADS + 1, "--water-block --pml 10 "),
+            (debye, False, None, N_LOADS, "--water-block --dispersive ")):
+        debye_v = isinstance(mats_v, DebyeMaterials)
+        lossy_v = mats_v is not None and not debye_v
+        het_v = lossy_v and mats_v.mu_r is not None
+        plan_v = stream_plan.pick_plan(ph, lossy=lossy_v, het=het_v, sar=sar_v, pml=pml_v, ade=debye_v, dft=DFT2)
+        trail = steps_v % plan_v.s
+        check(trail != 0, f"{steps_v} steps leave {trail} trailing two-pass steps at s={plan_v.s} ({plan_v.kernel})")
+        counts = equal_runs(ph, steps_v, ("stream", "twopass", "torch"), mats_v, sar_v, f"{label}--dft (nf=2) ", pml_v,
+                            DFT2, dc_debye if debye_v else None)
+        check(counts["stream"][plan_v.kernel] == steps_v // plan_v.s and counts["stream"]["dft_accum"] == trail
+              and counts["twopass"]["dft_accum"] == steps_v and counts["torch"] == expect(),
+              f"{label}--dft (nf=2) launch counts: stream {plan_v.kernel} {counts['stream'][plan_v.kernel]}, "
+              f"dft_accum {counts['stream']['dft_accum']}; twopass dft_accum {counts['twopass']['dft_accum']}")
+        if plan_v.kernel not in main_counts:
+            main_counts[plan_v.kernel] = counts["stream"][plan_v.kernel]
+            paths[plan_v.kernel] = f"heating_256 {label}--dft 2.45e10,1.5e10 stream ({steps_v} steps)"
+        torch.cuda.empty_cache()
+
+    # probes and the H sums (--probe x2 --dft-fields eh): per-step states,
+    # so stream runs twopass with a notice; twopass == torch bit for bit.
+    # In 66 steps the wave from the k = 0 source reaches neither cell, so a
+    # third probe two planes above the source patch shows the series move
+    probes2 = ProbeSet(((128, 128, 128), (10, 20, 30), (2, 128, 128)))
+    dft_eh = DftConfig((2.45e10,), fields="eh")
+    notices = []
+    routed = resolve_backend(p, "stream", dev, dft=dft_eh, probes=probes2, log=notices.append)
+    check(routed == "twopass" and len(notices) == 1 and "per-step monitors" in notices[0],
+          f"--probe --dft-fields eh with --backend stream runs {routed}: {notices}")
+    p66 = dataclasses.replace(p, simulation_time=N_LOADS * p.time_step)
+    res_m = {}
+    for backend in ("twopass", "torch"):
+        reset_counts()
+        res_m[backend] = run_simulation(p66, dev, write_snapshots=False, backend=backend, dft=dft_eh, probes=probes2,
+                                        log=lambda m: None)
+        counts = counts_now()
+        want = expect(yee_update_h=N_LOADS, yee_update_e=N_LOADS, dft_accum=N_LOADS) if backend == "twopass" else expect()
+        check(counts == want, f"--probe x3 --dft-fields eh {backend} launch counts {counts} == {want}")
+    a, b = res_m["twopass"], res_m["torch"]
+    d = max(float(np.abs(a.dft.phasors - b.dft.phasors).max()), float(np.abs(a.probes.values - b.probes.values).max()),
+            maxdiff(a.state, b.state))
+    h_peak, p_peak = float(np.abs(a.dft.phasors[0, 3:]).max()), float(np.abs(a.probes.values[:, 2]).max())
+    check(d == 0.0 and a.probes.values.shape == (N_LOADS, 3, 6) and a.dft.phasors.shape[1] == 6
+          and h_peak > 0 and p_peak > 0,
+          f"--probe x3 --dft-fields eh {N_LOADS} steps: twopass == torch, phasors (6 components; H peak {h_peak!r}), "
+          f"probe rows {a.probes.values.shape} (peak at (2, 128, 128) {p_peak!r}) and fields max|diff| = {d!r}")
+    del res_m, a, b
+    with tempfile.TemporaryDirectory() as out:
+        params66 = os.path.join(out, "bench_256_66.txt")
+        with open("configs/bench_256.txt") as f:
+            vals = f.read().split()
+        vals[5] = repr(N_LOADS * p.time_step)
+        with open(params66, "w") as f:
+            f.write("\n".join(vals) + "\n")
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", params66, "--probe", "128,128,128", "--probe",
+                            "10,20,30", "--dft", "2.45e10", "--dft-fields", "eh", "--out", os.path.join(out, "r")],
+                           capture_output=True, text=True, timeout=600)
+        csv_path = os.path.join(out, "r", "probes.csv")
+        rows = open(csv_path).read().splitlines() if os.path.exists(csv_path) else []
+        cols = {len(row.split(",")) for row in rows[1:]}
+        check(r.returncode == 0 and len(rows) == 2 + N_LOADS and cols == {1 + 6 * 2}
+              and rows[0].startswith("# probe cells (k,j,i): (128, 128, 128); (10, 20, 30)")
+              and os.path.exists(os.path.join(out, "r", "dft_00.vtr")),
+              f"CLI --probe x2 --dft 2.45e10 --dft-fields eh ({N_LOADS} steps) exit {r.returncode}: probes.csv "
+              f"{len(rows) - 2} rows of {cols} columns, dft_00.vtr written {r.stderr.strip()[-300:]}")
+    phase_done("6d trailing steps, probes")
+
     # the output reductions in k slabs: the allocator's peak over one
     # snapshot (aggregation) plus one log record (energies and radiated
     # power) at 256^3 with slabs forced to 64 planes, against the model
@@ -1016,32 +1322,44 @@ def main() -> None:
 
     # -- 7. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
-    for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10),
-                                   ("dispersive", debye, None)):
-        for dtype in ("float32", "bfloat16"):
-            pd = dataclasses.replace(p, dtype=dtype)
-            ts, amps = scan_inputs(pd, time_values(pd)[: N_WARM + N_TIMED])
-            sar = mats_t is not None
-            runners = {}  # one runner a backend: its coefficients are built once
-            for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
-                s = initial_state(pd, dev)
-                power = zero_power_acc(pd, dev) if sar else None
-                psi_t = init_psi(pd, pml_t, dev) if pml_t is not None else None
-                pol_t = zero_polarization(pd, dev) if isinstance(mats_t, DebyeMaterials) else None
-                if backend not in runners:
-                    runners[backend] = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar, pml=pml_t)
-                run = runners[backend]
-                run(s, (ts[:N_WARM], amps[:N_WARM]), power, psi_t, pol_t)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run(s, (ts[N_WARM:], amps[N_WARM:]), power, psi_t, pol_t)
-                torch.cuda.synchronize()
-                dt_s = time.perf_counter() - t0
-                rates.setdefault(f"{scene_t} {backend} {dtype}", []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
-                del s, power, run, psi_t, pol_t
-            del runners
+    dcs = {"float32": dc_debye}  # the Debye maps per dtype (p and ph share the grid and the step)
+    for dft_t in (None, DFT1):
+        for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10),
+                                       ("dispersive", debye, None)):
+            for dtype in ("float32", "bfloat16"):
+                pd = dataclasses.replace(p, dtype=dtype)
+                tv = time_values(pd)[: N_WARM + N_TIMED]
+                ts, amps = scan_inputs(pd, tv)
+                cw, sw = dft_weights(dft_t, tv) if dft_t is not None else (None, None)
+                sar = mats_t is not None
+                debye_t = isinstance(mats_t, DebyeMaterials)
+                if debye_t and dtype not in dcs:
+                    dcs[dtype] = debye_coefs(pd, debye, dev)
+                runners = {}  # one runner a backend: its coefficients are built once
+                for backend in ("stream", "twopass", "torch", "torch", "twopass", "stream"):
+                    s = initial_state(pd, dev)
+                    power = zero_power_acc(pd, dev) if sar else None
+                    psi_t = init_psi(pd, pml_t, dev) if pml_t is not None else None
+                    pol_t = zero_polarization(pd, dev) if debye_t else None
+                    dacc_t = zero_dft_acc(pd, dft_t, dev) if dft_t is not None else None
+                    if backend not in runners:
+                        runners[backend] = make_chunk_runner(pd, dev, mats_t, backend, accumulate_power=sar, pml=pml_t,
+                                                             dft=dft_t, dc=dcs.get(dtype) if debye_t else None)
+                    run = runners[backend]
+                    extra = (lambda a, b: (cw[a:b], sw[a:b])) if dft_t is not None else (lambda a, b: ())
+                    run(s, (ts[:N_WARM], amps[:N_WARM]) + extra(0, N_WARM), power, psi_t, pol_t, dacc_t)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(s, (ts[N_WARM:], amps[N_WARM:]) + extra(N_WARM, N_WARM + N_TIMED), power, psi_t, pol_t, dacc_t)
+                    torch.cuda.synchronize()
+                    dt_s = time.perf_counter() - t0
+                    key = f"{scene_t}{' --dft 2.45e10' if dft_t is not None else ''} {backend} {dtype}"
+                    rates.setdefault(key, []).append(pd.cell_count * N_TIMED / dt_s / 1e6)
+                    del s, power, run, psi_t, pol_t, dacc_t
+                del runners
     for key, vals in rates.items():
         print(f"timing 256^3 {key}: Mcells/s {vals} (2 runs of {N_TIMED} steps, {smi})")
+    phase_done("7 rates")
 
     def event_ms(fn, reps=20) -> float:
         fn()
@@ -1133,6 +1451,43 @@ def main() -> None:
         torch.cuda.synchronize()
         if fp32:
             ade_extra["debye_coefs_s"] = time.perf_counter() - t0
+        # the DFT variants (nf = 1) at the monitor path's plans, and dft_accum
+        d1 = zero_dft_acc(pd, DFT1, dev)
+        s_d = state_from_numpy(arrays, dev, field_dtype(pd))
+        w1 = torch.tensor([[0.5], [0.25]], dtype=torch.float32, device=dev)
+        k_ms = event_ms(lambda: dft_ops.accumulate_e(pd, s_d, w1, d1))
+        if fp32:
+            ms["dft_accum"] = (k_ms, event_ms(lambda: dft_ops.plain_accumulate_e(pd, s_d, w1, d1)))
+        else:
+            ms_bf16["dft_accum"] = k_ms
+        del s_d
+        for mats_t, sar, pml_t in ((None, False, None), (water, False, None), (water, True, None),
+                                   (ferrite, False, None), (ferrite, True, None), (None, False, PML10),
+                                   (water, False, PML10), (debye, False, None), (debye, True, None)):
+            debye_t = mats_t is debye
+            coefs_t = vac if debye_t else update_coefs(pd, mats_t, dev)
+            plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, het=coefs_t.heterogeneous_mu, sar=sar, pml=pml_t,
+                                           ade=debye_t, dft=DFT1)
+            st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
+            out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            cp_t = make_cpml(pd, pml_t, coefs_t, dev) if pml_t is not None else None
+            psi_i = init_psi(pd, pml_t, dev) if pml_t is not None else None
+            psi_o = init_psi(pd, pml_t, dev) if pml_t is not None else None
+            pol_i = zero_polarization(pd, dev) if debye_t else None
+            pol_o = zero_polarization(pd, dev) if debye_t else None
+            acc = zero_power_acc(pd, dev) if sar else None
+            wts = w1.reshape(1, 2, 1).expand(plan_t.s, 2, 1).contiguous()
+            dc_x = dc_t if debye_t else None
+            k_ms = event_ms(lambda: stream.sweep(pd, st, out, coefs_t, plan_t, drive, acc, cp_t, psi_i, psi_o, dc_x,
+                                                 pol_i, pol_o, d1, wts))
+            if fp32:
+                plans[plan_t.kernel] = plan_t
+                ms[plan_t.kernel] = (k_ms, event_ms(lambda: stream.plain_sweep(
+                    pd, st, coefs_t, plan_t.s, drive, out, acc, cp_t, psi_i, psi_o, dc_x, pol_i, pol_o, d1, wts), reps=3))
+            else:
+                ms_bf16[plan_t.kernel] = k_ms
+            del st, out, cp_t, psi_i, psi_o, pol_i, pol_o, acc
+        del d1
         s_d = state_from_numpy(arrays, dev, field_dtype(pd))
         pol_d, w_d = zero_polarization(pd, dev), zero_work(pd, dev)
         for name, w_t in (("yee_update_e_ade", None), ("yee_update_e_ade_sar", w_d)):
@@ -1198,13 +1553,21 @@ def main() -> None:
     def work(name: str, item: int) -> tuple[float, float]:
         """(bytes, flops) of one pass or sweep of kernel ``name`` with
         ``item``-byte fields and coefficients (the SAR map is fp32), with
-        CPML the psi of its terms read and written once."""
+        CPML the psi of its terms read and written once; the DFT variants
+        (nf = 1) add the six fp32 sums of a cell read and written once and,
+        each step, the three 4-edge means and the four operations a
+        component (24 a cell)."""
+        if name == "dft_accum":  # three E in, the six sums in and out
+            return 3 * item * cells + 48 * cells_k, 24 * cells_k
+        if name.endswith("_dft"):
+            b, f = work(name[:-4], item)
+            return b + 48 * cells_k, f + plans[name].s * 24 * cells_k
         lossy, het, sar, pml = "lossy" in name, "het" in name, name.endswith("sar"), name.endswith("pml")
         if name.startswith("yee_update_e_ade"):  # H, E, P and 15 maps in, E and P out; SAR: 3 sigma in, 3 fp32 w out
             return ((30 + (3 if sar else 0)) * item * cells + (12 * cells if sar else 0),
                     (36 + (21 if sar else 0)) * cells)
         if name.startswith("yee_stream_ade"):  # fields and P in and out, 15 maps; SAR: 3 sigma, the map in and out
-            s_n = plans[name].s
+            s_n = plans.get(name, plans.get(name + "_dft")).s
             return ((33 + (3 if sar else 0)) * item * cells + (8 * cells_k if sar else 0),
                     s_n * (51 * cells + (21 * cells + 19 * cells_k if sar else 0)))
         if name.startswith("yee_update_h"):  # six fields and hf in, three H out
@@ -1213,7 +1576,7 @@ def main() -> None:
         if name.startswith("yee_update_e"):  # six fields and ca/cb in, three E out
             return ((9 + (6 if lossy else 0)) * item * cells + (2 * item * psi_e if pml else 0),
                     (18 if lossy else 15) * cells + (5 * psi_e if pml else 0))
-        s_n = plans[name].s  # fields in and out, coefficients, sigma, the map in and out
+        s_n = plans.get(name, plans.get(name + "_dft")).s  # fields in and out, coefficients, sigma, the map in and out
         b = (12 + (6 if lossy else 0) + (3 if het else 0)) * item * cells + ((item + 8) * cells_k if sar else 0)
         b += 2 * item * (psi_h + psi_e) if pml else 0
         return b, s_n * (cells * (15 + (18 if lossy else 15)) + (20 * cells_k if sar else 0)
@@ -1224,7 +1587,9 @@ def main() -> None:
                  "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar",
                  "yee_update_h_pml", "yee_update_e_pml", "yee_update_h_het_pml", "yee_update_e_lossy_pml",
                  "yee_stream_pml", "yee_stream_lossy_pml", "yee_update_e_ade", "yee_update_e_ade_sar",
-                 "yee_stream_ade", "yee_stream_ade_sar"):
+                 "yee_stream_ade", "yee_stream_ade_sar", "dft_accum", "yee_stream_dft", "yee_stream_lossy_dft",
+                 "yee_stream_lossy_sar_dft", "yee_stream_lossy_het_dft", "yee_stream_lossy_het_sar_dft",
+                 "yee_stream_pml_dft", "yee_stream_lossy_pml_dft", "yee_stream_ade_dft", "yee_stream_ade_sar_dft"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)
@@ -1235,11 +1600,13 @@ def main() -> None:
               f"launches {main_counts[name]} on {paths[name]}")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "fdtd_tpu_torch/csrc/" + ("yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
-            "replaces": ("fdtd_tpu/ops/pallas_dispersive.py:182" if name.startswith("yee_update_e_ade") else
+            "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name == "dft_accum" else
+                                                "yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
+            "replaces": ("fdtd_tpu/ops/pallas_stream.py:1225" if name == "dft_accum" else
+                         "fdtd_tpu/ops/pallas_dispersive.py:182" if name.startswith("yee_update_e_ade") else
                          "fdtd_tpu/ops/pallas_dispersive.py:464" if name.startswith("yee_stream_ade") else
                          "fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and
-                         name.endswith("pml") else
+                         name.removesuffix("_dft").endswith("pml") else
                          "fdtd_tpu/ops/cpml_kernel.py:229" if name.startswith("yee_update_h") and
                          name.endswith("pml") else
                          "fdtd_tpu/ops/cpml_kernel.py:417" if name.endswith("pml") else

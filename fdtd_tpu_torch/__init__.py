@@ -4,12 +4,14 @@ A port of :mod:`fdtd_tpu` (JAX/Pallas, kept beside it as the reference) to
 an NVIDIA H100.  It imports neither JAX nor :mod:`fdtd_tpu`.  Ported: the
 cavity's main path (the ``params.txt`` parser, the Yee leapfrog step with
 the TE10 port source and the TE101 validation seed, snapshots, energy
-logs, checkpoints and the CLI, ``python -m fdtd_tpu_torch params.txt``)
-and materials and heating (lossy and heterogeneous-mu_r loads and the SAR
-map).  The Yee update runs as hand-written CUDA kernels for Hopper on CUDA
-tensors (``csrc/yee_stream.cu``, s steps a launch, and
-``csrc/yee_twopass.cu``, the H and E half-steps, each with its material
-variants; built with nvcc at first use), and as plain torch slice
+logs, checkpoints and the CLI, ``python -m fdtd_tpu_torch params.txt``),
+materials and heating (lossy and heterogeneous-mu_r loads and the SAR
+map), the CPML open boundary, Debye media and the frequency-domain
+monitors (DFT phasors and probes).  The Yee update runs as hand-written
+CUDA kernels for Hopper on CUDA tensors (``csrc/yee_stream.cu``, s steps a
+launch, and ``csrc/yee_twopass.cu``, the H and E half-steps, each with its
+material, CPML, Debye and DFT variants; ``csrc/dft_accum.cu``, the
+per-step DFT sums; built with nvcc at first use), and as plain torch slice
 arithmetic on CPU tensors.
 """
 

@@ -7,9 +7,22 @@ parameters file, and the JAX CLI's load flags (``--water-block``,
 ``--ferrite-slab``, ``--load-shape``, ``--load-center``), ``--sar``,
 which writes ``sar.vtr``, ``--pml N``, the CPML open boundary, and
 ``--dispersive`` (with ``--salt-sigma`` and ``--thermal-ambient``), which
-makes the water load a Debye medium.  ``--device`` chooses where the fields live
-(default ``cuda``); without CUDA the run stops with a message that names
-``--device cpu``.
+makes the water load a Debye medium, and the frequency-domain monitors:
+``--dft HZ[,HZ...]`` (with ``--dft-fields e|eh``), which writes
+``dft_NN.vtr``, and ``--probe K,J,I`` (repeatable), which writes
+``probes.csv``, in the JAX CLI's formats.  ``--device`` chooses where the
+fields live (default ``cuda``); without CUDA the run stops with a message
+that names ``--device cpu``.
+
+It takes every flag of the JAX CLI: ``--backend`` also takes the JAX
+backend names (mapped with a notice: ``xla`` -> ``torch``, ``pallas`` and
+``pallas_fused`` -> ``twopass``, ``pallas_stream`` and
+``pallas_temporal`` -> ``stream``), ``--temporal-steps S`` forces the
+stream sweep's depth (8, 4 or 2 here), ``--profile DIR`` writes a
+``torch.profiler`` trace, and the flags of features not ported yet
+(``--shard``, ``--thermal``, ``--thermal-power``, ``--coupled``,
+``--rotate``) stop the run with exit code 1 and the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -19,14 +32,17 @@ import dataclasses
 import os
 import sys
 
+import numpy as np
 import torch
 
 from . import grid
+from .dft import DftConfig
 from .io.vtr import write_vtr
+from .monitors import COMPONENTS, ProbeSet
 from .ops.cpml import PMLConfig
-from .ops.dispersive import water_debye_load
+from .ops.dispersive import DebyeMaterials, effective_sigma, water_debye_load
 from .params import Mode, load_parameters
-from .runner import BACKEND_CHOICES, run_simulation
+from .runner import BACKEND_CHOICES, JAX_BACKENDS, run_simulation
 from .state import block_mask, cylinder_mask, ferrite_slab, sphere_mask, water_from_mask
 
 
@@ -38,12 +54,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("params", help="parameters file (.txt), 8 ordered scalars")
     ap.add_argument("--out", default="r", help="output directory (default: r, like the reference)")
     ap.add_argument("--dtype", default="float32", choices=["float32", "float64", "bfloat16"])
-    ap.add_argument("--backend", default="auto", choices=list(BACKEND_CHOICES),
+    ap.add_argument("--backend", default="auto", choices=list(BACKEND_CHOICES) + list(JAX_BACKENDS),
                     help="update path: stream (Hopper streaming kernel, s steps a launch), "
                          "twopass (Hopper two-pass kernels), torch (plain ops), or auto "
                          "(stream on CUDA in float32/bfloat16 when a sweep plan fits and "
                          "there is no --pml, else twopass; torch on the CPU, in float64, and for "
-                         "--dispersive with --pml or in validation mode)")
+                         "--dispersive with --pml or in validation mode); the JAX names "
+                         "xla, pallas, pallas_fused, pallas_stream and pallas_temporal map to "
+                         "torch, twopass, twopass, stream and stream")
     ap.add_argument("--device", default="cuda", help="torch device of the fields (default: cuda)")
     ap.add_argument("--no-output", action="store_true", help="skip snapshots (benchmark mode)")
     ap.add_argument("--water-block", action="store_true", help="place a water load in the cavity")
@@ -85,7 +103,112 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="gaussian envelope sigma in seconds (default: 2 carrier periods)")
     ap.add_argument("--source-pulse-delay", type=float, default=None, metavar="S",
                     help="gaussian envelope center in seconds (default: 3 widths)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run to DIR (trace.json)")
+    ap.add_argument("--temporal-steps", type=int, default=None, metavar="S", choices=range(2, 9),
+                    help="steps per sweep of the stream backend (built at 8, 4 and 2; default: the "
+                         "plan with the fewest modelled bytes)")
+    ap.add_argument("--dft", default=None, metavar="HZ[,HZ...]",
+                    help="accumulate on-the-fly DFT phasors of the E field at these frequencies "
+                         "(comma-separated Hz); writes per-frequency dft_NN.vtr complex field maps, |E|, "
+                         "and the CW power deposition for lossy loads")
+    ap.add_argument("--dft-fields", default="e", choices=["e", "eh"],
+                    help="DFT components: 'e' (default) or 'eh' (all six, enabling the cycle-averaged "
+                         "Poynting map)")
+    ap.add_argument("--probe", action="append", default=None, metavar="K,J,I",
+                    help="record a per-step time series of the six cell-centered field components at "
+                         "cell (k,j,i); repeatable; writes probes.csv")
+    # the JAX CLI's flags of features not ported yet: accepted, and refused
+    # with the ROADMAP item that ports them
+    ap.add_argument("--shard", default=None, metavar="ZxY",
+                    help="spatial decomposition over devices (not ported: ROADMAP queue 1 item 11)")
+    ap.add_argument("--thermal", type=float, default=None, metavar="SECONDS",
+                    help="heat-equation solve after the EM run (not ported: ROADMAP queue 1 item 6)")
+    ap.add_argument("--thermal-power", type=float, default=None, metavar="WATTS",
+                    help="rescale the SAR map to WATTS before the thermal solve (not ported: ROADMAP "
+                         "queue 1 item 6)")
+    ap.add_argument("--coupled", type=int, default=0, metavar="N",
+                    help="two-way EM<->thermal coupling in N intervals (not ported: ROADMAP queue 1 item 6)")
+    ap.add_argument("--rotate", type=float, default=0.0, metavar="RPM",
+                    help="turntable rotation during a --coupled cook (not ported: ROADMAP queue 1 item 6)")
     return ap
+
+
+# flags of features not ported yet -> the ROADMAP item that ports them
+_UNPORTED_FLAGS = (
+    ("shard", "--shard", "ROADMAP queue 1 item 11 (spatial sharding)"),
+    ("thermal", "--thermal", "ROADMAP queue 1 item 6 (thermal and coupling)"),
+    ("thermal_power", "--thermal-power", "ROADMAP queue 1 item 6 (thermal and coupling)"),
+    ("coupled", "--coupled", "ROADMAP queue 1 item 6 (thermal and coupling)"),
+    ("rotate", "--rotate", "ROADMAP queue 1 item 6 (thermal and coupling)"),
+)
+
+
+def _unported_flag(args) -> str | None:
+    """The refusal of the first flag of a feature not ported yet, or None."""
+    for attr, flag, item in _UNPORTED_FLAGS:
+        value = getattr(args, attr)
+        if value is not None and value != 0:
+            return f"{flag} is not ported yet: {item}"
+    return None
+
+
+def _monitors(args, p):
+    """(DftConfig or None, ProbeSet or None) from --dft/--dft-fields and
+    --probe; raises ValueError naming the bad flag."""
+    probes = dft = None
+    if args.probe:
+        try:
+            probes = ProbeSet(tuple(tuple(int(x) for x in spec.split(",")) for spec in args.probe))
+            probes.validate(p)
+        except ValueError as e:
+            raise ValueError(f"bad --probe spec: {e}") from None
+    if args.dft:
+        try:
+            dft = DftConfig(tuple(float(x) for x in args.dft.split(",")), fields=args.dft_fields)
+        except ValueError as e:
+            raise ValueError(f"bad --dft spec: {e}") from None
+    return dft, probes
+
+
+def write_probes_csv(path: str, probes) -> None:
+    """probes.csv in the JAX CLI's layout: a comment line with the cells, a
+    header ``t,p0_ex,...`` and one row per step (``%.9e`` time, ``%.6e``
+    values)."""
+    header = ["t"] + [f"p{pi}_{c}" for pi in range(len(probes.cells)) for c in COMPONENTS]
+    with open(path, "w") as f:
+        f.write("# probe cells (k,j,i): " + "; ".join(str(c) for c in probes.cells) + "\n")
+        f.write(",".join(header) + "\n")
+        flat = probes.values.reshape(probes.values.shape[0], -1)
+        for ti in range(flat.shape[0]):
+            f.write(f"{probes.times[ti]:.9e}," + ",".join(f"{v:.6e}" for v in flat[ti]) + "\n")
+
+
+def dft_variables(res, fi: int, frequency: float, materials) -> dict:
+    """The arrays of ``dft_NN.vtr`` as the JAX CLI writes them: ``<c>_re`` /
+    ``<c>_im`` per component, ``e_mag``, with fields "eh" ``s_x/s_y/s_z``
+    and ``s_mag``, and ``cw_power_w_m3`` where the load is lossy (a Debye
+    load's effective sigma at this frequency)."""
+    comps = COMPONENTS if res.fields == "eh" else COMPONENTS[:3]
+    ph = res.phasors[fi]
+    variables = {}
+    for ci, name in enumerate(comps):
+        variables[f"{name}_re"] = np.ascontiguousarray(ph[ci].real)
+        variables[f"{name}_im"] = np.ascontiguousarray(ph[ci].imag)
+    variables["e_mag"] = res.magnitude(fi)
+    if res.fields == "eh":
+        S = res.poynting(fi)
+        for ci, name in enumerate(("s_x", "s_y", "s_z")):
+            variables[name] = np.ascontiguousarray(S[ci])
+        variables["s_mag"] = np.sqrt((S**2).sum(axis=0))
+    sig_map = None
+    if isinstance(materials, DebyeMaterials):  # sigma_eff at this frequency
+        sig_map = effective_sigma(materials, frequency)
+    elif materials is not None and materials.sigma is not None:
+        sig_map = materials.sigma
+    if sig_map is not None:
+        variables["cw_power_w_m3"] = res.cw_power(sig_map, fi)
+    return variables
 
 
 def _parse_load_center(spec: str | None) -> tuple[float, float]:
@@ -157,8 +280,13 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
 
+    refusal = _unported_flag(args)
+    if refusal:
+        print(f"error: {refusal}", file=sys.stderr)
+        return 1
     try:
         materials = _materials(args, p)
+        dft, probes = _monitors(args, p)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -169,6 +297,13 @@ def main(argv=None) -> int:
     print("Creating mesh")
     print("Setting initial conditions")
     print("Launching simulation")
+    prof = None
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
     try:
         result = run_simulation(
             p,
@@ -183,12 +318,22 @@ def main(argv=None) -> int:
             quirk_compat=not args.physics_correct,
             diagnostics_log=args.diag_log,
             pml=PMLConfig(cells=args.pml) if args.pml else None,
+            dft=dft,
+            probes=probes,
+            stream_s=args.temporal_steps,
         )
     except (RuntimeError, ValueError) as e:
         # no CUDA for --device cuda, twopass/stream on the CPU or in float64, a bad
-        # device string, a diverged run
+        # device string, an unbuilt --temporal-steps, a diverged run
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    if prof is not None:
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        print(f"profiler trace written to {args.profile}")
     print(
         f"{result.iterations} iterations in {result.wall_seconds:.3f}s "
         f"({result.mcells_per_s:.1f} Mcells/s)"
@@ -199,6 +344,21 @@ def main(argv=None) -> int:
         sar_path = os.path.join(args.out, "sar.vtr")  # the snapshot writer made the directory
         write_vtr(sar_path, grid.node_coords(p), {"power_j_m3": acc, "avg_power_w_m3": acc / t_em})
         print(f"SAR map written to {sar_path} (peak {acc.max():.3e} J/m^3 over {t_em:.3e} s)")
+    if result.probes is not None and not args.no_output:
+        pr = result.probes
+        path = os.path.join(args.out, "probes.csv")
+        os.makedirs(args.out, exist_ok=True)
+        write_probes_csv(path, pr)
+        print(f"Probe time series ({len(pr.cells)} cell(s), {pr.values.shape[0]} steps) written to {path}")
+    if result.dft is not None and not args.no_output:
+        coords = grid.node_coords(p)
+        os.makedirs(args.out, exist_ok=True)
+        for fi, f in enumerate(result.dft.frequencies):
+            variables = dft_variables(result.dft, fi, f, materials)
+            path = os.path.join(args.out, f"dft_{fi:02d}.vtr")
+            write_vtr(path, coords, variables)
+            print(f"DFT phasors at {f:.6g} Hz written to {path} "
+                  f"(peak |E| {variables['e_mag'].max():.3e}, {result.dft.steps} steps)")
     print("Simulation complete!")
     return 0
 

@@ -15,8 +15,11 @@ name in the slab-restricted layout both packages keep (what
 material maps), ``d_eps`` and ``tau``, such as a JAX ``DebyeMaterials``,
 and its polarization crosses as the three arrays (px, py, pz) of the
 padded E grids (the JAX package's tuple, and its checkpoints'
-``aux_pol_x/y/z``).  The tests use this to feed both packages the same
-inputs.
+``aux_pol_x/y/z``).  The DFT sums cross as the (re, im) pair of fp32
+(nf, nc, maxk, maxj, maxi) arrays (the JAX package's canonical pair, and
+its checkpoints' ``aux_dft_re``/``aux_dft_im``); probe rows are one
+(n, n_probes, 6) fp32 numpy array in both packages (``aux_probe_rows``).
+The tests use this to feed both packages the same inputs.
 """
 
 from __future__ import annotations
@@ -105,3 +108,13 @@ def pol_from_numpy(arrays, device, dtype: torch.dtype) -> PolState:
 def pol_to_numpy(pol: PolState) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(px, py, pz) as host numpy arrays (bfloat16 widened to float32)."""
     return tuple(to_host(t) for t in pol.tensors())
+
+
+def dft_from_numpy(acc, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (re, im) DFT sums on ``device`` (fp32 copies) from a JAX pair."""
+    return tuple(from_host(np.asarray(a, np.float32), torch.float32, device) for a in acc)
+
+
+def dft_to_numpy(acc) -> tuple[np.ndarray, np.ndarray]:
+    """The (re, im) DFT sums as host fp32 arrays."""
+    return tuple(to_host(t) for t in acc)

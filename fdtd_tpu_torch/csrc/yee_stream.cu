@@ -10,7 +10,8 @@
 // (vacuum and lossy): the twelve CPML memory variables ride the pipeline
 // (see "CPML" below).  With ADE it replaces
 // fdtd_tpu/ops/pallas_dispersive.py::_kernel_ade_stream (Debye media,
-// vacuum H; see "ADE" below).  The plain version is
+// vacuum H; see "ADE" below).  With DFT each of these variants carries the
+// DFT bands of the three TPU kernels (see "DFT" below).  The plain version is
 // fdtd_tpu_torch/ops/stream.py::plain_sweep; the plan (tile and block
 // counts) is fdtd_tpu_torch/ops/stream_plan.py.
 //
@@ -101,13 +102,35 @@
 // in-place variant (_build_ade_stream_call_jt) has no counterpart: this
 // kernel always tiles j and i with a recompute halo.
 //
+// DFT (the E phasor sums of fields "e").  Level m's E cell means are formed
+// as the E-mean SAR variant forms them (E on planes k-1 and k with their
+// j+1 / i+1 neighbours through the third shared exchange; level S keeps
+// one more E plane; tiles one column narrower, the pipeline one step
+// longer), and the thread that owns a cell adds level m's increments for
+// every frequency f, re += cw[m][f] * E_c and im -= sw[m][f] * E_c, to the
+// canonical (nf, nc, K, J, I) fp32 sums, so the S increments of a cell land
+// in step order.  The 6*nf sums of the S cells a thread has in flight live
+// in dynamic shared memory (slot cell % S, one chain per thread, so no
+// barrier guards it; nf is a runtime value, up to what fits beside the
+// static buffers: ops/stream_plan.py::StreamPlan.dft_max_nf): level 1's
+// sums are fetched with cp.async at the start of the pipeline step (their
+// latency hides behind the level's H and E updates), level S stores them.
+// (A read, add and write-back of the sums in device memory at every level
+// measured 1.7-4x slower: each level waits on the load behind the previous
+// level's store.)  The weights are the sweep's (S, 2, nf) fp32 rows on the device.  With the
+// Debye SAR (whose exchange carries the work) the E values take the same
+// shared buffer after the work means have read it.  fp32 gives the per-step
+// accumulation's bits (fdtd_tpu_torch/dft.py::accumulate after each
+// two-pass step).
+//
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
 // bf16), against 72 B per step for the two-pass kernels.  Lossy media add
 // 24 B of ca/cb reads per cell per sweep (fp32), het-mu 12 B of hf, SAR
 // 4 B of sigma and 8 B of accumulator read and write.  This first
-// version loads and stores with plain per-thread accesses (no TMA, no
-// cp.async) and synchronises the block twice per level and plane.
+// version loads and stores with plain per-thread accesses (no TMA; cp.async
+// only for the DFT sums) and synchronises the block twice per level and
+// plane.
 //
 // Numerics: every operation is an explicitly rounded __fsub_rn / __fmul_rn /
 // __fadd_rn in the order of ops/curl.py, built with -fmad=false, so fp32 is
@@ -119,6 +142,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <stdint.h>
 
 namespace {
@@ -306,21 +330,32 @@ __device__ __forceinline__ float psi_term(const PsiSweep<T>& psw, int t, int k, 
     return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE>
+// the DFT variants' sums and weights: re, im (nf, nc, K, J, I) fp32, updated
+// in place (components 0..2); w: the sweep's (S, 2, nf) fp32 rows
+struct DftSweep {
+    float* re;
+    float* im;
+    const float* w;
+    int nf;
+    int nc;
+};
+
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
               const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
-              PsiSweep<T> psw, AdeSweep<T> ade) {
-    constexpr int SH = SAR ? 1 : 0;  // SAR reads E one column past: one column fewer emitted
+              PsiSweep<T> psw, AdeSweep<T> ade, DftSweep dft) {
+    constexpr bool MEANS = SAR || DFT;  // cell means read E (work) one column past
+    constexpr int SH = MEANS ? 1 : 0;   // so one column fewer is emitted
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
     static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
     __shared__ float sE[3][BJ][BI];
     __shared__ float sH[3][BJ][BI];
-    // SAR: level m's E (ADE: edge work) on planes k-1 (L) and k (U): exL,
-    // exU, eyL, eyU, ezL
-    __shared__ float sS[SAR ? 5 : 1][SAR ? BJ : 1][BI];
+    // SAR / DFT: level m's E (Debye SAR: edge work) on planes k-1 (L) and k
+    // (U): exL, exU, eyL, eyU, ezL
+    __shared__ float sS[MEANS ? 5 : 1][MEANS ? BJ : 1][BI];
 
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int i = (int)blockIdx.x * TI - S + tx;
@@ -344,15 +379,19 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
     const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
     const int ni = i1 - i0;
-    // SAR: this thread owns the cells of its column that the block emits
-    const bool c_sar = SAR && emit && j < J && i < I;
+    // SAR / DFT: this thread owns the cells of its column that the block emits
+    const bool c_sar = MEANS && emit && j < J && i < I;
     const int64_t cell_col = (int64_t)j * I + i;
     const int64_t cell_sk = (int64_t)J * I;
+    // DFT: the sums of the S cells in flight, slot (cell % S) of this
+    // thread: sD[((slot * 6 * nf + q) * BJ + ty) * BI + tx], q = 6f + 2c + (0: re, 1: im)
+    extern __shared__ float sD[];
+    constexpr int64_t SLOT_STRIDE = (int64_t)BJ * BI;
 
     // e[m], h[m]: level m's newest plane of this column (level S: H only,
-    // and with the E-mean SAR its E too); acc[m-1]: the accumulator of the
-    // cell that level m adds to at this pipeline step
-    constexpr int NE = (SAR && !ADE) ? S + 1 : S;
+    // and with E cell means (SAR, DFT) its E too); acc[m-1]: the
+    // accumulator of the cell that level m adds to at this pipeline step
+    constexpr int NE = ((SAR && !ADE) || DFT) ? S + 1 : S;
     float e[NE][3], h[S + 1][3];
     float acc[SAR ? S : 1];
 #pragma unroll
@@ -393,6 +432,23 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const int kn = psw.n;  // planes k <= kn or k >= K - kn are near a k wall
 
     for (int r = ks; r <= k1 - 1 + S + SH; ++r) {
+        if constexpr (DFT) {
+            // fetch the sums of the cell level 1 starts at this step
+            const int c1 = r - 2;
+            if (c_sar && c1 >= k0 && c1 < k1 && c1 < K) {
+                const int64_t cells = (int64_t)K * cell_sk;
+                float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
+                const int64_t oc1 = (int64_t)c1 * cell_sk + cell_col;
+                for (int f = 0; f < dft.nf; ++f)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc1;
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c) * SLOT_STRIDE, dft.re + a, 4);
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c + 1) * SLOT_STRIDE, dft.im + a, 4);
+                    }
+            }
+            __pipeline_commit();
+        }
         // eo, ho: the inputs of the next level, i.e. the previous level's
         // plane before this pipeline step replaced it (pso: its psi)
         float eo[3] = {e[0][0], e[0][1], e[0][2]};
@@ -592,6 +648,47 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                     for (int c = 0; c < 3; ++c) wl[m - 1][c] = wn[c];
                 }
             }
+            if constexpr (DFT) {
+                // level m's E on planes k-1 (e[m]) and k (en) for the cell
+                // means: the E-mean SAR variant has them in sS already; the
+                // Debye SAR's work means must be read before E replaces it
+                if constexpr (!SAR || ADE) {
+                    if constexpr (SAR) __syncthreads();
+                    sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
+                    sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
+                    sS[4][ty][tx] = e[m][2];
+                    __syncthreads();
+                }
+                const int cell = k - 1;
+                if (c_sar && cell >= k0 && cell < k1 && cell < K) {
+                    const int64_t oc = (int64_t)cell * cell_sk + cell_col;
+                    const float me[3] = {
+                        mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]),
+                        mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]),
+                        mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1])};
+                    const int64_t cells = (int64_t)K * cell_sk;
+                    const float* wm = dft.w + (int64_t)(m - 1) * 2 * dft.nf;
+                    if (m == 1) __pipeline_wait_prior(0);
+                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
+                    for (int f = 0; f < dft.nf; ++f) {
+                        const float cw = __ldg(wm + f), sw = __ldg(wm + dft.nf + f);
+#pragma unroll
+                        for (int c = 0; c < 3; ++c) {
+                            float* pr = slot + (6 * f + 2 * c) * SLOT_STRIDE;
+                            const float vr = __fadd_rn(pr[0], __fmul_rn(cw, me[c]));
+                            const float vi = __fsub_rn(pr[SLOT_STRIDE], __fmul_rn(sw, me[c]));
+                            if (m == S) {
+                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
+                                dft.re[a] = vr;
+                                dft.im[a] = vi;
+                            } else {
+                                pr[0] = vr;
+                                pr[SLOT_STRIDE] = vi;
+                            }
+                        }
+                    }
+                }
+            }
 
             if (m < S) {
 #pragma unroll
@@ -616,7 +713,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
                 for (int c = 0; c < 3; ++c) {
                     h[m][c] = hn[c];
-                    if constexpr (SAR && !ADE) e[m][c] = en[c];
+                    if constexpr (NE > S) e[NE - 1][c] = en[c];
                 }
                 if (emit && k >= k0 && k < k1) {
                     st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
@@ -643,12 +740,12 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     }
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE>
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
 int launch(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
            int tk, int has_patch, int j0, int j1, int i0, int i1,
            const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
-           const AdeSweep<T>& ade, cudaStream_t stream) {
-    constexpr int SH = SAR ? 1 : 0;
+           const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
+    constexpr int SH = (SAR || DFT) ? 1 : 0;
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
     const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
@@ -657,26 +754,44 @@ int launch(void* const* in, void* const* out, int K, int J, int I, float fh, flo
     const dim3 block(BI, BJ);
     const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
                     (unsigned)((K + 1 + tk - 1) / tk));
-    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE><<<grid, block, 0, stream>>>(
+    size_t dyn = 0;  // the DFT chain: 6 * nf sums of S cells a thread
+    if constexpr (DFT) {
+        dyn = (size_t)S * 6 * dft.nf * BJ * BI * sizeof(float);
+        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+        if (e != cudaSuccess) return (int)e;
+    }
+    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT><<<grid, block, dyn, stream>>>(
         f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade);
+        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade, dft);
     return (int)cudaGetLastError();
 }
 
 // The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum),
-// ::BLOCK_J_MATERIAL (the material variants), ::BLOCK_J_PML (CPML) and
-// ::BLOCK_J_ADE / ::BLOCK_J_ADE_SAR (Debye).
-template <typename T, bool LOSSY, bool HET, bool SAR, bool PML = false, bool ADE = false>
+// ::BLOCK_J_MATERIAL (the material variants), ::BLOCK_J_PML (CPML),
+// ::BLOCK_J_ADE / ::BLOCK_J_ADE_SAR (Debye) and ::BLOCK_J_DFT (the DFT
+// variants of the vacuum and material sweeps; the CPML and Debye DFT
+// variants take their variant's shape).
+template <typename T, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
 int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
              float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
-             const void* ez_rows, const void* hx_rows, const Material<T>& mat, cudaStream_t stream,
-             const PsiSweep<T>& psw = PsiSweep<T>{}, const AdeSweep<T>& ade = AdeSweep<T>{}) {
-#define YEE_STREAM_CASE(S_, BJ_)                                                                       \
-    if (s == S_ && bj == BJ_)                                                                          \
-        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
-                                                             j1, i0, i1, ez_rows, hx_rows, mat, psw, ade,  \
-                                                             stream);
-    if constexpr (ADE) {
+             const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
+             const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
+#define YEE_STREAM_CASE(S_, BJ_)                                                                            \
+    if (s == S_ && bj == BJ_)                                                                               \
+        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE, DFT>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
+                                                                  j1, i0, i1, ez_rows, hx_rows, mat, psw, ade,  \
+                                                                  dft, stream);
+    if constexpr (DFT && !ADE && !PML) {
+#ifdef YEE_STREAM_DFT_CANDIDATES
+        // the shapes python -m fdtd_tpu_torch.tune_ade --dft times (a build of its own)
+        YEE_STREAM_CASE(8, 24)
+        YEE_STREAM_CASE(4, 16)
+        YEE_STREAM_CASE(4, 32)
+        YEE_STREAM_CASE(2, 32)
+#endif
+        YEE_STREAM_CASE(4, 24)
+    } else if constexpr (ADE) {
 #ifdef YEE_STREAM_ADE_CANDIDATES
         // the shapes python -m fdtd_tpu_torch.tune_ade times (a build of its own)
         YEE_STREAM_CASE(8, 24)
@@ -707,163 +822,130 @@ int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int
     return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch_material(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
-                      int tk, int has_patch, int j0, int j1, int i0, int i1,
-                      const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
-                      const void* sigma, void* acc, float dt, cudaStream_t stream) {
-    Material<T> mat{};
-    for (int q = 0; q < 3; ++q) {
-        mat.ca[q] = (const T*)coefs[q];
-        mat.cb[q] = (const T*)coefs[3 + q];
-        if (hf != nullptr) mat.hf[q] = (const T*)hf[q];
+// the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 8 CPML, 16 Debye):
+// the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands
+template <typename T, bool DFT>
+int dispatch_variant(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
+                     float fe, int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
+                     const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const AdeSweep<T>& ade,
+                     const DftSweep& dft, cudaStream_t stream) {
+#define YEE_STREAM_VARIANT(CODE_, LOSSY_, HET_, SAR_, PML_, ADE_)                                         \
+    case CODE_:                                                                                          \
+        return dispatch<T, LOSSY_, HET_, SAR_, PML_, ADE_, DFT>(s, bj, in, out, K, J, I, fh, fe, tk,      \
+                                                                has_patch, j0, j1, i0, i1, ez_rows,        \
+                                                                hx_rows, mat, psw, ade, dft, stream);
+    switch (code) {
+        YEE_STREAM_VARIANT(0, false, false, false, false, false)   // vacuum
+        YEE_STREAM_VARIANT(1, true, false, false, false, false)    // lossy
+        YEE_STREAM_VARIANT(5, true, false, true, false, false)     // lossy + SAR
+        YEE_STREAM_VARIANT(3, true, true, false, false, false)     // lossy + het
+        YEE_STREAM_VARIANT(7, true, true, true, false, false)      // lossy + het + SAR
+        YEE_STREAM_VARIANT(8, false, false, false, true, false)    // CPML
+        YEE_STREAM_VARIANT(9, true, false, false, true, false)     // lossy CPML
+        YEE_STREAM_VARIANT(16, false, false, false, false, true)   // Debye
+        YEE_STREAM_VARIANT(20, false, false, true, false, true)    // Debye + SAR
+        default: return (int)cudaErrorInvalidValue;
     }
+#undef YEE_STREAM_VARIANT
+}
+
+template <typename T>
+int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+          int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
+          void* const* coefs, void* const* hf, const void* sigma, void* acc, float dt, void* const* psi_in,
+          void* const* psi_out, const void* tab_h, const void* tab_e, int n, void* const* pol_in,
+          void* const* pol_out, const DftSweep& dft, cudaStream_t stream) {
+    const bool lossy = code & 1, pml = code & 8, ade = code & 16;
+    Material<T> mat{};
+    PsiSweep<T> psw{};
+    AdeSweep<T> ad{};
+    for (int q = 0; q < 3; ++q) {
+        if (lossy) {
+            mat.ca[q] = (const T*)coefs[q];
+            mat.cb[q] = (const T*)coefs[3 + q];
+        }
+        if (hf != nullptr) mat.hf[q] = (const T*)hf[q];
+        if (ade) {
+            ad.pin[q] = (const T*)pol_in[q];
+            ad.pout[q] = (T*)pol_out[q];
+        }
+    }
+    if (ade)
+        for (int q = 0; q < (acc != nullptr ? 18 : 15); ++q) ad.c[q] = (const T*)coefs[q];
     mat.sigma = (const T*)sigma;
     mat.acc = (float*)acc;
     mat.dt = dt;
-    const bool het = hf != nullptr, sar = acc != nullptr;
-    if (het && sar)
-        return dispatch<T, true, true, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
-                                             i1, ez_rows, hx_rows, mat, stream);
-    if (het)
-        return dispatch<T, true, true, false>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
-                                              i1, ez_rows, hx_rows, mat, stream);
-    if (sar)
-        return dispatch<T, true, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
-                                              i1, ez_rows, hx_rows, mat, stream);
-    return dispatch<T, true, false, false>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, j0, j1, i0,
-                                           i1, ez_rows, hx_rows, mat, stream);
+    if (pml) {
+        for (int t = 0; t < 12; ++t) {
+            psw.in[t] = (const T*)psi_in[t];
+            psw.out[t] = (T*)psi_out[t];
+        }
+        psw.tab[0] = (const T*)tab_h;
+        psw.tab[1] = (const T*)tab_e;
+        psw.n = n;
+    }
+    const float fe_ = (lossy || ade) ? 0.f : fe;
+    if (dft.re != nullptr)
+        return dispatch_variant<T, true>(code, s, bj, in, out, K, J, I, fh, fe_, tk, has_patch, j0, j1, i0, i1,
+                                         ez_rows, hx_rows, mat, psw, ad, dft, stream);
+    return dispatch_variant<T, false>(code, s, bj, in, out, K, J, I, fh, fe_, tk, has_patch, j0, j1, i0, i1,
+                                      ez_rows, hx_rows, mat, psw, ad, dft, stream);
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// in, out: six pointers each (ex, ey, ez, hx, hy, hz); out must not alias
-// in.  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows in the storage dtype
-// (unused without the patch).  Each entry point launches on `stream` and
-// returns cudaGetLastError().
+// Plain C interface, loaded with ctypes: one entry point for every variant.
+// dtype: 0 = float32, 1 = bfloat16.  in, out: six pointers each (ex, ey,
+// ez, hx, hy, hz); out must not alias in.  fh, fe: the vacuum H and E
+// factors (fh is the H factor unless hf is given; fe is unused by the
+// lossy and Debye variants).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
+// in the storage dtype (unused without the patch).  The arrays a variant
+// does not read are null, and the ones given select the variant:
+//   coefs   lossy media: ca_x, ca_y, ca_z, cb_x, cb_y, cb_z (the fields'
+//           shape and dtype); with pol_in, the 15 Debye maps ca_x..k2_z in
+//           ops/dispersive.py::DebyeCoefs.arrays order, and with acc 18
+//           (+ sig_x, sig_y, sig_z);
+//   hf      heterogeneous mu_r (lossy media only): hf_x, hf_y, hf_z;
+//   acc     SAR: the fp32 (K, J, I) map, updated in place with every step's
+//           sigma*|E_cell|^2*dt (sigma: (K, J, I) in the storage dtype) or,
+//           in Debye media, its work*dt (sigma null); dt: the step in fp32;
+//   psi_in  CPML (vacuum or lossy): psi_in, psi_out twelve pointers each in
+//           ops/cpml.py::_TERMS order (psi_out must not alias psi_in);
+//           tab_h, tab_e the (6, 2, 2n) (b, c) tables; n the slab depth;
+//   pol_in  Debye media (vacuum H): pol_in, pol_out px, py, pz each (the
+//           fields' shape and dtype; pol_out must not alias pol_in);
+//   re      the DFT bands (fields "e"): re, im the (nf, nc, K, J, I) fp32
+//           sums, updated in place; w the sweep's (s, 2, nf) fp32 (cos,
+//           sin) rows.
+// The nine variants of ops/stream_plan.py::VARIANTS are built, each with
+// and without the bands.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 extern "C" {
 
-// vacuum: scalar factors fh (H) and fe (E)
 int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
                      int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
-                     const void* ez_rows, const void* hx_rows, int dtype, void* stream) {
-    if (bi != BI || tk < 1 || (has_patch && (ez_rows == nullptr || hx_rows == nullptr)))
+                     const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
+                     const void* sigma, void* acc, float dt, void* const* psi_in, void* const* psi_out,
+                     const void* tab_h, const void* tab_e, int n, void* const* pol_in, void* const* pol_out,
+                     void* re, void* im, const void* w, int nf, int nc, int dtype, void* stream) {
+    const bool ade = pol_in != nullptr, lossy = coefs != nullptr && !ade, het = hf != nullptr;
+    const bool sar = acc != nullptr, pml = psi_in != nullptr;
+    if (bi != BI || tk < 1 || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
+        || (ade && (coefs == nullptr || pol_out == nullptr)) || ((sigma != nullptr) != (sar && !ade))
+        || (pml && (psi_out == nullptr || tab_h == nullptr || tab_e == nullptr || n < 1))
+        || (re != nullptr && (im == nullptr || w == nullptr || nf < 1 || nc < 3)))
         return (int)cudaErrorInvalidValue;
+    const int code = (lossy ? 1 : 0) | (het ? 2 : 0) | (sar ? 4 : 0) | (pml ? 8 : 0) | (ade ? 16 : 0);
+    const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc};
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return dispatch<float, false, false, false>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1,
-                                                    i0, i1, ez_rows, hx_rows, Material<float>{}, st);
+        return sweep<float>(code, s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
+                            hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in, pol_out,
+                            dft, st);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16, false, false, false>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch,
-                                                            j0, j1, i0, i1, ez_rows, hx_rows,
-                                                            Material<__nv_bfloat16>{}, st);
-    return (int)cudaErrorInvalidValue;
-}
-
-// materials: coefs = ca_x, ca_y, ca_z, cb_x, cb_y, cb_z (the fields' shape
-// and dtype); hf = hf_x, hf_y, hf_z for heterogeneous mu_r, else null (fh
-// is the H factor then); with acc (fp32, (K, J, I), updated in place) the
-// sweep adds every step's sigma*|E_cell|^2*dt, sigma (K, J, I) in the
-// storage dtype; without it both are null.
-int yee_stream_sweep_material(void* const* in, void* const* out, int K, int J, int I, float fh,
-                              int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0,
-                              int i1, const void* ez_rows, const void* hx_rows, void* const* coefs,
-                              void* const* hf, const void* sigma, void* acc, float dt, int dtype,
-                              void* stream) {
-    if (bi != BI || tk < 1 || coefs == nullptr || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
-        || ((acc == nullptr) != (sigma == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0)
-        return dispatch_material<float>(s, bj, in, out, K, J, I, fh, tk, has_patch, j0, j1, i0, i1,
-                                        ez_rows, hx_rows, coefs, hf, sigma, acc, dt, st);
-    if (dtype == 1)
-        return dispatch_material<__nv_bfloat16>(s, bj, in, out, K, J, I, fh, tk, has_patch, j0, j1, i0, i1,
-                                                ez_rows, hx_rows, coefs, hf, sigma, acc, dt, st);
-    return (int)cudaErrorInvalidValue;
-}
-
-// CPML (vacuum, or lossy with coefs = ca_x, ca_y, ca_z, cb_x, cb_y, cb_z;
-// coefs null for vacuum; fh, fe the vacuum factors, fe unused when lossy):
-// psi_in, psi_out: twelve pointers each in ops/cpml.py::_TERMS order,
-// psi_out must not alias psi_in; tab_h, tab_e: the (6, 2, 2n) (b, c)
-// tables of the H and E terms; n: the slab depth.
-int yee_stream_sweep_pml(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
-                         int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
-                         const void* ez_rows, const void* hx_rows, void* const* coefs,
-                         void* const* psi_in, void* const* psi_out, const void* tab_h, const void* tab_e,
-                         int n, int dtype, void* stream) {
-    if (bi != BI || tk < 1 || n < 1 || psi_in == nullptr || psi_out == nullptr || tab_h == nullptr
-        || tab_e == nullptr || (has_patch && (ez_rows == nullptr || hx_rows == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const bool lossy = coefs != nullptr;
-#define YEE_STREAM_PML(T_)                                                                          \
-    {                                                                                               \
-        Material<T_> mat{};                                                                         \
-        if (lossy)                                                                                  \
-            for (int q = 0; q < 3; ++q) {                                                           \
-                mat.ca[q] = (const T_*)coefs[q];                                                    \
-                mat.cb[q] = (const T_*)coefs[3 + q];                                                \
-            }                                                                                       \
-        PsiSweep<T_> psw{};                                                                         \
-        for (int t = 0; t < 12; ++t) {                                                              \
-            psw.in[t] = (const T_*)psi_in[t];                                                       \
-            psw.out[t] = (T_*)psi_out[t];                                                           \
-        }                                                                                           \
-        psw.tab[0] = (const T_*)tab_h;                                                              \
-        psw.tab[1] = (const T_*)tab_e;                                                              \
-        psw.n = n;                                                                                  \
-        if (lossy)                                                                                  \
-            return dispatch<T_, true, false, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk, has_patch, \
-                                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, st, psw); \
-        return dispatch<T_, false, false, false, true>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch,   \
-                                                       j0, j1, i0, i1, ez_rows, hx_rows, mat, st, psw);   \
-    }
-    if (dtype == 0) YEE_STREAM_PML(float)
-    if (dtype == 1) YEE_STREAM_PML(__nv_bfloat16)
-#undef YEE_STREAM_PML
-    return (int)cudaErrorInvalidValue;
-}
-
-// Debye media (vacuum H with the factor fh): pol_in, pol_out: px, py, pz
-// each (the fields' shape and dtype; pol_out must not alias pol_in);
-// coefs: the 15 ADE maps ca_x..k2_z in ops/dispersive.py::DebyeCoefs.arrays
-// order, and with acc 18 (+ sig_x, sig_y, sig_z); acc: null, or the fp32
-// (K, J, I) map that receives every step's work*dt in place; dt: the step
-// rounded to fp32.
-int yee_stream_sweep_ade(void* const* in, void* const* out, int K, int J, int I, float fh,
-                         int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
-                         const void* ez_rows, const void* hx_rows, void* const* pol_in, void* const* pol_out,
-                         void* const* coefs, void* acc, float dt, int dtype, void* stream) {
-    if (bi != BI || tk < 1 || coefs == nullptr || pol_in == nullptr || pol_out == nullptr
-        || (has_patch && (ez_rows == nullptr || hx_rows == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    const bool sar = acc != nullptr;
-#define YEE_STREAM_ADE(T_)                                                                          \
-    {                                                                                               \
-        Material<T_> mat{};                                                                         \
-        mat.acc = (float*)acc;                                                                      \
-        mat.dt = dt;                                                                                \
-        AdeSweep<T_> ade{};                                                                         \
-        for (int q = 0; q < (sar ? 18 : 15); ++q) ade.c[q] = (const T_*)coefs[q];                   \
-        for (int q = 0; q < 3; ++q) {                                                               \
-            ade.pin[q] = (const T_*)pol_in[q];                                                      \
-            ade.pout[q] = (T_*)pol_out[q];                                                          \
-        }                                                                                           \
-        if (sar)                                                                                    \
-            return dispatch<T_, false, false, true, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk,     \
-                                                                 has_patch, j0, j1, i0, i1, ez_rows,     \
-                                                                 hx_rows, mat, st, PsiSweep<T_>{}, ade); \
-        return dispatch<T_, false, false, false, false, true>(s, bj, in, out, K, J, I, fh, 0.f, tk,        \
-                                                              has_patch, j0, j1, i0, i1, ez_rows, hx_rows, \
-                                                              mat, st, PsiSweep<T_>{}, ade);             \
-    }
-    if (dtype == 0) YEE_STREAM_ADE(float)
-    if (dtype == 1) YEE_STREAM_ADE(__nv_bfloat16)
-#undef YEE_STREAM_ADE
+        return sweep<__nv_bfloat16>(code, s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
+                                    hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in,
+                                    pol_out, dft, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -23,10 +23,12 @@ from ..params import Params
 from ..state import FieldState, field_dtype
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of a tensor (never a view: the fields are updated
-    in place while a worker thread writes the copy); bfloat16 widens to
-    float32."""
+def to_host(t: torch.Tensor | np.ndarray) -> np.ndarray:
+    """A host numpy copy of a tensor or array (never a view: the fields are
+    updated in place while a worker thread writes the copy); bfloat16
+    widens to float32."""
+    if isinstance(t, np.ndarray):
+        return t.copy()
     dt = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
     return t.detach().to(device="cpu", dtype=dt, copy=True).numpy()
 
@@ -96,10 +98,11 @@ class CheckpointWriter:
 
     def submit(self, state: FieldState, iteration: int, t: float,
                power: torch.Tensor | None = None,
-               aux: dict[str, torch.Tensor] | None = None) -> None:
+               aux: dict[str, torch.Tensor | np.ndarray] | None = None) -> None:
         """Checkpoint ``state``, the fp32 SAR accumulator ``power`` and the
-        ``aux`` tensors (stored as ``aux_<name>``, e.g. the CPML psi as
-        ``aux_psi_<term>``)."""
+        ``aux`` tensors or host arrays (stored as ``aux_<name>``, e.g. the
+        CPML psi as ``aux_psi_<term>``, the DFT sums as ``aux_dft_re`` /
+        ``aux_dft_im``, the probe rows as ``aux_probe_rows``)."""
         self.drain()
         path = os.path.join(self.out_dir, f"ckpt{iteration:06d}.npz")
         host = {name: to_host(getattr(state, name)) for name in COMPONENTS}

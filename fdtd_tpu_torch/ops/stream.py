@@ -17,7 +17,12 @@ replacing ``fdtd_tpu/ops/pallas_dispersive.py::_kernel_ade_stream``: the
 H update is vacuum, the E update the ADE update of ``dc``; it reads the
 polarization ``pol`` and writes it advanced into ``pol_out``, and with
 ``acc`` it adds every step's Debye work (``diagnostics.accumulate_work``)
-to the map.  On CUDA tensors it launches the kernel variant
+to the map.  With ``dacc`` (the canonical (re, im) fp32 DFT sums of
+:func:`fdtd_tpu_torch.dft.zero_dft_acc`, fields "e") and ``wts`` (the
+sweep's (s, 2, nf) fp32 (cos, sin) rows on the device) it is the variant
+with the DFT bands of the three TPU kernels: every step's E cell means,
+weighted, are added to the sums in place, as s per-step
+:func:`fdtd_tpu_torch.dft.accumulate` calls would.  On CUDA tensors it launches the kernel variant
 ``plan.kernel`` on the current stream and allocates nothing; it raises on
 anything the kernel does not take.  On CPU tensors, and only there, it
 runs :func:`plain_sweep`.
@@ -37,21 +42,17 @@ import dataclasses
 import torch
 
 from .. import diagnostics
+from ..dft import accumulate
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl, dispersive, yee
 from .cpml import TERM_NAMES, Cpml, PsiState
 from .dispersive import DebyeCoefs, PolState
-from .stream_plan import StreamPlan, variant_name
+from .dft import check_sums, check_weights
+from .stream_plan import VARIANTS, StreamPlan, variant_name
 
 KERNEL_SOURCE = "yee_stream"
-launches = {variant_name(lossy, het, sar, pml, ade): 0
-            for lossy, het, sar, pml, ade in (
-                (False, False, False, False, False), (True, False, False, False, False),
-                (True, False, True, False, False), (True, True, False, False, False),
-                (True, True, True, False, False), (False, False, False, True, False),
-                (True, False, False, True, False), (False, False, False, False, True),
-                (False, False, True, False, True))}
+launches = {variant_name(*v): 0 for v in VARIANTS}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -92,21 +93,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of its C interface set."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.yee_stream_sweep.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr, ptr, i32, ptr]
+        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
+        + [ptr] * 5 + [i32, i32, i32, ptr]
     )
     lib.yee_stream_sweep.restype = i32
-    lib.yee_stream_sweep_material.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
-    )
-    lib.yee_stream_sweep_material.restype = i32
-    lib.yee_stream_sweep_pml.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 7 + [i32, i32, ptr]
-    )
-    lib.yee_stream_sweep_pml.restype = i32
-    lib.yee_stream_sweep_ade.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [f32] + [i32] * 9 + [ptr] * 6 + [f32, i32, ptr]
-    )
-    lib.yee_stream_sweep_ade.restype = i32
     lib.yee_stream_error_string.argtypes = [i32]
     lib.yee_stream_error_string.restype = ctypes.c_char_p
     return lib
@@ -117,7 +107,7 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 acc: torch.Tensor | None = None, cpml: Cpml | None = None,
                 psi: PsiState | None = None, psi_out: PsiState | None = None,
                 dc: DebyeCoefs | None = None, pol: PolState | None = None,
-                pol_out: PolState | None = None) -> FieldState:
+                pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
@@ -128,9 +118,12 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
     ``psi``, rounded once into ``psi_out``.  With ``dc``, the E pass is
     :func:`dispersive.update_e_ade` on a working copy of ``pol``, rounded
     once into ``pol_out``, and ``acc`` takes each step's Debye work
-    (:func:`diagnostics.accumulate_work`).  In fp32 this is exactly ``s``
-    steps of the ``torch`` backend (with their per-step SAR increments,
-    with CPML, or in a Debye medium)."""
+    (:func:`diagnostics.accumulate_work`).  With ``dacc`` and ``wts`` each
+    step's E cell means of the working copy are added to the DFT sums
+    (:func:`fdtd_tpu_torch.dft.accumulate`, weights ``wts[m - 1]``).  In
+    fp32 this is exactly ``s`` steps of the ``torch`` backend (with their
+    per-step SAR increments and DFT sums, with CPML, or in a Debye
+    medium)."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
     wpsi = wpol = w_edge = None
@@ -168,6 +161,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 diagnostics.accumulate_work(p, w_edge, acc)
             else:
                 diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
+        if dacc is not None:
+            accumulate(diagnostics._e_cell_means(p, work), wts[m - 1, 0], wts[m - 1, 1], dacc)
     if wpsi is not None:
         for o, w in zip(psi_out.tensors(), wpsi.tensors()):
             o.copy_(w)
@@ -220,21 +215,32 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
           acc: torch.Tensor | None = None, cpml: Cpml | None = None,
           psi: PsiState | None = None, psi_out: PsiState | None = None,
           dc: DebyeCoefs | None = None, pol: PolState | None = None,
-          pol_out: PolState | None = None) -> FieldState:
+          pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None) -> FieldState:
     """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
-    ``plan`` must be made for the variant of ``coefs``, ``acc``, ``cpml``
-    and ``dc`` (``stream_plan.plan_for(p, s, coefs.lossy,
+    ``plan`` must be made for the variant of ``coefs``, ``acc``, ``cpml``,
+    ``dc`` and ``dacc`` (``stream_plan.plan_for(p, s, coefs.lossy,
     coefs.heterogeneous_mu, acc is not None, cpml.cfg if cpml else None,
-    dc is not None)``); with ``cpml``, ``psi`` is read and ``psi_out``
-    written; with ``dc`` (and the vacuum ``coefs`` of the H pass), ``pol``
-    is read and ``pol_out`` written."""
-    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None)
-    if (plan.lossy, plan.het, plan.sar, plan.pml, plan.ade) != variant:
+    dc is not None, dft=...)``); with ``cpml``, ``psi`` is read and
+    ``psi_out`` written; with ``dc`` (and the vacuum ``coefs`` of the H
+    pass), ``pol`` is read and ``pol_out`` written; with ``dacc`` (E sums
+    updated in place) the weights ``wts``."""
+    variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None,
+               dacc is not None)
+    if (plan.lossy, plan.het, plan.sar, plan.pml, plan.ade, plan.dft) != variant:
         raise ValueError(
-            f"the plan is for (lossy, het, sar, pml, ade) = "
-            f"{(plan.lossy, plan.het, plan.sar, plan.pml, plan.ade)}, "
-            f"the coefficients, accumulator, CPML and Debye maps are {variant}"
+            f"the plan is for (lossy, het, sar, pml, ade, dft) = "
+            f"{(plan.lossy, plan.het, plan.sar, plan.pml, plan.ade, plan.dft)}, "
+            f"the coefficients, accumulator, CPML and Debye maps and DFT sums are {variant}"
         )
+    nf = nc = 0
+    if dacc is not None:
+        nf, nc = check_sums(p, state.ex, dacc)
+        if wts is None:
+            raise ValueError("a DFT sweep needs its (s, 2, nf) weight rows")
+        check_weights(wts, state.ex, (plan.s, 2, nf))
+        if nf > plan.dft_max_nf:
+            raise ValueError(f"the DFT bands of {plan.kernel} at s={plan.s} take at most {plan.dft_max_nf} "
+                             f"frequencies (shared memory); got {nf}")
     if cpml is not None and (psi is None or psi_out is None):
         raise ValueError("a CPML sweep needs psi and psi_out")
     if dc is not None and (pol is None or pol_out is None):
@@ -258,7 +264,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                     f"{a.dtype} {tuple(a.shape)} on {a.device}"
                 )
     if _on_cpu(p, state, out):
-        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out)
+        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out, dacc, wts)
     lib = _lib()
     fh = curl.scalar(coefs.h_factor, dt)
     if drive is not None:
@@ -279,45 +285,36 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     ins = PtrArray(*(t.data_ptr() for t in state.tensors()))
     outs = PtrArray(*(t.data_ptr() for t in out.tensors()))
     geometry = (plan.s, plan.bj, plan.bi, plan.tk, int(drive is not None), j0, j1, i0, i1)
-    cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
+    cf = hf = ()
+    if dc is not None:
+        cf = dc.arrays(acc is not None)
+        yee.check_coefficients(p, state.ex, pol.tensors() + pol_out.tensors() + cf)
+        if {t.data_ptr() for t in pol.tensors()} & {t.data_ptr() for t in pol_out.tensors()}:
+            raise ValueError("the sweep's output pol must not alias its input pol")
+    elif coefs.lossy:
+        cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z)
+        hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
+        yee.check_coefficients(p, state.ex, cf + hf)
+    fe = 0.0 if cf else curl.scalar(coefs.cb_x, dt)
+    psi_args = (None, None, None, None, 0)
+    if cpml is not None:
+        _check_psi(p, state, cpml, psi, psi_out)
+        psi_args = (yee.pointers(psi.tensors(TERM_NAMES)), yee.pointers(psi_out.tensors(TERM_NAMES)),
+                    cpml.table_h.data_ptr(), cpml.table_e.data_ptr(), cpml.cfg.cells)
+    pol_args = (yee.pointers(pol.tensors()), yee.pointers(pol_out.tensors())) if dc is not None else (None, None)
+    dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc) if dacc is not None
+                else (None, None, None, 0, 0))
+    sigma = coefs.sigma_cells.data_ptr() if acc is not None and dc is None else None
     with torch.cuda.device(state.ex.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if dc is not None:
-            cf = dc.arrays(acc is not None)
-            yee.check_coefficients(p, state.ex, pol.tensors() + pol_out.tensors() + cf)
-            if {t.data_ptr() for t in pol.tensors()} & {t.data_ptr() for t in pol_out.tensors()}:
-                raise ValueError("the sweep's output pol must not alias its input pol")
-            rc = lib.yee_stream_sweep_ade(
-                ins, outs, p.maxk, p.maxj, p.maxi, fh, *geometry, *rows, yee.pointers(pol.tensors()),
-                yee.pointers(pol_out.tensors()), yee.pointers(cf), acc.data_ptr() if acc is not None else None,
-                curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[dt], stream,
-            )
-        elif cpml is not None:
-            _check_psi(p, state, cpml, psi, psi_out)
-            if cf:
-                yee.check_coefficients(p, state.ex, cf)
-            rc = lib.yee_stream_sweep_pml(
-                ins, outs, p.maxk, p.maxj, p.maxi, fh, curl.scalar(coefs.cb_x, dt) if not cf else 0.0,
-                *geometry, *rows, yee.pointers(cf) if cf else None,
-                yee.pointers(psi.tensors(TERM_NAMES)), yee.pointers(psi_out.tensors(TERM_NAMES)),
-                cpml.table_h.data_ptr(), cpml.table_e.data_ptr(), cpml.cfg.cells, _DTYPE_CODES[dt], stream,
-            )
-        elif not cf:
-            rc = lib.yee_stream_sweep(
-                ins, outs, p.maxk, p.maxj, p.maxi, fh, curl.scalar(coefs.cb_x, dt),
-                *geometry, *rows, _DTYPE_CODES[dt], stream,
-            )
-        else:
-            hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
-            yee.check_coefficients(p, state.ex, cf + hf)
-            sar = (coefs.sigma_cells.data_ptr(), acc.data_ptr()) if acc is not None else (None, None)
-            rc = lib.yee_stream_sweep_material(
-                ins, outs, p.maxk, p.maxj, p.maxi, fh, *geometry, *rows,
-                yee.pointers(cf), yee.pointers(hf) if hf else None, *sar,
-                curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[dt], stream,
-            )
+        rc = lib.yee_stream_sweep(
+            ins, outs, p.maxk, p.maxj, p.maxi, fh, fe, *geometry, *rows,
+            yee.pointers(cf) if cf else None, yee.pointers(hf) if hf else None, sigma,
+            acc.data_ptr() if acc is not None else None, curl.scalar(p.time_step, torch.float32),
+            *psi_args, *pol_args, *dft_args, _DTYPE_CODES[dt], torch.cuda.current_stream().cuda_stream,
+        )
     launches[plan.kernel] += 1
     if rc != 0:
         msg = lib.yee_stream_error_string(rc).decode()
         raise RuntimeError(f"{plan.kernel} launch failed: CUDA error {rc} ({msg})")
     return out
+

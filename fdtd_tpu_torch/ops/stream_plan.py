@@ -52,6 +52,19 @@ variants' (computation mode) plus no CPML (Debye x CPML runs the torch
 ops) and no heterogeneous mu_r.  A sweep reads one P set and writes a
 second, like the state.
 
+The DFT variants (``dft``: the phasor sums of fields "e" ride the sweep)
+exist for every variant above.  They form each level's E cell means as the
+SAR variants do, so their tiles emit one column fewer per axis and the
+pipeline runs one step further; a thread keeps the 6 * nf sums of the s
+cells it has in flight in dynamic shared memory (loaded at level 1, stored
+at level s), so ``nf`` is a runtime value that needs no registers, up to
+what fits beside the static buffers (:attr:`StreamPlan.dft_max_nf`; a
+scene with more frequencies runs ``twopass`` with the ``dft_accum``
+kernel).  Each is built at one depth: the
+material and vacuum variants at ``BLOCK_J_DFT``, the CPML and ADE variants
+at the shape of their variant without DFT.  The sums (8 * nf * nc B a cell)
+count in every footprint; a DFT sweep reads and writes them once.
+
 Every footprint counts the temporaries of the output reductions (the k
 slabs of the energies and snapshot aggregation) or of the SAR increment,
 whichever is larger: they never run at the same time.  With Debye SAR the
@@ -64,6 +77,7 @@ import dataclasses
 import math
 
 from .. import diagnostics
+from ..dft import DftConfig, acc_bytes
 from ..params import Mode, Params
 from ..source import make_source_plan
 from .cpml import PMLConfig, psi_bytes
@@ -98,18 +112,40 @@ BLOCK_J_PML = {2: 24}
 # threads, no spills, 1.655 / 1.469; s=4 2.38-3.04 / 1.77-2.42; s=8 9.2 / 8.1)
 BLOCK_J_ADE = {4: 24}
 BLOCK_J_ADE_SAR = {2: 32}
+# the DFT variants of the vacuum and material sweeps: one depth, measured at
+# 256^3 (python -m fdtd_tpu_torch.tune_ade --dft; NVIDIA H100 80GB HBM3, 700
+# W; ms a step fp32, nf = 1, vacuum / water + SAR): s=4 with 768 threads,
+# 80 registers, no spills, 0.635 / 1.028, and room for nf <= 2 in shared
+# memory (s=4 with 1024 threads 0.591 / 0.949 but nf <= 1; s=2 with 1024
+# threads 0.670 / 1.051; s=4 with 512 threads 0.813 / 1.453; s=8 1.303 /
+# 2.510 with 32-136 B of spills)
+BLOCK_J_DFT = {4: 24}
 BLOCKS_WANTED = 2 * SM_COUNT  # split k until a sweep has this many blocks
 
 
-def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False) -> str:
+def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False,
+                 dft: bool = False) -> str:
     """The name of a kernel variant of csrc/yee_stream.cu (its launch
     counter): ``yee_stream`` in vacuum, else ``yee_stream_lossy`` with
     ``_het`` and ``_sar`` as they apply; ``_pml`` for the CPML variants;
-    ``yee_stream_ade`` (``_sar``) for Debye media."""
+    ``yee_stream_ade`` (``_sar``) for Debye media; ``_dft`` last for the
+    variants with the DFT bands."""
+    suffix = "_dft" if dft else ""
     if ade:
-        return "yee_stream_ade" + ("_sar" if sar else "")
+        return "yee_stream_ade" + ("_sar" if sar else "") + suffix
     base = "yee_stream" if not lossy else "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
-    return base + ("_pml" if pml else "")
+    return base + ("_pml" if pml else "") + suffix
+
+
+# every variant the sweep is built for: (lossy, het, sar, pml, ade), each
+# with and without the DFT bands
+VARIANTS = tuple((lossy, het, sar, pml, ade, dft) for dft in (False, True)
+                 for lossy, het, sar, pml, ade in (
+                     (False, False, False, False, False), (True, False, False, False, False),
+                     (True, False, True, False, False), (True, True, False, False, False),
+                     (True, True, True, False, False), (False, False, False, True, False),
+                     (True, False, False, True, False), (False, False, False, False, True),
+                     (False, False, True, False, True)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +169,12 @@ class StreamPlan:
     sar: bool = False  # the SAR accumulator
     pml: bool = False  # the twelve CPML psi terms
     ade: bool = False  # Debye media: P and the 15 ADE maps
+    dft: bool = False  # the DFT bands (E phasor sums)
 
     @property
     def kernel(self) -> str:
         """The kernel variant, as ``ops.stream.launches`` counts it."""
-        return variant_name(self.lossy, self.het, self.sar, self.pml, self.ade)
+        return variant_name(self.lossy, self.het, self.sar, self.pml, self.ade, self.dft)
 
     @property
     def blocks(self) -> int:
@@ -149,8 +186,21 @@ class StreamPlan:
 
     @property
     def smem_bytes(self) -> int:
-        # one fp32 E plane and one H plane, and SAR's five E values a column
-        return (11 if self.sar else 6) * self.bj * self.bi * 4
+        """Static shared memory: one fp32 E plane and one H plane, and the
+        five E (or work) values a column of the SAR and DFT cell means."""
+        return (11 if self.sar or self.dft else 6) * self.bj * self.bi * 4
+
+    def dft_smem_bytes(self, nf: int) -> int:
+        """Dynamic shared memory of the DFT bands: 6 * nf fp32 sums of s
+        cells a thread."""
+        return self.s * 6 * nf * self.bj * self.bi * 4 if self.dft else 0
+
+    @property
+    def dft_max_nf(self) -> int:
+        """The most frequencies the DFT bands take at this shape (0 without
+        them): what fits in a block's shared memory beside the static
+        buffers."""
+        return (SMEM_PER_BLOCK - self.smem_bytes) // self.dft_smem_bytes(1) if self.dft else 0
 
 
 def _itemsize(p: Params) -> int:
@@ -197,58 +247,75 @@ def output_work_bytes(p: Params) -> int:
     return diagnostics.SAR_SLAB_TEMPS * 4 * diagnostics.output_slab_planes(p) * p.maxj * p.maxi
 
 
-def work_bytes(p: Params, sar: bool = False, ade: bool = False) -> int:
-    """The larger of the output and the SAR temporaries (never live at
-    the same time; the Debye work arrays stay allocated, so they add)."""
+def dft_work_bytes(p: Params, dft: DftConfig | None) -> int:
+    """Device bytes of the temporaries of one step's H sums (fields "eh":
+    torch ops over the whole grid: the three cell means, their stack and
+    the nf products); the E sums (the kernel, or the sweep's bands)
+    allocate nothing."""
+    if dft is None or dft.fields != "eh":
+        return 0
+    return (7 + 3 * dft.nf) * 4 * p.maxk * p.maxj * p.maxi
+
+
+def work_bytes(p: Params, sar: bool = False, ade: bool = False, dft: DftConfig | None = None) -> int:
+    """The larger of the output, the SAR and the DFT temporaries (never
+    live at the same time; the Debye work arrays stay allocated, so they
+    add)."""
     if sar and ade:
-        return sar_work_bytes(p, ade=True) + max(output_work_bytes(p) - sar_work_bytes(p), 0)
-    return max(output_work_bytes(p), sar_work_bytes(p) if sar else 0)
+        return sar_work_bytes(p, ade=True) + max(output_work_bytes(p) - sar_work_bytes(p), dft_work_bytes(p, dft), 0)
+    return max(output_work_bytes(p), sar_work_bytes(p) if sar else 0, dft_work_bytes(p, dft))
 
 
 def twopass_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
-                  pml: PMLConfig | None = None, ade: bool = False) -> int:
+                  pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None) -> int:
     """Device bytes of a ``twopass`` run: the state (updated in place), the
-    material arrays, one psi set with CPML, and the temporaries of the
-    SAR increment or of the snapshots and energy log; with Debye media
-    (``ade``) P, the 15 maps, sigma and the three fp32 work arrays."""
+    material arrays, one psi set with CPML, the DFT sums, and the
+    temporaries of the SAR increment, of the H sums or of the snapshots
+    and energy log; with Debye media (``ade``) P, the 15 maps, sigma and
+    the three fp32 work arrays."""
     lossy = lossy or het
     return (state_bytes(p) + (pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
-            + (psi_bytes(p, pml) if pml else 0) + work_bytes(p, sar, ade))
+            + (psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0) + work_bytes(p, sar, ade, dft))
 
 
 def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False,
                  het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
-                 ade: bool = False) -> bool:
+                 ade: bool = False, dft: DftConfig | None = None) -> bool:
     """:func:`twopass_bytes` fits in ``memory_bytes`` (default: the
     H100's 80 GB) with the margin the stream plans keep."""
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
-    return twopass_bytes(p, lossy, het, sar, pml, ade) <= MEMORY_MARGIN * mem
+    return twopass_bytes(p, lossy, het, sar, pml, ade, dft) <= MEMORY_MARGIN * mem
 
 
-def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False) -> dict[int, int]:
+def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: bool = False) -> dict[int, int]:
     """The depths a variant's kernel is built at, with their threads along j."""
     if ade:
         return BLOCK_J_ADE_SAR if sar else BLOCK_J_ADE
-    return BLOCK_J_PML if pml else BLOCK_J_MATERIAL if lossy else BLOCK_J
+    if pml:
+        return BLOCK_J_PML
+    if dft:
+        return BLOCK_J_DFT
+    return BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
              sar: bool = False, pml: PMLConfig | None = None, ade: bool = False,
-             bj: int | None = None) -> StreamPlan:
+             bj: int | None = None, dft: DftConfig | None = None) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
     the kernel variant the flags name (het and sar imply lossy, except
-    for Debye media, ``ade``: vacuum H and the ADE E update).  ``bj``
-    (threads along j) is the variant's built value unless given, for a
-    build with other shapes (``tune_ade``)."""
+    for Debye media, ``ade``: vacuum H and the ADE E update), with the DFT
+    bands of ``dft``.  ``bj`` (threads along j) is the variant's built
+    value unless given, for a build with other shapes (``tune_ade``)."""
     lossy = not ade and (lossy or het or sar)
-    table = _block_j(lossy, pml is not None, ade, sar)
+    table = _block_j(lossy, pml is not None, ade, sar, dft is not None)
     if bj is None:
         if s not in table:
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
     K1, J1, I1 = p.padded_shape
     bi = BLOCK_I
-    tj, ti = bj - 2 * s - sar, bi - 2 * s - sar
+    sh = int(sar or dft is not None)  # the cell means read E one column past
+    tj, ti = bj - 2 * s - sh, bi - 2 * s - sh
     nj, ni = -(-J1 // tj), -(-I1 // ti)
     nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
     # a segment at least 2s planes deep keeps the lead-in below 2x
@@ -267,8 +334,11 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
         sar_bytes = (item + 8) * cells if sar else 0.0
     # psi: read once per halo-amplified tile, written once, per sweep
     pml_bytes = psi_bytes(p, pml) * (amp_ji * amp_k + 1) / (K1 * J1 * I1) if pml else 0.0
-    per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes) / s
-    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade)
+    # the DFT sums: read and written once per sweep
+    dft_bytes = acc_bytes(p, dft) / (K1 * J1 * I1) if dft is not None else 0.0
+    per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes + dft_bytes) / s
+    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade,
+                      dft is not None)
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
@@ -284,14 +354,22 @@ def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -
 
 
 def stream_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
-                 pml: PMLConfig | None = None, ade: bool = False) -> int:
+                 pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None) -> int:
     """Device bytes of a ``stream`` run: two states (and two P sets with
-    Debye media, two psi sets with CPML), the material arrays, and the
-    temporaries of the trailing two-pass steps' SAR increment or of the
-    outputs."""
+    Debye media, two psi sets with CPML), the material arrays, the DFT
+    sums (one set, updated in place), and the temporaries of the trailing
+    two-pass steps' SAR increment or of the outputs."""
     lossy = not ade and (lossy or het)
     return (2 * state_bytes(p) + (2 * pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
-            + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0))
+            + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0))
+
+
+def dft_gates(p: Params, dft: DftConfig) -> bool:
+    """The DFT scenes the sweep's bands take (the gates of
+    ``fdtd_tpu/ops/pallas_stream.py``'s streamed DFT): fields "e" in
+    computation mode.  The H sums of "eh", validation mode and probes need
+    per-step states: they run on ``twopass`` (or ``torch``)."""
+    return dft.fields == "e" and p.mode == Mode.COMPUTATION
 
 
 def ade_gates(p: Params, het: bool = False, pml: PMLConfig | None = None) -> bool:
@@ -305,19 +383,22 @@ def ade_gates(p: Params, het: bool = False, pml: PMLConfig | None = None) -> boo
 
 def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
              het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
-             ade: bool = False) -> bool:
+             ade: bool = False, dft: DftConfig | None = None) -> bool:
     """The kernel takes the dtype and the scene, and the two states, with
     the material arrays (and two psi sets with CPML, two P sets with
     Debye media), fit in ``memory_bytes`` (default: the H100's 80 GB).
     Every plan's block fits an SM (at most 1024 threads and 45 KB of
     shared memory), so the grid, the dtype and the gates decide: materials
     stream in computation mode only, SAR needs materials, CPML takes
-    :func:`pml_gates` and Debye media :func:`ade_gates`."""
+    :func:`pml_gates`, Debye media :func:`ade_gates` and the DFT bands
+    :func:`dft_gates`."""
     if p.dtype not in ("float32", "bfloat16"):
+        return False
+    if dft is not None and not dft_gates(p, dft):
         return False
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
     if ade:
-        return ade_gates(p, het, pml) and stream_bytes(p, sar=sar, ade=True) <= MEMORY_MARGIN * mem
+        return ade_gates(p, het, pml) and stream_bytes(p, sar=sar, ade=True, dft=dft) <= MEMORY_MARGIN * mem
     lossy = lossy or het
     if lossy and p.mode != Mode.COMPUTATION:
         return False
@@ -326,26 +407,29 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
     if pml is not None and not pml_gates(p, pml, het, sar):
         return False
     # the trailing n % s two-pass steps add the SAR increment's temporaries
-    return stream_bytes(p, lossy, het, sar, pml) <= MEMORY_MARGIN * mem
+    return stream_bytes(p, lossy, het, sar, pml, dft=dft) <= MEMORY_MARGIN * mem
 
 
 def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
               lossy: bool = False, het: bool = False, sar: bool = False,
-              pml: PMLConfig | None = None, ade: bool = False) -> StreamPlan | None:
+              pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None) -> StreamPlan | None:
     """Of the depths the variant's kernel is built at, the feasible plan
     with the fewest modelled bytes per cell and step (ties to the deeper
     sweep), or None.  A forced ``s`` is checked for feasibility like any
     other."""
-    steps = (s,) if s is not None else tuple(_block_j(not ade and (lossy or het or sar), pml is not None, ade, sar))
-    cands = [plan_for(p, x, lossy, het, sar, pml, ade) for x in steps]
-    if not feasible(p, memory_bytes, lossy, het, sar, pml, ade):
+    steps = (s,) if s is not None else tuple(_block_j(not ade and (lossy or het or sar), pml is not None, ade, sar,
+                                                      dft is not None))
+    cands = [plan_for(p, x, lossy, het, sar, pml, ade, dft=dft) for x in steps]
+    if dft is not None:  # the bands' sums must fit in shared memory
+        cands = [c for c in cands if c.dft_max_nf >= dft.nf]
+    if not cands or not feasible(p, memory_bytes, lossy, het, sar, pml, ade, dft):
         return None
     return min(cands, key=lambda c: (c.bytes_per_cell_step, -c.s))
 
 
 def supported(p: Params, memory_bytes: int | None = None, lossy: bool = False,
               het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
-              ade: bool = False) -> bool:
+              ade: bool = False, dft: DftConfig | None = None) -> bool:
     """True when some streaming plan fits (see :func:`pick_plan`)."""
     return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar, pml=pml,
-                     ade=ade) is not None
+                     ade=ade, dft=dft) is not None

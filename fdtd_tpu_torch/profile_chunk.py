@@ -2,7 +2,7 @@
 device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--scenes vacuum heating pml dispersive] [--backends stream twopass torch]
+        [--scenes vacuum heating pml dispersive dft] [--backends stream twopass torch]
         [--dtypes float32 bfloat16]
 
 Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
@@ -10,7 +10,9 @@ Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 (``--water-block``) and the SAR accumulator (``--sar``), the workload of
 ``configs/heating_256.txt``; ``pml`` is the vacuum scene with 10-cell CPML
 walls (``--pml 10``); ``dispersive`` is the heating scene's block as a
-Debye medium (``--water-block --dispersive --sar``).  For each scene, backend and dtype it runs a
+Debye medium (``--water-block --dispersive --sar``); ``dft`` is the heating scene with the E
+phasors at 2.45e10 Hz (``--water-block --sar --dft 2.45e10``: the DFT bands of the sweep on
+``stream``, the ``dft_accum`` kernel after each step on ``twopass``).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -21,7 +23,7 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
 - ``kernels_ms_per_step``: that sum split by kernel variant (the names of
   the launch counters: ``yee_stream``, ``yee_stream_lossy_sar``,
   ``yee_update_h``, ``yee_update_e_lossy``, ``yee_update_e_ade_sar``,
-  ...), ``sar_increment`` (the per-step torch ops of the deposition on
+  ``yee_stream_lossy_sar_dft``, ``dft_accum``, ...), ``sar_increment`` (the per-step torch ops of the deposition on
   ``twopass``/``torch`` and on the trailing steps of ``stream``: the device
   time of the profiler range ``diagnostics.accumulate_power`` and
   ``accumulate_work`` open, taken out of ``other``) and
@@ -46,6 +48,7 @@ import time
 import torch
 
 from . import diagnostics
+from .dft import DftConfig, dft_weights, zero_dft_acc
 from .ops.cpml import PMLConfig, init_psi
 from .ops.dispersive import water_debye_load, zero_polarization
 from .ops.stream_plan import variant_name
@@ -54,13 +57,14 @@ from .runner import initial_state
 from .state import water_block
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
-SCENES = ("vacuum", "heating", "pml", "dispersive")
+SCENES = ("vacuum", "heating", "pml", "dispersive", "dft")
 PML_CELLS = 10  # the pml scene's slab depth (--pml 10)
+DFT_HZ = 2.45e10  # the dft scene's frequency (--dft 2.45e10)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE>,
-# h <T, HET, PML>, e <T, LOSSY, PML>, ade_e <T, SAR>
-_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel)<([^>]*)>")
+# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT>,
+# h <T, HET, PML>, e <T, LOSSY, PML>, ade_e <T, SAR>, dft_accum <T>
+_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -76,6 +80,8 @@ def _group(name: str) -> str:
     if m is None:
         return "other"
     flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
+    if m.group(1) == "dft_accum_kernel":
+        return "dft_accum"
     if m.group(1) == "stream_kernel":
         return variant_name(*flags)
     if m.group(1) == "ade_e_kernel":
@@ -87,26 +93,35 @@ def _group(name: str) -> str:
 
 
 def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
-            heating: bool = False, pml: PMLConfig | None = None, debye: bool = False) -> dict:
-    ts, amps = scan_inputs(p, time_values(p)[: warm + 2 * steps])
+            heating: bool = False, pml: PMLConfig | None = None, debye: bool = False,
+            dft: DftConfig | None = None) -> dict:
+    tv = time_values(p)[: warm + 2 * steps]
+    ts, amps = scan_inputs(p, tv)
+    cw, sw = dft_weights(dft, tv) if dft is not None else (None, None)
     mats = water_debye_load(p) if debye else water_block(p) if heating else None
     sar = heating or debye
-    run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml)
+    run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft)
     s = initial_state(p, dev)
     power = zero_power_acc(p, dev) if sar else None
     psi = init_psi(p, pml, dev) if pml is not None else None
     pol = zero_polarization(p, dev) if debye else None
-    run(s, (ts[:warm], amps[:warm]), power, psi, pol)
+    dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
+
+    def chunk(a: int, b: int) -> None:
+        xs = (ts[a:b], amps[a:b]) + ((cw[a:b], sw[a:b]) if dft is not None else ())
+        run(s, xs, power, psi, pol, dacc)
+
+    chunk(0, warm)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    run(s, (ts[warm : warm + steps], amps[warm : warm + steps]), power, psi, pol)
+    chunk(warm, warm + steps)
     torch.cuda.synchronize(dev)
     wall = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        run(s, (ts[warm + steps :], amps[warm + steps :]), power, psi, pol)
+        chunk(warm + steps, warm + 2 * steps)
         torch.cuda.synchronize(dev)
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     by_group: dict[str, float] = {}
@@ -135,7 +150,8 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         by_group[diagnostics.SAR_LABEL] = sar_ms
         by_group["other"] = by_group.get("other", 0.0) - sar_ms
     return {
-        "scene": "dispersive" if debye else "heating" if heating else "pml" if pml is not None else "vacuum",
+        "scene": ("dft" if dft is not None else "dispersive" if debye else "heating" if heating
+                  else "pml" if pml is not None else "vacuum"),
         "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
@@ -164,9 +180,10 @@ def main(argv=None) -> int:
         for dtype in args.dtypes:
             for backend in args.backends:
                 rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
-                              heating=name == "heating",
+                              heating=name in ("heating", "dft"),
                               pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None,
-                              debye=name == "dispersive")
+                              debye=name == "dispersive",
+                              dft=DftConfig((DFT_HZ,)) if name == "dft" else None)
                 rec["card"] = card
                 print(json.dumps(rec), flush=True)
     return 0

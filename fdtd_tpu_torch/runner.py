@@ -16,9 +16,17 @@ energy log adds the radiated power ``radiated_W``.  Debye media (a
 ``DebyeMaterials`` as ``materials``) carry their polarization the same way:
 ``aux_pol_x/y/z`` in checkpoints (the JAX package's keys), restored on
 resume, and ``RunResult.pol``; with ``accumulate_power`` the SAR map is
-their true dielectric and ionic work.  Sharding, DFT monitors and probes
-are not ported and raise ``NotImplementedError`` naming their ROADMAP
-item.
+their true dielectric and ionic work.  The frequency-domain monitors
+(``dft``, a ``DftConfig``, and ``probes``, a ``ProbeSet``) run on every
+scene: their (re, im) sums and probe rows go into checkpoints as
+``aux_dft_re``/``aux_dft_im``/``aux_probe_rows`` (the JAX package's keys)
+and come back on resume, and the result carries ``RunResult.dft`` (a
+``DftResult``) and ``RunResult.probes`` (a ``ProbeResult``).  Sharding is
+not ported and raises ``NotImplementedError`` naming its ROADMAP item.
+
+``backend`` also takes the JAX package's names, mapped with a notice:
+``xla`` -> ``torch``, ``pallas``/``pallas_fused`` -> ``twopass``,
+``pallas_stream``/``pallas_temporal`` -> ``stream``.
 """
 
 from __future__ import annotations
@@ -31,22 +39,27 @@ from typing import Callable
 
 import torch
 
+import numpy as np
+
 from . import diagnostics
+from .dft import DftConfig, DftResult, acc_bytes, dft_weights, finalize, zero_dft_acc
 from .io.checkpoint import CheckpointWriter, from_host, latest_checkpoint, load_aux, load_checkpoint
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
 from .ops import stream_plan
 from .ops.cpml import PMLConfig, PsiState, init_psi, psi_shapes
-from .ops.dispersive import DebyeMaterials, PolState, zero_polarization
+from .monitors import ProbeResult, ProbeSet
+from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState, zero_polarization
 from .params import Mode, Params, time_values
 from .state import FieldState, Materials, init_validation, zeros
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
 BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
+# the JAX package's backend names -> the port's backend that takes their place
+JAX_BACKENDS = {"xla": "torch", "pallas": "twopass", "pallas_fused": "twopass",
+                "pallas_stream": "stream", "pallas_temporal": "stream"}
 
 # feature -> the ROADMAP item that ports it
 _NOT_PORTED = {
-    "dft": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
-    "probes": "ROADMAP queue 1 item 9 (frequency-domain monitors)",
     "shard": "ROADMAP queue 1 item 11 (spatial sharding)",
 }
 
@@ -61,6 +74,47 @@ class RunResult:
     warnings: list[str] = dataclasses.field(default_factory=list)
     psi: PsiState | None = None
     pol: PolState | None = None
+    dft: DftResult | None = None
+    probes: ProbeResult | None = None
+
+
+def map_backend(backend: str, log: Callable[[str], None] | None = None) -> str:
+    """A JAX package backend name as the port's backend (with a notice);
+    the port's own names unchanged."""
+    if backend in JAX_BACKENDS:
+        mapped = JAX_BACKENDS[backend]
+        if log is not None:
+            log(f"notice: backend {backend!r} is the JAX package's; running the port's {mapped!r} backend")
+        return mapped
+    return backend
+
+
+def per_step_monitors(p: Params, dft: DftConfig | None, probes: ProbeSet | None) -> bool:
+    """Monitors that need a state after every step: probes, the H sums of
+    fields "eh" and the DFT in validation mode (the JAX package's
+    ``dft.supported_backend`` gate)."""
+    return probes is not None or (dft is not None and not stream_plan.dft_gates(p, dft))
+
+
+def _monitor_notice(p: Params, dft, probes, log) -> None:
+    if log is None:
+        return
+    if per_step_monitors(p, dft, probes):
+        log("notice: per-step monitors (--probe/--dft eh/validation) run the twopass kernels "
+            "(backend 'stream' ignored)")
+    else:
+        log("notice: the DFT bands of the stream sweep do not fit this scene; running the twopass kernels "
+            "with the dft_accum kernel (backend 'stream' ignored)")
+
+
+def _dft_memory_note(p: Params, dft: DftConfig) -> str | None:
+    """Warning text when the DFT sums (re + im fp32 pairs) cross 2 GB of
+    device memory, surfaced up front instead of as a mid-run failure."""
+    acc_gb = acc_bytes(p, dft) / 2**30
+    if acc_gb <= 2.0:
+        return None
+    return (f"DFT accumulators need {acc_gb:.1f} GB HBM ({dft.nf} frequencies x {dft.nc} components at "
+            f"{p.maxk}x{p.maxj}x{p.maxi}); consider fewer frequencies or fields='e'")
 
 
 def resolve_device(device) -> torch.device:
@@ -77,7 +131,8 @@ def resolve_device(device) -> torch.device:
 
 def resolve_backend(p: Params, backend: str, device, materials: Materials | DebyeMaterials | None = None,
                     accumulate_power: bool = False, pml: PMLConfig | None = None,
-                    log: Callable[[str], None] | None = None) -> str:
+                    log: Callable[[str], None] | None = None, dft: DftConfig | None = None,
+                    probes: ProbeSet | None = None) -> str:
     """Resolve ``auto`` and refuse combinations the kernels do not run.
 
     ``auto`` runs ``stream`` (the streaming sweep kernel) on a CUDA device
@@ -98,34 +153,49 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
     when its state, material arrays, psi and temporaries do not fit either
     (``stream_plan.twopass_fits``).
 
+    The monitors follow the JAX runner's gates: the DFT of fields "e" in
+    computation mode rides the stream sweep's DFT bands when a plan with
+    them fits (``auto`` picks it; with CPML only when asked for, as
+    above), else ``twopass`` with the ``dft_accum`` kernel after each
+    step; probes, fields "eh" and validation mode need per-step states and
+    run on ``twopass`` (``torch`` off the card).  An explicit ``stream``
+    that the monitors cannot take runs ``twopass`` with a notice.  The
+    JAX package's backend names are mapped first (:func:`map_backend`).
+
     Debye media (:func:`_resolve_debye`) have gates of their own.
     """
     dev = torch.device(device)
+    backend = map_backend(backend, log)
     if backend not in BACKEND_CHOICES:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
     if isinstance(materials, DebyeMaterials):
-        return _resolve_debye(p, backend, dev, accumulate_power, pml, log)
+        return _resolve_debye(p, backend, dev, accumulate_power, pml, log, dft, probes)
     kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     lossy = materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
     free = _free_memory(dev)
-    fits = kernels_ok and stream_plan.supported(p, free, lossy, het, accumulate_power, pml)
+    monitors = dft is not None or probes is not None
+    fits = (kernels_ok and not per_step_monitors(p, dft, probes)
+            and stream_plan.supported(p, free, lossy, het, accumulate_power, pml, dft=dft))
     if backend == "auto":
         if not kernels_ok:
             return "torch"
         backend = "stream" if fits and pml is None else "twopass"
+    elif backend == "stream" and monitors and kernels_ok and not fits:
+        _monitor_notice(p, dft, probes, log)
+        backend = "twopass"
     if backend in ("twopass", "stream") and not kernels_ok:
         raise ValueError(
             f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
             f"(got device {dev}, dtype {p.dtype}); use --backend torch"
         )
-    if backend == "twopass" and not stream_plan.twopass_fits(p, free, lossy, het, accumulate_power, pml):
-        need = stream_plan.twopass_bytes(p, lossy, het, accumulate_power, pml)
+    if backend == "twopass" and not stream_plan.twopass_fits(p, free, lossy, het, accumulate_power, pml, dft=dft):
+        need = stream_plan.twopass_bytes(p, lossy, het, accumulate_power, pml, dft=dft)
         mem = stream_plan.DEVICE_BYTES if free is None else free
         raise ValueError(
             f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} does not fit in device memory: the twopass "
-            f"kernels need {need / 1e9:.1f} GB (the state, the material arrays, the CPML psi and "
-            f"the temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
+            f"kernels need {need / 1e9:.1f} GB (the state, the material arrays, the CPML psi, the DFT "
+            f"sums and the temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
             f"{stream_plan.MEMORY_MARGIN * mem / 1e9:.1f} GB; use a coarser grid or bfloat16"
         )
     if backend == "stream" and not fits:
@@ -140,7 +210,8 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
 
 
 def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: PMLConfig | None,
-                   log: Callable[[str], None] | None) -> str:
+                   log: Callable[[str], None] | None, dft: DftConfig | None = None,
+                   probes: ProbeSet | None = None) -> str:
     """The backend of a Debye scene.  The ADE kernels take what the JAX
     package's dispersive Pallas tier takes (``dispersive_fused_supported``:
     computation mode, float32 or bfloat16) and no CPML: Debye x CPML has no
@@ -149,10 +220,14 @@ def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: P
     ``twopass`` or ``stream`` raises ``ValueError``, as it does in
     validation mode, in float64, on the CPU and where the arrays do not
     fit.  Otherwise ``auto`` picks ``stream`` when its plan fits, else
-    ``twopass``."""
+    ``twopass``; the monitors as in :func:`resolve_backend` (the DFT bands
+    of the ADE sweep, else ``twopass`` with the ``dft_accum`` kernel)."""
     on_card = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     gates = on_card and stream_plan.ade_gates(p, pml=pml)
     free = _free_memory(dev)
+    monitors = dft is not None or probes is not None
+    stream_ok = (not per_step_monitors(p, dft, probes)
+                 and stream_plan.supported(p, free, sar=sar, ade=True, dft=dft))
     if backend == "auto":
         if not on_card:
             return "torch"
@@ -166,15 +241,18 @@ def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: P
                 log("notice: the dispersive kernels need computation mode and float32/bfloat16; "
                     "running the torch ADE ops")
             return "torch"
-        backend = "stream" if stream_plan.supported(p, free, sar=sar, ade=True) else "twopass"
+        backend = "stream" if stream_ok else "twopass"
+    elif backend == "stream" and monitors and gates and not stream_ok:
+        _monitor_notice(p, dft, probes, log)
+        backend = "twopass"
     if backend in ("twopass", "stream") and not gates:
         why = ("Debye media with CPML run the torch ADE+CPML ops (no kernel composes them)"
                if pml is not None and on_card else
                f"the dispersive kernels run on a CUDA device in computation mode and float32 or bfloat16 "
                f"(got device {dev}, {p.mode.name.lower()} mode, dtype {p.dtype})")
         raise ValueError(f"{why}; use --backend torch")
-    if backend == "twopass" and not stream_plan.twopass_fits(p, free, sar=sar, ade=True):
-        need = stream_plan.twopass_bytes(p, sar=sar, ade=True)
+    if backend == "twopass" and not stream_plan.twopass_fits(p, free, sar=sar, ade=True, dft=dft):
+        need = stream_plan.twopass_bytes(p, sar=sar, ade=True, dft=dft)
         mem = stream_plan.DEVICE_BYTES if free is None else free
         raise ValueError(
             f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} Debye does not fit in device memory: the twopass "
@@ -182,7 +260,7 @@ def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: P
             f"and the temporaries) and {stream_plan.MEMORY_MARGIN:.0%} of {mem / 1e9:.1f} GB free is "
             f"{stream_plan.MEMORY_MARGIN * mem / 1e9:.1f} GB; use a coarser grid or bfloat16"
         )
-    if backend == "stream" and not stream_plan.supported(p, free, sar=sar, ade=True):
+    if backend == "stream" and not stream_plan.supported(p, free, sar=sar, ade=True, dft=dft):
         raise ValueError(
             f"no stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} Debye: the sweep needs a second "
             "copy of the state and of P beside the 15 ADE maps in device memory; use --backend twopass"
@@ -222,35 +300,45 @@ def run_simulation(
     diagnostics_log: str | None = None,
     shard: str | None = None,
     pml: PMLConfig | None = None,
-    dft=None,
-    probes=None,
+    dft: DftConfig | None = None,
+    probes: ProbeSet | None = None,
+    stream_s: int | None = None,
+    dc: DebyeCoefs | None = None,
 ) -> RunResult:
     """Run the scene ``p`` (with ``materials``, vacuum when None) on
     ``device`` and write its outputs to ``out_dir``.  With
     ``accumulate_power`` the result's ``power_j`` is the deposited energy
     density (J/m^3) per cell, fp32 (all zero in vacuum).  With ``pml`` the
-    six walls absorb (CPML); the result's ``psi`` is the final psi state."""
-    requested = {
-        "dft": dft is not None,
-        "probes": probes is not None,
-        "shard": shard is not None,
-    }
-    for name, on in requested.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet: {_NOT_PORTED[name]}")
+    six walls absorb (CPML); the result's ``psi`` is the final psi state.
+    With ``dft`` the result's ``dft`` holds the phasors, with ``probes``
+    its ``probes`` the per-step series.  ``stream_s`` forces the steps per
+    sweep of the ``stream`` backend (one of ``stream_plan.STEPS``; the
+    CLI's ``--temporal-steps``); ``dc`` passes the Debye maps of
+    ``materials`` on the device when already built."""
+    if shard is not None:
+        raise NotImplementedError(f"shard is not ported yet: {_NOT_PORTED['shard']}")
+    if stream_s is not None and stream_s not in stream_plan.STEPS:
+        built = "{" + ", ".join(map(str, stream_plan.STEPS)) + "}"
+        raise ValueError(f"the stream sweep is built at {built} steps per sweep, not {stream_s} (--temporal-steps)")
     p.validate()
     debye = isinstance(materials, DebyeMaterials)
     if pml is not None and accumulate_power and not debye and (materials is None or materials.is_vacuum):
         raise ValueError("--sar needs lossy materials (e.g. --water-block)")
+    if probes is not None:
+        probes.validate(p)
     dev = resolve_device(device)
-    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log)
+    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
+    dft_cw, dft_sw = dft_weights(dft, ts) if dft is not None else (None, None)
     warnings: list[str] = []
 
     def warn(msg: str) -> None:
         warnings.append(msg)
         log(f"WARNING: {msg}")
+
+    if dft is not None and (note := _dft_memory_note(p, dft)):
+        warn(note)
 
     if p.dtype == "bfloat16" and (p.mode == Mode.VALIDATION or len(ts) > 2000):
         warn(
@@ -258,11 +346,15 @@ def run_simulation(
             "runs; use float32 for validation/accuracy runs"
         )
 
-    run_chunk = make_chunk_runner(p, dev, materials, backend, accumulate_power=accumulate_power, pml=pml)
+    run_chunk = make_chunk_runner(p, dev, materials, backend, stream_s=stream_s if backend == "stream" else None,
+                                  accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc)
     state = initial_state(p, dev)
     power = zero_power_acc(p, dev) if accumulate_power else None
     psi = init_psi(p, pml, dev) if pml is not None else None
     pol = zero_polarization(p, dev) if debye else None
+    dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
+    probe_rows: list[np.ndarray] = []  # host copies, one a chunk
+    resumed_dft = False
     start_step = 0
     if resume:
         ck = latest_checkpoint(out_dir)
@@ -278,6 +370,8 @@ def run_simulation(
                 _resume_psi(ck, p, pml, psi, warn)
             if debye:
                 _resume_pol(ck, p, pol, warn)
+            if dft is not None or probes is not None:
+                resumed_dft = _resume_monitors(ck, dacc, probe_rows if probes is not None else None, warn)
 
     ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
     writer = SnapshotWriter(p, out_dir) if write_snapshots else None
@@ -333,7 +427,12 @@ def run_simulation(
             if checkpoint_every:
                 boundary = min(boundary, next_mult(pos, checkpoint_every))
             end = min(boundary, n)
-            state = run_chunk(state, (xs_t[pos:end], xs_a[pos:end]), power, psi, pol)
+            xs = (xs_t[pos:end], xs_a[pos:end])
+            if dft is not None:
+                xs += (dft_cw[pos:end], dft_sw[pos:end])
+            rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
+            if probes is not None:
+                probe_rows.append(rows.cpu().numpy())
             pos = end
             t_now = float(ts[pos - 1])
             if pos % rate == 0:
@@ -343,6 +442,10 @@ def run_simulation(
                 aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else {}
                 if pol is not None:
                     aux.update(zip(("pol_x", "pol_y", "pol_z"), pol.tensors()))
+                if dacc is not None:
+                    aux.update(dft_re=dacc[0], dft_im=dacc[1])
+                if probes is not None:
+                    aux["probe_rows"] = _probe_values(probe_rows, probes)
                 ckpt_writer.submit(state, pos, t_now, power, aux or None)
         _sync(dev)
         wall = time.perf_counter() - t0
@@ -356,7 +459,48 @@ def run_simulation(
 
     steps_done = n - start_step
     mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
-    return RunResult(state, n, wall, mcells, power, warnings, psi, pol)
+    # resumed sums cover the whole schedule (they rode the checkpoint)
+    dft_result = (finalize(dft, dacc, n if resumed_dft else steps_done, time_step=p.time_step)
+                  if dft is not None else None)
+    probe_result = None
+    if probes is not None:
+        values = _probe_values(probe_rows, probes)
+        # a resume without stored rows covers only the resumed tail
+        probe_result = ProbeResult(cells=probes.cells, times=np.asarray(ts, np.float64)[n - values.shape[0]:],
+                                   values=values)
+    return RunResult(state, n, wall, mcells, power, warnings, psi, pol, dft_result, probe_result)
+
+
+def _probe_values(chunks: list[np.ndarray], probes: ProbeSet) -> np.ndarray:
+    """The (n, n_probes, 6) fp32 rows recorded so far."""
+    if not chunks:
+        return np.zeros((0, len(probes.cells), 6), np.float32)
+    return np.concatenate(chunks, axis=0)
+
+
+def _resume_monitors(ck: str, dacc, probe_rows: list, warn: Callable[[str], None]) -> bool:
+    """Load the DFT sums (``aux_dft_re``/``aux_dft_im``) into ``dacc`` and
+    the stored probe rows (``aux_probe_rows``) into ``probe_rows``, with
+    the JAX package's warnings where they are missing; True when the sums
+    were resumed."""
+    aux = load_aux(ck)
+    resumed = False
+    if dacc is not None:
+        if "dft_re" in aux and "dft_im" in aux and aux["dft_re"].shape == tuple(dacc[0].shape):
+            for t, name in zip(dacc, ("dft_re", "dft_im")):
+                t.copy_(from_host(aux[name], torch.float32, t.device))
+            resumed = True
+        else:
+            warn("checkpoint has no DFT accumulators; the phasor sums restart from zero (spectra cover only the "
+                 "resumed steps)")
+    if probe_rows is not None:
+        if "probe_rows" in aux:
+            rows = np.asarray(aux["probe_rows"], np.float32)
+            if rows.shape[0]:
+                probe_rows.append(rows)
+        else:
+            warn("checkpoint has no probe rows; the series covers only the resumed steps")
+    return resumed
 
 
 def _resume_psi(ck: str, p: Params, pml: PMLConfig, psi: PsiState, warn: Callable[[str], None]) -> None:

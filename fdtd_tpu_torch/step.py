@@ -59,6 +59,21 @@ trailing ``n % s`` steps on the two-pass kernels.  With
 media with CPML run on ``torch`` only
 (``dispersive.make_dispersive_pml_step``: the JAX package has no kernel
 for them either).
+
+The frequency-domain monitors (``dft``, a :class:`~fdtd_tpu_torch.dft.
+DftConfig`, and ``probes``, a :class:`~fdtd_tpu_torch.monitors.ProbeSet`)
+ride every chunk runner: ``xs`` then carries the steps' (cos, sin) weight
+rows (``(times, amps, cw, sw)``, :func:`~fdtd_tpu_torch.dft.dft_weights`
+sliced to the chunk; they go to the device once per chunk) and the (re,
+im) sums ``dacc`` (:func:`~fdtd_tpu_torch.dft.zero_dft_acc`) are updated
+in place.  The per-step backends call
+:func:`~fdtd_tpu_torch.monitors.apply_monitors` after every step (the
+``dft_accum`` kernel for the E sums on ``twopass``, its plain version on
+``torch``; torch ops for the H sums of ``fields="eh"`` and the probe
+rows); ``stream`` carries the E sums in the DFT bands of its sweeps and
+calls ``apply_monitors`` after its trailing two-pass steps.  Probes, the H
+sums and validation mode need per-step states, so ``stream`` refuses
+them.
 """
 
 from __future__ import annotations
@@ -69,6 +84,8 @@ import numpy as np
 import torch
 
 from . import diagnostics
+from .dft import DftConfig
+from .monitors import ProbeSet, apply_monitors, weight_rows
 from .ops import cpml, curl, dispersive, stream, stream_plan, yee
 from .ops.cpml import PMLConfig, PsiState
 from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState
@@ -201,26 +218,45 @@ def scan_inputs(p: Params, times) -> tuple[np.ndarray, np.ndarray]:
 
 def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials | None = None,
                       backend: str = "torch", stream_s: int | None = None,
-                      accumulate_power: bool = False, pml: PMLConfig | None = None):
-    """``run(state, xs, power=None, psi=None, pol=None)``: advance ``state``
-    in place over the chunk ``xs = (times, amps)`` of :func:`scan_inputs`,
-    and with ``accumulate_power`` add each step's deposition to ``power``
-    (the fp32 map of :func:`zero_power_acc`) in place; with ``pml`` advance
-    ``psi`` (:func:`~fdtd_tpu_torch.ops.cpml.init_psi`) in place too, and
-    in a Debye medium ``pol``
-    (:func:`~fdtd_tpu_torch.ops.dispersive.zero_polarization`); returns
-    ``state``.  ``stream_s`` forces the steps per sweep of the ``stream``
-    backend (still checked to fit).
+                      accumulate_power: bool = False, pml: PMLConfig | None = None,
+                      dft: DftConfig | None = None, probes: ProbeSet | None = None,
+                      dc: DebyeCoefs | None = None):
+    """``run(state, xs, power=None, psi=None, pol=None, dacc=None)``:
+    advance ``state`` in place over the chunk ``xs = (times, amps)`` of
+    :func:`scan_inputs`, and with ``accumulate_power`` add each step's
+    deposition to ``power`` (the fp32 map of :func:`zero_power_acc`) in
+    place; with ``pml`` advance ``psi``
+    (:func:`~fdtd_tpu_torch.ops.cpml.init_psi`) in place too, and in a
+    Debye medium ``pol``
+    (:func:`~fdtd_tpu_torch.ops.dispersive.zero_polarization`).  With
+    ``dft``, ``xs = (times, amps, cw, sw)`` and each step is added to the
+    (re, im) sums ``dacc`` in place.  Returns ``state``, or with
+    ``probes`` the chunk's probe rows, a (n, n_probes, 6) fp32 tensor on
+    the device.  ``stream_s`` forces the steps per sweep of the ``stream``
+    backend (still checked to fit).  ``dc``: the Debye maps of
+    ``materials`` on ``device`` when already built
+    (:func:`~fdtd_tpu_torch.ops.dispersive.debye_coefs`, a few seconds of
+    host time at 256^3).
 
-    The amplitudes go to the device once per chunk; the loop itself only
-    enqueues work, with no host synchronisation inside it.
+    The amplitudes and the DFT weights go to the device once per chunk;
+    the loop itself only enqueues work, with no host synchronisation inside
+    it.
     """
     debye = isinstance(materials, DebyeMaterials)
-    dc = dispersive.debye_coefs(p, materials, device) if debye else None
+    if not debye:
+        dc = None
+    elif dc is None:
+        dc = dispersive.debye_coefs(p, materials, device)
     coefs = update_coefs(p, None if debye else materials, device)
+    if probes is not None:
+        probes.validate(p)
+    cells = probes.cells if probes is not None else None
     if backend == "stream":
+        if probes is not None or (dft is not None and not stream_plan.dft_gates(p, dft)):
+            raise ValueError("probes, the H sums of --dft-fields eh and the DFT in validation mode need per-step "
+                             "states; the stream backend steps s at a time (use twopass or torch)")
         plan = stream_plan.pick_plan(p, s=stream_s, lossy=coefs.lossy, het=coefs.heterogeneous_mu,
-                                     sar=accumulate_power, pml=pml, ade=debye)
+                                     sar=accumulate_power, pml=pml, ade=debye, dft=dft)
         if plan is None:
             kind = "Debye" if debye else "materials" if coefs.lossy else "vacuum"
             raise ValueError(
@@ -233,7 +269,7 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
                 "with CPML run on the torch backend"
             )
         cp = cpml.make_cpml(p, pml, coefs, device) if pml is not None else None
-        return _stream_chunk_runner(p, device, plan, coefs, accumulate_power, cp, dc)
+        return _stream_chunk_runner(p, device, plan, coefs, accumulate_power, cp, dc, dft)
     if debye:
         step = _debye_step(p, device, dc, backend, pml)
     else:
@@ -241,12 +277,13 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
     work = dispersive.zero_work(p, device) if debye and accumulate_power else None
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
-            psi: PsiState | None = None, pol: PolState | None = None) -> FieldState:
+            psi: PsiState | None = None, pol: PolState | None = None, dacc=None):
         _need_power(accumulate_power, power)
         _need_psi(pml, psi)
         _need_pol(dc, pol)
-        ts, amps = xs
+        ts, amps, w_dev = _chunk_inputs(xs, dft, dacc, device)
         amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
+        rows = []
         for n in range(len(ts)):
             if debye:
                 step(s, (ts[n], amps_dev[n]), pol, psi, work)
@@ -254,13 +291,34 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
                 step(s, (ts[n], amps_dev[n]), psi)
             else:
                 step(s, (ts[n], amps_dev[n]))
+            if dft is not None or cells is not None:
+                row = apply_monitors(p, s, w_dev[n] if w_dev is not None else None, dft, cells, dacc,
+                                     kernel=backend != "torch")
+                if row is not None:
+                    rows.append(row)
             if work is not None:
                 diagnostics.accumulate_work(p, work, power)
             elif accumulate_power:
                 diagnostics.accumulate_power(p, s, coefs.sigma_cells, power)
+        if cells is not None:
+            return torch.stack(rows) if rows else torch.zeros((0, len(cells), 6), dtype=torch.float32, device=device)
         return s
 
     return run
+
+
+def _chunk_inputs(xs, dft: DftConfig | None, dacc, device):
+    """(times, amps, the (n, 2, nf) weight rows on the device or None) of a
+    chunk's inputs."""
+    if dft is None:
+        ts, amps = xs
+        return ts, amps, None
+    if len(xs) != 4:
+        raise ValueError("a DFT chunk takes xs = (times, amps, cw, sw) (dft.dft_weights sliced to the chunk)")
+    if dacc is None:
+        raise ValueError("a DFT chunk needs its (re, im) sums (dft.zero_dft_acc)")
+    ts, amps, cw, sw = xs
+    return ts, amps, weight_rows(cw, sw, device)
 
 
 def _need_power(accumulate_power: bool, power) -> None:
@@ -279,11 +337,14 @@ def _need_pol(dc, pol) -> None:
 
 
 def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs: UpdateCoefs,
-                         accumulate_power: bool, cp: cpml.Cpml | None, dc: DebyeCoefs | None = None):
+                         accumulate_power: bool, cp: cpml.Cpml | None, dc: DebyeCoefs | None = None,
+                         dft: DftConfig | None = None):
     """``n // s`` sweeps of the stream kernel, then ``n % s`` twopass steps
     (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``); with CPML
     (``cp``) each sweep writes psi into a second set, swapped back, and in
-    a Debye medium (``dc``) the polarization likewise."""
+    a Debye medium (``dc``) the polarization likewise; with ``dft`` the
+    sweeps carry the DFT bands and the trailing steps run the
+    ``dft_accum`` kernel."""
     s_steps = plan.s
     src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(src, device) if src is not None else None
@@ -295,12 +356,12 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
     trailing_work: list = []  # the Debye SAR's edge work of the trailing steps, at first use
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
-            psi: PsiState | None = None, pol: PolState | None = None) -> FieldState:
+            psi: PsiState | None = None, pol: PolState | None = None, dacc=None) -> FieldState:
         _need_power(accumulate_power, power)
         _need_psi(cp, psi)
         _need_pol(dc, pol)
         acc = power if accumulate_power else None
-        ts, amps = xs
+        ts, amps, w_dev = _chunk_inputs(xs, dft, dacc, device)
         n = len(ts)
         n_sw = n // s_steps
         amps_dev = torch.as_tensor(np.asarray(amps, dtype=np.float64), device=device)
@@ -318,7 +379,9 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
                 if src is not None:
                     apply_source(src, s, amps_dev[g * s_steps], profile)
                     drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
-                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out)
+                wts = w_dev[g * s_steps:(g + 1) * s_steps] if w_dev is not None else None
+                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out,
+                             dacc if dft is not None else None, wts)
                 s.swap(out)
                 if cp is not None:
                     psi.swap(psi_out)
@@ -334,6 +397,8 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
                 odd_step(s, (ts[r], amps_dev[r]), psi)
             else:
                 odd_step(s, (ts[r], amps_dev[r]))
+            if dft is not None:
+                apply_monitors(p, s, w_dev[r], dft, None, dacc)
             if work is not None:
                 diagnostics.accumulate_work(p, work, acc)
             elif acc is not None:

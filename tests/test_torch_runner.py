@@ -246,7 +246,11 @@ def test_bfloat16_guardrail_warns(tiny_params, tmp_path):
     ("shard", {"shard": "2"}, "item 11"),
 ])
 def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, feature, kw, item):
-    """Sharding and the monitors raise naming their ROADMAP item.
+    """Sharding raises naming its ROADMAP item.  The frequency-domain
+    monitors (item 9) are ported: a two-frequency DFT, and probes at two
+    cells, on the tiny scene in computation mode match the JAX package's
+    xla run (fp64 fields; the fp32 phasor sums and probe rows within one
+    fp32 ulp of their scale: both round fp64 cell means to fp32).
     Materials and SAR (item 5) are ported: a lossy scene, and a water
     block with ``accumulate_power``, run and match the JAX package (fp64,
     the fields at atol 1e-15 / rtol 1e-11, the fp32 accumulator at rtol
@@ -271,6 +275,33 @@ def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, featur
             np.testing.assert_allclose(getattr(got.psi, n).numpy(), aux[f"psi_{n}"],
                                        rtol=1e-11, atol=1e-15, err_msg=n)
         assert float(np.abs(aux["psi_hx_z"]).max()) > 0
+        return
+    if feature in ("dft", "probes"):
+        from fdtd_tpu.dft import DftConfig as JDftConfig
+        from fdtd_tpu.monitors import ProbeSet as JProbeSet
+
+        from fdtd_tpu_torch.dft import DftConfig
+        from fdtd_tpu_torch.monitors import ProbeSet
+
+        p = dataclasses.replace(tiny_params, mode=Mode.COMPUTATION)
+        freqs, cells = (2.45e10, 1.5e10), ((2, 3, 4), (5, 5, 5))
+        t_kw = {"dft": DftConfig(freqs)} if feature == "dft" else {"probes": ProbeSet(cells)}
+        j_kw = {"dft": JDftConfig(freqs)} if feature == "dft" else {"probes": JProbeSet(cells)}
+        got = t_run(p, tmp_path / "t", write_snapshots=False, **t_kw)
+        want = j_run(p, out_dir=str(tmp_path / "j"), write_snapshots=False, backend="xla", log=lambda m: None, **j_kw)
+        for c in COMPONENTS:
+            np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
+                                       rtol=1e-11, atol=1e-15, err_msg=c)
+        if feature == "dft":
+            g, w = got.dft.phasors, want.dft.phasors
+            assert g.shape == w.shape == (2, 3, p.maxk, p.maxj, p.maxi) and got.dft.steps == want.dft.steps
+        else:
+            g, w = got.probes.values, want.probes.values
+            assert g.shape == w.shape and got.probes.cells == want.probes.cells
+            np.testing.assert_array_equal(got.probes.times, want.probes.times)
+        scale = float(np.abs(w).max())
+        assert scale > 0
+        np.testing.assert_allclose(g, w, rtol=0, atol=2.0**-23 * scale)
         return
     if feature in ("materials", "accumulate_power"):
         from fdtd_tpu.state import Materials as JMaterials
