@@ -84,7 +84,21 @@ package beside it.  Phases, each printing one line or more:
    dft_accum) through stream, twopass and torch, and three probes with
    --dft-fields eh on twopass and torch (bit for bit; the CLI's
    probes.csv layout with two);
-7. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
+7. the sharded path (--shard): every per-shard kernel (K1/K2-shard,
+   vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
+   het, het + SAR at s = 8, 4, 2) against its plain version on every shard
+   of 4-slab, 3-slab and 2 x 3 meshes (ragged shards, both modes, fp32 and
+   bf16) and of the 256^3 shard plans, owned cells bit for bit; 1000 steps
+   of configs/bench_256.txt with --shard 4 and --shard 2x2 on auto, stream
+   and twopass, and of the heating scene with --shard 4 on stream and
+   twopass, equal to the unsharded runs bit for bit (fields, SAR map),
+   with launch counts and Mcells/s; the other loads on 4 slabs (66 steps),
+   512^3 with --shard 4 (16 steps); the CLI (bench_256 at a sampling rate
+   of 500 and the heating scene with --shard 4 write the unsharded
+   snapshots, sar.vtr and energy log; --shard with --pml exits 1 naming
+   item 11b); the halo copies' time per sweep and step; each shard
+   kernel's time on a middle slab of --shard 4 beside its plain version;
+8. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
    bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
    (nf = 1), and each kernel's time beside its plain version's and its
    bound, and every vacuum stream plan's.
@@ -104,6 +118,7 @@ import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -213,11 +228,16 @@ def main() -> None:
     def record_err(name: str, d: float) -> None:
         max_err[name] = max(max_err.get(name, 0.0), d)
 
+    def absdiff(x, y) -> float:
+        """Largest |x - y| of two tensors, a NaN counted as inf (``max`` over
+        floats would drop it)."""
+        return float(torch.nan_to_num((x.float() - y.float()).abs(), nan=math.inf).max())
+
     def maxdiff(a, b) -> float:
         """Largest |a - b| over the tensors of two states (or P or psi
         sets, or tuples of tensors)."""
         ta, tb = (x.tensors() if hasattr(x, "tensors") else tuple(x) for x in (a, b))
-        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(ta, tb))
+        return max(absdiff(x, y) for x, y in zip(ta, tb))
 
     def compare(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
         """The two-pass kernels against their plain versions; ``coefs``
@@ -275,7 +295,7 @@ def main() -> None:
         want = stream.plain_sweep(p, st, coefs, s, drive, acc=acc_p)
         torch.cuda.synchronize()
         d = maxdiff(out, want)
-        d_acc = float((acc_k - acc_p).abs().max()) if sar else 0.0
+        d_acc = absdiff(acc_k, acc_p) if sar else 0.0
         record_err(plan.kernel, max(d, d_acc))
         K1, J1, I1 = p.padded_shape
         if K1 % plan.tk or J1 % plan.tj or I1 % plan.ti:
@@ -404,7 +424,7 @@ def main() -> None:
         want = stream.plain_sweep(p, st, coefs, plan.s, drive, None, acc_p, dc=dc, pol=pol, pol_out=want_pol)
         torch.cuda.synchronize()
         d = max(maxdiff(out, want), maxdiff(pol_out, want_pol))
-        d_acc = float((acc_k - acc_p).abs().max()) if sar else 0.0
+        d_acc = absdiff(acc_k, acc_p) if sar else 0.0
         moved = float((acc_p - acc0).abs().max()) if sar else 1.0
         record_err(plan.kernel, max(d, d_acc))
         K1, J1, I1 = p.padded_shape
@@ -552,26 +572,35 @@ def main() -> None:
     phase_done("4 validation")
 
     # -- 5. the main path at 256^3 -----------------------------------------
-    with tempfile.TemporaryDirectory() as out:
-        diag = os.path.join(out, "diag.jsonl")
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "fdtd_tpu_torch", "configs/bench_256.txt", "--no-output",
-             "--diag-log", diag, "--out", out],
-            capture_output=True, text=True, timeout=600,
-        )
-        cli_s = time.perf_counter() - t0
-        print(r.stdout.strip().splitlines()[-2] if r.stdout.strip() else "(no CLI output)")
-        check(r.returncode == 0 and "Simulation complete!" in r.stdout,
-              f"CLI 256^3 x 1000 steps exit {r.returncode} in {cli_s:.1f} s {r.stderr.strip()[-300:]}")
-        with open(diag) as f:
-            rec = json.loads(f.readline())
-        check(rec["iteration"] == 0, "CLI energy log holds the step-0 line")
+    # configs/bench_256.txt with a snapshot every 500 steps; the outputs stay
+    # for the sharded run of phase 7 to be held against
+    bench_cli = tempfile.mkdtemp()
+    params500 = os.path.join(bench_cli, "bench_256_500.txt")
+    with open("configs/bench_256.txt") as f:
+        vals = f.read().split()
+    vals[6] = "500"
+    with open(params500, "w") as f:
+        f.write("\n".join(vals) + "\n")
+    diag = os.path.join(bench_cli, "one.jsonl")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "fdtd_tpu_torch", params500, "--diag-log", diag, "--out", os.path.join(bench_cli, "one")],
+        capture_output=True, text=True, timeout=600,
+    )
+    cli_s = time.perf_counter() - t0
+    print(r.stdout.strip().splitlines()[-2] if r.stdout.strip() else "(no CLI output)")
+    check(r.returncode == 0 and "Simulation complete!" in r.stdout,
+          f"CLI 256^3 x 1000 steps (a snapshot every 500) exit {r.returncode} in {cli_s:.1f} s "
+          f"{r.stderr.strip()[-300:]}")
+    with open(diag) as f:
+        rec = json.loads(f.readline())
+    check(rec["iteration"] == 0, "CLI energy log holds the step-0 line")
 
     p = load_parameters("configs/bench_256.txt", dtype="float32")
     n = len(time_values(p))
     check(resolve_backend(p, "auto", dev) == "stream", "auto resolves to stream at 256^3 fp32")
     finals = {}
+    main_rates: dict[str, float] = {}  # the 1000-step runs' Mcells/s, beside the sharded runs' (phase 7)
     main_counts = {}  # kernel -> launches on the run of its path
     paths = {}  # kernel -> the path whose run gave its launches
     for backend in ("twopass", "stream"):
@@ -593,10 +622,33 @@ def main() -> None:
         check(all(tuple(s.shape) == p.padded_shape and bool(torch.isfinite(s).all())
                   for s in res.state.tensors()), f"all six final fields finite, shape {p.padded_shape}")
         finals[backend] = res.state
+        main_rates[f"bench_256 {backend}"] = res.mcells_per_s
         del res
     d = maxdiff(finals["stream"], finals["twopass"])
     check(d == 0.0, f"256^3 1000 steps: stream == twopass, max|diff| = {d!r}")
+    bench_ref = finals["stream"]  # the unsharded state phase 7 holds the sharded runs against
     del finals
+
+    # update_coefs is a pure function of the grid and the materials, and its
+    # fp64 host build takes seconds at 256^3: from here on the smoke memoizes
+    # it where the runners look it up, so the runners of a scene share one
+    # build (a memory check clears the cache to count the build it makes)
+    import fdtd_tpu_torch.parallel.sharded_step as sharded_step_mod
+    import fdtd_tpu_torch.step as step_mod
+    coef_cache: dict = {}
+
+    def memo_update_coefs(pm: Params, mats=None, device=None):
+        key = (pm, id(mats), str(device))
+        if key not in coef_cache:
+            coef_cache[key] = (mats, update_coefs(pm, mats, device))  # mats kept: its id stays unique
+        return coef_cache[key][1]
+
+    step_mod.update_coefs = sharded_step_mod.update_coefs = memo_update_coefs
+
+    def coefs_of(pm: Params, mats):
+        """The update coefficients of ``mats`` (not Debye) for ``pm``'s grid
+        and dtype on the card, the runners' build."""
+        return memo_update_coefs(pm, mats, dev)
 
     def equal_runs(pm: Params, steps: int, backends: tuple, mats=None, sar: bool = False,
                    label: str = "", pml: PMLConfig | None = None, dft=None, dc=None) -> dict:
@@ -641,7 +693,7 @@ def main() -> None:
                 d = max(d, maxdiff(pols[a], pols[b]))
             if dft is not None:
                 d = max(d, maxdiff(daccs[a], daccs[b]))
-            d_acc = float((powers[a] - powers[b]).abs().max()) if sar else 0.0
+            d_acc = absdiff(powers[a], powers[b]) if sar else 0.0
             sar_txt = f", SAR max|diff| = {d_acc!r} (peak {float(powers[a].abs().max())!r})" if sar else ""
             check(d == 0.0 and d_acc == 0.0 and (not sar or float(powers[a].abs().max()) > 0),
                   f"{pm.maxk}^3 {pm.mode.name} {label}{steps} steps: {a} == {b}, "
@@ -663,26 +715,27 @@ def main() -> None:
     heat_plan = stream_plan.pick_plan(ph, lossy=True, sar=True)
     print(f"heating plan at 256^3: {heat_plan} ({heat_plan.blocks} blocks of {heat_plan.threads} "
           f"threads, {heat_plan.smem_bytes} B shared memory)", flush=True)
-    with tempfile.TemporaryDirectory() as out:
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
-             "--out", out],
-            capture_output=True, text=True, timeout=900,
-        )
-        cli_s = time.perf_counter() - t0
-        lines = r.stdout.strip().splitlines()
-        for line in lines[-3:]:
-            print(line)
-        sar_path = os.path.join(out, "sar.vtr")
-        peak_line = [line for line in lines if line.startswith("SAR map written to")]
-        peak = float(peak_line[0].split("(peak ")[1].split()[0]) if peak_line else float("nan")
-        n_vtr = len(glob.glob(os.path.join(out, "result*.vtr")))
-        check(r.returncode == 0 and "Simulation complete!" in r.stdout and os.path.exists(sar_path)
-              and peak > 0,
-              f"CLI heating_256 --water-block --sar exit {r.returncode} in {cli_s:.1f} s: sar.vtr "
-              f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B, peak {peak!r} J/m^3, "
-              f"{n_vtr} snapshots {r.stderr.strip()[-300:]}")
+    # its outputs stay for the sharded run of phase 7 to be held against
+    heat_cli = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
+         "--out", heat_cli],
+        capture_output=True, text=True, timeout=900,
+    )
+    cli_s = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    for line in lines[-3:]:
+        print(line)
+    sar_path = os.path.join(heat_cli, "sar.vtr")
+    peak_line = [line for line in lines if line.startswith("SAR map written to")]
+    peak = float(peak_line[0].split("(peak ")[1].split()[0]) if peak_line else float("nan")
+    n_vtr = len(glob.glob(os.path.join(heat_cli, "result*.vtr")))
+    check(r.returncode == 0 and "Simulation complete!" in r.stdout and os.path.exists(sar_path)
+          and peak > 0,
+          f"CLI heating_256 --water-block --sar exit {r.returncode} in {cli_s:.1f} s: sar.vtr "
+          f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B, peak {peak!r} J/m^3, "
+          f"{n_vtr} snapshots {r.stderr.strip()[-300:]}")
     for dtype in ("float32", "bfloat16"):
         pd = dataclasses.replace(ph, dtype=dtype)
         check(resolve_backend(pd, "auto", dev, water, accumulate_power=True) == "stream",
@@ -707,11 +760,13 @@ def main() -> None:
               f"heating 256^3 {backend}: SAR map finite, peak {float(pw.max())!r} J/m^3 "
               f"({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
         finals[backend], powers[backend] = res.state, pw
+        main_rates[f"heating_256 {backend}"] = res.mcells_per_s
         del res
     d = maxdiff(finals["stream"], finals["twopass"])
-    d_acc = float((powers["stream"] - powers["twopass"]).abs().max())
+    d_acc = absdiff(powers["stream"], powers["twopass"])
     check(d == 0.0 and d_acc == 0.0,
           f"heating 256^3 1000 steps: stream == twopass, fields max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
+    heat_ref = (finals["stream"], powers["stream"])  # held against the sharded heating runs (phase 7)
     del finals, powers
 
     # a step count that leaves n % s trailing two-pass steps, so that
@@ -743,6 +798,8 @@ def main() -> None:
     # twopass's device memory: the allocator's peak over a water + ferrite
     # + SAR chunk against the model (one state, the material arrays, the
     # SAR slab temporaries), and the model where no stream plan fits
+    coef_cache.clear()
+    torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     s_m, pw_m = initial_state(ph, dev), zero_power_acc(ph, dev)
@@ -957,7 +1014,7 @@ def main() -> None:
         finals[backend], powers[backend], pols[backend] = res.state, pw, res.pol
         del res
     d = max(maxdiff(finals["stream"], finals["twopass"]), maxdiff(pols["stream"], pols["twopass"]))
-    d_acc = float((powers["stream"] - powers["twopass"]).abs().max())
+    d_acc = absdiff(powers["stream"], powers["twopass"])
     check(d == 0.0 and d_acc == 0.0,
           f"Debye 256^3 1000 steps: stream == twopass, fields and P max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
     del finals, powers, pols
@@ -1095,7 +1152,7 @@ def main() -> None:
         torch.cuda.synchronize()
         d = max(maxdiff(ko[0], po[0]), maxdiff(ko[4], po[4]),
                 maxdiff(ko[1], po[1]) if psi is not None else 0.0, maxdiff(ko[2], po[2]) if pol is not None else 0.0,
-                float((ko[3] - po[3]).abs().max()) if sar else 0.0)
+                absdiff(ko[3], po[3]) if sar else 0.0)
         moved = float((po[4][0] - d0[0]).abs().max())
         record_err(plan.kernel, d)
         K1, J1, I1 = pm.padded_shape
@@ -1195,9 +1252,9 @@ def main() -> None:
             res_b[backend] = res
             del res
         a, b = (res_b[x] for x in backends)
-        d = max(float(np.abs(a.dft.phasors - b.dft.phasors).max()), maxdiff(a.state, b.state),
+        d = max(float(np.nan_to_num(np.abs(a.dft.phasors - b.dft.phasors), nan=np.inf).max()), maxdiff(a.state, b.state),
                 maxdiff(a.psi, b.psi) if a.psi is not None else 0.0, maxdiff(a.pol, b.pol) if a.pol is not None else 0.0,
-                float((a.power_j - b.power_j).abs().max()) if a.power_j is not None else 0.0)
+                absdiff(a.power_j, b.power_j) if a.power_j is not None else 0.0)
         check(d == 0.0, f"{label} --dft 2.45e10 1000 steps: {backends[0]} == {backends[1]}, phasors, fields"
                         f"{', SAR' if a.power_j is not None else ''}{', psi' if a.psi is not None else ''}"
                         f"{', P' if a.pol is not None else ''} max|diff| = {d!r}")
@@ -1267,7 +1324,7 @@ def main() -> None:
         want = expect(yee_update_h=N_LOADS, yee_update_e=N_LOADS, dft_accum=N_LOADS) if backend == "twopass" else expect()
         check(counts == want, f"--probe x3 --dft-fields eh {backend} launch counts {counts} == {want}")
     a, b = res_m["twopass"], res_m["torch"]
-    d = max(float(np.abs(a.dft.phasors - b.dft.phasors).max()), float(np.abs(a.probes.values - b.probes.values).max()),
+    d = max(float(np.nan_to_num(np.abs(a.dft.phasors - b.dft.phasors), nan=np.inf).max()), float(np.abs(a.probes.values - b.probes.values).max()),
             maxdiff(a.state, b.state))
     h_peak, p_peak = float(np.abs(a.dft.phasors[0, 3:]).max()), float(np.abs(a.probes.values[:, 2]).max())
     check(d == 0.0 and a.probes.values.shape == (N_LOADS, 3, 6) and a.dft.phasors.shape[1] == 6
@@ -1320,7 +1377,382 @@ def main() -> None:
     del s_o, variables
     torch.cuda.empty_cache()
 
-    # -- 7. timing ---------------------------------------------------------
+    # -- 7. sharding (--shard) ----------------------------------------------
+    ms: dict[str, tuple[float, float]] = {}  # each kernel's fp32 ms and its plain version's ms (phases 7, 8)
+    ms_bf16: dict[str, float] = {}
+    plans: dict[str, stream_plan.StreamPlan] = {}
+    from fdtd_tpu_torch.parallel import mesh as shard_mesh
+    from fdtd_tpu_torch.parallel import sharded_fast
+    from fdtd_tpu_torch.parallel.sharded_step import shard_coefs
+    from fdtd_tpu_torch.io.vtr import read_vtr_cell_arrays
+
+    def owned_diff(a, b, box) -> float:
+        """Largest |a - b| over the owned cells of two shard states."""
+        return max(absdiff(x[box.owned], y[box.owned]) for x, y in zip(a.tensors(), b.tensors()))
+
+    def shard_kernels(pk: Params, arrays: dict, shape: tuple, s: int, label: str, mats=None, sar: bool = False,
+                      two_pass: bool = True) -> None:
+        """On every shard of a ``shape`` mesh (random fields; the map from
+        random sums), K1/K2-shard (``two_pass``) and K3-shard at ``s``
+        against their plain versions on the shard's arrays: the owned cells
+        bit for bit."""
+        mesh_k = shard_mesh.make_mesh(shape, "cuda")
+        host = update_coefs(pk, mats, "cpu")
+        dt = field_dtype(pk)
+        canon = state_from_numpy(arrays, dev, dt)
+        acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (pk.maxk, pk.maxj, pk.maxi)), dtype=torch.float32, device=dev)
+                if sar else None)
+        shards = shard_mesh.scatter(pk, canon, mesh_k, s + int(sar), acc0)
+        src = make_source_plan(pk) if pk.mode == Mode.COMPUTATION else None
+        patch = src.patch if src is not None else None
+        err: dict[str, float] = {}
+        for sh in shards:
+            cf = shard_coefs(pk, host, sh.box, dev)
+            if two_pass:
+                h_name = ("yee_update_h_het" if cf.heterogeneous_mu else "yee_update_h") + "_shard"
+                e_name = ("yee_update_e_lossy" if cf.lossy else "yee_update_e") + "_shard"
+                a, b = sh.state.clone(), sh.state.clone()
+                yee.update_h(pk, a, cf, patch, box=sh.box)
+                curl.update_h(pk, b, cf, patch, sh.box)
+                torch.cuda.synchronize()
+                err[h_name] = max(err.get(h_name, 0.0), owned_diff(a, b, sh.box))
+                yee.update_e(pk, a, cf, box=sh.box)
+                curl.update_e(pk, b, cf, sh.box)
+                torch.cuda.synchronize()
+                err[e_name] = max(err.get(e_name, 0.0), owned_diff(a, b, sh.box))
+            window = tuple(h - lo for lo, h in zip(sh.box.own_lo, sh.box.own_hi))
+            plan = stream_plan.plan_for(pk, s, cf.lossy, cf.heterogeneous_mu, sar, window=window)
+            st, drive = sh.state.clone(), None
+            if src is not None:
+                amps = torch.tensor(rng.uniform(-1.0, 1.0, s), dtype=torch.float64, device=dev)
+                prof = profile_tensor(src, dev)
+                apply_source(src, st, amps[0], prof, sh.box)
+                ez_rows, hx_rows = sweep_drive_rows(src, amps, s, dt, prof)
+                drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+            acc_k = sh.power.clone() if sar else None
+            acc_p = sh.power.clone() if sar else None
+            out = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+            want = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+            stream.sweep(pk, st, out, cf, plan, drive, acc_k, box=sh.box)
+            stream.plain_sweep(pk, st, cf, s, drive, want, acc_p, box=sh.box)
+            torch.cuda.synchronize()
+            name = plan.kernel + "_shard"
+            d = owned_diff(out, want, sh.box)
+            d_acc = absdiff(acc_k, acc_p) if sar and acc_k.numel() else 0.0
+            err[name] = max(err.get(name, 0.0), d, d_acc)
+            if window[0] % plan.tk or window[1] % plan.tj or window[2] % plan.ti:
+                ragged.add((name, s, window))
+        for name, d in err.items():
+            record_err(name, d)
+            check(d == 0.0, f"{name} == plain on every shard of a {shape} mesh, s={s}, {label}: max|diff| = {d!r}")
+
+    ragged.clear()
+    for dtype in ("float32", "bfloat16"):
+        for mode in (Mode.VALIDATION, Mode.COMPUTATION):
+            # K, J, I = 70, 50, 61: 71 planes over 4 (18, 18, 18, 17) and 3; j over 3 (17 each)
+            pk = Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                        simulation_time=1e-11, sampling_rate=5, mode=mode, dtype=dtype)
+            arrays = {c: rng.uniform(-1.0, 1.0, pk.padded_shape) for c in COMPONENTS}
+            scenes = [(None, False, "vacuum")]
+            if mode == Mode.COMPUTATION:  # materials shard in computation mode only, as they stream
+                scenes += [(water_block(pk), False, "water"), (water_block(pk), True, "water + SAR"),
+                           (ferrite_slab(pk, base=water_block(pk)), False, "water + ferrite"),
+                           (ferrite_slab(pk, base=water_block(pk)), True, "water + ferrite + SAR")]
+            for shape in ((4, 1, 1), (3, 1, 1), (2, 3, 1)):
+                for mats_k, sar_k, scene_k in scenes:
+                    for s_k in stream_plan.built_depths(mats_k is not None):
+                        shard_kernels(pk, arrays, shape, s_k, f"{dtype} {mode.name} {scene_k} {pk.padded_shape}",
+                                      mats_k, sar_k, two_pass=s_k == stream_plan.built_depths(mats_k is not None)[0])
+    check(bool(ragged), f"shard tiles that do not divide the shard were checked: {sorted(ragged)[:6]} ...")
+    # the 256^3 shard plans of the main and heating paths, both dtypes
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dtype)
+        arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
+        for shape in ((4, 1, 1), (2, 2, 1)):
+            mesh_d = shard_mesh.make_mesh(shape, "cuda")
+            s_vac = sharded_fast.pick_shard_plan(pd, mesh_d)[0].s
+            shard_kernels(pd, arrays, shape, s_vac, f"{dtype} random 256^3, its plan")
+            s_heat = sharded_fast.pick_shard_plan(pd, mesh_d, lossy=True, sar=True)[0].s
+            shard_kernels(pd, arrays, shape, s_heat, f"{dtype} heating random 256^3, its plan", water_block(pd), True)
+        del arrays
+    torch.cuda.empty_cache()
+    phase_done("7 shard kernels vs plain")
+
+    # 1000 steps of bench_256 on a 4-slab and a 2x2 mesh: auto, stream and
+    # twopass equal the unsharded stream run bit for bit
+    shard_rates = {f"{k} (unsharded, phases 5-6)": v for k, v in main_rates.items()}
+    for spec, shape in (("4", (4, 1, 1)), ("2x2", (2, 2, 1))):
+        mesh_s = shard_mesh.make_mesh(shape, "cuda")
+        n_sh = mesh_s.size
+        s_sh = sharded_fast.pick_shard_plan(p, mesh_s)[0].s
+        for backend in ("auto", "stream", "twopass"):
+            notices = []
+            reset_counts()
+            res = run_simulation(p, dev, write_snapshots=False, backend=backend, shard=spec, log=notices.append)
+            counts = counts_now()
+            want = (expect(yee_update_h_shard=n_sh * n, yee_update_e_shard=n_sh * n) if backend == "twopass" else
+                    expect(yee_stream_shard=n_sh * (n // s_sh), yee_update_h_shard=n_sh * (n % s_sh),
+                           yee_update_e_shard=n_sh * (n % s_sh)))
+            d = maxdiff(res.state, bench_ref)
+            shard_rates[f"bench_256 --shard {spec} {backend}"] = res.mcells_per_s
+            check(counts == want and d == 0.0 and n == 1000,
+                  f"bench_256 --shard {spec} {backend}: 1000 steps == unsharded stream, max|diff| = {d!r}; launch "
+                  f"counts {counts} == {want}; {res.mcells_per_s:.1f} Mcells/s (unsharded stream "
+                  f"{main_rates['bench_256 stream']:.1f}) {notices}")
+            if spec == "4" and backend != "auto":
+                for name in (("yee_update_h_shard", "yee_update_e_shard") if backend == "twopass"
+                             else ("yee_stream_shard",)):
+                    main_counts[name] = counts[name]
+                    paths[name] = f"bench_256 --shard 4 {backend}"
+            del res
+    del bench_ref
+    # the heating scene on 4 slabs: stream and twopass == unsharded, fields and SAR map
+    mesh_h = shard_mesh.make_mesh((4, 1, 1), "cuda")
+    s_hs = sharded_fast.pick_shard_plan(ph, mesh_h, lossy=True, sar=True)[0].s
+    for backend in ("stream", "twopass"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        res = run_simulation(ph, dev, materials=water, accumulate_power=True, write_snapshots=False, backend=backend,
+                             shard="4", log=lambda m: None)
+        counts = counts_now()
+        torch.cuda.synchronize()
+        # the allocator's peak over the whole run (shards, second buffers, coefficient parts, the gathered
+        # grid and map) against the model that admits or refuses a sharded run
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        boxes_m = shard_mesh.shard_boxes(ph, mesh_h, s_hs + 1 if backend == "stream" else 1)
+        model = max(stream_plan.shard_bytes(ph, [(b.shape, math.prod(b.cell_shape(ph))) for b in boxes_m],
+                                            mesh_h.devices, mesh_h.devices[0], backend == "stream", True, False,
+                                            True).values())
+        check(0 < peak <= model, f"heating_256 --water-block --sar --shard 4 {backend} peak device memory {peak} B "
+                                 f"<= model {model} B ({peak / model!r} of it)")
+        want = (expect(yee_update_h_shard=4 * nh, yee_update_e_lossy_shard=4 * nh) if backend == "twopass" else
+                expect(yee_stream_lossy_sar_shard=4 * (nh // s_hs), yee_update_h_shard=4 * (nh % s_hs),
+                       yee_update_e_lossy_shard=4 * (nh % s_hs)))
+        d = maxdiff(res.state, heat_ref[0])
+        d_acc = absdiff(res.power_j, heat_ref[1])
+        shard_rates[f"heating_256 --shard 4 {backend}"] = res.mcells_per_s
+        check(counts == want and d == 0.0 and d_acc == 0.0 and float(heat_ref[1].max()) > 0,
+              f"heating_256 --water-block --sar --shard 4 {backend}: 1000 steps == unsharded stream, fields "
+              f"max|diff| = {d!r}, SAR max|diff| = {d_acc!r}; launch counts {counts} == {want}; "
+              f"{res.mcells_per_s:.1f} Mcells/s (unsharded stream {main_rates['heating_256 stream']:.1f})")
+        name = "yee_update_e_lossy_shard" if backend == "twopass" else "yee_stream_lossy_sar_shard"
+        main_counts[name] = counts[name]
+        paths[name] = f"heating_256 --water-block --sar --shard 4 {backend}"
+        del res
+    del heat_ref
+    # the other loads on 4 slabs (66 steps: sweeps and trailing two-pass steps), stream == unsharded stream
+    for mats_l, sar_l, scene_l in ((water, False, "--water-block"), (ferrite, False, "--water-block --ferrite-slab"),
+                                   (ferrite, True, "--water-block --ferrite-slab --sar")):
+        het_l = mats_l.mu_r is not None
+        tv = time_values(ph)[:N_LOADS]
+        xs_l = scan_inputs(ph, tv)
+        init = {c: rng.uniform(-1.0, 1.0, ph.padded_shape).astype(np.float32) for c in COMPONENTS}
+        s_ref = state_from_numpy(init, dev, torch.float32)
+        pw_ref = zero_power_acc(ph, dev) if sar_l else None
+        make_chunk_runner(ph, dev, mats_l, "stream", accumulate_power=sar_l)(
+            s_ref, xs_l, pw_ref)
+        s_sh_state = state_from_numpy(init, dev, torch.float32)
+        pw_sh = zero_power_acc(ph, dev) if sar_l else None
+        run_sh = sharded_fast.make_sharded_stream_runner(ph, mesh_h, mats_l, sar_l)
+        shards = shard_mesh.scatter(ph, s_sh_state, mesh_h, run_sh.depth, pw_sh)
+        reset_counts()
+        run_sh(shards, xs_l)
+        torch.cuda.synchronize()
+        counts = counts_now()
+        shard_mesh.gather(ph, shards, s_sh_state, pw_sh)
+        kname = run_sh.plans[0].kernel + "_shard"
+        s_l = run_sh.plans[0].s
+        h_l = "yee_update_h_het_shard" if het_l else "yee_update_h_shard"
+        want = expect(**{kname: 4 * (N_LOADS // s_l), h_l: 4 * (N_LOADS % s_l),
+                         "yee_update_e_lossy_shard": 4 * (N_LOADS % s_l)})
+        d = maxdiff(s_sh_state, s_ref)
+        d_acc = absdiff(pw_sh, pw_ref) if sar_l else 0.0
+        check(counts == want and d == 0.0 and d_acc == 0.0,
+              f"heating_256 {scene_l} --shard 4 stream, {N_LOADS} steps from random fields == unsharded stream: "
+              f"max|diff| = {d!r}, SAR {d_acc!r}; launch counts {counts} == {want}")
+        main_counts[kname] = counts[kname]
+        paths[kname] = f"heating_256 {scene_l} --shard 4 stream ({N_LOADS} steps)"
+        if het_l and h_l not in main_counts:
+            main_counts[h_l] = counts[h_l]
+            paths[h_l] = f"heating_256 {scene_l} --shard 4 stream ({N_LOADS} steps, trailing two-pass steps)"
+        del shards, run_sh, s_ref, s_sh_state
+    torch.cuda.empty_cache()
+    # 512^3 on 4 slabs, 16 steps: the sharded stream == the unsharded stream
+    xs512 = scan_inputs(p512, time_values(p512)[:16])
+    s_ref = initial_state(p512, dev)
+    make_chunk_runner(p512, dev, backend="stream")(s_ref, xs512)
+    s512 = initial_state(p512, dev)
+    mesh_5 = shard_mesh.make_mesh((4, 1, 1), "cuda")
+    run5 = sharded_fast.make_sharded_stream_runner(p512, mesh_5)
+    shards = shard_mesh.scatter(p512, s512, mesh_5, run5.depth)
+    reset_counts()
+    run5(shards, xs512)
+    torch.cuda.synchronize()
+    counts = counts_now()
+    shard_mesh.gather(p512, shards, s512)
+    d = maxdiff(s512, s_ref)
+    check(d == 0.0 and counts["yee_stream_shard"] == 4 * (16 // run5.plans[0].s),
+          f"512^3 --shard 4 stream, 16 steps == unsharded stream: max|diff| = {d!r}; launch counts {counts}")
+    del shards, run5, s512, s_ref
+    torch.cuda.empty_cache()
+    phase_done("7 sharded runs")
+
+    # the CLI: bench_256 (snapshots every 500 steps) and the heating scene with --shard 4 write the unsharded outputs
+    def same_outputs(a_dir: str, b_dir: str) -> tuple[list, float]:
+        names = sorted(os.path.basename(f) for f in glob.glob(os.path.join(a_dir, "*.vtr")))
+        d = 0.0
+        for nm in names:
+            a, b = read_vtr_cell_arrays(os.path.join(a_dir, nm)), read_vtr_cell_arrays(os.path.join(b_dir, nm))
+            d = max([d] + [float(np.nan_to_num(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)), nan=np.inf).max()) for k in a])
+        return names, d
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        r4 = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", params500, "--out", os.path.join(out, "z4"),
+                             "--diag-log", os.path.join(out, "z4.jsonl"), "--shard", "4"],
+                            capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        names, d = same_outputs(os.path.join(bench_cli, "one"), os.path.join(out, "z4"))
+        logs = [open(path).read() for path in (os.path.join(bench_cli, "one.jsonl"), os.path.join(out, "z4.jsonl"))]
+        check(r4.returncode == 0 and names == ["result0001.vtr", "result0500.vtr", "result1000.vtr"]
+              and d == 0.0 and logs[0] == logs[1] and len(logs[0].splitlines()) == 3,
+              f"CLI bench_256 (rate 500) --shard 4 writes the unsharded snapshots {names} (max|diff| {d!r}) and "
+              f"energy log in {cli_s:.1f} s: {r4.stdout.strip().splitlines()[-2:]} {r4.stderr.strip()[-300:]}")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
+                            "--shard", "4", "--out", os.path.join(out, "heat")], capture_output=True, text=True,
+                           timeout=900)
+        cli_s = time.perf_counter() - t0
+        names, d = same_outputs(heat_cli, os.path.join(out, "heat"))
+        check(r.returncode == 0 and len(names) == 12 and "sar.vtr" in names and d == 0.0,
+              f"CLI heating_256 --water-block --sar --shard 4 in {cli_s:.1f} s writes the unsharded snapshots and "
+              f"sar.vtr ({len(names)} files, max|diff| {d!r}): {r.stdout.strip().splitlines()[-3:]} "
+              f"{r.stderr.strip()[-300:]}")
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/bench_256.txt", "--shard", "4",
+                            "--pml", "10", "--no-output"], capture_output=True, text=True, timeout=300)
+        check(r.returncode == 1 and "ROADMAP queue 1 item 11b" in r.stderr,
+              f"CLI --shard 4 --pml 10 exits {r.returncode} naming item 11b: {r.stderr.strip()[-200:]}")
+    shutil.rmtree(heat_cli, ignore_errors=True)
+    shutil.rmtree(bench_cli, ignore_errors=True)
+    for key, val in shard_rates.items():
+        print(f"rate 256^3 1000 steps {key}: {val!r} Mcells/s ({smi})")
+
+    # the halo copies at 256^3: a sweep's exchange (every field, s planes;
+    # s + 1 with SAR) and a two-pass step's (E above, H below; one plane)
+    def event_ms(fn, reps=20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    from fdtd_tpu_torch.grid import E_COMPONENTS, H_COMPONENTS
+    halo_ms = {}
+    for spec, shape in (("4", (4, 1, 1)), ("2x2", (2, 2, 1))):
+        mesh_x = shard_mesh.make_mesh(shape, "cuda")
+        for label, depth, sar_x in (("stream", None, False), ("stream --sar", None, True), ("twopass", 1, False)):
+            if depth is None:
+                depth = sharded_fast.pick_shard_plan(p, mesh_x, lossy=sar_x, sar=sar_x)[0].s + int(sar_x)
+            shards = shard_mesh.scatter(p, initial_state(p, dev), mesh_x, depth)
+            if label.startswith("stream"):
+                ms_x = event_ms(lambda: shard_mesh.exchange(mesh_x, shards))
+            else:
+                ms_x = event_ms(lambda: (shard_mesh.exchange(mesh_x, shards, E_COMPONENTS, ("hi",)),
+                                               shard_mesh.exchange(mesh_x, shards, H_COMPONENTS, ("lo",))))
+            halo_ms[(spec, label)] = ms_x
+            print(f"halo copies 256^3 --shard {spec} {label} (depth {depth}): {ms_x!r} ms per "
+                  f"{'sweep' if label.startswith('stream') else 'step'} ({smi})")
+            del shards
+    torch.cuda.empty_cache()
+
+    # each shard kernel's time at 256^3 on a middle slab of --shard 4, scattered as its runner scatters it (one
+    # halo plane for K1/K2, the sweep's depth for K3), beside its plain version and its bound: (values read,
+    # values written over the owned window, operations, SAR cells)
+    shard_work: dict[str, tuple[int, int, int, int]] = {}
+
+    def window_plus(box, side: str) -> int:
+        """Cells of the owned window and the one plane past it on ``side``
+        of each sharded axis: what a two-pass pass reads of the other field."""
+        return math.prod(h - lo + (hi > h if side == "hi" else lo > l0)
+                         for l0, hi, lo, h in zip(box.lo, box.hi, box.own_lo, box.own_hi))
+
+    patch_t = make_source_plan(p).patch
+    mesh_t = shard_mesh.make_mesh((4, 1, 1), "cuda")
+    arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dtype)
+        fp32 = dtype == "float32"
+        item = 4 if fp32 else 2
+        for mats_t, sar_t, names in ((None, False, ("yee_update_h_shard", "yee_update_e_shard", "yee_stream_shard")),
+                                     (water, False, (None, "yee_update_e_lossy_shard", "yee_stream_lossy_shard")),
+                                     (water, True, (None, None, "yee_stream_lossy_sar_shard")),
+                                     (ferrite, False, ("yee_update_h_het_shard", None, "yee_stream_lossy_het_shard")),
+                                     (ferrite, True, (None, None, "yee_stream_lossy_het_sar_shard"))):
+            plans_t = sharded_fast.pick_shard_plan(pd, mesh_t, lossy=mats_t is not None,
+                                                   het=mats_t is not None and mats_t.mu_r is not None, sar=sar_t)
+            h_name, e_name, k_name = names
+            canon_t = state_from_numpy(arrays, dev, field_dtype(pd))
+            if h_name or e_name:  # H: H, hf over the owned window, E one plane past it; E: E, ca/cb, H one below
+                s1 = shard_mesh.scatter(pd, canon_t, mesh_t, 1)[1]
+                cf1, box1 = shard_coefs(pd, coefs_of(pd, mats_t), s1.box, dev), s1.box
+                v_own = math.prod(h - lo for lo, h in zip(box1.own_lo, box1.own_hi))
+            if h_name:
+                k_ms = event_ms(lambda: yee.update_h(pd, s1.state, cf1, patch_t, box=box1))
+                if fp32:
+                    ms[h_name] = (k_ms, event_ms(lambda: curl.update_h(pd, s1.state, cf1, patch_t, box1)))
+                    shard_work[h_name] = ((3 + (3 if cf1.heterogeneous_mu else 0)) * v_own
+                                          + 3 * window_plus(box1, "hi"), 3 * v_own, 15 * v_own, 0)
+                else:
+                    ms_bf16[h_name] = k_ms
+            if e_name:
+                k_ms = event_ms(lambda: yee.update_e(pd, s1.state, cf1, box=box1))
+                if fp32:
+                    ms[e_name] = (k_ms, event_ms(lambda: curl.update_e(pd, s1.state, cf1, box1)))
+                    shard_work[e_name] = ((3 + (6 if cf1.lossy else 0)) * v_own + 3 * window_plus(box1, "lo"),
+                                          3 * v_own, (18 if cf1.lossy else 15) * v_own, 0)
+                else:
+                    ms_bf16[e_name] = k_ms
+            if h_name or e_name:
+                del s1, cf1
+            sh = shard_mesh.scatter(pd, canon_t, mesh_t, plans_t[1].s + int(sar_t),
+                                    zero_power_acc(pd, dev) if sar_t else None)[1]
+            del canon_t
+            cf = shard_coefs(pd, coefs_of(pd, mats_t), sh.box, dev)
+            box = sh.box
+            v_box, v_own = math.prod(box.shape), math.prod(tuple(h - lo for lo, h in zip(box.own_lo, box.own_hi)))
+            c_own = math.prod(box.cell_shape(pd))
+            lossy_t, het_t = cf.lossy, cf.heterogeneous_mu
+            plan_t = plans_t[1]
+            src = make_source_plan(pd)
+            amps = torch.tensor(rng.uniform(-1.0, 1.0, plan_t.s), dtype=torch.float64, device=dev)
+            ez_rows, hx_rows = sweep_drive_rows(src, amps, plan_t.s, field_dtype(pd), profile_tensor(src, dev))
+            drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+            out_t = FieldState(*(torch.empty_like(t) for t in sh.state.tensors()))
+            acc_t = sh.power
+            k_ms = event_ms(lambda: stream.sweep(pd, sh.state, out_t, cf, plan_t, drive, acc_t, box=box))
+            if fp32:
+                plans[k_name] = plan_t
+                ms[k_name] = (k_ms, event_ms(lambda: stream.plain_sweep(pd, sh.state, cf, plan_t.s, drive, out_t, acc_t,
+                                                                        box=box), reps=3))
+                # fields in over the slab and its halos, out over the owned window; coefficients over the slab;
+                # sigma and the map (in and out) over the owned cells
+                in_vals = (6 + (6 if lossy_t else 0) + (3 if het_t else 0)) * v_box
+                ops = plan_t.s * (v_own * (15 + (18 if lossy_t else 15)) + (20 * c_own if sar_t else 0))
+                shard_work[k_name] = (in_vals, 6 * v_own, ops, c_own if sar_t else 0)
+            else:
+                ms_bf16[k_name] = k_ms
+            del sh, cf, out_t
+    del arrays
+    torch.cuda.empty_cache()
+    phase_done("7 CLI, halo copies, shard kernel times")
+
+    # -- 8. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
     dcs = {"float32": dc_debye}  # the Debye maps per dtype (p and ph share the grid and the step)
     for dft_t in (None, DFT1):
@@ -1359,25 +1791,11 @@ def main() -> None:
                 del runners
     for key, vals in rates.items():
         print(f"timing 256^3 {key}: Mcells/s {vals} (2 runs of {N_TIMED} steps, {smi})")
-    phase_done("7 rates")
-
-    def event_ms(fn, reps=20) -> float:
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
+    phase_done("8 rates")
 
     patch = make_source_plan(p).patch
     arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}
-    ms: dict[str, tuple[float, float]] = {}  # fp32 kernel ms, plain ms
-    ms_bf16: dict[str, float] = {}
     ade_extra: dict[str, float] = {}
-    plans: dict[str, stream_plan.StreamPlan] = {}
     variants = (("", None, False), ("_lossy", water, False), ("_lossy_sar", water, True),
                 ("_lossy_het", ferrite, False), ("_lossy_het_sar", ferrite, True))
     for dtype in ("float32", "bfloat16"):
@@ -1386,7 +1804,7 @@ def main() -> None:
         s_d = initial_state(dataclasses.replace(pd, mode=Mode.VALIDATION), dev)
         for mats_t, names in ((None, ("yee_update_h", "yee_update_e")),
                               (ferrite, ("yee_update_h_het", "yee_update_e_lossy"))):
-            coefs_t = update_coefs(pd, mats_t, dev)
+            coefs_t = coefs_of(pd, mats_t)
             k_h = event_ms(lambda: yee.update_h(pd, s_d, coefs_t, patch))
             k_e = event_ms(lambda: yee.update_e(pd, s_d, coefs_t))
             if fp32:
@@ -1398,7 +1816,7 @@ def main() -> None:
         del s_d
         for suffix, mats_t, sar in variants:
             name = "yee_stream" + suffix
-            coefs_t = update_coefs(pd, mats_t, dev)
+            coefs_t = coefs_of(pd, mats_t)
             plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, het=coefs_t.heterogeneous_mu, sar=sar)
             st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
             out = FieldState(*(torch.empty_like(t) for t in st.tensors()))
@@ -1417,7 +1835,7 @@ def main() -> None:
         psi_d = init_psi(pd, PML10, dev)
         for mats_t, names in ((None, ("yee_update_h_pml", "yee_update_e_pml")),
                               (ferrite, ("yee_update_h_het_pml", "yee_update_e_lossy_pml"))):
-            coefs_t = update_coefs(pd, mats_t, dev)
+            coefs_t = coefs_of(pd, mats_t)
             cp_t = make_cpml(pd, PML10, coefs_t, dev)
             k_h = event_ms(lambda: yee.update_h(pd, s_d, coefs_t, patch, cp_t, psi_d))
             k_e = event_ms(lambda: yee.update_e(pd, s_d, coefs_t, cp_t, psi_d))
@@ -1429,7 +1847,7 @@ def main() -> None:
             del coefs_t, cp_t
         del s_d
         for name, mats_t in (("yee_stream_pml", None), ("yee_stream_lossy_pml", water)):
-            coefs_t = update_coefs(pd, mats_t, dev)
+            coefs_t = coefs_of(pd, mats_t)
             cp_t = make_cpml(pd, PML10, coefs_t, dev)
             plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, pml=PML10)
             st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
@@ -1465,7 +1883,7 @@ def main() -> None:
                                    (ferrite, False, None), (ferrite, True, None), (None, False, PML10),
                                    (water, False, PML10), (debye, False, None), (debye, True, None)):
             debye_t = mats_t is debye
-            coefs_t = vac if debye_t else update_coefs(pd, mats_t, dev)
+            coefs_t = vac if debye_t else coefs_of(pd, mats_t)
             plan_t = stream_plan.pick_plan(pd, lossy=coefs_t.lossy, het=coefs_t.heterogeneous_mu, sar=sar, pml=pml_t,
                                            ade=debye_t, dft=DFT1)
             st, drive, _ = sweep_inputs(pd, arrays, plan_t.s)
@@ -1557,6 +1975,9 @@ def main() -> None:
         (nf = 1) add the six fp32 sums of a cell read and written once and,
         each step, the three 4-edge means and the four operations a
         component (24 a cell)."""
+        if name in shard_work:  # a middle slab of --shard 4: what it reads, the owned window out; sigma, the map
+            vals_in, vals_out, ops_n, sar_cells = shard_work[name]
+            return (vals_in + vals_out) * item + sar_cells * (item + 8), ops_n
         if name == "dft_accum":  # three E in, the six sums in and out
             return 3 * item * cells + 48 * cells_k, 24 * cells_k
         if name.endswith("_dft"):
@@ -1589,7 +2010,10 @@ def main() -> None:
                  "yee_stream_pml", "yee_stream_lossy_pml", "yee_update_e_ade", "yee_update_e_ade_sar",
                  "yee_stream_ade", "yee_stream_ade_sar", "dft_accum", "yee_stream_dft", "yee_stream_lossy_dft",
                  "yee_stream_lossy_sar_dft", "yee_stream_lossy_het_dft", "yee_stream_lossy_het_sar_dft",
-                 "yee_stream_pml_dft", "yee_stream_lossy_pml_dft", "yee_stream_ade_dft", "yee_stream_ade_sar_dft"):
+                 "yee_stream_pml_dft", "yee_stream_lossy_pml_dft", "yee_stream_ade_dft", "yee_stream_ade_sar_dft",
+                 "yee_update_h_shard", "yee_update_e_shard", "yee_stream_shard", "yee_update_h_het_shard",
+                 "yee_update_e_lossy_shard", "yee_stream_lossy_shard", "yee_stream_lossy_sar_shard",
+                 "yee_stream_lossy_het_shard", "yee_stream_lossy_het_sar_shard"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)
@@ -1602,7 +2026,9 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name == "dft_accum" else
                                                 "yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
-            "replaces": ("fdtd_tpu/ops/pallas_stream.py:1225" if name == "dft_accum" else
+            "replaces": ("fdtd_tpu/ops/pallas_stream.py:1538" if name.startswith("yee_stream") and
+                         name.endswith("_shard") else
+                         "fdtd_tpu/ops/pallas_stream.py:1225" if name == "dft_accum" else
                          "fdtd_tpu/ops/pallas_dispersive.py:182" if name.startswith("yee_update_e_ade") else
                          "fdtd_tpu/ops/pallas_dispersive.py:464" if name.startswith("yee_stream_ade") else
                          "fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and

@@ -12,7 +12,12 @@ makes the water load a Debye medium, and the frequency-domain monitors:
 ``dft_NN.vtr``, and ``--probe K,J,I`` (repeatable), which writes
 ``probes.csv``, in the JAX CLI's formats.  ``--device`` chooses where the
 fields live (default ``cuda``); without CUDA the run stops with a message
-that names ``--device cpu``.
+that names ``--device cpu``.  ``--shard Z`` or ``ZxY`` runs the scene on a
+mesh of shards (the counterpart of the reference's ``mpirun -np N``; with
+fewer CUDA devices than shards they share the devices round-robin, and
+``--device cpu`` puts them on the host); with ``--pml``, ``--dispersive``,
+``--dft`` or ``--probe`` it stops with exit code 1 naming ROADMAP item
+11b.
 
 It takes every flag of the JAX CLI: ``--backend`` also takes the JAX
 backend names (mapped with a notice: ``xla`` -> ``torch``, ``pallas`` and
@@ -20,9 +25,8 @@ backend names (mapped with a notice: ``xla`` -> ``torch``, ``pallas`` and
 ``pallas_temporal`` -> ``stream``), ``--temporal-steps S`` forces the
 stream sweep's depth (8, 4 or 2 here), ``--profile DIR`` writes a
 ``torch.profiler`` trace, and the flags of features not ported yet
-(``--shard``, ``--thermal``, ``--thermal-power``, ``--coupled``,
-``--rotate``) stop the run with exit code 1 and the ROADMAP item that
-ports them.
+(``--thermal``, ``--thermal-power``, ``--coupled``, ``--rotate``) stop the
+run with exit code 1 and the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -118,10 +122,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--probe", action="append", default=None, metavar="K,J,I",
                     help="record a per-step time series of the six cell-centered field components at "
                          "cell (k,j,i); repeatable; writes probes.csv")
+    ap.add_argument("--shard", default=None, metavar="ZxY",
+                    help="spatial decomposition over devices: Z z-slabs (e.g. 4) or a Z x Y mesh (e.g. 4x2); "
+                         "more shards than CUDA devices share them round-robin (not with --pml, --dispersive, "
+                         "--dft or --probe: ROADMAP queue 1 item 11b)")
     # the JAX CLI's flags of features not ported yet: accepted, and refused
     # with the ROADMAP item that ports them
-    ap.add_argument("--shard", default=None, metavar="ZxY",
-                    help="spatial decomposition over devices (not ported: ROADMAP queue 1 item 11)")
     ap.add_argument("--thermal", type=float, default=None, metavar="SECONDS",
                     help="heat-equation solve after the EM run (not ported: ROADMAP queue 1 item 6)")
     ap.add_argument("--thermal-power", type=float, default=None, metavar="WATTS",
@@ -136,7 +142,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 # flags of features not ported yet -> the ROADMAP item that ports them
 _UNPORTED_FLAGS = (
-    ("shard", "--shard", "ROADMAP queue 1 item 11 (spatial sharding)"),
     ("thermal", "--thermal", "ROADMAP queue 1 item 6 (thermal and coupling)"),
     ("thermal_power", "--thermal-power", "ROADMAP queue 1 item 6 (thermal and coupling)"),
     ("coupled", "--coupled", "ROADMAP queue 1 item 6 (thermal and coupling)"),
@@ -321,10 +326,12 @@ def main(argv=None) -> int:
             dft=dft,
             probes=probes,
             stream_s=args.temporal_steps,
+            shard=args.shard,
         )
     except (RuntimeError, ValueError) as e:
         # no CUDA for --device cuda, twopass/stream on the CPU or in float64, a bad
-        # device string, an unbuilt --temporal-steps, a diverged run
+        # device string, an unbuilt --temporal-steps, a diverged run, a bad --shard
+        # spec or a composition --shard does not take yet (NotImplementedError)
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:

@@ -123,6 +123,20 @@
 // accumulation's bits (fdtd_tpu_torch/dft.py::accumulate after each
 // two-pass step).
 //
+// Shards (fdtd_tpu_torch/parallel; replaces the TPU's per-shard calls
+// fdtd_tpu/ops/pallas_stream.py::build_stream_shard_call and its j-tiled
+// form _build_stream_shard_call_jt).  A sweep may advance a part of the
+// grid held in arrays of its own (Box below): the arrays' extents set the
+// strides, every bound, wall, source and drive test reads global indices,
+// and the blocks emit only the shard's owned window.  A shard's arrays
+// hold S halo planes (S+1 with the cell means) on each side it shares with
+// a neighbour, copied in before the sweep, so a shard is one more k
+// segment whose lead-in and top read the halo planes, and on a sharded j
+// side its tiles' recompute halo reads the halo rows; the level-S values
+// of the owned window are those of the whole-grid sweep, bit for bit.  The
+// SAR map (and the DFT sums) of a shard cover its owned cells (the cell
+// box).  The whole grid is the box with no offset that owns everything.
+//
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
 // bf16), against 72 B per step for the two-pass kernels.  Lossy media add
@@ -144,6 +158,8 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -340,12 +356,29 @@ struct DftSweep {
     int nc;
 };
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
+// The part of the grid a sweep advances: the arrays hold (nk, nj, ni)
+// elements whose local (0, 0, 0) is the global cell (ok, oj, oi); the
+// blocks emit the global window [wk0, wk1) x [wj0, wj1) x [wi0, wi1); the
+// SAR map and DFT sums hold the cells from (ck0, cj0, ci0), (cnk, cnj, cni)
+// of them (a shard's owned cells; the whole grid: every cell, from 0).
+struct Box {
+    int nj, ni;
+    int ok, oj, oi;
+    int wk0, wk1, wj0, wj1, wi0, wi1;
+    int ck0, cj0, ci0, cnk, cnj, cni;
+};
+
+// BOX: a shard's sweep, its geometry the runtime Box g; without it the
+// whole grid's, compiled as it was before shards existed (a runtime box in
+// every variant cost some of them 5-14% at 256^3, through registers, spills
+// and the instruction stream), so only the shard variants carry it.
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
               const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
-              PsiSweep<T> psw, AdeSweep<T> ade, DftSweep dft) {
+              PsiSweep<T> psw, AdeSweep<T> ade, DftSweep dft, Box g) {
+    static_assert(!BOX || (!PML && !ADE && !DFT), "CPML, Debye media and the DFT bands do not shard yet");
     constexpr bool MEANS = SAR || DFT;  // cell means read E (work) one column past
     constexpr int SH = MEANS ? 1 : 0;   // so one column fewer is emitted
     constexpr int TJ = BJ - 2 * S - SH;
@@ -357,18 +390,26 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     // (U): exL, exU, eyL, eyU, ezL
     __shared__ float sS[MEANS ? 5 : 1][MEANS ? BJ : 1][BI];
 
+    // (k, j, i) are global; a shard's column offsets fold in its arrays'
+    // origin (and its cell box's), so a plane's address is k * sk + col.
+    // Without BOX every term below is the whole grid's.
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int i = (int)blockIdx.x * TI - S + tx;
-    const int j = (int)blockIdx.y * TJ - S + ty;
-    const int k0 = (int)blockIdx.z * tk;
-    const int k1 = min(k0 + tk, K + 1);
+    const int i = (BOX ? g.wi0 : 0) + (int)blockIdx.x * TI - S + tx;
+    const int j = (BOX ? g.wj0 : 0) + (int)blockIdx.y * TJ - S + ty;
+    const int k0 = (BOX ? g.wk0 : 0) + (int)blockIdx.z * tk;
+    const int k1 = min(k0 + tk, BOX ? g.wk1 : K + 1);
     const int ks = max(k0 - S, 0);
+    const int kz = BOX ? g.ok : 0;  // the lowest plane the arrays hold
 
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J;
-    const int64_t col = inbox ? (int64_t)j * sj + i : 0;
-    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ;
+    const int64_t sj = BOX ? (int64_t)g.ni : (int64_t)I + 1;
+    const int64_t sk = sj * (BOX ? (int64_t)g.nj : (int64_t)J + 1);
+    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J
+                       && (!BOX || (i - g.oi >= 0 && i - g.oi < g.ni && j - g.oj >= 0 && j - g.oj < g.nj));
+    const int64_t col = !inbox ? 0
+                        : BOX ? (int64_t)(j - g.oj) * sj + (i - g.oi) - (int64_t)g.ok * sk
+                              : (int64_t)j * sj + i;
+    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ
+                      && (!BOX || (i < g.wi1 && j < g.wj1));
 
     // per-column update bounds (yee_twopass.cu's, without k)
     const bool c_hx = inbox && j < J;
@@ -381,8 +422,9 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const int ni = i1 - i0;
     // SAR / DFT: this thread owns the cells of its column that the block emits
     const bool c_sar = MEANS && emit && j < J && i < I;
-    const int64_t cell_col = (int64_t)j * I + i;
-    const int64_t cell_sk = (int64_t)J * I;
+    const int64_t cell_col = BOX ? (int64_t)(j - g.cj0) * g.cni + (i - g.ci0) - (int64_t)g.ck0 * g.cnj * g.cni
+                                 : (int64_t)j * I + i;
+    const int64_t cell_sk = BOX ? (int64_t)g.cnj * g.cni : (int64_t)J * I;
     // DFT: the sums of the S cells in flight, slot (cell % S) of this
     // thread: sD[((slot * 6 * nf + q) * BJ + ty) * BI + tx], q = 6f + 2c + (0: re, 1: im)
     extern __shared__ float sD[];
@@ -436,7 +478,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             // fetch the sums of the cell level 1 starts at this step
             const int c1 = r - 2;
             if (c_sar && c1 >= k0 && c1 < k1 && c1 < K) {
-                const int64_t cells = (int64_t)K * cell_sk;
+                const int64_t cells = (int64_t)(BOX ? g.cnk : K) * cell_sk;
                 float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
                 const int64_t oc1 = (int64_t)c1 * cell_sk + cell_col;
                 for (int f = 0; f < dft.nf; ++f)
@@ -481,7 +523,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
         for (int m = 1; m <= S; ++m) {
             const int k = r - m;
-            const int64_t o = (int64_t)k * sk + col;  // read only where k >= 0 and inbox
+            const int64_t o = (int64_t)k * sk + col;  // read only where k >= kz and inbox
             const bool on_patch = c_patch && k == 0;
             const bool near_k = k <= kn || k >= K - kn;
             if (m >= 2 && on_patch) {
@@ -500,9 +542,10 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const float ey_pi = tx + 1 < BI ? sE[1][ty][tx + 1] : 0.f;
             const float ez_pi = tx + 1 < BI ? sE[2][ty][tx + 1] : 0.f;
 
-            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K)
-            const bool kh = k >= 0 && k < K;
-            const bool khz = k >= 0 && k <= K;
+            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); a
+            // shard's lead-in does not reach below its arrays (kz >= 0)
+            const bool kh = k >= kz && k < K;
+            const bool khz = k >= kz && k <= K;
             float hn[3] = {ho[0], ho[1], ho[2]};
             float psn[NP];
 #pragma unroll
@@ -552,8 +595,8 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 
             // E of level m on plane k (Ex, Ey: 1 <= k < K; Ez: k < K);
             // h[m] still holds level m's H on plane k-1
-            const bool ke = k >= 1 && k < K;
-            const bool kez = k >= 0 && k < K;
+            const bool ke = k >= 1 && k >= kz && k < K;
+            const bool kez = k >= kz && k < K;
             float en[3] = {eo[0], eo[1], eo[2]};
             float pn[3] = {po[0], po[1], po[2]};  // ADE: P of level m on plane k
             float wn[3] = {0.f, 0.f, 0.f};        // ADE + SAR: its edge work
@@ -666,7 +709,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                         mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]),
                         mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]),
                         mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1])};
-                    const int64_t cells = (int64_t)K * cell_sk;
+                    const int64_t cells = (int64_t)(BOX ? g.cnk : K) * cell_sk;
                     const float* wm = dft.w + (int64_t)(m - 1) * 2 * dft.nf;
                     if (m == 1) __pipeline_wait_prior(0);
                     float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
@@ -740,8 +783,8 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     }
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
-int launch(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
+int launch(void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh, float fe,
            int tk, int has_patch, int j0, int j1, int i0, int i1,
            const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
            const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
@@ -752,18 +795,18 @@ int launch(void* const* in, void* const* out, int K, int J, int I, float fh, flo
                          (const T*)in[3], (const T*)in[4], (const T*)in[5]};
     const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
     const dim3 block(BI, BJ);
-    const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
-                    (unsigned)((K + 1 + tk - 1) / tk));
+    const dim3 grid((unsigned)((g.wi1 - g.wi0 + TI - 1) / TI), (unsigned)((g.wj1 - g.wj0 + TJ - 1) / TJ),
+                    (unsigned)((g.wk1 - g.wk0 + tk - 1) / tk));
     size_t dyn = 0;  // the DFT chain: 6 * nf sums of S cells a thread
     if constexpr (DFT) {
         dyn = (size_t)S * 6 * dft.nf * BJ * BI * sizeof(float);
-        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT>,
+        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>,
                                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
         if (e != cudaSuccess) return (int)e;
     }
-    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT><<<grid, block, dyn, stream>>>(
+    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX><<<grid, block, dyn, stream>>>(
         f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade, dft);
+        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade, dft, g);
     return (int)cudaGetLastError();
 }
 
@@ -772,16 +815,16 @@ int launch(void* const* in, void* const* out, int K, int J, int I, float fh, flo
 // ::BLOCK_J_ADE / ::BLOCK_J_ADE_SAR (Debye) and ::BLOCK_J_DFT (the DFT
 // variants of the vacuum and material sweeps; the CPML and Debye DFT
 // variants take their variant's shape).
-template <typename T, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT>
-int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
+template <typename T, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
+int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh,
              float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
              const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
              const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
-#define YEE_STREAM_CASE(S_, BJ_)                                                                            \
-    if (s == S_ && bj == BJ_)                                                                               \
-        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE, DFT>(in, out, K, J, I, fh, fe, tk, has_patch, j0, \
-                                                                  j1, i0, i1, ez_rows, hx_rows, mat, psw, ade,  \
-                                                                  dft, stream);
+#define YEE_STREAM_CASE(S_, BJ_)                                                                         \
+    if (s == S_ && bj == BJ_)                                                                            \
+        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE, DFT, BOX>(in, out, K, J, I, g, fh, fe, tk,     \
+                                                                       has_patch, j0, j1, i0, i1, ez_rows,  \
+                                                                       hx_rows, mat, psw, ade, dft, stream);
     if constexpr (DFT && !ADE && !PML) {
 #ifdef YEE_STREAM_DFT_CANDIDATES
         // the shapes python -m fdtd_tpu_torch.tune_ade --dft times (a build of its own)
@@ -823,34 +866,43 @@ int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int
 }
 
 // the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 8 CPML, 16 Debye):
-// the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands
-template <typename T, bool DFT>
-int dispatch_variant(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh,
+// the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands;
+// with BOX (a shard) the five of ops/stream_plan.py::SHARD_VARIANTS
+template <typename T, bool DFT, bool BOX>
+int dispatch_variant(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, const Box& g,
+                     float fh,
                      float fe, int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
                      const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const AdeSweep<T>& ade,
                      const DftSweep& dft, cudaStream_t stream) {
 #define YEE_STREAM_VARIANT(CODE_, LOSSY_, HET_, SAR_, PML_, ADE_)                                         \
     case CODE_:                                                                                          \
-        return dispatch<T, LOSSY_, HET_, SAR_, PML_, ADE_, DFT>(s, bj, in, out, K, J, I, fh, fe, tk,      \
-                                                                has_patch, j0, j1, i0, i1, ez_rows,        \
-                                                                hx_rows, mat, psw, ade, dft, stream);
+        return dispatch<T, LOSSY_, HET_, SAR_, PML_, ADE_, DFT, BOX>(s, bj, in, out, K, J, I, g, fh, fe, tk, \
+                                                                     has_patch, j0, j1, i0, i1, ez_rows,     \
+                                                                     hx_rows, mat, psw, ade, dft, stream);
     switch (code) {
         YEE_STREAM_VARIANT(0, false, false, false, false, false)   // vacuum
         YEE_STREAM_VARIANT(1, true, false, false, false, false)    // lossy
         YEE_STREAM_VARIANT(5, true, false, true, false, false)     // lossy + SAR
         YEE_STREAM_VARIANT(3, true, true, false, false, false)     // lossy + het
         YEE_STREAM_VARIANT(7, true, true, true, false, false)      // lossy + het + SAR
-        YEE_STREAM_VARIANT(8, false, false, false, true, false)    // CPML
-        YEE_STREAM_VARIANT(9, true, false, false, true, false)     // lossy CPML
-        YEE_STREAM_VARIANT(16, false, false, false, false, true)   // Debye
-        YEE_STREAM_VARIANT(20, false, false, true, false, true)    // Debye + SAR
-        default: return (int)cudaErrorInvalidValue;
+        default: break;
     }
+    if constexpr (!BOX) {
+        switch (code) {
+            YEE_STREAM_VARIANT(8, false, false, false, true, false)    // CPML
+            YEE_STREAM_VARIANT(9, true, false, false, true, false)     // lossy CPML
+            YEE_STREAM_VARIANT(16, false, false, false, false, true)   // Debye
+            YEE_STREAM_VARIANT(20, false, false, true, false, true)    // Debye + SAR
+            default: break;
+        }
+    }
+    return (int)cudaErrorInvalidValue;
 #undef YEE_STREAM_VARIANT
 }
 
 template <typename T>
-int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, bool boxed, const Box& g,
+          float fh, float fe,
           int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
           void* const* coefs, void* const* hf, const void* sigma, void* acc, float dt, void* const* psi_in,
           void* const* psi_out, const void* tab_h, const void* tab_e, int n, void* const* pol_in,
@@ -885,18 +937,47 @@ int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int
         psw.n = n;
     }
     const float fe_ = (lossy || ade) ? 0.f : fe;
+    if (boxed)
+        return dispatch_variant<T, false, true>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
+                                                i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
     if (dft.re != nullptr)
-        return dispatch_variant<T, true>(code, s, bj, in, out, K, J, I, fh, fe_, tk, has_patch, j0, j1, i0, i1,
-                                         ez_rows, hx_rows, mat, psw, ad, dft, stream);
-    return dispatch_variant<T, false>(code, s, bj, in, out, K, J, I, fh, fe_, tk, has_patch, j0, j1, i0, i1,
-                                      ez_rows, hx_rows, mat, psw, ad, dft, stream);
+        return dispatch_variant<T, true, false>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
+                                                i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
+    return dispatch_variant<T, false, false>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0, i1,
+                                             ez_rows, hx_rows, mat, psw, ad, dft, stream);
+}
+
+// geom: null (the whole grid) or 12 ints: the arrays' extents (nk, nj,
+// ni), the global index of their origin (ok, oj, oi) and the window to
+// emit (wk0, wk1, wj0, wj1, wi0, wi1), global; the cell box is the
+// window's cells.  The arrays must hold s planes before the window and s
+// after it (s + 1 with the cell means of SAR and DFT), as far as the grid
+// reaches.
+bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
+    if (geom == nullptr) {
+        *g = Box{J + 1, I + 1, 0, 0, 0, 0, K + 1, 0, J + 1, 0, I + 1, 0, 0, 0, K, J, I};
+        return true;
+    }
+    const int n[3] = {K + 1, J + 1, I + 1};
+    for (int a = 0; a < 3; ++a) {
+        const int ext = geom[a], org = geom[3 + a], lo = geom[6 + 2 * a], hi = geom[7 + 2 * a];
+        if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi) return false;
+        if (org > std::max(lo - s, 0) || org + ext < std::min(hi + s + (means ? 1 : 0), n[a])) return false;
+    }
+    *g = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[7], geom[8], geom[9], geom[10], geom[11],
+             geom[6], geom[8], geom[10], std::min(geom[7], K) - geom[6], std::min(geom[9], J) - geom[8],
+             std::min(geom[11], I) - geom[10]};
+    return true;
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes: one entry point for every variant.
 // dtype: 0 = float32, 1 = bfloat16.  in, out: six pointers each (ex, ey,
-// ez, hx, hy, hz); out must not alias in.  fh, fe: the vacuum H and E
+// ez, hx, hy, hz); out must not alias in.  K, J, I: the grid (maxk, maxj,
+// maxi); geom: null for arrays of the whole grid, or a shard's 12 ints
+// (see box_of), which the vacuum and material variants take (acc and
+// sigma then cover the window's cells).  fh, fe: the vacuum H and E
 // factors (fh is the H factor unless hf is given; fe is unused by the
 // lossy and Debye variants).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
 // in the storage dtype (unused without the patch).  The arrays a variant
@@ -922,7 +1003,7 @@ int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 extern "C" {
 
-int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, const int* geom, float fh, float fe,
                      int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
                      const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
                      const void* sigma, void* acc, float dt, void* const* psi_in, void* const* psi_out,
@@ -936,16 +1017,20 @@ int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, flo
         || (re != nullptr && (im == nullptr || w == nullptr || nf < 1 || nc < 3)))
         return (int)cudaErrorInvalidValue;
     const int code = (lossy ? 1 : 0) | (het ? 2 : 0) | (sar ? 4 : 0) | (pml ? 8 : 0) | (ade ? 16 : 0);
+    Box g;
+    if ((geom != nullptr && (pml || ade || re != nullptr)) || !box_of(geom, K, J, I, s, sar || re != nullptr, &g))
+        return (int)cudaErrorInvalidValue;
     const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc};
+    const bool boxed = geom != nullptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return sweep<float>(code, s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
+        return sweep<float>(code, s, bj, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
                             hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in, pol_out,
                             dft, st);
     if (dtype == 1)
-        return sweep<__nv_bfloat16>(code, s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
-                                    hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in,
-                                    pol_out, dft, st);
+        return sweep<__nv_bfloat16>(code, s, bj, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0, i1,
+                                    ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n,
+                                    pol_in, pol_out, dft, st);
     return (int)cudaErrorInvalidValue;
 }
 

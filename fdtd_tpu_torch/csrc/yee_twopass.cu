@@ -27,6 +27,15 @@
 // so a warp's access straddles an extra sector per row; padding i to a
 // multiple of 4 or 8 is left to a later change.
 //
+// Shards (fdtd_tpu_torch/parallel): a launch may update a part of the grid
+// held in arrays of its own (a shard's box, halos included; see Box below):
+// the arrays' extents set the strides, and every bound, PEC wall and the
+// source patch test global indices, so a shard's owned cells get the
+// operations of the whole-grid launch on the same values.  This replaces
+// the leading (global-k, global-j) offset operand and `jwin` of the TPU's
+// per-shard calls (fdtd_tpu/ops/pallas_fused.py::build_twopass_calls).  The
+// whole grid is the box with no offset that owns everything.
+//
 // Numerics: fp32 storage computes in fp32; bf16 storage loads to fp32,
 // computes in fp32 and rounds back with __float2bfloat16_rn.  Every operation
 // is an explicitly rounded __fsub_rn/__fmul_rn/__fadd_rn in the order of
@@ -67,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -158,24 +169,58 @@ __device__ __forceinline__ float psi_add(const Psi<T>& ps, int t, int axis, int 
 constexpr int BX = 64;  // threads along i
 constexpr int BY = 4;   // threads along j
 
+// The part of the grid a launch updates: the arrays hold (nk, nj, ni)
+// elements whose local (0, 0, 0) is the global cell (ok, oj, oi), and the
+// launch updates the global window [wk0, wk0 + gridDim.z) x [wj0, wj1) x
+// [wi0, wi1) (a shard's owned planes; the whole grid: every cell, from 0).
+struct Box {
+    int nj, ni;      // local extents along j and i (the strides)
+    int ok, oj, oi;  // global index of the local origin
+    int wk0, wj0, wi0, wj1, wi1;
+};
+
+// the global cell of this thread and its local offset; false outside the
+// window.  BOX: a shard's launch, its geometry the runtime box g; without it
+// the whole grid's, compiled as it was before shards existed (a runtime box
+// in every variant cost the CPML H pass 9-14% at 256^3), so only the shard
+// variants carry it.
+template <bool BOX>
+__device__ __forceinline__ bool locate(const Box& g, int J, int I, int& k, int& j, int& i, int64_t& c,
+                                       int64_t& sj, int64_t& sk) {
+    if constexpr (BOX) {
+        i = g.wi0 + (int)(blockIdx.x * BX + threadIdx.x);
+        j = g.wj0 + (int)(blockIdx.y * BY + threadIdx.y);
+        k = g.wk0 + (int)blockIdx.z;
+        sj = g.ni;
+        sk = sj * g.nj;
+        c = (int64_t)(k - g.ok) * sk + (int64_t)(j - g.oj) * sj + (i - g.oi);
+        return i < g.wi1 && j < g.wj1;
+    } else {
+        i = blockIdx.x * BX + threadIdx.x;
+        j = blockIdx.y * BY + threadIdx.y;
+        k = blockIdx.z;
+        if (i > I || j > J) return false;
+        sj = (int64_t)I + 1;
+        sk = sj * ((int64_t)J + 1);
+        c = (int64_t)k * sk + (int64_t)j * sj + i;
+        return true;
+    }
+}
+
 // H half-step over Hx k<K, j<J, i<=I; Hy k<K, j<=J, i<I; Hz k<=K, j<J, i<I.
 // With has_patch, Hx and Hz at k=0, j0<=j<j1, i0<=i<i1 keep their values
 // (the source hard-set there wins, reference main.c:770-778).  HET reads
 // the factor of each component from hf.a[0..2] at the cell instead of f.
 // PML advances the six H psi terms of the cell (ps) and adds them.
-template <typename T, bool HET, bool PML>
+template <typename T, bool HET, bool PML, bool BOX>
 __global__ void __launch_bounds__(BX * BY)
 h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez,
          T* __restrict__ hx, T* __restrict__ hy, T* __restrict__ hz,
          int K, int J, int I, float f,
-         int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf, Psi<T> ps) {
-    const int i = blockIdx.x * BX + threadIdx.x;
-    const int j = blockIdx.y * BY + threadIdx.y;
-    const int k = blockIdx.z;
-    if (i > I || j > J) return;
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const int64_t c = (int64_t)k * sk + (int64_t)j * sj + i;
+         int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf, Psi<T> ps, Box g) {
+    int k, j, i;
+    int64_t c, sj, sk;
+    if (!locate<BOX>(g, J, I, k, j, i, c, sj, sk)) return;
     const bool in_patch = has_patch && k == 0 && j >= j0 && j < j1 && i >= i0 && i < i1;
 
     if (!PML) {
@@ -228,18 +273,14 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
 // 1<=i<I; Ez k<K, 1<=j<J, 1<=i<I.  Tangential E on the walls stays (PEC).
 // LOSSY computes ca*E + cb*curl with ca = cf.a[c], cb = cf.b[c] at the cell.
 // PML advances the six E psi terms of the cell and adds cb*psi (f*psi).
-template <typename T, bool LOSSY, bool PML>
+template <typename T, bool LOSSY, bool PML, bool BOX>
 __global__ void __launch_bounds__(BX * BY)
 e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
          T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
-         int K, int J, int I, float f, Coefs<T> cf, Psi<T> ps) {
-    const int i = blockIdx.x * BX + threadIdx.x;
-    const int j = blockIdx.y * BY + threadIdx.y;
-    const int k = blockIdx.z;
-    if (i > I || j > J) return;
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const int64_t c = (int64_t)k * sk + (int64_t)j * sj + i;
+         int K, int J, int I, float f, Coefs<T> cf, Psi<T> ps, Box g) {
+    int k, j, i;
+    int64_t c, sj, sk;
+    if (!locate<BOX>(g, J, I, k, j, i, c, sj, sk)) return;
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I) {
         const float a1 = ld(hz, c), a0 = ld(hz, c - sj), b1 = ld(hy, c), b0 = ld(hy, c - sk);
@@ -317,13 +358,9 @@ __global__ void __launch_bounds__(BX * BY)
 ade_e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
              T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
              T* __restrict__ px, T* __restrict__ py, T* __restrict__ pz, int K, int J, int I, Ade<T> a) {
-    const int i = blockIdx.x * BX + threadIdx.x;
-    const int j = blockIdx.y * BY + threadIdx.y;
-    const int k = blockIdx.z;
-    if (i > I || j > J) return;
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const int64_t c = (int64_t)k * sk + (int64_t)j * sj + i;
+    int k, j, i;
+    int64_t c, sj, sk;
+    if (!locate<false>(Box{}, J, I, k, j, i, c, sj, sk)) return;
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I)
         ade_edge<T, SAR>(ex, px, a, 0, c, curl(ld(hz, c), ld(hz, c - sj), ld(hy, c), ld(hy, c - sk)));
@@ -339,8 +376,38 @@ ade_e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __rest
         a.w[2][c] = 0.f;
 }
 
-dim3 grid_for(int K, int J, int I) {
-    return dim3((unsigned)((I + 1 + BX - 1) / BX), (unsigned)((J + 1 + BY - 1) / BY), (unsigned)(K + 1));
+// geom: null (the whole grid) or 12 ints: the arrays' extents (nk, nj, ni),
+// the global index of their origin (ok, oj, oi) and the window to update
+// (wk0, wk1, wj0, wj1, wi0, wi1), global
+struct Launch {
+    Box box;
+    dim3 grid;
+};
+
+Launch launch_of(const int* geom, int K, int J, int I) {
+    Launch l{};
+    if (geom == nullptr) {
+        l.box = Box{J + 1, I + 1, 0, 0, 0, 0, 0, 0, J + 1, I + 1};
+        l.grid = dim3((unsigned)((I + 1 + BX - 1) / BX), (unsigned)((J + 1 + BY - 1) / BY), (unsigned)(K + 1));
+        return l;
+    }
+    l.box = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[8], geom[10], geom[9], geom[11]};
+    l.grid = dim3((unsigned)((geom[11] - geom[10] + BX - 1) / BX), (unsigned)((geom[9] - geom[8] + BY - 1) / BY),
+                  (unsigned)(geom[7] - geom[6]));
+    return l;
+}
+
+// a window inside the arrays and the grid, with a neighbour plane on each
+// side that is not a wall of the grid (the halos the passes read)
+bool valid_geom(const int* geom, int K, int J, int I) {
+    if (geom == nullptr) return true;
+    const int n[3] = {K + 1, J + 1, I + 1};
+    for (int a = 0; a < 3; ++a) {
+        const int ext = geom[a], org = geom[3 + a], lo = geom[6 + 2 * a], hi = geom[7 + 2 * a];
+        if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi) return false;
+        if (org > std::max(lo - 1, 0) || org + ext < std::min(hi + 1, n[a])) return false;
+    }
+    return true;
 }
 
 template <typename T>
@@ -354,42 +421,65 @@ Psi<T> psi_args(void* const* psi, const void* tab, int n) {
 }
 
 template <typename T, bool HET, bool PML>
-int launch_h(void* const* e, void* const* h, int K, int J, int I, float f, int has_patch,
+int launch_h(void* const* e, void* const* h, int K, int J, int I, const int* geom, float f, int has_patch,
              int j0, int j1, int i0, int i1, void* const* hf, void* const* psi, const void* tab, int n,
              cudaStream_t s) {
+    if ((PML && geom != nullptr) || !valid_geom(geom, K, J, I)) return (int)cudaErrorInvalidValue;
     Coefs<T> c{};
     if (HET)
         for (int q = 0; q < 3; ++q) c.a[q] = (const T*)hf[q];
-    h_kernel<T, HET, PML><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+    const Launch l = launch_of(geom, K, J, I);
+    const Psi<T> ps = psi_args<T>(psi, tab, n);
+    if constexpr (!PML) {
+        if (geom != nullptr) {
+            h_kernel<T, HET, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+                (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
+                K, J, I, f, has_patch, j0, j1, i0, i1, c, ps, l.box);
+            return (int)cudaGetLastError();
+        }
+    }
+    h_kernel<T, HET, PML, false><<<l.grid, dim3(BX, BY), 0, s>>>(
         (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
-        K, J, I, f, has_patch, j0, j1, i0, i1, c, psi_args<T>(psi, tab, n));
+        K, J, I, f, has_patch, j0, j1, i0, i1, c, ps, l.box);
     return (int)cudaGetLastError();
 }
 
 template <typename T, bool LOSSY, bool PML>
-int launch_e(void* const* h, void* const* e, int K, int J, int I, float f,
+int launch_e(void* const* h, void* const* e, int K, int J, int I, const int* geom, float f,
              void* const* cf, void* const* psi, const void* tab, int n, cudaStream_t s) {
+    if ((PML && geom != nullptr) || !valid_geom(geom, K, J, I)) return (int)cudaErrorInvalidValue;
     Coefs<T> c{};
     if (LOSSY)
         for (int q = 0; q < 3; ++q) {
             c.a[q] = (const T*)cf[q];
             c.b[q] = (const T*)cf[3 + q];
         }
-    e_kernel<T, LOSSY, PML><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+    const Launch l = launch_of(geom, K, J, I);
+    const Psi<T> ps = psi_args<T>(psi, tab, n);
+    if constexpr (!PML) {
+        if (geom != nullptr) {
+            e_kernel<T, LOSSY, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+                (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
+                K, J, I, f, c, ps, l.box);
+            return (int)cudaGetLastError();
+        }
+    }
+    e_kernel<T, LOSSY, PML, false><<<l.grid, dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
-        K, J, I, f, c, psi_args<T>(psi, tab, n));
+        K, J, I, f, c, ps, l.box);
     return (int)cudaGetLastError();
 }
 
 template <typename T, bool SAR>
 int launch_ade(void* const* h, void* const* e, void* const* pol, void* const* coefs, void* const* work,
-               int K, int J, int I, float dt, cudaStream_t s) {
+               int K, int J, int I, const int* geom, float dt, cudaStream_t s) {
+    if (geom != nullptr) return (int)cudaErrorInvalidValue;
     Ade<T> a{};
     for (int q = 0; q < (SAR ? 18 : 15); ++q) a.c[q] = (const T*)coefs[q];
     if (SAR)
         for (int q = 0; q < 3; ++q) a.w[q] = (float*)work[q];
     a.dt = dt;
-    ade_e_kernel<T, SAR><<<grid_for(K, J, I), dim3(BX, BY), 0, s>>>(
+    ade_e_kernel<T, SAR><<<launch_of(nullptr, K, J, I).grid, dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
         (T*)pol[0], (T*)pol[1], (T*)pol[2], K, J, I, a);
     return (int)cudaGetLastError();
@@ -398,57 +488,61 @@ int launch_ade(void* const* h, void* const* e, void* const* pol, void* const* co
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Each entry point launches on `stream` and returns cudaGetLastError().
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a geometry it does not take).
 // e, h: three pointers each (x, y, z); coefficient arrays have the fields'
-// shape and dtype.
+// shape and dtype.  K, J, I: the grid (maxk, maxj, maxi); geom: null for
+// arrays of the whole grid, or a shard's 12 ints (see launch_of: the
+// arrays' extents, the global index of their origin, the window to
+// update, which the arrays must hold with the neighbour planes it reads).
 extern "C" {
 
 int yee_update_h(void* ex, void* ey, void* ez, void* hx, void* hy, void* hz,
-                 int K, int J, int I, float f,
+                 int K, int J, int I, const int* geom, float f,
                  int has_patch, int j0, int j1, int i0, int i1,
                  int dtype, void* stream) {
     void* const e[3] = {ex, ey, ez};
     void* const h[3] = {hx, hy, hz};
     cudaStream_t s = (cudaStream_t)stream;
     if (dtype == 0)
-        return launch_h<float, false, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, nullptr,
+        return launch_h<float, false, false>(e, h, K, J, I, geom, f, has_patch, j0, j1, i0, i1, nullptr, nullptr,
                                              nullptr, 0, s);
     if (dtype == 1)
-        return launch_h<__nv_bfloat16, false, false>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr,
+        return launch_h<__nv_bfloat16, false, false>(e, h, K, J, I, geom, f, has_patch, j0, j1, i0, i1, nullptr,
                                                      nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // hf: hf_x, hf_y, hf_z
 int yee_update_h_het(void* const* e, void* const* h, void* const* hf, int K, int J, int I,
-                     int has_patch, int j0, int j1, int i0, int i1, int dtype, void* stream) {
+                     const int* geom, int has_patch, int j0, int j1, int i0, int i1, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (dtype == 0)
-        return launch_h<float, true, false>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, nullptr,
+        return launch_h<float, true, false>(e, h, K, J, I, geom, 0.f, has_patch, j0, j1, i0, i1, hf, nullptr,
                                             nullptr, 0, s);
     if (dtype == 1)
-        return launch_h<__nv_bfloat16, true, false>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf,
+        return launch_h<__nv_bfloat16, true, false>(e, h, K, J, I, geom, 0.f, has_patch, j0, j1, i0, i1, hf,
                                                      nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
 int yee_update_e(void* hx, void* hy, void* hz, void* ex, void* ey, void* ez,
-                 int K, int J, int I, float f, int dtype, void* stream) {
+                 int K, int J, int I, const int* geom, float f, int dtype, void* stream) {
     void* const h[3] = {hx, hy, hz};
     void* const e[3] = {ex, ey, ez};
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_e<float, false, false>(h, e, K, J, I, f, nullptr, nullptr, nullptr, 0, s);
+    if (dtype == 0) return launch_e<float, false, false>(h, e, K, J, I, geom, f, nullptr, nullptr, nullptr, 0, s);
     if (dtype == 1)
-        return launch_e<__nv_bfloat16, false, false>(h, e, K, J, I, f, nullptr, nullptr, nullptr, 0, s);
+        return launch_e<__nv_bfloat16, false, false>(h, e, K, J, I, geom, f, nullptr, nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // cf: ca_x, ca_y, ca_z, cb_x, cb_y, cb_z
 int yee_update_e_lossy(void* const* h, void* const* e, void* const* cf, int K, int J, int I,
-                       int dtype, void* stream) {
+                       const int* geom, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_e<float, true, false>(h, e, K, J, I, 0.f, cf, nullptr, nullptr, 0, s);
-    if (dtype == 1) return launch_e<__nv_bfloat16, true, false>(h, e, K, J, I, 0.f, cf, nullptr, nullptr, 0, s);
+    if (dtype == 0) return launch_e<float, true, false>(h, e, K, J, I, geom, 0.f, cf, nullptr, nullptr, 0, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, true, false>(h, e, K, J, I, geom, 0.f, cf, nullptr, nullptr, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -456,48 +550,49 @@ int yee_update_e_lossy(void* const* h, void* const* e, void* const* cf, int K, i
 // Psi); tab: the (6, 2, 2n) (b, c) table; n: the slab depth.  hf and cf as
 // above; f is the H factor (vacuum H), the E factor cb (vacuum E).
 int yee_update_h_pml(void* const* e, void* const* h, void* const* psi, const void* tab, int n,
-                     int K, int J, int I, float f, int has_patch, int j0, int j1, int i0, int i1,
-                     int dtype, void* stream) {
+                     int K, int J, int I, const int* geom, float f, int has_patch, int j0, int j1, int i0,
+                     int i1, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return launch_h<float, false, true>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr, psi, tab,
+        return launch_h<float, false, true>(e, h, K, J, I, geom, f, has_patch, j0, j1, i0, i1, nullptr, psi, tab,
                                             n, s);
     if (dtype == 1)
-        return launch_h<__nv_bfloat16, false, true>(e, h, K, J, I, f, has_patch, j0, j1, i0, i1, nullptr,
+        return launch_h<__nv_bfloat16, false, true>(e, h, K, J, I, geom, f, has_patch, j0, j1, i0, i1, nullptr,
                                                     psi, tab, n, s);
     return (int)cudaErrorInvalidValue;
 }
 
 int yee_update_h_het_pml(void* const* e, void* const* h, void* const* hf, void* const* psi,
-                         const void* tab, int n, int K, int J, int I, int has_patch, int j0, int j1,
-                         int i0, int i1, int dtype, void* stream) {
+                         const void* tab, int n, int K, int J, int I, const int* geom, int has_patch, int j0,
+                         int j1, int i0, int i1, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return launch_h<float, true, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, psi, tab, n,
+        return launch_h<float, true, true>(e, h, K, J, I, geom, 0.f, has_patch, j0, j1, i0, i1, hf, psi, tab, n,
                                            s);
     if (dtype == 1)
-        return launch_h<__nv_bfloat16, true, true>(e, h, K, J, I, 0.f, has_patch, j0, j1, i0, i1, hf, psi,
+        return launch_h<__nv_bfloat16, true, true>(e, h, K, J, I, geom, 0.f, has_patch, j0, j1, i0, i1, hf, psi,
                                                    tab, n, s);
     return (int)cudaErrorInvalidValue;
 }
 
 int yee_update_e_pml(void* const* h, void* const* e, void* const* psi, const void* tab, int n,
-                     int K, int J, int I, float f, int dtype, void* stream) {
+                     int K, int J, int I, const int* geom, float f, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return launch_e<float, false, true>(h, e, K, J, I, f, nullptr, psi, tab, n, s);
-    if (dtype == 1) return launch_e<__nv_bfloat16, false, true>(h, e, K, J, I, f, nullptr, psi, tab, n, s);
+    if (dtype == 0) return launch_e<float, false, true>(h, e, K, J, I, geom, f, nullptr, psi, tab, n, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, false, true>(h, e, K, J, I, geom, f, nullptr, psi, tab, n, s);
     return (int)cudaErrorInvalidValue;
 }
 
 int yee_update_e_lossy_pml(void* const* h, void* const* e, void* const* cf, void* const* psi,
-                           const void* tab, int n, int K, int J, int I, int dtype, void* stream) {
+                           const void* tab, int n, int K, int J, int I, const int* geom, int dtype,
+                           void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (n < 1 || psi == nullptr || tab == nullptr) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return launch_e<float, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
-    if (dtype == 1) return launch_e<__nv_bfloat16, true, true>(h, e, K, J, I, 0.f, cf, psi, tab, n, s);
+    if (dtype == 0) return launch_e<float, true, true>(h, e, K, J, I, geom, 0.f, cf, psi, tab, n, s);
+    if (dtype == 1) return launch_e<__nv_bfloat16, true, true>(h, e, K, J, I, geom, 0.f, cf, psi, tab, n, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -506,16 +601,16 @@ int yee_update_e_lossy_pml(void* const* h, void* const* e, void* const* cf, void
 // 18 (+ sig_x, sig_y, sig_z); work: null, or three fp32 arrays of the
 // fields' shape that receive the edge work; dt: the step rounded to fp32.
 int yee_update_e_ade(void* const* h, void* const* e, void* const* pol, void* const* coefs, void* const* work,
-                     int K, int J, int I, float dt, int dtype, void* stream) {
+                     int K, int J, int I, const int* geom, float dt, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (pol == nullptr || coefs == nullptr) return (int)cudaErrorInvalidValue;
     const bool sar = work != nullptr;
     if (dtype == 0)
-        return sar ? launch_ade<float, true>(h, e, pol, coefs, work, K, J, I, dt, s)
-                   : launch_ade<float, false>(h, e, pol, coefs, work, K, J, I, dt, s);
+        return sar ? launch_ade<float, true>(h, e, pol, coefs, work, K, J, I, geom, dt, s)
+                   : launch_ade<float, false>(h, e, pol, coefs, work, K, J, I, geom, dt, s);
     if (dtype == 1)
-        return sar ? launch_ade<__nv_bfloat16, true>(h, e, pol, coefs, work, K, J, I, dt, s)
-                   : launch_ade<__nv_bfloat16, false>(h, e, pol, coefs, work, K, J, I, dt, s);
+        return sar ? launch_ade<__nv_bfloat16, true>(h, e, pol, coefs, work, K, J, I, geom, dt, s)
+                   : launch_ade<__nv_bfloat16, false>(h, e, pol, coefs, work, K, J, I, geom, dt, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .constants import EPSILON, MU
+from .grid import Box, full_box
 from .ops.dispersive import work_cell_means
 from .params import Params
 from .state import FieldState
@@ -182,12 +183,18 @@ def e_center_sq(p: Params, s: FieldState, k_range: tuple[int, int] | None = None
 
 
 def power_deposition(p: Params, s: FieldState, sigma_cells: torch.Tensor,
-                     k_range: tuple[int, int] | None = None) -> torch.Tensor:
+                     k_range: tuple[int, int] | None = None, box: Box | None = None) -> torch.Tensor:
     """Instantaneous dissipated power density sigma*|E|^2 (W/m^3) per cell,
     (maxk, maxj, maxi) (or the planes ``k_range``), in the reduction type
-    of the fields."""
-    k_lo, k_hi = k_range or (0, p.maxk)
-    esq = e_center_sq(p, s, k_range)
+    of the fields.  With ``box`` (a shard's arrays, :class:`~fdtd_tpu_torch.
+    grid.Box`) the cells it owns, ``sigma_cells`` its part of the map and
+    ``k_range`` planes of that part; E's +1 neighbours come from its
+    halos."""
+    box = box or full_box(p)
+    ck, cj, ci = box.local(*box.cells(p))
+    k_lo, k_hi = k_range or (0, ck.stop - ck.start)
+    mean_ex, mean_ey, mean_ez = _e_cell_means(p, s, slice(ck.start + k_lo, ck.start + k_hi), cj, ci)
+    esq = mean_ex * mean_ex + mean_ey * mean_ey + mean_ez * mean_ez
     return sigma_cells[k_lo:k_hi].to(esq.dtype) * esq
 
 
@@ -206,20 +213,22 @@ def sar_slab_planes(p: Params) -> int:
 
 
 def accumulate_power(p: Params, s: FieldState, sigma_cells: torch.Tensor | None,
-                     acc: torch.Tensor) -> None:
+                     acc: torch.Tensor, box: Box | None = None) -> None:
     """One step's deposition, ``acc += (sigma*|E|^2 * dt)`` rounded to fp32,
     in place (the per-step increment of ``fdtd_tpu/step.py``), a slab of k
     planes at a time (every cell's value is the same; the slabs bound the
     device memory of the temporaries).  Vacuum (``sigma_cells`` None)
-    deposits nothing."""
+    deposits nothing.  With ``box``, a shard's cells (``sigma_cells`` and
+    ``acc`` its parts of the maps; :func:`power_deposition`)."""
     if sigma_cells is None:
         return
     dt = float(np.float32(p.time_step)) if _acc_dtype(s.ex) == torch.float32 else p.time_step
     kb = sar_slab_planes(p)
+    nk = sigma_cells.shape[0]
     with torch.profiler.record_function(SAR_LABEL):
-        for k_lo in range(0, p.maxk, kb):
-            k_hi = min(p.maxk, k_lo + kb)
-            inc = power_deposition(p, s, sigma_cells, (k_lo, k_hi))
+        for k_lo in range(0, nk, kb):
+            k_hi = min(nk, k_lo + kb)
+            inc = power_deposition(p, s, sigma_cells, (k_lo, k_hi), box)
             acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))
 
 

@@ -42,6 +42,66 @@ class Extents:
     hz: tuple[int, int, int]
 
 
+@dataclasses.dataclass(frozen=True)
+class Box:
+    """A part of the padded (K+1, J+1, I+1) grid held in arrays of its own
+    (a shard of :mod:`fdtd_tpu_torch.parallel`): the arrays hold the global
+    (k, j, i) planes ``lo`` (inclusive) to ``hi`` (exclusive) per axis, of
+    which the part owns (updates and emits) ``own_lo`` to ``own_hi``; the
+    rest are halo planes, copies of a neighbour's.  The whole grid is
+    :func:`full_box`: one part that owns everything."""
+
+    lo: tuple[int, int, int]
+    hi: tuple[int, int, int]
+    own_lo: tuple[int, int, int]
+    own_hi: tuple[int, int, int]
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        """The local arrays' extents."""
+        return tuple(h - lo for lo, h in zip(self.lo, self.hi))
+
+    def local(self, lo: tuple[int, ...], hi: tuple[int, ...]) -> tuple[slice, slice, slice]:
+        """The local slices of the global range [lo, hi) (per axis)."""
+        return tuple(slice(a - o, b - o) for a, b, o in zip(lo, hi, self.lo))
+
+    @property
+    def owned(self) -> tuple[slice, slice, slice]:
+        """The local slices of the owned planes."""
+        return self.local(self.own_lo, self.own_hi)
+
+    def cells(self, p: Params) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+        """The global (lo, hi) of the cells this part owns (the cells of its
+        owned planes below (maxk, maxj, maxi)): its part of the SAR map."""
+        top = (p.maxk, p.maxj, p.maxi)
+        return self.own_lo, tuple(min(h, t) for h, t in zip(self.own_hi, top))
+
+    def cell_shape(self, p: Params) -> tuple[int, int, int]:
+        lo, hi = self.cells(p)
+        return tuple(b - a for a, b in zip(lo, hi))
+
+    def patch(self, patch: tuple[int, int, int, int]) -> tuple[tuple[slice, slice], slice] | None:
+        """The source patch (j0, j1, i0, i1) of the k=0 plane within the
+        local arrays: ((j slice, i slice), the i range of the patch's own
+        row as a slice of it), or None where the arrays miss it."""
+        j0, j1, i0, i1 = patch
+        ja, jb = max(j0, self.lo[1]), min(j1, self.hi[1])
+        ia, ib = max(i0, self.lo[2]), min(i1, self.hi[2])
+        if self.lo[0] > 0 or ja >= jb or ia >= ib:
+            return None
+        return ((slice(ja - self.lo[1], jb - self.lo[1]), slice(ia - self.lo[2], ib - self.lo[2])),
+                slice(ia - i0, ib - i0))
+
+    def is_full(self, p: Params) -> bool:
+        return self == full_box(p)
+
+
+def full_box(p: Params) -> Box:
+    """The whole padded grid as one part."""
+    hi = p.padded_shape
+    return Box((0, 0, 0), hi, (0, 0, 0), hi)
+
+
 def extents(p: Params) -> Extents:
     I, J, K = p.maxi, p.maxj, p.maxk
     return Extents(

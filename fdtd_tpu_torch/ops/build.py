@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -90,3 +92,10 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, the one a kernel on
+    that device's tensors launches on (under ``torch.cuda.device(device)``),
+    whatever the current device is."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -7,6 +7,15 @@ order of :mod:`fdtd_tpu.ops.curl` (reference: main.c:431-462 update_H,
 main.c:469-500 update_E): the E bounds start at 1 and stop before max, which
 leaves tangential E on all six walls untouched, the implicit PEC boundary.
 
+A shard of a spatially sharded run (:mod:`fdtd_tpu_torch.parallel`) holds a
+:class:`~fdtd_tpu_torch.grid.Box` of the grid in arrays of its own: with
+``box`` the updates work on those arrays, with every bound and the source
+patch at global indices, over the cells of ``region`` (global (lo, hi),
+default the box's owned planes) whose neighbours the arrays hold.  A cell
+gets the same operations on the same values as in the whole grid, so the
+owned cells of a shard whose halos hold its neighbours' values are bit for
+bit those of the unsharded update.
+
 Arithmetic type: fp64 fields compute in fp64 and fp32 in fp32; bf16 fields
 are read as fp32, computed in fp32 and rounded back to bf16 once per update,
 as the TPU kernels do.  Both functions update the state in place.
@@ -17,8 +26,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..grid import Box, full_box
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
+
+Region = tuple[tuple[int, int, int], tuple[int, int, int]]
 
 
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -31,8 +43,28 @@ def scalar(value: float, dtype: torch.dtype) -> float:
     return float(np.float32(value)) if compute_dtype(dtype) == torch.float32 else float(value)
 
 
+def _target(box: Box, region: Region, bounds, reads: tuple[int, ...], ahead: bool):
+    """The local slices of a component's update: its global ``bounds`` per
+    axis within ``region``, less the cells whose neighbour along a ``reads``
+    axis (+1 when ``ahead``, else -1) lies outside the arrays; None when
+    empty."""
+    out = []
+    for a, (g0, g1) in enumerate(bounds):
+        lo = max(g0, region[0][a], box.lo[a] + (1 if a in reads and not ahead else 0))
+        hi = min(g1, region[1][a], box.hi[a] - (1 if a in reads and ahead else 0))
+        if hi <= lo:
+            return None
+        out.append(slice(lo - box.lo[a], hi - box.lo[a]))
+    return tuple(out)
+
+
+def _shift(t: tuple[slice, ...], axis: int, d: int) -> tuple[slice, ...]:
+    return tuple(slice(s.start + d, s.stop + d) if a == axis else s for a, s in enumerate(t))
+
+
 def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
-             patch: tuple[int, int, int, int] | None = None) -> None:
+             patch: tuple[int, int, int, int] | None = None,
+             box: Box | None = None, region: Region | None = None) -> None:
     """Half-step H <- H + dt/(mu*dx) * curl E, in place (main.c:431-462);
     with a ``mu_r`` map the factor is ``coefs.hf_x/y/z`` per component.
 
@@ -43,42 +75,43 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
     rectangle as they were: the reference's second source hard-set
     (main.c:770-778) overwrites whatever update_H put there, so a step that
     sets the source once and skips those cells gives the same fields.
+    ``box`` and ``region``: a shard's arrays and the cells to update (see
+    the module docstring).
     """
     K, J, I = p.maxk, p.maxj, p.maxi
+    box = box or full_box(p)
+    region = region or (box.own_lo, box.own_hi)
     cd = compute_dtype(s.hx.dtype)
     f = scalar(coefs.h_factor, s.hx.dtype)
     ex, ey, ez = s.ex.to(cd), s.ey.to(cd), s.ez.to(cd)
 
     keep = None
-    if patch is not None:
-        j0, j1, i0, i1 = patch
-        psl = (0, slice(j0, j1), slice(i0, i1))
+    local_patch = box.patch(patch) if patch is not None else None
+    if local_patch is not None:
+        psl = (0,) + local_patch[0]
         keep = (s.hx[psl].clone(), s.hz[psl].clone())
 
-    shx = (slice(0, K), slice(0, J), slice(0, I + 1))
-    shy = (slice(0, K), slice(0, J + 1), slice(0, I))
-    shz = (slice(0, K + 1), slice(0, J), slice(0, I))
-    # heterogeneous mu_r: per-component face factors; the scalar otherwise
-    fx, fy, fz = ((coefs.hf_x[shx].to(cd), coefs.hf_y[shy].to(cd), coefs.hf_z[shz].to(cd))
-                  if coefs.heterogeneous_mu else (f, f, f))
-    s.hx[shx] = s.hx[shx].to(cd) + fx * (
-        (ey[1 : K + 1, :J, : I + 1] - ey[:K, :J, : I + 1])
-        - (ez[:K, 1 : J + 1, : I + 1] - ez[:K, :J, : I + 1])
-    )
-    s.hy[shy] = s.hy[shy].to(cd) + fy * (
-        (ez[:K, : J + 1, 1 : I + 1] - ez[:K, : J + 1, :I])
-        - (ex[1 : K + 1, : J + 1, :I] - ex[:K, : J + 1, :I])
-    )
-    s.hz[shz] = s.hz[shz].to(cd) + fz * (
-        (ex[: K + 1, 1 : J + 1, :I] - ex[: K + 1, :J, :I])
-        - (ey[: K + 1, :J, 1 : I + 1] - ey[: K + 1, :J, :I])
-    )
+    het = coefs.heterogeneous_mu
+    # H reads E at +1 along two axes: Hx along k and j, Hy along i and k, Hz along j and i
+    tx = _target(box, region, ((0, K), (0, J), (0, I + 1)), (0, 1), True)
+    if tx is not None:
+        fx = coefs.hf_x[tx].to(cd) if het else f
+        s.hx[tx] = s.hx[tx].to(cd) + fx * ((ey[_shift(tx, 0, 1)] - ey[tx]) - (ez[_shift(tx, 1, 1)] - ez[tx]))
+    ty = _target(box, region, ((0, K), (0, J + 1), (0, I)), (2, 0), True)
+    if ty is not None:
+        fy = coefs.hf_y[ty].to(cd) if het else f
+        s.hy[ty] = s.hy[ty].to(cd) + fy * ((ez[_shift(ty, 2, 1)] - ez[ty]) - (ex[_shift(ty, 0, 1)] - ex[ty]))
+    tz = _target(box, region, ((0, K + 1), (0, J), (0, I)), (1, 2), True)
+    if tz is not None:
+        fz = coefs.hf_z[tz].to(cd) if het else f
+        s.hz[tz] = s.hz[tz].to(cd) + fz * ((ex[_shift(tz, 1, 1)] - ex[tz]) - (ey[_shift(tz, 2, 1)] - ey[tz]))
     if keep is not None:
         s.hx[psl] = keep[0]
         s.hz[psl] = keep[1]
 
 
-def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
+def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
+             box: Box | None = None, region: Region | None = None) -> None:
     """Half-step E <- ca*E + cb*curl H, in place (main.c:469-500).
 
     Interior-only bounds (the PEC boundary):
@@ -88,8 +121,11 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
     Vacuum (scalar coefficients, ca == 1) computes E + cb*curl, which
     equals the reference's ca*E + cb*curl; with materials, ca and cb are
     tensors sliced over the same region, ``ca*E + cb*curl`` in that order.
+    ``box`` and ``region`` as in :func:`update_h`.
     """
     K, J, I = p.maxk, p.maxj, p.maxi
+    box = box or full_box(p)
+    region = region or (box.own_lo, box.own_hi)
     cd = compute_dtype(s.ex.dtype)
     hx, hy, hz = s.hx.to(cd), s.hy.to(cd), s.hz.to(cd)
 
@@ -98,14 +134,16 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs) -> None:
             return ca[sl].to(cd) * e[sl].to(cd) + cb[sl].to(cd) * curl
         return e[sl].to(cd) + scalar(cb, s.ex.dtype) * curl
 
-    sx = (slice(1, K), slice(1, J), slice(0, I))
-    curl_x = (hz[1:K, 1:J, :I] - hz[1:K, 0 : J - 1, :I]) - (hy[1:K, 1:J, :I] - hy[0 : K - 1, 1:J, :I])
-    s.ex[sx] = new_e(s.ex, sx, coefs.ca_x, coefs.cb_x, curl_x)
-
-    sy = (slice(1, K), slice(0, J), slice(1, I))
-    curl_y = (hx[1:K, :J, 1:I] - hx[0 : K - 1, :J, 1:I]) - (hz[1:K, :J, 1:I] - hz[1:K, :J, 0 : I - 1])
-    s.ey[sy] = new_e(s.ey, sy, coefs.ca_y, coefs.cb_y, curl_y)
-
-    sz = (slice(0, K), slice(1, J), slice(1, I))
-    curl_z = (hy[:K, 1:J, 1:I] - hy[:K, 1:J, 0 : I - 1]) - (hx[:K, 1:J, 1:I] - hx[:K, 0 : J - 1, 1:I])
-    s.ez[sz] = new_e(s.ez, sz, coefs.ca_z, coefs.cb_z, curl_z)
+    # E reads H at -1 along two axes: Ex along j and k, Ey along k and i, Ez along i and j
+    sx = _target(box, region, ((1, K), (1, J), (0, I)), (1, 0), False)
+    if sx is not None:
+        curl_x = (hz[sx] - hz[_shift(sx, 1, -1)]) - (hy[sx] - hy[_shift(sx, 0, -1)])
+        s.ex[sx] = new_e(s.ex, sx, coefs.ca_x, coefs.cb_x, curl_x)
+    sy = _target(box, region, ((1, K), (0, J), (1, I)), (0, 2), False)
+    if sy is not None:
+        curl_y = (hx[sy] - hx[_shift(sy, 0, -1)]) - (hz[sy] - hz[_shift(sy, 2, -1)])
+        s.ey[sy] = new_e(s.ey, sy, coefs.ca_y, coefs.cb_y, curl_y)
+    sz = _target(box, region, ((0, K), (1, J), (1, I)), (2, 1), False)
+    if sz is not None:
+        curl_z = (hy[sz] - hy[_shift(sz, 2, -1)]) - (hx[sz] - hx[_shift(sz, 1, -1)])
+        s.ez[sz] = new_e(s.ez, sz, coefs.ca_z, coefs.cb_z, curl_z)

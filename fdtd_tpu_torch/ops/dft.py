@@ -7,7 +7,7 @@ times the step's (cos, -sin) weights, to the E components of the
 canonical (nf, nc, maxk, maxj, maxi) fp32 (re, im) sums, in place.  The
 TPU's stacked and stripped layouts (``embed_dft_acc``/``crop_dft_acc``)
 have no counterpart: the sums stay canonical throughout.  On CUDA tensors
-it launches the kernel on the current stream and allocates nothing; it
+it launches the kernel on the current stream of their device and allocates nothing; it
 raises on anything the kernel does not take.  On CPU tensors, and only
 there, it runs :func:`plain_accumulate_e`.
 
@@ -102,9 +102,8 @@ def accumulate_e(p: Params, s: FieldState, weights: torch.Tensor, dacc) -> None:
     lib = _lib()
     e_ptr = (ctypes.c_void_p * 3)(s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr())
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.dft_accum(e_ptr, p.maxk, p.maxj, p.maxi, weights.data_ptr(), nf, nc, dacc[0].data_ptr(),
-                           dacc[1].data_ptr(), _DTYPE_CODES[dt], stream)
+                           dacc[1].data_ptr(), _DTYPE_CODES[dt], build.launch_stream(dev))
     launches["dft_accum"] += 1
     if rc != 0:
         raise RuntimeError(f"dft_accum launch failed: CUDA error {rc} ({lib.dft_error_string(rc).decode()})")

@@ -23,15 +23,26 @@ sweep's (s, 2, nf) fp32 (cos, sin) rows on the device) it is the variant
 with the DFT bands of the three TPU kernels: every step's E cell means,
 weighted, are added to the sums in place, as s per-step
 :func:`fdtd_tpu_torch.dft.accumulate` calls would.  On CUDA tensors it launches the kernel variant
-``plan.kernel`` on the current stream and allocates nothing; it raises on
-anything the kernel does not take.  On CPU tensors, and only there, it
-runs :func:`plain_sweep`.
+``plan.kernel`` on the current stream of their device and allocates
+nothing; it raises on anything the kernel does not take.  On CPU tensors,
+and only there, it runs :func:`plain_sweep`.
+
+With ``box`` (a :class:`~fdtd_tpu_torch.grid.Box`: a shard of a sharded
+run, :mod:`fdtd_tpu_torch.parallel`) it advances a shard in its own arrays,
+replacing ``fdtd_tpu/ops/pallas_stream.py::build_stream_shard_call`` (and
+its j-tiled form ``_build_stream_shard_call_jt``: this sweep always tiles
+j and i): the arrays hold ``plan.s`` halo planes on each side the shard
+shares with a neighbour (``plan.s + 1`` with SAR), filled by the caller
+before the sweep, and only the owned window of ``out`` is written; the SAR
+map and sigma are the shard's parts (its owned cells).  The vacuum and
+material variants shard; CPML, Debye media and the DFT bands do not yet
+(ROADMAP item 11b).
 
 Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
 before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
 
-``launches`` counts kernel launches per variant; plain-version calls do not
-count.
+``launches`` counts kernel launches per variant (a shard's under the
+variant's name with ``_shard``); plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -43,16 +54,18 @@ import torch
 
 from .. import diagnostics
 from ..dft import accumulate
+from ..grid import Box
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl, dispersive, yee
 from .cpml import TERM_NAMES, Cpml, PsiState
 from .dispersive import DebyeCoefs, PolState
 from .dft import check_sums, check_weights
-from .stream_plan import VARIANTS, StreamPlan, variant_name
+from .stream_plan import SHARD_VARIANTS, VARIANTS, StreamPlan, variant_name
 
 KERNEL_SOURCE = "yee_stream"
 launches = {variant_name(*v): 0 for v in VARIANTS}
+launches.update({variant_name(*v) + "_shard": 0 for v in SHARD_VARIANTS})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -93,7 +106,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of its C interface set."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.yee_stream_sweep.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [f32, f32] + [i32] * 9 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
+        [ptr, ptr] + [i32] * 3 + [ptr] + [f32, f32] + [i32] * 9 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
         + [ptr] * 5 + [i32, i32, i32, ptr]
     )
     lib.yee_stream_sweep.restype = i32
@@ -107,7 +120,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 acc: torch.Tensor | None = None, cpml: Cpml | None = None,
                 psi: PsiState | None = None, psi_out: PsiState | None = None,
                 dc: DebyeCoefs | None = None, pol: PolState | None = None,
-                pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None) -> FieldState:
+                pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None,
+                box: Box | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
@@ -123,7 +137,11 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
     (:func:`fdtd_tpu_torch.dft.accumulate`, weights ``wts[m - 1]``).  In
     fp32 this is exactly ``s`` steps of the ``torch`` backend (with their
     per-step SAR increments and DFT sums, with CPML, or in a Debye
-    medium)."""
+    medium).  With ``box`` (a shard; vacuum and materials) the steps update
+    every cell of the shard's arrays whose neighbours they hold (the halos
+    lose one plane of exactness a step, so the owned cells stay exact),
+    ``acc`` takes the owned cells' deposition, and only the owned window is
+    written into ``out``."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
     wpsi = wpol = w_edge = None
@@ -139,13 +157,15 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             w_edge = tuple(torch.empty(p.padded_shape, dtype=dispersive.work_dtype(cd), device=state.ex.device)
                            for _ in range(3))
     patch = drive.patch if drive is not None else None
+    local = box.patch(patch) if box is not None and patch is not None else None
+    region = (box.lo, box.hi) if box is not None else None
     for m in range(1, s + 1):
-        if m >= 2 and drive is not None:
+        if m >= 2 and drive is not None and (box is None or local is not None):
             j0, j1, i0, i1 = patch
-            sl = (0, slice(j0, j1), slice(i0, i1))
-            work.ez[sl] = drive.ez_rows[m - 2].to(cd)
+            sl, rows = ((0, slice(j0, j1), slice(i0, i1)), slice(None)) if box is None else ((0,) + local[0], local[1])
+            work.ez[sl] = drive.ez_rows[m - 2, rows].to(cd)
             work.ex[sl] = 0
-            work.hx[sl] = drive.hx_rows[m - 2].to(cd)
+            work.hx[sl] = drive.hx_rows[m - 2, rows].to(cd)
             work.hz[sl] = 0
         if cpml is not None:
             cpml.plain_h(p, work, coefs, wpsi, patch)
@@ -154,13 +174,13 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             curl.update_h(p, work, coefs, patch)
             dispersive.update_e_ade(p, work, wpol, dc, w_edge)
         else:
-            curl.update_h(p, work, coefs, patch)
-            curl.update_e(p, work, coefs)
+            curl.update_h(p, work, coefs, patch, box, region)
+            curl.update_e(p, work, coefs, box, region)
         if acc is not None:
             if dc is not None:
                 diagnostics.accumulate_work(p, w_edge, acc)
             else:
-                diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc)
+                diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc, box)
         if dacc is not None:
             accumulate(diagnostics._e_cell_means(p, work), wts[m - 1, 0], wts[m - 1, 1], dacc)
     if wpsi is not None:
@@ -171,14 +191,15 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             o.copy_(w)
     if out is None:
         return work.to(dtype=state.ex.dtype)
+    own = box.owned if box is not None else (slice(None),) * 3
     for o, w in zip(out.tensors(), work.tensors()):
-        o.copy_(w)
+        o[own] = w[own]
     return out
 
 
-def _on_cpu(p: Params, state: FieldState, out: FieldState) -> bool:
-    """True when both states lie on the CPU; validates CUDA states for the
-    kernel and raises on anything else."""
+def _on_cpu(p: Params, state: FieldState, out: FieldState, shape: tuple[int, int, int]) -> bool:
+    """True when both states lie on the CPU; validates CUDA states (of
+    ``shape``) for the kernel and raises on anything else."""
     tensors = state.tensors() + out.tensors()
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -191,9 +212,9 @@ def _on_cpu(p: Params, state: FieldState, out: FieldState) -> bool:
     if dt not in _DTYPE_CODES:
         raise ValueError(f"the stream kernel takes float32 or bfloat16 fields; got {dt}")
     for t in tensors:
-        if t.dtype != dt or tuple(t.shape) != p.padded_shape or not t.is_contiguous():
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"each field must be a contiguous {dt} tensor of shape {p.padded_shape}; "
+                f"each field must be a contiguous {dt} tensor of shape {shape}; "
                 f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
             )
     ptrs = {t.data_ptr() for t in tensors}
@@ -215,7 +236,8 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
           acc: torch.Tensor | None = None, cpml: Cpml | None = None,
           psi: PsiState | None = None, psi_out: PsiState | None = None,
           dc: DebyeCoefs | None = None, pol: PolState | None = None,
-          pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None) -> FieldState:
+          pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None,
+          box: Box | None = None) -> FieldState:
     """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
     ``plan`` must be made for the variant of ``coefs``, ``acc``, ``cpml``,
     ``dc`` and ``dacc`` (``stream_plan.plan_for(p, s, coefs.lossy,
@@ -223,7 +245,15 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     dc is not None, dft=...)``); with ``cpml``, ``psi`` is read and
     ``psi_out`` written; with ``dc`` (and the vacuum ``coefs`` of the H
     pass), ``pol`` is read and ``pol_out`` written; with ``dacc`` (E sums
-    updated in place) the weights ``wts``."""
+    updated in place) the weights ``wts``.  ``box``: a shard's arrays (the
+    plan made for its owned window, ``plan_for(..., window=...)``)."""
+    if box is not None and box.is_full(p):
+        box = None
+    if box is not None:
+        if cpml is not None or dc is not None or dacc is not None:
+            raise ValueError("CPML, Debye media and the DFT bands do not run on a shard yet "
+                             "(ROADMAP queue 1 item 11b)")
+        _check_halos(p, box, plan)
     variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None,
                dacc is not None)
     if (plan.lossy, plan.het, plan.sar, plan.pml, plan.ade, plan.dft) != variant:
@@ -254,7 +284,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                 f"{state.ex.device}; got {acc.dtype} {tuple(acc.shape)} on {acc.device}"
             )
     elif acc is not None:  # the plan's variant implies lossy coefficients, so sigma exists
-        cells = (p.maxk, p.maxj, p.maxi)
+        cells = box.cell_shape(p) if box is not None else (p.maxk, p.maxj, p.maxi)
         for a, want in ((coefs.sigma_cells, dt), (acc, torch.float32)):
             if (a.device != state.ex.device or a.dtype != want or tuple(a.shape) != cells
                     or not a.is_contiguous()):
@@ -263,8 +293,9 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                     f"{state.ex.device} (sigma {dt}, accumulator float32); got "
                     f"{a.dtype} {tuple(a.shape)} on {a.device}"
                 )
-    if _on_cpu(p, state, out):
-        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out, dacc, wts)
+    if _on_cpu(p, state, out, box.shape if box is not None else p.padded_shape):
+        return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out, dacc, wts,
+                           box)
     lib = _lib()
     fh = curl.scalar(coefs.h_factor, dt)
     if drive is not None:
@@ -305,16 +336,34 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc) if dacc is not None
                 else (None, None, None, 0, 0))
     sigma = coefs.sigma_cells.data_ptr() if acc is not None and dc is None else None
-    with torch.cuda.device(state.ex.device):
+    dev = state.ex.device
+    name = plan.kernel + ("_shard" if box is not None else "")
+    with torch.cuda.device(dev):
         rc = lib.yee_stream_sweep(
-            ins, outs, p.maxk, p.maxj, p.maxi, fh, fe, *geometry, *rows,
+            ins, outs, p.maxk, p.maxj, p.maxi, yee.geometry(p, box), fh, fe, *geometry, *rows,
             yee.pointers(cf) if cf else None, yee.pointers(hf) if hf else None, sigma,
             acc.data_ptr() if acc is not None else None, curl.scalar(p.time_step, torch.float32),
-            *psi_args, *pol_args, *dft_args, _DTYPE_CODES[dt], torch.cuda.current_stream().cuda_stream,
+            *psi_args, *pol_args, *dft_args, _DTYPE_CODES[dt], build.launch_stream(dev),
         )
-    launches[plan.kernel] += 1
+    launches[name] += 1
     if rc != 0:
         msg = lib.yee_stream_error_string(rc).decode()
-        raise RuntimeError(f"{plan.kernel} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     return out
+
+
+def _check_halos(p: Params, box: Box, plan: StreamPlan) -> None:
+    """A shard's arrays hold ``plan.s`` planes before its owned window
+    and ``plan.s`` after it (``plan.s + 1`` with SAR), as far as the grid
+    reaches, and the plan is made for that window."""
+    depth = plan.s + int(plan.sar)
+    for a, n in enumerate(p.padded_shape):
+        lo, hi = box.own_lo[a], box.own_hi[a]
+        if box.lo[a] > max(lo - plan.s, 0) or box.hi[a] < min(hi + depth, n):
+            raise ValueError(f"a shard's arrays {box.lo}..{box.hi} lack the {depth} halo planes of an s={plan.s} "
+                             f"sweep around its owned planes {box.own_lo}..{box.own_hi}")
+    window = tuple(h - lo for lo, h in zip(box.own_lo, box.own_hi))
+    if (plan.window or p.padded_shape) != window:
+        raise ValueError(f"the plan is made for a window of {plan.window or p.padded_shape} planes, the shard owns "
+                         f"{window}")
 

@@ -69,6 +69,12 @@ Every footprint counts the temporaries of the output reductions (the k
 slabs of the energies and snapshot aggregation) or of the SAR increment,
 whichever is larger: they never run at the same time.  With Debye SAR the
 increment also needs the three fp32 edge work arrays of the E pass.
+
+A shard of a sharded run (:mod:`fdtd_tpu_torch.parallel`) sweeps its owned
+window: :func:`plan_for` with ``window``, the vacuum and material variants
+(``SHARD_VARIANTS``).  :func:`shard_bytes` sums the shards' arrays per
+device (one or two states with their halos, their coefficient parts, SAR
+map parts) and the canonical grid the run gathers into for its outputs.
 """
 
 from __future__ import annotations
@@ -146,6 +152,9 @@ VARIANTS = tuple((lossy, het, sar, pml, ade, dft) for dft in (False, True)
                      (True, True, True, False, False), (False, False, False, True, False),
                      (True, False, False, True, False), (False, False, False, False, True),
                      (False, False, True, False, True)))
+# the variants a shard sweeps (CPML, Debye media and the DFT bands wait for
+# ROADMAP item 11b)
+SHARD_VARIANTS = tuple(v for v in VARIANTS if not (v[3] or v[4] or v[5]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +179,7 @@ class StreamPlan:
     pml: bool = False  # the twelve CPML psi terms
     ade: bool = False  # Debye media: P and the 15 ADE maps
     dft: bool = False  # the DFT bands (E phasor sums)
+    window: tuple[int, int, int] | None = None  # a shard's owned planes (k, j, i); None: the grid
 
     @property
     def kernel(self) -> str:
@@ -298,21 +308,30 @@ def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: 
     return BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
+def built_depths(lossy: bool) -> tuple[int, ...]:
+    """The steps per sweep the vacuum (or, ``lossy``, the material) sweep
+    is built at, deepest first."""
+    return tuple(_block_j(lossy, False))
+
+
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
              sar: bool = False, pml: PMLConfig | None = None, ade: bool = False,
-             bj: int | None = None, dft: DftConfig | None = None) -> StreamPlan:
+             bj: int | None = None, dft: DftConfig | None = None,
+             window: tuple[int, int, int] | None = None) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
     the kernel variant the flags name (het and sar imply lossy, except
     for Debye media, ``ade``: vacuum H and the ADE E update), with the DFT
     bands of ``dft``.  ``bj`` (threads along j) is the variant's built
-    value unless given, for a build with other shapes (``tune_ade``)."""
+    value unless given, for a build with other shapes (``tune_ade``).
+    ``window``: a shard's owned (k, j, i) planes, tiled instead of the
+    grid."""
     lossy = not ade and (lossy or het or sar)
     table = _block_j(lossy, pml is not None, ade, sar, dft is not None)
     if bj is None:
         if s not in table:
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
-    K1, J1, I1 = p.padded_shape
+    K1, J1, I1 = window or p.padded_shape
     bi = BLOCK_I
     sh = int(sar or dft is not None)  # the cell means read E one column past
     tj, ti = bj - 2 * s - sh, bi - 2 * s - sh
@@ -338,7 +357,7 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
     dft_bytes = acc_bytes(p, dft) / (K1 * J1 * I1) if dft is not None else 0.0
     per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes + dft_bytes) / s
     return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade,
-                      dft is not None)
+                      dft is not None, window)
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
@@ -362,6 +381,33 @@ def stream_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = 
     lossy = not ade and (lossy or het)
     return (2 * state_bytes(p) + (2 * pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
             + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0))
+
+
+def shard_bytes(p: Params, shapes, devices, main, stream: bool, lossy: bool = False, het: bool = False,
+                sar: bool = False) -> dict:
+    """Device bytes of a sharded run, per device: of each shard (its arrays'
+    ``shapes`` (k, j, i) with halos, its cell count, on its ``devices``
+    entry) one state (two on ``stream``) and its parts of the material
+    arrays, sigma and the SAR map, and on ``main`` the canonical grid the
+    run gathers into for its outputs with their temporaries (or the SAR
+    increment's, the larger)."""
+    item = _itemsize(p)
+    lossy = lossy or het
+    per = {}
+    for (shape, cells), dev in zip(shapes, devices):
+        arr = math.prod(shape) * item
+        b = ((2 if stream else 1) * 6 * arr + (6 * arr + cells * item if lossy else 0) + (3 * arr if het else 0)
+             + (4 * cells if sar else 0))
+        per[dev] = per.get(dev, 0) + b
+    per[main] = per.get(main, 0) + state_bytes(p) + (4 * p.maxk * p.maxj * p.maxi if sar else 0) + work_bytes(p, sar)
+    return per
+
+
+def shard_fits(per_device: dict, free) -> bool:
+    """Every device's :func:`shard_bytes` fits in its free memory (``free``:
+    device -> bytes; a device not in it, a CPU, is held to the H100's 80 GB
+    that the CPU path plans for) with the margin the other plans keep."""
+    return all(b <= MEMORY_MARGIN * free.get(d, DEVICE_BYTES) for d, b in per_device.items())
 
 
 def dft_gates(p: Params, dft: DftConfig) -> bool:

@@ -13,14 +13,24 @@ variants, which replace ``fdtd_tpu/ops/cpml_kernel.py::_h_kernel_pml`` and
 polarization P in place, and with ``work`` the three fp32 edge work arrays
 of the SAR; its plain version is
 :func:`fdtd_tpu_torch.ops.dispersive.update_e_ade`.  On
-CUDA tensors they launch the kernel on the current stream, in place,
-allocating nothing; they raise on anything the kernel does not take
-(another dtype, shape, device or a non-contiguous tensor).  On CPU
-tensors, and only there, they run the plain versions in
+CUDA tensors they launch the kernel on the current stream of the tensors'
+device, in place, allocating nothing; they raise on anything the kernel
+does not take (another dtype, shape, device or a non-contiguous tensor).
+On CPU tensors, and only there, they run the plain versions in
 :mod:`fdtd_tpu_torch.ops.curl` (with CPML: ``Cpml.plain_h``/``plain_e``).
 
-``launches`` counts kernel launches per kernel variant, so a run can show
-that it went through the kernels; plain-version calls do not count.
+With ``box`` (a :class:`~fdtd_tpu_torch.grid.Box`: a shard of a sharded
+run, :mod:`fdtd_tpu_torch.parallel`) ``update_h`` and ``update_e`` update
+the shard's owned cells in its own arrays, halos included, with the walls
+and the source patch at global indices: they replace the TPU's per-shard
+calls of ``_h_kernel2``/``_e_kernel2`` (``fdtd_tpu/ops/pallas_fused.py::
+build_twopass_calls`` with its offset operand and ``jwin``), vacuum and
+with materials; the coefficient arrays are the shard's parts.  CPML and
+Debye media do not shard yet (ROADMAP item 11b).
+
+``launches`` counts kernel launches per kernel variant (a shard's under
+the variant's name with ``_shard``), so a run can show that it went
+through the kernels; plain-version calls do not count.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import ctypes
 
 import torch
 
+from ..grid import Box
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl, dispersive
@@ -40,6 +51,8 @@ launches = {name + suffix: 0
             for suffix in ("", "_pml")
             for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")}
 launches.update(yee_update_e_ade=0, yee_update_e_ade_sar=0)
+launches.update({name + "_shard": 0 for name in ("yee_update_h", "yee_update_e", "yee_update_h_het",
+                                                  "yee_update_e_lossy")})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -55,23 +68,25 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = build.load(KERNEL_SOURCE)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yee_update_h.argtypes = [ptr] * 6 + [i32] * 3 + [f32] + [i32] * 5 + [i32, ptr]
+        # (K, J, I, geom): the grid and a shard's box (null: the whole grid)
+        grid = [i32] * 3 + [ptr]
+        lib.yee_update_h.argtypes = [ptr] * 6 + grid + [f32] + [i32] * 5 + [i32, ptr]
         lib.yee_update_h.restype = i32
-        lib.yee_update_e.argtypes = [ptr] * 6 + [i32] * 3 + [f32] + [i32, ptr]
+        lib.yee_update_e.argtypes = [ptr] * 6 + grid + [f32] + [i32, ptr]
         lib.yee_update_e.restype = i32
-        lib.yee_update_h_het.argtypes = [ptr] * 3 + [i32] * 3 + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_het.argtypes = [ptr] * 3 + grid + [i32] * 5 + [i32, ptr]
         lib.yee_update_h_het.restype = i32
-        lib.yee_update_e_lossy.argtypes = [ptr] * 3 + [i32] * 3 + [i32, ptr]
+        lib.yee_update_e_lossy.argtypes = [ptr] * 3 + grid + [i32, ptr]
         lib.yee_update_e_lossy.restype = i32
-        lib.yee_update_h_pml.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
         lib.yee_update_h_pml.restype = i32
-        lib.yee_update_h_het_pml.argtypes = [ptr] * 5 + [i32] * 4 + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_het_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32] * 5 + [i32, ptr]
         lib.yee_update_h_het_pml.restype = i32
-        lib.yee_update_e_pml.argtypes = [ptr] * 4 + [i32] * 4 + [f32] + [i32, ptr]
+        lib.yee_update_e_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32, ptr]
         lib.yee_update_e_pml.restype = i32
-        lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] * 4 + [i32, ptr]
+        lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32, ptr]
         lib.yee_update_e_lossy_pml.restype = i32
-        lib.yee_update_e_ade.argtypes = [ptr] * 5 + [i32] * 3 + [f32, i32, ptr]
+        lib.yee_update_e_ade.argtypes = [ptr] * 5 + grid + [f32, i32, ptr]
         lib.yee_update_e_ade.restype = i32
         lib.yee_error_string.argtypes = [i32]
         lib.yee_error_string.restype = ctypes.c_char_p
@@ -79,9 +94,20 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def _on_cpu(p: Params, s: FieldState) -> bool:
-    """True when the whole state is on the CPU; validates a CUDA state for
-    the kernels and raises on anything else."""
+def geometry(p: Params, box: Box | None):
+    """The C interface's ``geom`` of a shard's box (its arrays' extents,
+    the global index of their origin, the owned window), None for the
+    whole grid."""
+    if box is None or box.is_full(p):
+        return None
+    window = [x for lo_hi in zip(box.own_lo, box.own_hi) for x in lo_hi]
+    return (ctypes.c_int * 12)(*box.shape, *box.lo, *window)
+
+
+def _on_cpu(p: Params, s: FieldState, shape: tuple[int, int, int] | None = None) -> bool:
+    """True when the whole state is on the CPU; validates a CUDA state (of
+    ``shape``, default the padded grid) for the kernels and raises on
+    anything else."""
     tensors = s.tensors()
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
@@ -93,24 +119,25 @@ def _on_cpu(p: Params, s: FieldState) -> bool:
     dt = tensors[0].dtype
     if dt not in _DTYPE_CODES:
         raise ValueError(f"the Yee kernels take float32 or bfloat16 fields; got {dt}")
+    shape = shape or p.padded_shape
     for t in tensors:
-        if t.dtype != dt or tuple(t.shape) != p.padded_shape or not t.is_contiguous():
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
-                f"each field must be a contiguous {dt} tensor of shape {p.padded_shape}; "
+                f"each field must be a contiguous {dt} tensor of shape {shape}; "
                 f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
             )
     return False
 
 
 def check_coefficients(p: Params, like: torch.Tensor, arrays: tuple[torch.Tensor, ...]) -> None:
-    """Coefficient arrays must match the fields: device, dtype, the padded
-    shape, contiguous."""
+    """Coefficient arrays must match the fields: device, dtype, shape,
+    contiguous."""
     for a in arrays:
-        if (a.device != like.device or a.dtype != like.dtype or tuple(a.shape) != p.padded_shape
+        if (a.device != like.device or a.dtype != like.dtype or a.shape != like.shape
                 or not a.is_contiguous()):
             raise ValueError(
                 f"coefficient arrays must be contiguous {like.dtype} tensors of shape "
-                f"{p.padded_shape} on {like.device}; got {a.dtype} {tuple(a.shape)} on {a.device}"
+                f"{tuple(like.shape)} on {like.device}; got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
 
 
@@ -136,6 +163,15 @@ def pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def _shard_box(p: Params, box: Box | None, cpml) -> Box | None:
+    """``box`` unless it is the whole grid; CPML does not shard yet."""
+    if box is None or box.is_full(p):
+        return None
+    if cpml is not None:
+        raise ValueError("CPML does not run on a shard yet (ROADMAP queue 1 item 11b)")
+    return box
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         msg = _lib().yee_error_string(rc).decode()
@@ -144,21 +180,22 @@ def _check(rc: int, name: str) -> None:
 
 def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
              patch: tuple[int, int, int, int] | None = None,
-             cpml: Cpml | None = None, psi: PsiState | None = None) -> None:
+             cpml: Cpml | None = None, psi: PsiState | None = None, box: Box | None = None) -> None:
     """H half-step in place; ``patch`` as in :func:`curl.update_h`; with
     ``cpml`` and ``psi`` the CPML H pass (the six H psi terms advance in
-    place too)."""
+    place too); with ``box`` a shard's owned cells."""
     if (cpml is None) != (psi is None):
         raise ValueError("the CPML pass needs both cpml and psi")
-    if _on_cpu(p, s):
+    box = _shard_box(p, box, cpml)
+    if _on_cpu(p, s, box.shape if box else None):
         if cpml is not None:
             cpml.plain_h(p, s, coefs, psi, patch)
         else:
-            curl.update_h(p, s, coefs, patch)
+            curl.update_h(p, s, coefs, patch, box)
         return
     lib = _lib()
     j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
-    geometry = (p.maxk, p.maxj, p.maxi)
+    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box))
     patch_args = (int(patch is not None), j0, j1, i0, i1)
     dtype = _DTYPE_CODES[s.hx.dtype]
     e_ptr, h_ptr = pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz))
@@ -166,70 +203,76 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
     if hf:
         check_coefficients(p, s.hx, hf)
     f = curl.scalar(coefs.h_factor, s.hx.dtype)
-    with torch.cuda.device(s.hx.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = s.hx.device
+    with torch.cuda.device(dev):
+        stream = build.launch_stream(dev)
         if cpml is not None:
             check_psi(p, cpml, s.hx, psi, H_TERMS)
             pml = (pointers(psi.tensors(H_TERMS)), cpml.table_h.data_ptr(), cpml.cfg.cells)
             if hf:
                 name = "yee_update_h_het_pml"
-                rc = lib.yee_update_h_het_pml(e_ptr, h_ptr, pointers(hf), *pml, *geometry, *patch_args,
+                rc = lib.yee_update_h_het_pml(e_ptr, h_ptr, pointers(hf), *pml, *grid, *patch_args,
                                               dtype, stream)
             else:
                 name = "yee_update_h_pml"
-                rc = lib.yee_update_h_pml(e_ptr, h_ptr, *pml, *geometry, f, *patch_args, dtype, stream)
+                rc = lib.yee_update_h_pml(e_ptr, h_ptr, *pml, *grid, f, *patch_args, dtype, stream)
         elif hf:
             name = "yee_update_h_het"
-            rc = lib.yee_update_h_het(e_ptr, h_ptr, pointers(hf), *geometry, *patch_args, dtype, stream)
+            rc = lib.yee_update_h_het(e_ptr, h_ptr, pointers(hf), *grid, *patch_args, dtype, stream)
         else:
             name = "yee_update_h"
-            rc = lib.yee_update_h(*(t.data_ptr() for t in s.tensors()), *geometry, f, *patch_args,
+            rc = lib.yee_update_h(*(t.data_ptr() for t in s.tensors()), *grid, f, *patch_args,
                                   dtype, stream)
+    name += "_shard" if box is not None else ""
     launches[name] += 1
     _check(rc, name)
 
 
 def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
-             cpml: Cpml | None = None, psi: PsiState | None = None) -> None:
+             cpml: Cpml | None = None, psi: PsiState | None = None, box: Box | None = None) -> None:
     """E half-step in place: one scalar cb in vacuum, the ca/cb arrays of
-    ``coefs`` with materials; with ``cpml`` and ``psi`` the CPML E pass."""
+    ``coefs`` with materials; with ``cpml`` and ``psi`` the CPML E pass;
+    with ``box`` a shard's owned cells."""
     if (cpml is None) != (psi is None):
         raise ValueError("the CPML pass needs both cpml and psi")
-    if _on_cpu(p, s):
+    box = _shard_box(p, box, cpml)
+    if _on_cpu(p, s, box.shape if box else None):
         if cpml is not None:
             cpml.plain_e(p, s, coefs, psi)
         else:
-            curl.update_e(p, s, coefs)
+            curl.update_e(p, s, coefs, box)
         return
     lib = _lib()
-    geometry = (p.maxk, p.maxj, p.maxi)
+    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box))
     dtype = _DTYPE_CODES[s.ex.dtype]
     h_ptr, e_ptr = pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez))
     cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
     if cf:
         check_coefficients(p, s.ex, cf)
-    with torch.cuda.device(s.ex.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = s.ex.device
+    with torch.cuda.device(dev):
+        stream = build.launch_stream(dev)
         if cpml is not None:
             check_psi(p, cpml, s.ex, psi, E_TERMS)
             pml = (pointers(psi.tensors(E_TERMS)), cpml.table_e.data_ptr(), cpml.cfg.cells)
             if cf:
                 name = "yee_update_e_lossy_pml"
-                rc = lib.yee_update_e_lossy_pml(h_ptr, e_ptr, pointers(cf), *pml, *geometry, dtype, stream)
+                rc = lib.yee_update_e_lossy_pml(h_ptr, e_ptr, pointers(cf), *pml, *grid, dtype, stream)
             else:
                 name = "yee_update_e_pml"
-                rc = lib.yee_update_e_pml(h_ptr, e_ptr, *pml, *geometry, curl.scalar(coefs.cb_x, s.ex.dtype),
+                rc = lib.yee_update_e_pml(h_ptr, e_ptr, *pml, *grid, curl.scalar(coefs.cb_x, s.ex.dtype),
                                           dtype, stream)
         elif cf:
             name = "yee_update_e_lossy"
-            rc = lib.yee_update_e_lossy(h_ptr, e_ptr, pointers(cf), *geometry, dtype, stream)
+            rc = lib.yee_update_e_lossy(h_ptr, e_ptr, pointers(cf), *grid, dtype, stream)
         else:
             name = "yee_update_e"
             rc = lib.yee_update_e(
                 s.hx.data_ptr(), s.hy.data_ptr(), s.hz.data_ptr(),
                 s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),
-                *geometry, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
+                *grid, curl.scalar(coefs.cb_x, s.ex.dtype), dtype, stream,
             )
+    name += "_shard" if box is not None else ""
     launches[name] += 1
     _check(rc, name)
 
@@ -255,12 +298,12 @@ def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
                     f"{s.ex.device}; got {w.dtype} {tuple(w.shape)} on {w.device}"
                 )
     name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
-    with torch.cuda.device(s.ex.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = s.ex.device
+    with torch.cuda.device(dev):
         rc = lib.yee_update_e_ade(
             pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez)), pointers(P.tensors()), pointers(cf),
-            pointers(work) if sar else None, p.maxk, p.maxj, p.maxi,
-            curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[s.ex.dtype], stream,
+            pointers(work) if sar else None, p.maxk, p.maxj, p.maxi, None,
+            curl.scalar(p.time_step, torch.float32), _DTYPE_CODES[s.ex.dtype], build.launch_stream(dev),
         )
     launches[name] += 1
     _check(rc, name)

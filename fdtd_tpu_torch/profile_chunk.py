@@ -2,7 +2,7 @@
 device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--scenes vacuum heating pml dispersive dft] [--backends stream twopass torch]
+        [--scenes vacuum heating pml dispersive dft shard] [--backends stream twopass torch]
         [--dtypes float32 bfloat16]
 
 Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
@@ -12,7 +12,8 @@ Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 walls (``--pml 10``); ``dispersive`` is the heating scene's block as a
 Debye medium (``--water-block --dispersive --sar``); ``dft`` is the heating scene with the E
 phasors at 2.45e10 Hz (``--water-block --sar --dft 2.45e10``: the DFT bands of the sweep on
-``stream``, the ``dft_accum`` kernel after each step on ``twopass``).  For each scene, backend and dtype it runs a
+``stream``, the ``dft_accum`` kernel after each step on ``twopass``); ``shard`` is the vacuum and the heating
+scene with ``--shard 4`` (four z slabs on the one card: the per-shard kernels and the halo copies).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -23,7 +24,9 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
 - ``kernels_ms_per_step``: that sum split by kernel variant (the names of
   the launch counters: ``yee_stream``, ``yee_stream_lossy_sar``,
   ``yee_update_h``, ``yee_update_e_lossy``, ``yee_update_e_ade_sar``,
-  ``yee_stream_lossy_sar_dft``, ``dft_accum``, ...), ``sar_increment`` (the per-step torch ops of the deposition on
+  ``yee_stream_lossy_sar_dft``, ``dft_accum``, ``yee_stream_shard``, ...), ``halo_exchange`` (the copies
+  of a sharded run's halo planes: the device time of the profiler range ``parallel.mesh.exchange`` opens,
+  taken out of ``other``), ``sar_increment`` (the per-step torch ops of the deposition on
   ``twopass``/``torch`` and on the trailing steps of ``stream``: the device
   time of the profiler range ``diagnostics.accumulate_power`` and
   ``accumulate_work`` open, taken out of ``other``) and
@@ -53,17 +56,20 @@ from .ops.cpml import PMLConfig, init_psi
 from .ops.dispersive import water_debye_load, zero_polarization
 from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
-from .runner import initial_state
+from .parallel import mesh as shard_mesh
+from .runner import initial_state, sharded_runner
 from .state import water_block
 from .step import make_chunk_runner, scan_inputs, zero_power_acc
 
-SCENES = ("vacuum", "heating", "pml", "dispersive", "dft")
+SCENES = ("vacuum", "heating", "pml", "dispersive", "dft", "shard")
 PML_CELLS = 10  # the pml scene's slab depth (--pml 10)
 DFT_HZ = 2.45e10  # the dft scene's frequency (--dft 2.45e10)
+SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT>,
-# h <T, HET, PML>, e <T, LOSSY, PML>, ade_e <T, SAR>, dft_accum <T>
+# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>,
+# h <T, HET, PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T>;
+# BOX: a shard's launch (the counter's name with "_shard")
 _KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
 
@@ -83,33 +89,40 @@ def _group(name: str) -> str:
     if m.group(1) == "dft_accum_kernel":
         return "dft_accum"
     if m.group(1) == "stream_kernel":
-        return variant_name(*flags)
+        return variant_name(*flags[:6]) + ("_shard" if flags[6:7] == [True] else "")
     if m.group(1) == "ade_e_kernel":
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
-    pml = "_pml" if flags[1] else ""
+    suffix = ("_pml" if flags[1] else "") + ("_shard" if flags[2:3] == [True] else "")
     if m.group(1) == "h_kernel":
-        return ("yee_update_h_het" if flags[0] else "yee_update_h") + pml
-    return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + pml
+        return ("yee_update_h_het" if flags[0] else "yee_update_h") + suffix
+    return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + suffix
 
 
 def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
             heating: bool = False, pml: PMLConfig | None = None, debye: bool = False,
-            dft: DftConfig | None = None) -> dict:
+            dft: DftConfig | None = None, shard: str | None = None) -> dict:
     tv = time_values(p)[: warm + 2 * steps]
     ts, amps = scan_inputs(p, tv)
     cw, sw = dft_weights(dft, tv) if dft is not None else (None, None)
     mats = water_debye_load(p) if debye else water_block(p) if heating else None
     sar = heating or debye
-    run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft)
     s = initial_state(p, dev)
     power = zero_power_acc(p, dev) if sar else None
     psi = init_psi(p, pml, dev) if pml is not None else None
     pol = zero_polarization(p, dev) if debye else None
     dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
+    if shard is not None:
+        mesh, run_shards = sharded_runner(p, shard, dev, mats, sar, backend, log=lambda m: None)
+        shards = shard_mesh.scatter(p, s, mesh, run_shards.depth, power)
+    else:
+        run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft)
 
     def chunk(a: int, b: int) -> None:
         xs = (ts[a:b], amps[a:b]) + ((cw[a:b], sw[a:b]) if dft is not None else ())
-        run(s, xs, power, psi, pol, dacc)
+        if shard is not None:
+            run_shards(shards, xs)
+        else:
+            run(s, xs, power, psi, pol, dacc)
 
     chunk(0, warm)
     torch.cuda.synchronize(dev)
@@ -126,15 +139,15 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     by_group: dict[str, float] = {}
     launches: dict[str, int] = {}
-    sar_ms = 0.0
+    ranges = {diagnostics.SAR_LABEL: 0.0, shard_mesh.HALO_LABEL: 0.0}
     for ev in prof.key_averages():
         kind = getattr(ev, "device_type", None)
-        if ev.key == diagnostics.SAR_LABEL:
+        if ev.key in ranges:
             # the host-side range: the kernels its ops launched (the
             # device-side annotation spans the gaps between them too)
             if kind is None or kind == torch.autograd.DeviceType.CPU:
                 total = getattr(ev, "device_time_total", None)
-                sar_ms += (ev.cuda_time_total if total is None else total) / 1e3 / steps
+                ranges[ev.key] += (ev.cuda_time_total if total is None else total) / 1e3 / steps
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -145,13 +158,14 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + ev.count
     device = sum(by_group.values())
-    if sar_ms:
-        # the increment's kernels are elementwise torch kernels, summed in "other"
-        by_group[diagnostics.SAR_LABEL] = sar_ms
-        by_group["other"] = by_group.get("other", 0.0) - sar_ms
+    for label, ms in ranges.items():
+        if ms:
+            # the increment's and the copies' kernels are torch kernels, summed in "other"
+            by_group[label] = ms
+            by_group["other"] = by_group.get("other", 0.0) - ms
     return {
         "scene": ("dft" if dft is not None else "dispersive" if debye else "heating" if heating
-                  else "pml" if pml is not None else "vacuum"),
+                  else "pml" if pml is not None else "vacuum") + (f" --shard {shard}" if shard else ""),
         "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
@@ -179,13 +193,15 @@ def main(argv=None) -> int:
     for name in args.scenes:
         for dtype in args.dtypes:
             for backend in args.backends:
-                rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
-                              heating=name in ("heating", "dft"),
-                              pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None,
-                              debye=name == "dispersive",
-                              dft=DftConfig((DFT_HZ,)) if name == "dft" else None)
-                rec["card"] = card
-                print(json.dumps(rec), flush=True)
+                # the shard scene: vacuum and heating on the mesh
+                for heating in ((False, True) if name == "shard" else (name in ("heating", "dft"),)):
+                    rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev, heating=heating,
+                                  pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None,
+                                  debye=name == "dispersive",
+                                  dft=DftConfig((DFT_HZ,)) if name == "dft" else None,
+                                  shard=SHARD_SPEC if name == "shard" else None)
+                    rec["card"] = card
+                    print(json.dumps(rec), flush=True)
     return 0
 
 

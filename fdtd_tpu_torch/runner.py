@@ -21,8 +21,17 @@ their true dielectric and ionic work.  The frequency-domain monitors
 scene: their (re, im) sums and probe rows go into checkpoints as
 ``aux_dft_re``/``aux_dft_im``/``aux_probe_rows`` (the JAX package's keys)
 and come back on resume, and the result carries ``RunResult.dft`` (a
-``DftResult``) and ``RunResult.probes`` (a ``ProbeResult``).  Sharding is
-not ported and raises ``NotImplementedError`` naming its ROADMAP item.
+``DftResult``) and ``RunResult.probes`` (a ``ProbeResult``).
+
+``shard`` ("Z" or "ZxY", :func:`parse_shard_spec`) runs the scene on a
+(Z, Y, 1) mesh of shards (:mod:`fdtd_tpu_torch.parallel`), vacuum or with
+lossy and heterogeneous-mu_r materials and SAR, on all three backends.
+The chunks between boundaries stay sharded; the shards are gathered into
+the canonical state (and SAR map) only where a snapshot, a log record or a
+checkpoint is due, and at the end, so checkpoints keep the canonical
+schema and resume with or without sharding, in either package.  CPML,
+Debye media and the monitors under ``shard`` raise
+``NotImplementedError`` naming ROADMAP item 11b.
 
 ``backend`` also takes the JAX package's names, mapped with a notice:
 ``xla`` -> ``torch``, ``pallas``/``pallas_fused`` -> ``twopass``,
@@ -46,6 +55,9 @@ from .dft import DftConfig, DftResult, acc_bytes, dft_weights, finalize, zero_df
 from .io.checkpoint import CheckpointWriter, from_host, latest_checkpoint, load_aux, load_checkpoint
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
 from .ops import stream_plan
+from .parallel import mesh as shard_mesh
+from .parallel.sharded_fast import free_bytes, make_sharded_stream_runner, pick_shard_plan
+from .parallel.sharded_step import make_sharded_chunk_runner
 from .ops.cpml import PMLConfig, PsiState, init_psi, psi_shapes
 from .monitors import ProbeResult, ProbeSet
 from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState, zero_polarization
@@ -58,10 +70,8 @@ BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
 JAX_BACKENDS = {"xla": "torch", "pallas": "twopass", "pallas_fused": "twopass",
                 "pallas_stream": "stream", "pallas_temporal": "stream"}
 
-# feature -> the ROADMAP item that ports it
-_NOT_PORTED = {
-    "shard": "ROADMAP queue 1 item 11 (spatial sharding)",
-}
+# what --shard does not compose with yet
+SHARD_11B = "ROADMAP queue 1 item 11b (CPML, Debye media and the monitors under --shard)"
 
 
 @dataclasses.dataclass
@@ -276,6 +286,91 @@ def _free_memory(dev: torch.device) -> int | None:
     return None
 
 
+def parse_shard_spec(spec: str) -> tuple[int, int]:
+    """'4' -> (4, 1) z-slabs; '4x2' -> (4, 2) z*y decomposition.
+
+    The CLI analogue of the reference's ``mpirun -np N ./microwave``
+    (description.pdf section 2.2): the grid shards over devices instead of
+    ranks (the JAX package's ``parse_shard_spec``, its errors word for
+    word).  i-axis (third factor) sharding is API-only
+    (``parallel.sharded_step``).
+    """
+    parts = str(spec).lower().split("x")
+    try:
+        dims_ = [int(x) for x in parts]
+    except ValueError:
+        raise ValueError(f"bad --shard spec {spec!r}: use e.g. 4 or 4x2")
+    if not 1 <= len(dims_) <= 2 or any(d < 1 for d in dims_):
+        raise ValueError(f"bad --shard spec {spec!r}: use e.g. 4 or 4x2")
+    nz = dims_[0]
+    ny = dims_[1] if len(dims_) > 1 else 1
+    return nz, ny
+
+
+def check_shard_scene(materials, pml: PMLConfig | None, dft: DftConfig | None, probes: ProbeSet | None) -> None:
+    """Refuse what ``--shard`` does not compose with yet: Debye x CPML x
+    shard with the JAX package's ``ValueError`` (its words), CPML, Debye
+    media and the monitors with ``NotImplementedError`` naming ROADMAP item
+    11b."""
+    debye = isinstance(materials, DebyeMaterials)
+    if debye and pml is not None:
+        raise ValueError("dispersive media with --pml run single-chip for now (no --shard)")
+    for what, present in (("--pml", pml is not None), ("--dispersive", debye), ("--dft", dft is not None),
+                          ("--probe", probes is not None)):
+        if present:
+            raise NotImplementedError(f"--shard with {what} is not ported yet: {SHARD_11B}")
+
+
+def sharded_runner(p: Params, shard: str, device, materials: Materials | None = None,
+                   accumulate_power: bool = False, backend: str = "auto",
+                   log: Callable[[str], None] = print, stream_s: int | None = None):
+    """(mesh, run) of a sharded run, the counterpart of the JAX package's
+    ``_sharded_chunk_runner`` (``fdtd_tpu/runner.py:166``) without the
+    monitor and CPML branches: ``run(shards, xs)`` advances the shards of
+    :func:`~fdtd_tpu_torch.parallel.mesh.scatter` (``run.depth`` halo
+    planes) in place.  ``auto`` takes the sharded ``stream`` where a shard
+    plan fits (:func:`~fdtd_tpu_torch.parallel.sharded_fast.pick_shard_plan`),
+    else ``twopass``, and ``torch`` for float64 or on the CPU; an explicit
+    ``stream`` without a plan runs ``twopass`` with a notice, and
+    ``twopass``/``stream`` off the card or in float64 raise as they do
+    unsharded."""
+    nz, ny = parse_shard_spec(shard)
+    dev = torch.device(device)
+    mesh = shard_mesh.make_mesh((nz, ny, 1), dev, log)
+    backend = map_backend(backend, log)
+    if backend not in BACKEND_CHOICES:
+        raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
+    lossy = materials is not None and not materials.is_vacuum
+    het = lossy and materials.mu_r is not None
+    kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
+    free = free_bytes(mesh)
+    plans = pick_shard_plan(p, mesh, stream_s, lossy, het, accumulate_power, free) if kernels_ok else None
+    if backend == "auto":
+        backend = "torch" if not kernels_ok else "stream" if plans is not None else "twopass"
+    elif backend == "stream" and kernels_ok and plans is None:
+        log(f"notice: no sharded stream plan fits a {nz}x{ny} mesh of this scene (each shard owns at least s "
+            "planes, s + 1 with --sar, and two states of every shard fit its device); running the twopass "
+            "kernels per shard")
+        backend = "twopass"
+    if backend in ("twopass", "stream") and not kernels_ok:
+        raise ValueError(
+            f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
+            f"(got device {dev}, dtype {p.dtype}); use --backend torch"
+        )
+    if backend == "stream":
+        return mesh, make_sharded_stream_runner(p, mesh, materials, accumulate_power, plans[0].s, free)
+    if backend == "twopass":
+        boxes = shard_mesh.shard_boxes(p, mesh, 1)
+        need = stream_plan.shard_bytes(p, [(b.shape, math.prod(b.cell_shape(p))) for b in boxes], mesh.devices,
+                                       mesh.devices[0], False, lossy, het, accumulate_power)
+        if not stream_plan.shard_fits(need, free):
+            raise ValueError(f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} on a {nz}x{ny} mesh does not fit in device "
+                             f"memory: the shards and the gathered grid need {max(need.values()) / 1e9:.1f} GB on a "
+                             "device; use a coarser grid or bfloat16")
+        return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power, "twopass")
+    return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power)
+
+
 def initial_state(p: Params, device) -> FieldState:
     return init_validation(p, device) if p.mode == Mode.VALIDATION else zeros(p, device)
 
@@ -314,9 +409,10 @@ def run_simulation(
     its ``probes`` the per-step series.  ``stream_s`` forces the steps per
     sweep of the ``stream`` backend (one of ``stream_plan.STEPS``; the
     CLI's ``--temporal-steps``); ``dc`` passes the Debye maps of
-    ``materials`` on the device when already built."""
+    ``materials`` on the device when already built.  ``shard`` ("Z" or
+    "ZxY"): run on a mesh of shards (the module docstring)."""
     if shard is not None:
-        raise NotImplementedError(f"shard is not ported yet: {_NOT_PORTED['shard']}")
+        check_shard_scene(materials, pml, dft, probes)
     if stream_s is not None and stream_s not in stream_plan.STEPS:
         built = "{" + ", ".join(map(str, stream_plan.STEPS)) + "}"
         raise ValueError(f"the stream sweep is built at {built} steps per sweep, not {stream_s} (--temporal-steps)")
@@ -327,7 +423,10 @@ def run_simulation(
     if probes is not None:
         probes.validate(p)
     dev = resolve_device(device)
-    backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
+    if shard is not None:
+        mesh, run_shards = sharded_runner(p, shard, dev, materials, accumulate_power, backend, log, stream_s)
+    else:
+        backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
     dft_cw, dft_sw = dft_weights(dft, ts) if dft is not None else (None, None)
@@ -346,8 +445,9 @@ def run_simulation(
             "runs; use float32 for validation/accuracy runs"
         )
 
-    run_chunk = make_chunk_runner(p, dev, materials, backend, stream_s=stream_s if backend == "stream" else None,
-                                  accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc)
+    if shard is None:
+        run_chunk = make_chunk_runner(p, dev, materials, backend, stream_s=stream_s if backend == "stream" else None,
+                                      accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc)
     state = initial_state(p, dev)
     power = zero_power_acc(p, dev) if accumulate_power else None
     psi = init_psi(p, pml, dev) if pml is not None else None
@@ -412,8 +512,13 @@ def run_simulation(
             # initial snapshot at iteration 1 (reference: main.c:758-764)
             snapshot(state, 1, 0.0)
             log_diag(state, 0, 0.0)
+        # a sharded run keeps its chunks sharded: the shards are gathered
+        # into ``state`` (and ``power``) only where an output is due
+        shards = shard_mesh.scatter(p, state, mesh, run_shards.depth, power) if shard is not None else None
 
-        _sync(dev)
+        devices = set(mesh.devices) | {dev} if shard is not None else {dev}
+        for d in devices:
+            _sync(d)
         t0 = time.perf_counter()
         pos = start_step
 
@@ -430,11 +535,17 @@ def run_simulation(
             xs = (xs_t[pos:end], xs_a[pos:end])
             if dft is not None:
                 xs += (dft_cw[pos:end], dft_sw[pos:end])
-            rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
+            if shards is not None:
+                run_shards(shards, xs)
+            else:
+                rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
             if probes is not None:
                 probe_rows.append(rows.cpu().numpy())
             pos = end
             t_now = float(ts[pos - 1])
+            output = pos % rate == 0 and (writer is not None or diag_f is not None)
+            if shards is not None and (output or (checkpoint_every and pos % checkpoint_every == 0) or pos == n):
+                shard_mesh.gather(p, shards, state, power)
             if pos % rate == 0:
                 snapshot(state, pos, t_now)
                 log_diag(state, pos, t_now)
@@ -447,7 +558,8 @@ def run_simulation(
                 if probes is not None:
                     aux["probe_rows"] = _probe_values(probe_rows, probes)
                 ckpt_writer.submit(state, pos, t_now, power, aux or None)
-        _sync(dev)
+        for d in devices:
+            _sync(d)
         wall = time.perf_counter() - t0
     finally:
         if ckpt_writer is not None:

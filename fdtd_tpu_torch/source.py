@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .constants import CELERITY, EPSILON, MU, PI
+from .grid import Box
 from .params import Params
 from .state import FieldState
 
@@ -107,15 +108,22 @@ def profile_tensor(plan: SourcePlan, device) -> torch.Tensor:
     return torch.tensor(plan.profile, dtype=torch.float64, device=device)
 
 
-def apply_source(plan: SourcePlan, s: FieldState, amp, profile: torch.Tensor) -> None:
+def apply_source(plan: SourcePlan, s: FieldState, amp, profile: torch.Tensor, box: Box | None = None) -> None:
     """Hard-set the source patch in place.
 
     ``amp`` is sin(2*pi*f*t) as a Python float or a 0-d fp64 tensor on the
     state's device; ``profile`` is :func:`profile_tensor`.  The row is
-    formed in fp64 and rounded once to the field dtype.
+    formed in fp64 and rounded once to the field dtype.  With ``box`` (a
+    shard's arrays) the part of the patch those arrays hold, halos
+    included.
     """
-    row = amp * profile  # (ni,), value depends on i only (main.c:748)
     sl = (0, slice(plan.j0, plan.j1), slice(plan.i0, plan.i1))
+    if box is not None:
+        local = box.patch(plan.patch)
+        if local is None:
+            return
+        sl, profile = (0,) + local[0], profile[local[1]]
+    row = amp * profile  # (ni,), value depends on i only (main.c:748)
     s.ez[sl].copy_(row.expand(s.ez[sl].shape))
     s.ex[sl].zero_()
     s.hz[sl].zero_()

@@ -6,7 +6,8 @@ Every option of ``fdtd_tpu.cli.build_arg_parser()``, with a valid value
 backend names map to the port's backends with a notice, ``--temporal-steps``
 forces the stream depth (the depths the port does not build exit 1 naming
 8, 4 and 2), ``--profile`` writes a torch.profiler trace, and the flags of
-features not ported yet exit 1 naming their ROADMAP item.
+features not ported yet exit 1 naming their ROADMAP item (``--shard``
+runs, and exits 1 naming item 11b with a composition still to port).
 """
 
 import os
@@ -90,7 +91,15 @@ def test_cli_runs_a_jax_backend_name(tmp_path, capsys):
     ("--coupled", "2", "item 6"), ("--rotate", "10", "item 6"),
 ])
 def test_unported_flags_exit_1_naming_their_item(tmp_path, capsys, flag, value, item):
-    rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value])
+    """The flags of item 6 exit 1 naming it.  ``--shard`` (item 11) is
+    ported: alone it runs, and with ``--pml`` (a composition still to port)
+    it exits 1 naming ROADMAP item 11b."""
+    extra = []
+    if flag == "--shard":
+        rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value])
+        assert rc == 0 and "Simulation complete!" in capsys.readouterr().out
+        extra, flag = ["--pml", "3"], "--shard with --pml"
+    rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", *extra, flag.split()[0], value])
     err = capsys.readouterr().err
     assert rc == 1 and f"{flag} is not ported yet: ROADMAP queue 1 {item}" in err
 

@@ -246,7 +246,11 @@ def test_bfloat16_guardrail_warns(tiny_params, tmp_path):
     ("shard", {"shard": "2"}, "item 11"),
 ])
 def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, feature, kw, item):
-    """Sharding raises naming its ROADMAP item.  The frequency-domain
+    """Sharding (item 11) is ported: ``shard="2"`` on the tiny scene in
+    computation mode matches the JAX package's sharded xla run and its
+    unsharded run (fp64, fields at atol 1e-15 / rtol 1e-11), and sharding
+    with CPML raises naming ROADMAP item 11b, the compositions still to
+    port.  The frequency-domain
     monitors (item 9) are ported: a two-frequency DFT, and probes at two
     cells, on the tiny scene in computation mode match the JAX package's
     xla run (fp64 fields; the fp32 phasor sums and probe rows within one
@@ -327,6 +331,18 @@ def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, featur
             assert got.power_j.dtype == torch.float32 and float(w.max()) > 0
             np.testing.assert_allclose(got.power_j.numpy(), w, rtol=1e-6, atol=1e-6 * float(w.max()))
         return
+    if feature == "shard":
+        from fdtd_tpu_torch.ops.cpml import PMLConfig
+
+        p = dataclasses.replace(tiny_params, mode=Mode.COMPUTATION)
+        got = t_run(p, tmp_path / "t", write_snapshots=False, **kw)
+        for j_kw, sub in ((kw, "js"), ({}, "j")):
+            want = j_run(p, out_dir=str(tmp_path / sub), write_snapshots=False, backend="xla", log=lambda m: None,
+                         **j_kw)
+            for c in COMPONENTS:
+                np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
+                                           rtol=1e-11, atol=1e-15, err_msg=f"{sub}/{c}")
+        kw = {**kw, "pml": PMLConfig(cells=3)}
     with pytest.raises(NotImplementedError, match=item):
         t_run(tiny_params, tmp_path / "x", **kw)
 
