@@ -95,9 +95,26 @@ package beside it.  Phases, each printing one line or more:
    with launch counts and Mcells/s; the other loads on 4 slabs (66 steps),
    512^3 with --shard 4 (16 steps); the CLI (bench_256 at a sampling rate
    of 500 and the heating scene with --shard 4 write the unsharded
-   snapshots, sar.vtr and energy log; --shard with --pml exits 1 naming
-   item 11b); the halo copies' time per sweep and step; each shard
-   kernel's time on a middle slab of --shard 4 beside its plain version;
+   snapshots, sar.vtr and energy log); the halo copies' time per sweep and
+   step; each shard kernel's time on a middle slab of --shard 4 beside its
+   plain version;
+7b. CPML, Debye media and the monitors under --shard: K10-shard (H and E,
+   vacuum and het-mu / lossy, from random psi: a 10-cell absorber whose k
+   and j slabs straddle shards), K4-shard (nf = 1, 2, 3) and K3-shard-DFT
+   (the five shardable variants, nf = 1 and 2, from random sums and map)
+   against their plain versions on every shard of 4-slab, 3-slab and 2 x 3
+   meshes (ragged, both modes, fp32 and bf16) and of the 256^3 geometries,
+   bit for bit; 1000 steps with --shard 4 of bench_256 --pml 10, the
+   heating scene with --dft 2.45e10 (auto: the sweep with the bands, and
+   twopass + dft_accum), bench_256 --pml 10 --dft 2.45e10, the Debye scene
+   (torch ops) and three probes with --dft-fields eh, each equal to its
+   unsharded run bit for bit (fields, SAR map, psi, P, phasors, probe
+   rows) with launch counts, Mcells/s and the allocator's peak against
+   stream_plan.shard_bytes; the CPML load and the DFT variants (nf = 2) on
+   4 slabs (66 steps); the CLI with --shard 4 --pml 10 and with the heating
+   scene's --dft 2.45e10 writing the unsharded snapshots, dft_00.vtr,
+   sar.vtr and energy log; each new shard kernel's time on a middle slab of
+   --shard 4 beside its plain version;
 8. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
    bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
    (nf = 1), and each kernel's time beside its plain version's and its
@@ -113,6 +130,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -715,8 +733,17 @@ def main() -> None:
     heat_plan = stream_plan.pick_plan(ph, lossy=True, sar=True)
     print(f"heating plan at 256^3: {heat_plan} ({heat_plan.blocks} blocks of {heat_plan.threads} "
           f"threads, {heat_plan.smem_bytes} B shared memory)", flush=True)
-    # its outputs stay for the sharded run of phase 7 to be held against
+    # its outputs (a snapshot every 100 steps, the config's rate) stay for
+    # the sharded run of phase 7 to be held against; the later heating CLI
+    # runs write a snapshot every 500 steps (a params copy), as the bench CLI
+    # runs do
     heat_cli = tempfile.mkdtemp()
+    heat500 = os.path.join(tempfile.mkdtemp(), "heating_256_500.txt")
+    with open("configs/heating_256.txt") as f:
+        vals = f.read().split()
+    vals[6] = "500"
+    with open(heat500, "w") as f:
+        f.write("\n".join(vals) + "\n")
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
@@ -826,7 +853,9 @@ def main() -> None:
     pml_main = stream_plan.pick_plan(p, pml=PML10)
     print(f"--pml 10 plan at 256^3: {pml_main} ({pml_main.blocks} blocks of {pml_main.threads} threads, "
           f"{pml_main.smem_bytes} B shared memory)", flush=True)
-    with tempfile.TemporaryDirectory() as out:
+    # the CLI's outputs stay for the sharded CLI of phase 7b to be held against
+    pml_cli = tempfile.mkdtemp()
+    with contextlib.nullcontext(pml_cli) as out:
         # bench_256.txt with a sampling rate of 500: snapshots 1, 500, 1000
         params_pml = os.path.join(out, "bench_256_rate500.txt")
         with open("configs/bench_256.txt") as f:
@@ -877,9 +906,11 @@ def main() -> None:
               f"--pml 10 256^3 {backend}: fields and psi finite, energy {e_tot!r} "
               f"({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
         finals[backend], final_psi[backend] = res.state, res.psi
+        main_rates[f"bench_256 --pml 10 {backend}"] = res.mcells_per_s
         del res
     d = max(maxdiff(finals["stream"], finals["twopass"]), maxdiff(final_psi["stream"], final_psi["twopass"]))
     check(d == 0.0, f"--pml 10 256^3 1000 steps: stream == twopass, fields and psi max|diff| = {d!r}")
+    pml_ref = (finals["twopass"], final_psi["twopass"])  # held against the sharded CPML run (phase 7b)
     del finals, final_psi
     # 64 steps: stream = twopass = torch, vacuum and --water-block
     equal_runs(p, 64, ("stream", "twopass", "torch"), label="--pml 10 ", pml=PML10)
@@ -963,7 +994,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
         r = subprocess.run(
-            [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--dispersive",
+            [sys.executable, "-m", "fdtd_tpu_torch", heat500, "--water-block", "--dispersive",
              "--sar", "--out", out],
             capture_output=True, text=True, timeout=900,
         )
@@ -1012,11 +1043,13 @@ def main() -> None:
               f"Debye 256^3 {backend}: fields, P and SAR finite, SAR peak {float(pw.max())!r} J/m^3, "
               f"|Pz| max {float(res.pol.pz.abs().max())!r} ({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
         finals[backend], powers[backend], pols[backend] = res.state, pw, res.pol
+        main_rates[f"heating_256 --water-block --dispersive --sar {backend}"] = res.mcells_per_s
         del res
     d = max(maxdiff(finals["stream"], finals["twopass"]), maxdiff(pols["stream"], pols["twopass"]))
     d_acc = absdiff(powers["stream"], powers["twopass"])
     check(d == 0.0 and d_acc == 0.0,
           f"Debye 256^3 1000 steps: stream == twopass, fields and P max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
+    debye_ref = (finals["stream"], powers["stream"], pols["stream"])  # held against the sharded Debye run (7b)
     del finals, powers, pols
     # without SAR (s = 4: 16 sweeps + 2 trailing steps) and with it (s = 2:
     # 33 sweeps + 1), from random fields: stream == twopass == torch
@@ -1211,10 +1244,13 @@ def main() -> None:
               and resolve_backend(pd, "auto", dev, debye, True, dft=DFT1) == "stream",
               f"--dft at 256^3 {dtype}: auto resolves to stream for heating and Debye, to twopass for --pml 10 "
               "(stream when asked)")
-    with tempfile.TemporaryDirectory() as out:
+    # its outputs and log stay for the sharded CLI of phase 7b to be held against
+    dft_cli = tempfile.mkdtemp()
+    with contextlib.nullcontext(os.path.join(dft_cli, "one")) as out:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block",
-                            "--sar", "--dft", "2.45e10", "--out", out], capture_output=True, text=True, timeout=900)
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", heat500, "--water-block",
+                            "--sar", "--dft", "2.45e10", "--out", out, "--diag-log",
+                            os.path.join(dft_cli, "one.jsonl")], capture_output=True, text=True, timeout=900)
         cli_s = time.perf_counter() - t0
         lines = r.stdout.strip().splitlines()
         for line in lines[-4:]:
@@ -1228,10 +1264,11 @@ def main() -> None:
               f"{os.path.getsize(dft_path) if os.path.exists(dft_path) else 0} B, e_mag peak {e_peak!r}, sar.vtr "
               f"{os.path.getsize(sar_path) if os.path.exists(sar_path) else 0} B {r.stderr.strip()[-300:]}")
 
-    def monitored_pair(pm: Params, backends: tuple, wants: dict, label: str, **kw) -> None:
+    def monitored_pair(pm: Params, backends: tuple, wants: dict, label: str, **kw):
         """1000 steps of ``pm`` with --dft 2.45e10 through two backends:
         launch counts as ``wants``, phasors, fields (SAR map, psi, P) equal
-        bit for bit."""
+        bit for bit; returns the first backend's result (phase 7b holds the
+        sharded runs against it)."""
         res_b = {}
         for backend in backends:
             reset_counts()
@@ -1250,6 +1287,7 @@ def main() -> None:
                   f"{label} --dft 2.45e10 {backend}: phasors finite, shape {res.dft.phasors.shape}, |E| peak "
                   f"{peak!r} ({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
             res_b[backend] = res
+            main_rates[f"{label} --dft 2.45e10 {backend}"] = res.mcells_per_s
             del res
         a, b = (res_b[x] for x in backends)
         d = max(float(np.nan_to_num(np.abs(a.dft.phasors - b.dft.phasors), nan=np.inf).max()), maxdiff(a.state, b.state),
@@ -1258,16 +1296,17 @@ def main() -> None:
         check(d == 0.0, f"{label} --dft 2.45e10 1000 steps: {backends[0]} == {backends[1]}, phasors, fields"
                         f"{', SAR' if a.power_j is not None else ''}{', psi' if a.psi is not None else ''}"
                         f"{', P' if a.pol is not None else ''} max|diff| = {d!r}")
-        del res_b, a, b
+        del res_b, b
         torch.cuda.empty_cache()
+        return a
 
     sp_h = stream_plan.pick_plan(ph, lossy=True, sar=True, dft=DFT1).s
-    monitored_pair(ph, ("stream", "twopass"),
+    heat_dft_ref = monitored_pair(ph, ("stream", "twopass"),
                    {"stream": {"yee_stream_lossy_sar_dft": nh // sp_h},
                     "twopass": {"yee_update_h": nh, "yee_update_e_lossy": nh, "dft_accum": nh}},
                    "heating_256 --water-block --sar", materials=water, accumulate_power=True)
     sp_p = stream_plan.pick_plan(p, pml=PML10, dft=DFT1).s
-    monitored_pair(p, ("auto", "stream"),
+    pml_dft_ref = monitored_pair(p, ("auto", "stream"),
                    {"auto": {"yee_update_h_pml": n, "yee_update_e_pml": n, "dft_accum": n},
                     "stream": {"yee_stream_pml_dft": n // sp_p}},
                    "bench_256 --pml 10", pml=PML10)
@@ -1600,12 +1639,18 @@ def main() -> None:
     phase_done("7 sharded runs")
 
     # the CLI: bench_256 (snapshots every 500 steps) and the heating scene with --shard 4 write the unsharded outputs
+    def array_diff(x: np.ndarray, y: np.ndarray) -> float:
+        """Largest |x - y| in the arrays' own type, a NaN counted as inf (the
+        difference of two unequal floats is never 0, so 0 means equal)."""
+        diff = np.abs(x - y)
+        return math.inf if np.isnan(diff).any() else float(diff.max())
+
     def same_outputs(a_dir: str, b_dir: str) -> tuple[list, float]:
         names = sorted(os.path.basename(f) for f in glob.glob(os.path.join(a_dir, "*.vtr")))
         d = 0.0
         for nm in names:
             a, b = read_vtr_cell_arrays(os.path.join(a_dir, nm)), read_vtr_cell_arrays(os.path.join(b_dir, nm))
-            d = max([d] + [float(np.nan_to_num(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)), nan=np.inf).max()) for k in a])
+            d = max([d] + [array_diff(a[k], b[k]) for k in a])
         return names, d
 
     with tempfile.TemporaryDirectory() as out:
@@ -1621,30 +1666,32 @@ def main() -> None:
               f"CLI bench_256 (rate 500) --shard 4 writes the unsharded snapshots {names} (max|diff| {d!r}) and "
               f"energy log in {cli_s:.1f} s: {r4.stdout.strip().splitlines()[-2:]} {r4.stderr.strip()[-300:]}")
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
-                            "--shard", "4", "--out", os.path.join(out, "heat")], capture_output=True, text=True,
-                           timeout=900)
+        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block",
+                            "--sar", "--shard", "4", "--out", os.path.join(out, "heat")], capture_output=True,
+                           text=True, timeout=900)
         cli_s = time.perf_counter() - t0
         names, d = same_outputs(heat_cli, os.path.join(out, "heat"))
         check(r.returncode == 0 and len(names) == 12 and "sar.vtr" in names and d == 0.0,
               f"CLI heating_256 --water-block --sar --shard 4 in {cli_s:.1f} s writes the unsharded snapshots and "
               f"sar.vtr ({len(names)} files, max|diff| {d!r}): {r.stdout.strip().splitlines()[-3:]} "
               f"{r.stderr.strip()[-300:]}")
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/bench_256.txt", "--shard", "4",
-                            "--pml", "10", "--no-output"], capture_output=True, text=True, timeout=300)
-        check(r.returncode == 1 and "ROADMAP queue 1 item 11b" in r.stderr,
-              f"CLI --shard 4 --pml 10 exits {r.returncode} naming item 11b: {r.stderr.strip()[-200:]}")
     shutil.rmtree(heat_cli, ignore_errors=True)
     shutil.rmtree(bench_cli, ignore_errors=True)
-    for key, val in shard_rates.items():
-        print(f"rate 256^3 1000 steps {key}: {val!r} Mcells/s ({smi})")
 
     # the halo copies at 256^3: a sweep's exchange (every field, s planes;
     # s + 1 with SAR) and a two-pass step's (E above, H below; one plane)
-    def event_ms(fn, reps=20) -> float:
+    def event_ms(fn, reps=20, queued=True) -> float:
+        """Milliseconds a call of ``fn`` keeps the card busy, over ``reps``
+        calls between two CUDA events.  ``queued``: a spin kernel (about
+        25 ms) runs first, so the calls are all enqueued before the first
+        event starts and the host's time per launch (tens of microseconds
+        for a shard kernel's wrapper) is not counted; without it the events
+        take the host's pace too (the halo copies: a launch a copy)."""
         fn()
         torch.cuda.synchronize()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(50_000_000)
         a.record()
         for _ in range(reps):
             fn()
@@ -1661,10 +1708,10 @@ def main() -> None:
                 depth = sharded_fast.pick_shard_plan(p, mesh_x, lossy=sar_x, sar=sar_x)[0].s + int(sar_x)
             shards = shard_mesh.scatter(p, initial_state(p, dev), mesh_x, depth)
             if label.startswith("stream"):
-                ms_x = event_ms(lambda: shard_mesh.exchange(mesh_x, shards))
+                ms_x = event_ms(lambda: shard_mesh.exchange(mesh_x, shards), queued=False)
             else:
                 ms_x = event_ms(lambda: (shard_mesh.exchange(mesh_x, shards, E_COMPONENTS, ("hi",)),
-                                               shard_mesh.exchange(mesh_x, shards, H_COMPONENTS, ("lo",))))
+                                         shard_mesh.exchange(mesh_x, shards, H_COMPONENTS, ("lo",))), queued=False)
             halo_ms[(spec, label)] = ms_x
             print(f"halo copies 256^3 --shard {spec} {label} (depth {depth}): {ms_x!r} ms per "
                   f"{'sweep' if label.startswith('stream') else 'step'} ({smi})")
@@ -1751,6 +1798,388 @@ def main() -> None:
     del arrays
     torch.cuda.empty_cache()
     phase_done("7 CLI, halo copies, shard kernel times")
+
+    # -- 7b. CPML, Debye media and the monitors under --shard ---------------
+    from fdtd_tpu_torch.ops.cpml import psi_part_shapes
+
+    PML_SHARD = PMLConfig(cells=10)  # on the 35 x 27 x 31 grid its k and j slabs straddle two shards
+    shard_sums: dict[str, int] = {}  # the fp32 DFT sums a shard launch reads and writes (bytes), beside shard_work
+
+    def pdiff(a, b) -> float:
+        """``maxdiff`` over tensors that may be empty (a shard's psi parts)."""
+        ta, tb = (x.tensors() if hasattr(x, "tensors") else tuple(x) for x in (a, b))
+        return max([absdiff(x, y) for x, y in zip(ta, tb) if x.numel()] + [0.0])
+
+    def shard_kernels_11b(pk: Params, arrays: dict, shape: tuple, label: str, mats=None, sar: bool = False,
+                          pml: PMLConfig | None = None, nf: int = 0, s: int = 4) -> None:
+        """On every shard of a ``shape`` mesh (random fields, psi, sums and
+        map): with ``pml`` K10-shard (H and E, the variant of ``mats``), with
+        ``nf`` frequencies K4-shard and, in computation mode and nf <= 2,
+        K3-shard-DFT at ``s``, against their plain versions: owned cells,
+        psi parts, sums and map bit for bit."""
+        mesh_k = shard_mesh.make_mesh(shape, "cuda")
+        host = update_coefs(pk, mats, "cpu")
+        dt = field_dtype(pk)
+        canon = state_from_numpy(arrays, dev, dt)
+        acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (pk.maxk, pk.maxj, pk.maxi)), dtype=torch.float32, device=dev)
+                if sar else None)
+        shards = shard_mesh.scatter(pk, canon, mesh_k, s + 1 if nf else 1, acc0,
+                                    random_psi(pk, pml) if pml is not None else None, pml, None,
+                                    random_sums(pk, nf) if nf else None)
+        src = make_source_plan(pk) if pk.mode == Mode.COMPUTATION else None
+        patch = src.patch if src is not None else None
+        err: dict[str, float] = {}
+        for sh in shards:
+            cf = shard_coefs(pk, host, sh.box, dev)
+            if pml is not None:
+                cp = make_cpml(pk, pml, cf, dev, sh.box)
+                h_name = ("yee_update_h_het_pml" if cf.heterogeneous_mu else "yee_update_h_pml") + "_shard"
+                e_name = ("yee_update_e_lossy_pml" if cf.lossy else "yee_update_e_pml") + "_shard"
+                a, b = sh.state.clone(), sh.state.clone()
+                pa, pb = sh.psi.clone(), sh.psi.clone()
+                yee.update_h(pk, a, cf, patch, cp, pa, box=sh.box)
+                cp.plain_h(pk, b, cf, pb, patch)
+                torch.cuda.synchronize()
+                err[h_name] = max(err.get(h_name, 0.0), owned_diff(a, b, sh.box), pdiff(pa, pb))
+                yee.update_e(pk, a, cf, cp, pa, box=sh.box)
+                cp.plain_e(pk, b, cf, pb)
+                torch.cuda.synchronize()
+                err[e_name] = max(err.get(e_name, 0.0), owned_diff(a, b, sh.box), pdiff(pa, pb))
+            if nf:
+                w = torch.tensor(rng.uniform(-1.0, 1.0, (2, nf)), dtype=torch.float32, device=dev)
+                da, db = tuple(t.clone() for t in sh.dacc), tuple(t.clone() for t in sh.dacc)
+                dft_ops.accumulate_e(pk, sh.state, w, da, sh.box)
+                dft_ops.plain_accumulate_e(pk, sh.state, w, db, sh.box)
+                torch.cuda.synchronize()
+                err["dft_accum_shard"] = max(err.get("dft_accum_shard", 0.0), maxdiff(da, db))
+            if nf and nf <= 2 and src is not None:
+                window = tuple(h - lo for lo, h in zip(sh.box.own_lo, sh.box.own_hi))
+                plan = stream_plan.plan_for(pk, s, cf.lossy, cf.heterogeneous_mu, sar, dft=(DFT1 if nf == 1 else DFT2),
+                                            window=window)
+                st = sh.state.clone()
+                amps = torch.tensor(rng.uniform(-1.0, 1.0, s), dtype=torch.float64, device=dev)
+                prof = profile_tensor(src, dev)
+                apply_source(src, st, amps[0], prof, sh.box)
+                ez_rows, hx_rows = sweep_drive_rows(src, amps, s, dt, prof)
+                drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+                wts = torch.tensor(rng.uniform(-1.0, 1.0, (s, 2, nf)), dtype=torch.float32, device=dev)
+                out = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+                want = FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+                da, db = tuple(t.clone() for t in sh.dacc), tuple(t.clone() for t in sh.dacc)
+                aa, ab = (sh.power.clone(), sh.power.clone()) if sar else (None, None)
+                stream.sweep(pk, st, out, cf, plan, drive, aa, dacc=da, wts=wts, box=sh.box)
+                stream.plain_sweep(pk, st, cf, s, drive, want, ab, dacc=db, wts=wts, box=sh.box)
+                torch.cuda.synchronize()
+                name = plan.kernel + "_shard"
+                d = max(owned_diff(out, want, sh.box), maxdiff(da, db), absdiff(aa, ab) if sar else 0.0)
+                err[name] = max(err.get(name, 0.0), d)
+                if window[0] % plan.tk or window[1] % plan.tj or window[2] % plan.ti:
+                    ragged.add((name, s, window))
+        for name, d in err.items():
+            record_err(name, d)
+            check(d == 0.0, f"{name} == plain on every shard of a {shape} mesh, {label}: max|diff| = {d!r}")
+
+    ragged.clear()
+    for dtype in ("float32", "bfloat16"):
+        for mode in (Mode.VALIDATION, Mode.COMPUTATION):
+            # K, J, I = 34, 26, 30: 35 planes over 4 (9, 9, 9, 8) and 3 (12, 12, 11); j over 3 (9 each)
+            pk = Params(length=0.0305, width=0.0265, height=0.0345, spatial_step=0.001, time_step=1e-12,
+                        simulation_time=1e-11, sampling_rate=5, mode=mode, dtype=dtype)
+            arrays = {c: rng.uniform(-1.0, 1.0, pk.padded_shape) for c in COMPONENTS}
+            wb_k = water_block(pk)
+            fe_k = ferrite_slab(pk, base=water_block(pk, lo=(0.0, 0.1, 0.1), hi=(0.9, 0.9, 0.9)))
+            lab = f"{dtype} {mode.name} {pk.padded_shape}"
+            for shape in ((4, 1, 1), (3, 1, 1), (2, 3, 1)):
+                shard_kernels_11b(pk, arrays, shape, lab + " vacuum, 10-cell CPML", pml=PML_SHARD)
+                shard_kernels_11b(pk, arrays, shape, lab + " water + ferrite into the 10-cell CPML", fe_k,
+                                  pml=PML_SHARD)
+                for nf in ((1, 2, 3) if shape == (4, 1, 1) else (1, 2)):
+                    shard_kernels_11b(pk, arrays, shape, lab + " vacuum", nf=nf)
+                if mode == Mode.COMPUTATION:
+                    for mats_k, sar_k, scene_k in ((wb_k, False, "water"), (wb_k, True, "water + SAR"),
+                                                   (fe_k, False, "water + ferrite"),
+                                                   (fe_k, True, "water + ferrite + SAR")):
+                        for nf in (1, 2):
+                            shard_kernels_11b(pk, arrays, shape, f"{lab} {scene_k}", mats_k, sar_k, nf=nf)
+    check(bool(ragged), f"shard DFT tiles that do not divide the shard were checked: {sorted(ragged)[:4]} ...")
+    # the 256^3 shard geometries of the 1000-step runs below, both dtypes
+    mesh4 = shard_mesh.make_mesh((4, 1, 1), "cuda")
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(ph, dtype=dtype)
+        arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
+        shard_kernels_11b(pd, arrays, (4, 1, 1), f"{dtype} random 256^3 --pml 10", pml=PML10)
+        shard_kernels_11b(pd, arrays, (4, 1, 1), f"{dtype} random 256^3 ferrite + --pml 10",
+                          ferrite, pml=PML10)
+        for shape in ((4, 1, 1), (2, 2, 1)):
+            s_hd = sharded_fast.pick_shard_plan(pd, shard_mesh.make_mesh(shape, "cuda"), lossy=True, sar=True,
+                                                dft=DFT1)[0].s
+            shard_kernels_11b(pd, arrays, shape, f"{dtype} heating random 256^3, its --dft plan", water, True, nf=1,
+                              s=s_hd)
+        del arrays
+    torch.cuda.empty_cache()
+    phase_done("7b shard kernels vs plain")
+
+    # 1000 steps with --shard 4 through run_simulation, each equal to its
+    # unsharded run of phases 6b-6d bit for bit, with launch counts, rates
+    # and the allocator's peak against stream_plan.shard_bytes
+    def shard_model(pm: Params, depth: int, stream_: bool, **flags) -> int:
+        boxes_m = shard_mesh.shard_boxes(pm, mesh4, depth)
+        pml_m = flags.get("pml")
+        psi_m = ([sum(math.prod(x) for x in psi_part_shapes(pm, pml_m, b).values()) for b in boxes_m]
+                 if pml_m is not None else None)
+        return max(stream_plan.shard_bytes(pm, [(b.shape, math.prod(b.cell_shape(pm))) for b in boxes_m],
+                                           mesh4.devices, mesh4.devices[0], stream_, psi_elems=psi_m, **flags).values())
+
+    def sharded_1000(label: str, pm: Params, ref, want: dict, model: int, unsharded: str, backend: str = "auto",
+                     **kw) -> None:
+        """1000 steps of ``pm`` with --shard 4 on ``backend``: launch counts
+        ``want``, the result equal to ``ref`` (an unsharded RunResult or a
+        tuple of state, power, psi, pol) and the peak within ``model``."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        notices = []
+        reset_counts()
+        res = run_simulation(pm, dev, write_snapshots=False, backend=backend, shard="4", log=notices.append, **kw)
+        counts = counts_now()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        r_state, r_power, r_psi, r_pol = ((ref.state, ref.power_j, ref.psi, ref.pol) if hasattr(ref, "state")
+                                          else ref)
+        d = maxdiff(res.state, r_state)
+        parts = ["fields"]
+        for got_x, want_x, what in ((res.power_j, r_power, "SAR"), (res.psi, r_psi, "psi"), (res.pol, r_pol, "P")):
+            if want_x is not None:
+                d = max(d, maxdiff(got_x, want_x) if what != "SAR" else absdiff(got_x, want_x))
+                parts.append(what)
+        for attr, what in (("dft", "phasors"), ("probes", "probe rows")):
+            want_m = getattr(ref, attr, None)
+            if want_m is not None:
+                a_m, b_m = ((getattr(res, attr).phasors, want_m.phasors) if attr == "dft"
+                            else (getattr(res, attr).values, want_m.values))
+                d = max(d, float(np.nan_to_num(np.abs(a_m - b_m), nan=np.inf).max()))
+                parts.append(what)
+        shard_rates[f"{label} --shard 4 {backend}"] = res.mcells_per_s
+        want_c = expect(**want)
+        check(counts == want_c and d == 0.0 and res.iterations == 1000 and 0 < peak <= model,
+              f"{label} --shard 4 {backend}: 1000 steps == unsharded ({', '.join(parts)}), max|diff| = {d!r}; launch "
+              f"counts {counts} == {want_c}; peak device memory {peak} B <= shard_bytes {model} B "
+              f"({peak / model!r} of it); {res.mcells_per_s:.1f} Mcells/s (unsharded {unsharded} "
+              f"{main_rates[unsharded]:.1f}) {notices}")
+        for name in want:
+            if name not in main_counts:
+                main_counts[name] = counts[name]
+                paths[name] = f"{label} --shard 4 {backend}"
+        del res
+
+    sharded_1000("bench_256 --pml 10", p, (pml_ref[0], None, pml_ref[1], None),
+                 dict(yee_update_h_pml_shard=4 * n, yee_update_e_pml_shard=4 * n),
+                 shard_model(p, 1, False, pml=PML10), "bench_256 --pml 10 twopass", pml=PML10)
+    del pml_ref
+    s_hd = sharded_fast.pick_shard_plan(ph, mesh4, lossy=True, sar=True, dft=DFT1)[0].s
+    for backend in ("auto", "twopass"):
+        want = (dict(yee_stream_lossy_sar_dft_shard=4 * (nh // s_hd), yee_update_h_shard=4 * (nh % s_hd),
+                     yee_update_e_lossy_shard=4 * (nh % s_hd), dft_accum_shard=4 * (nh % s_hd))
+                if backend == "auto" else
+                dict(yee_update_h_shard=4 * nh, yee_update_e_lossy_shard=4 * nh, dft_accum_shard=4 * nh))
+        sharded_1000("heating_256 --water-block --sar --dft 2.45e10", ph, heat_dft_ref, {k: v for k, v in want.items() if v},
+                     shard_model(ph, s_hd + 1 if backend == "auto" else 1, backend == "auto", lossy=True, sar=True,
+                                 dft=DFT1),
+                     f"heating_256 --water-block --sar --dft 2.45e10 {'stream' if backend == 'auto' else backend}",
+                     backend, materials=water, accumulate_power=True, dft=DFT1)
+    del heat_dft_ref
+    sharded_1000("bench_256 --pml 10 --dft 2.45e10", p, pml_dft_ref,
+                 dict(yee_update_h_pml_shard=4 * n, yee_update_e_pml_shard=4 * n, dft_accum_shard=4 * n),
+                 shard_model(p, 1, False, pml=PML10, dft=DFT1), "bench_256 --pml 10 --dft 2.45e10 auto", pml=PML10,
+                 dft=DFT1)
+    del pml_dft_ref
+    sharded_1000("heating_256 --water-block --dispersive --sar", ph, debye_ref[:2] + (None, debye_ref[2]), {},
+                 shard_model(ph, 1, False, sar=True, ade=True), "heating_256 --water-block --dispersive --sar stream",
+                 materials=debye, accumulate_power=True)
+    del debye_ref
+    # probes and the H sums (--probe x3 --dft-fields eh): twopass unsharded, then on 4 slabs (auto: twopass)
+    t0 = time.perf_counter()
+    res_m = run_simulation(p, dev, write_snapshots=False, backend="twopass", dft=dft_eh, probes=probes2,
+                           log=lambda m: None)
+    main_rates["bench_256 --probe x3 --dft 2.45e10 --dft-fields eh twopass"] = res_m.mcells_per_s
+    sharded_1000("bench_256 --probe x3 --dft 2.45e10 --dft-fields eh", p, res_m,
+                 dict(yee_update_h_shard=4 * n, yee_update_e_shard=4 * n, dft_accum_shard=4 * n),
+                 shard_model(p, 1, False, dft=dft_eh), "bench_256 --probe x3 --dft 2.45e10 --dft-fields eh twopass",
+                 dft=dft_eh, probes=probes2)
+    check(float(np.abs(res_m.probes.values[:, 2]).max()) > 0 and res_m.probes.values.shape == (n, 3, 6),
+          f"the probe rows move: {res_m.probes.values.shape}, peak {float(np.abs(res_m.probes.values).max())!r} "
+          f"({time.perf_counter() - t0:.1f} s for both runs)")
+    del res_m
+    torch.cuda.empty_cache()
+
+    # the other variants on 4 slabs, from random fields: CPML with the
+    # water + ferrite load and SAR on twopass (66 steps), and the DFT bands
+    # of every material variant with nf = 2 on stream (16 sweeps and 2
+    # trailing two-pass steps with dft_accum), == their unsharded runs
+    def shard_load(pm: Params, mats, sar: bool, backend: str, label: str, pml=None, dft=None) -> dict:
+        tv = time_values(pm)[:N_LOADS]
+        xs_l = scan_inputs(pm, tv) + (dft_weights(dft, tv) if dft is not None else ())
+        init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
+        outs = []
+        for sharded in (False, True):
+            s_l = state_from_numpy(init, dev, torch.float32)
+            extra = dict(power=zero_power_acc(pm, dev) if sar else None, psi=init_psi(pm, pml, dev) if pml else None,
+                         pml=pml, pol=None, dacc=zero_dft_acc(pm, dft, dev) if dft is not None else None)
+            if not sharded:
+                make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft)(
+                    s_l, xs_l, extra["power"], extra["psi"], None, extra["dacc"])
+            else:
+                run_l = (sharded_fast.make_sharded_stream_runner(pm, mesh4, mats, sar, dft=dft) if backend == "stream"
+                         else sharded_step_mod.make_sharded_chunk_runner(pm, mesh4, mats, sar, backend, pml, dft))
+                shards = shard_mesh.scatter(pm, s_l, mesh4, run_l.depth, **extra)
+                reset_counts()
+                run_l(shards, xs_l)
+                torch.cuda.synchronize()
+                counts = counts_now()
+                shard_mesh.gather(pm, shards, s_l, **extra)
+                del shards
+            outs.append((s_l, extra))
+        (a, ea), (b, eb) = outs
+        d = maxdiff(a, b)
+        for key in ("power", "psi", "dacc"):
+            if ea[key] is not None:
+                d = max(d, maxdiff(ea[key], eb[key]) if key != "power" else absdiff(ea[key], eb[key]))
+        check(d == 0.0, f"heating_256 {label} --shard 4 {backend}, {N_LOADS} steps from random fields == unsharded: "
+                        f"max|diff| = {d!r}; launch counts {counts}")
+        return counts
+
+    counts = shard_load(ph, ferrite, True, "twopass", "--water-block --ferrite-slab --sar --pml 10", pml=PML10)
+    want = expect(yee_update_h_het_pml_shard=4 * N_LOADS, yee_update_e_lossy_pml_shard=4 * N_LOADS)
+    check(counts == want, f"--water-block --ferrite-slab --sar --pml 10 --shard 4 launch counts {counts} == {want}")
+    for name in ("yee_update_h_het_pml_shard", "yee_update_e_lossy_pml_shard"):
+        main_counts[name] = counts[name]
+        paths[name] = f"heating_256 --water-block --ferrite-slab --sar --pml 10 --shard 4 twopass ({N_LOADS} steps)"
+    for mats_l, sar_l, scene_l in ((None, False, ""), (water, False, "--water-block "),
+                                   (ferrite, False, "--water-block --ferrite-slab "),
+                                   (ferrite, True, "--water-block --ferrite-slab --sar ")):
+        counts = shard_load(ph, mats_l, sar_l, "stream", f"{scene_l}--dft (nf=2)", dft=DFT2)
+        lossy_l = mats_l is not None
+        plan_l = sharded_fast.pick_shard_plan(ph, mesh4, lossy=lossy_l, het=lossy_l and mats_l.mu_r is not None,
+                                              sar=sar_l, dft=DFT2)[0]
+        kname = plan_l.kernel + "_shard"
+        trail = N_LOADS % plan_l.s
+        h_l = "yee_update_h_het_shard" if lossy_l and mats_l.mu_r is not None else "yee_update_h_shard"
+        e_l = "yee_update_e_lossy_shard" if lossy_l else "yee_update_e_shard"
+        want = expect(**{kname: 4 * (N_LOADS // plan_l.s), h_l: 4 * trail, e_l: 4 * trail, "dft_accum_shard": 4 * trail})
+        check(counts == want and trail, f"{scene_l}--dft (nf=2) --shard 4 stream launch counts {counts} == {want}")
+        if kname not in main_counts:
+            main_counts[kname] = counts[kname]
+            paths[kname] = f"heating_256 {scene_l}--dft 2.45e10,1.5e10 --shard 4 stream ({N_LOADS} steps)"
+    torch.cuda.empty_cache()
+    phase_done("7b sharded runs")
+
+    # the CLI with --shard 4 writes the unsharded outputs: --pml 10 (rate 500;
+    # snapshots and the radiated_W log) and the heating scene with --dft
+    # 2.45e10 (snapshots, sar.vtr, dft_00.vtr, log)
+    with tempfile.TemporaryDirectory() as out:
+        for label, argv, ref_dir, ref_log, n_files in (
+                ("bench_256 (rate 500) --pml 10", [params_pml, "--pml", "10"], os.path.join(pml_cli, "r"),
+                 os.path.join(pml_cli, "diag.jsonl"), 3),
+                ("heating_256 (rate 500) --water-block --sar --dft 2.45e10",
+                 [heat500, "--water-block", "--sar", "--dft", "2.45e10"],
+                 os.path.join(dft_cli, "one"), os.path.join(dft_cli, "one.jsonl"), 5)):
+            sub = os.path.join(out, str(n_files))
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", *argv, "--shard", "4", "--out", sub,
+                                "--diag-log", sub + ".jsonl"], capture_output=True, text=True, timeout=900)
+            cli_s = time.perf_counter() - t0
+            names, d = same_outputs(ref_dir, sub)
+            logs = [open(path).read() if os.path.exists(path) else None for path in (ref_log, sub + ".jsonl")]
+            check(r.returncode == 0 and len(names) == n_files and d == 0.0 and logs[0] == logs[1]
+                  and logs[0] is not None and len(logs[0].splitlines()) >= 3,
+                  f"CLI {label} --shard 4 in {cli_s:.1f} s writes the unsharded {names} (max|diff| {d!r}) and energy "
+                  f"log: {r.stdout.strip().splitlines()[-3:]} {r.stderr.strip()[-300:]}")
+    for tmp in (pml_cli, dft_cli, os.path.dirname(heat500)):
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, val in shard_rates.items():
+        print(f"rate 256^3 1000 steps {key}: {val!r} Mcells/s ({smi})")
+
+    # each new shard kernel's time at 256^3 on a middle slab of --shard 4,
+    # scattered as its runner scatters it, beside its plain version and its
+    # bound (what the launch reads and writes once)
+    arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}
+    w1 = torch.tensor([[0.5], [0.25]], dtype=torch.float32, device=dev)
+    for dtype in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dtype)
+        fp32 = dtype == "float32"
+        canon_t = state_from_numpy(arrays, dev, field_dtype(pd))
+        # K10-shard: H and E, vacuum and the het-mu H / lossy E variants
+        s1 = shard_mesh.scatter(pd, canon_t, mesh_t, 1, psi=init_psi(pd, PML10, dev), pml=PML10,
+                                dacc=zero_dft_acc(pd, DFT1, dev))[1]
+        box1 = s1.box
+        v_own = math.prod(h - lo for lo, h in zip(box1.own_lo, box1.own_hi))
+        c_own = math.prod(box1.cell_shape(pd))
+        part_n = psi_part_shapes(pd, PML10, box1)
+        psi_h1 = sum(math.prod(part_n[t]) for t in cpml.H_TERMS)
+        psi_e1 = sum(math.prod(part_n[t]) for t in cpml.E_TERMS)
+        for mats_t, h_name, e_name in ((None, "yee_update_h_pml_shard", "yee_update_e_pml_shard"),
+                                       (ferrite, "yee_update_h_het_pml_shard", "yee_update_e_lossy_pml_shard")):
+            cf1 = shard_coefs(pd, coefs_of(pd, mats_t), box1, dev)
+            cp1 = make_cpml(pd, PML10, cf1, dev, box1)
+            k_h = event_ms(lambda: yee.update_h(pd, s1.state, cf1, patch_t, cp1, s1.psi, box=box1))
+            k_e = event_ms(lambda: yee.update_e(pd, s1.state, cf1, cp1, s1.psi, box=box1))
+            if fp32:
+                ms[h_name] = (k_h, event_ms(lambda: cp1.plain_h(pd, s1.state, cf1, s1.psi, patch_t), reps=5))
+                ms[e_name] = (k_e, event_ms(lambda: cp1.plain_e(pd, s1.state, cf1, s1.psi), reps=5))
+                het_t = cf1.heterogeneous_mu
+                # H: H (and hf) over the owned window, E one plane past it, the H psi parts in; H and psi out
+                shard_work[h_name] = ((3 + (3 if het_t else 0)) * v_own + 3 * window_plus(box1, "hi") + psi_h1,
+                                      3 * v_own + psi_h1, 15 * v_own + 5 * psi_h1, 0)
+                shard_work[e_name] = ((3 + (6 if cf1.lossy else 0)) * v_own + 3 * window_plus(box1, "lo") + psi_e1,
+                                      3 * v_own + psi_e1, (18 if cf1.lossy else 15) * v_own + 5 * psi_e1, 0)
+            else:
+                ms_bf16[h_name], ms_bf16[e_name] = k_h, k_e
+            del cf1, cp1
+        # K4-shard: E over the owned window and the plane above it in, the sums in and out
+        k_ms = event_ms(lambda: dft_ops.accumulate_e(pd, s1.state, w1, s1.dacc, box1))
+        if fp32:
+            ms["dft_accum_shard"] = (k_ms, event_ms(lambda: dft_ops.plain_accumulate_e(pd, s1.state, w1, s1.dacc, box1)))
+            shard_work["dft_accum_shard"] = (3 * window_plus(box1, "hi"), 0, 24 * c_own, 0)
+            shard_sums["dft_accum_shard"] = 48 * c_own
+        else:
+            ms_bf16["dft_accum_shard"] = k_ms
+        del s1
+        # K3-shard-DFT: the five variants at their --shard 4 plan with nf = 1
+        for mats_t, sar_t in ((None, False), (water, False), (water, True), (ferrite, False), (ferrite, True)):
+            lossy_t = mats_t is not None
+            het_t = lossy_t and mats_t.mu_r is not None
+            plan_t = sharded_fast.pick_shard_plan(pd, mesh_t, lossy=lossy_t, het=het_t, sar=sar_t, dft=DFT1)[1]
+            k_name = plan_t.kernel + "_shard"
+            sh = shard_mesh.scatter(pd, canon_t, mesh_t, plan_t.s + 1, zero_power_acc(pd, dev) if sar_t else None,
+                                    dacc=zero_dft_acc(pd, DFT1, dev))[1]
+            cf = shard_coefs(pd, coefs_of(pd, mats_t), sh.box, dev)
+            box = sh.box
+            v_box, v_own = math.prod(box.shape), math.prod(tuple(h - lo for lo, h in zip(box.own_lo, box.own_hi)))
+            c_own = math.prod(box.cell_shape(pd))
+            src = make_source_plan(pd)
+            amps = torch.tensor(rng.uniform(-1.0, 1.0, plan_t.s), dtype=torch.float64, device=dev)
+            ez_rows, hx_rows = sweep_drive_rows(src, amps, plan_t.s, field_dtype(pd), profile_tensor(src, dev))
+            drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+            out_t = FieldState(*(torch.empty_like(t) for t in sh.state.tensors()))
+            wts = w1.reshape(1, 2, 1).expand(plan_t.s, 2, 1).contiguous()
+            k_ms = event_ms(lambda: stream.sweep(pd, sh.state, out_t, cf, plan_t, drive, sh.power, dacc=sh.dacc,
+                                                 wts=wts, box=box))
+            if fp32:
+                plans[k_name] = plan_t
+                ms[k_name] = (k_ms, event_ms(lambda: stream.plain_sweep(pd, sh.state, cf, plan_t.s, drive, out_t,
+                                                                        sh.power, dacc=sh.dacc, wts=wts, box=box),
+                                             reps=3))
+                in_vals = (6 + (6 if lossy_t else 0) + (3 if het_t else 0)) * v_box
+                ops = plan_t.s * (v_own * (15 + (18 if lossy_t else 15)) + (20 * c_own if sar_t else 0) + 24 * c_own)
+                shard_work[k_name] = (in_vals, 6 * v_own, ops, c_own if sar_t else 0)
+                shard_sums[k_name] = 48 * c_own
+            else:
+                ms_bf16[k_name] = k_ms
+            del sh, cf, out_t
+        del canon_t
+    del arrays
+    torch.cuda.empty_cache()
+    phase_done("7b CLI and kernel times")
 
     # -- 8. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
@@ -1977,7 +2406,7 @@ def main() -> None:
         component (24 a cell)."""
         if name in shard_work:  # a middle slab of --shard 4: what it reads, the owned window out; sigma, the map
             vals_in, vals_out, ops_n, sar_cells = shard_work[name]
-            return (vals_in + vals_out) * item + sar_cells * (item + 8), ops_n
+            return (vals_in + vals_out) * item + sar_cells * (item + 8) + shard_sums.get(name, 0), ops_n
         if name == "dft_accum":  # three E in, the six sums in and out
             return 3 * item * cells + 48 * cells_k, 24 * cells_k
         if name.endswith("_dft"):
@@ -2013,7 +2442,11 @@ def main() -> None:
                  "yee_stream_pml_dft", "yee_stream_lossy_pml_dft", "yee_stream_ade_dft", "yee_stream_ade_sar_dft",
                  "yee_update_h_shard", "yee_update_e_shard", "yee_stream_shard", "yee_update_h_het_shard",
                  "yee_update_e_lossy_shard", "yee_stream_lossy_shard", "yee_stream_lossy_sar_shard",
-                 "yee_stream_lossy_het_shard", "yee_stream_lossy_het_sar_shard"):
+                 "yee_stream_lossy_het_shard", "yee_stream_lossy_het_sar_shard", "yee_update_h_pml_shard",
+                 "yee_update_e_pml_shard", "yee_update_h_het_pml_shard", "yee_update_e_lossy_pml_shard",
+                 "dft_accum_shard", "yee_stream_dft_shard", "yee_stream_lossy_dft_shard",
+                 "yee_stream_lossy_sar_dft_shard", "yee_stream_lossy_het_dft_shard",
+                 "yee_stream_lossy_het_sar_dft_shard"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)
@@ -2024,11 +2457,12 @@ def main() -> None:
               f"launches {main_counts[name]} on {paths[name]}")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name == "dft_accum" else
+            "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name.startswith("dft_accum") else
                                                 "yee_stream.cu" if "stream" in name else "yee_twopass.cu"),
             "replaces": ("fdtd_tpu/ops/pallas_stream.py:1538" if name.startswith("yee_stream") and
                          name.endswith("_shard") else
-                         "fdtd_tpu/ops/pallas_stream.py:1225" if name == "dft_accum" else
+                         "fdtd_tpu/parallel/sharded_pml_fast.py:341" if name.endswith("_pml_shard") else
+                         "fdtd_tpu/ops/pallas_stream.py:1225" if name.startswith("dft_accum") else
                          "fdtd_tpu/ops/pallas_dispersive.py:182" if name.startswith("yee_update_e_ade") else
                          "fdtd_tpu/ops/pallas_dispersive.py:464" if name.startswith("yee_stream_ade") else
                          "fdtd_tpu/ops/pallas_stream_pml.py:329" if name.startswith("yee_stream") and

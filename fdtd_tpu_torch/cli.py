@@ -15,9 +15,9 @@ fields live (default ``cuda``); without CUDA the run stops with a message
 that names ``--device cpu``.  ``--shard Z`` or ``ZxY`` runs the scene on a
 mesh of shards (the counterpart of the reference's ``mpirun -np N``; with
 fewer CUDA devices than shards they share the devices round-robin, and
-``--device cpu`` puts them on the host); with ``--pml``, ``--dispersive``,
-``--dft`` or ``--probe`` it stops with exit code 1 naming ROADMAP item
-11b.
+``--device cpu`` puts them on the host), with every flag above but
+``--dispersive`` together with ``--pml``, which stops with exit code 1 and
+the JAX CLI's message.
 
 It takes every flag of the JAX CLI: ``--backend`` also takes the JAX
 backend names (mapped with a notice: ``xla`` -> ``torch``, ``pallas`` and
@@ -124,8 +124,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "cell (k,j,i); repeatable; writes probes.csv")
     ap.add_argument("--shard", default=None, metavar="ZxY",
                     help="spatial decomposition over devices: Z z-slabs (e.g. 4) or a Z x Y mesh (e.g. 4x2); "
-                         "more shards than CUDA devices share them round-robin (not with --pml, --dispersive, "
-                         "--dft or --probe: ROADMAP queue 1 item 11b)")
+                         "more shards than CUDA devices share them round-robin (not --dispersive with --pml)")
     # the JAX CLI's flags of features not ported yet: accepted, and refused
     # with the ROADMAP item that ports them
     ap.add_argument("--thermal", type=float, default=None, metavar="SECONDS",
@@ -331,7 +330,7 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         # no CUDA for --device cuda, twopass/stream on the CPU or in float64, a bad
         # device string, an unbuilt --temporal-steps, a diverged run, a bad --shard
-        # spec or a composition --shard does not take yet (NotImplementedError)
+        # spec or --dispersive with --pml under --shard
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:

@@ -24,10 +24,20 @@
 // (neighbouring threads share them through L1/L2) and looping over nf, a
 // runtime value: the kernel has no limit on the number of frequencies.
 // Offsets are 64-bit.
+//
+// Shards (fdtd_tpu_torch/parallel; replaces the per-shard sharded cell
+// means of fdtd_tpu/parallel/sharded_fast.py's trailing steps): with BOX a
+// launch covers a shard's owned cells, reading E from the shard's arrays
+// (its halo plane above, copied in before, gives the +1 edges) and adding
+// to the shard's (nf, nc, cnk, cnj, cni) part of the sums; every cell gets
+// the operations of the whole-grid launch on the same values.  The
+// whole-grid instantiation compiles as before (only BOX reads the box).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -38,20 +48,37 @@ __device__ __forceinline__ float mean4(float a, float b, float c, float d) {
     return __fmul_rn(0.25f, __fadd_rn(__fadd_rn(__fadd_rn(a, b), c), d));
 }
 
-template <typename T>
+// A shard's part: its arrays hold (nk, nj, ni) elements from the global
+// cell (ok, oj, oi); its cells are (cnk, cnj, cni) from (ck0, cj0, ci0)
+struct Box {
+    int nj, ni, ok, oj, oi;
+    int ck0, cj0, ci0, cnk, cnj, cni;
+};
+
+template <typename T, bool BOX>
 __global__ void __launch_bounds__(256)
 dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez, int K, int J,
                  int I, const float* __restrict__ w, int nf, int nc, float* __restrict__ re,
-                 float* __restrict__ im) {
-    const int64_t cells = (int64_t)K * J * I;
+                 float* __restrict__ im, Box g) {
+    const int64_t cells = BOX ? (int64_t)g.cnk * g.cnj * g.cni : (int64_t)K * J * I;
     const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (cell >= cells) return;
-    const int i = (int)(cell % I);
-    const int j = (int)((cell / I) % J);
-    const int k = (int)(cell / ((int64_t)I * J));
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const int64_t o = (int64_t)k * sk + (int64_t)j * sj + i;
+    int64_t o, sj, sk;
+    if constexpr (BOX) {
+        const int i = g.ci0 + (int)(cell % g.cni);
+        const int j = g.cj0 + (int)((cell / g.cni) % g.cnj);
+        const int k = g.ck0 + (int)(cell / ((int64_t)g.cni * g.cnj));
+        sj = g.ni;
+        sk = sj * g.nj;
+        o = (int64_t)(k - g.ok) * sk + (int64_t)(j - g.oj) * sj + (i - g.oi);
+    } else {
+        const int i = (int)(cell % I);
+        const int j = (int)((cell / I) % J);
+        const int k = (int)(cell / ((int64_t)I * J));
+        sj = (int64_t)I + 1;
+        sk = sj * ((int64_t)J + 1);
+        o = (int64_t)k * sk + (int64_t)j * sj + i;
+    }
     const float mx = mean4(ld(ex, o), ld(ex, o + sk), ld(ex, o + sj), ld(ex, o + sk + sj));
     const float my = mean4(ld(ey, o), ld(ey, o + 1), ld(ey, o + sk), ld(ey, o + sk + 1));
     const float mz = mean4(ld(ez, o), ld(ez, o + sj), ld(ez, o + 1), ld(ez, o + sj + 1));
@@ -72,25 +99,47 @@ dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // e: three pointers (ex, ey, ez), each (K+1, J+1, I+1) in the storage dtype;
 // w: 2*nf fp32 (cos, then sin); re, im: (nf, nc, K, J, I) fp32, updated in
-// place.  Launches on `stream` and returns cudaGetLastError().
+// place.  geom: null for the whole grid, or a shard's 12 ints: its arrays'
+// extents (nk, nj, ni), the global index of their origin (ok, oj, oi) and
+// its owned window (wk0, wk1, wj0, wj1, wi0, wi1), global; e are then the
+// shard's arrays, which must hold the window and one plane above it where
+// the grid goes on, and re, im its (nf, nc, cnk, cnj, cni) part, the cells
+// of the window.  Launches on `stream` and returns cudaGetLastError().
 extern "C" {
 
-int dft_accum(void* const* e, int K, int J, int I, const void* w, int nf, int nc, void* re, void* im,
-              int dtype, void* stream) {
+int dft_accum(void* const* e, int K, int J, int I, const int* geom, const void* w, int nf, int nc, void* re,
+              void* im, int dtype, void* stream) {
     if (K < 1 || J < 1 || I < 1 || nf < 1 || nc < 3 || w == nullptr || re == nullptr || im == nullptr)
         return (int)cudaErrorInvalidValue;
-    const int64_t cells = (int64_t)K * J * I;
+    Box g{};
+    int64_t cells = (int64_t)K * J * I;
+    if (geom != nullptr) {
+        const int n[3] = {K + 1, J + 1, I + 1};
+        for (int a = 0; a < 3; ++a) {
+            const int ext = geom[a], org = geom[3 + a], lo = geom[6 + 2 * a], hi = geom[7 + 2 * a];
+            if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi || org > lo || org + ext < std::min(hi + 1, n[a]))
+                return (int)cudaErrorInvalidValue;
+        }
+        g = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[8], geom[10],
+                std::min(geom[7], K) - geom[6], std::min(geom[9], J) - geom[8], std::min(geom[11], I) - geom[10]};
+        if (g.cnk < 1 || g.cnj < 1 || g.cni < 1) return (int)cudaErrorInvalidValue;
+        cells = (int64_t)g.cnk * g.cnj * g.cni;
+    }
     const unsigned blocks = (unsigned)((cells + 255) / 256);
     cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0)
-        dft_accum_kernel<float><<<blocks, 256, 0, st>>>((const float*)e[0], (const float*)e[1], (const float*)e[2],
-                                                        K, J, I, (const float*)w, nf, nc, (float*)re, (float*)im);
-    else if (dtype == 1)
-        dft_accum_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-            (const __nv_bfloat16*)e[0], (const __nv_bfloat16*)e[1], (const __nv_bfloat16*)e[2], K, J, I,
-            (const float*)w, nf, nc, (float*)re, (float*)im);
-    else
+#define DFT_ACCUM_LAUNCH(T_, BOX_)                                                                              \
+    dft_accum_kernel<T_, BOX_><<<blocks, 256, 0, st>>>((const T_*)e[0], (const T_*)e[1], (const T_*)e[2], K, J, I, \
+                                                       (const float*)w, nf, nc, (float*)re, (float*)im, g)
+    if (dtype == 0) {
+        if (geom != nullptr) DFT_ACCUM_LAUNCH(float, true);
+        else DFT_ACCUM_LAUNCH(float, false);
+    } else if (dtype == 1) {
+        if (geom != nullptr) DFT_ACCUM_LAUNCH(__nv_bfloat16, true);
+        else DFT_ACCUM_LAUNCH(__nv_bfloat16, false);
+    } else {
         return (int)cudaErrorInvalidValue;
+    }
+#undef DFT_ACCUM_LAUNCH
     return (int)cudaGetLastError();
 }
 

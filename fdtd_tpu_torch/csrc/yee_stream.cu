@@ -134,8 +134,11 @@
 // segment whose lead-in and top read the halo planes, and on a sharded j
 // side its tiles' recompute halo reads the halo rows; the level-S values
 // of the owned window are those of the whole-grid sweep, bit for bit.  The
-// SAR map (and the DFT sums) of a shard cover its owned cells (the cell
-// box).  The whole grid is the box with no offset that owns everything.
+// SAR map and the DFT sums of a shard cover its owned cells (the cell box):
+// with the bands a shard's sweep replaces build_stream_shard_call(dft_nf > 0)
+// (fdtd_tpu/parallel/sharded_fast.py::make_sharded_stream_dft_runner), on
+// 1-D and 2-D meshes.  The whole grid is the box with no offset that owns
+// everything.
 //
 // Cost: the sweep reads each field once per halo-amplified tile and writes
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
@@ -378,7 +381,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
               int tk, int has_patch, int j0, int j1, int i0, int i1,
               const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
               PsiSweep<T> psw, AdeSweep<T> ade, DftSweep dft, Box g) {
-    static_assert(!BOX || (!PML && !ADE && !DFT), "CPML, Debye media and the DFT bands do not shard yet");
+    static_assert(!BOX || (!PML && !ADE), "the CPML and Debye sweeps have no shard variant");
     constexpr bool MEANS = SAR || DFT;  // cell means read E (work) one column past
     constexpr int SH = MEANS ? 1 : 0;   // so one column fewer is emitted
     constexpr int TJ = BJ - 2 * S - SH;
@@ -867,7 +870,8 @@ int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int
 
 // the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 8 CPML, 16 Debye):
 // the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands;
-// with BOX (a shard) the five of ops/stream_plan.py::SHARD_VARIANTS
+// with BOX (a shard) the five of ops/stream_plan.py::SHARD_VARIANTS, with or
+// without the bands
 template <typename T, bool DFT, bool BOX>
 int dispatch_variant(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, const Box& g,
                      float fh,
@@ -937,6 +941,9 @@ int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int
         psw.n = n;
     }
     const float fe_ = (lossy || ade) ? 0.f : fe;
+    if (boxed && dft.re != nullptr)
+        return dispatch_variant<T, true, true>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
+                                               i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
     if (boxed)
         return dispatch_variant<T, false, true>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
                                                 i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
@@ -976,8 +983,9 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 // dtype: 0 = float32, 1 = bfloat16.  in, out: six pointers each (ex, ey,
 // ez, hx, hy, hz); out must not alias in.  K, J, I: the grid (maxk, maxj,
 // maxi); geom: null for arrays of the whole grid, or a shard's 12 ints
-// (see box_of), which the vacuum and material variants take (acc and
-// sigma then cover the window's cells).  fh, fe: the vacuum H and E
+// (see box_of), which the vacuum and material variants take, with or
+// without the DFT bands (acc, sigma and the sums then cover the window's
+// cells).  fh, fe: the vacuum H and E
 // factors (fh is the H factor unless hf is given; fe is unused by the
 // lossy and Debye variants).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
 // in the storage dtype (unused without the patch).  The arrays a variant
@@ -999,7 +1007,8 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 //           sums, updated in place; w the sweep's (s, 2, nf) fp32 (cos,
 //           sin) rows.
 // The nine variants of ops/stream_plan.py::VARIANTS are built, each with
-// and without the bands.  Launches on `stream` and returns
+// and without the bands, and the five shard variants, each with and without
+// them.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 extern "C" {
 
@@ -1018,7 +1027,7 @@ int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, con
         return (int)cudaErrorInvalidValue;
     const int code = (lossy ? 1 : 0) | (het ? 2 : 0) | (sar ? 4 : 0) | (pml ? 8 : 0) | (ade ? 16 : 0);
     Box g;
-    if ((geom != nullptr && (pml || ade || re != nullptr)) || !box_of(geom, K, J, I, s, sar || re != nullptr, &g))
+    if ((geom != nullptr && (pml || ade)) || !box_of(geom, K, J, I, s, sar || re != nullptr, &g))
         return (int)cudaErrorInvalidValue;
     const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc};
     const bool boxed = geom != nullptr;

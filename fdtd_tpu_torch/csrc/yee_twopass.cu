@@ -71,7 +71,14 @@
 // and Hz on the k=0 source patch keep their values: the curl update and
 // the four adds are skipped there, the recursions still run.  The psi
 // traffic is the slab volume: about 12 * 2n / N of the field state per
-// step, read and written once.
+// step, read and written once.  A shard's CPML launch (replacing the TPU's
+// per-shard K1/K2 plus XLA slab corrections,
+// fdtd_tpu/parallel/sharded_pml_fast.py::make_sharded_pml_fast_step) holds
+// its part of each psi array: the slab rows whose cells lie in its owned
+// window (ops/cpml.py::psi_part_slices; a k slab may straddle two shards,
+// and a shard may hold none of a slab), addressed through the part's origin
+// and extents (PsiPart); the canonical slab row still picks the (b, c) of
+// the table.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -142,6 +149,44 @@ __device__ __forceinline__ int64_t psi_index(int axis, int lk, int lj, int li, i
     return *row < 0 ? -1 : ((int64_t)lk * Lj + lj) * w + *row;
 }
 
+constexpr int BX = 64;  // threads along i
+constexpr int BY = 4;   // threads along j
+
+// A shard's part of the psi arrays of a pass (fdtd_tpu_torch/ops/cpml.py::
+// psi_part_slices: the rows of each term's slab-restricted array whose cells
+// lie in the shard's owned window): per term t, its extents e1, e2 along
+// axes 1 and 2 and its origin in the canonical array, folded into
+// base[t] = (o0 * e1 + o1) * e2 + o2.
+struct PsiPart {
+    int64_t base[6];
+    int e1[6], e2[6];
+};
+
+// The part of the grid a launch updates: the arrays hold (nk, nj, ni)
+// elements whose local (0, 0, 0) is the global cell (ok, oj, oi), and the
+// launch updates the global window [wk0, wk0 + gridDim.z) x [wj0, wj1) x
+// [wi0, wi1) (a shard's owned planes; the whole grid: every cell, from 0);
+// a CPML shard launch indexes its psi parts through pp.
+struct Box {
+    int nj, ni;      // local extents along j and i (the strides)
+    int ok, oj, oi;  // global index of the local origin
+    int wk0, wj0, wi0, wj1, wi1;
+    PsiPart pp;
+};
+
+// the offset of cell (lk, lj, li) of a term's (Lk, Lj, Li) region (global
+// coordinates less the region's origin) in a shard's part of the term's
+// psi array, or -1 outside its slabs; *row: its canonical slab row
+__device__ __forceinline__ int64_t psi_part_index(const PsiPart& pp, int t, int axis, int lk, int lj, int li,
+                                                  int Lk, int Lj, int Li, int n, int* row) {
+    int c[3] = {lk, lj, li};
+    const int len[3] = {Lk, Lj, Li};
+    *row = slab_row(c[axis], len[axis], n);
+    if (*row < 0) return -1;
+    c[axis] = *row;
+    return ((int64_t)c[0] * pp.e1[t] + c[1]) * pp.e2[t] + c[2] - pp.base[t];
+}
+
 // psi of term t at q (slab row `row`) <- b*psi + c*d, stored; returns the
 // new psi in fp32 (the value the field adds)
 template <typename T>
@@ -155,29 +200,20 @@ __device__ __forceinline__ float psi_step(const Psi<T>& ps, int t, int64_t q, in
 }
 
 // field v <- v + sign * f * (the new psi of term t), where the cell lies in
-// that term's slab along `axis`
-template <typename T>
-__device__ __forceinline__ float psi_add(const Psi<T>& ps, int t, int axis, int sign, float v, float f,
-                                         float d, int lk, int lj, int li, int Lk, int Lj, int Li) {
+// that term's slab along `axis` (BOX: in a shard's psi part, g.pp)
+template <bool BOX, typename T>
+__device__ __forceinline__ float psi_add(const Psi<T>& ps, const Box& g, int t, int axis, int sign, float v,
+                                         float f, float d, int lk, int lj, int li, int Lk, int Lj, int Li) {
     int row;
-    const int64_t q = psi_index(axis, lk, lj, li, Lk, Lj, Li, ps.n, &row);
+    int64_t q;
+    if constexpr (BOX)
+        q = psi_part_index(g.pp, t, axis, lk, lj, li, Lk, Lj, Li, ps.n, &row);
+    else
+        q = psi_index(axis, lk, lj, li, Lk, Lj, Li, ps.n, &row);
     if (q < 0) return v;
     const float corr = __fmul_rn(f, psi_step(ps, t, q, row, d));
     return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
 }
-
-constexpr int BX = 64;  // threads along i
-constexpr int BY = 4;   // threads along j
-
-// The part of the grid a launch updates: the arrays hold (nk, nj, ni)
-// elements whose local (0, 0, 0) is the global cell (ok, oj, oi), and the
-// launch updates the global window [wk0, wk0 + gridDim.z) x [wj0, wj1) x
-// [wi0, wi1) (a shard's owned planes; the whole grid: every cell, from 0).
-struct Box {
-    int nj, ni;      // local extents along j and i (the strides)
-    int ok, oj, oi;  // global index of the local origin
-    int wk0, wj0, wi0, wj1, wi1;
-};
 
 // the global cell of this thread and its local offset; false outside the
 // window.  BOX: a shard's launch, its geometry the runtime box g; without it
@@ -245,8 +281,8 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
         const float dk = __fsub_rn(ld(ey, c + sk), ld(ey, c));
         const float dj = __fsub_rn(ld(ez, c + sj), ld(ez, c));
         const float v0 = __fadd_rn(ld(hx, c), __fmul_rn(fx, __fsub_rn(dk, dj)));
-        float v = psi_add(ps, 0, 1, -1, v0, fx, dj, k, j, i, K, J, I + 1);
-        v = psi_add(ps, 1, 0, +1, v, fx, dk, k, j, i, K, J, I + 1);
+        float v = psi_add<BOX>(ps, g, 0, 1, -1, v0, fx, dj, k, j, i, K, J, I + 1);
+        v = psi_add<BOX>(ps, g, 1, 0, +1, v, fx, dk, k, j, i, K, J, I + 1);
         if (!in_patch) st(hx, c, v);
     }
     if (k < K && i < I) {  // Hy: (K, J+1, I); hy_x (+, i, dEz), hy_z (-, k, dEx)
@@ -254,8 +290,8 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
         const float di = __fsub_rn(ld(ez, c + 1), ld(ez, c));
         const float dk = __fsub_rn(ld(ex, c + sk), ld(ex, c));
         const float v0 = __fadd_rn(ld(hy, c), __fmul_rn(fy, __fsub_rn(di, dk)));
-        float v = psi_add(ps, 2, 2, +1, v0, fy, di, k, j, i, K, J + 1, I);
-        v = psi_add(ps, 3, 0, -1, v, fy, dk, k, j, i, K, J + 1, I);
+        float v = psi_add<BOX>(ps, g, 2, 2, +1, v0, fy, di, k, j, i, K, J + 1, I);
+        v = psi_add<BOX>(ps, g, 3, 0, -1, v, fy, dk, k, j, i, K, J + 1, I);
         st(hy, c, v);
     }
     if (j < J && i < I) {  // Hz: (K+1, J, I); hz_y (+, j, dEx), hz_x (-, i, dEy)
@@ -263,8 +299,8 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
         const float dj = __fsub_rn(ld(ex, c + sj), ld(ex, c));
         const float di = __fsub_rn(ld(ey, c + 1), ld(ey, c));
         const float v0 = __fadd_rn(ld(hz, c), __fmul_rn(fz, __fsub_rn(dj, di)));
-        float v = psi_add(ps, 4, 1, +1, v0, fz, dj, k, j, i, K + 1, J, I);
-        v = psi_add(ps, 5, 2, -1, v, fz, di, k, j, i, K + 1, J, I);
+        float v = psi_add<BOX>(ps, g, 4, 1, +1, v0, fz, dj, k, j, i, K + 1, J, I);
+        v = psi_add<BOX>(ps, g, 5, 2, -1, v, fz, di, k, j, i, K + 1, J, I);
         if (!in_patch) st(hz, c, v);
     }
 }
@@ -288,8 +324,8 @@ e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict
                         : leap(ld(ex, c), f, a1, a0, b1, b0);
         if (PML) {  // Ex: (K-1, J-1, I) from (1, 1, 0); ex_y (+, j, dHz), ex_z (-, k, dHy)
             const float fe = LOSSY ? ld(cf.b[0], c) : f;
-            v = psi_add(ps, 0, 1, +1, v, fe, __fsub_rn(a1, a0), k - 1, j - 1, i, K - 1, J - 1, I);
-            v = psi_add(ps, 1, 0, -1, v, fe, __fsub_rn(b1, b0), k - 1, j - 1, i, K - 1, J - 1, I);
+            v = psi_add<BOX>(ps, g, 0, 1, +1, v, fe, __fsub_rn(a1, a0), k - 1, j - 1, i, K - 1, J - 1, I);
+            v = psi_add<BOX>(ps, g, 1, 0, -1, v, fe, __fsub_rn(b1, b0), k - 1, j - 1, i, K - 1, J - 1, I);
         }
         st(ex, c, v);
     }
@@ -299,8 +335,8 @@ e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict
                         : leap(ld(ey, c), f, a1, a0, b1, b0);
         if (PML) {  // Ey: (K-1, J, I-1) from (1, 0, 1); ey_x (-, i, dHz), ey_z (+, k, dHx)
             const float fe = LOSSY ? ld(cf.b[1], c) : f;
-            v = psi_add(ps, 2, 2, -1, v, fe, __fsub_rn(b1, b0), k - 1, j, i - 1, K - 1, J, I - 1);
-            v = psi_add(ps, 3, 0, +1, v, fe, __fsub_rn(a1, a0), k - 1, j, i - 1, K - 1, J, I - 1);
+            v = psi_add<BOX>(ps, g, 2, 2, -1, v, fe, __fsub_rn(b1, b0), k - 1, j, i - 1, K - 1, J, I - 1);
+            v = psi_add<BOX>(ps, g, 3, 0, +1, v, fe, __fsub_rn(a1, a0), k - 1, j, i - 1, K - 1, J, I - 1);
         }
         st(ey, c, v);
     }
@@ -310,8 +346,8 @@ e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict
                         : leap(ld(ez, c), f, a1, a0, b1, b0);
         if (PML) {  // Ez: (K, J-1, I-1) from (0, 1, 1); ez_x (+, i, dHy), ez_y (-, j, dHx)
             const float fe = LOSSY ? ld(cf.b[2], c) : f;
-            v = psi_add(ps, 4, 2, +1, v, fe, __fsub_rn(a1, a0), k, j - 1, i - 1, K, J - 1, I - 1);
-            v = psi_add(ps, 5, 1, -1, v, fe, __fsub_rn(b1, b0), k, j - 1, i - 1, K, J - 1, I - 1);
+            v = psi_add<BOX>(ps, g, 4, 2, +1, v, fe, __fsub_rn(a1, a0), k, j - 1, i - 1, K, J - 1, I - 1);
+            v = psi_add<BOX>(ps, g, 5, 1, -1, v, fe, __fsub_rn(b1, b0), k, j - 1, i - 1, K, J - 1, I - 1);
         }
         st(ez, c, v);
     }
@@ -378,13 +414,15 @@ ade_e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __rest
 
 // geom: null (the whole grid) or 12 ints: the arrays' extents (nk, nj, ni),
 // the global index of their origin (ok, oj, oi) and the window to update
-// (wk0, wk1, wj0, wj1, wi0, wi1), global
+// (wk0, wk1, wj0, wj1, wi0, wi1), global; a CPML launch's geom has 30 more:
+// per term of its pass, the origin (o0, o1, o2) of the shard's psi part in
+// the canonical array and its extents (e1, e2) along axes 1 and 2
 struct Launch {
     Box box;
     dim3 grid;
 };
 
-Launch launch_of(const int* geom, int K, int J, int I) {
+Launch launch_of(const int* geom, int K, int J, int I, bool pml = false) {
     Launch l{};
     if (geom == nullptr) {
         l.box = Box{J + 1, I + 1, 0, 0, 0, 0, 0, 0, J + 1, I + 1};
@@ -392,14 +430,22 @@ Launch launch_of(const int* geom, int K, int J, int I) {
         return l;
     }
     l.box = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[8], geom[10], geom[9], geom[11]};
+    if (pml)
+        for (int t = 0; t < 6; ++t) {
+            const int* q = geom + 12 + 5 * t;
+            l.box.pp.e1[t] = q[3];
+            l.box.pp.e2[t] = q[4];
+            l.box.pp.base[t] = ((int64_t)q[0] * q[3] + q[1]) * q[4] + q[2];
+        }
     l.grid = dim3((unsigned)((geom[11] - geom[10] + BX - 1) / BX), (unsigned)((geom[9] - geom[8] + BY - 1) / BY),
                   (unsigned)(geom[7] - geom[6]));
     return l;
 }
 
 // a window inside the arrays and the grid, with a neighbour plane on each
-// side that is not a wall of the grid (the halos the passes read)
-bool valid_geom(const int* geom, int K, int J, int I) {
+// side that is not a wall of the grid (the halos the passes read); a CPML
+// launch's psi parts with non-negative origins and extents
+bool valid_geom(const int* geom, int K, int J, int I, bool pml = false) {
     if (geom == nullptr) return true;
     const int n[3] = {K + 1, J + 1, I + 1};
     for (int a = 0; a < 3; ++a) {
@@ -407,6 +453,9 @@ bool valid_geom(const int* geom, int K, int J, int I) {
         if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi) return false;
         if (org > std::max(lo - 1, 0) || org + ext < std::min(hi + 1, n[a])) return false;
     }
+    if (pml)
+        for (int q = 12; q < 42; ++q)
+            if (geom[q] < 0) return false;
     return true;
 }
 
@@ -424,19 +473,17 @@ template <typename T, bool HET, bool PML>
 int launch_h(void* const* e, void* const* h, int K, int J, int I, const int* geom, float f, int has_patch,
              int j0, int j1, int i0, int i1, void* const* hf, void* const* psi, const void* tab, int n,
              cudaStream_t s) {
-    if ((PML && geom != nullptr) || !valid_geom(geom, K, J, I)) return (int)cudaErrorInvalidValue;
+    if (!valid_geom(geom, K, J, I, PML)) return (int)cudaErrorInvalidValue;
     Coefs<T> c{};
     if (HET)
         for (int q = 0; q < 3; ++q) c.a[q] = (const T*)hf[q];
-    const Launch l = launch_of(geom, K, J, I);
+    const Launch l = launch_of(geom, K, J, I, PML);
     const Psi<T> ps = psi_args<T>(psi, tab, n);
-    if constexpr (!PML) {
-        if (geom != nullptr) {
-            h_kernel<T, HET, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
-                (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
-                K, J, I, f, has_patch, j0, j1, i0, i1, c, ps, l.box);
-            return (int)cudaGetLastError();
-        }
+    if (geom != nullptr) {
+        h_kernel<T, HET, PML, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+            (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
+            K, J, I, f, has_patch, j0, j1, i0, i1, c, ps, l.box);
+        return (int)cudaGetLastError();
     }
     h_kernel<T, HET, PML, false><<<l.grid, dim3(BX, BY), 0, s>>>(
         (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
@@ -447,22 +494,20 @@ int launch_h(void* const* e, void* const* h, int K, int J, int I, const int* geo
 template <typename T, bool LOSSY, bool PML>
 int launch_e(void* const* h, void* const* e, int K, int J, int I, const int* geom, float f,
              void* const* cf, void* const* psi, const void* tab, int n, cudaStream_t s) {
-    if ((PML && geom != nullptr) || !valid_geom(geom, K, J, I)) return (int)cudaErrorInvalidValue;
+    if (!valid_geom(geom, K, J, I, PML)) return (int)cudaErrorInvalidValue;
     Coefs<T> c{};
     if (LOSSY)
         for (int q = 0; q < 3; ++q) {
             c.a[q] = (const T*)cf[q];
             c.b[q] = (const T*)cf[3 + q];
         }
-    const Launch l = launch_of(geom, K, J, I);
+    const Launch l = launch_of(geom, K, J, I, PML);
     const Psi<T> ps = psi_args<T>(psi, tab, n);
-    if constexpr (!PML) {
-        if (geom != nullptr) {
-            e_kernel<T, LOSSY, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
-                (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
-                K, J, I, f, c, ps, l.box);
-            return (int)cudaGetLastError();
-        }
+    if (geom != nullptr) {
+        e_kernel<T, LOSSY, PML, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+            (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
+            K, J, I, f, c, ps, l.box);
+        return (int)cudaGetLastError();
     }
     e_kernel<T, LOSSY, PML, false><<<l.grid, dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
@@ -547,8 +592,9 @@ int yee_update_e_lossy(void* const* h, void* const* e, void* const* cf, int K, i
 }
 
 // The CPML variants.  psi: the pass's six psi arrays in _TERMS order (see
-// Psi); tab: the (6, 2, 2n) (b, c) table; n: the slab depth.  hf and cf as
-// above; f is the H factor (vacuum H), the E factor cb (vacuum E).
+// Psi; a shard's parts with geom, which then has 42 ints: see launch_of);
+// tab: the (6, 2, 2n) (b, c) table; n: the slab depth.  hf and cf as above;
+// f is the H factor (vacuum H), the E factor cb (vacuum E).
 int yee_update_h_pml(void* const* e, void* const* h, void* const* psi, const void* tab, int n,
                      int K, int J, int I, const int* geom, float f, int has_patch, int j0, int j1, int i0,
                      int i1, int dtype, void* stream) {

@@ -232,17 +232,19 @@ def accumulate_power(p: Params, s: FieldState, sigma_cells: torch.Tensor | None,
             acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))
 
 
-def accumulate_work(p: Params, work: tuple[torch.Tensor, ...], acc: torch.Tensor) -> None:
+def accumulate_work(p: Params, work: tuple[torch.Tensor, ...], acc: torch.Tensor, box: Box | None = None) -> None:
     """One step's deposition in a Debye load, ``acc += work_cell_means(w)
     * dt`` rounded to fp32, in place: the true dielectric and ionic work
     of the ADE update (``ops.dispersive.update_e_ade`` with ``work``), the
     per-step increment of ``fdtd_tpu.ops.dispersive``'s chunk runners.  A
     slab of k planes at a time, under the profiler range of
-    :func:`accumulate_power`."""
+    :func:`accumulate_power`.  With ``box``, a shard's cells (``work`` its
+    arrays with the halo plane above filled, ``acc`` its part of the map)."""
     dt = float(np.float32(p.time_step)) if work[0].dtype == torch.float32 else p.time_step
     kb = sar_slab_planes(p)
+    nk = acc.shape[0]
     with torch.profiler.record_function(SAR_LABEL):
-        for k_lo in range(0, p.maxk, kb):
-            k_hi = min(p.maxk, k_lo + kb)
-            inc = work_cell_means(p, *work, (k_lo, k_hi))
+        for k_lo in range(0, nk, kb):
+            k_hi = min(nk, k_lo + kb)
+            inc = work_cell_means(p, *work, (k_lo, k_hi), box)
             acc[k_lo:k_hi].add_((inc * dt).to(torch.float32))

@@ -25,6 +25,7 @@ import torch
 
 from . import diagnostics
 from .dft import DftConfig, accumulate
+from .grid import Box
 from .ops import dft as dft_ops
 from .params import Params
 from .state import FieldState
@@ -78,17 +79,20 @@ def probe_row(p: Params, s: FieldState, cells) -> torch.Tensor:
 
 
 def apply_monitors(p: Params, s: FieldState, weights: torch.Tensor | None, dft: DftConfig | None,
-                   cells, dacc, kernel: bool = True) -> torch.Tensor | None:
+                   cells, dacc, kernel: bool = True, box: Box | None = None) -> torch.Tensor | None:
     """One step of every enabled monitor on the final state ``s`` of the
     step: the DFT sums ``dacc`` in place (``weights``: the step's (2, nf)
     fp32 (cos, sin) row on the device; the E sums through the kernel's
     wrapper, or with ``kernel=False``, as the ``torch`` backend runs them,
     its plain version) and the probe row of ``cells`` (returned; None
-    without probes)."""
+    without probes).  With ``box`` (a shard's arrays, their +1 neighbour
+    planes filled) the sums are the shard's part over its owned cells and
+    ``cells`` are cells of its arrays."""
     if dft is not None:
-        (dft_ops.accumulate_e if kernel else dft_ops.plain_accumulate_e)(p, s, weights, dacc)
+        (dft_ops.accumulate_e if kernel else dft_ops.plain_accumulate_e)(p, s, weights, dacc, box)
         if dft.fields == "eh":
-            accumulate(diagnostics._h_cell_means(p, s), weights[0], weights[1], dacc, c0=3)
+            owned = box.local(*box.cells(p)) if box is not None else ()
+            accumulate(diagnostics._h_cell_means(p, s, *owned), weights[0], weights[1], dacc, c0=3)
     return probe_row(p, s, cells) if cells is not None else None
 
 

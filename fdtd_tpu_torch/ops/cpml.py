@@ -19,7 +19,11 @@ of :class:`PsiState` holds only the ``2 * cells`` rows of its PML axis
 (lo slab then hi slab) over its target's update region.  This is the port's
 hot layout and its checkpoint layout: the kernels (``csrc/yee_twopass.cu``,
 ``csrc/yee_stream.cu``) read and write these tensors in place, so nothing
-packs or unpacks between steps.
+packs or unpacks between steps.  A shard of a sharded run holds its part of
+each array: the slab rows whose cells lie in its owned window
+(:func:`psi_part_slices`; :func:`cut_psi` and :func:`join_psi` move them
+to and from the canonical arrays), and its corrections and plain passes
+(a :class:`Cpml` made with the shard's ``box``) work on its arrays.
 
 Per target the adds follow ``_TERMS``: the curl update, then the j/i-axis
 term(s), then the k-axis term, each add rounded on its own.  The correction
@@ -46,6 +50,7 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON, MU
+from ..grid import Box, full_box
 from ..params import Mode, Params
 from ..source import apply_source, make_source_plan, profile_tensor
 from ..state import FieldState, UpdateCoefs, field_dtype
@@ -212,6 +217,69 @@ def _shifted(sl, axis: int, d: int):
     return tuple(out)
 
 
+def psi_part_slices(p: Params, cfg: PMLConfig, box: Box | None = None) -> dict[str, tuple[slice, slice, slice]]:
+    """A shard's part of each term's slab-restricted array (:func:`psi_shapes`):
+    the slices of the canonical array whose cells lie in the box's owned
+    window (default: the whole grid, the whole array).  Along the term's PML
+    axis these are the slab rows that fall in the window, contiguous because
+    the hi slab's rows follow the lo slab's at higher planes; along the other
+    axes the region's cells in the window.  A part may be empty, hold part
+    of one slab (a k slab straddling two shards) or rows of both."""
+    box = box or full_box(p)
+    n = cfg.cells
+    regions = _update_regions(p)
+    out = {}
+    for name, target, _sign, axis, _src, _e in _TERMS:
+        sl = []
+        for a, r in enumerate(regions[target]):
+            w0, w1 = box.own_lo[a], box.own_hi[a]
+            if a == axis:
+                top = r.stop - 2 * n  # hi slab row q lies on plane top + q
+                rows = [(x0, x1) for x0, x1 in ((max(w0 - r.start, 0), min(w1 - r.start, n)),
+                                                 (max(w0 - top, n), min(w1 - top, 2 * n))) if x0 < x1]
+                a0, a1 = (rows[0][0], rows[-1][1]) if rows else (0, 0)
+            else:
+                a0, a1 = max(w0, r.start) - r.start, min(w1, r.stop) - r.start
+            sl.append(slice(a0, a1) if a1 > a0 else slice(0, 0))
+        out[name] = tuple(sl)
+    return out
+
+
+def psi_part_shapes(p: Params, cfg: PMLConfig, box: Box | None = None) -> dict[str, tuple[int, int, int]]:
+    """The shapes of a shard's psi parts (:func:`psi_part_slices`)."""
+    return {n: tuple(s.stop - s.start for s in sl) for n, sl in psi_part_slices(p, cfg, box).items()}
+
+
+def cut_psi(p: Params, cfg: PMLConfig, psi: PsiState, box: Box, device) -> PsiState:
+    """Copies of a shard's parts of the canonical ``psi`` on ``device``
+    (the counterpart of ``fdtd_tpu/parallel/sharded_pml_fast.py::
+    embed_psi_pack`` and ``sharded_step.embed_psi12``)."""
+    parts = {}
+    for n, sl in psi_part_slices(p, cfg, box).items():
+        view = getattr(psi, n)[sl]
+        parts[n] = torch.empty(view.shape, dtype=view.dtype, device=device).copy_(view)
+    return PsiState(**parts)
+
+
+def join_psi(p: Params, cfg: PMLConfig, part: PsiState, box: Box, psi: PsiState) -> None:
+    """Write a shard's parts into the canonical ``psi`` in place (the
+    counterpart of ``extract_psi_pack`` and ``extract_psi12``)."""
+    for n, sl in psi_part_slices(p, cfg, box).items():
+        getattr(psi, n)[sl].copy_(getattr(part, n))
+
+
+def psi_part_geometry(p: Params, cfg: PMLConfig, box: Box, names: tuple[str, ...]) -> list[int]:
+    """The kernels' view of a shard's psi parts of the terms ``names``: per
+    term its origin in the canonical array and its extents along axes 1
+    and 2, five ints."""
+    parts = psi_part_slices(p, cfg, box)
+    out = []
+    for n in names:
+        sl = parts[n]
+        out += [s.start for s in sl] + [sl[1].stop - sl[1].start, sl[2].stop - sl[2].start]
+    return out
+
+
 def build_plan(p: Params, cfg: PMLConfig, device) -> dict:
     """Per-term correction plan: ``{name: (lo_sl, hi_sl, sign, axis, src,
     target, b, c)}`` with the target's slab sub-regions in array
@@ -241,7 +309,32 @@ def build_plan(p: Params, cfg: PMLConfig, device) -> dict:
     return plan
 
 
-def make_cpml_corrections(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device):
+def _rows(t: torch.Tensor, axis: int, rows: slice) -> torch.Tensor:
+    return t.narrow(axis, rows.start, rows.stop - rows.start)
+
+
+def _box_runs(p: Params, cfg: PMLConfig, plan: dict, box: Box) -> dict:
+    """``plan`` (:func:`build_plan`) over a box's owned cells: ``{name:
+    (runs, b, c)}``, ``runs`` the target's slab cells in the window as
+    (local slices of the box's arrays, the rows of the term's psi part
+    along its PML axis), one run per slab the part holds, and ``b``, ``c``
+    the part's rows of the tables."""
+    parts = psi_part_slices(p, cfg, box)
+    out = {}
+    for name, (lo_sl, hi_sl, _sign, axis, _src, _tg, b, c) in plan.items():
+        rows = parts[name][axis]
+        runs = []
+        for q, sl in enumerate((lo_sl, hi_sl)):
+            lo = [max(s.start, w) for s, w in zip(sl, box.own_lo)]
+            hi = [min(s.stop, w) for s, w in zip(sl, box.own_hi)]
+            if all(h > g for g, h in zip(lo, hi)):
+                q0 = q * cfg.cells + lo[axis] - sl[axis].start - rows.start
+                runs.append((box.local(lo, hi), slice(q0, q0 + hi[axis] - lo[axis])))
+        out[name] = (runs, _rows(b, axis, rows), _rows(c, axis, rows))
+    return out
+
+
+def make_cpml_corrections(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device, box: Box | None = None):
     """``(h_correct, e_correct)``, both in place.
 
     ``h_correct(s, psi, patch=None)`` advances the six H-pass memory
@@ -252,16 +345,20 @@ def make_cpml_corrections(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device)
     had before the corrections (the recursions still run there).  The
     arithmetic runs in the compute type of the tensors it is given (fp32
     for bf16 storage, rounded once per add).  Outside the slabs nothing is
-    touched.
+    touched.  With ``box`` (a shard, :class:`~fdtd_tpu_torch.grid.Box`)
+    they work on the shard's arrays and its psi parts
+    (:func:`psi_part_slices`) over its owned cells, with its parts of the
+    coefficients, reading the neighbour planes from its halos; a cell gets
+    the operations of the whole grid's corrections.
     """
     _check_cfg(p, cfg)
-    return _corrections(cfg, coefs, build_plan(p, cfg, device))
+    box = box or full_box(p)
+    return _corrections(coefs, _box_runs(p, cfg, build_plan(p, cfg, device), box), box)
 
 
-def _corrections(cfg: PMLConfig, coefs: UpdateCoefs, plan: dict):
-    """The corrections of :func:`make_cpml_corrections` on the tables of
-    ``plan`` (:func:`build_plan`)."""
-    npml = cfg.cells
+def _corrections(coefs: UpdateCoefs, runs: dict, box: Box):
+    """The corrections of :func:`make_cpml_corrections` on the runs and
+    tables of ``runs`` (:func:`_box_runs`) over ``box``."""
 
     def factor(target: str, sub, e_pass: bool, cd: torch.dtype):
         if e_pass:
@@ -275,30 +372,29 @@ def _corrections(cfg: PMLConfig, coefs: UpdateCoefs, plan: dict):
         # sources are never targets within a pass (H reads E, E reads the
         # just-updated H), so every difference sees the pass's inputs
         for name, target, sign, axis, src, e in _TERMS:
-            if e != e_pass:
+            term_runs, b, c = runs[name]
+            if e != e_pass or not term_runs:
                 continue
-            lo_sl, hi_sl, _sign, _axis, _src, _tg, b, c = plan[name]
             u = getattr(s, src)
             cd = curl.compute_dtype(u.dtype)
             u = u.to(cd)
-            if e_pass:
-                d_lo = u[lo_sl] - u[_shifted(lo_sl, axis, -1)]
-                d_hi = u[hi_sl] - u[_shifted(hi_sl, axis, -1)]
-            else:
-                d_lo = u[_shifted(lo_sl, axis, 1)] - u[lo_sl]
-                d_hi = u[_shifted(hi_sl, axis, 1)] - u[hi_sl]
             ps = getattr(psi, name)
-            pnew = b.to(cd) * ps.to(cd) + c.to(cd) * torch.cat([d_lo, d_hi], dim=axis)
-            ps.copy_(pnew)
             t = getattr(s, target)
-            for sl, part in ((lo_sl, pnew.narrow(axis, 0, npml)), (hi_sl, pnew.narrow(axis, npml, npml))):
-                t[sl] = t[sl].to(cd) + (sign * factor(target, sl, e_pass, cd)) * part
+            for sl, rows in term_runs:
+                if e_pass:
+                    d = u[sl] - u[_shifted(sl, axis, -1)]
+                else:
+                    d = u[_shifted(sl, axis, 1)] - u[sl]
+                pr = _rows(ps, axis, rows)
+                pnew = _rows(b, axis, rows).to(cd) * pr.to(cd) + _rows(c, axis, rows).to(cd) * d
+                pr.copy_(pnew)
+                t[sl] = t[sl].to(cd) + (sign * factor(target, sl, e_pass, cd)) * pnew
 
     def h_correct(s: FieldState, psi: PsiState, patch: tuple[int, int, int, int] | None = None) -> None:
+        local = box.patch(patch) if patch is not None else None
         keep = None
-        if patch is not None:
-            j0, j1, i0, i1 = patch
-            psl = (0, slice(j0, j1), slice(i0, i1))
+        if local is not None:
+            psl = (0,) + local[0]
             keep = (s.hx[psl].clone(), s.hz[psl].clone())
         apply(s, psi, e_pass=False)
         if keep is not None:
@@ -313,23 +409,30 @@ def _corrections(cfg: PMLConfig, coefs: UpdateCoefs, plan: dict):
 
 @dataclasses.dataclass(frozen=True)
 class Cpml:
-    """Everything a runner needs for CPML on one device: the config, the
-    per-term plan of :func:`build_plan`, the kernels' (b, c) tables (one
-    (6, 2, 2*cells) tensor per pass: b and c of each term in ``_TERMS``
-    order, field dtype) and the corrections of
-    :func:`make_cpml_corrections`."""
+    """Everything a runner needs for CPML on one device, or on one shard
+    (``box``): the config, the kernels' (b, c) tables (one (6, 2, 2*cells)
+    tensor per pass: b and c of each term in ``_TERMS`` order over the
+    canonical slab rows, field dtype; a shard's kernels index them by
+    canonical row too), the corrections of :func:`make_cpml_corrections`
+    over the box, and, worked out once, the psi (part) shapes the passes
+    take and a shard's part geometry of each pass's terms
+    (:func:`psi_part_geometry`, keyed by ``H_TERMS`` and ``E_TERMS``)."""
 
     cfg: PMLConfig
     table_h: torch.Tensor
     table_e: torch.Tensor
     h_correct: object
     e_correct: object
+    box: Box | None = None
+    shapes: dict = dataclasses.field(default_factory=dict)
+    part_geometry: dict = dataclasses.field(default_factory=dict)
 
     def plain_h(self, p: Params, s: FieldState, coefs: UpdateCoefs, psi: PsiState,
                 patch: tuple[int, int, int, int] | None = None) -> None:
         """The plain version of the CPML H kernel: :func:`curl.update_h`
         then the H corrections, both leaving the source patch alone, in
-        place.  bf16 storage computes on fp32 copies and rounds once."""
+        place (with ``box``: a shard's owned cells and psi parts).  bf16
+        storage computes on fp32 copies and rounds once."""
         self._pass(p, s, coefs, psi, patch, e_pass=False)
 
     def plain_e(self, p: Params, s: FieldState, coefs: UpdateCoefs, psi: PsiState) -> None:
@@ -341,10 +444,10 @@ class Cpml:
         cd = curl.compute_dtype(s.ex.dtype)
         w, wp = (s, psi) if cd == s.ex.dtype else (s.to(dtype=cd), psi.to(cd))
         if e_pass:
-            curl.update_e(p, w, coefs)
+            curl.update_e(p, w, coefs, self.box)
             self.e_correct(w, wp)
         else:
-            curl.update_h(p, w, coefs, patch)
+            curl.update_h(p, w, coefs, patch, self.box)
             self.h_correct(w, wp, patch)
         if w is not s:
             for c in (("ex", "ey", "ez") if e_pass else ("hx", "hy", "hz")):
@@ -353,16 +456,22 @@ class Cpml:
                 getattr(psi, n).copy_(getattr(wp, n))
 
 
-def make_cpml(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device) -> Cpml:
-    """The :class:`Cpml` of ``cfg`` on the grid of ``p`` with ``coefs``."""
+def make_cpml(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device, box: Box | None = None) -> Cpml:
+    """The :class:`Cpml` of ``cfg`` on the grid of ``p`` with ``coefs``;
+    with ``box`` a shard's (``coefs`` its parts, psi its parts)."""
     _check_cfg(p, cfg)
+    if box is not None and box.is_full(p):
+        box = None
     plan = build_plan(p, cfg, device)
 
     def table(names):
         return torch.stack([torch.stack([plan[n][6].reshape(-1), plan[n][7].reshape(-1)]) for n in names])
 
-    h_correct, e_correct = _corrections(cfg, coefs, plan)
-    return Cpml(cfg, table(H_TERMS).contiguous(), table(E_TERMS).contiguous(), h_correct, e_correct)
+    h_correct, e_correct = _corrections(coefs, _box_runs(p, cfg, plan, box or full_box(p)), box or full_box(p))
+    geom = ({names: tuple(psi_part_geometry(p, cfg, box, names)) for names in (H_TERMS, E_TERMS)}
+            if box is not None else {})
+    return Cpml(cfg, table(H_TERMS).contiguous(), table(E_TERMS).contiguous(), h_correct, e_correct, box,
+                psi_part_shapes(p, cfg, box), geom)
 
 
 def make_pml_step(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device):

@@ -9,7 +9,10 @@ TPU's stacked and stripped layouts (``embed_dft_acc``/``crop_dft_acc``)
 have no counterpart: the sums stay canonical throughout.  On CUDA tensors
 it launches the kernel on the current stream of their device and allocates nothing; it
 raises on anything the kernel does not take.  On CPU tensors, and only
-there, it runs :func:`plain_accumulate_e`.
+there, it runs :func:`plain_accumulate_e`.  With ``box`` (a shard of a
+sharded run, :class:`~fdtd_tpu_torch.grid.Box`) it adds a shard's owned
+cells, read from the shard's arrays (the halo plane above filled), to the
+shard's (nf, nc, cnk, cnj, cni) part of the sums (K4-shard).
 
 ``launches`` counts kernel launches; plain-version calls do not count.
 """
@@ -22,12 +25,13 @@ import torch
 
 from .. import diagnostics
 from ..dft import accumulate
+from ..grid import Box
 from ..params import Params
 from ..state import FieldState
-from . import build
+from . import build, yee
 
 KERNEL_SOURCE = "dft_accum"
-launches = {"dft_accum": 0}
+launches = {"dft_accum": 0, "dft_accum_shard": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -43,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = build.load(KERNEL_SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dft_accum.argtypes = [ptr] + [i32] * 3 + [ptr, i32, i32, ptr, ptr, i32, ptr]
+        lib.dft_accum.argtypes = [ptr] + [i32] * 3 + [ptr, ptr, i32, i32, ptr, ptr, i32, ptr]
         lib.dft_accum.restype = i32
         lib.dft_error_string.argtypes = [i32]
         lib.dft_error_string.restype = ctypes.c_char_p
@@ -51,22 +55,25 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def plain_accumulate_e(p: Params, s: FieldState, weights: torch.Tensor, dacc) -> None:
+def plain_accumulate_e(p: Params, s: FieldState, weights: torch.Tensor, dacc, box: Box | None = None) -> None:
     """The plain version of the kernel: :func:`fdtd_tpu_torch.dft.
-    accumulate` on the cell means of :func:`diagnostics._e_cell_means`."""
-    accumulate(diagnostics._e_cell_means(p, s), weights[0], weights[1], dacc)
+    accumulate` on the cell means of :func:`diagnostics._e_cell_means`
+    (with ``box``, of a shard's owned cells)."""
+    cells = box.local(*box.cells(p)) if box is not None else ()
+    accumulate(diagnostics._e_cell_means(p, s, *cells), weights[0], weights[1], dacc)
 
 
-def check_sums(p: Params, like: torch.Tensor, dacc) -> tuple[int, int]:
+def check_sums(p: Params, like: torch.Tensor, dacc, box: Box | None = None) -> tuple[int, int]:
     """(nf, nc) of the (re, im) sums, which must be contiguous fp32
-    (nf, nc, maxk, maxj, maxi) tensors on the fields' device, nc 3 or 6."""
+    (nf, nc, maxk, maxj, maxi) tensors on the fields' device, nc 3 or 6
+    (a shard's: its cell box, ``box``)."""
     re, im = dacc
-    cells = (p.maxk, p.maxj, p.maxi)
+    cells = box.cell_shape(p) if box is not None else (p.maxk, p.maxj, p.maxi)
     for a in (re, im):
         if (a.device != like.device or a.dtype != torch.float32 or a.dim() != 5 or tuple(a.shape[2:]) != cells
                 or a.shape[1] not in (3, 6) or a.shape != re.shape or not a.is_contiguous()):
             raise ValueError(
-                f"the DFT sums must be contiguous float32 (nf, 3 or 6, {p.maxk}, {p.maxj}, {p.maxi}) tensors on "
+                f"the DFT sums must be contiguous float32 (nf, 3 or 6, *{cells}) tensors on "
                 f"{like.device}; got {a.dtype} {tuple(a.shape)} on {a.device}"
             )
     return re.shape[0], re.shape[1]
@@ -78,32 +85,37 @@ def check_weights(w: torch.Tensor, like: torch.Tensor, shape: tuple[int, ...]) -
                          f"{w.dtype} {tuple(w.shape)} on {w.device}")
 
 
-def accumulate_e(p: Params, s: FieldState, weights: torch.Tensor, dacc) -> None:
+def accumulate_e(p: Params, s: FieldState, weights: torch.Tensor, dacc, box: Box | None = None) -> None:
     """Add the step of the final state ``s`` to the E components of the
     (re, im) sums ``dacc`` in place; ``weights``: the step's (2, nf) fp32
-    (cos, sin) row on the fields' device."""
+    (cos, sin) row on the fields' device; ``box``: a shard's arrays and
+    its part of the sums."""
+    if box is not None and box.is_full(p):
+        box = None
     dev = s.ex.device
     if any(t.device != dev for t in (s.ex, s.ey, s.ez)):
         raise ValueError("the E tensors must all be on one device")
-    nf, nc = check_sums(p, s.ex, dacc)
+    nf, nc = check_sums(p, s.ex, dacc, box)
     check_weights(weights, s.ex, (2, nf))
     if dev.type == "cpu":
-        plain_accumulate_e(p, s, weights, dacc)
+        plain_accumulate_e(p, s, weights, dacc, box)
         return
     if dev.type != "cuda":
         raise ValueError(f"the DFT kernel runs on CUDA tensors; got device {dev}")
     dt = s.ex.dtype
     if dt not in _DTYPE_CODES:
         raise ValueError(f"the DFT kernel takes float32 or bfloat16 fields; got {dt}")
+    shape = box.shape if box is not None else p.padded_shape
     for t in (s.ex, s.ey, s.ez):
-        if t.dtype != dt or tuple(t.shape) != p.padded_shape or not t.is_contiguous():
-            raise ValueError(f"each E field must be a contiguous {dt} tensor of shape {p.padded_shape}; got "
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"each E field must be a contiguous {dt} tensor of shape {shape}; got "
                              f"{t.dtype} {tuple(t.shape)}")
     lib = _lib()
     e_ptr = (ctypes.c_void_p * 3)(s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr())
     with torch.cuda.device(dev):
-        rc = lib.dft_accum(e_ptr, p.maxk, p.maxj, p.maxi, weights.data_ptr(), nf, nc, dacc[0].data_ptr(),
-                           dacc[1].data_ptr(), _DTYPE_CODES[dt], build.launch_stream(dev))
-    launches["dft_accum"] += 1
+        rc = lib.dft_accum(e_ptr, p.maxk, p.maxj, p.maxi, yee.geometry(p, box), weights.data_ptr(), nf, nc,
+                           dacc[0].data_ptr(), dacc[1].data_ptr(), _DTYPE_CODES[dt], build.launch_stream(dev))
+    name = "dft_accum_shard" if box is not None else "dft_accum"
+    launches[name] += 1
     if rc != 0:
-        raise RuntimeError(f"dft_accum launch failed: CUDA error {rc} ({lib.dft_error_string(rc).decode()})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({lib.dft_error_string(rc).decode()})")

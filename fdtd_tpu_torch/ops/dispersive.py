@@ -37,7 +37,9 @@ load accumulates the trapezoidal work densities of the update itself
 read as fp32, computed in fp32 and rounded once at the store, and the work
 comes from the fp32 values, as the TPU kernel does.  Debye x CPML has no
 TPU kernel (the JAX package runs it as its xla scan): here it is torch
-ops, :func:`make_dispersive_pml_step`.
+ops, :func:`make_dispersive_pml_step`.  A shard of a sharded run takes its
+part of the maps (:func:`shard_debye_coefs`) and runs :func:`update_e_ade`
+and :func:`work_cell_means` with its box (``parallel.sharded_step``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 
 from ..constants import EPSILON, MU
+from ..grid import Box, full_box
 from ..params import Mode, Params
 from ..source import apply_source, make_source_plan, profile_tensor
 from ..state import FieldState, Materials, UpdateCoefs, _edge_average, block_mask, field_dtype
@@ -222,14 +225,28 @@ def work_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def zero_work(p: Params, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Three edge work arrays (wx, wy, wz) of the padded shape."""
+def zero_work(p: Params, device, shape: tuple[int, int, int] | None = None) -> tuple[torch.Tensor, ...]:
+    """Three edge work arrays (wx, wy, wz) of the padded shape (or of a
+    shard's arrays, ``shape``)."""
     dt = work_dtype(field_dtype(p))
-    return tuple(torch.zeros(p.padded_shape, dtype=dt, device=device) for _ in COMPS)
+    return tuple(torch.zeros(shape or p.padded_shape, dtype=dt, device=device) for _ in COMPS)
+
+
+def shard_debye_coefs(dc: DebyeCoefs, box: Box, device) -> DebyeCoefs:
+    """A shard's part of the Debye maps: the 15 ADE maps and the edge sigma
+    over its box (the counterpart of ``fdtd_tpu/parallel/sharded_step.py::
+    shard_coefs`` for a Debye medium), copies on ``device``."""
+    sl = tuple(slice(a, b) for a, b in zip(box.lo, box.hi))
+
+    def cut(maps: dict) -> dict:
+        return {c: torch.empty(t[sl].shape, dtype=t.dtype, device=device).copy_(t[sl]) for c, t in maps.items()}
+
+    return DebyeCoefs(**{n: cut(getattr(dc, n)) for n in COEF_NAMES + ("sig",)}, h_factor=dc.h_factor,
+                      dt=dc.dt.to(device))
 
 
 def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
-                 work: tuple[torch.Tensor, ...] | None = None) -> None:
+                 work: tuple[torch.Tensor, ...] | None = None, box: Box | None = None) -> None:
     """The dispersive E half-step in place: E' = ca E + cb curl H + cp P,
     then P' = k1 P + k2 (E' + E), over the interior-only bounds of
     :func:`curl.update_e` (reference main.c:469-500).
@@ -244,8 +261,13 @@ def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
     ``with_work``).  Arithmetic in the compute type (fp32 for bf16
     storage); E' and P' round once at the store, the work uses their
     unrounded values, and the division by dt (rounded to the compute type)
-    is a true division."""
+    is a true division.  With ``box`` (a shard, its arrays, ``dc`` its
+    parts: :func:`shard_debye_coefs`) the shard's owned edges, at global
+    bounds, reading H at -1 from its halos; the work arrays are the box's
+    shape."""
     K, J, I = p.maxk, p.maxj, p.maxi
+    box = box or full_box(p)
+    region = (box.own_lo, box.own_hi)
     cd = curl.compute_dtype(s.ex.dtype)
     hx, hy, hz = s.hx.to(cd), s.hy.to(cd), s.hz.to(cd)
     dt = dc.dt
@@ -256,33 +278,42 @@ def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
         pn = dc.k1[comp][sl].to(cd) * p_old + dc.k2[comp][sl].to(cd) * (en + e_old)
         if w is not None:
             e_mid = 0.5 * (en + e_old)
-            w.zero_()
             w[sl] = e_mid * ((pn - p_old) / dt + dc.sig[comp][sl].to(cd) * e_mid)
         e[sl] = en
         pol[sl] = pn
 
+    def sh(t: tuple, axis: int) -> tuple:
+        return curl._shift(t, axis, -1)
+
+    for w in work or ():
+        w.zero_()
     wx, wy, wz = work if work is not None else (None, None, None)
-    sx = (slice(1, K), slice(1, J), slice(0, I))
-    curl_x = (hz[1:K, 1:J, :I] - hz[1:K, 0 : J - 1, :I]) - (hy[1:K, 1:J, :I] - hy[0 : K - 1, 1:J, :I])
-    advance("x", s.ex, P.px, sx, curl_x, wx)
-    sy = (slice(1, K), slice(0, J), slice(1, I))
-    curl_y = (hx[1:K, :J, 1:I] - hx[0 : K - 1, :J, 1:I]) - (hz[1:K, :J, 1:I] - hz[1:K, :J, 0 : I - 1])
-    advance("y", s.ey, P.py, sy, curl_y, wy)
-    sz = (slice(0, K), slice(1, J), slice(1, I))
-    curl_z = (hy[:K, 1:J, 1:I] - hy[:K, 1:J, 0 : I - 1]) - (hx[:K, 1:J, 1:I] - hx[:K, 0 : J - 1, 1:I])
-    advance("z", s.ez, P.pz, sz, curl_z, wz)
+    # E reads H at -1 along two axes: Ex along j and k, Ey along k and i, Ez along i and j
+    sx = curl._target(box, region, ((1, K), (1, J), (0, I)), (1, 0), False)
+    if sx is not None:
+        advance("x", s.ex, P.px, sx, (hz[sx] - hz[sh(sx, 1)]) - (hy[sx] - hy[sh(sx, 0)]), wx)
+    sy = curl._target(box, region, ((1, K), (0, J), (1, I)), (0, 2), False)
+    if sy is not None:
+        advance("y", s.ey, P.py, sy, (hx[sy] - hx[sh(sy, 0)]) - (hz[sy] - hz[sh(sy, 2)]), wy)
+    sz = curl._target(box, region, ((0, K), (1, J), (1, I)), (2, 1), False)
+    if sz is not None:
+        advance("z", s.ez, P.pz, sz, (hy[sz] - hy[sh(sz, 2)]) - (hx[sz] - hx[sh(sz, 1)]), wz)
 
 
 def work_cell_means(p: Params, wx: torch.Tensor, wy: torch.Tensor, wz: torch.Tensor,
-                    k_range: tuple[int, int] | None = None) -> torch.Tensor:
+                    k_range: tuple[int, int] | None = None, box: Box | None = None) -> torch.Tensor:
     """Cell-centered total dissipation rate from the three edge work
     arrays, over the cell planes ``k_range`` (default all): per component
     0.25 * (((a + b) + c) + d) of its four edges, then mx + my + mz, the
-    association of ``fdtd_tpu.ops.dispersive.work_cell_means``."""
-    k_lo, k_hi = k_range or (0, p.maxk)
-    J, I = p.maxj, p.maxi
-    kk, k1s = slice(k_lo, k_hi), slice(k_lo + 1, k_hi + 1)
-    jj, ii, j1s, i1s = slice(0, J), slice(0, I), slice(1, J + 1), slice(1, I + 1)
+    association of ``fdtd_tpu.ops.dispersive.work_cell_means``.  With
+    ``box`` (a shard's work arrays) the cells it owns, ``k_range`` planes of
+    them; the +1 neighbours come from its halos."""
+    box = box or full_box(p)
+    ck, cj, ci = box.local(*box.cells(p))
+    k_lo, k_hi = k_range or (0, ck.stop - ck.start)
+    kk, k1s = slice(ck.start + k_lo, ck.start + k_hi), slice(ck.start + k_lo + 1, ck.start + k_hi + 1)
+    jj, ii = cj, ci
+    j1s, i1s = slice(cj.start + 1, cj.stop + 1), slice(ci.start + 1, ci.stop + 1)
     mx = 0.25 * (wx[kk, jj, ii] + wx[k1s, jj, ii] + wx[kk, j1s, ii] + wx[k1s, j1s, ii])
     my = 0.25 * (wy[kk, jj, ii] + wy[kk, jj, i1s] + wy[k1s, jj, ii] + wy[k1s, jj, i1s])
     mz = 0.25 * (wz[kk, jj, ii] + wz[kk, j1s, ii] + wz[kk, jj, i1s] + wz[kk, j1s, i1s])

@@ -34,9 +34,10 @@ its j-tiled form ``_build_stream_shard_call_jt``: this sweep always tiles
 j and i): the arrays hold ``plan.s`` halo planes on each side the shard
 shares with a neighbour (``plan.s + 1`` with SAR), filled by the caller
 before the sweep, and only the owned window of ``out`` is written; the SAR
-map and sigma are the shard's parts (its owned cells).  The vacuum and
-material variants shard; CPML, Debye media and the DFT bands do not yet
-(ROADMAP item 11b).
+map, sigma and the DFT sums are the shard's parts (its owned cells).  The
+vacuum and material variants shard, with or without the DFT bands (those
+replace ``build_stream_shard_call(dft_nf > 0)``); the CPML and Debye sweeps
+have no shard variant (nor have they in the JAX package).
 
 Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
 before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
@@ -140,8 +141,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
     medium).  With ``box`` (a shard; vacuum and materials) the steps update
     every cell of the shard's arrays whose neighbours they hold (the halos
     lose one plane of exactness a step, so the owned cells stay exact),
-    ``acc`` takes the owned cells' deposition, and only the owned window is
-    written into ``out``."""
+    ``acc`` and ``dacc`` take the owned cells' deposition and sums, and only
+    the owned window is written into ``out``."""
     cd = curl.compute_dtype(state.ex.dtype)
     work = FieldState(*(t.to(cd, copy=True) for t in state.tensors()))
     wpsi = wpol = w_edge = None
@@ -182,7 +183,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
             else:
                 diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc, box)
         if dacc is not None:
-            accumulate(diagnostics._e_cell_means(p, work), wts[m - 1, 0], wts[m - 1, 1], dacc)
+            cells = box.local(*box.cells(p)) if box is not None else ()
+            accumulate(diagnostics._e_cell_means(p, work, *cells), wts[m - 1, 0], wts[m - 1, 1], dacc)
     if wpsi is not None:
         for o, w in zip(psi_out.tensors(), wpsi.tensors()):
             o.copy_(w)
@@ -250,9 +252,9 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     if box is not None and box.is_full(p):
         box = None
     if box is not None:
-        if cpml is not None or dc is not None or dacc is not None:
-            raise ValueError("CPML, Debye media and the DFT bands do not run on a shard yet "
-                             "(ROADMAP queue 1 item 11b)")
+        if cpml is not None or dc is not None:
+            raise ValueError("the CPML and Debye sweeps have no shard variant: a sharded CPML or Debye scene runs "
+                             "the two-pass kernels or torch ops")
         _check_halos(p, box, plan)
     variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None,
                dacc is not None)
@@ -264,7 +266,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
         )
     nf = nc = 0
     if dacc is not None:
-        nf, nc = check_sums(p, state.ex, dacc)
+        nf, nc = check_sums(p, state.ex, dacc, box)
         if wts is None:
             raise ValueError("a DFT sweep needs its (s, 2, nf) weight rows")
         check_weights(wts, state.ex, (plan.s, 2, nf))
@@ -354,9 +356,10 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
 
 def _check_halos(p: Params, box: Box, plan: StreamPlan) -> None:
     """A shard's arrays hold ``plan.s`` planes before its owned window
-    and ``plan.s`` after it (``plan.s + 1`` with SAR), as far as the grid
-    reaches, and the plan is made for that window."""
-    depth = plan.s + int(plan.sar)
+    and ``plan.s`` after it (``plan.s + 1`` with the cell means of SAR and
+    the DFT bands), as far as the grid reaches, and the plan is made for
+    that window."""
+    depth = plan.s + int(plan.sar or plan.dft)
     for a, n in enumerate(p.padded_shape):
         lo, hi = box.own_lo[a], box.own_hi[a]
         if box.lo[a] > max(lo - plan.s, 0) or box.hi[a] < min(hi + depth, n):

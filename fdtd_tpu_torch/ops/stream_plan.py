@@ -72,9 +72,11 @@ increment also needs the three fp32 edge work arrays of the E pass.
 
 A shard of a sharded run (:mod:`fdtd_tpu_torch.parallel`) sweeps its owned
 window: :func:`plan_for` with ``window``, the vacuum and material variants
-(``SHARD_VARIANTS``).  :func:`shard_bytes` sums the shards' arrays per
-device (one or two states with their halos, their coefficient parts, SAR
-map parts) and the canonical grid the run gathers into for its outputs.
+with or without the DFT bands (``SHARD_VARIANTS``).  :func:`shard_bytes`
+sums the shards' arrays per device (one or two states with their halos,
+their coefficient parts, SAR map parts, psi parts, P and the Debye maps and
+work arrays, their parts of the DFT sums) and the canonical grid the run
+gathers into for its outputs.
 """
 
 from __future__ import annotations
@@ -152,9 +154,10 @@ VARIANTS = tuple((lossy, het, sar, pml, ade, dft) for dft in (False, True)
                      (True, True, True, False, False), (False, False, False, True, False),
                      (True, False, False, True, False), (False, False, False, False, True),
                      (False, False, True, False, True)))
-# the variants a shard sweeps (CPML, Debye media and the DFT bands wait for
-# ROADMAP item 11b)
-SHARD_VARIANTS = tuple(v for v in VARIANTS if not (v[3] or v[4] or v[5]))
+# the variants a shard sweeps: vacuum and the material variants, each with
+# and without the DFT bands (the JAX package has no sharded CPML or Debye
+# sweep: those shard scenes run the two-pass kernels and torch ops)
+SHARD_VARIANTS = tuple(v for v in VARIANTS if not (v[3] or v[4]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,10 +311,10 @@ def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: 
     return BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
-def built_depths(lossy: bool) -> tuple[int, ...]:
+def built_depths(lossy: bool, dft: bool = False) -> tuple[int, ...]:
     """The steps per sweep the vacuum (or, ``lossy``, the material) sweep
-    is built at, deepest first."""
-    return tuple(_block_j(lossy, False))
+    is built at, deepest first (``dft``: with the DFT bands)."""
+    return tuple(_block_j(lossy, False, dft=dft))
 
 
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
@@ -383,23 +386,50 @@ def stream_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = 
             + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0))
 
 
+# the torch ADE step's temporaries (update_e_ade on one component: the
+# curl, E', P', the work's midpoint and the products in flight; with bf16
+# storage the fp32 copies of H, E and P too), in arrays of a shard's box in
+# the compute type
+ADE_TORCH_TEMPS = 12
+
+
 def shard_bytes(p: Params, shapes, devices, main, stream: bool, lossy: bool = False, het: bool = False,
-                sar: bool = False) -> dict:
+                sar: bool = False, pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None,
+                psi_elems: list[int] | None = None) -> dict:
     """Device bytes of a sharded run, per device: of each shard (its arrays'
     ``shapes`` (k, j, i) with halos, its cell count, on its ``devices``
     entry) one state (two on ``stream``) and its parts of the material
-    arrays, sigma and the SAR map, and on ``main`` the canonical grid the
-    run gathers into for its outputs with their temporaries (or the SAR
-    increment's, the larger)."""
+    arrays, sigma and the SAR map; with ``pml`` its psi parts
+    (``psi_elems``, elements per shard); in a Debye medium (``ade``) P, the
+    15 maps (18 with SAR) and the fp32 work arrays over its box; with
+    ``dft`` its part of the sums; per device the temporaries of the torch
+    ADE step or of the H sums of fields "eh" on its largest shard; and on
+    ``main`` the canonical grid the run gathers into (the state, the SAR
+    map, psi, P and the sums) with the temporaries of the outputs (or the
+    SAR increment's, the larger)."""
     item = _itemsize(p)
-    lossy = lossy or het
-    per = {}
-    for (shape, cells), dev in zip(shapes, devices):
+    cd = 8 if p.dtype == "float64" else 4
+    lossy = (lossy or het) and not ade
+    per, temps = {}, {}
+    for q, ((shape, cells), dev) in enumerate(zip(shapes, devices)):
         arr = math.prod(shape) * item
         b = ((2 if stream else 1) * 6 * arr + (6 * arr + cells * item if lossy else 0) + (3 * arr if het else 0)
              + (4 * cells if sar else 0))
+        if pml is not None:
+            b += psi_elems[q] * item
+        if ade:
+            b += (3 + 15 + (3 if sar else 0)) * arr + (3 * cd * math.prod(shape) if sar else 0)
+        if dft is not None:
+            b += 8 * dft.nf * dft.nc * cells
+        t = max(ADE_TORCH_TEMPS * cd * math.prod(shape) if ade else 0,
+                (7 + 3 * dft.nf) * 4 * cells if dft is not None and dft.fields == "eh" else 0)
         per[dev] = per.get(dev, 0) + b
-    per[main] = per.get(main, 0) + state_bytes(p) + (4 * p.maxk * p.maxj * p.maxi if sar else 0) + work_bytes(p, sar)
+        temps[dev] = max(temps.get(dev, 0), t)
+    for dev, t in temps.items():
+        per[dev] += t
+    per[main] = (per.get(main, 0) + state_bytes(p) + (4 * p.maxk * p.maxj * p.maxi if sar else 0)
+                 + (psi_bytes(p, pml) if pml is not None else 0) + (pol_bytes(p) if ade else 0)
+                 + (acc_bytes(p, dft) if dft is not None else 0) + work_bytes(p, sar))
     return per
 
 

@@ -25,8 +25,12 @@ the shard's owned cells in its own arrays, halos included, with the walls
 and the source patch at global indices: they replace the TPU's per-shard
 calls of ``_h_kernel2``/``_e_kernel2`` (``fdtd_tpu/ops/pallas_fused.py::
 build_twopass_calls`` with its offset operand and ``jwin``), vacuum and
-with materials; the coefficient arrays are the shard's parts.  CPML and
-Debye media do not shard yet (ROADMAP item 11b).
+with materials; the coefficient arrays are the shard's parts.  With CPML
+(``cpml`` made for the shard's box, :func:`~fdtd_tpu_torch.ops.cpml.
+make_cpml`) they launch the CPML variants on the shard's psi parts
+(:func:`~fdtd_tpu_torch.ops.cpml.psi_part_slices`), replacing the TPU's
+per-shard K1/K2 with XLA slab corrections
+(``fdtd_tpu/parallel/sharded_pml_fast.py::make_sharded_pml_fast_step``).
 
 ``launches`` counts kernel launches per kernel variant (a shard's under
 the variant's name with ``_shard``), so a run can show that it went
@@ -43,7 +47,7 @@ from ..grid import Box
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
 from . import build, curl, dispersive
-from .cpml import E_TERMS, H_TERMS, Cpml, PsiState, psi_shapes
+from .cpml import E_TERMS, H_TERMS, Cpml, PsiState
 from .dispersive import DebyeCoefs, PolState
 
 KERNEL_SOURCE = "yee_twopass"
@@ -51,8 +55,9 @@ launches = {name + suffix: 0
             for suffix in ("", "_pml")
             for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")}
 launches.update(yee_update_e_ade=0, yee_update_e_ade_sar=0)
-launches.update({name + "_shard": 0 for name in ("yee_update_h", "yee_update_e", "yee_update_h_het",
-                                                  "yee_update_e_lossy")})
+launches.update({name + suffix + "_shard": 0
+                 for suffix in ("", "_pml")
+                 for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -94,14 +99,15 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
-def geometry(p: Params, box: Box | None):
+def geometry(p: Params, box: Box | None, cpml: Cpml | None = None, names: tuple[str, ...] = ()):
     """The C interface's ``geom`` of a shard's box (its arrays' extents,
-    the global index of their origin, the owned window), None for the
-    whole grid."""
+    the global index of their origin, the owned window; with ``cpml``, the
+    shard's psi parts of the terms ``names``), None for the whole grid."""
     if box is None or box.is_full(p):
         return None
     window = [x for lo_hi in zip(box.own_lo, box.own_hi) for x in lo_hi]
-    return (ctypes.c_int * 12)(*box.shape, *box.lo, *window)
+    parts = cpml.part_geometry[names] if cpml is not None else ()
+    return (ctypes.c_int * (12 + len(parts)))(*box.shape, *box.lo, *window, *parts)
 
 
 def _on_cpu(p: Params, s: FieldState, shape: tuple[int, int, int] | None = None) -> bool:
@@ -143,8 +149,9 @@ def check_coefficients(p: Params, like: torch.Tensor, arrays: tuple[torch.Tensor
 
 def check_psi(p: Params, cpml: Cpml, like: torch.Tensor, psi: PsiState, names: tuple[str, ...]) -> None:
     """The psi tensors of ``names`` and the (b, c) tables must match the
-    fields: device, dtype, the slab-restricted shapes, contiguous."""
-    shapes = psi_shapes(p, cpml.cfg)
+    fields: device, dtype, the slab-restricted shapes (a shard's part
+    shapes with ``cpml.box``), contiguous."""
+    shapes = cpml.shapes
     want = {n: shapes[n] for n in names}
     got = {n: getattr(psi, n) for n in names}
     tables = (cpml.table_h, cpml.table_e)
@@ -163,12 +170,12 @@ def pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _shard_box(p: Params, box: Box | None, cpml) -> Box | None:
-    """``box`` unless it is the whole grid; CPML does not shard yet."""
-    if box is None or box.is_full(p):
-        return None
-    if cpml is not None:
-        raise ValueError("CPML does not run on a shard yet (ROADMAP queue 1 item 11b)")
+def _shard_box(p: Params, box: Box | None, cpml: Cpml | None) -> Box | None:
+    """``box`` unless it is the whole grid; ``cpml`` must be made for it."""
+    if box is not None and box.is_full(p):
+        box = None
+    if cpml is not None and cpml.box != box:
+        raise ValueError(f"the CPML of a pass must be made for its box (make_cpml(..., box=)): {cpml.box} != {box}")
     return box
 
 
@@ -195,7 +202,7 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
         return
     lib = _lib()
     j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
-    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box))
+    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box, cpml, H_TERMS))
     patch_args = (int(patch is not None), j0, j1, i0, i1)
     dtype = _DTYPE_CODES[s.hx.dtype]
     e_ptr, h_ptr = pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz))
@@ -243,7 +250,7 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
             curl.update_e(p, s, coefs, box)
         return
     lib = _lib()
-    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box))
+    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box, cpml, E_TERMS))
     dtype = _DTYPE_CODES[s.ex.dtype]
     h_ptr, e_ptr = pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez))
     cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()

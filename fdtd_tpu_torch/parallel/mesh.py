@@ -15,7 +15,14 @@ is in-process too:
   grid.Box`: its owned planes plus ``depth`` halo planes on each side it
   shares with a neighbour, i fastest (no dead slab, no lane strips);
 - the exchange (:func:`exchange`) is a tensor copy between neighbours' halo
-  planes, a peer copy across devices.
+  planes, a peer copy across devices;
+- beside the fields, each shard holds its parts of the run's other state
+  (:class:`Shard`): the SAR map and the DFT sums over its owned cells, the
+  CPML psi parts of its owned window (:func:`~fdtd_tpu_torch.ops.cpml.
+  psi_part_slices`) and the Debye polarization over its box.  :func:`scatter`
+  cuts them from the canonical arrays and :func:`gather` writes them back,
+  so a run keeps the canonical layout (its checkpoints) and gathers only
+  where an output is due.
 
 It is not ``torch.distributed``: NCCL cannot put two ranks on one GPU and
 gloo cannot send CUDA tensors, so a multi-process mesh could not run on one
@@ -34,6 +41,8 @@ from typing import Callable
 import torch
 
 from ..grid import COMPONENTS, Box
+from ..ops.cpml import PMLConfig, PsiState, cut_psi, join_psi
+from ..ops.dispersive import PolState
 from ..params import Params
 from ..state import FieldState
 
@@ -138,58 +147,91 @@ def shard_boxes(p: Params, mesh: Mesh, depth: int) -> list[Box]:
 
 @dataclasses.dataclass
 class Shard:
-    """One shard: its device, its box, its fields (the box's arrays) and,
-    with SAR, its part of the fp32 map (its owned cells)."""
+    """One shard: its device, its box, its fields (the box's arrays) and
+    its parts of the other state: with SAR the fp32 map over its owned
+    cells, with CPML its psi parts, in a Debye medium the polarization over
+    its box, with the DFT the (re, im) sums over its owned cells."""
 
     device: torch.device
     box: Box
     state: FieldState
     power: torch.Tensor | None = None
+    psi: PsiState | None = None
+    pol: PolState | None = None
+    dacc: tuple[torch.Tensor, torch.Tensor] | None = None
 
 
 def part(t: torch.Tensor, lo, hi, device) -> torch.Tensor:
-    """A contiguous copy of the global block [lo, hi) of ``t`` on ``device``."""
-    view = t[tuple(slice(a, b) for a, b in zip(lo, hi))]
+    """A contiguous copy of the global block [lo, hi) of ``t`` (its last
+    three axes) on ``device``."""
+    view = t[(...,) + tuple(slice(a, b) for a, b in zip(lo, hi))]
     return torch.empty(view.shape, dtype=view.dtype, device=device).copy_(view)
 
 
-def scatter(p: Params, state: FieldState, mesh: Mesh, depth: int,
-            power: torch.Tensor | None = None) -> list[Shard]:
-    """The canonical ``state`` (and SAR map ``power``) cut into the mesh's
-    shards with ``depth``-plane halos (copies; the halos hold the
-    neighbours' values)."""
+def _cells(p: Params, box: Box) -> tuple:
+    lo, hi = box.cells(p)
+    return (...,) + tuple(slice(a, b) for a, b in zip(lo, hi))
+
+
+def scatter(p: Params, state: FieldState, mesh: Mesh, depth: int, power: torch.Tensor | None = None,
+            psi: PsiState | None = None, pml: PMLConfig | None = None, pol: PolState | None = None,
+            dacc=None) -> list[Shard]:
+    """The canonical ``state`` cut into the mesh's shards with
+    ``depth``-plane halos (copies; the halos hold the neighbours' values),
+    with the parts of the SAR map ``power``, the CPML ``psi`` (of ``pml``),
+    the polarization ``pol`` and the DFT sums ``dacc`` that are given."""
     shards = []
     for box, dev in zip(shard_boxes(p, mesh, depth), mesh.devices):
         fields = FieldState(*(part(t, box.lo, box.hi, dev) for t in state.tensors()))
-        pw = part(power, *box.cells(p), dev) if power is not None else None
-        shards.append(Shard(dev, box, fields, pw))
+        sh = Shard(dev, box, fields)
+        if power is not None:
+            sh.power = part(power, *box.cells(p), dev)
+        if psi is not None:
+            sh.psi = cut_psi(p, pml, psi, box, dev)
+        if pol is not None:
+            sh.pol = PolState(*(part(t, box.lo, box.hi, dev) for t in pol.tensors()))
+        if dacc is not None:
+            sh.dacc = tuple(part(t, *box.cells(p), dev) for t in dacc)
+        shards.append(sh)
     return shards
 
 
-def gather(p: Params, shards: list[Shard], state: FieldState, power: torch.Tensor | None = None) -> None:
-    """Write every shard's owned planes (and SAR cells) into the canonical
-    ``state`` (and ``power``) in place."""
+def gather(p: Params, shards: list[Shard], state: FieldState, power: torch.Tensor | None = None,
+           psi: PsiState | None = None, pml: PMLConfig | None = None, pol: PolState | None = None,
+           dacc=None) -> None:
+    """Write every shard's owned planes into the canonical ``state`` in
+    place, and its parts into those of ``power``, ``psi`` (of ``pml``),
+    ``pol`` and ``dacc`` that are given."""
     for sh in shards:
         own = tuple(slice(a, b) for a, b in zip(sh.box.own_lo, sh.box.own_hi))
         for dst, src in zip(state.tensors(), sh.state.tensors()):
             dst[own].copy_(src[sh.box.owned])
         if power is not None:
-            lo, hi = sh.box.cells(p)
-            power[tuple(slice(a, b) for a, b in zip(lo, hi))].copy_(sh.power)
+            power[_cells(p, sh.box)].copy_(sh.power)
+        if psi is not None:
+            join_psi(p, pml, sh.psi, sh.box, psi)
+        if pol is not None:
+            for dst, src in zip(pol.tensors(), sh.pol.tensors()):
+                dst[own].copy_(src[sh.box.owned])
+        if dacc is not None:
+            for dst, src in zip(dacc, sh.dacc):
+                dst[_cells(p, sh.box)].copy_(src)
 
 
 HALO_LABEL = "halo_exchange"  # the profiler range of the halo copies
 
 
 def exchange(mesh: Mesh, shards: list[Shard], names=COMPONENTS, sides=("lo", "hi"),
-             planes: int | None = None) -> None:
+             planes: int | None = None, arrays: Callable | None = None) -> None:
     """Fill the halo planes of the fields ``names`` from the neighbours'
     owned planes: ``"hi"`` the halos above each shard's owned planes (E
     before the H pass, which reads E at +1), ``"lo"`` those below (H before
     the E pass); ``planes``: only that many next to the owned window (None:
     the whole halo).  Axes go i, j, k, each copy over the whole extent of
     the other axes, so the halo corners hold the diagonal neighbours'
-    values."""
+    values.  ``arrays(shard, name)`` picks other arrays of the box's shape
+    (default: the shard's field ``name``)."""
+    arrays = arrays or (lambda sh, name: getattr(sh.state, name))
     nz, ny, nx = mesh.shape
     stride = (ny * nx, nx, 1)
     with torch.profiler.record_function(HALO_LABEL):
@@ -211,5 +253,5 @@ def exchange(mesh: Mesh, shards: list[Shard], names=COMPONENTS, sides=("lo", "hi
                                   max(upper.box.lo[a], g1 - planes), g1))
                 for dst, src, g0, g1 in pairs:
                     for name in names:
-                        d, s_ = getattr(dst.state, name), getattr(src.state, name)
+                        d, s_ = arrays(dst, name), arrays(src, name)
                         d.narrow(a, g0 - dst.box.lo[a], g1 - g0).copy_(s_.narrow(a, g0 - src.box.lo[a], g1 - g0))

@@ -8,24 +8,34 @@ streaming sweep per shard.
   ``make_sharded_power_inc`` (:324, :676): per step, exchange E (the halo
   plane above each shard), K1 per shard, exchange H (below), K2 per
   shard, and with SAR the k-slab torch increment on each shard's owned
-  cells.
+  cells; with CPML (``pml=``) the counterpart of
+  ``fdtd_tpu/parallel/sharded_pml_fast.py::make_sharded_pml_fast_step`` /
+  ``_runner`` (:341, :618): K10-shard per shard and pass (all twelve psi
+  terms in the kernels on each shard's psi parts), the SAR as above; with
+  the monitors K4-shard after each step (with CPML and the DFT the
+  counterpart of ``make_sharded_pml_fast_dft_runner``, :658).
 - :func:`make_sharded_stream_runner` is the counterpart of
   ``make_sharded_stream_step`` / ``_runner`` (:1470, :1686) and of
   ``make_sharded_stream_2d_step`` / ``_runner`` (:1137, :1335): per sweep,
   the step-1 source on every shard, one exchange of every field's ``s``
-  halo planes (``s + 1`` above with SAR, whose cell means read E one plane
-  further), then one K3-shard launch per shard into the shard's second
-  buffer, swapped back; the trailing ``n % s`` steps run the two-pass
-  step, whose exchanges copy the one plane it reads.  A 1-D z mesh and a 2-D z x y mesh run the same code: the kernel
+  halo planes (``s + 1`` above with SAR or the DFT bands, whose cell means
+  read E one plane further), then one K3-shard launch per shard into the
+  shard's second buffer, swapped back; the trailing ``n % s`` steps run
+  the two-pass step, whose exchanges copy the one plane it reads.  With
+  ``dft`` it is the counterpart of ``make_sharded_stream_dft_runner``
+  (:1862): the sweeps carry the DFT bands (K3-shard-DFT) into each shard's
+  part of the sums, and the trailing steps add theirs with K4-shard.  A 1-D z mesh and a 2-D z x y mesh run the same code: the kernel
   always tiles j and i with a recompute halo, so the TPU's j-tiled shard
   calls (``_build_stream_shard_call_jt``, :1728) need no counterpart.  The
   TPU's sharded temporal tiers (``make_sharded_temporal_step``/``_2d``,
   :801, :941) fold into this sweep at the depth a forced ``s`` gives.
 
 :func:`pick_shard_plan` is the counterpart of ``pick_shard_plan`` (:1430),
-``pick_shard_2d_s`` (:1508) and ``_shard_config_gates`` (:1486): the gates
-of one device (lossy and het-mu_r media need computation mode, SAR needs
-lossy media), the unsharded sweep's depth where every shard owns at least
+``pick_shard_2d_s`` (:1508), ``_shard_config_gates`` (:1486) and
+``sharded_stream_dft_supported`` (:1847): the gates of one device (lossy
+and het-mu_r media need computation mode, SAR needs lossy media, the DFT
+bands fields "e" in computation mode and at most ``dft_max_nf``
+frequencies), the unsharded sweep's depth where every shard owns at least
 its halo depth, and the shards' arrays fitting every device's free memory
 (:func:`~fdtd_tpu_torch.ops.stream_plan.shard_bytes`).
 """
@@ -36,12 +46,13 @@ import math
 
 import torch
 
+from ..dft import DftConfig
 from ..ops import stream, stream_plan
 from ..params import Mode, Params
 from ..source import sweep_drive_rows
 from ..state import FieldState, Materials
 from .mesh import Mesh, Shard, exchange, shard_boxes
-from .sharded_step import ShardContext, check_scene, make_step
+from .sharded_step import ShardContext, check_scene, make_step, run_chunk
 
 
 def free_bytes(mesh: Mesh) -> dict:
@@ -51,77 +62,92 @@ def free_bytes(mesh: Mesh) -> dict:
     return {d: torch.cuda.mem_get_info(d)[0] for d in set(mesh.devices) if d.type == "cuda"}
 
 
-def _gates(p: Params, lossy: bool, het: bool, sar: bool) -> bool:
+def _gates(p: Params, lossy: bool, het: bool, sar: bool, dft: DftConfig | None) -> bool:
     """The scenes a shard sweeps: the single-device gates without memory."""
     if p.dtype not in ("float32", "bfloat16"):
         return False
     if (lossy or het) and p.mode != Mode.COMPUTATION:
         return False
+    if dft is not None and not stream_plan.dft_gates(p, dft):
+        return False
     return not sar or lossy or het
 
 
 def pick_shard_plan(p: Params, mesh: Mesh, s: int | None = None, lossy: bool = False, het: bool = False,
-                    sar: bool = False, free: dict | None = None) -> list[stream_plan.StreamPlan] | None:
+                    sar: bool = False, free: dict | None = None,
+                    dft: DftConfig | None = None) -> list[stream_plan.StreamPlan] | None:
     """Each shard's sweep plan (in the mesh's order) at the first depth,
     in the unsharded picker's order (the whole grid's modelled bytes, ties
     to the deeper sweep; a forced ``s`` alone), that the shards admit, or
     None: the scene fails the gates, a shard owns fewer planes than the
-    halo depth (s, s + 1 with SAR), or the shards do not fit the devices'
-    ``free`` memory (device -> bytes; None: :func:`free_bytes` now).  (Ranked
-    by each shard's own bytes instead, bf16 lossy + SAR shards took s = 8,
+    halo depth (s, s + 1 with SAR or the DFT bands), the bands do not hold
+    ``dft``'s frequencies, or the shards do not fit the devices' ``free``
+    memory (device -> bytes; None: :func:`free_bytes` now).  (Ranked by
+    each shard's own bytes instead, bf16 lossy + SAR shards took s = 8,
     whose sweep spills and ran 2.6x slower a step than at s = 4 on an
     H100.)"""
     lossy = lossy or het or sar
-    if not _gates(p, lossy, het, sar):
+    if not _gates(p, lossy, het, sar, dft):
         return None
     if free is None:
         free = free_bytes(mesh)
+    depths = stream_plan.built_depths(lossy, dft is not None)
     order = (s,) if s is not None else sorted(
-        stream_plan.built_depths(lossy),
-        key=lambda x: (stream_plan.plan_for(p, x, lossy, het, sar).bytes_per_cell_step, -x))
+        depths, key=lambda x: (stream_plan.plan_for(p, x, lossy, het, sar, dft=dft).bytes_per_cell_step, -x))
     for x in order:
+        if x not in depths:
+            continue
         try:
-            boxes = shard_boxes(p, mesh, x + int(sar))
+            boxes = shard_boxes(p, mesh, x + int(sar or dft is not None))
         except ValueError:
             continue
+        plans = [stream_plan.plan_for(p, x, lossy, het, sar, dft=dft,
+                                      window=tuple(h - lo for lo, h in zip(b.own_lo, b.own_hi))) for b in boxes]
+        if dft is not None and plans[0].dft_max_nf < dft.nf:
+            continue
         need = stream_plan.shard_bytes(p, [(b.shape, math.prod(b.cell_shape(p))) for b in boxes],
-                                       mesh.devices, mesh.devices[0], True, lossy, het, sar)
+                                       mesh.devices, mesh.devices[0], True, lossy, het, sar, dft=dft)
         if stream_plan.shard_fits(need, free):
-            return [stream_plan.plan_for(p, x, lossy, het, sar,
-                                         window=tuple(h - lo for lo, h in zip(b.own_lo, b.own_hi))) for b in boxes]
+            return plans
     return None
 
 
 def make_sharded_stream_runner(p: Params, mesh: Mesh, materials: Materials | None = None,
-                               accumulate_power: bool = False, s: int | None = None, free: dict | None = None):
+                               accumulate_power: bool = False, s: int | None = None, free: dict | None = None,
+                               dft: DftConfig | None = None):
     """``run(shards, xs)`` on the per-shard sweep (K3-shard; ``plain_sweep``
     on CPU shards): ``n // s`` sweeps, then ``n % s`` steps of the
     two-pass step, shards with ``run.depth`` halo planes (``s``, ``s + 1``
-    with SAR).  ``s`` forces the steps per sweep; ``run.plans`` are the
-    shards' plans; ``free`` as in :func:`pick_shard_plan`.  Raises
-    ``ValueError`` where no plan fits."""
+    with SAR or the DFT bands).  ``s`` forces the steps per sweep;
+    ``run.plans`` are the shards' plans; ``free`` as in
+    :func:`pick_shard_plan`.  With ``dft`` (fields "e"; ``xs = (times,
+    amps, cw, sw)``) each shard's part of the sums takes every step: the
+    sweeps' bands (K3-shard-DFT), then K4-shard after each trailing step.
+    Raises ``ValueError`` where no plan fits."""
     check_scene(materials, accumulate_power)
     lossy = materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
-    plans = pick_shard_plan(p, mesh, s, lossy, het, accumulate_power, free)
+    plans = pick_shard_plan(p, mesh, s, lossy, het, accumulate_power, free, dft)
     if plans is None:
         raise ValueError(
             f"no sharded stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} on a {mesh.shape} mesh"
-            f"{f' at s={s}' if s else ''}: each shard must own at least s planes (s + 1 with SAR) along a "
-            "sharded axis, materials stream in computation mode only, SAR needs materials, and two states "
-            "of every shard must fit its device; use --backend twopass"
+            f"{f' at s={s}' if s else ''}: each shard must own at least s planes (s + 1 with SAR or the DFT "
+            "bands) along a sharded axis, materials stream in computation mode only, SAR needs materials, the "
+            "DFT bands take fields 'e' in computation mode and the frequencies a block's shared memory holds, "
+            "and two states of every shard must fit its device; use --backend twopass"
         )
     s_steps = plans[0].s
-    depth = s_steps + int(accumulate_power)
-    ctx = ShardContext(p, mesh, shard_boxes(p, mesh, depth), materials)
+    depth = s_steps + int(accumulate_power or dft is not None)
+    ctx = ShardContext(p, mesh, shard_boxes(p, mesh, depth), materials, dft=dft)
     odd_step = make_step(ctx, "twopass", accumulate_power)
     spare: dict[int, FieldState] = {}  # each shard's second buffer, at first use
 
     def run(shards: list[Shard], xs) -> list[Shard]:
-        ts, amps_h = xs
+        ts, amps_h = xs[:2]
         n = len(ts)
         n_sw = n // s_steps
         amps = ctx.amps(amps_h)
+        w = ctx.weights(xs)
         if n_sw:
             drives = {}
             if ctx.src is not None:
@@ -141,11 +167,10 @@ def make_sharded_stream_runner(p: Params, mesh: Mesh, materials: Materials | Non
                     if ctx.src is not None:
                         ez_rows, hx_rows = drives[sh.device]
                         drive = stream.SweepDrive(ctx.src.patch, ez_rows[g], hx_rows[g])
-                    stream.sweep(p, sh.state, spare[q], cf, plan, drive, sh.power, box=sh.box)
+                    wts = w[sh.device][g * s_steps:(g + 1) * s_steps] if w is not None else None
+                    stream.sweep(p, sh.state, spare[q], cf, plan, drive, sh.power, dacc=sh.dacc, wts=wts, box=sh.box)
                     sh.state.swap(spare[q])
-        for r in range(n_sw * s_steps, n):
-            odd_step(shards, amps, r)
-        return shards
+        return run_chunk(ctx, odd_step, shards, xs, n_sw * s_steps, amps, w)
 
     run.depth = depth
     run.plans = plans

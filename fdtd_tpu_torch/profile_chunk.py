@@ -12,8 +12,9 @@ Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 walls (``--pml 10``); ``dispersive`` is the heating scene's block as a
 Debye medium (``--water-block --dispersive --sar``); ``dft`` is the heating scene with the E
 phasors at 2.45e10 Hz (``--water-block --sar --dft 2.45e10``: the DFT bands of the sweep on
-``stream``, the ``dft_accum`` kernel after each step on ``twopass``); ``shard`` is the vacuum and the heating
-scene with ``--shard 4`` (four z slabs on the one card: the per-shard kernels and the halo copies).  For each scene, backend and dtype it runs a
+``stream``, the ``dft_accum`` kernel after each step on ``twopass``); ``shard`` is the vacuum, heating, pml,
+dft and dispersive scenes with ``--shard 4`` (four z slabs on the one card: the per-shard kernels and the halo
+copies; the dispersive one on ``torch`` only, the torch ADE ops it runs whatever the backend).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -68,7 +69,7 @@ SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
 # flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>,
-# h <T, HET, PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T>;
+# h <T, HET, PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>;
 # BOX: a shard's launch (the counter's name with "_shard")
 _KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
@@ -87,7 +88,7 @@ def _group(name: str) -> str:
         return "other"
     flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
     if m.group(1) == "dft_accum_kernel":
-        return "dft_accum"
+        return "dft_accum" + ("_shard" if flags[:1] == [True] else "")
     if m.group(1) == "stream_kernel":
         return variant_name(*flags[:6]) + ("_shard" if flags[6:7] == [True] else "")
     if m.group(1) == "ade_e_kernel":
@@ -112,8 +113,8 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
     pol = zero_polarization(p, dev) if debye else None
     dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
     if shard is not None:
-        mesh, run_shards = sharded_runner(p, shard, dev, mats, sar, backend, log=lambda m: None)
-        shards = shard_mesh.scatter(p, s, mesh, run_shards.depth, power)
+        mesh, run_shards = sharded_runner(p, shard, dev, mats, sar, backend, log=lambda m: None, pml=pml, dft=dft)
+        shards = shard_mesh.scatter(p, s, mesh, run_shards.depth, power, psi, pml, pol, dacc)
     else:
         run = make_chunk_runner(p, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft)
 
@@ -193,12 +194,15 @@ def main(argv=None) -> int:
     for name in args.scenes:
         for dtype in args.dtypes:
             for backend in args.backends:
-                # the shard scene: vacuum and heating on the mesh
-                for heating in ((False, True) if name == "shard" else (name in ("heating", "dft"),)):
-                    rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev, heating=heating,
-                                  pml=PMLConfig(cells=PML_CELLS) if name == "pml" else None,
-                                  debye=name == "dispersive",
-                                  dft=DftConfig((DFT_HZ,)) if name == "dft" else None,
+                # the shard scene: the other scenes on the mesh
+                for sub in (SCENES[:-1] if name == "shard" else (name,)):
+                    if name == "shard" and sub == "dispersive" and backend != "torch":
+                        continue
+                    rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,
+                                  heating=sub in ("heating", "dft"),
+                                  pml=PMLConfig(cells=PML_CELLS) if sub == "pml" else None,
+                                  debye=sub == "dispersive",
+                                  dft=DftConfig((DFT_HZ,)) if sub == "dft" else None,
                                   shard=SHARD_SPEC if name == "shard" else None)
                     rec["card"] = card
                     print(json.dumps(rec), flush=True)

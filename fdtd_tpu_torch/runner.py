@@ -24,14 +24,15 @@ and come back on resume, and the result carries ``RunResult.dft`` (a
 ``DftResult``) and ``RunResult.probes`` (a ``ProbeResult``).
 
 ``shard`` ("Z" or "ZxY", :func:`parse_shard_spec`) runs the scene on a
-(Z, Y, 1) mesh of shards (:mod:`fdtd_tpu_torch.parallel`), vacuum or with
-lossy and heterogeneous-mu_r materials and SAR, on all three backends.
-The chunks between boundaries stay sharded; the shards are gathered into
-the canonical state (and SAR map) only where a snapshot, a log record or a
-checkpoint is due, and at the end, so checkpoints keep the canonical
-schema and resume with or without sharding, in either package.  CPML,
-Debye media and the monitors under ``shard`` raise
-``NotImplementedError`` naming ROADMAP item 11b.
+(Z, Y, 1) mesh of shards (:mod:`fdtd_tpu_torch.parallel`): vacuum, lossy
+and heterogeneous-mu_r materials with SAR, CPML, Debye media and the
+monitors, every composition the JAX package's sharded runner takes
+(:func:`sharded_runner`).  The chunks between boundaries stay sharded; the
+shards are gathered into the canonical state (and SAR map, psi, P and DFT
+sums) only where a snapshot, a log record or a checkpoint is due, and at
+the end, so checkpoints keep the canonical schema and resume with or
+without sharding, in either package.  Debye media with CPML under
+``shard`` raise the JAX package's ``ValueError``.
 
 ``backend`` also takes the JAX package's names, mapped with a notice:
 ``xla`` -> ``torch``, ``pallas``/``pallas_fused`` -> ``twopass``,
@@ -58,7 +59,7 @@ from .ops import stream_plan
 from .parallel import mesh as shard_mesh
 from .parallel.sharded_fast import free_bytes, make_sharded_stream_runner, pick_shard_plan
 from .parallel.sharded_step import make_sharded_chunk_runner
-from .ops.cpml import PMLConfig, PsiState, init_psi, psi_shapes
+from .ops.cpml import PMLConfig, PsiState, init_psi, psi_part_shapes, psi_shapes
 from .monitors import ProbeResult, ProbeSet
 from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState, zero_polarization
 from .params import Mode, Params, time_values
@@ -69,9 +70,6 @@ BACKEND_CHOICES = ("auto", "torch", "twopass", "stream")
 # the JAX package's backend names -> the port's backend that takes their place
 JAX_BACKENDS = {"xla": "torch", "pallas": "twopass", "pallas_fused": "twopass",
                 "pallas_stream": "stream", "pallas_temporal": "stream"}
-
-# what --shard does not compose with yet
-SHARD_11B = "ROADMAP queue 1 item 11b (CPML, Debye media and the monitors under --shard)"
 
 
 @dataclasses.dataclass
@@ -307,68 +305,86 @@ def parse_shard_spec(spec: str) -> tuple[int, int]:
     return nz, ny
 
 
-def check_shard_scene(materials, pml: PMLConfig | None, dft: DftConfig | None, probes: ProbeSet | None) -> None:
-    """Refuse what ``--shard`` does not compose with yet: Debye x CPML x
-    shard with the JAX package's ``ValueError`` (its words), CPML, Debye
-    media and the monitors with ``NotImplementedError`` naming ROADMAP item
-    11b."""
-    debye = isinstance(materials, DebyeMaterials)
-    if debye and pml is not None:
+def check_shard_scene(materials, pml: PMLConfig | None) -> None:
+    """Refuse what the JAX package's ``--shard`` refuses: Debye x CPML x
+    shard, with its ``ValueError`` (its words)."""
+    if isinstance(materials, DebyeMaterials) and pml is not None:
         raise ValueError("dispersive media with --pml run single-chip for now (no --shard)")
-    for what, present in (("--pml", pml is not None), ("--dispersive", debye), ("--dft", dft is not None),
-                          ("--probe", probes is not None)):
-        if present:
-            raise NotImplementedError(f"--shard with {what} is not ported yet: {SHARD_11B}")
 
 
-def sharded_runner(p: Params, shard: str, device, materials: Materials | None = None,
+def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMaterials | None = None,
                    accumulate_power: bool = False, backend: str = "auto",
-                   log: Callable[[str], None] = print, stream_s: int | None = None):
+                   log: Callable[[str], None] = print, stream_s: int | None = None, pml: PMLConfig | None = None,
+                   dft: DftConfig | None = None, probes: ProbeSet | None = None):
     """(mesh, run) of a sharded run, the counterpart of the JAX package's
-    ``_sharded_chunk_runner`` (``fdtd_tpu/runner.py:166``) without the
-    monitor and CPML branches: ``run(shards, xs)`` advances the shards of
+    ``_sharded_chunk_runner`` (``fdtd_tpu/runner.py:166``) and its Debye
+    routing (:748-786): ``run(shards, xs)`` advances the shards of
     :func:`~fdtd_tpu_torch.parallel.mesh.scatter` (``run.depth`` halo
-    planes) in place.  ``auto`` takes the sharded ``stream`` where a shard
-    plan fits (:func:`~fdtd_tpu_torch.parallel.sharded_fast.pick_shard_plan`),
-    else ``twopass``, and ``torch`` for float64 or on the CPU; an explicit
-    ``stream`` without a plan runs ``twopass`` with a notice, and
+    planes, with the parts of psi, P and the DFT sums the scene carries) in
+    place, and returns the chunk's probe rows with ``probes``.
+
+    ``auto`` takes the sharded ``stream`` where a shard plan fits
+    (:func:`~fdtd_tpu_torch.parallel.sharded_fast.pick_shard_plan`; with the
+    DFT of fields "e" in computation mode, the plan with the bands), else
+    ``twopass``, and ``torch`` for float64 or on the CPU.  CPML runs
+    ``twopass`` (K10-shard: the JAX package has no sharded CPML sweep
+    either) and the per-step monitors (probes, fields "eh", the DFT in
+    validation mode) ``twopass`` with K4-shard; an explicit ``stream`` that
+    the scene cannot take runs ``twopass`` with a notice, and
     ``twopass``/``stream`` off the card or in float64 raise as they do
-    unsharded."""
+    unsharded.  Debye media run the torch ADE ops per shard whatever the
+    backend (with the JAX package's notice), as its xla shard_map scan
+    does."""
     nz, ny = parse_shard_spec(shard)
     dev = torch.device(device)
     mesh = shard_mesh.make_mesh((nz, ny, 1), dev, log)
     backend = map_backend(backend, log)
     if backend not in BACKEND_CHOICES:
         raise ValueError(f"unknown backend {backend!r}: use one of {BACKEND_CHOICES}")
-    lossy = materials is not None and not materials.is_vacuum
+    debye = isinstance(materials, DebyeMaterials)
+    lossy = not debye and materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
     kernels_ok = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     free = free_bytes(mesh)
-    plans = pick_shard_plan(p, mesh, stream_s, lossy, het, accumulate_power, free) if kernels_ok else None
-    if backend == "auto":
-        backend = "torch" if not kernels_ok else "stream" if plans is not None else "twopass"
-    elif backend == "stream" and kernels_ok and plans is None:
-        log(f"notice: no sharded stream plan fits a {nz}x{ny} mesh of this scene (each shard owns at least s "
-            "planes, s + 1 with --sar, and two states of every shard fit its device); running the twopass "
-            "kernels per shard")
-        backend = "twopass"
-    if backend in ("twopass", "stream") and not kernels_ok:
-        raise ValueError(
-            f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
-            f"(got device {dev}, dtype {p.dtype}); use --backend torch"
-        )
+    per_step = per_step_monitors(p, dft, probes)
+    plans = None
+    if debye:
+        if backend not in ("auto", "torch"):
+            log(f"notice: dispersive media under --shard run the torch ADE ops per shard (backend {backend!r} "
+                "ignored; the JAX package runs its xla shard_map ADE scan)")
+        backend = "torch"
+    else:
+        if kernels_ok and pml is None and not per_step:
+            plans = pick_shard_plan(p, mesh, stream_s, lossy, het, accumulate_power, free, dft)
+        if backend == "auto":
+            backend = "torch" if not kernels_ok else "stream" if plans is not None else "twopass"
+        elif backend == "stream" and kernels_ok and plans is None:
+            why = ("CPML under --shard runs the CPML two-pass kernels per shard (no sharded CPML sweep)"
+                   if pml is not None else
+                   "per-step monitors (--probe/--dft eh/validation) under --shard run the twopass kernels per shard"
+                   if per_step else
+                   f"no sharded stream plan fits a {nz}x{ny} mesh of this scene (each shard owns at least s planes, "
+                   "s + 1 with --sar or --dft, the DFT bands hold the frequencies, and two states of every shard fit "
+                   "its device); running the twopass kernels per shard")
+            log(f"notice: {why} (backend 'stream' ignored)")
+            backend = "twopass"
+        if backend in ("twopass", "stream") and not kernels_ok:
+            raise ValueError(
+                f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
+                f"(got device {dev}, dtype {p.dtype}); use --backend torch"
+            )
     if backend == "stream":
-        return mesh, make_sharded_stream_runner(p, mesh, materials, accumulate_power, plans[0].s, free)
-    if backend == "twopass":
+        return mesh, make_sharded_stream_runner(p, mesh, materials, accumulate_power, plans[0].s, free, dft)
+    if dev.type == "cuda":
         boxes = shard_mesh.shard_boxes(p, mesh, 1)
+        psi = [sum(map(math.prod, psi_part_shapes(p, pml, b).values())) for b in boxes] if pml is not None else None
         need = stream_plan.shard_bytes(p, [(b.shape, math.prod(b.cell_shape(p))) for b in boxes], mesh.devices,
-                                       mesh.devices[0], False, lossy, het, accumulate_power)
+                                       mesh.devices[0], False, lossy, het, accumulate_power, pml, debye, dft, psi)
         if not stream_plan.shard_fits(need, free):
             raise ValueError(f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} on a {nz}x{ny} mesh does not fit in device "
                              f"memory: the shards and the gathered grid need {max(need.values()) / 1e9:.1f} GB on a "
                              "device; use a coarser grid or bfloat16")
-        return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power, "twopass")
-    return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power)
+    return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power, backend, pml, dft, probes)
 
 
 def initial_state(p: Params, device) -> FieldState:
@@ -412,7 +428,7 @@ def run_simulation(
     ``materials`` on the device when already built.  ``shard`` ("Z" or
     "ZxY"): run on a mesh of shards (the module docstring)."""
     if shard is not None:
-        check_shard_scene(materials, pml, dft, probes)
+        check_shard_scene(materials, pml)
     if stream_s is not None and stream_s not in stream_plan.STEPS:
         built = "{" + ", ".join(map(str, stream_plan.STEPS)) + "}"
         raise ValueError(f"the stream sweep is built at {built} steps per sweep, not {stream_s} (--temporal-steps)")
@@ -424,7 +440,8 @@ def run_simulation(
         probes.validate(p)
     dev = resolve_device(device)
     if shard is not None:
-        mesh, run_shards = sharded_runner(p, shard, dev, materials, accumulate_power, backend, log, stream_s)
+        mesh, run_shards = sharded_runner(p, shard, dev, materials, accumulate_power, backend, log, stream_s, pml,
+                                          dft, probes)
     else:
         backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
     ts = time_values(p)
@@ -514,7 +531,8 @@ def run_simulation(
             log_diag(state, 0, 0.0)
         # a sharded run keeps its chunks sharded: the shards are gathered
         # into ``state`` (and ``power``) only where an output is due
-        shards = shard_mesh.scatter(p, state, mesh, run_shards.depth, power) if shard is not None else None
+        extras = dict(power=power, psi=psi, pml=pml, pol=pol, dacc=dacc)  # the state beside the fields
+        shards = shard_mesh.scatter(p, state, mesh, run_shards.depth, **extras) if shard is not None else None
 
         devices = set(mesh.devices) | {dev} if shard is not None else {dev}
         for d in devices:
@@ -536,7 +554,7 @@ def run_simulation(
             if dft is not None:
                 xs += (dft_cw[pos:end], dft_sw[pos:end])
             if shards is not None:
-                run_shards(shards, xs)
+                rows = run_shards(shards, xs)
             else:
                 rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
             if probes is not None:
@@ -545,7 +563,7 @@ def run_simulation(
             t_now = float(ts[pos - 1])
             output = pos % rate == 0 and (writer is not None or diag_f is not None)
             if shards is not None and (output or (checkpoint_every and pos % checkpoint_every == 0) or pos == n):
-                shard_mesh.gather(p, shards, state, power)
+                shard_mesh.gather(p, shards, state, **extras)
             if pos % rate == 0:
                 snapshot(state, pos, t_now)
                 log_diag(state, pos, t_now)

@@ -7,7 +7,7 @@ backend names map to the port's backends with a notice, ``--temporal-steps``
 forces the stream depth (the depths the port does not build exit 1 naming
 8, 4 and 2), ``--profile`` writes a torch.profiler trace, and the flags of
 features not ported yet exit 1 naming their ROADMAP item (``--shard``
-runs, and exits 1 naming item 11b with a composition still to port).
+runs, with ``--pml`` too).
 """
 
 import os
@@ -91,15 +91,14 @@ def test_cli_runs_a_jax_backend_name(tmp_path, capsys):
     ("--coupled", "2", "item 6"), ("--rotate", "10", "item 6"),
 ])
 def test_unported_flags_exit_1_naming_their_item(tmp_path, capsys, flag, value, item):
-    """The flags of item 6 exit 1 naming it.  ``--shard`` (item 11) is
-    ported: alone it runs, and with ``--pml`` (a composition still to port)
-    it exits 1 naming ROADMAP item 11b."""
-    extra = []
+    """The flags of item 6 exit 1 naming it.  ``--shard`` (items 11 and
+    11b) is ported: alone it runs, and so does ``--shard 2 --pml 3``."""
     if flag == "--shard":
-        rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value])
-        assert rc == 0 and "Simulation complete!" in capsys.readouterr().out
-        extra, flag = ["--pml", "3"], "--shard with --pml"
-    rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", *extra, flag.split()[0], value])
+        for extra in ([], ["--pml", "3"]):
+            rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value, *extra])
+            assert rc == 0 and "Simulation complete!" in capsys.readouterr().out
+        return
+    rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value])
     err = capsys.readouterr().err
     assert rc == 1 and f"{flag} is not ported yet: ROADMAP queue 1 {item}" in err
 

@@ -246,11 +246,11 @@ def test_bfloat16_guardrail_warns(tiny_params, tmp_path):
     ("shard", {"shard": "2"}, "item 11"),
 ])
 def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, feature, kw, item):
-    """Sharding (item 11) is ported: ``shard="2"`` on the tiny scene in
-    computation mode matches the JAX package's sharded xla run and its
-    unsharded run (fp64, fields at atol 1e-15 / rtol 1e-11), and sharding
-    with CPML raises naming ROADMAP item 11b, the compositions still to
-    port.  The frequency-domain
+    """Sharding (items 11 and 11b) is ported: ``shard="2"`` on the tiny
+    scene in computation mode matches the JAX package's sharded xla run and
+    its unsharded run (fp64, fields at atol 1e-15 / rtol 1e-11), and with a
+    3-cell CPML the JAX package's sharded xla CPML run (fields and the
+    twelve psi, the same bar).  The frequency-domain
     monitors (item 9) are ported: a two-frequency DFT, and probes at two
     cells, on the tiny scene in computation mode match the JAX package's
     xla run (fp64 fields; the fp32 phasor sums and probe rows within one
@@ -332,7 +332,9 @@ def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, featur
             np.testing.assert_allclose(got.power_j.numpy(), w, rtol=1e-6, atol=1e-6 * float(w.max()))
         return
     if feature == "shard":
-        from fdtd_tpu_torch.ops.cpml import PMLConfig
+        from fdtd_tpu.ops.cpml import PMLConfig as JPMLConfig
+
+        from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState
 
         p = dataclasses.replace(tiny_params, mode=Mode.COMPUTATION)
         got = t_run(p, tmp_path / "t", write_snapshots=False, **kw)
@@ -342,7 +344,19 @@ def test_unported_features_name_their_roadmap_item(tiny_params, tmp_path, featur
             for c in COMPONENTS:
                 np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
                                            rtol=1e-11, atol=1e-15, err_msg=f"{sub}/{c}")
-        kw = {**kw, "pml": PMLConfig(cells=3)}
+        # item 11b is ported too: sharded CPML against the JAX package's sharded xla CPML run
+        got = t_run(p, tmp_path / "tp", write_snapshots=False, pml=PMLConfig(cells=3), **kw)
+        want = j_run(p, out_dir=str(tmp_path / "jp"), write_snapshots=False, backend="xla", pml=JPMLConfig(cells=3),
+                     checkpoint_every=len(time_values(p)), log=lambda m: None, **kw)
+        for c in COMPONENTS:
+            np.testing.assert_allclose(getattr(got.state, c).numpy(), np.asarray(getattr(want.state, c)),
+                                       rtol=1e-11, atol=1e-15, err_msg=f"pml/{c}")
+        aux = jckpt.load_aux(jckpt.latest_checkpoint(str(tmp_path / "jp")))
+        for n in PsiState.names():
+            np.testing.assert_allclose(getattr(got.psi, n).numpy(), aux[f"psi_{n}"], rtol=1e-11, atol=1e-15,
+                                       err_msg=n)
+        assert float(np.abs(aux["psi_hx_z"]).max()) > 0
+        return
     with pytest.raises(NotImplementedError, match=item):
         t_run(tiny_params, tmp_path / "x", **kw)
 

@@ -19,9 +19,10 @@ against the port's own unsharded runs.
   runners at the JAX tests' bar (atol 1e-6, ``tests/test_sharded_fast.py``).
 - ``run_simulation(shard=)`` and ``--shard`` write the unsharded snapshots;
   checkpoints move between sharded and unsharded runs and between the
-  packages; bad specs give the JAX package's errors; the compositions of
-  ROADMAP item 11b are refused; the mesh, its exchange, the plan picker and
-  the launch stream of the kernel wrappers.
+  packages; bad specs give the JAX package's errors; Debye media with CPML
+  keep the JAX package's refusal; the mesh, its exchange, the plan picker
+  and the launch stream of the kernel wrappers.  (CPML, Debye media and the
+  monitors under sharding: ``tests/test_torch_sharded_compose.py``.)
 """
 
 import dataclasses
@@ -46,9 +47,7 @@ from fdtd_tpu.state import Materials as JMaterials  # noqa: E402
 from fdtd_tpu.state import ferrite_slab, init_validation, water_block, zeros  # noqa: E402
 from fdtd_tpu.step import scan_inputs  # noqa: E402
 from fdtd_tpu_torch import cli, convert, runner  # noqa: E402
-from fdtd_tpu_torch.dft import DftConfig  # noqa: E402
 from fdtd_tpu_torch.grid import Box  # noqa: E402
-from fdtd_tpu_torch.monitors import ProbeSet  # noqa: E402
 from fdtd_tpu_torch.ops import build, stream, stream_plan, yee  # noqa: E402
 from fdtd_tpu_torch.ops.cpml import PMLConfig  # noqa: E402
 from fdtd_tpu_torch.ops.dispersive import water_debye_load  # noqa: E402
@@ -319,24 +318,6 @@ def test_too_many_shards_for_the_planes(tmp_path):
     with pytest.raises(ValueError, match="along y"):
         runner.run_simulation(p, "cpu", out_dir=str(tmp_path), shard="1x12", write_snapshots=False,
                               log=lambda m: None)
-
-
-@pytest.mark.parametrize("what", ["--pml", "--dispersive", "--dft", "--probe"])
-def test_compositions_of_item_11b_are_refused(tmp_path, capsys, what):
-    p = convert.params_from(_params())
-    kw = {"--pml": {"pml": PMLConfig(cells=3)},
-          "--dispersive": {"materials": water_debye_load(p)},
-          "--dft": {"dft": DftConfig((2.45e10,))},
-          "--probe": {"probes": ProbeSet(((2, 3, 4),))}}[what]
-    with pytest.raises(NotImplementedError, match=f"--shard with {what} is not ported yet: ROADMAP queue 1 item 11b"):
-        runner.run_simulation(p, "cpu", out_dir=str(tmp_path), shard="2", write_snapshots=False, log=lambda m: None,
-                              **kw)
-    params = tmp_path / "p.txt"
-    params.write_text("0.01 0.01 0.01 0.001 1e-12 1e-11 5 1")
-    argv = {"--pml": ["--pml", "3"], "--dispersive": ["--water-block", "--dispersive"], "--dft": ["--dft", "2.45e10"],
-            "--probe": ["--probe", "2,3,4"]}[what]
-    assert cli.main([str(params), "--device", "cpu", "--no-output", "--shard", "2", *argv]) == 1
-    assert "ROADMAP queue 1 item 11b" in capsys.readouterr().err
 
 
 def test_debye_cpml_shard_keeps_the_jax_refusal(tmp_path):
