@@ -118,11 +118,23 @@ package beside it.  Phases, each printing one line or more:
 8. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
    bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
    (nf = 1), and each kernel's time beside its plain version's and its
-   bound, and every vacuum stream plan's.
+   bound, and every vacuum stream plan's; one line per redesigned sweep
+   (ring_kernel, K3 and K12) with its time a step beside the first
+   design's (commit 04e00ef), its registers and spills, and the 1000-step
+   stream rates of phases 5-6d beside the first design's;
+9. machine code: python -m fdtd_tpu_torch.sass_compare against a checkout
+   of 04e00ef (from the repository's git history, else
+   scratch_chip/parent; compiled on the host from the end of phase 2 on,
+   beside the card's phases): the two-pass, dft_accum and CPML-sweep
+   kernels keep their instructions.  Without such a checkout it says so
+   and skips the comparison.
 
 Each phase prints its seconds; the Debye maps (host fp64, several
 seconds at 256^3) are built once per scene and dtype and passed to the
-runners.
+runners.  Phase 5 runs the CLI as ``python -m fdtd_tpu_torch`` in a
+process of its own; the later CLI runs call its entry point (``cli.main``)
+in this process, output captured, so that each does not pay the start-up
+of Python, torch and a CUDA context again.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -130,6 +142,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import glob
@@ -149,6 +162,26 @@ N_LOADS = 66  # steps of the load comparisons at 256^3 (not a multiple of the sw
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PML_STEPS_RINGDOWN = 1200  # the gaussian ring-down of tests/test_pml.py
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+# the sweeps' first design (commit 04e00ef), measured by this script on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md kernel table): steps a sweep and
+# fp32 ms a sweep at 256^3 (a shard's: a middle slab of --shard 4), and the
+# 1000-step stream rates in Mcells/s
+FIRST_DESIGN = "04e00ef"
+FIRST_SWEEPS = {
+    "yee_stream": (4, 0.98256), "yee_stream_lossy": (4, 1.87572), "yee_stream_lossy_sar": (4, 3.19993),
+    "yee_stream_lossy_het": (4, 2.24609), "yee_stream_lossy_het_sar": (4, 3.67390), "yee_stream_dft": (4, 2.56431),
+    "yee_stream_lossy_dft": (4, 3.81382), "yee_stream_lossy_sar_dft": (4, 4.41382),
+    "yee_stream_lossy_het_dft": (4, 4.30844), "yee_stream_lossy_het_sar_dft": (4, 5.02964),
+    "yee_stream_ade": (4, 3.12060), "yee_stream_ade_sar": (2, 2.98542), "yee_stream_ade_dft": (4, 5.89640),
+    "yee_stream_ade_sar_dft": (2, 4.15782), "yee_stream_shard": (4, 0.28770), "yee_stream_lossy_shard": (4, 0.55776),
+    "yee_stream_lossy_sar_shard": (4, 0.91300), "yee_stream_lossy_het_shard": (4, 0.67459),
+    "yee_stream_lossy_het_sar_shard": (4, 1.13420), "yee_stream_dft_shard": (4, 0.68137),
+    "yee_stream_lossy_dft_shard": (4, 1.08552), "yee_stream_lossy_sar_dft_shard": (4, 1.24542),
+    "yee_stream_lossy_het_dft_shard": (4, 1.21617), "yee_stream_lossy_het_sar_dft_shard": (4, 1.38074),
+}
+FIRST_RATES = {"bench_256 stream": 68203.0, "heating_256 stream": 20775.8,
+             "heating_256 --water-block --dispersive --sar stream": 11059.1,
+             "heating_256 --water-block --sar --dft 2.45e10 stream": 14784.8}
 
 
 def fail(msg: str) -> None:
@@ -167,6 +200,37 @@ def run_cmd(cmd: list[str]) -> str:
     if r.returncode != 0:
         fail(f"{' '.join(cmd)} exited {r.returncode}: {r.stderr.strip()}")
     return r.stdout.strip()
+
+
+def run_cli(args: list[str]) -> subprocess.CompletedProcess:
+    """``python -m fdtd_tpu_torch ARGS`` run in this process (``cli.main``,
+    the module's entry point), its output captured: a process of its own
+    would pay Python's, torch's and the CUDA context's start-up (several
+    seconds) again for every run.  Phase 5 runs the module in a process."""
+    import io
+    import traceback
+
+    import torch
+    from fdtd_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(args)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+        except Exception:  # reported as a failing exit, as the module's process would
+            traceback.print_exc()
+            rc = 1
+    torch.cuda.empty_cache()
+    return subprocess.CompletedProcess(["fdtd_tpu_torch", *args], rc, out.getvalue(), err.getvalue())
+
+
+def _flag(kernel: str, q: int) -> bool:
+    """Template argument ``q`` (0: the type) of a demangled kernel name,
+    read as a bool."""
+    args = kernel[kernel.index("<") + 1:kernel.rindex(">")].split(",")
+    return args[q].strip() == "true"
 
 
 def main() -> None:
@@ -238,6 +302,29 @@ def main() -> None:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {lib_path.name}: {line.strip()}")
     print(f"build: {', '.join(lp.name for lp in lib_paths)} in {build_s:.2f} s", flush=True)
+    # the machine code of the kernels the redesign leaves alone (two-pass,
+    # DFT, the CPML sweep) against the first design's, from a checkout of
+    # it (the repository's git history, else scratch_chip/parent): its
+    # compiles run on the host beside the card's phases, read at the end
+    sass_dir = tempfile.TemporaryDirectory()
+    sass_parent = os.path.join(HERE, "scratch_chip", "parent")
+    if shutil.which("git") and subprocess.run(["git", "-C", HERE, "cat-file", "-e", FIRST_DESIGN],
+                                              capture_output=True).returncode == 0:
+        archive = subprocess.run(["git", "-C", HERE, "archive", FIRST_DESIGN, "fdtd_tpu_torch/csrc"],
+                                 capture_output=True, check=True).stdout
+        subprocess.run(["tar", "-x", "-C", sass_dir.name], input=archive, check=True)
+        sass_parent = sass_dir.name
+    sass_proc = None
+    if os.path.isdir(os.path.join(sass_parent, "fdtd_tpu_torch", "csrc")):
+        # the CPML sweep kept its code but not its other variants' template
+        # flags: stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>
+        # with PML alone is stream_kernel<T, S, BJ, LOSSY, DFT> here
+        cpml_alias = (r"void stream_kernel<(\w+), (\d+), (\d+), (\w+), false, false, true, false, (\w+), false>",
+                      r"void stream_kernel<\1, \2, \3, \4, \5>")
+        sass_proc = subprocess.Popen([sys.executable, "-m", "fdtd_tpu_torch.sass_compare", sass_parent, "--json",
+                                      os.path.join(sass_dir.name, "sass.json"), "--alias", *cpml_alias], cwd=HERE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(lambda: sass_proc.poll() is None and sass_proc.kill())
     phase_done("1-2 device and build")
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -745,11 +832,7 @@ def main() -> None:
     with open(heat500, "w") as f:
         f.write("\n".join(vals) + "\n")
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block", "--sar",
-         "--out", heat_cli],
-        capture_output=True, text=True, timeout=900,
-    )
+    r = run_cli(["configs/heating_256.txt", "--water-block", "--sar", "--out", heat_cli])
     cli_s = time.perf_counter() - t0
     lines = r.stdout.strip().splitlines()
     for line in lines[-3:]:
@@ -865,11 +948,7 @@ def main() -> None:
             f.write("\n".join(vals) + "\n")
         diag = os.path.join(out, "diag.jsonl")
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "fdtd_tpu_torch", params_pml, "--pml", "10", "--diag-log", diag,
-             "--out", os.path.join(out, "r")],
-            capture_output=True, text=True, timeout=600,
-        )
+        r = run_cli([params_pml, "--pml", "10", "--diag-log", diag, "--out", os.path.join(out, "r")])
         cli_s = time.perf_counter() - t0
         print(r.stdout.strip().splitlines()[-2] if r.stdout.strip() else "(no CLI output)")
         files = sorted(os.path.basename(f) for f in glob.glob(os.path.join(out, "r", "*.vtr")))
@@ -987,17 +1066,14 @@ def main() -> None:
     # -- 6c. the Debye path at 256^3 (--water-block --dispersive --sar) -----
     debye = water_debye_load(ph)
     dc_debye = debye_coefs(ph, debye, dev)  # built once for every run of the scene
+    dc_by_dtype = {"float32": dc_debye}
     ade_plan = stream_plan.pick_plan(ph, sar=True, ade=True)
     s_ade = ade_plan.s
     print(f"Debye + SAR plan at 256^3: {ade_plan} ({ade_plan.blocks} blocks of {ade_plan.threads} threads, "
           f"{ade_plan.smem_bytes} B shared memory); without SAR: {stream_plan.pick_plan(ph, ade=True)}", flush=True)
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "fdtd_tpu_torch", heat500, "--water-block", "--dispersive",
-             "--sar", "--out", out],
-            capture_output=True, text=True, timeout=900,
-        )
+        r = run_cli([heat500, "--water-block", "--dispersive", "--sar", "--out", out])
         cli_s = time.perf_counter() - t0
         lines = r.stdout.strip().splitlines()
         for line in lines[-3:]:
@@ -1051,10 +1127,10 @@ def main() -> None:
           f"Debye 256^3 1000 steps: stream == twopass, fields and P max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
     debye_ref = (finals["stream"], powers["stream"], pols["stream"])  # held against the sharded Debye run (7b)
     del finals, powers, pols
-    # without SAR (s = 4: 16 sweeps + 2 trailing steps) and with it (s = 2:
-    # 33 sweeps + 1), from random fields: stream == twopass == torch
+    # without SAR and with it (s = 2: 33 sweeps + 1 trailing step), from
+    # random fields: stream == twopass == torch
     s_nosar = stream_plan.pick_plan(ph, ade=True).s
-    for steps_d, sar, name in ((N_LOADS, False, "yee_stream_ade"), (N_LOADS + 1, True, "yee_stream_ade_sar")):
+    for steps_d, sar, name in ((N_LOADS + 1, False, "yee_stream_ade"), (N_LOADS + 1, True, "yee_stream_ade_sar")):
         s_d = s_ade if sar else s_nosar
         e_name = "yee_update_e_ade_sar" if sar else "yee_update_e_ade"
         check(steps_d % s_d != 0, f"{steps_d} steps leave {steps_d % s_d} trailing two-pass steps at s={s_d}")
@@ -1223,7 +1299,9 @@ def main() -> None:
         pd = dataclasses.replace(ph, dtype=dtype)
         arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
         compare_k4(pd, 1, f"{dtype} random 256^3")
-        dc_d = dc_debye if dtype == "float32" else debye_coefs(pd, debye, dev)
+        if dtype not in dc_by_dtype:  # the maps of the Debye scene per dtype, built once (host fp64)
+            dc_by_dtype[dtype] = debye_coefs(pd, debye, dev)
+        dc_d = dc_by_dtype[dtype]
         compare_sweep_dft(pd, arrays, f"{dtype} heating 256^3", water, True)
         compare_sweep_dft(pd, arrays, f"{dtype} --pml 10 256^3", pml=PML10)
         compare_sweep_dft(pd, arrays, f"{dtype} Debye + SAR 256^3", debye, True, dc=dc_d)
@@ -1248,9 +1326,8 @@ def main() -> None:
     dft_cli = tempfile.mkdtemp()
     with contextlib.nullcontext(os.path.join(dft_cli, "one")) as out:
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", heat500, "--water-block",
-                            "--sar", "--dft", "2.45e10", "--out", out, "--diag-log",
-                            os.path.join(dft_cli, "one.jsonl")], capture_output=True, text=True, timeout=900)
+        r = run_cli([heat500, "--water-block", "--sar", "--dft", "2.45e10", "--out", out, "--diag-log",
+                     os.path.join(dft_cli, "one.jsonl")])
         cli_s = time.perf_counter() - t0
         lines = r.stdout.strip().splitlines()
         for line in lines[-4:]:
@@ -1330,6 +1407,7 @@ def main() -> None:
         lossy_v = mats_v is not None and not debye_v
         het_v = lossy_v and mats_v.mu_r is not None
         plan_v = stream_plan.pick_plan(ph, lossy=lossy_v, het=het_v, sar=sar_v, pml=pml_v, ade=debye_v, dft=DFT2)
+        steps_v += steps_v % plan_v.s == 0  # an odd count at s = 2
         trail = steps_v % plan_v.s
         check(trail != 0, f"{steps_v} steps leave {trail} trailing two-pass steps at s={plan_v.s} ({plan_v.kernel})")
         counts = equal_runs(ph, steps_v, ("stream", "twopass", "torch"), mats_v, sar_v, f"{label}--dft (nf=2) ", pml_v,
@@ -1378,9 +1456,8 @@ def main() -> None:
         vals[5] = repr(N_LOADS * p.time_step)
         with open(params66, "w") as f:
             f.write("\n".join(vals) + "\n")
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", params66, "--probe", "128,128,128", "--probe",
-                            "10,20,30", "--dft", "2.45e10", "--dft-fields", "eh", "--out", os.path.join(out, "r")],
-                           capture_output=True, text=True, timeout=600)
+        r = run_cli([params66, "--probe", "128,128,128", "--probe", "10,20,30", "--dft", "2.45e10", "--dft-fields",
+                     "eh", "--out", os.path.join(out, "r")])
         csv_path = os.path.join(out, "r", "probes.csv")
         rows = open(csv_path).read().splitlines() if os.path.exists(csv_path) else []
         cols = {len(row.split(",")) for row in rows[1:]}
@@ -1655,9 +1732,8 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        r4 = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", params500, "--out", os.path.join(out, "z4"),
-                             "--diag-log", os.path.join(out, "z4.jsonl"), "--shard", "4"],
-                            capture_output=True, text=True, timeout=600)
+        r4 = run_cli([params500, "--out", os.path.join(out, "z4"), "--diag-log", os.path.join(out, "z4.jsonl"),
+                      "--shard", "4"])
         cli_s = time.perf_counter() - t0
         names, d = same_outputs(os.path.join(bench_cli, "one"), os.path.join(out, "z4"))
         logs = [open(path).read() for path in (os.path.join(bench_cli, "one.jsonl"), os.path.join(out, "z4.jsonl"))]
@@ -1666,9 +1742,8 @@ def main() -> None:
               f"CLI bench_256 (rate 500) --shard 4 writes the unsharded snapshots {names} (max|diff| {d!r}) and "
               f"energy log in {cli_s:.1f} s: {r4.stdout.strip().splitlines()[-2:]} {r4.stderr.strip()[-300:]}")
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", "configs/heating_256.txt", "--water-block",
-                            "--sar", "--shard", "4", "--out", os.path.join(out, "heat")], capture_output=True,
-                           text=True, timeout=900)
+        r = run_cli(["configs/heating_256.txt", "--water-block", "--sar", "--shard", "4", "--out",
+                     os.path.join(out, "heat")])
         cli_s = time.perf_counter() - t0
         names, d = same_outputs(heat_cli, os.path.join(out, "heat"))
         check(r.returncode == 0 and len(names) == 12 and "sar.vtr" in names and d == 0.0,
@@ -1811,13 +1886,14 @@ def main() -> None:
         return max([absdiff(x, y) for x, y in zip(ta, tb) if x.numel()] + [0.0])
 
     def shard_kernels_11b(pk: Params, arrays: dict, shape: tuple, label: str, mats=None, sar: bool = False,
-                          pml: PMLConfig | None = None, nf: int = 0, s: int = 4) -> None:
+                          pml: PMLConfig | None = None, nf: int = 0, s: int | None = None) -> None:
         """On every shard of a ``shape`` mesh (random fields, psi, sums and
         map): with ``pml`` K10-shard (H and E, the variant of ``mats``), with
         ``nf`` frequencies K4-shard and, in computation mode and nf <= 2,
-        K3-shard-DFT at ``s``, against their plain versions: owned cells,
+        K3-shard-DFT at ``s`` (default: its built depth), against their plain versions: owned cells,
         psi parts, sums and map bit for bit."""
         mesh_k = shard_mesh.make_mesh(shape, "cuda")
+        s = s or stream_plan.built_depths(mats is not None, dft=True)[0]
         host = update_coefs(pk, mats, "cpu")
         dt = field_dtype(pk)
         canon = state_from_numpy(arrays, dev, dt)
@@ -2016,8 +2092,9 @@ def main() -> None:
     # water + ferrite load and SAR on twopass (66 steps), and the DFT bands
     # of every material variant with nf = 2 on stream (16 sweeps and 2
     # trailing two-pass steps with dft_accum), == their unsharded runs
-    def shard_load(pm: Params, mats, sar: bool, backend: str, label: str, pml=None, dft=None) -> dict:
-        tv = time_values(pm)[:N_LOADS]
+    def shard_load(pm: Params, mats, sar: bool, backend: str, label: str, pml=None, dft=None,
+                   steps: int = N_LOADS) -> dict:
+        tv = time_values(pm)[:steps]
         xs_l = scan_inputs(pm, tv) + (dft_weights(dft, tv) if dft is not None else ())
         init = {c: rng.uniform(-1.0, 1.0, pm.padded_shape).astype(np.float32) for c in COMPONENTS}
         outs = []
@@ -2044,7 +2121,7 @@ def main() -> None:
         for key in ("power", "psi", "dacc"):
             if ea[key] is not None:
                 d = max(d, maxdiff(ea[key], eb[key]) if key != "power" else absdiff(ea[key], eb[key]))
-        check(d == 0.0, f"heating_256 {label} --shard 4 {backend}, {N_LOADS} steps from random fields == unsharded: "
+        check(d == 0.0, f"heating_256 {label} --shard 4 {backend}, {steps} steps from random fields == unsharded: "
                         f"max|diff| = {d!r}; launch counts {counts}")
         return counts
 
@@ -2057,19 +2134,20 @@ def main() -> None:
     for mats_l, sar_l, scene_l in ((None, False, ""), (water, False, "--water-block "),
                                    (ferrite, False, "--water-block --ferrite-slab "),
                                    (ferrite, True, "--water-block --ferrite-slab --sar ")):
-        counts = shard_load(ph, mats_l, sar_l, "stream", f"{scene_l}--dft (nf=2)", dft=DFT2)
         lossy_l = mats_l is not None
         plan_l = sharded_fast.pick_shard_plan(ph, mesh4, lossy=lossy_l, het=lossy_l and mats_l.mu_r is not None,
                                               sar=sar_l, dft=DFT2)[0]
+        steps_l = N_LOADS + (N_LOADS % plan_l.s == 0)  # an odd count at s = 2
+        counts = shard_load(ph, mats_l, sar_l, "stream", f"{scene_l}--dft (nf=2)", dft=DFT2, steps=steps_l)
         kname = plan_l.kernel + "_shard"
-        trail = N_LOADS % plan_l.s
+        trail = steps_l % plan_l.s
         h_l = "yee_update_h_het_shard" if lossy_l and mats_l.mu_r is not None else "yee_update_h_shard"
         e_l = "yee_update_e_lossy_shard" if lossy_l else "yee_update_e_shard"
-        want = expect(**{kname: 4 * (N_LOADS // plan_l.s), h_l: 4 * trail, e_l: 4 * trail, "dft_accum_shard": 4 * trail})
+        want = expect(**{kname: 4 * (steps_l // plan_l.s), h_l: 4 * trail, e_l: 4 * trail, "dft_accum_shard": 4 * trail})
         check(counts == want and trail, f"{scene_l}--dft (nf=2) --shard 4 stream launch counts {counts} == {want}")
         if kname not in main_counts:
             main_counts[kname] = counts[kname]
-            paths[kname] = f"heating_256 {scene_l}--dft 2.45e10,1.5e10 --shard 4 stream ({N_LOADS} steps)"
+            paths[kname] = f"heating_256 {scene_l}--dft 2.45e10,1.5e10 --shard 4 stream ({steps_l} steps)"
     torch.cuda.empty_cache()
     phase_done("7b sharded runs")
 
@@ -2085,8 +2163,7 @@ def main() -> None:
                  os.path.join(dft_cli, "one"), os.path.join(dft_cli, "one.jsonl"), 5)):
             sub = os.path.join(out, str(n_files))
             t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", "fdtd_tpu_torch", *argv, "--shard", "4", "--out", sub,
-                                "--diag-log", sub + ".jsonl"], capture_output=True, text=True, timeout=900)
+            r = run_cli([*argv, "--shard", "4", "--out", sub, "--diag-log", sub + ".jsonl"])
             cli_s = time.perf_counter() - t0
             names, d = same_outputs(ref_dir, sub)
             logs = [open(path).read() if os.path.exists(path) else None for path in (ref_log, sub + ".jsonl")]
@@ -2183,7 +2260,7 @@ def main() -> None:
 
     # -- 8. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
-    dcs = {"float32": dc_debye}  # the Debye maps per dtype (p and ph share the grid and the step)
+    dcs = dc_by_dtype  # the Debye maps per dtype (p and ph share the grid and the step)
     for dft_t in (None, DFT1):
         for scene_t, mats_t, pml_t in (("vacuum", None, None), ("heating", water, None), ("pml", None, PML10),
                                        ("dispersive", debye, None)):
@@ -2294,7 +2371,7 @@ def main() -> None:
         # Debye: the ADE E pass (with and without the SAR work) and the ADE
         # sweeps at the dispersive path's shapes
         t0 = time.perf_counter()
-        dc_t, vac = debye_coefs(pd, debye, dev), update_coefs(pd)
+        dc_t, vac = debye_coefs(pd, debye, dev) if fp32 else dcs[dtype], update_coefs(pd)
         torch.cuda.synchronize()
         if fp32:
             ade_extra["debye_coefs_s"] = time.perf_counter() - t0
@@ -2478,6 +2555,47 @@ def main() -> None:
             "bound_ms": bound["fp32"][0], "bound_by": bound["fp32"][1],
             "library_ms": None, "path": paths[name],
         })
+    # the redesigned sweeps (ring_kernel): each beside its first design's
+    # time a step, with registers and spills from the build's ptxas report
+    from fdtd_tpu_torch import tune_stream
+    regs = tune_stream.ptxas_report(lib_paths[1].with_suffix(".log").read_text())
+    for entry in kernels:
+        name = entry["name"]
+        if name not in FIRST_SWEEPS:
+            continue
+        box = name.endswith("_shard")
+        pl = plans[name.removesuffix("_shard")]
+        flags = (pl.s, pl.bj, pl.cr, pl.lossy, pl.het, pl.sar, pl.ade, pl.dft, box)
+        r32, r16 = regs.get(("float32",) + flags, (None, None)), regs.get(("bfloat16",) + flags, (None, None))
+        s8, ms8 = FIRST_SWEEPS[name]
+        grid = "a middle slab" if box else f"{pl.blocks} blocks ({pl.blocks / stream_plan.SM_COUNT!r} waves)"
+        print(f"redesign 256^3 {name}: ring_kernel s={pl.s} bj={pl.bj} coefficient ring {int(pl.cr)}, {grid}: fp32 "
+              f"{entry['ms']!r} ms a sweep, {entry['ms'] / pl.s!r} a step (first design {ms8 / s8!r} a step at s={s8}: "
+              f"x{(ms8 / s8) / (entry['ms'] / pl.s)!r}), bf16 {ms_bf16[name]!r} ms a sweep; bound share "
+              f"{entry['bound_ms'] / entry['ms']!r}; registers {r32[0]} / {r16[0]}, spill stores {r32[1]} / {r16[1]} B "
+              f"(fp32 / bf16) ({smi})")
+    for key, first in FIRST_RATES.items():
+        print(f"rate 1000 steps {key}: {main_rates[key]!r} Mcells/s (first design {first!r}: "
+              f"x{main_rates[key] / first!r}) ({smi})")
+
+    if sass_proc is not None:
+        out_s, _ = sass_proc.communicate()
+        verdict_path = os.path.join(sass_dir.name, "sass.json")
+        verdicts = json.loads(open(verdict_path).read()) if os.path.exists(verdict_path) else {}
+        kept = {k: v for k, v in verdicts.items()
+                if not k.startswith("yee_stream") or "stream_kernel" in k and _flag(k, 6)}
+        changed = sorted(k for k, v in kept.items() if v != "same")
+        for line in out_s.strip().splitlines():
+            if line.startswith("{"):
+                print(f"sass_compare vs {FIRST_DESIGN}: {line}")
+        check(bool(kept) and not changed,
+              f"sass_compare vs {FIRST_DESIGN}: {len(kept)} two-pass, dft_accum and CPML-sweep kernels keep their "
+              f"machine code (changed: {changed}); the redesigned sweeps are new kernels ({out_s.count('missing here')} "
+              f"of its kernels replaced)")
+    else:
+        print(f"sass_compare vs {FIRST_DESIGN}: not run (no git history and no scratch_chip/parent checkout)")
+    sass_dir.cleanup()
+
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -144,10 +144,69 @@
 // it once: 48 B per cell per S steps in fp32 before amplification (24 B in
 // bf16), against 72 B per step for the two-pass kernels.  Lossy media add
 // 24 B of ca/cb reads per cell per sweep (fp32), het-mu 12 B of hf, SAR
-// 4 B of sigma and 8 B of accumulator read and write.  This first
-// version loads and stores with plain per-thread accesses (no TMA; cp.async
-// only for the DFT sums) and synchronises the block twice per level and
-// plane.
+// 4 B of sigma and 8 B of accumulator read and write.
+//
+// Two kernels carry the design above.  stream_kernel, the first version,
+// runs the CPML sweep (K11: vacuum or lossy, with or without the DFT
+// bands) alone: plain per-thread loads at the top of each pipeline step,
+// coefficients read from memory at every level, a grid of tk-plane k
+// segments, two block-wide exchanges per level.
+//
+// The Hopper core (ring_kernel: K3, every variant, and K12).  Bytes did
+// not bind the first version: at 256^3 its own traffic model needed
+// 23-38% of the time it took.  One 768-1024-thread block fills an SM and
+// drains at every barrier, so whatever a thread waits for, the SM waits
+// for.  The core does four things about it:
+//  - Planes loaded ahead: a ring in dynamic shared memory, one 4-byte word
+//    per thread and array (thread-private, so it needs no barrier of its
+//    own).  The fields (and P) of plane r+1 and, with CR, the coefficients
+//    of plane r (ca/cb, hf, SAR sigma and the map value of cell r-1; the
+//    Debye maps) are copied with cp.async after level 1's first barrier of
+//    step r, so a step's S levels hide the loads' latency.  Coefficients
+//    keep S+1 planes (plane k is read at levels 1..S, steps k+1..k+S), so
+//    every level reads them from shared memory and memory sees them once
+//    per tile plane (the material sweep's s = 8 shape, whose S+1 planes
+//    would not fit, reads them from memory).  TMA cannot take these
+//    rows (a 257-element row is not a 16-B multiple, and padding i would
+//    change the layout), so the copies are 4-byte LDGSTS, coalesced along
+//    i; a bf16 element travels in the aligned pair that holds it (an even
+//    element alone, its neighbour's half zero-filled) and word() picks its
+//    half.
+//  - i neighbours by warp shuffles (the tile's i extent is one warp), so
+//    only the j neighbours (Ex, Ez up; Hx, Hz down; three values of the
+//    cell means) cross warps through shared memory.  A halo lane reads its
+//    own value where the first version read 0; the recompute halo discards
+//    both.
+//  - Whole waves: block b advances segment b / tiles of tile b % tiles, so
+//    the blocks of a wave walk neighbouring tiles' planes together and the
+//    halo columns they share come from L2; the segment count is the one
+//    whose waves take the fewest pipeline steps an SM
+//    (ops/stream_plan.py::pick_tk: 121 whole tiles in one wave at 256^3 in
+//    vacuum, 648 blocks in 4.9 waves with SAR).  A persistent grid of one
+//    block an SM walking the (tile, plane) list in equal runs filled every
+//    SM to the end but put neighbouring tiles at different planes, so their
+//    halo columns came from device memory: 1.5-2.2x slower, dropped.
+//  - Less work a level: 32-bit column offsets with one 64-bit plane offset
+//    where memory is touched, coefficient reads from the ring at a
+//    thread-private address, the map value's load from the ring.
+// What binds each variant now (PERF.md): vacuum and the CPML-free
+// material sweeps reach 26-36% of their byte bound at s = 4 (the halo
+// re-reads and the per-level instruction stream, 8 barriers a step); the
+// s = 2 sweeps (Debye, the material DFT bands) 45-56%.  Of the vacuum
+// step's 318 instructions between its barriers, 103 are the update's
+// arithmetic; the rest are bound tests, shared-memory and shuffle traffic
+// and kernel parameters reloaded from the constant bank (64 registers at
+// 1024 threads).  Tried, each bit for bit, and dropped (no faster in fp32
+// at 256^3; python -m fdtd_tpu_torch.tune_stream, same call against this
+// design): two blocks an SM (launch bounds (512, 2): 1.2-1.3x
+// slower, the smaller tile's halo); one barrier a level (the next level's
+// E inputs published with this level's H, the cell means a barrier late:
+// -5%..+10%, so the barriers' tails do not bind); a block-uniform fast path
+// without the bound tests for interior tiles and planes (the step body
+// twice: vacuum spilled 60 B and ran 0.73x, the rest 0.95-1.06x); the
+// fields loaded two planes ahead (0.92-1.04x: one plane hides the loads).
+// The rest is the first version's arithmetic, in its order, so the results
+// are its results bit for bit.
 //
 // Numerics: every operation is an explicitly rounded __fsub_rn / __fmul_rn /
 // __fadd_rn in the order of ops/curl.py, built with -fmad=false, so fp32 is
@@ -155,7 +214,8 @@
 // steps (with SAR: and their per-step increments).  bf16 storage loads to
 // fp32, keeps every level in fp32 and rounds once per sweep, at the store;
 // coefficients and sigma stored in bf16 widen to fp32, and the SAR of a
-// bf16 sweep comes from its fp32 levels.  Offsets are 64-bit.
+// bf16 sweep comes from its fp32 levels.  Offsets into device memory are
+// 64-bit (ring_kernel: a 64-bit plane offset plus a 32-bit column offset).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -301,21 +361,6 @@ struct AdeSweep {
 // special-case path
 __device__ __forceinline__ float div_dt(float d, float dt) { return d == 0.f ? d : __fdiv_rn(d, dt); }
 
-// one edge's ADE update (component q at o) from its inputs eo, po and the
-// curl cv: returns E', sets pn and, with W, the edge work w
-template <typename T, bool W>
-__device__ __forceinline__ float ade_edge(const AdeSweep<T>& a, int q, int64_t o, float eo, float po, float cv,
-                                          float dt, float& pn, float& w) {
-    const float en = __fadd_rn(__fadd_rn(__fmul_rn(ld(a.c[q], o), eo), __fmul_rn(ld(a.c[3 + q], o), cv)),
-                               __fmul_rn(ld(a.c[6 + q], o), po));
-    pn = __fadd_rn(__fmul_rn(ld(a.c[9 + q], o), po), __fmul_rn(ld(a.c[12 + q], o), __fadd_rn(en, eo)));
-    if (W) {
-        const float em = __fmul_rn(0.5f, __fadd_rn(en, eo));
-        w = __fmul_rn(em, __fadd_rn(div_dt(__fsub_rn(pn, po), dt), __fmul_rn(ld(a.c[15 + q], o), em)));
-    }
-    return en;
-}
-
 // the CPML variants' psi: the input and output sets, twelve arrays each in
 // _TERMS order, and the (b, c) tables of the H and E terms, (6, 2, 2n) each
 template <typename T>
@@ -371,48 +416,35 @@ struct Box {
     int ck0, cj0, ci0, cnk, cnj, cni;
 };
 
-// BOX: a shard's sweep, its geometry the runtime Box g; without it the
-// whole grid's, compiled as it was before shards existed (a runtime box in
-// every variant cost some of them 5-14% at 256^3, through registers, spills
-// and the instruction stream), so only the shard variants carry it.
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
+// stream_kernel: the CPML sweep (K11), vacuum or lossy, with or without the
+// DFT bands, on the whole grid (its first design; see "CPML" and "DFT")
+template <typename T, int S, int BJ, bool LOSSY, bool DFT>
 __global__ void __launch_bounds__(BI * BJ, 1)
 stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
               int tk, int has_patch, int j0, int j1, int i0, int i1,
               const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
-              PsiSweep<T> psw, AdeSweep<T> ade, DftSweep dft, Box g) {
-    static_assert(!BOX || (!PML && !ADE), "the CPML and Debye sweeps have no shard variant");
-    constexpr bool MEANS = SAR || DFT;  // cell means read E (work) one column past
-    constexpr int SH = MEANS ? 1 : 0;   // so one column fewer is emitted
+              PsiSweep<T> psw, DftSweep dft) {
+    constexpr int SH = DFT ? 1 : 0;  // the cell means read E one column past, so one column fewer is emitted
     constexpr int TJ = BJ - 2 * S - SH;
     constexpr int TI = BI - 2 * S - SH;
     static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
     __shared__ float sE[3][BJ][BI];
     __shared__ float sH[3][BJ][BI];
-    // SAR / DFT: level m's E (Debye SAR: edge work) on planes k-1 (L) and k
-    // (U): exL, exU, eyL, eyU, ezL
-    __shared__ float sS[MEANS ? 5 : 1][MEANS ? BJ : 1][BI];
+    // DFT: level m's E on planes k-1 (L) and k (U): exL, exU, eyL, eyU, ezL
+    __shared__ float sS[DFT ? 5 : 1][DFT ? BJ : 1][BI];
 
-    // (k, j, i) are global; a shard's column offsets fold in its arrays'
-    // origin (and its cell box's), so a plane's address is k * sk + col.
-    // Without BOX every term below is the whole grid's.
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int i = (BOX ? g.wi0 : 0) + (int)blockIdx.x * TI - S + tx;
-    const int j = (BOX ? g.wj0 : 0) + (int)blockIdx.y * TJ - S + ty;
-    const int k0 = (BOX ? g.wk0 : 0) + (int)blockIdx.z * tk;
-    const int k1 = min(k0 + tk, BOX ? g.wk1 : K + 1);
+    const int i = (int)blockIdx.x * TI - S + tx;
+    const int j = (int)blockIdx.y * TJ - S + ty;
+    const int k0 = (int)blockIdx.z * tk;
+    const int k1 = min(k0 + tk, K + 1);
     const int ks = max(k0 - S, 0);
-    const int kz = BOX ? g.ok : 0;  // the lowest plane the arrays hold
 
-    const int64_t sj = BOX ? (int64_t)g.ni : (int64_t)I + 1;
-    const int64_t sk = sj * (BOX ? (int64_t)g.nj : (int64_t)J + 1);
-    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J
-                       && (!BOX || (i - g.oi >= 0 && i - g.oi < g.ni && j - g.oj >= 0 && j - g.oj < g.nj));
-    const int64_t col = !inbox ? 0
-                        : BOX ? (int64_t)(j - g.oj) * sj + (i - g.oi) - (int64_t)g.ok * sk
-                              : (int64_t)j * sj + i;
-    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ
-                      && (!BOX || (i < g.wi1 && j < g.wj1));
+    const int64_t sj = (int64_t)I + 1;
+    const int64_t sk = sj * ((int64_t)J + 1);
+    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J;
+    const int64_t col = !inbox ? 0 : (int64_t)j * sj + i;
+    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ;
 
     // per-column update bounds (yee_twopass.cu's, without k)
     const bool c_hx = inbox && j < J;
@@ -423,22 +455,19 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
     const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
     const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
     const int ni = i1 - i0;
-    // SAR / DFT: this thread owns the cells of its column that the block emits
-    const bool c_sar = MEANS && emit && j < J && i < I;
-    const int64_t cell_col = BOX ? (int64_t)(j - g.cj0) * g.cni + (i - g.ci0) - (int64_t)g.ck0 * g.cnj * g.cni
-                                 : (int64_t)j * I + i;
-    const int64_t cell_sk = BOX ? (int64_t)g.cnj * g.cni : (int64_t)J * I;
+    // DFT: this thread owns the cells of its column that the block emits
+    const bool c_sar = DFT && emit && j < J && i < I;
+    const int64_t cell_col = (int64_t)j * I + i;
+    const int64_t cell_sk = (int64_t)J * I;
     // DFT: the sums of the S cells in flight, slot (cell % S) of this
     // thread: sD[((slot * 6 * nf + q) * BJ + ty) * BI + tx], q = 6f + 2c + (0: re, 1: im)
     extern __shared__ float sD[];
     constexpr int64_t SLOT_STRIDE = (int64_t)BJ * BI;
 
     // e[m], h[m]: level m's newest plane of this column (level S: H only,
-    // and with E cell means (SAR, DFT) its E too); acc[m-1]: the
-    // accumulator of the cell that level m adds to at this pipeline step
-    constexpr int NE = ((SAR && !ADE) || DFT) ? S + 1 : S;
+    // and with the DFT cell means its E too)
+    constexpr int NE = DFT ? S + 1 : S;
     float e[NE][3], h[S + 1][3];
-    float acc[SAR ? S : 1];
 #pragma unroll
     for (int m = 0; m <= S; ++m) {
 #pragma unroll
@@ -447,33 +476,18 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             h[m][c] = 0.f;
         }
     }
-#pragma unroll
-    for (int m = 0; m < (SAR ? S : 1); ++m) acc[m] = 0.f;
-    // ADE: pl[m], level m's P of its newest plane (m < S); with SAR wl[m-1],
-    // level m's edge work of its plane before this step's
-    float pl[ADE ? S : 1][3], wl[(ADE && SAR) ? S : 1][3];
-#pragma unroll
-    for (int m = 0; m < (ADE ? S : 1); ++m)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            pl[m][c] = 0.f;
-            wl[(ADE && SAR) ? m : 0][c] = 0.f;
-        }
     // ps[m-1]: the twelve psi of level m's newest plane of this column
     // (1 <= m < S; level 0's psi is read from psi.in when level 1 needs
     // it); cols: the terms this column can hold (bit t)
-    constexpr int NP = PML ? 12 : 1;
-    float ps[S - 1][NP];
+    float ps[S - 1][12];
 #pragma unroll
     for (int m = 0; m < S - 1; ++m)
 #pragma unroll
-        for (int t = 0; t < NP; ++t) ps[m][t] = 0.f;
+        for (int t = 0; t < 12; ++t) ps[m][t] = 0.f;
     unsigned cols = 0;
-    if constexpr (PML) {
 #pragma unroll
-        for (int t = 0; t < 12; ++t)
-            if (inbox && psi_column(t, j, i, K, J, I, psw.n)) cols |= 1u << t;
-    }
+    for (int t = 0; t < 12; ++t)
+        if (inbox && psi_column(t, j, i, K, J, I, psw.n)) cols |= 1u << t;
     const int kn = psw.n;  // planes k <= kn or k >= K - kn are near a k wall
 
     for (int r = ks; r <= k1 - 1 + S + SH; ++r) {
@@ -481,7 +495,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             // fetch the sums of the cell level 1 starts at this step
             const int c1 = r - 2;
             if (c_sar && c1 >= k0 && c1 < k1 && c1 < K) {
-                const int64_t cells = (int64_t)(BOX ? g.cnk : K) * cell_sk;
+                const int64_t cells = (int64_t)K * cell_sk;
                 float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
                 const int64_t oc1 = (int64_t)c1 * cell_sk + cell_col;
                 for (int f = 0; f < dft.nf; ++f)
@@ -498,9 +512,8 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
         // plane before this pipeline step replaced it (pso: its psi)
         float eo[3] = {e[0][0], e[0][1], e[0][2]};
         float ho[3] = {h[0][0], h[0][1], h[0][2]};
-        float po[3] = {pl[0][0], pl[0][1], pl[0][2]};  // ADE: P of eo's plane
-        float pso[NP];
-        if constexpr (PML) {
+        float pso[12];
+        {
             // level 0's psi of plane r - 1, the input of level 1
             const int kp = r - 1;
             const bool near_p = kp <= kn || kp >= K - kn;
@@ -516,17 +529,14 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const int64_t o = (int64_t)r * sk + col;
             e[0][0] = ld(in.ex, o); e[0][1] = ld(in.ey, o); e[0][2] = ld(in.ez, o);
             h[0][0] = ld(in.hx, o); h[0][1] = ld(in.hy, o); h[0][2] = ld(in.hz, o);
-            if constexpr (ADE) {
-                pl[0][0] = ld(ade.pin[0], o); pl[0][1] = ld(ade.pin[1], o); pl[0][2] = ld(ade.pin[2], o);
-            }
         } else {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; pl[0][c] = 0.f; }
+            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; }
         }
 #pragma unroll
         for (int m = 1; m <= S; ++m) {
             const int k = r - m;
-            const int64_t o = (int64_t)k * sk + col;  // read only where k >= kz and inbox
+            const int64_t o = (int64_t)k * sk + col;  // read only where k >= 0 and inbox
             const bool on_patch = c_patch && k == 0;
             const bool near_k = k <= kn || k >= K - kn;
             if (m >= 2 && on_patch) {
@@ -545,48 +555,38 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
             const float ey_pi = tx + 1 < BI ? sE[1][ty][tx + 1] : 0.f;
             const float ez_pi = tx + 1 < BI ? sE[2][ty][tx + 1] : 0.f;
 
-            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); a
-            // shard's lead-in does not reach below its arrays (kz >= 0)
-            const bool kh = k >= kz && k < K;
-            const bool khz = k >= kz && k <= K;
+            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); the
+            // curl's differences feed the H psi terms
+            const bool kh = k >= 0 && k < K;
+            const bool khz = k >= 0 && k <= K;
             float hn[3] = {ho[0], ho[1], ho[2]};
-            float psn[NP];
+            float psn[12];
 #pragma unroll
-            for (int t = 0; t < NP; ++t) psn[t] = pso[t];
-            if constexpr (!PML) {
-                if (kh && c_hx && !on_patch)
-                    hn[0] = leap(ho[0], HET ? ld(mat.hf[0], o) : fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
-                if (kh && c_hy)
-                    hn[1] = leap(ho[1], HET ? ld(mat.hf[1], o) : fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
-                if (khz && c_hz && !on_patch)
-                    hn[2] = leap(ho[2], HET ? ld(mat.hf[2], o) : fh, ex_pj, eo[0], ey_pi, eo[1]);
-            } else {
-                // the curl's differences feed the H psi terms (no het-mu here)
-                if (kh && c_hx) {  // hx_y (-, dEz along j), hx_z (+, dEy along k)
-                    const float dk = __fsub_rn(e[m - 1][1], eo[1]), dj = __fsub_rn(ez_pj, eo[2]);
-                    float v = __fadd_rn(ho[0], __fmul_rn(fh, __fsub_rn(dk, dj)));
-                    v = psi_term(psw, 0, k, j, i, K, J, I, cols, near_k,
-                                 -1, v, fh, dj, pso[0], psn[0], !on_patch);
-                    v = psi_term(psw, 1, k, j, i, K, J, I, cols, near_k,
-                                 +1, v, fh, dk, pso[1], psn[1], !on_patch);
-                    if (!on_patch) hn[0] = v;
-                }
-                if (kh && c_hy) {  // hy_x (+, dEz along i), hy_z (-, dEx along k)
-                    const float di = __fsub_rn(ez_pi, eo[2]), dk = __fsub_rn(e[m - 1][0], eo[0]);
-                    float v = __fadd_rn(ho[1], __fmul_rn(fh, __fsub_rn(di, dk)));
-                    v = psi_term(psw, 2, k, j, i, K, J, I, cols, near_k, +1, v, fh, di, pso[2], psn[2], true);
-                    hn[1] = psi_term(psw, 3, k, j, i, K, J, I, cols, near_k,
-                                     -1, v, fh, dk, pso[3], psn[3], true);
-                }
-                if (khz && c_hz) {  // hz_y (+, dEx along j), hz_x (-, dEy along i)
-                    const float dj = __fsub_rn(ex_pj, eo[0]), di = __fsub_rn(ey_pi, eo[1]);
-                    float v = __fadd_rn(ho[2], __fmul_rn(fh, __fsub_rn(dj, di)));
-                    v = psi_term(psw, 4, k, j, i, K, J, I, cols, near_k,
-                                 +1, v, fh, dj, pso[4], psn[4], !on_patch);
-                    v = psi_term(psw, 5, k, j, i, K, J, I, cols, near_k,
-                                 -1, v, fh, di, pso[5], psn[5], !on_patch);
-                    if (!on_patch) hn[2] = v;
-                }
+            for (int t = 0; t < 12; ++t) psn[t] = pso[t];
+            if (kh && c_hx) {  // hx_y (-, dEz along j), hx_z (+, dEy along k)
+                const float dk = __fsub_rn(e[m - 1][1], eo[1]), dj = __fsub_rn(ez_pj, eo[2]);
+                float v = __fadd_rn(ho[0], __fmul_rn(fh, __fsub_rn(dk, dj)));
+                v = psi_term(psw, 0, k, j, i, K, J, I, cols, near_k,
+                             -1, v, fh, dj, pso[0], psn[0], !on_patch);
+                v = psi_term(psw, 1, k, j, i, K, J, I, cols, near_k,
+                             +1, v, fh, dk, pso[1], psn[1], !on_patch);
+                if (!on_patch) hn[0] = v;
+            }
+            if (kh && c_hy) {  // hy_x (+, dEz along i), hy_z (-, dEx along k)
+                const float di = __fsub_rn(ez_pi, eo[2]), dk = __fsub_rn(e[m - 1][0], eo[0]);
+                float v = __fadd_rn(ho[1], __fmul_rn(fh, __fsub_rn(di, dk)));
+                v = psi_term(psw, 2, k, j, i, K, J, I, cols, near_k, +1, v, fh, di, pso[2], psn[2], true);
+                hn[1] = psi_term(psw, 3, k, j, i, K, J, I, cols, near_k,
+                                 -1, v, fh, dk, pso[3], psn[3], true);
+            }
+            if (khz && c_hz) {  // hz_y (+, dEx along j), hz_x (-, dEy along i)
+                const float dj = __fsub_rn(ex_pj, eo[0]), di = __fsub_rn(ey_pi, eo[1]);
+                float v = __fadd_rn(ho[2], __fmul_rn(fh, __fsub_rn(dj, di)));
+                v = psi_term(psw, 4, k, j, i, K, J, I, cols, near_k,
+                             +1, v, fh, dj, pso[4], psn[4], !on_patch);
+                v = psi_term(psw, 5, k, j, i, K, J, I, cols, near_k,
+                             -1, v, fh, di, pso[5], psn[5], !on_patch);
+                if (!on_patch) hn[2] = v;
             }
 
             sH[0][ty][tx] = hn[0]; sH[1][ty][tx] = hn[1]; sH[2][ty][tx] = hn[2];
@@ -598,22 +598,10 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 
             // E of level m on plane k (Ex, Ey: 1 <= k < K; Ez: k < K);
             // h[m] still holds level m's H on plane k-1
-            const bool ke = k >= 1 && k >= kz && k < K;
-            const bool kez = k >= kz && k < K;
+            const bool ke = k >= 1 && k < K;
+            const bool kez = k >= 0 && k < K;
             float en[3] = {eo[0], eo[1], eo[2]};
-            float pn[3] = {po[0], po[1], po[2]};  // ADE: P of level m on plane k
-            float wn[3] = {0.f, 0.f, 0.f};        // ADE + SAR: its edge work
-            if constexpr (ADE) {
-                if (ke && c_ex)
-                    en[0] = ade_edge<T, SAR>(ade, 0, o, eo[0], po[0], curl(hn[2], hz_mj, hn[1], h[m][1]), mat.dt,
-                                             pn[0], wn[0]);
-                if (ke && c_ey)
-                    en[1] = ade_edge<T, SAR>(ade, 1, o, eo[1], po[1], curl(hn[0], h[m][0], hn[2], hz_mi), mat.dt,
-                                             pn[1], wn[1]);
-                if (kez && c_ez)
-                    en[2] = ade_edge<T, SAR>(ade, 2, o, eo[2], po[2], curl(hn[1], hy_mi, hn[0], hx_mj), mat.dt,
-                                             pn[2], wn[2]);
-            } else if (LOSSY) {
+            if (LOSSY) {
                 if (ke && c_ex)
                     en[0] = lossy(eo[0], ld(mat.ca[0], o), ld(mat.cb[0], o), hn[2], hz_mj, hn[1], h[m][1]);
                 if (ke && c_ey)
@@ -625,86 +613,35 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                 if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
                 if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
             }
-            if constexpr (PML) {
-                // the E psi terms, with the factor of the E update (f or cb)
-                if (ke && c_ex) {  // ex_y (+, dHz along j), ex_z (-, dHy along k)
-                    const float f = LOSSY ? ld(mat.cb[0], o) : fe;
-                    const float v = psi_term(psw, 6, k, j, i, K, J, I, cols, near_k,
-                                             +1, en[0], f, __fsub_rn(hn[2], hz_mj), pso[6], psn[6], true);
-                    en[0] = psi_term(psw, 7, k, j, i, K, J, I, cols, near_k,
-                                     -1, v, f, __fsub_rn(hn[1], h[m][1]), pso[7], psn[7], true);
-                }
-                if (ke && c_ey) {  // ey_x (-, dHz along i), ey_z (+, dHx along k)
-                    const float f = LOSSY ? ld(mat.cb[1], o) : fe;
-                    const float v = psi_term(psw, 8, k, j, i, K, J, I, cols, near_k,
-                                             -1, en[1], f, __fsub_rn(hn[2], hz_mi), pso[8], psn[8], true);
-                    en[1] = psi_term(psw, 9, k, j, i, K, J, I, cols, near_k,
-                                     +1, v, f, __fsub_rn(hn[0], h[m][0]), pso[9], psn[9], true);
-                }
-                if (kez && c_ez) {  // ez_x (+, dHy along i), ez_y (-, dHx along j)
-                    const float f = LOSSY ? ld(mat.cb[2], o) : fe;
-                    const float v = psi_term(psw, 10, k, j, i, K, J, I, cols, near_k,
-                                             +1, en[2], f, __fsub_rn(hn[1], hy_mi), pso[10], psn[10], true);
-                    en[2] = psi_term(psw, 11, k, j, i, K, J, I, cols, near_k,
-                                     -1, v, f, __fsub_rn(hn[0], hx_mj), pso[11], psn[11], true);
-                }
+            // the E psi terms, with the factor of the E update (f or cb)
+            if (ke && c_ex) {  // ex_y (+, dHz along j), ex_z (-, dHy along k)
+                const float f = LOSSY ? ld(mat.cb[0], o) : fe;
+                const float v = psi_term(psw, 6, k, j, i, K, J, I, cols, near_k,
+                                         +1, en[0], f, __fsub_rn(hn[2], hz_mj), pso[6], psn[6], true);
+                en[0] = psi_term(psw, 7, k, j, i, K, J, I, cols, near_k,
+                                 -1, v, f, __fsub_rn(hn[1], h[m][1]), pso[7], psn[7], true);
+            }
+            if (ke && c_ey) {  // ey_x (-, dHz along i), ey_z (+, dHx along k)
+                const float f = LOSSY ? ld(mat.cb[1], o) : fe;
+                const float v = psi_term(psw, 8, k, j, i, K, J, I, cols, near_k,
+                                         -1, en[1], f, __fsub_rn(hn[2], hz_mi), pso[8], psn[8], true);
+                en[1] = psi_term(psw, 9, k, j, i, K, J, I, cols, near_k,
+                                 +1, v, f, __fsub_rn(hn[0], h[m][0]), pso[9], psn[9], true);
+            }
+            if (kez && c_ez) {  // ez_x (+, dHy along i), ez_y (-, dHx along j)
+                const float f = LOSSY ? ld(mat.cb[2], o) : fe;
+                const float v = psi_term(psw, 10, k, j, i, K, J, I, cols, near_k,
+                                         +1, en[2], f, __fsub_rn(hn[1], hy_mi), pso[10], psn[10], true);
+                en[2] = psi_term(psw, 11, k, j, i, K, J, I, cols, near_k,
+                                 -1, v, f, __fsub_rn(hn[0], hx_mj), pso[11], psn[11], true);
             }
 
-            if constexpr (SAR) {
-                // cell k-1 at level m: E^m (ADE: its edge work) on planes
-                // k-1 (e[m] / wl, not yet replaced) and k (en / wn), and
-                // their j+1 / i+1 neighbours
-                float lo[3], up[3];
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    if constexpr (ADE) {
-                        lo[c] = wl[m - 1][c];
-                        up[c] = wn[c];
-                    } else {
-                        lo[c] = e[m][c];
-                        up[c] = en[c];
-                    }
-                }
-                sS[0][ty][tx] = lo[0]; sS[1][ty][tx] = up[0];
-                sS[2][ty][tx] = lo[1]; sS[3][ty][tx] = up[1];
-                sS[4][ty][tx] = lo[2];
-                __syncthreads();
-                const int cell = k - 1;
-                if (c_sar && cell >= k0 && cell < k1 && cell < K) {
-                    // emitted columns stop S+1 short of the block's edge, so
-                    // ty+1 and tx+1 lie inside it
-                    const float mex = mean4(lo[0], up[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]);
-                    const float mey = mean4(lo[1], sS[2][ty][tx + 1], up[1], sS[3][ty][tx + 1]);
-                    const float mez = mean4(lo[2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1]);
-                    const int64_t oc = (int64_t)cell * cell_sk + cell_col;
-                    float inc;
-                    if constexpr (ADE) {
-                        inc = __fmul_rn(__fadd_rn(__fadd_rn(mex, mey), mez), mat.dt);
-                    } else {
-                        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
-                                                   __fmul_rn(mez, mez));
-                        inc = __fmul_rn(__fmul_rn(ld(mat.sigma, oc), sq), mat.dt);
-                    }
-                    if (m == 1) acc[0] = mat.acc[oc];
-                    acc[m - 1] = __fadd_rn(acc[m - 1], inc);
-                    if (m == S) mat.acc[oc] = acc[S - 1];
-                }
-                if constexpr (ADE) {
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) wl[m - 1][c] = wn[c];
-                }
-            }
             if constexpr (DFT) {
-                // level m's E on planes k-1 (e[m]) and k (en) for the cell
-                // means: the E-mean SAR variant has them in sS already; the
-                // Debye SAR's work means must be read before E replaces it
-                if constexpr (!SAR || ADE) {
-                    if constexpr (SAR) __syncthreads();
-                    sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
-                    sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
-                    sS[4][ty][tx] = e[m][2];
-                    __syncthreads();
-                }
+                // level m's E on planes k-1 (e[m]) and k (en) for the cell means
+                sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
+                sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
+                sS[4][ty][tx] = e[m][2];
+                __syncthreads();
                 const int cell = k - 1;
                 if (c_sar && cell >= k0 && cell < k1 && cell < K) {
                     const int64_t oc = (int64_t)cell * cell_sk + cell_col;
@@ -712,7 +649,7 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                         mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]),
                         mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]),
                         mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1])};
-                    const int64_t cells = (int64_t)(BOX ? g.cnk : K) * cell_sk;
+                    const int64_t cells = (int64_t)K * cell_sk;
                     const float* wm = dft.w + (int64_t)(m - 1) * 2 * dft.nf;
                     if (m == 1) __pipeline_wait_prior(0);
                     float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
@@ -743,17 +680,11 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                     ho[c] = h[m][c];
                     e[m][c] = en[c];
                     h[m][c] = hn[c];
-                    if constexpr (ADE) {
-                        po[c] = pl[m][c];
-                        pl[m][c] = pn[c];
-                    }
                 }
-                if constexpr (PML) {
 #pragma unroll
-                    for (int t = 0; t < 12; ++t) {
-                        pso[t] = ps[m - 1][t];
-                        ps[m - 1][t] = psn[t];
-                    }
+                for (int t = 0; t < 12; ++t) {
+                    pso[t] = ps[m - 1][t];
+                    ps[m - 1][t] = psn[t];
                 }
             } else {
 #pragma unroll
@@ -764,16 +695,501 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
                 if (emit && k >= k0 && k < k1) {
                     st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
                     st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
+#pragma unroll
+                    for (int t = 0; t < 12; ++t) {
+                        int64_t off;
+                        if (psi_may(t, cols, near_k) && psi_cell(t, k, j, i, K, J, I, psw.n, &off) >= 0)
+                            st(psw.out[t], off, psn[t]);
+                    }
+                }
+            }
+        }
+    }
+}
+
+// The CPML sweep at its one built shape (ops/stream_plan.py::BLOCK_J_PML:
+// s = 2, 24 threads along j): a grid of tk-plane segments of every tile
+template <typename T, bool LOSSY, bool DFT>
+int launch_pml(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh, float fe, int tk,
+               int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
+               const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft, cudaStream_t stream) {
+    constexpr int S = 2, BJ = 24, SH = DFT ? 1 : 0;
+    constexpr int TJ = BJ - 2 * S - SH;
+    constexpr int TI = BI - 2 * S - SH;
+    if (s != S || bj != BJ) return (int)cudaErrorInvalidValue;
+    const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
+                         (const T*)in[3], (const T*)in[4], (const T*)in[5]};
+    const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
+    const dim3 block(BI, BJ);
+    const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
+                    (unsigned)((K + 1 + tk - 1) / tk));
+    size_t dyn = 0;  // the DFT chain: 6 * nf sums of S cells a thread
+    if constexpr (DFT) {
+        dyn = (size_t)S * 6 * dft.nf * BJ * BI * sizeof(float);
+        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, DFT>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+        if (e != cudaSuccess) return (int)e;
+    }
+    stream_kernel<T, S, BJ, LOSSY, DFT><<<grid, block, dyn, stream>>>(
+        f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
+        (const T*)ez_rows, (const T*)hx_rows, mat, psw, dft);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper core of K3 and K12 (ring_kernel; see "The Hopper core" above)
+// ---------------------------------------------------------------------------
+
+// a copy of element o of `a` into this thread's 4-byte ring word: the float
+// itself, or the 4-byte-aligned bf16 pair that holds the element (an even
+// element alone, the upper half zero-filled, so no copy reads past it)
+__device__ __forceinline__ void fetch(uint32_t* w, const float* a, int64_t o) {
+    __pipeline_memcpy_async(w, a + o, 4);
+}
+__device__ __forceinline__ void fetch(uint32_t* w, const __nv_bfloat16* a, int64_t o) {
+    if (o & 1)
+        __pipeline_memcpy_async(w, a + (o - 1), 4);
+    else
+        __pipeline_memcpy_async(w, a + o, 4, 2);
+}
+
+// the value of a ring word (odd: the element's index is odd, so it is the
+// pair's upper half); bf16 widens exactly by a 16-bit shift
+__device__ __forceinline__ float word(uint32_t w, int, const float*) { return __uint_as_float(w); }
+__device__ __forceinline__ float word(uint32_t w, int odd, const __nv_bfloat16*) {
+    return __uint_as_float(odd ? (w & 0xffff0000u) : (w << 16));
+}
+
+// one edge's ADE update (component q) from its coefficients, its inputs eo,
+// po and the curl cv: returns E', sets pn and, with W, the edge work w
+template <bool W>
+__device__ __forceinline__ float ade_update(float ca, float cb, float cp, float k1, float k2, float sig, float eo,
+                                           float po, float cv, float dt, float& pn, float& w) {
+    const float en = __fadd_rn(__fadd_rn(__fmul_rn(ca, eo), __fmul_rn(cb, cv)), __fmul_rn(cp, po));
+    pn = __fadd_rn(__fmul_rn(k1, po), __fmul_rn(k2, __fadd_rn(en, eo)));
+    if (W) {
+        const float em = __fmul_rn(0.5f, __fadd_rn(en, eo));
+        w = __fmul_rn(em, __fadd_rn(div_dt(__fsub_rn(pn, po), dt), __fmul_rn(sig, em)));
+    }
+    return en;
+}
+
+// The shape of a ring_kernel instantiation: tiles, and the ring's words a
+// thread (NF fields and P of the next plane; with CR, NC coefficient words
+// of each of the last S + 1 planes: lossy ca/cb, het hf, SAR sigma and the
+// map value of the cell below, or the Debye maps and the map value).
+template <int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT>
+struct RingGeom {
+    static constexpr bool MEANS = SAR || DFT;
+    static constexpr int SH = MEANS ? 1 : 0;
+    static constexpr int TJ = BJ - 2 * S - SH;
+    static constexpr int TI = BI - 2 * S - SH;
+    static constexpr int NT = BI * BJ;
+    static constexpr int NF = ADE ? 9 : 6;
+    static constexpr int C_SIG = 6 + (HET ? 3 : 0);
+    static constexpr int C_ACC = ADE ? 18 : C_SIG + 1;
+    static constexpr int NC = !CR ? 0 : ADE ? (SAR ? 19 : 15) : !LOSSY ? 0 : SAR ? C_SIG + 2 : C_SIG;
+    static constexpr int NCS = NC > 0 ? S + 1 : 0;
+    static constexpr int WORDS = (NF + NCS * NC) * NT;
+};
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// BOX: a shard's sweep, its geometry the runtime Box g; without it the
+// whole grid's (a runtime box in every variant cost some of them 5-14% at
+// 256^3, through registers, spills and the instruction stream), so only
+// the shard variants carry it.
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+__global__ void __launch_bounds__(BI * BJ, 1)
+ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe, int tk, int has_patch, int j0,
+            int j1, int i0, int i1, const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
+            AdeSweep<T> ade, DftSweep dft, Box g) {
+    using G = RingGeom<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>;
+    constexpr bool MEANS = G::MEANS;
+    constexpr int SH = G::SH, TJ = G::TJ, TI = G::TI, NT = G::NT, NC = G::NC, NCS = G::NCS;
+    static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
+    __shared__ float sE[2][BJ][BI];  // level m-1's Ex, Ez on plane k: the j+1 reads
+    __shared__ float sH[2][BJ][BI];  // level m's Hx, Hz on plane k: the j-1 reads
+    // SAR / DFT: the j+1 reads of the cell means: level m's Ex (Debye SAR:
+    // work) on planes k-1 and k, Ez on plane k-1
+    __shared__ float sS[MEANS ? 3 : 1][MEANS ? BJ : 1][BI];
+    extern __shared__ uint32_t ring[];
+    uint32_t* const rf = ring;            // [NF][NT]: the next plane's fields (and P)
+    uint32_t* const rc = ring + G::NF * NT;  // [NCS][NC][NT]: coefficients of planes k % NCS
+    // DFT: the sums of the S cells in flight, slot (cell % S) of this thread:
+    // sD[(slot * 6 * nf + q) * NT + tid], q = 6f + 2c + (0: re, 1: im)
+    float* const sD = reinterpret_cast<float*>(ring + G::WORDS);
+    const T* const tp = nullptr;  // selects word()'s storage type
+
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BI + tx;
+    const int tyn = ty + 1 < BJ ? ty + 1 : ty, tym = ty > 0 ? ty - 1 : ty;  // halo rows read themselves
+    const int wk0 = BOX ? g.wk0 : 0, nwk = (BOX ? g.wk1 : K + 1) - wk0;
+    const int nti = ((BOX ? g.wi1 - g.wi0 : I + 1) + TI - 1) / TI;
+    const int ntj = ((BOX ? g.wj1 - g.wj0 : J + 1) + TJ - 1) / TJ;
+    const int kz = BOX ? g.ok : 0;  // the lowest plane the arrays hold
+    const int sj = BOX ? g.ni : I + 1;
+    const int sk = sj * (BOX ? g.nj : J + 1);
+    const int ck0 = BOX ? g.ck0 : 0;
+    const int cell_sk = BOX ? g.cnj * g.cni : J * I;
+    const int64_t cells = (int64_t)(BOX ? g.cnk : K) * cell_sk;
+    const int ni_patch = i1 - i0;
+    // the block's segment: the tk planes [k0, k1) of segment blockIdx.x /
+    // tiles of tile blockIdx.x % tiles, tiles in (j, i) order with i fastest,
+    // so the blocks of a wave walk neighbouring tiles' planes together and
+    // the halo columns they share come from L2
+    const int tiles = nti * ntj, tile = (int)(blockIdx.x % tiles);
+    const int i = (BOX ? g.wi0 : 0) + (tile % nti) * TI - S + tx;
+    const int j = (BOX ? g.wj0 : 0) + (tile / nti) * TJ - S + ty;
+    const int k0 = wk0 + (int)(blockIdx.x / tiles) * tk, k1 = min(k0 + tk, wk0 + nwk);
+    const int ks = max(k0 - S, 0);
+    const int rlast = k1 - 1 + S + SH;
+
+    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J
+                       && (!BOX || (i - g.oi >= 0 && i - g.oi < g.ni && j - g.oj >= 0 && j - g.oj < g.nj));
+    const int col = !inbox ? 0 : BOX ? (j - g.oj) * sj + (i - g.oi) : j * sj + i;
+    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ
+                      && (!BOX || (i < g.wi1 && j < g.wj1));
+    const bool c_hx = inbox && j < J;
+    const bool c_hy = inbox && i < I;
+    const bool c_hz = inbox && j < J && i < I;
+    const bool c_ex = inbox && j >= 1 && j < J && i < I;
+    const bool c_ey = inbox && j < J && i >= 1 && i < I;
+    const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
+    const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
+    const bool c_sar = MEANS && emit && j < J && i < I;
+    const int cell_col = BOX ? (j - g.cj0) * g.cni + (i - g.ci0) : j * I + i;
+    // a field-shaped element of plane k, and cell c's element
+    auto fofs = [&](int k) { return (int64_t)(k - kz) * sk + col; };
+    auto cofs = [&](int c) { return (int64_t)(c - ck0) * cell_sk + cell_col; };
+    // their index parity (which half of a bf16 pair holds them)
+    const int skp = sk & 1, colp = col & 1, cskp = cell_sk & 1, ccolp = cell_col & 1;
+    auto fodd = [&](int k) { return ((k - kz) & skp) ^ colp; };
+    auto codd = [&](int c) { return ((c - ck0) & cskp) ^ ccolp; };
+    // a cell whose map value or sums this thread owns in this segment
+    auto owned = [&](int c) { return c_sar && c >= k0 && c < k1 && c < K; };
+
+    // the ring: plane q's fields (and P), and its coefficients (with SAR
+    // the sigma and map value of cell q - 1) into slot q % NCS
+    auto fetch_fields = [&](int q) {
+        if (inbox && q <= K) {
+            const int64_t o = fofs(q);
+            fetch(rf + 0 * NT + tid, in.ex, o); fetch(rf + 1 * NT + tid, in.ey, o);
+            fetch(rf + 2 * NT + tid, in.ez, o); fetch(rf + 3 * NT + tid, in.hx, o);
+            fetch(rf + 4 * NT + tid, in.hy, o); fetch(rf + 5 * NT + tid, in.hz, o);
+            if constexpr (ADE) {
+                fetch(rf + 6 * NT + tid, ade.pin[0], o); fetch(rf + 7 * NT + tid, ade.pin[1], o);
+                fetch(rf + 8 * NT + tid, ade.pin[2], o);
+            }
+        }
+    };
+    auto fetch_coefs = [&](int q) {
+        if constexpr (NC > 0) {
+            uint32_t* w = rc + (q % NCS) * NC * NT + tid;
+            if (inbox && q <= K) {
+                const int64_t o = fofs(q);
+                if constexpr (ADE) {
+#pragma unroll
+                    for (int a = 0; a < (SAR ? 18 : 15); ++a) fetch(w + a * NT, ade.c[a], o);
+                } else {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        fetch(w + c * NT, mat.ca[c], o);
+                        fetch(w + (3 + c) * NT, mat.cb[c], o);
+                        if constexpr (HET) fetch(w + (6 + c) * NT, mat.hf[c], o);
+                    }
+                }
+            }
+            if constexpr (SAR) {
+                if (owned(q - 1)) {
+                    const int64_t oc = cofs(q - 1);
+                    if constexpr (!ADE) fetch(w + G::C_SIG * NT, mat.sigma, oc);
+                    __pipeline_memcpy_async(w + G::C_ACC * NT, mat.acc + oc, 4);
+                }
+            }
+        }
+    };
+
+    // e[m], h[m]: level m's newest plane of this column (level S: H only,
+    // and with E cell means (SAR, DFT) its E too); acc[m-1]: the map
+    // value of the cell that level m adds to at this pipeline step
+    constexpr int NE = ((SAR && !ADE) || DFT) ? S + 1 : S;
+    float e[NE][3], h[S + 1][3];
+    float acc[SAR ? S : 1];
+#pragma unroll
+    for (int m = 0; m <= S; ++m) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            if (m < NE) e[m][c] = 0.f;
+            h[m][c] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < (SAR ? S : 1); ++m) acc[m] = 0.f;
+    // ADE: pl[m], level m's P of its newest plane (m < S); with SAR
+    // wl[m-1], level m's edge work of its plane before this step's
+    float pl[ADE ? S : 1][3], wl[(ADE && SAR) ? S : 1][3];
+#pragma unroll
+    for (int m = 0; m < (ADE ? S : 1); ++m)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            pl[m][c] = 0.f;
+            wl[(ADE && SAR) ? m : 0][c] = 0.f;
+        }
+
+    fetch_fields(ks);
+    __pipeline_commit();
+    int slot_r = ks % (NCS > 0 ? NCS : 1);  // r % NCS
+    for (int r = ks; r <= rlast; ++r) {
+        // plane r's fields and plane r-1's coefficients have landed
+        __pipeline_wait_prior(0);
+        if constexpr (DFT) {
+            // fetch the sums of the cell level 1 starts at this step
+            const int c1 = r - 2;
+            if (owned(c1)) {
+                float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * NT + tid;
+                const int64_t oc1 = cofs(c1);
+                for (int f = 0; f < dft.nf; ++f)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc1;
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c) * NT, dft.re + a, 4);
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c + 1) * NT, dft.im + a, 4);
+                    }
+            }
+            __pipeline_commit();
+        }
+        // eo, ho: the inputs of the next level, i.e. the previous level's
+        // plane before this pipeline step replaced it
+        float eo[3] = {e[0][0], e[0][1], e[0][2]};
+        float ho[3] = {h[0][0], h[0][1], h[0][2]};
+        float po[3] = {pl[0][0], pl[0][1], pl[0][2]};  // ADE: P of eo's plane
+        if (inbox && r <= K) {
+            const int odd = fodd(r);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                e[0][c] = word(rf[c * NT + tid], odd, tp);
+                h[0][c] = word(rf[(3 + c) * NT + tid], odd, tp);
+                if constexpr (ADE) pl[0][c] = word(rf[(6 + c) * NT + tid], odd, tp);
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; pl[0][c] = 0.f; }
+        }
+#pragma unroll
+        for (int m = 1; m <= S; ++m) {
+            const int k = r - m;
+            const bool on_patch = c_patch && k == 0;
+            int sl = slot_r - m;  // plane k's coefficient slot
+            if (sl < 0) sl += NCS;
+            const uint32_t* cw = rc + sl * NC * NT + tid;
+            const int kodd = fodd(k);
+            // coefficient a of plane k: from the ring, or from memory
+            auto coef = [&](int a, const T* arr) {
+                if constexpr (NC > 0) return word(cw[a * NT], kodd, tp);
+                else return ld(arr, fofs(k));
+            };
+            if (m >= 2 && on_patch) {
+                // step m's hard-set, in level m's inputs only
+                const int d = (m - 2) * ni_patch + (i - i0);
+                eo[0] = 0.f;
+                eo[2] = ld(ez_rows, d);
+                ho[0] = ld(hx_rows, d);
+                ho[2] = 0.f;
+            }
+            // E of level m-1 on plane k, for the +1 neighbour reads: along
+            // j through shared memory, along i from the next lane
+            sE[0][ty][tx] = eo[0];
+            sE[1][ty][tx] = eo[2];
+            __syncthreads();
+            if (m == 1) {
+                // every thread is past step r-1: load plane r+1 and the
+                // coefficients of plane r into the slots it has read
+                if (r + 1 <= rlast) {
+                    fetch_fields(r + 1);
+                    fetch_coefs(r);
+                }
+                __pipeline_commit();
+            }
+            const float ex_pj = sE[0][tyn][tx];
+            const float ez_pj = sE[1][tyn][tx];
+            const float ey_pi = __shfl_down_sync(FULL, eo[1], 1);
+            const float ez_pi = __shfl_down_sync(FULL, eo[2], 1);
+
+            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); a
+            // shard's lead-in does not reach below its arrays (kz >= 0)
+            const bool kh = k >= kz && k < K;
+            const bool khz = k >= kz && k <= K;
+            float hn[3] = {ho[0], ho[1], ho[2]};
+            if (kh && c_hx && !on_patch)
+                hn[0] = leap(ho[0], HET ? coef(6, mat.hf[0]) : fh, e[m - 1][1], eo[1], ez_pj, eo[2]);
+            if (kh && c_hy)
+                hn[1] = leap(ho[1], HET ? coef(7, mat.hf[1]) : fh, ez_pi, eo[2], e[m - 1][0], eo[0]);
+            if (khz && c_hz && !on_patch)
+                hn[2] = leap(ho[2], HET ? coef(8, mat.hf[2]) : fh, ex_pj, eo[0], ey_pi, eo[1]);
+
+            sH[0][ty][tx] = hn[0];
+            sH[1][ty][tx] = hn[2];
+            __syncthreads();
+            const float hx_mj = sH[0][tym][tx];
+            const float hz_mj = sH[1][tym][tx];
+            const float hy_mi = __shfl_up_sync(FULL, hn[1], 1);
+            const float hz_mi = __shfl_up_sync(FULL, hn[2], 1);
+
+            // E of level m on plane k (Ex, Ey: 1 <= k < K; Ez: k < K);
+            // h[m] still holds level m's H on plane k-1
+            const bool ke = k >= 1 && k >= kz && k < K;
+            const bool kez = k >= kz && k < K;
+            float en[3] = {eo[0], eo[1], eo[2]};
+            float pn[3] = {po[0], po[1], po[2]};  // ADE: P of level m on plane k
+            float wn[3] = {0.f, 0.f, 0.f};        // ADE + SAR: its edge work
+            if constexpr (ADE) {
+                const float cv[3] = {curl(hn[2], hz_mj, hn[1], h[m][1]), curl(hn[0], h[m][0], hn[2], hz_mi),
+                                     curl(hn[1], hy_mi, hn[0], hx_mj)};
+                const bool upd[3] = {ke && c_ex, ke && c_ey, kez && c_ez};
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    if (upd[c])
+                        en[c] = ade_update<SAR>(coef(c, ade.c[c]), coef(3 + c, ade.c[3 + c]),
+                                                coef(6 + c, ade.c[6 + c]), coef(9 + c, ade.c[9 + c]),
+                                                coef(12 + c, ade.c[12 + c]),
+                                                SAR ? coef(15 + c, ade.c[15 + c]) : 0.f, eo[c], po[c], cv[c],
+                                                mat.dt, pn[c], wn[c]);
+            } else if (LOSSY) {
+                if (ke && c_ex)
+                    en[0] = lossy(eo[0], coef(0, mat.ca[0]), coef(3, mat.cb[0]), hn[2], hz_mj, hn[1], h[m][1]);
+                if (ke && c_ey)
+                    en[1] = lossy(eo[1], coef(1, mat.ca[1]), coef(4, mat.cb[1]), hn[0], h[m][0], hn[2], hz_mi);
+                if (kez && c_ez)
+                    en[2] = lossy(eo[2], coef(2, mat.ca[2]), coef(5, mat.cb[2]), hn[1], hy_mi, hn[0], hx_mj);
+            } else {
+                if (ke && c_ex) en[0] = leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
+                if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
+                if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
+            }
+
+            // the cell means of cell k-1 at level m: of E^m (Debye SAR:
+            // of the edge work) on planes k-1 (lo) and k (up) and their
+            // j+1 / i+1 neighbours
+            const int cell = k - 1;
+            float me[3];  // E cell means (E-mean SAR, DFT)
+            if constexpr (SAR) {
+                float lo_[3], up_[3];
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    if constexpr (ADE) {
+                        lo_[c] = wl[m - 1][c];
+                        up_[c] = wn[c];
+                    } else {
+                        lo_[c] = e[m][c];
+                        up_[c] = en[c];
+                    }
+                }
+                sS[0][ty][tx] = lo_[0];
+                sS[1][ty][tx] = up_[0];
+                sS[2][ty][tx] = lo_[2];
+                __syncthreads();
+                // emitted columns stop S+1 short of the block's edge, so
+                // the j+1 and i+1 reads of an owned cell lie inside it
+                const float xl = sS[0][tyn][tx], xu = sS[1][tyn][tx], zj = sS[2][tyn][tx];
+                const float yl = __shfl_down_sync(FULL, lo_[1], 1);
+                const float yu = __shfl_down_sync(FULL, up_[1], 1);
+                const float zi = __shfl_down_sync(FULL, lo_[2], 1);
+                const float zji = __shfl_down_sync(FULL, zj, 1);
+                const float mex = mean4(lo_[0], up_[0], xl, xu);
+                const float mey = mean4(lo_[1], yl, up_[1], yu);
+                const float mez = mean4(lo_[2], zj, zi, zji);
+                if constexpr (!ADE) {
+                    me[0] = mex;
+                    me[1] = mey;
+                    me[2] = mez;
+                }
+                if (owned(cell)) {
+                    float inc;
+                    if constexpr (ADE) {
+                        inc = __fmul_rn(__fadd_rn(__fadd_rn(mex, mey), mez), mat.dt);
+                    } else {
+                        const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
+                                                   __fmul_rn(mez, mez));
+                        const float sig = NC > 0 ? word(cw[G::C_SIG * NT], codd(cell), tp)
+                                                 : ld(mat.sigma, cofs(cell));
+                        inc = __fmul_rn(__fmul_rn(sig, sq), mat.dt);
+                    }
+                    if (m == 1) acc[0] = NC > 0 ? __uint_as_float(cw[G::C_ACC * NT]) : mat.acc[cofs(cell)];
+                    acc[m - 1] = __fadd_rn(acc[m - 1], inc);
+                    if (m == S) mat.acc[cofs(cell)] = acc[S - 1];
+                }
+                if constexpr (ADE) {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) wl[m - 1][c] = wn[c];
+                }
+            }
+            if constexpr (DFT) {
+                if constexpr (!SAR || ADE) {
+                    // the Debye SAR's work means must be read before E
+                    // replaces them
+                    if constexpr (SAR) __syncthreads();
+                    sS[0][ty][tx] = e[m][0];
+                    sS[1][ty][tx] = en[0];
+                    sS[2][ty][tx] = e[m][2];
+                    __syncthreads();
+                    const float xl = sS[0][tyn][tx], xu = sS[1][tyn][tx], zj = sS[2][tyn][tx];
+                    const float yl = __shfl_down_sync(FULL, e[m][1], 1);
+                    const float yu = __shfl_down_sync(FULL, en[1], 1);
+                    const float zi = __shfl_down_sync(FULL, e[m][2], 1);
+                    const float zji = __shfl_down_sync(FULL, zj, 1);
+                    me[0] = mean4(e[m][0], en[0], xl, xu);
+                    me[1] = mean4(e[m][1], yl, en[1], yu);
+                    me[2] = mean4(e[m][2], zj, zi, zji);
+                }
+                if (owned(cell)) {
+                    const int64_t oc = cofs(cell);
+                    const float* wm = dft.w + (m - 1) * 2 * dft.nf;
+                    if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
+                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
+                    for (int f = 0; f < dft.nf; ++f) {
+                        const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
+#pragma unroll
+                        for (int c = 0; c < 3; ++c) {
+                            float* pr = slot + (6 * f + 2 * c) * NT;
+                            const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
+                            const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
+                            if (m == S) {
+                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
+                                dft.re[a] = vr;
+                                dft.im[a] = vi;
+                            } else {
+                                pr[0] = vr;
+                                pr[NT] = vi;
+                            }
+                        }
+                    }
+                }
+            }
+
+            if (m < S) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    eo[c] = e[m][c];
+                    ho[c] = h[m][c];
+                    e[m][c] = en[c];
+                    h[m][c] = hn[c];
+                    if constexpr (ADE) {
+                        po[c] = pl[m][c];
+                        pl[m][c] = pn[c];
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    h[m][c] = hn[c];
+                    if constexpr (NE > S) e[NE - 1][c] = en[c];
+                }
+                if (emit && k >= k0 && k < k1) {
+                    const int64_t o = fofs(k);
+                    st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
+                    st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
                     if constexpr (ADE) {
                         st(ade.pout[0], o, pn[0]); st(ade.pout[1], o, pn[1]); st(ade.pout[2], o, pn[2]);
-                    }
-                    if constexpr (PML) {
-#pragma unroll
-                        for (int t = 0; t < 12; ++t) {
-                            int64_t off;
-                            if (psi_may(t, cols, near_k) && psi_cell(t, k, j, i, K, J, I, psw.n, &off) >= 0)
-                                st(psw.out[t], off, psn[t]);
-                        }
                     }
                 }
             }
@@ -783,134 +1199,152 @@ stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, flo
 #pragma unroll
             for (int m = S - 1; m >= 1; --m) acc[m] = acc[m - 1];
         }
+        if constexpr (NCS > 0) slot_r = slot_r + 1 == NCS ? 0 : slot_r + 1;
     }
 }
 
-template <typename T, int S, int BJ, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
-int launch(void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh, float fe,
-           int tk, int has_patch, int j0, int j1, int i0, int i1,
-           const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
-           const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
-    constexpr int SH = (SAR || DFT) ? 1 : 0;
-    constexpr int TJ = BJ - 2 * S - SH;
-    constexpr int TI = BI - 2 * S - SH;
+// the dynamic shared memory of a ring_kernel launch: the ring, and the DFT
+// chain (6 * nf sums of S cells a thread)
+template <int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT>
+size_t ring_bytes(int nf) {
+    using G = RingGeom<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>;
+    return (size_t)G::WORDS * 4 + (DFT ? (size_t)S * 6 * nf * G::NT * sizeof(float) : 0);
+}
+
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+int launch_ring(void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh, float fe, int tk,
+                int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
+                const Material<T>& mat, const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
     const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
                          (const T*)in[3], (const T*)in[4], (const T*)in[5]};
     const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
-    const dim3 block(BI, BJ);
-    const dim3 grid((unsigned)((g.wi1 - g.wi0 + TI - 1) / TI), (unsigned)((g.wj1 - g.wj0 + TJ - 1) / TJ),
-                    (unsigned)((g.wk1 - g.wk0 + tk - 1) / tk));
-    size_t dyn = 0;  // the DFT chain: 6 * nf sums of S cells a thread
-    if constexpr (DFT) {
-        dyn = (size_t)S * 6 * dft.nf * BJ * BI * sizeof(float);
-        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-        if (e != cudaSuccess) return (int)e;
-    }
-    stream_kernel<T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX><<<grid, block, dyn, stream>>>(
-        f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat, psw, ade, dft, g);
+    const size_t dyn = ring_bytes<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>(dft.nf);
+    auto kernel = ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>;
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+    using G = RingGeom<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>;
+    const unsigned nblk = (unsigned)(((g.wk1 - g.wk0 + tk - 1) / tk) * ((g.wj1 - g.wj0 + G::TJ - 1) / G::TJ)
+                                     * ((g.wi1 - g.wi0 + G::TI - 1) / G::TI));
+    kernel<<<dim3(nblk), dim3(BI, BJ), dyn, stream>>>(f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1,
+                                                                i0, i1, (const T*)ez_rows, (const T*)hx_rows, mat,
+                                                                ade, dft, g);
     return (int)cudaGetLastError();
 }
 
-// The (s, threads along j) pairs of ops/stream_plan.py::BLOCK_J (vacuum),
-// ::BLOCK_J_MATERIAL (the material variants), ::BLOCK_J_PML (CPML),
-// ::BLOCK_J_ADE / ::BLOCK_J_ADE_SAR (Debye) and ::BLOCK_J_DFT (the DFT
-// variants of the vacuum and material sweeps; the CPML and Debye DFT
-// variants take their variant's shape).
-template <typename T, bool LOSSY, bool HET, bool SAR, bool PML, bool ADE, bool DFT, bool BOX>
-int dispatch(int s, int bj, void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh,
-             float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
-             const void* ez_rows, const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw,
-             const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
-#define YEE_STREAM_CASE(S_, BJ_)                                                                         \
-    if (s == S_ && bj == BJ_)                                                                            \
-        return launch<T, S_, BJ_, LOSSY, HET, SAR, PML, ADE, DFT, BOX>(in, out, K, J, I, g, fh, fe, tk,     \
-                                                                       has_patch, j0, j1, i0, i1, ez_rows,  \
-                                                                       hx_rows, mat, psw, ade, dft, stream);
-    if constexpr (DFT && !ADE && !PML) {
-#ifdef YEE_STREAM_DFT_CANDIDATES
-        // the shapes python -m fdtd_tpu_torch.tune_ade --dft times (a build of its own)
-        YEE_STREAM_CASE(8, 24)
-        YEE_STREAM_CASE(4, 16)
-        YEE_STREAM_CASE(4, 32)
-        YEE_STREAM_CASE(2, 32)
-#endif
-        YEE_STREAM_CASE(4, 24)
-    } else if constexpr (ADE) {
-#ifdef YEE_STREAM_ADE_CANDIDATES
-        // the shapes python -m fdtd_tpu_torch.tune_ade times (a build of its own)
-        YEE_STREAM_CASE(8, 24)
-        YEE_STREAM_CASE(4, 16)
-        YEE_STREAM_CASE(4, 24)
-        YEE_STREAM_CASE(4, 32)
-        YEE_STREAM_CASE(2, 24)
-        YEE_STREAM_CASE(2, 32)
-#else
-        if constexpr (SAR) {
-            YEE_STREAM_CASE(2, 32)
+// The (s, threads along j, coefficient ring) shapes of
+// ring_kernel a variant is built at: ops/stream_plan.py (BLOCK_J,
+// BLOCK_J_MATERIAL and COEF_RING_MATERIAL, BLOCK_J_DFT, BLOCK_J_DFT_MATERIAL,
+// BLOCK_J_ADE, BLOCK_J_ADE_SAR; the Debye DFT variants take the Debye SAR
+// shape).  YEE_STREAM_CANDIDATES adds the shapes python -m
+// fdtd_tpu_torch.tune_stream times beside them (a build of its own).
+template <typename T, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+int dispatch_ring(int s, int bj, int cr, void* const* in, void* const* out, int K, int J, int I,
+                  const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
+                  const void* hx_rows, const Material<T>& mat, const AdeSweep<T>& ade, const DftSweep& dft,
+                  cudaStream_t stream) {
+#define YEE_RING_CASE(S_, BJ_, CR_)                                                                    \
+    if (s == S_ && bj == BJ_ && cr == CR_)                                                                \
+        return launch_ring<T, S_, BJ_, CR_, LOSSY, HET, SAR, ADE, DFT, BOX>(in, out, K, J, I, g, fh, fe, tk, \
+                                                                           has_patch, j0, j1, i0, i1,      \
+                                                                           ez_rows, hx_rows, mat, ade, dft, \
+                                                                           stream);
+    if constexpr (ADE) {
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_RING_CASE(2, 32, false)
+        if constexpr (SAR || DFT) {
+            YEE_RING_CASE(2, 24, true)
         } else {
-            YEE_STREAM_CASE(4, 24)
+            YEE_RING_CASE(2, 16, true)
+        }
+        if constexpr (!SAR) {
+            YEE_RING_CASE(4, 24, false)
         }
 #endif
-    } else if constexpr (PML) {
-        YEE_STREAM_CASE(2, 24)
+        if constexpr (SAR || DFT) {
+            YEE_RING_CASE(2, 16, true)
+        } else {
+            YEE_RING_CASE(2, 24, true)
+        }
+    } else if constexpr (DFT) {
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_RING_CASE(2, 32, false)
+        if constexpr (LOSSY) {
+            YEE_RING_CASE(4, 24, false)
+        } else {
+            YEE_RING_CASE(2, 24, false)
+        }
+#endif
+        if constexpr (LOSSY) {
+            YEE_RING_CASE(2, 24, true)
+        } else {
+            YEE_RING_CASE(4, 24, false)
+        }
     } else if constexpr (!LOSSY) {
-        YEE_STREAM_CASE(8, 24)
-        YEE_STREAM_CASE(4, 32)
-        YEE_STREAM_CASE(2, 32)
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_RING_CASE(4, 24, false)
+#endif
+        YEE_RING_CASE(8, 24, false)
+        YEE_RING_CASE(4, 32, false)
+        YEE_RING_CASE(2, 32, false)
     } else {
-        YEE_STREAM_CASE(8, 24)
-        YEE_STREAM_CASE(4, 24)
-        YEE_STREAM_CASE(2, 32)
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_RING_CASE(4, 32, true)
+        YEE_RING_CASE(2, 24, true)
+#endif
+        YEE_RING_CASE(8, 24, false)
+        YEE_RING_CASE(4, 24, true)
+        YEE_RING_CASE(2, 32, true)
     }
-#undef YEE_STREAM_CASE
+#undef YEE_RING_CASE
     return (int)cudaErrorInvalidValue;
 }
 
 // the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 8 CPML, 16 Debye):
 // the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands;
 // with BOX (a shard) the five of ops/stream_plan.py::SHARD_VARIANTS, with or
-// without the bands
+// without the bands.  The CPML variants run stream_kernel (grid of tk-plane
+// segments), every other variant ring_kernel.
 template <typename T, bool DFT, bool BOX>
-int dispatch_variant(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, const Box& g,
-                     float fh,
-                     float fe, int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
-                     const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const AdeSweep<T>& ade,
-                     const DftSweep& dft, cudaStream_t stream) {
-#define YEE_STREAM_VARIANT(CODE_, LOSSY_, HET_, SAR_, PML_, ADE_)                                         \
-    case CODE_:                                                                                          \
-        return dispatch<T, LOSSY_, HET_, SAR_, PML_, ADE_, DFT, BOX>(s, bj, in, out, K, J, I, g, fh, fe, tk, \
-                                                                     has_patch, j0, j1, i0, i1, ez_rows,     \
-                                                                     hx_rows, mat, psw, ade, dft, stream);
+int dispatch_variant(int code, int s, int bj, int cr, void* const* in, void* const* out, int K, int J,
+                     int I, const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0,
+                     int i1, const void* ez_rows, const void* hx_rows, const Material<T>& mat,
+                     const PsiSweep<T>& psw, const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
+#define YEE_RING_VARIANT(CODE_, LOSSY_, HET_, SAR_, ADE_)                                                       \
+    case CODE_:                                                                                              \
+        return dispatch_ring<T, LOSSY_, HET_, SAR_, ADE_, DFT, BOX>(s, bj, cr, in, out, K, J, I, g, fh, fe, tk, \
+                                                                  has_patch, j0, j1, i0, i1, ez_rows, hx_rows, \
+                                                                  mat, ade, dft, stream);
     switch (code) {
-        YEE_STREAM_VARIANT(0, false, false, false, false, false)   // vacuum
-        YEE_STREAM_VARIANT(1, true, false, false, false, false)    // lossy
-        YEE_STREAM_VARIANT(5, true, false, true, false, false)     // lossy + SAR
-        YEE_STREAM_VARIANT(3, true, true, false, false, false)     // lossy + het
-        YEE_STREAM_VARIANT(7, true, true, true, false, false)      // lossy + het + SAR
+        YEE_RING_VARIANT(0, false, false, false, false)   // vacuum
+        YEE_RING_VARIANT(1, true, false, false, false)    // lossy
+        YEE_RING_VARIANT(5, true, false, true, false)     // lossy + SAR
+        YEE_RING_VARIANT(3, true, true, false, false)     // lossy + het
+        YEE_RING_VARIANT(7, true, true, true, false)      // lossy + het + SAR
         default: break;
     }
     if constexpr (!BOX) {
         switch (code) {
-            YEE_STREAM_VARIANT(8, false, false, false, true, false)    // CPML
-            YEE_STREAM_VARIANT(9, true, false, false, true, false)     // lossy CPML
-            YEE_STREAM_VARIANT(16, false, false, false, false, true)   // Debye
-            YEE_STREAM_VARIANT(20, false, false, true, false, true)    // Debye + SAR
+            case 8:  // CPML
+                return launch_pml<T, false, DFT>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
+                                                 ez_rows, hx_rows, mat, psw, dft, stream);
+            case 9:  // lossy CPML
+                return launch_pml<T, true, DFT>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
+                                                ez_rows, hx_rows, mat, psw, dft, stream);
+            YEE_RING_VARIANT(16, false, false, false, true)            // Debye
+            YEE_RING_VARIANT(20, false, false, true, true)             // Debye + SAR
             default: break;
         }
     }
     return (int)cudaErrorInvalidValue;
-#undef YEE_STREAM_VARIANT
+#undef YEE_RING_VARIANT
 }
 
 template <typename T>
-int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int J, int I, bool boxed, const Box& g,
-          float fh, float fe,
-          int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
-          void* const* coefs, void* const* hf, const void* sigma, void* acc, float dt, void* const* psi_in,
-          void* const* psi_out, const void* tab_h, const void* tab_e, int n, void* const* pol_in,
-          void* const* pol_out, const DftSweep& dft, cudaStream_t stream) {
+int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, int K, int J, int I,
+          bool boxed, const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
+          const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf, const void* sigma, void* acc,
+          float dt, void* const* psi_in, void* const* psi_out, const void* tab_h, const void* tab_e, int n,
+          void* const* pol_in, void* const* pol_out, const DftSweep& dft, cudaStream_t stream) {
     const bool lossy = code & 1, pml = code & 8, ade = code & 16;
     Material<T> mat{};
     PsiSweep<T> psw{};
@@ -941,17 +1375,14 @@ int sweep(int code, int s, int bj, void* const* in, void* const* out, int K, int
         psw.n = n;
     }
     const float fe_ = (lossy || ade) ? 0.f : fe;
-    if (boxed && dft.re != nullptr)
-        return dispatch_variant<T, true, true>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
-                                               i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
-    if (boxed)
-        return dispatch_variant<T, false, true>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
-                                                i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
-    if (dft.re != nullptr)
-        return dispatch_variant<T, true, false>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0,
-                                                i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
-    return dispatch_variant<T, false, false>(code, s, bj, in, out, K, J, I, g, fh, fe_, tk, has_patch, j0, j1, i0, i1,
-                                             ez_rows, hx_rows, mat, psw, ad, dft, stream);
+#define YEE_STREAM_SWEEP(DFT_, BOX_)                                                                          \
+    return dispatch_variant<T, DFT_, BOX_>(code, s, bj, cr, in, out, K, J, I, g, fh, fe_, tk, has_patch,      \
+                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
+    if (boxed && dft.re != nullptr) YEE_STREAM_SWEEP(true, true)
+    if (boxed) YEE_STREAM_SWEEP(false, true)
+    if (dft.re != nullptr) YEE_STREAM_SWEEP(true, false)
+    YEE_STREAM_SWEEP(false, false)
+#undef YEE_STREAM_SWEEP
 }
 
 // geom: null (the whole grid) or 12 ints: the arrays' extents (nk, nj,
@@ -987,8 +1418,13 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 // without the DFT bands (acc, sigma and the sums then cover the window's
 // cells).  fh, fe: the vacuum H and E
 // factors (fh is the H factor unless hf is given; fe is unused by the
-// lossy and Debye variants).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
-// in the storage dtype (unused without the patch).  The arrays a variant
+// lossy and Debye variants).  s, bj, bi: the steps per sweep and the
+// block's threads along j and i (bi = 32); cr: for ring_kernel, whether
+// the coefficients ride the ring (1) or are read from memory (0), a built
+// shape of ops/stream_plan.py; tk: the planes a block advances (a grid of
+// tk-plane segments of every tile).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
+// in the storage dtype (unused without the patch).  Every bf16 array must
+// start 4-byte aligned (ring_kernel copies aligned pairs).  The arrays a variant
 // does not read are null, and the ones given select the variant:
 //   coefs   lossy media: ca_x, ca_y, ca_z, cb_x, cb_y, cb_z (the fields'
 //           shape and dtype); with pol_in, the 15 Debye maps ca_x..k2_z in
@@ -1013,7 +1449,7 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 extern "C" {
 
 int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, const int* geom, float fh, float fe,
-                     int s, int bj, int bi, int tk, int has_patch, int j0, int j1, int i0, int i1,
+                     int s, int bj, int bi, int cr, int tk, int has_patch, int j0, int j1, int i0, int i1,
                      const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
                      const void* sigma, void* acc, float dt, void* const* psi_in, void* const* psi_out,
                      const void* tab_h, const void* tab_e, int n, void* const* pol_in, void* const* pol_out,
@@ -1033,13 +1469,14 @@ int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, con
     const bool boxed = geom != nullptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return sweep<float>(code, s, bj, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0, i1, ez_rows,
-                            hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in, pol_out,
-                            dft, st);
+        return sweep<float>(code, s, bj, cr, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0,
+                            i1,
+                            ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in,
+                            pol_out, dft, st);
     if (dtype == 1)
-        return sweep<__nv_bfloat16>(code, s, bj, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0, i1,
-                                    ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n,
-                                    pol_in, pol_out, dft, st);
+        return sweep<__nv_bfloat16>(code, s, bj, cr, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0,
+                                    j1, i0, i1, ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h,
+                                    tab_e, n, pol_in, pol_out, dft, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 into ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
 flags, so an edited source never loads a stale library), then loaded with
 ``ctypes``.  ``defines`` adds preprocessor macros (``-D``) to a build of
-its own, such as the candidate block shapes ``tune_ade`` times.  Nothing is compiled when the package is imported: the first
+its own, such as the candidate block shapes ``tune_stream`` times.  Nothing is compiled when the package is imported: the first
 kernel launch builds.  There is no fallback: without nvcc, or when the
 compiler fails, :func:`build` raises ``RuntimeError``.
 """

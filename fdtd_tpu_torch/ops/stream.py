@@ -24,8 +24,10 @@ with the DFT bands of the three TPU kernels: every step's E cell means,
 weighted, are added to the sums in place, as s per-step
 :func:`fdtd_tpu_torch.dft.accumulate` calls would.  On CUDA tensors it launches the kernel variant
 ``plan.kernel`` on the current stream of their device and allocates
-nothing; it raises on anything the kernel does not take.  On CPU tensors,
-and only there, it runs :func:`plain_sweep`.
+nothing; it raises on anything the kernel does not take (a bf16 array that
+does not start 4-byte aligned among them: the kernel copies aligned pairs
+ahead into shared memory).  On CPU tensors, and only there, it runs
+:func:`plain_sweep`.
 
 With ``box`` (a :class:`~fdtd_tpu_torch.grid.Box`: a shard of a sharded
 run, :mod:`fdtd_tpu_torch.parallel`) it advances a shard in its own arrays,
@@ -107,7 +109,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of its C interface set."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.yee_stream_sweep.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [ptr] + [f32, f32] + [i32] * 9 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
+        [ptr, ptr] + [i32] * 3 + [ptr] + [f32, f32] + [i32] * 10 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
         + [ptr] * 5 + [i32, i32, i32, ptr]
     )
     lib.yee_stream_sweep.restype = i32
@@ -317,7 +319,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     PtrArray = ctypes.c_void_p * 6
     ins = PtrArray(*(t.data_ptr() for t in state.tensors()))
     outs = PtrArray(*(t.data_ptr() for t in out.tensors()))
-    geometry = (plan.s, plan.bj, plan.bi, plan.tk, int(drive is not None), j0, j1, i0, i1)
+    geometry = (plan.s, plan.bj, plan.bi, int(plan.cr), plan.tk, int(drive is not None), j0, j1, i0, i1)
     cf = hf = ()
     if dc is not None:
         cf = dc.arrays(acc is not None)
@@ -338,6 +340,11 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc) if dacc is not None
                 else (None, None, None, 0, 0))
     sigma = coefs.sigma_cells.data_ptr() if acc is not None and dc is None else None
+    if dt == torch.bfloat16 and cpml is None:
+        ringed = state.tensors() + cf + hf + (pol.tensors() if dc is not None else ())
+        ringed += (coefs.sigma_cells,) if sigma is not None else ()
+        if any(t.data_ptr() % 4 for t in ringed):
+            raise ValueError("the sweep's bfloat16 arrays must start 4-byte aligned (the kernel copies aligned pairs)")
     dev = state.ex.device
     name = plan.kernel + ("_shard" if box is not None else "")
     with torch.cuda.device(dev):

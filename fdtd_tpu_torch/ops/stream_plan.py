@@ -17,6 +17,21 @@ the block emits only the interior ``bj - 2s`` x ``bi - 2s`` columns.  The
 k segments of one column tile start s planes early (a lead-in that is
 recomputed, not emitted), so the segments are independent blocks.
 
+Every variant but CPML runs ``ring_kernel``, the Hopper design of the
+sweep (the header of ``csrc/yee_stream.cu``): the next plane's fields and,
+with ``cr``, the coefficients of the last s + 1 planes ride a ring in
+shared memory (:attr:`StreamPlan.ring_words`), so a plan's shared memory
+(:attr:`StreamPlan.smem_bytes`) counts the ring beside the exchange
+buffers.  Its grid is k segments of every tile, block b walking segment
+b // tiles of tile b % tiles (:func:`segments`): the blocks of a wave walk
+neighbouring tiles' planes together, so the halo columns they share come
+from L2 (an equal-share walk of the (tile, plane) list, which put
+neighbouring tiles at different planes, measured 1.5-2.2x slower).  The
+segment depth is the one whose waves take the fewest pipeline steps an SM
+(:func:`pick_tk`): a last wave half full costs a whole wave.  The CPML
+sweep (``stream_kernel``) keeps the first design: segments until the grid
+has ``BLOCKS_WANTED`` blocks.
+
 Plans are ranked by modelled device-memory bytes per cell and step: each
 sweep reads the six fields (and the coefficient arrays of the material
 variants) once per halo-amplified tile and writes the fields once.  The
@@ -46,8 +61,8 @@ carry each level's polarization (and with SAR its edge work) in registers
 beside the fields and read the 15 coefficient maps per level and plane, so
 they have block shapes of their own (``BLOCK_J_ADE``, ``BLOCK_J_ADE_SAR``),
 each at the one shape that measured fastest (``python -m
-fdtd_tpu_torch.tune_ade``): the bytes model ranks deeper sweeps first, but
-registers bind them and they run slower.  Their gates are the material
+fdtd_tpu_torch.tune_stream``): the bytes model ranks deeper sweeps first,
+but registers bind them and they run slower.  Their gates are the material
 variants' (computation mode) plus no CPML (Debye x CPML runs the torch
 ops) and no heterogeneous mu_r.  A sweep reads one P set and writes a
 second, like the state.
@@ -58,11 +73,13 @@ SAR variants do, so their tiles emit one column fewer per axis and the
 pipeline runs one step further; a thread keeps the 6 * nf sums of the s
 cells it has in flight in dynamic shared memory (loaded at level 1, stored
 at level s), so ``nf`` is a runtime value that needs no registers, up to
-what fits beside the static buffers (:attr:`StreamPlan.dft_max_nf`; a
-scene with more frequencies runs ``twopass`` with the ``dft_accum``
-kernel).  Each is built at one depth: the
-material and vacuum variants at ``BLOCK_J_DFT``, the CPML and ADE variants
-at the shape of their variant without DFT.  The sums (8 * nf * nc B a cell)
+what fits beside the exchange buffers and the ring
+(:attr:`StreamPlan.dft_max_nf`; a scene with more frequencies runs
+``twopass`` with the ``dft_accum`` kernel).  Each is built at one depth:
+the vacuum variant at ``BLOCK_J_DFT``, the material variants at
+``BLOCK_J_DFT_MATERIAL`` (with the coefficient ring), the ADE variants at
+the ADE SAR shape and the CPML variants at the shape of their variant
+without DFT.  The sums (8 * nf * nc B a cell)
 count in every footprint; a DFT sweep reads and writes them once.
 
 Every footprint counts the temporaries of the output reductions (the k
@@ -103,6 +120,12 @@ BLOCK_J = {8: 24, 4: 32, 2: 32}
 # the same for the material variants (lossy, het-mu, SAR): at s=4 a
 # 768-thread block leaves 80 registers a thread instead of 64
 BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
+# the material depths whose coefficients (ca/cb, hf, with SAR sigma and the
+# map value) ride the ring in shared memory: s=8 reads them from memory at
+# every level (its s+1 ring planes would not fit); the Debye sweeps and the
+# material DFT sweeps carry theirs in the ring too (plan_for: cr), the
+# vacuum sweeps have none
+COEF_RING_MATERIAL = {8: False, 4: True, 2: True}
 # the CPML variants (vacuum and lossy) keep twelve psi a level a thread
 # more, and are built at s=2 only: measured at 256^3 fp32 (NVIDIA H100 80GB
 # HBM3), s=2 with 768-thread blocks fits 80 registers without spills (0.74
@@ -110,25 +133,19 @@ BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
 # spilled 160 B (1.08 ms a step) and s=8 about 540 B (7.4 ms a step)
 BLOCK_J_PML = {2: 24}
 # the ADE variants (Debye media) keep three P (and with SAR three work
-# values) a level a thread more and read 15 maps a level; each is built at
-# the one shape that measured fastest at 256^3 (python -m
-# fdtd_tpu_torch.tune_ade; NVIDIA H100 80GB HBM3, 700 W; ms a step fp32 /
-# bf16): without SAR s=4 with 768 threads, 80 registers, no spills, 0.776 /
-# 0.660 (s=2 at 768 threads 0.771 / 0.659; s=4 at 1024 threads 0.894 /
-# 0.601 with 68 B of spills; s=8 3.31 / 2.40 with 296 B); with SAR s=2 with
-# 1024 threads, 64 registers and 32 B of spills, 1.479 / 1.189 (s=2 at 768
-# threads, no spills, 1.655 / 1.469; s=4 2.38-3.04 / 1.77-2.42; s=8 9.2 / 8.1)
-BLOCK_J_ADE = {4: 24}
-BLOCK_J_ADE_SAR = {2: 32}
-# the DFT variants of the vacuum and material sweeps: one depth, measured at
-# 256^3 (python -m fdtd_tpu_torch.tune_ade --dft; NVIDIA H100 80GB HBM3, 700
-# W; ms a step fp32, nf = 1, vacuum / water + SAR): s=4 with 768 threads,
-# 80 registers, no spills, 0.635 / 1.028, and room for nf <= 2 in shared
-# memory (s=4 with 1024 threads 0.591 / 0.949 but nf <= 1; s=2 with 1024
-# threads 0.670 / 1.051; s=4 with 512 threads 0.813 / 1.453; s=8 1.303 /
-# 2.510 with 32-136 B of spills)
+# values) a level a thread more and read 15 maps a level (18 with SAR), all
+# from the coefficient ring; each is built at the one shape that measured
+# fastest at 256^3 (python -m fdtd_tpu_torch.tune_stream; NVIDIA H100 80GB
+# HBM3, 700 W), the Debye DFT variants at the SAR shape, whose 512-thread
+# block leaves the DFT sums room for nf <= 3 beside the ring
+BLOCK_J_ADE = {2: 24}
+BLOCK_J_ADE_SAR = {2: 16}
+# the DFT variants of the vacuum sweep (s=4 with 768 threads: nf <= 2 in
+# shared memory beside the ring) and of the material sweeps (s=2 with 768
+# threads and the coefficient ring: nf <= 2 or 3 beside it)
 BLOCK_J_DFT = {4: 24}
-BLOCKS_WANTED = 2 * SM_COUNT  # split k until a sweep has this many blocks
+BLOCK_J_DFT_MATERIAL = {2: 24}
+BLOCKS_WANTED = 2 * SM_COUNT  # the CPML sweep: split k until it has this many blocks
 
 
 def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False,
@@ -164,7 +181,8 @@ SHARD_VARIANTS = tuple(v for v in VARIANTS if not (v[3] or v[4]))
 class StreamPlan:
     """One sweep's geometry: ``s`` steps; blocks of ``bj`` x ``bi``
     threads, each emitting a ``tk`` x ``tj`` x ``ti`` (k, j, i) tile;
-    ``nk`` x ``nj`` x ``ni`` blocks."""
+    ``nk`` x ``nj`` x ``ni`` blocks (:func:`segments`).  ring_kernel (every
+    variant but CPML): ``cr``, the coefficients ride the ring."""
 
     s: int
     tk: int
@@ -183,6 +201,7 @@ class StreamPlan:
     ade: bool = False  # Debye media: P and the 15 ADE maps
     dft: bool = False  # the DFT bands (E phasor sums)
     window: tuple[int, int, int] | None = None  # a shard's owned planes (k, j, i); None: the grid
+    cr: bool = False  # ring_kernel: the coefficients ride the ring
 
     @property
     def kernel(self) -> str:
@@ -194,14 +213,46 @@ class StreamPlan:
         return self.nk * self.nj * self.ni
 
     @property
+    def waves(self) -> float:
+        """Blocks over what the card holds at once (one on each SM)."""
+        return self.blocks / SM_COUNT
+
+    @property
     def threads(self) -> int:
         return self.bj * self.bi
 
     @property
+    def means(self) -> bool:
+        """The cell means of SAR or the DFT bands (tiles one column
+        narrower, one more E plane and a third exchange)."""
+        return self.sar or self.dft
+
+    @property
+    def ring_words(self) -> int:
+        """ring_kernel's ring, 4-byte words a thread: the next plane's six
+        fields (and three P), and with ``cr`` the coefficient words of the
+        last s + 1 planes (lossy ca/cb, het hf, SAR sigma and map value; the
+        Debye maps and map value)."""
+        if self.pml:
+            return 0
+        nc = 0
+        if self.cr and self.ade:
+            nc = 19 if self.sar else 15
+        elif self.cr and self.lossy:
+            nc = 6 + (3 if self.het else 0) + (2 if self.sar else 0)
+        return (9 if self.ade else 6) + (self.s + 1) * nc
+
+    @property
     def smem_bytes(self) -> int:
-        """Static shared memory: one fp32 E plane and one H plane, and the
-        five E (or work) values a column of the SAR and DFT cell means."""
-        return (11 if self.sar or self.dft else 6) * self.bj * self.bi * 4
+        """Shared memory before the DFT sums.  The CPML sweep: one fp32 E
+        plane and one H plane, and the five E values a column of the DFT
+        cell means.  ring_kernel: the Ex, Ez and Hx, Hz planes of the j
+        exchanges (i neighbours move by warp shuffles), the three values a
+        column of the cell means, and the ring."""
+        n = self.bj * self.bi
+        if self.pml:
+            return (11 if self.means else 6) * n * 4
+        return (4 * n + (3 * n if self.means else self.bi)) * 4 + self.ring_words * n * 4
 
     def dft_smem_bytes(self, nf: int) -> int:
         """Dynamic shared memory of the DFT bands: 6 * nf fp32 sums of s
@@ -212,8 +263,31 @@ class StreamPlan:
     def dft_max_nf(self) -> int:
         """The most frequencies the DFT bands take at this shape (0 without
         them): what fits in a block's shared memory beside the static
-        buffers."""
+        buffers and the ring."""
         return (SMEM_PER_BLOCK - self.smem_bytes) // self.dft_smem_bytes(1) if self.dft else 0
+
+
+def segments(nj: int, ni: int, planes: int, tk: int) -> list[tuple[int, int, int]]:
+    """The segments of a sweep's grid, as csrc/yee_stream.cu walks them:
+    block b advances the tk planes of segment b // tiles of tile b % tiles
+    (tiles in (j, i) order with i fastest), so the blocks of a wave walk
+    neighbouring tiles' planes together.  (tile, k0, k1), k relative to the
+    first plane of the grid (or window)."""
+    tiles = nj * ni
+    return [(b % tiles, (b // tiles) * tk, min((b // tiles + 1) * tk, planes)) for b in range(-(-planes // tk) * tiles)]
+
+
+def pick_tk(planes: int, tiles: int, s: int, sh: int) -> int:
+    """The segment depth of a ring_kernel grid: of the splits of
+    ``planes`` into equal segments at least 2s deep, the one whose waves
+    (one block on each of the 132 SMs) take the fewest pipeline steps an
+    SM, each segment's lead-in and tail (2s + sh) counted; ties to the
+    deeper segment.  Whole waves come first: a last wave half full costs a
+    whole wave's time."""
+    def steps(tk: int) -> int:
+        return -(-(-(-planes // tk) * tiles) // SM_COUNT) * (tk + 2 * s + sh)
+
+    return min((-(-planes // nk) for nk in range(1, max(1, planes // (2 * s)) + 1)), key=lambda tk: (steps(tk), -tk))
 
 
 def _itemsize(p: Params) -> int:
@@ -303,11 +377,11 @@ def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False
 def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: bool = False) -> dict[int, int]:
     """The depths a variant's kernel is built at, with their threads along j."""
     if ade:
-        return BLOCK_J_ADE_SAR if sar else BLOCK_J_ADE
+        return BLOCK_J_ADE_SAR if sar or dft else BLOCK_J_ADE
     if pml:
         return BLOCK_J_PML
     if dft:
-        return BLOCK_J_DFT
+        return BLOCK_J_DFT_MATERIAL if lossy else BLOCK_J_DFT
     return BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
@@ -320,12 +394,13 @@ def built_depths(lossy: bool, dft: bool = False) -> tuple[int, ...]:
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
              sar: bool = False, pml: PMLConfig | None = None, ade: bool = False,
              bj: int | None = None, dft: DftConfig | None = None,
-             window: tuple[int, int, int] | None = None) -> StreamPlan:
+             window: tuple[int, int, int] | None = None, cr: bool | None = None) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
     the kernel variant the flags name (het and sar imply lossy, except
     for Debye media, ``ade``: vacuum H and the ADE E update), with the DFT
-    bands of ``dft``.  ``bj`` (threads along j) is the variant's built
-    value unless given, for a build with other shapes (``tune_ade``).
+    bands of ``dft``.  ``bj`` (threads along j) and ``cr`` (the coefficient
+    ring) are the variant's built values unless given, for a build with
+    other shapes (``tune_stream``).
     ``window``: a shard's owned (k, j, i) planes, tiled instead of the
     grid."""
     lossy = not ade and (lossy or het or sar)
@@ -334,17 +409,28 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
         if s not in table:
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
+    if cr is None:
+        cr = pml is None and (ade or lossy and (dft is not None or COEF_RING_MATERIAL.get(s, False)))
     K1, J1, I1 = window or p.padded_shape
     bi = BLOCK_I
     sh = int(sar or dft is not None)  # the cell means read E one column past
     tj, ti = bj - 2 * s - sh, bi - 2 * s - sh
     nj, ni = -(-J1 // tj), -(-I1 // ti)
-    nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
-    # a segment at least 2s planes deep keeps the lead-in below 2x
-    tk = min(K1, max(-(-K1 // nk_want), 2 * s))
-    nk = -(-K1 // tk)
+    if pml is not None:  # stream_kernel: k segments of tk planes
+        nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
+        # a segment at least 2s planes deep keeps the lead-in below 2x
+        tk = min(K1, max(-(-K1 // nk_want), 2 * s))
+        nk = -(-K1 // tk)
+        amp_k = (tk + 2 * s) / tk if nk > 1 else 1.0
+    else:  # ring_kernel: k segments of every tile, as many as fill whole waves best
+        tk = pick_tk(K1, nj * ni, s, sh)
+        nk = -(-K1 // tk)
+        # each segment loads its s lead-in planes and the s (+1) planes past
+        # it, clamped at the grid's walls (a shard's halo planes count)
+        lo, hi = (0, K1 - 1) if window is None else (-(s + sh), K1 - 1 + s + sh)
+        loaded = sum(min(k1 - 1 + s + sh, hi) - max(k0 - s, lo) + 1 for _, k0, k1 in segments(nj, ni, K1, tk))
+        amp_k = loaded / (nj * ni * K1)
     amp_ji = (bj * bi) / (tj * ti)
-    amp_k = (tk + 2 * s) / tk if nk > 1 else 1.0
     item = _itemsize(p)
     cells = p.maxk * p.maxj * p.maxi / (K1 * J1 * I1)
     if ade:  # fields, P and the 15 maps (+3 sigma) read; fields and P written
@@ -360,7 +446,7 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
     dft_bytes = acc_bytes(p, dft) / (K1 * J1 * I1) if dft is not None else 0.0
     per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes + dft_bytes) / s
     return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade,
-                      dft is not None, window)
+                      dft is not None, window, bool(cr))
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
@@ -463,7 +549,7 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
     """The kernel takes the dtype and the scene, and the two states, with
     the material arrays (and two psi sets with CPML, two P sets with
     Debye media), fit in ``memory_bytes`` (default: the H100's 80 GB).
-    Every plan's block fits an SM (at most 1024 threads and 45 KB of
+    Every plan's block fits an SM (at most 1024 threads and 227 KB of
     shared memory), so the grid, the dtype and the gates decide: materials
     stream in computation mode only, SAR needs materials, CPML takes
     :func:`pml_gates`, Debye media :func:`ade_gates` and the DFT bands

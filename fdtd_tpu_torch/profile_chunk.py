@@ -68,10 +68,11 @@ DFT_HZ = 2.45e10  # the dft scene's frequency (--dft 2.45e10)
 SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, HET, SAR, PML, ADE, DFT, BOX>,
-# h <T, HET, PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>;
-# BOX: a shard's launch (the counter's name with "_shard")
-_KERNEL = re.compile(r"::(stream_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
+# flags after the type: stream <T, S, BJ, LOSSY, DFT> (the CPML sweep),
+# ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET, PML, BOX>,
+# e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>; BOX: a shard's
+# launch (the counter's name with "_shard")
+_KERNEL = re.compile(r"::(stream_kernel|ring_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -90,7 +91,10 @@ def _group(name: str) -> str:
     if m.group(1) == "dft_accum_kernel":
         return "dft_accum" + ("_shard" if flags[:1] == [True] else "")
     if m.group(1) == "stream_kernel":
-        return variant_name(*flags[:6]) + ("_shard" if flags[6:7] == [True] else "")
+        return variant_name(flags[0], False, False, True, False, flags[1])
+    if m.group(1) == "ring_kernel":
+        lossy, het, sar, ade, dft, box = flags[1:7]
+        return variant_name(lossy, het, sar, False, ade, dft) + ("_shard" if box else "")
     if m.group(1) == "ade_e_kernel":
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
     suffix = ("_pml" if flags[1] else "") + ("_shard" if flags[2:3] == [True] else "")

@@ -1,6 +1,6 @@
 """Compare the machine code (SASS) of the CUDA kernels of two checkouts.
 
-    python -m fdtd_tpu_torch.sass_compare OTHER_CHECKOUT [--json OUT]
+    python -m fdtd_tpu_torch.sass_compare OTHER_CHECKOUT [--json OUT] [--alias PATTERN NAME]
 
 Builds ``csrc/<name>.cu`` of this package and of ``OTHER_CHECKOUT`` (a
 checkout of another commit, e.g. unpacked with ``git archive``) to cubins
@@ -9,7 +9,10 @@ started together, dumps them with ``cuobjdump -sass`` and compares every
 kernel the other checkout has with the kernel of the same name here,
 instruction by instruction.  Names are demangled (``cu++filt``) without
 the anonymous namespace, and a template argument ``false`` appended in
-this checkout (a new trailing flag, such as ``BOX``, off) still matches.
+this checkout (a new trailing flag, such as ``BOX``, off) still matches;
+``--alias PATTERN NAME`` (a regular expression over the other checkout's
+name and its expansion here, e.g. for template flags this checkout
+dropped) names the counterpart of a renamed kernel.
 The instruction text drops addresses, encodings and the offsets of the
 kernel parameters in constant bank 0 (a parameter added to a kernel may
 move the others).  A report: prints one line a kernel that differs or is
@@ -54,8 +57,9 @@ def cubin(src: Path, out: Path) -> Path:
 
 
 def kernels(path: Path) -> dict[str, list[str]]:
-    """Demangled kernel name (without the anonymous namespace) -> its
-    instructions, parameter offsets blanked."""
+    """Demangled kernel name (without the anonymous namespace, template
+    arguments without their casts: ``2``, ``true``) -> its instructions,
+    parameter offsets blanked."""
     dump = subprocess.run([tool("cuobjdump"), "-sass", str(path)], capture_output=True, text=True, check=True).stdout
     funcs, cur = {}, None
     for line in dump.splitlines():
@@ -69,13 +73,19 @@ def kernels(path: Path) -> dict[str, list[str]]:
     names = list(funcs)
     plain = subprocess.run([tool("cu++filt")], input="\n".join(names), capture_output=True, text=True,
                            check=True).stdout.splitlines()
-    return {_strip_args(re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", d)): funcs[n]
+    return {_uncast(_strip_args(re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", d))): funcs[n]
             for n, d in zip(names, plain)}
 
 
+def _uncast(name: str) -> str:
+    """Template arguments as written: some demanglers print ``(int)2`` and
+    ``(bool)1`` for ``2`` and ``true``."""
+    name = re.sub(r"\(bool\)0", "false", re.sub(r"\(bool\)1", "true", name))
+    return re.sub(r"\(int\)(-?\d+)", r"\1", name)
+
+
 def _strip_args(name: str) -> str:
-    """A demangled kernel name without its parameter list (the template
-    arguments keep their ``(bool)0`` casts)."""
+    """A demangled kernel name without its parameter list."""
     depth = 0
     for q in range(len(name) - 1, -1, -1):
         depth += {")": 1, "(": -1}.get(name[q], 0)
@@ -84,22 +94,27 @@ def _strip_args(name: str) -> str:
     return name
 
 
-def match(name: str, here: dict) -> str | None:
-    """The kernel here of the other checkout's ``name``: the same name, or
-    the name with a trailing template argument ``false`` added."""
+def match(name: str, here: dict, aliases: list[tuple[str, str]] = ()) -> str | None:
+    """The kernel here of the other checkout's ``name``: an alias's
+    expansion, the same name, or the name with a trailing template argument
+    ``false`` added."""
+    for pattern, repl in aliases:
+        m = re.fullmatch(pattern, name)
+        if m is not None:
+            return m.expand(repl) if m.expand(repl) in here else None
     if name in here:
         return name
-    for flag in ("false", "(bool)0"):
-        cand = name[:-1] + f", {flag}>"
-        if name.endswith(">") and cand in here:
-            return cand
-    return None
+    cand = name[:-1] + ", false>"
+    return cand if name.endswith(">") and cand in here else None
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="the other checkout (its fdtd_tpu_torch/csrc is compared)")
     ap.add_argument("--json", default=None, help="write the per-kernel verdicts here")
+    ap.add_argument("--alias", nargs=2, action="append", default=[], metavar=("PATTERN", "NAME"),
+                    help="the kernel here of the other checkout's kernels that PATTERN matches (re.fullmatch; "
+                         "NAME may use its groups, \\1 ...)")
     args = ap.parse_args(argv)
     other = Path(args.other) / "fdtd_tpu_torch" / "csrc"
     missing_total = 0
@@ -113,7 +128,7 @@ def main(argv: list[str] | None = None) -> int:
             here, there = kernels(f_here.result()), kernels(f_other.result())
             same, differ, missing = 0, [], []
             for k, insns in there.items():
-                m = match(k, here)
+                m = match(k, here, args.alias)
                 if m is None:
                     missing.append(k)
                 elif here[m] == insns:

@@ -1,0 +1,394 @@
+"""Time the streaming sweeps of K3 and K12 (``csrc/yee_stream.cu::
+ring_kernel``) at their candidate shapes on the card, beside ptxas's
+registers and spills and, in the same call, the design of another checkout:
+the measurement behind the shapes each variant is built at
+(``ops/stream_plan.py``: ``BLOCK_J``, ``BLOCK_J_MATERIAL``,
+``COEF_RING_MATERIAL``, ``BLOCK_J_DFT``, ``BLOCK_J_ADE``, ``BLOCK_J_ADE_SAR``).
+
+    python -m fdtd_tpu_torch.tune_stream [--n 256] [--reps 20] [--dtypes float32 bfloat16]
+        [--scenes vacuum heating ...] [--built] [--parent CHECKOUT] [--out FILE]
+
+It builds ``csrc/yee_stream.cu`` with ``YEE_STREAM_CANDIDATES`` defined
+(every variant at every shape of :data:`CANDIDATES`, the built ones among
+them), checks each shape against ``stream.plain_sweep`` once on a small
+ragged box (fields, P, the SAR map and the DFT sums, bit for bit, from
+random fields, P, map and sums), and times one sweep of the scene at n^3
+(``profile_chunk.scene``, with the heating scene's water block, a ferrite
+slab for the het-mu variants, the water block as a Debye medium for the
+ADE variants, one frequency for the DFT bands) with CUDA events, the mean of
+``--reps`` launches after one.  ``--built`` times the built shapes only,
+from the default build.
+
+With ``--parent`` (a checkout of another commit, e.g. unpacked with ``git
+archive``) it also times that checkout's sweep of the same scene at that
+checkout's own plan, built from its own sources into its own ``_build``, in
+turns with this one (parent, this, this, parent) so that both share the
+call and the card; each JSON line then carries the parent's ms and the
+ratio.
+
+One JSON line per scene, dtype and shape: ms per sweep and per step, the
+grid (blocks and waves of 132 SMs), the bound (each array read once and
+written once at 3.35 TB/s) and its share, registers and spill-store bytes,
+the check's max |diff|, the parent's numbers, and the card's name and
+power limit.  ``--out`` writes the lines to a file too.  Exits 1 when a
+check fails or no CUDA device is available.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import json
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .convert import state_from_numpy
+from .dft import DftConfig
+from .grid import COMPONENTS
+from .ops import build, stream, stream_plan
+from .ops.dispersive import PolState, debye_coefs, water_debye_load
+from .params import Mode, Params
+from .profile_chunk import scene
+from .source import apply_source, make_source_plan, profile_tensor, sweep_drive_rows
+from .state import FieldState, ferrite_slab, field_dtype, update_coefs, water_block
+
+DEFINE = "YEE_STREAM_CANDIDATES"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# the variants: (materials, het-mu, SAR, Debye, DFT)
+SCENES = {
+    "vacuum": (False, False, False, False, False),
+    "lossy": (True, False, False, False, False),
+    "heating": (True, False, True, False, False),
+    "het": (True, True, False, False, False),
+    "het_sar": (True, True, True, False, False),
+    "vacuum_dft": (False, False, False, False, True),
+    "lossy_dft": (True, False, False, False, True),
+    "heating_dft": (True, False, True, False, True),
+    "het_dft": (True, True, False, False, True),
+    "het_sar_dft": (True, True, True, False, True),
+    "dispersive": (False, False, False, True, False),
+    "dispersive_sar": (False, False, True, True, False),
+    "dispersive_dft": (False, False, False, True, True),
+    "dispersive_sar_dft": (False, False, True, True, True),
+}
+# (s, threads along j, coefficient ring) of each family beside its built
+# shapes: the YEE_STREAM_CANDIDATES cases of csrc/yee_stream.cu::dispatch_ring
+CANDIDATES = {
+    "vacuum": ((4, 24, False),),
+    "material": ((4, 32, True), (2, 24, True)),
+    "dft": ((2, 32, False), (2, 24, False)),
+    "dft_material": ((2, 32, False), (4, 24, False)),
+    "ade": ((2, 32, False), (2, 16, True), (4, 24, False)),
+    "ade_sar": ((2, 32, False), (2, 24, True)),
+    "ade_dft": ((2, 32, False), (2, 24, True), (4, 24, False)),
+    "ade_sar_dft": ((2, 32, False), (2, 24, True)),
+}
+DFT_FREQUENCY = 2.45e10
+# a mangled ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX> entry
+_ENTRY = re.compile(r"ring_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E" + r"Lb([01])E" * 7)
+
+
+def family(lossy: bool, sar: bool, ade: bool, dft: bool) -> str:
+    """The shape family of a variant (the branches of dispatch_ring)."""
+    if ade:
+        return "ade" + ("_sar" if sar else "") + ("_dft" if dft else "")
+    if dft:
+        return "dft_material" if lossy else "dft"
+    return "material" if lossy else "vacuum"
+
+
+def built_shapes(name: str, p: Params) -> list[tuple[int, int, bool]]:
+    """The (s, bj, cr) a scene's variant is built at."""
+    lossy, het, sar, ade, dft = SCENES[name]
+    cfg = DftConfig((DFT_FREQUENCY,)) if dft else None
+    table = stream_plan._block_j(lossy and not ade, False, ade, sar, dft)
+    plans = (stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg) for s in table)
+    return [(pl.s, pl.bj, pl.cr) for pl in plans]
+
+
+def shapes(name: str, p: Params, built_only: bool) -> list[tuple[int, int, bool]]:
+    lossy, _, sar, ade, dft = SCENES[name]
+    out = built_shapes(name, p)
+    if not built_only:
+        out += [c for c in CANDIDATES[family(lossy, sar, ade, dft)] if c not in out]
+    return out
+
+
+def ptxas_report(log: str) -> dict[tuple, tuple[int, int]]:
+    """(dtype, s, bj, cr, lossy, het, sar, ade, dft, box) ->
+    (registers, spill-store bytes) of the ring_kernel entries of an ``nvcc
+    -Xptxas -v`` log."""
+    out: dict[tuple, tuple[int, int]] = {}
+    key, spill = None, 0
+    for line in log.splitlines():
+        m = _ENTRY.search(line) if "Compiling entry function" in line else None
+        if m is not None:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            key = (dtype, int(m.group(2)), int(m.group(3)), *(g == "1" for g in m.group(*range(4, 11))))
+            spill = 0
+        elif key is not None and "spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+        elif key is not None and "registers" in line:
+            out[key] = (int(re.search(r"Used (\d+) registers", line).group(1)), spill)
+            key = None
+    return out
+
+
+@dataclasses.dataclass
+class Case:
+    """One sweep's inputs, built for a scene at a shape."""
+
+    p: Params
+    plan: stream_plan.StreamPlan
+    coefs: object
+    st: FieldState
+    drive: stream.SweepDrive
+    dc: object = None
+    pol: PolState | None = None
+    acc0: torch.Tensor | None = None
+    d0: tuple | None = None
+    wts: torch.Tensor | None = None
+
+    def outputs(self):
+        """Fresh outputs: the state, P, a copy of the map and of the sums."""
+        return (FieldState(*(torch.full_like(t, float("nan")) for t in self.st.tensors())),
+                PolState(*(torch.full_like(t, float("nan")) for t in self.pol.tensors())) if self.pol else None,
+                self.acc0.clone() if self.acc0 is not None else None,
+                tuple(t.clone() for t in self.d0) if self.d0 is not None else None)
+
+    def run(self, outs, sweep=None, p=None, plan=None) -> list[torch.Tensor]:
+        """One sweep into ``outs`` (``sweep``: another checkout's wrapper,
+        with its own params and plan); returns the arrays it wrote."""
+        out, pol_o, acc, dacc = outs
+        (sweep or stream.sweep)(p or self.p, self.st, out, self.coefs, plan or self.plan, self.drive, acc,
+                                dc=self.dc, pol=self.pol, pol_out=pol_o, dacc=dacc, wts=self.wts)
+        return _arrays(outs)
+
+    def plain(self) -> list[torch.Tensor]:
+        outs = self.outputs()
+        out, pol_o, acc, dacc = outs
+        stream.plain_sweep(self.p, self.st, self.coefs, self.plan.s, self.drive, out, acc, dc=self.dc, pol=self.pol,
+                           pol_out=pol_o, dacc=dacc, wts=self.wts)
+        return _arrays(outs)
+
+
+def _arrays(outs) -> list[torch.Tensor]:
+    out, pol_o, acc, dacc = outs
+    return (list(out.tensors()) + (list(pol_o.tensors()) if pol_o else []) + ([acc] if acc is not None else [])
+            + (list(dacc) if dacc else []))
+
+
+_MAPS: dict = {}  # (grid, dtype, scene's materials) -> its coefficients (a host fp64 build each)
+
+
+def _maps(p: Params, name: str, dev: torch.device):
+    """The scene's (coefs, Debye coefs), built once per grid, dtype and
+    materials: the water block (a ferrite slab with het-mu), or the water
+    block as a Debye medium."""
+    lossy, het, _, ade, _ = SCENES[name]
+    key = (p.padded_shape, p.dtype, lossy, het, ade)
+    if key not in _MAPS:
+        small = min(p.maxk, p.maxj, p.maxi) < 100
+        mats = None
+        if lossy:
+            mats = water_block(p, lo=(0.05,) * 3, hi=(0.95,) * 3) if small else water_block(p)
+            if het:
+                mats = ferrite_slab(p, base=mats)
+        dc = None
+        if ade:
+            dm = (water_debye_load(p, lo=(0.05,) * 3, hi=(0.95,) * 3, sigma_ion25=0.5) if small
+                  else water_debye_load(p))
+            dc = debye_coefs(p, dm, dev)
+        _MAPS[key] = (update_coefs(p, mats, dev), dc)
+    return _MAPS[key]
+
+
+def make_case(p: Params, name: str, s: int, bj: int, cr: bool, dev: torch.device,
+              rng: np.random.Generator) -> Case:
+    """A sweep of scene ``name`` at the shape (s, bj, cr) on the grid of
+    ``p`` from random fields (step 1 hard-set by the source), random P where
+    the load relaxes, a random map and random sums."""
+    lossy, het, sar, ade, dft = SCENES[name]
+    dt = field_dtype(p)
+    coefs, dc = _maps(p, name, dev)
+    cfg = DftConfig((DFT_FREQUENCY,)) if dft else None
+    plan = stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, bj=bj, dft=cfg, cr=cr)
+    st = state_from_numpy({c: rng.uniform(-1.0, 1.0, p.padded_shape).astype(np.float32) for c in COMPONENTS}, dev, dt)
+    src = make_source_plan(p)
+    amps = torch.tensor(rng.uniform(-1.0, 1.0, s), dtype=torch.float64, device=dev)
+    prof = profile_tensor(src, dev)
+    apply_source(src, st, amps[0], prof)
+    ez_rows, hx_rows = sweep_drive_rows(src, amps, s, dt, prof)
+    drive = stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+    pol = (PolState(*(torch.where(dc.k2[c] > 0, torch.tensor(rng.uniform(-1e-9, 1e-9, p.padded_shape), dtype=dt,
+                                                             device=dev), 0.0) for c in "xyz")) if ade else None)
+    acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (p.maxk, p.maxj, p.maxi)), dtype=torch.float32, device=dev)
+            if sar else None)
+    d0 = wts = None
+    if dft:
+        shape = (1, 3, p.maxk, p.maxj, p.maxi)
+        d0 = tuple(torch.tensor(rng.uniform(-1.0, 1.0, shape), dtype=torch.float32, device=dev) for _ in range(2))
+        wts = torch.tensor(rng.uniform(-1.0, 1.0, (s, 2, 1)), dtype=torch.float32, device=dev)
+    return Case(p, plan, coefs, st, drive, dc, pol, acc0, d0, wts)
+
+
+def bound_ms(case: Case) -> float:
+    """The least time of one sweep: every array it reads once and every
+    array it writes once at the device memory's rate (the flops, about 30 a
+    cell and step, bind nothing here)."""
+    p, plan = case.p, case.plan
+    item = {torch.float32: 4, torch.bfloat16: 2}[case.st.ex.dtype]
+    arr = math.prod(p.padded_shape) * item
+    cells = p.maxk * p.maxj * p.maxi
+    b = 12 * arr  # six fields read and written
+    if plan.ade:
+        b += (6 + 15 + (3 if plan.sar else 0)) * arr  # P read and written, the maps
+    elif plan.lossy:
+        b += (6 + (3 if plan.het else 0)) * arr + (cells * item if plan.sar else 0)
+    if plan.sar:
+        b += 8 * cells  # the map read and written
+    if plan.dft:
+        b += 2 * 2 * 3 * 4 * cells  # (re, im) of three components, read and written
+    return b / HBM_BYTES_PER_S * 1e3
+
+
+def event_ms(fn, reps: int) -> float:
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def load_parent(path: Path):
+    """Another checkout's ``fdtd_tpu_torch`` as a package of its own name
+    (``fdtd_tpu_torch_parent``): its wrapper, plans and build dir."""
+    name = "fdtd_tpu_torch_parent"
+    root = Path(path) / "fdtd_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, root / "__init__.py", submodule_search_locations=[str(root)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("params", "dft", "ops.stream", "ops.stream_plan"):
+        __import__(f"{name}.{sub}")
+    return mod
+
+
+def parent_run(parent, p: Params, name: str, dev: torch.device, rng: np.random.Generator):
+    """(plan, run) of the parent checkout's sweep of scene ``name`` at that
+    checkout's own plan (``pick_plan`` there), from inputs of its depth."""
+    lossy, het, sar, ade, dft = SCENES[name]
+    fields = {f.name: getattr(p, f.name) for f in dataclasses.fields(p)}
+    pp = parent.params.Params(**{**fields, "mode": parent.params.Mode(p.mode.value)})
+    cfg = parent.dft.DftConfig((DFT_FREQUENCY,)) if dft else None
+    plan = parent.ops.stream_plan.pick_plan(pp, lossy=lossy, het=het, sar=sar, ade=ade, dft=cfg)
+    case = make_case(p, name, plan.s, plan.bj, False, dev, rng)
+    outs = case.outputs()
+    return plan, lambda: case.run(outs, parent.ops.stream.sweep, pp, plan)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="fdtd_tpu_torch.tune_stream", description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=256, help="cells per side of the timed scene (default 256)")
+    ap.add_argument("--reps", type=int, default=20, help="timed sweeps per shape (default 20)")
+    ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
+    ap.add_argument("--scenes", nargs="+", default=list(SCENES), choices=list(SCENES))
+    ap.add_argument("--built", action="store_true", help="the built shapes only")
+    ap.add_argument("--parent", default=None, help="a checkout of another commit to time in the same call")
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("error: tune_stream measures a CUDA device and none is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    card = smi[0] if smi else torch.cuda.get_device_name(0)
+    path = build.build(stream.KERNEL_SOURCE, defines=() if args.built else (DEFINE,))
+    regs = ptxas_report(path.with_suffix(".log").read_text())
+    stream.use_library(path)
+    parent = load_parent(Path(args.parent)) if args.parent else None
+    sink = open(args.out, "w") if args.out else None
+    rng = np.random.default_rng(0)
+    ok = True
+
+    def emit(line: dict) -> None:
+        text = json.dumps(line)
+        print(text, flush=True)
+        if sink:
+            sink.write(text + "\n")
+
+    for dtype in args.dtypes:
+        small = Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                       simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype=dtype)
+        big = scene(args.n, dtype)
+        for name in args.scenes:
+            lossy, het, sar, ade, dft = SCENES[name]
+            cfg = DftConfig((DFT_FREQUENCY,)) if dft else None
+            picked = stream_plan.pick_plan(big, lossy=lossy, het=het, sar=sar, ade=ade, dft=cfg)
+            cases: dict[int, Case] = {}  # the 256^3 inputs a depth
+            for s, bj, cr in shapes(name, big, args.built):
+                line = {"scene": name, "dtype": dtype, "n": args.n, "s": s, "bj": bj, "cr": cr, "card": card}
+                check = make_case(small, name, s, bj, cr, dev, rng)
+                if check.plan.smem_bytes + check.plan.dft_smem_bytes(1) > stream_plan.SMEM_PER_BLOCK:
+                    emit({**line, "skipped": "shared memory"})
+                    continue
+                got = check.run(check.outputs())
+                want = check.plain()
+                torch.cuda.synchronize(dev)
+                err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+                ok = ok and err == 0.0
+                del check, got, want
+                if s not in cases:
+                    cases.clear()
+                    torch.cuda.empty_cache()
+                    cases[s] = make_case(big, name, s, bj, cr, dev, rng)
+                plan = stream_plan.plan_for(big, s, lossy, het, sar, ade=ade, bj=bj, dft=cfg, cr=cr)
+                case = dataclasses.replace(cases[s], plan=plan)
+                outs = case.outputs()
+                line["picked"] = (s, bj, cr) == (picked.s, picked.bj, picked.cr)
+                if parent is not None and line["picked"]:
+                    # the parent's design of the same variant, in turns with this one
+                    pplan, prun = parent_run(parent, big, name, dev, rng)
+                    first = event_ms(prun, args.reps)
+                    ms = (event_ms(lambda: case.run(outs), args.reps) + event_ms(lambda: case.run(outs), args.reps)) / 2
+                    pms = (first + event_ms(prun, args.reps)) / 2
+                    line["parent"] = {"s": pplan.s, "bj": pplan.bj, "blocks": pplan.blocks,
+                                      "waves": pplan.blocks / stream_plan.SM_COUNT, "ms_per_sweep": pms,
+                                      "ms_per_step": pms / pplan.s}
+                    line["speedup_per_step"] = (pms / pplan.s) / (ms / s)
+                    del prun
+                else:
+                    ms = event_ms(lambda: case.run(outs), args.reps)
+                reg, spill = regs.get((dtype, s, bj, cr, plan.lossy, plan.het, plan.sar, plan.ade, plan.dft, False),
+                                      (None, None))
+                bound = bound_ms(case)
+                line.update({
+                    "kernel": plan.kernel, "threads": plan.threads, "tile": [plan.tk, plan.tj, plan.ti],
+                    "blocks": plan.blocks, "waves": plan.waves, "ms_per_sweep": ms, "ms_per_step": ms / s,
+                    "bound_ms": bound, "bound_share": bound / ms,
+                    "modelled_bytes_per_cell_step": plan.bytes_per_cell_step, "registers": reg,
+                    "spill_store_bytes": spill, "smem_bytes": plan.smem_bytes + plan.dft_smem_bytes(1),
+                    "max_abs_err": err, "built": (s, bj, cr) in built_shapes(name, big),
+                })
+                emit(line)
+                del case, outs
+            del cases
+            torch.cuda.empty_cache()
+    if sink:
+        sink.close()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

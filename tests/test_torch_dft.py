@@ -176,7 +176,8 @@ def _port_chunk(p, mats, backend, steps, cfg, sar=False, pml=None):
 
 @pytest.mark.parametrize("lossy_sar", [False, True])
 def test_plain_k3_bands_match_interpret_stream_dft(lossy_sar):
-    p = _box(12, 22)
+    n = 23  # an odd count: the port's sweeps (s = 4 vacuum, 2 lossy + SAR) leave trailing steps
+    p = _box(12, n)
     jm = j_water_block(p) if lossy_sar else None
     jcfg = jdft.DftConfig((p.source.frequency, 1.5e10))
     want = j_run(p, materials=jm, write_snapshots=False, backend="pallas_stream", dft=jcfg,
@@ -184,9 +185,9 @@ def test_plain_k3_bands_match_interpret_stream_dft(lossy_sar):
     tp = convert.params_from(p)
     cfg = dft.DftConfig(jcfg.frequencies)
     plan = stream_plan.pick_plan(tp, lossy=lossy_sar, sar=lossy_sar, dft=cfg)
-    assert 22 % plan.s  # trailing two-pass steps with dft_accum
-    s, power, _, _, sums = _port_chunk(tp, convert.materials_from(jm) if jm else None, "stream", 22, cfg, lossy_sar)
-    got = dft.finalize(cfg, sums, 22)
+    assert n % plan.s  # trailing two-pass steps with dft_accum
+    s, power, _, _, sums = _port_chunk(tp, convert.materials_from(jm) if jm else None, "stream", n, cfg, lossy_sar)
+    got = dft.finalize(cfg, sums, n)
     scale = float(np.abs(want.dft.phasors).max())
     np.testing.assert_allclose(got.phasors, want.dft.phasors, rtol=0, atol=1e-6 * scale)
     for c in COMPONENTS:
@@ -254,7 +255,7 @@ def test_dft_plans_and_the_shared_memory_limit():
     p = convert.params_from(_box(256, 4))
     one, two, three = (dft.DftConfig(tuple(1e9 * (k + 1) for k in range(n))) for n in (1, 2, 3))
     heat = stream_plan.pick_plan(p, lossy=True, sar=True, dft=one)
-    assert (heat.s, heat.bj, heat.kernel, heat.dft_max_nf) == (4, 24, "yee_stream_lossy_sar_dft", 2)
+    assert (heat.s, heat.bj, heat.cr, heat.kernel, heat.dft_max_nf) == (2, 24, True, "yee_stream_lossy_sar_dft", 3)
     assert heat.tj == heat.bj - 2 * heat.s - 1  # the cell means: one column fewer
     assert heat.smem_bytes + heat.dft_smem_bytes(2) <= stream_plan.SMEM_PER_BLOCK
     assert stream_plan.pick_plan(p, dft=two).kernel == "yee_stream_dft"

@@ -61,7 +61,7 @@ from fdtd_tpu.runner import run_simulation as j_run  # noqa: E402
 from fdtd_tpu.step import backend_adapters  # noqa: E402
 from fdtd_tpu.step import scan_inputs as j_scan_inputs  # noqa: E402
 from fdtd_tpu.step import zero_power_acc as j_zero_power_acc  # noqa: E402
-from fdtd_tpu_torch import cli, convert, diagnostics, grid, profile_chunk, runner, tune_ade  # noqa: E402
+from fdtd_tpu_torch import cli, convert, diagnostics, grid, profile_chunk, runner, tune_stream  # noqa: E402
 from fdtd_tpu_torch import state as tstate  # noqa: E402
 from fdtd_tpu_torch import step as tstep  # noqa: E402
 from fdtd_tpu_torch.ops import cpml, stream, stream_plan, yee  # noqa: E402
@@ -354,8 +354,8 @@ def test_plain_sweep_is_torch_steps(s, sar):
 @pytest.mark.parametrize("sar", [False, True])
 def test_stream_and_twopass_equal_torch(sar):
     """fp32: 23 steps of stream (its sweeps and the trailing two-pass
-    steps: s = 4 without SAR, s = 2 with it) and of twopass give torch's
-    fields, P (and SAR map)."""
+    step: s = 2 with and without SAR) and of twopass give torch's fields,
+    P (and SAR map)."""
     tp, dm = _debye_scene()
     jp_like = _box(10, 23)
     init, pol0 = _updated_fields(tp, 66, dm)
@@ -368,7 +368,7 @@ def test_stream_and_twopass_equal_torch(sar):
         run(st, tstep.scan_inputs(tp, time_values(jp_like)[:23]), power, None, pol)
         out[backend] = (st, pol, power)
         if backend == "stream":
-            assert run.plan.s == (2 if sar else 4) and 23 % run.plan.s
+            assert run.plan.s == 2 and 23 % run.plan.s
     assert not sar or float(out["torch"][2].abs().max()) > 0
     for key in ("twopass", "stream"):
         for c in COMPONENTS:
@@ -406,7 +406,7 @@ def test_runner_needs_pol_and_sweep_checks_its_variant():
         stream.sweep(tp, st, out, tstate.update_coefs(tp), stream_plan.plan_for(tp, 4), dc=dc, pol=pol,
                      pol_out=pol.clone())
     with pytest.raises(ValueError, match="pol and pol_out"):
-        stream.sweep(tp, st, out, tstate.update_coefs(tp), stream_plan.plan_for(tp, 4, ade=True), dc=dc)
+        stream.sweep(tp, st, out, tstate.update_coefs(tp), stream_plan.plan_for(tp, 2, ade=True), dc=dc)
     with pytest.raises(ValueError, match="torch ADE\\+CPML"):
         tstep.make_step(tp, "cpu", dm, backend="twopass", pml=cpml.PMLConfig(cells=2))
 
@@ -670,34 +670,41 @@ def test_ade_plans():
 
 
 def test_tune_ade_reads_ptxas_and_plans_its_candidates():
-    """The depth tuner's ptxas parser keeps the ADE sweep entries only, and
-    every candidate shape (the built ones among them) has a plan."""
+    """The sweep tuner (``tune_stream``, which took over the ADE tuner's
+    candidates) keeps the ring_kernel entries of a ptxas log, and every ADE
+    candidate shape (the built ones among them) has a plan."""
     log = "\n".join([
-        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_113stream_kernelIfLi4ELi24ELb0ELb0ELb1ELb0ELb1EEEvNS_"
-        "6FieldsIT_EE' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN4_GLOBAL__N_113stream_kernelIfLi4ELi24ELb0ELb0ELb1ELb0ELb1EEEv",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_111ring_kernelIfLi2ELi24ELb1ELb0ELb0ELb1ELb1ELb0"
+        "ELb0EEEvNS_6FieldsIT_EE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN4_GLOBAL__N_111ring_kernelIfLi2ELi24ELb1ELb0ELb0ELb1ELb1ELb0ELb0EEEv",
         "    0 bytes stack frame, 164 bytes spill stores, 164 bytes spill loads",
         "ptxas info    : Used 80 registers, used 1 barriers, 44032 bytes smem",
-        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_113stream_kernelI13__nv_bfloat16Li2ELi32ELb0ELb0ELb0ELb0"
-        "ELb1EEEv' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_111ring_kernelI13__nv_bfloat16Li2ELi32ELb0ELb0"
+        "ELb0ELb0ELb1ELb0ELb0EEEv' for 'sm_90a'",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 64 registers, used 1 barriers",
-        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_113stream_kernelIfLi4ELi24ELb1ELb0ELb1ELb0ELb0EEEv' for "
-        "'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_113stream_kernelIfLi2ELi24ELb1ELb0EEEv'"
+        " for 'sm_90a'",
         "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Used 80 registers, used 1 barriers",
     ])
-    assert tune_ade.ptxas_report(log) == {("float32", True, 4, 24): (80, 164), ("bfloat16", False, 2, 32): (64, 0)}
-    built = set(stream_plan.BLOCK_J_ADE.items()) | set(stream_plan.BLOCK_J_ADE_SAR.items())
-    assert built <= set(tune_ade.CANDIDATES)
+    assert tune_stream.ptxas_report(log) == {
+        ("float32", 2, 24, True, False, False, True, True, False, False): (80, 164),
+        ("bfloat16", 2, 32, False, False, False, False, True, False, False): (64, 0)}
     p = _cube(256)
-    for s, bj in tune_ade.CANDIDATES:
-        for sar in (False, True):
-            plan = stream_plan.plan_for(p, s, sar=sar, ade=True, bj=bj)
-            assert (plan.s, plan.bj, plan.tj, plan.ti) == (s, bj, bj - 2 * s - sar, 32 - 2 * s - sar)
+    for sar in (False, True):
+        fam = "ade_sar" if sar else "ade"
+        built = set(tune_stream.built_shapes("dispersive_sar" if sar else "dispersive", p))
+        table = stream_plan.BLOCK_J_ADE_SAR if sar else stream_plan.BLOCK_J_ADE
+        assert {(s, bj) for s, bj, _ in built} == set(table.items())
+        assert built <= set(tune_stream.shapes("dispersive_sar" if sar else "dispersive", p, False))
+        for s, bj, cr in tune_stream.CANDIDATES[fam]:
+            plan = stream_plan.plan_for(p, s, sar=sar, ade=True, bj=bj, cr=cr)
+            assert (plan.s, plan.bj, plan.cr) == (s, bj, cr)
+            assert (plan.tj, plan.ti) == (bj - 2 * s - sar, 32 - 2 * s - sar)
             assert plan.kernel == ("yee_stream_ade_sar" if sar else "yee_stream_ade") and plan.blocks > 0
-    assert stream_plan.plan_for(p, 4, ade=True) == stream_plan.plan_for(p, 4, ade=True, bj=24)
-
+            assert plan.smem_bytes <= stream_plan.SMEM_PER_BLOCK
+    assert stream_plan.plan_for(p, 2, ade=True) == stream_plan.plan_for(p, 2, ade=True, bj=24, cr=True)
 
 def test_convert_debye_and_pol():
     jp = _box(8, 2, dtype="bfloat16")
@@ -719,10 +726,28 @@ def test_profile_groups_the_ade_kernels():
     assert profile_chunk._group("void (anonymous namespace)::ade_e_kernel<__nv_bfloat16, false>(x)") == \
         "yee_update_e_ade"
     assert profile_chunk._group(
-        "void (anonymous namespace)::stream_kernel<float, 4, 24, false, false, true, false, true>(x)") == \
+        "void (anonymous namespace)::ring_kernel<float, 2, 16, true, false, false, true, true, false, false>(x)") == \
         "yee_stream_ade_sar"
     assert profile_chunk._group(
-        "void (anonymous namespace)::stream_kernel<float, 4, 24, true, false, true, false, false>(x)") == \
+        "void (anonymous namespace)::ring_kernel<float, 4, 24, true, true, false, true, false, false, false>(x)") == \
         "yee_stream_lossy_sar"
     assert "dispersive" in profile_chunk.SCENES
     assert grid.COMPONENTS == tuple(COMPONENTS) or list(grid.COMPONENTS) == COMPONENTS
+
+
+def test_profile_groups_the_ring_kernels():
+    """ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX> and the CPML
+    sweep's stream_kernel<T, S, BJ, LOSSY, DFT> map to their variants' launch
+    counters."""
+    g = profile_chunk._group
+    assert g("void (anonymous namespace)::ring_kernel<float, 2, 16, true, false, false, true, true, false, false>(x)"
+             ) == "yee_stream_ade_sar"
+    assert g("void (anonymous namespace)::ring_kernel<float, 4, 24, true, true, false, true, false, false, false>(x)"
+             ) == "yee_stream_lossy_sar"
+    assert g("void (anonymous namespace)::ring_kernel<__nv_bfloat16, 4, 32, false, false, false, false, false, "
+             "false, true>(x)") == "yee_stream_shard"
+    assert g("void (anonymous namespace)::ring_kernel<float, 2, 24, true, true, true, true, false, true, true>(x)"
+             ) == "yee_stream_lossy_het_sar_dft_shard"
+    assert g("void (anonymous namespace)::stream_kernel<float, 2, 24, false, false>(x)") == "yee_stream_pml"
+    assert g("void (anonymous namespace)::stream_kernel<__nv_bfloat16, 2, 24, true, true>(x)"
+             ) == "yee_stream_lossy_pml_dft"

@@ -32,7 +32,9 @@ from fdtd_tpu.step import scan_inputs as j_scan_inputs  # noqa: E402
 from fdtd_tpu_torch import cli, convert, runner  # noqa: E402
 from fdtd_tpu_torch import state as tstate  # noqa: E402
 from fdtd_tpu_torch import step as tstep  # noqa: E402
+from fdtd_tpu_torch.dft import DftConfig  # noqa: E402
 from fdtd_tpu_torch.ops import build, stream, stream_plan  # noqa: E402
+from fdtd_tpu_torch.ops.cpml import PMLConfig  # noqa: E402
 from fdtd_tpu_torch.params import Params  # noqa: E402
 from fdtd_tpu_torch.source import (apply_source, make_source_plan, profile_tensor,  # noqa: E402
                                    sweep_drive_rows)
@@ -203,8 +205,120 @@ def test_plan_is_feasible_and_covers_the_grid(n, dtype):
     assert plan.threads <= 1024 and plan.smem_bytes <= stream_plan.SMEM_PER_BLOCK
     assert plan.bytes_per_cell_step == min(
         stream_plan.plan_for(p, s).bytes_per_cell_step for s in stream_plan.STEPS)
-    if n >= 256:
-        assert plan.blocks >= stream_plan.SM_COUNT
+    if n >= 256:  # the segment count whose waves take the fewest steps an SM (121 whole tiles: one wave)
+        assert plan.tk == stream_plan.pick_tk(K1, plan.nj * plan.ni, plan.s, 0)
+        assert plan.blocks >= stream_plan.SM_COUNT or plan.nk == 1
+
+
+# every built variant of ring_kernel (the CPML sweep is stream_kernel's):
+# (lossy, het, sar, ade, dft) with its built depths
+_RING_VARIANTS = [v[:3] + v[4:] for v in stream_plan.VARIANTS if not v[3]]
+
+
+def _built_plans(p, window=None):
+    """Every built ring_kernel plan of ``p`` (each variant at each built
+    depth; the DFT variants at nf = 1)."""
+    cfg = DftConfig((1e9,))
+    for lossy, het, sar, ade, dft in _RING_VARIANTS:
+        table = stream_plan._block_j(lossy or het or sar, False, ade, sar, dft)
+        for s in table:
+            yield stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg if dft else None, window=window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [10, 50, 256, 1024])
+def test_ring_grid_fills_whole_waves_and_walks_every_tile_plane_once(n, dtype):
+    """A ring_kernel grid's segments cover every (tile, plane) exactly once,
+    and its segment depth is the one whose waves take the fewest pipeline
+    steps an SM (a last wave half full costs a whole wave): no other split
+    into segments at least 2s deep does better."""
+    p = _cube(n, dtype)
+    K1 = p.padded_shape[0]
+    for plan in _built_plans(p):
+        tiles, sh = plan.nj * plan.ni, int(plan.means)
+        seen = np.zeros((tiles, K1), np.int32)
+        for tile, k0, k1 in stream_plan.segments(plan.nj, plan.ni, K1, plan.tk):
+            assert 0 <= k0 < k1 <= K1
+            seen[tile, k0:k1] += 1
+        assert (seen == 1).all(), plan
+        assert plan.blocks == len(stream_plan.segments(plan.nj, plan.ni, K1, plan.tk)) == plan.nk * tiles
+        assert plan.waves == plan.blocks / stream_plan.SM_COUNT
+
+        def steps(tk):
+            return -(-(-(-K1 // tk) * tiles) // stream_plan.SM_COUNT) * (tk + 2 * plan.s + sh)
+
+        best = min(steps(-(-K1 // nk)) for nk in range(1, max(1, K1 // (2 * plan.s)) + 1))
+        assert steps(plan.tk) == best and (plan.tk >= 2 * plan.s or plan.nk == 1)
+        if n == 256 and not plan.lossy and not plan.ade and not plan.dft and plan.s == 4:
+            assert (plan.blocks, plan.nk) == (121, 1)  # vacuum: one wave of whole tiles (121 of 132 SMs)
+
+
+def test_segments_mirror_the_kernel_walk():
+    """Block b advances the tk planes of segment b // tiles of tile b %
+    tiles: the blocks of a wave walk neighbouring tiles' planes together."""
+    assert stream_plan.segments(1, 2, 5, 3) == [(0, 0, 3), (1, 0, 3), (0, 3, 5), (1, 3, 5)]
+    assert stream_plan.segments(2, 1, 4, 4) == [(0, 0, 4), (1, 0, 4)]
+    assert stream_plan.pick_tk(257, 121, 4, 0) == 257  # 121 whole tiles: one wave
+    assert stream_plan.pick_tk(257, 216, 4, 1) == 86  # 648 blocks: 5 waves of 95 steps beat 2 of 266
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_plans_fit_shared_memory(dtype):
+    """Every built shape's static buffers, ring and DFT sums (at the most
+    frequencies it takes) fit a block's 227 KB, at 256^3 and on a shard's
+    window."""
+    p = _cube(256, dtype)
+    for window in (None, (65, 257, 257)):
+        for plan in _built_plans(p, window):
+            nf = max(plan.dft_max_nf, 1) if plan.dft else 0
+            assert plan.smem_bytes + plan.dft_smem_bytes(nf) <= stream_plan.SMEM_PER_BLOCK, plan
+            assert plan.threads <= 1024
+            coefs = (19 if plan.sar else 15) if plan.ade else 6 + 3 * plan.het + 2 * plan.sar
+            words = (9 if plan.ade else 6) + ((plan.s + 1) * coefs if plan.cr else 0)
+            assert plan.ring_words == words
+            exchange = 4 * plan.threads + (3 * plan.threads if plan.means else plan.bi)
+            assert plan.smem_bytes == 4 * (exchange + plan.threads * words)
+
+
+def test_dft_max_nf_keeps_the_frequency_counts():
+    """The ring takes shared memory the DFT sums used: the bands still take
+    at least two frequencies on the vacuum, material and shard sweeps (and
+    the Debye sweep without SAR), three on the Debye SAR sweep, five on the
+    CPML sweep, so no --dft scene that streamed leaves for twopass."""
+    p = _cube(256, "float32")
+    cfg = DftConfig((1e9,))
+    for lossy, het, sar, ade, dft in _RING_VARIANTS:
+        if not dft:
+            continue
+        for window in ((None,) if ade else (None, (65, 257, 257))):
+            s = stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, ade=ade, dft=cfg).s
+            plan = stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg, window=window)
+            assert plan.dft_max_nf >= (3 if ade and sar else 2), plan
+    assert stream_plan.pick_plan(p, pml=PMLConfig(cells=10), dft=cfg).dft_max_nf == 5
+    two = DftConfig((1e9, 2e9))
+    for lossy, het, sar in ((False, False, False), (True, False, False), (True, False, True), (True, True, True)):
+        assert stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, dft=two) is not None
+    assert stream_plan.pick_plan(p, sar=True, ade=True, dft=DftConfig((1e9, 2e9, 3e9))) is not None
+
+
+def test_bytes_model_counts_the_lead_in_and_the_halo():
+    """bytes_per_cell_step of the vacuum s = 4 sweep (1024 threads emitting
+    24 x 24 columns: the six fields read 1024/576 times, written once),
+    against planes counted by hand: one segment a tile at 256^3 loads the
+    257 planes once; at 47^3 (48 planes, six 8-plane segments) a tile
+    loads 12 + 4 * 16 + 12 = 88 planes, each segment's 4 lead-in planes and
+    4 past it clamped at the walls; a 65-plane shard window loads its 4
+    halo planes on each side, 73."""
+    amp_ji = 1024 / 576
+    big = stream_plan.plan_for(_cube(256, "float32"), 4)
+    assert (big.tk, big.nk, big.tj, big.ti) == (257, 1, 24, 24)
+    assert big.bytes_per_cell_step == pytest.approx((24 * amp_ji + 24) / 4, rel=1e-12)  # 50/3
+    small = stream_plan.plan_for(_cube(47, "float32"), 4)
+    assert (small.tk, small.nk, small.nj, small.ni) == (8, 6, 2, 2)
+    assert small.bytes_per_cell_step == pytest.approx((24 * amp_ji * 88 / 48 + 24) / 4, rel=1e-12)  # 230/9
+    slab = stream_plan.plan_for(_cube(256, "float32"), 4, window=(65, 257, 257))
+    assert (slab.tk, slab.nk) == (65, 1)
+    assert slab.bytes_per_cell_step == pytest.approx((24 * amp_ji * 73 / 65 + 24) / 4, rel=1e-12)
 
 
 def test_plan_refuses_what_does_not_fit():
