@@ -63,25 +63,19 @@
 // CPML.  psi is the slab-restricted layout of fdtd_tpu_torch/ops/cpml.py
 // (twelve arrays, each its target's update region with 2n rows along its
 // PML axis).  The recursion psi^m = b psi^(m-1) + c d^m is pointwise, so
-// psi moves through the levels like a field, in a register shift chain:
-// level m reads level m-1's psi of its plane k (the value from the previous
-// pipeline step, as eo/ho are; level 1 reads the input psi from memory, so
-// no level-0 psi is carried) and level S stores the emitted cells'.  Each level keeps all twelve
-// terms of its column's newest plane (zero outside a term's slabs).  d^m is
-// the curl's own difference of level m's inputs (the sourced views for
-// m >= 2), and per target the adds follow ops/cpml.py::_TERMS (curl, j/i
-// term(s), k term), each rounded; on the source patch the Hx/Hz adds are
-// skipped while their recursions run (the hard-set wins, as in the
-// two-pass kernels).  Halo columns and lead-in planes recompute psi and
-// never store it.  A neighbouring block's halo reads level-0 psi of cells
-// this block writes, so a sweep reads one psi set and writes a second.
-// Its bytes are the slab volume read and written once a sweep (12 * 2n / N
-// of the state's), so the CPML sweep is bound by per-thread work and
-// registers, not bytes: a per-column mask of the terms a column can hold
-// and a near-k-wall test let interior cells skip the psi arithmetic, and
-// it is built at s = 2 alone, whose 768-thread block fits 80 registers
-// without spills (deeper sweeps spilled and ran slower:
-// ops/stream_plan.py::BLOCK_J_PML).
+// psi moves through the levels like a field: level m reads level m-1's psi
+// of its plane k (the value from the previous pipeline step, as eo/ho are)
+// and level S stores the emitted cells'.  d^m is the curl's own difference
+// of level m's inputs (the sourced views for m >= 2), and per target the
+// adds follow ops/cpml.py::_TERMS (curl, j/i term(s), k term), each
+// rounded; on the source patch the Hx/Hz adds are skipped while their
+// recursions run (the hard-set wins, as in the two-pass kernels).  Halo
+// columns and lead-in planes recompute psi and never store it.  A
+// neighbouring block's halo reads level-0 psi of cells this block writes,
+// so a sweep reads one psi set and writes a second.  Where no term has psi
+// the arithmetic is the vacuum (or lossy) sweep's, in its order, so a
+// block whose recompute region holds no psi may run K3's code: see "The
+// CPML sweep on the Hopper core" below.
 //
 // ADE (Debye media).  The E update of level m on plane k is the ADE update
 // of yee_twopass.cu::ade_e_kernel: E' = ((ca*E + cb*curl) + cp*P) and
@@ -146,14 +140,14 @@
 // 24 B of ca/cb reads per cell per sweep (fp32), het-mu 12 B of hf, SAR
 // 4 B of sigma and 8 B of accumulator read and write.
 //
-// Two kernels carry the design above.  stream_kernel, the first version,
-// runs the CPML sweep (K11: vacuum or lossy, with or without the DFT
-// bands) alone: plain per-thread loads at the top of each pipeline step,
-// coefficients read from memory at every level, a grid of tk-plane k
-// segments, two block-wide exchanges per level.
+// Two kernels carry the design above: ring_kernel (K3, every variant, and
+// K12) and pml_kernel (the shell of the CPML sweep, K11), both on the
+// Hopper core below.
 //
-// The Hopper core (ring_kernel: K3, every variant, and K12).  Bytes did
-// not bind the first version: at 256^3 its own traffic model needed
+// The Hopper core.  Bytes did not bind the sweep's first version (plain
+// per-thread loads at the top of each pipeline step, coefficients read
+// from memory at every level, a grid of tk-plane k segments, two
+// block-wide exchanges per level): at 256^3 its own traffic model needed
 // 23-38% of the time it took.  One 768-1024-thread block fills an SM and
 // drains at every barrier, so whatever a thread waits for, the SM waits
 // for.  The core does four things about it:
@@ -207,6 +201,36 @@
 // fields loaded two planes ahead (0.92-1.04x: one plane hides the loads).
 // The rest is the first version's arithmetic, in its order, so the results
 // are its results bit for bit.
+//
+// The CPML sweep on the Hopper core (K11; ops/stream_plan.py::pml_blocks).
+// psi's bytes are the slab volume read and written once a sweep (63 MB at
+// 256^3 fp32 with 10-cell walls, 0.04 ms at the card's rate), so work and
+// registers bind the CPML sweep, and the first version paid for psi in
+// every cell: twelve psi a level in registers at 768 threads (s = 4 and 8
+// spilled), per-term index work at every level, plane and term.  Most
+// cells hold none.  A sweep is two launches over disjoint emitted windows:
+//  - the interior window, whose blocks' recompute regions (the tile with
+//    its s-column halo, s + 1 with the DFT cell means, and the segment with
+//    its lead-in and tail planes) hold no psi, runs ring_kernel's box
+//    instantiation of the variant without CPML: K3's arithmetic, which is
+//    the CPML arithmetic there, so the bits are the same;
+//  - the six boxes around it (the k slabs, the j slabs between them, the i
+//    slabs between those; the j and i slabs a whole tile wide) run
+//    pml_kernel from a block list, each entry a block's planes and emitted
+//    columns.
+// pml_kernel is the core above with psi: level 0's twelve psi of the plane
+// level 1 reads next ride the ring (copied with the next plane's fields,
+// only the terms the column holds there), levels 1..S-1 keep theirs in
+// registers (S = 2: twelve), the (b, c) tables sit in shared memory as
+// one pair a term and row, and a per-column mask of the terms a column can
+// hold, anded once a plane with the terms whose k range admits it, gates
+// every term's work.  Measured at 256^3 fp32 (PERF.md): 0.83 ms a
+// sweep against the first version's 1.46, the shell 62% of it at about
+// 2.2x the interior's time a thread and step.  One launch of pml_kernel on
+// every block, the psi work skipped by a block-uniform flag where a block's
+// region holds none, measured 1.16 (its psi-free blocks ran about 2.2x K3's
+// time), and the shell at 640, 512 or 1024 threads, or at s = 4, ran
+// slower: dropped.
 //
 // Numerics: every operation is an explicitly rounded __fsub_rn / __fmul_rn /
 // __fadd_rn in the order of ops/curl.py, built with -fmad=false, so fp32 is
@@ -292,34 +316,22 @@ __device__ __forceinline__ bool psi_column(int t, int j, int i, int K, int J, in
     return true;
 }
 
-// term t at cell (k, j, i) of a column that psi_column admits: its slab row
-// (-1 where the term has no psi: outside its region's k range, or between
-// the k slabs of a k-axis term) and the offset of the cell in its array
-__device__ __forceinline__ int psi_cell(int t, int k, int j, int i, int K, int J, int I, int n,
-                                        int64_t* off) {
+// term t's slab row at cell (k, j, i) of its region: along its PML axis,
+// -1 between the slabs
+__device__ __forceinline__ int psi_row(int t, int k, int j, int i, int K, int J, int I, int n) {
     const TermRegion g = term_region(t, K, J, I);
-    const int lk = k - g.k0, lj = j - g.j0, li = i - g.i0;
-    if (lk < 0 || lk >= g.Lk) return -1;
-    const int w = 2 * n;
-    int row;
-    if (g.axis == 0) {
-        row = slab_row(lk, g.Lk, n);
-        *off = ((int64_t)row * g.Lj + lj) * g.Li + li;
-    } else if (g.axis == 1) {
-        row = slab_row(lj, g.Lj, n);
-        *off = ((int64_t)lk * w + row) * g.Li + li;
-    } else {
-        row = slab_row(li, g.Li, n);
-        *off = ((int64_t)lk * g.Lj + lj) * w + row;
-    }
-    return row;
+    return g.axis == 0 ? slab_row(k - g.k0, g.Lk, n)
+                       : g.axis == 1 ? slab_row(j - g.j0, g.Lj, n) : slab_row(i - g.i0, g.Li, n);
 }
 
-// whether term t of a column with bits `cols` may have psi on plane k:
-// near_k says k is near a k wall (within every k-axis term's slab reach)
-__device__ __forceinline__ bool psi_may(int t, unsigned cols, bool near_k) {
-    const bool k_axis = t == 1 || t == 3 || t == 7 || t == 9;
-    return ((cols >> t) & 1u) && (!k_axis || near_k);
+// the offset of that cell (slab row `row`) in term t's array: 32-bit, as
+// the wrapper checks every psi array holds fewer than 2^31 elements
+__device__ __forceinline__ int psi_offset(int t, int k, int j, int i, int K, int J, int I, int n, int row) {
+    const TermRegion g = term_region(t, K, J, I);
+    const int lk = k - g.k0, lj = j - g.j0, li = i - g.i0;
+    if (g.axis == 0) return (row * g.Lj + lj) * g.Li + li;
+    if (g.axis == 1) return (lk * 2 * n + row) * g.Li + li;
+    return (lk * g.Lj + lj) * 2 * n + row;
 }
 
 constexpr int BI = 32;  // threads along i: one warp
@@ -371,29 +383,6 @@ struct PsiSweep {
     int n;            // slab depth in cells
 };
 
-// term t's psi update at cell (k, j, i): psn <- b*pso + c*d where the term
-// has psi there (table: the (6, 2, 2n) (b, c) of t's pass), and the field
-// v <- v +- f * psn when `add`; returns v.  Columns and planes that hold
-// no psi of t skip the index arithmetic (cols, near_k: see psi_may).
-template <typename T>
-__device__ __forceinline__ float psi_term(const PsiSweep<T>& psw, int t, int k, int j, int i, int K, int J,
-                                          int I, unsigned cols, bool near_k, int sign, float v, float f,
-                                          float d, float pso, float& psn, bool add) {
-    if (!psi_may(t, cols, near_k)) return v;
-    int64_t off;
-    const int row = psi_cell(t, k, j, i, K, J, I, psw.n, &off);
-    if (row < 0) return v;
-    const int64_t w = 2 * psw.n;
-    const T* tab = psw.tab[t / 6];
-    const int tt = t % 6;
-    const float b = ld(tab, 2 * tt * w + row);
-    const float c = ld(tab, (2 * tt + 1) * w + row);
-    psn = __fadd_rn(__fmul_rn(b, pso), __fmul_rn(c, d));
-    if (!add) return v;
-    const float corr = __fmul_rn(f, psn);
-    return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
-}
-
 // the DFT variants' sums and weights: re, im (nf, nc, K, J, I) fp32, updated
 // in place (components 0..2); w: the sweep's (S, 2, nf) fp32 rows
 struct DftSweep {
@@ -415,326 +404,6 @@ struct Box {
     int wk0, wk1, wj0, wj1, wi0, wi1;
     int ck0, cj0, ci0, cnk, cnj, cni;
 };
-
-// stream_kernel: the CPML sweep (K11), vacuum or lossy, with or without the
-// DFT bands, on the whole grid (its first design; see "CPML" and "DFT")
-template <typename T, int S, int BJ, bool LOSSY, bool DFT>
-__global__ void __launch_bounds__(BI * BJ, 1)
-stream_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe,
-              int tk, int has_patch, int j0, int j1, int i0, int i1,
-              const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
-              PsiSweep<T> psw, DftSweep dft) {
-    constexpr int SH = DFT ? 1 : 0;  // the cell means read E one column past, so one column fewer is emitted
-    constexpr int TJ = BJ - 2 * S - SH;
-    constexpr int TI = BI - 2 * S - SH;
-    static_assert(TJ >= 1 && TI >= 1, "the block is too small for S steps");
-    __shared__ float sE[3][BJ][BI];
-    __shared__ float sH[3][BJ][BI];
-    // DFT: level m's E on planes k-1 (L) and k (U): exL, exU, eyL, eyU, ezL
-    __shared__ float sS[DFT ? 5 : 1][DFT ? BJ : 1][BI];
-
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int i = (int)blockIdx.x * TI - S + tx;
-    const int j = (int)blockIdx.y * TJ - S + ty;
-    const int k0 = (int)blockIdx.z * tk;
-    const int k1 = min(k0 + tk, K + 1);
-    const int ks = max(k0 - S, 0);
-
-    const int64_t sj = (int64_t)I + 1;
-    const int64_t sk = sj * ((int64_t)J + 1);
-    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J;
-    const int64_t col = !inbox ? 0 : (int64_t)j * sj + i;
-    const bool emit = inbox && tx >= S && tx < S + TI && ty >= S && ty < S + TJ;
-
-    // per-column update bounds (yee_twopass.cu's, without k)
-    const bool c_hx = inbox && j < J;
-    const bool c_hy = inbox && i < I;
-    const bool c_hz = inbox && j < J && i < I;
-    const bool c_ex = inbox && j >= 1 && j < J && i < I;
-    const bool c_ey = inbox && j < J && i >= 1 && i < I;
-    const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
-    const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
-    const int ni = i1 - i0;
-    // DFT: this thread owns the cells of its column that the block emits
-    const bool c_sar = DFT && emit && j < J && i < I;
-    const int64_t cell_col = (int64_t)j * I + i;
-    const int64_t cell_sk = (int64_t)J * I;
-    // DFT: the sums of the S cells in flight, slot (cell % S) of this
-    // thread: sD[((slot * 6 * nf + q) * BJ + ty) * BI + tx], q = 6f + 2c + (0: re, 1: im)
-    extern __shared__ float sD[];
-    constexpr int64_t SLOT_STRIDE = (int64_t)BJ * BI;
-
-    // e[m], h[m]: level m's newest plane of this column (level S: H only,
-    // and with the DFT cell means its E too)
-    constexpr int NE = DFT ? S + 1 : S;
-    float e[NE][3], h[S + 1][3];
-#pragma unroll
-    for (int m = 0; m <= S; ++m) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            if (m < NE) e[m][c] = 0.f;
-            h[m][c] = 0.f;
-        }
-    }
-    // ps[m-1]: the twelve psi of level m's newest plane of this column
-    // (1 <= m < S; level 0's psi is read from psi.in when level 1 needs
-    // it); cols: the terms this column can hold (bit t)
-    float ps[S - 1][12];
-#pragma unroll
-    for (int m = 0; m < S - 1; ++m)
-#pragma unroll
-        for (int t = 0; t < 12; ++t) ps[m][t] = 0.f;
-    unsigned cols = 0;
-#pragma unroll
-    for (int t = 0; t < 12; ++t)
-        if (inbox && psi_column(t, j, i, K, J, I, psw.n)) cols |= 1u << t;
-    const int kn = psw.n;  // planes k <= kn or k >= K - kn are near a k wall
-
-    for (int r = ks; r <= k1 - 1 + S + SH; ++r) {
-        if constexpr (DFT) {
-            // fetch the sums of the cell level 1 starts at this step
-            const int c1 = r - 2;
-            if (c_sar && c1 >= k0 && c1 < k1 && c1 < K) {
-                const int64_t cells = (int64_t)K * cell_sk;
-                float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
-                const int64_t oc1 = (int64_t)c1 * cell_sk + cell_col;
-                for (int f = 0; f < dft.nf; ++f)
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) {
-                        const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc1;
-                        __pipeline_memcpy_async(slot + (6 * f + 2 * c) * SLOT_STRIDE, dft.re + a, 4);
-                        __pipeline_memcpy_async(slot + (6 * f + 2 * c + 1) * SLOT_STRIDE, dft.im + a, 4);
-                    }
-            }
-            __pipeline_commit();
-        }
-        // eo, ho: the inputs of the next level, i.e. the previous level's
-        // plane before this pipeline step replaced it (pso: its psi)
-        float eo[3] = {e[0][0], e[0][1], e[0][2]};
-        float ho[3] = {h[0][0], h[0][1], h[0][2]};
-        float pso[12];
-        {
-            // level 0's psi of plane r - 1, the input of level 1
-            const int kp = r - 1;
-            const bool near_p = kp <= kn || kp >= K - kn;
-#pragma unroll
-            for (int t = 0; t < 12; ++t) {
-                int64_t off;
-                const bool has = kp >= 0 && kp <= K && psi_may(t, cols, near_p)
-                                 && psi_cell(t, kp, j, i, K, J, I, psw.n, &off) >= 0;
-                pso[t] = has ? ld(psw.in[t], off) : 0.f;
-            }
-        }
-        if (inbox && r <= K) {
-            const int64_t o = (int64_t)r * sk + col;
-            e[0][0] = ld(in.ex, o); e[0][1] = ld(in.ey, o); e[0][2] = ld(in.ez, o);
-            h[0][0] = ld(in.hx, o); h[0][1] = ld(in.hy, o); h[0][2] = ld(in.hz, o);
-        } else {
-#pragma unroll
-            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; }
-        }
-#pragma unroll
-        for (int m = 1; m <= S; ++m) {
-            const int k = r - m;
-            const int64_t o = (int64_t)k * sk + col;  // read only where k >= 0 and inbox
-            const bool on_patch = c_patch && k == 0;
-            const bool near_k = k <= kn || k >= K - kn;
-            if (m >= 2 && on_patch) {
-                // step m's hard-set, in level m's inputs only
-                const int64_t d = (int64_t)(m - 2) * ni + (i - i0);
-                eo[0] = 0.f;
-                eo[2] = ld(ez_rows, d);
-                ho[0] = ld(hx_rows, d);
-                ho[2] = 0.f;
-            }
-            // E of level m-1 on plane k, for the +1 neighbour reads
-            sE[0][ty][tx] = eo[0]; sE[1][ty][tx] = eo[1]; sE[2][ty][tx] = eo[2];
-            __syncthreads();
-            const float ex_pj = ty + 1 < BJ ? sE[0][ty + 1][tx] : 0.f;
-            const float ez_pj = ty + 1 < BJ ? sE[2][ty + 1][tx] : 0.f;
-            const float ey_pi = tx + 1 < BI ? sE[1][ty][tx + 1] : 0.f;
-            const float ez_pi = tx + 1 < BI ? sE[2][ty][tx + 1] : 0.f;
-
-            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); the
-            // curl's differences feed the H psi terms
-            const bool kh = k >= 0 && k < K;
-            const bool khz = k >= 0 && k <= K;
-            float hn[3] = {ho[0], ho[1], ho[2]};
-            float psn[12];
-#pragma unroll
-            for (int t = 0; t < 12; ++t) psn[t] = pso[t];
-            if (kh && c_hx) {  // hx_y (-, dEz along j), hx_z (+, dEy along k)
-                const float dk = __fsub_rn(e[m - 1][1], eo[1]), dj = __fsub_rn(ez_pj, eo[2]);
-                float v = __fadd_rn(ho[0], __fmul_rn(fh, __fsub_rn(dk, dj)));
-                v = psi_term(psw, 0, k, j, i, K, J, I, cols, near_k,
-                             -1, v, fh, dj, pso[0], psn[0], !on_patch);
-                v = psi_term(psw, 1, k, j, i, K, J, I, cols, near_k,
-                             +1, v, fh, dk, pso[1], psn[1], !on_patch);
-                if (!on_patch) hn[0] = v;
-            }
-            if (kh && c_hy) {  // hy_x (+, dEz along i), hy_z (-, dEx along k)
-                const float di = __fsub_rn(ez_pi, eo[2]), dk = __fsub_rn(e[m - 1][0], eo[0]);
-                float v = __fadd_rn(ho[1], __fmul_rn(fh, __fsub_rn(di, dk)));
-                v = psi_term(psw, 2, k, j, i, K, J, I, cols, near_k, +1, v, fh, di, pso[2], psn[2], true);
-                hn[1] = psi_term(psw, 3, k, j, i, K, J, I, cols, near_k,
-                                 -1, v, fh, dk, pso[3], psn[3], true);
-            }
-            if (khz && c_hz) {  // hz_y (+, dEx along j), hz_x (-, dEy along i)
-                const float dj = __fsub_rn(ex_pj, eo[0]), di = __fsub_rn(ey_pi, eo[1]);
-                float v = __fadd_rn(ho[2], __fmul_rn(fh, __fsub_rn(dj, di)));
-                v = psi_term(psw, 4, k, j, i, K, J, I, cols, near_k,
-                             +1, v, fh, dj, pso[4], psn[4], !on_patch);
-                v = psi_term(psw, 5, k, j, i, K, J, I, cols, near_k,
-                             -1, v, fh, di, pso[5], psn[5], !on_patch);
-                if (!on_patch) hn[2] = v;
-            }
-
-            sH[0][ty][tx] = hn[0]; sH[1][ty][tx] = hn[1]; sH[2][ty][tx] = hn[2];
-            __syncthreads();
-            const float hx_mj = ty > 0 ? sH[0][ty - 1][tx] : 0.f;
-            const float hz_mj = ty > 0 ? sH[2][ty - 1][tx] : 0.f;
-            const float hy_mi = tx > 0 ? sH[1][ty][tx - 1] : 0.f;
-            const float hz_mi = tx > 0 ? sH[2][ty][tx - 1] : 0.f;
-
-            // E of level m on plane k (Ex, Ey: 1 <= k < K; Ez: k < K);
-            // h[m] still holds level m's H on plane k-1
-            const bool ke = k >= 1 && k < K;
-            const bool kez = k >= 0 && k < K;
-            float en[3] = {eo[0], eo[1], eo[2]};
-            if (LOSSY) {
-                if (ke && c_ex)
-                    en[0] = lossy(eo[0], ld(mat.ca[0], o), ld(mat.cb[0], o), hn[2], hz_mj, hn[1], h[m][1]);
-                if (ke && c_ey)
-                    en[1] = lossy(eo[1], ld(mat.ca[1], o), ld(mat.cb[1], o), hn[0], h[m][0], hn[2], hz_mi);
-                if (kez && c_ez)
-                    en[2] = lossy(eo[2], ld(mat.ca[2], o), ld(mat.cb[2], o), hn[1], hy_mi, hn[0], hx_mj);
-            } else {
-                if (ke && c_ex) en[0] = leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
-                if (ke && c_ey) en[1] = leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
-                if (kez && c_ez) en[2] = leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
-            }
-            // the E psi terms, with the factor of the E update (f or cb)
-            if (ke && c_ex) {  // ex_y (+, dHz along j), ex_z (-, dHy along k)
-                const float f = LOSSY ? ld(mat.cb[0], o) : fe;
-                const float v = psi_term(psw, 6, k, j, i, K, J, I, cols, near_k,
-                                         +1, en[0], f, __fsub_rn(hn[2], hz_mj), pso[6], psn[6], true);
-                en[0] = psi_term(psw, 7, k, j, i, K, J, I, cols, near_k,
-                                 -1, v, f, __fsub_rn(hn[1], h[m][1]), pso[7], psn[7], true);
-            }
-            if (ke && c_ey) {  // ey_x (-, dHz along i), ey_z (+, dHx along k)
-                const float f = LOSSY ? ld(mat.cb[1], o) : fe;
-                const float v = psi_term(psw, 8, k, j, i, K, J, I, cols, near_k,
-                                         -1, en[1], f, __fsub_rn(hn[2], hz_mi), pso[8], psn[8], true);
-                en[1] = psi_term(psw, 9, k, j, i, K, J, I, cols, near_k,
-                                 +1, v, f, __fsub_rn(hn[0], h[m][0]), pso[9], psn[9], true);
-            }
-            if (kez && c_ez) {  // ez_x (+, dHy along i), ez_y (-, dHx along j)
-                const float f = LOSSY ? ld(mat.cb[2], o) : fe;
-                const float v = psi_term(psw, 10, k, j, i, K, J, I, cols, near_k,
-                                         +1, en[2], f, __fsub_rn(hn[1], hy_mi), pso[10], psn[10], true);
-                en[2] = psi_term(psw, 11, k, j, i, K, J, I, cols, near_k,
-                                 -1, v, f, __fsub_rn(hn[0], hx_mj), pso[11], psn[11], true);
-            }
-
-            if constexpr (DFT) {
-                // level m's E on planes k-1 (e[m]) and k (en) for the cell means
-                sS[0][ty][tx] = e[m][0]; sS[1][ty][tx] = en[0];
-                sS[2][ty][tx] = e[m][1]; sS[3][ty][tx] = en[1];
-                sS[4][ty][tx] = e[m][2];
-                __syncthreads();
-                const int cell = k - 1;
-                if (c_sar && cell >= k0 && cell < k1 && cell < K) {
-                    const int64_t oc = (int64_t)cell * cell_sk + cell_col;
-                    const float me[3] = {
-                        mean4(e[m][0], en[0], sS[0][ty + 1][tx], sS[1][ty + 1][tx]),
-                        mean4(e[m][1], sS[2][ty][tx + 1], en[1], sS[3][ty][tx + 1]),
-                        mean4(e[m][2], sS[4][ty + 1][tx], sS[4][ty][tx + 1], sS[4][ty + 1][tx + 1])};
-                    const int64_t cells = (int64_t)K * cell_sk;
-                    const float* wm = dft.w + (int64_t)(m - 1) * 2 * dft.nf;
-                    if (m == 1) __pipeline_wait_prior(0);
-                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * SLOT_STRIDE + ty * BI + tx;
-                    for (int f = 0; f < dft.nf; ++f) {
-                        const float cw = __ldg(wm + f), sw = __ldg(wm + dft.nf + f);
-#pragma unroll
-                        for (int c = 0; c < 3; ++c) {
-                            float* pr = slot + (6 * f + 2 * c) * SLOT_STRIDE;
-                            const float vr = __fadd_rn(pr[0], __fmul_rn(cw, me[c]));
-                            const float vi = __fsub_rn(pr[SLOT_STRIDE], __fmul_rn(sw, me[c]));
-                            if (m == S) {
-                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
-                                dft.re[a] = vr;
-                                dft.im[a] = vi;
-                            } else {
-                                pr[0] = vr;
-                                pr[SLOT_STRIDE] = vi;
-                            }
-                        }
-                    }
-                }
-            }
-
-            if (m < S) {
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    eo[c] = e[m][c];
-                    ho[c] = h[m][c];
-                    e[m][c] = en[c];
-                    h[m][c] = hn[c];
-                }
-#pragma unroll
-                for (int t = 0; t < 12; ++t) {
-                    pso[t] = ps[m - 1][t];
-                    ps[m - 1][t] = psn[t];
-                }
-            } else {
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    h[m][c] = hn[c];
-                    if constexpr (NE > S) e[NE - 1][c] = en[c];
-                }
-                if (emit && k >= k0 && k < k1) {
-                    st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
-                    st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
-#pragma unroll
-                    for (int t = 0; t < 12; ++t) {
-                        int64_t off;
-                        if (psi_may(t, cols, near_k) && psi_cell(t, k, j, i, K, J, I, psw.n, &off) >= 0)
-                            st(psw.out[t], off, psn[t]);
-                    }
-                }
-            }
-        }
-    }
-}
-
-// The CPML sweep at its one built shape (ops/stream_plan.py::BLOCK_J_PML:
-// s = 2, 24 threads along j): a grid of tk-plane segments of every tile
-template <typename T, bool LOSSY, bool DFT>
-int launch_pml(int s, int bj, void* const* in, void* const* out, int K, int J, int I, float fh, float fe, int tk,
-               int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
-               const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft, cudaStream_t stream) {
-    constexpr int S = 2, BJ = 24, SH = DFT ? 1 : 0;
-    constexpr int TJ = BJ - 2 * S - SH;
-    constexpr int TI = BI - 2 * S - SH;
-    if (s != S || bj != BJ) return (int)cudaErrorInvalidValue;
-    const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
-                         (const T*)in[3], (const T*)in[4], (const T*)in[5]};
-    const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
-    const dim3 block(BI, BJ);
-    const dim3 grid((unsigned)((I + 1 + TI - 1) / TI), (unsigned)((J + 1 + TJ - 1) / TJ),
-                    (unsigned)((K + 1 + tk - 1) / tk));
-    size_t dyn = 0;  // the DFT chain: 6 * nf sums of S cells a thread
-    if constexpr (DFT) {
-        dyn = (size_t)S * 6 * dft.nf * BJ * BI * sizeof(float);
-        const cudaError_t e = cudaFuncSetAttribute(stream_kernel<T, S, BJ, LOSSY, DFT>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-        if (e != cudaSuccess) return (int)e;
-    }
-    stream_kernel<T, S, BJ, LOSSY, DFT><<<grid, block, dyn, stream>>>(
-        f_in, f_out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-        (const T*)ez_rows, (const T*)hx_rows, mat, psw, dft);
-    return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The Hopper core of K3 and K12 (ring_kernel; see "The Hopper core" above)
@@ -1279,6 +948,10 @@ int dispatch_ring(int s, int bj, int cr, void* const* in, void* const* out, int 
         } else {
             YEE_RING_CASE(4, 24, false)
         }
+        if constexpr (BOX && !HET && !SAR) {
+            // the interior of a CPML sweep with the bands (BLOCK_J_PML_INTERIOR_DFT)
+            YEE_RING_CASE(2, 24, false)
+        }
     } else if constexpr (!LOSSY) {
 #ifdef YEE_STREAM_CANDIDATES
         YEE_RING_CASE(4, 24, false)
@@ -1299,16 +972,484 @@ int dispatch_ring(int s, int bj, int cr, void* const* in, void* const* out, int 
     return (int)cudaErrorInvalidValue;
 }
 
-// the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 8 CPML, 16 Debye):
-// the nine of ops/stream_plan.py::VARIANTS, with or without the DFT bands;
-// with BOX (a shard) the five of ops/stream_plan.py::SHARD_VARIANTS, with or
-// without the bands.  The CPML variants run stream_kernel (grid of tk-plane
-// segments), every other variant ring_kernel.
+// ---------------------------------------------------------------------------
+// The CPML sweep's shell (pml_kernel: K11; see "The CPML sweep on the
+// Hopper core" above)
+// ---------------------------------------------------------------------------
+
+// The shape of a pml_kernel instantiation: tiles, and the ring's words a
+// thread: the six fields of the next plane, level 0's twelve psi of the
+// plane level 1 reads next, and with CR the lossy ca/cb of the last S + 1
+// planes
+template <int S, int BJ, bool CR, bool LOSSY, bool DFT>
+struct PmlGeom {
+    static constexpr int SH = DFT ? 1 : 0;
+    static constexpr int TJ = BJ - 2 * S - SH;
+    static constexpr int TI = BI - 2 * S - SH;
+    static constexpr int NT = BI * BJ;
+    static constexpr int NC = CR && LOSSY ? 6 : 0;
+    static constexpr int NCS = NC > 0 ? S + 1 : 0;
+    static constexpr int WORDS = (6 + 12 + NCS * NC) * NT;
+};
+
+// A block's entry of the block list, two int4: (k0, k1, j0, j1) and (i0,
+// i1, 0, 0): it advances the planes [k0, k1) of the emitted columns
+// [j0, j1) x [i0, i1) (at most TJ x TI; ops/stream_plan.py::pml_blocks).
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT>
+__global__ void __launch_bounds__(BI * BJ, 1)
+pml_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe, const int4* __restrict__ blocks,
+           int has_patch, int j0, int j1, int i0, int i1, const T* __restrict__ ez_rows,
+           const T* __restrict__ hx_rows, Material<T> mat, PsiSweep<T> psw, DftSweep dft) {
+    using G = PmlGeom<S, BJ, CR, LOSSY, DFT>;
+    constexpr int SH = G::SH, NT = G::NT, NC = G::NC, NCS = G::NCS;
+    static_assert(G::TJ >= 1 && G::TI >= 1, "the block is too small for S steps");
+    static_assert(S >= 2, "the psi chain keeps levels 1..S-1");
+    __shared__ float sE[2][BJ][BI];  // level m-1's Ex, Ez on plane k: the j+1 reads
+    __shared__ float sH[2][BJ][BI];  // level m's Hx, Hz on plane k: the j-1 reads
+    __shared__ float sS[DFT ? 3 : 1][DFT ? BJ : 1][BI];  // DFT: the j+1 reads of the cell means
+    extern __shared__ uint32_t ring[];
+    uint32_t* const rf = ring;            // [6][NT]: the next plane's fields
+    uint32_t* const rp = ring + 6 * NT;   // [12][NT]: level 0's psi of the plane level 1 reads next
+    uint32_t* const rc = ring + 18 * NT;  // [NCS][NC][NT]: ca/cb of planes k % NCS
+    const int n = psw.n, w = 2 * n;
+    // the (b, c) tables of the twelve terms in fp32, one pair a term and
+    // slab row: (b, c) of term t at row q at tab[tw + q]
+    float2* const tab = reinterpret_cast<float2*>(ring + G::WORDS);
+    // DFT: the sums of the S cells in flight, slot (cell % S) of this thread:
+    // sD[(slot * 6 * nf + q) * NT + tid], q = 6f + 2c + (0: re, 1: im)
+    float* const sD = reinterpret_cast<float*>(tab + 12 * w);
+    const T* const tp = nullptr;  // selects word()'s storage type
+
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BI + tx;
+    const int tyn = ty + 1 < BJ ? ty + 1 : ty, tym = ty > 0 ? ty - 1 : ty;  // halo rows read themselves
+    const int4 ba = __ldg(blocks + 2 * blockIdx.x), bb = __ldg(blocks + 2 * blockIdx.x + 1);
+    const int k0 = ba.x, k1 = ba.y;
+    const int i = bb.x - S + tx, j = ba.z - S + ty;
+    const int ks = max(k0 - S, 0);
+    const int rlast = k1 - 1 + S + SH;
+    const int sj = I + 1, sk = sj * (J + 1);
+    const int cell_sk = J * I;
+    const int64_t cells = (int64_t)K * cell_sk;
+    const int ni_patch = i1 - i0;
+
+    const bool inbox = i >= 0 && i <= I && j >= 0 && j <= J;
+    const int col = !inbox ? 0 : j * sj + i;
+    const bool emit = inbox && j >= ba.z && j < ba.w && i >= bb.x && i < bb.y;
+    const bool c_hx = inbox && j < J;
+    const bool c_hy = inbox && i < I;
+    const bool c_hz = inbox && j < J && i < I;
+    const bool c_ex = inbox && j >= 1 && j < J && i < I;
+    const bool c_ey = inbox && j < J && i >= 1 && i < I;
+    const bool c_ez = inbox && j >= 1 && j < J && i >= 1 && i < I;
+    const bool c_patch = has_patch && inbox && j >= j0 && j < j1 && i >= i0 && i < i1;
+    const bool c_sar = DFT && emit && j < J && i < I;
+    const int cell_col = j * I + i;
+    auto fofs = [&](int k) { return (int64_t)k * sk + col; };
+    auto cofs = [&](int c) { return (int64_t)c * cell_sk + cell_col; };
+    const int skp = sk & 1, colp = col & 1;
+    auto fodd = [&](int k) { return (k & skp) ^ colp; };
+    auto owned = [&](int c) { return c_sar && c >= k0 && c < k1 && c < K; };
+
+    // the terms this column can hold psi of (bit t)
+    unsigned cols = 0;
+    if (inbox) {
+#pragma unroll
+        for (int t = 0; t < 12; ++t)
+            if (psi_column(t, j, i, K, J, I, n)) cols |= 1u << t;
+    }
+    // the terms that hold psi at plane k of this column (bit t): the
+    // column's bits of the terms whose region's k range (and, for a k-axis
+    // term, its slabs) admits k, worked out once a plane and level
+    auto holding = [&](int k) {
+        unsigned m = 0;
+#pragma unroll
+        for (int t = 0; t < 12; ++t) {
+            const TermRegion g = term_region(t, K, J, I);
+            if (k >= g.k0 && k < g.k0 + g.Lk && (g.axis != 0 || slab_row(k - g.k0, g.Lk, n) >= 0)) m |= 1u << t;
+        }
+        return cols & m;
+    };
+    for (int q = tid; q < 12 * w; q += NT) {
+        // the pass's (6, 2, 2n) table: b of its term tt at (2tt)w + row, c at (2tt + 1)w + row
+        const T* tb = psw.tab[q / (6 * w)];
+        const int tt = q / w % 6, row = q % w;
+        tab[q] = make_float2(ld(tb, (2 * tt) * w + row), ld(tb, (2 * tt + 1) * w + row));
+    }
+    __syncthreads();
+
+    // the ring: plane q's fields, level 0's psi of plane q, and with CR the
+    // ca/cb of plane q into slot q % NCS.  podd: the parity of each psi
+    // element fetched (which half of a bf16 pair holds it); hnext: the terms
+    // held at the plane fetched (holding(q))
+    unsigned podd = 0, hnext = 0;
+    auto fetch_fields = [&](int q) {
+        if (inbox && q <= K) {
+            const int64_t o = fofs(q);
+            fetch(rf + 0 * NT + tid, in.ex, o); fetch(rf + 1 * NT + tid, in.ey, o);
+            fetch(rf + 2 * NT + tid, in.ez, o); fetch(rf + 3 * NT + tid, in.hx, o);
+            fetch(rf + 4 * NT + tid, in.hy, o); fetch(rf + 5 * NT + tid, in.hz, o);
+        }
+    };
+    auto fetch_psi = [&](int q) {
+        podd = 0;
+        hnext = cols != 0 ? holding(q) : 0u;
+#pragma unroll
+        for (int t = 0; t < 12; ++t)
+            if ((hnext >> t) & 1u) {
+                const int o = psi_offset(t, q, j, i, K, J, I, n, psi_row(t, q, j, i, K, J, I, n));
+                fetch(rp + t * NT + tid, psw.in[t], (int64_t)o);
+                podd |= (unsigned)(o & 1) << t;
+            }
+    };
+    auto fetch_coefs = [&](int q) {
+        if constexpr (NC > 0) {
+            uint32_t* cw = rc + (q % NCS) * NC * NT + tid;
+            if (inbox && q <= K) {
+                const int64_t o = fofs(q);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    fetch(cw + c * NT, mat.ca[c], o);
+                    fetch(cw + (3 + c) * NT, mat.cb[c], o);
+                }
+            }
+        }
+    };
+
+    // e[m], h[m]: level m's newest plane of this column (level S: H only,
+    // and with the DFT cell means its E too); ps[m-1]: the twelve psi of
+    // level m's newest plane (1 <= m < S); hl[m-1]: the terms held at the
+    // plane level m updates at this step (level m-1's at the step before)
+    constexpr int NE = DFT ? S + 1 : S;
+    float e[NE][3], h[S + 1][3];
+    float ps[S - 1][12];
+    unsigned hl[S];
+#pragma unroll
+    for (int m = 0; m < S; ++m) hl[m] = 0u;
+#pragma unroll
+    for (int m = 0; m <= S; ++m) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            if (m < NE) e[m][c] = 0.f;
+            h[m][c] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < S - 1; ++m)
+#pragma unroll
+        for (int t = 0; t < 12; ++t) ps[m][t] = 0.f;
+
+    fetch_fields(ks);
+    fetch_psi(ks - 1);
+    __pipeline_commit();
+    int slot_r = ks % (NCS > 0 ? NCS : 1);  // r % NCS
+    for (int r = ks; r <= rlast; ++r) {
+        // plane r's fields, plane r-1's psi and coefficients have landed
+        __pipeline_wait_prior(0);
+        if constexpr (DFT) {
+            // fetch the sums of the cell level 1 starts at this step
+            const int c1 = r - 2;
+            if (owned(c1)) {
+                float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * NT + tid;
+                const int64_t oc1 = cofs(c1);
+                for (int f = 0; f < dft.nf; ++f)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc1;
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c) * NT, dft.re + a, 4);
+                        __pipeline_memcpy_async(slot + (6 * f + 2 * c + 1) * NT, dft.im + a, 4);
+                    }
+            }
+            __pipeline_commit();
+        }
+        // eo, ho: the inputs of the next level, i.e. the previous level's
+        // plane before this pipeline step replaced it; pso: their psi
+        // (level 1: level 0's of plane r-1, from the ring)
+        float eo[3] = {e[0][0], e[0][1], e[0][2]};
+        float ho[3] = {h[0][0], h[0][1], h[0][2]};
+#pragma unroll
+        for (int m = S - 1; m >= 1; --m) hl[m] = hl[m - 1];
+        hl[0] = hnext;
+        float pso[12];
+#pragma unroll
+        for (int t = 0; t < 12; ++t)
+            pso[t] = ((hl[0] >> t) & 1u) ? word(rp[t * NT + tid], (podd >> t) & 1u, tp) : 0.f;
+        if (inbox && r <= K) {
+            const int odd = fodd(r);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                e[0][c] = word(rf[c * NT + tid], odd, tp);
+                h[0][c] = word(rf[(3 + c) * NT + tid], odd, tp);
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) { e[0][c] = 0.f; h[0][c] = 0.f; }
+        }
+#pragma unroll
+        for (int m = 1; m <= S; ++m) {
+            const int k = r - m;
+            const bool on_patch = c_patch && k == 0;
+            int sl = slot_r - m;  // plane k's coefficient slot
+            if (sl < 0) sl += NCS;
+            const uint32_t* cw = rc + sl * NC * NT + tid;
+            const int kodd = fodd(k);
+            // coefficient a of plane k: from the ring, or from memory
+            auto coef = [&](int a, const T* arr) {
+                if constexpr (NC > 0) return word(cw[a * NT], kodd, tp);
+                else return ld(arr, fofs(k));
+            };
+            if (m >= 2 && on_patch) {
+                // step m's hard-set, in level m's inputs only
+                const int d = (m - 2) * ni_patch + (i - i0);
+                eo[0] = 0.f;
+                eo[2] = ld(ez_rows, d);
+                ho[0] = ld(hx_rows, d);
+                ho[2] = 0.f;
+            }
+            // E of level m-1 on plane k, for the +1 neighbour reads: along
+            // j through shared memory, along i from the next lane
+            sE[0][ty][tx] = eo[0];
+            sE[1][ty][tx] = eo[2];
+            __syncthreads();
+            if (m == 1) {
+                // every thread is past step r-1 and has read plane r-1's
+                // psi: load plane r+1's fields, plane r's psi and
+                // coefficients into the slots it has read
+                if (r + 1 <= rlast) {
+                    fetch_fields(r + 1);
+                    fetch_psi(r);
+                    fetch_coefs(r);
+                }
+                __pipeline_commit();
+            }
+            const float ex_pj = sE[0][tyn][tx];
+            const float ez_pj = sE[1][tyn][tx];
+            const float ey_pi = __shfl_down_sync(FULL, eo[1], 1);
+            const float ez_pi = __shfl_down_sync(FULL, eo[2], 1);
+
+            // term t's psi at this cell, where it holds one: psn <- b*pso +
+            // c*d, and the field v <- v +- f*psn when `add`; returns v
+            const unsigned held = hl[m - 1];
+            float psn[12];
+#pragma unroll
+            for (int t = 0; t < 12; ++t) psn[t] = pso[t];
+            auto term = [&](int t, int sign, float v, float f, float d, bool add) {
+                if (!((held >> t) & 1u)) return v;
+                const float2 bc = tab[t * w + psi_row(t, k, j, i, K, J, I, n)];
+                psn[t] = __fadd_rn(__fmul_rn(bc.x, pso[t]), __fmul_rn(bc.y, d));
+                if (!add) return v;
+                const float corr = __fmul_rn(f, psn[t]);
+                return sign > 0 ? __fadd_rn(v, corr) : __fsub_rn(v, corr);
+            };
+
+            // H of level m on plane k (Hx, Hy: k < K; Hz: k <= K); the
+            // curl's differences feed the H psi terms, whose adds the
+            // source patch skips while their recursions run
+            const bool kh = k >= 0 && k < K;
+            const bool khz = k >= 0 && k <= K;
+            float hn[3] = {ho[0], ho[1], ho[2]};
+            if (kh && c_hx) {  // hx_y (-, dEz along j), hx_z (+, dEy along k)
+                const float dk = __fsub_rn(e[m - 1][1], eo[1]), dj = __fsub_rn(ez_pj, eo[2]);
+                float v = __fadd_rn(ho[0], __fmul_rn(fh, __fsub_rn(dk, dj)));
+                v = term(0, -1, v, fh, dj, !on_patch);
+                v = term(1, +1, v, fh, dk, !on_patch);
+                if (!on_patch) hn[0] = v;
+            }
+            if (kh && c_hy) {  // hy_x (+, dEz along i), hy_z (-, dEx along k)
+                const float di = __fsub_rn(ez_pi, eo[2]), dk = __fsub_rn(e[m - 1][0], eo[0]);
+                const float v = term(2, +1, __fadd_rn(ho[1], __fmul_rn(fh, __fsub_rn(di, dk))), fh, di, true);
+                hn[1] = term(3, -1, v, fh, dk, true);
+            }
+            if (khz && c_hz) {  // hz_y (+, dEx along j), hz_x (-, dEy along i)
+                const float dj = __fsub_rn(ex_pj, eo[0]), di = __fsub_rn(ey_pi, eo[1]);
+                float v = __fadd_rn(ho[2], __fmul_rn(fh, __fsub_rn(dj, di)));
+                v = term(4, +1, v, fh, dj, !on_patch);
+                v = term(5, -1, v, fh, di, !on_patch);
+                if (!on_patch) hn[2] = v;
+            }
+
+            sH[0][ty][tx] = hn[0];
+            sH[1][ty][tx] = hn[2];
+            __syncthreads();
+            const float hx_mj = sH[0][tym][tx];
+            const float hz_mj = sH[1][tym][tx];
+            const float hy_mi = __shfl_up_sync(FULL, hn[1], 1);
+            const float hz_mi = __shfl_up_sync(FULL, hn[2], 1);
+
+            // E of level m on plane k (Ex, Ey: 1 <= k < K; Ez: k < K), then
+            // its psi terms with the factor of the update (fe or cb); h[m]
+            // still holds level m's H on plane k-1
+            const bool ke = k >= 1 && k < K;
+            const bool kez = k >= 0 && k < K;
+            float en[3] = {eo[0], eo[1], eo[2]};
+            if (ke && c_ex) {  // ex_y (+, dHz along j), ex_z (-, dHy along k)
+                const float f = LOSSY ? coef(3, mat.cb[0]) : fe;
+                const float v = LOSSY ? lossy(eo[0], coef(0, mat.ca[0]), f, hn[2], hz_mj, hn[1], h[m][1])
+                                      : leap(eo[0], fe, hn[2], hz_mj, hn[1], h[m][1]);
+                en[0] = term(7, -1, term(6, +1, v, f, __fsub_rn(hn[2], hz_mj), true), f,
+                             __fsub_rn(hn[1], h[m][1]), true);
+            }
+            if (ke && c_ey) {  // ey_x (-, dHz along i), ey_z (+, dHx along k)
+                const float f = LOSSY ? coef(4, mat.cb[1]) : fe;
+                const float v = LOSSY ? lossy(eo[1], coef(1, mat.ca[1]), f, hn[0], h[m][0], hn[2], hz_mi)
+                                      : leap(eo[1], fe, hn[0], h[m][0], hn[2], hz_mi);
+                en[1] = term(9, +1, term(8, -1, v, f, __fsub_rn(hn[2], hz_mi), true), f,
+                             __fsub_rn(hn[0], h[m][0]), true);
+            }
+            if (kez && c_ez) {  // ez_x (+, dHy along i), ez_y (-, dHx along j)
+                const float f = LOSSY ? coef(5, mat.cb[2]) : fe;
+                const float v = LOSSY ? lossy(eo[2], coef(2, mat.ca[2]), f, hn[1], hy_mi, hn[0], hx_mj)
+                                      : leap(eo[2], fe, hn[1], hy_mi, hn[0], hx_mj);
+                en[2] = term(11, -1, term(10, +1, v, f, __fsub_rn(hn[1], hy_mi), true), f,
+                             __fsub_rn(hn[0], hx_mj), true);
+            }
+
+            if constexpr (DFT) {
+                // the E cell means of cell k-1 at level m: E on planes k-1
+                // (e[m]) and k (en) and their j+1 / i+1 neighbours
+                sS[0][ty][tx] = e[m][0];
+                sS[1][ty][tx] = en[0];
+                sS[2][ty][tx] = e[m][2];
+                __syncthreads();
+                const float xl = sS[0][tyn][tx], xu = sS[1][tyn][tx], zj = sS[2][tyn][tx];
+                const float yl = __shfl_down_sync(FULL, e[m][1], 1);
+                const float yu = __shfl_down_sync(FULL, en[1], 1);
+                const float zi = __shfl_down_sync(FULL, e[m][2], 1);
+                const float zji = __shfl_down_sync(FULL, zj, 1);
+                const float me[3] = {mean4(e[m][0], en[0], xl, xu), mean4(e[m][1], yl, en[1], yu),
+                                     mean4(e[m][2], zj, zi, zji)};
+                const int cell = k - 1;
+                if (owned(cell)) {
+                    const int64_t oc = cofs(cell);
+                    const float* wm = dft.w + (m - 1) * 2 * dft.nf;
+                    if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
+                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
+                    for (int f = 0; f < dft.nf; ++f) {
+                        const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
+#pragma unroll
+                        for (int c = 0; c < 3; ++c) {
+                            float* pr = slot + (6 * f + 2 * c) * NT;
+                            const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
+                            const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
+                            if (m == S) {
+                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
+                                dft.re[a] = vr;
+                                dft.im[a] = vi;
+                            } else {
+                                pr[0] = vr;
+                                pr[NT] = vi;
+                            }
+                        }
+                    }
+                }
+            }
+
+            if (m < S) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    eo[c] = e[m][c];
+                    ho[c] = h[m][c];
+                    e[m][c] = en[c];
+                    h[m][c] = hn[c];
+                }
+#pragma unroll
+                for (int t = 0; t < 12; ++t) {
+                    pso[t] = ps[m - 1][t];
+                    ps[m - 1][t] = psn[t];
+                }
+            } else {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    h[m][c] = hn[c];
+                    if constexpr (NE > S) e[NE - 1][c] = en[c];
+                }
+                if (emit && k >= k0 && k < k1) {
+                    const int64_t o = fofs(k);
+                    st(out.ex, o, en[0]); st(out.ey, o, en[1]); st(out.ez, o, en[2]);
+                    st(out.hx, o, hn[0]); st(out.hy, o, hn[1]); st(out.hz, o, hn[2]);
+#pragma unroll
+                    for (int t = 0; t < 12; ++t)
+                        if ((held >> t) & 1u)
+                            st(psw.out[t], (int64_t)psi_offset(t, k, j, i, K, J, I, n, psi_row(t, k, j, i, K, J, I, n)),
+                               psn[t]);
+                }
+            }
+        }
+        if constexpr (NCS > 0) slot_r = slot_r + 1 == NCS ? 0 : slot_r + 1;
+    }
+}
+
+// the dynamic shared memory of a pml_kernel launch: the ring, the (b, c)
+// tables and the DFT chain (6 * nf sums of S cells a thread)
+template <int S, int BJ, bool CR, bool LOSSY, bool DFT>
+size_t pml_bytes(int n, int nf) {
+    using G = PmlGeom<S, BJ, CR, LOSSY, DFT>;
+    return (size_t)G::WORDS * 4 + (size_t)24 * 2 * n * 4 + (DFT ? (size_t)S * 6 * nf * G::NT * sizeof(float) : 0);
+}
+
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT>
+int launch_pml(void* const* in, void* const* out, int K, int J, int I, float fh, float fe, const int4* blocks,
+               int nblocks, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
+               const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft, cudaStream_t stream) {
+    const Fields<T> f_in{(const T*)in[0], (const T*)in[1], (const T*)in[2],
+                         (const T*)in[3], (const T*)in[4], (const T*)in[5]};
+    const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
+    const size_t dyn = pml_bytes<S, BJ, CR, LOSSY, DFT>(psw.n, dft.nf);
+    auto kernel = pml_kernel<T, S, BJ, CR, LOSSY, DFT>;
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3((unsigned)nblocks), dim3(BI, BJ), dyn, stream>>>(f_in, f_out, K, J, I, fh, fe, blocks, has_patch,
+                                                                    j0, j1, i0, i1, (const T*)ez_rows,
+                                                                    (const T*)hx_rows, mat, psw, dft);
+    return (int)cudaGetLastError();
+}
+
+// The (s, threads along j, coefficient ring) shapes of pml_kernel a CPML
+// variant is built at: ops/stream_plan.py (BLOCK_J_PML, BLOCK_J_PML_DFT,
+// COEF_RING_PML).  YEE_STREAM_CANDIDATES adds the shapes python -m
+// fdtd_tpu_torch.tune_stream times beside them.
+template <typename T, bool LOSSY, bool DFT>
+int dispatch_pml(int s, int bj, int cr, void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
+                 const int4* blocks, int nblocks, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
+                 const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft,
+                 cudaStream_t stream) {
+#define YEE_PML_CASE(S_, BJ_, CR_)                                                                            \
+    if (s == S_ && bj == BJ_ && cr == CR_)                                                                     \
+        return launch_pml<T, S_, BJ_, CR_, LOSSY, DFT>(in, out, K, J, I, fh, fe, blocks, nblocks, has_patch, j0, \
+                                                       j1, i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
+    if constexpr (DFT) {
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_PML_CASE(2, 16, false)
+#endif
+        YEE_PML_CASE(2, 20, false)
+    } else if constexpr (LOSSY) {
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_PML_CASE(2, 32, true)
+        YEE_PML_CASE(2, 20, true)
+        YEE_PML_CASE(2, 24, false)
+#endif
+        YEE_PML_CASE(2, 24, true)
+    } else {
+#ifdef YEE_STREAM_CANDIDATES
+        YEE_PML_CASE(2, 32, false)
+        YEE_PML_CASE(2, 20, false)
+        YEE_PML_CASE(2, 16, false)
+#endif
+        YEE_PML_CASE(2, 24, false)
+    }
+#undef YEE_PML_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// the variant of `code` (bits: 1 lossy, 2 het, 4 SAR, 16 Debye) on
+// ring_kernel: the seven non-CPML variants of ops/stream_plan.py::VARIANTS,
+// with or without the DFT bands; with BOX (a shard, or the interior of a
+// CPML sweep) the five of ops/stream_plan.py::SHARD_VARIANTS, with or
+// without the bands.
 template <typename T, bool DFT, bool BOX>
 int dispatch_variant(int code, int s, int bj, int cr, void* const* in, void* const* out, int K, int J,
                      int I, const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0,
                      int i1, const void* ez_rows, const void* hx_rows, const Material<T>& mat,
-                     const PsiSweep<T>& psw, const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
+                     const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
 #define YEE_RING_VARIANT(CODE_, LOSSY_, HET_, SAR_, ADE_)                                                       \
     case CODE_:                                                                                              \
         return dispatch_ring<T, LOSSY_, HET_, SAR_, ADE_, DFT, BOX>(s, bj, cr, in, out, K, J, I, g, fh, fe, tk, \
@@ -1324,12 +1465,6 @@ int dispatch_variant(int code, int s, int bj, int cr, void* const* in, void* con
     }
     if constexpr (!BOX) {
         switch (code) {
-            case 8:  // CPML
-                return launch_pml<T, false, DFT>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-                                                 ez_rows, hx_rows, mat, psw, dft, stream);
-            case 9:  // lossy CPML
-                return launch_pml<T, true, DFT>(s, bj, in, out, K, J, I, fh, fe, tk, has_patch, j0, j1, i0, i1,
-                                                ez_rows, hx_rows, mat, psw, dft, stream);
             YEE_RING_VARIANT(16, false, false, false, true)            // Debye
             YEE_RING_VARIANT(20, false, false, true, true)             // Debye + SAR
             default: break;
@@ -1344,10 +1479,10 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
           bool boxed, const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0, int i1,
           const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf, const void* sigma, void* acc,
           float dt, void* const* psi_in, void* const* psi_out, const void* tab_h, const void* tab_e, int n,
-          void* const* pol_in, void* const* pol_out, const DftSweep& dft, cudaStream_t stream) {
+          const void* blocks, int nblocks, void* const* pol_in, void* const* pol_out, const DftSweep& dft,
+          cudaStream_t stream) {
     const bool lossy = code & 1, pml = code & 8, ade = code & 16;
     Material<T> mat{};
-    PsiSweep<T> psw{};
     AdeSweep<T> ad{};
     for (int q = 0; q < 3; ++q) {
         if (lossy) {
@@ -1365,7 +1500,9 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
     mat.sigma = (const T*)sigma;
     mat.acc = (float*)acc;
     mat.dt = dt;
+    const float fe_ = (lossy || ade) ? 0.f : fe;
     if (pml) {
+        PsiSweep<T> psw{};
         for (int t = 0; t < 12; ++t) {
             psw.in[t] = (const T*)psi_in[t];
             psw.out[t] = (T*)psi_out[t];
@@ -1373,11 +1510,19 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
         psw.tab[0] = (const T*)tab_h;
         psw.tab[1] = (const T*)tab_e;
         psw.n = n;
+        const int4* b = (const int4*)blocks;
+#define YEE_PML_SWEEP(LOSSY_, DFT_)                                                                          \
+    return dispatch_pml<T, LOSSY_, DFT_>(s, bj, cr, in, out, K, J, I, fh, fe_, b, nblocks, has_patch, j0, j1, \
+                                         i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
+        if (lossy && dft.re != nullptr) YEE_PML_SWEEP(true, true)
+        if (lossy) YEE_PML_SWEEP(true, false)
+        if (dft.re != nullptr) YEE_PML_SWEEP(false, true)
+        YEE_PML_SWEEP(false, false)
+#undef YEE_PML_SWEEP
     }
-    const float fe_ = (lossy || ade) ? 0.f : fe;
 #define YEE_STREAM_SWEEP(DFT_, BOX_)                                                                          \
     return dispatch_variant<T, DFT_, BOX_>(code, s, bj, cr, in, out, K, J, I, g, fh, fe_, tk, has_patch,      \
-                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, psw, ad, dft, stream);
+                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, ad, dft, stream);
     if (boxed && dft.re != nullptr) YEE_STREAM_SWEEP(true, true)
     if (boxed) YEE_STREAM_SWEEP(false, true)
     if (dft.re != nullptr) YEE_STREAM_SWEEP(true, false)
@@ -1388,13 +1533,15 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
 // geom: null (the whole grid) or 12 ints: the arrays' extents (nk, nj,
 // ni), the global index of their origin (ok, oj, oi) and the window to
 // emit (wk0, wk1, wj0, wj1, wi0, wi1), global; the cell box is the
-// window's cells.  The arrays must hold s planes before the window and s
-// after it (s + 1 with the cell means of SAR and DFT), as far as the grid
-// reaches.
-bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
+// window's cells unless `cells` gives it (ck0, cj0, ci0, cnk, cnj, cni: the
+// interior launch of a CPML sweep emits a window of the whole grid's
+// arrays, its SAR map and DFT sums).  The arrays must hold s planes before
+// the window and s after it (s + 1 with the cell means of SAR and DFT), as
+// far as the grid reaches.
+bool box_of(const int* geom, const int* cells, int K, int J, int I, int s, bool means, Box* g) {
     if (geom == nullptr) {
         *g = Box{J + 1, I + 1, 0, 0, 0, 0, K + 1, 0, J + 1, 0, I + 1, 0, 0, 0, K, J, I};
-        return true;
+        return cells == nullptr;
     }
     const int n[3] = {K + 1, J + 1, I + 1};
     for (int a = 0; a < 3; ++a) {
@@ -1405,6 +1552,16 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
     *g = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[7], geom[8], geom[9], geom[10], geom[11],
              geom[6], geom[8], geom[10], std::min(geom[7], K) - geom[6], std::min(geom[9], J) - geom[8],
              std::min(geom[11], I) - geom[10]};
+    if (cells != nullptr) {
+        const int top[3] = {K, J, I};
+        for (int a = 0; a < 3; ++a) {
+            const int lo = geom[6 + 2 * a], hi = std::min(geom[7 + 2 * a], top[a]);
+            if (cells[a] < 0 || cells[a] > lo || cells[a] + cells[3 + a] < hi || cells[a] + cells[3 + a] > top[a])
+                return false;
+        }
+        g->ck0 = cells[0]; g->cj0 = cells[1]; g->ci0 = cells[2];
+        g->cnk = cells[3]; g->cnj = cells[4]; g->cni = cells[5];
+    }
     return true;
 }
 
@@ -1416,16 +1573,17 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 // maxi); geom: null for arrays of the whole grid, or a shard's 12 ints
 // (see box_of), which the vacuum and material variants take, with or
 // without the DFT bands (acc, sigma and the sums then cover the window's
-// cells).  fh, fe: the vacuum H and E
-// factors (fh is the H factor unless hf is given; fe is unused by the
-// lossy and Debye variants).  s, bj, bi: the steps per sweep and the
-// block's threads along j and i (bi = 32); cr: for ring_kernel, whether
-// the coefficients ride the ring (1) or are read from memory (0), a built
-// shape of ops/stream_plan.py; tk: the planes a block advances (a grid of
-// tk-plane segments of every tile).  ez_rows, hx_rows: (s-1) x (i1-i0) drive rows
-// in the storage dtype (unused without the patch).  Every bf16 array must
-// start 4-byte aligned (ring_kernel copies aligned pairs).  The arrays a variant
-// does not read are null, and the ones given select the variant:
+// cells, or the cell box `cells` where it is given).  fh, fe: the vacuum H
+// and E factors (fh is the H factor unless hf is given; fe is unused by
+// the lossy and Debye variants).  s, bj, bi: the steps per sweep and the
+// block's threads along j and i (bi = 32); cr: whether the coefficients
+// ride the ring (1) or are read from memory (0), a built shape of
+// ops/stream_plan.py; tk: the planes a block of ring_kernel advances (a
+// grid of tk-plane segments of every tile).  ez_rows, hx_rows: (s-1) x
+// (i1-i0) drive rows in the storage dtype (unused without the patch).
+// Every bf16 array must start 4-byte aligned (the kernels copy aligned
+// pairs).  The arrays a variant does not read are null, and the ones given
+// select the variant:
 //   coefs   lossy media: ca_x, ca_y, ca_z, cb_x, cb_y, cb_z (the fields'
 //           shape and dtype); with pol_in, the 15 Debye maps ca_x..k2_z in
 //           ops/dispersive.py::DebyeCoefs.arrays order, and with acc 18
@@ -1434,9 +1592,11 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 //   acc     SAR: the fp32 (K, J, I) map, updated in place with every step's
 //           sigma*|E_cell|^2*dt (sigma: (K, J, I) in the storage dtype) or,
 //           in Debye media, its work*dt (sigma null); dt: the step in fp32;
-//   psi_in  CPML (vacuum or lossy): psi_in, psi_out twelve pointers each in
-//           ops/cpml.py::_TERMS order (psi_out must not alias psi_in);
-//           tab_h, tab_e the (6, 2, 2n) (b, c) tables; n the slab depth;
+//   psi_in  CPML (vacuum or lossy, pml_kernel): psi_in, psi_out twelve
+//           pointers each in ops/cpml.py::_TERMS order (psi_out must not
+//           alias psi_in); tab_h, tab_e the (6, 2, 2n) (b, c) tables; n the
+//           slab depth; blocks the nblocks entries of the block list (two
+//           int4 each, see pml_kernel), which replace tk;
 //   pol_in  Debye media (vacuum H): pol_in, pol_out px, py, pz each (the
 //           fields' shape and dtype; pol_out must not alias pol_in);
 //   re      the DFT bands (fields "e"): re, im the (nf, nc, K, J, I) fp32
@@ -1448,35 +1608,36 @@ bool box_of(const int* geom, int K, int J, int I, int s, bool means, Box* g) {
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 extern "C" {
 
-int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, const int* geom, float fh, float fe,
-                     int s, int bj, int bi, int cr, int tk, int has_patch, int j0, int j1, int i0, int i1,
-                     const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
+int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, const int* geom, const int* cells,
+                     float fh, float fe, int s, int bj, int bi, int cr, int tk, int has_patch, int j0, int j1, int i0,
+                     int i1, const void* ez_rows, const void* hx_rows, void* const* coefs, void* const* hf,
                      const void* sigma, void* acc, float dt, void* const* psi_in, void* const* psi_out,
-                     const void* tab_h, const void* tab_e, int n, void* const* pol_in, void* const* pol_out,
-                     void* re, void* im, const void* w, int nf, int nc, int dtype, void* stream) {
+                     const void* tab_h, const void* tab_e, int n, const void* blocks, int nblocks,
+                     void* const* pol_in, void* const* pol_out, void* re, void* im, const void* w, int nf, int nc,
+                     int dtype, void* stream) {
     const bool ade = pol_in != nullptr, lossy = coefs != nullptr && !ade, het = hf != nullptr;
     const bool sar = acc != nullptr, pml = psi_in != nullptr;
-    if (bi != BI || tk < 1 || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
+    if (bi != BI || (!pml && tk < 1) || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
         || (ade && (coefs == nullptr || pol_out == nullptr)) || ((sigma != nullptr) != (sar && !ade))
-        || (pml && (psi_out == nullptr || tab_h == nullptr || tab_e == nullptr || n < 1))
+        || (pml && (psi_out == nullptr || tab_h == nullptr || tab_e == nullptr || n < 1 || blocks == nullptr
+                    || nblocks < 1 || het || sar))
         || (re != nullptr && (im == nullptr || w == nullptr || nf < 1 || nc < 3)))
         return (int)cudaErrorInvalidValue;
     const int code = (lossy ? 1 : 0) | (het ? 2 : 0) | (sar ? 4 : 0) | (pml ? 8 : 0) | (ade ? 16 : 0);
     Box g;
-    if ((geom != nullptr && (pml || ade)) || !box_of(geom, K, J, I, s, sar || re != nullptr, &g))
+    if ((geom != nullptr && (pml || ade)) || !box_of(geom, cells, K, J, I, s, sar || re != nullptr, &g))
         return (int)cudaErrorInvalidValue;
     const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc};
     const bool boxed = geom != nullptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)
-        return sweep<float>(code, s, bj, cr, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0,
-                            i1,
-                            ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, pol_in,
-                            pol_out, dft, st);
+        return sweep<float>(code, s, bj, cr, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0, j1, i0, i1,
+                            ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h, tab_e, n, blocks,
+                            nblocks, pol_in, pol_out, dft, st);
     if (dtype == 1)
         return sweep<__nv_bfloat16>(code, s, bj, cr, in, out, K, J, I, boxed, g, fh, fe, tk, has_patch, j0,
                                     j1, i0, i1, ez_rows, hx_rows, coefs, hf, sigma, acc, dt, psi_in, psi_out, tab_h,
-                                    tab_e, n, pol_in, pol_out, dft, st);
+                                    tab_e, n, blocks, nblocks, pol_in, pol_out, dft, st);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -196,6 +196,17 @@ def psi_shapes(p: Params, cfg: PMLConfig) -> dict[str, tuple[int, int, int]]:
     return shapes
 
 
+def psi_boxes(p: Params, cfg: PMLConfig) -> dict[str, tuple[tuple[tuple[int, int], ...], ...]]:
+    """The cells that hold psi, per term: its two slabs (lo, hi) as
+    (start, stop) index ranges of the padded grid along k, j and i (the
+    term's update region with ``cells`` rows at each end of its PML axis)."""
+    regions = _update_regions(p)
+    out = {}
+    for name, target, _sign, axis, _src, _e in _TERMS:
+        out[name] = tuple(tuple((s.start, s.stop) for s in sl) for sl in _slab_slices(regions[target], axis, cfg.cells))
+    return out
+
+
 def psi_bytes(p: Params, cfg: PMLConfig) -> int:
     """Device bytes of one :class:`PsiState` in the field dtype."""
     item = {"float32": 4, "bfloat16": 2, "float64": 8}[p.dtype]

@@ -11,7 +11,9 @@ fp32 map in place, as S per-step increments would.  With ``cpml`` it is
 the CPML sweep (vacuum or lossy), replacing
 ``fdtd_tpu/ops/pallas_stream_pml.py::_kernel_pml``: it reads the twelve
 psi of ``psi`` and writes them advanced into ``psi_out`` (a second set,
-as for the fields).  With ``dc`` (Debye media,
+as for the fields), in two launches (``plan.core``: the psi-free interior
+on the K3 sweep, counted under ``plan.kernel`` + ``_interior``; the shell
+on the CPML kernel's block list, ``plan.pml_blocks``).  With ``dc`` (Debye media,
 :class:`~fdtd_tpu_torch.ops.dispersive.DebyeCoefs`) it is the ADE sweep,
 replacing ``fdtd_tpu/ops/pallas_dispersive.py::_kernel_ade_stream``: the
 H update is vacuum, the E update the ADE update of ``dc``; it reads the
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -66,9 +69,13 @@ from .dispersive import DebyeCoefs, PolState
 from .dft import check_sums, check_weights
 from .stream_plan import SHARD_VARIANTS, VARIANTS, StreamPlan, variant_name
 
+INTERIOR = "_interior"  # the launch counter suffix of a CPML sweep's interior
+
 KERNEL_SOURCE = "yee_stream"
 launches = {variant_name(*v): 0 for v in VARIANTS}
 launches.update({variant_name(*v) + "_shard": 0 for v in SHARD_VARIANTS})
+# the interior launch of a CPML sweep (ring_kernel on the psi-free window)
+launches.update({variant_name(*v) + INTERIOR: 0 for v in VARIANTS if v[3]})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -109,8 +116,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of its C interface set."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.yee_stream_sweep.argtypes = (
-        [ptr, ptr] + [i32] * 3 + [ptr] + [f32, f32] + [i32] * 10 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
-        + [ptr] * 5 + [i32, i32, i32, ptr]
+        [ptr, ptr] + [i32] * 3 + [ptr, ptr] + [f32, f32] + [i32] * 10 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
+        + [ptr, i32] + [ptr] * 5 + [i32, i32, i32, ptr]
     )
     lib.yee_stream_sweep.restype = i32
     lib.yee_stream_error_string.argtypes = [i32]
@@ -228,9 +235,12 @@ def _on_cpu(p: Params, state: FieldState, out: FieldState, shape: tuple[int, int
 
 
 def _check_psi(p: Params, state: FieldState, cpml: Cpml, psi: PsiState, psi_out: PsiState) -> None:
-    """Both psi sets as the kernel takes them, and not aliasing each other."""
+    """Both psi sets as the kernel takes them (it indexes them with 32-bit
+    offsets), and not aliasing each other."""
     yee.check_psi(p, cpml, state.ex, psi, TERM_NAMES)
     yee.check_psi(p, cpml, state.ex, psi_out, TERM_NAMES)
+    if any(t.numel() >= 2**31 for t in psi.tensors()):
+        raise ValueError("the CPML sweep indexes psi with 32-bit offsets: a psi array has 2^31 elements or more")
     if {t.data_ptr() for t in psi.tensors()} & {t.data_ptr() for t in psi_out.tensors()}:
         raise ValueError("the sweep's output psi must not alias its input psi")
 
@@ -331,34 +341,62 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
         hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
         yee.check_coefficients(p, state.ex, cf + hf)
     fe = 0.0 if cf else curl.scalar(coefs.cb_x, dt)
-    psi_args = (None, None, None, None, 0)
-    if cpml is not None:
-        _check_psi(p, state, cpml, psi, psi_out)
-        psi_args = (yee.pointers(psi.tensors(TERM_NAMES)), yee.pointers(psi_out.tensors(TERM_NAMES)),
-                    cpml.table_h.data_ptr(), cpml.table_e.data_ptr(), cpml.cfg.cells)
-    pol_args = (yee.pointers(pol.tensors()), yee.pointers(pol_out.tensors())) if dc is not None else (None, None)
     dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc) if dacc is not None
                 else (None, None, None, 0, 0))
     sigma = coefs.sigma_cells.data_ptr() if acc is not None and dc is None else None
-    if dt == torch.bfloat16 and cpml is None:
+    if dt == torch.bfloat16:
         ringed = state.tensors() + cf + hf + (pol.tensors() if dc is not None else ())
         ringed += (coefs.sigma_cells,) if sigma is not None else ()
+        ringed += psi.tensors() if cpml is not None else ()
         if any(t.data_ptr() % 4 for t in ringed):
             raise ValueError("the sweep's bfloat16 arrays must start 4-byte aligned (the kernel copies aligned pairs)")
     dev = state.ex.device
-    name = plan.kernel + ("_shard" if box is not None else "")
+    call = functools.partial(lib.yee_stream_sweep, ins, outs, p.maxk, p.maxj, p.maxi)
+    mats = (yee.pointers(cf) if cf else None, yee.pointers(hf) if hf else None, sigma,
+            acc.data_ptr() if acc is not None else None, curl.scalar(p.time_step, torch.float32))
     with torch.cuda.device(dev):
-        rc = lib.yee_stream_sweep(
-            ins, outs, p.maxk, p.maxj, p.maxi, yee.geometry(p, box), fh, fe, *geometry, *rows,
-            yee.pointers(cf) if cf else None, yee.pointers(hf) if hf else None, sigma,
-            acc.data_ptr() if acc is not None else None, curl.scalar(p.time_step, torch.float32),
-            *psi_args, *pol_args, *dft_args, _DTYPE_CODES[dt], build.launch_stream(dev),
-        )
+        stream_ptr = build.launch_stream(dev)
+        if cpml is not None:
+            _check_psi(p, state, cpml, psi, psi_out)
+            if plan.core is not None:
+                # the interior: the K3 sweep of the variant on the psi-free
+                # window of the whole grid's arrays, sums and all
+                core = plan.core
+                window = [x for lo, w in zip(core.origin, core.window) for x in (lo, lo + w)]
+                geom = (ctypes.c_int * 12)(*p.padded_shape, 0, 0, 0, *window)
+                cells = (ctypes.c_int * 6)(0, 0, 0, p.maxk, p.maxj, p.maxi)
+                rc = call(geom, cells, fh, fe, core.s, core.bj, core.bi, int(core.cr), core.tk, 0, 0, 0, 0, 0,
+                          None, None, *mats, None, None, None, None, 0, None, 0, None, None, *dft_args,
+                          _DTYPE_CODES[dt], stream_ptr)
+                _count(lib, plan.kernel + INTERIOR, rc)
+            if plan.pml_blocks:  # a plan without them launches the interior alone (chip_smoke.py times it so)
+                rc = call(None, None, fh, fe, *geometry, *rows, *mats, yee.pointers(psi.tensors(TERM_NAMES)),
+                          yee.pointers(psi_out.tensors(TERM_NAMES)), cpml.table_h.data_ptr(), cpml.table_e.data_ptr(),
+                          cpml.cfg.cells, _pml_blocks(plan, dev).data_ptr(), plan.blocks, None, None, *dft_args,
+                          _DTYPE_CODES[dt], stream_ptr)
+                _count(lib, plan.kernel, rc)
+            return out
+        pol_args = (yee.pointers(pol.tensors()), yee.pointers(pol_out.tensors())) if dc is not None else (None, None)
+        rc = call(yee.geometry(p, box), None, fh, fe, *geometry, *rows, *mats, None, None, None, None, 0, None, 0,
+                  *pol_args, *dft_args, _DTYPE_CODES[dt], stream_ptr)
+    _count(lib, plan.kernel + ("_shard" if box is not None else ""), rc)
+    return out
+
+
+def _count(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Count a launch under ``name``; raise when it failed."""
     launches[name] += 1
     if rc != 0:
         msg = lib.yee_stream_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    return out
+
+
+def _pml_blocks(plan: StreamPlan, dev: torch.device) -> torch.Tensor:
+    """A CPML plan's block list as the kernel reads it: (blocks, 8) int32
+    on ``dev``, copied once per plan and device."""
+    if dev not in plan.device_blocks:
+        plan.device_blocks[dev] = torch.tensor(plan.pml_blocks, dtype=torch.int32).to(dev)
+    return plan.device_blocks[dev]
 
 
 def _check_halos(p: Params, box: Box, plan: StreamPlan) -> None:

@@ -17,8 +17,8 @@ the block emits only the interior ``bj - 2s`` x ``bi - 2s`` columns.  The
 k segments of one column tile start s planes early (a lead-in that is
 recomputed, not emitted), so the segments are independent blocks.
 
-Every variant but CPML runs ``ring_kernel``, the Hopper design of the
-sweep (the header of ``csrc/yee_stream.cu``): the next plane's fields and,
+Every variant runs ``ring_kernel``, the Hopper design of the sweep (the
+header of ``csrc/yee_stream.cu``), or its CPML form: the next plane's fields and,
 with ``cr``, the coefficients of the last s + 1 planes ride a ring in
 shared memory (:attr:`StreamPlan.ring_words`), so a plan's shared memory
 (:attr:`StreamPlan.smem_bytes`) counts the ring beside the exchange
@@ -28,9 +28,7 @@ neighbouring tiles' planes together, so the halo columns they share come
 from L2 (an equal-share walk of the (tile, plane) list, which put
 neighbouring tiles at different planes, measured 1.5-2.2x slower).  The
 segment depth is the one whose waves take the fewest pipeline steps an SM
-(:func:`pick_tk`): a last wave half full costs a whole wave.  The CPML
-sweep (``stream_kernel``) keeps the first design: segments until the grid
-has ``BLOCKS_WANTED`` blocks.
+(:func:`pick_tk`): a last wave half full costs a whole wave.
 
 Plans are ranked by modelled device-memory bytes per cell and step: each
 sweep reads the six fields (and the coefficient arrays of the material
@@ -48,9 +46,14 @@ SAR registers), so they have block shapes of their own
 (``BLOCK_J_MATERIAL``), and a SAR tile emits one column fewer per axis
 (the cell mean reads E one column past the tile).
 
-The CPML variants (``pml``: vacuum or lossy) carry the twelve psi terms of
-every level in registers beside the fields, so their blocks are smaller
-and they are built at s=2 alone (``BLOCK_J_PML``), and they mirror the gates of
+The CPML variants (``pml``: vacuum or lossy) are two launches a sweep
+(:func:`pml_blocks`): the interior window, whose blocks' recompute
+regions hold no psi, on ``ring_kernel``'s box instantiation of the
+variant without CPML (``StreamPlan.core``), and the shell around it on
+``pml_kernel``, the ring core with the twelve psi terms, from a block list
+(``StreamPlan.pml_blocks``).  ``pml_kernel`` keeps more per thread, so its
+blocks are smaller and it is built at s=2 alone (``BLOCK_J_PML``,
+``BLOCK_J_PML_DFT``), and the variants mirror the gates of
 ``fdtd_tpu/ops/pallas_stream_pml.py::stream_pml_supported``: computation
 mode, homogeneous mu_r, no SAR, and the source patch clear of the j and i
 slabs.  A sweep reads one psi set and writes a second (a neighbour's halo
@@ -78,8 +81,8 @@ what fits beside the exchange buffers and the ring
 ``twopass`` with the ``dft_accum`` kernel).  Each is built at one depth:
 the vacuum variant at ``BLOCK_J_DFT``, the material variants at
 ``BLOCK_J_DFT_MATERIAL`` (with the coefficient ring), the ADE variants at
-the ADE SAR shape and the CPML variants at the shape of their variant
-without DFT.  The sums (8 * nf * nc B a cell)
+the ADE SAR shape and the CPML variants at ``BLOCK_J_PML_DFT`` (their
+interior at ``BLOCK_J_PML_INTERIOR_DFT``).  The sums (8 * nf * nc B a cell)
 count in every footprint; a DFT sweep reads and writes them once.
 
 Every footprint counts the temporaries of the output reductions (the k
@@ -99,13 +102,14 @@ gathers into for its outputs.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import math
 
 from .. import diagnostics
 from ..dft import DftConfig, acc_bytes
 from ..params import Mode, Params
 from ..source import make_source_plan
-from .cpml import PMLConfig, psi_bytes
+from .cpml import TERM_NAMES, PMLConfig, psi_boxes, psi_bytes
 
 STEPS = (8, 4, 2)  # steps per sweep, deepest first
 SM_COUNT = 132  # H100 SXM
@@ -126,12 +130,18 @@ BLOCK_J_MATERIAL = {8: 24, 4: 24, 2: 32}
 # material DFT sweeps carry theirs in the ring too (plan_for: cr), the
 # vacuum sweeps have none
 COEF_RING_MATERIAL = {8: False, 4: True, 2: True}
-# the CPML variants (vacuum and lossy) keep twelve psi a level a thread
-# more, and are built at s=2 only: measured at 256^3 fp32 (NVIDIA H100 80GB
-# HBM3), s=2 with 768-thread blocks fits 80 registers without spills (0.74
-# ms a step; 512 threads 1.00, 1024 threads 0.85 with 88 B of spills); s=4
-# spilled 160 B (1.08 ms a step) and s=8 about 540 B (7.4 ms a step)
+# the CPML variants (vacuum and lossy) run pml_kernel, the ring core with
+# the twelve psi terms (level 0's psi of the next plane in the ring, levels
+# 1..s-1 in registers), on the blocks of the CPML shell; the interior, whose
+# recompute region holds no psi, runs the K3 sweep (ring_kernel with a box)
+# at the same depth.  Built shapes: threads along j per depth without and
+# with the DFT bands (the bands at 640 threads keep nf <= 5 beside the psi
+# ring), the lossy ca/cb on the coefficient ring without the bands
 BLOCK_J_PML = {2: 24}
+BLOCK_J_PML_DFT = {2: 20}
+# the interior of a CPML sweep with the DFT bands: ring_kernel's box
+# instantiation at s = 2, 768 threads, coefficients from memory (nf <= 5)
+BLOCK_J_PML_INTERIOR_DFT = {2: 24}
 # the ADE variants (Debye media) keep three P (and with SAR three work
 # values) a level a thread more and read 15 maps a level (18 with SAR), all
 # from the coefficient ring; each is built at the one shape that measured
@@ -145,7 +155,6 @@ BLOCK_J_ADE_SAR = {2: 16}
 # threads and the coefficient ring: nf <= 2 or 3 beside it)
 BLOCK_J_DFT = {4: 24}
 BLOCK_J_DFT_MATERIAL = {2: 24}
-BLOCKS_WANTED = 2 * SM_COUNT  # the CPML sweep: split k until it has this many blocks
 
 
 def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False,
@@ -181,8 +190,9 @@ SHARD_VARIANTS = tuple(v for v in VARIANTS if not (v[3] or v[4]))
 class StreamPlan:
     """One sweep's geometry: ``s`` steps; blocks of ``bj`` x ``bi``
     threads, each emitting a ``tk`` x ``tj`` x ``ti`` (k, j, i) tile;
-    ``nk`` x ``nj`` x ``ni`` blocks (:func:`segments`).  ring_kernel (every
-    variant but CPML): ``cr``, the coefficients ride the ring."""
+    ``nk`` x ``nj`` x ``ni`` blocks (:func:`segments`; CPML: the whole grid's
+    tiling at that depth, the launch runs ``pml_blocks``); ``cr``, the
+    coefficients ride the ring."""
 
     s: int
     tk: int
@@ -201,7 +211,13 @@ class StreamPlan:
     ade: bool = False  # Debye media: P and the 15 ADE maps
     dft: bool = False  # the DFT bands (E phasor sums)
     window: tuple[int, int, int] | None = None  # a shard's owned planes (k, j, i); None: the grid
-    cr: bool = False  # ring_kernel: the coefficients ride the ring
+    cr: bool = False  # the coefficients ride the ring
+    origin: tuple[int, int, int] | None = None  # the window's first planes where they are not the arrays' first
+    pml_cells: int = 0  # CPML: the slab depth
+    pml_blocks: tuple = ()  # CPML: pml_kernel's block list (pml_blocks)
+    core: "StreamPlan | None" = None  # CPML: the interior's ring_kernel plan (window and origin), if any
+    # CPML: pml_blocks copied to each device it ran on (ops/stream.py), kept with the plan
+    device_blocks: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def kernel(self) -> str:
@@ -210,7 +226,8 @@ class StreamPlan:
 
     @property
     def blocks(self) -> int:
-        return self.nk * self.nj * self.ni
+        """The blocks of the launch (CPML: of pml_kernel's, the shell's)."""
+        return len(self.pml_blocks) if self.pml else self.nk * self.nj * self.ni
 
     @property
     def waves(self) -> float:
@@ -229,12 +246,13 @@ class StreamPlan:
 
     @property
     def ring_words(self) -> int:
-        """ring_kernel's ring, 4-byte words a thread: the next plane's six
-        fields (and three P), and with ``cr`` the coefficient words of the
-        last s + 1 planes (lossy ca/cb, het hf, SAR sigma and map value; the
-        Debye maps and map value)."""
+        """The ring, 4-byte words a thread: the next plane's six fields (and
+        three P), and with ``cr`` the coefficient words of the last s + 1
+        planes (lossy ca/cb, het hf, SAR sigma and map value; the Debye maps
+        and map value); CPML: the fields, level 0's twelve psi of the next
+        plane and with ``cr`` the ca/cb of s + 1 planes."""
         if self.pml:
-            return 0
+            return 6 + 12 + ((self.s + 1) * 6 if self.cr else 0)
         nc = 0
         if self.cr and self.ade:
             nc = 19 if self.sar else 15
@@ -244,15 +262,13 @@ class StreamPlan:
 
     @property
     def smem_bytes(self) -> int:
-        """Shared memory before the DFT sums.  The CPML sweep: one fp32 E
-        plane and one H plane, and the five E values a column of the DFT
-        cell means.  ring_kernel: the Ex, Ez and Hx, Hz planes of the j
-        exchanges (i neighbours move by warp shuffles), the three values a
-        column of the cell means, and the ring."""
+        """Shared memory before the DFT sums: the Ex, Ez and Hx, Hz planes
+        of the j exchanges (i neighbours move by warp shuffles), the three
+        values a column of the cell means, and the ring; CPML: and the
+        (b, c) tables of the twelve terms in fp32."""
         n = self.bj * self.bi
-        if self.pml:
-            return (11 if self.means else 6) * n * 4
-        return (4 * n + (3 * n if self.means else self.bi)) * 4 + self.ring_words * n * 4
+        tables = 24 * 2 * self.pml_cells * 4 if self.pml else 0
+        return (4 * n + (3 * n if self.means else self.bi)) * 4 + self.ring_words * n * 4 + tables
 
     def dft_smem_bytes(self, nf: int) -> int:
         """Dynamic shared memory of the DFT bands: 6 * nf fp32 sums of s
@@ -263,8 +279,11 @@ class StreamPlan:
     def dft_max_nf(self) -> int:
         """The most frequencies the DFT bands take at this shape (0 without
         them): what fits in a block's shared memory beside the static
-        buffers and the ring."""
-        return (SMEM_PER_BLOCK - self.smem_bytes) // self.dft_smem_bytes(1) if self.dft else 0
+        buffers and the ring (CPML: in both launches)."""
+        if not self.dft:
+            return 0
+        own = (SMEM_PER_BLOCK - self.smem_bytes) // self.dft_smem_bytes(1)
+        return min(own, self.core.dft_max_nf) if self.core is not None else own
 
 
 def segments(nj: int, ni: int, planes: int, tk: int) -> list[tuple[int, int, int]]:
@@ -379,7 +398,7 @@ def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: 
     if ade:
         return BLOCK_J_ADE_SAR if sar or dft else BLOCK_J_ADE
     if pml:
-        return BLOCK_J_PML
+        return BLOCK_J_PML_DFT if dft else BLOCK_J_PML
     if dft:
         return BLOCK_J_DFT_MATERIAL if lossy else BLOCK_J_DFT
     return BLOCK_J_MATERIAL if lossy else BLOCK_J
@@ -402,34 +421,30 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
     ring) are the variant's built values unless given, for a build with
     other shapes (``tune_stream``).
     ``window``: a shard's owned (k, j, i) planes, tiled instead of the
-    grid."""
+    grid.  CPML (``pml``): the two launches of :func:`pml_blocks`."""
     lossy = not ade and (lossy or het or sar)
     table = _block_j(lossy, pml is not None, ade, sar, dft is not None)
     if bj is None:
         if s not in table:
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
+    if pml is not None:
+        return _pml_plan(p, s, lossy, pml, bj, dft, lossy and dft is None if cr is None else cr)
     if cr is None:
-        cr = pml is None and (ade or lossy and (dft is not None or COEF_RING_MATERIAL.get(s, False)))
+        cr = ade or lossy and (dft is not None or COEF_RING_MATERIAL.get(s, False))
     K1, J1, I1 = window or p.padded_shape
     bi = BLOCK_I
     sh = int(sar or dft is not None)  # the cell means read E one column past
     tj, ti = bj - 2 * s - sh, bi - 2 * s - sh
     nj, ni = -(-J1 // tj), -(-I1 // ti)
-    if pml is not None:  # stream_kernel: k segments of tk planes
-        nk_want = max(1, -(-BLOCKS_WANTED // (nj * ni)))
-        # a segment at least 2s planes deep keeps the lead-in below 2x
-        tk = min(K1, max(-(-K1 // nk_want), 2 * s))
-        nk = -(-K1 // tk)
-        amp_k = (tk + 2 * s) / tk if nk > 1 else 1.0
-    else:  # ring_kernel: k segments of every tile, as many as fill whole waves best
-        tk = pick_tk(K1, nj * ni, s, sh)
-        nk = -(-K1 // tk)
-        # each segment loads its s lead-in planes and the s (+1) planes past
-        # it, clamped at the grid's walls (a shard's halo planes count)
-        lo, hi = (0, K1 - 1) if window is None else (-(s + sh), K1 - 1 + s + sh)
-        loaded = sum(min(k1 - 1 + s + sh, hi) - max(k0 - s, lo) + 1 for _, k0, k1 in segments(nj, ni, K1, tk))
-        amp_k = loaded / (nj * ni * K1)
+    # k segments of every tile, as many as fill whole waves best
+    tk = pick_tk(K1, nj * ni, s, sh)
+    nk = -(-K1 // tk)
+    # each segment loads its s lead-in planes and the s (+1) planes past
+    # it, clamped at the grid's walls (a shard's halo planes count)
+    lo, hi = (0, K1 - 1) if window is None else (-(s + sh), K1 - 1 + s + sh)
+    loaded = sum(min(k1 - 1 + s + sh, hi) - max(k0 - s, lo) + 1 for _, k0, k1 in segments(nj, ni, K1, tk))
+    amp_k = loaded / (nj * ni * K1)
     amp_ji = (bj * bi) / (tj * ti)
     item = _itemsize(p)
     cells = p.maxk * p.maxj * p.maxi / (K1 * J1 * I1)
@@ -440,13 +455,127 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
         arrays_read, written = 6 + (6 if lossy else 0) + (3 if het else 0), 6
         # sigma is read and the accumulator read and written once per cell
         sar_bytes = (item + 8) * cells if sar else 0.0
-    # psi: read once per halo-amplified tile, written once, per sweep
-    pml_bytes = psi_bytes(p, pml) * (amp_ji * amp_k + 1) / (K1 * J1 * I1) if pml else 0.0
     # the DFT sums: read and written once per sweep
     dft_bytes = acc_bytes(p, dft) / (K1 * J1 * I1) if dft is not None else 0.0
-    per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + pml_bytes + dft_bytes) / s
-    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, pml is not None, ade,
+    per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + dft_bytes) / s
+    return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, False, ade,
                       dft is not None, window, bool(cr))
+
+
+def psi_free(p: Params, cfg: PMLConfig) -> tuple[tuple[int, int], ...]:
+    """Per axis (k, j, i), the planes [a, b) of the padded grid that hold
+    no psi of a term whose PML axis it is: every psi cell lies below a or
+    at b or above along some axis (:func:`.cpml.psi_boxes`)."""
+    lo, hi = [0, 0, 0], list(p.padded_shape)
+    for name, slabs in psi_boxes(p, cfg).items():
+        axis = PML_AXES[name]
+        lo[axis] = max(lo[axis], slabs[0][axis][1])
+        hi[axis] = min(hi[axis], slabs[1][axis][0])
+    return tuple(zip(lo, hi))
+
+
+# the PML axis of each psi term (ops/cpml.py::_TERMS): the letter after "_"
+PML_AXES = {name: "zyx".index(name[-1]) for name in TERM_NAMES}
+
+
+def pml_blocks(shape: tuple[int, int, int], free: tuple[tuple[int, int], ...], s: int, tj: int, ti: int,
+               sh: int) -> tuple[tuple[int, int, int, int, int, int] | None, int, tuple]:
+    """The layout of a CPML sweep on a padded grid of ``shape`` whose psi
+    lies outside ``free`` (:func:`psi_free`), at ``s`` steps with tiles of
+    ``tj`` x ``ti`` columns (``sh``: the cell means' extra column).
+
+    A block's recompute region is its emitted window with s cells more
+    below and s + sh above along each axis (the tile's s-column halo, s +
+    1 with the cell means; the segment's s lead-in planes and the s + sh
+    planes past it).  The interior window, whose blocks' regions hold no
+    psi (narrowed along j and i so that the shell's slabs there are whole
+    tiles wide: their tiles compute those columns anyway), runs ring_kernel
+    (the K3 sweep); the six boxes around it (the k slabs, then the j slabs
+    between them, then the i slabs) run pml_kernel, or the whole grid does
+    where no interior is left.  Each box is tiled like ring_kernel's grid (k
+    segments of every tile, tiles in (j, i) order), at the segment depth
+    whose blocks, longest first, finish soonest on the 132 SMs (each block's
+    pipeline steps counted, handed to the SM that frees first).  Returns
+    (the interior window (k0, k1, j0, j1, i0, i1) or None, the segment
+    depth, pml_kernel's blocks (k0, k1, j0, j1, i0, i1, 0, 0))."""
+    inner = [(a + s, b - s - sh) for a, b in free]
+    for axis, t in ((1, tj), (2, ti)):
+        a, b = inner[axis]
+        wa, wb = -(-a // t) * t, shape[axis] - -(-(shape[axis] - b) // t) * t
+        if wa < wb:
+            inner[axis] = (wa, wb)
+    window = None
+    K1, J1, I1 = shape
+    boxes = [((0, K1), (0, J1), (0, I1))]
+    if all(a < b for a, b in inner):
+        (k0, k1), (j0, j1), (i0, i1) = inner
+        window = (k0, k1, j0, j1, i0, i1)
+        boxes = [((0, k0), (0, J1), (0, I1)), ((k1, K1), (0, J1), (0, I1)),
+                 ((k0, k1), (0, j0), (0, I1)), ((k0, k1), (j1, J1), (0, I1)),
+                 ((k0, k1), (j0, j1), (0, i0)), ((k0, k1), (j0, j1), (i1, I1))]
+
+    def layout(tk: int) -> list[tuple[int, ...]]:
+        out = []
+        for (ka, kb), (ja, jb), (ia, ib) in boxes:
+            nseg = -(-(kb - ka) // tk)
+            depth = -(-(kb - ka) // nseg)
+            tiles = [(j, min(j + tj, jb), i, min(i + ti, ib)) for j in range(ja, jb, tj) for i in range(ia, ib, ti)]
+            for k in range(ka, kb, depth):
+                out += [(k, min(k + depth, kb), *t, 0, 0) for t in tiles]
+        return sorted(out, key=lambda b: -cost(b))
+
+    def cost(b) -> int:
+        return b[1] + s + sh - max(b[0] - s, 0)
+
+    def makespan(blocks) -> int:
+        sms = [0] * SM_COUNT
+        for b in blocks:
+            heapq.heapreplace(sms, sms[0] + cost(b))
+        return max(sms)
+
+    planes = shape[0]
+    best = None
+    for nk in range(1, max(1, min(planes // (2 * s), 32)) + 1):
+        tk = -(-planes // nk)
+        blocks = layout(tk)
+        key = (makespan(blocks), -tk)
+        if best is None or key < best[0]:
+            best = (key, tk, blocks)
+    return window, best[1], tuple(best[2])
+
+
+def _pml_plan(p: Params, s: int, lossy: bool, pml: PMLConfig, bj: int, dft: DftConfig | None,
+              cr: bool) -> StreamPlan:
+    """The CPML sweep's plan: pml_kernel's blocks and the interior's
+    ring_kernel plan (``core``: the K3 sweep of the variant at depth s on
+    the interior window, with its origin), where the grid has one."""
+    bi = BLOCK_I
+    sh = int(dft is not None)
+    tj, ti = bj - 2 * s - sh, bi - 2 * s - sh
+    shape = p.padded_shape
+    window, tk, blocks = pml_blocks(shape, psi_free(p, pml), s, tj, ti, sh)
+    core = None
+    if window is not None:
+        k0, k1, j0, j1, i0, i1 = window
+        cbj, ccr = ((BLOCK_J_PML_INTERIOR_DFT[s], False) if dft is not None else
+                    ((BLOCK_J_MATERIAL if lossy else BLOCK_J)[s], lossy and COEF_RING_MATERIAL.get(s, False)))
+        core = dataclasses.replace(plan_for(p, s, lossy, bj=cbj, dft=dft, window=(k1 - k0, j1 - j0, i1 - i0), cr=ccr),
+                                   origin=(k0, j0, i0))
+    # bytes: pml_kernel's blocks read the fields (and ca/cb) of their
+    # columns and planes, the interior its own model; every cell written
+    # once; psi read once per amplified shell cell and written once
+    item = _itemsize(p)
+    K1 = shape[0]
+    loaded = sum((min(b[1] - 1 + s + sh, K1 - 1) - max(b[0] - s, 0) + 1) * bj * bi for b in blocks)
+    shell = sum((b[1] - b[0]) * (b[3] - b[2]) * (b[5] - b[4]) for b in blocks)
+    reads = (6 + (6 if lossy else 0)) * item * loaded
+    inner = core.bytes_per_cell_step * s * math.prod(core.window) if core is not None else 0.0
+    psi_b = psi_bytes(p, pml) * (loaded / shell + 1)
+    dft_b = acc_bytes(p, dft) if dft is not None else 0.0
+    per_step = (reads + 6 * item * shell + inner + psi_b + dft_b) / (s * math.prod(shape))
+    nj, ni = -(-shape[1] // tj), -(-shape[2] // ti)
+    return StreamPlan(s, tk, tj, ti, bj, bi, -(-K1 // tk), nj, ni, per_step, lossy, False, False, True, False,
+                      dft is not None, None, cr, None, pml.cells, blocks, core)
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:

@@ -25,7 +25,8 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
 - ``kernels_ms_per_step``: that sum split by kernel variant (the names of
   the launch counters: ``yee_stream``, ``yee_stream_lossy_sar``,
   ``yee_update_h``, ``yee_update_e_lossy``, ``yee_update_e_ade_sar``,
-  ``yee_stream_lossy_sar_dft``, ``dft_accum``, ``yee_stream_shard``, ...), ``halo_exchange`` (the copies
+  ``yee_stream_lossy_sar_dft``, ``dft_accum``, ``yee_stream_shard``, ``yee_stream_pml`` and
+  ``yee_stream_pml_interior``: the CPML sweep's shell and interior launches, ...), ``halo_exchange`` (the copies
   of a sharded run's halo planes: the device time of the profiler range ``parallel.mesh.exchange`` opens,
   taken out of ``other``), ``sar_increment`` (the per-step torch ops of the deposition on
   ``twopass``/``torch`` and on the trailing steps of ``stream``: the device
@@ -55,6 +56,7 @@ from . import diagnostics
 from .dft import DftConfig, dft_weights, zero_dft_acc
 from .ops.cpml import PMLConfig, init_psi
 from .ops.dispersive import water_debye_load, zero_polarization
+from .ops.stream import INTERIOR
 from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
 from .parallel import mesh as shard_mesh
@@ -68,11 +70,12 @@ DFT_HZ = 2.45e10  # the dft scene's frequency (--dft 2.45e10)
 SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # demangled names of the kernels in csrc/ ("::e_kernel<" and not "e_kernel":
 # PyTorch's own elementwise_kernel contains the latter), with their template
-# flags after the type: stream <T, S, BJ, LOSSY, DFT> (the CPML sweep),
-# ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET, PML, BOX>,
-# e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>; BOX: a shard's
-# launch (the counter's name with "_shard")
-_KERNEL = re.compile(r"::(stream_kernel|ring_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
+# flags after the type: pml <T, S, BJ, CR, LOSSY, DFT> (the CPML sweep's
+# shell), ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET,
+# PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>;
+# BOX: a shard's launch (the counter's name with "_shard"), or in an
+# unsharded CPML scene the CPML sweep's interior ("_interior")
+_KERNEL = re.compile(r"::(pml_kernel|ring_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -82,18 +85,22 @@ def scene(n: int, dtype: str) -> Params:
                   mode=Mode.COMPUTATION, dtype=dtype)
 
 
-def _group(name: str) -> str:
-    """The launch-counter name of a kernel of csrc/, else ``other``."""
+def _group(name: str, pml: bool = False) -> str:
+    """The launch-counter name of a kernel of csrc/, else ``other``
+    (``pml``: an unsharded CPML scene, whose box sweeps are the CPML
+    sweep's interior)."""
     m = _KERNEL.search(name)
     if m is None:
         return "other"
     flags = [a.strip() == "true" for a in m.group(2).split(",")[1:] if a.strip() in ("true", "false")]
     if m.group(1) == "dft_accum_kernel":
         return "dft_accum" + ("_shard" if flags[:1] == [True] else "")
-    if m.group(1) == "stream_kernel":
-        return variant_name(flags[0], False, False, True, False, flags[1])
+    if m.group(1) == "pml_kernel":
+        return variant_name(flags[1], False, False, True, False, flags[2])
     if m.group(1) == "ring_kernel":
         lossy, het, sar, ade, dft, box = flags[1:7]
+        if box and pml:
+            return variant_name(lossy, het, sar, True, ade, dft) + INTERIOR
         return variant_name(lossy, het, sar, False, ade, dft) + ("_shard" if box else "")
     if m.group(1) == "ade_e_kernel":
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
@@ -159,7 +166,7 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
             us = ev.self_cuda_time_total
         if us <= 0 or (kind is not None and kind != torch.autograd.DeviceType.CUDA):
             continue
-        g = _group(ev.key)
+        g = _group(ev.key, pml is not None and not shard)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + ev.count
     device = sum(by_group.values())

@@ -152,10 +152,12 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
     stream in computation mode only, SAR needs materials, and the CPML
     sweep takes the gates of ``stream_plan.pml_gates`` (computation mode,
     uniform mu_r, no SAR, the source patch clear of the j and i slabs), as
-    the JAX package's streaming-PML tier does.  With CPML ``auto`` runs
-    ``twopass`` all the same: on an H100 at 256^3 the CPML sweep is no
-    faster in fp32 and slower in bf16 (PERF.md), and it holds a second
-    state and psi set; ``stream`` runs it when asked.  An explicit ``twopass`` or
+    the JAX package's streaming-PML tier does, and ``auto`` picks it as
+    the JAX package's ``auto`` picks that tier: on an H100, 1000 steps at
+    256^3 with 10-cell walls ran 1.74x faster in fp32 and 1.14x in bf16 on
+    the CPML sweep (the psi-free interior on the K3 sweep, the shell on the
+    CPML kernel) than on ``twopass``, and 1.48x and 1.21x with the DFT bands
+    against ``twopass`` + ``dft_accum`` (PERF.md).  An explicit ``twopass`` or
     ``stream`` on the CPU or in float64 raises ``ValueError``, and so does
     ``stream`` when no plan fits, and ``twopass`` (picked or asked for)
     when its state, material arrays, psi and temporaries do not fit either
@@ -163,8 +165,7 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
 
     The monitors follow the JAX runner's gates: the DFT of fields "e" in
     computation mode rides the stream sweep's DFT bands when a plan with
-    them fits (``auto`` picks it; with CPML only when asked for, as
-    above), else ``twopass`` with the ``dft_accum`` kernel after each
+    them fits (``auto`` picks it), else ``twopass`` with the ``dft_accum`` kernel after each
     step; probes, fields "eh" and validation mode need per-step states and
     run on ``twopass`` (``torch`` off the card).  An explicit ``stream``
     that the monitors cannot take runs ``twopass`` with a notice.  The
@@ -188,7 +189,7 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
     if backend == "auto":
         if not kernels_ok:
             return "torch"
-        backend = "stream" if fits and pml is None else "twopass"
+        backend = "stream" if fits else "twopass"
     elif backend == "stream" and monitors and kernels_ok and not fits:
         _monitor_notice(p, dft, probes, log)
         backend = "twopass"

@@ -310,7 +310,7 @@ _STREAM_NOTICE = "notice: per-step monitors (--probe/--dft eh/validation) run th
     ("three frequencies stream", "stream", "cuda", dict(dft=dft.DftConfig((1e9, 2e9, 3e9))), "twopass",
      "notice: the DFT bands of the stream sweep do not fit this scene; running the twopass kernels with the "
      "dft_accum kernel (backend 'stream' ignored)"),
-    ("pml auto", "auto", "cuda", dict(dft=_E, pml=True), "twopass", None),
+    ("pml auto", "auto", "cuda", dict(dft=_E, pml=True), "stream", None),
     ("pml stream", "stream", "cuda", dict(dft=_E, pml=True), "stream", None),
     ("pml probes stream", "stream", "cuda", dict(dft=_E, pml=True, probes=_PROBES), "twopass", _STREAM_NOTICE),
     ("debye e", "auto", "cuda", dict(dft=_E, mats="debye", sar=True), "stream", None),

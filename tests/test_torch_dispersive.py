@@ -737,8 +737,9 @@ def test_profile_groups_the_ade_kernels():
 
 def test_profile_groups_the_ring_kernels():
     """ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX> and the CPML
-    sweep's stream_kernel<T, S, BJ, LOSSY, DFT> map to their variants' launch
-    counters."""
+    sweep's pml_kernel<T, S, BJ, CR, LOSSY, DFT> map to their variants' launch
+    counters; in an unsharded CPML scene a box sweep is the CPML sweep's
+    interior."""
     g = profile_chunk._group
     assert g("void (anonymous namespace)::ring_kernel<float, 2, 16, true, false, false, true, true, false, false>(x)"
              ) == "yee_stream_ade_sar"
@@ -748,6 +749,8 @@ def test_profile_groups_the_ring_kernels():
              "false, true>(x)") == "yee_stream_shard"
     assert g("void (anonymous namespace)::ring_kernel<float, 2, 24, true, true, true, true, false, true, true>(x)"
              ) == "yee_stream_lossy_het_sar_dft_shard"
-    assert g("void (anonymous namespace)::stream_kernel<float, 2, 24, false, false>(x)") == "yee_stream_pml"
-    assert g("void (anonymous namespace)::stream_kernel<__nv_bfloat16, 2, 24, true, true>(x)"
+    assert g("void (anonymous namespace)::pml_kernel<float, 2, 24, false, false, false>(x)") == "yee_stream_pml"
+    assert g("void (anonymous namespace)::pml_kernel<__nv_bfloat16, 2, 20, false, true, true>(x)"
              ) == "yee_stream_lossy_pml_dft"
+    assert g("void (anonymous namespace)::ring_kernel<float, 2, 24, false, false, false, false, false, true, true>(x)",
+             True) == "yee_stream_pml_dft_interior"

@@ -630,8 +630,8 @@ def test_memory_model_counts_psi_and_output_temporaries():
     [
         ("cuda", "float32", Mode.COMPUTATION, None, "stream", "stream"),
         ("cuda", "bfloat16", Mode.COMPUTATION, "water", "stream", "stream"),
-        ("cuda", "float32", Mode.COMPUTATION, None, "auto", "twopass"),
-        ("cuda", "bfloat16", Mode.COMPUTATION, "water", "auto", "twopass"),
+        ("cuda", "float32", Mode.COMPUTATION, None, "auto", "stream"),
+        ("cuda", "bfloat16", Mode.COMPUTATION, "water", "auto", "stream"),
         ("cuda", "float32", Mode.COMPUTATION, "water+sar", "auto", "twopass"),
         ("cuda", "float32", Mode.COMPUTATION, "ferrite", "auto", "twopass"),
         ("cuda", "float32", Mode.VALIDATION, None, "auto", "twopass"),
@@ -644,9 +644,10 @@ def test_memory_model_counts_psi_and_output_temporaries():
 )
 def test_resolve_backend_pml_gates(device, dtype, mode, scene, backend, want):
     """The CPML sweep takes the TPU's streaming-PML gates (computation
-    mode, uniform mu_r, no SAR, the source patch clear of the j/i slabs)
-    when asked for; ``auto`` runs every CPML scene on twopass (the sweep is
-    no faster on an H100)."""
+    mode, uniform mu_r, no SAR, the source patch clear of the j/i slabs),
+    and ``auto`` picks it for the scenes that pass them, in fp32 and bf16
+    (on an H100 it beats twopass in both: PERF.md); the others run
+    on twopass."""
     jp = _box(64, 4, mode, dtype)
     cfg = cpml.PMLConfig(cells=10)
     if scene == "small":  # 24^3 with 10-cell slabs: the 5 mm patch reaches into the j/i slabs
@@ -693,6 +694,212 @@ def test_pml_plans():
     assert stream_plan.pick_plan(tp, lossy=True, sar=True, pml=cfg) is None
     assert stream_plan.pick_plan(tp, het=True, pml=cfg) is None
     assert stream_plan.variant_name(False, False, False, True) == "yee_stream_pml"
+
+
+# --- the CPML sweep's two launches (stream_plan.pml_blocks) -------------------
+
+
+def _psi_mask(jp, cells):
+    """Brute force: every cell that holds psi of some term, from the JAX
+    package's slab slices of each term (``fdtd_tpu.ops.cpml.build_plan``)."""
+    mask = np.zeros(jp.padded_shape, dtype=bool)
+    for lo_sl, hi_sl, *_ in jcpml.build_plan(jp, jcpml.PMLConfig(cells=cells), jnp.float32).values():
+        mask[lo_sl] = True
+        mask[hi_sl] = True
+    return mask
+
+
+def _windows(plan):
+    """The emitted windows of a CPML plan's launches: (k0, k1, j0, j1, i0,
+    i1, runs K3's arithmetic) of pml_kernel's blocks and of the interior."""
+    out = [b[:6] + (False,) for b in plan.pml_blocks]
+    if plan.core is not None:
+        out.append(tuple(x for lo, w in zip(plan.core.origin, plan.core.window) for x in (lo, lo + w)) + (True,))
+    return out
+
+
+@pytest.mark.parametrize("dft", [False, True])
+@pytest.mark.parametrize("shape", ["ragged", "wide", "256"])
+def test_pml_blocks_keep_psi_on_pml_kernel_and_tile_the_grid(shape, dft):
+    """The interior window (the launch that runs K3's arithmetic) has, for
+    every block, a recompute region -- the window with s cells more below
+    and s (+1 with the DFT cell means) above along each axis -- that holds
+    no psi cell of any term (a brute-force scan of the terms' slabs); the
+    emitted windows of both launches tile the padded grid exactly once; a
+    pml_kernel block emits at most a tile.  Ragged: 61 x 50 x 70 with
+    6-cell walls; wide: the same box with 14-cell walls, whose slabs take
+    more than one tile; 256^3 with 10-cell walls."""
+    jp = (_box(256, 4, dtype="float32") if shape == "256" else
+          Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                 simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="float32"))
+    tp = convert.params_from(jp)
+    cells = {"256": 10, "ragged": 6, "wide": 14}[shape]
+    cfg = cpml.PMLConfig(cells=cells)
+    mask = _psi_mask(jp, cells)
+    free = stream_plan.psi_free(tp, cfg)
+    covered = np.zeros(jp.padded_shape, dtype=np.int8)
+    from fdtd_tpu_torch.dft import DftConfig
+    plan = stream_plan.plan_for(tp, 2, pml=cfg, dft=DftConfig((1e9,)) if dft else None)
+    s, sh = plan.s, int(dft)
+    assert plan.core is not None and plan.blocks == len(plan.pml_blocks)
+    k3 = 0
+    for k0, k1, j0, j1, i0, i1, plain in _windows(plan):
+        assert 0 < j1 - j0 <= plan.tj and 0 < i1 - i0 <= plan.ti or plain and (k0, j0, i0) == plan.core.origin
+        covered[k0:k1, j0:j1, i0:i1] += 1
+        if plain:
+            region = tuple(slice(max(lo - s, 0), hi + s + sh) for lo, hi in ((k0, k1), (j0, j1), (i0, i1)))
+            assert not mask[region].any(), (k0, k1, j0, j1, i0, i1)
+            assert all(a <= lo - s and hi + s + sh <= b for (lo, hi), (a, b) in zip(((k0, k1), (j0, j1), (i0, i1)),
+                                                                                     free))
+            k3 += (k1 - k0) * (j1 - j0) * (i1 - i0)
+    assert (covered == 1).all()
+    # the free planes bound the largest box clear of psi: one plane more on any side holds some
+    inner = tuple(slice(a, b) for a, b in free)
+    assert not mask[inner].any()
+    for axis, (a, b) in enumerate(free):
+        for grown in ((a - 1, b), (a, b + 1)):
+            assert mask[inner[:axis] + (slice(*grown),) + inner[axis + 1:]].any()
+    if shape == "256":  # most cells run K3's arithmetic: 59% in the interior
+        assert k3 / mask.size > 0.55
+
+
+def test_psi_free_planes_are_the_slab_bounds():
+    """The planes clear of every term's slabs along each axis are (n + 1,
+    K - n), (n + 1, J - n), (n + 1, I - n): the E terms' regions start one
+    cell in, so their lo slabs reach one plane further than the H terms'."""
+    tp = convert.params_from(Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                                    simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="float32"))
+    for n in (1, 6, 10):
+        assert stream_plan.psi_free(tp, cpml.PMLConfig(cells=n)) == (
+            (n + 1, tp.maxk - n), (n + 1, tp.maxj - n), (n + 1, tp.maxi - n))
+
+
+def test_tune_stream_plans_the_cpml_candidates():
+    """The tuner's CPML scenes: every candidate shape (the built one among
+    them) has a plan that fits a block's shared memory with the DFT sums of
+    five frequencies where it has bands; its ptxas reader keeps
+    pml_kernel's entries beside ring_kernel's."""
+    from fdtd_tpu_torch import tune_stream
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_110pml_kernelIfLi2ELi24ELb1ELb1ELb0EEEvNS_6Fields"
+        "IT_EE' for 'sm_90a'",
+        "    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+    ])
+    assert tune_stream.ptxas_report(log) == {("pml", "float32", 2, 24, True, True, False): (80, 12)}
+    p = convert.params_from(_box(256, 4, dtype="float32"))
+    for name in ("pml", "lossy_pml", "pml_dft", "lossy_pml_dft"):
+        lossy, dft = name.startswith("lossy"), name.endswith("dft")
+        built = tune_stream.built_shapes(name, p)
+        assert len(built) == 1 and set(built) < set(tune_stream.shapes(name, p, False))
+        for s, bj, cr in tune_stream.shapes(name, p, False):
+            plan = stream_plan.plan_for(p, s, lossy, pml=tune_stream.PML_TIMED, bj=bj, cr=cr,
+                                        dft=tune_stream.DftConfig((1e9,)) if dft else None)
+            assert (plan.s, plan.bj, plan.cr) == (s, bj, cr) and plan.core is not None
+            assert plan.kernel == stream_plan.variant_name(lossy, False, False, True, dft=dft)
+            assert plan.smem_bytes + plan.dft_smem_bytes(5) <= stream_plan.SMEM_PER_BLOCK
+
+
+def _plain_split_sweep(p, state, coefs, plan, drive=None, out=None, cp=None, psi=None, psi_out=None, dacc=None,
+                      wts=None):
+    """The plain version of a CPML sweep as its launches divide the grid
+    (``plan``: a CPML plan): ``plain_sweep`` with ``cp`` for pml_kernel's
+    blocks, then the K3 steps without psi on the interior launch's window
+    (``plain_sweep`` on a box of the whole grid's arrays that owns it)."""
+    before = tuple(t.clone() for t in dacc) if dacc is not None else None
+    out = stream.plain_sweep(p, state, coefs, plan.s, drive, out, None, cp, psi, psi_out, dacc=dacc, wts=wts)
+    core = plan.core
+    box = grid.Box((0, 0, 0), p.padded_shape, core.origin, tuple(o + w for o, w in zip(core.origin, core.window)))
+    sub = sl = None
+    if dacc is not None:
+        sl = (slice(None), slice(None)) + tuple(slice(a, b) for a, b in zip(*box.cells(p)))
+        sub = tuple(t[sl].contiguous() for t in before)
+    stream.plain_sweep(p, state, coefs, plan.s, drive, out, dacc=sub, wts=wts, box=box)
+    if dacc is not None:
+        for t, u in zip(dacc, sub):
+            t[sl] = u
+    return out
+
+
+@pytest.mark.parametrize("cells", [4, 9])
+@pytest.mark.parametrize("lossy, dft", [(False, False), (True, False), (False, True), (True, True)])
+def test_split_plain_sweep_is_plain_sweep(lossy, dft, cells):
+    """fp32: the plain version of the CPML sweep as its launches divide the
+    grid (``_plain_split_sweep``: K3's arithmetic on the interior)
+    equals ``plain_sweep`` bit for bit -- fields, all twelve psi from
+    random psi, and the DFT sums from random sums -- on a 64 x 60 x 70 box
+    with 4- and 9-cell walls."""
+    from fdtd_tpu_torch.dft import DftConfig
+    jp = Params(length=0.07, width=0.06, height=0.064, spatial_step=0.001, time_step=1e-12,
+                simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="float32")
+    tp = convert.params_from(jp)
+    cfg = cpml.PMLConfig(cells=cells)
+    mats = tstate.water_block(tp, lo=(0.02,) * 3, hi=(0.98,) * 3) if lossy else None
+    coefs = tstate.update_coefs(tp, mats, "cpu")
+    st = convert.state_from_numpy(_random_fields(jp, 11), "cpu", torch.float32)
+    psi = _random_psi(tp, cfg, 12, torch.float32)
+    _, drive = _drive(tp, st, 2, 13)
+    cp = cpml.make_cpml(tp, cfg, coefs, "cpu")
+    plan = stream_plan.plan_for(tp, 2, lossy, pml=cfg, dft=DftConfig((1e9, 2e9)) if dft else None)
+    assert plan.core is not None
+    rng = np.random.default_rng(14)
+    sums = tuple(torch.tensor(rng.uniform(-1, 1, (2, 3, tp.maxk, tp.maxj, tp.maxi)), dtype=torch.float32)
+                 for _ in range(2)) if dft else None
+    wts = torch.tensor(rng.uniform(-1, 1, (2, 2, 2)), dtype=torch.float32) if dft else None
+    got = []
+    for fn in (stream.plain_sweep, _plain_split_sweep):
+        out = tstate.FieldState(*(torch.full_like(t, float("nan")) for t in st.tensors()))
+        pout = cpml.PsiState(*(torch.full_like(t, float("nan")) for t in psi.tensors()))
+        dacc = tuple(t.clone() for t in sums) if dft else None
+        if fn is stream.plain_sweep:
+            fn(tp, st, coefs, 2, drive, out, None, cp, psi, pout, dacc=dacc, wts=wts)
+        else:
+            fn(tp, st, coefs, plan, drive, out, cp, psi, pout, dacc, wts)
+        got.append((out.tensors(), pout.tensors(), dacc or ()))
+    for a, b in zip(*got):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert _engaged(cpml.PsiState(*got[1][1])) == 12
+
+
+@pytest.mark.parametrize("lossy", [False, True])
+def test_split_sweep_matches_interpret_stream_pml(lossy, monkeypatch):
+    """The port's CPML sweep as its launches divide the grid (the runner's
+    sweeps through ``_plain_split_sweep``: K3's arithmetic on the
+    interior) against ``_kernel_pml`` at s = 2, 8 steps, fp32, within 2^-20
+    of each array's scale, all twelve terms engaged, from random fields in
+    vacuum and with a water block in the middle (the TPU kernel takes slab-
+    constant factors only)."""
+    from fdtd_tpu.ops.pallas_stream_pml import make_stream_pml_chunk_runner, pack_psi_stream, \
+        unpack_psi_stream
+
+    jp = _box(24, 8, Mode.COMPUTATION, "float32")
+    jcfg = jcpml.PMLConfig(cells=5)
+    mats = jstate.water_block(jp, lo=(0.35,) * 3, hi=(0.65,) * 3) if lossy else None
+    init = _updated_fields(jp, 61)
+    prep, restore = backend_adapters(jp, "pallas_fused", mats)
+    run_s = make_stream_pml_chunk_runner(jp, jcfg, mats, interpret=True, s=2)
+    carry, _ = run_s((prep(_jax_state(init, jp.dtype)), pack_psi_stream(jp, jcfg, None)),
+                     j_scan_inputs(jp, time_values(jp)[:8]), None)
+    want, psi_w = restore(carry[0]), unpack_psi_stream(jp, jcfg, carry[1])
+    assert stream_plan.pick_plan(convert.params_from(jp), lossy=lossy, pml=cpml.PMLConfig(cells=5)).core is not None
+    split = []
+
+    def sweep(p, state, out, coefs, plan, drive=None, acc=None, cp=None, psi=None, psi_out=None, dc=None, pol=None,
+              pol_out=None, dacc=None, wts=None, box=None):
+        assert acc is None and dc is None and box is None and plan.core is not None
+        split.append(plan.kernel)
+        return _plain_split_sweep(p, state, coefs, plan, drive, out, cp, psi, psi_out, dacc, wts)
+
+    monkeypatch.setattr(stream, "sweep", sweep)
+    got, psi, _ = _port(jp, 5, mats, False, init, 8, "stream")
+    assert len(split) == 4
+    assert _engaged(psi_w) == _engaged(psi) == 12
+    for c in COMPONENTS:
+        _close(getattr(got, c), getattr(want, c), "float32", c)
+    for name in PSI:
+        _close(getattr(psi, name), getattr(psi_w, name), "float32", f"psi/{name}")
 
 
 # --- runner, checkpoints and CLI ---------------------------------------------

@@ -210,7 +210,7 @@ def test_plan_is_feasible_and_covers_the_grid(n, dtype):
         assert plan.blocks >= stream_plan.SM_COUNT or plan.nk == 1
 
 
-# every built variant of ring_kernel (the CPML sweep is stream_kernel's):
+# every built variant of ring_kernel (the CPML sweep's shell is pml_kernel's):
 # (lossy, het, sar, ade, dft) with its built depths
 _RING_VARIANTS = [v[:3] + v[4:] for v in stream_plan.VARIANTS if not v[3]]
 
