@@ -91,8 +91,8 @@ package beside it.  Phases, each printing one line or more:
 7. the sharded path (--shard): every per-shard kernel (K1/K2-shard,
    vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
    het, het + SAR at s = 8, 4, 2) against its plain version on every shard
-   of 4-slab, 3-slab and 2 x 3 meshes (ragged shards, both modes, fp32 and
-   bf16) and of the 256^3 shard plans, owned cells bit for bit; 1000 steps
+   of 4-slab, 3-slab (fp32) and 2 x 3 meshes (ragged shards, both modes,
+   fp32 and bf16) and of the 256^3 shard plans, owned cells bit for bit; 1000 steps
    of configs/bench_256.txt with --shard 4 and --shard 2x2 on auto, stream
    and twopass, and of the heating scene with --shard 4 on stream and
    twopass, equal to the unsharded runs bit for bit (fields, SAR map),
@@ -106,8 +106,8 @@ package beside it.  Phases, each printing one line or more:
    vacuum and het-mu / lossy, from random psi: a 10-cell absorber whose k
    and j slabs straddle shards), K4-shard (nf = 1, 2, 3) and K3-shard-DFT
    (the five shardable variants, nf = 1 and 2, from random sums and map)
-   against their plain versions on every shard of 4-slab, 3-slab and 2 x 3
-   meshes (ragged, both modes, fp32 and bf16) and of the 256^3 geometries,
+   against their plain versions on every shard of 4-slab, 3-slab (fp32)
+   and 2 x 3 meshes (ragged, both modes, fp32 and bf16) and of the 256^3 geometries,
    bit for bit; 1000 steps with --shard 4 of bench_256 --pml 10, the
    heating scene with --dft 2.45e10 (auto: the sweep with the bands, and
    twopass + dft_accum), bench_256 --pml 10 --dft 2.45e10, the Debye scene
@@ -119,6 +119,25 @@ package beside it.  Phases, each printing one line or more:
    scene's --dft 2.45e10 writing the unsharded snapshots, dft_00.vtr,
    sar.vtr and energy log; each new shard kernel's time on a middle slab of
    --shard 4 beside its plain version;
+10. (after 7b, before 8) the thermal solve, the coupled cook and the
+   sweeps: run_thermal on phase 6's 256^3 heating SAR map (normalized to
+   1 kW, a 3 s cook, fp64 and fp32: the fp64 heat content equals Q t to
+   1e-5, fp32 within 2^-14 of the peak rise of fp64), the thermal step's
+   time beside its byte bound; the CLI's coupled cook
+   configs/heating_256.txt --water-block --sar --coupled 3 --thermal 10
+   --thermal-power 1000 on auto (the lossy + SAR sweep, 3 x 250 launches,
+   interval checkpoints) and on twopass: temperature.vtr,
+   temperature_NN.vtr and coupled.jsonl equal byte for byte, each
+   interval's materials build, update_coefs, EM run and thermal solve
+   timed; the cook resumed from its checkpoint after interval 2 equal to
+   the uninterrupted one; --rotate 10 --load-center 0.35,0.5 over 2
+   intervals (both frames, angles 150 and 450 degrees); then
+   frequency_sweep(backend="pallas_fused") of 4 members at 256^3, 200
+   steps through the batched K1/K2 (200 launches each), equal bit for bit
+   to four single twopass runs; the batched kernels against their plain
+   versions and the per-member kernels (64^3 x 8 and 256^3 x 4, fp32 and
+   bf16) and their times beside the per-member launches'; the device's
+   idle share of a sweep, batched and per member (64^3 x 8, 256^3 x 4);
 8. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
    bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
    (nf = 1), and each kernel's time beside its plain version's and its
@@ -140,7 +159,7 @@ package beside it.  Phases, each printing one line or more:
    comparison.
 
 Each phase prints its seconds; the Debye maps (host fp64, several
-seconds at 256^3) are built once per scene and dtype and passed to the
+seconds at 256^3) are built once per dtype (phase 3) and passed to the
 runners.  Phase 5 runs the CLI as ``python -m fdtd_tpu_torch`` in a
 process of its own; the later CLI runs call its entry point (``cli.main``)
 in this process, output captured, so that each does not pay the start-up
@@ -171,6 +190,12 @@ N_WARM = 8
 N_LOADS = 66  # steps of the load comparisons at 256^3 (not a multiple of the sweep's s)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PML_STEPS_RINGDOWN = 1200  # the gaussian ring-down of tests/test_pml.py
+THERMAL_WATTS = 1000.0  # phase 10: the heating SAR map normalized to a 1 kW magnetron
+THERMAL_COOK_S = 3.0  # phase 10: the thermal solve's cook (about 500 steps)
+THERMAL_FP32_BAR = 2.0**-14  # phase 10: fp32 against fp64 rise, of the peak rise
+SWEEP_MEMBERS = 4  # phase 10: the 256^3 frequency sweep's members
+# phases 7 and 7b: the meshes of the shard kernels' checks on ragged boxes
+SHARD_MESHES = {"float32": ((4, 1, 1), (3, 1, 1), (2, 3, 1)), "bfloat16": ((4, 1, 1), (2, 3, 1))}
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 # the sweeps' first design (commit 04e00ef), measured by this script on an
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md kernel table): steps a sweep and
@@ -609,8 +634,37 @@ def main() -> None:
             compare_sweep(p, seed_arrays, s, f"{dtype} TE101 non-integer box {p.padded_shape}")
     check(bool(ragged), f"stream tiles that do not divide the box were checked: {sorted(ragged)}")
 
+    # update_coefs is a pure function of the grid, the step, the dtype and
+    # the materials, and its fp64 host build takes seconds at 256^3: the
+    # smoke memoizes it by those (the 256^3 scenes share their grid and
+    # step), so the checks below and the later phases' runners share builds
+    import fdtd_tpu_torch.parallel.sharded_step as sharded_step_mod
+    import fdtd_tpu_torch.step as step_mod
+    coef_cache: dict = {}
+
+    def coef_key(pm: Params, mats, device) -> tuple:
+        return (pm.padded_shape, pm.spatial_step, pm.time_step, pm.dtype, id(mats), str(device))
+
+    def memo_update_coefs(pm: Params, mats=None, device=None):
+        key = coef_key(pm, mats, device)
+        if key not in coef_cache:
+            coef_cache[key] = (mats, update_coefs(pm, mats, device))  # mats kept: its id stays unique
+        return coef_cache[key][1]
+
+    def coefs_of(pm: Params, mats):
+        """The update coefficients of ``mats`` (not Debye) for ``pm``'s grid
+        and dtype on the card, the runners' build."""
+        return memo_update_coefs(pm, mats, dev)
+
     # one sweep at 256^3 with the main path's plan, both dtypes
     p_main = load_parameters("configs/bench_256.txt", dtype="float32")
+    ph = load_parameters("configs/heating_256.txt", dtype="float32")
+    check((ph.padded_shape, ph.spatial_step, ph.time_step) == (p_main.padded_shape, p_main.spatial_step,
+                                                               p_main.time_step),
+          "the heating scene's grid and step are the main path's: the 256^3 checks' maps serve its runs")
+    water = water_block(ph)  # the heating scene's load (--water-block), and with the ferrite shelf
+    ferrite = ferrite_slab(ph, base=water)
+    dc_by_dtype = {}  # the Debye maps of the 256^3 scenes per dtype
     main_plan = stream_plan.pick_plan(p_main)
     print(f"main path plan at 256^3: {main_plan} ({main_plan.blocks} blocks of "
           f"{main_plan.threads} threads, {main_plan.smem_bytes} B shared memory)", flush=True)
@@ -622,20 +676,25 @@ def main() -> None:
         pml_plan = stream_plan.pick_plan(pd, pml=PML10)
         compare_sweep_pml(pd, arrays, pml_plan.s, f"{dtype} random 256^3, --pml 10 plan", cfg=PML10)
         compare_sweep_pml(pd, arrays, pml_plan.s, f"{dtype} water random 256^3, --pml 10 plan",
-                          update_coefs(pd, water_block(pd), dev), cfg=PML10)
+                          coefs_of(pd, water), cfg=PML10)
         # the heating plans: water + SAR, and water + ferrite + SAR
-        for mats, scene_m in ((water_block(pd), "heating"), (ferrite_slab(pd, base=water_block(pd)),
-                                                              "heating + ferrite")):
-            coefs_m = update_coefs(pd, mats, dev)
+        for mats, scene_m in ((water, "heating"), (ferrite, "heating + ferrite")):
+            coefs_m = coefs_of(pd, mats)
             plan_m = stream_plan.pick_plan(pd, lossy=True, het=coefs_m.heterogeneous_mu, sar=True)
             compare_sweep(pd, arrays, plan_m.s, f"{dtype} {scene_m} random 256^3, its plan", coefs_m, True)
             del coefs_m
-        # the Debye plans (--water-block --dispersive, with and without --sar)
+        # the Debye plans (--water-block --dispersive, with and without --sar);
+        # the maps (host fp64, several seconds) stay for the Debye path's runs
+        # (phases 6c, 6d and 8: the same grid, step, load and dtype)
         dm_d = water_debye_load(pd)
-        dc_d = debye_coefs(pd, dm_d, dev)
+        t0 = time.perf_counter()
+        dc_by_dtype[dtype] = debye_coefs(pd, dm_d, dev)
+        torch.cuda.synchronize()
+        if dtype == "float32":
+            debye_build_s = time.perf_counter() - t0  # the set-up a Debye run pays (phase 8 prints it)
         for sar in (False, True):
-            compare_sweep_ade(pd, arrays, f"{dtype} Debye random 256^3, its plan", dm_d, sar, dc_d)
-        del arrays, dc_d
+            compare_sweep_ade(pd, arrays, f"{dtype} Debye random 256^3, its plan", dm_d, sar, dc_by_dtype[dtype])
+        del arrays
 
     phase_done("3 kernels vs plain")
 
@@ -750,26 +809,10 @@ def main() -> None:
     bench_ref = finals["stream"]  # the unsharded state phase 7 holds the sharded runs against
     del finals
 
-    # update_coefs is a pure function of the grid and the materials, and its
-    # fp64 host build takes seconds at 256^3: from here on the smoke memoizes
-    # it where the runners look it up, so the runners of a scene share one
-    # build (a memory check clears the cache to count the build it makes)
-    import fdtd_tpu_torch.parallel.sharded_step as sharded_step_mod
-    import fdtd_tpu_torch.step as step_mod
-    coef_cache: dict = {}
-
-    def memo_update_coefs(pm: Params, mats=None, device=None):
-        key = (pm, id(mats), str(device))
-        if key not in coef_cache:
-            coef_cache[key] = (mats, update_coefs(pm, mats, device))  # mats kept: its id stays unique
-        return coef_cache[key][1]
-
+    # from here on the runners look update_coefs up in the memo of phase 3,
+    # so the runners of a scene share one build (a memory check drops its
+    # scene's entry to count the build it makes)
     step_mod.update_coefs = sharded_step_mod.update_coefs = memo_update_coefs
-
-    def coefs_of(pm: Params, mats):
-        """The update coefficients of ``mats`` (not Debye) for ``pm``'s grid
-        and dtype on the card, the runners' build."""
-        return memo_update_coefs(pm, mats, dev)
 
     def equal_runs(pm: Params, steps: int, backends: tuple, mats=None, sar: bool = False,
                    label: str = "", pml: PMLConfig | None = None, dft=None, dc=None) -> dict:
@@ -830,9 +873,7 @@ def main() -> None:
     phase_done("5 main path")
 
     # -- 6. the heating path at 256^3 --------------------------------------
-    ph = load_parameters("configs/heating_256.txt", dtype="float32")
     nh = len(time_values(ph))
-    water = water_block(ph)
     heat_plan = stream_plan.pick_plan(ph, lossy=True, sar=True)
     print(f"heating plan at 256^3: {heat_plan} ({heat_plan.blocks} blocks of {heat_plan.threads} "
           f"threads, {heat_plan.smem_bytes} B shared memory)", flush=True)
@@ -893,11 +934,11 @@ def main() -> None:
     check(d == 0.0 and d_acc == 0.0,
           f"heating 256^3 1000 steps: stream == twopass, fields max|diff| = {d!r}, SAR max|diff| = {d_acc!r}")
     heat_ref = (finals["stream"], powers["stream"])  # held against the sharded heating runs (phase 7)
+    heat_sar = powers["stream"]  # the heat source of phase 10's thermal solve
     del finals, powers
 
     # a step count that leaves n % s trailing two-pass steps, so that
     # stream's per-step SAR increment after its sweeps is held too
-    ferrite = ferrite_slab(ph, base=water)
     sf = stream_plan.pick_plan(ph, lossy=True, het=True, sar=True).s
     check(N_LOADS % sf != 0, f"{N_LOADS} steps leave {N_LOADS % sf} trailing two-pass steps at s={sf}")
     counts = equal_runs(ph, N_LOADS, ("stream", "twopass", "torch"), ferrite, True, "water + ferrite + SAR ")
@@ -924,7 +965,7 @@ def main() -> None:
     # twopass's device memory: the allocator's peak over a water + ferrite
     # + SAR chunk against the model (one state, the material arrays, the
     # SAR slab temporaries), and the model where no stream plan fits
-    coef_cache.clear()
+    coef_cache.pop(coef_key(ph, ferrite, dev), None)  # the build this check counts
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1097,8 +1138,7 @@ def main() -> None:
 
     # -- 6c. the Debye path at 256^3 (--water-block --dispersive --sar) -----
     debye = water_debye_load(ph)
-    dc_debye = debye_coefs(ph, debye, dev)  # built once for every run of the scene
-    dc_by_dtype = {"float32": dc_debye}
+    dc_debye = dc_by_dtype["float32"]  # built once (phase 3) for every run of the scene
     ade_plan = stream_plan.pick_plan(ph, sar=True, ade=True)
     s_ade = ade_plan.s
     print(f"Debye + SAR plan at 256^3: {ade_plan} ({ade_plan.blocks} blocks of {ade_plan.threads} threads, "
@@ -1568,7 +1608,7 @@ def main() -> None:
         against their plain versions on the shard's arrays: the owned cells
         bit for bit."""
         mesh_k = shard_mesh.make_mesh(shape, "cuda")
-        host = update_coefs(pk, mats, "cpu")
+        host = memo_update_coefs(pk, mats, "cpu")
         dt = field_dtype(pk)
         canon = state_from_numpy(arrays, dev, dt)
         acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (pk.maxk, pk.maxj, pk.maxi)), dtype=torch.float32, device=dev)
@@ -1629,7 +1669,9 @@ def main() -> None:
                 scenes += [(water_block(pk), False, "water"), (water_block(pk), True, "water + SAR"),
                            (ferrite_slab(pk, base=water_block(pk)), False, "water + ferrite"),
                            (ferrite_slab(pk, base=water_block(pk)), True, "water + ferrite + SAR")]
-            for shape in ((4, 1, 1), (3, 1, 1), (2, 3, 1)):
+            # bf16 on the 4-slab and 2 x 3 meshes (the 3-slab mesh's ragged shards in fp32: its depth cut
+            # to keep the smoke's time with phase 10)
+            for shape in SHARD_MESHES[dtype]:
                 for mats_k, sar_k, scene_k in scenes:
                     for s_k in stream_plan.built_depths(mats_k is not None):
                         shard_kernels(pk, arrays, shape, s_k, f"{dtype} {mode.name} {scene_k} {pk.padded_shape}",
@@ -1644,7 +1686,7 @@ def main() -> None:
             s_vac = sharded_fast.pick_shard_plan(pd, mesh_d)[0].s
             shard_kernels(pd, arrays, shape, s_vac, f"{dtype} random 256^3, its plan")
             s_heat = sharded_fast.pick_shard_plan(pd, mesh_d, lossy=True, sar=True)[0].s
-            shard_kernels(pd, arrays, shape, s_heat, f"{dtype} heating random 256^3, its plan", water_block(pd), True)
+            shard_kernels(pd, arrays, shape, s_heat, f"{dtype} heating random 256^3, its plan", water, True)
         del arrays
     torch.cuda.empty_cache()
     phase_done("7 shard kernels vs plain")
@@ -1970,7 +2012,7 @@ def main() -> None:
         psi parts, sums and map bit for bit."""
         mesh_k = shard_mesh.make_mesh(shape, "cuda")
         s = s or stream_plan.built_depths(mats is not None, dft=True)[0]
-        host = update_coefs(pk, mats, "cpu")
+        host = memo_update_coefs(pk, mats, "cpu")
         dt = field_dtype(pk)
         canon = state_from_numpy(arrays, dev, dt)
         acc0 = (torch.tensor(rng.uniform(0.0, 1e-11, (pk.maxk, pk.maxj, pk.maxi)), dtype=torch.float32, device=dev)
@@ -2041,7 +2083,7 @@ def main() -> None:
             wb_k = water_block(pk)
             fe_k = ferrite_slab(pk, base=water_block(pk, lo=(0.0, 0.1, 0.1), hi=(0.9, 0.9, 0.9)))
             lab = f"{dtype} {mode.name} {pk.padded_shape}"
-            for shape in ((4, 1, 1), (3, 1, 1), (2, 3, 1)):
+            for shape in SHARD_MESHES[dtype]:
                 shard_kernels_11b(pk, arrays, shape, lab + " vacuum, 10-cell CPML", pml=PML_SHARD)
                 shard_kernels_11b(pk, arrays, shape, lab + " water + ferrite into the 10-cell CPML", fe_k,
                                   pml=PML_SHARD)
@@ -2334,6 +2376,258 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("7b CLI and kernel times")
 
+    # -- 10. the thermal solve, the coupled cook and the sweeps -----------------
+    # (ROADMAP items 6 and 10; runs here, before the timing of phase 8)
+    import filecmp
+
+    from fdtd_tpu_torch import coupled as coupled_mod
+    from fdtd_tpu_torch import profile_chunk, sweep
+    from fdtd_tpu_torch import thermal
+    from fdtd_tpu_torch.io.vtr import read_vtr_cell_arrays as read_vtr
+    from fdtd_tpu_torch.source import apply_source_batch
+    from fdtd_tpu_torch.state import block_mask
+
+    # (a) the thermal solve on phase 6's 256^3 heating SAR map, normalized
+    # to a 1 kW magnetron, a 3 s cook in fp64 and in fp32
+    tm_h = thermal.thermal_from_mask(ph, block_mask(ph))
+    q_h = coupled_mod.normalize_power(ph, heat_sar.to(device="cpu", dtype=torch.float64).numpy() / (nh * ph.time_step),
+                                      THERMAL_WATTS)
+    dt_h = thermal.stable_dt(ph, tm_h)  # host fp64, a second or two at 256^3: once for every solve here
+    rises, thermal_s = {}, {}
+    for dtype in ("float64", "float32"):
+        pd = dataclasses.replace(ph, dtype=dtype)
+        t0 = time.perf_counter()
+        tr = thermal.run_thermal(pd, tm_h, q_h, THERMAL_COOK_S, dt=dt_h, device=dev)
+        torch.cuda.synchronize()
+        thermal_s[dtype] = time.perf_counter() - t0
+        rises[dtype] = tr.rise
+        check(tr.rise.dtype == thermal.thermal_dtype(pd) and bool(torch.isfinite(tr.rise).all())
+              and float(tr.rise.max()) > 0,
+              f"thermal 256^3 {dtype}: {tr.steps} steps of {tr.dt!r} s over a {THERMAL_COOK_S} s cook in "
+              f"{thermal_s[dtype]:.2f} s (host set-up but stable_dt included), peak rise {float(tr.rise.max())!r} K")
+    # insulated walls: the heat content is the deposited energy, sum(rho_c * rise) dV = Q t
+    dv = ph.spatial_step**3
+    heat = float((torch.tensor(tm_h.rho_c, device=dev) * rises["float64"]).sum()) * dv
+    want_j = float(q_h.sum()) * dv * THERMAL_COOK_S
+    check(abs(heat / want_j - 1.0) < 1e-5,
+          f"thermal 256^3 fp64 energy: sum(rho_c rise) dV = {heat!r} J against Q t = {want_j!r} J "
+          f"(relative {heat / want_j - 1.0!r}, bar 1e-5)")
+    d_th = float((rises["float32"].double() - rises["float64"]).abs().max())
+    peak_th = float(rises["float64"].max())
+    check(d_th <= THERMAL_FP32_BAR * peak_th,
+          f"thermal 256^3 fp32 against fp64: max|diff| {d_th!r} K = {d_th / peak_th!r} of the peak rise "
+          f"{peak_th!r} K (bar {THERMAL_FP32_BAR!r}: fp32 rounding over the cook's steps)")
+    del rises
+    thermal_ms = {}
+    for dtype, item in (("float32", 4), ("float64", 8)):
+        pd = dataclasses.replace(ph, dtype=dtype)
+        step_th = thermal.make_thermal_step(pd, tm_h, q_h, dt_h, dev)
+        T_th = torch.zeros((ph.maxk, ph.maxj, ph.maxi), dtype=thermal.thermal_dtype(pd), device=dev)
+        thermal_ms[dtype] = event_ms(lambda: step_th(T_th))
+        # T, three face conductivities, dt/rho_c and q dt/rho_c read once, T written once
+        bound_th = 7 * item * ph.maxk * ph.maxj * ph.maxi / HBM_BYTES_PER_S * 1e3
+        print(f"timing 256^3 thermal step {dtype}: {thermal_ms[dtype]!r} ms a step ({1e3 / thermal_ms[dtype]!r} "
+              f"steps a second of cook), byte bound {bound_th!r} ms ({bound_th / thermal_ms[dtype]!r} of it); "
+              f"the 3 s cook {thermal_s[dtype]!r} s with its host set-up ({smi})")
+        del step_th, T_th
+    torch.cuda.empty_cache()
+
+    # (b) the coupled cook through the CLI, on auto (the lossy + SAR sweep)
+    # and on twopass: the same bits; each interval's host materials build,
+    # update_coefs (host fp64), EM run and thermal solve timed on the host
+    # clock; auto checkpoints its intervals, and the checkpoint after
+    # interval 2 resumes to the same cook
+    split = dict.fromkeys(("materials", "update_coefs", "em", "thermal"), 0.0)
+    real = {"materials": coupled_mod.materials_at_temperature, "update_coefs": update_coefs,
+            "em": coupled_mod.run_simulation, "thermal": coupled_mod.run_thermal}
+
+    def timed(key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[key](*a, **k)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    save_ckpt = coupled_mod._save_coupled_ckpt
+    cook_root = tempfile.mkdtemp()
+    resume_dir = os.path.join(cook_root, "resume")
+
+    def save_and_keep(out_dir, R, it_done, summaries):
+        save_ckpt(out_dir, R, it_done, summaries)
+        if it_done == 2 and out_dir.endswith("auto"):  # the checkpoint after interval 2, kept for the resume
+            os.makedirs(resume_dir, exist_ok=True)
+            shutil.copy(os.path.join(out_dir, "coupled_ckpt.npz"), resume_dir)
+
+    coupled_mod.materials_at_temperature = timed("materials")
+    coupled_mod.run_simulation, coupled_mod.run_thermal = timed("em"), timed("thermal")
+    step_mod.update_coefs = timed("update_coefs")  # the runner's fp64 host build, unmemoized: new maps each interval
+    coupled_mod._save_coupled_ckpt = save_and_keep
+    cook = ["configs/heating_256.txt", "--water-block", "--sar", "--coupled", "3", "--thermal", "10",
+            "--thermal-power", "1000"]
+    n_cook = 3 * nh
+    cook_files = ["coupled.jsonl", "temperature.vtr", "temperature_00.vtr", "temperature_01.vtr",
+                  "temperature_02.vtr"]
+    try:
+        for backend in ("auto", "twopass"):
+            for key in split:
+                split[key] = 0.0
+            out_c = os.path.join(cook_root, backend)
+            reset_counts()
+            t0 = time.perf_counter()
+            r = run_cli(cook + ["--backend", backend, "--out", out_c]
+                        + (["--checkpoint-every", "1"] if backend == "auto" else []))
+            wall_c = time.perf_counter() - t0
+            counts = counts_now()
+            want = (expect(yee_stream_lossy_sar=n_cook // heat_plan.s) if backend == "auto" else
+                    expect(yee_update_h=n_cook, yee_update_e_lossy=n_cook))
+            rows = ([json.loads(line) for line in open(os.path.join(out_c, "coupled.jsonl"))]
+                    if r.returncode == 0 else [])
+            check(r.returncode == 0 and counts == want and len(rows) == 3
+                  and all(os.path.exists(os.path.join(out_c, f)) for f in cook_files)
+                  and rows[-1]["peak_t_c"] > rows[0]["peak_t_c"] > 20.0,
+                  f"CLI {' '.join(cook[1:])} --backend {backend}: exit {r.returncode} in {wall_c:.1f} s, launch "
+                  f"counts {counts} == {want}, peak {[row['peak_t_c'] for row in rows]} C, eps_r "
+                  f"{[row['eps_r_range'] for row in rows]} {r.stderr.strip()[-300:]}")
+            print(f"coupled interval 256^3 --backend {backend} (3 intervals, {wall_c!r} s of CLI wall): per interval "
+                  f"materials {split['materials'] / 3!r} s (water_debye and the maps, host), update_coefs "
+                  f"{split['update_coefs'] / 3!r} s (the runner's fp64 host build and copy), EM run "
+                  f"{(split['em'] - split['update_coefs']) / 3!r} s (run_simulation less update_coefs), thermal "
+                  f"{split['thermal'] / 3!r} s (run_thermal, host set-up included) ({smi})", flush=True)
+        same = [f for f in cook_files if filecmp.cmp(os.path.join(cook_root, "auto", f),
+                                                     os.path.join(cook_root, "twopass", f), shallow=False)]
+        check(same == cook_files, f"coupled cook auto == twopass bit for bit: {same} of {cook_files}")
+        reset_counts()
+        r = run_cli(cook + ["--checkpoint-every", "1", "--resume", "--out", resume_dir])
+        counts = counts_now()
+        same = [f for f in ("coupled.jsonl", "temperature.vtr", "temperature_02.vtr")
+                if filecmp.cmp(os.path.join(cook_root, "auto", f), os.path.join(resume_dir, f), shallow=False)]
+        check(r.returncode == 0 and "Resuming coupled cook after interval 2" in r.stdout and len(same) == 3
+              and counts == expect(yee_stream_lossy_sar=nh // heat_plan.s),
+              f"coupled cook resumed after interval 2 == the uninterrupted cook bit for bit ({same}); launch counts "
+              f"{counts} {r.stderr.strip()[-300:]}")
+        # (c) the turntable: an off-center load at 10 rpm, 2 intervals
+        out_r = os.path.join(cook_root, "rotate")
+        reset_counts()
+        r = run_cli(["configs/heating_256.txt", "--water-block", "--sar", "--coupled", "2", "--thermal", "10",
+                     "--thermal-power", "1000", "--rotate", "10", "--load-center", "0.35,0.5", "--out", out_r])
+        counts = counts_now()
+        rows = [json.loads(line) for line in open(os.path.join(out_r, "coupled.jsonl"))] if r.returncode == 0 else []
+        maps = read_vtr(os.path.join(out_r, "temperature.vtr")) if r.returncode == 0 else {}
+        lab, mat = maps.get("temperature_c_lab"), maps.get("temperature_c_material_frame")
+        check(r.returncode == 0 and counts == expect(yee_stream_lossy_sar=2 * nh // heat_plan.s)
+              and np.allclose([row["theta_deg"] for row in rows], [150.0, 450.0], rtol=0, atol=1e-9)
+              and lab is not None and bool(np.isfinite(lab).all() and np.isfinite(mat).all())
+              and float(mat.max()) > 20.0 and not np.array_equal(lab, mat),
+              f"CLI --coupled 2 --rotate 10 --load-center 0.35,0.5: exit {r.returncode}, launch counts {counts}, "
+              f"angles {[row['theta_deg'] for row in rows]}, peak {[row['peak_t_c'] for row in rows]} C, "
+              f"raw absorbed {[row['raw_absorbed_w'] for row in rows]} W {r.stderr.strip()[-300:]}")
+    finally:
+        coupled_mod.materials_at_temperature = real["materials"]
+        coupled_mod.run_simulation, coupled_mod.run_thermal = real["em"], real["thermal"]
+        coupled_mod._save_coupled_ckpt = save_ckpt
+        step_mod.update_coefs = memo_update_coefs
+        shutil.rmtree(cook_root, ignore_errors=True)
+    del heat_sar
+    torch.cuda.empty_cache()
+    phase_done("10 thermal and coupled cooks")
+
+    # (d) the sweep: frequency_sweep(backend="pallas_fused") of 4 members at
+    # 256^3 (the batched K1/K2, one launch each a step), equal to four single
+    # twopass runs; the batched kernels against their plain versions (each
+    # member's curl passes) and the per-member kernels
+    freqs = [2.45e10 * (1.0 + 0.05 * b) for b in range(SWEEP_MEMBERS)]
+    p_sw = dataclasses.replace(p, simulation_time=199.5 * p.time_step)
+    n_sw = len(time_values(p_sw))
+    reset_counts()
+    res_sw = sweep.frequency_sweep(p, freqs, n_steps=n_sw, backend="pallas_fused", device=dev, log=lambda m: None)
+    torch.cuda.synchronize()
+    counts = counts_now()
+    check(n_sw == 200 and counts == expect(yee_update_h_batch=n_sw, yee_update_e_batch=n_sw),
+          f"frequency_sweep 256^3 x{SWEEP_MEMBERS} pallas_fused {n_sw} steps: launch counts {counts}")
+    main_counts["yee_update_h_batch"], main_counts["yee_update_e_batch"] = n_sw, n_sw
+    for name in ("yee_update_h_batch", "yee_update_e_batch"):
+        paths[name] = f"frequency_sweep 256^3 x{SWEEP_MEMBERS} pallas_fused ({n_sw} steps)"
+    reset_counts()
+    d_sw = 0.0
+    for b, f in enumerate(freqs):
+        one = run_simulation(dataclasses.replace(p_sw, source=dataclasses.replace(p_sw.source, frequency=f)), dev,
+                             backend="twopass", write_snapshots=False, log=lambda m: None)
+        d_sw = max(d_sw, maxdiff(sweep.member(res_sw.states, b), one.state))
+        del one
+    counts = counts_now()
+    check(d_sw == 0.0 and counts == expect(yee_update_h=SWEEP_MEMBERS * n_sw, yee_update_e=SWEEP_MEMBERS * n_sw)
+          and float(res_sw.e_energy.min()) > 0,
+          f"frequency_sweep 256^3 x{SWEEP_MEMBERS} == {SWEEP_MEMBERS} single twopass runs bit for bit: max|diff| "
+          f"{d_sw!r}; single-run launch counts {counts}; member E energies {res_sw.e_energy.tolist()}")
+    del res_sw
+    torch.cuda.empty_cache()
+    fields_b = {}  # random fields per size, shared by both dtypes
+    for n_b, m_b, dtype in ((64, 8, "float32"), (64, 8, "bfloat16"), (256, SWEEP_MEMBERS, "float32"),
+                            (256, SWEEP_MEMBERS, "bfloat16")):
+        pb = profile_chunk.scene(n_b, dtype)
+        if n_b not in fields_b:
+            fields_b[n_b] = [torch.rand((m_b,) + pb.padded_shape, generator=torch.Generator(dev).manual_seed(c),
+                                        device=dev) * 2.0 - 1.0 for c in range(len(COMPONENTS))]
+        init = [t.to(field_dtype(pb)) for t in fields_b[n_b]]
+        k_batch, k_each, plain = (FieldState(*(t.clone() for t in init)) for _ in range(3))
+        amps_b = torch.tensor(rng.uniform(-1.0, 1.0, m_b), dtype=torch.float64, device=dev)
+        src_b = make_source_plan(pb)
+        prof_b, vac_b = profile_tensor(src_b, dev), update_coefs(pb)
+        apply_source_batch(src_b, k_batch, amps_b, prof_b)
+        yee.update_h_batch(pb, k_batch, vac_b, src_b.patch)
+        torch.cuda.synchronize()
+        views = [(sweep.member(k_each, b), sweep.member(plain, b)) for b in range(m_b)]
+        for b, (ke, pl) in enumerate(views):
+            apply_source(src_b, ke, amps_b[b], prof_b)
+            yee.update_h(pb, ke, vac_b, src_b.patch)
+            apply_source(src_b, pl, amps_b[b], prof_b)
+            curl.update_h(pb, pl, vac_b, src_b.patch)
+        torch.cuda.synchronize()
+        d_h = max(maxdiff(k_batch, plain), maxdiff(k_batch, k_each))
+        yee.update_e_batch(pb, k_batch, vac_b)
+        for ke, pl in views:
+            yee.update_e(pb, ke, vac_b)
+            curl.update_e(pb, pl, vac_b)
+        torch.cuda.synchronize()
+        d_e = max(maxdiff(k_batch, plain), maxdiff(k_batch, k_each))
+        record_err("yee_update_h_batch", d_h)
+        record_err("yee_update_e_batch", d_e)
+        check(d_h == 0.0 and d_e == 0.0,
+              f"batched K1/K2 {n_b}^3 x{m_b} {dtype} == the plain passes and the per-member kernels, one step from "
+              f"random fields: H max|diff| {d_h!r}, E {d_e!r}")
+        if n_b == 256:
+            fp32 = dtype == "float32"
+            t_h = event_ms(lambda: yee.update_h_batch(pb, k_batch, vac_b, src_b.patch))
+            t_e = event_ms(lambda: yee.update_e_batch(pb, k_batch, vac_b))
+            if fp32:
+                each_h = event_ms(lambda: [yee.update_h(pb, ke, vac_b, src_b.patch) for ke, _ in views])
+                each_e = event_ms(lambda: [yee.update_e(pb, ke, vac_b) for ke, _ in views])
+                ms["yee_update_h_batch"] = (t_h, event_ms(lambda: [curl.update_h(pb, pl, vac_b, src_b.patch)
+                                                                   for _, pl in views], reps=5))
+                ms["yee_update_e_batch"] = (t_e, event_ms(lambda: [curl.update_e(pb, pl, vac_b) for _, pl in views],
+                                                          reps=5))
+                print(f"timing 256^3 x{m_b} fp32: batched K1 {t_h!r} ms, K2 {t_e!r} ms a launch; the {m_b} "
+                      f"per-member launches {each_h!r} and {each_e!r} ms (queued behind a spin kernel: device time "
+                      f"only) ({smi})", flush=True)
+            else:
+                ms_bf16["yee_update_h_batch"], ms_bf16["yee_update_e_batch"] = t_h, t_e
+        del init, k_batch, k_each, plain, views
+    del fields_b
+    torch.cuda.empty_cache()
+    # the device's idle share over a chunk of the sweep, the batched
+    # launches against the per-member ones (the launch-shape decision)
+    for n_b, m_b in ((64, 8), (256, SWEEP_MEMBERS)):
+        for batched in (True, False):
+            rec = profile_chunk.profile_sweep(profile_chunk.scene(n_b, "float32"), m_b, "twopass", N_TIMED, N_WARM,
+                                              dev, batched)
+            print(f"sweep idle {n_b}^3 x{m_b} twopass {'batched' if batched else 'per member'}: wall "
+                  f"{rec['wall_ms_per_step']!r} ms a step, device {rec['device_ms_per_step']!r} ms, idle share "
+                  f"{rec['idle_share']!r}; launches a step {rec['launches_per_step']} ({smi})", flush=True)
+    phase_done("10 sweeps")
+
     # -- 8. timing ---------------------------------------------------------
     rates: dict[str, list[float]] = {}
     dcs = dc_by_dtype  # the Debye maps per dtype (p and ph share the grid and the step)
@@ -2449,11 +2743,7 @@ def main() -> None:
         del psi_d
         # Debye: the ADE E pass (with and without the SAR work) and the ADE
         # sweeps at the dispersive path's shapes
-        t0 = time.perf_counter()
-        dc_t, vac = debye_coefs(pd, debye, dev) if fp32 else dcs[dtype], update_coefs(pd)
-        torch.cuda.synchronize()
-        if fp32:
-            ade_extra["debye_coefs_s"] = time.perf_counter() - t0
+        dc_t, vac = dcs[dtype], update_coefs(pd)
         # the DFT variants (nf = 1) at the monitor path's plans, and dft_accum
         d1 = zero_dft_acc(pd, DFT1, dev)
         s_d = state_from_numpy(arrays, dev, field_dtype(pd))
@@ -2528,7 +2818,7 @@ def main() -> None:
     del arrays
     print(f"timing 256^3 the Debye SAR increment (torch ops after each twopass step): "
           f"{ade_extra['sar_increment']!r} ms fp32; the Debye maps' set-up (debye_coefs, host fp64): "
-          f"{ade_extra['debye_coefs_s']!r} s ({smi})")
+          f"{debye_build_s!r} s (phase 3) ({smi})")
     for name, (k_ms, p_ms) in ms.items():
         per = f" per sweep of {plans[name].s} steps" if name in plans else " per pass"
         print(f"timing 256^3 {name}: kernel fp32 {k_ms!r} ms, bf16 {ms_bf16[name]!r} ms, "
@@ -2567,6 +2857,9 @@ def main() -> None:
         (nf = 1) add the six fp32 sums of a cell read and written once and,
         each step, the three 4-edge means and the four operations a
         component (24 a cell)."""
+        if name.endswith("_batch"):  # the sweep's members, each a whole-grid pass
+            b, f = work(name.removesuffix("_batch"), item)
+            return SWEEP_MEMBERS * b, SWEEP_MEMBERS * f
         if name in shard_work:  # a middle slab of --shard 4: what it reads, the owned window out; sigma, the map
             vals_in, vals_out, ops_n, sar_cells = shard_work[name]
             return (vals_in + vals_out) * item + sar_cells * (item + 8) + shard_sums.get(name, 0), ops_n
@@ -2618,7 +2911,7 @@ def main() -> None:
                  "yee_update_e_pml_shard", "yee_update_h_het_pml_shard", "yee_update_e_lossy_pml_shard",
                  "dft_accum_shard", "yee_stream_dft_shard", "yee_stream_lossy_dft_shard",
                  "yee_stream_lossy_sar_dft_shard", "yee_stream_lossy_het_dft_shard",
-                 "yee_stream_lossy_het_sar_dft_shard"):
+                 "yee_stream_lossy_het_sar_dft_shard", "yee_update_h_batch", "yee_update_e_batch"):
         bound = {}
         for dtype, item in (("fp32", 4), ("bf16", 2)):
             bytes_n, flops_n = work(name, item)

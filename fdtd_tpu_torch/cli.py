@@ -10,29 +10,36 @@ which writes ``sar.vtr``, ``--pml N``, the CPML open boundary, and
 makes the water load a Debye medium, and the frequency-domain monitors:
 ``--dft HZ[,HZ...]`` (with ``--dft-fields e|eh``), which writes
 ``dft_NN.vtr``, and ``--probe K,J,I`` (repeatable), which writes
-``probes.csv``, in the JAX CLI's formats.  ``--device`` chooses where the
-fields live (default ``cuda``); without CUDA the run stops with a message
-that names ``--device cpu``.  ``--shard Z`` or ``ZxY`` runs the scene on a
-mesh of shards (the counterpart of the reference's ``mpirun -np N``; with
-fewer CUDA devices than shards they share the devices round-robin, and
-``--device cpu`` puts them on the host), with every flag above but
-``--dispersive`` together with ``--pml``, which stops with exit code 1 and
-the JAX CLI's message.
+``probes.csv``, in the JAX CLI's formats.  The heating chain: ``--thermal
+SECONDS`` after a ``--sar`` run integrates the heat equation driven by the
+SAR map (``--thermal-power WATTS`` rescales it, ``--thermal-ambient`` the
+start) and writes ``temperature.vtr``; ``--coupled N`` splits the
+``--thermal`` cook into N intervals whose EM runs see the load's
+temperature-dependent dielectrics (``temperature.vtr``,
+``temperature_NN.vtr``, ``coupled.jsonl``, with ``--dft``
+``dft_iNN_MM.vtr``; ``--checkpoint-every`` then checkpoints intervals),
+and ``--rotate RPM`` turns the load on the turntable during the cook.
+``--device`` chooses where the fields live (default ``cuda``); without
+CUDA the run stops with a message that names ``--device cpu``.  ``--shard
+Z`` or ``ZxY`` runs the scene on a mesh of shards (the counterpart of the
+reference's ``mpirun -np N``; with fewer CUDA devices than shards they
+share the devices round-robin, and ``--device cpu`` puts them on the
+host), with every flag above but ``--dispersive`` together with ``--pml``,
+which stops with exit code 1 and the JAX CLI's message.
 
 It takes every flag of the JAX CLI: ``--backend`` also takes the JAX
 backend names (mapped with a notice: ``xla`` -> ``torch``, ``pallas`` and
 ``pallas_fused`` -> ``twopass``, ``pallas_stream`` and
 ``pallas_temporal`` -> ``stream``), ``--temporal-steps S`` forces the
-stream sweep's depth (8, 4 or 2 here), ``--profile DIR`` writes a
-``torch.profiler`` trace, and the flags of features not ported yet
-(``--thermal``, ``--thermal-power``, ``--coupled``, ``--rotate``) stop the
-run with exit code 1 and the ROADMAP item that ports them.
+stream sweep's depth (8, 4 or 2 here), and ``--profile DIR`` writes a
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from . import grid
+from .coupled import normalize_power, run_coupled
 from .dft import DftConfig
 from .io.vtr import write_vtr
 from .monitors import COMPONENTS, ProbeSet
@@ -48,6 +56,8 @@ from .ops.dispersive import DebyeMaterials, effective_sigma, water_debye_load
 from .params import Mode, load_parameters
 from .runner import BACKEND_CHOICES, JAX_BACKENDS, run_simulation
 from .state import block_mask, cylinder_mask, ferrite_slab, sphere_mask, water_from_mask
+from .thermal import air_thermal, run_thermal, thermal_from_mask
+from .turntable import LoadGeometry, rotate_field
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -75,18 +85,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="accumulate power deposition (J/m^3) and write sar.vtr")
     ap.add_argument("--load-shape", default="box", choices=["box", "sphere", "cylinder"],
                     help="geometry of the --water-block load: the default 0.3-0.7 box, a "
-                         "centered sphere, or a z-axis cylinder (the mug)")
+                         "centered sphere, or a z-axis cylinder (the mug); applies to EM, thermal, "
+                         "coupled, and dispersive paths alike")
     ap.add_argument("--load-center", default=None, metavar="X,Y",
-                    help="(x, y) center of the load as box fractions (default 0.5,0.5)")
+                    help="(x, y) center of the load as box fractions (default 0.5,0.5); off-center "
+                         "loads are what make --rotate matter")
     ap.add_argument("--dispersive", action="store_true",
                     help="make the --water-block load a true single-pole Debye medium solved by the ADE "
                          "method (frequency-dependent eps(w) in the time domain); --sar then maps its "
                          "dielectric and ionic work")
     ap.add_argument("--salt-sigma", type=float, default=0.0, metavar="S_M",
-                    help="ionic conductivity of the --dispersive load at 25 C in S/m (default 0 = pure water)")
+                    help="ionic conductivity of the load at 25 C in S/m for the coupled and --dispersive "
+                         "Debye models (salty food heats harder when hot; default 0 = pure water)")
     ap.add_argument("--thermal-ambient", type=float, default=20.0, metavar="C",
-                    help="temperature of the --dispersive load (default 20 C); the thermal solve that "
-                         "also reads it is not ported")
+                    help="initial/ambient temperature (default 20 C), and the temperature of the "
+                         "--dispersive load")
     ap.add_argument("--pml", type=int, default=0, metavar="N",
                     help="CPML absorbing boundaries, N cells per face (0 = closed PEC cavity "
                          "like the reference); the energy log adds radiated_W")
@@ -125,36 +138,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shard", default=None, metavar="ZxY",
                     help="spatial decomposition over devices: Z z-slabs (e.g. 4) or a Z x Y mesh (e.g. 4x2); "
                          "more shards than CUDA devices share them round-robin (not --dispersive with --pml)")
-    # the JAX CLI's flags of features not ported yet: accepted, and refused
-    # with the ROADMAP item that ports them
     ap.add_argument("--thermal", type=float, default=None, metavar="SECONDS",
-                    help="heat-equation solve after the EM run (not ported: ROADMAP queue 1 item 6)")
+                    help="after the EM run, integrate the heat equation for SECONDS of cook time driven by "
+                         "the SAR map (needs --sar and a lossy load, e.g. --water-block); writes temperature.vtr")
     ap.add_argument("--thermal-power", type=float, default=None, metavar="WATTS",
-                    help="rescale the SAR map to WATTS before the thermal solve (not ported: ROADMAP "
-                         "queue 1 item 6)")
+                    help="rescale the deposited-power map so total absorbed power equals WATTS (e.g. the "
+                         "magnetron rating) before the thermal solve")
     ap.add_argument("--coupled", type=int, default=0, metavar="N",
-                    help="two-way EM<->thermal coupling in N intervals (not ported: ROADMAP queue 1 item 6)")
+                    help="two-way EM<->thermal coupling: split the --thermal cook time into N quasi-static "
+                         "intervals, re-deriving the load's eps_r/sigma from its temperature (Debye water "
+                         "model) before each interval's EM solve")
     ap.add_argument("--rotate", type=float, default=0.0, metavar="RPM",
-                    help="turntable rotation during a --coupled cook (not ported: ROADMAP queue 1 item 6)")
+                    help="turntable rotation: spin the --water-block load at RPM about the vertical cavity "
+                         "axis during a --coupled cook (each interval re-rasterizes the load at its "
+                         "mid-interval angle; heat integrates in the load's co-rotating frame)")
     return ap
-
-
-# flags of features not ported yet -> the ROADMAP item that ports them
-_UNPORTED_FLAGS = (
-    ("thermal", "--thermal", "ROADMAP queue 1 item 6 (thermal and coupling)"),
-    ("thermal_power", "--thermal-power", "ROADMAP queue 1 item 6 (thermal and coupling)"),
-    ("coupled", "--coupled", "ROADMAP queue 1 item 6 (thermal and coupling)"),
-    ("rotate", "--rotate", "ROADMAP queue 1 item 6 (thermal and coupling)"),
-)
-
-
-def _unported_flag(args) -> str | None:
-    """The refusal of the first flag of a feature not ported yet, or None."""
-    for attr, flag, item in _UNPORTED_FLAGS:
-        value = getattr(args, attr)
-        if value is not None and value != 0:
-            return f"{flag} is not ported yet: {item}"
-    return None
 
 
 def _monitors(args, p):
@@ -230,13 +228,11 @@ def _parse_load_center(spec: str | None) -> tuple[float, float]:
 
 
 def _materials(args, p):
-    """The scene's materials from the load flags (None for vacuum; a Debye
-    medium with ``--dispersive``); raises ValueError on flags that do not
-    compose."""
+    """(materials, load mask) from the load flags (None for vacuum; a Debye
+    medium with ``--dispersive``; the mask of ``--water-block``, else None),
+    with the JAX CLI's checks in its order; raises ValueError on flags that
+    do not compose."""
     materials = mask = None
-    if args.dispersive and (not args.water_block or args.ferrite_slab):
-        raise ValueError("--dispersive needs --water-block (and no --ferrite-slab): it is the Debye "
-                         "description of the water load")
     if args.water_block:
         cx, cy = _parse_load_center(args.load_center)
         ox, oy = cx - 0.5, cy - 0.5  # offset from the centered defaults
@@ -249,11 +245,144 @@ def _materials(args, p):
         materials = water_from_mask(p, mask)
     elif args.load_shape != "box" or args.load_center:
         raise ValueError("--load-shape/--load-center need --water-block (they place the water load)")
-    if args.dispersive:
-        return water_debye_load(p, temperature=args.thermal_ambient, sigma_ion25=args.salt_sigma, mask=mask)
+    if args.rotate and not args.coupled:
+        raise ValueError("--rotate needs --coupled N (the turntable is sampled at N angles over the --thermal "
+                         "cook)")
     if args.ferrite_slab:
         materials = ferrite_slab(p, base=materials)
-    return materials
+    if args.dispersive:
+        if not args.water_block or args.ferrite_slab:
+            raise ValueError("--dispersive needs --water-block (and no --ferrite-slab): it is the Debye "
+                             "description of the water load")
+        if args.coupled:
+            raise ValueError("--dispersive does not compose with --coupled (the ADE already carries the "
+                             "frequency dependence)")
+        materials = water_debye_load(p, temperature=args.thermal_ambient, sigma_ion25=args.salt_sigma, mask=mask)
+    if args.thermal is not None:
+        if not args.sar and not args.coupled:
+            raise ValueError("--thermal needs --sar (the SAR map is the heat source)")
+        if args.thermal <= 0:
+            raise ValueError("--thermal duration must be positive seconds")
+    if args.thermal_power is not None and args.thermal_power <= 0:
+        raise ValueError("--thermal-power must be positive watts")
+    return materials, mask
+
+
+def _run_coupled_cli(args, p, load_mask=None, dft_cfg=None) -> int:
+    """--coupled N: the two-way EM <-> thermal cook
+    (:func:`fdtd_tpu_torch.coupled.run_coupled`), with the JAX CLI's
+    checks, lines and files."""
+    if args.thermal is None:
+        print("error: --coupled needs --thermal SECONDS (the cook time)", file=sys.stderr)
+        return 1
+    if p.mode != Mode.COMPUTATION:
+        print("error: --coupled needs computation mode (a driven source heats the load; set the params-file "
+              "mode to 1)", file=sys.stderr)
+        return 1
+    if not args.water_block:
+        print("error: --coupled needs --water-block (the heated load whose dielectrics track temperature)",
+              file=sys.stderr)
+        return 1
+    if args.ferrite_slab:
+        print("error: --coupled models the water load only (no --ferrite-slab)", file=sys.stderr)
+        return 1
+    geometry = None
+    if args.rotate:
+        geometry = LoadGeometry(shape=args.load_shape, center=_parse_load_center(args.load_center))
+        load_mask = None  # run_coupled rasterizes the geometry itself
+        print(f"Turntable: {args.rotate:g} rpm about the cavity axis ({args.coupled} angle samples over the cook)")
+    print(f"Coupled EM<->thermal cook: {args.thermal:g} s over {args.coupled} interval(s); Debye dielectrics at "
+          f"{p.source.frequency:.3g} Hz (note the reference drives at 2.45e10, not 2.45e9 — override with "
+          "--source-frequency)")
+    on_interval = on_interval_dft = None
+    if not args.no_output:
+        os.makedirs(args.out, exist_ok=True)
+        coords = grid.node_coords(p)
+
+        def on_interval(it, T, theta):
+            # per-interval maps, an animation of the cook; under --rotate
+            # the material-frame map and the lab-frame one at this angle
+            if theta:
+                variables = {"temperature_c_material_frame": T,
+                             "temperature_c_lab": rotate_field(p, T, theta, fill=args.thermal_ambient)}
+            else:
+                variables = {"temperature_c": T}
+            write_vtr(os.path.join(args.out, f"temperature_{it:02d}.vtr"), coords, variables)
+
+        if dft_cfg is not None:
+            def on_interval_dft(it, dres, sigma_cells, theta):
+                # per-interval phasor maps: how the pattern shifts as the load heats
+                for fi in range(len(dft_cfg.frequencies)):
+                    variables = {"e_mag": dres.magnitude(fi), "cw_power_w_m3": dres.cw_power(sigma_cells, fi)}
+                    for ci in range(dres.phasors.shape[1]):
+                        ph = dres.phasors[fi, ci]
+                        variables[f"{COMPONENTS[ci]}_re"] = np.real(ph)
+                        variables[f"{COMPONENTS[ci]}_im"] = np.imag(ph)
+                    write_vtr(os.path.join(args.out, f"dft_i{it:02d}_{fi:02d}.vtr"), coords, variables)
+
+    try:
+        res = run_coupled(
+            p, cook_time=args.thermal, intervals=args.coupled, mask=load_mask, geometry=geometry, rpm=args.rotate,
+            frequency=p.source.frequency, sigma_ion25=args.salt_sigma, power_watts=args.thermal_power,
+            ambient=args.thermal_ambient, backend=args.backend, shard=args.shard,
+            pml=PMLConfig(cells=args.pml) if args.pml else None, out_dir=args.out, on_interval=on_interval,
+            dft=dft_cfg, on_interval_dft=on_interval_dft,
+            # under --coupled, --checkpoint-every N (any N > 0) checkpoints
+            # intervals: each EM interval restarts from a zero field
+            checkpoint=bool(args.checkpoint_every), resume=args.resume, device=args.device,
+        )
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    T = res.temperature
+    if not args.no_output:
+        t_path = os.path.join(args.out, "temperature.vtr")
+        if res.final_theta:
+            write_vtr(t_path, grid.node_coords(p), {
+                "temperature_c_material_frame": T,
+                "temperature_c_lab": rotate_field(p, T, res.final_theta, fill=args.thermal_ambient),
+            })
+            print(f"Turntable end-of-cook angle {np.degrees(res.final_theta):.1f} deg; temperature.vtr carries "
+                  "both the material-frame and lab-frame maps")
+        else:
+            write_vtr(t_path, grid.node_coords(p), {"temperature_c": T})
+        log_path = os.path.join(args.out, "coupled.jsonl")
+        with open(log_path, "w") as f:
+            for rec in res.intervals:
+                f.write(json.dumps(rec) + "\n")
+        print(f"Temperature map written to {t_path}; interval log to {log_path}")
+    hot = tuple(int(c) for c in np.unravel_index(int(res.rise.argmax()), res.rise.shape))
+    first, last = res.intervals[0], res.intervals[-1]
+    print(f"Peak temperature {T.max():.2f} C (rise {res.rise.max():.3e} K) at cell (k,j,i)={hot}")
+    print(f"Load eps_r drifted {first['eps_r_range'][1]:.1f} -> {last['eps_r_range'][1]:.1f}, sigma "
+          f"{first['sigma_range'][1]:.3f} -> {last['sigma_range'][1]:.3f} S/m over the cook")
+    print("Simulation complete!")
+    return 0
+
+
+def _thermal_after_run(args, p, result, load_mask) -> None:
+    """--thermal after an EM run: the SAR map as the heat source (the JAX
+    CLI's solve and lines); writes temperature.vtr."""
+    acc = result.power_j.to(device="cpu", dtype=torch.float64).numpy()
+    q = acc / (result.iterations * p.time_step)
+    tm = thermal_from_mask(p, load_mask) if load_mask is not None else air_thermal(p)
+    if args.thermal_power is not None:
+        q = normalize_power(p, q, args.thermal_power)
+        print(f"Deposited power normalized to {args.thermal_power:g} W total")
+    print(f"Integrating the heat equation for {args.thermal:g} s of cook time")
+    tr = run_thermal(p, tm, q, args.thermal, ambient=args.thermal_ambient, device=args.device)
+    T = tr.temperature
+    rise = tr.rise.to(device="cpu", dtype=torch.float64).numpy()
+    if not args.no_output:
+        t_path = os.path.join(args.out, "temperature.vtr")
+        os.makedirs(args.out, exist_ok=True)
+        write_vtr(t_path, grid.node_coords(p), {"temperature_c": T})
+        print(f"Temperature map written to {t_path}")
+    hot = tuple(int(c) for c in np.unravel_index(int(rise.argmax()), rise.shape))
+    print(f"Peak temperature {T.max():.2f} C (rise {rise.max():.3e} K) at cell (k,j,i)={hot} (ambient "
+          f"{args.thermal_ambient:g} C, {tr.steps} thermal steps of {tr.dt:.3e} s)")
+    qh = tuple(int(c) for c in np.unravel_index(int(q.argmax()), q.shape))
+    print(f"Peak deposited power {q.max():.3e} W/m^3 at {qh}")
 
 
 def main(argv=None) -> int:
@@ -284,16 +413,18 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
 
-    refusal = _unported_flag(args)
-    if refusal:
-        print(f"error: {refusal}", file=sys.stderr)
-        return 1
     try:
-        materials = _materials(args, p)
+        materials, load_mask = _materials(args, p)
         dft, probes = _monitors(args, p)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    if args.coupled:
+        if probes is not None:
+            print("error: --probe does not compose with --coupled (per-step probe series mix the intervals' "
+                  "different dielectric problems; run probes on a fixed-material run)", file=sys.stderr)
+            return 1
+        return _run_coupled_cli(args, p, load_mask, dft)
 
     print("Initializing fields")
     if p.mode == Mode.VALIDATION:
@@ -350,6 +481,8 @@ def main(argv=None) -> int:
         sar_path = os.path.join(args.out, "sar.vtr")  # the snapshot writer made the directory
         write_vtr(sar_path, grid.node_coords(p), {"power_j_m3": acc, "avg_power_w_m3": acc / t_em})
         print(f"SAR map written to {sar_path} (peak {acc.max():.3e} J/m^3 over {t_em:.3e} s)")
+    if args.thermal is not None:
+        _thermal_after_run(args, p, result, load_mask)
     if result.probes is not None and not args.no_output:
         pr = result.probes
         path = os.path.join(args.out, "probes.csv")

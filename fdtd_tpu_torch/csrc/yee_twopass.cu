@@ -219,14 +219,15 @@ __device__ __forceinline__ float psi_add(const Psi<T>& ps, const Box& g, int t, 
 // window.  BOX: a shard's launch, its geometry the runtime box g; without it
 // the whole grid's, compiled as it was before shards existed (a runtime box
 // in every variant cost the CPML H pass 9-14% at 256^3), so only the shard
-// variants carry it.
+// variants carry it.  z: the block's k index in the window (blockIdx.z, or
+// its k part in a batched launch).
 template <bool BOX>
-__device__ __forceinline__ bool locate(const Box& g, int J, int I, int& k, int& j, int& i, int64_t& c,
+__device__ __forceinline__ bool locate(const Box& g, int J, int I, unsigned z, int& k, int& j, int& i, int64_t& c,
                                        int64_t& sj, int64_t& sk) {
     if constexpr (BOX) {
         i = g.wi0 + (int)(blockIdx.x * BX + threadIdx.x);
         j = g.wj0 + (int)(blockIdx.y * BY + threadIdx.y);
-        k = g.wk0 + (int)blockIdx.z;
+        k = g.wk0 + (int)z;
         sj = g.ni;
         sk = sj * g.nj;
         c = (int64_t)(k - g.ok) * sk + (int64_t)(j - g.oj) * sj + (i - g.oi);
@@ -234,7 +235,7 @@ __device__ __forceinline__ bool locate(const Box& g, int J, int I, int& k, int& 
     } else {
         i = blockIdx.x * BX + threadIdx.x;
         j = blockIdx.y * BY + threadIdx.y;
-        k = blockIdx.z;
+        k = z;
         if (i > I || j > J) return false;
         sj = (int64_t)I + 1;
         sk = sj * ((int64_t)J + 1);
@@ -243,20 +244,46 @@ __device__ __forceinline__ bool locate(const Box& g, int J, int I, int& k, int& 
     }
 }
 
+// A batched launch (BATCH: the members of a sweep, fdtd_tpu_torch/sweep.py)
+// runs one kernel over N members whose arrays are the contiguous views [b]
+// of (N, K+1, J+1, I+1) tensors: blockIdx.z = b * (K + 1) + k, and member
+// b's six fields start b * (K+1)(J+1)(I+1) elements after member 0's.  It
+// replaces N launches of the same pass (the JAX package's vmapped
+// _h_kernel2/_e_kernel2 run the batch as one program); each member gets the
+// whole-grid launch's operations on its own arrays.  Sets z to the block's
+// k index and returns the member's element offset.
+__device__ __forceinline__ int64_t batch_offset(int K, int J, int I, unsigned& z) {
+    const unsigned m = blockIdx.z / (unsigned)(K + 1);
+    z = blockIdx.z - m * (unsigned)(K + 1);
+    return (int64_t)m * ((int64_t)K + 1) * ((int64_t)J + 1) * ((int64_t)I + 1);
+}
+
 // H half-step over Hx k<K, j<J, i<=I; Hy k<K, j<=J, i<I; Hz k<=K, j<J, i<I.
 // With has_patch, Hx and Hz at k=0, j0<=j<j1, i0<=i<i1 keep their values
 // (the source hard-set there wins, reference main.c:770-778).  HET reads
 // the factor of each component from hf.a[0..2] at the cell instead of f.
-// PML advances the six H psi terms of the cell (ps) and adds them.
-template <typename T, bool HET, bool PML, bool BOX>
+// PML advances the six H psi terms of the cell (ps) and adds them.  BATCH
+// (vacuum only): a batched launch over the members of a sweep.
+template <typename T, bool HET, bool PML, bool BOX, bool BATCH = false>
 __global__ void __launch_bounds__(BX * BY)
 h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez,
          T* __restrict__ hx, T* __restrict__ hy, T* __restrict__ hz,
          int K, int J, int I, float f,
          int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf, Psi<T> ps, Box g) {
+    static_assert(!BATCH || (!HET && !PML && !BOX), "a batched launch is a vacuum whole-grid pass");
     int k, j, i;
     int64_t c, sj, sk;
-    if (!locate<BOX>(g, J, I, k, j, i, c, sj, sk)) return;
+    unsigned z = blockIdx.z;
+    if constexpr (BATCH) {
+        const int64_t off = batch_offset(K, J, I, z);
+        ex += off;
+        ey += off;
+        ez += off;
+        hx += off;
+        hy += off;
+        hz += off;
+    }
+    if (!locate<BOX>(g, J, I, z, k, j, i, c, sj, sk)) return;
     const bool in_patch = has_patch && k == 0 && j >= j0 && j < j1 && i >= i0 && i < i1;
 
     if (!PML) {
@@ -309,14 +336,26 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
 // 1<=i<I; Ez k<K, 1<=j<J, 1<=i<I.  Tangential E on the walls stays (PEC).
 // LOSSY computes ca*E + cb*curl with ca = cf.a[c], cb = cf.b[c] at the cell.
 // PML advances the six E psi terms of the cell and adds cb*psi (f*psi).
-template <typename T, bool LOSSY, bool PML, bool BOX>
+// BATCH (vacuum only): a batched launch over the members of a sweep.
+template <typename T, bool LOSSY, bool PML, bool BOX, bool BATCH = false>
 __global__ void __launch_bounds__(BX * BY)
 e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
          T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
          int K, int J, int I, float f, Coefs<T> cf, Psi<T> ps, Box g) {
+    static_assert(!BATCH || (!LOSSY && !PML && !BOX), "a batched launch is a vacuum whole-grid pass");
     int k, j, i;
     int64_t c, sj, sk;
-    if (!locate<BOX>(g, J, I, k, j, i, c, sj, sk)) return;
+    unsigned z = blockIdx.z;
+    if constexpr (BATCH) {
+        const int64_t off = batch_offset(K, J, I, z);
+        hx += off;
+        hy += off;
+        hz += off;
+        ex += off;
+        ey += off;
+        ez += off;
+    }
+    if (!locate<BOX>(g, J, I, z, k, j, i, c, sj, sk)) return;
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I) {
         const float a1 = ld(hz, c), a0 = ld(hz, c - sj), b1 = ld(hy, c), b0 = ld(hy, c - sk);
@@ -396,7 +435,7 @@ ade_e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __rest
              T* __restrict__ px, T* __restrict__ py, T* __restrict__ pz, int K, int J, int I, Ade<T> a) {
     int k, j, i;
     int64_t c, sj, sk;
-    if (!locate<false>(Box{}, J, I, k, j, i, c, sj, sk)) return;
+    if (!locate<false>(Box{}, J, I, blockIdx.z, k, j, i, c, sj, sk)) return;
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I)
         ade_edge<T, SAR>(ex, px, a, 0, c, curl(ld(hz, c), ld(hz, c - sj), ld(hy, c), ld(hy, c - sk)));
@@ -512,6 +551,31 @@ int launch_e(void* const* h, void* const* e, int K, int J, int I, const int* geo
     e_kernel<T, LOSSY, PML, false><<<l.grid, dim3(BX, BY), 0, s>>>(
         (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
         K, J, I, f, c, ps, l.box);
+    return (int)cudaGetLastError();
+}
+
+// the vacuum passes over n members at once (BATCH); gridDim.z = n * (K + 1)
+// must stay within 65535 (the wrapper splits larger batches)
+template <typename T>
+int launch_h_batch(void* const* e, void* const* h, int n, int K, int J, int I, float f, int has_patch, int j0,
+                   int j1, int i0, int i1, cudaStream_t s) {
+    if (n < 1 || (int64_t)n * (K + 1) > 65535) return (int)cudaErrorInvalidValue;
+    Launch l = launch_of(nullptr, K, J, I);
+    l.grid.z *= (unsigned)n;
+    h_kernel<T, false, false, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+        (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
+        K, J, I, f, has_patch, j0, j1, i0, i1, Coefs<T>{}, Psi<T>{}, l.box);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_e_batch(void* const* h, void* const* e, int n, int K, int J, int I, float f, cudaStream_t s) {
+    if (n < 1 || (int64_t)n * (K + 1) > 65535) return (int)cudaErrorInvalidValue;
+    Launch l = launch_of(nullptr, K, J, I);
+    l.grid.z *= (unsigned)n;
+    e_kernel<T, false, false, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
+        (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
+        K, J, I, f, Coefs<T>{}, Psi<T>{}, l.box);
     return (int)cudaGetLastError();
 }
 
@@ -662,6 +726,24 @@ int yee_update_e_ade(void* const* h, void* const* e, void* const* pol, void* con
 
 const char* yee_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// The batched vacuum passes of a sweep: e, h the three fields of member 0
+// of (n, K+1, J+1, I+1) contiguous batches; n * (K + 1) <= 65535.
+int yee_update_h_batch(void* const* e, void* const* h, int n, int K, int J, int I, float f, int has_patch, int j0,
+                       int j1, int i0, int i1, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dtype == 0) return launch_h_batch<float>(e, h, n, K, J, I, f, has_patch, j0, j1, i0, i1, s);
+    if (dtype == 1) return launch_h_batch<__nv_bfloat16>(e, h, n, K, J, I, f, has_patch, j0, j1, i0, i1, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+int yee_update_e_batch(void* const* h, void* const* e, int n, int K, int J, int I, float f, int dtype,
+                       void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dtype == 0) return launch_e_batch<float>(h, e, n, K, J, I, f, s);
+    if (dtype == 1) return launch_e_batch<__nv_bfloat16>(h, e, n, K, J, I, f, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -59,9 +59,10 @@ from . import cpml, curl
 # E component -> the two cell axes its edge is averaged over
 COMP_AXES = {"x": (0, 1), "y": (0, 2), "z": (1, 2)}
 
-# Water's relaxation (the port's own copy of fdtd_tpu/coupled.py's fits):
-# tau(T) in ps from Kaatze (1989), interpolated linearly, endpoints clamp;
-# the high-frequency permittivity; the Malmberg-Maryott static permittivity.
+# Water's relaxation (the port's one copy of fdtd_tpu/coupled.py's fits,
+# which fdtd_tpu_torch/coupled.py's water_debye reads too): tau(T) in ps
+# from Kaatze (1989), interpolated linearly, endpoints clamp; the
+# high-frequency permittivity; the Malmberg-Maryott static permittivity.
 _TAU_T_C = np.array([0.0, 10.0, 20.0, 25.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0, 90.0, 100.0])
 _TAU_PS = np.array([17.67, 12.68, 9.36, 8.27, 7.28, 5.82, 4.75, 3.95, 3.35, 2.88, 2.50, 2.21])
 EPS_INF = 5.2

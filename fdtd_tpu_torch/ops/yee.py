@@ -32,9 +32,17 @@ make_cpml`) they launch the CPML variants on the shard's psi parts
 per-shard K1/K2 with XLA slab corrections
 (``fdtd_tpu/parallel/sharded_pml_fast.py::make_sharded_pml_fast_step``).
 
+``update_h_batch`` and ``update_e_batch`` are the vacuum passes of every
+member of a sweep's batch (six contiguous (N, K+1, J+1, I+1) tensors) in
+one launch, the batched K1/K2 (``h_kernel``/``e_kernel`` with ``BATCH``),
+which replace the JAX package's vmapped ``_h_kernel2``/``_e_kernel2``
+(``fdtd_tpu/sweep.py``'s ``pallas_fused`` members); their plain versions
+are the per-member :mod:`fdtd_tpu_torch.ops.curl` passes.
+
 ``launches`` counts kernel launches per kernel variant (a shard's under
-the variant's name with ``_shard``), so a run can show that it went
-through the kernels; plain-version calls do not count.
+the variant's name with ``_shard``, a batch's with ``_batch``), so a run
+can show that it went through the kernels; plain-version calls do not
+count.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ KERNEL_SOURCE = "yee_twopass"
 launches = {name + suffix: 0
             for suffix in ("", "_pml")
             for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")}
-launches.update(yee_update_e_ade=0, yee_update_e_ade_sar=0)
+launches.update(yee_update_e_ade=0, yee_update_e_ade_sar=0, yee_update_h_batch=0, yee_update_e_batch=0)
 launches.update({name + suffix + "_shard": 0
                  for suffix in ("", "_pml")
                  for name in ("yee_update_h", "yee_update_e", "yee_update_h_het", "yee_update_e_lossy")})
@@ -93,6 +101,11 @@ def _lib() -> ctypes.CDLL:
         lib.yee_update_e_lossy_pml.restype = i32
         lib.yee_update_e_ade.argtypes = [ptr] * 5 + grid + [f32, i32, ptr]
         lib.yee_update_e_ade.restype = i32
+        # (e or h, h or e, members, K, J, I, ...): a batch's member 0 pointers
+        lib.yee_update_h_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
+        lib.yee_update_h_batch.restype = i32
+        lib.yee_update_e_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32, i32, ptr]
+        lib.yee_update_e_batch.restype = i32
         lib.yee_error_string.argtypes = [i32]
         lib.yee_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -314,3 +327,78 @@ def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
         )
     launches[name] += 1
     _check(rc, name)
+
+
+# a batched launch's grid.z is members * (K + 1), at most 65535
+_GRID_Z = 65535
+
+
+def _batch_on_cpu(p: Params, states: FieldState) -> bool:
+    """True when the batch is on the CPU; validates a CUDA batch (contiguous
+    (N, K+1, J+1, I+1) tensors of one dtype) and raises on anything else."""
+    tensors = states.tensors()
+    n = tensors[0].shape[0] if tensors[0].dim() == 4 else 0
+    if n < 1 or any(tuple(t.shape) != (n,) + p.padded_shape for t in tensors):
+        raise ValueError(f"a batch is six (N, {', '.join(map(str, p.padded_shape))}) tensors; got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    on_cpu = _on_cpu(p, FieldState(*(t[0] for t in tensors)))
+    if not on_cpu and not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the batched passes take contiguous batches")
+    return on_cpu
+
+
+def _member_chunks(p: Params, n: int):
+    """(first, count) of the members each batched launch takes."""
+    per = max(1, _GRID_Z // (p.maxk + 1))
+    return [(m, min(per, n - m)) for m in range(0, n, per)]
+
+
+def update_h_batch(p: Params, states: FieldState, coefs: UpdateCoefs,
+                   patch: tuple[int, int, int, int] | None = None) -> None:
+    """The vacuum H half-step of every member of a batch (six contiguous
+    (N, K+1, J+1, I+1) tensors) in place: one launch of the batched K1
+    (``h_kernel<T, false, false, false, true>``) for up to 65535 // (K + 1)
+    members; on CPU tensors :func:`curl.update_h` on each member's view."""
+    if coefs.lossy or coefs.heterogeneous_mu:
+        raise ValueError("the batched passes are the vacuum ones")
+    if _batch_on_cpu(p, states):
+        for b in range(states.ex.shape[0]):
+            curl.update_h(p, FieldState(*(t[b] for t in states.tensors())), coefs, patch)
+        return
+    lib = _lib()
+    j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
+    f = curl.scalar(coefs.h_factor, states.hx.dtype)
+    dev = states.hx.device
+    with torch.cuda.device(dev):
+        stream = build.launch_stream(dev)
+        for m, count in _member_chunks(p, states.ex.shape[0]):
+            rc = lib.yee_update_h_batch(pointers(tuple(t[m] for t in (states.ex, states.ey, states.ez))),
+                                        pointers(tuple(t[m] for t in (states.hx, states.hy, states.hz))), count,
+                                        p.maxk, p.maxj, p.maxi, f, int(patch is not None), j0, j1, i0, i1,
+                                        _DTYPE_CODES[states.hx.dtype], stream)
+            launches["yee_update_h_batch"] += 1
+            _check(rc, "yee_update_h_batch")
+
+
+def update_e_batch(p: Params, states: FieldState, coefs: UpdateCoefs) -> None:
+    """The vacuum E half-step of every member of a batch in place: one
+    launch of the batched K2 (``e_kernel<T, false, false, false, true>``)
+    for up to 65535 // (K + 1) members; on CPU tensors
+    :func:`curl.update_e` on each member's view."""
+    if coefs.lossy or coefs.heterogeneous_mu:
+        raise ValueError("the batched passes are the vacuum ones")
+    if _batch_on_cpu(p, states):
+        for b in range(states.ex.shape[0]):
+            curl.update_e(p, FieldState(*(t[b] for t in states.tensors())), coefs)
+        return
+    lib = _lib()
+    f = curl.scalar(coefs.cb_x, states.ex.dtype)
+    dev = states.ex.device
+    with torch.cuda.device(dev):
+        stream = build.launch_stream(dev)
+        for m, count in _member_chunks(p, states.ex.shape[0]):
+            rc = lib.yee_update_e_batch(pointers(tuple(t[m] for t in (states.hx, states.hy, states.hz))),
+                                        pointers(tuple(t[m] for t in (states.ex, states.ey, states.ez))), count,
+                                        p.maxk, p.maxj, p.maxi, f, _DTYPE_CODES[states.ex.dtype], stream)
+            launches["yee_update_e_batch"] += 1
+            _check(rc, "yee_update_e_batch")

@@ -2,8 +2,8 @@
 device's idle share, per scene, backend and dtype.
 
     python -m fdtd_tpu_torch.profile_chunk [--n 256] [--steps 48]
-        [--scenes vacuum heating pml dispersive dft shard] [--backends stream twopass torch]
-        [--dtypes float32 bfloat16]
+        [--scenes vacuum heating pml dispersive dft shard sweep] [--backends stream twopass torch]
+        [--dtypes float32 bfloat16] [--members 4]
 
 Scenes: ``vacuum`` is the n^3 computation scene of ``configs/bench_256.txt``
 (rescaled to n); ``heating`` is the same box with the default water block
@@ -14,7 +14,10 @@ Debye medium (``--water-block --dispersive --sar``); ``dft`` is the heating scen
 phasors at 2.45e10 Hz (``--water-block --sar --dft 2.45e10``: the DFT bands of the sweep on
 ``stream``, the ``dft_accum`` kernel after each step on ``twopass``); ``shard`` is the vacuum, heating, pml,
 dft and dispersive scenes with ``--shard 4`` (four z slabs on the one card: the per-shard kernels and the halo
-copies; the dispersive one on ``torch`` only, the torch ADE ops it runs whatever the backend).  For each scene, backend and dtype it runs a
+copies; the dispersive one on ``torch`` only, the torch ADE ops it runs whatever the backend); ``sweep`` is a
+``frequency_sweep`` of ``--members`` frequencies on the vacuum scene (``twopass``: the batched two-pass kernels, one
+launch each a step, and, for comparison, the two-pass kernels one launch a member and half-step; ``torch``; a step is
+every member's step).  For each scene, backend and dtype it runs a
 warm-up chunk, times an unprofiled chunk of ``--steps`` steps on the host
 clock (between ``torch.cuda.synchronize()`` calls), then profiles the same
 chunk with ``torch.profiler`` (CPU and CUDA activity) and sums the self
@@ -44,15 +47,17 @@ Needs a CUDA device: without one it exits with an error.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from . import diagnostics
+from . import diagnostics, sweep
 from .dft import DftConfig, dft_weights, zero_dft_acc
 from .ops.cpml import PMLConfig, init_psi
 from .ops.dispersive import water_debye_load, zero_polarization
@@ -61,10 +66,11 @@ from .ops.stream_plan import variant_name
 from .params import Mode, Params, time_values
 from .parallel import mesh as shard_mesh
 from .runner import initial_state, sharded_runner
+from .source import drive_values, make_source_plan
 from .state import water_block
-from .step import make_chunk_runner, scan_inputs, zero_power_acc
+from .step import make_chunk_runner, make_step, scan_inputs, zero_power_acc
 
-SCENES = ("vacuum", "heating", "pml", "dispersive", "dft", "shard")
+SCENES = ("vacuum", "heating", "pml", "dispersive", "dft", "shard", "sweep")
 PML_CELLS = 10  # the pml scene's slab depth (--pml 10)
 DFT_HZ = 2.45e10  # the dft scene's frequency (--dft 2.45e10)
 SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
@@ -72,8 +78,8 @@ SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # PyTorch's own elementwise_kernel contains the latter), with their template
 # flags after the type: pml <T, S, BJ, CR, LOSSY, DFT> (the CPML sweep's
 # shell), ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET,
-# PML, BOX>, e <T, LOSSY, PML, BOX>, ade_e <T, SAR>, dft_accum <T, BOX>;
-# BOX: a shard's launch (the counter's name with "_shard"), or in an
+# PML, BOX, BATCH>, e <T, LOSSY, PML, BOX, BATCH>, ade_e <T, SAR>, dft_accum <T, BOX>;
+# BATCH: a sweep's batched launch ("_batch"); BOX: a shard's launch (the counter's name with "_shard"), or in an
 # unsharded CPML scene the CPML sweep's interior ("_interior")
 _KERNEL = re.compile(r"::(pml_kernel|ring_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
 
@@ -104,7 +110,8 @@ def _group(name: str, pml: bool = False) -> str:
         return variant_name(lossy, het, sar, False, ade, dft) + ("_shard" if box else "")
     if m.group(1) == "ade_e_kernel":
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
-    suffix = ("_pml" if flags[1] else "") + ("_shard" if flags[2:3] == [True] else "")
+    suffix = ("_pml" if flags[1] else "") + ("_shard" if flags[2:3] == [True] else "") + (
+        "_batch" if flags[3:4] == [True] else "")
     if m.group(1) == "h_kernel":
         return ("yee_update_h_het" if flags[0] else "yee_update_h") + suffix
     return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + suffix
@@ -136,6 +143,20 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         else:
             run(s, xs, power, psi, pol, dacc)
 
+    rec = measure(chunk, dev, steps, warm, pml is not None and not shard)
+    return {
+        "scene": ("dft" if dft is not None else "dispersive" if debye else "heating" if heating
+                  else "pml" if pml is not None else "vacuum") + (f" --shard {shard}" if shard else ""),
+        "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps, **rec,
+    }
+
+
+def measure(chunk, dev: torch.device, steps: int, warm: int, pml: bool = False) -> dict:
+    """Time ``chunk(a, b)`` (steps [a, b) of a run) on the host clock and
+    under the profiler: a warm-up of ``warm`` steps, an unprofiled chunk of
+    ``steps`` and a profiled one; the record's timing keys (the module
+    docstring).  ``pml``: an unsharded CPML scene (its box sweeps are the
+    CPML sweep's interior)."""
     chunk(0, warm)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -166,7 +187,7 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
             us = ev.self_cuda_time_total
         if us <= 0 or (kind is not None and kind != torch.autograd.DeviceType.CUDA):
             continue
-        g = _group(ev.key, pml is not None and not shard)
+        g = _group(ev.key, pml)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + ev.count
     device = sum(by_group.values())
@@ -176,14 +197,42 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
             by_group[label] = ms
             by_group["other"] = by_group.get("other", 0.0) - ms
     return {
-        "scene": ("dft" if dft is not None else "dispersive" if debye else "heating" if heating
-                  else "pml" if pml is not None else "vacuum") + (f" --shard {shard}" if shard else ""),
-        "backend": backend, "dtype": p.dtype, "n": p.maxk, "steps": steps,
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
         "launches_per_step": {g: c / steps for g, c in launches.items()},
         "idle_share": 1.0 - device / wall, "idle_share_profiled": 1.0 - device / wall_prof,
     }
+
+
+def profile_sweep(p: Params, members: int, backend: str, steps: int, warm: int, dev: torch.device,
+                  batched: bool = True) -> dict:
+    """A ``frequency_sweep`` of ``members`` frequencies (2.45e10 Hz and
+    up, 5% apart) on ``backend``, measured as :func:`measure` measures a
+    chunk (a step: every member's step).  ``twopass``: the batched K1/K2,
+    one launch each a step (``batched``), or one launch a member and
+    half-step; ``torch``: the torch ops member by member."""
+    freqs = [2.45e10 * (1.0 + 0.05 * b) for b in range(members)]
+    ts = time_values(p)[: warm + 2 * steps]
+    states = sweep.initial_batch(p, members, dev)
+    rows = torch.as_tensor(np.stack([drive_values(make_source_plan(dataclasses.replace(
+        p, source=dataclasses.replace(p.source, frequency=f))), ts) for f in freqs]), device=dev)
+    batched = batched and backend == "twopass"
+    if batched:
+        step = sweep.batch_step(p, dev)
+        amps_t = rows.T.contiguous()
+
+        def chunk(a: int, b: int) -> None:
+            for n in range(a, b):
+                step(states, amps_t[n])
+    else:
+        views = [sweep.member(states, b) for b in range(members)]
+        steps_ = [make_step(p, dev, backend=backend)] * members
+
+        def chunk(a: int, b: int) -> None:
+            sweep.run_steps(steps_, views, ts[a:b], [r[a:b] for r in rows])
+
+    return {"scene": f"sweep x{members}" + (" batched" if batched else ""), "backend": backend, "dtype": p.dtype,
+            "n": p.maxk, "steps": steps, **measure(chunk, dev, steps, warm)}
 
 
 def main(argv=None) -> int:
@@ -194,6 +243,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scenes", nargs="+", default=list(SCENES), choices=SCENES)
     ap.add_argument("--backends", nargs="+", default=["stream", "twopass", "torch"])
     ap.add_argument("--dtypes", nargs="+", default=["float32", "bfloat16"])
+    ap.add_argument("--members", type=int, default=4, help="members of the sweep scene (default 4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: profile_chunk measures a CUDA device and none is available", file=sys.stderr)
@@ -205,8 +255,14 @@ def main(argv=None) -> int:
     for name in args.scenes:
         for dtype in args.dtypes:
             for backend in args.backends:
+                if name == "sweep":
+                    for batched in ((True, False) if backend == "twopass" else (False,) if backend == "torch" else ()):
+                        rec = profile_sweep(scene(args.n, dtype), args.members, backend, args.steps, args.warm, dev,
+                                            batched)
+                        print(json.dumps({**rec, "card": card}), flush=True)
+                    continue
                 # the shard scene: the other scenes on the mesh
-                for sub in (SCENES[:-1] if name == "shard" else (name,)):
+                for sub in (SCENES[:5] if name == "shard" else (name,)):
                     if name == "shard" and sub == "dispersive" and backend != "torch":
                         continue
                     rec = profile(scene(args.n, dtype), backend, args.steps, args.warm, dev,

@@ -130,6 +130,20 @@ def apply_source(plan: SourcePlan, s: FieldState, amp, profile: torch.Tensor, bo
     s.hx[sl].copy_((-plan.inv_z_te * row).expand(s.hx[sl].shape))
 
 
+def apply_source_batch(plan: SourcePlan, states: FieldState, amps: torch.Tensor, profile: torch.Tensor) -> None:
+    """:func:`apply_source` on every member of a batch (six (N, K+1, J+1,
+    I+1) tensors) at once: ``amps`` the members' (N,) fp64 amplitudes on
+    the device.  Each member's row is formed in fp64 and rounded once, the
+    values :func:`apply_source` sets member by member."""
+    sl = (slice(None), 0, slice(plan.j0, plan.j1), slice(plan.i0, plan.i1))
+    row = amps[:, None] * profile  # (N, ni)
+    shape = states.ez[sl].shape
+    states.ez[sl].copy_(row[:, None, :].expand(shape))
+    states.ex[sl].zero_()
+    states.hz[sl].zero_()
+    states.hx[sl].copy_((-plan.inv_z_te * row)[:, None, :].expand(shape))
+
+
 def sweep_drive_rows(plan: SourcePlan, amps: torch.Tensor, s: int, dtype: torch.dtype,
                      profile: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The hard-set rows of steps 2..s of every s-step sweep of a chunk.

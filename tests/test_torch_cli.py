@@ -5,13 +5,16 @@ Every option of ``fdtd_tpu.cli.build_arg_parser()``, with a valid value
 ``--device cpu`` and parses to the value the JAX parser gives it.  The JAX
 backend names map to the port's backends with a notice, ``--temporal-steps``
 forces the stream depth (the depths the port does not build exit 1 naming
-8, 4 and 2), ``--profile`` writes a torch.profiler trace, and the flags of
-features not ported yet exit 1 naming their ROADMAP item (``--shard``
-runs, with ``--pml`` too).
+8, 4 and 2), ``--profile`` writes a torch.profiler trace, and the flags
+that were once refused as not ported run: ``--shard`` (with ``--pml``
+too), and ``--thermal``, ``--thermal-power``, ``--coupled`` and
+``--rotate`` against the JAX CLI's outputs.
 """
 
+import json
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -86,21 +89,61 @@ def test_cli_runs_a_jax_backend_name(tmp_path, capsys):
     assert rc == 1 and "--backend torch" in capsys.readouterr().err
 
 
+# the flags of item 6 with what they need, as a user runs them
+_ITEM6_RUNS = {
+    "--thermal": ["--water-block", "--sar", "--thermal", "30"],
+    "--thermal-power": ["--water-block", "--sar", "--thermal", "30", "--thermal-power", "900"],
+    "--coupled": ["--water-block", "--coupled", "2", "--thermal", "8"],
+    "--rotate": ["--water-block", "--coupled", "2", "--thermal", "8", "--rotate", "10", "--load-center", "0.4,0.5"],
+}
+
+
 @pytest.mark.parametrize("flag, value, item", [
     ("--shard", "2", "item 11"), ("--thermal", "30", "item 6"), ("--thermal-power", "900", "item 6"),
     ("--coupled", "2", "item 6"), ("--rotate", "10", "item 6"),
 ])
 def test_unported_flags_exit_1_naming_their_item(tmp_path, capsys, flag, value, item):
-    """The flags of item 6 exit 1 naming it.  ``--shard`` (items 11 and
-    11b) is ported: alone it runs, and so does ``--shard 2 --pml 3``."""
+    """Every flag of this list is ported now.  ``--shard`` (items 11 and
+    11b): alone it runs, and so does ``--shard 2 --pml 3``.  The flags of
+    item 6 (the thermal solve, the coupled cook, the turntable): alone each
+    exits as the JAX CLI exits, with its message, and with what it needs
+    each writes the JAX CLI's temperature.vtr (the coupled cooks also
+    coupled.jsonl) in fp64, at rtol 1e-6 of the rise's scale: the EM runs'
+    fp32 power accumulators round their increments in another order (the
+    bar of tests/test_torch_runner.py)."""
     if flag == "--shard":
         for extra in ([], ["--pml", "3"]):
             rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value, *extra])
             assert rc == 0 and "Simulation complete!" in capsys.readouterr().out
         return
-    rc = cli.main([_params_file(tmp_path), "--device", "cpu", "--no-output", flag, value])
-    err = capsys.readouterr().err
-    assert rc == 1 and f"{flag} is not ported yet: ROADMAP queue 1 {item}" in err
+    from fdtd_tpu.io.vtr import read_vtr_cell_arrays
+
+    params = _params_file(tmp_path)
+    rc_j = jcli.main([params, "--out", str(tmp_path / "j0"), "--no-output", flag, value])
+    err_j = capsys.readouterr().err.strip().splitlines()
+    rc_t = cli.main([params, "--out", str(tmp_path / "t0"), "--device", "cpu", "--no-output", flag, value])
+    err_t = capsys.readouterr().err.strip().splitlines()
+    assert rc_t == rc_j and err_t[-1:] == err_j[-1:] and "not ported" not in "".join(err_t)
+    run = [*_ITEM6_RUNS[flag], "--dtype", "float64"]
+    assert jcli.main([params, "--out", str(tmp_path / "j"), "--backend", "xla", *run]) == 0
+    capsys.readouterr()
+    assert cli.main([params, "--out", str(tmp_path / "t"), "--device", "cpu", *run]) == 0
+    assert "Simulation complete!" in capsys.readouterr().out
+    got = read_vtr_cell_arrays(str(tmp_path / "t" / "temperature.vtr"))
+    want = read_vtr_cell_arrays(str(tmp_path / "j" / "temperature.vtr"))
+    assert list(got) == list(want)
+    for key in want:
+        base = 20.0 if key.startswith("temperature") else 0.0
+        scale = float(np.abs(want[key] - base).max())
+        assert scale > 0, key
+        np.testing.assert_allclose(got[key] - base, want[key] - base, rtol=1e-6, atol=1e-6 * scale, err_msg=key)
+    if "--coupled" in run:
+        rows = [[json.loads(line) for line in (tmp_path / d / "coupled.jsonl").read_text().splitlines()]
+                for d in ("t", "j")]
+        assert [sorted(r) for r in rows[0]] == [sorted(r) for r in rows[1]] and len(rows[0]) == 2
+        for g, w in zip(*rows):
+            for key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=1e-6, err_msg=key)
 
 
 @pytest.mark.parametrize("s", [3, 5, 6, 7])
