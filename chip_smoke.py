@@ -20,7 +20,10 @@ package beside it.  Phases, each printing one line or more:
    slab scene on the same box: the het-mu H and lossy E kernels in both
    modes, and the four stream variants (lossy, lossy + SAR, lossy + het,
    lossy + het + SAR) in computation mode at s = 8, 4, 2, fields and the
-   SAR accumulator; one heating sweep at 256^3 with each SAR plan;
+   SAR accumulator; one heating sweep at 256^3 with each SAR plan; the
+   two-pass CPML passes (march_kernel) also with 24-cell walls, where the
+   source patch reaches into the j slabs, and at 257^3 with --pml 10
+   (vacuum and the ferrite scene), fields and psi from random psi;
 4. validation: configs/reference.txt (50^3, fp32) through
    run_simulation(backend="twopass") with snapshots: e_r(Ey) < 0.007,
    energy drift < 2e-3, the .vtr cadence, one launch per kernel per step;
@@ -119,7 +122,18 @@ package beside it.  Phases, each printing one line or more:
    scene's --dft 2.45e10 writing the unsharded snapshots, dft_00.vtr,
    sar.vtr and energy log; each new shard kernel's time on a middle slab of
    --shard 4 beside its plain version;
-10. (after 7b, before 8) the thermal solve, the coupled cook and the
+7c. (with a checkout of the parent commit, PARENT) the two-pass passes
+   that moved to march_kernel beside the parent's: each K10 pass (H, H
+   het-mu, E, E lossy) and the vacuum K1/K2, on the whole 257^3 grid and a
+   middle slab of --shard 4, from the same random inputs on both trees,
+   equal bit for bit, and timed in turns (parent, this, this, parent); 1000 steps of bench_256 --pml 10 --shard 4 and of
+   the open oven with a load (heating_256 --water-block --sar --pml 10) on
+   both trees in fp32 and bf16 (fp32 equal bit for bit: fields, psi, SAR
+   map), the oven also equal to its torch run and to itself with --shard 4;
+   the CLI of both scenes on both trees writing the same snapshots, sar.vtr
+   and energy log; each scene's rate and device idle share
+   (profile_chunk) on both trees;
+10. (after 7c, before 8) the thermal solve, the coupled cook and the
    sweeps: run_thermal on phase 6's 256^3 heating SAR map (normalized to
    1 kW, a 3 s cook, fp64 and fp32: the fp64 heat content equals Q t to
    1e-5, fp32 within 2^-14 of the peak rise of fp64), the thermal step's
@@ -146,17 +160,19 @@ package beside it.  Phases, each printing one line or more:
    vacuum stream plan's; one line per redesigned sweep (ring_kernel, K3 and
    K12) with its time a step beside the first design's (commit 04e00ef),
    its registers and spills, and the 1000-step stream rates of phases
-   5-6d beside the first design's; one line per CPML sweep beside its
-   time at the parent (commit 2f5c8af), with each launch's time alone,
-   registers and spills, and the 1000-step --pml 10 rates of both
-   backends;
+   5-6d beside the first design's; one line per two-pass pass on
+   march_kernel (the K10 rows and the vacuum K1/K2) beside the parent's
+   recorded time (PARENT_TIMES) and its time in this call (phase 7c), with
+   its bound share, registers and spills,
+   and the 1000-step --pml 10 rates of both backends;
 9. machine code: python -m fdtd_tpu_torch.sass_compare against a checkout
-   of 2f5c8af (from the repository's git history, else
+   of the parent commit, PARENT (from the repository's git history, else
    scratch_chip/parent; compiled on the host from the end of phase 2 on,
-   beside the card's phases): every kernel but the CPML sweep (the
-   parent's stream_kernel, replaced by pml_kernel) keeps its
-   instructions.  Without such a checkout it says so and skips the
-   comparison.
+   beside the card's phases): every kernel but the parent's 16 CPML and 8
+   vacuum two-pass instantiations (h_kernel / e_kernel with PML, or
+   without materials and not batched: replaced by march_kernel) keeps its
+   instructions, each listed.  Without such a
+   checkout it says so and skips the comparison (and phase 7c).
 
 Each phase prints its seconds; the Debye maps (host fp64, several
 seconds at 256^3) are built once per dtype (phase 3) and passed to the
@@ -178,6 +194,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -216,15 +233,32 @@ FIRST_SWEEPS = {
 FIRST_RATES = {"bench_256 stream": 68203.0, "heating_256 stream": 20775.8,
              "heating_256 --water-block --dispersive --sar stream": 11059.1,
              "heating_256 --water-block --sar --dft 2.45e10 stream": 14784.8}
-# the parent design (commit 2f5c8af) whose machine code phase 9
-# compares with; its CPML sweeps (the first design, a sweep at s = 2), fp32
-# and bf16 ms at 256^3 as this script measured them on an NVIDIA H100 80GB
-# HBM3 at 700 W
-PARENT = "2f5c8af"
+# auto's --pml 10 routing at 256^3 (phase 6b): two backends whose 1000-step
+# rates, each the mean of two runs in turns, differ by less than this share of
+# the faster are tied, and auto's rule (stream) stands.  With the march core
+# twopass and stream run bf16 --pml 10 within 0.4-0.9% of each other, and a
+# backend's own 1000-step rate moved by up to 1.05% from one smoke to the next
+# on an NVIDIA H100 80GB HBM3 at 700 W
+ROUTE_TIE = 0.02
+# the parent commit, whose machine code phase 9 compares with and whose
+# kernels and runs phase 7c sets beside this tree's; its vacuum and CPML
+# two-pass passes (the first design; this tree runs them on march_kernel), fp32
+# and bf16 ms at 256^3 (the shard rows: a middle slab of --shard 4) as this
+# script measured them on an NVIDIA H100 80GB HBM3 at 700 W
+PARENT = "e045c8f"
 PARENT_TIMES = {
-    "yee_stream_pml": (1.47796, 1.77980), "yee_stream_lossy_pml": (2.20333, 2.65092),
-    "yee_stream_pml_dft": (2.64860, 2.89294), "yee_stream_lossy_pml_dft": (3.66282, 3.77173),
+    "yee_update_h": (0.30424, 0.19659), "yee_update_e": (0.29309, 0.18352),
+    "yee_update_h_shard": (0.08252, 0.05399), "yee_update_e_shard": (0.07902, 0.05106),
+    "yee_update_h_pml": (0.37450, 0.28053), "yee_update_h_het_pml": (0.42175, 0.31079),
+    "yee_update_e_pml": (0.37005, 0.27475), "yee_update_e_lossy_pml": (0.47217, 0.30879),
+    "yee_update_h_pml_shard": (0.10655, 0.07164), "yee_update_e_pml_shard": (0.09291, 0.06939),
+    "yee_update_h_het_pml_shard": (0.11678, 0.07454), "yee_update_e_lossy_pml_shard": (0.11710, 0.08855),
 }
+# phase 9: the parent's h_kernel / e_kernel <T, HET or LOSSY, PML, BOX, BATCH>
+# without PML are this tree's <T, HET or LOSSY, BOX, BATCH> (the vacuum ones
+# but the batched: replaced by march_kernel)
+SASS_ALIAS = (r"(void )?(h|e)_kernel<([^,]+), (true|false), false, (true|false), (true|false)>",
+              r"\1\2_kernel<\3, \4, \5, \6>")
 
 
 def fail(msg: str) -> None:
@@ -245,16 +279,19 @@ def run_cmd(cmd: list[str]) -> str:
     return r.stdout.strip()
 
 
-def run_cli(args: list[str]) -> subprocess.CompletedProcess:
+def run_cli(args: list[str], cli=None) -> subprocess.CompletedProcess:
     """``python -m fdtd_tpu_torch ARGS`` run in this process (``cli.main``,
-    the module's entry point), its output captured: a process of its own
-    would pay Python's, torch's and the CUDA context's start-up (several
-    seconds) again for every run.  Phase 5 runs the module in a process."""
+    the module's entry point; ``cli``: another checkout's), its output
+    captured: a process of its own would pay Python's, torch's and the CUDA
+    context's start-up (several seconds) again for every run.  Phase 5 runs
+    the module in a process."""
     import io
     import traceback
 
     import torch
-    from fdtd_tpu_torch import cli
+
+    if cli is None:
+        from fdtd_tpu_torch import cli
 
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -345,25 +382,36 @@ def main() -> None:
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"ptxas {lib_path.name}: {line.strip()}")
     print(f"build: {', '.join(lp.name for lp in lib_paths)} in {build_s:.2f} s", flush=True)
-    # the machine code of the kernels this design leaves alone (every
-    # kernel but the CPML sweep) against the
-    # parent's, from a checkout of it (the repository's git history, else
-    # scratch_chip/parent): its compiles run on the host beside the card's
-    # phases, read at the end
+    # the parent commit's package (PARENT: the repository's git history, else
+    # scratch_chip/parent): its machine code against this tree's (phase 9,
+    # compiled on the host beside the card's phases, read at the end), and
+    # its two-pass kernels, built on the host now, for phase 7c's runs
     sass_dir = tempfile.TemporaryDirectory()
-    sass_parent = os.path.join(HERE, "scratch_chip", "parent")
+    parent_dir = os.path.join(HERE, "scratch_chip", "parent")
     if shutil.which("git") and subprocess.run(["git", "-C", HERE, "cat-file", "-e", PARENT],
                                               capture_output=True).returncode == 0:
-        archive = subprocess.run(["git", "-C", HERE, "archive", PARENT, "fdtd_tpu_torch/csrc"],
+        archive = subprocess.run(["git", "-C", HERE, "archive", PARENT, "fdtd_tpu_torch"],
                                  capture_output=True, check=True).stdout
         subprocess.run(["tar", "-x", "-C", sass_dir.name], input=archive, check=True)
-        sass_parent = sass_dir.name
-    sass_proc = None
-    if os.path.isdir(os.path.join(sass_parent, "fdtd_tpu_torch", "csrc")):
-        sass_proc = subprocess.Popen([sys.executable, "-m", "fdtd_tpu_torch.sass_compare", sass_parent, "--json",
-                                      os.path.join(sass_dir.name, "sass.json")], cwd=HERE,
-                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        parent_dir = sass_dir.name
+    sass_proc = parent_pkg = parent_build = None
+    if os.path.isdir(os.path.join(parent_dir, "fdtd_tpu_torch", "csrc")):
+        # the parent's h_kernel / e_kernel had a PML flag (third template argument) this tree's lack
+        sass_proc = subprocess.Popen([sys.executable, "-m", "fdtd_tpu_torch.sass_compare", parent_dir, "--json",
+                                      os.path.join(sass_dir.name, "sass.json"), "--alias", SASS_ALIAS[0],
+                                      SASS_ALIAS[1]], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
         atexit.register(lambda: sass_proc.poll() is None and sass_proc.kill())
+    if os.path.isfile(os.path.join(parent_dir, "fdtd_tpu_torch", "__init__.py")):
+        import threading
+
+        from fdtd_tpu_torch.tune_stream import load_parent
+
+        parent_pkg = load_parent(parent_dir)
+        for sub in ("grid", "state", "source", "runner", "cli", "profile_chunk", "ops.yee", "ops.cpml"):
+            __import__(f"{parent_pkg.__name__}.{sub}")
+        parent_build = threading.Thread(target=parent_pkg.ops.build.build, args=(parent_pkg.ops.yee.KERNEL_SOURCE,))
+        parent_build.start()
     phase_done("1-2 device and build")
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -459,18 +507,19 @@ def main() -> None:
         return PsiState(**{n: torch.tensor(rng.uniform(-1e-2, 1e-2, shapes[n]), dtype=field_dtype(p),
                                            device=dev) for n in PsiState.names()})
 
-    def compare_pml(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
+    def compare_pml(p: Params, arrays: dict, steps: int, label: str, coefs=None, cfg=None) -> None:
         """The CPML two-pass kernels against Cpml.plain_h/plain_e: fields
         and the twelve psi; ``coefs`` with materials picks the het-mu H and
-        lossy E variants."""
+        lossy E variants; ``cfg`` the absorber (default PML_CHECK)."""
         dt = field_dtype(p)
         coefs = coefs or update_coefs(p)
-        cp = make_cpml(p, PML_CHECK, coefs, dev)
+        cfg = cfg or PML_CHECK
+        cp = make_cpml(p, cfg, coefs, dev)
         h_name = "yee_update_h_het_pml" if coefs.heterogeneous_mu else "yee_update_h_pml"
         e_name = "yee_update_e_lossy_pml" if coefs.lossy else "yee_update_e_pml"
         patch = make_source_plan(p).patch if p.mode == Mode.COMPUTATION else None
         k_state, p_state = state_from_numpy(arrays, dev, dt), state_from_numpy(arrays, dev, dt)
-        k_psi = random_psi(p, PML_CHECK)
+        k_psi = random_psi(p, cfg)
         p_psi, psi0 = k_psi.clone(), k_psi.clone()
         err = {h_name: 0.0, e_name: 0.0}
         for _ in range(steps):
@@ -603,6 +652,12 @@ def main() -> None:
             overlap = update_coefs(p, ferrite_slab(p, base=water_block(p, lo=(0.02,) * 3, hi=(0.98,) * 3)), dev)
             compare_pml(p, arrays, 2, f"{dtype} {mode.name} random {p.padded_shape}")
             compare_pml(p, arrays, 2, f"{dtype} {mode.name} water + ferrite into the slabs", overlap)
+            # 24-cell walls: the source patch (j 21..27) reaches into the j slabs (j < 24)
+            thick = PMLConfig(cells=24)
+            j0p, _j1p, _i0p, _i1p = make_source_plan(p).patch
+            check(j0p < thick.cells, f"the source patch {make_source_plan(p).patch} lies partly in the 24-cell j slab")
+            compare_pml(p, arrays, 2, f"{dtype} {mode.name} 24-cell walls, the source patch in the j slab", cfg=thick)
+            compare_pml(p, arrays, 2, f"{dtype} {mode.name} 24-cell walls, water + ferrite", overlap, cfg=thick)
             del overlap
             if mode == Mode.COMPUTATION:
                 # the CPML sweep, vacuum and lossy (a load into the slabs)
@@ -672,6 +727,11 @@ def main() -> None:
         pd = dataclasses.replace(p_main, dtype=dtype)
         arrays = {c: rng.uniform(-1.0, 1.0, pd.padded_shape).astype(np.float32) for c in COMPONENTS}
         compare_sweep(pd, arrays, main_plan.s, f"{dtype} COMPUTATION random 256^3, main plan")
+        # the two-pass CPML passes (march_kernel) on the whole 257^3 grid,
+        # vacuum and het-mu H + lossy E with the ferrite scene, from random psi
+        compare_pml(pd, arrays, 1, f"{dtype} COMPUTATION random 256^3 --pml 10", cfg=PML10)
+        compare_pml(pd, arrays, 1, f"{dtype} COMPUTATION random 256^3 ferrite + --pml 10", coefs_of(pd, ferrite),
+                    cfg=PML10)
         # the CPML plan of the --pml 10 path, vacuum and lossy
         pml_plan = stream_plan.pick_plan(pd, pml=PML10)
         compare_sweep_pml(pd, arrays, pml_plan.s, f"{dtype} random 256^3, --pml 10 plan", cfg=PML10)
@@ -1020,8 +1080,9 @@ def main() -> None:
               and all(x is not None and math.isfinite(x) for x in radiated) and radiated[-1] != 0,
               f"CLI bench_256 --pml 10 (rate 500) exit {r.returncode} in {cli_s:.1f} s: {files}, "
               f"radiated_W {radiated} {r.stderr.strip()[-300:]}")
-    # 1000 steps on twopass and on stream in fp32 and bf16: auto picks
-    # stream in exactly the dtypes where it runs faster than twopass here
+    # 1000 steps on twopass and on stream in fp32 and bf16, in turns: auto
+    # picks stream in exactly the dtypes where it runs faster than twopass
+    # here, and keeps stream where the two are tied (ROUTE_TIE)
     finals, final_psi = {}, {}
     for dtype in ("float32", "bfloat16"):
         pd_ = dataclasses.replace(p, dtype=dtype)
@@ -1050,13 +1111,24 @@ def main() -> None:
                   f"({res.mcells_per_s:.1f} Mcells/s over {res.iterations} steps)")
             main_rates[f"bench_256 --pml 10{tag} {backend}"] = res.mcells_per_s
             del res
-        faster = main_rates[f"bench_256 --pml 10{tag} stream"] > main_rates[f"bench_256 --pml 10{tag} twopass"]
+        # the second half of the turns (twopass, stream, stream, twopass):
+        # each backend's rate is the mean of its two runs
+        runs = {}
+        for backend in ("stream", "twopass"):
+            first = main_rates[f"bench_256 --pml 10{tag} {backend}"]
+            res = run_simulation(pd_, dev, write_snapshots=False, backend=backend, pml=PML10, log=lambda m: None)
+            runs[backend] = (first, res.mcells_per_s)
+            main_rates[f"bench_256 --pml 10{tag} {backend}"] = (first + res.mcells_per_s) / 2
+            del res
+        reset_counts()
+        r_st, r_tp = (main_rates[f"bench_256 --pml 10{tag} {b}"] for b in ("stream", "twopass"))
+        gap = abs(r_st - r_tp) / max(r_st, r_tp)
         routed = resolve_backend(pd_, "auto", dev, pml=PML10)
-        check(routed == ("stream" if faster else "twopass")
+        check((routed == "stream" if gap < ROUTE_TIE else routed == ("stream" if r_st > r_tp else "twopass"))
               and resolve_backend(pd_, "twopass", dev, pml=PML10) == "twopass",
-              f"auto resolves to {routed} for --pml 10 at 256^3 {dtype}: stream "
-              f"{main_rates[f'bench_256 --pml 10{tag} stream']:.1f} against twopass "
-              f"{main_rates[f'bench_256 --pml 10{tag} twopass']:.1f} Mcells/s over 1000 steps; twopass is admitted "
+              f"auto resolves to {routed} for --pml 10 at 256^3 {dtype}: stream {r_st:.1f} against twopass "
+              f"{r_tp:.1f} Mcells/s over 1000 steps, each the mean of two runs in turns {runs} (gap {gap!r}"
+              f"{'; within ROUTE_TIE, a tie: auto keeps stream' if gap < ROUTE_TIE else ''}); twopass is admitted "
               f"when asked")
     d = max(maxdiff(finals[b], finals["twopass"]) for b in ("stream", "torch"))
     d = max(d, *(maxdiff(final_psi[b], final_psi["twopass"]) for b in ("stream", "torch")))
@@ -2376,6 +2448,123 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("7b CLI and kernel times")
 
+    # -- 7c. the CPML two-pass passes beside the parent's, in this call -------
+    # (the parent's package from a checkout of PARENT, its kernels built on the
+    # host since phase 2): each K10 pass from the same inputs on both trees,
+    # equal bit for bit and timed in turns (parent, this, this, parent); 1000
+    # steps of --pml 10 --shard 4 and of the open oven with a load (heating_256
+    # --water-block --sar --pml 10) on both trees in both dtypes, fp32 equal
+    # bit for bit (fields, psi, the SAR map), the oven also equal to torch's
+    # and to itself with --shard 4; the CLI's snapshots, sar.vtr and energy
+    # log of both scenes equal on both trees; each scene's device idle share
+    # (profile_chunk, 48 steps) on both trees
+    k10_same: dict[str, dict[str, tuple[float, float]]] = {}  # K10 kernel -> dtype -> (this ms, parent ms)
+    if parent_pkg is None:
+        print(f"phase 7c: not run (no git history and no scratch_chip/parent checkout of {PARENT})")
+    else:
+        from fdtd_tpu_torch import profile_chunk, tune_twopass
+
+        this_pkg = sys.modules["fdtd_tpu_torch"]
+        parent_build.join()
+
+        def parent_params(pm: Params):
+            fields = {f.name: getattr(pm, f.name) for f in dataclasses.fields(pm)}
+            return parent_pkg.params.Params(**{**fields, "mode": parent_pkg.params.Mode(pm.mode.value)})
+
+        for dtype in ("float32", "bfloat16"):
+            big = dataclasses.replace(p, dtype=dtype)
+            for name, pml_k in [(n, PML10) for n in tune_twopass.PASSES] + [("yee_update_h", None),
+                                                                             ("yee_update_e", None)]:
+                h_pass = tune_twopass.PASSES[name][0]
+                for shard_ in (False, True):
+                    box_ = tune_twopass.middle_slab(big) if shard_ else None
+                    kname = name + ("_pml" if pml_k else "") + ("_shard" if shard_ else "")
+                    mine = tune_twopass.make_case(this_pkg, big, box_, name, pml_k, 7, dev)
+                    theirs = tune_twopass.make_case(parent_pkg, big, box_, name, pml_k, 7, dev, like=mine)
+                    mine.run(h_pass)
+                    theirs.run(h_pass)
+                    torch.cuda.synchronize()
+                    d = tune_twopass.maxdiff(mine.outputs(), theirs.outputs())
+                    first = event_ms(lambda: theirs.run(h_pass))
+                    ms_a, ms_b = event_ms(lambda: mine.run(h_pass)), event_ms(lambda: mine.run(h_pass))
+                    last = event_ms(lambda: theirs.run(h_pass))
+                    k10_same.setdefault(kname, {})[dtype] = ((ms_a + ms_b) / 2, (first + last) / 2)
+                    check(d == 0.0, f"{kname} {dtype} 256^3{' a middle slab of --shard 4' if shard_ else ''} == "
+                                    f"{PARENT}'s from the same random fields{', coefficients and psi' if pml_k else ''}: "
+                                    f"max|diff| = {d!r}; "
+                                    f"{(ms_a + ms_b) / 2!r} ms against {PARENT}'s {(first + last) / 2!r} in turns")
+                    del mine, theirs
+            torch.cuda.empty_cache()
+        oven = "heating_256 --water-block --sar --pml 10"
+        scenes_7c = (("bench_256 --pml 10 --shard 4", p, False, "4"), (oven, ph, True, None))
+        runs_7c = {}
+        for dtype in ("float32", "bfloat16"):
+            for label, pm, heat, spec in scenes_7c:
+                pd = dataclasses.replace(pm, dtype=dtype)
+                pp_ = parent_params(pd)
+                reset_counts()
+                res_t = run_simulation(pd, dev, write_snapshots=False, pml=PML10, shard=spec, log=lambda m: None,
+                                       materials=water_block(pd) if heat else None, accumulate_power=heat)
+                counts = counts_now()
+                res_p = parent_pkg.runner.run_simulation(
+                    pp_, dev, write_snapshots=False, pml=parent_pkg.ops.cpml.PMLConfig(cells=PML10.cells), shard=spec,
+                    log=lambda m: None, materials=parent_pkg.state.water_block(pp_) if heat else None,
+                    accumulate_power=heat)
+                d = max(maxdiff(res_t.state, res_p.state), maxdiff(res_t.psi, res_p.psi),
+                        absdiff(res_t.power_j, res_p.power_j) if heat else 0.0)
+                want_c = (expect(yee_update_h_pml=n, yee_update_e_lossy_pml=n) if heat else
+                          expect(yee_update_h_pml_shard=4 * n, yee_update_e_pml_shard=4 * n))
+                runs_7c[(label, dtype)] = (res_t.mcells_per_s, res_p.mcells_per_s)
+                main_rates[f"{label}{'' if dtype == 'float32' else ' bf16'}"] = res_t.mcells_per_s
+                check(counts == want_c and res_t.iterations == res_p.iterations == 1000
+                      and (d == 0.0 or dtype != "float32"),
+                      f"{label} {dtype} 1000 steps (auto): launch counts {counts} == {want_c}; {PARENT}'s run "
+                      f"{'equal bit for bit (fields, psi' + (', SAR' if heat else '') + ')' if dtype == 'float32' else 'max|diff| ' + repr(d)}"
+                      f"; {res_t.mcells_per_s!r} Mcells/s against {PARENT}'s {res_p.mcells_per_s!r}")
+                if heat and dtype == "float32":
+                    # the open oven: torch's run and the run split over --shard 4 equal it bit for bit
+                    for kw in (dict(backend="torch"), dict(shard="4")):
+                        res_x = run_simulation(pd, dev, write_snapshots=False, pml=PML10, log=lambda m: None,
+                                               materials=water_block(pd), accumulate_power=True, **kw)
+                        d_x = max(maxdiff(res_x.state, res_t.state), maxdiff(res_x.psi, res_t.psi),
+                                  absdiff(res_x.power_j, res_t.power_j))
+                        check(d_x == 0.0, f"{oven} fp32 1000 steps {kw}: == auto (twopass) bit for bit, fields, "
+                                          f"psi and SAR map: max|diff| = {d_x!r} ({res_x.mcells_per_s!r} Mcells/s)")
+                        del res_x
+                del res_t, res_p
+                torch.cuda.empty_cache()
+        # the CLI on both trees: the same snapshots, sar.vtr and energy log
+        with tempfile.TemporaryDirectory() as out:
+            for label, args in (("bench_256 --pml 10 --shard 4", ["configs/bench_256.txt", "--pml", "10", "--shard", "4"]),
+                                (oven, ["configs/heating_256.txt", "--water-block", "--sar", "--pml", "10"])):
+                tag = label.split()[0]
+                a_dir, b_dir = os.path.join(out, tag + "_this"), os.path.join(out, tag + "_parent")
+                ra = run_cli(args + ["--out", a_dir, "--diag-log", a_dir + ".jsonl"])
+                rb = run_cli(args + ["--out", b_dir, "--diag-log", b_dir + ".jsonl"], parent_pkg.cli)
+                names, d = same_outputs(a_dir, b_dir)
+                names_b = sorted(os.path.basename(f) for f in glob.glob(os.path.join(b_dir, "*.vtr")))
+                logs = [open(x + ".jsonl").read() if os.path.exists(x + ".jsonl") else None for x in (a_dir, b_dir)]
+                check(ra.returncode == rb.returncode == 0 and names and names == names_b and d == 0.0
+                      and logs[0] is not None and logs[0] == logs[1] and ("sar.vtr" in names) == (label == oven),
+                      f"CLI {label}: this tree and {PARENT} write the same {names} (max|diff| {d!r}) and energy log "
+                      f"({len((logs[0] or '').splitlines())} records) {ra.stderr.strip()[-200:]} {rb.stderr.strip()[-200:]}")
+        # the device's idle share of each scene, both trees
+        for dtype in ("float32", "bfloat16"):
+            for label, pm, heat, spec in scenes_7c:
+                pd = dataclasses.replace(pm, dtype=dtype)
+                rec_t = profile_chunk.profile(pd, "twopass", N_TIMED, N_WARM, dev, heating=heat, pml=PML10, shard=spec)
+                rec_p = parent_pkg.profile_chunk.profile(parent_params(pd), "twopass", N_TIMED, N_WARM, dev,
+                                                         heating=heat, pml=parent_pkg.ops.cpml.PMLConfig(cells=PML10.cells),
+                                                         shard=spec)
+                rt, rp = runs_7c[(label, dtype)]
+                print(f"rate 1000 steps {label} {dtype}: {rt!r} Mcells/s ({PARENT} {rp!r}: x{rt / rp!r}); idle share "
+                      f"{rec_t['idle_share']!r} ({PARENT} {rec_p['idle_share']!r}), device {rec_t['device_ms_per_step']!r} "
+                      f"ms a step ({PARENT} {rec_p['device_ms_per_step']!r}), wall {rec_t['wall_ms_per_step']!r} "
+                      f"({PARENT} {rec_p['wall_ms_per_step']!r}) ({smi})", flush=True)
+                print(f"profile {label} {dtype} twopass: {json.dumps(rec_t)}", flush=True)
+        torch.cuda.empty_cache()
+    phase_done(f"7c the CPML two-pass passes beside {PARENT}")
+
     # -- 10. the thermal solve, the coupled cook and the sweeps -----------------
     # (ROADMAP items 6 and 10; runs here, before the timing of phase 8)
     import filecmp
@@ -2896,6 +3085,7 @@ def main() -> None:
                          + (5 * (psi_h + psi_e) if pml else 0))
 
     kernels = []
+    bound16: dict[str, float] = {}  # each kernel's bf16 bound
     for name in ("yee_update_h", "yee_update_e", "yee_stream", "yee_update_h_het", "yee_update_e_lossy",
                  "yee_stream_lossy", "yee_stream_lossy_sar", "yee_stream_lossy_het", "yee_stream_lossy_het_sar",
                  "yee_update_h_pml", "yee_update_e_pml", "yee_update_h_het_pml", "yee_update_e_lossy_pml",
@@ -2920,6 +3110,7 @@ def main() -> None:
         print(f"bound 256^3 {name}: fp32 {bound['fp32'][0]!r} ms ({bound['fp32'][2]!r} B per padded cell, "
               f"{bound['fp32'][1]}), bf16 {bound['bf16'][0]!r} ms ({bound['bf16'][2]!r} B, {bound['bf16'][1]}); "
               f"launches {main_counts[name]} on {paths[name]}")
+        bound16[name] = bound["bf16"][0]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name.startswith("dft_accum") else
@@ -2965,25 +3156,31 @@ def main() -> None:
     for key, first in FIRST_RATES.items():
         print(f"rate 1000 steps {key}: {main_rates[key]!r} Mcells/s (first design {first!r}: "
               f"x{main_rates[key] / first!r}) ({smi})")
-    # the CPML sweep on the Hopper core beside its time at the parent
-    # (2f5c8af), with registers and spills
+    # the CPML two-pass passes on the march core beside the parent's: its time
+    # recorded in PARENT_TIMES and, with a checkout of PARENT, in this call
+    # (phase 7c, in turns from the same inputs), registers and spills from
+    # the build's ptxas report
+    from fdtd_tpu_torch import tune_twopass
+    regs2 = tune_twopass.ptxas_report(lib_paths[0].with_suffix(".log").read_text())
+    shape = tune_twopass.BUILT
     by_name = {entry["name"]: entry for entry in kernels}
-    for name, (ms9, ms9_16) in PARENT_TIMES.items():
+    for name, (ms_p, ms_p16) in PARENT_TIMES.items():
         entry = by_name[name]
-        pl = plans[name]
-        key = (pl.s, pl.bj, pl.cr, pl.lossy, pl.dft)
-        r32, r16 = (regs.get(("pml", dtype) + key, (None, None)) for dtype in ("float32", "bfloat16"))
-        core = pl.core
-        ck = (core.s, core.bj, core.cr, core.lossy, False, False, False, core.dft, True)
-        i32, i16 = (regs.get((dtype,) + ck, (None, None)) for dtype in ("float32", "bfloat16"))
-        what = (f"pml_kernel s={pl.s} bj={pl.bj} ring {int(pl.cr)}, {pl.blocks} blocks, shell {shell_ms[name]!r} "
-                f"ms; interior ring_kernel bj={core.bj} window {core.window} {core.blocks} blocks, "
-                f"{ms[name + stream.INTERIOR][0]!r} ms, registers {i32[0]} / {i16[0]}, spill stores {i32[1]} / "
-                f"{i16[1]} B")
-        print(f"beside {PARENT} {name} (256^3 --pml 10): {what}: fp32 {entry['ms']!r} ms ({PARENT} {ms9!r}: "
-              f"x{ms9 / entry['ms']!r}), bf16 {ms_bf16[name]!r} ms ({PARENT} {ms9_16!r}: x{ms9_16 / ms_bf16[name]!r}); bound share "
-              f"{entry['bound_ms'] / entry['ms']!r}; registers {r32[0]} / {r16[0]}, spill stores {r32[1]} / {r16[1]} B "
-              f"(fp32 / bf16) ({smi})")
+        h_pass, mat = tune_twopass.PASSES[name.removesuffix("_shard").removesuffix("_pml")]
+        r32, r16 = (regs2.get(("march", dtype, not h_pass, mat, "_pml" in name) + shape, (None, None))
+                    for dtype in ("float32", "bfloat16"))
+        same = k10_same.get(name)
+        call = ("" if same is None else
+                f"; in this call, in turns from the same inputs: fp32 {same['float32'][0]!r} ms against {PARENT}'s "
+                f"{same['float32'][1]!r} (x{same['float32'][1] / same['float32'][0]!r}), bf16 {same['bfloat16'][0]!r} "
+                f"against {same['bfloat16'][1]!r} (x{same['bfloat16'][1] / same['bfloat16'][0]!r})")
+        b32, b16 = entry["bound_ms"], bound16[name]
+        print(f"beside {PARENT} {name} (256^3{' --pml 10' if '_pml' in name else ''}"
+              f"{', a middle slab of --shard 4' if name.endswith('_shard') else ''}"
+              f"): march_kernel (AH, BJ, BI, NB, CB) = {shape}: fp32 {entry['ms']!r} ms, {b32 / entry['ms']!r} of the bound "
+              f"({PARENT} {ms_p!r}: {b32 / ms_p!r}, x{ms_p / entry['ms']!r}), bf16 {ms_bf16[name]!r} ms, "
+              f"{b16 / ms_bf16[name]!r} of the bound ({PARENT} {ms_p16!r}: {b16 / ms_p16!r}, x{ms_p16 / ms_bf16[name]!r})"
+              f"{call}; registers {r32[0]} / {r16[0]}, spill stores {r32[1]} / {r16[1]} B (fp32 / bf16) ({smi})")
     for tag in ("", " bf16"):
         for dft_tag in ("", " --dft 2.45e10"):
             st_r, tp_r = (main_rates[f"bench_256 --pml 10{tag}{dft_tag} {b}"] for b in ("stream", "twopass"))
@@ -2994,16 +3191,22 @@ def main() -> None:
         out_s, _ = sass_proc.communicate()
         verdict_path = os.path.join(sass_dir.name, "sass.json")
         verdicts = json.loads(open(verdict_path).read()) if os.path.exists(verdict_path) else {}
-        # the parent's CPML sweep (stream_kernel) is replaced by pml_kernel
-        replaced = {k for k in verdicts if "stream_kernel" in k}
+        # the parent's CPML and vacuum two-pass passes (h_kernel / e_kernel <T, HET or LOSSY, PML, BOX, BATCH>
+        # with PML, or without materials and BATCH) are replaced by march_kernel
+        replaced = {k for k in verdicts if re.search(r"\b(h|e)_kernel<", k)
+                    and (_flag(k.split(": ", 1)[1], 2) or not (_flag(k.split(": ", 1)[1], 1)
+                                                               or _flag(k.split(": ", 1)[1], 4)))}
         kept = {k: v for k, v in verdicts.items() if k not in replaced}
         changed = sorted(k for k, v in kept.items() if v != "same")
         for line in out_s.strip().splitlines():
             if line.startswith("{"):
                 print(f"sass_compare vs {PARENT}: {line}")
-        check(bool(kept) and not changed,
+        for k in sorted(kept):
+            print(f"sass_compare vs {PARENT}: kept its machine code: {k}" if kept[k] == "same" else
+                  f"sass_compare vs {PARENT}: {kept[k]}: {k}")
+        check(bool(kept) and not changed and len(replaced) == 24,
               f"sass_compare vs {PARENT}: {len(kept)} kernels keep their machine code (changed: {changed}); "
-              f"the CPML sweep's {len(replaced)} replaced by pml_kernel")
+              f"the {len(replaced)} CPML and vacuum two-pass instantiations replaced by march_kernel")
     else:
         print(f"sass_compare vs {PARENT}: not run (no git history and no scratch_chip/parent checkout)")
     sass_dir.cleanup()

@@ -425,9 +425,10 @@ class Cpml:
     tensor per pass: b and c of each term in ``_TERMS`` order over the
     canonical slab rows, field dtype; a shard's kernels index them by
     canonical row too), the corrections of :func:`make_cpml_corrections`
-    over the box, and, worked out once, the psi (part) shapes the passes
-    take and a shard's part geometry of each pass's terms
-    (:func:`psi_part_geometry`, keyed by ``H_TERMS`` and ``E_TERMS``)."""
+    over the box, the psi (part) shapes the passes take, worked out once,
+    and ``march``, the kernels' launch geometry of each pass (the box, its
+    psi parts and the launch shape: ``ops/stream_plan.py::march_geometry``,
+    keyed by ``H_TERMS`` and ``E_TERMS``), cached at the first launch."""
 
     cfg: PMLConfig
     table_h: torch.Tensor
@@ -436,7 +437,7 @@ class Cpml:
     e_correct: object
     box: Box | None = None
     shapes: dict = dataclasses.field(default_factory=dict)
-    part_geometry: dict = dataclasses.field(default_factory=dict)
+    march: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def plain_h(self, p: Params, s: FieldState, coefs: UpdateCoefs, psi: PsiState,
                 patch: tuple[int, int, int, int] | None = None) -> None:
@@ -479,10 +480,8 @@ def make_cpml(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device, box: Box | 
         return torch.stack([torch.stack([plan[n][6].reshape(-1), plan[n][7].reshape(-1)]) for n in names])
 
     h_correct, e_correct = _corrections(coefs, _box_runs(p, cfg, plan, box or full_box(p)), box or full_box(p))
-    geom = ({names: tuple(psi_part_geometry(p, cfg, box, names)) for names in (H_TERMS, E_TERMS)}
-            if box is not None else {})
     return Cpml(cfg, table(H_TERMS).contiguous(), table(E_TERMS).contiguous(), h_correct, e_correct, box,
-                psi_part_shapes(p, cfg, box), geom)
+                psi_part_shapes(p, cfg, box))
 
 
 def make_pml_step(p: Params, cfg: PMLConfig, coefs: UpdateCoefs, device):

@@ -90,6 +90,14 @@ slabs of the energies and snapshot aggregation) or of the SAR increment,
 whichever is larger: they never run at the same time.  With Debye SAR the
 increment also needs the three fp32 edge work arrays of the E pass.
 
+The two-pass vacuum and CPML passes (``csrc/yee_twopass.cu::march_kernel``)
+have launch plans of their own here too (:func:`march_plan`): tiles of
+``MARCH_BJ`` x ``MARCH_BI`` columns, the last row and column to edge blocks
+where the window is one past whole tiles, and the chunk of planes a block
+marches (:func:`pick_march_tk`); :func:`march_counts` mirrors how the
+kernel maps threads to cells, so a CPU test can hold each launch to every
+owned cell once.
+
 A shard of a sharded run (:mod:`fdtd_tpu_torch.parallel`) sweeps its owned
 window: :func:`plan_for` with ``window``, the vacuum and material variants
 with or without the DFT bands (``SHARD_VARIANTS``).  :func:`shard_bytes`
@@ -105,11 +113,14 @@ import dataclasses
 import heapq
 import math
 
+import numpy as np
+
 from .. import diagnostics
 from ..dft import DftConfig, acc_bytes
+from ..grid import Box, full_box
 from ..params import Mode, Params
 from ..source import make_source_plan
-from .cpml import TERM_NAMES, PMLConfig, psi_boxes, psi_bytes
+from .cpml import E_TERMS, H_TERMS, TERM_NAMES, PMLConfig, psi_boxes, psi_bytes, psi_part_geometry
 
 STEPS = (8, 4, 2)  # steps per sweep, deepest first
 SM_COUNT = 132  # H100 SXM
@@ -724,3 +735,162 @@ def supported(p: Params, memory_bytes: int | None = None, lossy: bool = False,
     """True when some streaming plan fits (see :func:`pick_plan`)."""
     return pick_plan(p, memory_bytes=memory_bytes, lossy=lossy, het=het, sar=sar, pml=pml,
                      ade=ade, dft=dft) is not None
+
+
+# ---------------------------------------------------------------------------
+# The two-pass CPML kernels' launch (csrc/yee_twopass.cu::march_kernel)
+# ---------------------------------------------------------------------------
+
+MARCH_BI = 128  # a tile's threads along i (csrc/yee_twopass.cu::MARCH_BI)
+MARCH_BJ = 2  # and along j (MARCH_BJ)
+MARCH_BLOCKS_PER_SM = 4  # the kernel's launch bounds (MARCH_NB): 256 threads at 64 registers at most
+MARCH_AHEAD = 2  # the planes its copies run ahead (MARCH_AH)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """The launch of one CPML two-pass pass (H or E) on ``march_kernel``:
+    ``window``, the cells it updates (global (lo, hi) per axis: the box's
+    owned window within the pass's update bounds); ``tiles`` (j, i) of
+    ``MARCH_BJ`` x ``MARCH_BI`` columns, one block each per chunk of ``tk``
+    planes, block b marching chunk b // tiles of tile b % tiles (tiles in
+    (j, i) order, i fastest); ``extra`` (j, i): the window's last row
+    (column) lies one past whole tiles (so 257 columns take 8 tiles of 32,
+    not 9 with one column in the ninth), and the edge blocks after the
+    tiles' update it, one cell and plane a thread (:attr:`edge_cells` a
+    plane: the last row, then the last column, the corner once)."""
+
+    window: tuple[tuple[int, int], tuple[int, int], tuple[int, int]]
+    tiles: tuple[int, int]
+    extra: tuple[bool, bool]
+    tk: int
+    bj: int = MARCH_BJ
+    blocks_per_sm: int = MARCH_BLOCKS_PER_SM
+    bi: int = MARCH_BI
+
+    @property
+    def chunks(self) -> int:
+        return -(-(self.window[0][1] - self.window[0][0]) // self.tk)
+
+    @property
+    def edge_cells(self) -> int:
+        (_k0, _k1), (j0, j1), (i0, i1) = self.window
+        xj, xi = self.extra
+        return (i1 - i0 if xj else 0) + (j1 - j0 - xj if xi else 0)
+
+    @property
+    def blocks(self) -> int:
+        planes = self.window[0][1] - self.window[0][0]
+        return self.tiles[0] * self.tiles[1] * self.chunks + -(-self.edge_cells * planes // (self.bi * self.bj))
+
+    @property
+    def waves(self) -> float:
+        """Blocks over what the card holds at once (``MARCH_BLOCKS_PER_SM``
+        on each SM)."""
+        return self.blocks / (SM_COUNT * self.blocks_per_sm)
+
+
+def march_tiles(extent: int, b: int) -> tuple[int, bool]:
+    """(tiles, extra) of ``extent`` columns in tiles of ``b``: whole tiles
+    over all but the last column, which the edge blocks take when the
+    tiles stop one short of it."""
+    n = max(1, -(-(extent - 1) // b))
+    return n, n * b < extent
+
+
+def pick_march_tk(planes: int, tiles: int, blocks_per_sm: int = MARCH_BLOCKS_PER_SM) -> int:
+    """The planes a block of march_kernel marches: of the splits of
+    ``planes`` into equal chunks that give every block slot of the card
+    (``blocks_per_sm`` on each SM) a block, the one whose waves take the
+    fewest plane steps an SM, each chunk's two planes of start-up (the
+    other field's second plane and the first plane's wait) counted; ties
+    to the deeper chunk.  Whole waves first, as :func:`pick_tk`: a last
+    wave half full costs a whole wave.  A card with fewer blocks than
+    slots leaves SMs short of the copies in flight a memory-bound pass
+    needs, so a split that fills the slots comes first (the finest split
+    when none does)."""
+    slots = SM_COUNT * blocks_per_sm
+    splits = [-(-planes // nk) for nk in range(1, planes + 1)]
+    full = [tk for tk in splits if -(-planes // tk) * tiles >= slots] or [min(splits)]
+
+    def steps(tk: int) -> int:
+        return -(-(-(-planes // tk) * tiles) // slots) * (tk + 2)
+
+    return min(full, key=lambda tk: (steps(tk), -tk))
+
+
+def march_plan(p: Params, box: Box | None, e_pass: bool, bj: int = MARCH_BJ,
+               blocks_per_sm: int = MARCH_BLOCKS_PER_SM, bi: int = MARCH_BI) -> MarchPlan | None:
+    """The launch of the CPML H (``e_pass`` False) or E pass over ``box``'s
+    owned window (None: the whole grid), or None when the window holds no
+    cell the pass updates.  The H pass updates planes, rows and columns up
+    to K, J, I; the E pass stops one short on each axis (the walls).  ``bj``,
+    ``blocks_per_sm`` and ``bi``: another shape of the kernel
+    (``tune_twopass``)."""
+    box = box or full_box(p)
+    top = (p.maxk, p.maxj, p.maxi) if e_pass else (p.maxk + 1, p.maxj + 1, p.maxi + 1)
+    window = tuple((lo, min(hi, t)) for lo, hi, t in zip(box.own_lo, box.own_hi, top))
+    if any(hi <= lo for lo, hi in window):
+        return None
+    (ntj, xj), (nti, xi) = (march_tiles(window[a][1] - window[a][0], b) for a, b in ((1, bj), (2, bi)))
+    return MarchPlan(window, (ntj, nti), (xj, xi), pick_march_tk(window[0][1] - window[0][0], ntj * nti,
+                                                                 blocks_per_sm), bj, blocks_per_sm, bi)
+
+
+def march_geometry(p: Params, cfg: PMLConfig | None, box: Box | None, e_pass: bool, bj: int = MARCH_BJ,
+                   blocks_per_sm: int = MARCH_BLOCKS_PER_SM, bi: int = MARCH_BI) -> tuple[int, ...]:
+    """The 43 ints of march_kernel's ``geom``: the box (its arrays' extents,
+    the global index of their origin, its owned window; the whole grid's own
+    box for None), the pass's psi parts with ``cfg`` (origin and extents
+    along axes 1 and 2 a term, :func:`~fdtd_tpu_torch.ops.cpml.
+    psi_part_geometry`; zeros for a pass without CPML) and the planes a
+    block marches (:func:`march_plan`)."""
+    box = box or full_box(p)
+    plan = march_plan(p, box, e_pass, bj, blocks_per_sm, bi)
+    window = [x for lo_hi in zip(box.own_lo, box.own_hi) for x in lo_hi]
+    parts = psi_part_geometry(p, cfg, box, E_TERMS if e_pass else H_TERMS) if cfg is not None else [0] * 30
+    return (*box.shape, *box.lo, *window, *parts, plan.tk if plan is not None else 1)
+
+
+def march_counts(p: Params, plan: MarchPlan, e_pass: bool) -> np.ndarray:
+    """How many times the launch of ``plan`` updates each cell of the padded
+    grid, per component (x, y, z): an int8 (3, K+1, J+1, I+1) array, with
+    threads mapped to cells as ``march_kernel`` maps them (tile (tj, ti),
+    thread (ty, tx): column (j0 + tj * bj + ty, i0 + ti * bi + tx)
+    inside the window less its last row and column where the edge blocks
+    take them; chunk c: planes k0 + c * tk on; edge thread e: plane k0 + e
+    // edge_cells, cell e % edge_cells) and each component's update bounds
+    as the kernel tests them."""
+    K, J, I = p.maxk, p.maxj, p.maxi
+    (k0, k1), (j0, j1), (i0, i1) = plan.window
+    planes = np.zeros(K + 1, np.int8)
+    for c in range(plan.chunks):
+        planes[k0 + c * plan.tk:min(k0 + (c + 1) * plan.tk, k1)] += 1
+    cols = np.zeros((J + 2, I + 2), np.int8)  # one spare row and column: a thread past the grid shows
+    (ntj, nti), (xj, xi) = plan.tiles, plan.extra
+    for tj in range(ntj):
+        for ti in range(nti):
+            j = j0 + tj * plan.bj + np.arange(plan.bj)[:, None]
+            i = i0 + ti * plan.bi + np.arange(plan.bi)[None, :]
+            live = (j < j1 - xj) & (i < i1 - xi)
+            np.add.at(cols, (np.broadcast_to(j, live.shape)[live], np.broadcast_to(i, live.shape)[live]), 1)
+    if cols[J + 1].any() or cols[:, I + 1].any():
+        raise AssertionError("the launch maps a thread past the grid")
+    edge = np.zeros((K + 1, J + 2, I + 2), np.int8)
+    ne, nr = plan.edge_cells, (i1 - i0 if xj else 0)
+    e = np.arange(ne * (k1 - k0))
+    u = e % ne
+    np.add.at(edge, (k0 + e // ne, np.where(u < nr, j1 - 1, j0 + u - nr), np.where(u < nr, i0 + u, i1 - 1)), 1)
+    cols = cols[:J + 1, :I + 1]
+    jj, ii, kk = np.arange(J + 1)[:, None], np.arange(I + 1)[None, :], np.arange(K + 1)
+    if e_pass:
+        col_bounds = ((jj >= 1) & (jj < J) & (ii < I), (jj < J) & (ii >= 1) & (ii < I),
+                      (jj >= 1) & (jj < J) & (ii >= 1) & (ii < I))
+        k_bounds = ((kk >= 1) & (kk < K), (kk >= 1) & (kk < K), kk < K)
+    else:
+        col_bounds = (np.broadcast_to(jj < J, cols.shape), np.broadcast_to(ii < I, cols.shape), (jj < J) & (ii < I))
+        k_bounds = (kk < K, kk < K, kk <= K)
+    edge = edge[:, :J + 1, :I + 1]
+    return np.stack([(planes * kb)[:, None, None] * (cols * cb)[None] + edge * kb[:, None, None] * cb[None]
+                     for kb, cb in zip(k_bounds, col_bounds)])
+

@@ -39,6 +39,16 @@ which replace the JAX package's vmapped ``_h_kernel2``/``_e_kernel2``
 (``fdtd_tpu/sweep.py``'s ``pallas_fused`` members); their plain versions
 are the per-member :mod:`fdtd_tpu_torch.ops.curl` passes.
 
+The vacuum and the CPML passes run ``march_kernel``, the k-marching core
+(the header of ``csrc/yee_twopass.cu``), whose launch geometry
+(:func:`vacuum_geometry`, :func:`march_geometry`: the box, the psi parts
+and the planes a block marches, ``stream_plan.march_plan``) is made once
+per grid and box; the het-mu H and lossy E passes, the batched passes and
+the ADE E pass run the first design.  The march core copies rows in aligned
+16-byte chunks, so the other field's three tensors must start alike within
+16 bytes, and so must the pass's own three with its coefficients
+(:func:`check_aligned`).
+
 ``launches`` counts kernel launches per kernel variant (a shard's under
 the variant's name with ``_shard``, a batch's with ``_batch``), so a run
 can show that it went through the kernels; plain-version calls do not
@@ -54,7 +64,7 @@ import torch
 from ..grid import Box
 from ..params import Params
 from ..state import FieldState, UpdateCoefs
-from . import build, curl, dispersive
+from . import build, curl, dispersive, stream_plan
 from .cpml import E_TERMS, H_TERMS, Cpml, PsiState
 from .dispersive import DebyeCoefs, PolState
 
@@ -79,48 +89,91 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
-        lib = build.load(KERNEL_SOURCE)
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # (K, J, I, geom): the grid and a shard's box (null: the whole grid)
-        grid = [i32] * 3 + [ptr]
-        lib.yee_update_h.argtypes = [ptr] * 6 + grid + [f32] + [i32] * 5 + [i32, ptr]
-        lib.yee_update_h.restype = i32
-        lib.yee_update_e.argtypes = [ptr] * 6 + grid + [f32] + [i32, ptr]
-        lib.yee_update_e.restype = i32
-        lib.yee_update_h_het.argtypes = [ptr] * 3 + grid + [i32] * 5 + [i32, ptr]
-        lib.yee_update_h_het.restype = i32
-        lib.yee_update_e_lossy.argtypes = [ptr] * 3 + grid + [i32, ptr]
-        lib.yee_update_e_lossy.restype = i32
-        lib.yee_update_h_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
-        lib.yee_update_h_pml.restype = i32
-        lib.yee_update_h_het_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32] * 5 + [i32, ptr]
-        lib.yee_update_h_het_pml.restype = i32
-        lib.yee_update_e_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32, ptr]
-        lib.yee_update_e_pml.restype = i32
-        lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32, ptr]
-        lib.yee_update_e_lossy_pml.restype = i32
-        lib.yee_update_e_ade.argtypes = [ptr] * 5 + grid + [f32, i32, ptr]
-        lib.yee_update_e_ade.restype = i32
-        # (e or h, h or e, members, K, J, I, ...): a batch's member 0 pointers
-        lib.yee_update_h_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
-        lib.yee_update_h_batch.restype = i32
-        lib.yee_update_e_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32, i32, ptr]
-        lib.yee_update_e_batch.restype = i32
-        lib.yee_error_string.argtypes = [i32]
-        lib.yee_error_string.restype = ctypes.c_char_p
-        _bound = lib
+        _bound = _declare(build.load(KERNEL_SOURCE))
     return _bound
 
 
-def geometry(p: Params, box: Box | None, cpml: Cpml | None = None, names: tuple[str, ...] = ()):
+def use_library(path) -> None:
+    """Launch the passes from the library at ``path``, a build of
+    csrc/yee_twopass.cu with macros of its own (``build.build(...,
+    defines=...)``), instead of the default build."""
+    global _bound
+    _bound = _declare(ctypes.CDLL(str(path)))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of its C interface set."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # (K, J, I, geom): the grid and the launch's geometry (a shard's box, null for the whole grid; the
+    # march_kernel passes' 43 ints, never null)
+    grid = [i32] * 3 + [ptr]
+    lib.yee_update_h.argtypes = [ptr] * 6 + grid + [f32] + [i32] * 5 + [i32, ptr]
+    lib.yee_update_h.restype = i32
+    lib.yee_update_e.argtypes = [ptr] * 6 + grid + [f32] + [i32, ptr]
+    lib.yee_update_e.restype = i32
+    lib.yee_update_h_het.argtypes = [ptr] * 3 + grid + [i32] * 5 + [i32, ptr]
+    lib.yee_update_h_het.restype = i32
+    lib.yee_update_e_lossy.argtypes = [ptr] * 3 + grid + [i32, ptr]
+    lib.yee_update_e_lossy.restype = i32
+    lib.yee_update_h_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
+    lib.yee_update_h_pml.restype = i32
+    lib.yee_update_h_het_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32] * 5 + [i32, ptr]
+    lib.yee_update_h_het_pml.restype = i32
+    lib.yee_update_e_pml.argtypes = [ptr] * 4 + [i32] + grid + [f32] + [i32, ptr]
+    lib.yee_update_e_pml.restype = i32
+    lib.yee_update_e_lossy_pml.argtypes = [ptr] * 5 + [i32] + grid + [i32, ptr]
+    lib.yee_update_e_lossy_pml.restype = i32
+    lib.yee_update_e_ade.argtypes = [ptr] * 5 + grid + [f32, i32, ptr]
+    lib.yee_update_e_ade.restype = i32
+    # (e or h, h or e, members, K, J, I, ...): a batch's member 0 pointers
+    lib.yee_update_h_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
+    lib.yee_update_h_batch.restype = i32
+    lib.yee_update_e_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32, i32, ptr]
+    lib.yee_update_e_batch.restype = i32
+    lib.yee_error_string.argtypes = [i32]
+    lib.yee_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "yee_march_candidate"):  # a -DYEE_TWOPASS_CANDIDATES build (tune_twopass)
+        lib.yee_march_candidate.argtypes = [i32] * 2 + [ptr] * 5 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
+        lib.yee_march_candidate.restype = i32
+    return lib
+
+
+def geometry(p: Params, box: Box | None):
     """The C interface's ``geom`` of a shard's box (its arrays' extents,
-    the global index of their origin, the owned window; with ``cpml``, the
-    shard's psi parts of the terms ``names``), None for the whole grid."""
+    the global index of their origin, the owned window), None for the whole
+    grid."""
     if box is None or box.is_full(p):
         return None
     window = [x for lo_hi in zip(box.own_lo, box.own_hi) for x in lo_hi]
-    parts = cpml.part_geometry[names] if cpml is not None else ()
-    return (ctypes.c_int * (12 + len(parts)))(*box.shape, *box.lo, *window, *parts)
+    return (ctypes.c_int * 12)(*box.shape, *box.lo, *window)
+
+
+_VACUUM: dict = {}  # vacuum_geometry's arrays by (K, J, I, box, E pass)
+
+
+def vacuum_geometry(p: Params, box: Box | None, e_pass: bool):
+    """The vacuum passes' ``geom`` (march_kernel without CPML) of ``box``'s
+    owned window (None: the whole grid): ``stream_plan.march_geometry``,
+    made once per grid, box and pass."""
+    box = None if box is None or box.is_full(p) else box
+    key = (p.maxk, p.maxj, p.maxi, box, e_pass)
+    geom = _VACUUM.get(key)
+    if geom is None:
+        ints = stream_plan.march_geometry(p, None, box, e_pass)
+        geom = _VACUUM[key] = (ctypes.c_int * len(ints))(*ints)
+    return geom
+
+
+def march_geometry(p: Params, cpml: Cpml, names: tuple[str, ...]):
+    """The CPML kernels' ``geom`` of the pass of the terms ``names`` on
+    ``cpml.box`` (the whole grid's too): the box, its psi parts and the
+    planes a block marches (``stream_plan.march_geometry``), made once per
+    :class:`Cpml` and pass."""
+    geom = cpml.march.get(names)
+    if geom is None:
+        ints = stream_plan.march_geometry(p, cpml.cfg, cpml.box, names == E_TERMS)
+        geom = cpml.march[names] = (ctypes.c_int * len(ints))(*ints)
+    return geom
 
 
 def _on_cpu(p: Params, s: FieldState, shape: tuple[int, int, int] | None = None) -> bool:
@@ -178,6 +231,18 @@ def check_psi(p: Params, cpml: Cpml, like: torch.Tensor, psi: PsiState, names: t
             )
 
 
+def check_aligned(*groups) -> None:
+    """march_kernel copies rows in aligned 16-byte chunks: the tensors of a
+    group (the other field's three; the pass's own three with their
+    coefficients) must start alike within 16 bytes (tensors of their own
+    do, and so do a sweep member's views of its batches)."""
+    for tensors in groups:
+        starts = {t.data_ptr() % 16 for t in tensors}
+        if len(starts) > 1:
+            raise ValueError(f"the two-pass kernels take field (and coefficient) tensors that start alike within "
+                             f"16 bytes; got offsets {sorted(starts)}")
+
+
 def pointers(tensors) -> ctypes.Array:
     """A C array of the tensors' data pointers."""
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
@@ -215,11 +280,12 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
         return
     lib = _lib()
     j0, j1, i0, i1 = patch if patch is not None else (0, 0, 0, 0)
-    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box, cpml, H_TERMS))
+    hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
+    grid = (p.maxk, p.maxj, p.maxi, march_geometry(p, cpml, H_TERMS) if cpml is not None else
+            geometry(p, box) if hf else vacuum_geometry(p, box, False))
     patch_args = (int(patch is not None), j0, j1, i0, i1)
     dtype = _DTYPE_CODES[s.hx.dtype]
     e_ptr, h_ptr = pointers((s.ex, s.ey, s.ez)), pointers((s.hx, s.hy, s.hz))
-    hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
     if hf:
         check_coefficients(p, s.hx, hf)
     f = curl.scalar(coefs.h_factor, s.hx.dtype)
@@ -228,6 +294,7 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
         stream = build.launch_stream(dev)
         if cpml is not None:
             check_psi(p, cpml, s.hx, psi, H_TERMS)
+            check_aligned((s.ex, s.ey, s.ez), (s.hx, s.hy, s.hz) + hf)
             pml = (pointers(psi.tensors(H_TERMS)), cpml.table_h.data_ptr(), cpml.cfg.cells)
             if hf:
                 name = "yee_update_h_het_pml"
@@ -241,6 +308,7 @@ def update_h(p: Params, s: FieldState, coefs: UpdateCoefs,
             rc = lib.yee_update_h_het(e_ptr, h_ptr, pointers(hf), *grid, *patch_args, dtype, stream)
         else:
             name = "yee_update_h"
+            check_aligned((s.ex, s.ey, s.ez), (s.hx, s.hy, s.hz))
             rc = lib.yee_update_h(*(t.data_ptr() for t in s.tensors()), *grid, f, *patch_args,
                                   dtype, stream)
     name += "_shard" if box is not None else ""
@@ -263,10 +331,11 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
             curl.update_e(p, s, coefs, box)
         return
     lib = _lib()
-    grid = (p.maxk, p.maxj, p.maxi, geometry(p, box, cpml, E_TERMS))
+    cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
+    grid = (p.maxk, p.maxj, p.maxi, march_geometry(p, cpml, E_TERMS) if cpml is not None else
+            geometry(p, box) if cf else vacuum_geometry(p, box, True))
     dtype = _DTYPE_CODES[s.ex.dtype]
     h_ptr, e_ptr = pointers((s.hx, s.hy, s.hz)), pointers((s.ex, s.ey, s.ez))
-    cf = (coefs.ca_x, coefs.ca_y, coefs.ca_z, coefs.cb_x, coefs.cb_y, coefs.cb_z) if coefs.lossy else ()
     if cf:
         check_coefficients(p, s.ex, cf)
     dev = s.ex.device
@@ -274,6 +343,7 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
         stream = build.launch_stream(dev)
         if cpml is not None:
             check_psi(p, cpml, s.ex, psi, E_TERMS)
+            check_aligned((s.hx, s.hy, s.hz), (s.ex, s.ey, s.ez) + cf)
             pml = (pointers(psi.tensors(E_TERMS)), cpml.table_e.data_ptr(), cpml.cfg.cells)
             if cf:
                 name = "yee_update_e_lossy_pml"
@@ -287,6 +357,7 @@ def update_e(p: Params, s: FieldState, coefs: UpdateCoefs,
             rc = lib.yee_update_e_lossy(h_ptr, e_ptr, pointers(cf), *grid, dtype, stream)
         else:
             name = "yee_update_e"
+            check_aligned((s.hx, s.hy, s.hz), (s.ex, s.ey, s.ez))
             rc = lib.yee_update_e(
                 s.hx.data_ptr(), s.hy.data_ptr(), s.hz.data_ptr(),
                 s.ex.data_ptr(), s.ey.data_ptr(), s.ez.data_ptr(),

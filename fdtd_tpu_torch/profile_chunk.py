@@ -78,10 +78,12 @@ SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # PyTorch's own elementwise_kernel contains the latter), with their template
 # flags after the type: pml <T, S, BJ, CR, LOSSY, DFT> (the CPML sweep's
 # shell), ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET,
-# PML, BOX, BATCH>, e <T, LOSSY, PML, BOX, BATCH>, ade_e <T, SAR>, dft_accum <T, BOX>;
+# BOX, BATCH>, e <T, LOSSY, BOX, BATCH>, march <T, E, MAT, PML, ...> (the
+# vacuum and CPML passes), ade_e <T, SAR>, dft_accum <T, BOX>;
 # BATCH: a sweep's batched launch ("_batch"); BOX: a shard's launch (the counter's name with "_shard"), or in an
 # unsharded CPML scene the CPML sweep's interior ("_interior")
-_KERNEL = re.compile(r"::(pml_kernel|ring_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)<([^>]*)>")
+_KERNEL = re.compile(r"::(pml_kernel|ring_kernel|march_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)"
+                     r"<([^>]*)>")
 
 
 def scene(n: int, dtype: str) -> Params:
@@ -91,10 +93,11 @@ def scene(n: int, dtype: str) -> Params:
                   mode=Mode.COMPUTATION, dtype=dtype)
 
 
-def _group(name: str, pml: bool = False) -> str:
+def _group(name: str, pml: bool = False, shard: bool = False) -> str:
     """The launch-counter name of a kernel of csrc/, else ``other``
     (``pml``: an unsharded CPML scene, whose box sweeps are the CPML
-    sweep's interior)."""
+    sweep's interior; ``shard``: a sharded scene, whose march_kernel
+    passes are the shards')."""
     m = _KERNEL.search(name)
     if m is None:
         return "other"
@@ -110,8 +113,12 @@ def _group(name: str, pml: bool = False) -> str:
         return variant_name(lossy, het, sar, False, ade, dft) + ("_shard" if box else "")
     if m.group(1) == "ade_e_kernel":
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
-    suffix = ("_pml" if flags[1] else "") + ("_shard" if flags[2:3] == [True] else "") + (
-        "_batch" if flags[3:4] == [True] else "")
+    if m.group(1) == "march_kernel":
+        e, mat, pml_pass = flags[:3]
+        return ({(False, False): "yee_update_h", (False, True): "yee_update_h_het", (True, False): "yee_update_e",
+                 (True, True): "yee_update_e_lossy"}[e, mat] + ("_pml" if pml_pass else "")
+                + ("_shard" if shard else ""))
+    suffix = ("_shard" if flags[1] else "") + ("_batch" if flags[2:3] == [True] else "")
     if m.group(1) == "h_kernel":
         return ("yee_update_h_het" if flags[0] else "yee_update_h") + suffix
     return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + suffix
@@ -143,7 +150,7 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
         else:
             run(s, xs, power, psi, pol, dacc)
 
-    rec = measure(chunk, dev, steps, warm, pml is not None and not shard)
+    rec = measure(chunk, dev, steps, warm, pml is not None and not shard, shard is not None)
     return {
         "scene": ("dft" if dft is not None else "dispersive" if debye else "heating" if heating
                   else "pml" if pml is not None else "vacuum") + (f" --shard {shard}" if shard else ""),
@@ -151,12 +158,12 @@ def profile(p: Params, backend: str, steps: int, warm: int, dev: torch.device,
     }
 
 
-def measure(chunk, dev: torch.device, steps: int, warm: int, pml: bool = False) -> dict:
+def measure(chunk, dev: torch.device, steps: int, warm: int, pml: bool = False, shard: bool = False) -> dict:
     """Time ``chunk(a, b)`` (steps [a, b) of a run) on the host clock and
     under the profiler: a warm-up of ``warm`` steps, an unprofiled chunk of
     ``steps`` and a profiled one; the record's timing keys (the module
     docstring).  ``pml``: an unsharded CPML scene (its box sweeps are the
-    CPML sweep's interior)."""
+    CPML sweep's interior); ``shard``: a sharded scene."""
     chunk(0, warm)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -187,7 +194,7 @@ def measure(chunk, dev: torch.device, steps: int, warm: int, pml: bool = False) 
             us = ev.self_cuda_time_total
         if us <= 0 or (kind is not None and kind != torch.autograd.DeviceType.CUDA):
             continue
-        g = _group(ev.key, pml)
+        g = _group(ev.key, pml, shard)
         by_group[g] = by_group.get(g, 0.0) + us / 1e3 / steps
         launches[g] = launches.get(g, 0) + ev.count
     device = sum(by_group.values())

@@ -154,10 +154,12 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
     uniform mu_r, no SAR, the source patch clear of the j and i slabs), as
     the JAX package's streaming-PML tier does, and ``auto`` picks it as
     the JAX package's ``auto`` picks that tier: on an H100, 1000 steps at
-    256^3 with 10-cell walls ran 1.74x faster in fp32 and 1.14x in bf16 on
-    the CPML sweep (the psi-free interior on the K3 sweep, the shell on the
-    CPML kernel) than on ``twopass``, and 1.48x and 1.21x with the DFT bands
-    against ``twopass`` + ``dft_accum`` (PERF.md).  An explicit ``twopass`` or
+    256^3 with 10-cell walls ran 1.59-1.61x faster in fp32 on the CPML sweep
+    (the psi-free interior on the K3 sweep, the shell on the CPML kernel)
+    than on ``twopass`` with its passes on the march core, and 1.004-1.009x
+    in bf16 (a tie within a run's spread, where ``auto`` keeps the sweep),
+    and 1.41x and 1.10-1.13x with the DFT bands against ``twopass`` +
+    ``dft_accum`` (PERF.md, ``chip_smoke.py``).  An explicit ``twopass`` or
     ``stream`` on the CPU or in float64 raises ``ValueError``, and so does
     ``stream`` when no plan fits, and ``twopass`` (picked or asked for)
     when its state, material arrays, psi and temporaries do not fit either

@@ -754,3 +754,21 @@ def test_profile_groups_the_ring_kernels():
              ) == "yee_stream_lossy_pml_dft"
     assert g("void (anonymous namespace)::ring_kernel<float, 2, 24, false, false, false, false, false, true, true>(x)",
              True) == "yee_stream_pml_dft_interior"
+
+
+def test_profile_groups_the_two_pass_kernels():
+    """h_kernel<T, HET, BOX, BATCH>, e_kernel<T, LOSSY, BOX, BATCH> and
+    march_kernel<T, E, MAT, PML, AH, BJ, BI, NB, CB> (the vacuum and CPML
+    passes) map to their launch counters; in a sharded scene a march_kernel
+    pass is the shard's."""
+    g = profile_chunk._group
+    assert g("void (anonymous namespace)::h_kernel<__nv_bfloat16, true, true, false>(x)") == "yee_update_h_het_shard"
+    assert g("void (anonymous namespace)::h_kernel<float, false, false, true>(x)") == "yee_update_h_batch"
+    assert g("void (anonymous namespace)::e_kernel<float, true, false, false>(x)") == "yee_update_e_lossy"
+    assert g("void (anonymous namespace)::e_kernel<float, true, true, false>(x)") == "yee_update_e_lossy_shard"
+    march = "void (anonymous namespace)::march_kernel<{}, {}, {}, {}, 2, 2, 128, 4, 16>(x)"
+    assert g(march.format("float", "false", "false", "false")) == "yee_update_h"
+    assert g(march.format("float", "true", "false", "false"), False, True) == "yee_update_e_shard"
+    assert g(march.format("float", "false", "false", "true")) == "yee_update_h_pml"
+    assert g(march.format("float", "true", "true", "true"), True) == "yee_update_e_lossy_pml"
+    assert g(march.format("__nv_bfloat16", "false", "true", "true"), False, True) == "yee_update_h_het_pml_shard"

@@ -419,6 +419,94 @@ def test_psi_parts_tile_the_canonical_arrays(shape, height):
     assert straddle == (shape == (4, 1, 1))
 
 
+def _march_scene(n, height=None):
+    """An ``n``-cell cube (``height`` cells along k when given) in the port's
+    Params."""
+    h = (height or n) * 0.001
+    return convert.params_from(Params(length=n * 0.001, width=n * 0.001, height=h, spatial_step=0.001,
+                                      time_step=1e-12, simulation_time=1e-11, sampling_rate=5,
+                                      mode=Mode.COMPUTATION, dtype="float32"))
+
+
+@pytest.mark.parametrize("n, height, shape, cells", [
+    (20, None, None, 3), (50, None, None, 10), (256, None, None, 10),   # the whole grid
+    (256, None, (4, 1, 1), 10),    # --shard 4: 65, 65, 65, 62 planes, middle shards hold no k slab row
+    (256, None, (2, 2, 1), 10),    # --shard 2x2: j windows of 129 (one row past whole tiles) and 128
+    (34, 34, (4, 1, 1), 10),       # 35 planes over 4 (9, 9, 9, 8): the 10-cell k slabs straddle shards
+    (30, 34, (3, 1, 1), 10), (30, 34, (2, 3, 1), 10), (20, 20, (1, 1, 3), 3)])
+def test_march_launch_covers_every_owned_cell_once(n, height, shape, cells):
+    """The launch of the two-pass CPML kernels (``stream_plan.march_plan``:
+    tiles, the extra row and column, the k chunks; threads mapped to cells
+    by ``march_counts`` as ``csrc/yee_twopass.cu::march_kernel`` maps them)
+    updates every cell of each component's staggered update region in a
+    box's owned window exactly once and nothing else, on the whole grid and
+    on the boxes ``parallel/mesh.py::shard_boxes`` gives; the psi rows the
+    updates touch are exactly the box's parts (``cpml.psi_part_slices``),
+    each element once; ``march_geometry`` carries the box, the parts and
+    the chunk depth."""
+    p = _march_scene(n, height)
+    cfg = PMLConfig(cells=cells)
+    boxes = [None] if shape is None else M.shard_boxes(p, M.make_mesh(shape, "cpu"), 1)
+    regions = cpml._update_regions(p)
+    shapes = cpml.psi_shapes(p, cfg)
+    straddle = extras = False
+    for e_pass in (False, True):
+        targets = ("ex", "ey", "ez") if e_pass else ("hx", "hy", "hz")
+        for box in boxes:
+            own = box or cpml.full_box(p)
+            plan = stream_plan.march_plan(p, box, e_pass)
+            counts = stream_plan.march_counts(p, plan, e_pass)
+            extras |= any(plan.extra)
+            for c, target in enumerate(targets):
+                want = np.zeros(p.padded_shape, np.int8)
+                want[tuple(slice(max(r.start, lo), min(r.stop, hi))
+                           for r, lo, hi in zip(regions[target], own.own_lo, own.own_hi))] = 1
+                np.testing.assert_array_equal(counts[c], want, err_msg=f"{target} on {own}")
+            parts = cpml.psi_part_slices(p, cfg, box)
+            for name, target, _sign, axis, _src, e in cpml._TERMS:
+                if e != e_pass:
+                    continue
+                lo_sl, hi_sl = cpml._slab_slices(regions[target], axis, cfg.cells)
+                c = targets.index(target)
+                touched = np.concatenate([counts[c][lo_sl], counts[c][hi_sl]], axis=axis)
+                want = np.zeros(shapes[name], np.int8)
+                want[parts[name]] = 1
+                np.testing.assert_array_equal(touched, want, err_msg=f"{name} on {own}")
+                rows = parts[name][axis]
+                straddle |= axis == 0 and 0 < rows.stop - rows.start < cfg.cells
+            geom = stream_plan.march_geometry(p, cfg, box, e_pass)
+            window = [x for lo_hi in zip(own.own_lo, own.own_hi) for x in lo_hi]
+            assert geom == (*own.shape, *own.lo, *window,
+                            *cpml.psi_part_geometry(p, cfg, own, cpml.E_TERMS if e_pass else cpml.H_TERMS), plan.tk)
+            assert plan.tk == stream_plan.pick_march_tk(plan.window[0][1] - plan.window[0][0],
+                                                        plan.tiles[0] * plan.tiles[1])
+    assert straddle == (height == 34 and shape == (4, 1, 1))
+    assert extras or n < 256  # at 256^3: 257 columns, or a j window of 129 rows, one past whole tiles
+
+
+def test_march_plan_fills_the_card_in_whole_waves():
+    """At 256^3 the H pass's 257 columns take 2 tiles of 128 and its 257
+    rows 128 tiles of 2 (the last row and column go to edge blocks; the
+    first design's 64 x 4 blocks left a fifth block a row with one cell of
+    64), the E pass's 256 x 256 whole tiles; the chunks give every block
+    slot of the card (four an SM) a block in two waves, on the whole grid
+    and on a middle shard of --shard 4 (65 planes)."""
+    p = _march_scene(256)
+    slots = stream_plan.SM_COUNT * stream_plan.MARCH_BLOCKS_PER_SM
+    h, e = (stream_plan.march_plan(p, None, e_pass) for e_pass in (False, True))
+    assert h.tiles == e.tiles == (128, 2) and h.extra == (True, True) and e.extra == (False, False)
+    assert (h.tk, e.tk) == (65, 64) and h.edge_cells == 513 and e.edge_cells == 0
+    mid = M.shard_boxes(p, M.make_mesh((4, 1, 1), "cpu"), 1)[1]
+    hm = stream_plan.march_plan(p, mid, False)
+    assert hm.window[0] == (65, 130) and hm.tk == 17 and hm.chunks == 4
+    for plan in (h, e, hm):
+        tile_blocks = plan.tiles[0] * plan.tiles[1] * plan.chunks
+        assert slots <= tile_blocks <= 2 * slots
+    # a box whose window holds no cell the E pass updates (the top wall plane alone)
+    top = dataclasses.replace(cpml.full_box(p), own_lo=(256, 0, 0))
+    assert stream_plan.march_plan(p, top, True) is None and stream_plan.march_plan(p, top, False) is not None
+
+
 def test_shard_bytes_counts_the_new_parts():
     """psi parts, P, the Debye maps and work arrays and the sums per
     device, beside the canonical arrays the run gathers into."""
