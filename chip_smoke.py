@@ -147,11 +147,15 @@ package beside it.  Phases, each printing one line or more:
    the uninterrupted one; --rotate 10 --load-center 0.35,0.5 over 2
    intervals (both frames, angles 150 and 450 degrees); then
    frequency_sweep(backend="pallas_fused") of 4 members at 256^3, 200
-   steps through the batched K1/K2 (200 launches each), equal bit for bit
-   to four single twopass runs; the batched kernels against their plain
-   versions and the per-member kernels (64^3 x 8 and 256^3 x 4, fp32 and
-   bf16) and their times beside the per-member launches'; the device's
-   idle share of a sweep, batched and per member (64^3 x 8, 256^3 x 4);
+   steps through the batched K1/K2 (march_kernel with BATCH; 200 launches
+   each), equal bit for bit to four single twopass runs; the batched
+   kernels against their plain versions and the per-member kernels (a
+   ragged 35 x 29 x 31 x 8 batch: narrow tiles, edge blocks and every
+   lead of a 16-byte chunk, the members' leads against
+   stream_plan.member_lead; 64^3 x 8 and 256^3 x 4; fp32 and bf16) and
+   their times beside the per-member launches' with their bound shares;
+   the device's idle share of a sweep, batched and per member (64^3 x 8,
+   256^3 x 4);
 8. timing at 256^3: Mcells/s of stream, twopass and torch in fp32 and
    bf16, vacuum, heating, --pml 10 and dispersive, without and with --dft
    (nf = 1), and each kernel's time beside its plain version's and its
@@ -168,10 +172,10 @@ package beside it.  Phases, each printing one line or more:
 9. machine code: python -m fdtd_tpu_torch.sass_compare against a checkout
    of the parent commit, PARENT (from the repository's git history, else
    scratch_chip/parent; compiled on the host from the end of phase 2 on,
-   beside the card's phases): every kernel but the parent's 16 CPML and 8
-   vacuum two-pass instantiations (h_kernel / e_kernel with PML, or
-   without materials and not batched: replaced by march_kernel) keeps its
-   instructions, each listed.  Without such a
+   beside the card's phases): every kernel but the parent's 16 CPML, 8
+   vacuum and 4 batched vacuum two-pass instantiations (h_kernel /
+   e_kernel with PML, or without materials: replaced by march_kernel)
+   keeps its instructions, each listed.  Without such a
    checkout it says so and skips the comparison (and phase 7c).
 
 Each phase prints its seconds; the Debye maps (host fp64, several
@@ -255,10 +259,11 @@ PARENT_TIMES = {
     "yee_update_h_het_pml_shard": (0.11678, 0.07454), "yee_update_e_lossy_pml_shard": (0.11710, 0.08855),
 }
 # phase 9: the parent's h_kernel / e_kernel <T, HET or LOSSY, PML, BOX, BATCH>
-# without PML are this tree's <T, HET or LOSSY, BOX, BATCH> (the vacuum ones
-# but the batched: replaced by march_kernel)
-SASS_ALIAS = (r"(void )?(h|e)_kernel<([^,]+), (true|false), false, (true|false), (true|false)>",
-              r"\1\2_kernel<\3, \4, \5, \6>")
+# without PML and BATCH are this tree's <T, HET or LOSSY, BOX> (the vacuum
+# ones, batched or not: replaced by march_kernel)
+SASS_ALIAS = (r"(void )?(h|e)_kernel<([^,]+), (true|false), false, (true|false), false>",
+              r"\1\2_kernel<\3, \4, \5>")
+RAGGED_BATCH = 8  # phase 10: members of the ragged batch (35 x 29 x 31 a member, odd: 8 members take every lead)
 
 
 def fail(msg: str) -> None:
@@ -2754,14 +2759,25 @@ def main() -> None:
     del res_sw
     torch.cuda.empty_cache()
     fields_b = {}  # random fields per size, shared by both dtypes
-    for n_b, m_b, dtype in ((64, 8, "float32"), (64, 8, "bfloat16"), (256, SWEEP_MEMBERS, "float32"),
+    for n_b, m_b, dtype in (("ragged", RAGGED_BATCH, "float32"), ("ragged", RAGGED_BATCH, "bfloat16"),
+                            (64, 8, "float32"), (64, 8, "bfloat16"), (256, SWEEP_MEMBERS, "float32"),
                             (256, SWEEP_MEMBERS, "bfloat16")):
-        pb = profile_chunk.scene(n_b, dtype)
+        # the ragged batch: 35 x 29 x 31 a member (narrow tiles, edge blocks along j in the H pass), an odd
+        # member size, so the members' arrays start at every lead of a 16-byte chunk
+        pb = (Params(length=0.0305, width=0.0285, height=0.0345, spatial_step=0.001, time_step=1e-12,
+                     simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype=dtype)
+              if n_b == "ragged" else profile_chunk.scene(n_b, dtype))
+        label = "x".join(map(str, pb.padded_shape)) if n_b == "ragged" else f"{n_b}^3"
         if n_b not in fields_b:
             fields_b[n_b] = [torch.rand((m_b,) + pb.padded_shape, generator=torch.Generator(dev).manual_seed(c),
                                         device=dev) * 2.0 - 1.0 for c in range(len(COMPONENTS))]
         init = [t.to(field_dtype(pb)) for t in fields_b[n_b]]
         k_batch, k_each, plain = (FieldState(*(t.clone() for t in init)) for _ in range(3))
+        item = init[0].element_size()
+        lead0 = k_batch.ex.data_ptr() % 16 // item
+        leads = [k_batch.ex[b].data_ptr() % 16 // item for b in range(m_b)]
+        want_leads = [stream_plan.member_lead(lead0, stream_plan.member_start(b, pb.padded_shape), item)
+                      for b in range(m_b)]
         amps_b = torch.tensor(rng.uniform(-1.0, 1.0, m_b), dtype=torch.float64, device=dev)
         src_b = make_source_plan(pb)
         prof_b, vac_b = profile_tensor(src_b, dev), update_coefs(pb)
@@ -2784,25 +2800,32 @@ def main() -> None:
         d_e = max(maxdiff(k_batch, plain), maxdiff(k_batch, k_each))
         record_err("yee_update_h_batch", d_h)
         record_err("yee_update_e_batch", d_e)
-        check(d_h == 0.0 and d_e == 0.0,
-              f"batched K1/K2 {n_b}^3 x{m_b} {dtype} == the plain passes and the per-member kernels, one step from "
-              f"random fields: H max|diff| {d_h!r}, E {d_e!r}")
-        if n_b == 256:
+        check(d_h == 0.0 and d_e == 0.0 and leads == want_leads
+              and (n_b != "ragged" or sorted(set(leads)) == list(range(16 // item))),
+              f"batched K1/K2 {label} x{m_b} {dtype} == the plain passes and the per-member kernels, one step from "
+              f"random fields: H max|diff| {d_h!r}, E {d_e!r}; the members' leads {leads} (stream_plan.member_lead "
+              f"{want_leads})")
+        if n_b != "ragged":
             fp32 = dtype == "float32"
             t_h = event_ms(lambda: yee.update_h_batch(pb, k_batch, vac_b, src_b.patch))
             t_e = event_ms(lambda: yee.update_e_batch(pb, k_batch, vac_b))
-            if fp32:
-                each_h = event_ms(lambda: [yee.update_h(pb, ke, vac_b, src_b.patch) for ke, _ in views])
-                each_e = event_ms(lambda: [yee.update_e(pb, ke, vac_b) for ke, _ in views])
+            each_h = event_ms(lambda: [yee.update_h(pb, ke, vac_b, src_b.patch) for ke, _ in views])
+            each_e = event_ms(lambda: [yee.update_e(pb, ke, vac_b) for ke, _ in views])
+            # the bound: each member's six fields read once and three written once
+            bound_b = m_b * 9 * item * math.prod(pb.padded_shape) / HBM_BYTES_PER_S * 1e3
+            plans_b = [stream_plan.march_plan(pb, None, e_pass, members=m_b) for e_pass in (False, True)]
+            if n_b == 256 and fp32:
                 ms["yee_update_h_batch"] = (t_h, event_ms(lambda: [curl.update_h(pb, pl, vac_b, src_b.patch)
                                                                    for _, pl in views], reps=5))
                 ms["yee_update_e_batch"] = (t_e, event_ms(lambda: [curl.update_e(pb, pl, vac_b) for _, pl in views],
                                                           reps=5))
-                print(f"timing 256^3 x{m_b} fp32: batched K1 {t_h!r} ms, K2 {t_e!r} ms a launch; the {m_b} "
-                      f"per-member launches {each_h!r} and {each_e!r} ms (queued behind a spin kernel: device time "
-                      f"only) ({smi})", flush=True)
-            else:
+            elif n_b == 256:
                 ms_bf16["yee_update_h_batch"], ms_bf16["yee_update_e_batch"] = t_h, t_e
+            print(f"timing {label} x{m_b} {dtype}: batched K1 {t_h!r} ms ({bound_b / t_h!r} of its bound "
+                  f"{bound_b!r} ms; tk {plans_b[0].tk}, {plans_b[0].blocks} blocks), K2 {t_e!r} ms "
+                  f"({bound_b / t_e!r}; tk {plans_b[1].tk}, {plans_b[1].blocks} blocks) a launch; the {m_b} "
+                  f"per-member launches {each_h!r} and {each_e!r} ms (queued behind a spin kernel: device time "
+                  f"only) ({smi})", flush=True)
         del init, k_batch, k_each, plain, views
     del fields_b
     torch.cuda.empty_cache()
@@ -3167,7 +3190,7 @@ def main() -> None:
     for name, (ms_p, ms_p16) in PARENT_TIMES.items():
         entry = by_name[name]
         h_pass, mat = tune_twopass.PASSES[name.removesuffix("_shard").removesuffix("_pml")]
-        r32, r16 = (regs2.get(("march", dtype, not h_pass, mat, "_pml" in name) + shape, (None, None))
+        r32, r16 = (tune_twopass.march_regs(regs2, dtype, not h_pass, mat, "_pml" in name)
                     for dtype in ("float32", "bfloat16"))
         same = k10_same.get(name)
         call = ("" if same is None else
@@ -3191,11 +3214,10 @@ def main() -> None:
         out_s, _ = sass_proc.communicate()
         verdict_path = os.path.join(sass_dir.name, "sass.json")
         verdicts = json.loads(open(verdict_path).read()) if os.path.exists(verdict_path) else {}
-        # the parent's CPML and vacuum two-pass passes (h_kernel / e_kernel <T, HET or LOSSY, PML, BOX, BATCH>
-        # with PML, or without materials and BATCH) are replaced by march_kernel
+        # the parent's CPML and vacuum two-pass passes, batched or not (h_kernel / e_kernel <T, HET or LOSSY,
+        # PML, BOX, BATCH> with PML or without materials) are replaced by march_kernel
         replaced = {k for k in verdicts if re.search(r"\b(h|e)_kernel<", k)
-                    and (_flag(k.split(": ", 1)[1], 2) or not (_flag(k.split(": ", 1)[1], 1)
-                                                               or _flag(k.split(": ", 1)[1], 4)))}
+                    and (_flag(k.split(": ", 1)[1], 2) or not _flag(k.split(": ", 1)[1], 1))}
         kept = {k: v for k, v in verdicts.items() if k not in replaced}
         changed = sorted(k for k, v in kept.items() if v != "same")
         for line in out_s.strip().splitlines():
@@ -3204,9 +3226,10 @@ def main() -> None:
         for k in sorted(kept):
             print(f"sass_compare vs {PARENT}: kept its machine code: {k}" if kept[k] == "same" else
                   f"sass_compare vs {PARENT}: {kept[k]}: {k}")
-        check(bool(kept) and not changed and len(replaced) == 24,
+        check(bool(kept) and not changed and len(replaced) == 28,
               f"sass_compare vs {PARENT}: {len(kept)} kernels keep their machine code (changed: {changed}); "
-              f"the {len(replaced)} CPML and vacuum two-pass instantiations replaced by march_kernel")
+              f"the {len(replaced)} CPML and vacuum (single and batched) two-pass instantiations replaced by "
+              f"march_kernel")
     else:
         print(f"sass_compare vs {PARENT}: not run (no git history and no scratch_chip/parent checkout)")
     sass_dir.cleanup()

@@ -20,18 +20,17 @@
 // Two cores carry the passes:
 //  - march_kernel, the k-marching core (see "The march core" below): the
 //    CPML passes (K10-H, K10-H-het, K10-E, K10-E-lossy) and the vacuum
-//    passes (K1, K2), whole grid and shard;
+//    passes (K1, K2), whole grid and shard, and the batched vacuum passes
+//    of a sweep (K1-batch, K2-batch: BATCH, the members on blockIdx.y, each
+//    member's leads worked out at block start, see member_start);
 //  - h_kernel / e_kernel, the first design (one thread per cell, i on
 //    threadIdx.x in 64 x 4 blocks, one block row of planes a blockIdx.z,
 //    the neighbour reads left to L1 and L2): the het-mu H and lossy E
-//    passes (K1-het, K2-lossy), whole grid and shard, and the batched
-//    vacuum passes of a sweep (BATCH).  On the march core the het-mu H and
-//    lossy E passes measured 0.96-0.98x the first design in fp32 and
-//    0.99-1.00x in bf16 on the whole grid, 1.01x / 1.07x on a shard (python
-//    -m fdtd_tpu_torch.tune_twopass, NVIDIA H100 80GB HBM3 at 700 W:
-//    PERF.md), not faster in both dtypes, so they keep its machine code;
-//    the batched pair was not tried on the march core (its members'
-//    strides would ride the geometry).
+//    passes (K1-het, K2-lossy), whole grid and shard.  On the march core
+//    these measured 0.96-0.98x the first design in fp32 and 0.99-1.00x in
+//    bf16 on the whole grid, 1.01x / 1.07x on a shard (python -m
+//    fdtd_tpu_torch.tune_twopass, NVIDIA H100 80GB HBM3 at 700 W:
+//    PERF.md), not faster in both dtypes, so they keep its machine code.
 //
 // Cost: each pass reads six fields and writes three, 36 B per cell in fp32
 // (18 B in bf16); the material variants read their coefficient arrays once
@@ -84,7 +83,13 @@
 // descriptors worked out at every plane, a one-thread-per-cell pass with all
 // its loads first (its per-cell psi bookkeeping cost more than it saved).
 // Tiles and chunks are mirrored by ops/stream_plan.py (march_plan,
-// march_counts: the cells each launch updates, tested on the CPU).
+// march_counts: the cells each launch updates, tested on the CPU).  The
+// batched passes (BATCH) march chunks of at most 6 planes
+// (stream_plan.pick_batch_tk): one chunk of each member's planes, which the
+// whole-wave rule picks for 256^3 x 4, ran 11-14% slower than 6-plane
+// chunks in 87 waves; on the march core they ran 1.16-1.34x the first
+// design's batched launch at 256^3 x 4 and 1.14-1.19x at 64^3 x 8
+// (tune_twopass --parent, in turns; PERF.md).
 //
 // Shards (fdtd_tpu_torch/parallel): a launch may update a part of the grid
 // held in arrays of its own (a shard's box, halos included): the arrays'
@@ -217,8 +222,7 @@ struct Box {
 // window.  BOX: a shard's launch, its geometry the runtime box g; without it
 // the whole grid's, compiled as it was before shards existed (a runtime box
 // in every variant cost the CPML H pass 9-14% at 256^3), so only the shard
-// variants carry it.  z: the block's k index in the window (blockIdx.z, or
-// its k part in a batched launch).
+// variants carry it.  z: the block's k index in the window (blockIdx.z).
 template <bool BOX>
 __device__ __forceinline__ bool locate(const Box& g, int J, int I, unsigned z, int& k, int& j, int& i, int64_t& c,
                                        int64_t& sj, int64_t& sk) {
@@ -242,46 +246,20 @@ __device__ __forceinline__ bool locate(const Box& g, int J, int I, unsigned z, i
     }
 }
 
-// A batched launch (BATCH: the members of a sweep, fdtd_tpu_torch/sweep.py)
-// runs one kernel over N members whose arrays are the contiguous views [b]
-// of (N, K+1, J+1, I+1) tensors: blockIdx.z = b * (K + 1) + k, and member
-// b's six fields start b * (K+1)(J+1)(I+1) elements after member 0's.  It
-// replaces N launches of the same pass (the JAX package's vmapped
-// _h_kernel2/_e_kernel2 run the batch as one program); each member gets the
-// whole-grid launch's operations on its own arrays.  Sets z to the block's
-// k index and returns the member's element offset.
-__device__ __forceinline__ int64_t batch_offset(int K, int J, int I, unsigned& z) {
-    const unsigned m = blockIdx.z / (unsigned)(K + 1);
-    z = blockIdx.z - m * (unsigned)(K + 1);
-    return (int64_t)m * ((int64_t)K + 1) * ((int64_t)J + 1) * ((int64_t)I + 1);
-}
-
 // H half-step over Hx k<K, j<J, i<=I; Hy k<K, j<=J, i<I; Hz k<=K, j<J, i<I.
 // With has_patch, Hx and Hz at k=0, j0<=j<j1, i0<=i<i1 keep their values
 // (the source hard-set there wins, reference main.c:770-778).  HET reads
 // the factor of each component from hf.a[0..2] at the cell instead of f.
-// BATCH (vacuum only): a batched launch over the members of a sweep.  (The
-// CPML H pass runs march_kernel.)
-template <typename T, bool HET, bool BOX, bool BATCH = false>
+// (The vacuum and CPML H passes run march_kernel.)
+template <typename T, bool HET, bool BOX>
 __global__ void __launch_bounds__(BX * BY)
 h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez,
          T* __restrict__ hx, T* __restrict__ hy, T* __restrict__ hz,
          int K, int J, int I, float f,
          int has_patch, int j0, int j1, int i0, int i1, Coefs<T> hf, Psi<T>, Box g) {
-    static_assert(!BATCH || (!HET && !BOX), "a batched launch is a vacuum whole-grid pass");
     int k, j, i;
     int64_t c, sj, sk;
-    unsigned z = blockIdx.z;
-    if constexpr (BATCH) {
-        const int64_t off = batch_offset(K, J, I, z);
-        ex += off;
-        ey += off;
-        ez += off;
-        hx += off;
-        hy += off;
-        hz += off;
-    }
-    if (!locate<BOX>(g, J, I, z, k, j, i, c, sj, sk)) return;
+    if (!locate<BOX>(g, J, I, blockIdx.z, k, j, i, c, sj, sk)) return;
     const bool in_patch = has_patch && k == 0 && j >= j0 && j < j1 && i >= i0 && i < i1;
 
     if (k < K && j < J && !in_patch) {
@@ -301,27 +279,15 @@ h_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict
 // E half-step over the interior: Ex 1<=k<K, 1<=j<J, i<I; Ey 1<=k<K, j<J,
 // 1<=i<I; Ez k<K, 1<=j<J, 1<=i<I.  Tangential E on the walls stays (PEC).
 // LOSSY computes ca*E + cb*curl with ca = cf.a[c], cb = cf.b[c] at the cell.
-// BATCH (vacuum only): a batched launch over the members of a sweep.  (The
-// CPML E pass runs march_kernel.)
-template <typename T, bool LOSSY, bool BOX, bool BATCH = false>
+// (The vacuum and CPML E passes run march_kernel.)
+template <typename T, bool LOSSY, bool BOX>
 __global__ void __launch_bounds__(BX * BY)
 e_kernel(const T* __restrict__ hx, const T* __restrict__ hy, const T* __restrict__ hz,
          T* __restrict__ ex, T* __restrict__ ey, T* __restrict__ ez,
          int K, int J, int I, float f, Coefs<T> cf, Psi<T>, Box g) {
-    static_assert(!BATCH || (!LOSSY && !BOX), "a batched launch is a vacuum whole-grid pass");
     int k, j, i;
     int64_t c, sj, sk;
-    unsigned z = blockIdx.z;
-    if constexpr (BATCH) {
-        const int64_t off = batch_offset(K, J, I, z);
-        hx += off;
-        hy += off;
-        hz += off;
-        ex += off;
-        ey += off;
-        ez += off;
-    }
-    if (!locate<BOX>(g, J, I, z, k, j, i, c, sj, sk)) return;
+    if (!locate<BOX>(g, J, I, blockIdx.z, k, j, i, c, sj, sk)) return;
 
     if (k >= 1 && k < K && j >= 1 && j < J && i < I) {
         const float a1 = ld(hz, c), a0 = ld(hz, c - sj), b1 = ld(hy, c), b0 = ld(hy, c - sk);
@@ -450,6 +416,25 @@ struct MarchGeom {
     PsiPart pp;
 };
 
+// A batched launch (BATCH: the members of a sweep, fdtd_tpu_torch/sweep.py)
+// runs one pass over N members whose arrays are the contiguous views [b] of
+// (N, nk, nj, ni) tensors: member b = blockIdx.y, each member's blocks laid
+// out along x as one launch's, so each member gets the operations of the
+// whole-grid launch on its own arrays.  It replaces N launches of the pass
+// (the JAX package's vmapped _h_kernel2/_e_kernel2 run the batch as one
+// program).  Member b's arrays start b * nk * nj * ni elements after member
+// 0's (64-bit) ...
+__device__ __forceinline__ int64_t member_start(const MarchGeom& g) {
+    return (int64_t)blockIdx.y * ((int64_t)g.nk * g.nj * g.ni);
+}
+
+// ... and so lie at another offset within 16 bytes: a member's lead (ms, md)
+// is member 0's moved by its start, modulo the CE elements of a chunk
+// (ops/stream_plan.py::member_lead mirrors it)
+__host__ __device__ __forceinline__ int member_lead(int lead0, int64_t start, int ce) {
+    return (int)((lead0 + start) & (ce - 1));
+}
+
 // the cells of a plane that the edge blocks update: the window's last row
 // (xj) and last column (xi), the corner once
 __host__ __device__ __forceinline__ int march_edge_cells(const MarchGeom& g) {
@@ -576,12 +561,14 @@ __device__ __forceinline__ float ldg(const __nv_bfloat16* p, int64_t o) { return
 // each).  The edge blocks (blockIdx past the tiles' blocks) update the
 // window's last row and column, one cell and plane a thread, from loads.
 // MAT: het-mu (H, hf = cf.a) or lossy (E, ca = cf.a, cb = cf.b).  PML: the
-// six psi terms of the pass, advanced in place and added.
-template <typename T, bool E, bool MAT, bool PML, int AH, int BJ, int BI, int NB, int CB>
+// six psi terms of the pass, advanced in place and added.  BATCH (vacuum
+// only): a batched launch over the members of a sweep (see member_start).
+template <typename T, bool E, bool MAT, bool PML, int AH, int BJ, int BI, int NB, int CB, bool BATCH = false>
 __global__ void __launch_bounds__(BI * BJ, NB)
 march_kernel(const T* __restrict__ s0, const T* __restrict__ s1, const T* __restrict__ s2, T* __restrict__ d0,
              T* __restrict__ d1, T* __restrict__ d2, int K, int J, int I, float f, int has_patch, int pj0, int pj1,
              int pi0, int pi1, Coefs<T> cf, Psi<T> ps, MarchGeom g) {
+    static_assert(!BATCH || (!MAT && !PML), "a batched launch is a vacuum pass");
     using S = MarchShape<T, AH, BJ, BI, NB, CB>;
     constexpr int NT = S::NT, CE = S::CE, TW = S::TW, TH = S::TH, CS = S::CS, CD = S::CD, WS = S::WS, WD = S::WD;
     constexpr int RT = S::RT, RS = S::RS;
@@ -590,6 +577,19 @@ march_kernel(const T* __restrict__ s0, const T* __restrict__ s1, const T* __rest
     constexpr int NC = !MAT ? 0 : E ? 6 : 3;
     constexpr int ND = 3 + NC;       // dst tile arrays: the field, the coefficients
     constexpr int NP = PML ? 6 : 0;
+    // a batch member's arrays (BATCH) and their leads; else the launch's (g.ms, g.md)
+    int bms = 0, bmd = 0;
+    if constexpr (BATCH) {
+        const int64_t off = member_start(g);
+        s0 += off;
+        s1 += off;
+        s2 += off;
+        d0 += off;
+        d1 += off;
+        d2 += off;
+        bms = member_lead(g.ms, off, CE);
+        bmd = member_lead(g.md, off, CE);
+    }
     const T* const src[3] = {s0, s1, s2};
     T* const dst[3] = {d0, d1, d2};
     const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BI + tx;
@@ -727,8 +727,14 @@ march_kernel(const T* __restrict__ s0, const T* __restrict__ s1, const T* __rest
     const MarchCol m0 = march_column<T, E, PML>(live, j, i, K, J, I, g, ps, has_patch, pj0, pj1, pi0, pi1);
 
     // where element 0 of a src (dst) row (plane offset po, row offset rowoff) starts within its chunk
-    auto lead = [&](int64_t po, int rowoff) -> int { return (int)((po + rowoff + g.ms) & (CE - 1)); };
-    auto dlead = [&](int64_t po, int rowoff) -> int { return (int)((po + rowoff + g.md) & (CE - 1)); };
+    auto lead = [&](int64_t po, int rowoff) -> int {
+        if constexpr (BATCH) return (int)((po + rowoff + bms) & (CE - 1));
+        return (int)((po + rowoff + g.ms) & (CE - 1));
+    };
+    auto dlead = [&](int64_t po, int rowoff) -> int {
+        if constexpr (BATCH) return (int)((po + rowoff + bmd) & (CE - 1));
+        return (int)((po + rowoff + g.md) & (CE - 1));
+    };
     // the chunk this thread copies each plane, worked out once: thread x <
     // TH * CS copies chunk x % CS of src tile row x / CS of the three
     // components, thread NT - 1 - x < BJ * CD chunk x % CD of dst tile row
@@ -985,15 +991,38 @@ bool march_geom(const int* geom, int K, int J, int I, bool e, int n, int bj, int
 // MARCH_BJ and MARCH_BLOCKS_PER_SM mirror it)
 constexpr int MARCH_AH = 2, MARCH_BJ = 2, MARCH_BI = 128, MARCH_NB = 4, MARCH_CB = 16;
 
+// a batched launch's members lie along gridDim.y
+constexpr int MARCH_MEMBERS = 65535;
+// The shapes of the batched passes (ops/stream_plan.py::MARCH_BATCH_WIDE
+// and MARCH_BATCH_NARROW), measured with tune_twopass on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md): wide members run the single passes' 2 x
+// 128 tiles with their copies three planes ahead (2% faster than two at
+// 256^3 x 4 in both dtypes); narrow members 4 x 64 tiles two planes ahead,
+// where 128-wide ones leave lanes idle (a 65-wide member of a 64^3 sweep
+// fills half a 128-wide tile: 1.3-1.4x in bf16 at 64^3 x 8, a tie to 1.08x
+// in fp32; slower at 256^3 x 4)
+constexpr int BATCH_WIDE_AH = 3;
+constexpr int BATCH_NARROW_BJ = 4, BATCH_NARROW_BI = 64;
+
+// whether a batch member's window of `width` columns takes the narrow
+// tiles: fewer lanes a row than the 128-wide tiles (march_geom's tiles;
+// ops/stream_plan.py::batch_is_narrow mirrors it)
+bool batch_narrow(int width) {
+    auto lanes = [&](int b) { return std::max(1, (width - 1 + b - 1) / b) * b; };
+    return lanes(BATCH_NARROW_BI) < lanes(MARCH_BI);
+}
+
 // one pass on march_kernel: src the other field, dst the pass's, in place;
-// mat: hf (H) or ca, cb (E) with MAT; psi: the pass's six psi (parts) with PML
+// mat: hf (H) or ca, cb (E) with MAT; psi: the pass's six psi (parts) with
+// PML; with BATCH over `members` members (src and dst: member 0's arrays)
 template <typename T, bool E, bool MAT, bool PML, int AH = MARCH_AH, int BJ = MARCH_BJ, int BI = MARCH_BI,
-          int NB = MARCH_NB, int CB = MARCH_CB>
+          int NB = MARCH_NB, int CB = MARCH_CB, bool BATCH = false>
 int launch_march(void* const* src, void* const* dst, int K, int J, int I, const int* geom, float f, int has_patch,
                  int j0, int j1, int i0, int i1, void* const* mat, void* const* psi, const void* tab, int n,
-                 cudaStream_t s) {
+                 cudaStream_t s, int members = 1) {
     MarchGeom g{};
     if (!march_geom(geom, K, J, I, E, n, BJ, BI, g)) return (int)cudaErrorInvalidValue;
+    if (members < 1 || members > MARCH_MEMBERS || (!BATCH && members != 1)) return (int)cudaErrorInvalidValue;
     if (g.k1 <= g.k0 || g.j1 <= g.j0 || g.i1 <= g.i0) return (int)cudaSuccess;  // nothing to update
     Coefs<T> c{};
     if (MAT)
@@ -1008,7 +1037,8 @@ int launch_march(void* const* src, void* const* dst, int K, int J, int I, const 
     ps.n = n;
     // the copies move aligned 16-byte chunks: the src arrays must start alike
     // within 16 bytes, and so must the dst and coefficient arrays (a sweep
-    // member's views of (N, K+1, J+1, I+1) batches do)
+    // member's views of (N, K+1, J+1, I+1) batches do; a batch's other
+    // members start alike too, each at its member_lead)
     const uintptr_t s16 = (uintptr_t)src[0] % 16, d16 = (uintptr_t)dst[0] % 16;
     for (int q = 0; q < 3; ++q) {
         if ((uintptr_t)src[q] % 16 != s16 || (uintptr_t)dst[q] % 16 != d16) return (int)cudaErrorMisalignedAddress;
@@ -1021,39 +1051,35 @@ int launch_march(void* const* src, void* const* dst, int K, int J, int I, const 
     const int planes = g.k1 - g.k0;
     const int64_t blocks = (int64_t)g.ntj * g.nti * ((planes + g.tk - 1) / g.tk)
                            + ((int64_t)march_edge_cells(g) * planes + BI * BJ - 1) / (BI * BJ);
-    auto kernel = march_kernel<T, E, MAT, PML, AH, BJ, BI, NB, CB>;
+    auto kernel = march_kernel<T, E, MAT, PML, AH, BJ, BI, NB, CB, BATCH>;
     const size_t dyn = MarchShape<T, AH, BJ, BI, NB, CB>::bytes(!MAT ? 0 : E ? 6 : 3, PML ? 6 : 0);
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
-    kernel<<<(unsigned)blocks, dim3(BI, BJ), dyn, s>>>((const T*)src[0], (const T*)src[1], (const T*)src[2],
-                                                       (T*)dst[0], (T*)dst[1], (T*)dst[2], K, J, I, f, has_patch,
-                                                       j0, j1, i0, i1, c, ps, g);
+    kernel<<<dim3((unsigned)blocks, (unsigned)members), dim3(BI, BJ), dyn, s>>>(
+        (const T*)src[0], (const T*)src[1], (const T*)src[2], (T*)dst[0], (T*)dst[1], (T*)dst[2], K, J, I, f,
+        has_patch, j0, j1, i0, i1, c, ps, g);
     return (int)cudaGetLastError();
 }
 
-// the vacuum passes over n members at once (BATCH); gridDim.z = n * (K + 1)
-// must stay within 65535 (the wrapper splits larger batches)
-template <typename T>
-int launch_h_batch(void* const* e, void* const* h, int n, int K, int J, int I, float f, int has_patch, int j0,
-                   int j1, int i0, int i1, cudaStream_t s) {
-    if (n < 1 || (int64_t)n * (K + 1) > 65535) return (int)cudaErrorInvalidValue;
-    Launch l = launch_of(nullptr, K, J, I);
-    l.grid.z *= (unsigned)n;
-    h_kernel<T, false, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
-        (const T*)e[0], (const T*)e[1], (const T*)e[2], (T*)h[0], (T*)h[1], (T*)h[2],
-        K, J, I, f, has_patch, j0, j1, i0, i1, Coefs<T>{}, Psi<T>{}, l.box);
-    return (int)cudaGetLastError();
+// the vacuum passes of n members at once (E: the E pass) on the march core
+// with BATCH, at shape (AH, BJ, BI, NB, CB)
+template <typename T, bool E, int AH, int BJ, int BI, int NB, int CB>
+int launch_batch_at(void* const* src, void* const* dst, int n, int K, int J, int I, const int* geom, float f,
+                    int has_patch, int j0, int j1, int i0, int i1, cudaStream_t s) {
+    return launch_march<T, E, false, false, AH, BJ, BI, NB, CB, true>(src, dst, K, J, I, geom, f, has_patch, j0, j1,
+                                                                     i0, i1, nullptr, nullptr, nullptr, 1, s, n);
 }
 
-template <typename T>
-int launch_e_batch(void* const* h, void* const* e, int n, int K, int J, int I, float f, cudaStream_t s) {
-    if (n < 1 || (int64_t)n * (K + 1) > 65535) return (int)cudaErrorInvalidValue;
-    Launch l = launch_of(nullptr, K, J, I);
-    l.grid.z *= (unsigned)n;
-    e_kernel<T, false, false, true><<<l.grid, dim3(BX, BY), 0, s>>>(
-        (const T*)h[0], (const T*)h[1], (const T*)h[2], (T*)e[0], (T*)e[1], (T*)e[2],
-        K, J, I, f, Coefs<T>{}, Psi<T>{}, l.box);
-    return (int)cudaGetLastError();
+// ... at the wide shape, or the narrow one for narrow members
+template <typename T, bool E>
+int launch_batch(void* const* src, void* const* dst, int n, int K, int J, int I, const int* geom, float f,
+                 int has_patch, int j0, int j1, int i0, int i1, cudaStream_t s) {
+    if (geom == nullptr) return (int)cudaErrorInvalidValue;
+    if (batch_narrow(std::min(geom[11], E ? I : I + 1) - geom[10]))
+        return launch_batch_at<T, E, MARCH_AH, BATCH_NARROW_BJ, BATCH_NARROW_BI, MARCH_NB, MARCH_CB>(
+            src, dst, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s);
+    return launch_batch_at<T, E, BATCH_WIDE_AH, MARCH_BJ, MARCH_BI, MARCH_NB, MARCH_CB>(
+        src, dst, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s);
 }
 
 template <typename T, bool SAR>
@@ -1094,6 +1120,25 @@ int march_shape(int q, void* const* src, void* const* dst, int K, int J, int I, 
         case 2: YEE_SHAPE(2, 2, 128, 4, 16);
         case 3: YEE_SHAPE(2, 1, 256, 4, 16);
         case 4: YEE_SHAPE(3, 2, 128, 4, 16);
+        default: return (int)cudaErrorInvalidValue;
+    }
+#undef YEE_SHAPE
+}
+
+// The batched vacuum passes at a shape forced whatever the members' width
+// (tune_twopass): shape q of (AH, BJ, BI, NB, CB) {(2, 2, 128, 4, 16) the
+// single passes', (2, 4, 64, 4, 16) the narrow, (3, 2, 128, 4, 16) the
+// wide, (3, 4, 64, 4, 16)}
+template <typename T, bool E>
+int batch_shape(int q, void* const* src, void* const* dst, int n, int K, int J, int I, const int* geom, float f,
+                int has_patch, int j0, int j1, int i0, int i1, cudaStream_t s) {
+#define YEE_SHAPE(AH, BJ, BI, NB, CB) \
+    return launch_batch_at<T, E, AH, BJ, BI, NB, CB>(src, dst, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s)
+    switch (q) {
+        case 0: YEE_SHAPE(2, 2, 128, 4, 16);
+        case 1: YEE_SHAPE(2, 4, 64, 4, 16);
+        case 2: YEE_SHAPE(3, 2, 128, 4, 16);
+        case 3: YEE_SHAPE(3, 4, 64, 4, 16);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef YEE_SHAPE
@@ -1261,21 +1306,25 @@ const char* yee_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// The batched vacuum passes of a sweep: e, h the three fields of member 0
-// of (n, K+1, J+1, I+1) contiguous batches; n * (K + 1) <= 65535.
-int yee_update_h_batch(void* const* e, void* const* h, int n, int K, int J, int I, float f, int has_patch, int j0,
-                       int j1, int i0, int i1, int dtype, void* stream) {
+// The batched vacuum passes of a sweep, on march_kernel with BATCH: e, h
+// the three fields of member 0 of n contiguous (n, K+1, J+1, I+1) batches,
+// 1 <= n <= 65535 (gridDim.y); geom: the 43 ints of march_geom of a
+// member's whole grid, its chunk depth picked for n members
+// (ops/stream_plan.py::march_plan); narrow members take 4 x 64 tiles.
+int yee_update_h_batch(void* const* e, void* const* h, int n, int K, int J, int I, const int* geom, float f,
+                       int has_patch, int j0, int j1, int i0, int i1, int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_h_batch<float>(e, h, n, K, J, I, f, has_patch, j0, j1, i0, i1, s);
-    if (dtype == 1) return launch_h_batch<__nv_bfloat16>(e, h, n, K, J, I, f, has_patch, j0, j1, i0, i1, s);
+    if (dtype == 0) return launch_batch<float, false>(e, h, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s);
+    if (dtype == 1)
+        return launch_batch<__nv_bfloat16, false>(e, h, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s);
     return (int)cudaErrorInvalidValue;
 }
 
-int yee_update_e_batch(void* const* h, void* const* e, int n, int K, int J, int I, float f, int dtype,
-                       void* stream) {
+int yee_update_e_batch(void* const* h, void* const* e, int n, int K, int J, int I, const int* geom, float f,
+                       int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (dtype == 0) return launch_e_batch<float>(h, e, n, K, J, I, f, s);
-    if (dtype == 1) return launch_e_batch<__nv_bfloat16>(h, e, n, K, J, I, f, s);
+    if (dtype == 0) return launch_batch<float, true>(h, e, n, K, J, I, geom, f, 0, 0, 0, 0, 0, s);
+    if (dtype == 1) return launch_batch<__nv_bfloat16, true>(h, e, n, K, J, I, geom, f, 0, 0, 0, 0, 0, s);
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1291,6 +1340,20 @@ int yee_march_candidate(int shape, int pass, void* const* src, void* const* dst,
     if (dtype == 1)
         return march_candidate<__nv_bfloat16>(shape, pass, src, dst, mat, psi, tab, psi ? n : 1, K, J, I, geom, f,
                                               has_patch, j0, j1, i0, i1, s);
+    return (int)cudaErrorInvalidValue;
+}
+
+// the batched vacuum passes at shape q of batch_shape (pass 0 = H, 1 = E)
+int yee_march_batch_candidate(int shape, int pass, void* const* src, void* const* dst, int n, int K, int J, int I,
+                              const int* geom, float f, int has_patch, int j0, int j1, int i0, int i1, int dtype,
+                              void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+#define YEE_BATCH(T, E) return batch_shape<T, E>(shape, src, dst, n, K, J, I, geom, f, has_patch, j0, j1, i0, i1, s)
+    if (dtype == 0 && pass == 0) YEE_BATCH(float, false);
+    if (dtype == 0 && pass == 1) YEE_BATCH(float, true);
+    if (dtype == 1 && pass == 0) YEE_BATCH(__nv_bfloat16, false);
+    if (dtype == 1 && pass == 1) YEE_BATCH(__nv_bfloat16, true);
+#undef YEE_BATCH
     return (int)cudaErrorInvalidValue;
 }
 #endif

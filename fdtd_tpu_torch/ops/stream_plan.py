@@ -745,6 +745,13 @@ MARCH_BI = 128  # a tile's threads along i (csrc/yee_twopass.cu::MARCH_BI)
 MARCH_BJ = 2  # and along j (MARCH_BJ)
 MARCH_BLOCKS_PER_SM = 4  # the kernel's launch bounds (MARCH_NB): 256 threads at 64 registers at most
 MARCH_AHEAD = 2  # the planes its copies run ahead (MARCH_AH)
+MARCH_MEMBERS = 65535  # a batched launch's members at most: they lie along gridDim.y (MARCH_MEMBERS)
+# the batched passes' shapes, (planes ahead, BJ, blocks an SM, BI) (csrc/yee_twopass.cu::BATCH_*): wide members
+# three planes ahead on the single passes' tiles, narrow ones (batch_is_narrow) on 4 x 64 tiles
+MARCH_BATCH_WIDE = (3, MARCH_BJ, MARCH_BLOCKS_PER_SM, MARCH_BI)
+MARCH_BATCH_NARROW = (MARCH_AHEAD, 4, MARCH_BLOCKS_PER_SM, 64)
+# the planes a batched pass's chunk holds at most (pick_batch_tk; tune_twopass's tk_depths, PERF.md)
+MARCH_BATCH_TK = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -758,7 +765,12 @@ class MarchPlan:
     (column) lies one past whole tiles (so 257 columns take 8 tiles of 32,
     not 9 with one column in the ninth), and the edge blocks after the
     tiles' update it, one cell and plane a thread (:attr:`edge_cells` a
-    plane: the last row, then the last column, the corner once)."""
+    plane: the last row, then the last column, the corner once).
+    ``members``: a batched launch (the vacuum passes of a sweep's members,
+    ``march_kernel`` with ``BATCH``): every member's blocks laid out as one
+    launch's along x, member b at ``blockIdx.y`` = b.  ``ahead``: the
+    planes the copies run ahead (the instantiation's; no cell depends on
+    it)."""
 
     window: tuple[tuple[int, int], tuple[int, int], tuple[int, int]]
     tiles: tuple[int, int]
@@ -767,6 +779,8 @@ class MarchPlan:
     bj: int = MARCH_BJ
     blocks_per_sm: int = MARCH_BLOCKS_PER_SM
     bi: int = MARCH_BI
+    members: int = 1
+    ahead: int = MARCH_AHEAD
 
     @property
     def chunks(self) -> int:
@@ -779,9 +793,15 @@ class MarchPlan:
         return (i1 - i0 if xj else 0) + (j1 - j0 - xj if xi else 0)
 
     @property
-    def blocks(self) -> int:
+    def member_blocks(self) -> int:
+        """A member's blocks: the tiles' blocks of every chunk, then the
+        edge blocks (``gridDim.x``)."""
         planes = self.window[0][1] - self.window[0][0]
         return self.tiles[0] * self.tiles[1] * self.chunks + -(-self.edge_cells * planes // (self.bi * self.bj))
+
+    @property
+    def blocks(self) -> int:
+        return self.members * self.member_blocks
 
     @property
     def waves(self) -> float:
@@ -819,34 +839,86 @@ def pick_march_tk(planes: int, tiles: int, blocks_per_sm: int = MARCH_BLOCKS_PER
     return min(full, key=lambda tk: (steps(tk), -tk))
 
 
-def march_plan(p: Params, box: Box | None, e_pass: bool, bj: int = MARCH_BJ,
-               blocks_per_sm: int = MARCH_BLOCKS_PER_SM, bi: int = MARCH_BI) -> MarchPlan | None:
-    """The launch of the CPML H (``e_pass`` False) or E pass over ``box``'s
-    owned window (None: the whole grid), or None when the window holds no
-    cell the pass updates.  The H pass updates planes, rows and columns up
-    to K, J, I; the E pass stops one short on each axis (the walls).  ``bj``,
-    ``blocks_per_sm`` and ``bi``: another shape of the kernel
-    (``tune_twopass``)."""
+def batch_is_narrow(width: int) -> bool:
+    """Whether a batch's members of ``width`` columns in the pass's window
+    take the narrow tiles (``MARCH_BATCH_NARROW``): their 64-wide tiles hold
+    fewer lanes a row than 128-wide ones (a 65-wide member of a 64^3 sweep
+    fills half a 128-wide tile; ``csrc/yee_twopass.cu::batch_narrow``)."""
+    bi = MARCH_BATCH_NARROW[3]
+    return march_tiles(width, bi)[0] * bi < march_tiles(width, MARCH_BI)[0] * MARCH_BI
+
+
+def pick_batch_tk(planes: int, tiles: int, depth: int, blocks_per_sm: int = MARCH_BLOCKS_PER_SM) -> int:
+    """The planes a block of a batched pass marches: the deepest split of
+    ``planes`` into equal chunks of at most ``depth`` planes
+    (``MARCH_BATCH_TK``) whose blocks (``tiles`` of all members a chunk)
+    give every block slot of the card a block; the finest split when none
+    does.  Whole waves do not decide it: a chunk of every member's planes
+    (:func:`pick_march_tk`'s pick for a batch at 256^3 x 4: two waves)
+    measured 11-14% slower than chunks of 16 (fp32) or 6 (bf16) planes, tens
+    of waves, on an NVIDIA H100 80GB HBM3 (PERF.md)."""
+    slots = SM_COUNT * blocks_per_sm
+    splits = [-(-planes // nk) for nk in range(1, planes + 1)]
+    fill = [tk for tk in splits if tk <= depth and -(-planes // tk) * tiles >= slots]
+    return max(fill) if fill else min(splits)
+
+
+def march_plan(p: Params, box: Box | None, e_pass: bool, bj: int | None = None,
+               blocks_per_sm: int | None = None, bi: int | None = None, members: int = 1,
+               tk: int | None = None) -> MarchPlan | None:
+    """The launch of the two-pass H (``e_pass`` False) or E pass over
+    ``box``'s owned window (None: the whole grid), or None when the window
+    holds no cell the pass updates.  The H pass updates planes, rows and
+    columns up to K, J, I; the E pass stops one short on each axis (the
+    walls).  ``members``: a batched launch over that many members (1 to
+    ``MARCH_MEMBERS``; the vacuum passes of a sweep), at the batch's shape
+    (:func:`batch_is_narrow`) and chunks of :func:`pick_batch_tk`.  ``bj``, ``blocks_per_sm``, ``bi`` and ``tk``:
+    another shape or chunk depth of the kernel (``tune_twopass``)."""
+    if not 1 <= members <= MARCH_MEMBERS:
+        raise ValueError(f"a batched launch takes 1 to {MARCH_MEMBERS} members; got {members}")
     box = box or full_box(p)
     top = (p.maxk, p.maxj, p.maxi) if e_pass else (p.maxk + 1, p.maxj + 1, p.maxi + 1)
     window = tuple((lo, min(hi, t)) for lo, hi, t in zip(box.own_lo, box.own_hi, top))
     if any(hi <= lo for lo, hi in window):
         return None
+    ahead, *shape = ((MARCH_BATCH_NARROW if batch_is_narrow(window[2][1] - window[2][0]) else MARCH_BATCH_WIDE)
+                     if members > 1 else (MARCH_AHEAD, MARCH_BJ, MARCH_BLOCKS_PER_SM, MARCH_BI))
+    bj, blocks_per_sm, bi = (given if given is not None else built
+                             for given, built in zip((bj, blocks_per_sm, bi), shape))
     (ntj, xj), (nti, xi) = (march_tiles(window[a][1] - window[a][0], b) for a, b in ((1, bj), (2, bi)))
-    return MarchPlan(window, (ntj, nti), (xj, xi), pick_march_tk(window[0][1] - window[0][0], ntj * nti,
-                                                                 blocks_per_sm), bj, blocks_per_sm, bi)
+    planes, tiles = window[0][1] - window[0][0], members * ntj * nti
+    if tk is None:
+        tk = (pick_batch_tk(planes, tiles, MARCH_BATCH_TK, blocks_per_sm) if members > 1
+              else pick_march_tk(planes, tiles, blocks_per_sm))
+    return MarchPlan(window, (ntj, nti), (xj, xi), tk, bj, blocks_per_sm, bi, members, ahead)
 
 
-def march_geometry(p: Params, cfg: PMLConfig | None, box: Box | None, e_pass: bool, bj: int = MARCH_BJ,
-                   blocks_per_sm: int = MARCH_BLOCKS_PER_SM, bi: int = MARCH_BI) -> tuple[int, ...]:
+def member_start(member: int, shape: tuple[int, ...]) -> int:
+    """The element at which member ``member`` of a batch of contiguous
+    arrays of ``shape`` starts, past member 0
+    (``csrc/yee_twopass.cu::member_start``)."""
+    return member * math.prod(shape)
+
+
+def member_lead(lead0: int, start: int, item: int) -> int:
+    """Where a batch member's arrays start within their 16-byte chunk, in
+    elements of ``item`` bytes: member 0's lead ``lead0`` moved by the
+    member's ``start`` (:func:`member_start`), modulo the chunk's elements
+    (``csrc/yee_twopass.cu::member_lead``, at each block's start)."""
+    return (lead0 + start) & (16 // item - 1)
+
+
+def march_geometry(p: Params, cfg: PMLConfig | None, box: Box | None, e_pass: bool, bj: int | None = None,
+                   blocks_per_sm: int | None = None, bi: int | None = None, members: int = 1,
+                   tk: int | None = None) -> tuple[int, ...]:
     """The 43 ints of march_kernel's ``geom``: the box (its arrays' extents,
     the global index of their origin, its owned window; the whole grid's own
     box for None), the pass's psi parts with ``cfg`` (origin and extents
     along axes 1 and 2 a term, :func:`~fdtd_tpu_torch.ops.cpml.
     psi_part_geometry`; zeros for a pass without CPML) and the planes a
-    block marches (:func:`march_plan`)."""
+    block marches (:func:`march_plan`, for ``members`` members, or ``tk``)."""
     box = box or full_box(p)
-    plan = march_plan(p, box, e_pass, bj, blocks_per_sm, bi)
+    plan = march_plan(p, box, e_pass, bj, blocks_per_sm, bi, members, tk)
     window = [x for lo_hi in zip(box.own_lo, box.own_hi) for x in lo_hi]
     parts = psi_part_geometry(p, cfg, box, E_TERMS if e_pass else H_TERMS) if cfg is not None else [0] * 30
     return (*box.shape, *box.lo, *window, *parts, plan.tk if plan is not None else 1)
@@ -855,42 +927,53 @@ def march_geometry(p: Params, cfg: PMLConfig | None, box: Box | None, e_pass: bo
 def march_counts(p: Params, plan: MarchPlan, e_pass: bool) -> np.ndarray:
     """How many times the launch of ``plan`` updates each cell of the padded
     grid, per component (x, y, z): an int8 (3, K+1, J+1, I+1) array, with
-    threads mapped to cells as ``march_kernel`` maps them (tile (tj, ti),
-    thread (ty, tx): column (j0 + tj * bj + ty, i0 + ti * bi + tx)
-    inside the window less its last row and column where the edge blocks
-    take them; chunk c: planes k0 + c * tk on; edge thread e: plane k0 + e
-    // edge_cells, cell e % edge_cells) and each component's update bounds
-    as the kernel tests them."""
+    blocks and threads mapped to cells as ``march_kernel`` maps them (block
+    x below the tiles' blocks: tile x % tiles, chunk x // tiles, planes
+    k0 + chunk * tk on; tile (tj, ti), thread (ty, tx): column (j0 + tj * bj
+    + ty, i0 + ti * bi + tx) inside the window less its last row and column
+    where the edge blocks take them; edge thread e: plane k0 + e //
+    edge_cells, cell e % edge_cells) and each component's update bounds as
+    the kernel tests them.  A batched plan: an (members, 3, K+1, J+1, I+1)
+    array, the blocks of ``blockIdx.y`` = b counted in each component's
+    batch from :func:`member_start` on, as the kernel moves its pointers."""
+    if plan.members > 1:
+        one = march_counts(p, dataclasses.replace(plan, members=1), e_pass).reshape(3, -1)
+        batch = np.zeros((3, plan.members * one.shape[1]), np.int8)
+        for b in range(plan.members):
+            start = member_start(b, p.padded_shape)
+            batch[:, start:start + one.shape[1]] += one
+        return batch.reshape(3, plan.members, *p.padded_shape).swapaxes(0, 1)
     K, J, I = p.maxk, p.maxj, p.maxi
     (k0, k1), (j0, j1), (i0, i1) = plan.window
-    planes = np.zeros(K + 1, np.int8)
-    for c in range(plan.chunks):
-        planes[k0 + c * plan.tk:min(k0 + (c + 1) * plan.tk, k1)] += 1
-    cols = np.zeros((J + 2, I + 2), np.int8)  # one spare row and column: a thread past the grid shows
     (ntj, nti), (xj, xi) = plan.tiles, plan.extra
-    for tj in range(ntj):
-        for ti in range(nti):
+    tiles = ntj * nti
+    cells = np.zeros((K + 1, J + 2, I + 2), np.int8)  # one spare row and column: a thread past the grid shows
+    ne, nr = plan.edge_cells, (i1 - i0 if xj else 0)
+    for x in range(plan.member_blocks):
+        if x < tiles * plan.chunks:
+            tj, ti = divmod(x % tiles, nti)
+            kb0 = k0 + (x // tiles) * plan.tk
             j = j0 + tj * plan.bj + np.arange(plan.bj)[:, None]
             i = i0 + ti * plan.bi + np.arange(plan.bi)[None, :]
             live = (j < j1 - xj) & (i < i1 - xi)
-            np.add.at(cols, (np.broadcast_to(j, live.shape)[live], np.broadcast_to(i, live.shape)[live]), 1)
-    if cols[J + 1].any() or cols[:, I + 1].any():
+            jl, il = np.broadcast_to(j, live.shape)[live], np.broadcast_to(i, live.shape)[live]
+            cells[kb0:min(kb0 + plan.tk, k1), jl, il] += 1
+        else:
+            e = (x - tiles * plan.chunks) * plan.bi * plan.bj + np.arange(plan.bi * plan.bj)
+            e = e[e < ne * (k1 - k0)]
+            u = e % ne
+            np.add.at(cells, (k0 + e // ne, np.where(u < nr, j1 - 1, j0 + u - nr), np.where(u < nr, i0 + u, i1 - 1)), 1)
+    if cells[:, J + 1].any() or cells[:, :, I + 1].any():
         raise AssertionError("the launch maps a thread past the grid")
-    edge = np.zeros((K + 1, J + 2, I + 2), np.int8)
-    ne, nr = plan.edge_cells, (i1 - i0 if xj else 0)
-    e = np.arange(ne * (k1 - k0))
-    u = e % ne
-    np.add.at(edge, (k0 + e // ne, np.where(u < nr, j1 - 1, j0 + u - nr), np.where(u < nr, i0 + u, i1 - 1)), 1)
-    cols = cols[:J + 1, :I + 1]
+    cells = cells[:, :J + 1, :I + 1]
     jj, ii, kk = np.arange(J + 1)[:, None], np.arange(I + 1)[None, :], np.arange(K + 1)
     if e_pass:
         col_bounds = ((jj >= 1) & (jj < J) & (ii < I), (jj < J) & (ii >= 1) & (ii < I),
                       (jj >= 1) & (jj < J) & (ii >= 1) & (ii < I))
         k_bounds = ((kk >= 1) & (kk < K), (kk >= 1) & (kk < K), kk < K)
     else:
-        col_bounds = (np.broadcast_to(jj < J, cols.shape), np.broadcast_to(ii < I, cols.shape), (jj < J) & (ii < I))
+        col_bounds = (np.broadcast_to(jj < J, (J + 1, I + 1)), np.broadcast_to(ii < I, (J + 1, I + 1)),
+                      (jj < J) & (ii < I))
         k_bounds = (kk < K, kk < K, kk <= K)
-    edge = edge[:, :J + 1, :I + 1]
-    return np.stack([(planes * kb)[:, None, None] * (cols * cb)[None] + edge * kb[:, None, None] * cb[None]
-                     for kb, cb in zip(k_bounds, col_bounds)])
+    return np.stack([cells * kb[:, None, None] * cb[None] for kb, cb in zip(k_bounds, col_bounds)])
 

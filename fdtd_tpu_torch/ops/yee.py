@@ -34,20 +34,23 @@ per-shard K1/K2 with XLA slab corrections
 
 ``update_h_batch`` and ``update_e_batch`` are the vacuum passes of every
 member of a sweep's batch (six contiguous (N, K+1, J+1, I+1) tensors) in
-one launch, the batched K1/K2 (``h_kernel``/``e_kernel`` with ``BATCH``),
+one launch, the batched K1/K2 (``march_kernel`` with ``BATCH``: each
+member gets the whole-grid vacuum pass's operations on its own arrays),
 which replace the JAX package's vmapped ``_h_kernel2``/``_e_kernel2``
 (``fdtd_tpu/sweep.py``'s ``pallas_fused`` members); their plain versions
 are the per-member :mod:`fdtd_tpu_torch.ops.curl` passes.
 
-The vacuum and the CPML passes run ``march_kernel``, the k-marching core
-(the header of ``csrc/yee_twopass.cu``), whose launch geometry
-(:func:`vacuum_geometry`, :func:`march_geometry`: the box, the psi parts
-and the planes a block marches, ``stream_plan.march_plan``) is made once
-per grid and box; the het-mu H and lossy E passes, the batched passes and
-the ADE E pass run the first design.  The march core copies rows in aligned
-16-byte chunks, so the other field's three tensors must start alike within
-16 bytes, and so must the pass's own three with its coefficients
-(:func:`check_aligned`).
+The vacuum, the batched and the CPML passes run ``march_kernel``, the
+k-marching core (the header of ``csrc/yee_twopass.cu``), whose launch
+geometry (:func:`vacuum_geometry`, :func:`march_geometry`: the box, the psi
+parts and the planes a block marches, ``stream_plan.march_plan``, for a
+batch picked for all its members) is made once per grid, box and member
+count; the het-mu H and lossy E passes and the ADE E pass run the first
+design.  The march core copies rows in aligned 16-byte chunks, so the other
+field's three tensors must start alike within 16 bytes, and so must the
+pass's own three with its coefficients (:func:`check_aligned`; a batched
+launch checks its member 0's, and its members then start alike too, each
+at its own lead).
 
 ``launches`` counts kernel launches per kernel variant (a shard's under
 the variant's name with ``_shard``, a batch's with ``_batch``), so a run
@@ -125,16 +128,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.yee_update_e_lossy_pml.restype = i32
     lib.yee_update_e_ade.argtypes = [ptr] * 5 + grid + [f32, i32, ptr]
     lib.yee_update_e_ade.restype = i32
-    # (e or h, h or e, members, K, J, I, ...): a batch's member 0 pointers
-    lib.yee_update_h_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32] + [i32] * 5 + [i32, ptr]
+    # (e or h, h or e, members, K, J, I, geom, ...): a batch's member 0 pointers
+    lib.yee_update_h_batch.argtypes = [ptr] * 2 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
     lib.yee_update_h_batch.restype = i32
-    lib.yee_update_e_batch.argtypes = [ptr] * 2 + [i32] * 4 + [f32, i32, ptr]
+    lib.yee_update_e_batch.argtypes = [ptr] * 2 + [i32] + grid + [f32, i32, ptr]
     lib.yee_update_e_batch.restype = i32
     lib.yee_error_string.argtypes = [i32]
     lib.yee_error_string.restype = ctypes.c_char_p
     if hasattr(lib, "yee_march_candidate"):  # a -DYEE_TWOPASS_CANDIDATES build (tune_twopass)
         lib.yee_march_candidate.argtypes = [i32] * 2 + [ptr] * 5 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
         lib.yee_march_candidate.restype = i32
+        lib.yee_march_batch_candidate.argtypes = [i32] * 2 + [ptr] * 2 + [i32] + grid + [f32] + [i32] * 5 + [i32, ptr]
+        lib.yee_march_batch_candidate.restype = i32
     return lib
 
 
@@ -148,18 +153,20 @@ def geometry(p: Params, box: Box | None):
     return (ctypes.c_int * 12)(*box.shape, *box.lo, *window)
 
 
-_VACUUM: dict = {}  # vacuum_geometry's arrays by (K, J, I, box, E pass)
+_VACUUM: dict = {}  # vacuum_geometry's arrays by (K, J, I, box, E pass, members)
 
 
-def vacuum_geometry(p: Params, box: Box | None, e_pass: bool):
+def vacuum_geometry(p: Params, box: Box | None, e_pass: bool, members: int = 1):
     """The vacuum passes' ``geom`` (march_kernel without CPML) of ``box``'s
-    owned window (None: the whole grid): ``stream_plan.march_geometry``,
-    made once per grid, box and pass."""
+    owned window (None: the whole grid), for a launch over ``members``
+    members (a batched one when more than one):
+    ``stream_plan.march_geometry``, made once per grid, box, pass and
+    member count."""
     box = None if box is None or box.is_full(p) else box
-    key = (p.maxk, p.maxj, p.maxi, box, e_pass)
+    key = (p.maxk, p.maxj, p.maxi, box, e_pass, members)
     geom = _VACUUM.get(key)
     if geom is None:
-        ints = stream_plan.march_geometry(p, None, box, e_pass)
+        ints = stream_plan.march_geometry(p, None, box, e_pass, members=members)
         geom = _VACUUM[key] = (ctypes.c_int * len(ints))(*ints)
     return geom
 
@@ -400,13 +407,11 @@ def update_e_ade(p: Params, s: FieldState, P: PolState, dc: DebyeCoefs,
     _check(rc, name)
 
 
-# a batched launch's grid.z is members * (K + 1), at most 65535
-_GRID_Z = 65535
-
-
 def _batch_on_cpu(p: Params, states: FieldState) -> bool:
     """True when the batch is on the CPU; validates a CUDA batch (contiguous
-    (N, K+1, J+1, I+1) tensors of one dtype) and raises on anything else."""
+    (N, K+1, J+1, I+1) tensors of one dtype) and raises on anything else
+    (the launch refuses tensors that do not start alike within 16 bytes:
+    tensors of their own do)."""
     tensors = states.tensors()
     n = tensors[0].shape[0] if tensors[0].dim() == 4 else 0
     if n < 1 or any(tuple(t.shape) != (n,) + p.padded_shape for t in tensors):
@@ -418,9 +423,10 @@ def _batch_on_cpu(p: Params, states: FieldState) -> bool:
     return on_cpu
 
 
-def _member_chunks(p: Params, n: int):
-    """(first, count) of the members each batched launch takes."""
-    per = max(1, _GRID_Z // (p.maxk + 1))
+def _member_chunks(n: int):
+    """(first, count) of the members each batched launch takes: at most
+    ``stream_plan.MARCH_MEMBERS`` (the launch's ``gridDim.y``)."""
+    per = stream_plan.MARCH_MEMBERS
     return [(m, min(per, n - m)) for m in range(0, n, per)]
 
 
@@ -428,8 +434,9 @@ def update_h_batch(p: Params, states: FieldState, coefs: UpdateCoefs,
                    patch: tuple[int, int, int, int] | None = None) -> None:
     """The vacuum H half-step of every member of a batch (six contiguous
     (N, K+1, J+1, I+1) tensors) in place: one launch of the batched K1
-    (``h_kernel<T, false, false, false, true>``) for up to 65535 // (K + 1)
-    members; on CPU tensors :func:`curl.update_h` on each member's view."""
+    (``march_kernel<T, false, false, false, ..., true>``) for up to
+    ``stream_plan.MARCH_MEMBERS`` members; on CPU tensors
+    :func:`curl.update_h` on each member's view."""
     if coefs.lossy or coefs.heterogeneous_mu:
         raise ValueError("the batched passes are the vacuum ones")
     if _batch_on_cpu(p, states):
@@ -442,19 +449,19 @@ def update_h_batch(p: Params, states: FieldState, coefs: UpdateCoefs,
     dev = states.hx.device
     with torch.cuda.device(dev):
         stream = build.launch_stream(dev)
-        for m, count in _member_chunks(p, states.ex.shape[0]):
+        for m, count in _member_chunks(states.ex.shape[0]):
             rc = lib.yee_update_h_batch(pointers(tuple(t[m] for t in (states.ex, states.ey, states.ez))),
                                         pointers(tuple(t[m] for t in (states.hx, states.hy, states.hz))), count,
-                                        p.maxk, p.maxj, p.maxi, f, int(patch is not None), j0, j1, i0, i1,
-                                        _DTYPE_CODES[states.hx.dtype], stream)
+                                        p.maxk, p.maxj, p.maxi, vacuum_geometry(p, None, False, count), f,
+                                        int(patch is not None), j0, j1, i0, i1, _DTYPE_CODES[states.hx.dtype], stream)
             launches["yee_update_h_batch"] += 1
             _check(rc, "yee_update_h_batch")
 
 
 def update_e_batch(p: Params, states: FieldState, coefs: UpdateCoefs) -> None:
     """The vacuum E half-step of every member of a batch in place: one
-    launch of the batched K2 (``e_kernel<T, false, false, false, true>``)
-    for up to 65535 // (K + 1) members; on CPU tensors
+    launch of the batched K2 (``march_kernel<T, true, false, false, ...,
+    true>``) for up to ``stream_plan.MARCH_MEMBERS`` members; on CPU tensors
     :func:`curl.update_e` on each member's view."""
     if coefs.lossy or coefs.heterogeneous_mu:
         raise ValueError("the batched passes are the vacuum ones")
@@ -467,9 +474,10 @@ def update_e_batch(p: Params, states: FieldState, coefs: UpdateCoefs) -> None:
     dev = states.ex.device
     with torch.cuda.device(dev):
         stream = build.launch_stream(dev)
-        for m, count in _member_chunks(p, states.ex.shape[0]):
+        for m, count in _member_chunks(states.ex.shape[0]):
             rc = lib.yee_update_e_batch(pointers(tuple(t[m] for t in (states.hx, states.hy, states.hz))),
                                         pointers(tuple(t[m] for t in (states.ex, states.ey, states.ez))), count,
-                                        p.maxk, p.maxj, p.maxi, f, _DTYPE_CODES[states.ex.dtype], stream)
+                                        p.maxk, p.maxj, p.maxi, vacuum_geometry(p, None, True, count), f,
+                                        _DTYPE_CODES[states.ex.dtype], stream)
             launches["yee_update_e_batch"] += 1
             _check(rc, "yee_update_e_batch")

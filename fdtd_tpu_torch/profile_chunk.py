@@ -78,8 +78,8 @@ SHARD_SPEC = "4"  # the shard scene's mesh (--shard 4)
 # PyTorch's own elementwise_kernel contains the latter), with their template
 # flags after the type: pml <T, S, BJ, CR, LOSSY, DFT> (the CPML sweep's
 # shell), ring <T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>, h <T, HET,
-# BOX, BATCH>, e <T, LOSSY, BOX, BATCH>, march <T, E, MAT, PML, ...> (the
-# vacuum and CPML passes), ade_e <T, SAR>, dft_accum <T, BOX>;
+# BOX>, e <T, LOSSY, BOX>, march <T, E, MAT, PML, AH, BJ, BI, NB, CB, BATCH>
+# (the vacuum, batched and CPML passes), ade_e <T, SAR>, dft_accum <T, BOX>;
 # BATCH: a sweep's batched launch ("_batch"); BOX: a shard's launch (the counter's name with "_shard"), or in an
 # unsharded CPML scene the CPML sweep's interior ("_interior")
 _KERNEL = re.compile(r"::(pml_kernel|ring_kernel|march_kernel|h_kernel|e_kernel|ade_e_kernel|dft_accum_kernel)"
@@ -115,10 +115,12 @@ def _group(name: str, pml: bool = False, shard: bool = False) -> str:
         return "yee_update_e_ade" + ("_sar" if flags[0] else "")
     if m.group(1) == "march_kernel":
         e, mat, pml_pass = flags[:3]
+        if flags[3:4] == [True]:
+            return "yee_update_e_batch" if e else "yee_update_h_batch"
         return ({(False, False): "yee_update_h", (False, True): "yee_update_h_het", (True, False): "yee_update_e",
                  (True, True): "yee_update_e_lossy"}[e, mat] + ("_pml" if pml_pass else "")
                 + ("_shard" if shard else ""))
-    suffix = ("_shard" if flags[1] else "") + ("_batch" if flags[2:3] == [True] else "")
+    suffix = "_shard" if flags[1] else ""
     if m.group(1) == "h_kernel":
         return ("yee_update_h_het" if flags[0] else "yee_update_h") + suffix
     return ("yee_update_e_lossy" if flags[0] else "yee_update_e") + suffix

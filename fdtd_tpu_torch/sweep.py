@@ -16,10 +16,11 @@ step starts.
   ``run_simulation`` maps them (``xla`` -> ``torch``, ``pallas`` and
   ``pallas_fused`` -> ``twopass``, with a notice): on ``twopass`` a step
   of a device's members is one launch each of the batched two-pass Hopper
-  kernels (``csrc/yee_twopass.cu``'s ``h_kernel``/``e_kernel`` with
-  ``BATCH``, the port's K1/K2 over the batch: they take the place of the
-  JAX package's vmapped ``_h_kernel2``/``_e_kernel2`` and of K7), after
-  the source of every member at once (:func:`batch_step`); their plain
+  kernels (``csrc/yee_twopass.cu``'s k-marching core ``march_kernel`` with
+  ``BATCH``, the port's K1/K2 over the batch, each member on the
+  operations of its own whole-grid pass: they take the place of the JAX
+  package's vmapped ``_h_kernel2``/``_e_kernel2`` and of K7), after the
+  source of every member at once (:func:`batch_step`); their plain
   versions on CPU tensors.  On an NVIDIA H100 80GB HBM3 at 700 W one
   launch a member left a 64^3 x 8 sweep's card idle 87-94% of the time
   (PERF.md).

@@ -757,18 +757,23 @@ def test_profile_groups_the_ring_kernels():
 
 
 def test_profile_groups_the_two_pass_kernels():
-    """h_kernel<T, HET, BOX, BATCH>, e_kernel<T, LOSSY, BOX, BATCH> and
-    march_kernel<T, E, MAT, PML, AH, BJ, BI, NB, CB> (the vacuum and CPML
-    passes) map to their launch counters; in a sharded scene a march_kernel
-    pass is the shard's."""
+    """h_kernel<T, HET, BOX>, e_kernel<T, LOSSY, BOX> and
+    march_kernel<T, E, MAT, PML, AH, BJ, BI, NB, CB, BATCH> (the vacuum,
+    batched and CPML passes) map to their launch counters; in a sharded
+    scene a march_kernel pass is the shard's; a batched one is a sweep's."""
     g = profile_chunk._group
-    assert g("void (anonymous namespace)::h_kernel<__nv_bfloat16, true, true, false>(x)") == "yee_update_h_het_shard"
-    assert g("void (anonymous namespace)::h_kernel<float, false, false, true>(x)") == "yee_update_h_batch"
-    assert g("void (anonymous namespace)::e_kernel<float, true, false, false>(x)") == "yee_update_e_lossy"
-    assert g("void (anonymous namespace)::e_kernel<float, true, true, false>(x)") == "yee_update_e_lossy_shard"
-    march = "void (anonymous namespace)::march_kernel<{}, {}, {}, {}, 2, 2, 128, 4, 16>(x)"
-    assert g(march.format("float", "false", "false", "false")) == "yee_update_h"
-    assert g(march.format("float", "true", "false", "false"), False, True) == "yee_update_e_shard"
-    assert g(march.format("float", "false", "false", "true")) == "yee_update_h_pml"
-    assert g(march.format("float", "true", "true", "true"), True) == "yee_update_e_lossy_pml"
-    assert g(march.format("__nv_bfloat16", "false", "true", "true"), False, True) == "yee_update_h_het_pml_shard"
+    assert g("void (anonymous namespace)::h_kernel<__nv_bfloat16, true, true>(x)") == "yee_update_h_het_shard"
+    assert g("void (anonymous namespace)::h_kernel<float, true, false>(x)") == "yee_update_h_het"
+    assert g("void (anonymous namespace)::e_kernel<float, true, false>(x)") == "yee_update_e_lossy"
+    assert g("void (anonymous namespace)::e_kernel<float, true, true>(x)") == "yee_update_e_lossy_shard"
+    march = "void (anonymous namespace)::march_kernel<{}, {}, {}, {}, 2, 2, 128, 4, 16, {}>(x)"
+    assert g(march.format("float", "false", "false", "false", "false")) == "yee_update_h"
+    assert g(march.format("float", "true", "false", "false", "false"), False, True) == "yee_update_e_shard"
+    assert g(march.format("float", "false", "false", "true", "false")) == "yee_update_h_pml"
+    assert g(march.format("float", "true", "true", "true", "false"), True) == "yee_update_e_lossy_pml"
+    assert g(march.format("__nv_bfloat16", "false", "true", "true", "false"), False, True) == \
+        "yee_update_h_het_pml_shard"
+    assert g(march.format("float", "false", "false", "false", "true")) == "yee_update_h_batch"
+    assert g(march.format("__nv_bfloat16", "true", "false", "false", "true")) == "yee_update_e_batch"
+    assert g("void (anonymous namespace)::march_kernel<float, false, false, false, 2, 2, 64, 8, 16, true>(x)"
+             ) == "yee_update_h_batch"

@@ -507,6 +507,112 @@ def test_march_plan_fills_the_card_in_whole_waves():
     assert stream_plan.march_plan(p, top, True) is None and stream_plan.march_plan(p, top, False) is not None
 
 
+
+def _ragged_scene(width=0.0265):
+    """The 35 x 27 x 31 box of ``tune_twopass``'s checks (34 x 26 x 30
+    cells); ``width`` 0.0285: 35 x 29 x 31, whose H pass leaves narrow
+    tiles one row short (edge blocks)."""
+    return convert.params_from(Params(length=0.0305, width=width, height=0.0345, spatial_step=0.001,
+                                      time_step=1e-12, simulation_time=1e-11, sampling_rate=5,
+                                      mode=Mode.COMPUTATION, dtype="float32"))
+
+
+@pytest.mark.parametrize("n, members", [(256, 4), (64, 8), ("ragged", 3), ("ragged29", 3)])
+def test_batched_march_launch_covers_each_member_once(n, members):
+    """The batched vacuum passes of a sweep (``march_kernel`` with
+    ``BATCH``: member b on ``blockIdx.y`` = b, its arrays from
+    ``member_start`` on): ``march_counts`` of the batched plan updates each
+    member's cells of each component's update region exactly once and
+    nothing else, at 257^3 x 4 (2 x 128 tiles, edge blocks), 65^3 x 8 and
+    ragged 35 x 27 x 31 x 3 and 35 x 29 x 31 x 3 batches (narrow members:
+    4 x 64 tiles; at 65^3 and 35 x 29 x 31 with edge blocks); the chunk
+    depth, which ``march_geometry`` carries, is ``pick_batch_tk``'s for the
+    dtype."""
+    p = (_ragged_scene() if n == "ragged" else _ragged_scene(0.0285) if n == "ragged29" else _march_scene(n))
+    regions = cpml._update_regions(p)
+    for e_pass in (False, True):
+        targets = ("ex", "ey", "ez") if e_pass else ("hx", "hy", "hz")
+        plan = stream_plan.march_plan(p, None, e_pass, members=members)
+        one = stream_plan.march_plan(p, None, e_pass)
+        width = plan.window[2][1] - plan.window[2][0]
+        assert (plan.window, plan.members) == (one.window, members)
+        assert stream_plan.batch_is_narrow(width) == (n != 256)
+        assert (plan.ahead, plan.bj, plan.blocks_per_sm, plan.bi) == (
+            stream_plan.MARCH_BATCH_NARROW if n != 256 else stream_plan.MARCH_BATCH_WIDE)
+        assert (one.ahead, one.bj, one.blocks_per_sm, one.bi) == (
+            stream_plan.MARCH_AHEAD, stream_plan.MARCH_BJ, stream_plan.MARCH_BLOCKS_PER_SM, stream_plan.MARCH_BI)
+        tiles = plan.tiles[0] * plan.tiles[1]
+        planes = plan.window[0][1] - plan.window[0][0]
+        assert plan.tk == stream_plan.pick_batch_tk(planes, members * tiles, stream_plan.MARCH_BATCH_TK)
+        assert plan.blocks == members * plan.member_blocks
+        counts = stream_plan.march_counts(p, plan, e_pass)
+        assert counts.shape == (members, 3) + p.padded_shape
+        for c, target in enumerate(targets):
+            want = np.zeros(p.padded_shape, np.int8)
+            want[regions[target]] = 1
+            for b in range(members):
+                np.testing.assert_array_equal(counts[b, c], want, err_msg=f"{target} of member {b}")
+        geom = stream_plan.march_geometry(p, None, None, e_pass, members=members)
+        assert geom[:-1] == stream_plan.march_geometry(p, None, None, e_pass)[:-1] and geom[-1] == plan.tk
+    assert any(stream_plan.march_plan(p, None, False, members=members).extra) == (n != "ragged")  # edge blocks
+    with pytest.raises(ValueError, match="1 to 65535 members"):
+        stream_plan.march_plan(p, None, False, members=stream_plan.MARCH_MEMBERS + 1)
+
+
+def test_batched_march_plan_fills_the_card():
+    """A batch has members x as many tiles as one grid, and marches chunks of
+    at most ``MARCH_BATCH_TK`` = 6 planes (one chunk of every member's
+    planes, which the whole-wave rule of ``pick_march_tk`` gives 256^3 x 4,
+    ran 11-14% slower): at 256^3 x 4 the 257 (256) planes in 43 chunks of
+    6 on the wide shape; at 64^3 x 8 the narrow members' 16 tiles of 4 x 64
+    in 11 chunks of 6; every batched plan gives each block slot of the card
+    a block, with the deepest split that does."""
+    slots = stream_plan.SM_COUNT * stream_plan.MARCH_BLOCKS_PER_SM
+    p = _march_scene(256)
+    h, e = (stream_plan.march_plan(p, None, e_pass, members=4) for e_pass in (False, True))
+    assert (h.tk, e.tk, h.chunks, e.chunks) == (6, 6, 43, 43)
+    assert h.tiles == e.tiles == (128, 2) and h.edge_cells == 513 and e.edge_cells == 0
+    assert stream_plan.pick_march_tk(257, 4 * 256) == 257  # the whole-wave rule: one chunk, two waves
+    q = _march_scene(64)
+    hq = stream_plan.march_plan(q, None, False, members=8)
+    assert hq.tiles == (16, 1) and hq.extra == (True, True) and (hq.tk, hq.chunks) == (6, 11)
+    for n, members in ((256, 4), (64, 8), (64, 2), (16, 3)):
+        for e_pass in (False, True):
+            plan = stream_plan.march_plan(_march_scene(n), None, e_pass, members=members)
+            tile_blocks = members * plan.tiles[0] * plan.tiles[1] * plan.chunks
+            planes = plan.window[0][1] - plan.window[0][0]
+            splits = {-(-planes // c) for c in range(1, planes + 1)}
+            fill = [tk for tk in splits if tk <= stream_plan.MARCH_BATCH_TK
+                    and -(-planes // tk) * (tile_blocks // plan.chunks) >= slots]
+            assert plan.tk == (max(fill) if fill else 1) and plan.waves == plan.blocks / slots, (n, members, e_pass)
+            assert tile_blocks >= slots or plan.tk == 1
+
+
+@pytest.mark.parametrize("dtype, item", [(torch.float32, 4), (torch.bfloat16, 2)])
+def test_member_lead_covers_every_lead(dtype, item):
+    """``stream_plan.member_lead`` (the kernel's ``member_lead``, each
+    block's lead at its start) gives where each member's view of a batch
+    starts within 16 bytes, from every lead of member 0 (a batch cut out of
+    a larger buffer at each element offset); an odd member size moves the
+    lead by one element or its complement a member, so 257^3 x 4 takes the
+    four fp32 leads, 65^3 x 8 and the ragged batches of 8 every bf16 lead."""
+    ce = 16 // item
+    ragged = (_ragged_scene().padded_shape, _ragged_scene(0.0285).padded_shape)
+    for shape, members in (((65, 65, 65), 8), (ragged[0], 8), (ragged[1], 8), (ragged[0], 3)):
+        elems = int(np.prod(shape))
+        buf = torch.empty(members * elems + ce, dtype=dtype)
+        for off in range(ce):
+            batch = buf[off:off + members * elems].view((members,) + shape)
+            lead0 = batch[0].data_ptr() % 16 // item
+            got = [batch[b].data_ptr() % 16 // item for b in range(members)]
+            want = [stream_plan.member_lead(lead0, stream_plan.member_start(b, shape), item)
+                    for b in range(members)]
+            assert got == want, (shape, off)
+            if members == 8:
+                assert sorted(set(got)) == list(range(ce)), (shape, off, got)
+    leads = {stream_plan.member_lead(0, stream_plan.member_start(b, (257,) * 3), 4) for b in range(4)}
+    assert leads == {0, 1, 2, 3}
+
 def test_shard_bytes_counts_the_new_parts():
     """psi parts, P, the Debye maps and work arrays and the sums per
     device, beside the canonical arrays the run gathers into."""

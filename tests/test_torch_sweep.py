@@ -37,7 +37,7 @@ from fdtd_tpu.state import water_block  # noqa: E402
 from fdtd_tpu.utils.stability import stability_map as j_stability_map  # noqa: E402
 from fdtd_tpu_torch import convert, runner  # noqa: E402
 from fdtd_tpu_torch import sweep as ts  # noqa: E402
-from fdtd_tpu_torch.ops import yee  # noqa: E402
+from fdtd_tpu_torch.ops import stream_plan, yee  # noqa: E402
 from fdtd_tpu_torch.ops.cpml import PMLConfig  # noqa: E402
 from fdtd_tpu_torch.params import time_values  # noqa: E402
 from fdtd_tpu_torch.step import make_step  # noqa: E402
@@ -223,13 +223,15 @@ def test_stability_map_matches_cfl_prediction(tiny_params):
 
 
 def test_batched_passes_validate_and_split(tiny_params):
-    """The batched K1/K2 wrappers: a launch takes at most 65535 // (K + 1)
-    members (grid.z), a batch must be six (N, K+1, J+1, I+1) tensors, and
-    only the vacuum passes batch."""
+    """The batched K1/K2 wrappers: a launch takes at most 65535 members
+    (``stream_plan.MARCH_MEMBERS``: they lie along the march core's
+    gridDim.y, whatever the grid), a batch must be six (N, K+1, J+1, I+1)
+    tensors, and only the vacuum passes batch."""
     p = convert.params_from(_computation(tiny_params, "float32"))
-    big = dataclasses.replace(p, length=0.256, width=0.256, height=0.256)
-    assert yee._member_chunks(big, 600) == [(0, 255), (255, 255), (510, 90)]
-    assert yee._member_chunks(p, 3) == [(0, 3)]
+    assert stream_plan.MARCH_MEMBERS == 65535
+    assert yee._member_chunks(600) == [(0, 600)]
+    assert yee._member_chunks(3) == [(0, 3)]
+    assert yee._member_chunks(140000) == [(0, 65535), (65535, 65535), (131070, 8930)]
     states = ts.initial_batch(p, 2, "cpu")
     from fdtd_tpu_torch.state import FieldState, update_coefs
 
