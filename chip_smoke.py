@@ -9,7 +9,8 @@ It fails (non-zero exit, no result line) without CUDA or without the
 package beside it.  Phases, each printing one line or more:
 
 1. the device: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
-2. the build of the Hopper kernels from csrc/, one nvcc per source, all
+2. the build of the Hopper kernels from csrc/, one nvcc per source and
+   one for the sweeps' means mode (yee_stream.cu with YEE_STREAM_FOLD), all
    started together (seconds, ptxas report);
 3. each kernel against its plain torch version on the card, fp32 and bf16,
    both modes, random fields on a non-cubic non-integer box with the source
@@ -91,6 +92,29 @@ package beside it.  Phases, each printing one line or more:
    dft_accum) through stream, twopass and torch, and three probes with
    --dft-fields eh on twopass and torch (bit for bit; the CLI's
    probes.csv layout with two);
+6e. the DFT bands' means mode (more frequencies than a block's shared
+   memory holds; ``phase_means``): the fold kernel against plain_fold
+   (random means and sums, 1 to 33 frequencies, 1 to 32 levels, nc 3 and
+   6); each means-mode sweep (the nine variants, ragged tiles; the five
+   shard variants on ragged 4-slab and 2 x 3 meshes) against plain_sweep,
+   fp32 and bf16, fields, buffer, map, psi, P; shards too thin for the
+   s = 4 halo (four planes) with 3 to 5 frequencies: the vacuum bands at
+   s = 2 against plain_sweep, and routed, against twopass + dft_accum;
+   128^3 with 16 frequencies over 2.40e10-2.50e10 Hz on vacuum, heating +
+   SAR, --pml 10 and Debye + SAR (auto picks the means mode), fp32 bit for
+   bit to twopass + dft_accum and bf16 to the bands run in groups of
+   frequencies, with launch counts and Mcells/s (each runner warmed by a
+   chunk, then three runs of 1000 steps in turns against twopass +
+   dft_accum: the median and the spread); vacuum and heating with --shard
+   4 against the unsharded runs; every variant with six frequencies
+   through stream, twopass and torch (67 steps); the CLI on
+   configs/bench_256.txt --dft with four frequencies (1000 steps, auto)
+   against twopass + dft_accum's sums; heating_256 --water-block --sar
+   --dft --shard 4 against twopass + dft_accum with three frequencies (the
+   bands hold them) and eight (each shard's means mode and fold at full
+   size); the means-mode kernels' and the fold's
+   times at 128^3 beside their bounds, plain versions and (the fold)
+   torch.addmm, and the bands against the means mode at one frequency;
 7. the sharded path (--shard): every per-shard kernel (K1/K2-shard,
    vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
    het, het + SAR at s = 8, 4, 2) against its plain version on every shard
@@ -263,6 +287,14 @@ PARENT_TIMES = {
 # ones, batched or not: replaced by march_kernel)
 SASS_ALIAS = (r"(void )?(h|e)_kernel<([^,]+), (true|false), false, (true|false), false>",
               r"\1\2_kernel<\3, \4, \5>")
+# phase 6e: the means mode of the DFT bands and the fold kernel
+MEANS_N = 128  # the grid of the 16-frequency scenes: configs/heating_256.txt scaled to 128^3
+MEANS_FREQS = tuple(2.40e10 + k * (1e9 / 15) for k in range(16))  # 16 frequencies over 2.40e10-2.50e10 Hz
+MEANS_STEPS = 200  # steps of those scenes (two chunks of the config's 100-step sampling rate)
+MEANS_NF = 6  # frequencies of the kernel checks and the every-variant runs: past every built shape's bands
+RATE_STEPS = 1000  # the 16-frequency scenes' timed runs: steps a run, after a chunk that warms the runner
+RATE_REPS = 3  # and runs of each backend, in turns; the median and the spread are reported
+THIN_NF = (3, 4, 5)  # shards too thin for the s = 4 halo: frequencies past its bands that the s = 2 bands hold
 RAGGED_BATCH = 8  # phase 10: members of the ragged batch (35 x 29 x 31 a member, odd: 8 members take every lead)
 
 
@@ -311,11 +343,765 @@ def run_cli(args: list[str], cli=None) -> subprocess.CompletedProcess:
     return subprocess.CompletedProcess(["fdtd_tpu_torch", *args], rc, out.getvalue(), err.getvalue())
 
 
+def absdiff(x, y) -> float:
+    """Largest |x - y| of two tensors, a NaN counted as inf (``max`` over
+    floats would drop it)."""
+    import torch
+
+    return float(torch.nan_to_num((x.float() - y.float()).abs(), nan=math.inf).max())
+
+
+def maxdiff(a, b) -> float:
+    """Largest |a - b| over the tensors of two states (or P or psi sets, or
+    tuples of tensors)."""
+    ta, tb = (x.tensors() if hasattr(x, "tensors") else tuple(x) for x in (a, b))
+    return max(absdiff(x, y) for x, y in zip(ta, tb))
+
+
+def event_ms(fn, reps=20, queued=True) -> float:
+    """Milliseconds a call of ``fn`` keeps the card busy, over ``reps``
+    calls between two CUDA events.  ``queued``: a spin kernel (about 25 ms)
+    runs first, so the calls are all enqueued before the first event starts
+    and the host's time per launch (tens of microseconds for a shard
+    kernel's wrapper) is not counted; without it the events take the host's
+    pace too (the halo copies: a launch a copy)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(50_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def _flag(kernel: str, q: int) -> bool:
     """Template argument ``q`` (0: the type) of a demangled kernel name,
     read as a bool."""
     args = kernel[kernel.index("<") + 1:kernel.rindex(">")].split(",")
     return args[q].strip() == "true"
+
+
+
+
+def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, full_size: bool = True,
+                water256=None) -> list[dict]:
+    """Phase 6e: the means mode of the sweeps' DFT bands (``StreamPlan.
+    fold``) and the fold kernel (``csrc/dft_accum.cu::dft_fold_kernel``).
+    The fold against ``plain_fold`` from random means, weights and sums; each
+    means-mode instantiation (the nine sweep variants, ragged tiles, and
+    the five shard variants on ragged 1-D and 2-D meshes) against its plain
+    sweep, from random fields, psi, P and map; the 16-frequency scenes at
+    ``n``^3 (vacuum, heating + SAR, --pml 10, Debye + SAR; fp32 and bf16),
+    which auto sends to the means mode, through their chunk runners:
+    fp32 against twopass + dft_accum bit for bit, bf16 against the bands
+    (the frequencies in groups the bands hold) bit for bit, each with its
+    Mcells/s beside twopass + dft_accum's (:func:`time_turns`); vacuum and
+    heating with --shard 4 against the unsharded runs; shards too thin for
+    the s = 4 halo on the s = 2 bands (``THIN_NF``); every variant with six
+    frequencies through stream, twopass and torch; with ``full_size`` the
+    CLI on configs/bench_256.txt --dft with four frequencies (auto, 1000
+    steps; its dft_NN.vtr against twopass + dft_accum's sums) and
+    heating_256 --water-block --sar --dft --shard 4 with three frequencies
+    (the bands) and eight (the means mode) against twopass + dft_accum
+    (``water256``: the scene's load, built once).
+    Returns the JSON rows of the kernels it drives on those paths, timed at
+    the ``n``^3 scenes' shapes beside their bounds and plain versions (the
+    fold beside torch.addmm)."""
+    import numpy as np
+    import torch
+
+    from fdtd_tpu_torch import cli
+    from fdtd_tpu_torch.convert import state_from_numpy
+    from fdtd_tpu_torch.dft import DftConfig, dft_weights, zero_dft_acc
+    from fdtd_tpu_torch.grid import COMPONENTS, Box
+    from fdtd_tpu_torch.io.vtr import read_vtr_cell_arrays
+    from fdtd_tpu_torch.ops import dft as dft_ops
+    from fdtd_tpu_torch.ops import stream, stream_plan, yee
+    from fdtd_tpu_torch.ops.cpml import E_TERMS, H_TERMS, PMLConfig, PsiState, init_psi, make_cpml, psi_shapes
+    from fdtd_tpu_torch.ops.dispersive import (DebyeMaterials, PolState, debye_coefs, water_debye_load,
+                                               zero_polarization)
+    from fdtd_tpu_torch.parallel import mesh as shard_mesh
+    from fdtd_tpu_torch.parallel import sharded_fast
+    from fdtd_tpu_torch.parallel.sharded_step import shard_coefs
+    from fdtd_tpu_torch.params import Mode, Params, load_parameters, time_values
+    from fdtd_tpu_torch.runner import initial_state, resolve_backend
+    from fdtd_tpu_torch.source import apply_source, make_source_plan, profile_tensor, sweep_drive_rows
+    from fdtd_tpu_torch.state import FieldState, ferrite_slab, field_dtype, update_coefs, water_block
+    from fdtd_tpu_torch.step import make_chunk_runner, scan_inputs, zero_power_acc
+
+    t_phase = time.perf_counter()
+    err: dict[str, float] = {}  # kernel -> max|diff| against its plain version
+    launches: dict[str, int] = {}  # kernel -> launches on its path's run
+    paths: dict[str, str] = {}
+    nan = float("nan")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def note(name: str, d: float) -> None:
+        err[name] = max(err.get(name, 0.0), d)
+
+    def counts_now() -> dict:
+        return {**yee.launches, **stream.launches, **dft_ops.launches}
+
+    def reset_counts() -> None:
+        yee.reset_launches()
+        stream.reset_launches()
+        dft_ops.reset_launches()
+
+    def rand(shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def sums_like(nf: int, cells: tuple, nc: int = 3) -> tuple:
+        return tuple(rand((nf, nc) + tuple(cells)) for _ in range(2))
+
+    # -- (a) the fold against plain_fold ---------------------------------------------------------
+    fold_cells = [((35, 29, 31), ((1, 1, 3), (5, 7, 3), (16, 32, 3), (33, 32, 6)))]
+    fold_cells.append(((n, n, n), ((4, 32, 3), (16, 32, 3))))
+    for cells, cases in fold_cells:
+        means = rand((stream_plan.FOLD_DEPTH, 3) + cells)
+        for nf, depth, nc in cases:
+            w = rand((depth, 2, nf))
+            d0 = sums_like(nf, cells, nc)
+            k, q = tuple(t.clone() for t in d0), tuple(t.clone() for t in d0)
+            dft_ops.fold(means, w, k)
+            dft_ops.plain_fold(means, w, q)
+            torch.cuda.synchronize()
+            d = maxdiff(k, q)
+            moved = float((q[0][:, :3] - d0[0][:, :3]).abs().max())
+            kept = maxdiff((k[0][:, 3:], k[1][:, 3:]), (d0[0][:, 3:], d0[1][:, 3:])) if nc == 6 else 0.0
+            note("dft_fold", max(d, kept))
+            check(d == 0.0 and kept == 0.0 and moved > 0,
+                  f"dft_fold == plain_fold, {cells} cells, nf={nf}, {depth} levels, nc={nc}: max|diff| = {d!r} "
+                  f"(H components kept: {kept!r}; sums moved {moved!r})")
+            del d0, k, q
+        del means
+
+    # -- (b) each means-mode instantiation against its plain sweep -------------------------------
+    def sweep_inputs(pm: Params, arrays: dict, s: int, box=None, st=None):
+        """The state with step 1 hard-set (a shard's: ``st``) and the sweep's drive."""
+        dt = field_dtype(pm)
+        st = state_from_numpy(arrays, dev, dt) if st is None else st
+        src = make_source_plan(pm)
+        amps = torch.tensor(rng.uniform(-1.0, 1.0, s), dtype=torch.float64, device=dev)
+        prof = profile_tensor(src, dev)
+        apply_source(src, st, amps[0], prof, box)
+        ez_rows, hx_rows = sweep_drive_rows(src, amps, s, dt, prof)
+        return st, stream.SweepDrive(src.patch, ez_rows[0], hx_rows[0])
+
+    def random_psi(pm: Params, cfg: PMLConfig) -> PsiState:
+        shapes = psi_shapes(pm, cfg)
+        return PsiState(**{t: rand(shapes[t], -1e-2, 1e-2).to(field_dtype(pm)) for t in PsiState.names()})
+
+    def random_pol(pm: Params, dc) -> PolState:
+        return PolState(*(torch.where(dc.k2[c] > 0, rand(pm.padded_shape, -1e-9, 1e-9).to(field_dtype(pm)), 0.0)
+                          for c in "xyz"))
+
+    def check_sweep(pm: Params, arrays: dict, label: str, mats=None, sar: bool = False, pml=None, dc=None):
+        """One means-mode sweep against plain_sweep: fields, the buffer's
+        levels, the SAR map, psi and P (from random psi, P and map)."""
+        cfg = DftConfig(MEANS_FREQS[:MEANS_NF])
+        coefs = update_coefs(pm, None if dc is not None else mats, dev)
+        plan = stream_plan.pick_plan(pm, lossy=coefs.lossy, het=coefs.heterogeneous_mu, sar=sar, pml=pml,
+                                     ade=dc is not None, dft=cfg)
+        st, drive = sweep_inputs(pm, arrays, plan.s)
+        cp = make_cpml(pm, pml, coefs, dev) if pml is not None else None
+        psi = random_psi(pm, pml) if pml is not None else None
+        pol = random_pol(pm, dc) if dc is not None else None
+        acc0 = rand((pm.maxk, pm.maxj, pm.maxi), 0.0, 1e-11) if sar else None
+        mshape = (plan.s, 3, pm.maxk, pm.maxj, pm.maxi)
+
+        def outs(fill: float):
+            return (FieldState(*(torch.full_like(t, fill) for t in st.tensors())),
+                    PsiState(*(torch.full_like(t, fill) for t in psi.tensors())) if psi is not None else None,
+                    PolState(*(torch.full_like(t, fill) for t in pol.tensors())) if pol is not None else None,
+                    acc0.clone() if sar else None, torch.full(mshape, fill, device=dev))
+
+        ko, po = outs(nan), outs(0.0)
+        stream.sweep(pm, st, ko[0], coefs, plan, drive, ko[3], cp, psi, ko[1], dc, pol, ko[2], means=ko[4])
+        stream.plain_sweep(pm, st, coefs, plan.s, drive, po[0], po[3], cp, psi, po[1], dc, pol, po[2], means=po[4])
+        torch.cuda.synchronize()
+        d = max(maxdiff(ko[0], po[0]), absdiff(ko[4], po[4]), maxdiff(ko[1], po[1]) if psi is not None else 0.0,
+                maxdiff(ko[2], po[2]) if pol is not None else 0.0, absdiff(ko[3], po[3]) if sar else 0.0)
+        note(plan.kernel, d)
+        if plan.core is not None:
+            note(plan.kernel + stream.INTERIOR, d)
+        K1, J1, I1 = pm.padded_shape
+        ragged = bool(K1 % plan.tk or J1 % plan.tj or I1 % plan.ti)
+        check(plan.fold > 0 and d == 0.0 and float(po[4].abs().max()) > 0,
+              f"{plan.kernel} == plain_sweep (means mode), s={plan.s} tile (k,j,i)=({plan.tk},{plan.tj},{plan.ti}) "
+              f"{plan.blocks} blocks{' (ragged)' if ragged else ''}, {label}: fields, means"
+              f"{', map' if sar else ''}{', psi' if psi else ''}{', P' if pol else ''} max|diff| = {d!r}")
+
+    def check_shards(pk: Params, arrays: dict, shape: tuple, label: str, mats=None, sar: bool = False):
+        """Every shard's means-mode sweep (at the picker's depth for the
+        mesh) against plain_sweep on the shard's arrays: owned cells, the
+        shard's buffer levels and map part."""
+        cfg = DftConfig(MEANS_FREQS[:MEANS_NF])
+        mesh = shard_mesh.make_mesh(shape, dev.type)
+        host = update_coefs(pk, mats, "cpu")
+        plans = sharded_fast.pick_shard_plan(pk, mesh, None, host.lossy, host.heterogeneous_mu, sar, {}, cfg)
+        s = plans[0].s
+        canon = state_from_numpy(arrays, dev, field_dtype(pk))
+        acc0 = rand((pk.maxk, pk.maxj, pk.maxi), 0.0, 1e-11) if sar else None
+        shards = shard_mesh.scatter(pk, canon, mesh, s + 1, acc0)
+        d = 0.0
+        for sh, plan in zip(shards, plans):
+            cf = shard_coefs(pk, host, sh.box, dev)
+            st, drive = sweep_inputs(pk, None, s, sh.box, sh.state.clone())
+            mshape = (s, 3) + sh.box.cell_shape(pk)
+            out, want = (FieldState(*(torch.full_like(t, nan) for t in st.tensors())) for _ in range(2))
+            mk, mp = torch.full(mshape, nan, device=dev), torch.zeros(mshape, device=dev)
+            aa, ab = (sh.power.clone(), sh.power.clone()) if sar else (None, None)
+            stream.sweep(pk, st, out, cf, plan, drive, aa, box=sh.box, means=mk)
+            stream.plain_sweep(pk, st, cf, s, drive, want, ab, box=sh.box, means=mp)
+            torch.cuda.synchronize()
+            d = max(d, max(absdiff(x[sh.box.owned], y[sh.box.owned]) for x, y in zip(out.tensors(), want.tensors())),
+                    absdiff(mk, mp), absdiff(aa, ab) if sar else 0.0)
+        name = plans[0].kernel + "_shard"
+        note(name, d)
+        check(plans[0].fold > 0 and d == 0.0,
+              f"{name} == plain_sweep on every shard of a {shape} mesh at s={s}, {label}: owned cells, means"
+              f"{', map' if sar else ''} max|diff| = {d!r}")
+
+    def check_thin_shards(pt: Params, arrays: dict, nf: int, label: str) -> None:
+        """Shards too thin for the s = 4 halo: every shard's vacuum sweep
+        with the bands at s = 2 (yee_stream_dft_shard on the CPML interior's
+        box instantiation, nf within its cap) against plain_sweep on the
+        shard's arrays: owned cells and the shard's sums."""
+        cfg = DftConfig(MEANS_FREQS[:nf])
+        mesh = shard_mesh.make_mesh((4, 1, 1), dev.type)
+        host = update_coefs(pt, None, "cpu")
+        plans = sharded_fast.pick_shard_plan(pt, mesh, None, dft=cfg)
+        s = plans[0].s
+        shards = shard_mesh.scatter(pt, state_from_numpy(arrays, dev, field_dtype(pt)), mesh, s + 1, None, None,
+                                    None, None, sums_like(nf, (pt.maxk, pt.maxj, pt.maxi)))
+        d = 0.0
+        for sh, plan in zip(shards, plans):
+            cf = shard_coefs(pt, host, sh.box, dev)
+            st, drive = sweep_inputs(pt, None, s, sh.box, sh.state.clone())
+            wts = rand((s, 2, nf))
+            out, want = (FieldState(*(torch.full_like(t, nan) for t in st.tensors())) for _ in range(2))
+            da, db = tuple(t.clone() for t in sh.dacc), tuple(t.clone() for t in sh.dacc)
+            stream.sweep(pt, st, out, cf, plan, drive, dacc=da, wts=wts, box=sh.box)
+            stream.plain_sweep(pt, st, cf, s, drive, want, dacc=db, wts=wts, box=sh.box)
+            torch.cuda.synchronize()
+            d = max(d, max(absdiff(x[sh.box.owned], y[sh.box.owned]) for x, y in zip(out.tensors(), want.tensors())),
+                    maxdiff(da, db))
+        name = plans[0].kernel + "_shard"
+        check((name, s, plans[0].fold) == ("yee_stream_dft_shard", 2, 0) and d == 0.0,
+              f"{name} == plain_sweep on every shard of a 4-slab mesh at s={s} (shards of "
+              f"{[sh.box.own_hi[0] - sh.box.own_lo[0] for sh in shards]} planes), {label}: owned cells, sums "
+              f"max|diff| = {d!r}")
+
+    pml_check = PMLConfig(cells=6)
+    for dtype in ("float32", "bfloat16"):
+        pr = Params(length=0.0615, width=0.0505, height=0.0705, spatial_step=0.001, time_step=1e-12,
+                    simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype=dtype)
+        arrays = {c: rng.uniform(-1.0, 1.0, pr.padded_shape) for c in COMPONENTS}
+        wb, fe = water_block(pr), ferrite_slab(pr, base=water_block(pr))
+        wide = water_block(pr, lo=(0.02,) * 3, hi=(0.98,) * 3)
+        dm = water_debye_load(pr, lo=(0.05,) * 3, hi=(0.95,) * 3, sigma_ion25=0.5)
+        dc = debye_coefs(pr, dm, dev)
+        lab = f"{dtype} random {pr.padded_shape} nf={MEANS_NF}"
+        check_sweep(pr, arrays, lab)
+        check_sweep(pr, arrays, lab + " water", wb)
+        check_sweep(pr, arrays, lab + " water + SAR", wb, True)
+        check_sweep(pr, arrays, lab + " water + ferrite", fe)
+        check_sweep(pr, arrays, lab + " water + ferrite + SAR", fe, True)
+        check_sweep(pr, arrays, lab + " CPML", pml=pml_check)
+        check_sweep(pr, arrays, lab + " water into the CPML slabs", wide, pml=pml_check)
+        check_sweep(pr, arrays, lab + " Debye", dm, dc=dc)
+        check_sweep(pr, arrays, lab + " Debye + SAR", dm, True, dc=dc)
+        # K, J, I = 34, 26, 30: 35 planes over 4 (9, 9, 9, 8); 2 x 3: j over 3
+        pk = Params(length=0.0305, width=0.0265, height=0.0345, spatial_step=0.001, time_step=1e-12,
+                    simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype=dtype)
+        arrays_k = {c: rng.uniform(-1.0, 1.0, pk.padded_shape) for c in COMPONENTS}
+        wb_k = water_block(pk)
+        fe_k = ferrite_slab(pk, base=water_block(pk, lo=(0.0, 0.1, 0.1), hi=(0.9, 0.9, 0.9)))
+        for shape in ((4, 1, 1), (2, 3, 1)):
+            lab_k = f"{dtype} random {pk.padded_shape} nf={MEANS_NF}"
+            check_shards(pk, arrays_k, shape, lab_k)
+            for mats_k, sar_k, scene_k in ((wb_k, False, "water"), (wb_k, True, "water + SAR"),
+                                           (fe_k, False, "water + ferrite"), (fe_k, True, "water + ferrite + SAR")):
+                check_shards(pk, arrays_k, shape, f"{lab_k} {scene_k}", mats_k, sar_k)
+        # K = 15: 16 planes over 4, too few for the s = 4 halo: the vacuum bands at s = 2 up to their cap
+        pt = dataclasses.replace(pk, height=0.0155)
+        arrays_t = {c: rng.uniform(-1.0, 1.0, pt.padded_shape) for c in COMPONENTS}
+        for nf in THIN_NF:
+            check_thin_shards(pt, arrays_t, nf, f"{dtype} random {pt.padded_shape} nf={nf}")
+        del arrays, arrays_k, arrays_t, dc
+    print(f"phase 6e (a, b) fold and means-mode kernels vs plain: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- (c) the 16-frequency scenes at n^3 --------------------------------------------------------
+    def run_scene(pm: Params, backend: str, mats, sar: bool, pml, dft, dc=None, shard: bool = False):
+        """The scene's steps through the chunk runner ``run_simulation``
+        builds for ``backend`` (``shard``: the sharded stream runner of
+        --shard 4), in the chunks its sampling rate gives; the state, map,
+        psi, P and sums stay on the card (``run_simulation``'s phasors are
+        a host fp64 copy of every frequency).  Returns those, the launch
+        counts and the chunks' seconds."""
+        tv = time_values(pm)
+        ts, amps = scan_inputs(pm, tv)
+        cw, sw = dft_weights(dft, tv)
+        s = initial_state(pm, dev)
+        power = zero_power_acc(pm, dev) if sar else None
+        psi = init_psi(pm, pml, dev) if pml is not None else None
+        pol = zero_polarization(pm, dev) if dc is not None else None
+        dacc = zero_dft_acc(pm, dft, dev)
+        if shard:
+            mesh = shard_mesh.make_mesh((4, 1, 1), dev.type)
+            run = sharded_fast.make_sharded_stream_runner(pm, mesh, mats, sar, dft=dft)
+            shards = shard_mesh.scatter(pm, s, mesh, run.depth, power, None, None, None, dacc)
+        else:
+            run = make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft, dc=dc)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in range(0, len(tv), pm.sampling_rate):
+            chunk = tuple(x[a:a + pm.sampling_rate] for x in (ts, amps, cw, sw))
+            if shard:
+                run(shards, chunk)
+            else:
+                run(s, chunk, power, psi, pol, dacc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts_now()
+        if shard:
+            shard_mesh.gather(pm, shards, s, power, None, None, None, dacc)
+        return (s, power, psi, pol, dacc), got, wall
+
+    def time_turns(pm: Params, mats, sar: bool, pml, dft, dc=None) -> dict:
+        """backend -> (median, min, max) Mcells/s of stream and twopass on
+        the scene: each runner warmed by one chunk (its spare state and
+        means buffer allocated), then ``RATE_REPS`` runs of ``RATE_STEPS``
+        steps each, in turns (stream, twopass, stream, ...), in the chunks
+        of the scene's sampling rate."""
+        chunk = pm.sampling_rate
+        pt_ = dataclasses.replace(pm, simulation_time=(chunk + RATE_STEPS - 0.5) * pm.time_step)
+        tv = time_values(pt_)
+        xs = scan_inputs(pt_, tv) + dft_weights(dft, tv)
+        runs = {}
+        for backend in ("stream", "twopass"):
+            args = (initial_state(pm, dev), zero_power_acc(pm, dev) if sar else None,
+                    init_psi(pm, pml, dev) if pml is not None else None,
+                    zero_polarization(pm, dev) if dc is not None else None, zero_dft_acc(pm, dft, dev))
+            run = make_chunk_runner(pm, dev, mats, backend, accumulate_power=sar, pml=pml, dft=dft, dc=dc)
+            run(args[0], tuple(x[:chunk] for x in xs), *args[1:])
+            runs[backend] = (run, args)
+        walls = {b: [] for b in runs}
+        for _ in range(RATE_REPS):
+            for backend, (run, args) in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for a in range(chunk, chunk + RATE_STEPS, chunk):
+                    run(args[0], tuple(x[a:a + chunk] for x in xs), *args[1:])
+                torch.cuda.synchronize()
+                walls[backend].append(time.perf_counter() - t0)
+        del runs
+        torch.cuda.empty_cache()
+        return {b: tuple(pm.cell_count * RATE_STEPS / w / 1e6 for w in (sorted(ws)[len(ws) // 2], max(ws), min(ws)))
+                for b, ws in walls.items()}
+
+    def rate_txt(r) -> str:
+        return f"{r[0]!r} (median of {RATE_REPS} runs of {RATE_STEPS} steps; {r[1]!r}-{r[2]!r})"
+
+    def diff_runs(a, b) -> float:
+        return max((maxdiff(x, y) if hasattr(x, "tensors") or isinstance(x, tuple) else absdiff(x, y))
+                   for x, y in zip(a, b) if x is not None)
+
+    base = load_parameters("configs/heating_256.txt", dtype="float32")
+    pn = dataclasses.replace(base, length=n * base.spatial_step, width=n * base.spatial_step,
+                             height=n * base.spatial_step, simulation_time=steps * base.time_step)
+    nn = len(time_values(pn))
+    cfg16 = DftConfig(MEANS_FREQS)
+    pml10 = PMLConfig(cells=10)
+    water_n = water_block(pn)
+    debye_n = water_debye_load(pn)
+    dcs = {dtype: debye_coefs(dataclasses.replace(pn, dtype=dtype), debye_n, dev) for dtype in ("float32", "bfloat16")}
+    rates: dict[str, float] = {}
+    scene_plans: dict[str, stream_plan.StreamPlan] = {}
+    t_c = time.perf_counter()
+    for label, mats, sar, pml in (("vacuum", None, False, None), ("heating + SAR", water_n, True, None),
+                                  ("--pml 10", None, False, pml10), ("Debye + SAR", debye_n, True, None)):
+        debye_s = isinstance(mats, DebyeMaterials)
+        for dtype in ("float32", "bfloat16"):
+            pd = dataclasses.replace(pn, dtype=dtype)
+            dc = dcs[dtype] if debye_s else None
+            routed = resolve_backend(pd, "auto", dev, mats, sar, pml, dft=cfg16)
+            plan = stream_plan.pick_plan(pd, lossy=mats is not None and not debye_s, sar=sar, pml=pml, ade=debye_s,
+                                         dft=cfg16)
+            check(routed == "stream" and plan.fold > 0,
+                  f"{n}^3 {label} {dtype} with {cfg16.nf} frequencies: auto resolves to {routed}, plan "
+                  f"{plan.kernel} s={plan.s} with a {plan.fold}-level buffer")
+            res, got = {}, {}
+            for backend in ("stream", "twopass"):
+                res[backend], got[backend], _ = run_scene(pd, backend, mats, sar, pml, cfg16, dc)
+            for backend, r_ in time_turns(pd, mats, sar, pml, cfg16, dc).items():
+                rates[f"{label} {dtype} {backend}"] = r_
+            chunk = pd.sampling_rate
+            sweeps = nn // chunk * (chunk // plan.s) + (nn % chunk) // plan.s
+            folds = nn // chunk * -(-(chunk // plan.s * plan.s) // plan.fold) + (
+                -(-((nn % chunk) // plan.s * plan.s) // plan.fold))
+            trail = nn // chunk * (chunk % plan.s) + (nn % chunk) % plan.s
+            ga = got["stream"]
+            check(ga[plan.kernel] == sweeps and ga["dft_fold"] == folds and ga["dft_accum"] == trail
+                  and (plan.core is None or ga[plan.kernel + stream.INTERIOR] == sweeps)
+                  and got["twopass"]["dft_accum"] == nn,
+                  f"{n}^3 {label} {dtype}: stream {ga[plan.kernel]} {plan.kernel} launches (want {sweeps}), dft_fold "
+                  f"{ga['dft_fold']} (want {folds}), dft_accum {ga['dft_accum']} (want {trail}); twopass dft_accum "
+                  f"{got['twopass']['dft_accum']} (want {nn})")
+            if dtype == "float32":
+                for name in (plan.kernel, "dft_fold") + ((plan.kernel + stream.INTERIOR,) if plan.core else ()):
+                    if name not in launches:
+                        launches[name] = ga[name]
+                        paths[name] = f"{n}^3 {label} --dft x{cfg16.nf} auto ({nn} steps)"
+                scene_plans[label] = plan
+            peak = float(res["stream"][4][0].abs().max())
+            txt = (f"{rate_txt(rates[f'{label} {dtype} stream'])} against "
+                   f"{rate_txt(rates[f'{label} {dtype} twopass'])} Mcells/s ({smi})")
+            if dtype == "float32":
+                d = diff_runs(res["stream"], res["twopass"])
+                check(d == 0.0 and peak > 0,
+                      f"{n}^3 {label} fp32 --dft x{cfg16.nf}, {nn} steps: stream (means mode) == twopass + dft_accum, "
+                      f"sums, fields{', SAR' if sar else ''}{', psi' if pml else ''}{', P' if debye_s else ''} "
+                      f"max|diff| = {d!r} (sums peak {peak!r}); {txt}")
+            else:
+                # a bf16 sweep rounds the fields once a sweep, a bf16 twopass step once a step, so the two
+                # differ by bf16 round-off; the means mode is held to the bands instead: the frequencies in
+                # groups the bands hold, one stream run a group, bit for bit (the fields do not depend on
+                # them, and each frequency's sums take the same operations in the same order)
+                cap = plan.dft_max_nf
+                bands_name = plan.kernel.removesuffix("_means")
+                d = 0.0
+                for i in range(0, cfg16.nf, cap):
+                    part, got_b, _ = run_scene(pd, "stream", mats, sar, pml, DftConfig(cfg16.frequencies[i:i + cap]),
+                                               dc)
+                    check(got_b[bands_name] > 0 and got_b["dft_fold"] == 0, f"{bands_name} ran the group")
+                    d = max(d, diff_runs(res["stream"][:4], part[:4]),
+                            maxdiff(tuple(t[i:i + cap] for t in res["stream"][4]), part[4]))
+                    del part
+                rel = float((res["stream"][4][0] - res["twopass"][4][0]).abs().max()) / peak
+                check(d == 0.0 and peak > 0,
+                      f"{n}^3 {label} bf16 --dft x{cfg16.nf}, {nn} steps: stream (means mode) == {-(-cfg16.nf // cap)} "
+                      f"stream runs of the bands ({bands_name}, at most {cap} frequencies a run), sums, fields"
+                      f"{', SAR' if sar else ''} max|diff| = {d!r}; twopass + dft_accum {rel!r} of the sums' peak off "
+                      f"it (bf16 round-off a step against a sweep); {txt}")
+            del res
+            torch.cuda.empty_cache()
+    # vacuum and heating with --shard 4 (fp32): equal to the unsharded stream run
+    for label, mats, sar in (("vacuum", None, False), ("heating + SAR", water_n, True)):
+        one, _, _ = run_scene(pn, "stream", mats, sar, None, cfg16)
+        four, got, wall = run_scene(pn, "stream", mats, sar, None, cfg16, shard=True)
+        name = stream_plan.variant_name(mats is not None, False, sar, dft=True, means=True) + "_shard"
+        d = diff_runs(one, four)
+        check(got[name] > 0 and got["dft_fold"] > 0 and d == 0.0,
+              f"{n}^3 {label} fp32 --dft x{cfg16.nf} --shard 4 ({got[name]} {name} launches, {got['dft_fold']} folds) "
+              f"== unsharded: sums, fields{', SAR' if sar else ''} max|diff| = {d!r}; "
+              f"{pn.cell_count * nn / wall / 1e6!r} Mcells/s ({smi})")
+        launches[name] = got[name]
+        paths[name] = f"{n}^3 {label} --dft x{cfg16.nf} --shard 4 auto ({nn} steps)"
+        del one, four
+    # shards too thin for the s = 4 halo (16 planes over 4): the s = 2 bands, routed, == twopass + dft_accum
+    pt = Params(length=0.0305, width=0.0265, height=0.0155, spatial_step=0.001, time_step=1e-12,
+                simulation_time=2.05e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="float32")
+    for nf in THIN_NF:
+        cfg = DftConfig(MEANS_FREQS[:nf])
+        four, got, _ = run_scene(pt, "stream", None, False, None, cfg, shard=True)
+        ref, got2, _ = run_scene(pt, "twopass", None, False, None, cfg)
+        d = diff_runs(four, ref)
+        n_t = len(time_values(pt))
+        check(got["yee_stream_dft_shard"] > 0 and got["dft_fold"] == 0 and got2["dft_accum"] == n_t and d == 0.0
+              and float(ref[4][0].abs().max()) > 0,
+              f"{pt.padded_shape} vacuum fp32 --dft x{nf} --shard 4 ({n_t} steps, shards of 4 planes): "
+              f"{got['yee_stream_dft_shard']} yee_stream_dft_shard launches (the s = 2 bands), {got['dft_fold']} "
+              f"folds == twopass + dft_accum ({got2['dft_accum']} launches): sums, fields max|diff| = {d!r}")
+        del four, ref
+    print(f"phase 6e (c) the {n}^3 16-frequency scenes: {time.perf_counter() - t_c:.1f} s", flush=True)
+
+    # every variant with six frequencies, 67 steps (trailing two-pass steps
+    # at s = 2 and 4), stream == twopass == torch (fp32)
+    cfg6 = DftConfig(MEANS_FREQS[:MEANS_NF])
+    ferrite_n = ferrite_slab(pn, base=water_n)
+    p67 = dataclasses.replace(pn, simulation_time=67 * pn.time_step)
+    tv = time_values(p67)
+    xs = scan_inputs(p67, tv) + dft_weights(cfg6, tv)
+    init = {c: rng.uniform(-1.0, 1.0, p67.padded_shape).astype(np.float32) for c in COMPONENTS}
+    for label, mats, sar, pml in (("vacuum", None, False, None), ("water", water_n, False, None),
+                                  ("water + SAR", water_n, True, None), ("ferrite", ferrite_n, False, None),
+                                  ("ferrite + SAR", ferrite_n, True, None), ("--pml 10", None, False, pml10),
+                                  ("water --pml 10", water_n, False, pml10), ("Debye", debye_n, False, None),
+                                  ("Debye + SAR", debye_n, True, None)):
+        debye_v = isinstance(mats, DebyeMaterials)
+        got = {}
+        for backend in ("stream", "twopass", "torch"):
+            s = state_from_numpy(init, dev, torch.float32)
+            power = zero_power_acc(p67, dev) if sar else None
+            psi = init_psi(p67, pml, dev) if pml is not None else None
+            pol = zero_polarization(p67, dev) if debye_v else None
+            sums = zero_dft_acc(p67, cfg6, dev)
+            run = make_chunk_runner(p67, dev, mats, backend, accumulate_power=sar, pml=pml, dft=cfg6,
+                                    dc=dcs["float32"] if debye_v else None)
+            reset_counts()
+            run(s, xs, power, psi, pol, sums)
+            torch.cuda.synchronize()
+            got[backend] = (counts_now(), (s, power, psi, pol, sums), getattr(run, "plan", None))
+        plan = got["stream"][2]
+        trail = len(tv) % plan.s
+        ca = got["stream"][0]
+        d = max(max((maxdiff(x, y) if hasattr(x, "tensors") or isinstance(x, tuple) else absdiff(x, y))
+                    for x, y in zip(got["stream"][1], got[b][1]) if x is not None) for b in ("twopass", "torch"))
+        check(plan.fold > 0 and ca[plan.kernel] == len(tv) // plan.s and ca["dft_accum"] == trail and ca["dft_fold"] > 0
+              and d == 0.0,
+              f"{n}^3 {label} --dft x{MEANS_NF} 67 steps: stream ({ca[plan.kernel]} {plan.kernel}, {ca['dft_fold']} "
+              f"folds, {trail} trailing steps with dft_accum) == twopass == torch, max|diff| = {d!r}")
+        for name in (plan.kernel, plan.kernel + stream.INTERIOR) if plan.core else (plan.kernel,):
+            if name not in launches:
+                launches[name] = ca[name]
+                paths[name] = f"{n}^3 {label} --dft x{MEANS_NF} stream (67 steps)"
+                scene_plans.setdefault(label, plan)
+        del got
+    torch.cuda.empty_cache()
+
+    # -- (d, e) the CLI on bench_256 --dft x4, heating_256 --dft x3 --shard 4 -----------------------
+    if full_size:
+        t_d = time.perf_counter()
+        freqs4 = MEANS_FREQS[::5]
+        pb = load_parameters("configs/bench_256.txt", dtype="float32")
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_counts()
+            t0 = time.perf_counter()
+            r = run_cli(["configs/bench_256.txt", "--dft", ",".join(map(repr, freqs4)), "--out", tmp], cli)
+            got = counts_now()
+            wall = time.perf_counter() - t0
+            files = sorted(glob.glob(os.path.join(tmp, "dft_*.vtr")))
+            check(r.returncode == 0 and len(files) == 4 and got["yee_stream_dft_means"] == 250
+                  and got["dft_fold"] == 32 and got["dft_accum"] == 0,
+                  f"CLI bench_256 --dft x4 (auto) exit {r.returncode} in {wall:.1f} s: {len(files)} dft_NN.vtr; the means "
+                  f"mode, {got['yee_stream_dft_means']} yee_stream_dft_means launches (250 sweeps of 4 steps), "
+                  f"{got['dft_fold']} dft_fold (32 folds of a 32-level buffer), {got['dft_accum']} dft_accum "
+                  f"{r.stderr.strip()[-300:]}")
+            launches.setdefault("yee_stream_dft_means", got["yee_stream_dft_means"])
+            # the files' phasors are the sums in fp64 times 2/N: those of twopass + dft_accum, bit for bit
+            ref, _, _ = run_scene(pb, "twopass", None, False, None, DftConfig(freqs4))
+            scale = 2.0 / len(time_values(pb))
+            d, peak = 0.0, 0.0
+            for fi, path in enumerate(files):
+                arrs = read_vtr_cell_arrays(path)
+                for c, comp in enumerate(("ex", "ey", "ez")):
+                    for part, sums in (("re", ref[4][0]), ("im", ref[4][1])):
+                        want = sums[fi, c].double() * scale
+                        d = max(d, absdiff(torch.from_numpy(arrs[f"{comp}_{part}"]).to(dev), want))
+                peak = max(peak, float(arrs["e_mag"].max()))
+                del arrs
+            check(d == 0.0 and peak > 0,
+                  f"CLI bench_256 --dft x4 (1000 steps, auto): dft_00..03.vtr == twopass + dft_accum's phasors, "
+                  f"max|diff| = {d!r} (e_mag peak {peak!r})")
+            del ref
+        # heating_256 --water-block --sar --dft --shard 4: three frequencies, which the lossy + SAR bands
+        # hold (the bands, fold 0), and eight, past them (the means mode, each shard folding its part)
+        ph = load_parameters("configs/heating_256.txt", dtype="float32")
+        water = water256 if water256 is not None else water_block(ph)
+        n_h = len(time_values(ph))
+        for cfg_h in (DftConfig(MEANS_FREQS[::7][:3]), DftConfig(MEANS_FREQS[::2])):
+            plan_h = sharded_fast.pick_shard_plan(ph, shard_mesh.make_mesh((4, 1, 1), dev.type), lossy=True, sar=True,
+                                                  dft=cfg_h)[0]
+            k_h = plan_h.kernel + "_shard"
+            four, got, wall4 = run_scene(ph, "stream", water, True, None, cfg_h, shard=True)
+            ref, got2, wall1 = run_scene(ph, "twopass", water, True, None, cfg_h)
+            d = diff_runs(four, ref)
+            chunk = ph.sampling_rate
+            per = chunk // plan_h.s * plan_h.s  # the levels a chunk buffers
+            folds = 4 * (n_h // chunk) * -(-per // plan_h.fold) if plan_h.fold else 0
+            means = cfg_h.nf > plan_h.dft_max_nf
+            check((plan_h.fold > 0) == means and got[k_h] == 4 * (n_h // chunk) * (chunk // plan_h.s) and got["dft_fold"] == folds
+                  and got2["dft_accum"] == n_h and d == 0.0,
+                  f"heating_256 --water-block --sar --dft x{cfg_h.nf} --shard 4 ({n_h} steps): the sharded sweep "
+                  f"({'the means mode' if means else 'the bands'}: {got[k_h]} {k_h} launches, {plan_h.fold}-level "
+                  f"buffer, {got['dft_fold']} folds, want {folds}) == unsharded twopass + dft_accum "
+                  f"({got2['dft_accum']} launches): sums, fields, SAR max|diff| = {d!r}; "
+                  f"{ph.cell_count * n_h / wall4 / 1e6!r} against {ph.cell_count * n_h / wall1 / 1e6!r} Mcells/s "
+                  f"(one run each) ({smi})")
+            del four, ref
+        del water
+        torch.cuda.empty_cache()
+        print(f"phase 6e (d, e) the CLI and the 256^3 runs: {time.perf_counter() - t_d:.1f} s", flush=True)
+
+    # -- timing at the n^3 scenes' shapes, the bounds, the kernels' rows ----------------------------
+    ms: dict[str, tuple] = {}  # kernel -> (fp32 ms, bf16 ms, plain fp32 ms)
+    bands_ms: dict[str, tuple] = {}  # kernel -> fp32 ms a step of the bands (nf = 1) and of the means mode
+    cells = math.prod(pn.padded_shape)
+    cells_k = pn.maxk * pn.maxj * pn.maxi
+    arrays = {c: rng.uniform(-1.0, 1.0, pn.padded_shape).astype(np.float32) for c in COMPONENTS}
+    shapes10 = psi_shapes(pn, pml10)
+    psi_n = sum(math.prod(shapes10[t]) for t in H_TERMS + E_TERMS)
+    bounds: dict[str, tuple] = {}
+    for label, mats, sar, pml in (("vacuum", None, False, None), ("water", water_n, False, None),
+                                  ("heating + SAR", water_n, True, None), ("ferrite", ferrite_n, False, None),
+                                  ("ferrite + SAR", ferrite_n, True, None), ("--pml 10", None, False, pml10),
+                                  ("water --pml 10", water_n, False, pml10), ("Debye", debye_n, False, None),
+                                  ("Debye + SAR", debye_n, True, None)):
+        debye_v = isinstance(mats, DebyeMaterials)
+        plan = scene_plans[label]
+        t_k = {}
+        for dtype in ("float32", "bfloat16"):
+            pd = dataclasses.replace(pn, dtype=dtype)
+            coefs = update_coefs(pd, None if debye_v else mats, dev)
+            st, drive = sweep_inputs(pd, arrays, plan.s)
+            out_s = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            cp = make_cpml(pd, pml, coefs, dev) if pml is not None else None
+            psi_i = init_psi(pd, pml, dev) if pml is not None else None
+            psi_o = init_psi(pd, pml, dev) if pml is not None else None
+            dc = dcs[dtype] if debye_v else None
+            pol_i = zero_polarization(pd, dev) if debye_v else None
+            pol_o = zero_polarization(pd, dev) if debye_v else None
+            acc = zero_power_acc(pd, dev) if sar else None
+            buf = torch.zeros((plan.s, 3, pd.maxk, pd.maxj, pd.maxi), device=dev)
+
+            def sweep_k(pl=plan):
+                stream.sweep(pd, st, out_s, coefs, pl, drive, acc, cp, psi_i, psi_o, dc, pol_i, pol_o, means=buf)
+
+            t_k[dtype] = event_ms(sweep_k)
+            if plan.core is not None:
+                t_k[dtype + " interior"] = event_ms(lambda: sweep_k(dataclasses.replace(plan, pml_blocks=())))
+            if dtype == "float32":
+                t_k["plain"] = event_ms(lambda: stream.plain_sweep(pd, st, coefs, plan.s, drive, out_s, acc, cp, psi_i,
+                                                                   psi_o, dc, pol_i, pol_o, means=buf), reps=2)
+                if plan.core is not None:
+                    core = plan.core
+                    box = Box((0, 0, 0), pd.padded_shape, core.origin,
+                                         tuple(o + w for o, w in zip(core.origin, core.window)))
+                    mbox = torch.zeros((plan.s, 3) + box.cell_shape(pd), device=dev)
+                    t_k["plain interior"] = event_ms(lambda: stream.plain_sweep(pd, st, coefs, plan.s, drive, out_s,
+                                                                                box=box, means=mbox), reps=2)
+                # the bands at one frequency, the same shape: what the means mode would replace there
+                one = DftConfig(MEANS_FREQS[:1])
+                plan_b = stream_plan.pick_plan(pd, lossy=coefs.lossy, het=coefs.heterogeneous_mu, sar=sar, pml=pml,
+                                               ade=debye_v, dft=one)
+                d1 = zero_dft_acc(pd, one, dev)
+                w1 = rand((plan.s, 2, 1))
+                t_k["bands"] = event_ms(lambda: stream.sweep(pd, st, out_s, coefs, plan_b, drive, acc, cp, psi_i, psi_o,
+                                                             dc, pol_i, pol_o, d1, w1))
+                bands_ms[plan.kernel] = (t_k["bands"] / plan.s, t_k["float32"] / plan.s)
+                del d1
+            del st, out_s, cp, psi_i, psi_o, pol_i, pol_o, acc, buf, coefs
+        lossy, het = mats is not None and not debye_v, mats is not None and not debye_v and mats.mu_r is not None
+        name = plan.kernel
+        for item, dtype in ((4, "float32"), (2, "bfloat16")):
+            if debye_v:  # fields and P in and out, 15 maps; SAR: 3 sigma, the map in and out
+                b = (33 + (3 if sar else 0)) * item * cells + (8 * cells_k if sar else 0)
+                f = plan.s * (51 * cells + (21 * cells + 19 * cells_k if sar else 0))
+            else:  # fields in and out, coefficients, sigma, the map in and out, psi in and out
+                b = ((12 + (6 if lossy else 0) + (3 if het else 0)) * item * cells
+                     + ((item + 8) * cells_k if sar else 0) + (2 * item * psi_n if pml else 0))
+                f = plan.s * (cells * (15 + (18 if lossy else 15)) + (20 * cells_k if sar else 0)
+                              + (5 * psi_n if pml else 0))
+            # the means: 12 B a cell and level written, 12 operations a cell and level
+            bounds.setdefault(name, {})[dtype] = (b + 12 * plan.s * cells_k, f + 12 * plan.s * cells_k)
+            if plan.core is not None:
+                core = plan.core
+                v = math.prod(core.window)
+                c_in = math.prod(min(o + w, t) - o for o, w, t in zip(core.origin, core.window,
+                                                                      (pn.maxk, pn.maxj, pn.maxi)))
+                bounds.setdefault(name + stream.INTERIOR, {})[dtype] = (
+                    (12 + (6 if lossy else 0)) * item * v + 12 * plan.s * c_in,
+                    plan.s * (v * (15 + (18 if lossy else 15)) + 12 * c_in))
+        ms[name] = (t_k["float32"], t_k["bfloat16"], t_k["plain"])
+        if plan.core is not None:
+            ms[name + stream.INTERIOR] = (t_k["float32 interior"], t_k["bfloat16 interior"], t_k["plain interior"])
+    # a middle slab of --shard 4 (its box with s + 1 halo planes), fp32 and bf16
+    for label, mats, sar in (("vacuum", None, False), ("heating + SAR", water_n, True)):
+        name = stream_plan.variant_name(mats is not None, False, sar, dft=True, means=True) + "_shard"
+        t_k = {}
+        for dtype in ("float32", "bfloat16"):
+            pd = dataclasses.replace(pn, dtype=dtype)
+            mesh = shard_mesh.make_mesh((4, 1, 1), dev.type)
+            plans = sharded_fast.pick_shard_plan(pd, mesh, None, sar, False, sar, {}, cfg16)
+            host = update_coefs(pd, mats, "cpu")
+            canon = state_from_numpy(arrays, dev, field_dtype(pd))
+            shards = shard_mesh.scatter(pd, canon, mesh, plans[0].s + 1, zero_power_acc(pd, dev) if sar else None)
+            sh, plan = shards[1], plans[1]
+            cf = shard_coefs(pd, host, sh.box, dev)
+            st, drive = sweep_inputs(pd, None, plan.s, sh.box, sh.state.clone())
+            out_s = FieldState(*(torch.empty_like(t) for t in st.tensors()))
+            buf = torch.zeros((plan.s, 3) + sh.box.cell_shape(pd), device=dev)
+            t_k[dtype] = event_ms(lambda: stream.sweep(pd, st, out_s, cf, plan, drive, sh.power, box=sh.box, means=buf))
+            if dtype == "float32":
+                t_k["plain"] = event_ms(lambda: stream.plain_sweep(pd, st, cf, plan.s, drive, out_s, sh.power,
+                                                                   box=sh.box, means=buf), reps=2)
+            v_in, v_own, c_own = math.prod(sh.box.shape), math.prod(
+                h - lo for lo, h in zip(sh.box.own_lo, sh.box.own_hi)), math.prod(sh.box.cell_shape(pd))
+            item = 4 if dtype == "float32" else 2
+            bounds.setdefault(name, {})[dtype] = (
+                (6 + (6 if sar else 0)) * item * v_in + 6 * item * v_own + ((item + 8) * c_own if sar else 0)
+                + 12 * plan.s * c_own,
+                plan.s * (v_own * (15 + (18 if sar else 15)) + (20 * c_own if sar else 0) + 12 * c_own))
+            del canon, shards, st, out_s, buf, cf
+        ms[name] = (t_k["float32"], t_k["bfloat16"], t_k["plain"])
+    # the fold at the scenes' shape: 16 frequencies, a 32-level buffer; torch.addmm of the same weights
+    # (cos and -sin stacked, (2 nf, D)) and means ((D, 3 cells)) onto a stacked (2 nf, 3 cells) copy of
+    # the sums: one PyTorch call that computes the fold (not its rounding order)
+    depth = stream_plan.FOLD_DEPTH
+    means = rand((depth, 3, pn.maxk, pn.maxj, pn.maxi))
+    w = rand((depth, 2, cfg16.nf))
+    sums = sums_like(cfg16.nf, (pn.maxk, pn.maxj, pn.maxi))
+    t_fold = event_ms(lambda: dft_ops.fold(means, w, sums))
+    t_fold1 = event_ms(lambda: dft_ops.fold(means, w[:, :, :1].contiguous(), tuple(t[:1] for t in sums)))
+    t_plain = event_ms(lambda: dft_ops.plain_fold(means, w, sums), reps=2)
+    lhs = torch.cat([w[:, 0, :].T, -w[:, 1, :].T]).contiguous()
+    stacked = torch.cat([sums[0].reshape(cfg16.nf, -1), sums[1].reshape(cfg16.nf, -1)])
+    m2 = means.reshape(depth, -1)
+    t_lib = event_ms(lambda: stacked.addmm_(lhs, m2))
+    ms["dft_fold"] = (t_fold, t_fold, t_plain)
+    fb = 12 * depth * cells_k + 2 * 2 * 4 * cfg16.nf * 3 * cells_k
+    bounds["dft_fold"] = {dt_: (fb, 12 * depth * cfg16.nf * cells_k) for dt_ in ("float32", "bfloat16")}
+    del means, sums, stacked, m2, arrays
+    torch.cuda.empty_cache()
+
+    rows = []
+    for name in sorted(ms):
+        k32, k16, kp = ms[name]
+        b32 = bounds[name]["float32"]
+        bound = {}
+        for dtype, (b, f) in bounds[name].items():
+            t_b, t_f = b / HBM_BYTES_PER_S * 1e3, f / FP32_FLOPS * 1e3
+            bound[dtype] = (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
+        shape = (f"{n}^3, a middle slab of --shard 4" if name.endswith("_shard") else
+                 f"{n}^3, {cfg16.nf} frequencies, a {depth}-level buffer" if name == "dft_fold" else f"{n}^3")
+        lib_txt = f", torch.addmm {t_lib!r} ms" if name == "dft_fold" else ""
+        print(f"means mode {name} ({shape}): fp32 {k32!r} ms ({bound['float32'][0] / k32!r} of its bound "
+              f"{bound['float32'][0]!r} ms, {bound['float32'][1]}; {b32[0] / cells!r} B a padded cell), bf16 {k16!r} "
+              f"ms ({bound['bfloat16'][0] / k16!r} of {bound['bfloat16'][0]!r}), plain fp32 {kp!r} ms{lib_txt}; "
+              f"launches {launches.get(name, 0)} on {paths.get(name)} ({smi})")
+        check(launches.get(name, 0) > 0, f"{name} was launched on its path ({paths.get(name)})")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "fdtd_tpu_torch/csrc/" + ("dft_accum.cu" if name == "dft_fold" else "yee_stream.cu"),
+            "replaces": ("none (the fold of the means mode, which the TPU's VMEM bands do not need)"
+                         if name == "dft_fold" else "fdtd_tpu/ops/pallas_stream.py:1538" if name.endswith("_shard")
+                         else "fdtd_tpu/ops/pallas_dispersive.py:464" if name.startswith("yee_stream_ade")
+                         else "fdtd_tpu/ops/pallas_stream_pml.py:329" if "_pml" in name
+                         else "fdtd_tpu/ops/pallas_stream.py:207"),
+            "launches": launches.get(name, 0), "max_abs_err": err.get(name, 0.0), "ms": k32, "plain_ms": kp,
+            "bound_ms": bound["float32"][0], "bound_by": bound["float32"][1],
+            "library_ms": t_lib if name == "dft_fold" else None, "path": paths.get(name),
+        })
+    for key, r_ in rates.items():
+        print(f"rate {n}^3 --dft x{cfg16.nf} {key}: {rate_txt(r_)} Mcells/s ({smi})")
+    for key in sorted({k.rsplit(" ", 1)[0] for k in rates}):
+        s_, t_ = rates[key + " stream"], rates[key + " twopass"]
+        print(f"ratio {n}^3 --dft x{cfg16.nf} {key} stream / twopass: x{s_[0] / t_[0]!r} of the medians "
+              f"(x{s_[1] / t_[2]!r}-x{s_[2] / t_[1]!r} over the runs' extremes) ({smi})")
+    for name, (b_ms, m_ms) in bands_ms.items():
+        f_ms = t_fold1 / depth
+        print(f"bands vs means {name} ({n}^3, one frequency, fp32): the bands {b_ms!r} ms a step, the means mode "
+              f"{m_ms!r} + its fold {f_ms!r} = {m_ms + f_ms!r} ms a step (x{b_ms / (m_ms + f_ms)!r}) ({smi})")
+    return rows
 
 
 def main() -> None:
@@ -377,9 +1163,11 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = (yee.KERNEL_SOURCE, stream.KERNEL_SOURCE, dft_ops.KERNEL_SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        lib_paths = list(pool.map(build.build, sources))
+    # the three sources, and the sweeps' means mode (a build of yee_stream.cu of its own)
+    builds = ((yee.KERNEL_SOURCE, ()), (stream.KERNEL_SOURCE, ()), (dft_ops.KERNEL_SOURCE, ()),
+              (stream.KERNEL_SOURCE, stream.FOLD_DEFINES))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        lib_paths = list(pool.map(lambda b: build.build(b[0], defines=b[1]), builds))
     build_s = time.perf_counter() - t0
     for lib_path in lib_paths:
         log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
@@ -424,17 +1212,6 @@ def main() -> None:
 
     def record_err(name: str, d: float) -> None:
         max_err[name] = max(max_err.get(name, 0.0), d)
-
-    def absdiff(x, y) -> float:
-        """Largest |x - y| of two tensors, a NaN counted as inf (``max`` over
-        floats would drop it)."""
-        return float(torch.nan_to_num((x.float() - y.float()).abs(), nan=math.inf).max())
-
-    def maxdiff(a, b) -> float:
-        """Largest |a - b| over the tensors of two states (or P or psi
-        sets, or tuples of tensors)."""
-        ta, tb = (x.tensors() if hasattr(x, "tensors") else tuple(x) for x in (a, b))
-        return max(absdiff(x, y) for x, y in zip(ta, tb))
 
     def compare(p: Params, arrays: dict, steps: int, label: str, coefs=None) -> None:
         """The two-pass kernels against their plain versions; ``coefs``
@@ -1640,6 +2417,10 @@ def main() -> None:
               f"{len(rows) - 2} rows of {cols} columns, dft_00.vtr written {r.stderr.strip()[-300:]}")
     phase_done("6d trailing steps, probes")
 
+    # -- 6e. the DFT bands' means mode and the fold ------------------------
+    means_rows = phase_means(dev, smi, rng, water256=water)
+    phase_done("6e the DFT means mode and the fold")
+
     # the output reductions in k slabs: the allocator's peak over one
     # snapshot (aggregation) plus one log record (energies and radiated
     # power) at 256^3 with slabs forced to 64 planes, against the model
@@ -1929,25 +2710,6 @@ def main() -> None:
 
     # the halo copies at 256^3: a sweep's exchange (every field, s planes;
     # s + 1 with SAR) and a two-pass step's (E above, H below; one plane)
-    def event_ms(fn, reps=20, queued=True) -> float:
-        """Milliseconds a call of ``fn`` keeps the card busy, over ``reps``
-        calls between two CUDA events.  ``queued``: a spin kernel (about
-        25 ms) runs first, so the calls are all enqueued before the first
-        event starts and the host's time per launch (tens of microseconds
-        for a shard kernel's wrapper) is not counted; without it the events
-        take the host's pace too (the halo copies: a launch a copy)."""
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        if queued:
-            torch.cuda._sleep(50_000_000)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / reps
-
     shell_ms: dict[str, float] = {}  # a CPML sweep's shell launch alone, fp32
 
     def time_interior(name: str, pm: Params, plan, fp32: bool, run, plain_box) -> None:
@@ -3234,7 +3996,7 @@ def main() -> None:
         print(f"sass_compare vs {PARENT}: not run (no git history and no scratch_chip/parent checkout)")
     sass_dir.cleanup()
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + means_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

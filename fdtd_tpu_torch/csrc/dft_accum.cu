@@ -32,6 +32,31 @@
 // to the shard's (nf, nc, cnk, cnj, cni) part of the sums; every cell gets
 // the operations of the whole-grid launch on the same values.  The
 // whole-grid instantiation compiles as before (only BOX reads the box).
+//
+// The fold (dft_fold_kernel) replaces no TPU kernel: it is the second half
+// of the sweeps' means mode (yee_stream.cu, "DFT"), which the TPU kernels
+// do not need, as their VMEM holds the sums of the cells in flight at any
+// frequency count that their plans admit.  A means-mode sweep stores each
+// level's three E cell means, fp32, into a (D, 3, cells) buffer; the fold
+// adds the first `depth` levels to the (re, im) sums of every frequency,
+// in step order, with the operations of `depth` calls of dft.accumulate:
+//
+//     re[f][c][cell] = re[f][c][cell] + cw[d][f] * m[d][c][cell]
+//     im[f][c][cell] = im[f][c][cell] - sw[d][f] * m[d][c][cell]
+//
+// for d = 0 .. depth-1, each product and sum rounded on its own, so the
+// sums equal the per-step accumulation's bits.  Its plain version is
+// fdtd_tpu_torch/ops/dft.py::plain_fold.  Bytes bind it: per cell it reads
+// 12 * depth B of means once and reads and writes 48 * nf B of sums once
+// (per step of the buffer: 12 + 48 * nf / depth B, against K4's 48 * nf),
+// at 12 * depth * nf operations.  Design: one thread per (component,
+// cell), i fastest, the cell's `depth` means in registers (FOLD_MAX levels
+// at most, loaded together, so their latencies overlap), a loop over the
+// frequencies with the next frequency's sums loaded before this one's
+// arithmetic; the weights of up to FOLD_FT frequencies staged in shared
+// memory as (cos, sin) pairs, one 8-byte read a level and frequency.  A
+// shard folds its own buffer into its part of the sums: only the cell
+// count matters.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -94,6 +119,51 @@ dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __
     }
 }
 
+constexpr int FOLD_MAX = 32;  // levels a fold takes at most (ops/stream_plan.py::FOLD_DEPTH)
+constexpr int FOLD_FT = 32;   // frequencies whose weights a block stages at a time
+
+__global__ void __launch_bounds__(256)
+dft_fold_kernel(const float* __restrict__ mb, int depth, int64_t cells, const float* __restrict__ w, int nf, int nc,
+                float* __restrict__ re, float* __restrict__ im) {
+    __shared__ float2 ws[FOLD_FT][FOLD_MAX];  // (cos, sin) of frequency f0 + q at level d
+    const int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;  // c * cells + cell
+    const bool live = x < 3 * cells;
+    float m[FOLD_MAX];
+#pragma unroll
+    for (int d = 0; d < FOLD_MAX; ++d) m[d] = (live && d < depth) ? __ldg(mb + (int64_t)d * 3 * cells + x) : 0.f;
+    const int64_t fs = (int64_t)nc * cells;  // the sums' stride from one frequency to the next
+    for (int f0 = 0; f0 < nf; f0 += FOLD_FT) {
+        const int nt = min(FOLD_FT, nf - f0);
+        __syncthreads();
+        for (int q = threadIdx.x; q < nt * depth; q += blockDim.x) {
+            const int d = q / nt, fq = q % nt;
+            ws[fq][d] = make_float2(w[(int64_t)(2 * d) * nf + f0 + fq], w[(int64_t)(2 * d + 1) * nf + f0 + fq]);
+        }
+        __syncthreads();
+        if (!live) continue;
+        int64_t a = f0 * fs + x;
+        float nr = re[a], ni = im[a];
+        for (int fq = 0; fq < nt; ++fq) {
+            float vr = nr, vi = ni;
+            if (fq + 1 < nt) {
+                nr = re[a + fs];
+                ni = im[a + fs];
+            }
+#pragma unroll
+            for (int d = 0; d < FOLD_MAX; ++d) {
+                if (d < depth) {
+                    const float2 cs = ws[fq][d];
+                    vr = __fadd_rn(vr, __fmul_rn(cs.x, m[d]));
+                    vi = __fsub_rn(vi, __fmul_rn(cs.y, m[d]));
+                }
+            }
+            re[a] = vr;
+            im[a] = vi;
+            a += fs;
+        }
+    }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -140,6 +210,22 @@ int dft_accum(void* const* e, int K, int J, int I, const int* geom, const void* 
         return (int)cudaErrorInvalidValue;
     }
 #undef DFT_ACCUM_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+// dft_fold: means the (>= depth, 3, cells) fp32 buffer of a means-mode
+// sweep, of which the first `depth` (1 to FOLD_MAX) levels are added; w the
+// buffered steps' (depth, 2, nf) fp32 (cos, sin) rows; re, im: (nf, nc,
+// cells) fp32, the E components updated in place.  Launches on `stream` and
+// returns cudaGetLastError().
+int dft_fold(const void* means, int depth, int64_t cells, const void* w, int nf, int nc, void* re, void* im,
+             void* stream) {
+    if (means == nullptr || w == nullptr || re == nullptr || im == nullptr || depth < 1 || depth > FOLD_MAX
+        || cells < 1 || nf < 1 || nc < 3)
+        return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((3 * cells + 255) / 256);
+    dft_fold_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)means, depth, cells, (const float*)w, nf,
+                                                              nc, (float*)re, (float*)im);
     return (int)cudaGetLastError();
 }
 

@@ -117,6 +117,21 @@
 // accumulation's bits (fdtd_tpu_torch/dft.py::accumulate after each
 // two-pass step).
 //
+// The means mode of the DFT instantiations (FOLD, launched where a means
+// buffer is given: ops/stream_plan.py::StreamPlan.fold) takes every
+// frequency count: the thread that owns a cell stores level m's three E
+// cell means, fp32, into level m-1 of a (S, 3, cells) slice of a buffer in
+// device memory (the cell box's layout, so the stores are coalesced along
+// i) and touches no sums and no shared memory for them; dft_accum.cu's fold
+// adds the buffered levels to the sums later, in step order, reading and
+// writing the sums once a fold instead of once a step.  It is a template
+// flag, not a branch: a run-time branch on the buffer's pointer in the
+// bands' instantiations cost their sweeps up to 6% at 256^3 (registers and
+// spills moved; PERF.md), and with the flag they keep their machine
+// code.  Its instantiations are a build of this source of their own
+// (-DYEE_STREAM_FOLD: the entry point takes the means mode alone, the
+// default build everything else), so that the two compile in parallel.
+//
 // Shards (fdtd_tpu_torch/parallel; replaces the TPU's per-shard calls
 // fdtd_tpu/ops/pallas_stream.py::build_stream_shard_call and its j-tiled
 // form _build_stream_shard_call_jt).  A sweep may advance a part of the
@@ -384,13 +399,16 @@ struct PsiSweep {
 };
 
 // the DFT variants' sums and weights: re, im (nf, nc, K, J, I) fp32, updated
-// in place (components 0..2); w: the sweep's (S, 2, nf) fp32 rows
+// in place (components 0..2); w: the sweep's (S, 2, nf) fp32 rows.  The
+// means mode: mb, the sweep's (S, 3, cells) fp32 slice of the means buffer
+// (re, im and w null, nf 0)
 struct DftSweep {
     float* re;
     float* im;
     const float* w;
     int nf;
     int nc;
+    float* mb;
 };
 
 // The part of the grid a sweep advances: the arrays hold (nk, nj, ni)
@@ -467,8 +485,10 @@ constexpr unsigned FULL = 0xffffffffu;
 // BOX: a shard's sweep, its geometry the runtime Box g; without it the
 // whole grid's (a runtime box in every variant cost some of them 5-14% at
 // 256^3, through registers, spills and the instruction stream), so only
-// the shard variants carry it.
-template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+// the shard variants carry it.  FOLD (with DFT): the bands' means mode, whose
+// levels a fold kernel adds to the sums.
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX,
+          bool FOLD = false>
 __global__ void __launch_bounds__(BI * BJ, 1)
 ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe, int tk, int has_patch, int j0,
             int j1, int i0, int i1, const T* __restrict__ ez_rows, const T* __restrict__ hx_rows, Material<T> mat,
@@ -614,7 +634,7 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
         if constexpr (DFT) {
             // fetch the sums of the cell level 1 starts at this step
             const int c1 = r - 2;
-            if (owned(c1)) {
+            if (!FOLD && owned(c1)) {
                 float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * NT + tid;
                 const int64_t oc1 = cofs(c1);
                 for (int f = 0; f < dft.nf; ++f)
@@ -812,23 +832,31 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
                 }
                 if (owned(cell)) {
                     const int64_t oc = cofs(cell);
-                    const float* wm = dft.w + (m - 1) * 2 * dft.nf;
-                    if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
-                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
-                    for (int f = 0; f < dft.nf; ++f) {
-                        const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
+                    if constexpr (FOLD) {
+                        // the means mode: level m's means into the buffer
+                        float* const mb = dft.mb + (int64_t)(m - 1) * 3 * cells + oc;
+                        mb[0] = me[0];
+                        mb[cells] = me[1];
+                        mb[2 * cells] = me[2];
+                    } else {
+                        const float* wm = dft.w + (m - 1) * 2 * dft.nf;
+                        if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
+                        float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
+                        for (int f = 0; f < dft.nf; ++f) {
+                            const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
 #pragma unroll
-                        for (int c = 0; c < 3; ++c) {
-                            float* pr = slot + (6 * f + 2 * c) * NT;
-                            const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
-                            const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
-                            if (m == S) {
-                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
-                                dft.re[a] = vr;
-                                dft.im[a] = vi;
-                            } else {
-                                pr[0] = vr;
-                                pr[NT] = vi;
+                            for (int c = 0; c < 3; ++c) {
+                                float* pr = slot + (6 * f + 2 * c) * NT;
+                                const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
+                                const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
+                                if (m == S) {
+                                    const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
+                                    dft.re[a] = vr;
+                                    dft.im[a] = vi;
+                                } else {
+                                    pr[0] = vr;
+                                    pr[NT] = vi;
+                                }
                             }
                         }
                     }
@@ -880,7 +908,8 @@ size_t ring_bytes(int nf) {
     return (size_t)G::WORDS * 4 + (DFT ? (size_t)S * 6 * nf * G::NT * sizeof(float) : 0);
 }
 
-template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX,
+          bool FOLD>
 int launch_ring(void* const* in, void* const* out, int K, int J, int I, const Box& g, float fh, float fe, int tk,
                 int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
                 const Material<T>& mat, const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
@@ -888,7 +917,7 @@ int launch_ring(void* const* in, void* const* out, int K, int J, int I, const Bo
                          (const T*)in[3], (const T*)in[4], (const T*)in[5]};
     const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
     const size_t dyn = ring_bytes<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>(dft.nf);
-    auto kernel = ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX>;
+    auto kernel = ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX, FOLD>;
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
     using G = RingGeom<S, BJ, CR, LOSSY, HET, SAR, ADE, DFT>;
@@ -906,14 +935,14 @@ int launch_ring(void* const* in, void* const* out, int K, int J, int I, const Bo
 // BLOCK_J_ADE, BLOCK_J_ADE_SAR; the Debye DFT variants take the Debye SAR
 // shape).  YEE_STREAM_CANDIDATES adds the shapes python -m
 // fdtd_tpu_torch.tune_stream times beside them (a build of its own).
-template <typename T, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX>
+template <typename T, bool LOSSY, bool HET, bool SAR, bool ADE, bool DFT, bool BOX, bool FOLD>
 int dispatch_ring(int s, int bj, int cr, void* const* in, void* const* out, int K, int J, int I,
                   const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
                   const void* hx_rows, const Material<T>& mat, const AdeSweep<T>& ade, const DftSweep& dft,
                   cudaStream_t stream) {
 #define YEE_RING_CASE(S_, BJ_, CR_)                                                                    \
     if (s == S_ && bj == BJ_ && cr == CR_)                                                                \
-        return launch_ring<T, S_, BJ_, CR_, LOSSY, HET, SAR, ADE, DFT, BOX>(in, out, K, J, I, g, fh, fe, tk, \
+        return launch_ring<T, S_, BJ_, CR_, LOSSY, HET, SAR, ADE, DFT, BOX, FOLD>(in, out, K, J, I, g, fh, fe, tk, \
                                                                            has_patch, j0, j1, i0, i1,      \
                                                                            ez_rows, hx_rows, mat, ade, dft, \
                                                                            stream);
@@ -995,7 +1024,7 @@ struct PmlGeom {
 // A block's entry of the block list, two int4: (k0, k1, j0, j1) and (i0,
 // i1, 0, 0): it advances the planes [k0, k1) of the emitted columns
 // [j0, j1) x [i0, i1) (at most TJ x TI; ops/stream_plan.py::pml_blocks).
-template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT>
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT, bool FOLD = false>
 __global__ void __launch_bounds__(BI * BJ, 1)
 pml_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float fe, const int4* __restrict__ blocks,
            int has_patch, int j0, int j1, int i0, int i1, const T* __restrict__ ez_rows,
@@ -1148,7 +1177,7 @@ pml_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float 
         if constexpr (DFT) {
             // fetch the sums of the cell level 1 starts at this step
             const int c1 = r - 2;
-            if (owned(c1)) {
+            if (!FOLD && owned(c1)) {
                 float* slot = sD + (int64_t)(c1 % S) * 6 * dft.nf * NT + tid;
                 const int64_t oc1 = cofs(c1);
                 for (int f = 0; f < dft.nf; ++f)
@@ -1320,23 +1349,31 @@ pml_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float 
                 const int cell = k - 1;
                 if (owned(cell)) {
                     const int64_t oc = cofs(cell);
-                    const float* wm = dft.w + (m - 1) * 2 * dft.nf;
-                    if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
-                    float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
-                    for (int f = 0; f < dft.nf; ++f) {
-                        const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
+                    if constexpr (FOLD) {
+                        // the means mode: level m's means into the buffer
+                        float* const mb = dft.mb + (int64_t)(m - 1) * 3 * cells + oc;
+                        mb[0] = me[0];
+                        mb[cells] = me[1];
+                        mb[2 * cells] = me[2];
+                    } else {
+                        const float* wm = dft.w + (m - 1) * 2 * dft.nf;
+                        if (m == 1) __pipeline_wait_prior(1);  // the sums, not the ring's next plane
+                        float* slot = sD + (int64_t)(cell % S) * 6 * dft.nf * NT + tid;
+                        for (int f = 0; f < dft.nf; ++f) {
+                            const float cwt = __ldg(wm + f), swt = __ldg(wm + dft.nf + f);
 #pragma unroll
-                        for (int c = 0; c < 3; ++c) {
-                            float* pr = slot + (6 * f + 2 * c) * NT;
-                            const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
-                            const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
-                            if (m == S) {
-                                const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
-                                dft.re[a] = vr;
-                                dft.im[a] = vi;
-                            } else {
-                                pr[0] = vr;
-                                pr[NT] = vi;
+                            for (int c = 0; c < 3; ++c) {
+                                float* pr = slot + (6 * f + 2 * c) * NT;
+                                const float vr = __fadd_rn(pr[0], __fmul_rn(cwt, me[c]));
+                                const float vi = __fsub_rn(pr[NT], __fmul_rn(swt, me[c]));
+                                if (m == S) {
+                                    const int64_t a = ((int64_t)f * dft.nc + c) * cells + oc;
+                                    dft.re[a] = vr;
+                                    dft.im[a] = vi;
+                                } else {
+                                    pr[0] = vr;
+                                    pr[NT] = vi;
+                                }
                             }
                         }
                     }
@@ -1386,7 +1423,7 @@ size_t pml_bytes(int n, int nf) {
     return (size_t)G::WORDS * 4 + (size_t)24 * 2 * n * 4 + (DFT ? (size_t)S * 6 * nf * G::NT * sizeof(float) : 0);
 }
 
-template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT>
+template <typename T, int S, int BJ, bool CR, bool LOSSY, bool DFT, bool FOLD>
 int launch_pml(void* const* in, void* const* out, int K, int J, int I, float fh, float fe, const int4* blocks,
                int nblocks, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows, const void* hx_rows,
                const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft, cudaStream_t stream) {
@@ -1394,7 +1431,7 @@ int launch_pml(void* const* in, void* const* out, int K, int J, int I, float fh,
                          (const T*)in[3], (const T*)in[4], (const T*)in[5]};
     const OutFields<T> f_out{(T*)out[0], (T*)out[1], (T*)out[2], (T*)out[3], (T*)out[4], (T*)out[5]};
     const size_t dyn = pml_bytes<S, BJ, CR, LOSSY, DFT>(psw.n, dft.nf);
-    auto kernel = pml_kernel<T, S, BJ, CR, LOSSY, DFT>;
+    auto kernel = pml_kernel<T, S, BJ, CR, LOSSY, DFT, FOLD>;
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
     kernel<<<dim3((unsigned)nblocks), dim3(BI, BJ), dyn, stream>>>(f_in, f_out, K, J, I, fh, fe, blocks, has_patch,
@@ -1407,14 +1444,14 @@ int launch_pml(void* const* in, void* const* out, int K, int J, int I, float fh,
 // variant is built at: ops/stream_plan.py (BLOCK_J_PML, BLOCK_J_PML_DFT,
 // COEF_RING_PML).  YEE_STREAM_CANDIDATES adds the shapes python -m
 // fdtd_tpu_torch.tune_stream times beside them.
-template <typename T, bool LOSSY, bool DFT>
+template <typename T, bool LOSSY, bool DFT, bool FOLD>
 int dispatch_pml(int s, int bj, int cr, void* const* in, void* const* out, int K, int J, int I, float fh, float fe,
                  const int4* blocks, int nblocks, int has_patch, int j0, int j1, int i0, int i1, const void* ez_rows,
                  const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft,
                  cudaStream_t stream) {
 #define YEE_PML_CASE(S_, BJ_, CR_)                                                                            \
     if (s == S_ && bj == BJ_ && cr == CR_)                                                                     \
-        return launch_pml<T, S_, BJ_, CR_, LOSSY, DFT>(in, out, K, J, I, fh, fe, blocks, nblocks, has_patch, j0, \
+        return launch_pml<T, S_, BJ_, CR_, LOSSY, DFT, FOLD>(in, out, K, J, I, fh, fe, blocks, nblocks, has_patch, j0, \
                                                        j1, i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
     if constexpr (DFT) {
 #ifdef YEE_STREAM_CANDIDATES
@@ -1445,14 +1482,14 @@ int dispatch_pml(int s, int bj, int cr, void* const* in, void* const* out, int K
 // with or without the DFT bands; with BOX (a shard, or the interior of a
 // CPML sweep) the five of ops/stream_plan.py::SHARD_VARIANTS, with or
 // without the bands.
-template <typename T, bool DFT, bool BOX>
+template <typename T, bool DFT, bool BOX, bool FOLD>
 int dispatch_variant(int code, int s, int bj, int cr, void* const* in, void* const* out, int K, int J,
                      int I, const Box& g, float fh, float fe, int tk, int has_patch, int j0, int j1, int i0,
                      int i1, const void* ez_rows, const void* hx_rows, const Material<T>& mat,
                      const AdeSweep<T>& ade, const DftSweep& dft, cudaStream_t stream) {
 #define YEE_RING_VARIANT(CODE_, LOSSY_, HET_, SAR_, ADE_)                                                       \
     case CODE_:                                                                                              \
-        return dispatch_ring<T, LOSSY_, HET_, SAR_, ADE_, DFT, BOX>(s, bj, cr, in, out, K, J, I, g, fh, fe, tk, \
+        return dispatch_ring<T, LOSSY_, HET_, SAR_, ADE_, DFT, BOX, FOLD>(s, bj, cr, in, out, K, J, I, g, fh, fe, tk, \
                                                                   has_patch, j0, j1, i0, i1, ez_rows, hx_rows, \
                                                                   mat, ade, dft, stream);
     switch (code) {
@@ -1482,6 +1519,12 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
           const void* blocks, int nblocks, void* const* pol_in, void* const* pol_out, const DftSweep& dft,
           cudaStream_t stream) {
     const bool lossy = code & 1, pml = code & 8, ade = code & 16;
+#ifdef YEE_STREAM_FOLD
+    if (dft.mb == nullptr) return (int)cudaErrorInvalidValue;  // the default build holds every other instantiation
+#else
+    if (dft.mb != nullptr) return (int)cudaErrorInvalidValue;  // the YEE_STREAM_FOLD build holds the means mode
+    const bool bands = dft.re != nullptr;
+#endif
     Material<T> mat{};
     AdeSweep<T> ad{};
     for (int q = 0; q < 3; ++q) {
@@ -1511,22 +1554,33 @@ int sweep(int code, int s, int bj, int cr, void* const* in, void* const* out, in
         psw.tab[1] = (const T*)tab_e;
         psw.n = n;
         const int4* b = (const int4*)blocks;
-#define YEE_PML_SWEEP(LOSSY_, DFT_)                                                                          \
-    return dispatch_pml<T, LOSSY_, DFT_>(s, bj, cr, in, out, K, J, I, fh, fe_, b, nblocks, has_patch, j0, j1, \
-                                         i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
-        if (lossy && dft.re != nullptr) YEE_PML_SWEEP(true, true)
-        if (lossy) YEE_PML_SWEEP(true, false)
-        if (dft.re != nullptr) YEE_PML_SWEEP(false, true)
-        YEE_PML_SWEEP(false, false)
+#define YEE_PML_SWEEP(LOSSY_, DFT_, FOLD_)                                                                  \
+    return dispatch_pml<T, LOSSY_, DFT_, FOLD_>(s, bj, cr, in, out, K, J, I, fh, fe_, b, nblocks, has_patch,  \
+                                                 j0, j1, i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
+#ifdef YEE_STREAM_FOLD
+        if (lossy) YEE_PML_SWEEP(true, true, true)
+        YEE_PML_SWEEP(false, true, true)
+#else
+        if (lossy && bands) YEE_PML_SWEEP(true, true, false)
+        if (lossy) YEE_PML_SWEEP(true, false, false)
+        if (bands) YEE_PML_SWEEP(false, true, false)
+        YEE_PML_SWEEP(false, false, false)
+#endif
 #undef YEE_PML_SWEEP
     }
-#define YEE_STREAM_SWEEP(DFT_, BOX_)                                                                          \
-    return dispatch_variant<T, DFT_, BOX_>(code, s, bj, cr, in, out, K, J, I, g, fh, fe_, tk, has_patch,      \
-                                          j0, j1, i0, i1, ez_rows, hx_rows, mat, ad, dft, stream);
-    if (boxed && dft.re != nullptr) YEE_STREAM_SWEEP(true, true)
-    if (boxed) YEE_STREAM_SWEEP(false, true)
-    if (dft.re != nullptr) YEE_STREAM_SWEEP(true, false)
-    YEE_STREAM_SWEEP(false, false)
+#define YEE_STREAM_SWEEP(DFT_, BOX_, FOLD_)                                                                  \
+    return dispatch_variant<T, DFT_, BOX_, FOLD_>(code, s, bj, cr, in, out, K, J, I, g, fh, fe_, tk,         \
+                                                  has_patch, j0, j1, i0, i1, ez_rows, hx_rows, mat, ad, dft,  \
+                                                  stream);
+#ifdef YEE_STREAM_FOLD
+    if (boxed) YEE_STREAM_SWEEP(true, true, true)
+    YEE_STREAM_SWEEP(true, false, true)
+#else
+    if (boxed && bands) YEE_STREAM_SWEEP(true, true, false)
+    if (boxed) YEE_STREAM_SWEEP(false, true, false)
+    if (bands) YEE_STREAM_SWEEP(true, false, false)
+    YEE_STREAM_SWEEP(false, false, false)
+#endif
 #undef YEE_STREAM_SWEEP
 }
 
@@ -1601,10 +1655,14 @@ bool box_of(const int* geom, const int* cells, int K, int J, int I, int s, bool 
 //           fields' shape and dtype; pol_out must not alias pol_in);
 //   re      the DFT bands (fields "e"): re, im the (nf, nc, K, J, I) fp32
 //           sums, updated in place; w the sweep's (s, 2, nf) fp32 (cos,
-//           sin) rows.
+//           sin) rows;
+//   means   their means mode (re, im and w null, nf 0): the sweep's
+//           (s, 3, cells) fp32 slice of the means buffer, level m's E cell
+//           means written into its level m-1 (cells: those of the sums).
 // The nine variants of ops/stream_plan.py::VARIANTS are built, each with
 // and without the bands, and the five shard variants, each with and without
-// them.  Launches on `stream` and returns
+// them; with YEE_STREAM_FOLD, the bands' means mode of each of them alone.
+// Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it does not take).
 extern "C" {
 
@@ -1614,20 +1672,22 @@ int yee_stream_sweep(void* const* in, void* const* out, int K, int J, int I, con
                      const void* sigma, void* acc, float dt, void* const* psi_in, void* const* psi_out,
                      const void* tab_h, const void* tab_e, int n, const void* blocks, int nblocks,
                      void* const* pol_in, void* const* pol_out, void* re, void* im, const void* w, int nf, int nc,
-                     int dtype, void* stream) {
+                     void* means, int dtype, void* stream) {
     const bool ade = pol_in != nullptr, lossy = coefs != nullptr && !ade, het = hf != nullptr;
     const bool sar = acc != nullptr, pml = psi_in != nullptr;
     if (bi != BI || (!pml && tk < 1) || (has_patch && (ez_rows == nullptr || hx_rows == nullptr))
         || (ade && (coefs == nullptr || pol_out == nullptr)) || ((sigma != nullptr) != (sar && !ade))
         || (pml && (psi_out == nullptr || tab_h == nullptr || tab_e == nullptr || n < 1 || blocks == nullptr
                     || nblocks < 1 || het || sar))
-        || (re != nullptr && (im == nullptr || w == nullptr || nf < 1 || nc < 3)))
+        || (re != nullptr && (im == nullptr || w == nullptr || nf < 1 || nc < 3 || means != nullptr))
+        || (means != nullptr && (im != nullptr || w != nullptr || nf != 0)))
         return (int)cudaErrorInvalidValue;
     const int code = (lossy ? 1 : 0) | (het ? 2 : 0) | (sar ? 4 : 0) | (pml ? 8 : 0) | (ade ? 16 : 0);
     Box g;
-    if ((geom != nullptr && (pml || ade)) || !box_of(geom, cells, K, J, I, s, sar || re != nullptr, &g))
+    if ((geom != nullptr && (pml || ade))
+        || !box_of(geom, cells, K, J, I, s, sar || re != nullptr || means != nullptr, &g))
         return (int)cudaErrorInvalidValue;
-    const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc};
+    const DftSweep dft{(float*)re, (float*)im, (const float*)w, nf, nc, (float*)means};
     const bool boxed = geom != nullptr;
     cudaStream_t st = (cudaStream_t)stream;
     if (dtype == 0)

@@ -24,7 +24,13 @@ to the map.  With ``dacc`` (the canonical (re, im) fp32 DFT sums of
 sweep's (s, 2, nf) fp32 (cos, sin) rows on the device) it is the variant
 with the DFT bands of the three TPU kernels: every step's E cell means,
 weighted, are added to the sums in place, as s per-step
-:func:`fdtd_tpu_torch.dft.accumulate` calls would.  On CUDA tensors it launches the kernel variant
+:func:`fdtd_tpu_torch.dft.accumulate` calls would.  With ``means``
+instead (a plan with ``fold``: the bands' means mode, for more
+frequencies than a block's shared memory holds), the sweep writes every
+step's three E cell means, fp32, into ``means[m - 1]`` (an (s, 3, *cells)
+slice of the run's buffer) and touches no sums: the caller folds the
+buffer into them (:func:`fdtd_tpu_torch.ops.dft.fold`), counted under the
+variant's name with ``_dft_means``.  On CUDA tensors it launches the kernel variant
 ``plan.kernel`` on the current stream of their device and allocates
 nothing; it raises on anything the kernel does not take (a bf16 array that
 does not start 4-byte aligned among them: the kernel copies aligned pairs
@@ -72,13 +78,19 @@ from .stream_plan import SHARD_VARIANTS, VARIANTS, StreamPlan, variant_name
 INTERIOR = "_interior"  # the launch counter suffix of a CPML sweep's interior
 
 KERNEL_SOURCE = "yee_stream"
-launches = {variant_name(*v): 0 for v in VARIANTS}
-launches.update({variant_name(*v) + "_shard": 0 for v in SHARD_VARIANTS})
+# the means mode's instantiations: a build of the same source of their own
+# (csrc/yee_stream.cu, "DFT"), which compiles beside the default one
+FOLD_DEFINES = ("YEE_STREAM_FOLD",)
+# every variant, and the means mode of each DFT variant (v[5])
+_KINDS = [(v, means) for v in VARIANTS for means in ((False, True) if v[5] else (False,))]
+launches = {variant_name(*v, means): 0 for v, means in _KINDS}
+launches.update({variant_name(*v, means) + "_shard": 0 for v, means in _KINDS if v in SHARD_VARIANTS})
 # the interior launch of a CPML sweep (ring_kernel on the psi-free window)
-launches.update({variant_name(*v) + INTERIOR: 0 for v in VARIANTS if v[3]})
+launches.update({variant_name(*v, means) + INTERIOR: 0 for v, means in _KINDS if v[3]})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
+_bound_fold: ctypes.CDLL | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +116,14 @@ def _lib() -> ctypes.CDLL:
     return _bound
 
 
+def _lib_fold() -> ctypes.CDLL:
+    """The means mode's build of the sweeps' source (``FOLD_DEFINES``)."""
+    global _bound_fold
+    if _bound_fold is None:
+        _bound_fold = _declare(ctypes.CDLL(str(build.build(KERNEL_SOURCE, defines=FOLD_DEFINES))))
+    return _bound_fold
+
+
 def use_library(path) -> None:
     """Launch the sweeps from the library at ``path``, a build of
     csrc/yee_stream.cu with macros of its own (``build.build(...,
@@ -117,7 +137,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.yee_stream_sweep.argtypes = (
         [ptr, ptr] + [i32] * 3 + [ptr, ptr] + [f32, f32] + [i32] * 10 + [ptr] * 6 + [f32] + [ptr] * 4 + [i32]
-        + [ptr, i32] + [ptr] * 5 + [i32, i32, i32, ptr]
+        + [ptr, i32] + [ptr] * 5 + [i32, i32, ptr, i32, ptr]
     )
     lib.yee_stream_sweep.restype = i32
     lib.yee_stream_error_string.argtypes = [i32]
@@ -131,7 +151,7 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 psi: PsiState | None = None, psi_out: PsiState | None = None,
                 dc: DebyeCoefs | None = None, pol: PolState | None = None,
                 pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None,
-                box: Box | None = None) -> FieldState:
+                box: Box | None = None, means: torch.Tensor | None = None) -> FieldState:
     """The plain version of the kernel: ``s`` steps of :mod:`.curl` on a
     copy of ``state`` in the compute type (fp32 for bf16 storage), with
     steps 2..s hard-set from ``drive``, rounded once to the storage dtype
@@ -144,7 +164,8 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
     once into ``pol_out``, and ``acc`` takes each step's Debye work
     (:func:`diagnostics.accumulate_work`).  With ``dacc`` and ``wts`` each
     step's E cell means of the working copy are added to the DFT sums
-    (:func:`fdtd_tpu_torch.dft.accumulate`, weights ``wts[m - 1]``).  In
+    (:func:`fdtd_tpu_torch.dft.accumulate`, weights ``wts[m - 1]``); with
+    ``means`` (the means mode) they are written into ``means[m - 1]``.  In
     fp32 this is exactly ``s`` steps of the ``torch`` backend (with their
     per-step SAR increments and DFT sums, with CPML, or in a Debye
     medium).  With ``box`` (a shard; vacuum and materials) the steps update
@@ -191,9 +212,13 @@ def plain_sweep(p: Params, state: FieldState, coefs: UpdateCoefs, s: int,
                 diagnostics.accumulate_work(p, w_edge, acc)
             else:
                 diagnostics.accumulate_power(p, work, coefs.sigma_cells, acc, box)
-        if dacc is not None:
-            cells = box.local(*box.cells(p)) if box is not None else ()
-            accumulate(diagnostics._e_cell_means(p, work, *cells), wts[m - 1, 0], wts[m - 1, 1], dacc)
+        if dacc is not None or means is not None:
+            cells = diagnostics._e_cell_means(p, work, *(box.local(*box.cells(p)) if box is not None else ()))
+            if means is not None:
+                for c in range(3):
+                    means[m - 1, c] = cells[c]
+            else:
+                accumulate(cells, wts[m - 1, 0], wts[m - 1, 1], dacc)
     if wpsi is not None:
         for o, w in zip(psi_out.tensors(), wpsi.tensors()):
             o.copy_(w)
@@ -251,7 +276,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
           psi: PsiState | None = None, psi_out: PsiState | None = None,
           dc: DebyeCoefs | None = None, pol: PolState | None = None,
           pol_out: PolState | None = None, dacc=None, wts: torch.Tensor | None = None,
-          box: Box | None = None) -> FieldState:
+          box: Box | None = None, means: torch.Tensor | None = None) -> FieldState:
     """Advance ``state`` by ``plan.s`` steps into ``out``; returns ``out``.
     ``plan`` must be made for the variant of ``coefs``, ``acc``, ``cpml``,
     ``dc`` and ``dacc`` (``stream_plan.plan_for(p, s, coefs.lossy,
@@ -259,8 +284,10 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     dc is not None, dft=...)``); with ``cpml``, ``psi`` is read and
     ``psi_out`` written; with ``dc`` (and the vacuum ``coefs`` of the H
     pass), ``pol`` is read and ``pol_out`` written; with ``dacc`` (E sums
-    updated in place) the weights ``wts``.  ``box``: a shard's arrays (the
-    plan made for its owned window, ``plan_for(..., window=...)``)."""
+    updated in place) the weights ``wts``; a means-mode plan (``plan.fold``)
+    takes ``means``, the sweep's (s, 3, *cells) fp32 slice of the buffer,
+    instead of both.  ``box``: a shard's arrays (the plan made for its
+    owned window, ``plan_for(..., window=...)``)."""
     if box is not None and box.is_full(p):
         box = None
     if box is not None:
@@ -269,7 +296,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                              "the two-pass kernels or torch ops")
         _check_halos(p, box, plan)
     variant = (coefs.lossy, coefs.heterogeneous_mu, acc is not None, cpml is not None, dc is not None,
-               dacc is not None)
+               dacc is not None or means is not None)
     if (plan.lossy, plan.het, plan.sar, plan.pml, plan.ade, plan.dft) != variant:
         raise ValueError(
             f"the plan is for (lossy, het, sar, pml, ade, dft) = "
@@ -277,6 +304,11 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
             f"the coefficients, accumulator, CPML and Debye maps and DFT sums are {variant}"
         )
     nf = nc = 0
+    if bool(plan.fold) != (means is not None) or (means is not None and dacc is not None):
+        raise ValueError(f"a means-mode sweep (plan.fold > 0) takes the means buffer and no sums, a sweep with the "
+                         f"bands its sums; the plan's fold is {plan.fold}")
+    if means is not None:
+        _check_means(p, state.ex, means, plan.s, box)
     if dacc is not None:
         nf, nc = check_sums(p, state.ex, dacc, box)
         if wts is None:
@@ -309,8 +341,8 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                 )
     if _on_cpu(p, state, out, box.shape if box is not None else p.padded_shape):
         return plain_sweep(p, state, coefs, plan.s, drive, out, acc, cpml, psi, psi_out, dc, pol, pol_out, dacc, wts,
-                           box)
-    lib = _lib()
+                           box, means)
+    lib = _lib_fold() if plan.fold else _lib()
     fh = curl.scalar(coefs.h_factor, dt)
     if drive is not None:
         j0, j1, i0, i1 = drive.patch
@@ -341,8 +373,8 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
         hf = (coefs.hf_x, coefs.hf_y, coefs.hf_z) if coefs.heterogeneous_mu else ()
         yee.check_coefficients(p, state.ex, cf + hf)
     fe = 0.0 if cf else curl.scalar(coefs.cb_x, dt)
-    dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc) if dacc is not None
-                else (None, None, None, 0, 0))
+    dft_args = ((dacc[0].data_ptr(), dacc[1].data_ptr(), wts.data_ptr(), nf, nc, None) if dacc is not None
+                else (None, None, None, 0, 0, means.data_ptr() if means is not None else None))
     sigma = coefs.sigma_cells.data_ptr() if acc is not None and dc is None else None
     if dt == torch.bfloat16:
         ringed = state.tensors() + cf + hf + (pol.tensors() if dc is not None else ())
@@ -381,6 +413,16 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                   *pol_args, *dft_args, _DTYPE_CODES[dt], stream_ptr)
     _count(lib, plan.kernel + ("_shard" if box is not None else ""), rc)
     return out
+
+
+def _check_means(p: Params, like: torch.Tensor, means: torch.Tensor, s: int, box: Box | None) -> None:
+    """The sweep's slice of the means buffer: a contiguous fp32 (s, 3,
+    *cells) tensor on the fields' device (a shard's: its cell box)."""
+    cells = box.cell_shape(p) if box is not None else (p.maxk, p.maxj, p.maxi)
+    if (means.device != like.device or means.dtype != torch.float32 or tuple(means.shape) != (s, 3, *cells)
+            or not means.is_contiguous()):
+        raise ValueError(f"the means buffer's slice must be a contiguous float32 {(s, 3, *cells)} tensor on "
+                         f"{like.device}; got {means.dtype} {tuple(means.shape)} on {means.device}")
 
 
 def _count(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -77,13 +77,24 @@ pipeline runs one step further; a thread keeps the 6 * nf sums of the s
 cells it has in flight in dynamic shared memory (loaded at level 1, stored
 at level s), so ``nf`` is a runtime value that needs no registers, up to
 what fits beside the exchange buffers and the ring
-(:attr:`StreamPlan.dft_max_nf`; a scene with more frequencies runs
-``twopass`` with the ``dft_accum`` kernel).  Each is built at one depth:
-the vacuum variant at ``BLOCK_J_DFT``, the material variants at
+(:attr:`StreamPlan.dft_max_nf`).  A scene with more frequencies than
+every built depth's bands hold takes the means mode at the same shape
+(``StreamPlan.fold``: the buffer's depth D; ``FOLD`` instantiations of
+their own, so the bands keep their machine code): each level
+stores its three E cell means, fp32, into a (D, 3, cells) buffer in
+device memory, and ``csrc/dft_accum.cu``'s fold kernel adds the buffered
+levels to the sums, in step order, whenever the buffer is full and at
+every chunk end (:func:`fold_depth`: D as deep as memory allows, up to
+``FOLD_DEPTH``).  Each is built at one depth: the vacuum variant at
+``BLOCK_J_DFT`` (a shard also at the CPML interior's s = 2 shape,
+:func:`built_depths`), the material variants at
 ``BLOCK_J_DFT_MATERIAL`` (with the coefficient ring), the ADE variants at
 the ADE SAR shape and the CPML variants at ``BLOCK_J_PML_DFT`` (their
 interior at ``BLOCK_J_PML_INTERIOR_DFT``).  The sums (8 * nf * nc B a cell)
-count in every footprint; a DFT sweep reads and writes them once.
+count in every footprint, and the means buffer (12 * D B a cell) in the
+means mode's; a DFT sweep reads and writes the sums once, a means-mode
+sweep writes 12 B a cell and level, read once by the fold, and each fold
+reads and writes the sums once.
 
 Every footprint counts the temporaries of the output reductions (the k
 slabs of the energies and snapshot aggregation) or of the SAR increment,
@@ -110,6 +121,7 @@ gathers into for its outputs.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 import math
 
@@ -166,16 +178,24 @@ BLOCK_J_ADE_SAR = {2: 16}
 # threads and the coefficient ring: nf <= 2 or 3 beside it)
 BLOCK_J_DFT = {4: 24}
 BLOCK_J_DFT_MATERIAL = {2: 24}
+# a shard's vacuum sweep with the DFT bands also runs at s = 2 on the box
+# instantiation of the CPML interior (BLOCK_J_PML_INTERIOR_DFT), but only
+# where the shards refuse s = 4: a shard owning 3 or 4 planes has too few
+# for the s = 4 sweep's 5-plane halo (pick_shard_plan)
+BLOCK_J_DFT_SHARD = {4: 24, 2: 24}
+# the means mode's buffer depth at most (levels): the fold kernel keeps a
+# cell's buffered means in registers (csrc/dft_accum.cu::FOLD_MAX)
+FOLD_DEPTH = 32
 
 
 def variant_name(lossy: bool, het: bool, sar: bool, pml: bool = False, ade: bool = False,
-                 dft: bool = False) -> str:
+                 dft: bool = False, means: bool = False) -> str:
     """The name of a kernel variant of csrc/yee_stream.cu (its launch
     counter): ``yee_stream`` in vacuum, else ``yee_stream_lossy`` with
     ``_het`` and ``_sar`` as they apply; ``_pml`` for the CPML variants;
     ``yee_stream_ade`` (``_sar``) for Debye media; ``_dft`` last for the
-    variants with the DFT bands."""
-    suffix = "_dft" if dft else ""
+    variants with the DFT bands, ``_dft_means`` for their means mode."""
+    suffix = ("_dft_means" if means else "_dft") if dft else ""
     if ade:
         return "yee_stream_ade" + ("_sar" if sar else "") + suffix
     base = "yee_stream" if not lossy else "yee_stream_lossy" + ("_het" if het else "") + ("_sar" if sar else "")
@@ -227,13 +247,14 @@ class StreamPlan:
     pml_cells: int = 0  # CPML: the slab depth
     pml_blocks: tuple = ()  # CPML: pml_kernel's block list (pml_blocks)
     core: "StreamPlan | None" = None  # CPML: the interior's ring_kernel plan (window and origin), if any
+    fold: int = 0  # DFT: the means mode's buffer depth in levels (0: the bands in shared memory)
     # CPML: pml_blocks copied to each device it ran on (ops/stream.py), kept with the plan
     device_blocks: dict = dataclasses.field(default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def kernel(self) -> str:
         """The kernel variant, as ``ops.stream.launches`` counts it."""
-        return variant_name(self.lossy, self.het, self.sar, self.pml, self.ade, self.dft)
+        return variant_name(self.lossy, self.het, self.sar, self.pml, self.ade, self.dft, self.fold > 0)
 
     @property
     def blocks(self) -> int:
@@ -283,17 +304,18 @@ class StreamPlan:
 
     def dft_smem_bytes(self, nf: int) -> int:
         """Dynamic shared memory of the DFT bands: 6 * nf fp32 sums of s
-        cells a thread."""
-        return self.s * 6 * nf * self.bj * self.bi * 4 if self.dft else 0
+        cells a thread (none in the means mode)."""
+        return self.s * 6 * nf * self.bj * self.bi * 4 if self.dft and not self.fold else 0
 
     @property
     def dft_max_nf(self) -> int:
         """The most frequencies the DFT bands take at this shape (0 without
         them): what fits in a block's shared memory beside the static
-        buffers and the ring (CPML: in both launches)."""
+        buffers and the ring (CPML: in both launches).  The means mode
+        (``fold``) of the same shape takes any number."""
         if not self.dft:
             return 0
-        own = (SMEM_PER_BLOCK - self.smem_bytes) // self.dft_smem_bytes(1)
+        own = (SMEM_PER_BLOCK - self.smem_bytes) // (self.s * 6 * self.bj * self.bi * 4)
         return min(own, self.core.dft_max_nf) if self.core is not None else own
 
 
@@ -404,43 +426,54 @@ def twopass_fits(p: Params, memory_bytes: int | None = None, lossy: bool = False
     return twopass_bytes(p, lossy, het, sar, pml, ade, dft) <= MEMORY_MARGIN * mem
 
 
-def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: bool = False) -> dict[int, int]:
-    """The depths a variant's kernel is built at, with their threads along j."""
+def _block_j(lossy: bool, pml: bool, ade: bool = False, sar: bool = False, dft: bool = False,
+             shard: bool = False) -> dict[int, int]:
+    """The depths a variant's kernel is built at, with their threads
+    along j (``shard``: a shard's box sweep)."""
     if ade:
         return BLOCK_J_ADE_SAR if sar or dft else BLOCK_J_ADE
     if pml:
         return BLOCK_J_PML_DFT if dft else BLOCK_J_PML
     if dft:
-        return BLOCK_J_DFT_MATERIAL if lossy else BLOCK_J_DFT
+        return BLOCK_J_DFT_MATERIAL if lossy else BLOCK_J_DFT_SHARD if shard else BLOCK_J_DFT
     return BLOCK_J_MATERIAL if lossy else BLOCK_J
 
 
-def built_depths(lossy: bool, dft: bool = False) -> tuple[int, ...]:
+def built_depths(lossy: bool, dft: bool = False, shard: bool = False) -> tuple[int, ...]:
     """The steps per sweep the vacuum (or, ``lossy``, the material) sweep
-    is built at, deepest first (``dft``: with the DFT bands)."""
-    return tuple(_block_j(lossy, False, dft=dft))
+    is built at, deepest first (``dft``: with the DFT bands; ``shard``: a
+    shard's)."""
+    return tuple(_block_j(lossy, False, dft=dft, shard=shard))
+
+
+def shard_block_j(lossy: bool, dft: bool, s: int) -> int:
+    """The threads along j of a shard's sweep at depth ``s``."""
+    return _block_j(lossy, False, dft=dft, shard=True)[s]
 
 
 def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
              sar: bool = False, pml: PMLConfig | None = None, ade: bool = False,
              bj: int | None = None, dft: DftConfig | None = None,
-             window: tuple[int, int, int] | None = None, cr: bool | None = None) -> StreamPlan:
+             window: tuple[int, int, int] | None = None, cr: bool | None = None, fold: int = 0) -> StreamPlan:
     """The tile geometry of ``s`` steps per sweep on the grid of ``p``, for
     the kernel variant the flags name (het and sar imply lossy, except
     for Debye media, ``ade``: vacuum H and the ADE E update), with the DFT
-    bands of ``dft``.  ``bj`` (threads along j) and ``cr`` (the coefficient
-    ring) are the variant's built values unless given, for a build with
-    other shapes (``tune_stream``).
+    bands of ``dft`` (``fold``: their means mode with a buffer of that
+    many levels, a multiple of ``s``).  ``bj`` (threads along j) and ``cr``
+    (the coefficient ring) are the variant's built values unless given,
+    for a build with other shapes (``tune_stream``).
     ``window``: a shard's owned (k, j, i) planes, tiled instead of the
     grid.  CPML (``pml``): the two launches of :func:`pml_blocks`."""
     lossy = not ade and (lossy or het or sar)
-    table = _block_j(lossy, pml is not None, ade, sar, dft is not None)
+    if fold and (dft is None or fold % s):
+        raise ValueError(f"the means mode takes the DFT bands and a buffer of whole sweeps; got fold={fold} at s={s}")
+    table = _block_j(lossy, pml is not None, ade, sar, dft is not None, window is not None)
     if bj is None:
         if s not in table:
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
     if pml is not None:
-        return _pml_plan(p, s, lossy, pml, bj, dft, lossy and dft is None if cr is None else cr)
+        return _pml_plan(p, s, lossy, pml, bj, dft, lossy and dft is None if cr is None else cr, fold)
     if cr is None:
         cr = ade or lossy and (dft is not None or COEF_RING_MATERIAL.get(s, False))
     K1, J1, I1 = window or p.padded_shape
@@ -466,11 +499,29 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
         arrays_read, written = 6 + (6 if lossy else 0) + (3 if het else 0), 6
         # sigma is read and the accumulator read and written once per cell
         sar_bytes = (item + 8) * cells if sar else 0.0
-    # the DFT sums: read and written once per sweep
-    dft_bytes = acc_bytes(p, dft) / (K1 * J1 * I1) if dft is not None else 0.0
+    dft_bytes = dft_sweep_bytes(p, dft, s, fold) / (K1 * J1 * I1)
     per_step = (arrays_read * item * amp_ji * amp_k + written * item + sar_bytes + dft_bytes) / s
     return StreamPlan(s, tk, tj, ti, bj, bi, nk, nj, ni, per_step, lossy, het, sar, False, ade,
-                      dft is not None, window, bool(cr))
+                      dft is not None, window, bool(cr), fold=fold)
+
+
+def dft_sweep_bytes(p: Params, dft: DftConfig | None, s: int, fold: int = 0) -> float:
+    """Device bytes of the DFT sums a sweep of ``s`` steps moves: the
+    bands read and write them once; the means mode writes 12 B a cell and
+    level, which the fold reads once, and its fold (one every ``fold``
+    levels) reads and writes the sums once."""
+    if dft is None:
+        return 0.0
+    if not fold:
+        return float(acc_bytes(p, dft))
+    cells = p.maxk * p.maxj * p.maxi
+    return s * (24 * cells + 2 * acc_bytes(p, dft) / fold)
+
+
+def means_bytes(p: Params, fold: int, cells: int | None = None) -> int:
+    """Device bytes of the means mode's (fold, 3, cells) fp32 buffer
+    (``cells``: a shard's; the grid's when None)."""
+    return 12 * fold * (p.maxk * p.maxj * p.maxi if cells is None else cells)
 
 
 def psi_free(p: Params, cfg: PMLConfig) -> tuple[tuple[int, int], ...]:
@@ -489,6 +540,7 @@ def psi_free(p: Params, cfg: PMLConfig) -> tuple[tuple[int, int], ...]:
 PML_AXES = {name: "zyx".index(name[-1]) for name in TERM_NAMES}
 
 
+@functools.lru_cache(maxsize=64)  # a few tenths of a second at 256^3; plans are made again for every run
 def pml_blocks(shape: tuple[int, int, int], free: tuple[tuple[int, int], ...], s: int, tj: int, ti: int,
                sh: int) -> tuple[tuple[int, int, int, int, int, int] | None, int, tuple]:
     """The layout of a CPML sweep on a padded grid of ``shape`` whose psi
@@ -556,7 +608,7 @@ def pml_blocks(shape: tuple[int, int, int], free: tuple[tuple[int, int], ...], s
 
 
 def _pml_plan(p: Params, s: int, lossy: bool, pml: PMLConfig, bj: int, dft: DftConfig | None,
-              cr: bool) -> StreamPlan:
+              cr: bool, fold: int = 0) -> StreamPlan:
     """The CPML sweep's plan: pml_kernel's blocks and the interior's
     ring_kernel plan (``core``: the K3 sweep of the variant at depth s on
     the interior window, with its origin), where the grid has one."""
@@ -570,8 +622,8 @@ def _pml_plan(p: Params, s: int, lossy: bool, pml: PMLConfig, bj: int, dft: DftC
         k0, k1, j0, j1, i0, i1 = window
         cbj, ccr = ((BLOCK_J_PML_INTERIOR_DFT[s], False) if dft is not None else
                     ((BLOCK_J_MATERIAL if lossy else BLOCK_J)[s], lossy and COEF_RING_MATERIAL.get(s, False)))
-        core = dataclasses.replace(plan_for(p, s, lossy, bj=cbj, dft=dft, window=(k1 - k0, j1 - j0, i1 - i0), cr=ccr),
-                                   origin=(k0, j0, i0))
+        core = dataclasses.replace(plan_for(p, s, lossy, bj=cbj, dft=dft, window=(k1 - k0, j1 - j0, i1 - i0), cr=ccr,
+                                            fold=fold), origin=(k0, j0, i0))
     # bytes: pml_kernel's blocks read the fields (and ca/cb) of their
     # columns and planes, the interior its own model; every cell written
     # once; psi read once per amplified shell cell and written once
@@ -582,11 +634,11 @@ def _pml_plan(p: Params, s: int, lossy: bool, pml: PMLConfig, bj: int, dft: DftC
     reads = (6 + (6 if lossy else 0)) * item * loaded
     inner = core.bytes_per_cell_step * s * math.prod(core.window) if core is not None else 0.0
     psi_b = psi_bytes(p, pml) * (loaded / shell + 1)
-    dft_b = acc_bytes(p, dft) if dft is not None else 0.0
+    dft_b = dft_sweep_bytes(p, dft, s, fold)
     per_step = (reads + 6 * item * shell + inner + psi_b + dft_b) / (s * math.prod(shape))
     nj, ni = -(-shape[1] // tj), -(-shape[2] // ti)
     return StreamPlan(s, tk, tj, ti, bj, bi, -(-K1 // tk), nj, ni, per_step, lossy, False, False, True, False,
-                      dft is not None, None, cr, None, pml.cells, blocks, core)
+                      dft is not None, None, cr, None, pml.cells, blocks, core, fold)
 
 
 def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -> bool:
@@ -602,14 +654,17 @@ def pml_gates(p: Params, cfg: PMLConfig, het: bool = False, sar: bool = False) -
 
 
 def stream_bytes(p: Params, lossy: bool = False, het: bool = False, sar: bool = False,
-                 pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None) -> int:
+                 pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None,
+                 fold: int = 0) -> int:
     """Device bytes of a ``stream`` run: two states (and two P sets with
     Debye media, two psi sets with CPML), the material arrays, the DFT
-    sums (one set, updated in place), and the temporaries of the trailing
-    two-pass steps' SAR increment or of the outputs."""
+    sums (one set, updated in place) and in the means mode its buffer of
+    ``fold`` levels, and the temporaries of the trailing two-pass steps'
+    SAR increment or of the outputs."""
     lossy = not ade and (lossy or het)
     return (2 * state_bytes(p) + (2 * pol_bytes(p) if ade else 0) + material_bytes(p, lossy, het, sar, ade)
-            + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0))
+            + work_bytes(p, sar, ade) + (2 * psi_bytes(p, pml) if pml else 0) + (acc_bytes(p, dft) if dft else 0)
+            + means_bytes(p, fold))
 
 
 # the torch ADE step's temporaries (update_e_ade on one component: the
@@ -621,14 +676,15 @@ ADE_TORCH_TEMPS = 12
 
 def shard_bytes(p: Params, shapes, devices, main, stream: bool, lossy: bool = False, het: bool = False,
                 sar: bool = False, pml: PMLConfig | None = None, ade: bool = False, dft: DftConfig | None = None,
-                psi_elems: list[int] | None = None) -> dict:
+                psi_elems: list[int] | None = None, fold: int = 0) -> dict:
     """Device bytes of a sharded run, per device: of each shard (its arrays'
     ``shapes`` (k, j, i) with halos, its cell count, on its ``devices``
     entry) one state (two on ``stream``) and its parts of the material
     arrays, sigma and the SAR map; with ``pml`` its psi parts
     (``psi_elems``, elements per shard); in a Debye medium (``ade``) P, the
     15 maps (18 with SAR) and the fp32 work arrays over its box; with
-    ``dft`` its part of the sums; per device the temporaries of the torch
+    ``dft`` its part of the sums (and in the means mode its buffer of
+    ``fold`` levels); per device the temporaries of the torch
     ADE step or of the H sums of fields "eh" on its largest shard; and on
     ``main`` the canonical grid the run gathers into (the state, the SAR
     map, psi, P and the sums) with the temporaries of the outputs (or the
@@ -646,7 +702,7 @@ def shard_bytes(p: Params, shapes, devices, main, stream: bool, lossy: bool = Fa
         if ade:
             b += (3 + 15 + (3 if sar else 0)) * arr + (3 * cd * math.prod(shape) if sar else 0)
         if dft is not None:
-            b += 8 * dft.nf * dft.nc * cells
+            b += 8 * dft.nf * dft.nc * cells + means_bytes(p, fold, cells)
         t = max(ADE_TORCH_TEMPS * cd * math.prod(shape) if ade else 0,
                 (7 + 3 * dft.nf) * 4 * cells if dft is not None and dft.fields == "eh" else 0)
         per[dev] = per.get(dev, 0) + b
@@ -685,10 +741,11 @@ def ade_gates(p: Params, het: bool = False, pml: PMLConfig | None = None) -> boo
 
 def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
              het: bool = False, sar: bool = False, pml: PMLConfig | None = None,
-             ade: bool = False, dft: DftConfig | None = None) -> bool:
+             ade: bool = False, dft: DftConfig | None = None, fold: int = 0) -> bool:
     """The kernel takes the dtype and the scene, and the two states, with
     the material arrays (and two psi sets with CPML, two P sets with
-    Debye media), fit in ``memory_bytes`` (default: the H100's 80 GB).
+    Debye media, the DFT sums and the means mode's buffer of ``fold``
+    levels), fit in ``memory_bytes`` (default: the H100's 80 GB).
     Every plan's block fits an SM (at most 1024 threads and 227 KB of
     shared memory), so the grid, the dtype and the gates decide: materials
     stream in computation mode only, SAR needs materials, CPML takes
@@ -700,7 +757,7 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
         return False
     mem = DEVICE_BYTES if memory_bytes is None else memory_bytes
     if ade:
-        return ade_gates(p, het, pml) and stream_bytes(p, sar=sar, ade=True, dft=dft) <= MEMORY_MARGIN * mem
+        return ade_gates(p, het, pml) and stream_bytes(p, sar=sar, ade=True, dft=dft, fold=fold) <= MEMORY_MARGIN * mem
     lossy = lossy or het
     if lossy and p.mode != Mode.COMPUTATION:
         return False
@@ -709,7 +766,17 @@ def feasible(p: Params, memory_bytes: int | None = None, lossy: bool = False,
     if pml is not None and not pml_gates(p, pml, het, sar):
         return False
     # the trailing n % s two-pass steps add the SAR increment's temporaries
-    return stream_bytes(p, lossy, het, sar, pml, dft=dft) <= MEMORY_MARGIN * mem
+    return stream_bytes(p, lossy, het, sar, pml, dft=dft, fold=fold) <= MEMORY_MARGIN * mem
+
+
+def fold_depth(s: int, fits) -> int:
+    """The means mode's buffer depth at ``s`` steps a sweep: the deepest
+    multiple of ``s`` up to ``FOLD_DEPTH`` levels for which ``fits(depth)``
+    (the run's arrays with the buffer fit in memory), or 0 where none
+    does.  A deeper buffer folds less often: each fold reads and writes the
+    sums once (48 * nf B a cell), while the levels cost 24 B a cell and
+    step whatever the depth."""
+    return next((d for d in range(FOLD_DEPTH // s * s, 0, -s) if fits(d)), 0)
 
 
 def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
@@ -718,12 +785,20 @@ def pick_plan(p: Params, s: int | None = None, memory_bytes: int | None = None,
     """Of the depths the variant's kernel is built at, the feasible plan
     with the fewest modelled bytes per cell and step (ties to the deeper
     sweep), or None.  A forced ``s`` is checked for feasibility like any
-    other."""
+    other.  With ``dft``, the plans whose bands hold its frequencies in
+    shared memory; where no depth's do, the means mode of every depth, each
+    with the deepest buffer that fits (:func:`fold_depth`)."""
     steps = (s,) if s is not None else tuple(_block_j(not ade and (lossy or het or sar), pml is not None, ade, sar,
                                                       dft is not None))
     cands = [plan_for(p, x, lossy, het, sar, pml, ade, dft=dft) for x in steps]
-    if dft is not None:  # the bands' sums must fit in shared memory
-        cands = [c for c in cands if c.dft_max_nf >= dft.nf]
+    if dft is not None:
+        bands = [c for c in cands if c.dft_max_nf >= dft.nf]
+        if not bands:  # the means mode
+            depths = [(c.s, fold_depth(c.s, lambda d: feasible(p, memory_bytes, lossy, het, sar, pml, ade, dft, d)))
+                      for c in cands]
+            return min((plan_for(p, x, lossy, het, sar, pml, ade, dft=dft, fold=d) for x, d in depths if d),
+                       key=lambda c: (c.bytes_per_cell_step, -c.s), default=None)
+        cands = bands
     if not cands or not feasible(p, memory_bytes, lossy, het, sar, pml, ade, dft):
         return None
     return min(cands, key=lambda c: (c.bytes_per_cell_step, -c.s))

@@ -167,7 +167,11 @@ def resolve_backend(p: Params, backend: str, device, materials: Materials | Deby
 
     The monitors follow the JAX runner's gates: the DFT of fields "e" in
     computation mode rides the stream sweep's DFT bands when a plan with
-    them fits (``auto`` picks it), else ``twopass`` with the ``dft_accum`` kernel after each
+    them fits (``auto`` picks it): in shared memory up to the
+    frequencies a block holds (``StreamPlan.dft_max_nf``), past them in the
+    bands' means mode (each step's cell means buffered in device memory and
+    folded into the sums, ``StreamPlan.fold``), so that only memory refuses
+    a frequency count; else ``twopass`` with the ``dft_accum`` kernel after each
     step; probes, fields "eh" and validation mode need per-step states and
     run on ``twopass`` (``torch`` off the card).  An explicit ``stream``
     that the monitors cannot take runs ``twopass`` with a notice.  The
@@ -232,7 +236,8 @@ def _resolve_debye(p: Params, backend: str, dev: torch.device, sar: bool, pml: P
     validation mode, in float64, on the CPU and where the arrays do not
     fit.  Otherwise ``auto`` picks ``stream`` when its plan fits, else
     ``twopass``; the monitors as in :func:`resolve_backend` (the DFT bands
-    of the ADE sweep, else ``twopass`` with the ``dft_accum`` kernel)."""
+    of the ADE sweep or their means mode, else ``twopass`` with the
+    ``dft_accum`` kernel)."""
     on_card = dev.type == "cuda" and p.dtype in ("float32", "bfloat16")
     gates = on_card and stream_plan.ade_gates(p, pml=pml)
     free = _free_memory(dev)
@@ -328,7 +333,8 @@ def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMa
 
     ``auto`` takes the sharded ``stream`` where a shard plan fits
     (:func:`~fdtd_tpu_torch.parallel.sharded_fast.pick_shard_plan`; with the
-    DFT of fields "e" in computation mode, the plan with the bands), else
+    DFT of fields "e" in computation mode, the plan with the bands or their
+    means mode), else
     ``twopass``, and ``torch`` for float64 or on the CPU.  CPML runs
     ``twopass`` (K10-shard: the JAX package has no sharded CPML sweep
     either) and the per-step monitors (probes, fields "eh", the DFT in
@@ -367,8 +373,8 @@ def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMa
                    "per-step monitors (--probe/--dft eh/validation) under --shard run the twopass kernels per shard"
                    if per_step else
                    f"no sharded stream plan fits a {nz}x{ny} mesh of this scene (each shard owns at least s planes, "
-                   "s + 1 with --sar or --dft, the DFT bands hold the frequencies, and two states of every shard fit "
-                   "its device); running the twopass kernels per shard")
+                   "s + 1 with --sar or --dft, and two states of every shard, with the DFT sums and buffer, fit its "
+                   "device); running the twopass kernels per shard")
             log(f"notice: {why} (backend 'stream' ignored)")
             backend = "twopass"
         if backend in ("twopass", "stream") and not kernels_ok:
@@ -467,7 +473,8 @@ def run_simulation(
 
     if shard is None:
         run_chunk = make_chunk_runner(p, dev, materials, backend, stream_s=stream_s if backend == "stream" else None,
-                                      accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc)
+                                      accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc,
+                                      memory_bytes=_free_memory(dev))
     state = initial_state(p, dev)
     power = zero_power_acc(p, dev) if accumulate_power else None
     psi = init_psi(p, pml, dev) if pml is not None else None

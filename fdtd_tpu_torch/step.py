@@ -71,7 +71,13 @@ in place.  The per-step backends call
 ``dft_accum`` kernel for the E sums on ``twopass``, its plain version on
 ``torch``; torch ops for the H sums of ``fields="eh"`` and the probe
 rows); ``stream`` carries the E sums in the DFT bands of its sweeps and
-calls ``apply_monitors`` after its trailing two-pass steps.  Probes, the H
+calls ``apply_monitors`` after its trailing two-pass steps.  Where the
+bands cannot hold the frequencies, its plan takes their means mode
+(``plan.fold``): each sweep stores its steps' E cell means into a buffer
+of ``plan.fold`` levels, which the fold kernel (:func:`~fdtd_tpu_torch.
+ops.dft.fold`) adds to the sums whenever it is full and at the end of
+every chunk, before the trailing steps, so snapshots, the energy log,
+checkpoints and the result always see whole sums.  Probes, the H
 sums and validation mode need per-step states, so ``stream`` refuses
 them.
 """
@@ -87,6 +93,7 @@ from . import diagnostics
 from .dft import DftConfig
 from .monitors import ProbeSet, apply_monitors, weight_rows
 from .ops import cpml, curl, dispersive, stream, stream_plan, yee
+from .ops import dft as dft_ops
 from .ops.cpml import PMLConfig, PsiState
 from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState
 from .params import Mode, Params
@@ -220,7 +227,7 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
                       backend: str = "torch", stream_s: int | None = None,
                       accumulate_power: bool = False, pml: PMLConfig | None = None,
                       dft: DftConfig | None = None, probes: ProbeSet | None = None,
-                      dc: DebyeCoefs | None = None):
+                      dc: DebyeCoefs | None = None, memory_bytes: int | None = None):
     """``run(state, xs, power=None, psi=None, pol=None, dacc=None)``:
     advance ``state`` in place over the chunk ``xs = (times, amps)`` of
     :func:`scan_inputs`, and with ``accumulate_power`` add each step's
@@ -233,7 +240,10 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
     (re, im) sums ``dacc`` in place.  Returns ``state``, or with
     ``probes`` the chunk's probe rows, a (n, n_probes, 6) fp32 tensor on
     the device.  ``stream_s`` forces the steps per sweep of the ``stream``
-    backend (still checked to fit).  ``dc``: the Debye maps of
+    backend (still checked to fit), and ``memory_bytes`` the device memory
+    its plan is sized for (None: the H100's 80 GB), so that the plan and
+    the means buffer it allocates are those that ``runner.resolve_backend``
+    checked against the device's free memory.  ``dc``: the Debye maps of
     ``materials`` on ``device`` when already built
     (:func:`~fdtd_tpu_torch.ops.dispersive.debye_coefs`, a few seconds of
     host time at 256^3).
@@ -255,8 +265,8 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
         if probes is not None or (dft is not None and not stream_plan.dft_gates(p, dft)):
             raise ValueError("probes, the H sums of --dft-fields eh and the DFT in validation mode need per-step "
                              "states; the stream backend steps s at a time (use twopass or torch)")
-        plan = stream_plan.pick_plan(p, s=stream_s, lossy=coefs.lossy, het=coefs.heterogeneous_mu,
-                                     sar=accumulate_power, pml=pml, ade=debye, dft=dft)
+        plan = stream_plan.pick_plan(p, s=stream_s, memory_bytes=memory_bytes, lossy=coefs.lossy,
+                                     het=coefs.heterogeneous_mu, sar=accumulate_power, pml=pml, ade=debye, dft=dft)
         if plan is None:
             kind = "Debye" if debye else "materials" if coefs.lossy else "vacuum"
             raise ValueError(
@@ -343,8 +353,9 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
     (the counterpart of ``fdtd_tpu/step.py``'s ``run_stream``); with CPML
     (``cp``) each sweep writes psi into a second set, swapped back, and in
     a Debye medium (``dc``) the polarization likewise; with ``dft`` the
-    sweeps carry the DFT bands and the trailing steps run the
-    ``dft_accum`` kernel."""
+    sweeps carry the DFT bands (or their means mode, folded into the sums
+    when the buffer is full and at the chunk's end) and the trailing steps
+    run the ``dft_accum`` kernel."""
     s_steps = plan.s
     src = make_source_plan(p) if p.mode == Mode.COMPUTATION else None
     profile = profile_tensor(src, device) if src is not None else None
@@ -354,6 +365,7 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
         odd_step = _kernel_step(p, coefs, src, profile, cp)
     spare: list = []  # the second state (and psi or P set), allocated at first use
     trailing_work: list = []  # the Debye SAR's edge work of the trailing steps, at first use
+    means_buf: list = []  # the means mode's (plan.fold, 3, K, J, I) buffer, at first use
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
             psi: PsiState | None = None, pol: PolState | None = None, dacc=None) -> FieldState:
@@ -374,19 +386,33 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
             out, psi_out, pol_out = spare
             if src is not None:
                 ez_rows, hx_rows = sweep_drive_rows(src, amps_dev, s_steps, s.ex.dtype, profile)
+            if plan.fold and not means_buf:
+                means_buf.append(torch.empty((plan.fold, 3, p.maxk, p.maxj, p.maxi), dtype=torch.float32,
+                                             device=device))
+            level = 0  # the means mode's levels in the buffer
             for g in range(n_sw):
                 drive = None
                 if src is not None:
                     apply_source(src, s, amps_dev[g * s_steps], profile)
                     drive = stream.SweepDrive(src.patch, ez_rows[g], hx_rows[g])
                 wts = w_dev[g * s_steps:(g + 1) * s_steps] if w_dev is not None else None
-                stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out,
-                             dacc if dft is not None else None, wts)
+                if plan.fold:
+                    if level == plan.fold:
+                        dft_ops.fold(means_buf[0], w_dev[g * s_steps - level:g * s_steps], dacc)
+                        level = 0
+                    stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out,
+                                 means=means_buf[0][level:level + s_steps])
+                    level += s_steps
+                else:
+                    stream.sweep(p, s, out, coefs, plan, drive, acc, cp, psi, psi_out, dc, pol, pol_out,
+                                 dacc if dft is not None else None, wts)
                 s.swap(out)
                 if cp is not None:
                     psi.swap(psi_out)
                 if dc is not None:
                     pol.swap(pol_out)
+            if level:  # the chunk's last levels, before the trailing steps add theirs
+                dft_ops.fold(means_buf[0], w_dev[n_sw * s_steps - level:n_sw * s_steps], dacc)
         if dc is not None and acc is not None and n % s_steps and not trailing_work:
             trailing_work.append(dispersive.zero_work(p, device))
         work = trailing_work[0] if trailing_work else None

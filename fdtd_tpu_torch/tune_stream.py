@@ -111,8 +111,9 @@ PML_TIMED = PMLConfig(cells=10)  # the timed CPML scenes' walls (--pml 10)
 PML_CHECKED = PMLConfig(cells=6)  # the checked box's walls
 # a mangled ring_kernel<T, S, BJ, CR, LOSSY, HET, SAR, ADE, DFT, BOX> entry,
 # and a pml_kernel<T, S, BJ, CR, LOSSY, DFT> one
-_ENTRY = re.compile(r"ring_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E" + r"Lb([01])E" * 7)
-_PML_ENTRY = re.compile(r"pml_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E" + r"Lb([01])E" * 3)
+# the flags of an entry's mangled name; the last (FOLD, the means mode) is absent before it existed
+_ENTRY = re.compile(r"ring_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E" + r"Lb([01])E" * 7 + r"(?:Lb([01])E)?")
+_PML_ENTRY = re.compile(r"pml_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E" + r"Lb([01])E" * 3 + r"(?:Lb([01])E)?")
 
 
 def family(lossy: bool, sar: bool, ade: bool, dft: bool, pml: bool = False) -> str:
@@ -152,7 +153,8 @@ def ptxas_report(log: str) -> dict[tuple, tuple[int, int]]:
     """(dtype, s, bj, cr, lossy, het, sar, ade, dft, box) ->
     (registers, spill-store bytes) of the ring_kernel entries of an ``nvcc
     -Xptxas -v`` log, and ("pml", dtype, s, bj, cr, lossy, dft) -> the same
-    of its pml_kernel entries."""
+    of its pml_kernel entries; the means mode's instantiations (``FOLD``)
+    under the same key with "fold" appended."""
     out: dict[tuple, tuple[int, int]] = {}
     key, spill = None, 0
     for line in log.splitlines():
@@ -161,10 +163,12 @@ def ptxas_report(log: str) -> dict[tuple, tuple[int, int]]:
         if m is not None:
             dtype = "float32" if m.group(1) == "f" else "bfloat16"
             key = (dtype, int(m.group(2)), int(m.group(3)), *(g == "1" for g in m.group(*range(4, 11))))
+            key += ("fold",) if m.group(11) == "1" else ()
             spill = 0
         elif q is not None:
             dtype = "float32" if q.group(1) == "f" else "bfloat16"
             key = ("pml", dtype, int(q.group(2)), int(q.group(3)), *(g == "1" for g in q.group(4, 5, 6)))
+            key += ("fold",) if q.group(7) == "1" else ()
             spill = 0
         elif key is not None and "spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores", line).group(1))

@@ -15,8 +15,9 @@ of ``ops/stream.py``) against the JAX package's.
   scale, fields 5e-7, SAR rtol 3e-6 (``tests/test_dft.py``'s bars);
 - the port against itself: stream (plain) = twopass (plain) + K4 = torch,
   fp32 bit for bit, every variant with bands;
-- the stream plans with bands, the shared-memory limit on nf, the memory
-  model and the routing of every monitored scene.
+- the stream plans with bands, the shared-memory limit on nf (past it the
+  bands' means mode), the memory model and the routing of every monitored
+  scene.
 """
 
 import dataclasses
@@ -259,7 +260,10 @@ def test_dft_plans_and_the_shared_memory_limit():
     assert heat.tj == heat.bj - 2 * heat.s - 1  # the cell means: one column fewer
     assert heat.smem_bytes + heat.dft_smem_bytes(2) <= stream_plan.SMEM_PER_BLOCK
     assert stream_plan.pick_plan(p, dft=two).kernel == "yee_stream_dft"
-    assert stream_plan.pick_plan(p, dft=three) is None  # three frequencies: twopass with dft_accum
+    # three frequencies: past the vacuum bands' shared memory, their means mode
+    vac3 = stream_plan.pick_plan(p, dft=three)
+    assert (vac3.kernel, vac3.s, vac3.dft_max_nf, vac3.fold) == ("yee_stream_dft_means", 4, 2, stream_plan.FOLD_DEPTH)
+    assert vac3.dft_smem_bytes(3) == 0
     assert stream_plan.pick_plan(p, pml=PMLConfig(cells=10), dft=three).dft_max_nf == 5
     assert stream_plan.pick_plan(p, sar=True, ade=True, dft=three).kernel == "yee_stream_ade_sar_dft"
     # fields "eh" and validation mode need per-step states
@@ -307,9 +311,12 @@ _STREAM_NOTICE = "notice: per-step monitors (--probe/--dft eh/validation) run th
     ("validation e", "auto", "cuda", dict(dft=_E, mode=Mode.VALIDATION), "twopass", None),
     ("eh stream", "stream", "cuda", dict(dft=_EH), "twopass", _STREAM_NOTICE),
     ("probes stream", "pallas_stream", "cuda", dict(dft=_E, probes=_PROBES), "twopass", _STREAM_NOTICE),
-    ("three frequencies stream", "stream", "cuda", dict(dft=dft.DftConfig((1e9, 2e9, 3e9))), "twopass",
-     "notice: the DFT bands of the stream sweep do not fit this scene; running the twopass kernels with the "
-     "dft_accum kernel (backend 'stream' ignored)"),
+    # three frequencies take the bands' means mode; where the device's free
+    # memory refuses the sweep's second state, sums and buffer (3 GB free:
+    # twopass + dft_accum fits) they run twopass with the notice
+    ("three frequencies stream", "stream", "cuda", dict(dft=dft.DftConfig((1e9, 2e9, 3e9)), free=3 * 10**9),
+     "twopass", "notice: the DFT bands of the stream sweep do not fit this scene; running the twopass kernels with "
+     "the dft_accum kernel (backend 'stream' ignored)"),
     ("pml auto", "auto", "cuda", dict(dft=_E, pml=True), "stream", None),
     ("pml stream", "stream", "cuda", dict(dft=_E, pml=True), "stream", None),
     ("pml probes stream", "stream", "cuda", dict(dft=_E, pml=True, probes=_PROBES), "twopass", _STREAM_NOTICE),
@@ -320,10 +327,14 @@ _STREAM_NOTICE = "notice: per-step monitors (--probe/--dft eh/validation) run th
     ("debye pml", "auto", "cuda", dict(dft=_E, mats="debye", pml=True), "torch", None),
     ("fp64", "auto", "cuda", dict(dft=_E, dtype="float64"), "torch", None),
     ("cpu", "auto", "cpu", dict(dft=_E, probes=_PROBES), "torch", None),
+    ("three frequencies stream fits", "stream", "cuda", dict(dft=dft.DftConfig((1e9, 2e9, 3e9))), "stream", None),
+    ("three frequencies auto", "auto", "cuda", dict(dft=dft.DftConfig((1e9, 2e9, 3e9))), "stream", None),
 ])
-def test_routing_of_monitored_scenes(case, backend, device, kw, want, notice):
+def test_routing_of_monitored_scenes(case, backend, device, kw, want, notice, monkeypatch):
     p = convert.params_from(dataclasses.replace(_box(256, 4, kw.get("dtype", "float32")),
                                                 mode=kw.get("mode", Mode.COMPUTATION)))
+    if "free" in kw:
+        monkeypatch.setattr(runner, "_free_memory", lambda dev: kw["free"])
     mats = {"water": water_block(p), "debye": water_debye_load(p), None: None}[kw.get("mats")]
     notices = []
     got = runner.resolve_backend(p, backend, device, mats, kw.get("sar", False),

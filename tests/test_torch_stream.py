@@ -284,7 +284,8 @@ def test_dft_max_nf_keeps_the_frequency_counts():
     """The ring takes shared memory the DFT sums used: the bands still take
     at least two frequencies on the vacuum, material and shard sweeps (and
     the Debye sweep without SAR), three on the Debye SAR sweep, five on the
-    CPML sweep, so no --dft scene that streamed leaves for twopass."""
+    CPML sweep, so no --dft scene that streamed leaves for twopass; one
+    frequency more takes the same shape's means mode, which has no cap."""
     p = _cube(256, "float32")
     cfg = DftConfig((1e9,))
     for lossy, het, sar, ade, dft in _RING_VARIANTS:
@@ -294,7 +295,13 @@ def test_dft_max_nf_keeps_the_frequency_counts():
             s = stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, ade=ade, dft=cfg).s
             plan = stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg, window=window)
             assert plan.dft_max_nf >= (3 if ade and sar else 2), plan
+            if window is None:
+                more = DftConfig(tuple(1e9 * (k + 1) for k in range(plan.dft_max_nf + 1)))
+                past = stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, ade=ade, dft=more)
+                assert (past.s, past.bj, past.fold) == (s, plan.bj, stream_plan.FOLD_DEPTH // s * s), past
     assert stream_plan.pick_plan(p, pml=PMLConfig(cells=10), dft=cfg).dft_max_nf == 5
+    six = DftConfig(tuple(1e9 * (k + 1) for k in range(6)))
+    assert stream_plan.pick_plan(p, pml=PMLConfig(cells=10), dft=six).kernel == "yee_stream_pml_dft_means"
     two = DftConfig((1e9, 2e9))
     for lossy, het, sar in ((False, False, False), (True, False, False), (True, False, True), (True, True, True)):
         assert stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, dft=two) is not None
