@@ -85,7 +85,8 @@ package beside it.  Phases, each printing one line or more:
    configs/heating_256.txt --water-block --sar --dft 2.45e10 (auto picks
    the lossy + SAR sweep with the bands; dft_00.vtr and sar.vtr), 1000
    steps of the heating scene, of --pml 10 (fp32 and bf16; auto held to
-   the faster backend; fp32 on torch too) and of the Debye scene with
+   the faster backend, each the median of three runs in turns; fp32 on
+   torch too) and of the Debye scene with
    --dft 2.45e10 through stream and through twopass + dft_accum (launch
    counts; phasors, fields, SAR, psi and P equal bit for bit), 66 or 67
    steps of every variant with nf = 2 (trailing two-pass steps with
@@ -95,7 +96,8 @@ package beside it.  Phases, each printing one line or more:
 6e. the DFT bands' means mode (more frequencies than a block's shared
    memory holds; ``phase_means``): the fold kernel against plain_fold
    (random means and sums, 1 to 33 frequencies, 1 to 32 levels, nc 3 and
-   6); each means-mode sweep (the nine variants, ragged tiles; the five
+   6, the whole grid and each shard's part of ragged 1-D and 2-D meshes);
+   each means-mode sweep (the nine variants, ragged tiles; the five
    shard variants on ragged 4-slab and 2 x 3 meshes) against plain_sweep,
    fp32 and bf16, fields, buffer, map, psi, P; shards too thin for the
    s = 4 halo (four planes) with 3 to 5 frequencies: the vacuum bands at
@@ -114,7 +116,16 @@ package beside it.  Phases, each printing one line or more:
    bands hold them) and eight (each shard's means mode and fold at full
    size); the means-mode kernels' and the fold's
    times at 128^3 beside their bounds, plain versions and (the fold)
-   torch.addmm, and the bands against the means mode at one frequency;
+   torch.addmm, and the bands against the means mode at one frequency; at
+   256^3 (the fold at 3, 4, 5, 6 and 16 frequencies and 32 levels,
+   against plain_fold bit for bit and beside torch.addmm; K3-DFT, K11-DFT
+   and K11-lossy-DFT means) with, where a
+   checkout of PARENT is present, the parent's kernels in turns (parent,
+   this, this, parent); one counted 1000-step chunk of bench_256 --pml 10
+   --dft x6 (shell, interior and fold launches) against twopass +
+   dft_accum bit for bit (fields, psi, sums); the routed bench_256 --dft x4
+   (CLI) and bench_256 --pml 10 --dft x6 against twopass + dft_accum, the
+   median of three warmed runs in turns with their spread;
 7. the sharded path (--shard): every per-shard kernel (K1/K2-shard,
    vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
    het, het + SAR at s = 8, 4, 2) against its plain version on every shard
@@ -146,18 +157,7 @@ package beside it.  Phases, each printing one line or more:
    scene's --dft 2.45e10 writing the unsharded snapshots, dft_00.vtr,
    sar.vtr and energy log; each new shard kernel's time on a middle slab of
    --shard 4 beside its plain version;
-7c. (with a checkout of the parent commit, PARENT) the two-pass passes
-   that moved to march_kernel beside the parent's: each K10 pass (H, H
-   het-mu, E, E lossy) and the vacuum K1/K2, on the whole 257^3 grid and a
-   middle slab of --shard 4, from the same random inputs on both trees,
-   equal bit for bit, and timed in turns (parent, this, this, parent); 1000 steps of bench_256 --pml 10 --shard 4 and of
-   the open oven with a load (heating_256 --water-block --sar --pml 10) on
-   both trees in fp32 and bf16 (fp32 equal bit for bit: fields, psi, SAR
-   map), the oven also equal to its torch run and to itself with --shard 4;
-   the CLI of both scenes on both trees writing the same snapshots, sar.vtr
-   and energy log; each scene's rate and device idle share
-   (profile_chunk) on both trees;
-10. (after 7c, before 8) the thermal solve, the coupled cook and the
+10. (after 7b, before 8) the thermal solve, the coupled cook and the
    sweeps: run_thermal on phase 6's 256^3 heating SAR map (normalized to
    1 kW, a 3 s cook, fp64 and fp32: the fp64 heat content equals Q t to
    1e-5, fp32 within 2^-14 of the peak rise of fp64), the thermal step's
@@ -188,19 +188,16 @@ package beside it.  Phases, each printing one line or more:
    vacuum stream plan's; one line per redesigned sweep (ring_kernel, K3 and
    K12) with its time a step beside the first design's (commit 04e00ef),
    its registers and spills, and the 1000-step stream rates of phases
-   5-6d beside the first design's; one line per two-pass pass on
-   march_kernel (the K10 rows and the vacuum K1/K2) beside the parent's
-   recorded time (PARENT_TIMES) and its time in this call (phase 7c), with
-   its bound share, registers and spills,
-   and the 1000-step --pml 10 rates of both backends;
+   5-6d beside the first design's, and the 1000-step --pml 10 rates of
+   both backends;
 9. machine code: python -m fdtd_tpu_torch.sass_compare against a checkout
    of the parent commit, PARENT (from the repository's git history, else
    scratch_chip/parent; compiled on the host from the end of phase 2 on,
-   beside the card's phases): every kernel but the parent's 16 CPML, 8
-   vacuum and 4 batched vacuum two-pass instantiations (h_kernel /
-   e_kernel with PML, or without materials: replaced by march_kernel)
-   keeps its instructions, each listed.  Without such a
-   checkout it says so and skips the comparison (and phase 7c).
+   beside the card's phases): every kernel of the default builds but the
+   parent's fold (dft_fold_kernel, redesigned) keeps its instructions,
+   each listed (the means mode's FOLD instantiations are a build of their
+   own and not compared).  Without such a checkout it says so and skips the
+   comparison (and phase 6e's runs of the parent's kernels).
 
 Each phase prints its seconds; the Debye maps (host fp64, several
 seconds at 256^3) are built once per dtype (phase 3) and passed to the
@@ -222,7 +219,6 @@ import glob
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -269,24 +265,8 @@ FIRST_RATES = {"bench_256 stream": 68203.0, "heating_256 stream": 20775.8,
 # on an NVIDIA H100 80GB HBM3 at 700 W
 ROUTE_TIE = 0.02
 # the parent commit, whose machine code phase 9 compares with and whose
-# kernels and runs phase 7c sets beside this tree's; its vacuum and CPML
-# two-pass passes (the first design; this tree runs them on march_kernel), fp32
-# and bf16 ms at 256^3 (the shard rows: a middle slab of --shard 4) as this
-# script measured them on an NVIDIA H100 80GB HBM3 at 700 W
-PARENT = "e045c8f"
-PARENT_TIMES = {
-    "yee_update_h": (0.30424, 0.19659), "yee_update_e": (0.29309, 0.18352),
-    "yee_update_h_shard": (0.08252, 0.05399), "yee_update_e_shard": (0.07902, 0.05106),
-    "yee_update_h_pml": (0.37450, 0.28053), "yee_update_h_het_pml": (0.42175, 0.31079),
-    "yee_update_e_pml": (0.37005, 0.27475), "yee_update_e_lossy_pml": (0.47217, 0.30879),
-    "yee_update_h_pml_shard": (0.10655, 0.07164), "yee_update_e_pml_shard": (0.09291, 0.06939),
-    "yee_update_h_het_pml_shard": (0.11678, 0.07454), "yee_update_e_lossy_pml_shard": (0.11710, 0.08855),
-}
-# phase 9: the parent's h_kernel / e_kernel <T, HET or LOSSY, PML, BOX, BATCH>
-# without PML and BATCH are this tree's <T, HET or LOSSY, BOX> (the vacuum
-# ones, batched or not: replaced by march_kernel)
-SASS_ALIAS = (r"(void )?(h|e)_kernel<([^,]+), (true|false), false, (true|false), false>",
-              r"\1\2_kernel<\3, \4, \5>")
+# means-mode kernels phase 6e times beside this tree's
+PARENT = "93353f4"
 # phase 6e: the means mode of the DFT bands and the fold kernel
 MEANS_N = 128  # the grid of the 16-frequency scenes: configs/heating_256.txt scaled to 128^3
 MEANS_FREQS = tuple(2.40e10 + k * (1e9 / 15) for k in range(16))  # 16 frequencies over 2.40e10-2.50e10 Hz
@@ -294,6 +274,8 @@ MEANS_STEPS = 200  # steps of those scenes (two chunks of the config's 100-step 
 MEANS_NF = 6  # frequencies of the kernel checks and the every-variant runs: past every built shape's bands
 RATE_STEPS = 1000  # the 16-frequency scenes' timed runs: steps a run, after a chunk that warms the runner
 RATE_REPS = 3  # and runs of each backend, in turns; the median and the spread are reported
+MEANS_256_NF = (3, 4, 5, 6, 16)  # the 256^3 folds' frequencies (32 levels): 3-6, where the means mode starts
+PML_DFT_NF = 6  # bench_256 --pml 10 --dft: frequencies past the CPML bands' five
 THIN_NF = (3, 4, 5)  # shards too thin for the s = 4 halo: frequencies past its bands that the s = 2 bands hold
 RAGGED_BATCH = 8  # phase 10: members of the ragged batch (35 x 29 x 31 a member, odd: 8 members take every lead)
 
@@ -380,17 +362,8 @@ def event_ms(fn, reps=20, queued=True) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _flag(kernel: str, q: int) -> bool:
-    """Template argument ``q`` (0: the type) of a demangled kernel name,
-    read as a bool."""
-    args = kernel[kernel.index("<") + 1:kernel.rindex(">")].split(",")
-    return args[q].strip() == "true"
-
-
-
-
 def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, full_size: bool = True,
-                water256=None) -> list[dict]:
+                water256=None, parent=None) -> list[dict]:
     """Phase 6e: the means mode of the sweeps' DFT bands (``StreamPlan.
     fold``) and the fold kernel (``csrc/dft_accum.cu::dft_fold_kernel``).
     The fold against ``plain_fold`` from random means, weights and sums; each
@@ -409,7 +382,13 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
     steps; its dft_NN.vtr against twopass + dft_accum's sums) and
     heating_256 --water-block --sar --dft --shard 4 with three frequencies
     (the bands) and eight (the means mode) against twopass + dft_accum
-    (``water256``: the scene's load, built once).
+    (``water256``: the scene's load, built once); then at 256^3 the fold
+    (3-6 and 16 frequencies) beside torch.addmm, the K3-DFT, K11-DFT and
+    K11-lossy-DFT means sweeps, each beside ``parent``'s (the PARENT
+    checkout's package, when there is one) in turns, one counted chunk of
+    bench_256 --pml 10 --dft x6 against twopass + dft_accum bit for bit, and
+    the routed rates of bench_256 --dft x4 and --pml 10 --dft x6 against
+    twopass + dft_accum.
     Returns the JSON rows of the kernels it drives on those paths, timed at
     the ``n``^3 scenes' shapes beside their bounds and plain versions (the
     fold beside torch.addmm)."""
@@ -461,10 +440,17 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         return tuple(rand((nf, nc) + tuple(cells)) for _ in range(2))
 
     # -- (a) the fold against plain_fold ---------------------------------------------------------
-    fold_cells = [((35, 29, 31), ((1, 1, 3), (5, 7, 3), (16, 32, 3), (33, 32, 6)))]
-    fold_cells.append(((n, n, n), ((4, 32, 3), (16, 32, 3))))
-    for cells, cases in fold_cells:
-        means = rand((stream_plan.FOLD_DEPTH, 3) + cells)
+    def grid(k: int, j: int, i: int) -> Params:
+        """A computation-mode grid of k x j x i cells."""
+        return Params(length=(i + 0.5) * 1e-3, width=(j + 0.5) * 1e-3, height=(k + 0.5) * 1e-3, spatial_step=0.001,
+                      time_step=1e-12, simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION,
+                      dtype="float32")
+
+    fold_grids = [(grid(35, 29, 31), ((1, 1, 3), (5, 7, 3), (16, 32, 3), (33, 32, 6)), ((4, 1, 1), (2, 3, 1)))]
+    fold_grids.append((grid(n, n, n), ((4, 32, 3), (16, 32, 3)), ((4, 1, 1),)))
+    for pf, cases, meshes in fold_grids:
+        cells = (pf.maxk, pf.maxj, pf.maxi)
+        means = rand(stream.means_shape(pf, stream_plan.FOLD_DEPTH))
         for nf, depth, nc in cases:
             w = rand((depth, 2, nf))
             d0 = sums_like(nf, cells, nc)
@@ -475,10 +461,19 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
             d = maxdiff(k, q)
             moved = float((q[0][:, :3] - d0[0][:, :3]).abs().max())
             kept = maxdiff((k[0][:, 3:], k[1][:, 3:]), (d0[0][:, 3:], d0[1][:, 3:])) if nc == 6 else 0.0
-            note("dft_fold", max(d, kept))
-            check(d == 0.0 and kept == 0.0 and moved > 0,
+            # each shard folds its cells' buffer into its part of the sums: the whole grid's sums there
+            ds = 0.0
+            for shape in meshes:
+                for box in shard_mesh.shard_boxes(pf, shard_mesh.make_mesh(shape, dev.type), 1):
+                    part = (slice(None),) * 2 + tuple(slice(a, b) for a, b in zip(*box.cells(pf)))
+                    ks = tuple(t[part].contiguous() for t in d0)
+                    dft_ops.fold(means[part].contiguous(), w, ks)
+                    torch.cuda.synchronize()
+                    ds = max(ds, maxdiff(ks, tuple(t[part] for t in q)))
+            note("dft_fold", max(d, kept, ds))
+            check(d == 0.0 and kept == 0.0 and ds == 0.0 and moved > 0,
                   f"dft_fold == plain_fold, {cells} cells, nf={nf}, {depth} levels, nc={nc}: max|diff| = {d!r} "
-                  f"(H components kept: {kept!r}; sums moved {moved!r})")
+                  f"(H components kept: {kept!r}; the shards of {meshes} meshes: {ds!r}; sums moved {moved!r})")
             del d0, k, q
         del means
 
@@ -514,7 +509,7 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         psi = random_psi(pm, pml) if pml is not None else None
         pol = random_pol(pm, dc) if dc is not None else None
         acc0 = rand((pm.maxk, pm.maxj, pm.maxi), 0.0, 1e-11) if sar else None
-        mshape = (plan.s, 3, pm.maxk, pm.maxj, pm.maxi)
+        mshape = stream.means_shape(pm, plan.s)
 
         def outs(fill: float):
             return (FieldState(*(torch.full_like(t, fill) for t in st.tensors())),
@@ -554,7 +549,7 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         for sh, plan in zip(shards, plans):
             cf = shard_coefs(pk, host, sh.box, dev)
             st, drive = sweep_inputs(pk, None, s, sh.box, sh.state.clone())
-            mshape = (s, 3) + sh.box.cell_shape(pk)
+            mshape = stream.means_shape(pk, s, sh.box)
             out, want = (FieldState(*(torch.full_like(t, nan) for t in st.tensors())) for _ in range(2))
             mk, mp = torch.full(mshape, nan, device=dev), torch.zeros(mshape, device=dev)
             aa, ab = (sh.power.clone(), sh.power.clone()) if sar else (None, None)
@@ -715,6 +710,16 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         return max((maxdiff(x, y) if hasattr(x, "tensors") or isinstance(x, tuple) else absdiff(x, y))
                    for x, y in zip(a, b) if x is not None)
 
+    def addmm_ms(w, sums, depth: int) -> float:
+        """torch.addmm of the fold's weights (cos and -sin stacked, (2 nf, D)) and cell means ((D, 3 cells))
+        onto a stacked (2 nf, 3 cells) copy of the sums: one PyTorch call that computes the fold (not its
+        rounding order)."""
+        nf_ = w.shape[2]
+        lhs = torch.cat([w[:, 0, :].T, -w[:, 1, :].T]).contiguous()
+        stacked = torch.cat([sums[0].reshape(nf_, -1), sums[1].reshape(nf_, -1)])
+        m2 = rand((depth, stacked.shape[1]))
+        return event_ms(lambda: stacked.addmm_(lhs, m2))
+
     base = load_parameters("configs/heating_256.txt", dtype="float32")
     pn = dataclasses.replace(base, length=n * base.spatial_step, width=n * base.spatial_step,
                              height=n * base.spatial_step, simulation_time=steps * base.time_step)
@@ -776,7 +781,8 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
                 # differ by bf16 round-off; the means mode is held to the bands instead: the frequencies in
                 # groups the bands hold, one stream run a group, bit for bit (the fields do not depend on
                 # them, and each frequency's sums take the same operations in the same order)
-                cap = plan.dft_max_nf
+                cap = stream_plan.pick_plan(pd, lossy=mats is not None and not debye_s, sar=sar, pml=pml, ade=debye_s,
+                                            dft=DftConfig(cfg16.frequencies[:1])).dft_max_nf
                 bands_name = plan.kernel.removesuffix("_means")
                 d = 0.0
                 for i in range(0, cfg16.nf, cap):
@@ -932,6 +938,114 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         torch.cuda.empty_cache()
         print(f"phase 6e (d, e) the CLI and the 256^3 runs: {time.perf_counter() - t_d:.1f} s", flush=True)
 
+    # -- (f) 256^3: the fold and the means-mode sweeps beside the parent's, the routed rates ------------
+    if full_size:
+        from fdtd_tpu_torch import profile_chunk, tune_stream
+
+        t_f = time.perf_counter()
+        big = profile_chunk.scene(256, "float32")  # configs/bench_256.txt's grid
+        cells_b = big.maxk * big.maxj * big.maxi
+        depth = stream_plan.FOLD_DEPTH
+        fold_step: dict[tuple, float] = {}  # (tree, nf) -> ms of a 32-level fold a step
+        for nf in MEANS_256_NF:
+            cells_256 = (big.maxk, big.maxj, big.maxi)
+            means = rand(stream.means_shape(big, depth))
+            w = rand((depth, 2, nf))
+            sums = sums_like(nf, cells_256)
+            k, q = tuple(t.clone() for t in sums), tuple(t.clone() for t in sums)
+            dft_ops.fold(means, w, k)
+            dft_ops.plain_fold(means, w, q)
+            torch.cuda.synchronize()
+            d = maxdiff(k, q)
+            note("dft_fold", d)
+            check(d == 0.0, f"dft_fold == plain_fold at 256^3, nf={nf}, {depth} levels: max|diff| = {d!r}")
+            del k, q
+            mine = lambda: dft_ops.fold(means, w, sums)  # noqa: E731
+            txt = ""
+            if parent is not None:
+                theirs = tune_stream.parent_fold(parent, cells_256, nf, depth, dev, gen)
+                first = event_ms(theirs)
+                t = (event_ms(mine) + event_ms(mine)) / 2
+                tp = (first + event_ms(theirs)) / 2
+                fold_step[("parent", nf)] = tp / depth
+                txt = f"; {PARENT}'s {tp!r} ms in turns (x{tp / t!r})"
+                del theirs
+            else:
+                t = event_ms(mine)
+            fold_step[("this", nf)] = t / depth
+            t_lib = addmm_ms(w, sums, depth)
+            b = max((12 * depth + 2 * 2 * 4 * nf * 3) * cells_b / HBM_BYTES_PER_S,
+                    12 * depth * nf * cells_b / FP32_FLOPS) * 1e3
+            print(f"means mode 256^3 dft_fold nf={nf}, {depth} levels: {t!r} ms, {b / t!r} of its bound {b!r} ms"
+                  f"{txt}; torch.addmm {t_lib!r} ms ({smi})", flush=True)
+            del means, w, sums, mine
+            torch.cuda.empty_cache()
+        rng_b = np.random.default_rng(15)
+        for scene_name, nf in (("vacuum_dft", 4), ("pml_dft", PML_DFT_NF), ("lossy_pml_dft", PML_DFT_NF)):
+            for dtype in ("float32", "bfloat16"):
+                pd = dataclasses.replace(big, dtype=dtype)
+                lossy_, _, _, _, _, pml_ = tune_stream.SCENES[scene_name]
+                plan = stream_plan.pick_plan(pd, lossy=lossy_, pml=pml10 if pml_ else None, dft=cfg16)
+                case = tune_stream.make_case(pd, scene_name, plan.s, plan.bj, plan.cr, dev, rng_b, means=True)
+                outs = case.outputs()
+                mine = lambda: case.run(outs)  # noqa: E731
+                bound = tune_stream.bound_ms(case)
+                txt = ""
+                if parent is not None:
+                    pplan, theirs = tune_stream.parent_means_run(parent, pd, scene_name, dev, rng_b, case)
+                    first = event_ms(theirs)
+                    t = (event_ms(mine) + event_ms(mine)) / 2
+                    tp = (first + event_ms(theirs)) / 2
+                    a_step = {q: t / plan.s + fold_step[("this", q)] for q in MEANS_256_NF}
+                    p_step = {q: tp / pplan.s + fold_step[("parent", q)] for q in MEANS_256_NF}
+                    txt = (f"; {PARENT}'s (s={pplan.s} bj={pplan.bj}) {tp!r} ms in turns (x{tp / pplan.s / (t / plan.s)!r} "
+                           f"a step); with its 32-level fold a step, "
+                           + ", ".join(f"nf={q}: {a_step[q]!r} against {p_step[q]!r} (x{p_step[q] / a_step[q]!r})"
+                                       for q in MEANS_256_NF))
+                    del theirs
+                else:
+                    t = event_ms(mine)
+                print(f"means mode 256^3 {plan.kernel} {dtype} (s={plan.s} bj={plan.bj}"
+                      f"{f' interior bj={plan.core.bj}' if plan.core else ''}): {t!r} ms a sweep, {t / plan.s!r} a step, "
+                      f"{bound / t!r} of its bound {bound!r} ms{txt} ({smi})", flush=True)
+                del case, outs, mine
+                torch.cuda.empty_cache()
+        # the routed runs: bench_256 --dft x4 (vacuum) and --pml 10 --dft x6, a 1000-step chunk each (the CLI's)
+        pr = dataclasses.replace(load_parameters("configs/bench_256.txt", dtype="float32"), sampling_rate=RATE_STEPS)
+        # first one counted chunk of --pml 10 --dft x6 against twopass + dft_accum: the shell, interior and fold
+        # launches, fields, psi and sums bit for bit
+        cfg6 = DftConfig(MEANS_FREQS[::3][:PML_DFT_NF])
+        plan6 = stream_plan.pick_plan(pr, pml=pml10, dft=cfg6)
+        mine, got, wall = run_scene(pr, "stream", None, False, pml10, cfg6)
+        ref, got2, _ = run_scene(pr, "twopass", None, False, pml10, cfg6)
+        n6 = len(time_values(pr))
+        swept = n6 // plan6.s * plan6.s
+        want = {plan6.kernel: n6 // plan6.s, plan6.kernel + stream.INTERIOR: n6 // plan6.s,
+                "dft_fold": -(-swept // plan6.fold), "dft_accum": n6 - swept}
+        d = diff_runs(mine, ref)
+        check(plan6.fold > 0 and plan6.core is not None and all(got[k] == v for k, v in want.items())
+              and got2["dft_accum"] == n6 and d == 0.0,
+              f"bench_256 --pml 10 --dft x{PML_DFT_NF} ({n6} steps, one chunk): the means mode's launches "
+              f"{ {k: got[k] for k in want} } (want {want}; {plan6.fold}-level buffer) == twopass + dft_accum "
+              f"({got2['dft_accum']} dft_accum): fields, psi, sums max|diff| = {d!r}; "
+              f"{pr.cell_count * n6 / wall / 1e6!r} Mcells/s (one run, cold)")
+        for k in (plan6.kernel, plan6.kernel + stream.INTERIOR):
+            launches.setdefault(k, got[k])
+        del mine, ref
+        torch.cuda.empty_cache()
+        for label, pml_, cfg_ in (("bench_256 --dft x4", None, DftConfig(MEANS_FREQS[::5])),
+                                  (f"bench_256 --pml 10 --dft x{PML_DFT_NF}", pml10,
+                                   DftConfig(MEANS_FREQS[::3][:PML_DFT_NF]))):
+            routed = resolve_backend(pr, "auto", dev, None, False, pml_, dft=cfg_)
+            plan = stream_plan.pick_plan(pr, pml=pml_, dft=cfg_)
+            check(routed == "stream" and plan.fold > 0, f"{label}: auto resolves to {routed}, {plan.kernel}")
+            r = time_turns(pr, None, False, pml_, cfg_)
+            print(f"rate 256^3 {label} (auto, {plan.kernel}): stream {rate_txt(r['stream'])} against twopass + "
+                  f"dft_accum {rate_txt(r['twopass'])} Mcells/s (x{r['stream'][0] / r['twopass'][0]!r} of the "
+                  f"medians) ({smi})", flush=True)
+        torch.cuda.empty_cache()
+        print(f"phase 6e (f) 256^3 means mode and fold: {time.perf_counter() - t_f:.1f} s", flush=True)
+
     # -- timing at the n^3 scenes' shapes, the bounds, the kernels' rows ----------------------------
     ms: dict[str, tuple] = {}  # kernel -> (fp32 ms, bf16 ms, plain fp32 ms)
     bands_ms: dict[str, tuple] = {}  # kernel -> fp32 ms a step of the bands (nf = 1) and of the means mode
@@ -961,7 +1075,7 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
             pol_i = zero_polarization(pd, dev) if debye_v else None
             pol_o = zero_polarization(pd, dev) if debye_v else None
             acc = zero_power_acc(pd, dev) if sar else None
-            buf = torch.zeros((plan.s, 3, pd.maxk, pd.maxj, pd.maxi), device=dev)
+            buf = torch.zeros(stream.means_shape(pd, plan.s), device=dev)
 
             def sweep_k(pl=plan):
                 stream.sweep(pd, st, out_s, coefs, pl, drive, acc, cp, psi_i, psi_o, dc, pol_i, pol_o, means=buf)
@@ -976,7 +1090,7 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
                     core = plan.core
                     box = Box((0, 0, 0), pd.padded_shape, core.origin,
                                          tuple(o + w for o, w in zip(core.origin, core.window)))
-                    mbox = torch.zeros((plan.s, 3) + box.cell_shape(pd), device=dev)
+                    mbox = torch.zeros(stream.means_shape(pd, plan.s, box), device=dev)
                     t_k["plain interior"] = event_ms(lambda: stream.plain_sweep(pd, st, coefs, plan.s, drive, out_s,
                                                                                 box=box, means=mbox), reps=2)
                 # the bands at one frequency, the same shape: what the means mode would replace there
@@ -1029,7 +1143,7 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
             cf = shard_coefs(pd, host, sh.box, dev)
             st, drive = sweep_inputs(pd, None, plan.s, sh.box, sh.state.clone())
             out_s = FieldState(*(torch.empty_like(t) for t in st.tensors()))
-            buf = torch.zeros((plan.s, 3) + sh.box.cell_shape(pd), device=dev)
+            buf = torch.zeros(stream.means_shape(pd, plan.s, sh.box), device=dev)
             t_k[dtype] = event_ms(lambda: stream.sweep(pd, st, out_s, cf, plan, drive, sh.power, box=sh.box, means=buf))
             if dtype == "float32":
                 t_k["plain"] = event_ms(lambda: stream.plain_sweep(pd, st, cf, plan.s, drive, out_s, sh.power,
@@ -1047,20 +1161,17 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
     # (cos and -sin stacked, (2 nf, D)) and means ((D, 3 cells)) onto a stacked (2 nf, 3 cells) copy of
     # the sums: one PyTorch call that computes the fold (not its rounding order)
     depth = stream_plan.FOLD_DEPTH
-    means = rand((depth, 3, pn.maxk, pn.maxj, pn.maxi))
+    means = rand(stream.means_shape(pn, depth))
     w = rand((depth, 2, cfg16.nf))
     sums = sums_like(cfg16.nf, (pn.maxk, pn.maxj, pn.maxi))
     t_fold = event_ms(lambda: dft_ops.fold(means, w, sums))
     t_fold1 = event_ms(lambda: dft_ops.fold(means, w[:, :, :1].contiguous(), tuple(t[:1] for t in sums)))
     t_plain = event_ms(lambda: dft_ops.plain_fold(means, w, sums), reps=2)
-    lhs = torch.cat([w[:, 0, :].T, -w[:, 1, :].T]).contiguous()
-    stacked = torch.cat([sums[0].reshape(cfg16.nf, -1), sums[1].reshape(cfg16.nf, -1)])
-    m2 = means.reshape(depth, -1)
-    t_lib = event_ms(lambda: stacked.addmm_(lhs, m2))
+    t_lib = addmm_ms(w, sums, depth)
     ms["dft_fold"] = (t_fold, t_fold, t_plain)
     fb = 12 * depth * cells_k + 2 * 2 * 4 * cfg16.nf * 3 * cells_k
     bounds["dft_fold"] = {dt_: (fb, 12 * depth * cfg16.nf * cells_k) for dt_ in ("float32", "bfloat16")}
-    del means, sums, stacked, m2, arrays
+    del means, sums, arrays
     torch.cuda.empty_cache()
 
     rows = []
@@ -1178,7 +1289,7 @@ def main() -> None:
     # the parent commit's package (PARENT: the repository's git history, else
     # scratch_chip/parent): its machine code against this tree's (phase 9,
     # compiled on the host beside the card's phases, read at the end), and
-    # its two-pass kernels, built on the host now, for phase 7c's runs
+    # its means-mode kernels, for phase 6e's 256^3 times in turns
     sass_dir = tempfile.TemporaryDirectory()
     parent_dir = os.path.join(HERE, "scratch_chip", "parent")
     if shutil.which("git") and subprocess.run(["git", "-C", HERE, "cat-file", "-e", PARENT],
@@ -1187,24 +1298,18 @@ def main() -> None:
                                  capture_output=True, check=True).stdout
         subprocess.run(["tar", "-x", "-C", sass_dir.name], input=archive, check=True)
         parent_dir = sass_dir.name
-    sass_proc = parent_pkg = parent_build = None
+    sass_proc = parent_pkg = None
     if os.path.isdir(os.path.join(parent_dir, "fdtd_tpu_torch", "csrc")):
-        # the parent's h_kernel / e_kernel had a PML flag (third template argument) this tree's lack
         sass_proc = subprocess.Popen([sys.executable, "-m", "fdtd_tpu_torch.sass_compare", parent_dir, "--json",
-                                      os.path.join(sass_dir.name, "sass.json"), "--alias", SASS_ALIAS[0],
-                                      SASS_ALIAS[1]], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                     text=True)
+                                      os.path.join(sass_dir.name, "sass.json")], cwd=HERE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
         atexit.register(lambda: sass_proc.poll() is None and sass_proc.kill())
     if os.path.isfile(os.path.join(parent_dir, "fdtd_tpu_torch", "__init__.py")):
-        import threading
-
         from fdtd_tpu_torch.tune_stream import load_parent
 
         parent_pkg = load_parent(parent_dir)
-        for sub in ("grid", "state", "source", "runner", "cli", "profile_chunk", "ops.yee", "ops.cpml"):
+        for sub in ("state", "ops.cpml", "ops.dft"):
             __import__(f"{parent_pkg.__name__}.{sub}")
-        parent_build = threading.Thread(target=parent_pkg.ops.build.build, args=(parent_pkg.ops.yee.KERNEL_SOURCE,))
-        parent_build.start()
     phase_done("1-2 device and build")
 
     # -- 3. kernel vs plain ------------------------------------------------
@@ -2325,11 +2430,24 @@ def main() -> None:
                              "bench_256 --pml 10" + ("" if dtype == "float32" else " bf16"), dtype == "float32",
                              pml=PML10)
         tag = "" if dtype == "float32" else " bf16"
-        rates_pd = [main_rates[f"bench_256 --pml 10{tag} --dft 2.45e10 {b}"] for b in ("stream", "twopass")]
+        # four more 1000-step runs in turns (twopass, stream, stream, twopass): each backend's rate is the median
+        # of its three, as one bf16 stream run was seen to fall 22% below its others on an H100 (PERF.md, open
+        # questions); the spread of each backend's three is printed beside the verdict
+        runs_pd = {b: [main_rates[f"bench_256 --pml 10{tag} --dft 2.45e10 {b}"]] for b in ("stream", "twopass")}
+        for backend in ("twopass", "stream", "stream", "twopass"):
+            res = run_simulation(pd_, dev, write_snapshots=False, backend=backend, pml=PML10, dft=DFT1,
+                                 log=lambda m: None)
+            runs_pd[backend].append(res.mcells_per_s)
+            del res
+        rates_pd = [sorted(runs_pd[b])[1] for b in ("stream", "twopass")]
+        spread_pd = {b: (max(r_) - min(r_)) / sorted(r_)[1] for b, r_ in runs_pd.items()}
+        for b, r_ in zip(("stream", "twopass"), rates_pd):
+            main_rates[f"bench_256 --pml 10{tag} --dft 2.45e10 {b}"] = r_
         routed = resolve_backend(pd_, "auto", dev, pml=PML10, dft=DFT1)
         check(routed == ("stream" if rates_pd[0] > rates_pd[1] else "twopass"),
               f"auto resolves to {routed} for --pml 10 --dft 2.45e10 at 256^3 {dtype}: stream {rates_pd[0]:.1f} against "
-              f"twopass + dft_accum {rates_pd[1]:.1f} Mcells/s over 1000 steps")
+              f"twopass + dft_accum {rates_pd[1]:.1f} Mcells/s over 1000 steps, each the median of three runs in turns "
+              f"{runs_pd}, spread (max - min) / median {spread_pd}")
         if dtype == "float32":
             pml_dft_ref = ref
         del ref
@@ -2418,7 +2536,7 @@ def main() -> None:
     phase_done("6d trailing steps, probes")
 
     # -- 6e. the DFT bands' means mode and the fold ------------------------
-    means_rows = phase_means(dev, smi, rng, water256=water)
+    means_rows = phase_means(dev, smi, rng, water256=water, parent=parent_pkg)
     phase_done("6e the DFT means mode and the fold")
 
     # the output reductions in k slabs: the allocator's peak over one
@@ -3215,122 +3333,6 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("7b CLI and kernel times")
 
-    # -- 7c. the CPML two-pass passes beside the parent's, in this call -------
-    # (the parent's package from a checkout of PARENT, its kernels built on the
-    # host since phase 2): each K10 pass from the same inputs on both trees,
-    # equal bit for bit and timed in turns (parent, this, this, parent); 1000
-    # steps of --pml 10 --shard 4 and of the open oven with a load (heating_256
-    # --water-block --sar --pml 10) on both trees in both dtypes, fp32 equal
-    # bit for bit (fields, psi, the SAR map), the oven also equal to torch's
-    # and to itself with --shard 4; the CLI's snapshots, sar.vtr and energy
-    # log of both scenes equal on both trees; each scene's device idle share
-    # (profile_chunk, 48 steps) on both trees
-    k10_same: dict[str, dict[str, tuple[float, float]]] = {}  # K10 kernel -> dtype -> (this ms, parent ms)
-    if parent_pkg is None:
-        print(f"phase 7c: not run (no git history and no scratch_chip/parent checkout of {PARENT})")
-    else:
-        from fdtd_tpu_torch import profile_chunk, tune_twopass
-
-        this_pkg = sys.modules["fdtd_tpu_torch"]
-        parent_build.join()
-
-        def parent_params(pm: Params):
-            fields = {f.name: getattr(pm, f.name) for f in dataclasses.fields(pm)}
-            return parent_pkg.params.Params(**{**fields, "mode": parent_pkg.params.Mode(pm.mode.value)})
-
-        for dtype in ("float32", "bfloat16"):
-            big = dataclasses.replace(p, dtype=dtype)
-            for name, pml_k in [(n, PML10) for n in tune_twopass.PASSES] + [("yee_update_h", None),
-                                                                             ("yee_update_e", None)]:
-                h_pass = tune_twopass.PASSES[name][0]
-                for shard_ in (False, True):
-                    box_ = tune_twopass.middle_slab(big) if shard_ else None
-                    kname = name + ("_pml" if pml_k else "") + ("_shard" if shard_ else "")
-                    mine = tune_twopass.make_case(this_pkg, big, box_, name, pml_k, 7, dev)
-                    theirs = tune_twopass.make_case(parent_pkg, big, box_, name, pml_k, 7, dev, like=mine)
-                    mine.run(h_pass)
-                    theirs.run(h_pass)
-                    torch.cuda.synchronize()
-                    d = tune_twopass.maxdiff(mine.outputs(), theirs.outputs())
-                    first = event_ms(lambda: theirs.run(h_pass))
-                    ms_a, ms_b = event_ms(lambda: mine.run(h_pass)), event_ms(lambda: mine.run(h_pass))
-                    last = event_ms(lambda: theirs.run(h_pass))
-                    k10_same.setdefault(kname, {})[dtype] = ((ms_a + ms_b) / 2, (first + last) / 2)
-                    check(d == 0.0, f"{kname} {dtype} 256^3{' a middle slab of --shard 4' if shard_ else ''} == "
-                                    f"{PARENT}'s from the same random fields{', coefficients and psi' if pml_k else ''}: "
-                                    f"max|diff| = {d!r}; "
-                                    f"{(ms_a + ms_b) / 2!r} ms against {PARENT}'s {(first + last) / 2!r} in turns")
-                    del mine, theirs
-            torch.cuda.empty_cache()
-        oven = "heating_256 --water-block --sar --pml 10"
-        scenes_7c = (("bench_256 --pml 10 --shard 4", p, False, "4"), (oven, ph, True, None))
-        runs_7c = {}
-        for dtype in ("float32", "bfloat16"):
-            for label, pm, heat, spec in scenes_7c:
-                pd = dataclasses.replace(pm, dtype=dtype)
-                pp_ = parent_params(pd)
-                reset_counts()
-                res_t = run_simulation(pd, dev, write_snapshots=False, pml=PML10, shard=spec, log=lambda m: None,
-                                       materials=water_block(pd) if heat else None, accumulate_power=heat)
-                counts = counts_now()
-                res_p = parent_pkg.runner.run_simulation(
-                    pp_, dev, write_snapshots=False, pml=parent_pkg.ops.cpml.PMLConfig(cells=PML10.cells), shard=spec,
-                    log=lambda m: None, materials=parent_pkg.state.water_block(pp_) if heat else None,
-                    accumulate_power=heat)
-                d = max(maxdiff(res_t.state, res_p.state), maxdiff(res_t.psi, res_p.psi),
-                        absdiff(res_t.power_j, res_p.power_j) if heat else 0.0)
-                want_c = (expect(yee_update_h_pml=n, yee_update_e_lossy_pml=n) if heat else
-                          expect(yee_update_h_pml_shard=4 * n, yee_update_e_pml_shard=4 * n))
-                runs_7c[(label, dtype)] = (res_t.mcells_per_s, res_p.mcells_per_s)
-                main_rates[f"{label}{'' if dtype == 'float32' else ' bf16'}"] = res_t.mcells_per_s
-                check(counts == want_c and res_t.iterations == res_p.iterations == 1000
-                      and (d == 0.0 or dtype != "float32"),
-                      f"{label} {dtype} 1000 steps (auto): launch counts {counts} == {want_c}; {PARENT}'s run "
-                      f"{'equal bit for bit (fields, psi' + (', SAR' if heat else '') + ')' if dtype == 'float32' else 'max|diff| ' + repr(d)}"
-                      f"; {res_t.mcells_per_s!r} Mcells/s against {PARENT}'s {res_p.mcells_per_s!r}")
-                if heat and dtype == "float32":
-                    # the open oven: torch's run and the run split over --shard 4 equal it bit for bit
-                    for kw in (dict(backend="torch"), dict(shard="4")):
-                        res_x = run_simulation(pd, dev, write_snapshots=False, pml=PML10, log=lambda m: None,
-                                               materials=water_block(pd), accumulate_power=True, **kw)
-                        d_x = max(maxdiff(res_x.state, res_t.state), maxdiff(res_x.psi, res_t.psi),
-                                  absdiff(res_x.power_j, res_t.power_j))
-                        check(d_x == 0.0, f"{oven} fp32 1000 steps {kw}: == auto (twopass) bit for bit, fields, "
-                                          f"psi and SAR map: max|diff| = {d_x!r} ({res_x.mcells_per_s!r} Mcells/s)")
-                        del res_x
-                del res_t, res_p
-                torch.cuda.empty_cache()
-        # the CLI on both trees: the same snapshots, sar.vtr and energy log
-        with tempfile.TemporaryDirectory() as out:
-            for label, args in (("bench_256 --pml 10 --shard 4", ["configs/bench_256.txt", "--pml", "10", "--shard", "4"]),
-                                (oven, ["configs/heating_256.txt", "--water-block", "--sar", "--pml", "10"])):
-                tag = label.split()[0]
-                a_dir, b_dir = os.path.join(out, tag + "_this"), os.path.join(out, tag + "_parent")
-                ra = run_cli(args + ["--out", a_dir, "--diag-log", a_dir + ".jsonl"])
-                rb = run_cli(args + ["--out", b_dir, "--diag-log", b_dir + ".jsonl"], parent_pkg.cli)
-                names, d = same_outputs(a_dir, b_dir)
-                names_b = sorted(os.path.basename(f) for f in glob.glob(os.path.join(b_dir, "*.vtr")))
-                logs = [open(x + ".jsonl").read() if os.path.exists(x + ".jsonl") else None for x in (a_dir, b_dir)]
-                check(ra.returncode == rb.returncode == 0 and names and names == names_b and d == 0.0
-                      and logs[0] is not None and logs[0] == logs[1] and ("sar.vtr" in names) == (label == oven),
-                      f"CLI {label}: this tree and {PARENT} write the same {names} (max|diff| {d!r}) and energy log "
-                      f"({len((logs[0] or '').splitlines())} records) {ra.stderr.strip()[-200:]} {rb.stderr.strip()[-200:]}")
-        # the device's idle share of each scene, both trees
-        for dtype in ("float32", "bfloat16"):
-            for label, pm, heat, spec in scenes_7c:
-                pd = dataclasses.replace(pm, dtype=dtype)
-                rec_t = profile_chunk.profile(pd, "twopass", N_TIMED, N_WARM, dev, heating=heat, pml=PML10, shard=spec)
-                rec_p = parent_pkg.profile_chunk.profile(parent_params(pd), "twopass", N_TIMED, N_WARM, dev,
-                                                         heating=heat, pml=parent_pkg.ops.cpml.PMLConfig(cells=PML10.cells),
-                                                         shard=spec)
-                rt, rp = runs_7c[(label, dtype)]
-                print(f"rate 1000 steps {label} {dtype}: {rt!r} Mcells/s ({PARENT} {rp!r}: x{rt / rp!r}); idle share "
-                      f"{rec_t['idle_share']!r} ({PARENT} {rec_p['idle_share']!r}), device {rec_t['device_ms_per_step']!r} "
-                      f"ms a step ({PARENT} {rec_p['device_ms_per_step']!r}), wall {rec_t['wall_ms_per_step']!r} "
-                      f"({PARENT} {rec_p['wall_ms_per_step']!r}) ({smi})", flush=True)
-                print(f"profile {label} {dtype} twopass: {json.dumps(rec_t)}", flush=True)
-        torch.cuda.empty_cache()
-    phase_done(f"7c the CPML two-pass passes beside {PARENT}")
 
     # -- 10. the thermal solve, the coupled cook and the sweeps -----------------
     # (ROADMAP items 6 and 10; runs here, before the timing of phase 8)
@@ -3941,31 +3943,6 @@ def main() -> None:
     for key, first in FIRST_RATES.items():
         print(f"rate 1000 steps {key}: {main_rates[key]!r} Mcells/s (first design {first!r}: "
               f"x{main_rates[key] / first!r}) ({smi})")
-    # the CPML two-pass passes on the march core beside the parent's: its time
-    # recorded in PARENT_TIMES and, with a checkout of PARENT, in this call
-    # (phase 7c, in turns from the same inputs), registers and spills from
-    # the build's ptxas report
-    from fdtd_tpu_torch import tune_twopass
-    regs2 = tune_twopass.ptxas_report(lib_paths[0].with_suffix(".log").read_text())
-    shape = tune_twopass.BUILT
-    by_name = {entry["name"]: entry for entry in kernels}
-    for name, (ms_p, ms_p16) in PARENT_TIMES.items():
-        entry = by_name[name]
-        h_pass, mat = tune_twopass.PASSES[name.removesuffix("_shard").removesuffix("_pml")]
-        r32, r16 = (tune_twopass.march_regs(regs2, dtype, not h_pass, mat, "_pml" in name)
-                    for dtype in ("float32", "bfloat16"))
-        same = k10_same.get(name)
-        call = ("" if same is None else
-                f"; in this call, in turns from the same inputs: fp32 {same['float32'][0]!r} ms against {PARENT}'s "
-                f"{same['float32'][1]!r} (x{same['float32'][1] / same['float32'][0]!r}), bf16 {same['bfloat16'][0]!r} "
-                f"against {same['bfloat16'][1]!r} (x{same['bfloat16'][1] / same['bfloat16'][0]!r})")
-        b32, b16 = entry["bound_ms"], bound16[name]
-        print(f"beside {PARENT} {name} (256^3{' --pml 10' if '_pml' in name else ''}"
-              f"{', a middle slab of --shard 4' if name.endswith('_shard') else ''}"
-              f"): march_kernel (AH, BJ, BI, NB, CB) = {shape}: fp32 {entry['ms']!r} ms, {b32 / entry['ms']!r} of the bound "
-              f"({PARENT} {ms_p!r}: {b32 / ms_p!r}, x{ms_p / entry['ms']!r}), bf16 {ms_bf16[name]!r} ms, "
-              f"{b16 / ms_bf16[name]!r} of the bound ({PARENT} {ms_p16!r}: {b16 / ms_p16!r}, x{ms_p16 / ms_bf16[name]!r})"
-              f"{call}; registers {r32[0]} / {r16[0]}, spill stores {r32[1]} / {r16[1]} B (fp32 / bf16) ({smi})")
     for tag in ("", " bf16"):
         for dft_tag in ("", " --dft 2.45e10"):
             st_r, tp_r = (main_rates[f"bench_256 --pml 10{tag}{dft_tag} {b}"] for b in ("stream", "twopass"))
@@ -3976,10 +3953,8 @@ def main() -> None:
         out_s, _ = sass_proc.communicate()
         verdict_path = os.path.join(sass_dir.name, "sass.json")
         verdicts = json.loads(open(verdict_path).read()) if os.path.exists(verdict_path) else {}
-        # the parent's CPML and vacuum two-pass passes, batched or not (h_kernel / e_kernel <T, HET or LOSSY,
-        # PML, BOX, BATCH> with PML or without materials) are replaced by march_kernel
-        replaced = {k for k in verdicts if re.search(r"\b(h|e)_kernel<", k)
-                    and (_flag(k.split(": ", 1)[1], 2) or not _flag(k.split(": ", 1)[1], 1))}
+        # the parent's fold (dft_fold_kernel) is redesigned: a template of its shape here
+        replaced = {k for k in verdicts if k.startswith("dft_accum: ") and "dft_fold_kernel" in k}
         kept = {k: v for k, v in verdicts.items() if k not in replaced}
         changed = sorted(k for k, v in kept.items() if v != "same")
         for line in out_s.strip().splitlines():
@@ -3988,10 +3963,9 @@ def main() -> None:
         for k in sorted(kept):
             print(f"sass_compare vs {PARENT}: kept its machine code: {k}" if kept[k] == "same" else
                   f"sass_compare vs {PARENT}: {kept[k]}: {k}")
-        check(bool(kept) and not changed and len(replaced) == 28,
+        check(bool(kept) and not changed and len(replaced) == 1,
               f"sass_compare vs {PARENT}: {len(kept)} kernels keep their machine code (changed: {changed}); "
-              f"the {len(replaced)} CPML and vacuum (single and batched) two-pass instantiations replaced by "
-              f"march_kernel")
+              f"the fold redesigned: {sorted(replaced)}")
     else:
         print(f"sass_compare vs {PARENT}: not run (no git history and no scratch_chip/parent checkout)")
     sass_dir.cleanup()

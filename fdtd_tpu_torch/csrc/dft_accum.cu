@@ -49,14 +49,24 @@
 // fdtd_tpu_torch/ops/dft.py::plain_fold.  Bytes bind it: per cell it reads
 // 12 * depth B of means once and reads and writes 48 * nf B of sums once
 // (per step of the buffer: 12 + 48 * nf / depth B, against K4's 48 * nf),
-// at 12 * depth * nf operations.  Design: one thread per (component,
-// cell), i fastest, the cell's `depth` means in registers (FOLD_MAX levels
-// at most, loaded together, so their latencies overlap), a loop over the
-// frequencies with the next frequency's sums loaded before this one's
-// arithmetic; the weights of up to FOLD_FT frequencies staged in shared
-// memory as (cos, sin) pairs, one 8-byte read a level and frequency.  A
-// shard folds its own buffer into its part of the sums: only the cell
-// count matters.
+// at 12 * depth * nf operations, four a level and frequency, each its own
+// instruction (no fused multiply-add): at 16 frequencies and 32 levels they
+// take more than half the bytes' time, so the fold must overlap both.  Design: one thread per
+// (component, cell), i fastest, the cell's `depth` means in registers
+// (FOLD_MAX levels at most, loaded together, so their latencies overlap),
+// then the frequencies four at a time (two where fewer than eight leave a
+// last group half empty: dft_fold), a group's sums in registers while the
+// next group's (re, im) pairs load, the weights of a level and group read
+// as 16-byte vectors from shared memory (staged for up to FOLD_FT
+// frequencies), at two 256-thread blocks an SM (four with pairs; 80 and
+// 64 registers).  The first design, one frequency ahead and an 8-byte
+// weight read a level and frequency, kept about 6 KB in flight an SM while
+// the sums streamed: 70% of the bound against 83-93% now (PERF.md).  A
+// design that stages a block's tile of the buffer in shared memory and
+// moves four cells' sums a thread in 16-byte loads measured up to 6%
+// faster at 5-8 frequencies and no faster elsewhere, and takes cells % 4
+// == 0 alone; it is not built.  A shard folds its own buffer into its part
+// of the sums: only the cell count matters.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -119,14 +129,48 @@ dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __
     }
 }
 
-constexpr int FOLD_MAX = 32;  // levels a fold takes at most (ops/stream_plan.py::FOLD_DEPTH)
-constexpr int FOLD_FT = 32;   // frequencies whose weights a block stages at a time
+constexpr int FOLD_MAX = 32;      // levels a fold takes at most (ops/stream_plan.py::FOLD_DEPTH)
+constexpr int FOLD_FT = 32;       // frequencies whose weights a block stages at a time
+constexpr int FOLD_THREADS = 256;
 
-__global__ void __launch_bounds__(256)
+// the (cos, sin) weights of frequencies f0 .. f0+nt-1 at levels 0 .. depth-1,
+// FP frequencies of one level side by side (one vector read a level):
+// ws[((q / FP) * FOLD_MAX + d) * FP + q % FP] for frequency f0 + q
+template <int FP>
+__device__ __forceinline__ void stage_weights(float2* ws, const float* __restrict__ w, int depth, int nf, int f0,
+                                              int nt) {
+    for (int t = threadIdx.x; t < nt * depth; t += blockDim.x) {
+        const int d = t / nt, q = t % nt;
+        ws[((q / FP) * FOLD_MAX + d) * FP + q % FP] =
+            make_float2(w[(int64_t)(2 * d) * nf + f0 + q], w[(int64_t)(2 * d + 1) * nf + f0 + q]);
+    }
+}
+
+// the FP weight pairs of level d of a group
+template <int FP>
+__device__ __forceinline__ void weights_at(const float2* wg, int d, float2 (&cs)[FP]) {
+    if constexpr (FP % 2 == 0) {
+        const float4* v = reinterpret_cast<const float4*>(wg + d * FP);
+#pragma unroll
+        for (int p = 0; p < FP / 2; ++p) {
+            const float4 q = v[p];
+            cs[2 * p] = make_float2(q.x, q.y);
+            cs[2 * p + 1] = make_float2(q.z, q.w);
+        }
+    } else {
+#pragma unroll
+        for (int p = 0; p < FP; ++p) cs[p] = wg[d * FP + p];
+    }
+}
+
+// One thread per (component, cell) x = c * cells + cell, i fastest (the
+// design in the header above), FP frequencies a group, NB blocks an SM.
+template <int FP, int NB>
+__global__ void __launch_bounds__(FOLD_THREADS, NB)
 dft_fold_kernel(const float* __restrict__ mb, int depth, int64_t cells, const float* __restrict__ w, int nf, int nc,
                 float* __restrict__ re, float* __restrict__ im) {
-    __shared__ float2 ws[FOLD_FT][FOLD_MAX];  // (cos, sin) of frequency f0 + q at level d
-    const int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;  // c * cells + cell
+    __shared__ __align__(16) float2 ws[FOLD_FT * FOLD_MAX];
+    const int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const bool live = x < 3 * cells;
     float m[FOLD_MAX];
 #pragma unroll
@@ -135,31 +179,49 @@ dft_fold_kernel(const float* __restrict__ mb, int depth, int64_t cells, const fl
     for (int f0 = 0; f0 < nf; f0 += FOLD_FT) {
         const int nt = min(FOLD_FT, nf - f0);
         __syncthreads();
-        for (int q = threadIdx.x; q < nt * depth; q += blockDim.x) {
-            const int d = q / nt, fq = q % nt;
-            ws[fq][d] = make_float2(w[(int64_t)(2 * d) * nf + f0 + fq], w[(int64_t)(2 * d + 1) * nf + f0 + fq]);
-        }
+        stage_weights<FP>(ws, w, depth, nf, f0, nt);
         __syncthreads();
         if (!live) continue;
-        int64_t a = f0 * fs + x;
-        float nr = re[a], ni = im[a];
-        for (int fq = 0; fq < nt; ++fq) {
-            float vr = nr, vi = ni;
-            if (fq + 1 < nt) {
-                nr = re[a + fs];
-                ni = im[a + fs];
+        float* pr = re + f0 * fs + x;
+        float* pi = im + f0 * fs + x;
+        float cr[FP], ci[FP];
+#pragma unroll
+        for (int p = 0; p < FP; ++p) {
+            cr[p] = p < nt ? pr[p * fs] : 0.f;
+            ci[p] = p < nt ? pi[p * fs] : 0.f;
+        }
+        for (int g = 0; g < nt; g += FP) {
+            float nr[FP], ni[FP];
+#pragma unroll
+            for (int p = 0; p < FP; ++p) {
+                const bool ahead = g + FP + p < nt;
+                nr[p] = ahead ? pr[(FP + p) * fs] : 0.f;
+                ni[p] = ahead ? pi[(FP + p) * fs] : 0.f;
             }
+            const float2* wg = ws + (g / FP) * FOLD_MAX * FP;
 #pragma unroll
             for (int d = 0; d < FOLD_MAX; ++d) {
                 if (d < depth) {
-                    const float2 cs = ws[fq][d];
-                    vr = __fadd_rn(vr, __fmul_rn(cs.x, m[d]));
-                    vi = __fsub_rn(vi, __fmul_rn(cs.y, m[d]));
+                    float2 cs[FP];
+                    weights_at<FP>(wg, d, cs);
+#pragma unroll
+                    for (int p = 0; p < FP; ++p) {
+                        cr[p] = __fadd_rn(cr[p], __fmul_rn(cs[p].x, m[d]));
+                        ci[p] = __fsub_rn(ci[p], __fmul_rn(cs[p].y, m[d]));
+                    }
                 }
             }
-            re[a] = vr;
-            im[a] = vi;
-            a += fs;
+#pragma unroll
+            for (int p = 0; p < FP; ++p) {
+                if (g + p < nt) {
+                    pr[p * fs] = cr[p];
+                    pi[p * fs] = ci[p];
+                }
+                cr[p] = nr[p];
+                ci[p] = ni[p];
+            }
+            pr += FP * fs;
+            pi += FP * fs;
         }
     }
 }
@@ -223,8 +285,15 @@ int dft_fold(const void* means, int depth, int64_t cells, const void* w, int nf,
     if (means == nullptr || w == nullptr || re == nullptr || im == nullptr || depth < 1 || depth > FOLD_MAX
         || cells < 1 || nf < 1 || nc < 3)
         return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((3 * cells + 255) / 256);
-    dft_fold_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)means, depth, cells, (const float*)w, nf,
+    const unsigned blocks = (unsigned)((3 * cells + FOLD_THREADS - 1) / FOLD_THREADS);
+    // groups of four frequencies at two blocks an SM, but groups of two at
+    // four where a last group of four would be half empty or worse (nf % 4
+    // of 1 or 2) and nf < 8: at 256^3 x 32 levels, 3.586 against 3.842 ms at
+    // nf = 5, 2.401 against 2.595 at nf = 1; a tie at nf = 6 (NVIDIA H100
+    // 80GB HBM3, 700 W; PERF.md)
+    const bool pairs = nf < 8 && (nf % 4 == 1 || nf % 4 == 2);
+    auto kernel = pairs ? dft_fold_kernel<2, 4> : dft_fold_kernel<4, 2>;
+    kernel<<<blocks, FOLD_THREADS, 0, (cudaStream_t)stream>>>((const float*)means, depth, cells, (const float*)w, nf,
                                                               nc, (float*)re, (float*)im);
     return (int)cudaGetLastError();
 }

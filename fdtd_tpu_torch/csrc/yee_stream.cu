@@ -131,6 +131,13 @@
 // code.  Its instantiations are a build of this source of their own
 // (-DYEE_STREAM_FOLD: the entry point takes the means mode alone, the
 // default build everything else), so that the two compile in parallel.
+// It runs at the bands' shapes (wider tiles, which its shared memory
+// would allow, measured slower at 256^3 in fp32), and the lossy CPML
+// sweep's shell and interior take the coefficient ring the bands have no
+// room for.  Storing each level's E instead of its cell means, for the fold
+// to average (no cell-mean column, exchange or barrier here), made these
+// sweeps up to 1.28x faster but a fold on E levels 2-3x slower, a loss a
+// step, so the cell means stay (PERF.md).
 //
 // Shards (fdtd_tpu_torch/parallel; replaces the TPU's per-shard calls
 // fdtd_tpu/ops/pallas_stream.py::build_stream_shard_call and its j-tiled
@@ -941,7 +948,7 @@ int dispatch_ring(int s, int bj, int cr, void* const* in, void* const* out, int 
                   const void* hx_rows, const Material<T>& mat, const AdeSweep<T>& ade, const DftSweep& dft,
                   cudaStream_t stream) {
 #define YEE_RING_CASE(S_, BJ_, CR_)                                                                    \
-    if (s == S_ && bj == BJ_ && cr == CR_)                                                                \
+    if (s == S_ && bj == BJ_ && cr == (CR_))                                                              \
         return launch_ring<T, S_, BJ_, CR_, LOSSY, HET, SAR, ADE, DFT, BOX, FOLD>(in, out, K, J, I, g, fh, fe, tk, \
                                                                            has_patch, j0, j1, i0, i1,      \
                                                                            ez_rows, hx_rows, mat, ade, dft, \
@@ -1450,14 +1457,16 @@ int dispatch_pml(int s, int bj, int cr, void* const* in, void* const* out, int K
                  const void* hx_rows, const Material<T>& mat, const PsiSweep<T>& psw, const DftSweep& dft,
                  cudaStream_t stream) {
 #define YEE_PML_CASE(S_, BJ_, CR_)                                                                            \
-    if (s == S_ && bj == BJ_ && cr == CR_)                                                                     \
+    if (s == S_ && bj == BJ_ && cr == (CR_))                                                                   \
         return launch_pml<T, S_, BJ_, CR_, LOSSY, DFT, FOLD>(in, out, K, J, I, fh, fe, blocks, nblocks, has_patch, j0, \
                                                        j1, i0, i1, ez_rows, hx_rows, mat, psw, dft, stream);
     if constexpr (DFT) {
 #ifdef YEE_STREAM_CANDIDATES
         YEE_PML_CASE(2, 16, false)
 #endif
-        YEE_PML_CASE(2, 20, false)
+        // the lossy means mode carries the ca/cb ring, which the bands'
+        // shared memory cannot hold
+        YEE_PML_CASE(2, 20, LOSSY && FOLD)
     } else if constexpr (LOSSY) {
 #ifdef YEE_STREAM_CANDIDATES
         YEE_PML_CASE(2, 32, true)

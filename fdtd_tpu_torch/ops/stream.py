@@ -415,13 +415,20 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
     return out
 
 
+def means_shape(p: Params, levels: int, box: Box | None = None) -> tuple[int, ...]:
+    """The shape of ``levels`` levels of the means mode's fp32 buffer:
+    each level's three E cell means of every cell (a shard's: of its cell
+    box)."""
+    return (levels, 3) + (box.cell_shape(p) if box is not None else (p.maxk, p.maxj, p.maxi))
+
+
 def _check_means(p: Params, like: torch.Tensor, means: torch.Tensor, s: int, box: Box | None) -> None:
-    """The sweep's slice of the means buffer: a contiguous fp32 (s, 3,
-    *cells) tensor on the fields' device (a shard's: its cell box)."""
-    cells = box.cell_shape(p) if box is not None else (p.maxk, p.maxj, p.maxi)
-    if (means.device != like.device or means.dtype != torch.float32 or tuple(means.shape) != (s, 3, *cells)
+    """The sweep's slice of the means buffer: a contiguous fp32
+    :func:`means_shape` tensor of ``s`` levels on the fields' device."""
+    shape = means_shape(p, s, box)
+    if (means.device != like.device or means.dtype != torch.float32 or tuple(means.shape) != shape
             or not means.is_contiguous()):
-        raise ValueError(f"the means buffer's slice must be a contiguous float32 {(s, 3, *cells)} tensor on "
+        raise ValueError(f"the means buffer's slice must be a contiguous float32 {shape} tensor on "
                          f"{like.device}; got {means.dtype} {tuple(means.shape)} on {means.device}")
 
 

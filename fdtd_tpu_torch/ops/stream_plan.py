@@ -80,7 +80,9 @@ what fits beside the exchange buffers and the ring
 (:attr:`StreamPlan.dft_max_nf`).  A scene with more frequencies than
 every built depth's bands hold takes the means mode at the same shape
 (``StreamPlan.fold``: the buffer's depth D; ``FOLD`` instantiations of
-their own, so the bands keep their machine code): each level
+their own, so the bands keep their machine code; the lossy CPML sweep's
+shell and interior also carry the coefficient ring, which the bands have
+no room for): each level
 stores its three E cell means, fp32, into a (D, 3, cells) buffer in
 device memory, and ``csrc/dft_accum.cu``'s fold kernel adds the buffered
 levels to the sums, in step order, whenever the buffer is full and at
@@ -183,6 +185,10 @@ BLOCK_J_DFT_MATERIAL = {2: 24}
 # where the shards refuse s = 4: a shard owning 3 or 4 planes has too few
 # for the s = 4 sweep's 5-plane halo (pick_shard_plan)
 BLOCK_J_DFT_SHARD = {4: 24, 2: 24}
+# the means mode (StreamPlan.fold) keeps no sums in shared memory but runs
+# at the bands' shapes all the same: at 256^3 the wider ones (32 threads
+# along j; Debye 24) ran 1.06-1.43x slower a sweep in fp32 (python -m
+# fdtd_tpu_torch.tune_stream; NVIDIA H100 80GB HBM3, 700 W; PERF.md)
 # the means mode's buffer depth at most (levels): the fold kernel keeps a
 # cell's buffered means in registers (csrc/dft_accum.cu::FOLD_MAX)
 FOLD_DEPTH = 32
@@ -310,10 +316,10 @@ class StreamPlan:
     @property
     def dft_max_nf(self) -> int:
         """The most frequencies the DFT bands take at this shape (0 without
-        them): what fits in a block's shared memory beside the static
-        buffers and the ring (CPML: in both launches).  The means mode
-        (``fold``) of the same shape takes any number."""
-        if not self.dft:
+        them, and in the means mode, ``fold``, which keeps no sums in shared
+        memory and takes any number): what fits in a block's shared memory
+        beside the static buffers and the ring (CPML: in both launches)."""
+        if not self.dft or self.fold:
             return 0
         own = (SMEM_PER_BLOCK - self.smem_bytes) // (self.s * 6 * self.bj * self.bi * 4)
         return min(own, self.core.dft_max_nf) if self.core is not None else own
@@ -473,7 +479,7 @@ def plan_for(p: Params, s: int, lossy: bool = False, het: bool = False,
             raise ValueError(f"steps per sweep must be one of {tuple(table)} for this variant; got {s}")
         bj = table[s]
     if pml is not None:
-        return _pml_plan(p, s, lossy, pml, bj, dft, lossy and dft is None if cr is None else cr, fold)
+        return _pml_plan(p, s, lossy, pml, bj, dft, lossy and (dft is None or fold > 0) if cr is None else cr, fold)
     if cr is None:
         cr = ade or lossy and (dft is not None or COEF_RING_MATERIAL.get(s, False))
     K1, J1, I1 = window or p.padded_shape
@@ -620,7 +626,7 @@ def _pml_plan(p: Params, s: int, lossy: bool, pml: PMLConfig, bj: int, dft: DftC
     core = None
     if window is not None:
         k0, k1, j0, j1, i0, i1 = window
-        cbj, ccr = ((BLOCK_J_PML_INTERIOR_DFT[s], False) if dft is not None else
+        cbj, ccr = ((BLOCK_J_PML_INTERIOR_DFT[s], lossy and fold > 0) if dft is not None else
                     ((BLOCK_J_MATERIAL if lossy else BLOCK_J)[s], lossy and COEF_RING_MATERIAL.get(s, False)))
         core = dataclasses.replace(plan_for(p, s, lossy, bj=cbj, dft=dft, window=(k1 - k0, j1 - j0, i1 - i0), cr=ccr,
                                             fold=fold), origin=(k0, j0, i0))

@@ -182,7 +182,7 @@ def make_sharded_stream_runner(p: Params, mesh: Mesh, materials: Materials | Non
                 if out is None or out.ex.shape != sh.state.ex.shape or out.ex.dtype != sh.state.ex.dtype:
                     spare[q] = FieldState(*(torch.empty_like(t) for t in sh.state.tensors()))
                 if fold and q not in means_buf:
-                    means_buf[q] = torch.empty((fold, 3, *sh.box.cell_shape(p)), dtype=torch.float32,
+                    means_buf[q] = torch.empty(stream.means_shape(p, fold, sh.box), dtype=torch.float32,
                                                device=sh.device)
             level = 0  # the means mode's levels in every shard's buffer
             for g in range(n_sw):

@@ -365,7 +365,7 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
         odd_step = _kernel_step(p, coefs, src, profile, cp)
     spare: list = []  # the second state (and psi or P set), allocated at first use
     trailing_work: list = []  # the Debye SAR's edge work of the trailing steps, at first use
-    means_buf: list = []  # the means mode's (plan.fold, 3, K, J, I) buffer, at first use
+    means_buf: list = []  # the means mode's buffer of plan.fold levels, at first use
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
             psi: PsiState | None = None, pol: PolState | None = None, dacc=None) -> FieldState:
@@ -387,8 +387,7 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
             if src is not None:
                 ez_rows, hx_rows = sweep_drive_rows(src, amps_dev, s_steps, s.ex.dtype, profile)
             if plan.fold and not means_buf:
-                means_buf.append(torch.empty((plan.fold, 3, p.maxk, p.maxj, p.maxi), dtype=torch.float32,
-                                             device=device))
+                means_buf.append(torch.empty(stream.means_shape(p, plan.fold), dtype=torch.float32, device=device))
             level = 0  # the means mode's levels in the buffer
             for g in range(n_sw):
                 drive = None

@@ -133,9 +133,13 @@ def test_means_plans_count_the_buffer_in_memory_and_bytes():
     p = convert.params_from(_box(256, 4))
     sixteen = dft.DftConfig(tuple(2.40e10 + 6.25e7 * k for k in range(16)))
     plan = stream_plan.pick_plan(p, dft=sixteen)
-    bands = stream_plan.plan_for(p, plan.s, dft=sixteen)
     assert (plan.kernel, plan.s, plan.fold) == ("yee_stream_dft_means", 4, stream_plan.FOLD_DEPTH)
-    assert plan.dft_smem_bytes(16) == 0 and plan.dft_max_nf == bands.dft_max_nf == 2
+    # the bands' shape (BLOCK_J_DFT: wider tiles measured slower), the
+    # cell-mean column, and no sums in shared memory
+    assert (plan.bj, plan.tj, plan.ti, plan.means) == (stream_plan.BLOCK_J_DFT[4], plan.bj - 9, 32 - 9, True)
+    bands = stream_plan.plan_for(p, plan.s, dft=sixteen, bj=plan.bj)  # the bands at the means mode's shape
+    assert plan.smem_bytes == bands.smem_bytes and plan.dft_smem_bytes(16) == 0 and plan.dft_max_nf == 0
+    assert stream_plan.plan_for(p, plan.s, dft=sixteen).dft_max_nf == 2  # the bands at their own shape
     cells = p.maxk * p.maxj * p.maxi
     assert stream_plan.means_bytes(p, 32) == 12 * 32 * cells
     assert (stream_plan.stream_bytes(p, dft=sixteen, fold=32) - stream_plan.stream_bytes(p, dft=sixteen)
@@ -145,6 +149,10 @@ def test_means_plans_count_the_buffer_in_memory_and_bytes():
     padded = np.prod(p.padded_shape)
     assert plan.bytes_per_cell_step - bands.bytes_per_cell_step == pytest.approx(
         (24 + 2 * 8 * 16 * 3 / 32) * cells / padded - 8 * 16 * 3 * cells / padded / 4, rel=1e-12)
+    # the lossy CPML sweep's shell and interior take the coefficient ring, which the bands have no room for
+    pml = stream_plan.pick_plan(p, lossy=True, pml=PMLConfig(cells=10), dft=sixteen)
+    assert pml.fold and pml.cr and pml.core.cr and not stream_plan.plan_for(p, 2, lossy=True, pml=PMLConfig(cells=10),
+                                                                            dft=sixteen).cr
     # the buffer is as deep as memory allows, a multiple of s
     tight = stream_plan.stream_bytes(p, dft=sixteen, fold=12) / stream_plan.MEMORY_MARGIN
     assert stream_plan.pick_plan(p, dft=sixteen, memory_bytes=int(tight) + 1).fold == 12
@@ -397,24 +405,91 @@ def test_means_checkpoints_resume_across_packages(tmp_path, monkeypatch, writer)
 
 # --- the fold and the sweep's means ---------------------------------------------------------------
 
-def test_plain_fold_is_the_per_step_accumulation():
+def _ragged_params():
+    """A ragged 7 x 9 x 10-cell grid."""
+    return convert.params_from(Params(length=0.0105, width=0.0095, height=0.0075, spatial_step=0.001,
+                                      time_step=1e-12, simulation_time=10.5e-12, sampling_rate=10**6,
+                                      mode=Mode.COMPUTATION, dtype="float32"))
+
+
+def _fold_case():
+    """Random levels of cell means (8 of them), weights of 5 levels and 4
+    frequencies (a depth that divides nothing) and "eh" sums on a ragged
+    grid, and the sums after dft.accumulate of each level in step order."""
+    p = _ragged_params()
     rng = np.random.default_rng(7)
-    cells = (3, 4, 5)
-    means = torch.tensor(rng.uniform(-1, 1, (8, 3) + cells), dtype=torch.float32)
+    means = torch.tensor(rng.uniform(-1, 1, stream.means_shape(p, 8)), dtype=torch.float32)
     w = torch.tensor(rng.uniform(-1, 1, (5, 2, 4)), dtype=torch.float32)
-    acc0 = tuple(torch.tensor(rng.uniform(-1, 1, (4, 6) + cells), dtype=torch.float32) for _ in range(2))
-    got, want = tuple(a.clone() for a in acc0), tuple(a.clone() for a in acc0)
-    dft_ops.fold(means, w, got)
+    acc0 = tuple(torch.tensor(rng.uniform(-1, 1, (4, 6, p.maxk, p.maxj, p.maxi)), dtype=torch.float32)
+                 for _ in range(2))
+    want = tuple(a.clone() for a in acc0)
     for d in range(5):
         dft.accumulate(tuple(means[d]), w[d, 0], w[d, 1], want)
+    return p, means, w, acc0, want
+
+
+def test_plain_fold_is_the_per_step_accumulation():
+    p, means, w, acc0, want = _fold_case()
+    got = tuple(a.clone() for a in acc0)
+    dft_ops.fold(means, w, got)
     _equal(got, want, "fold")
     assert torch.equal(got[0][:, 3:], acc0[0][:, 3:])  # the H components of "eh" stay
     assert dft_ops.launches["dft_fold"] == 0
     for bad_w, bad_m, msg in ((torch.zeros(5, 2, 3), means, "weights"), (w, means[:4], "means buffer"),
-                              (torch.zeros(33, 2, 4), torch.zeros((33, 3) + cells), "means buffer"),
-                              (w, means.double(), "means buffer")):
+                              (torch.zeros(33, 2, 4), torch.zeros((33, 3, p.maxk, p.maxj, p.maxi)), "means buffer"),
+                              (w, means.double(), "means buffer"), (w, torch.zeros((8, 3) + p.padded_shape), "means")):
         with pytest.raises(ValueError, match=msg):
             dft_ops.fold(bad_m, bad_w, got)
+
+
+@pytest.mark.parametrize("mesh", [(2, 1, 1), (3, 1, 1), (2, 2, 1)])
+def test_plain_fold_of_a_shards_part(mesh):
+    """Each shard folds its part of the buffer into its part of the sums
+    (the fold sees cells only): the whole grid's sums there, bit for bit."""
+    p, means, w, acc0, want = _fold_case()
+    for box in M.shard_boxes(p, M.make_mesh(mesh, "cpu"), 1):
+        part = (slice(None),) * 2 + tuple(slice(a, b) for a, b in zip(*box.cells(p)))
+        got = tuple(a[part].contiguous() for a in acc0)
+        assert stream.means_shape(p, 8, box)[2:] == got[0].shape[2:]
+        dft_ops.fold(means[part].contiguous(), w, got)
+        _equal(got, tuple(a[part] for a in want), f"fold {box}")
+
+
+@pytest.mark.parametrize("sar", [False, True])
+@pytest.mark.parametrize("mesh", [None, (2, 1, 1), (2, 2, 1)])
+def test_plain_sweep_writes_each_steps_cell_means_into_the_buffer(mesh, sar):
+    """plain_sweep(means=) writes each step's E cell means (of the working
+    copy) into its level of the buffer: the last level is the output's
+    means, a shard's levels are the whole grid's over its cells (its halo
+    gives the plane past its window), and the fold of the levels adds what
+    the bands add."""
+    from fdtd_tpu_torch import diagnostics
+    from fdtd_tpu_torch.parallel.sharded_step import shard_coefs
+    from fdtd_tpu_torch.state import FieldState, update_coefs
+
+    p = _ragged_params()
+    rng = np.random.default_rng(8)
+    mats = water_block(p, lo=(0.2,) * 3, hi=(0.8,) * 3) if sar else None
+    coefs = update_coefs(p, mats, "cpu")
+    canon = convert.state_from_numpy({c: rng.uniform(-1.0, 1.0, p.padded_shape) for c in COMPONENTS}, "cpu",
+                                     torch.float32)
+    w = torch.tensor(rng.uniform(-1, 1, (2, 2, 2)), dtype=torch.float32)
+    whole = torch.full(stream.means_shape(p, 2), float("nan"))
+    out = stream.plain_sweep(p, canon, coefs, 2, None, None, torch.zeros((p.maxk, p.maxj, p.maxi)) if sar else None,
+                             means=whole)
+    _equal(tuple(whole[1]), diagnostics._e_cell_means(p, out), "the last level: the output's cell means")
+    sums_m, sums_b = (tuple(torch.zeros((2, 3, p.maxk, p.maxj, p.maxi)) for _ in range(2)) for _ in range(2))
+    dft_ops.fold(whole, w, sums_m)
+    stream.plain_sweep(p, canon, coefs, 2, None, None, torch.zeros((p.maxk, p.maxj, p.maxi)) if sar else None,
+                       dacc=sums_b, wts=w)
+    _equal(sums_m, sums_b, "the fold of the levels == the bands")
+    for box in ([] if mesh is None else [sh.box for sh in M.scatter(p, canon, M.make_mesh(mesh, "cpu"), 3)]):
+        st = FieldState(*(t[tuple(map(slice, box.lo, box.hi))].clone() for t in canon.tensors()))
+        buf = torch.full(stream.means_shape(p, 2, box), float("nan"))
+        stream.plain_sweep(p, st, shard_coefs(p, coefs, box, "cpu") if sar else coefs, 2, None, None,
+                           torch.zeros(box.cell_shape(p)) if sar else None, box=box, means=buf)
+        part = (slice(None),) * 2 + tuple(slice(a, b) for a, b in zip(*box.cells(p)))
+        _equal(buf, whole[part], f"a shard's levels, {box}")
 
 
 def test_sweep_checks_its_means():
@@ -426,7 +501,8 @@ def test_sweep_checks_its_means():
 
     s = convert.state_from_numpy({c: np.zeros(p.padded_shape) for c in COMPONENTS}, "cpu", torch.float32)
     out = FieldState(*(torch.empty_like(t) for t in s.tensors()))
-    means = torch.zeros((plan.s, 3, p.maxk, p.maxj, p.maxi))
+    means = torch.zeros(stream.means_shape(p, plan.s))
+    assert means.shape == (plan.s, 3, p.maxk, p.maxj, p.maxi)
     sums = dft.zero_dft_acc(p, cfg, "cpu")
     with pytest.raises(ValueError, match="means-mode"):
         stream.sweep(p, s, out, update_coefs(p), plan, dacc=sums, wts=torch.zeros((plan.s, 2, 6)))

@@ -217,12 +217,15 @@ _RING_VARIANTS = [v[:3] + v[4:] for v in stream_plan.VARIANTS if not v[3]]
 
 def _built_plans(p, window=None):
     """Every built ring_kernel plan of ``p`` (each variant at each built
-    depth; the DFT variants at nf = 1)."""
+    depth; the DFT variants at nf = 1, and their means mode at the same
+    shapes with a buffer of one sweep)."""
     cfg = DftConfig((1e9,))
     for lossy, het, sar, ade, dft in _RING_VARIANTS:
-        table = stream_plan._block_j(lossy or het or sar, False, ade, sar, dft)
-        for s in table:
-            yield stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg if dft else None, window=window)
+        for means in (False, True) if dft else (False,):
+            table = stream_plan._block_j(lossy or het or sar, False, ade, sar, dft, window is not None)
+            for s in table:
+                yield stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=cfg if dft else None, window=window,
+                                           fold=s if means else 0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
