@@ -1,0 +1,278 @@
+"""The plain reference: the oven's Yee leapfrog as straightforward torch
+slice arithmetic, independent of the program under test.
+
+It follows the upstream C loop (main.c:765-779): the source hard-set,
+update_H, the source hard-set again, update_E, in fp32 on the padded
+(maxk+1, maxj+1, maxi+1) layout, E updated only inside the PEC walls.
+Beside the update it keeps what a run's traffic asks for, each step on
+the state that ends it: the SAR map (sigma |E|^2 dt at cell centres,
+fp32), the E phasor sums at each DFT frequency (fp32 (re, im) pairs of
+the cell-centred means), the probe rows (the six cell-centred
+components at each probe cell) and, every ``output_every`` steps and at
+step 0, the cavity's electric and magnetic energy (in fp64).
+
+Everything it needs it works out again from the run's inputs: the
+source patch and its drive, the lossy coefficients from the eps_r and
+sigma maps, the DFT weights from the time counters.  It imports
+neither jax nor the JAX package nor the program.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+# the upstream code's constants (main.c:22-25)
+MU = 1.25663706143591729538505735331180115367886775975e-6
+EPSILON = 8.854e-12
+PI = 3.14159265358979323846264338327950288419716939937510582097494
+CELERITY = 299792458.0
+
+F32 = torch.float32
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to fp32, as a Python float."""
+    return float(np.float32(x))
+
+
+class Scene:
+    """The inputs of a run, as plain numbers and arrays.
+
+    ``grid`` (maxk, maxj, maxi); ``box`` (length, width, height) in m as
+    C floats; ``dx``, ``dt``; ``source_hz`` and the port's ``patch``
+    (a', b') in m; ``maps`` None or the (eps_r, sigma) fp64 cell maps;
+    ``sar``; ``dft_hz``; ``probes`` (k, j, i) cells; ``output_every``.
+    """
+
+    def __init__(self, grid, box, dx, dt, source_hz, patch, maps=None, sar=False, dft_hz=(), probes=(),
+                 output_every=1000):
+        self.grid = tuple(int(n) for n in grid)
+        self.box = tuple(float(v) for v in box)
+        self.dx, self.dt = float(dx), float(dt)
+        self.source_hz = float(source_hz)
+        self.patch = tuple(float(v) for v in patch)
+        self.maps = maps
+        self.sar = bool(sar)
+        self.dft_hz = tuple(float(f) for f in dft_hz)
+        self.probes = tuple(tuple(int(c) for c in p) for p in probes)
+        self.output_every = int(output_every)
+
+    @property
+    def padded(self) -> tuple[int, int, int]:
+        K, J, I = self.grid
+        return (K + 1, J + 1, I + 1)
+
+
+def source_patch(sc: Scene):
+    """(j0, j1, i0, i1, 1/Z_te, profile): the TE10 port's k = 0 patch
+    with the upstream's one-cell slop, its wave impedance and the
+    sin(pi x / a') profile along i, fp64 (main.c:712-753)."""
+    length, width, _ = sc.box
+    aprime, bprime = sc.patch
+    dx = sc.dx
+    min_y = width / 2.0 - aprime / 2.0
+    max_y = min_y + aprime
+    min_x = length / 2.0 - bprime / 2.0
+    max_x = min_x + bprime
+    j0, j1 = int(min_y / dx) - 1, int(max_y / dx) + 1
+    i0, i1 = int(min_x / dx) - 1, int(max_x / dx) + 1
+    f_mnl = 0.5 * CELERITY * math.sqrt((PI / width) ** 2 + (PI / length) ** 2) / PI
+    omega = 2.0 * PI * f_mnl
+    z_te = (omega * MU) / math.sqrt(omega ** 2 * MU * EPSILON - (PI / width) ** 2)
+    profile = np.array([math.sin(PI * (s * dx) / aprime) for s in range(i1 - i0)], np.float64)
+    return j0, j1, i0, i1, 1.0 / z_te, profile
+
+
+def time_counters(dt: float, steps: int) -> np.ndarray:
+    """The loop's fp64 time counters, ``t += dt`` from 0."""
+    ts = np.empty(steps, np.float64)
+    t = 0.0
+    for n in range(steps):
+        ts[n] = t
+        t += dt
+    return ts
+
+
+def _edge_mean(cells: torch.Tensor, axes) -> torch.Tensor:
+    """Cell values at the edges along the third axis: the mean over the
+    cells around each edge, the wall edges taking the wall cells' values."""
+    out = cells
+    for ax in axes:
+        n = out.shape[ax]
+        out = torch.cat([out.narrow(ax, 0, 1), out, out.narrow(ax, n - 1, 1)], dim=ax)
+    for ax in axes:
+        n = out.shape[ax]
+        out = 0.5 * (out.narrow(ax, 0, n - 1) + out.narrow(ax, 1, n - 1))
+    return out
+
+
+def lossy_coefs(sc: Scene, device):
+    """{'x','y','z': (ca, cb)} padded fp32 tensors of the lossy E update
+    E <- ca E + cb curl H, with ca = (1 - s) / (1 + s), cb = dt / (eps dx)
+    / (1 + s), s = sigma dt / (2 eps), eps and sigma averaged onto each
+    edge in fp64; ca 1 and cb 0 outside each component's extent."""
+    eps_r, sigma = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in sc.maps)
+    dt, dx = sc.dt, sc.dx
+    out = {}
+    for comp, axes in (("x", (0, 1)), ("y", (0, 2)), ("z", (1, 2))):
+        eps_e = _edge_mean(eps_r, axes) * EPSILON
+        sig_e = _edge_mean(sigma, axes)
+        s = sig_e * dt / (2.0 * eps_e)
+        ca = torch.ones(sc.padded, dtype=torch.float64, device=device)
+        cb = torch.zeros(sc.padded, dtype=torch.float64, device=device)
+        ek, ej, ei = eps_e.shape
+        ca[:ek, :ej, :ei] = (1.0 - s) / (1.0 + s)
+        cb[:ek, :ej, :ei] = (dt / (eps_e * dx)) / (1.0 + s)
+        out[comp] = (ca.to(F32), cb.to(F32))
+    return out
+
+
+def e_means(f: dict, K: int, J: int, I: int):
+    """Cell-centred means of the four E edges around each cell
+    (main.c:602-634), fp32."""
+    ex, ey, ez = f["ex"], f["ey"], f["ez"]
+    mx = 0.25 * (ex[:K, :J, :I] + ex[1:K + 1, :J, :I] + ex[:K, 1:J + 1, :I] + ex[1:K + 1, 1:J + 1, :I])
+    my = 0.25 * (ey[:K, :J, :I] + ey[:K, :J, 1:I + 1] + ey[1:K + 1, :J, :I] + ey[1:K + 1, :J, 1:I + 1])
+    mz = 0.25 * (ez[:K, :J, :I] + ez[:K, 1:J + 1, :I] + ez[:K, :J, 1:I + 1] + ez[:K, 1:J + 1, 1:I + 1])
+    return mx, my, mz
+
+
+def h_means(f: dict, K: int, J: int, I: int):
+    """Cell-centred means of the two H faces of each cell (main.c:636-668)."""
+    hx, hy, hz = f["hx"], f["hy"], f["hz"]
+    return (0.5 * (hx[:K, :J, :I] + hx[:K, :J, 1:I + 1]),
+            0.5 * (hy[:K, :J, :I] + hy[:K, 1:J + 1, :I]),
+            0.5 * (hz[:K, :J, :I] + hz[1:K + 1, :J, :I]))
+
+
+def energies(f: dict, sc: Scene) -> tuple[float, float]:
+    """(electric, magnetic) energy of the cavity in fp64, from the cell
+    means (main.c:602-668)."""
+    K, J, I = sc.grid
+    dv = sc.dx ** 3
+    d = {n: t.to(torch.float64) for n, t in f.items()}
+    e = sum(float((m * m).sum()) for m in e_means(d, K, J, I))
+    h = sum(float((m * m).sum()) for m in h_means(d, K, J, I))
+    return e * dv * (EPSILON / 2.0), h * dv * (MU / 2.0)
+
+
+class Reference:
+    """The reference run of one scene from a given state, on ``device``."""
+
+    def __init__(self, sc: Scene, device):
+        self.sc = sc
+        self.device = device
+        self.j0, self.j1, self.i0, self.i1, self.inv_z_te, self.profile = source_patch(sc)
+        self.hf = f32(sc.dt / (MU * sc.dx))  # main.c:441
+        self.cb0 = f32(sc.dt / (EPSILON * sc.dx))  # main.c:479
+        self.coefs = lossy_coefs(sc, device) if sc.maps is not None else None
+        self.sigma = (torch.as_tensor(sc.maps[1], dtype=F32, device=device)
+                      if sc.maps is not None and sc.sar else None)
+
+    def drive_rows(self, ts: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each step's Ez and Hx rows of the patch: sin(2 pi f t) times the
+        profile in fp64, rounded once to fp32."""
+        amp = np.sin((2.0 * PI * self.sc.source_hz) * ts)
+        row = amp[:, None] * self.profile[None, :]
+        hx = (-self.inv_z_te) * row
+        return (torch.as_tensor(row.astype(np.float32), device=self.device),
+                torch.as_tensor(hx.astype(np.float32), device=self.device))
+
+    def source(self, f: dict, ez_row: torch.Tensor, hx_row: torch.Tensor) -> None:
+        sl = (0, slice(self.j0, self.j1), slice(self.i0, self.i1))
+        f["ez"][sl] = ez_row
+        f["ex"][sl] = 0.0
+        f["hz"][sl] = 0.0
+        f["hx"][sl] = hx_row
+
+    def update_h(self, f: dict) -> None:
+        """H <- H + dt/(mu dx) curl E (main.c:431-462)."""
+        K, J, I = self.sc.grid
+        ex, ey, ez, fh = f["ex"], f["ey"], f["ez"], self.hf
+        f["hx"][:K, :J, :] = f["hx"][:K, :J, :] + fh * (
+            (ey[1:K + 1, :J, :] - ey[:K, :J, :]) - (ez[:K, 1:J + 1, :] - ez[:K, :J, :]))
+        f["hy"][:K, :, :I] = f["hy"][:K, :, :I] + fh * (
+            (ez[:K, :, 1:I + 1] - ez[:K, :, :I]) - (ex[1:K + 1, :, :I] - ex[:K, :, :I]))
+        f["hz"][:, :J, :I] = f["hz"][:, :J, :I] + fh * (
+            (ex[:, 1:J + 1, :I] - ex[:, :J, :I]) - (ey[:, :J, 1:I + 1] - ey[:, :J, :I]))
+
+    def update_e(self, f: dict) -> None:
+        """E <- ca E + cb curl H inside the walls (main.c:469-500)."""
+        K, J, I = self.sc.grid
+        hx, hy, hz = f["hx"], f["hy"], f["hz"]
+        sx = (slice(1, K), slice(1, J), slice(0, I))
+        sy = (slice(1, K), slice(0, J), slice(1, I))
+        sz = (slice(0, K), slice(1, J), slice(1, I))
+        curl_x = (hz[1:K, 1:J, :I] - hz[1:K, 0:J - 1, :I]) - (hy[1:K, 1:J, :I] - hy[0:K - 1, 1:J, :I])
+        curl_y = (hx[1:K, :J, 1:I] - hx[0:K - 1, :J, 1:I]) - (hz[1:K, :J, 1:I] - hz[1:K, :J, 0:I - 1])
+        curl_z = (hy[:K, 1:J, 1:I] - hy[:K, 1:J, 0:I - 1]) - (hx[:K, 1:J, 1:I] - hx[:K, 0:J - 1, 1:I])
+        for name, sl, curl, c in (("ex", sx, curl_x, "x"), ("ey", sy, curl_y, "y"), ("ez", sz, curl_z, "z")):
+            if self.coefs is None:
+                f[name][sl] = f[name][sl] + self.cb0 * curl
+            else:
+                ca, cb = self.coefs[c]
+                f[name][sl] = ca[sl] * f[name][sl] + cb[sl] * curl
+
+    def deposit(self, f: dict, power: torch.Tensor) -> None:
+        """power += (sigma |E|^2) dt at the cell centres, fp32."""
+        K, J, I = self.sc.grid
+        mx, my, mz = e_means(f, K, J, I)
+        esq = mx * mx + my * my + mz * mz
+        power.add_(self.sigma * esq * f32(self.sc.dt))
+
+    def dft_add(self, f: dict, re: torch.Tensor, im: torch.Tensor, cw: torch.Tensor, sw: torch.Tensor) -> None:
+        """re += cos(w t) E, im -= sin(w t) E for each frequency, on the
+        cell means; ``cw``/``sw`` this step's fp32 weights."""
+        K, J, I = self.sc.grid
+        means = torch.stack(e_means(f, K, J, I))
+        for q in range(re.shape[0]):
+            re[q] += cw[q] * means
+            im[q] -= sw[q] * means
+
+    def probe_rows(self, f: dict) -> torch.Tensor:
+        """(n_probes, 6) fp32: the six cell-centred components at each
+        probe cell."""
+        rows = []
+        for k, j, i in self.sc.probes:
+            cell = {n: t[k:k + 2, j:j + 2, i:i + 2] for n, t in f.items()}
+            means = e_means(cell, 1, 1, 1) + h_means(cell, 1, 1, 1)
+            rows.append(torch.stack([m[0, 0, 0] for m in means]))
+        return torch.stack(rows)
+
+    def follow(self, fields: dict, steps: int) -> dict:
+        """Run ``steps`` steps from ``fields`` ({name: fp32 host array});
+        returns {'state', 'power', 'dft' (re, im), 'probes', 'energy'
+        {iteration: (E, H)}}."""
+        sc, dev = self.sc, self.device
+        K, J, I = sc.grid
+        f = {n: torch.as_tensor(a, dtype=F32, device=dev).clone() for n, a in fields.items()}
+        ts = time_counters(sc.dt, steps)
+        ez_rows, hx_rows = self.drive_rows(ts)
+        power = torch.zeros((K, J, I), dtype=F32, device=dev) if sc.sar else None
+        dft = None
+        if sc.dft_hz:
+            ph = 2.0 * np.pi * np.asarray(sc.dft_hz, np.float64)[None, :] * ts[:, None]
+            cw = torch.as_tensor(np.cos(ph).astype(np.float32), device=dev)
+            sw = torch.as_tensor(np.sin(ph).astype(np.float32), device=dev)
+            shape = (len(sc.dft_hz), 3, K, J, I)
+            dft = (torch.zeros(shape, dtype=F32, device=dev), torch.zeros(shape, dtype=F32, device=dev))
+        rows = []
+        energy = {0: energies(f, sc)}
+        for n in range(steps):
+            self.source(f, ez_rows[n], hx_rows[n])
+            self.update_h(f)
+            self.source(f, ez_rows[n], hx_rows[n])
+            self.update_e(f)
+            if power is not None:
+                self.deposit(f, power)
+            if dft is not None:
+                self.dft_add(f, dft[0], dft[1], cw[n], sw[n])
+            if sc.probes:
+                rows.append(self.probe_rows(f))
+            if (n + 1) % sc.output_every == 0:
+                energy[n + 1] = energies(f, sc)
+        probes = torch.stack(rows) if rows else None
+        return {"state": f, "power": power, "dft": dft, "probes": probes, "energy": energy}

@@ -1,0 +1,119 @@
+"""The check's control and its faults, at a size a test run holds.
+
+The control is the program's own lower-precision path: the same cell with
+bfloat16 field storage, the precision below the configurations' fp32.
+The faults break the timed path underneath the harness, at the program's
+public entry, and leave everything else of a run as it is: a run whose
+steps leave the state unchanged, a run that updates only half of the
+grid, and runs in which one answer is altered where it is produced.
+``correct`` has to come out false each time.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import WORKLOADS
+from core import seeded
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_bfloat16_control_is_not_correct(run_tiny, workload):
+    r = run_tiny(workload, config_over={"dtype": "bfloat16"})
+    assert not r["correct"], r["checks"]
+    # the fields themselves give it away, whatever else the cell compares
+    assert r["checks"]["state_err"]["value"] > r["checks"]["state_err"]["limit"]
+
+
+def _initial(kw) -> dict:
+    return seeded.read_checkpoint_fields(f"{kw['out_dir']}/{seeded.CHECKPOINT}")
+
+
+def _rewrite_log(path: str, edit) -> None:
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    recs = edit(recs)
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in recs)
+
+
+def frozen(res, kw):
+    """Every step returns its state unchanged: the fields stay the seeded
+    ones, the log repeats the first record, nothing is deposited or summed,
+    the probes read the first state."""
+    init = _initial(kw)
+    for n in seeded.COMPONENTS:
+        getattr(res.state, n).copy_(torch.as_tensor(init[n]))
+    _rewrite_log(kw["diagnostics_log"], lambda recs: [dict(r, **{k: recs[0][k] for k in
+                                                                 ("E_energy", "H_energy", "total")}) for r in recs])
+    if res.power_j is not None:
+        res.power_j.zero_()
+    if res.dft is not None:
+        res.dft.phasors[...] = 0
+    if res.probes is not None:
+        res.probes.values[...] = res.probes.values[:1]
+
+
+def half(res, kw):
+    """Half of the grid (the upper k planes) left out of every step."""
+    init = _initial(kw)
+    for n in seeded.COMPONENTS:
+        t = getattr(res.state, n)
+        k = t.shape[0] // 2
+        t[k:] = torch.as_tensor(init[n][k:])
+    if res.power_j is not None:
+        res.power_j[res.power_j.shape[0] // 2:] = 0
+    if res.dft is not None:
+        res.dft.phasors[:, :, res.dft.phasors.shape[2] // 2:] = 0
+
+
+def altered_state(res, kw):
+    """One field value altered where the step writes it."""
+    ez = res.state.ez
+    ez[ez.shape[0] // 2, ez.shape[1] // 2, ez.shape[2] // 2] += 0.01 * float(ez.abs().max())
+
+
+def altered_energy(res, kw):
+    """One energy record altered where the log writes it."""
+    def edit(recs):
+        recs[1]["E_energy"] *= 1.001
+        return recs
+    _rewrite_log(kw["diagnostics_log"], edit)
+
+
+def altered_map(res, kw):
+    """One cell of the SAR map, one DFT sum or one probe value altered."""
+    if res.power_j is not None:
+        p = res.power_j
+        p[p.shape[0] // 2, p.shape[1] // 2, p.shape[2] // 2] *= 1.01
+    if res.dft is not None:
+        ph = res.dft.phasors
+        ph[0, 0, ph.shape[2] // 2, ph.shape[3] // 2, ph.shape[4] // 2] *= 1.01
+    if res.probes is not None:
+        res.probes.values[len(res.probes.values) // 2, 0, 2] += np.float32(0.01)
+
+
+FAULTS = {"frozen": frozen, "half": half, "altered_state": altered_state, "altered_energy": altered_energy,
+          "altered_map": altered_map}
+
+
+# the empty long run produces no map, sums or probe rows to alter
+CASES = [(w, f) for w in WORKLOADS for f in FAULTS if not (f == "altered_map" and w == "oven_256.long")]
+
+
+@pytest.mark.parametrize("workload,fault", CASES)
+def test_faults_are_not_correct(run_tiny, monkeypatch, workload, fault):
+    from fdtd_tpu_torch import runner
+
+    real = runner.run_simulation
+
+    def broken(p, device, **kw):
+        res = real(p, device, **kw)
+        FAULTS[fault](res, kw)
+        return res
+
+    monkeypatch.setattr(runner, "run_simulation", broken)
+    r = run_tiny(workload)
+    assert not r["correct"], (fault, r["checks"])

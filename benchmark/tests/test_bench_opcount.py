@@ -1,0 +1,61 @@
+"""The operation counts (core/opcount.py) against a count of every
+arithmetic operation the plain reference's update runs, taken under a
+dispatch mode at small grids."""
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from core import opcount
+from reference.plain import Reference, Scene
+
+ELEMENTWISE = {"add", "sub", "mul", "add_", "sub_", "mul_", "rsub"}
+
+
+class Count(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func._schema.name.split("::")[-1]
+        if name in ELEMENTWISE and args[0].dtype.is_floating_point:
+            self.ops += out.numel()
+        elif name == "sum":
+            self.ops += args[0].numel() - 1
+        return out
+
+
+@pytest.mark.parametrize("maps,sar,dft,probes", [
+    (False, False, (), ()),
+    (True, True, (), ()),
+    (False, False, (2.4e10, 2.45e10, 2.5e10, 2.55e10), ()),
+    (True, True, (), ((1, 2, 3), (4, 4, 4), (6, 5, 2))),
+])
+@pytest.mark.parametrize("grid", [(8, 9, 10), (12, 12, 12)])
+def test_counts_match_the_reference_update(maps, sar, dft, probes, grid):
+    K, J, I = grid
+    lmaps = None
+    if maps:
+        eps = torch.ones(grid, dtype=torch.float64)
+        eps[2:5, 2:6, 3:7] = 78.0
+        lmaps = (eps.numpy(), (eps > 1).double().numpy() * 1.7)
+    steps, every = 4, 2
+    sc = Scene(grid, (I * 1e-3, J * 1e-3, K * 1e-3), 1e-3, 1e-12, 2.45e10, (0.005, 0.005), maps=lmaps, sar=sar,
+               dft_hz=dft, probes=probes, output_every=every)
+    ref = Reference(sc, "cpu")
+    fields = {n: torch.rand(sc.padded).numpy() for n in ("ex", "ey", "ez", "hx", "hy", "hz")}
+    with Count() as c:
+        ref.follow(fields, steps)
+    p = opcount.parts(grid, maps, sar, len(dft), len(probes))
+    records = 1 + steps // every  # step 0 and every output_every steps
+    want = steps * (p["h"] + p["e"] + p["sar"] + p["dft"] + p["probes"]) + records * p["energy_record"]
+    assert c.ops == want
+    assert opcount.per_step(grid, maps, sar, len(dft), len(probes), every) * steps + p["energy_record"] == want
+
+
+def test_vacuum_cell_counts_thirty_a_cell():
+    n = 256
+    ops = opcount.per_step((n, n, n), False, False, 0, 0, 1000)
+    assert 29.9 * n ** 3 < ops < 30.1 * n ** 3
