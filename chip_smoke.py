@@ -3601,7 +3601,8 @@ def main() -> None:
                                               dev, batched)
             print(f"sweep idle {n_b}^3 x{m_b} twopass {'batched' if batched else 'per member'}: wall "
                   f"{rec['wall_ms_per_step']!r} ms a step, device {rec['device_ms_per_step']!r} ms, idle share "
-                  f"{rec['idle_share']!r}; launches a step {rec['launches_per_step']} ({smi})", flush=True)
+                  f"{rec['idle_share_profiled']!r} (profiled); launches a step {rec['launches_per_step']} ({smi})",
+                  flush=True)
     phase_done("10 sweeps")
 
     # -- 8. timing ---------------------------------------------------------

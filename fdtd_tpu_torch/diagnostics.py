@@ -21,6 +21,7 @@ from .constants import EPSILON, MU
 from .grid import Box, full_box
 from .ops.dispersive import work_cell_means
 from .params import Params
+from .spans import SAR_INCREMENT, span
 from .state import FieldState
 
 
@@ -198,7 +199,7 @@ def power_deposition(p: Params, s: FieldState, sigma_cells: torch.Tensor,
     return sigma_cells[k_lo:k_hi].to(esq.dtype) * esq
 
 
-SAR_LABEL = "sar_increment"  # the profiler range of the per-step increment
+SAR_LABEL = SAR_INCREMENT  # the profiler span of the per-step increment
 # cells per slab of the per-step increment: its temporaries (the widened E
 # planes of bf16 fields, the three cell means, the products and sums) hold
 # at most about 7 fp32 values a cell of one slab, not of the whole grid;
@@ -225,7 +226,7 @@ def accumulate_power(p: Params, s: FieldState, sigma_cells: torch.Tensor | None,
     dt = float(np.float32(p.time_step)) if _acc_dtype(s.ex) == torch.float32 else p.time_step
     kb = sar_slab_planes(p)
     nk = sigma_cells.shape[0]
-    with torch.profiler.record_function(SAR_LABEL):
+    with span(SAR_LABEL):
         for k_lo in range(0, nk, kb):
             k_hi = min(nk, k_lo + kb)
             inc = power_deposition(p, s, sigma_cells, (k_lo, k_hi), box)
@@ -237,13 +238,13 @@ def accumulate_work(p: Params, work: tuple[torch.Tensor, ...], acc: torch.Tensor
     * dt`` rounded to fp32, in place: the true dielectric and ionic work
     of the ADE update (``ops.dispersive.update_e_ade`` with ``work``), the
     per-step increment of ``fdtd_tpu.ops.dispersive``'s chunk runners.  A
-    slab of k planes at a time, under the profiler range of
+    slab of k planes at a time, under the profiler span of
     :func:`accumulate_power`.  With ``box``, a shard's cells (``work`` its
     arrays with the halo plane above filled, ``acc`` its part of the map)."""
     dt = float(np.float32(p.time_step)) if work[0].dtype == torch.float32 else p.time_step
     kb = sar_slab_planes(p)
     nk = acc.shape[0]
-    with torch.profiler.record_function(SAR_LABEL):
+    with span(SAR_LABEL):
         for k_lo in range(0, nk, kb):
             k_hi = min(nk, k_lo + kb)
             inc = work_cell_means(p, *work, (k_lo, k_hi), box)

@@ -28,6 +28,7 @@ from .dft import DftConfig, accumulate
 from .grid import Box
 from .ops import dft as dft_ops
 from .params import Params
+from .spans import PROBE_GATHER, span
 from .state import FieldState
 
 COMPONENTS = ("ex", "ey", "ez", "hx", "hy", "hz")
@@ -93,7 +94,10 @@ def apply_monitors(p: Params, s: FieldState, weights: torch.Tensor | None, dft: 
         if dft.fields == "eh":
             owned = box.local(*box.cells(p)) if box is not None else ()
             accumulate(diagnostics._h_cell_means(p, s, *owned), weights[0], weights[1], dacc, c0=3)
-    return probe_row(p, s, cells) if cells is not None else None
+    if cells is None:
+        return None
+    with span(PROBE_GATHER):
+        return probe_row(p, s, cells)
 
 
 def weight_rows(cw: np.ndarray, sw: np.ndarray, device) -> torch.Tensor:

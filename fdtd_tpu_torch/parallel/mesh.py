@@ -44,6 +44,7 @@ from ..grid import COMPONENTS, Box
 from ..ops.cpml import PMLConfig, PsiState, cut_psi, join_psi
 from ..ops.dispersive import PolState
 from ..params import Params
+from ..spans import HALO_EXCHANGE, span
 from ..state import FieldState
 
 AXES = ("z", "y", "x")
@@ -218,7 +219,7 @@ def gather(p: Params, shards: list[Shard], state: FieldState, power: torch.Tenso
                 dst[_cells(p, sh.box)].copy_(src)
 
 
-HALO_LABEL = "halo_exchange"  # the profiler range of the halo copies
+HALO_LABEL = HALO_EXCHANGE  # the profiler span of the halo copies
 
 
 def exchange(mesh: Mesh, shards: list[Shard], names=COMPONENTS, sides=("lo", "hi"),
@@ -234,7 +235,7 @@ def exchange(mesh: Mesh, shards: list[Shard], names=COMPONENTS, sides=("lo", "hi
     arrays = arrays or (lambda sh, name: getattr(sh.state, name))
     nz, ny, nx = mesh.shape
     stride = (ny * nx, nx, 1)
-    with torch.profiler.record_function(HALO_LABEL):
+    with span(HALO_LABEL):
         for a in (2, 1, 0):
             if mesh.shape[a] == 1:
                 continue

@@ -54,6 +54,7 @@ from ..ops import dft as dft_ops
 from ..ops import stream, stream_plan
 from ..params import Mode, Params
 from ..source import sweep_drive_rows
+from ..spans import PLAN, span
 from ..state import FieldState, Materials
 from .mesh import Mesh, Shard, exchange, shard_boxes
 from .sharded_step import ShardContext, check_scene, make_step, run_chunk
@@ -141,7 +142,8 @@ def make_sharded_stream_runner(p: Params, mesh: Mesh, materials: Materials | Non
     check_scene(materials, accumulate_power)
     lossy = materials is not None and not materials.is_vacuum
     het = lossy and materials.mu_r is not None
-    plans = pick_shard_plan(p, mesh, s, lossy, het, accumulate_power, free, dft)
+    with span(PLAN):
+        plans = pick_shard_plan(p, mesh, s, lossy, het, accumulate_power, free, dft)
     if plans is None:
         raise ValueError(
             f"no sharded stream plan fits {p.maxk}x{p.maxj}x{p.maxi} {p.dtype} on a {mesh.shape} mesh"

@@ -54,6 +54,7 @@ from ..ops.cpml import PMLConfig
 from ..ops.dispersive import DebyeMaterials
 from ..params import Mode, Params
 from ..source import apply_source, make_source_plan, profile_tensor
+from ..spans import COEFS, PROBE_GATHER, span
 from ..state import Materials, UpdateCoefs, update_coefs
 from .mesh import Mesh, Shard, exchange, part, shard_boxes
 
@@ -97,12 +98,13 @@ class ShardContext:
                  pml: PMLConfig | None = None, dft: DftConfig | None = None, probes: ProbeSet | None = None):
         self.p, self.mesh = p, mesh
         debye = isinstance(materials, DebyeMaterials)
-        host = update_coefs(p, None if debye else materials, "cpu")
-        self.coefs = [shard_coefs(p, host, box, dev) for box, dev in zip(boxes, mesh.devices)]
-        self.dc = None
-        if debye:
-            dc = dispersive.debye_coefs(p, materials, "cpu")
-            self.dc = [dispersive.shard_debye_coefs(dc, box, dev) for box, dev in zip(boxes, mesh.devices)]
+        with span(COEFS):
+            host = update_coefs(p, None if debye else materials, "cpu")
+            self.coefs = [shard_coefs(p, host, box, dev) for box, dev in zip(boxes, mesh.devices)]
+            self.dc = None
+            if debye:
+                dc = dispersive.debye_coefs(p, materials, "cpu")
+                self.dc = [dispersive.shard_debye_coefs(dc, box, dev) for box, dev in zip(boxes, mesh.devices)]
         self.cpml = ([cpml.make_cpml(p, pml, cf, dev, box) for cf, box, dev in zip(self.coefs, boxes, mesh.devices)]
                      if pml is not None else None)
         self.dft, self.probes = dft, probes
@@ -172,7 +174,8 @@ class ShardContext:
         if self.probes is None:
             return None
         main = shards[0].device
-        return torch.cat([probe_row(self.p, shards[q].state, (cell,)).to(main) for q, cell in self.owners])
+        with span(PROBE_GATHER):
+            return torch.cat([probe_row(self.p, shards[q].state, (cell,)).to(main) for q, cell in self.owners])
 
 
 def make_step(ctx: ShardContext, backend: str, accumulate_power: bool):

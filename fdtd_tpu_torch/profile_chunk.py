@@ -37,9 +37,9 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
   ``accumulate_work`` open, taken out of ``other``) and
   ``other`` (the source's small launches and, for ``torch``, every
   elementwise kernel of the update);
-- ``idle_share``: 1 - device / unprofiled wall;
-- ``idle_share_profiled``: the same against the profiled wall (the
-  profiler adds host time per launch).
+- ``idle_share_profiled``: 1 - device / profiled wall, both of the same
+  profiled chunk (the profiler adds host time per launch, so the share is
+  an upper bound of the unprofiled chunk's).
 
 Needs a CUDA device: without one it exits with an error.
 """
@@ -209,7 +209,7 @@ def measure(chunk, dev: torch.device, steps: int, warm: int, pml: bool = False, 
         "wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
         "device_ms_per_step": device, "kernels_ms_per_step": by_group,
         "launches_per_step": {g: c / steps for g, c in launches.items()},
-        "idle_share": 1.0 - device / wall, "idle_share_profiled": 1.0 - device / wall_prof,
+        "idle_share_profiled": 1.0 - device / wall_prof,
     }
 
 

@@ -51,7 +51,7 @@ import torch
 
 import numpy as np
 
-from . import diagnostics
+from . import diagnostics, spans
 from .dft import DftConfig, DftResult, acc_bytes, dft_weights, finalize, zero_dft_acc
 from .io.checkpoint import CheckpointWriter, from_host, latest_checkpoint, load_aux, load_checkpoint
 from .io.snapshots import SnapshotWriter, aggregate_all, validation_extras
@@ -364,7 +364,8 @@ def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMa
         backend = "torch"
     else:
         if kernels_ok and pml is None and not per_step:
-            plans = pick_shard_plan(p, mesh, stream_s, lossy, het, accumulate_power, free, dft)
+            with spans.span(spans.PLAN):
+                plans = pick_shard_plan(p, mesh, stream_s, lossy, het, accumulate_power, free, dft)
         if backend == "auto":
             backend = "torch" if not kernels_ok else "stream" if plans is not None else "twopass"
         elif backend == "stream" and kernels_ok and plans is None:
@@ -382,9 +383,7 @@ def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMa
                 f"the {backend} kernels run on a CUDA device in float32 or bfloat16 "
                 f"(got device {dev}, dtype {p.dtype}); use --backend torch"
             )
-    if backend == "stream":
-        return mesh, make_sharded_stream_runner(p, mesh, materials, accumulate_power, plans[0].s, free, dft)
-    if dev.type == "cuda":
+    if backend != "stream" and dev.type == "cuda":
         boxes = shard_mesh.shard_boxes(p, mesh, 1)
         psi = [sum(map(math.prod, psi_part_shapes(p, pml, b).values())) for b in boxes] if pml is not None else None
         need = stream_plan.shard_bytes(p, [(b.shape, math.prod(b.cell_shape(p))) for b in boxes], mesh.devices,
@@ -393,7 +392,10 @@ def sharded_runner(p: Params, shard: str, device, materials: Materials | DebyeMa
             raise ValueError(f"{p.maxk}x{p.maxj}x{p.maxi} {p.dtype} on a {nz}x{ny} mesh does not fit in device "
                              f"memory: the shards and the gathered grid need {max(need.values()) / 1e9:.1f} GB on a "
                              "device; use a coarser grid or bfloat16")
-    return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power, backend, pml, dft, probes)
+    with spans.span(spans.RUNNER_BUILD):
+        if backend == "stream":
+            return mesh, make_sharded_stream_runner(p, mesh, materials, accumulate_power, plans[0].s, free, dft)
+        return mesh, make_sharded_chunk_runner(p, mesh, materials, accumulate_power, backend, pml, dft, probes)
 
 
 def initial_state(p: Params, device) -> FieldState:
@@ -405,6 +407,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@spans.spanned(spans.RUN)
 def run_simulation(
     p: Params,
     device,
@@ -448,11 +451,12 @@ def run_simulation(
     if probes is not None:
         probes.validate(p)
     dev = resolve_device(device)
-    if shard is not None:
-        mesh, run_shards = sharded_runner(p, shard, dev, materials, accumulate_power, backend, log, stream_s, pml,
-                                          dft, probes)
-    else:
-        backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
+    with spans.span(spans.RESOLVE):  # under --shard the runner's build too
+        if shard is not None:
+            mesh, run_shards = sharded_runner(p, shard, dev, materials, accumulate_power, backend, log, stream_s,
+                                              pml, dft, probes)
+        else:
+            backend = resolve_backend(p, backend, dev, materials, accumulate_power, pml, log, dft, probes)
     ts = time_values(p)
     xs_t, xs_a = scan_inputs(p, ts)
     dft_cw, dft_sw = dft_weights(dft, ts) if dft is not None else (None, None)
@@ -472,33 +476,37 @@ def run_simulation(
         )
 
     if shard is None:
-        run_chunk = make_chunk_runner(p, dev, materials, backend, stream_s=stream_s if backend == "stream" else None,
-                                      accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc,
-                                      memory_bytes=_free_memory(dev))
-    state = initial_state(p, dev)
-    power = zero_power_acc(p, dev) if accumulate_power else None
-    psi = init_psi(p, pml, dev) if pml is not None else None
-    pol = zero_polarization(p, dev) if debye else None
-    dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
+        with spans.span(spans.RUNNER_BUILD):
+            run_chunk = make_chunk_runner(p, dev, materials, backend,
+                                          stream_s=stream_s if backend == "stream" else None,
+                                          accumulate_power=accumulate_power, pml=pml, dft=dft, probes=probes, dc=dc,
+                                          memory_bytes=_free_memory(dev))
+    with spans.span(spans.STATE_ALLOC):
+        state = initial_state(p, dev)
+        power = zero_power_acc(p, dev) if accumulate_power else None
+        psi = init_psi(p, pml, dev) if pml is not None else None
+        pol = zero_polarization(p, dev) if debye else None
+        dacc = zero_dft_acc(p, dft, dev) if dft is not None else None
     probe_rows: list[np.ndarray] = []  # host copies, one a chunk
     resumed_dft = False
     start_step = 0
     if resume:
-        ck = latest_checkpoint(out_dir)
-        if ck:
-            state, start_step, _t, ck_power = load_checkpoint(ck, p, dev)
-            if accumulate_power:
-                if ck_power is not None:
-                    power.copy_(torch.as_tensor(ck_power))
-                else:
-                    warn("checkpoint has no power accumulator; --sar totals restart from zero "
-                         "at this point")
-            if pml is not None:
-                _resume_psi(ck, p, pml, psi, warn)
-            if debye:
-                _resume_pol(ck, p, pol, warn)
-            if dft is not None or probes is not None:
-                resumed_dft = _resume_monitors(ck, dacc, probe_rows if probes is not None else None, warn)
+        with spans.span(spans.RESUME):
+            ck = latest_checkpoint(out_dir)
+            if ck:
+                state, start_step, _t, ck_power = load_checkpoint(ck, p, dev)
+                if accumulate_power:
+                    if ck_power is not None:
+                        power.copy_(torch.as_tensor(ck_power))
+                    else:
+                        warn("checkpoint has no power accumulator; --sar totals restart from zero "
+                             "at this point")
+                if pml is not None:
+                    _resume_psi(ck, p, pml, psi, warn)
+                if debye:
+                    _resume_pol(ck, p, pol, warn)
+                if dft is not None or probes is not None:
+                    resumed_dft = _resume_monitors(ck, dacc, probe_rows if probes is not None else None, warn)
 
     ckpt_writer = CheckpointWriter(out_dir) if checkpoint_every else None
     writer = SnapshotWriter(p, out_dir) if write_snapshots else None
@@ -510,19 +518,21 @@ def run_simulation(
     def snapshot(s: FieldState, iteration: int, t: float) -> None:
         if writer is None:
             return
-        variables = aggregate_all(p, s)
-        if p.mode == Mode.VALIDATION:
-            variables.update(validation_extras(p, s, t, quirk_compat=quirk_compat))
-        writer.submit(variables, iteration, t)
+        with spans.span(spans.SNAPSHOT):
+            variables = aggregate_all(p, s)
+            if p.mode == Mode.VALIDATION:
+                variables.update(validation_extras(p, s, t, quirk_compat=quirk_compat))
+            writer.submit(variables, iteration, t)
 
     def log_diag(s: FieldState, iteration: int, t: float) -> None:
         if diag_f is None:
             return
-        e, h = float(diagnostics.e_energy(p, s)), float(diagnostics.h_energy(p, s))
-        rec = {"iteration": iteration, "t": t, "E_energy": e, "H_energy": h, "total": e + h}
-        if flux_margin >= 0:
-            rec["radiated_W"] = float(diagnostics.poynting_flux(p, s, margin=flux_margin))
-        diag_f.write(json.dumps(rec) + "\n")
+        with spans.span(spans.ENERGY_LOG):
+            e, h = float(diagnostics.e_energy(p, s)), float(diagnostics.h_energy(p, s))
+            rec = {"iteration": iteration, "t": t, "E_energy": e, "H_energy": h, "total": e + h}
+            if flux_margin >= 0:
+                rec["radiated_W"] = float(diagnostics.poynting_flux(p, s, margin=flux_margin))
+            diag_f.write(json.dumps(rec) + "\n")
         # a CFL-unstable or NaN run stops at the next sample instead of
         # burning the rest of the schedule
         if not math.isfinite(e + h):
@@ -545,50 +555,55 @@ def run_simulation(
         shards = shard_mesh.scatter(p, state, mesh, run_shards.depth, **extras) if shard is not None else None
 
         devices = set(mesh.devices) | {dev} if shard is not None else {dev}
-        for d in devices:
-            _sync(d)
-        t0 = time.perf_counter()
-        pos = start_step
+        with spans.span(spans.LOOP):
+            for d in devices:
+                _sync(d)
+            t0 = time.perf_counter()
+            pos = start_step
 
-        def next_mult(x, m):
-            return ((x // m) + 1) * m
+            def next_mult(x, m):
+                return ((x // m) + 1) * m
 
-        while pos < n:
-            # next boundary: the smallest multiple of the sampling rate (or
-            # of the checkpoint interval) past pos, in 1-based steps
-            boundary = next_mult(pos, rate)
-            if checkpoint_every:
-                boundary = min(boundary, next_mult(pos, checkpoint_every))
-            end = min(boundary, n)
-            xs = (xs_t[pos:end], xs_a[pos:end])
-            if dft is not None:
-                xs += (dft_cw[pos:end], dft_sw[pos:end])
-            if shards is not None:
-                rows = run_shards(shards, xs)
-            else:
-                rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
-            if probes is not None:
-                probe_rows.append(rows.cpu().numpy())
-            pos = end
-            t_now = float(ts[pos - 1])
-            output = pos % rate == 0 and (writer is not None or diag_f is not None)
-            if shards is not None and (output or (checkpoint_every and pos % checkpoint_every == 0) or pos == n):
-                shard_mesh.gather(p, shards, state, **extras)
-            if pos % rate == 0:
-                snapshot(state, pos, t_now)
-                log_diag(state, pos, t_now)
-            if checkpoint_every and pos % checkpoint_every == 0:
-                aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else {}
-                if pol is not None:
-                    aux.update(zip(("pol_x", "pol_y", "pol_z"), pol.tensors()))
-                if dacc is not None:
-                    aux.update(dft_re=dacc[0], dft_im=dacc[1])
+            while pos < n:
+                # next boundary: the smallest multiple of the sampling rate (or
+                # of the checkpoint interval) past pos, in 1-based steps
+                boundary = next_mult(pos, rate)
+                if checkpoint_every:
+                    boundary = min(boundary, next_mult(pos, checkpoint_every))
+                end = min(boundary, n)
+                xs = (xs_t[pos:end], xs_a[pos:end])
+                if dft is not None:
+                    xs += (dft_cw[pos:end], dft_sw[pos:end])
+                with spans.span(spans.CHUNK):
+                    if shards is not None:
+                        rows = run_shards(shards, xs)
+                    else:
+                        rows = run_chunk(state, xs, power, psi, pol, dacc)  # the state advances in place
                 if probes is not None:
-                    aux["probe_rows"] = _probe_values(probe_rows, probes)
-                ckpt_writer.submit(state, pos, t_now, power, aux or None)
-        for d in devices:
-            _sync(d)
-        wall = time.perf_counter() - t0
+                    with spans.span(spans.PROBE_ROWS):
+                        probe_rows.append(rows.cpu().numpy())
+                pos = end
+                t_now = float(ts[pos - 1])
+                output = pos % rate == 0 and (writer is not None or diag_f is not None)
+                if shards is not None and (output or (checkpoint_every and pos % checkpoint_every == 0) or pos == n):
+                    with spans.span(spans.GATHER):
+                        shard_mesh.gather(p, shards, state, **extras)
+                if pos % rate == 0:
+                    snapshot(state, pos, t_now)
+                    log_diag(state, pos, t_now)
+                if checkpoint_every and pos % checkpoint_every == 0:
+                    with spans.span(spans.CHECKPOINT):
+                        aux = {f"psi_{n}": getattr(psi, n) for n in PsiState.names()} if psi is not None else {}
+                        if pol is not None:
+                            aux.update(zip(("pol_x", "pol_y", "pol_z"), pol.tensors()))
+                        if dacc is not None:
+                            aux.update(dft_re=dacc[0], dft_im=dacc[1])
+                        if probes is not None:
+                            aux["probe_rows"] = _probe_values(probe_rows, probes)
+                        ckpt_writer.submit(state, pos, t_now, power, aux or None)
+            for d in devices:
+                _sync(d)
+            wall = time.perf_counter() - t0
     finally:
         if ckpt_writer is not None:
             ckpt_writer.close()
@@ -599,15 +614,16 @@ def run_simulation(
 
     steps_done = n - start_step
     mcells = p.cell_count * steps_done / wall / 1e6 if wall > 0 else float("inf")
-    # resumed sums cover the whole schedule (they rode the checkpoint)
-    dft_result = (finalize(dft, dacc, n if resumed_dft else steps_done, time_step=p.time_step)
-                  if dft is not None else None)
-    probe_result = None
-    if probes is not None:
-        values = _probe_values(probe_rows, probes)
-        # a resume without stored rows covers only the resumed tail
-        probe_result = ProbeResult(cells=probes.cells, times=np.asarray(ts, np.float64)[n - values.shape[0]:],
-                                   values=values)
+    with spans.span(spans.FINALIZE):
+        # resumed sums cover the whole schedule (they rode the checkpoint)
+        dft_result = (finalize(dft, dacc, n if resumed_dft else steps_done, time_step=p.time_step)
+                      if dft is not None else None)
+        probe_result = None
+        if probes is not None:
+            values = _probe_values(probe_rows, probes)
+            # a resume without stored rows covers only the resumed tail
+            probe_result = ProbeResult(cells=probes.cells, times=np.asarray(ts, np.float64)[n - values.shape[0]:],
+                                       values=values)
     return RunResult(state, n, wall, mcells, power, warnings, psi, pol, dft_result, probe_result)
 
 

@@ -89,7 +89,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import diagnostics
+from . import diagnostics, spans
 from .dft import DftConfig
 from .monitors import ProbeSet, apply_monitors, weight_rows
 from .ops import cpml, curl, dispersive, stream, stream_plan, yee
@@ -253,11 +253,12 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
     it.
     """
     debye = isinstance(materials, DebyeMaterials)
-    if not debye:
-        dc = None
-    elif dc is None:
-        dc = dispersive.debye_coefs(p, materials, device)
-    coefs = update_coefs(p, None if debye else materials, device)
+    with spans.span(spans.COEFS):
+        if not debye:
+            dc = None
+        elif dc is None:
+            dc = dispersive.debye_coefs(p, materials, device)
+        coefs = update_coefs(p, None if debye else materials, device)
     if probes is not None:
         probes.validate(p)
     cells = probes.cells if probes is not None else None
@@ -265,8 +266,10 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
         if probes is not None or (dft is not None and not stream_plan.dft_gates(p, dft)):
             raise ValueError("probes, the H sums of --dft-fields eh and the DFT in validation mode need per-step "
                              "states; the stream backend steps s at a time (use twopass or torch)")
-        plan = stream_plan.pick_plan(p, s=stream_s, memory_bytes=memory_bytes, lossy=coefs.lossy,
-                                     het=coefs.heterogeneous_mu, sar=accumulate_power, pml=pml, ade=debye, dft=dft)
+        with spans.span(spans.PLAN):
+            plan = stream_plan.pick_plan(p, s=stream_s, memory_bytes=memory_bytes, lossy=coefs.lossy,
+                                         het=coefs.heterogeneous_mu, sar=accumulate_power, pml=pml, ade=debye,
+                                         dft=dft)
         if plan is None:
             kind = "Debye" if debye else "materials" if coefs.lossy else "vacuum"
             raise ValueError(
