@@ -126,6 +126,14 @@ package beside it.  Phases, each printing one line or more:
    dft_accum bit for bit (fields, psi, sums); the routed bench_256 --dft x4
    (CLI) and bench_256 --pml 10 --dft x6 against twopass + dft_accum, the
    median of three warmed runs in turns with their spread;
+6f. the per-step SAR increment kernel (``phase_sar``, ``sar_accum``):
+   against diagnostics.accumulate_power on the card bit for bit at 64^3
+   and 256^3, fp32 and bf16, the whole grid and a middle slab of --shard
+   4, from random fields, sigma and map; its 256^3 times beside its byte
+   bound and the plain torch ops'; heating_256 --water-block --sar, 1000
+   steps, on twopass (a sar_accum launch a step), torch (none) and
+   twopass --shard 4 (four sar_accum_shard a step), fields and map equal
+   bit for bit;
 7. the sharded path (--shard): every per-shard kernel (K1/K2-shard,
    vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
    het, het + SAR at s = 8, 4, 2) against its plain version on every shard
@@ -1212,6 +1220,114 @@ def phase_means(dev, smi: str, rng, n: int = MEANS_N, steps: int = MEANS_STEPS, 
         f_ms = t_fold1 / depth
         print(f"bands vs means {name} ({n}^3, one frequency, fp32): the bands {b_ms!r} ms a step, the means mode "
               f"{m_ms!r} + its fold {f_ms!r} = {m_ms + f_ms!r} ms a step (x{b_ms / (m_ms + f_ms)!r}) ({smi})")
+    return rows
+
+
+def phase_sar(dev, smi: str, water256=None) -> list[dict]:
+    """Phase 6f: the per-step SAR increment kernel (``csrc/dft_accum.cu::
+    sar_accum_kernel``, ``ops/sar.py``) against its plain version
+    (``diagnostics.accumulate_power``, torch ops on the card) bit for bit,
+    at 64^3 and 256^3, fp32 and bf16, on the whole grid and on a middle
+    slab of --shard 4, from random fields, sigma and a non-zero starting
+    map; at 256^3 its time beside its byte bound and the plain version's;
+    then configs/heating_256.txt --water-block --sar, 1000 steps, on
+    twopass (one ``sar_accum`` launch a step), on torch (none) and on
+    twopass with --shard 4 (four ``sar_accum_shard`` a step): equal maps
+    and fields bit for bit (``water256``: the scene's load, built once).
+    Returns the kernel's JSON rows."""
+    import torch
+
+    from fdtd_tpu_torch import diagnostics
+    from fdtd_tpu_torch.ops import sar as sar_ops
+    from fdtd_tpu_torch.parallel import mesh as shard_mesh
+    from fdtd_tpu_torch.params import Mode, Params, load_parameters, time_values
+    from fdtd_tpu_torch.runner import run_simulation
+    from fdtd_tpu_torch.state import FieldState, water_block
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+
+    def rand(shape, lo: float, hi: float, dtype):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo).to(dtype)
+
+    ms: dict[str, dict] = {}  # kernel -> {dtype: (kernel ms, plain ms, bound ms, bound by)}
+    for n in (64, 256):
+        for dtype, tdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            pn = Params(length=n * 1e-3, width=n * 1e-3, height=n * 1e-3, spatial_step=1e-3, time_step=1e-12,
+                        simulation_time=1e-9, sampling_rate=10**6, mode=Mode.COMPUTATION, dtype=dtype)
+            cells = (pn.maxk, pn.maxj, pn.maxi)
+            st = FieldState(*(rand(pn.padded_shape, -300.0, 300.0, tdt) for _ in range(6)))
+            sigma = rand(cells, 0.0, 2.0, tdt)
+            acc0 = rand(cells, 0.0, 1e-6, torch.float32)
+            middle = shard_mesh.shard_boxes(pn, shard_mesh.Mesh((4, 1, 1), (dev,) * 4), 1)[1]
+            for box in (None, middle):
+                if box is None:
+                    s_, sg, a0 = st, sigma, acc0
+                else:
+                    s_ = FieldState(*(shard_mesh.part(t, box.lo, box.hi, dev) for t in st.tensors()))
+                    sg, a0 = (shard_mesh.part(t, *box.cells(pn), dev) for t in (sigma, acc0))
+                want, got = a0.clone(), a0.clone()
+                diagnostics.accumulate_power(pn, s_, sg, want, box)
+                sar_ops.accumulate_power(pn, s_, sg, got, box)
+                torch.cuda.synchronize()
+                name = "sar_accum" + ("_shard" if box is not None else "")
+                label = "a middle slab of --shard 4" if box is not None else "the whole grid"
+                check(torch.equal(got, want) and absdiff(want, a0) > 0,
+                      f"{name} {n}^3 {dtype} on {label}: kernel == plain bit for bit (max|diff| "
+                      f"{absdiff(got, want)!r}, increment up to {absdiff(want, a0)!r})")
+                if n == 256:
+                    t_k = event_ms(lambda: sar_ops.accumulate_power(pn, s_, sg, got, box))
+                    t_p = event_ms(lambda: diagnostics.accumulate_power(pn, s_, sg, want, box), reps=5)
+                    item = 4 if dtype == "float32" else 2
+                    n_cells = math.prod(box.cell_shape(pn) if box is not None else cells)
+                    e_vals = math.prod(box.shape if box is not None else pn.padded_shape)
+                    t_b = (3 * item * e_vals + (item + 8) * n_cells) / HBM_BYTES_PER_S * 1e3
+                    t_f = 20 * n_cells / FP32_FLOPS * 1e3
+                    ms.setdefault(name, {})[dtype] = (t_k, t_p, max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
+                del want, got
+            del st, sigma, acc0
+    torch.cuda.empty_cache()
+    t_runs = time.perf_counter()
+    ph = load_parameters("configs/heating_256.txt", dtype="float32")
+    water = water256 if water256 is not None else water_block(ph)
+    nh = len(time_values(ph))
+    runs = {}
+    for tag, backend, shard in (("twopass", "twopass", None), ("torch", "torch", None),
+                                ("twopass --shard 4", "twopass", "4")):
+        sar_ops.reset_launches()
+        res = run_simulation(ph, dev, materials=water, accumulate_power=True, write_snapshots=False, backend=backend,
+                             shard=shard, log=lambda m: None)
+        runs[tag] = (res.state, res.power_j, dict(sar_ops.launches), res.mcells_per_s)
+        del res
+    want = {"twopass": {"sar_accum": nh, "sar_accum_shard": 0}, "torch": {"sar_accum": 0, "sar_accum_shard": 0},
+            "twopass --shard 4": {"sar_accum": 0, "sar_accum_shard": 4 * nh}}
+    for tag, (state, power, counts, rate) in runs.items():
+        d, d_acc = maxdiff(state, runs["torch"][0]), absdiff(power, runs["torch"][1])
+        check(counts == want[tag] and d == 0.0 and d_acc == 0.0 and float(power.max()) > 0,
+              f"heating_256 --water-block --sar {tag}, {nh} steps: launches {counts} == {want[tag]}; against "
+              f"torch fields max|diff| {d!r}, SAR max|diff| {d_acc!r} ({rate!r} Mcells/s)")
+    runs_s = time.perf_counter() - t_runs
+    del runs
+    torch.cuda.empty_cache()
+    rows = []
+    for name, by_dtype in ms.items():
+        k32, p32, b32, by = by_dtype["float32"]
+        k16, p16, b16, _ = by_dtype["bfloat16"]
+        shard = name.endswith("_shard")
+        where = "a middle slab of --shard 4" if shard else "the whole grid"
+        print(f"kernel 256^3 {name} ({where}): fp32 {k32!r} ms ({b32 / k32!r} of its bound {b32!r} ms, "
+              f"{by}), bf16 {k16!r} ms ({b16 / k16!r} of {b16!r}); plain torch ops fp32 {p32!r} / bf16 {p16!r} ms "
+              f"(x{p32 / k32!r} / x{p16 / k16!r}) ({smi})")
+        rows.append({
+            "name": name, "route": "cuda", "source": "fdtd_tpu_torch/csrc/dft_accum.cu",
+            "replaces": "none (the XLA fusion of the per-step increment, fdtd_tpu/step.py:384-397)",
+            "launches": 4 * nh if shard else nh, "max_abs_err": 0.0, "ms": k32, "plain_ms": p32,
+            "bound_ms": b32, "bound_by": by, "library_ms": None,
+            "path": f"heating_256 --water-block --sar twopass{' --shard 4' if shard else ''} ({nh} steps)",
+        })
+    print(f"phase 6f the SAR increment kernel: {time.perf_counter() - t_phase:.1f} s, of which the three "
+          f"{nh}-step runs {runs_s:.1f} s", flush=True)
     return rows
 
 
@@ -2538,6 +2654,10 @@ def main() -> None:
     # -- 6e. the DFT bands' means mode and the fold ------------------------
     means_rows = phase_means(dev, smi, rng, water256=water, parent=parent_pkg)
     phase_done("6e the DFT means mode and the fold")
+
+    # -- 6f. the per-step SAR increment kernel -----------------------------
+    sar_rows = phase_sar(dev, smi, water256=water)
+    phase_done("6f the SAR increment kernel")
 
     # the output reductions in k slabs: the allocator's peak over one
     # snapshot (aggregation) plus one log record (energies and radiated
@@ -3971,7 +4091,7 @@ def main() -> None:
         print(f"sass_compare vs {PARENT}: not run (no git history and no scratch_chip/parent checkout)")
     sass_dir.cleanup()
 
-    print(json.dumps({"kernels": kernels + means_rows}))
+    print(json.dumps({"kernels": kernels + means_rows + sar_rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,5 +1,6 @@
 // Per-step DFT accumulation for Hopper (sm_90a): the E phasor sums of one
-// step, added in place.
+// step, added in place; and the per-step SAR increment, which reads the
+// same E cell means.
 //
 // Replaces the TPU kernel fdtd_tpu/ops/pallas_stream.py::
 // build_dft_accum_call.kernel.  The plain version is
@@ -32,6 +33,27 @@
 // to the shard's (nf, nc, cnk, cnj, cni) part of the sums; every cell gets
 // the operations of the whole-grid launch on the same values.  The
 // whole-grid instantiation compiles as before (only BOX reads the box).
+//
+// The SAR increment (sar_accum_kernel) replaces no Pallas kernel: the JAX
+// package runs the per-step deposition as XLA glue inside its jitted step
+// (fdtd_tpu/step.py:384-397, power_deposition_stripped), which XLA fuses
+// into one loop; eager torch ops make it about 20 launches a step, each a
+// round trip of the whole grid through device memory.  Its plain version is
+// fdtd_tpu_torch/diagnostics.py::accumulate_power.  For each cell of the
+// (K, J, I) grid, with mx, my, mz the 4-edge E cell means above (mean4):
+//
+//     acc[cell] = acc[cell] + (sigma[cell] * ((mx*mx + my*my) + mz*mz)) * dt
+//
+// sigma stored in the field dtype and widened to fp32, acc the fp32 map, dt
+// the step rounded to fp32, each operation rounded on its own, so the map
+// equals the torch ops' bits.  Bytes bind it: E read once (3 x 257^3 x 4 B
+// = 203.7 MB at 256^3 in fp32), sigma (67.1 MB) and the map read and
+// written (134.2 MB): 405 MB a step, 0.121 ms at 3.35 TB/s; its 20
+// operations a cell take about 5 us at 67 TFLOP/s.  Design: dft_accum_kernel's,
+// one thread per cell, i fastest, the 12 E edges shared by neighbouring
+// threads through L1/L2 (the planes k and k+1 of the blocks in flight stay
+// in L2), sigma and the map streamed once.  With BOX a launch covers a
+// shard's owned cells, read from the shard's arrays, as K4-shard does.
 //
 // The fold (dft_fold_kernel) replaces no TPU kernel: it is the second half
 // of the sweeps' means mode (yee_stream.cu, "DFT"), which the TPU kernels
@@ -90,14 +112,12 @@ struct Box {
     int ck0, cj0, ci0, cnk, cnj, cni;
 };
 
+// The E cell means (mx, my, mz) of `cell`, the index of a cell of the
+// launch (i fastest; with BOX of the shard's owned cells)
 template <typename T, bool BOX>
-__global__ void __launch_bounds__(256)
-dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez, int K, int J,
-                 int I, const float* __restrict__ w, int nf, int nc, float* __restrict__ re,
-                 float* __restrict__ im, Box g) {
-    const int64_t cells = BOX ? (int64_t)g.cnk * g.cnj * g.cni : (int64_t)K * J * I;
-    const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (cell >= cells) return;
+__device__ __forceinline__ void cell_means(const T* __restrict__ ex, const T* __restrict__ ey,
+                                           const T* __restrict__ ez, int K, int J, int I, const Box& g, int64_t cell,
+                                           float (&m)[3]) {
     int64_t o, sj, sk;
     if constexpr (BOX) {
         const int i = g.ci0 + (int)(cell % g.cni);
@@ -114,10 +134,21 @@ dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __
         sk = sj * ((int64_t)J + 1);
         o = (int64_t)k * sk + (int64_t)j * sj + i;
     }
-    const float mx = mean4(ld(ex, o), ld(ex, o + sk), ld(ex, o + sj), ld(ex, o + sk + sj));
-    const float my = mean4(ld(ey, o), ld(ey, o + 1), ld(ey, o + sk), ld(ey, o + sk + 1));
-    const float mz = mean4(ld(ez, o), ld(ez, o + sj), ld(ez, o + 1), ld(ez, o + sj + 1));
-    const float m[3] = {mx, my, mz};
+    m[0] = mean4(ld(ex, o), ld(ex, o + sk), ld(ex, o + sj), ld(ex, o + sk + sj));
+    m[1] = mean4(ld(ey, o), ld(ey, o + 1), ld(ey, o + sk), ld(ey, o + sk + 1));
+    m[2] = mean4(ld(ez, o), ld(ez, o + sj), ld(ez, o + 1), ld(ez, o + sj + 1));
+}
+
+template <typename T, bool BOX>
+__global__ void __launch_bounds__(256)
+dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez, int K, int J,
+                 int I, const float* __restrict__ w, int nf, int nc, float* __restrict__ re,
+                 float* __restrict__ im, Box g) {
+    const int64_t cells = BOX ? (int64_t)g.cnk * g.cnj * g.cni : (int64_t)K * J * I;
+    const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (cell >= cells) return;
+    float m[3];
+    cell_means<T, BOX>(ex, ey, ez, K, J, I, g, cell, m);
     for (int f = 0; f < nf; ++f) {
         const float cw = __ldg(w + f), sw = __ldg(w + nf + f);
 #pragma unroll
@@ -127,6 +158,21 @@ dft_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __
             im[a] = __fsub_rn(im[a], __fmul_rn(sw, m[c]));
         }
     }
+}
+
+// One thread per cell (the SAR design in the header above)
+template <typename T, bool BOX>
+__global__ void __launch_bounds__(256)
+sar_accum_kernel(const T* __restrict__ ex, const T* __restrict__ ey, const T* __restrict__ ez, int K, int J,
+                 int I, const T* __restrict__ sigma, float dt, float* __restrict__ acc, Box g) {
+    const int64_t cells = BOX ? (int64_t)g.cnk * g.cnj * g.cni : (int64_t)K * J * I;
+    const int64_t cell = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (cell >= cells) return;
+    float m[3];
+    cell_means<T, BOX>(ex, ey, ez, K, J, I, g, cell, m);
+    const float esq = __fadd_rn(__fadd_rn(__fmul_rn(m[0], m[0]), __fmul_rn(m[1], m[1])), __fmul_rn(m[2], m[2]));
+    const float inc = __fmul_rn(ld(sigma, cell), esq);
+    acc[cell] = __fadd_rn(acc[cell], __fmul_rn(inc, dt));
 }
 
 constexpr int FOLD_MAX = 32;      // levels a fold takes at most (ops/stream_plan.py::FOLD_DEPTH)
@@ -226,6 +272,26 @@ dft_fold_kernel(const float* __restrict__ mb, int depth, int64_t cells, const fl
     }
 }
 
+// The Box of a per-step launch and its cell count: the whole grid (geom
+// null), or a shard's 12 ints (the interface below); false on a box that
+// does not hold its window and the plane above it
+bool launch_box(int K, int J, int I, const int* geom, Box& g, int64_t& cells) {
+    if (K < 1 || J < 1 || I < 1) return false;
+    cells = (int64_t)K * J * I;
+    if (geom == nullptr) return true;
+    const int n[3] = {K + 1, J + 1, I + 1};
+    for (int a = 0; a < 3; ++a) {
+        const int ext = geom[a], org = geom[3 + a], lo = geom[6 + 2 * a], hi = geom[7 + 2 * a];
+        if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi || org > lo || org + ext < std::min(hi + 1, n[a]))
+            return false;
+    }
+    g = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[8], geom[10],
+            std::min(geom[7], K) - geom[6], std::min(geom[9], J) - geom[8], std::min(geom[11], I) - geom[10]};
+    if (g.cnk < 1 || g.cnj < 1 || g.cni < 1) return false;
+    cells = (int64_t)g.cnk * g.cnj * g.cni;
+    return true;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -241,22 +307,10 @@ extern "C" {
 
 int dft_accum(void* const* e, int K, int J, int I, const int* geom, const void* w, int nf, int nc, void* re,
               void* im, int dtype, void* stream) {
-    if (K < 1 || J < 1 || I < 1 || nf < 1 || nc < 3 || w == nullptr || re == nullptr || im == nullptr)
-        return (int)cudaErrorInvalidValue;
+    if (w == nullptr || re == nullptr || im == nullptr || nf < 1 || nc < 3) return (int)cudaErrorInvalidValue;
     Box g{};
-    int64_t cells = (int64_t)K * J * I;
-    if (geom != nullptr) {
-        const int n[3] = {K + 1, J + 1, I + 1};
-        for (int a = 0; a < 3; ++a) {
-            const int ext = geom[a], org = geom[3 + a], lo = geom[6 + 2 * a], hi = geom[7 + 2 * a];
-            if (ext < 1 || lo < 0 || hi > n[a] || lo >= hi || org > lo || org + ext < std::min(hi + 1, n[a]))
-                return (int)cudaErrorInvalidValue;
-        }
-        g = Box{geom[1], geom[2], geom[3], geom[4], geom[5], geom[6], geom[8], geom[10],
-                std::min(geom[7], K) - geom[6], std::min(geom[9], J) - geom[8], std::min(geom[11], I) - geom[10]};
-        if (g.cnk < 1 || g.cnj < 1 || g.cni < 1) return (int)cudaErrorInvalidValue;
-        cells = (int64_t)g.cnk * g.cnj * g.cni;
-    }
+    int64_t cells = 0;
+    if (!launch_box(K, J, I, geom, g, cells)) return (int)cudaErrorInvalidValue;
     const unsigned blocks = (unsigned)((cells + 255) / 256);
     cudaStream_t st = (cudaStream_t)stream;
 #define DFT_ACCUM_LAUNCH(T_, BOX_)                                                                              \
@@ -272,6 +326,35 @@ int dft_accum(void* const* e, int K, int J, int I, const int* geom, const void* 
         return (int)cudaErrorInvalidValue;
     }
 #undef DFT_ACCUM_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+// sar_accum: e as for dft_accum (with geom, a shard's arrays); sigma the
+// (K, J, I) cell conductivity in the storage dtype and acc the (K, J, I)
+// fp32 map, updated in place (with geom: the shard's (cnk, cnj, cni) parts,
+// the cells of its window); dt the step rounded to fp32.  Launches on
+// `stream` and returns cudaGetLastError().
+int sar_accum(void* const* e, int K, int J, int I, const int* geom, const void* sigma, float dt, void* acc,
+              int dtype, void* stream) {
+    if (sigma == nullptr || acc == nullptr) return (int)cudaErrorInvalidValue;
+    Box g{};
+    int64_t cells = 0;
+    if (!launch_box(K, J, I, geom, g, cells)) return (int)cudaErrorInvalidValue;
+    const unsigned blocks = (unsigned)((cells + 255) / 256);
+    cudaStream_t st = (cudaStream_t)stream;
+#define SAR_ACCUM_LAUNCH(T_, BOX_)                                                                              \
+    sar_accum_kernel<T_, BOX_><<<blocks, 256, 0, st>>>((const T_*)e[0], (const T_*)e[1], (const T_*)e[2], K, J, I, \
+                                                       (const T_*)sigma, dt, (float*)acc, g)
+    if (dtype == 0) {
+        if (geom != nullptr) SAR_ACCUM_LAUNCH(float, true);
+        else SAR_ACCUM_LAUNCH(float, false);
+    } else if (dtype == 1) {
+        if (geom != nullptr) SAR_ACCUM_LAUNCH(__nv_bfloat16, true);
+        else SAR_ACCUM_LAUNCH(__nv_bfloat16, false);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+#undef SAR_ACCUM_LAUNCH
     return (int)cudaGetLastError();
 }
 

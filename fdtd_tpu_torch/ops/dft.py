@@ -64,6 +64,8 @@ def _lib() -> ctypes.CDLL:
         lib.dft_accum.restype = i32
         lib.dft_fold.argtypes = [ptr, i32, ctypes.c_int64, ptr, i32, i32, ptr, ptr, ptr]
         lib.dft_fold.restype = i32
+        lib.sar_accum.argtypes = [ptr] + [i32] * 3 + [ptr, ptr, ctypes.c_float, ptr, i32, ptr]  # ops/sar.py
+        lib.sar_accum.restype = i32
         lib.dft_error_string.argtypes = [i32]
         lib.dft_error_string.restype = ctypes.c_char_p
         _bound = lib

@@ -10,7 +10,8 @@ plain updates (:mod:`fdtd_tpu_torch.ops.curl` with a shard's box) and the
 source patch is set at its global cells; lossy and heterogeneous-mu_r
 coefficients are each shard's parts of the global arrays, and the SAR
 increment adds to each shard's owned cells (after one more E exchange:
-the cell means read E at +1).  It shards all three mesh axes, and it is the
+the cell means read E at +1; on ``twopass`` the ``sar_accum`` kernel,
+``sar_accum_shard``).  It shards all three mesh axes, and it is the
 float64 path of a sharded run.  The same scaffolding runs the per-shard
 two-pass kernels (:func:`make_sharded_chunk_runner` with ``twopass``) and
 the trailing steps of the per-shard sweep.
@@ -49,7 +50,7 @@ from .. import diagnostics
 from ..dft import DftConfig
 from ..grid import E_COMPONENTS, H_COMPONENTS, Box
 from ..monitors import ProbeSet, apply_monitors, probe_row, weight_rows
-from ..ops import cpml, curl, dispersive, yee
+from ..ops import cpml, curl, dispersive, sar, yee
 from ..ops.cpml import PMLConfig
 from ..ops.dispersive import DebyeMaterials
 from ..params import Mode, Params
@@ -136,11 +137,14 @@ class ShardContext:
         for sh in shards:
             apply_source(self.src, sh.state, amps[sh.device][n], self.profile[sh.device], sh.box)
 
-    def sar(self, shards: list[Shard]) -> None:
-        """Each shard's deposition of this step on its owned cells."""
+    def sar(self, shards: list[Shard], kernel: bool) -> None:
+        """Each shard's deposition of this step on its owned cells;
+        ``kernel``: through the ``sar_accum`` wrapper (else its plain
+        version)."""
         exchange(self.mesh, shards, E_COMPONENTS, ("hi",), planes=1)
+        deposit = sar.accumulate_power if kernel else diagnostics.accumulate_power
         for sh, cf in zip(shards, self.coefs):
-            diagnostics.accumulate_power(self.p, sh.state, cf.sigma_cells, sh.power, sh.box)
+            deposit(self.p, sh.state, cf.sigma_cells, sh.power, sh.box)
 
     def work_arrays(self, shards: list[Shard]) -> list:
         if self.work is None:
@@ -222,7 +226,7 @@ def make_step(ctx: ShardContext, backend: str, accumulate_power: bool):
         if accumulate_power and ctx.dc is not None:
             ctx.sar_debye(shards)
         elif accumulate_power:
-            ctx.sar(shards)
+            ctx.sar(shards, kernels)
         return ctx.monitors(shards, w, kernels, e_fresh=accumulate_power and ctx.dc is None)
 
     return step

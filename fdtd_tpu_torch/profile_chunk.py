@@ -31,9 +31,9 @@ device time of every kernel.  One JSON line per (scene, backend, dtype):
   ``yee_stream_lossy_sar_dft``, ``dft_accum``, ``yee_stream_shard``, ``yee_stream_pml`` and
   ``yee_stream_pml_interior``: the CPML sweep's shell and interior launches, ...), ``halo_exchange`` (the copies
   of a sharded run's halo planes: the device time of the profiler range ``parallel.mesh.exchange`` opens,
-  taken out of ``other``), ``sar_increment`` (the per-step torch ops of the deposition on
-  ``twopass``/``torch`` and on the trailing steps of ``stream``: the device
-  time of the profiler range ``diagnostics.accumulate_power`` and
+  taken out of ``other``), ``sar_increment`` (the per-step deposition: the ``sar_accum`` kernel on
+  ``twopass`` and on the trailing steps of ``stream``, torch ops on ``torch`` and for Debye work: the device
+  time of the profiler range ``ops.sar.accumulate_power``, ``diagnostics.accumulate_power`` and
   ``accumulate_work`` open, taken out of ``other``) and
   ``other`` (the source's small launches and, for ``torch``, every
   elementwise kernel of the update);

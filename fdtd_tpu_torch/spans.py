@@ -30,7 +30,9 @@ The spans of one ``runner.run_simulation`` call:
                         probe rows' concatenation
 
 and inside the chunk runners, each step: ``sar_increment`` (the SAR map's
-increment as torch ops), ``probe_gather`` (the probe row's gather) and,
+increment: the ``sar_accum`` kernel's launch, or its torch ops on the
+``torch`` backend and on CPU tensors), ``probe_gather`` (the probe row's
+gather) and,
 under ``--shard``, ``halo_exchange`` (the halo copies).
 """
 

@@ -28,10 +28,13 @@ Materials (lossy and heterogeneous-mu_r media) run on all three backends:
 the coefficient tensors are built once per runner on the device, and the
 kernels take their material variants.  With ``accumulate_power`` the
 chunk runner adds every step's deposition sigma*|E|^2*dt to an fp32
-accumulator (:func:`zero_power_acc`) in place: on ``torch`` and
-``twopass`` as torch ops after each step (the JAX package's per-step jnp
-increment, ``fdtd_tpu/step.py:385-403``), on ``stream`` inside the sweep
-kernel, with the trailing ``n % s`` two-pass steps adding theirs.  In
+accumulator (:func:`zero_power_acc`) in place: after each step on
+``torch`` as torch ops (``diagnostics.accumulate_power``, the JAX
+package's per-step jnp increment, ``fdtd_tpu/step.py:385-403``) and on
+``twopass`` in one launch of the ``sar_accum`` kernel
+(:func:`~fdtd_tpu_torch.ops.sar.accumulate_power`, its plain version on
+CPU tensors), on ``stream`` inside the sweep kernel, with the trailing
+``n % s`` two-pass steps adding theirs through ``sar_accum``.  In
 fp32 every backend gives the same accumulator bits; a bf16 sweep deposits
 from its fp32 levels, not from rounded states.
 
@@ -92,7 +95,7 @@ import torch
 from . import diagnostics, spans
 from .dft import DftConfig
 from .monitors import ProbeSet, apply_monitors, weight_rows
-from .ops import cpml, curl, dispersive, stream, stream_plan, yee
+from .ops import cpml, curl, dispersive, sar, stream, stream_plan, yee
 from .ops import dft as dft_ops
 from .ops.cpml import PMLConfig, PsiState
 from .ops.dispersive import DebyeCoefs, DebyeMaterials, PolState
@@ -288,6 +291,7 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
     else:
         step = make_step(p, device, backend=backend, coefs=coefs, pml=pml)
     work = dispersive.zero_work(p, device) if debye and accumulate_power else None
+    deposit = sar.accumulate_power if backend != "torch" else diagnostics.accumulate_power
 
     def run(s: FieldState, xs, power: torch.Tensor | None = None,
             psi: PsiState | None = None, pol: PolState | None = None, dacc=None):
@@ -312,7 +316,7 @@ def make_chunk_runner(p: Params, device, materials: Materials | DebyeMaterials |
             if work is not None:
                 diagnostics.accumulate_work(p, work, power)
             elif accumulate_power:
-                diagnostics.accumulate_power(p, s, coefs.sigma_cells, power)
+                deposit(p, s, coefs.sigma_cells, power)
         if cells is not None:
             return torch.stack(rows) if rows else torch.zeros((0, len(cells), 6), dtype=torch.float32, device=device)
         return s
@@ -430,7 +434,7 @@ def _stream_chunk_runner(p: Params, device, plan: stream_plan.StreamPlan, coefs:
             if work is not None:
                 diagnostics.accumulate_work(p, work, acc)
             elif acc is not None:
-                diagnostics.accumulate_power(p, s, coefs.sigma_cells, acc)
+                sar.accumulate_power(p, s, coefs.sigma_cells, acc)
         return s
 
     run.plan = plan
