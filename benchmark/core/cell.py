@@ -7,7 +7,10 @@ file and its traffic file, found by name.
                             steps, SAR map, DFT frequencies, probes, the
                             amplitudes of the seeded fields
     limits/<workload>.json  the limit of each number the check compares
-    metrics/<metric>.py     the reader of one per-layer metric
+    metrics/<metric>.py     the reader of one per-layer metric; a metric
+                            <reader>.<part> without a file of its own (one
+                            quantity split by the end-to-end metric it
+                            moves) is read by metrics/<reader>.py
 
 Nothing here imports the program.
 """
@@ -120,6 +123,9 @@ def simulation_time(time_step: float, steps: int) -> float:
     return limit
 
 
+LOAD_KINDS = ("block", "debye_block")
+
+
 def load_mask(cell: Cell) -> np.ndarray | None:
     """Boolean (maxk, maxj, maxi) mask of the configuration's load block,
     or None: the cells [int(lo*n), int(hi*n)) of each axis, lo and hi
@@ -127,7 +133,7 @@ def load_mask(cell: Cell) -> np.ndarray | None:
     load = cell.config.get("load")
     if not load:
         return None
-    if load["kind"] != "block":
+    if load["kind"] not in LOAD_KINDS:
         raise ValueError(f"unknown load kind {load['kind']!r}")
     K, J, I = cell.grid
     lo, hi = load["lo"], load["hi"]
@@ -136,11 +142,22 @@ def load_mask(cell: Cell) -> np.ndarray | None:
     return mask
 
 
-def load_maps(cell: Cell) -> tuple[np.ndarray, np.ndarray] | None:
-    """(eps_r, sigma) fp64 cell maps of the load, or None in an empty
-    cavity."""
+def is_debye(cell: Cell) -> bool:
+    """Whether the configuration's load is a single-pole Debye medium."""
+    load = cell.config.get("load")
+    return bool(load) and load["kind"] == "debye_block"
+
+
+def load_maps(cell: Cell) -> tuple[np.ndarray, ...] | None:
+    """The fp64 cell maps of the load, or None in an empty cavity: a
+    ``block`` gives (eps_r, sigma); a ``debye_block`` gives (eps_inf,
+    sigma, d_eps, tau), the medium eps_inf + d_eps / (1 + i w tau) with the
+    ionic conductivity sigma, and (1, 0, 0, 0) outside the block."""
     mask = load_mask(cell)
     if mask is None:
         return None
     load = cell.config["load"]
+    if is_debye(cell):
+        return (np.where(mask, float(load["eps_inf"]), 1.0), np.where(mask, float(load["sigma_s_per_m"]), 0.0),
+                np.where(mask, float(load["d_eps"]), 0.0), np.where(mask, float(load["tau_s"]), 0.0))
     return (np.where(mask, float(load["eps_r"]), 1.0), np.where(mask, float(load["sigma_s_per_m"]), 0.0))

@@ -37,7 +37,7 @@ import numpy as np
 
 from . import compare, opcount, seeded
 from . import trace as tr
-from .cell import BENCH_DIR, Cell, load_maps, simulation_time
+from .cell import BENCH_DIR, Cell, is_debye, load_maps, simulation_time
 from .kernels import FIELD_UPDATE, base, label
 
 STATE_DIR = BENCH_DIR / "_state"  # built-kernel markers and library caches, inside the checkout
@@ -76,11 +76,15 @@ def nvcc_present() -> bool:
 
 
 def load_reader(name: str):
-    """The ``read`` function of ``metrics/<name>.py``."""
+    """The ``read`` function of ``metrics/<name>.py`` or, for a metric
+    ``<reader>.<part>`` that has no file of its own (one quantity split by
+    the end-to-end metric it moves in some cells), of ``metrics/<reader>.py``."""
     path = BENCH_DIR / "metrics" / f"{name}.py"
+    if not path.is_file() and "." in name:
+        path = BENCH_DIR / "metrics" / f"{name.split('.', 1)[0]}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no reader {path} for the per-layer metric {name!r}")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
@@ -104,14 +108,20 @@ class Program:
 
     def __post_init__(self):
         from fdtd_tpu_torch import dft, monitors, params, state
+        from fdtd_tpu_torch.ops import dispersive
 
         c = self.cell
         self._params, self._mode = params.Params, params.Mode
         self._source = params.SourceConfig(frequency=float(c.config["source_hz"]),
                                            aprime=float(c.config["source_patch_m"][0]),
                                            bprime=float(c.config["source_patch_m"][1]))
-        maps = load_maps(c)
-        self.materials = state.Materials(eps_r=maps[0], sigma=maps[1]) if maps is not None else None
+        self.maps = load_maps(c)
+        self.debye = is_debye(c)
+        self.materials = None
+        if self.maps is not None:
+            self.materials = state.Materials(eps_r=self.maps[0], sigma=self.maps[1])
+        if self.debye:
+            self.materials = dispersive.DebyeMaterials(base=self.materials, d_eps=self.maps[2], tau=self.maps[3])
         self.dft = dft.DftConfig(c.dft_hz) if c.dft_hz else None
         self.probes = monitors.ProbeSet(c.probes) if c.probes else None
 
@@ -151,9 +161,9 @@ class Program:
             line = f"plan: backend {backend}"
             if backend == "stream":
                 free = torch.cuda.mem_get_info(self.device)[0]
-                plan = stream_plan.pick_plan(p, memory_bytes=free, lossy=self.materials is not None, het=False,
-                                             sar=self.cell.sar, pml=None, ade=False, dft=self.dft)
-                line += f", s {plan.s}, fold {getattr(plan, 'fold', None)}"
+                plan = stream_plan.pick_plan(p, memory_bytes=free, lossy=self.materials is not None and not self.debye,
+                                             het=False, sar=self.cell.sar, pml=None, ade=self.debye, dft=self.dft)
+                line += f", s {plan.s}, fold {getattr(plan, 'fold', None)}" + (", ADE sweep" if self.debye else "")
             return line
         except Exception as e:  # the plan is informational
             return f"plan: not read ({type(e).__name__}: {e})"
@@ -198,14 +208,30 @@ def _window_outputs(res, cell: Cell, steps: int, diag: str, check_steps: int) ->
     return out
 
 
-def reference_outputs(cell: Cell, ckpt: str, steps: int, device) -> dict:
-    """The plain reference over ``steps`` steps from the checkpoint."""
+def seeded_pol(cell: Cell, seed: int, maps, device):
+    """The seeded polarization of a Debye load (:func:`seeded.seeded_polarization`,
+    at eps0 d_eps times the seeded E's amplitude), or None."""
+    if not is_debye(cell):
+        return None
+    amp = seeded.polarization_amplitude(cell.config["load"]["d_eps"], cell.traffic["seeded_fields"]["e_v_per_m"])
+    return seeded.seeded_polarization(cell.grid, seed, amp, maps[2], device)
+
+
+def reference_outputs(cell: Cell, ckpt: str, steps: int, device, seed: int) -> dict:
+    """The plain reference over ``steps`` steps from the checkpoint's
+    fields and, in a Debye load, the polarization drawn again from
+    ``seed`` (not read back: a program that resumes a P other than the
+    seeded one is caught)."""
     from reference.plain import Reference, Scene
 
+    maps = load_maps(cell)
     sc = Scene(cell.grid, cell.box, cell.config["spatial_step_m"], cell.config["time_step_s"],
-               cell.config["source_hz"], cell.config["source_patch_m"], maps=load_maps(cell), sar=cell.sar,
+               cell.config["source_hz"], cell.config["source_patch_m"], maps=maps, sar=cell.sar,
                dft_hz=cell.dft_hz, probes=cell.probes, output_every=cell.output_every)
-    return Reference(sc, device).follow(seeded.read_checkpoint_fields(ckpt), steps)
+    pol = seeded_pol(cell, seed, maps, device)
+    if pol is not None:
+        pol = dict(zip(("x", "y", "z"), pol))
+    return Reference(sc, device).follow(seeded.read_checkpoint_fields(ckpt), steps, pol)
 
 
 def window_steps(cell: Cell, seconds: float, t_warm: float, loop_s: float, warm_steps: int, saved=None) -> int:
@@ -282,8 +308,9 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     say(prog.plan_line())
     amp = cell.traffic["seeded_fields"]
     fields = seeded.seeded_fields(cell.grid, seed, amp["e_v_per_m"], amp["h_a_per_m"], dev)
-    ckpt = seeded.write_checkpoint(prog.run_dir, fields, cell.grid if cell.sar else None)
-    del fields
+    pol = seeded_pol(cell, seed, prog.maps, dev)
+    ckpt = seeded.write_checkpoint(prog.run_dir, fields, cell.grid if cell.sar else None, pol)
+    del fields, pol
     phases["seeded_checkpoint"] = mark()
 
     compile_s = 0.0
@@ -343,6 +370,7 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     peak_window = torch.cuda.max_memory_allocated(dev) if cuda else 0
     memory_peak = max(peak_setup, peak_window) if cuda else 0
     window = _window_outputs(res, cell, steps, diag, check_steps)
+    window_loop_s = res.wall_seconds
     del res
     if cuda:
         torch.cuda.empty_cache()
@@ -350,8 +378,8 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     result: dict = {"correct": False, "attempted": window["attempted"], "failed": window["failed"]}
     device = {"platform": "gpu" if cuda else dev.type, "kind": card, "count": 1 if cuda else 0,
               "memory_peak_bytes": int(memory_peak)}
-    info = {"steps": steps, "window_s": window_s, "setup_s": setup_s, "compile_s": compile_s, "phases": phases,
-            "warm_s": t_warm, "warm_loop_s": loop_s}
+    info = {"steps": steps, "window_s": window_s, "window_loop_s": window_loop_s, "setup_s": setup_s,
+            "compile_s": compile_s, "phases": phases, "warm_s": t_warm, "warm_loop_s": loop_s}
     if trace:
         t0 = time.perf_counter()
         summary = tr.summarize(prof, steps, (SAR_LABEL,))
@@ -359,7 +387,7 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
         info["trace_stop_s"] = info_trace_stop
         info["summarize_s"] = time.perf_counter() - t0
         ctx = {"ops_per_step": opcount.for_cell(cell), "peak_flops": opcount.PEAK_FP32_FLOPS,
-               "cells": cell.cells, "steps": steps}
+               "cells": cell.cells, "steps": steps, "window_s": window_s}
         metrics = {}
         for m in cell.per_layer:
             value = load_reader(m["name"])(summary, ctx)
@@ -380,7 +408,7 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     result["device"] = device
 
     t0 = time.perf_counter()
-    ref = reference_outputs(cell, ckpt, warm_steps, dev)
+    ref = reference_outputs(cell, ckpt, warm_steps, dev, seed)
     found = compare.checks(warm, window, ref, cell.limits())
     del ref
     if cuda:

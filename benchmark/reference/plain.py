@@ -4,16 +4,22 @@ slice arithmetic, independent of the program under test.
 It follows the upstream C loop (main.c:765-779): the source hard-set,
 update_H, the source hard-set again, update_E, in fp32 on the padded
 (maxk+1, maxj+1, maxi+1) layout, E updated only inside the PEC walls.
-Beside the update it keeps what a run's traffic asks for, each step on
-the state that ends it: the SAR map (sigma |E|^2 dt at cell centres,
-fp32), the E phasor sums at each DFT frequency (fp32 (re, im) pairs of
+A Debye load (a single-pole medium eps_inf + d_eps / (1 + i w tau) with
+an ionic sigma) takes the auxiliary-differential-equation E update and
+carries its polarization P on the E edges (:func:`debye_coefs`,
+:meth:`Reference.update_e`).  Beside the update it keeps what a run's
+traffic asks for, each step on the state that ends it: the SAR map
+(sigma |E|^2 dt at cell centres in a lossy load, the cell means of the
+update's own work densities times dt in a Debye load, fp32), the E
+phasor sums at each DFT frequency (fp32 (re, im) pairs of
 the cell-centred means), the probe rows (the six cell-centred
 components at each probe cell) and, every ``output_every`` steps and at
 step 0, the cavity's electric and magnetic energy (in fp64).
 
 Everything it needs it works out again from the run's inputs: the
 source patch and its drive, the lossy coefficients from the eps_r and
-sigma maps, the DFT weights from the time counters.  It imports
+sigma maps, the Debye coefficients from the eps_inf, sigma, d_eps and
+tau maps, the DFT weights from the time counters.  It imports
 neither jax nor the JAX package nor the program.
 """
 
@@ -31,6 +37,8 @@ PI = 3.14159265358979323846264338327950288419716939937510582097494
 CELERITY = 299792458.0
 
 F32 = torch.float32
+# E component -> the two cell axes its edge is averaged over
+COMP_AXES = {"x": (0, 1), "y": (0, 2), "z": (1, 2)}
 
 
 def f32(x: float) -> float:
@@ -43,7 +51,8 @@ class Scene:
 
     ``grid`` (maxk, maxj, maxi); ``box`` (length, width, height) in m as
     C floats; ``dx``, ``dt``; ``source_hz`` and the port's ``patch``
-    (a', b') in m; ``maps`` None or the (eps_r, sigma) fp64 cell maps;
+    (a', b') in m; ``maps`` None, the (eps_r, sigma) fp64 cell maps of a
+    lossy load or the (eps_inf, sigma, d_eps, tau) ones of a Debye load;
     ``sar``; ``dft_hz``; ``probes`` (k, j, i) cells; ``output_every``.
     """
 
@@ -59,6 +68,10 @@ class Scene:
         self.dft_hz = tuple(float(f) for f in dft_hz)
         self.probes = tuple(tuple(int(c) for c in p) for p in probes)
         self.output_every = int(output_every)
+
+    @property
+    def debye(self) -> bool:
+        return self.maps is not None and len(self.maps) == 4
 
     @property
     def padded(self) -> tuple[int, int, int]:
@@ -96,7 +109,7 @@ def time_counters(dt: float, steps: int) -> np.ndarray:
     return ts
 
 
-def _edge_mean(cells: torch.Tensor, axes) -> torch.Tensor:
+def edge_mean(cells: torch.Tensor, axes) -> torch.Tensor:
     """Cell values at the edges along the third axis: the mean over the
     cells around each edge, the wall edges taking the wall cells' values."""
     out = cells
@@ -117,9 +130,9 @@ def lossy_coefs(sc: Scene, device):
     eps_r, sigma = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in sc.maps)
     dt, dx = sc.dt, sc.dx
     out = {}
-    for comp, axes in (("x", (0, 1)), ("y", (0, 2)), ("z", (1, 2))):
-        eps_e = _edge_mean(eps_r, axes) * EPSILON
-        sig_e = _edge_mean(sigma, axes)
+    for comp, axes in COMP_AXES.items():
+        eps_e = edge_mean(eps_r, axes) * EPSILON
+        sig_e = edge_mean(sigma, axes)
         s = sig_e * dt / (2.0 * eps_e)
         ca = torch.ones(sc.padded, dtype=torch.float64, device=device)
         cb = torch.zeros(sc.padded, dtype=torch.float64, device=device)
@@ -127,6 +140,42 @@ def lossy_coefs(sc: Scene, device):
         ca[:ek, :ej, :ei] = (1.0 - s) / (1.0 + s)
         cb[:ek, :ej, :ei] = (dt / (eps_e * dx)) / (1.0 + s)
         out[comp] = (ca.to(F32), cb.to(F32))
+    return out
+
+
+def debye_coefs(sc: Scene, device):
+    """{'x','y','z': {'ca','cb','cp','k1','k2','sig'}} padded fp32 tensors of
+    the Debye ADE update
+
+        E' = ca E + cb curl H + cp P,     P' = k1 P + k2 (E' + E),
+        k1 = (2 tau - dt) / (2 tau + dt), k2 = eps0 d_eps dt / (2 tau + dt),
+        D = eps + k2 + sigma dt / 2,      ca = (eps - k2 - sigma dt / 2) / D,
+        cb = (dt / dx) / D,               cp = (1 - k1) / D,
+
+    with eps = eps0 eps_inf, each of the four cell maps averaged onto the
+    edge first, all in fp64, rounded once to fp32; ``sig`` is the edge
+    sigma of the work densities.  Outside each component's extent (ca, cb,
+    cp, k1, k2, sig) = (1, 0, 0, 1, 0, 0)."""
+    eps_inf, sigma, d_eps, tau = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in sc.maps)
+    dt, dx = sc.dt, sc.dx
+    out = {}
+    for comp, axes in COMP_AXES.items():
+        eps_e = edge_mean(eps_inf, axes) * EPSILON
+        sig_e = edge_mean(sigma, axes)
+        de_e = edge_mean(d_eps, axes)
+        tau_e = edge_mean(tau, axes)
+        two_tau = 2.0 * tau_e + dt
+        k1 = (2.0 * tau_e - dt) / two_tau
+        k2 = EPSILON * de_e * dt / two_tau
+        D = eps_e + k2 + 0.5 * sig_e * dt
+        maps = {"ca": ((eps_e - k2 - 0.5 * sig_e * dt) / D, 1.0), "cb": ((dt / dx) / D, 0.0),
+                "cp": ((1.0 - k1) / D, 0.0), "k1": (k1, 1.0), "k2": (k2, 0.0), "sig": (sig_e, 0.0)}
+        ek, ej, ei = eps_e.shape
+        out[comp] = {}
+        for name, (edge, fill) in maps.items():
+            t = torch.full(sc.padded, fill, dtype=torch.float64, device=device)
+            t[:ek, :ej, :ei] = edge
+            out[comp][name] = t.to(F32)
     return out
 
 
@@ -168,9 +217,12 @@ class Reference:
         self.j0, self.j1, self.i0, self.i1, self.inv_z_te, self.profile = source_patch(sc)
         self.hf = f32(sc.dt / (MU * sc.dx))  # main.c:441
         self.cb0 = f32(sc.dt / (EPSILON * sc.dx))  # main.c:479
-        self.coefs = lossy_coefs(sc, device) if sc.maps is not None else None
+        self.coefs = lossy_coefs(sc, device) if sc.maps is not None and not sc.debye else None
+        self.ade = debye_coefs(sc, device) if sc.debye else None
         self.sigma = (torch.as_tensor(sc.maps[1], dtype=F32, device=device)
-                      if sc.maps is not None and sc.sar else None)
+                      if self.coefs is not None and sc.sar else None)
+        # the work densities' divisor, dt in fp32, as a 0-d tensor on the device
+        self.dt_t = torch.tensor(f32(sc.dt), dtype=F32, device=device)
 
     def drive_rows(self, ts: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """Each step's Ez and Hx rows of the patch: sin(2 pi f t) times the
@@ -199,8 +251,12 @@ class Reference:
         f["hz"][:, :J, :I] = f["hz"][:, :J, :I] + fh * (
             (ex[:, 1:J + 1, :I] - ex[:, :J, :I]) - (ey[:, :J, 1:I + 1] - ey[:, :J, :I]))
 
-    def update_e(self, f: dict) -> None:
-        """E <- ca E + cb curl H inside the walls (main.c:469-500)."""
+    def update_e(self, f: dict, pol: dict | None = None, work: dict | None = None) -> None:
+        """E <- ca E + cb curl H inside the walls (main.c:469-500); in a
+        Debye load E <- ca E + cb curl H + cp P and P <- k1 P + k2 (E' + E)
+        on ``pol`` ({'x','y','z'}), and with ``work`` ({'ex','ey','ez'})
+        each updated edge's work density E_mid ((P' - P) / dt + sigma
+        E_mid), E_mid = (E' + E) / 2."""
         K, J, I = self.sc.grid
         hx, hy, hz = f["hx"], f["hy"], f["hz"]
         sx = (slice(1, K), slice(1, J), slice(0, I))
@@ -210,7 +266,17 @@ class Reference:
         curl_y = (hx[1:K, :J, 1:I] - hx[0:K - 1, :J, 1:I]) - (hz[1:K, :J, 1:I] - hz[1:K, :J, 0:I - 1])
         curl_z = (hy[:K, 1:J, 1:I] - hy[:K, 1:J, 0:I - 1]) - (hx[:K, 1:J, 1:I] - hx[:K, 0:J - 1, 1:I])
         for name, sl, curl, c in (("ex", sx, curl_x, "x"), ("ey", sy, curl_y, "y"), ("ez", sz, curl_z, "z")):
-            if self.coefs is None:
+            if self.ade is not None:
+                m = self.ade[c]
+                e_old, p_old = f[name][sl], pol[c][sl]
+                e_new = m["ca"][sl] * e_old + m["cb"][sl] * curl + m["cp"][sl] * p_old
+                p_new = m["k1"][sl] * p_old + m["k2"][sl] * (e_new + e_old)
+                if work is not None:
+                    e_mid = 0.5 * (e_new + e_old)
+                    work[name][sl] = e_mid * ((p_new - p_old) / self.dt_t + m["sig"][sl] * e_mid)
+                f[name][sl] = e_new
+                pol[c][sl] = p_new
+            elif self.coefs is None:
                 f[name][sl] = f[name][sl] + self.cb0 * curl
             else:
                 ca, cb = self.coefs[c]
@@ -222,6 +288,13 @@ class Reference:
         mx, my, mz = e_means(f, K, J, I)
         esq = mx * mx + my * my + mz * mz
         power.add_(self.sigma * esq * f32(self.sc.dt))
+
+    def deposit_work(self, work: dict, power: torch.Tensor) -> None:
+        """power += (the cell means of the three work densities, summed) dt,
+        fp32."""
+        K, J, I = self.sc.grid
+        mx, my, mz = e_means(work, K, J, I)
+        power.add_((mx + my + mz) * f32(self.sc.dt))
 
     def dft_add(self, f: dict, re: torch.Tensor, im: torch.Tensor, cw: torch.Tensor, sw: torch.Tensor) -> None:
         """re += cos(w t) E, im -= sin(w t) E for each frequency, on the
@@ -242,13 +315,21 @@ class Reference:
             rows.append(torch.stack([m[0, 0, 0] for m in means]))
         return torch.stack(rows)
 
-    def follow(self, fields: dict, steps: int) -> dict:
-        """Run ``steps`` steps from ``fields`` ({name: fp32 host array});
-        returns {'state', 'power', 'dft' (re, im), 'probes', 'energy'
-        {iteration: (E, H)}}."""
+    def follow(self, fields: dict, steps: int, pol: dict | None = None) -> dict:
+        """Run ``steps`` steps from ``fields`` ({name: fp32 host array}) and,
+        in a Debye load, the polarization ``pol`` ({'x','y','z'}: fp32
+        arrays of the padded shape); returns {'state', 'pol', 'power', 'dft'
+        (re, im), 'probes', 'energy' {iteration: (E, H)}}."""
         sc, dev = self.sc, self.device
         K, J, I = sc.grid
         f = {n: torch.as_tensor(a, dtype=F32, device=dev).clone() for n, a in fields.items()}
+        P = work = None
+        if sc.debye:
+            if pol is None:
+                raise ValueError("a Debye load needs its initial polarization")
+            P = {c: torch.as_tensor(a, dtype=F32, device=dev).clone() for c, a in pol.items()}
+            if sc.sar:  # written on the updated edges only, zero elsewhere throughout
+                work = {n: torch.zeros(sc.padded, dtype=F32, device=dev) for n in ("ex", "ey", "ez")}
         ts = time_counters(sc.dt, steps)
         ez_rows, hx_rows = self.drive_rows(ts)
         power = torch.zeros((K, J, I), dtype=F32, device=dev) if sc.sar else None
@@ -265,8 +346,10 @@ class Reference:
             self.source(f, ez_rows[n], hx_rows[n])
             self.update_h(f)
             self.source(f, ez_rows[n], hx_rows[n])
-            self.update_e(f)
-            if power is not None:
+            self.update_e(f, P, work)
+            if work is not None:
+                self.deposit_work(work, power)
+            elif power is not None:
                 self.deposit(f, power)
             if dft is not None:
                 self.dft_add(f, dft[0], dft[1], cw[n], sw[n])
@@ -275,4 +358,4 @@ class Reference:
             if (n + 1) % sc.output_every == 0:
                 energy[n + 1] = energies(f, sc)
         probes = torch.stack(rows) if rows else None
-        return {"state": f, "power": power, "dft": dft, "probes": probes, "energy": energy}
+        return {"state": f, "pol": P, "power": power, "dft": dft, "probes": probes, "energy": energy}

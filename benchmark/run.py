@@ -74,7 +74,7 @@ def main(argv=None) -> int:
         return 4
     info = result.pop("_info")
     phases = ", ".join(f"{k} {v:.3f}" for k, v in info["phases"].items())
-    print(f"window: {info['steps']} steps in {info['window_s']:.3f} s; set-up {info['setup_s']:.3f} s "
+    print(f"window: {info['steps']} steps in {info['window_s']:.3f} s (the loop {info['window_loop_s']:.3f} s); set-up {info['setup_s']:.3f} s "
           f"({phases}); warm-up call {info['warm_s']:.3f} s; reference {info['reference_s']:.3f} s"
           + (f"; trace events {info['trace_events']}, profiler stop {info['trace_stop_s']:.3f} s, summary "
              f"{info['summarize_s']:.3f} s, readers {info['trace_read_s']:.3f} s" if "trace_events" in info else ""),

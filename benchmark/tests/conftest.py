@@ -21,7 +21,7 @@ import pytest  # noqa: E402
 TINY_CONFIG = {"box_m": [0.016, 0.016, 0.016], "cells": [16, 16, 16]}
 TINY_TRAFFIC = {"output_every": 10, "warm_steps": 20}
 TINY_PROBES = [[4, 8, 8], [8, 8, 8], [12, 4, 4]]
-WORKLOADS = ("oven_256.long", "oven_water_256.sar", "oven_256.dft4", "oven_water_256.probes")
+WORKLOADS = ("oven_256.long", "oven_water_256.sar", "oven_256.dft4", "oven_water_256.probes", "debye_256.sar")
 
 
 def pytest_configure(config):

@@ -5,7 +5,10 @@ bfloat16 field storage, the precision below the configurations' fp32.
 The faults break the timed path underneath the harness, at the program's
 public entry, and leave everything else of a run as it is: a run whose
 steps leave the state unchanged, a run that updates only half of the
-grid, and runs in which one answer is altered where it is produced.
+grid, and runs in which one answer is altered where it is produced; and
+in a Debye load: the dispersion dropped (the block run as a lossy eps_inf
++ sigma medium), the polarization left unchanged across steps, and one
+seeded polarization value altered in the checkpoint the program resumes.
 ``correct`` has to come out false each time.
 """
 
@@ -17,6 +20,8 @@ import torch
 
 from conftest import WORKLOADS
 from core import seeded
+
+DEBYE = "debye_256.sar"
 
 
 @pytest.mark.parametrize("workload", WORKLOADS)
@@ -117,3 +122,57 @@ def test_faults_are_not_correct(run_tiny, monkeypatch, workload, fault):
     monkeypatch.setattr(runner, "run_simulation", broken)
     r = run_tiny(workload)
     assert not r["correct"], (fault, r["checks"])
+
+
+def dispersion_dropped(monkeypatch):
+    """The Debye block run as its instantaneous part alone: a lossy
+    medium of eps_inf and the ionic sigma."""
+    from fdtd_tpu_torch import runner
+
+    real = runner.run_simulation
+
+    def lossy(p, device, **kw):
+        return real(p, device, **dict(kw, materials=kw["materials"].base))
+
+    monkeypatch.setattr(runner, "run_simulation", lossy)
+
+
+def pol_frozen(monkeypatch):
+    """Every ADE E update leaves the polarization as it found it."""
+    from fdtd_tpu_torch.ops import dispersive
+
+    real = dispersive.update_e_ade
+
+    def frozen_pol(p, s, P, dc, work=None, box=None):
+        before = P.clone()
+        real(p, s, P, dc, work, box)
+        for t, b in zip(P.tensors(), before.tensors()):
+            t.copy_(b)
+
+    monkeypatch.setattr(dispersive, "update_e_ade", frozen_pol)
+
+
+def pol_altered_in_checkpoint(monkeypatch):
+    """The seeded P's largest Px value written with its sign flipped."""
+    real = seeded.write_checkpoint
+
+    def altered(run_dir, fields, power_shape, pol=None):
+        pol = pol.clone()
+        flat = pol[0].view(-1)
+        n = int(flat.float().abs().argmax())
+        flat[n] = -flat[n]
+        return real(run_dir, fields, power_shape, pol)
+
+    monkeypatch.setattr(seeded, "write_checkpoint", altered)
+
+
+DEBYE_FAULTS = {"dispersion_dropped": dispersion_dropped, "pol_frozen": pol_frozen,
+                "pol_altered_in_checkpoint": pol_altered_in_checkpoint}
+
+
+@pytest.mark.parametrize("fault", DEBYE_FAULTS)
+def test_debye_faults_are_not_correct(run_tiny, monkeypatch, fault):
+    DEBYE_FAULTS[fault](monkeypatch)
+    r = run_tiny(DEBYE)
+    assert not r["correct"], (fault, r["checks"])
+    assert r["checks"]["state_err"]["value"] > r["checks"]["state_err"]["limit"], (fault, r["checks"])

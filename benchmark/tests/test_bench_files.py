@@ -5,8 +5,10 @@ to the limits of the file's format (names, units, keys, bounds)."""
 import json
 import re
 
+import numpy as np
 import pytest
 
+from core import opcount
 from core.cell import BENCH_DIR, ROOT, Cell, load_benchmark, load_maps, simulation_time
 from core.run_cell import load_reader
 
@@ -75,6 +77,18 @@ def test_every_cell_reports_the_metrics_it_must():
         cell = Cell(w["name"])
         assert "setup_s" in {m["name"] for m in cell.end_to_end} and len(cell.end_to_end) >= 2
         assert cell.per_layer
+        # each per-layer metric of the cell moves an end-to-end metric that the cell reports
+        e2e = {m["name"] for m in cell.end_to_end}
+        assert all(m["moves"] in e2e for m in cell.per_layer), w["name"]
+
+
+def test_a_split_metric_is_read_by_its_quantity_s_reader():
+    trace = {"window": [0.0, 10.0], "steps": 2, "device_ops": [], "ranges": {},
+             "cpu_ops": [["fdtd.coefs", 1.0, 4.0]]}
+    ctx = {"ops_per_step": 0.0, "peak_flops": 67e12, "cells": 1, "steps": 2}
+    assert load_reader("coefs_s.probes")(trace, ctx) == load_reader("coefs_s")(trace, ctx) == pytest.approx(3e-6)
+    with pytest.raises(FileNotFoundError):
+        load_reader("no_such_metric.probes")
 
 
 def test_load_maps_place_the_water_block():
@@ -84,6 +98,32 @@ def test_load_maps_place_the_water_block():
     assert (eps[inside] == 78.0).all() and (sigma[inside] == 1.7).all()
     assert eps.sum() == 256 ** 3 - 103 ** 3 + 78.0 * 103 ** 3
     assert load_maps(Cell("oven_256.long")) is None
+
+
+def test_load_maps_state_the_debye_block():
+    eps_inf, sigma, d_eps, tau = load_maps(Cell("debye_256.sar"))
+    inside = (slice(76, 179),) * 3
+    assert (eps_inf[inside] == 5.2).all() and (sigma[inside] == 0.27).all()
+    assert (d_eps[inside] == 74.90304).all() and (tau[inside] == 9.36e-12).all()
+    out = np.ones(eps_inf.shape, bool)
+    out[inside] = False
+    assert (eps_inf[out] == 1.0).all() and not sigma[out].any() and not d_eps[out].any() and not tau[out].any()
+
+
+# the counts and maps of the cells that came before the Debye load, pinned as they were
+@pytest.mark.parametrize("workload,ops,sums", [
+    ("oven_256.long", 502840596.474, None),
+    ("oven_water_256.sar", 888324116.474, (100917195.0, 1857635.8999999904)),
+    ("oven_256.dft4", 1509473556.474, None),
+    ("oven_water_256.probes", 888324170.474, (100917195.0, 1857635.8999999904)),
+])
+def test_earlier_cells_keep_their_counts_and_maps(workload, ops, sums):
+    cell = Cell(workload)
+    assert opcount.for_cell(cell) == ops
+    maps = load_maps(cell)
+    assert (maps is None) == (sums is None)
+    if maps is not None:
+        assert len(maps) == 2 and tuple(float(m.sum()) for m in maps) == sums
 
 
 @pytest.mark.parametrize("steps", [1, 7, 1000, 26000])

@@ -30,7 +30,7 @@ def test_reference_loads_neither_jax_nor_the_program():
     assert not mods & {"jax", "jaxlib", "flax", "fdtd_tpu", "fdtd_tpu_torch"}
 
 
-@pytest.mark.parametrize("workload", ["oven_water_256.probes", "oven_256.dft4"])
+@pytest.mark.parametrize("workload", ["oven_water_256.probes", "oven_256.dft4", "debye_256.sar"])
 def test_a_whole_run_loads_no_jax(workload):
     body = f"""
 from core.run_cell import run_cell

@@ -119,3 +119,10 @@ def test_summarize_attributes_kernels_to_ranges():
     assert s["ranges"]["sar_increment"] == [[500.0, 600.0, 30.0]]
     assert read("sar_ms_per_step", s) == pytest.approx(0.03 / 4)
     assert tr.busy_us(s) == 340.0
+
+
+def test_window_rate_reads_the_host_time_of_the_call():
+    t = canned(steps=10)
+    ctx = {"ops_per_step": 0.0, "peak_flops": 67e12, "cells": 4_000_000, "steps": 10, "window_s": 0.5}
+    assert load_reader("window_mcells_per_s")(t, ctx) == pytest.approx(80.0)  # 4e7 cell updates in 0.5 s
+    assert load_reader("window_mcells_per_s")(t, {**ctx, "window_s": 0.0}) is None

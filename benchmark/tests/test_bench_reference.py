@@ -7,6 +7,7 @@ import torch
 
 from conftest import WORKLOADS
 from core import seeded
+from core.cell import Cell
 from reference.plain import Reference, Scene, energies, source_patch
 
 
@@ -21,7 +22,9 @@ def test_reference_agrees_with_the_torch_backend(run_tiny, workload):
         tol = {"energy_err": 1e-6, "dft_err": 1e-15}.get(name, 0.0)
         assert c["value"] <= tol, (name, c)
     assert r["attempted"] >= 1 and r["failed"] == 0
-    assert set(r["metrics"]) == {"mcells_per_s", "device_peak_gib", "setup_s"}
+    assert set(r["metrics"]) == {m["name"] for m in Cell(workload).end_to_end}
+    assert {"device_peak_gib", "setup_s"} <= set(r["metrics"])
+    assert ("mcells_per_s" in r["metrics"]) == (workload != "oven_water_256.probes")
     assert list(r)[-1] == "checks"
 
 
@@ -49,6 +52,38 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
         assert int(z["iteration"]) == 0 and float(z["t"]) == 0.0
         assert z["power_acc"].shape == (4, 5, 6) and not z["power_acc"].any()
         assert not [k for k in z.files if k.startswith("aux_")]
+
+
+def test_seeded_polarization_is_zero_off_the_load_edges():
+    K, J, I = 8, 9, 10
+    d_eps = np.zeros((K, J, I))
+    d_eps[2:5, 3:6, 4:8] = 74.9
+    amp = seeded.polarization_amplitude(74.9, 1.0)
+    pol = seeded.seeded_polarization((K, J, I), 2 ** 31 + 5, amp, d_eps, "cpu")
+    assert pol.dtype == torch.bfloat16 and pol.shape == (3, K + 1, J + 1, I + 1)
+    for n, axes in enumerate(((0, 1), (0, 2), (1, 2))):  # Px, Py, Pz: the cell axes each edge averages over
+        # the edge average of d_eps in numpy: the wall cells repeated, then neighbours averaged
+        edge = np.pad(d_eps, [(1, 1) if ax in axes else (0, 0) for ax in range(3)], mode="edge")
+        for ax in axes:
+            edge = 0.5 * (np.delete(edge, -1, axis=ax) + np.delete(edge, 0, axis=ax))
+        on = np.zeros((K + 1, J + 1, I + 1), bool)
+        on[:edge.shape[0], :edge.shape[1], :edge.shape[2]] = edge > 0
+        p = pol[n].float().numpy()
+        assert (p[~on] == 0).all() and (p[on] != 0).all()
+        assert np.abs(p).max() <= amp * (1 + 2 ** -8)
+    assert torch.equal(pol, seeded.seeded_polarization((K, J, I), 2 ** 31 + 5, amp, d_eps, "cpu"))
+    assert not torch.equal(pol, seeded.seeded_polarization((K, J, I), 2 ** 31 + 6, amp, d_eps, "cpu"))
+
+
+def test_checkpoint_carries_the_seeded_polarization(tmp_path):
+    f = seeded.seeded_fields((4, 5, 6), 9, 1.0, 0.01, "cpu")
+    d_eps = np.zeros((4, 5, 6))
+    d_eps[1:3, 1:4, 2:5] = 74.9
+    pol = seeded.seeded_polarization((4, 5, 6), 9, 1e-9, d_eps, "cpu")
+    path = seeded.write_checkpoint(str(tmp_path), f, (4, 5, 6), pol)
+    with np.load(path) as z:
+        for n, key in enumerate(seeded.POL_KEYS):
+            assert z[key].dtype == np.dtype("V2") and np.array_equal(seeded.widen(z[key]), pol[n].float().numpy())
 
 
 def test_reference_source_and_energy_of_a_known_state():

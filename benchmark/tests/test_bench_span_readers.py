@@ -60,9 +60,12 @@ def test_a_traced_cpu_run_reads_every_span_metric(run_tiny):
         assert r["correct"], r["checks"]
         got[workload] = r["metrics"]
     probes, dft4 = got["oven_water_256.probes"], got["oven_256.dft4"]
+    # the probes cell reads the same spans under the names that move setup_s
     for name in ("coefs_s", "resume_s", "loop_idle_pct", "enqueue_ms_per_step"):
-        assert probes[name]["value"] >= 0, name
-    assert "finalize_s" not in probes  # a reader the cell does not list
+        assert probes[f"{name}.probes"]["value"] >= 0, name
+        assert name not in probes
+    assert "finalize_s" not in probes and "finalize_s.probes" not in probes  # a reader the cell does not list
     assert dft4["finalize_s"]["value"] > 0 and "coefs_s" not in dft4
-    for m in got.values():
-        assert 0 <= m["loop_idle_pct"]["value"] <= 100
+    assert probes["window_mcells_per_s"]["value"] > 0 and "window_mcells_per_s" not in dft4
+    assert 0 <= probes["loop_idle_pct.probes"]["value"] <= 100
+    assert 0 <= dft4["loop_idle_pct"]["value"] <= 100
