@@ -16,8 +16,10 @@ checkpoint's load) is inside.  With ``trace`` the same call runs under
 ``torch.profiler`` inside the benchmark's span.
 
 After the window: the plain reference follows the first ``warm_steps``
-steps from the same checkpoint, and :mod:`core.compare` holds the
-warm-up call's outputs and the window's first records against it.
+steps from the same checkpoint, in the field storage the configuration
+states and, at bfloat16, rounding where the program's plan stores
+(:func:`plan_and_cadence`), and :mod:`core.compare` holds the warm-up
+call's outputs and the window's first records against it.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ class Program:
         self.dft = dft.DftConfig(c.dft_hz) if c.dft_hz else None
         self.probes = monitors.ProbeSet(c.probes) if c.probes else None
 
-    def params(self, steps: int):
+    def params(self, steps: int, dtype: str | None = None):
         c = self.cell
         lx, ly, lz = c.box
         dt = float(c.config["time_step_s"])
@@ -133,7 +135,7 @@ class Program:
                             time_step=dt, simulation_time=simulation_time(dt, steps),
                             sampling_rate=c.output_every,
                             mode=self._mode.COMPUTATION if c.config["mode"] == "computation" else self._mode.VALIDATION,
-                            dtype=self.dtype, source=self._source)
+                            dtype=dtype or self.dtype, source=self._source)
 
     def call(self, steps: int, diag: str):
         """One ``run_simulation`` call of ``steps`` steps from the seeded
@@ -146,27 +148,62 @@ class Program:
                                      accumulate_power=self.cell.sar, resume=True, log=_stderr,
                                      diagnostics_log=diag, dft=self.dft, probes=self.probes)
 
-    def plan_line(self) -> str:
-        """The backend and sweep plan the program picks for this scene
-        (read for the log only; any failure is printed, not raised)."""
-        try:
-            import torch
+    def plan(self, dtype: str | None = None) -> dict:
+        """The backend and sweep plan the program picks for this scene at
+        ``dtype`` (default the one it runs): {'backend', 's', 'fold'},
+        's' and 'fold' None off ``stream``, read through the program's
+        ``runner.resolve_backend`` and ``stream_plan.pick_plan``; raises
+        where they cannot be read."""
+        import torch
 
-            from fdtd_tpu_torch import runner
-            from fdtd_tpu_torch.ops import stream_plan
+        from fdtd_tpu_torch import runner
+        from fdtd_tpu_torch.ops import stream_plan
 
-            p = self.params(self.cell.output_every)
-            backend = runner.resolve_backend(p, "auto", self.device, self.materials, self.cell.sar, None, None,
-                                             self.dft, self.probes)
-            line = f"plan: backend {backend}"
-            if backend == "stream":
-                free = torch.cuda.mem_get_info(self.device)[0]
-                plan = stream_plan.pick_plan(p, memory_bytes=free, lossy=self.materials is not None and not self.debye,
-                                             het=False, sar=self.cell.sar, pml=None, ade=self.debye, dft=self.dft)
-                line += f", s {plan.s}, fold {getattr(plan, 'fold', None)}" + (", ADE sweep" if self.debye else "")
-            return line
-        except Exception as e:  # the plan is informational
-            return f"plan: not read ({type(e).__name__}: {e})"
+        p = self.params(self.cell.output_every, dtype)
+        backend = runner.resolve_backend(p, "auto", self.device, self.materials, self.cell.sar, None, None,
+                                         self.dft, self.probes)
+        if backend != "stream":
+            return {"backend": backend, "s": None, "fold": None}
+        free = torch.cuda.mem_get_info(self.device)[0] if torch.device(self.device).type == "cuda" else None
+        plan = stream_plan.pick_plan(p, memory_bytes=free, lossy=self.materials is not None and not self.debye,
+                                     het=False, sar=self.cell.sar, pml=None, ade=self.debye, dft=self.dft)
+        if plan is None:
+            raise RuntimeError(f"resolve_backend picked stream, but pick_plan found no plan at {p.dtype}")
+        return {"backend": backend, "s": plan.s, "fold": getattr(plan, "fold", None)}
+
+
+def round_every(dtype: str, plan: dict | None) -> int:
+    """The steps between the program's stores of the fields, which the
+    reference rounds at (``reference.plain.Scene``): 1 at float32, whose
+    stores round nothing; at bfloat16 the sweep depth s on ``stream`` and
+    1 on the per-step backends, from ``plan`` (:meth:`Program.plan`), which
+    a bf16 run has to have read: it never falls back to 1."""
+    if dtype == "float32":
+        return 1
+    if plan is None:
+        raise RuntimeError(f"the program's plan was not read: a {dtype} reference rounds where the plan stores")
+    return plan["s"] if plan["backend"] == "stream" else 1
+
+
+def plan_and_cadence(prog: Program, cell: Cell) -> tuple[str, int]:
+    """The run's plan line and the reference's cadence.  The program's plan
+    is read for the log and, where the configuration states bfloat16, for
+    the reference: at the stated dtype, also when a control runs the
+    program at another.  A plan that cannot be read is printed at float32
+    and raises at bfloat16."""
+    try:
+        plan = prog.plan()
+        line = f"plan: backend {plan['backend']}"
+        if plan["backend"] == "stream":
+            line += f", s {plan['s']}, fold {plan['fold']}" + (", ADE sweep" if prog.debye else "")
+    except Exception as e:
+        plan, line = None, f"plan: not read ({type(e).__name__}: {e})"
+    if cell.dtype != "float32" and prog.dtype != cell.dtype:
+        plan = prog.plan(cell.dtype)
+        line += f" (at {prog.dtype}; at the stated {cell.dtype}: backend {plan['backend']}, s {plan['s']})"
+    every = round_every(cell.dtype, plan)
+    what = "stores float32" if cell.dtype == "float32" else f"rounds to {cell.dtype} every {every} step(s)"
+    return f"{line}; the reference {what}", every
 
 
 def _host_outputs(res, cell: Cell, steps: int, diag: str) -> dict:
@@ -217,17 +254,19 @@ def seeded_pol(cell: Cell, seed: int, maps, device):
     return seeded.seeded_polarization(cell.grid, seed, amp, maps[2], device)
 
 
-def reference_outputs(cell: Cell, ckpt: str, steps: int, device, seed: int) -> dict:
+def reference_outputs(cell: Cell, ckpt: str, steps: int, device, seed: int, every: int = 1) -> dict:
     """The plain reference over ``steps`` steps from the checkpoint's
     fields and, in a Debye load, the polarization drawn again from
     ``seed`` (not read back: a program that resumes a P other than the
-    seeded one is caught)."""
+    seeded one is caught), in the configuration's storage dtype, rounded
+    every ``every`` steps (:func:`round_every`)."""
     from reference.plain import Reference, Scene
 
     maps = load_maps(cell)
     sc = Scene(cell.grid, cell.box, cell.config["spatial_step_m"], cell.config["time_step_s"],
                cell.config["source_hz"], cell.config["source_patch_m"], maps=maps, sar=cell.sar,
-               dft_hz=cell.dft_hz, probes=cell.probes, output_every=cell.output_every)
+               dft_hz=cell.dft_hz, probes=cell.probes, output_every=cell.output_every, dtype=cell.dtype,
+               round_every=every)
     pol = seeded_pol(cell, seed, maps, device)
     if pol is not None:
         pol = dict(zip(("x", "y", "z"), pol))
@@ -256,11 +295,14 @@ def window_steps(cell: Cell, seconds: float, t_warm: float, loop_s: float, warm_
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
              config_over: dict | None = None, traffic_over: dict | None = None, state_dir=STATE_DIR,
-             t_start: float | None = None, say=_stdout) -> dict:
+             t_start: float | None = None, say=_stdout, program_dtype: str | None = None) -> dict:
     """Run ``workload`` once; returns the result line's object (with the
     keys ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``,
     ``breakdown`` when traced, and ``checks`` last) and, under
-    ``_info``, the set-up phases and the window's size."""
+    ``_info``, the set-up phases and the window's size.
+    ``program_dtype``: the control, the program run at another field
+    storage than the configuration states (the reference keeps the
+    stated one)."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
@@ -283,7 +325,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *, device: s
         dev = torch.device(device)
         name = f"host {device}"
     phases["card_info"] = time.perf_counter() - t_start - sum(phases.values())
-    prog = Program(cell, dev, "", cell.dtype)
+    prog = Program(cell, dev, "", program_dtype or cell.dtype)
     phases["program_import"] = time.perf_counter() - t_start - sum(phases.values())
     run_dir = tempfile.mkdtemp(prefix="bench-run-")
     prog.run_dir = run_dir
@@ -305,7 +347,8 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     def mark() -> float:
         return time.perf_counter() - t_start - sum(phases.values())
 
-    say(prog.plan_line())
+    line, every = plan_and_cadence(prog, cell)
+    say(line)
     amp = cell.traffic["seeded_fields"]
     fields = seeded.seeded_fields(cell.grid, seed, amp["e_v_per_m"], amp["h_a_per_m"], dev)
     pol = seeded_pol(cell, seed, prog.maps, dev)
@@ -408,7 +451,7 @@ def _run(cell, prog, dev, card, seed, seconds, trace, state_dir, t_start, phases
     result["device"] = device
 
     t0 = time.perf_counter()
-    ref = reference_outputs(cell, ckpt, warm_steps, dev, seed)
+    ref = reference_outputs(cell, ckpt, warm_steps, dev, seed, every)
     found = compare.checks(warm, window, ref, cell.limits())
     del ref
     if cuda:

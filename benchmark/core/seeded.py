@@ -25,9 +25,8 @@ import os
 import numpy as np
 import torch
 
-from reference.plain import COMP_AXES, EPSILON, edge_mean
+from reference.plain import COMP_AXES, COMPONENTS, EPSILON, edge_mean
 
-COMPONENTS = ("ex", "ey", "ez", "hx", "hy", "hz")
 CHECKPOINT = "ckpt000000.npz"
 POL_KEYS = ("aux_pol_x", "aux_pol_y", "aux_pol_z")
 # added to the seed for the polarization's generator, a stream apart from the fields'

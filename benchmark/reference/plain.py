@@ -16,6 +16,32 @@ the cell-centred means), the probe rows (the six cell-centred
 components at each probe cell) and, every ``output_every`` steps and at
 step 0, the cavity's electric and magnetic energy (in fp64).
 
+Storage.  At ``float32`` (every configuration before bfloat16) the state
+is fp32 throughout.  At ``bfloat16`` field storage it mirrors what the
+program states of its bf16 path, holding the state as fp32 tensors whose
+values are bf16 and computing every step in fp32 in the same operation
+order:
+
+- the six fields are rounded to bf16 (round to nearest even) at the
+  program's stores and nowhere else (:class:`Scene`'s ``round_every``):
+  once a sweep of s steps on ``stream``, after its SAR increments
+  (``fdtd_tpu_torch/csrc/yee_stream.cu:257-263``, "bf16 storage loads to
+  fp32, keeps every level in fp32 and rounds once per sweep, at the
+  store"; ``ops/stream.py::plain_sweep`` :157, "rounded once to the
+  storage dtype"), and after each pass on ``twopass`` and ``torch``, so
+  that the E pass reads the stored H and the SAR map the stored E
+  (``ops/curl.py`` :19-20, "rounded back to bf16 once per update");
+- the lossy ``ca``, ``cb`` and the SAR map's ``sigma`` are rounded to
+  bf16 from their fp64 values by torch's fp64 -> bf16 conversion, the
+  one ``state.update_coefs`` makes (``torch.tensor(..., dtype=bf16)``,
+  ``state.py:266-267``), then widened to fp32 for the arithmetic;
+- the source rows are formed in fp64 and rounded once to bf16
+  (``source.apply_source`` :126-127, ``source.sweep_drive_rows`` :162);
+- each step's SAR increment reads that step's E as the program holds
+  it, in fp32 (``diagnostics.accumulate_power``);
+- the energies (fp64) are those of the stored bf16 values at each
+  record.
+
 Everything it needs it works out again from the run's inputs: the
 source patch and its drive, the lossy coefficients from the eps_r and
 sigma maps, the Debye coefficients from the eps_inf, sigma, d_eps and
@@ -37,6 +63,9 @@ PI = 3.14159265358979323846264338327950288419716939937510582097494
 CELERITY = 299792458.0
 
 F32 = torch.float32
+# the storage dtypes a configuration may state
+STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPONENTS = ("ex", "ey", "ez", "hx", "hy", "hz")
 # E component -> the two cell axes its edge is averaged over
 COMP_AXES = {"x": (0, 1), "y": (0, 2), "z": (1, 2)}
 
@@ -53,11 +82,17 @@ class Scene:
     C floats; ``dx``, ``dt``; ``source_hz`` and the port's ``patch``
     (a', b') in m; ``maps`` None, the (eps_r, sigma) fp64 cell maps of a
     lossy load or the (eps_inf, sigma, d_eps, tau) ones of a Debye load;
-    ``sar``; ``dft_hz``; ``probes`` (k, j, i) cells; ``output_every``.
+    ``sar``; ``dft_hz``; ``probes`` (k, j, i) cells; ``output_every``;
+    ``dtype``, the field storage (a key of ``STORAGE``); ``round_every``,
+    at ``bfloat16`` the steps between the program's stores of all six
+    fields: s, a sweep's depth on ``stream``, or 1, the two-pass step, each
+    of whose passes stores its own fields (no sweep is one step deep).  A
+    bf16 scene takes vacuum and lossy loads with or without the SAR map;
+    its records fall on stores.
     """
 
     def __init__(self, grid, box, dx, dt, source_hz, patch, maps=None, sar=False, dft_hz=(), probes=(),
-                 output_every=1000):
+                 output_every=1000, dtype="float32", round_every=1):
         self.grid = tuple(int(n) for n in grid)
         self.box = tuple(float(v) for v in box)
         self.dx, self.dt = float(dx), float(dt)
@@ -68,6 +103,24 @@ class Scene:
         self.dft_hz = tuple(float(f) for f in dft_hz)
         self.probes = tuple(tuple(int(c) for c in p) for p in probes)
         self.output_every = int(output_every)
+        if dtype not in STORAGE:
+            raise ValueError(f"unknown field storage {dtype!r}: the reference stores {sorted(STORAGE)}")
+        self.dtype = dtype
+        self.round_every = int(round_every)
+        if self.round_every < 1:
+            raise ValueError(f"round_every {round_every!r}: a store comes every 1 or more steps")
+        if self.bf16:
+            missing = [what for what, on in (("a Debye load", self.debye), ("the DFT sums", self.dft_hz),
+                                             ("probe rows", self.probes)) if on]
+            if missing:
+                raise ValueError(f"the reference has no bfloat16 form of {', '.join(missing)}")
+            if self.output_every % self.round_every:
+                raise ValueError(f"records every {self.output_every} steps fall between the stores every "
+                                 f"{self.round_every} steps")
+
+    @property
+    def bf16(self) -> bool:
+        return self.dtype == "bfloat16"
 
     @property
     def debye(self) -> bool:
@@ -122,11 +175,18 @@ def edge_mean(cells: torch.Tensor, axes) -> torch.Tensor:
     return out
 
 
+def stored(values: torch.Tensor, sc: Scene) -> torch.Tensor:
+    """``values`` (fp64) rounded once to the scene's storage dtype by
+    torch's conversion, as an fp32 tensor."""
+    return values.to(STORAGE[sc.dtype]).to(F32)
+
+
 def lossy_coefs(sc: Scene, device):
     """{'x','y','z': (ca, cb)} padded fp32 tensors of the lossy E update
     E <- ca E + cb curl H, with ca = (1 - s) / (1 + s), cb = dt / (eps dx)
     / (1 + s), s = sigma dt / (2 eps), eps and sigma averaged onto each
-    edge in fp64; ca 1 and cb 0 outside each component's extent."""
+    edge in fp64, rounded once to the storage dtype; ca 1 and cb 0 outside
+    each component's extent."""
     eps_r, sigma = (torch.as_tensor(a, dtype=torch.float64, device=device) for a in sc.maps)
     dt, dx = sc.dt, sc.dx
     out = {}
@@ -139,7 +199,7 @@ def lossy_coefs(sc: Scene, device):
         ek, ej, ei = eps_e.shape
         ca[:ek, :ej, :ei] = (1.0 - s) / (1.0 + s)
         cb[:ek, :ej, :ei] = (dt / (eps_e * dx)) / (1.0 + s)
-        out[comp] = (ca.to(F32), cb.to(F32))
+        out[comp] = (stored(ca, sc), stored(cb, sc))
     return out
 
 
@@ -219,19 +279,26 @@ class Reference:
         self.cb0 = f32(sc.dt / (EPSILON * sc.dx))  # main.c:479
         self.coefs = lossy_coefs(sc, device) if sc.maps is not None and not sc.debye else None
         self.ade = debye_coefs(sc, device) if sc.debye else None
-        self.sigma = (torch.as_tensor(sc.maps[1], dtype=F32, device=device)
+        self.sigma = (stored(torch.as_tensor(sc.maps[1], dtype=torch.float64, device=device), sc)
                       if self.coefs is not None and sc.sar else None)
         # the work densities' divisor, dt in fp32, as a 0-d tensor on the device
         self.dt_t = torch.tensor(f32(sc.dt), dtype=F32, device=device)
 
     def drive_rows(self, ts: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """Each step's Ez and Hx rows of the patch: sin(2 pi f t) times the
-        profile in fp64, rounded once to fp32."""
+        profile in fp64, rounded once to the storage dtype, as fp32."""
         amp = np.sin((2.0 * PI * self.sc.source_hz) * ts)
         row = amp[:, None] * self.profile[None, :]
         hx = (-self.inv_z_te) * row
-        return (torch.as_tensor(row.astype(np.float32), device=self.device),
-                torch.as_tensor(hx.astype(np.float32), device=self.device))
+        return (stored(torch.as_tensor(row, device=self.device), self.sc),
+                stored(torch.as_tensor(hx, device=self.device), self.sc))
+
+    def store(self, f: dict, names=COMPONENTS) -> None:
+        """Round the fields ``names`` to the storage dtype in place (a
+        bf16 scene's store; nothing at fp32)."""
+        if self.sc.bf16:
+            for n in names:
+                f[n].copy_(f[n].to(torch.bfloat16))
 
     def source(self, f: dict, ez_row: torch.Tensor, hx_row: torch.Tensor) -> None:
         sl = (0, slice(self.j0, self.j1), slice(self.i0, self.i1))
@@ -319,10 +386,15 @@ class Reference:
         """Run ``steps`` steps from ``fields`` ({name: fp32 host array}) and,
         in a Debye load, the polarization ``pol`` ({'x','y','z'}: fp32
         arrays of the padded shape); returns {'state', 'pol', 'power', 'dft'
-        (re, im), 'probes', 'energy' {iteration: (E, H)}}."""
+        (re, im), 'probes', 'energy' {iteration: (E, H)}}.  A bf16 scene
+        loads ``fields`` into its storage and ends on a store."""
         sc, dev = self.sc, self.device
         K, J, I = sc.grid
+        if sc.bf16 and steps % sc.round_every:
+            raise ValueError(f"{steps} steps end between the stores every {sc.round_every} steps")
+        per_pass = sc.bf16 and sc.round_every == 1  # the two-pass step: each pass stores its fields
         f = {n: torch.as_tensor(a, dtype=F32, device=dev).clone() for n, a in fields.items()}
+        self.store(f)
         P = work = None
         if sc.debye:
             if pol is None:
@@ -345,8 +417,12 @@ class Reference:
         for n in range(steps):
             self.source(f, ez_rows[n], hx_rows[n])
             self.update_h(f)
+            if per_pass:
+                self.store(f, ("hx", "hy", "hz"))
             self.source(f, ez_rows[n], hx_rows[n])
             self.update_e(f, P, work)
+            if per_pass:
+                self.store(f, ("ex", "ey", "ez"))
             if work is not None:
                 self.deposit_work(work, power)
             elif power is not None:
@@ -355,6 +431,8 @@ class Reference:
                 self.dft_add(f, dft[0], dft[1], cw[n], sw[n])
             if sc.probes:
                 rows.append(self.probe_rows(f))
+            if sc.bf16 and not per_pass and (n + 1) % sc.round_every == 0:
+                self.store(f)  # a sweep's store, after its SAR increments
             if (n + 1) % sc.output_every == 0:
                 energy[n + 1] = energies(f, sc)
         probes = torch.stack(rows) if rows else None

@@ -1,15 +1,19 @@
 """The check's control and its faults, at a size a test run holds.
 
-The control is the program's own lower-precision path: the same cell with
-bfloat16 field storage, the precision below the configurations' fp32.
+The control is the program at the field storage its configuration does
+not state, against the reference at the stated one (``control.CONTROL``):
+an fp32 cell's is the program's own bfloat16 path, the precision below;
+a bfloat16 cell's is the program at float32, the rounding left out.
 The faults break the timed path underneath the harness, at the program's
 public entry, and leave everything else of a run as it is: a run whose
 steps leave the state unchanged, a run that updates only half of the
 grid, and runs in which one answer is altered where it is produced; and
 in a Debye load: the dispersion dropped (the block run as a lossy eps_inf
 + sigma medium), the polarization left unchanged across steps, and one
-seeded polarization value altered in the checkpoint the program resumes.
-``correct`` has to come out false each time.
+seeded polarization value altered in the checkpoint the program resumes;
+and in a bfloat16 cell: its fields rounded with one mantissa bit fewer
+where the program produces them.  ``correct`` has to come out false each
+time.
 """
 
 import json
@@ -18,15 +22,17 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import WORKLOADS
+from conftest import BF16_WORKLOADS, FP32_WORKLOADS, WORKLOADS
+from control import CONTROL
 from core import seeded
 
 DEBYE = "debye_256.sar"
 
 
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload", FP32_WORKLOADS)
 def test_bfloat16_control_is_not_correct(run_tiny, workload):
-    r = run_tiny(workload, config_over={"dtype": "bfloat16"})
+    assert CONTROL["float32"] == "bfloat16"
+    r = run_tiny(workload, program_dtype="bfloat16")
     assert not r["correct"], r["checks"]
     # the fields themselves give it away, whatever else the cell compares
     assert r["checks"]["state_err"]["value"] > r["checks"]["state_err"]["limit"]
@@ -100,12 +106,29 @@ def altered_map(res, kw):
         res.probes.values[len(res.probes.values) // 2, 0, 2] += np.float32(0.01)
 
 
+def one_bit_fewer(res, kw):
+    """The fields rounded to bfloat16 with one mantissa bit fewer (6 of
+    7), to nearest even, where the call produces them."""
+    for n in seeded.COMPONENTS:
+        t = getattr(res.state, n)
+        bits = t.float().view(torch.int32)
+        bits = (bits + 0xFFFF + ((bits >> 17) & 1)) & ~0x1FFFF
+        t.copy_(bits.view(torch.float32))
+
+
 FAULTS = {"frozen": frozen, "half": half, "altered_state": altered_state, "altered_energy": altered_energy,
-          "altered_map": altered_map}
+          "altered_map": altered_map, "one_bit_fewer": one_bit_fewer}
 
 
-# the empty long run produces no map, sums or probe rows to alter
-CASES = [(w, f) for w in WORKLOADS for f in FAULTS if not (f == "altered_map" and w == "oven_256.long")]
+def _applies(workload: str, fault: str) -> bool:
+    if fault == "altered_map":
+        return workload != "oven_256.long"  # the empty long run produces no map, sums or probe rows to alter
+    if fault == "one_bit_fewer":
+        return workload in BF16_WORKLOADS  # the precision below a bf16 cell's
+    return True
+
+
+CASES = [(w, f) for w in WORKLOADS for f in FAULTS if _applies(w, f)]
 
 
 @pytest.mark.parametrize("workload,fault", CASES)
@@ -176,3 +199,12 @@ def test_debye_faults_are_not_correct(run_tiny, monkeypatch, fault):
     r = run_tiny(DEBYE)
     assert not r["correct"], (fault, r["checks"])
     assert r["checks"]["state_err"]["value"] > r["checks"]["state_err"]["limit"], (fault, r["checks"])
+
+
+
+@pytest.mark.parametrize("workload", BF16_WORKLOADS)
+def test_float32_control_of_a_bfloat16_cell_is_not_correct(run_tiny, workload):
+    assert CONTROL["bfloat16"] == "float32"
+    r = run_tiny(workload, program_dtype="float32")
+    assert not r["correct"], r["checks"]
+    assert r["checks"]["state_err"]["value"] > r["checks"]["state_err"]["limit"]

@@ -126,6 +126,20 @@ def test_earlier_cells_keep_their_counts_and_maps(workload, ops, sums):
         assert len(maps) == 2 and tuple(float(m.sum()) for m in maps) == sums
 
 
+def test_the_bf16_oven_is_the_water_oven_but_for_storage():
+    bf16, fp32 = Cell("oven_water_256_bf16.sar"), Cell("oven_water_256.sar")
+    assert (bf16.dtype, fp32.dtype) == ("bfloat16", "float32")
+    own = {"name", "source", "deployment", "dtype", "assumed"}
+    assert {k: v for k, v in bf16.config.items() if k not in own} == {k: v for k, v in fp32.config.items() if k not in own}
+    assert bf16.traffic == fp32.traffic and bf16.chips == 1
+    assert bf16.limits() == json.loads((BENCH_DIR / "limits" / "oven_water_256_bf16.sar.json").read_text())
+    assert all(np.array_equal(a, b) for a, b in zip(load_maps(bf16), load_maps(fp32)))
+    # the same readers: on stream the SAR increment lies inside the sweep, so no sar_ms_per_step
+    assert [m["name"] for m in bf16.per_layer] == [m["name"] for m in fp32.per_layer]
+    assert "sar_ms_per_step" not in {m["name"] for m in bf16.per_layer}
+    assert [m["name"] for m in bf16.end_to_end] == [m["name"] for m in fp32.end_to_end]
+
+
 @pytest.mark.parametrize("steps", [1, 7, 1000, 26000])
 def test_simulation_time_gives_the_steps(steps):
     dt = 1e-12

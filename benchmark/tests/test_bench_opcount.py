@@ -75,3 +75,10 @@ def test_debye_sar_cell_counts_about_eighty_eight_a_cell():
     n = 256
     ops = opcount.per_step((n, n, n), False, True, 0, 0, 1000, ade=True)
     assert 87.5 * n ** 3 < ops < 87.8 * n ** 3
+
+
+def test_bf16_storage_counts_the_work_of_its_fp32_scene():
+    # the same operations in another storage: the roofline reads the same work
+    from core.cell import Cell
+
+    assert opcount.for_cell(Cell("oven_water_256_bf16.sar")) == opcount.for_cell(Cell("oven_water_256.sar"))

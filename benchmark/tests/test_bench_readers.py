@@ -10,6 +10,9 @@ from core.run_cell import load_reader
 
 RING = "void (anonymous namespace)::ring_kernel<float, 4, 32, false, false, false, false, false, false, false, false>(Args)"
 RING_SAR = "void (anonymous namespace)::ring_kernel<float, 4, 24, true, true, false, true, false, false, false, false>(Args)"
+# K3-lossy-SAR at bf16 storage, as the profiler demangles it (the kernel table's template arguments)
+RING_SAR_BF16 = ("void (anonymous namespace)::ring_kernel<__nv_bfloat16, 4, 24, 1, true, true, false, true, false, false, "
+                 "false>(Args)")
 FOLD = "void (anonymous namespace)::dft_fold_kernel<4, 2>(float const*, float*, int)"
 ACCUM = "void (anonymous namespace)::dft_accum_kernel<float, false>(float const*)"
 MARCH_H = "void (anonymous namespace)::march_kernel<float, false, false, false, 2, 2, 128, 4, 16, false>(Args)"
@@ -65,6 +68,7 @@ def test_nothing_to_read_gives_nothing():
 def test_kernel_names_group_as_the_launch_counters():
     assert kernels.group(RING) == "yee_stream"
     assert kernels.group(RING_SAR) == "yee_stream_lossy_sar"
+    assert kernels.group(RING_SAR_BF16) == "yee_stream_lossy_sar" and kernels.base(RING_SAR_BF16) == "ring_kernel"
     assert kernels.group(MARCH_H) == "yee_update_h"
     assert kernels.group(FOLD) == "dft_fold" and kernels.group(ACCUM) == "dft_accum"
     assert kernels.group(ELEM) == "other" and kernels.label(ELEM) == "void at::native::vectorized_elementwise_kernel"
