@@ -24,7 +24,9 @@ package beside it.  Phases, each printing one line or more:
    SAR accumulator; one heating sweep at 256^3 with each SAR plan; the
    two-pass CPML passes (march_kernel) also with 24-cell walls, where the
    source patch reaches into the j slabs, and at 257^3 with --pml 10
-   (vacuum and the ferrite scene), fields and psi from random psi;
+   (vacuum and the ferrite scene), fields and psi from random psi; bf16
+   on 64^3 (65-wide rows that start on odd elements, the arrays' last
+   element even): every stream variant at s = 8, 4, 2 and the Debye sweeps;
 4. validation: configs/reference.txt (50^3, fp32) through
    run_simulation(backend="twopass") with snapshots: e_r(Ey) < 0.007,
    energy drift < 2e-3, the .vtr cadence, one launch per kernel per step;
@@ -138,7 +140,7 @@ package beside it.  Phases, each printing one line or more:
    vacuum and the material variants; K3-shard, vacuum, lossy, lossy + SAR,
    het, het + SAR at s = 8, 4, 2) against its plain version on every shard
    of 4-slab, 3-slab (fp32) and 2 x 3 meshes (ragged shards, both modes,
-   fp32 and bf16) and of the 256^3 shard plans, owned cells bit for bit; 1000 steps
+   fp32 and bf16; bf16 on a 4-slab of 64^3, ni = 65) and of the 256^3 shard plans, owned cells bit for bit; 1000 steps
    of configs/bench_256.txt with --shard 4 and --shard 2x2 on auto, stream
    and twopass, and of the heating scene with --shard 4 on stream and
    twopass, equal to the unsharded runs bit for bit (fields, SAR map),
@@ -167,7 +169,7 @@ package beside it.  Phases, each printing one line or more:
    --shard 4 beside its plain version;
 10. (after 7b, before 8) the thermal solve, the coupled cook and the
    sweeps: run_thermal on phase 6's 256^3 heating SAR map (normalized to
-   1 kW, a 3 s cook, fp64 and fp32: the fp64 heat content equals Q t to
+   1 kW, a 2 s cook, fp64 and fp32: the fp64 heat content equals Q t to
    1e-5, fp32 within 2^-14 of the peak rise of fp64), the thermal step's
    time beside its byte bound; the CLI's coupled cook
    configs/heating_256.txt --water-block --sar --coupled 3 --thermal 10
@@ -240,7 +242,7 @@ N_LOADS = 66  # steps of the load comparisons at 256^3 (not a multiple of the sw
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PML_STEPS_RINGDOWN = 1200  # the gaussian ring-down of tests/test_pml.py
 THERMAL_WATTS = 1000.0  # phase 10: the heating SAR map normalized to a 1 kW magnetron
-THERMAL_COOK_S = 3.0  # phase 10: the thermal solve's cook (about 500 steps)
+THERMAL_COOK_S = 2.0  # phase 10: the thermal solve's cook (about 330 steps)
 THERMAL_FP32_BAR = 2.0**-14  # phase 10: fp32 against fp64 rise, of the peak rise
 SWEEP_MEMBERS = 4  # phase 10: the 256^3 frequency sweep's members
 # phases 7 and 7b: the meshes of the shard kernels' checks on ragged boxes
@@ -1690,6 +1692,24 @@ def main() -> None:
         compare(p, seed_arrays, 8, f"{dtype} TE101 non-integer box {p.padded_shape}")
         for s in stream_plan.STEPS:
             compare_sweep(p, seed_arrays, s, f"{dtype} TE101 non-integer box {p.padded_shape}")
+    # bf16 rows that ring_kernel's warps stage whole: the boxes above have an
+    # even pitch (62: rows that start on even elements) or rows of 13, so a
+    # 64^3 grid (65-wide rows that start on odd elements and take 17 words;
+    # 65^3 elements, the last of them even) runs every built variant at
+    # every built depth, and the Debye sweeps
+    p = Params(length=0.064, width=0.064, height=0.064, spatial_step=0.001, time_step=1e-12,
+               simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="bfloat16")
+    arrays = {c: rng.uniform(-1.0, 1.0, p.padded_shape) for c in COMPONENTS}
+    label = f"bfloat16 odd pitch {p.padded_shape}"
+    for s in stream_plan.STEPS:
+        compare_sweep(p, arrays, s, f"{label} random")
+    for mats, scene_m in ((water_block(p), "water"), (ferrite_slab(p, base=water_block(p)), "water + ferrite")):
+        coefs_m = update_coefs(p, mats, dev)
+        for sar in (False, True):
+            for s in stream_plan.STEPS:
+                compare_sweep(p, arrays, s, f"{label} {scene_m}", coefs_m, sar)
+    for sar in (False, True):
+        compare_sweep_ade(p, arrays, f"{label} Debye", water_debye_load(p, lo=(0.05,) * 3, hi=(0.95,) * 3), sar)
     check(bool(ragged), f"stream tiles that do not divide the box were checked: {sorted(ragged)}")
 
     # update_coefs is a pure function of the grid, the step, the dtype and
@@ -2772,6 +2792,14 @@ def main() -> None:
                     for s_k in stream_plan.built_depths(mats_k is not None):
                         shard_kernels(pk, arrays, shape, s_k, f"{dtype} {mode.name} {scene_k} {pk.padded_shape}",
                                       mats_k, sar_k, two_pass=s_k == stream_plan.built_depths(mats_k is not None)[0])
+    # bf16 shards whose rows are odd-pitched (the boxes above: 62 wide): a
+    # 4-slab of 64^3 (ni = 65), water + ferrite + SAR at every built depth
+    pk = Params(length=0.064, width=0.064, height=0.064, spatial_step=0.001, time_step=1e-12,
+                simulation_time=1e-11, sampling_rate=5, mode=Mode.COMPUTATION, dtype="bfloat16")
+    arrays = {c: rng.uniform(-1.0, 1.0, pk.padded_shape) for c in COMPONENTS}
+    for s_k in stream_plan.built_depths(True):
+        shard_kernels(pk, arrays, (4, 1, 1), s_k, f"bfloat16 water + ferrite + SAR odd ni {pk.padded_shape}",
+                      ferrite_slab(pk, base=water_block(pk)), True, two_pass=False)
     check(bool(ragged), f"shard tiles that do not divide the shard were checked: {sorted(ragged)[:6]} ...")
     # the 256^3 shard plans of the main and heating paths, both dtypes
     for dtype in ("float32", "bfloat16"):
@@ -3466,7 +3494,7 @@ def main() -> None:
     from fdtd_tpu_torch.state import block_mask
 
     # (a) the thermal solve on phase 6's 256^3 heating SAR map, normalized
-    # to a 1 kW magnetron, a 3 s cook in fp64 and in fp32
+    # to a 1 kW magnetron, a 2 s cook in fp64 and in fp32
     tm_h = thermal.thermal_from_mask(ph, block_mask(ph))
     q_h = coupled_mod.normalize_power(ph, heat_sar.to(device="cpu", dtype=torch.float64).numpy() / (nh * ph.time_step),
                                       THERMAL_WATTS)
@@ -3506,7 +3534,7 @@ def main() -> None:
         bound_th = 7 * item * ph.maxk * ph.maxj * ph.maxi / HBM_BYTES_PER_S * 1e3
         print(f"timing 256^3 thermal step {dtype}: {thermal_ms[dtype]!r} ms a step ({1e3 / thermal_ms[dtype]!r} "
               f"steps a second of cook), byte bound {bound_th!r} ms ({bound_th / thermal_ms[dtype]!r} of it); "
-              f"the 3 s cook {thermal_s[dtype]!r} s with its host set-up ({smi})")
+              f"the {THERMAL_COOK_S} s cook {thermal_s[dtype]!r} s with its host set-up ({smi})")
         del step_th, T_th
     torch.cuda.empty_cache()
 

@@ -185,9 +185,17 @@
 //    would not fit, reads them from memory).  TMA cannot take these
 //    rows (a 257-element row is not a 16-B multiple, and padding i would
 //    change the layout), so the copies are 4-byte LDGSTS, coalesced along
-//    i; a bf16 element travels in the aligned pair that holds it (an even
-//    element alone, its neighbour's half zero-filled) and word() picks its
-//    half.
+//    i.  A bf16 row is staged whole by its warp (one j row of 32
+//    consecutive i): the 16 or 17 aligned words that cover the in-box
+//    elements, one copy a lane from the first lanes, into the first slots
+//    of the warp's 32-slot row (a span that ends on an even element
+//    zero-fills that word's upper half, so no copy reads past an array);
+//    each lane reads its element as a half-word at an offset fixed once a
+//    plane, after a __syncwarp.  The first bf16 form copied each lane's
+//    own aligned pair (an odd element's pair, an even one alone: two
+//    divergent copies a warp, each word asked for twice) and picked the
+//    half by parity at every read: K3-lossy-SAR took 2.226 ms a 4-step
+//    sweep at 256^3 against fp32's 1.610; staged, 1.927 (PERF.md).
 //  - i neighbours by warp shuffles (the tile's i extent is one warp), so
 //    only the j neighbours (Ex, Ez up; Hx, Hz down; three values of the
 //    cell means) cross warps through shared memory.  A halo lane reads its
@@ -260,7 +268,12 @@
 // steps (with SAR: and their per-step increments).  bf16 storage loads to
 // fp32, keeps every level in fp32 and rounds once per sweep, at the store;
 // coefficients and sigma stored in bf16 widen to fp32, and the SAR of a
-// bf16 sweep comes from its fp32 levels.  Offsets into device memory are
+// bf16 sweep comes from its fp32 levels.  ring_kernel reads each bf16
+// value as a half-word of its warp's staged row and widens it by a 16-bit
+// shift, exactly, so the staging moves no bit: at 256^3 the bf16 sweeps
+// ran x1.02-1.37 a sweep against the per-lane pairs, bit for bit (K3-DFT
+// x0.98, at 80 registers with 32 B of spills; tune_stream --dtypes
+// bfloat16 --parent, PERF.md).  Offsets into device memory are
 // 64-bit (ring_kernel: a 64-bit plane offset plus a 32-bit column offset).
 
 #include <cuda_runtime.h>
@@ -436,7 +449,9 @@ struct Box {
 
 // a copy of element o of `a` into this thread's 4-byte ring word: the float
 // itself, or the 4-byte-aligned bf16 pair that holds the element (an even
-// element alone, the upper half zero-filled, so no copy reads past it)
+// element alone, the upper half zero-filled, so no copy reads past it);
+// ring_kernel's bf16 copies stage whole rows instead (stage(), below), and
+// pml_kernel's sparse psi copies keep these
 __device__ __forceinline__ void fetch(uint32_t* w, const float* a, int64_t o) {
     __pipeline_memcpy_async(w, a + o, 4);
 }
@@ -453,6 +468,47 @@ __device__ __forceinline__ float word(uint32_t w, int, const float*) { return __
 __device__ __forceinline__ float word(uint32_t w, int odd, const __nv_bfloat16*) {
     return __uint_as_float(odd ? (w & 0xffff0000u) : (w << 16));
 }
+
+// ring_kernel's bf16 rows (a warp is one j row of 32 consecutive i): the
+// warp's in-box elements of an array's row, at most 64 bytes from a
+// 2-byte-aligned start, are staged as the 16 or 17 aligned words that cover
+// them, one 4-byte copy a lane from the first lanes, into the first slots of
+// the warp's 32-slot row of the ring; each lane reads its element as a
+// half-word of the staged row.  A row's lanes: `col`, the offset of the first
+// in-box lane's element within its plane (or cell plane); `n`, the in-box
+// lanes (contiguous; 0: the row lies outside the arrays); `rel`, this lane's
+// element past the first (0 outside the box, a harmless in-row read).
+struct StagedRow {
+    int col, n, rel;
+};
+
+__device__ __forceinline__ StagedRow staged_row(bool in, int col) {
+    const unsigned m = __ballot_sync(0xffffffffu, in);
+    const int first = __ffs(m) - 1;
+    return {__shfl_sync(0xffffffffu, col, first & 31), __popc(m), in ? (int)threadIdx.x - first : 0};
+}
+
+// lane `lane`'s copy into the staged row `row` of the n elements of `a` from
+// element o: word lane of those that cover them.  A span that ends on an even
+// element zero-fills the last word's upper half, so no copy reads past it.
+template <typename T>
+__device__ __forceinline__ void stage(uint32_t* row, const T* a, int64_t o, int n, int lane) {
+    const int odd = (int)(o & 1), words = (odd + n + 1) >> 1;
+    if (lane < words) {
+        const int bytes = lane == words - 1 && ((odd + n) & 1) ? 2 : 4;
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(row + lane);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                     "l"(reinterpret_cast<const uint32_t*>(a) + (o >> 1) + lane), "r"(bytes)
+                     : "memory");
+    }
+}
+
+// a staged row's half-words, and a bf16 value from its 16 bits (widening
+// to fp32 is exact, a 16-bit shift)
+__device__ __forceinline__ const unsigned short* halves(const uint32_t* row) {
+    return reinterpret_cast<const unsigned short*>(row);
+}
+__device__ __forceinline__ float widen(unsigned short b) { return __uint_as_float((uint32_t)b << 16); }
 
 // one edge's ADE update (component q) from its coefficients, its inputs eo,
 // po and the curl cv: returns E', sets pn and, with W, the edge work w
@@ -563,11 +619,35 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
     auto codd = [&](int c) { return ((c - ck0) & cskp) ^ ccolp; };
     // a cell whose map value or sums this thread owns in this segment
     auto owned = [&](int c) { return c_sar && c >= k0 && c < k1 && c < K; };
+    // bf16: the warp's staged rows of the field-shaped arrays and, with the
+    // sigma ring word, of sigma (its owned cells); the ring row of warp ty
+    constexpr bool STAGED = sizeof(T) == 2;
+    StagedRow fr{}, sr{};
+    if constexpr (STAGED) {
+        fr = staged_row(inbox, col);
+        if constexpr (SAR && !ADE && NC > 0) sr = staged_row(c_sar, cell_col);
+    }
+    const int wrow = ty * BI;
+    // the half-words of plane k's element and cell c's in their staged rows
+    auto fhalf = [&](int k) { return (((k - kz) & skp) ^ (fr.col & 1)) + fr.rel; };
+    auto chalf = [&](int c) { return (((c - ck0) & cskp) ^ (sr.col & 1)) + sr.rel; };
 
     // the ring: plane q's fields (and P), and its coefficients (with SAR
     // the sigma and map value of cell q - 1) into slot q % NCS
     auto fetch_fields = [&](int q) {
-        if (inbox && q <= K) {
+        if constexpr (STAGED) {
+            if (fr.n > 0 && q <= K) {
+                const int64_t o = (int64_t)(q - kz) * sk + fr.col;
+                stage(rf + 0 * NT + wrow, in.ex, o, fr.n, tx); stage(rf + 1 * NT + wrow, in.ey, o, fr.n, tx);
+                stage(rf + 2 * NT + wrow, in.ez, o, fr.n, tx); stage(rf + 3 * NT + wrow, in.hx, o, fr.n, tx);
+                stage(rf + 4 * NT + wrow, in.hy, o, fr.n, tx); stage(rf + 5 * NT + wrow, in.hz, o, fr.n, tx);
+                if constexpr (ADE) {
+                    stage(rf + 6 * NT + wrow, ade.pin[0], o, fr.n, tx);
+                    stage(rf + 7 * NT + wrow, ade.pin[1], o, fr.n, tx);
+                    stage(rf + 8 * NT + wrow, ade.pin[2], o, fr.n, tx);
+                }
+            }
+        } else if (inbox && q <= K) {
             const int64_t o = fofs(q);
             fetch(rf + 0 * NT + tid, in.ex, o); fetch(rf + 1 * NT + tid, in.ey, o);
             fetch(rf + 2 * NT + tid, in.ez, o); fetch(rf + 3 * NT + tid, in.hx, o);
@@ -579,7 +659,31 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
         }
     };
     auto fetch_coefs = [&](int q) {
-        if constexpr (NC > 0) {
+        if constexpr (NC > 0 && STAGED) {
+            uint32_t* const wr = rc + (q % NCS) * NC * NT + wrow;
+            if (fr.n > 0 && q <= K) {
+                const int64_t o = (int64_t)(q - kz) * sk + fr.col;
+                if constexpr (ADE) {
+#pragma unroll
+                    for (int a = 0; a < (SAR ? 18 : 15); ++a) stage(wr + a * NT, ade.c[a], o, fr.n, tx);
+                } else {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        stage(wr + c * NT, mat.ca[c], o, fr.n, tx);
+                        stage(wr + (3 + c) * NT, mat.cb[c], o, fr.n, tx);
+                        if constexpr (HET) stage(wr + (6 + c) * NT, mat.hf[c], o, fr.n, tx);
+                    }
+                }
+            }
+            if constexpr (SAR) {
+                const int c = q - 1;
+                if constexpr (!ADE) {
+                    if (sr.n > 0 && c >= k0 && c < k1 && c < K)
+                        stage(wr + G::C_SIG * NT, mat.sigma, (int64_t)(c - ck0) * cell_sk + sr.col, sr.n, tx);
+                }
+                if (owned(c)) __pipeline_memcpy_async(wr + G::C_ACC * NT + tx, mat.acc + cofs(c), 4);
+            }
+        } else if constexpr (NC > 0) {
             uint32_t* w = rc + (q % NCS) * NC * NT + tid;
             if (inbox && q <= K) {
                 const int64_t o = fofs(q);
@@ -636,8 +740,10 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
     __pipeline_commit();
     int slot_r = ks % (NCS > 0 ? NCS : 1);  // r % NCS
     for (int r = ks; r <= rlast; ++r) {
-        // plane r's fields and plane r-1's coefficients have landed
+        // plane r's fields and plane r-1's coefficients have landed (bf16:
+        // the staged words of other lanes' copies too, once the warp meets)
         __pipeline_wait_prior(0);
+        if constexpr (STAGED) __syncwarp();
         if constexpr (DFT) {
             // fetch the sums of the cell level 1 starts at this step
             const int c1 = r - 2;
@@ -660,12 +766,22 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
         float ho[3] = {h[0][0], h[0][1], h[0][2]};
         float po[3] = {pl[0][0], pl[0][1], pl[0][2]};  // ADE: P of eo's plane
         if (inbox && r <= K) {
-            const int odd = fodd(r);
+            if constexpr (STAGED) {
+                const unsigned short* const fw = halves(rf + wrow) + fhalf(r);  // array a at fw[2 a NT]
 #pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                e[0][c] = word(rf[c * NT + tid], odd, tp);
-                h[0][c] = word(rf[(3 + c) * NT + tid], odd, tp);
-                if constexpr (ADE) pl[0][c] = word(rf[(6 + c) * NT + tid], odd, tp);
+                for (int c = 0; c < 3; ++c) {
+                    e[0][c] = widen(fw[2 * c * NT]);
+                    h[0][c] = widen(fw[2 * (3 + c) * NT]);
+                    if constexpr (ADE) pl[0][c] = widen(fw[2 * (6 + c) * NT]);
+                }
+            } else {
+                const int odd = fodd(r);
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    e[0][c] = word(rf[c * NT + tid], odd, tp);
+                    h[0][c] = word(rf[(3 + c) * NT + tid], odd, tp);
+                    if constexpr (ADE) pl[0][c] = word(rf[(6 + c) * NT + tid], odd, tp);
+                }
             }
         } else {
 #pragma unroll
@@ -679,9 +795,12 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
             if (sl < 0) sl += NCS;
             const uint32_t* cw = rc + sl * NC * NT + tid;
             const int kodd = fodd(k);
+            const unsigned short* cwh = nullptr;  // bf16: plane k's staged rows, coefficient a at cwh[2 a NT]
+            if constexpr (STAGED && NC > 0) cwh = halves(rc + sl * NC * NT + wrow) + fhalf(k);
             // coefficient a of plane k: from the ring, or from memory
             auto coef = [&](int a, const T* arr) {
-                if constexpr (NC > 0) return word(cw[a * NT], kodd, tp);
+                if constexpr (NC > 0 && STAGED) return widen(cwh[2 * a * NT]);
+                else if constexpr (NC > 0) return word(cw[a * NT], kodd, tp);
                 else return ld(arr, fofs(k));
             };
             if (m >= 2 && on_patch) {
@@ -806,8 +925,10 @@ ring_kernel(Fields<T> in, OutFields<T> out, int K, int J, int I, float fh, float
                     } else {
                         const float sq = __fadd_rn(__fadd_rn(__fmul_rn(mex, mex), __fmul_rn(mey, mey)),
                                                    __fmul_rn(mez, mez));
-                        const float sig = NC > 0 ? word(cw[G::C_SIG * NT], codd(cell), tp)
-                                                 : ld(mat.sigma, cofs(cell));
+                        float sig;
+                        if constexpr (NC > 0 && STAGED)
+                            sig = widen(halves(rc + (sl * NC + G::C_SIG) * NT + wrow)[chalf(cell)]);
+                        else sig = NC > 0 ? word(cw[G::C_SIG * NT], codd(cell), tp) : ld(mat.sigma, cofs(cell));
                         inc = __fmul_rn(__fmul_rn(sig, sq), mat.dt);
                     }
                     if (m == 1) acc[0] = NC > 0 ? __uint_as_float(cw[G::C_ACC * NT]) : mat.acc[cofs(cell)];

@@ -33,7 +33,7 @@ buffer into them (:func:`fdtd_tpu_torch.ops.dft.fold`), counted under the
 variant's name with ``_dft_means``.  On CUDA tensors it launches the kernel variant
 ``plan.kernel`` on the current stream of their device and allocates
 nothing; it raises on anything the kernel does not take (a bf16 array that
-does not start 4-byte aligned among them: the kernel copies aligned pairs
+does not start 4-byte aligned among them: the kernels copy aligned words
 ahead into shared memory).  On CPU tensors, and only there, it runs
 :func:`plain_sweep`.
 
@@ -53,7 +53,10 @@ Source: the caller hard-sets step 1 on ``state`` (``source.apply_source``)
 before the sweep; ``drive`` carries steps 2..s (``source.sweep_drive_rows``).
 
 ``launches`` counts kernel launches per variant (a shard's under the
-variant's name with ``_shard``); plain-version calls do not count.
+variant's name with ``_shard``), and ``staged_launches`` the bfloat16
+launches of ``ring_kernel`` (every sweep but a CPML sweep's shell), whose
+planes reach shared memory as whole aligned words staged by the warp;
+plain-version calls count in neither.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ launches = {variant_name(*v, means): 0 for v, means in _KINDS}
 launches.update({variant_name(*v, means) + "_shard": 0 for v, means in _KINDS if v in SHARD_VARIANTS})
 # the interior launch of a CPML sweep (ring_kernel on the psi-free window)
 launches.update({variant_name(*v, means) + INTERIOR: 0 for v, means in _KINDS if v[3]})
+staged_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound: ctypes.CDLL | None = None
@@ -105,8 +109,10 @@ class SweepDrive:
 
 
 def reset_launches() -> None:
+    global staged_launches
     for name in launches:
         launches[name] = 0
+    staged_launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -381,7 +387,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
         ringed += (coefs.sigma_cells,) if sigma is not None else ()
         ringed += psi.tensors() if cpml is not None else ()
         if any(t.data_ptr() % 4 for t in ringed):
-            raise ValueError("the sweep's bfloat16 arrays must start 4-byte aligned (the kernel copies aligned pairs)")
+            raise ValueError("the sweep's bfloat16 arrays must start 4-byte aligned (the kernels copy aligned 4-byte words)")
     dev = state.ex.device
     call = functools.partial(lib.yee_stream_sweep, ins, outs, p.maxk, p.maxj, p.maxi)
     mats = (yee.pointers(cf) if cf else None, yee.pointers(hf) if hf else None, sigma,
@@ -400,7 +406,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
                 rc = call(geom, cells, fh, fe, core.s, core.bj, core.bi, int(core.cr), core.tk, 0, 0, 0, 0, 0,
                           None, None, *mats, None, None, None, None, 0, None, 0, None, None, *dft_args,
                           _DTYPE_CODES[dt], stream_ptr)
-                _count(lib, plan.kernel + INTERIOR, rc)
+                _count(lib, plan.kernel + INTERIOR, rc, dt == torch.bfloat16)
             if plan.pml_blocks:  # a plan without them launches the interior alone (chip_smoke.py times it so)
                 rc = call(None, None, fh, fe, *geometry, *rows, *mats, yee.pointers(psi.tensors(TERM_NAMES)),
                           yee.pointers(psi_out.tensors(TERM_NAMES)), cpml.table_h.data_ptr(), cpml.table_e.data_ptr(),
@@ -411,7 +417,7 @@ def sweep(p: Params, state: FieldState, out: FieldState, coefs: UpdateCoefs,
         pol_args = (yee.pointers(pol.tensors()), yee.pointers(pol_out.tensors())) if dc is not None else (None, None)
         rc = call(yee.geometry(p, box), None, fh, fe, *geometry, *rows, *mats, None, None, None, None, 0, None, 0,
                   *pol_args, *dft_args, _DTYPE_CODES[dt], stream_ptr)
-    _count(lib, plan.kernel + ("_shard" if box is not None else ""), rc)
+    _count(lib, plan.kernel + ("_shard" if box is not None else ""), rc, dt == torch.bfloat16)
     return out
 
 
@@ -432,9 +438,12 @@ def _check_means(p: Params, like: torch.Tensor, means: torch.Tensor, s: int, box
                          f"{like.device}; got {means.dtype} {tuple(means.shape)} on {means.device}")
 
 
-def _count(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    """Count a launch under ``name``; raise when it failed."""
+def _count(lib: ctypes.CDLL, name: str, rc: int, staged: bool = False) -> None:
+    """Count a launch under ``name`` (``staged``: a bfloat16 ring_kernel
+    launch, also in ``staged_launches``); raise when it failed."""
+    global staged_launches
     launches[name] += 1
+    staged_launches += staged
     if rc != 0:
         msg = lib.yee_stream_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")

@@ -16,7 +16,9 @@ for bit; bf16 ``plain_sweep`` is the fp32 steps rounded once; the plan
 picker and backend resolution.
 """
 
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -34,7 +36,7 @@ from fdtd_tpu_torch import state as tstate  # noqa: E402
 from fdtd_tpu_torch import step as tstep  # noqa: E402
 from fdtd_tpu_torch.dft import DftConfig  # noqa: E402
 from fdtd_tpu_torch.ops import build, stream, stream_plan  # noqa: E402
-from fdtd_tpu_torch.ops.cpml import PMLConfig  # noqa: E402
+from fdtd_tpu_torch.ops.cpml import PMLConfig, PsiState, make_cpml, psi_shapes  # noqa: E402
 from fdtd_tpu_torch.params import Params  # noqa: E402
 from fdtd_tpu_torch.source import (apply_source, make_source_plan, profile_tensor,  # noqa: E402
                                    sweep_drive_rows)
@@ -394,3 +396,187 @@ def test_cli_stream_on_cpu_is_an_error(tmp_path, capsys):
     rc = cli.main([str(params), "--device", "cpu", "--backend", "stream", "--out", str(tmp_path / "r")])
     assert rc == 1
     assert "--backend torch" in capsys.readouterr().err
+
+
+# (s, bj, cr, tk, fold, smem_bytes, ring_words, dft_max_nf) of every
+# ring_kernel plan at 256^3, the same in float32 and bfloat16: the routing's
+# pick of each variant (nf = 1 and the means mode at 16 frequencies; a CPML
+# sweep's psi-free interior at --pml 10; a shard's window of 65 planes at the
+# picked depth) and every built depth (nf = 1, the means mode with one
+# sweep's buffer).  The bf16 sweeps stage their rows inside the same ring,
+# so no shape, shared-memory size or frequency cap moves with the staging.
+_PICKED_256 = {
+    "yee_stream": (4, 32, 0, 257, 0, 41088, 6, 0),
+    "yee_stream_shard": (4, 32, 0, 65, 0, 41088, 6, 0),
+    "yee_stream_lossy": (4, 24, 1, 129, 0, 123008, 36, 0),
+    "yee_stream_lossy_shard": (4, 24, 1, 33, 0, 123008, 36, 0),
+    "yee_stream_lossy_sar": (4, 24, 1, 86, 0, 162816, 46, 0),
+    "yee_stream_lossy_sar_shard": (4, 24, 1, 65, 0, 162816, 46, 0),
+    "yee_stream_lossy_het": (4, 24, 1, 129, 0, 169088, 51, 0),
+    "yee_stream_lossy_het_shard": (4, 24, 1, 33, 0, 169088, 51, 0),
+    "yee_stream_lossy_het_sar": (4, 24, 1, 86, 0, 208896, 61, 0),
+    "yee_stream_lossy_het_sar_shard": (4, 24, 1, 65, 0, 208896, 61, 0),
+    "yee_stream_pml_interior": (2, 32, 0, 116, 0, 41088, 6, 0),
+    "yee_stream_lossy_pml_interior": (2, 32, 1, 116, 0, 114816, 24, 0),
+    "yee_stream_ade": (2, 24, 1, 257, 0, 178304, 54, 0),
+    "yee_stream_ade_sar": (2, 16, 1, 257, 0, 149504, 66, 0),
+    "yee_stream_dft": (4, 24, 0, 86, 0, 39936, 6, 2),
+    "yee_stream_dft_shard": (4, 24, 0, 65, 0, 39936, 6, 2),
+    "yee_stream_dft_means": (4, 24, 0, 86, 32, 39936, 6, 0),
+    "yee_stream_lossy_dft": (2, 24, 1, 43, 0, 95232, 24, 3),
+    "yee_stream_lossy_dft_shard": (2, 24, 1, 22, 0, 95232, 24, 3),
+    "yee_stream_lossy_dft_means": (2, 24, 1, 43, 32, 95232, 24, 0),
+    "yee_stream_lossy_sar_dft": (2, 24, 1, 43, 0, 113664, 30, 3),
+    "yee_stream_lossy_sar_dft_shard": (2, 24, 1, 22, 0, 113664, 30, 3),
+    "yee_stream_lossy_sar_dft_means": (2, 24, 1, 43, 32, 113664, 30, 0),
+    "yee_stream_lossy_het_dft": (2, 24, 1, 43, 0, 122880, 33, 2),
+    "yee_stream_lossy_het_dft_shard": (2, 24, 1, 22, 0, 122880, 33, 2),
+    "yee_stream_lossy_het_dft_means": (2, 24, 1, 43, 32, 122880, 33, 0),
+    "yee_stream_lossy_het_sar_dft": (2, 24, 1, 43, 0, 141312, 39, 2),
+    "yee_stream_lossy_het_sar_dft_shard": (2, 24, 1, 22, 0, 141312, 39, 2),
+    "yee_stream_lossy_het_sar_dft_means": (2, 24, 1, 43, 32, 141312, 39, 0),
+    "yee_stream_pml_dft_interior": (2, 24, 0, 58, 0, 39936, 6, 5),
+    "yee_stream_pml_dft_means_interior": (2, 24, 0, 58, 32, 39936, 6, 0),
+    "yee_stream_lossy_pml_dft_interior": (2, 24, 0, 58, 0, 39936, 6, 5),
+    "yee_stream_lossy_pml_dft_means_interior": (2, 24, 1, 58, 32, 95232, 24, 0),
+    "yee_stream_ade_dft": (2, 16, 1, 257, 0, 124928, 54, 4),
+    "yee_stream_ade_dft_means": (2, 16, 1, 257, 32, 124928, 54, 0),
+    "yee_stream_ade_sar_dft": (2, 16, 1, 257, 0, 149504, 66, 3),
+    "yee_stream_ade_sar_dft_means": (2, 16, 1, 257, 32, 149504, 66, 0),
+}
+_BUILT_256 = {
+    "yee_stream s8": (8, 24, 0, 129, 0, 30848, 6, 0),
+    "yee_stream s4": (4, 32, 0, 257, 0, 41088, 6, 0),
+    "yee_stream s2": (2, 32, 0, 52, 0, 41088, 6, 0),
+    "yee_stream_shard s8": (8, 24, 0, 65, 0, 30848, 6, 0),
+    "yee_stream_shard s4": (4, 32, 0, 65, 0, 41088, 6, 0),
+    "yee_stream_shard s2": (2, 32, 0, 13, 0, 41088, 6, 0),
+    "yee_stream_lossy s8": (8, 24, 0, 129, 0, 30848, 6, 0),
+    "yee_stream_lossy s4": (4, 24, 1, 129, 0, 123008, 36, 0),
+    "yee_stream_lossy s2": (2, 32, 1, 52, 0, 114816, 24, 0),
+    "yee_stream_lossy_shard s8": (8, 24, 0, 65, 0, 30848, 6, 0),
+    "yee_stream_lossy_shard s4": (4, 24, 1, 33, 0, 123008, 36, 0),
+    "yee_stream_lossy_shard s2": (2, 32, 1, 13, 0, 114816, 24, 0),
+    "yee_stream_lossy_sar s8": (8, 24, 0, 129, 0, 39936, 6, 0),
+    "yee_stream_lossy_sar s4": (4, 24, 1, 86, 0, 162816, 46, 0),
+    "yee_stream_lossy_sar s2": (2, 32, 1, 52, 0, 151552, 30, 0),
+    "yee_stream_lossy_sar_shard s8": (8, 24, 0, 65, 0, 39936, 6, 0),
+    "yee_stream_lossy_sar_shard s4": (4, 24, 1, 65, 0, 162816, 46, 0),
+    "yee_stream_lossy_sar_shard s2": (2, 32, 1, 65, 0, 151552, 30, 0),
+    "yee_stream_lossy_het s8": (8, 24, 0, 129, 0, 30848, 6, 0),
+    "yee_stream_lossy_het s4": (4, 24, 1, 129, 0, 169088, 51, 0),
+    "yee_stream_lossy_het s2": (2, 32, 1, 52, 0, 151680, 33, 0),
+    "yee_stream_lossy_het_shard s8": (8, 24, 0, 65, 0, 30848, 6, 0),
+    "yee_stream_lossy_het_shard s4": (4, 24, 1, 33, 0, 169088, 51, 0),
+    "yee_stream_lossy_het_shard s2": (2, 32, 1, 13, 0, 151680, 33, 0),
+    "yee_stream_lossy_het_sar s8": (8, 24, 0, 129, 0, 39936, 6, 0),
+    "yee_stream_lossy_het_sar s4": (4, 24, 1, 86, 0, 208896, 61, 0),
+    "yee_stream_lossy_het_sar s2": (2, 32, 1, 52, 0, 188416, 39, 0),
+    "yee_stream_lossy_het_sar_shard s8": (8, 24, 0, 65, 0, 39936, 6, 0),
+    "yee_stream_lossy_het_sar_shard s4": (4, 24, 1, 65, 0, 208896, 61, 0),
+    "yee_stream_lossy_het_sar_shard s2": (2, 32, 1, 65, 0, 188416, 39, 0),
+    "yee_stream_ade s2": (2, 24, 1, 257, 0, 178304, 54, 0),
+    "yee_stream_ade_sar s2": (2, 16, 1, 257, 0, 149504, 66, 0),
+    "yee_stream_dft s4": (4, 24, 0, 86, 0, 39936, 6, 2),
+    "yee_stream_dft_means s4": (4, 24, 0, 86, 4, 39936, 6, 0),
+    "yee_stream_dft_shard s4": (4, 24, 0, 65, 0, 39936, 6, 2),
+    "yee_stream_dft_shard s2": (2, 24, 0, 22, 0, 39936, 6, 5),
+    "yee_stream_dft_means_shard s4": (4, 24, 0, 65, 4, 39936, 6, 0),
+    "yee_stream_dft_means_shard s2": (2, 24, 0, 22, 2, 39936, 6, 0),
+    "yee_stream_lossy_dft s2": (2, 24, 1, 43, 0, 95232, 24, 3),
+    "yee_stream_lossy_dft_means s2": (2, 24, 1, 43, 2, 95232, 24, 0),
+    "yee_stream_lossy_dft_shard s2": (2, 24, 1, 22, 0, 95232, 24, 3),
+    "yee_stream_lossy_dft_means_shard s2": (2, 24, 1, 22, 2, 95232, 24, 0),
+    "yee_stream_lossy_sar_dft s2": (2, 24, 1, 43, 0, 113664, 30, 3),
+    "yee_stream_lossy_sar_dft_means s2": (2, 24, 1, 43, 2, 113664, 30, 0),
+    "yee_stream_lossy_sar_dft_shard s2": (2, 24, 1, 22, 0, 113664, 30, 3),
+    "yee_stream_lossy_sar_dft_means_shard s2": (2, 24, 1, 22, 2, 113664, 30, 0),
+    "yee_stream_lossy_het_dft s2": (2, 24, 1, 43, 0, 122880, 33, 2),
+    "yee_stream_lossy_het_dft_means s2": (2, 24, 1, 43, 2, 122880, 33, 0),
+    "yee_stream_lossy_het_dft_shard s2": (2, 24, 1, 22, 0, 122880, 33, 2),
+    "yee_stream_lossy_het_dft_means_shard s2": (2, 24, 1, 22, 2, 122880, 33, 0),
+    "yee_stream_lossy_het_sar_dft s2": (2, 24, 1, 43, 0, 141312, 39, 2),
+    "yee_stream_lossy_het_sar_dft_means s2": (2, 24, 1, 43, 2, 141312, 39, 0),
+    "yee_stream_lossy_het_sar_dft_shard s2": (2, 24, 1, 22, 0, 141312, 39, 2),
+    "yee_stream_lossy_het_sar_dft_means_shard s2": (2, 24, 1, 22, 2, 141312, 39, 0),
+    "yee_stream_ade_dft s2": (2, 16, 1, 257, 0, 124928, 54, 4),
+    "yee_stream_ade_dft_means s2": (2, 16, 1, 257, 2, 124928, 54, 0),
+    "yee_stream_ade_sar_dft s2": (2, 16, 1, 257, 0, 149504, 66, 3),
+    "yee_stream_ade_sar_dft_means s2": (2, 16, 1, 257, 2, 149504, 66, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_plans_keep_their_shapes_at_256(dtype):
+    p = _cube(256, dtype)
+    one, many = DftConfig((2.45e10,)), DftConfig(tuple(2.40e10 + 1e8 * k for k in range(16)))
+
+    def row(plan):
+        return (plan.s, plan.bj, int(plan.cr), plan.tk, plan.fold, plan.smem_bytes, plan.ring_words, plan.dft_max_nf)
+
+    picked, built = {}, {}
+    for lossy, het, sar, pml, ade, dft in stream_plan.VARIANTS:
+        for cfg in (one, many) if dft else (None,):
+            name = stream_plan.variant_name(lossy, het, sar, pml, ade, dft, cfg is many)
+            plan = stream_plan.pick_plan(p, lossy=lossy, het=het, sar=sar, pml=PMLConfig(cells=10) if pml else None,
+                                         ade=ade, dft=cfg)
+            if pml:
+                picked[name + stream.INTERIOR] = row(plan.core)
+                continue
+            picked[name] = row(plan)
+            if not ade and cfg is not many:
+                picked[name + "_shard"] = row(stream_plan.plan_for(p, plan.s, lossy, het, sar, dft=cfg,
+                                                                   window=(65, 257, 257)))
+        if pml:
+            continue
+        for window in (None,) if ade else (None, (65, 257, 257)):
+            for means in (False, True) if dft else (False,):
+                for s in stream_plan._block_j(lossy or het or sar, False, ade, sar, dft, window is not None):
+                    plan = stream_plan.plan_for(p, s, lossy, het, sar, ade=ade, dft=one if dft else None,
+                                                window=window, fold=s if means else 0)
+                    name = stream_plan.variant_name(lossy, het, sar, False, ade, dft, means)
+                    built[f"{name}{'_shard' if window else ''} s{s}"] = row(plan)
+    assert picked == _PICKED_256
+    assert built == _BUILT_256
+
+
+def test_staged_launch_counter(tiny_params, monkeypatch):
+    """``stream.staged_launches`` starts at 0 and counts the bfloat16
+    ring_kernel launches alone: plain-version calls leave it, an fp32 launch
+    and a CPML sweep's shell do not count, the CPML interior does, and
+    ``reset_launches`` clears it (the library and the device stubbed)."""
+    stream.reset_launches()
+    assert stream.staged_launches == 0
+    p = convert.params_from(tiny_params)
+    for dt in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dt)
+        st = tstate.zeros(pd, "cpu", tstate.field_dtype(pd))
+        stream.sweep(pd, st, tstate.zeros(pd, "cpu", st.ex.dtype), tstate.update_coefs(pd), stream_plan.plan_for(pd, 2))
+    assert stream.staged_launches == 0 and stream.launches["yee_stream"] == 0
+
+    calls = []
+    lib = types.SimpleNamespace(yee_stream_sweep=lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(stream, "_on_cpu", lambda *a: False)
+    monkeypatch.setattr(stream, "_lib", lambda: lib)
+    monkeypatch.setattr(stream.build, "launch_stream", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    want = 0
+    for dt in ("float32", "bfloat16"):
+        pd = dataclasses.replace(p, dtype=dt)
+        st = tstate.zeros(pd, "cpu", tstate.field_dtype(pd))
+        out = tstate.zeros(pd, "cpu", st.ex.dtype)
+        coefs = tstate.update_coefs(pd)
+        stream.sweep(pd, st, out, coefs, stream_plan.plan_for(pd, 2))
+        cfg = PMLConfig(cells=2)
+        plan = stream_plan.plan_for(pd, 2, pml=cfg)
+        cp = make_cpml(pd, cfg, coefs, "cpu")
+        psi = PsiState(**{n: torch.zeros(sh, dtype=st.ex.dtype) for n, sh in psi_shapes(pd, cfg).items()})
+        psi_out = PsiState(**{n: torch.zeros_like(t) for n, t in zip(PsiState.names(), psi.tensors())})
+        stream.sweep(pd, st, out, coefs, plan, cpml=cp, psi=psi, psi_out=psi_out)
+        assert plan.core is not None and plan.pml_blocks
+        want += 2 if dt == "bfloat16" else 0  # the whole grid's sweep, the CPML interior
+        assert stream.staged_launches == want, dt
+    assert len(calls) == 6  # per dtype: the sweep, the CPML interior and shell
+    assert stream.launches["yee_stream_pml"] == 2
+    stream.reset_launches()
+    assert stream.staged_launches == 0
